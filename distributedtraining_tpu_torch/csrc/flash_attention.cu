@@ -1,0 +1,1141 @@
+// Causal flash attention with packed-sequence segment ids for Hopper
+// (sm_90a): a forward kernel and the backward pair (dk/dv, dq), behind a
+// plain C interface that distributedtraining_tpu_torch/ops/flash_attention.py
+// loads with ctypes.
+//
+// Replaces the Pallas TPU library kernels that the JAX package's
+// ops/flash_attention.py:flash_attention calls
+// (jax/experimental/pallas/ops/tpu/flash_attention.py):
+//   dt_flash_fwd      <- _flash_attention_impl (:589, pallas_call :758)
+//   dt_flash_bwd_dkv  <- _flash_attention_bwd_dkv (:941, pallas_call :1121)
+//   dt_flash_bwd_dq   <- _flash_attention_bwd_dq (:1287, pallas_call :1456)
+//
+// What they compute, per batch row b and head h, with s = q_i . k_j / sqrt(D)
+// and visible(i, j) = j <= i and seg[b, i] == seg[b, j] (no segment test when
+// seg is null):
+//   forward:  o_i = sum_j P_ij v_j,  P_ij = exp(s_ij - lse_i) on visible
+//             pairs and exactly 0 elsewhere, lse_i = m_i + log l_i (running
+//             max m_i and normaliser l_i of an f32 online softmax).
+//   dk/dv:    dv_j = sum_i P_ij do_i,  dk_j = sum_i dS_ij q_i / sqrt(D)
+//   dq:       dq_i = sum_j dS_ij k_j / sqrt(D)
+//   with dS_ij = P_ij (do_i . v_j - di_i), di_i = o_i . do_i (computed by
+//   the caller with one PyTorch op, as the library computes it in XLA).
+// Every accumulator is f32; outputs are rounded once, to the input dtype
+// (lse is f32). Each output element is written by exactly one thread, so
+// the results are deterministic: no atomics.
+//
+// Bound. At the GPT-2-124M training shape (B 8, T 1024, H 12, D 64, bf16)
+// one layer's forward is two T x T x D products over the causal half,
+// 2 * 2 * T^2 / 2 * D * B * H = 12.9 GFLOP, and moves q, k, v and o once,
+// 4 * 12.6 MB: about 13 us of tensor-core work at 989 TFLOP/s against 15 us
+// of bytes at 3.35 TB/s, so bytes bound it. The backward does five such
+// products (s again, dP, dV, dQ, dK): 32 GFLOP, about 33 us, above its
+// ~88 MB of bytes (26 us), so operations bound it. (H100 SXM data sheet.)
+// With packed documents only the same-document pairs need work (12.7% of
+// the causal pairs in a batch of the synthetic corpus), and bytes bound
+// all three kernels at 15-23 us.
+//
+// Two routes, one per dtype, sharing the tiling, the masks, the tile
+// skipping and the launch:
+//  - bf16, the training path: the tensor cores, through mma.sync m16n8k16
+//    (bf16 in, f32 accumulation). A block of 4 warps owns a 64-row tile,
+//    16 rows a warp; tiles of q, k, v and do sit in shared memory as bf16,
+//    rows padded by 8 elements so that the fragment loads hit 32 banks.
+//    Scores stay in the accumulator registers: the online softmax reduces a
+//    row over the 4 lanes that hold it, and P (dS in the backward) is
+//    rounded to bf16 and re-packed in registers as the A operand of the
+//    next product, which is where the library rounds them too
+//    (p.astype(v.dtype), ds.astype(k.dtype) before its MXU products).
+//  - f32: the CUDA cores, f32 FMA (no TF32), so the route agrees with the
+//    plain version to summation order. A 64 x 64 tile of scores is shared
+//    by 256 threads in a 16 x 16 grid; each thread owns 4 rows x 4 columns,
+//    strided by 16, so a row's 16 owners are one half-warp. Tiles are
+//    staged as f32 with one float of padding per row (stride D + 1).
+// The kernels:
+//  - forward: one block per (query tile, b * h), heaviest tiles first; it
+//    walks the key tiles up to the diagonal, keeps (m, l, acc) in registers.
+//  - dk/dv: one block per (key tile, b * h); it walks the query tiles from
+//    the diagonal down, recomputes P^T and dS^T for the tile, and
+//    accumulates dV and dK in registers.
+//  - dq: one block per (query tile, b * h); it walks the key tiles up to
+//    the diagonal, recomputes dS, accumulates dQ.
+// Packing: a tile pair none of whose segment ids can match (the key
+// tile's ids all fall outside the query tile's id range, or the reverse)
+// is skipped whole, after one __syncthreads_or over the tile's ids. With
+// documents of ~110 tokens in 1024-token rows most causal tiles are of
+// other documents, so the work follows the visible pairs, not T^2 / 2.
+// Inside a tile every pair is still masked one by one: a tile may be
+// partly visible.
+// q, k, v and do are read through their (batch, token, head) element
+// strides, so the views of the fused [B, T, 3E] projection (token stride
+// 3E) are read in place, without a copy; the head dim must be contiguous,
+// and in bf16 every row must start 16-byte aligned (strides multiples of 8
+// elements), as the fused projection's views do.
+// Outputs are contiguous [B, T, H, D]; lse and di are contiguous [B, H, T].
+// Rows and keys at or past T (the ragged last tile) are loaded as 0,
+// masked, and never stored.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTile = 64;                  // query and key rows per tile
+constexpr int kSide = 16;                  // f32: 16 x 16 threads per tile
+constexpr int kThreads = kSide * kSide;
+constexpr int kPer = kTile / kSide;        // rows (and columns) a thread owns
+constexpr int kLdP = kTile + 1;            // padded row of a score tile
+constexpr int kWarps = kTile / 16;         // bf16: a warp per 16 rows
+constexpr int kMmaThreads = 32 * kWarps;
+constexpr int kPad = 8;                    // bf16 tile row padding
+constexpr unsigned kFull = 0xffffffffu;
+
+// reductions over the 16 lanes (one half-warp) that own one row (f32)
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = kSide / 2; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = kSide / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// reductions over the 4 lanes (one quad) that hold one row of an mma
+// accumulator (bf16)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+struct Strides {
+  long long b, t, h;  // element strides of a [B, T, H, D] view
+};
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* seg;     // [B, T] or null
+  const void* dout;   // backward: do
+  const float* lse;   // backward: [B, H, T]
+  const float* di;    // backward: [B, H, T]
+  void* o;            // forward: [B, T, H, D]
+  float* lse_out;     // forward: [B, H, T]
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, T, H;
+  Strides sq, sk, sv, sdo;
+  float scale;
+};
+
+// segment ids of rows [row0, row0 + kTile) into dst (0 past T, and 0
+// everywhere without packing); returns whether this thread's row is real
+// and its id lies in [lo, hi]
+__device__ __forceinline__ bool load_seg(int* dst, const Params& p, int b,
+                                         int row0, int lo = 0, int hi = 0) {
+  bool in = false;
+  if (threadIdx.x < kTile) {
+    const int t = row0 + threadIdx.x;
+    const int id = (p.seg != nullptr && t < p.T)
+                       ? p.seg[(long long)b * p.T + t] : 0;
+    dst[threadIdx.x] = id;
+    in = t < p.T && id >= lo && id <= hi;
+  }
+  return in;
+}
+
+// smallest and largest segment id among the real rows of a tile whose ids
+// sit in shared memory (every thread computes it; call after a barrier)
+__device__ __forceinline__ int2 seg_range(const int* ids, int row0, int T) {
+  int lo = ids[0], hi = ids[0];
+  const int n = min(kTile, T - row0);
+  for (int i = 1; i < n; ++i) {
+    lo = min(lo, ids[i]);
+    hi = max(hi, ids[i]);
+  }
+  return make_int2(lo, hi);
+}
+
+// per-row f32 values [B, H, T] of rows [row0, row0 + kTile); 0 past T
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          const Params& p, int b, int h,
+                                          int row0) {
+  if (threadIdx.x < kTile) {
+    const int t = row0 + threadIdx.x;
+    dst[threadIdx.x] =
+        t < p.T ? src[((long long)b * p.H + h) * p.T + t] : 0.f;
+  }
+}
+
+__device__ __forceinline__ long long out_index(const Params& p, int b,
+                                               int t, int h, int D) {
+  return (((long long)b * p.T + t) * p.H + h) * D;
+}
+
+// ===========================================================================
+// f32 route: CUDA-core FMA
+// ===========================================================================
+
+// rows [row0, row0 + kTile) of one (b, h) slice into dst[kTile][D + 1];
+// rows at or past T read as 0
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const void* src,
+                                          const Strides s, int b, int h,
+                                          int row0, int n_rows) {
+  const float* base = static_cast<const float*>(src) + b * s.b + h * s.h;
+  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+    const int r = e / D, d = e % D;
+    const int t = row0 + r;
+    dst[r * (D + 1) + d] = t < n_rows ? base[(long long)t * s.t + d] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
+  constexpr int LD = D + 1;
+  constexpr int DC = D / kSide;  // output columns a thread owns
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + kTile * LD;
+  float* sV = sK + kTile * LD;
+  float* sP = sV + kTile * LD;  // [kTile][kLdP]
+  int* sSegQ = reinterpret_cast<int*>(sP + kTile * kLdP);
+  int* sSegK = sSegQ + kTile;
+
+  const int n_tiles = (p.T + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;  // longest walks start first
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int rg = threadIdx.x / kSide, cg = threadIdx.x % kSide;
+  const int q0 = qt * kTile;
+
+  load_tile<D>(sQ, p.q, p.sq, b, h, q0, p.T);
+  load_seg(sSegQ, p, b, q0);
+  __syncthreads();
+  const int2 q_ids = seg_range(sSegQ, q0, p.T);
+
+  float m[kPer], l[kPer], acc[kPer][DC];
+#pragma unroll
+  for (int a = 0; a < kPer; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
+  }
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's sK / sV / sP reads are done
+    // a key tile none of whose ids lies in the query tile's id range
+    // holds no visible pair (another document): skip it whole
+    if (!__syncthreads_or(load_seg(sSegK, p, b, k0, q_ids.x, q_ids.y)))
+      continue;
+    load_tile<D>(sK, p.k, p.sk, b, h, k0, p.T);
+    load_tile<D>(sV, p.v, p.sv, b, h, k0, p.T);
+    __syncthreads();
+
+    float s[kPer][kPer];
+#pragma unroll
+    for (int a = 0; a < kPer; ++a)
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) s[a][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[kPer], kv[kPer];
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) qv[a] = sQ[(rg + kSide * a) * LD + d];
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) kv[c] = sK[(cg + kSide * c) * LD + d];
+#pragma unroll
+      for (int a = 0; a < kPer; ++a)
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) s[a][c] = fmaf(qv[a], kv[c], s[a][c]);
+    }
+
+#pragma unroll
+    for (int a = 0; a < kPer; ++a) {
+      const int ri = rg + kSide * a;
+      const int qi = q0 + ri;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        const int cj = cg + kSide * c;
+        const int kj = k0 + cj;
+        const bool ok = kj <= qi && kj < p.T &&
+                        (p.seg == nullptr || sSegQ[ri] == sSegK[cj]);
+        s[a][c] = ok ? s[a][c] * p.scale : -INFINITY;
+        mx = fmaxf(mx, s[a][c]);
+      }
+      const float m_new = fmaxf(m[a], row_max(mx));
+      // a row that has seen no visible key yet keeps m = -inf: exponents
+      // are then taken against 0 so that no inf - inf appears
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[a] - m_use);
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        const float pv = expf(s[a][c] - m_use);  // exp(-inf) = 0 if masked
+        sP[ri * kLdP + cg + kSide * c] = pv;
+        rs += pv;
+      }
+      l[a] = l[a] * alpha + row_sum(rs);
+      m[a] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float vv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = sV[kk * LD + cg + kSide * c];
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) {
+        const float pv = sP[(rg + kSide * a) * kLdP + kk];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(pv, vv[c], acc[a][c]);
+      }
+    }
+  }
+
+  float* o = static_cast<float*>(p.o);
+#pragma unroll
+  for (int a = 0; a < kPer; ++a) {
+    const int qi = q0 + rg + kSide * a;
+    if (qi >= p.T) continue;
+    const float inv = l[a] > 0.f ? 1.f / l[a] : 0.f;
+    float* dst = o + out_index(p, b, qi, h, D);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dst[cg + kSide * c] = acc[a][c] * inv;
+    if (cg == 0)
+      p.lse_out[((long long)b * p.H + h) * p.T + qi] =
+          l[a] > 0.f ? m[a] + logf(l[a]) : -INFINITY;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const Params p) {
+  constexpr int LD = D + 1;
+  constexpr int DC = D / kSide;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + kTile * LD;
+  float* sQ = sV + kTile * LD;
+  float* sDo = sQ + kTile * LD;
+  float* sPt = sDo + kTile * LD;   // P^T  [key][query]
+  float* sDst = sPt + kTile * kLdP;  // dS^T [key][query]
+  float* sLse = sDst + kTile * kLdP;
+  float* sDi = sLse + kTile;
+  int* sSegQ = reinterpret_cast<int*>(sDi + kTile);
+  int* sSegK = sSegQ + kTile;
+
+  const int n_tiles = (p.T + kTile - 1) / kTile;
+  const int kt = blockIdx.y;  // key tile 0 walks every query tile: first
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int rg = threadIdx.x / kSide, cg = threadIdx.x % kSide;
+  const int k0 = kt * kTile;
+
+  load_tile<D>(sK, p.k, p.sk, b, h, k0, p.T);
+  load_tile<D>(sV, p.v, p.sv, b, h, k0, p.T);
+  load_seg(sSegK, p, b, k0);
+  __syncthreads();
+  const int2 k_ids = seg_range(sSegK, k0, p.T);
+
+  float dk[kPer][DC], dv[kPer][DC];
+#pragma unroll
+  for (int a = 0; a < kPer; ++a)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk[a][c] = dv[a][c] = 0.f;
+
+  for (int qt = kt; qt < n_tiles; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();
+    // a query tile of other documents only: nothing to add
+    if (!__syncthreads_or(load_seg(sSegQ, p, b, q0, k_ids.x, k_ids.y)))
+      continue;
+    load_tile<D>(sQ, p.q, p.sq, b, h, q0, p.T);
+    load_tile<D>(sDo, p.dout, p.sdo, b, h, q0, p.T);
+    load_rows(sLse, p.lse, p, b, h, q0);
+    load_rows(sDi, p.di, p, b, h, q0);
+    __syncthreads();
+
+    // this thread's keys rg + 16a against queries cg + 16c
+    float s[kPer][kPer], dp[kPer][kPer];
+#pragma unroll
+    for (int a = 0; a < kPer; ++a)
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float kv[kPer], vv[kPer], qv[kPer], dov[kPer];
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) {
+        kv[a] = sK[(rg + kSide * a) * LD + d];
+        vv[a] = sV[(rg + kSide * a) * LD + d];
+      }
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        qv[c] = sQ[(cg + kSide * c) * LD + d];
+        dov[c] = sDo[(cg + kSide * c) * LD + d];
+      }
+#pragma unroll
+      for (int a = 0; a < kPer; ++a)
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) {
+          s[a][c] = fmaf(kv[a], qv[c], s[a][c]);
+          dp[a][c] = fmaf(vv[a], dov[c], dp[a][c]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < kPer; ++a) {
+      const int rj = rg + kSide * a;
+      const int kj = k0 + rj;
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        const int ci = cg + kSide * c;
+        const int qi = q0 + ci;
+        // masked pairs are exactly 0 in P and dS: a key tile wholly
+        // visible by causality can still be cut by segments
+        const bool ok = qi < p.T && kj <= qi &&
+                        (p.seg == nullptr || sSegQ[ci] == sSegK[rj]);
+        const float pv = ok ? expf(s[a][c] * p.scale - sLse[ci]) : 0.f;
+        sPt[rj * kLdP + ci] = pv;
+        sDst[rj * kLdP + ci] = pv * (dp[a][c] - sDi[ci]);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q over this query tile
+#pragma unroll 4
+    for (int ii = 0; ii < kTile; ++ii) {
+      float dov[DC], qv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        dov[c] = sDo[ii * LD + cg + kSide * c];
+        qv[c] = sQ[ii * LD + cg + kSide * c];
+      }
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) {
+        const float pt = sPt[(rg + kSide * a) * kLdP + ii];
+        const float dst = sDst[(rg + kSide * a) * kLdP + ii];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          dv[a][c] = fmaf(pt, dov[c], dv[a][c]);
+          dk[a][c] = fmaf(dst, qv[c], dk[a][c]);
+        }
+      }
+    }
+  }
+
+  float* dk_out = static_cast<float*>(p.dk);
+  float* dv_out = static_cast<float*>(p.dv);
+#pragma unroll
+  for (int a = 0; a < kPer; ++a) {
+    const int kj = k0 + rg + kSide * a;
+    if (kj >= p.T) continue;
+    const long long base = out_index(p, b, kj, h, D);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dk_out[base + cg + kSide * c] = dk[a][c] * p.scale;
+      dv_out[base + cg + kSide * c] = dv[a][c];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const Params p) {
+  constexpr int LD = D + 1;
+  constexpr int DC = D / kSide;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sDo = sQ + kTile * LD;
+  float* sK = sDo + kTile * LD;
+  float* sV = sK + kTile * LD;
+  float* sDs = sV + kTile * LD;  // dS [query][key]
+  float* sLse = sDs + kTile * kLdP;
+  float* sDi = sLse + kTile;
+  int* sSegQ = reinterpret_cast<int*>(sDi + kTile);
+  int* sSegK = sSegQ + kTile;
+
+  const int n_tiles = (p.T + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;  // longest walks start first
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int rg = threadIdx.x / kSide, cg = threadIdx.x % kSide;
+  const int q0 = qt * kTile;
+
+  load_tile<D>(sQ, p.q, p.sq, b, h, q0, p.T);
+  load_tile<D>(sDo, p.dout, p.sdo, b, h, q0, p.T);
+  load_rows(sLse, p.lse, p, b, h, q0);
+  load_rows(sDi, p.di, p, b, h, q0);
+  load_seg(sSegQ, p, b, q0);
+  __syncthreads();
+  const int2 q_ids = seg_range(sSegQ, q0, p.T);
+
+  float dq[kPer][DC];
+#pragma unroll
+  for (int a = 0; a < kPer; ++a)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dq[a][c] = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    if (!__syncthreads_or(load_seg(sSegK, p, b, k0, q_ids.x, q_ids.y)))
+      continue;
+    load_tile<D>(sK, p.k, p.sk, b, h, k0, p.T);
+    load_tile<D>(sV, p.v, p.sv, b, h, k0, p.T);
+    __syncthreads();
+
+    // this thread's queries rg + 16a against keys cg + 16c
+    float s[kPer][kPer], dp[kPer][kPer];
+#pragma unroll
+    for (int a = 0; a < kPer; ++a)
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[kPer], dov[kPer], kv[kPer], vv[kPer];
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) {
+        qv[a] = sQ[(rg + kSide * a) * LD + d];
+        dov[a] = sDo[(rg + kSide * a) * LD + d];
+      }
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        kv[c] = sK[(cg + kSide * c) * LD + d];
+        vv[c] = sV[(cg + kSide * c) * LD + d];
+      }
+#pragma unroll
+      for (int a = 0; a < kPer; ++a)
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) {
+          s[a][c] = fmaf(qv[a], kv[c], s[a][c]);
+          dp[a][c] = fmaf(dov[a], vv[c], dp[a][c]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < kPer; ++a) {
+      const int ri = rg + kSide * a;
+      const int qi = q0 + ri;
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) {
+        const int cj = cg + kSide * c;
+        const int kj = k0 + cj;
+        const bool ok = qi < p.T && kj <= qi &&
+                        (p.seg == nullptr || sSegQ[ri] == sSegK[cj]);
+        const float pv = ok ? expf(s[a][c] * p.scale - sLse[ri]) : 0.f;
+        sDs[ri * kLdP + cj] = pv * (dp[a][c] - sDi[ri]);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K over this key tile
+#pragma unroll 4
+    for (int jj = 0; jj < kTile; ++jj) {
+      float kv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) kv[c] = sK[jj * LD + cg + kSide * c];
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) {
+        const float ds = sDs[(rg + kSide * a) * kLdP + jj];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) dq[a][c] = fmaf(ds, kv[c], dq[a][c]);
+      }
+    }
+  }
+
+  float* dq_out = static_cast<float*>(p.dq);
+#pragma unroll
+  for (int a = 0; a < kPer; ++a) {
+    const int qi = q0 + rg + kSide * a;
+    if (qi >= p.T) continue;
+    const long long base = out_index(p, b, qi, h, D);
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      dq_out[base + cg + kSide * c] = dq[a][c] * p.scale;
+  }
+}
+
+// ===========================================================================
+// bf16 route: tensor cores, mma.sync m16n8k16
+// ===========================================================================
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), lane = 4 g + t:
+//   A 16 x 16, row-major: reg 0 (row g, cols 2t, 2t+1), reg 1 (row g+8),
+//     reg 2 (row g, cols 2t+8, 2t+9), reg 3 (row g+8, cols 2t+8, 2t+9);
+//   B 16 x 8: reg 0 (rows 2t, 2t+1 of column g), reg 1 (rows 2t+8, 2t+9);
+//   C 16 x 8, f32: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
+// Two accumulator tiles side by side (16 x 16) thus hold exactly the
+// elements of one A fragment: P and dS go from one product to the next
+// without leaving the registers.
+
+// c += a b, bf16 in, f32 accumulation
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the A fragment of accumulator tiles c0 (columns 0-7) and c1 (8-15),
+// rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
+                                         const float c1[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// A fragment: rows r0 + [0, 16), columns c0 + [0, 16) of a row-major tile
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int r0,
+                                       int c0, int g, int t) {
+  const bf16* p = s + (r0 + g) * LD + c0 + 2 * t;
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+}
+
+// B fragment of X^T for a row-major tile X: B[k][n] = X[n0 + n][k0 + k]
+template <int LD>
+__device__ __forceinline__ void frag_bt(uint32_t b[2], const bf16* s, int n0,
+                                        int k0, int g, int t) {
+  const bf16* p = s + (n0 + g) * LD + k0 + 2 * t;
+  b[0] = *reinterpret_cast<const uint32_t*>(p);
+  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+// B fragment of a row-major tile X itself: B[k][n] = X[k0 + k][n0 + n]
+template <int LD>
+__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* s, int k0,
+                                       int n0, int g, int t) {
+  const unsigned short* p =
+      reinterpret_cast<const unsigned short*>(s) + (k0 + 2 * t) * LD + n0 + g;
+  b[0] = p[0] | (uint32_t(p[LD]) << 16);
+  b[1] = p[8 * LD] | (uint32_t(p[9 * LD]) << 16);
+}
+
+// rows [row0, row0 + kTile) of one (b, h) slice into dst[kTile][D + kPad]
+// as bf16, 16 bytes a load (the wrapper admits only views whose rows start
+// 16-byte aligned); rows at or past T read as 0
+template <int D>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const void* src,
+                                               const Strides s, int b, int h,
+                                               int row0, int n_rows) {
+  constexpr int LD = D + kPad;
+  constexpr int kChunks = D / 8;
+  const bf16* base = static_cast<const bf16*>(src) + b * s.b + h * s.h;
+  for (int e = threadIdx.x; e < kTile * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const int t = row0 + r;
+    const uint4 val =
+        t < n_rows
+            ? *reinterpret_cast<const uint4*>(base + (long long)t * s.t + c)
+            : make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const Params p) {
+  constexpr int LD = D + kPad;
+  constexpr int NK = kTile / 8;  // accumulator tiles across a key tile
+  constexpr int ND = D / 8;      // accumulator tiles across the head dim
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sK = sQ + kTile * LD;
+  bf16* sV = sK + kTile * LD;
+  int* sSegQ = reinterpret_cast<int*>(sV + kTile * LD);
+  int* sSegK = sSegQ + kTile;
+
+  const int n_tiles = (p.T + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;  // longest walks start first
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = threadIdx.x / 32 * 16;     // this warp's rows of the tile
+  const int q0 = qt * kTile;
+
+  load_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
+  load_seg(sSegQ, p, b, q0);
+  __syncthreads();
+  const int2 q_ids = seg_range(sSegQ, q0, p.T);
+
+  // rows r0 + g (index 0) and r0 + g + 8 (index 1) of the tile
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's sK / sV reads are done
+    if (!__syncthreads_or(load_seg(sSegK, p, b, k0, q_ids.x, q_ids.y)))
+      continue;
+    load_tile_bf16<D>(sK, p.k, p.sk, b, h, k0, p.T);
+    load_tile_bf16<D>(sV, p.v, p.sv, b, h, k0, p.T);
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D; kd += 16) {
+      uint32_t a[4];
+      frag_a<LD>(a, sQ, r0, kd, g, t);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        uint32_t bb[2];
+        frag_bt<LD>(bb, sK, n * 8, kd, g, t);
+        mma16816(s[n], a, bb);
+      }
+    }
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + g + 8 * (i / 2);
+        const int col = n * 8 + 2 * t + i % 2;
+        const int kj = k0 + col;
+        const bool ok = kj <= q0 + row && kj < p.T &&
+                        (p.seg == nullptr || sSegQ[row] == sSegK[col]);
+        s[n][i] = ok ? s[n][i] * p.scale : -INFINITY;
+        mx[i / 2] = fmaxf(mx[i / 2], s[n][i]);
+      }
+    float m_use[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      // a row that has seen no visible key yet keeps m = -inf: exponents
+      // are then taken against 0 so that no inf - inf appears
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = expf(m[r] - m_use[r]);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = expf(s[n][i] - m_use[i / 2]);  // exp(-inf) = 0 if masked
+        rs[i / 2] += s[n][i];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i / 2];
+
+    // acc += P V, P in bf16 straight from the score registers
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bb[2];
+        frag_b<LD>(bb, sV, kk * 16, n * 8, g, t);
+        mma16816(acc[n], a, bb);
+      }
+    }
+  }
+
+  bf16* o = static_cast<bf16*>(p.o);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + g + 8 * r;
+    if (qi >= p.T) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    bf16* dst = o + out_index(p, b, qi, h, D) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (t == 0)
+      p.lse_out[((long long)b * p.H + h) * p.T + qi] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_mma_kernel(const Params p) {
+  constexpr int LD = D + kPad;
+  constexpr int NQ = kTile / 8;  // accumulator tiles across a query tile
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sV = sK + kTile * LD;
+  bf16* sQ = sV + kTile * LD;
+  bf16* sDo = sQ + kTile * LD;
+  float* sLse = reinterpret_cast<float*>(sDo + kTile * LD);
+  float* sDi = sLse + kTile;
+  int* sSegQ = reinterpret_cast<int*>(sDi + kTile);
+  int* sSegK = sSegQ + kTile;
+
+  const int n_tiles = (p.T + kTile - 1) / kTile;
+  const int kt = blockIdx.y;  // key tile 0 walks every query tile: first
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = threadIdx.x / 32 * 16;     // this warp's keys of the tile
+  const int k0 = kt * kTile;
+
+  load_tile_bf16<D>(sK, p.k, p.sk, b, h, k0, p.T);
+  load_tile_bf16<D>(sV, p.v, p.sv, b, h, k0, p.T);
+  load_seg(sSegK, p, b, k0);
+  __syncthreads();
+  const int2 k_ids = seg_range(sSegK, k0, p.T);
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  for (int qt = kt; qt < n_tiles; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();
+    // a query tile of other documents only: nothing to add
+    if (!__syncthreads_or(load_seg(sSegQ, p, b, q0, k_ids.x, k_ids.y)))
+      continue;
+    load_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
+    load_tile_bf16<D>(sDo, p.dout, p.sdo, b, h, q0, p.T);
+    load_rows(sLse, p.lse, p, b, h, q0);
+    load_rows(sDi, p.di, p, b, h, q0);
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D; kd += 16) {
+      uint32_t ak[4], av[4];
+      frag_a<LD>(ak, sK, r0, kd, g, t);
+      frag_a<LD>(av, sV, r0, kd, g, t);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        uint32_t bq[2], bdo[2];
+        frag_bt<LD>(bq, sQ, n * 8, kd, g, t);
+        frag_bt<LD>(bdo, sDo, n * 8, kd, g, t);
+        mma16816(st[n], ak, bq);
+        mma16816(dpt[n], av, bdo);
+      }
+    }
+    // P^T into st, dS^T into dpt; masked pairs are exactly 0 in both: a
+    // key tile wholly visible by causality can still be cut by segments
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = r0 + g + 8 * (i / 2);
+        const int col = n * 8 + 2 * t + i % 2;
+        const int qi = q0 + col;
+        const bool ok = qi < p.T && k0 + key <= qi &&
+                        (p.seg == nullptr || sSegQ[col] == sSegK[key]);
+        const float pv = ok ? expf(st[n][i] * p.scale - sLse[col]) : 0.f;
+        st[n][i] = pv;
+        dpt[n][i] = pv * (dpt[n][i] - sDi[col]);
+      }
+
+    // dV += P^T dO, dK += dS^T Q over this query tile
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t ap[4], ads[4];
+      acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
+      acc_to_a(ads, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bdo[2], bq[2];
+        frag_b<LD>(bdo, sDo, kk * 16, n * 8, g, t);
+        frag_b<LD>(bq, sQ, kk * 16, n * 8, g, t);
+        mma16816(dv[n], ap, bdo);
+        mma16816(dk[n], ads, bq);
+      }
+    }
+  }
+
+  bf16* dk_out = static_cast<bf16*>(p.dk);
+  bf16* dv_out = static_cast<bf16*>(p.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + r0 + g + 8 * r;
+    if (kj >= p.T) continue;
+    const long long base = out_index(p, b, kj, h, D) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + base + n * 8) =
+          __floats2bfloat162_rn(dk[n][2 * r] * p.scale,
+                                dk[n][2 * r + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + base + n * 8) =
+          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dq_mma_kernel(const Params p) {
+  constexpr int LD = D + kPad;
+  constexpr int NK = kTile / 8;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sDo = sQ + kTile * LD;
+  bf16* sK = sDo + kTile * LD;
+  bf16* sV = sK + kTile * LD;
+  float* sLse = reinterpret_cast<float*>(sV + kTile * LD);
+  float* sDi = sLse + kTile;
+  int* sSegQ = reinterpret_cast<int*>(sDi + kTile);
+  int* sSegK = sSegQ + kTile;
+
+  const int n_tiles = (p.T + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;  // longest walks start first
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = threadIdx.x / 32 * 16;     // this warp's rows of the tile
+  const int q0 = qt * kTile;
+
+  load_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
+  load_tile_bf16<D>(sDo, p.dout, p.sdo, b, h, q0, p.T);
+  load_rows(sLse, p.lse, p, b, h, q0);
+  load_rows(sDi, p.di, p, b, h, q0);
+  load_seg(sSegQ, p, b, q0);
+  __syncthreads();
+  const int2 q_ids = seg_range(sSegQ, q0, p.T);
+
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    if (!__syncthreads_or(load_seg(sSegK, p, b, k0, q_ids.x, q_ids.y)))
+      continue;
+    load_tile_bf16<D>(sK, p.k, p.sk, b, h, k0, p.T);
+    load_tile_bf16<D>(sV, p.v, p.sv, b, h, k0, p.T);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D; kd += 16) {
+      uint32_t aq[4], ado[4];
+      frag_a<LD>(aq, sQ, r0, kd, g, t);
+      frag_a<LD>(ado, sDo, r0, kd, g, t);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        uint32_t bk[2], bv[2];
+        frag_bt<LD>(bk, sK, n * 8, kd, g, t);
+        frag_bt<LD>(bv, sV, n * 8, kd, g, t);
+        mma16816(s[n], aq, bk);
+        mma16816(dp[n], ado, bv);
+      }
+    }
+    // dS into dp (exactly 0 where masked)
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + g + 8 * (i / 2);
+        const int col = n * 8 + 2 * t + i % 2;
+        const int qi = q0 + row;
+        const bool ok = qi < p.T && k0 + col <= qi &&
+                        (p.seg == nullptr || sSegQ[row] == sSegK[col]);
+        const float pv = ok ? expf(s[n][i] * p.scale - sLse[row]) : 0.f;
+        dp[n][i] = pv * (dp[n][i] - sDi[row]);
+      }
+
+    // dQ += dS K over this key tile
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bk[2];
+        frag_b<LD>(bk, sK, kk * 16, n * 8, g, t);
+        mma16816(dq[n], a, bk);
+      }
+    }
+  }
+
+  bf16* dq_out = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + g + 8 * r;
+    if (qi >= p.T) continue;
+    const long long base = out_index(p, b, qi, h, D) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dq_out + base + n * 8) =
+          __floats2bfloat162_rn(dq[n][2 * r] * p.scale,
+                                dq[n][2 * r + 1] * p.scale);
+  }
+}
+
+// ===========================================================================
+// launch
+// ===========================================================================
+
+enum class Which { kFwd, kDkv, kDq };
+
+// dynamic shared memory of each kernel: its q/k/v/do tiles, the f32
+// route's score tiles, and per-row values / segment ids
+template <int D>
+constexpr size_t smem_bytes(Which w, bool bf16_route) {
+  const size_t rows = (size_t)kTile * sizeof(float);
+  if (bf16_route) {
+    const size_t tile = (size_t)kTile * (D + kPad) * sizeof(bf16);
+    return w == Which::kFwd ? 3 * tile + 2 * rows : 4 * tile + 4 * rows;
+  }
+  const size_t tile = (size_t)kTile * (D + 1) * sizeof(float);
+  const size_t scores = (size_t)kTile * kLdP * sizeof(float);
+  switch (w) {
+    case Which::kFwd: return 3 * tile + scores + 2 * rows;
+    case Which::kDkv: return 4 * tile + 2 * scores + 4 * rows;
+    default: return 4 * tile + scores + 4 * rows;
+  }
+}
+
+template <int D>
+cudaError_t launch(Which w, bool bf16_route, const Params& p,
+                   cudaStream_t stream) {
+  const size_t bytes = smem_bytes<D>(w, bf16_route);
+  void (*kernel)(const Params);
+  if (bf16_route)
+    kernel = w == Which::kFwd   ? flash_fwd_mma_kernel<D>
+             : w == Which::kDkv ? flash_bwd_dkv_mma_kernel<D>
+                                : flash_bwd_dq_mma_kernel<D>;
+  else
+    kernel = w == Which::kFwd   ? flash_fwd_kernel<D>
+             : w == Which::kDkv ? flash_bwd_dkv_kernel<D>
+                                : flash_bwd_dq_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  // b * h along x, tiles along y: blocks start in x-major order, so every
+  // (b, h) starts its longest tile before any starts a short one
+  const dim3 grid(p.B * p.H, (p.T + kTile - 1) / kTile);
+  kernel<<<grid, bf16_route ? kMmaThreads : kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// strides: (batch, token, head) element strides of q, k, v, then do
+cudaError_t run(Which w, Params& p, int B, int T, int H, int D,
+                const long long* strides, int dtype, int device,
+                void* stream) {
+  if (B < 1 || T < 1 || H < 1 || (T + kTile - 1) / kTile > 65535 ||
+      (dtype != 0 && dtype != 1) || (D != 64 && D != 128))
+    return cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return set;
+  p.B = B;
+  p.T = T;
+  p.H = H;
+  Strides* all[4] = {&p.sq, &p.sk, &p.sv, &p.sdo};
+  const int n = w == Which::kFwd ? 3 : 4;
+  for (int i = 0; i < n; ++i)
+    *all[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  p.scale = 1.0f / sqrtf((float)D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bf16_route = dtype == 1;
+  return D == 64 ? launch<64>(w, bf16_route, p, s)
+                 : launch<128>(w, bf16_route, p, s);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. device: the CUDA device the tensors and
+// the stream belong to (this library links its own static CUDA runtime,
+// whose current device is not the caller's). seg may be null (no packing).
+// Each returns a cudaError_t (0 = launched).
+extern "C" int dt_flash_fwd(const void* q, const void* k, const void* v,
+                            const void* seg, void* o, void* lse, int B,
+                            int T, int H, int D, const long long* strides,
+                            int dtype, int device, void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.seg = static_cast<const int*>(seg);
+  p.o = o;
+  p.lse_out = static_cast<float*>(lse);
+  return run(Which::kFwd, p, B, T, H, D, strides, dtype, device, stream);
+}
+
+extern "C" int dt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                const void* seg, const void* dout,
+                                const void* lse, const void* di, void* dk,
+                                void* dv, int B, int T, int H, int D,
+                                const long long* strides, int dtype,
+                                int device, void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.seg = static_cast<const int*>(seg);
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.di = static_cast<const float*>(di);
+  p.dk = dk;
+  p.dv = dv;
+  return run(Which::kDkv, p, B, T, H, D, strides, dtype, device, stream);
+}
+
+extern "C" int dt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* seg, const void* dout,
+                               const void* lse, const void* di, void* dq,
+                               int B, int T, int H, int D,
+                               const long long* strides, int dtype,
+                               int device, void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.seg = static_cast<const int*>(seg);
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.di = static_cast<const float*>(di);
+  p.dq = dq;
+  return run(Which::kDq, p, B, T, H, D, strides, dtype, device, stream);
+}

@@ -1,1 +1,2 @@
-"""Serving engine: continuous batching over a paged KV cache."""
+"""Serving engine (continuous batching over a paged KV cache) and the
+training step engine."""

@@ -57,7 +57,7 @@ State = Mapping[str, torch.Tensor]
 
 DEFAULT_PAGE_SIZE = 16
 
-_SERVING_ITEM = "ROADMAP 'Slices of the port': slice 2, serving completeness"
+_SERVING_ITEM = "ROADMAP 'Slices of the port': slice 6, serving completeness"
 
 _LIVE_FRONTENDS: "weakref.WeakSet[ServeHTTPFrontend]" = weakref.WeakSet()
 
@@ -193,6 +193,7 @@ class PagePool:
 # Reference oracle
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def reference_generate(model, params: State, prompt: Sequence[int],
                        max_new_tokens: int, *, eos_id: int | None = None
                        ) -> list[int]:
@@ -528,6 +529,7 @@ class GenerationEngine:
         self._prefill(req, pages)
         return True
 
+    @torch.no_grad()
     def _prefill(self, req: ServeRequest, pages: list) -> None:
         """Full-prompt forward at the prompt's page bucket, padding
         masked; its (k, v) land in the slot's pages (padded rows beyond
@@ -601,6 +603,7 @@ class GenerationEngine:
                 elif not self._preempt_one(protect=slot):
                     self._finish(slot, "truncated")
 
+    @torch.no_grad()
     def _decode_plain(self) -> int:
         """One greedy decode step over the active batch: the forward
         attends the pool through the page tables, THEN the step's fresh

@@ -16,12 +16,19 @@ Parameters keep the JAX package's names and layouts: the module's
 A ``GPT2`` is built on the ``meta`` device — a structure with no
 storage — and :func:`bind` attaches a state to a fresh copy without
 copying it (``load_state_dict(assign=True)``), which is how the serving
-engine rebinds weights on a hot swap.
+engine rebinds weights on a hot swap. Bound parameters never take
+gradients (``requires_grad=False``), so serving records no graph. Training
+runs the same forward through ``torch.func.functional_call`` with its own
+leaf tensors (engine/train.py), the spelling of the JAX package's
+``model.apply({"params": p}, ...)``; gradients reach those tensors.
 
-The forward is the inference one (dropout is training's); it carries the
-serving hooks: ``sow_kv`` returns each layer's ``(k, v)``, and
-``kv_pages``/``page_tables``/``kv_lens`` switch attention to paged decode
-(ops/paged_attention.py).
+One forward serves both. Training passes packed batches: ``segment_ids``
+(attention stays inside a document; flash attention takes them as its
+mask) and per-row ``position_ids [B, T]``; ``return_hidden`` stops before
+the tied head. Serving passes the hooks: ``sow_kv`` returns each layer's
+``(k, v)``, and ``kv_pages``/``page_tables``/``kv_lens`` switch attention
+to paged decode (ops/paged_attention.py). Dropout and remat are
+training's and are not ported (engine/train.py refuses them).
 """
 
 from __future__ import annotations
@@ -144,7 +151,8 @@ class Block(nn.Module):
         self.mlp_proj = Dense(4 * E, E, cfg)
 
     def forward(self, x: torch.Tensor,
-                attention_mask: torch.Tensor | None = None, *,
+                attention_mask: torch.Tensor | None = None,
+                segment_ids: torch.Tensor | None = None, *,
                 kv_pages: tuple | None = None,
                 page_tables: torch.Tensor | None = None,
                 kv_lens: torch.Tensor | None = None):
@@ -165,6 +173,7 @@ class Block(nn.Module):
                                    page_tables, kv_lens, k, v)
         else:
             attn = causal_attention(q, k, v, attention_mask=attention_mask,
+                                    segment_ids=segment_ids,
                                     impl=cfg.attention_impl)
         x = x + self.c_proj(attn.reshape(B, T, E))
         h = self.c_fc(self.ln_2(x))
@@ -175,7 +184,8 @@ class Block(nn.Module):
 class GPT2(nn.Module):
     """Decoder-only transformer; ``forward`` returns
     ``[B, T, padded_vocab]`` logits (and the per-layer ``(k, v)`` list
-    when ``sow_kv``)."""
+    when ``sow_kv``), or the final normed hidden states ``[B, T, E]``
+    when ``return_hidden``."""
 
     def __init__(self, cfg: GPT2Config):
         super().__init__()
@@ -189,14 +199,18 @@ class GPT2(nn.Module):
     def blocks(self) -> list[Block]:
         return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
 
-    @torch.no_grad()
     def forward(self, input_ids: torch.Tensor, *,
                 attention_mask: torch.Tensor | None = None,
+                segment_ids: torch.Tensor | None = None,
                 position_ids: torch.Tensor | None = None,
+                return_hidden: bool = False,
                 sow_kv: bool = False,
                 kv_pages: list | None = None,
                 page_tables: torch.Tensor | None = None,
                 kv_lens: torch.Tensor | None = None):
+        """``position_ids`` is ``[T]`` or per row ``[B, T]`` (packing
+        restarts positions at each document); it defaults to
+        ``arange(T)``."""
         cfg = self.cfg
         T = input_ids.shape[1]
         if position_ids is None:
@@ -206,11 +220,13 @@ class GPT2(nn.Module):
         x = x.to(cfg.compute_dtype())
         kvs = []
         for i, blk in enumerate(self.blocks()):
-            x, kv = blk(x, attention_mask,
+            x, kv = blk(x, attention_mask, segment_ids,
                         kv_pages=None if kv_pages is None else kv_pages[i],
                         page_tables=page_tables, kv_lens=kv_lens)
             kvs.append(kv)
         x = self.ln_f(x)
+        if return_hidden:
+            return x
         # tied head: compute-dtype products, exact in f32, summed in f32
         # (the JAX package's preferred_element_type=float32)
         wte = self.wte.to(cfg.compute_dtype()).float()

@@ -1,1 +1,2 @@
-"""Attention, embedding lookup and the paged-decode CUDA kernel."""
+"""Attention (with the paged-decode and flash CUDA kernels), embedding
+lookup and losses."""

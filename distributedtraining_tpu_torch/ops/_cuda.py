@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at
 first use and loaded with ``ctypes``; the hash covers the source and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
-Nothing here runs at import time: the CPU tests import every module on a
-machine without ``nvcc``.
+Each source builds on its own, so a caller may start one ``build`` per
+source at once (chip_smoke.py does). Nothing here runs at import time:
+the CPU tests import every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,11 @@ def nvcc_path() -> str:
         "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
         "kernels of distributedtraining_tpu_torch are built from source "
         "at first use")
+
+
+def sources() -> list[str]:
+    """The kernel sources: the names of ``csrc/*.cu``, sorted."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
 def library_path(name: str) -> Path:

@@ -8,10 +8,16 @@
   no ``[T, T]`` score matrix exists.
 - ``cached_attention``: decode-step attention over a padded cached
   context plus the step's own tokens.
-- ``causal_attention``: the models' entry point. ``impl="flash"`` with a
-  padding mask takes the path the JAX package takes when its Pallas
-  kernel declines the mask (serving prefill always passes one): blockwise
-  at ``T >= BLOCKWISE_FALLBACK_LEN``, dense below.
+- ``causal_attention``: the models' entry point. ``impl="flash"``
+  without a padding mask runs ``ops.flash_attention.flash_attention`` (the
+  CUDA kernels on the card, their plain versions on the CPU), with
+  ``segment_ids`` as its packing mask. With a padding mask it takes the
+  path the JAX package takes when its Pallas kernel declines the mask
+  (serving prefill always passes one): blockwise at
+  ``T >= BLOCKWISE_FALLBACK_LEN``, dense below.
+
+Every path is differentiable by autograd; the flash path through its own
+backward kernels.
 
 Shapes: q, k, v are ``[batch, seq, heads, head_dim]``.
 """
@@ -22,14 +28,13 @@ from typing import Optional
 
 import torch
 
+from .flash_attention import flash_attention
+
 NEG_INF = -1e9
 
 # dense materializes [B, H, T, T] scores; at and above this length the
 # padded-mask flash path streams blocks instead
 BLOCKWISE_FALLBACK_LEN = 1024
-
-_TRAINING_ITEM = ("ROADMAP 'TPU kernels still to port': "
-                  "ops/flash_attention.py flash_attention, slice 3 (training)")
 
 
 def make_causal_mask(q_len: int, kv_len: int | None = None, *,
@@ -160,23 +165,21 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      impl: str = "dense") -> torch.Tensor:
     """Causal self-attention entry point used by the models.
 
-    impl: "dense", "blockwise", or "flash". "flash" needs its kernel
-    unless a padding mask is present (the kernel declines those in the
-    JAX package too); "ring" needs the ported parallel plane. Both
-    unported cases raise NotImplementedError."""
+    impl: "dense", "blockwise", or "flash". "flash" runs the flash
+    kernels unless a padding mask is present (the kernel declines those
+    in the JAX package too); "ring" needs the ported parallel plane and
+    raises NotImplementedError."""
     T = q.shape[1]
     if impl == "ring":
         raise NotImplementedError(
             "ring attention needs the ported parallel plane (ROADMAP "
-            "'Slices of the port': slice 5, parallelism)")
+            "'Slices of the port': slice 7, parallelism)")
     if impl == "blockwise":
         return blockwise_attention(q, k, v, attention_mask=attention_mask,
                                    segment_ids=segment_ids)
     if impl == "flash":
         if attention_mask is None:
-            raise NotImplementedError(
-                f"causal flash attention without a padding mask runs the "
-                f"flash kernel: {_TRAINING_ITEM}")
+            return flash_attention(q, k, v, segment_ids)
         if T >= BLOCKWISE_FALLBACK_LEN:
             return blockwise_attention(q, k, v,
                                        attention_mask=attention_mask,

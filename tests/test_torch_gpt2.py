@@ -20,6 +20,7 @@ from distributedtraining_tpu.models import gpt2 as jg
 from distributedtraining_tpu.ops import attention as jatt
 from distributedtraining_tpu_torch.models import gpt2 as tg
 from distributedtraining_tpu_torch.ops import attention as tatt
+from distributedtraining_tpu_torch.ops import flash_attention
 from distributedtraining_tpu_torch.ops.embed import embed_lookup
 
 TINY = dataclasses.replace(tg.PRESETS["tiny"], dtype="float32")
@@ -300,8 +301,15 @@ def test_embed_lookup_clips_like_jax_take():
 
 
 def test_unported_attention_paths_raise():
+    """Ring attention still needs the parallel plane; unmasked flash on
+    the CPU runs the flash kernels' plain version (the JAX package's
+    dense result) and launches nothing."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 8, 11))
-    with pytest.raises(NotImplementedError, match="flash"):
-        tatt.causal_attention(q, k, v, impl="flash")
     with pytest.raises(NotImplementedError, match="ring"):
         tatt.causal_attention(q, k, v, impl="ring")
+    before = dict(flash_attention.launches)
+    out = tatt.causal_attention(q, k, v, impl="flash")
+    assert flash_attention.launches == before
+    ref = jax.jit(lambda *a: jatt.causal_attention(*a, impl="dense"))(
+        *(x.numpy() for x in (q, k, v)))
+    _close(out, ref, 1e-5)
