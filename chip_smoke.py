@@ -53,9 +53,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
            1e-4 relative.
 10. tprof  torch.profiler over steady train steps at B 8, T 1024: wall vs
            device time per step, idle share, device time by kernel.
+11. ce     holds the fused cross-entropy forward, dh and dW kernels against
+           their plain versions: the training shape (N 8184, V 50304,
+           E 768) with bf16 h, the f32 head and the loss mask of a real
+           packed batch, the miner's N 504, a ragged N, a vocab that is not
+           a multiple of the tile, labels in the last column, an all-zero
+           mask, and f32 at a small shape. Limits on
+           max |kernel - plain| / max(1, max |plain|) per output: 1e-5 in
+           f32 (summation order), 2e-2 in bf16 against the plain
+           version's f32 result on the same values (dz rounded to bf16
+           before both products, as the TPU kernels round it, and dh once
+           more at the end). Times each kernel in bf16 at N 8184 and
+           N 504 (L2 flushed, median of 30) beside its bound, the plain
+           version and the materialised path (two library calls: a cuBLAS
+           bf16 GEMM to the logits and F.cross_entropy; its backward).
+12. tfused phase 8 again with TrainEngine(fused_loss=True): 20 steps at B 8,
+           T 1024, eval at T 512; fused CE forward launches == steps +
+           eval batches, dh == dW == steps, flash counts as in phase 8;
+           then the train profile with the CE kernels' device time.
+13. fparity f32 at B 2, T 256: 3 steps with fused_loss=True (the f32 CE
+           kernels) and 3 without; losses agree within 1e-4 relative.
+14. miner  the port's miner at GPT-2-124M full width with the fused loss:
+           MinerLoop in-process over a LocalFSTransport in a temporary
+           directory on a FakeClock advanced per batch (seq 64, batch 8):
+           a base published before boot (bootstrap pulls it), a second one
+           mid-run (pulled, optimizer reset), >= 2 pushes, the self-eval
+           guard on. The artifact decodes against the template and is
+           finite, its rider names the second base, base + delta scores
+           > 0 on held-out batches against that base, and the CE and flash
+           launches equal the steps and evals the loop ran. Then
+           ``neurons.miner.main`` once with the README's flags for a few
+           steps; it must leave a pushed delta on disk.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
-line, the ``nvidia-smi`` name/power-limit line, and as the last line
+line, a ``miner`` JSON line, the ``nvidia-smi`` name/power-limit line, and
+as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -701,34 +733,39 @@ def phase_profile(tree) -> dict:
 # 8. train, 9. parity, 10. tprof
 # ---------------------------------------------------------------------------
 
-def _zero_flash_counts():
+def _zero_counts():
+    """Set the flash and fused-CE launch counts to 0."""
     from distributedtraining_tpu_torch.ops import flash_attention as fa
-    for key in fa.launches:
-        fa.launches[key] = 0
+    from distributedtraining_tpu_torch.ops import fused_ce
+    for counts in (fa.launches, fused_ce.launches):
+        for key in counts:
+            counts[key] = 0
 
 
-def phase_train(tree, tok) -> dict:
+def phase_train(tree, tok, fused: bool = False) -> dict:
     """The miner's path: TrainEngine.train_step on packed batches, then
-    the validator's score of the delta on held-out batches."""
+    the validator's score of the delta on held-out batches; ``fused``
+    takes the loss through the fused CE kernels (--fused-loss)."""
     import math
     import torch
     from distributedtraining_tpu_torch import delta
     from distributedtraining_tpu_torch.engine.train import TrainEngine
     from distributedtraining_tpu_torch.models import gpt2
     from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
     cfg = gpt2.PRESETS["gpt2-124m"]           # bf16 compute, f32 params
     model, _ = gpt2.make_model(cfg)
     train = _batches(tok, split="train", batch_size=TRAIN_B,
                      seq_len=TRAIN_T, n=TRAIN_STEPS)
     held_out = _batches(tok, split="test", batch_size=TRAIN_B,
                         seq_len=EVAL_T, n=EVAL_BATCHES)
-    eng = TrainEngine(model, device="cuda")
+    eng = TrainEngine(model, fused_loss=fused, device="cuda")
     state = eng.init_state(gpt2.params_from_numpy(tree, device="cuda"))
     base = {k: v.detach().clone() for k, v in state.params.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # main path: counts to 0 just before, read just after
-    _zero_flash_counts()
+    _zero_counts()
     losses, step_ms = [], []
     t_all = time.perf_counter()
     for batch in train:
@@ -744,7 +781,7 @@ def phase_train(tree, tok) -> dict:
     base_loss, base_ppl = eng.evaluate(base, held_out)
     trained_loss, trained_ppl = eng.evaluate(delta.apply_delta(base, d),
                                              held_out)
-    launches = dict(fa.launches)
+    launches = {**fa.launches, **fused_ce.launches}
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses),
           f"non-finite training loss: {losses}")
@@ -763,8 +800,14 @@ def phase_train(tree, tok) -> dict:
     for key in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         check(launches[key] == n_bwd,
               f"{key} launches {launches[key]} != {n_bwd} = 12 x steps")
+    ce = {"fused_ce_fwd": TRAIN_STEPS + 2 * EVAL_BATCHES if fused else 0,
+          "fused_ce_bwd_dh": TRAIN_STEPS if fused else 0,
+          "fused_ce_bwd_dw": TRAIN_STEPS if fused else 0}
+    for key, n in ce.items():
+        check(launches[key] == n, f"{key} launches {launches[key]} != {n}")
     p50 = statistics.median(step_ms)
     res = {"model": "gpt2-124m", "dtype": cfg.dtype, "batch": TRAIN_B,
+           "fused_loss": fused,
            "seq_len": TRAIN_T, "steps": TRAIN_STEPS, "losses": losses,
            "step_ms_p50": p50, "step_ms_first": step_ms[0],
            "tokens_per_s": TRAIN_B * TRAIN_T / p50 * 1e3,
@@ -773,7 +816,7 @@ def phase_train(tree, tok) -> dict:
            "base_loss": base_loss, "trained_loss": trained_loss,
            "base_ppl": base_ppl, "trained_ppl": trained_ppl,
            "score": score, "delta_finite": finite, "launches": launches}
-    log("train:", json.dumps(res))
+    log("train fused:" if fused else "train:", json.dumps(res))
     return res
 
 
@@ -820,9 +863,9 @@ def phase_train_parity(tree, tok) -> dict:
     return res
 
 
-def phase_train_profile(tree, tok) -> dict:
+def phase_train_profile(tree, tok, fused: bool = False) -> dict:
     """Where a train step's time goes: torch.profiler over steady steps
-    at the train phase's shape."""
+    at the train phase's shape (``fused``: with --fused-loss)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -833,7 +876,7 @@ def phase_train_profile(tree, tok) -> dict:
     n_steps = 3
     batches = _batches(tok, split="train", batch_size=TRAIN_B,
                        seq_len=TRAIN_T, n=2 + n_steps)
-    eng = TrainEngine(model, device="cuda")
+    eng = TrainEngine(model, fused_loss=fused, device="cuda")
     state = eng.init_state(gpt2.params_from_numpy(tree, device="cuda"))
     placed = [eng.place_batch(b) for b in batches]
     for b in placed[:2]:                       # warm up
@@ -856,8 +899,11 @@ def phase_train_profile(tree, tok) -> dict:
     flash = {name: sum(v[0] for n, v in kernels.items() if name in n)
              / n_steps for name in ("flash_fwd", "flash_bwd_dkv",
                                     "flash_bwd_dq")}
+    ce = {name: sum(v[0] for n, v in kernels.items() if name in n)
+          / n_steps for name in ("ce_fwd", "ce_dh", "ce_dw")}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     res = {"steps": n_steps, "batch": TRAIN_B, "seq_len": TRAIN_T,
+           "fused_loss": fused, "ce_ms_per_step": ce,
            "wall_ms_per_step": wall_ms / n_steps,
            "device_ms_per_step": busy_ms / n_steps,
            "idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
@@ -867,8 +913,343 @@ def phase_train_profile(tree, tok) -> dict:
                             "launches_per_step": v[1] / n_steps}
                            for n, v in top]}
     check(kernels, "the train-step profile saw no device time")
-    log("train profile:", json.dumps(res))
+    log("train fused profile:" if fused else "train profile:",
+        json.dumps(res))
     return res
+
+
+# ---------------------------------------------------------------------------
+# 11. ce, 13. fparity, 14. miner
+# ---------------------------------------------------------------------------
+
+CE_SOURCE = "distributedtraining_tpu_torch/csrc/fused_ce.cu"
+CE_TPU_KERNELS = {   # name: (file:line of the Pallas kernel, its call)
+    "fused_ce_fwd": ("distributedtraining_tpu/ops/pallas_ce.py:74",
+                     "_fwd_kernel via _fwd_call (pallas_call :178)"),
+    "fused_ce_bwd_dh": ("distributedtraining_tpu/ops/pallas_ce.py:124",
+                        "_dh_kernel via _bwd_calls (pallas_call :201)"),
+    "fused_ce_bwd_dw": ("distributedtraining_tpu/ops/pallas_ce.py:143",
+                        "_dw_kernel via _bwd_calls (pallas_call :220)"),
+}
+CE_OUTPUTS = {"fused_ce_fwd": ("loss", "m", "s"),
+              "fused_ce_bwd_dh": ("dh",), "fused_ce_bwd_dw": ("dw",)}
+MINER_B, MINER_T, MINER_STEPS = 8, 64, 12
+README_MINER_FLAGS = [
+    "--backend", "local", "--model", "gpt2-124m", "--dataset", "synthetic",
+    "--tokenizer", "word", "--fused-loss", "--no-base-wire-v2",
+    "--checkpoint-interval", "0", "--no-anomaly-trace", "--flight-events",
+    "0"]
+
+
+def _ce_inputs(N, V, E, dtype, seed, *, labels=None, mask=None,
+               label_last=False):
+    """h (hidden, ``dtype``), the head rounded to h's dtype (as the
+    autograd Function rounds the f32 ``wte``), int32 labels and the
+    per-token upstream gradient ``g = mask / max(sum(mask), 1)``, on the
+    card."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn((N, E), generator=gen).to("cuda", dtype)
+    w = (torch.randn((V, E), generator=gen) * 0.02).to("cuda", dtype)
+    if labels is None:
+        labels = torch.randint(0, V, (N,), generator=gen)
+    y = torch.as_tensor(labels).reshape(-1).to("cuda", torch.int32)
+    if label_last:
+        y[::3] = V - 1
+    m = (torch.ones(N) if mask is None
+         else torch.as_tensor(mask).reshape(-1).float()).to("cuda")
+    g = (m / m.sum().clamp(min=1.0)).contiguous()
+    return h, w, y.contiguous(), g
+
+
+def _ce_run(h, w, y, g):
+    """The three kernels, then the plain versions on the same values in
+    f32 (the bf16 limit is held against that unrounded result)."""
+    import torch
+    from distributedtraining_tpu_torch.ops import fused_ce
+    loss, m, s = fused_ce.fused_ce_fwd(h, w, y)
+    dh = fused_ce.fused_ce_bwd_dh(h, w, y, m, s, g)
+    dw = fused_ce.fused_ce_bwd_dw(h, w, y, m, s, g)
+    hf, wf = h.float(), w.float()
+    r_loss, r_m, r_s = fused_ce.fused_ce_fwd_reference(hf, wf, y)
+    r_dh, r_dw = fused_ce.fused_ce_bwd_reference(hf, wf, y, r_m, r_s, g)
+    torch.cuda.synchronize()
+    return {"loss": (loss, r_loss), "m": (m, r_m), "s": (s, r_s),
+            "dh": (dh, r_dh), "dw": (dw, r_dw)}
+
+
+def _ce_bounds(N, V, E, elt=2) -> dict:
+    """Least time per kernel: inputs read once and outputs written once
+    over the memory rate vs 2 N V E operations per product (the forward
+    one, dh and dW a recompute each plus their own) at the bf16 rate."""
+    h, w, row = N * E * elt, V * E * elt, N * 4
+    work = {"fused_ce_fwd": (h + w + row + 3 * row, 2 * N * V * E),
+            "fused_ce_bwd_dh": (h + w + 4 * row + h, 4 * N * V * E),
+            "fused_ce_bwd_dw": (h + w + 4 * row + V * E * 4, 4 * N * V * E)}
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = ops / H100_BF16_FLOPS * 1e3
+        out[name] = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                     else (ops_ms, "operations"))
+    return out
+
+
+def phase_ce(batch) -> dict:
+    """Kernel vs plain version for the fused CE forward, dh and dW;
+    ``batch`` is a real packed training batch [8, 1024] (its labels and
+    loss mask set the training-shape case)."""
+    import torch
+    from distributedtraining_tpu_torch.ops import fused_ce
+    V, E = 50304, 768
+    ids, mask = batch["input_ids"][:, 1:], batch["loss_mask"][:, 1:]
+    N = ids.size
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {
+        "train_n8184_bf16": (N, V, E, bf, dict(labels=ids, mask=mask)),
+        "miner_n504_bf16": (504, V, E, bf, {}),
+        "ragged_n777_bf16": (777, V, E, bf, {}),
+        "vocab1000_label_last_bf16": (300, 1000, E, bf,
+                                      dict(label_last=True)),
+        "zero_mask_bf16": (300, 1000, E, bf, dict(mask=[0.0] * 300)),
+        "small_f32": (70, 300, 64, f32, dict(label_last=True)),
+        "miner_n504_f32": (504, V, E, f32, {}),
+    }
+    checks = []
+    for i, (name, (n, v, e, dtype, kw)) in enumerate(cases.items()):
+        outs = _ce_run(*_ce_inputs(n, v, e, dtype, SEED + i, **kw))
+        tol = 1e-5 if dtype == f32 else 2e-2
+        diff = {k: (float((a.float() - r.float()).abs().max()),
+                    float(r.float().abs().max()))
+                for k, (a, r) in outs.items()}
+        errs = {k: d / max(1.0, ref) for k, (d, ref) in diff.items()}
+        checks.append({"case": name, "dtype": str(dtype).split(".")[1],
+                       "N": n, "V": v, "E": e, "scaled_err": errs,
+                       # for the record, no limit: the same difference over
+                       # max |plain| alone (gradients are far below 1)
+                       "rel_err": {k: d / ref if ref else 0.0
+                                   for k, (d, ref) in diff.items()},
+                       "tol": tol})
+        check(all(bool(torch.isfinite(a.float()).all())
+                  for a, _ in outs.values()),
+              f"fused CE kernels: non-finite output at {name}")
+        for k, err in errs.items():
+            check(err <= tol, f"fused CE kernel vs plain version at {name}: "
+                              f"{k} scaled error {err} > {tol}")
+        if name == "zero_mask_bf16":
+            check(not outs["dh"][0].any() and not outs["dw"][0].any(),
+                  "an all-zero mask must give zero gradients")
+        del outs
+    timed = {}
+    for n, seed in ((N, SEED), (504, SEED + 1)):
+        h, w, y, g = _ce_inputs(n, V, E, bf, seed)
+        loss, m, s = fused_ce.fused_ce_fwd(h, w, y)
+        runs = {"fused_ce_fwd": lambda: fused_ce.fused_ce_fwd(h, w, y),
+                "fused_ce_bwd_dh": lambda: fused_ce.fused_ce_bwd_dh(
+                    h, w, y, m, s, g),
+                "fused_ce_bwd_dw": lambda: fused_ce.fused_ce_bwd_dw(
+                    h, w, y, m, s, g)}
+        plain_fwd = _time_ms(lambda: fused_ce.fused_ce_fwd_reference(h, w, y))
+        plain_bwd = _time_ms(lambda: fused_ce.fused_ce_bwd_reference(
+            h, w, y, m, s, g))
+        # the materialised path: two library calls (a cuBLAS bf16 GEMM to
+        # the logits, cast to f32, and F.cross_entropy), and its backward
+        hh, ww = h.detach().requires_grad_(), w.detach().requires_grad_()
+        ce = torch.nn.functional.cross_entropy
+
+        def lib_fwd():
+            return ce((hh @ ww.T).float(), y.long(), reduction="none")
+
+        out = lib_fwd()
+        lib_f = _time_ms(lib_fwd)
+        lib_b = _time_ms(lambda: torch.autograd.grad(out, (hh, ww), g,
+                                                     retain_graph=True))
+        del out
+        bounds = _ce_bounds(n, V, E)
+        for name, fn in runs.items():
+            timed.setdefault(name, {})[f"n{n}"] = {
+                "ms": _time_ms(fn),
+                "plain_ms": plain_fwd if name == "fused_ce_fwd" else plain_bwd,
+                "library_ms": lib_f if name == "fused_ce_fwd" else lib_b,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+        del h, w, hh, ww
+        torch.cuda.empty_cache()
+    res = {"checks": checks, "timed": timed,
+           "timed_shape": f"N {N} and 504, V {V}, E {E}, bf16 h and head",
+           "library": "two library calls: cuBLAS bf16 GEMM to the logits "
+                      "(cast to f32) + F.cross_entropy; backward: its "
+                      "autograd (dh and dW in one call)",
+           "plain": "the plain backward computes dh and dW in one call"}
+    log("ce phase:", json.dumps(res))
+    return res
+
+
+def phase_fused_parity(tree, tok) -> dict:
+    """Three f32 steps with the loss through the fused CE kernels (f32
+    FMA) vs the same three with the materialised f32 head."""
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.ops import fused_ce
+    cfg = dataclasses.replace(gpt2.PRESETS["gpt2-124m"], dtype="float32")
+    model, _ = gpt2.make_model(cfg)
+    batches = _batches(tok, split="train", batch_size=2, seq_len=256, n=3)
+
+    def run(fused):
+        eng = TrainEngine(model, fused_loss=fused, device="cuda")
+        state = eng.init_state(gpt2.params_from_numpy(tree, device="cuda"))
+        before = dict(fused_ce.launches)
+        losses = [float(eng.train_step(state, eng.place_batch(b))[1]["loss"])
+                  for b in batches]
+        return losses, {k: fused_ce.launches[k] - before[k] for k in before}
+
+    fused_losses, fused_launches = run(True)
+    plain_losses, plain_launches = run(False)
+    check(all(n == len(batches) for n in fused_launches.values()),
+          f"fused run launches {fused_launches}")
+    check(not any(plain_launches.values()),
+          f"unfused run launched CE kernels: {plain_launches}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fused_losses,
+                                                  plain_losses))
+    check(rel <= 1e-4, f"f32 training with the fused CE vs the unfused "
+                       f"loss: {fused_losses} vs {plain_losses} (max rel "
+                       f"{rel} > 1e-4)")
+    res = {"dtype": "float32", "batch": 2, "seq_len": 256,
+           "fused_losses": fused_losses, "unfused_losses": plain_losses,
+           "max_rel_diff": rel}
+    log("fused parity:", json.dumps(res))
+    return res
+
+
+def phase_miner(tree, tok) -> dict:
+    """The port's miner at GPT-2-124M full width with --fused-loss: the
+    MinerLoop over a local transport on a FakeClock, then the CLI entry
+    point."""
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch.engine.scheduler import FakeClock
+    from distributedtraining_tpu_torch.engine.train import (MinerLoop,
+                                                            TrainEngine)
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    model, _ = gpt2.make_model(cfg)
+    eng = TrainEngine(model, fused_loss=True, device="cuda")
+    train = _batches(tok, split="train", batch_size=MINER_B,
+                     seq_len=MINER_T, n=MINER_STEPS)
+    held = _batches(tok, split="test", batch_size=MINER_B, seq_len=EVAL_T,
+                    n=6)
+    guard_batches, score_batches = held[:2], held[2:]
+    second_base = gpt2.init_params_numpy(cfg, SEED + 1)
+    evals = []
+
+    def val_batches():
+        for b in guard_batches:
+            evals.append(1)
+            yield b
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = LocalFSTransport(os.path.join(tmp, "artifacts"))
+        rev0 = t.publish_base(tree)
+        loop = MinerLoop(eng, t, "chip_smoke_miner", clock=FakeClock(),
+                         send_interval=4.0, check_update_interval=3.0,
+                         val_batches=val_batches, val_guard_interval=4.0,
+                         push_async=True)
+        revs = {}
+
+        def schedule():
+            for i, b in enumerate(train):
+                if i == MINER_STEPS // 2:
+                    revs["second"] = t.publish_base(second_base)
+                loop.clock.sleep(1.0)
+                yield b
+
+        torch.cuda.synchronize()
+        # main path: counts to 0 just before, read just after
+        _zero_counts()
+        t0 = time.perf_counter()
+        loop.bootstrap()
+        check(loop._base_revision == rev0, "bootstrap did not pull the "
+                                           "published base")
+        report = loop.run(schedule(), max_steps=MINER_STEPS)
+        loop.flush()
+        loop.close()
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launches = {**fa.launches, **fused_ce.launches}
+        opt_count = loop.state.opt_state.count
+        steps, n_eval = report.steps, len(evals)
+        check(report.base_pulls == 1 and loop._base_revision ==
+              revs["second"], f"base pulls {report.base_pulls}")
+        check(report.pushes >= 2 and report.pushes_failed == 0,
+              f"pushes {report.pushes}, failed {report.pushes_failed}")
+        want = {"fused_ce_fwd": steps + n_eval, "fused_ce_bwd_dh": steps,
+                "fused_ce_bwd_dw": steps,
+                "flash_attention_fwd": cfg.n_layer * (steps + n_eval),
+                "flash_attention_bwd_dkv": cfg.n_layer * steps,
+                "flash_attention_bwd_dq": cfg.n_layer * steps}
+        for key, n in want.items():
+            check(n > 0 and launches[key] == n,
+                  f"miner: {key} launches {launches[key]} != {n}")
+        data = t.fetch_delta_bytes("chip_smoke_miner")
+        check(data is not None, "no delta artifact on the transport")
+        d = ser.from_msgpack(data, loop._wire_template())
+        finite = all(bool(np.isfinite(np.asarray(v)).all())
+                     for v in _leaves(d))
+        check(finite, "the published delta has non-finite values")
+        meta = t.fetch_delta_meta("chip_smoke_miner")
+        check(meta is not None and meta.get("base_revision") ==
+              revs["second"], f"rider {meta} does not name the pulled base")
+        base = gpt2.params_from_numpy(second_base, device="cuda")
+        dstate = gpt2.params_from_numpy(d, device="cuda")
+        base_loss, _ = eng.evaluate(base, score_batches)
+        trained_loss, _ = eng.evaluate(
+            {k: base[k] + dstate[k] for k in base}, score_batches)
+        score = base_loss - trained_loss
+        check(math.isfinite(score) and score > 0,
+              f"held-out score of base + delta {score} is not > 0")
+        artifact_bytes = len(data)
+    with tempfile.TemporaryDirectory() as work:
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc = miner_cli.main(README_MINER_FLAGS + ["--work-dir", work,
+                                                  "--max-steps", "3"])
+        cli_s = time.perf_counter() - t0
+        cli_launches = dict(fused_ce.launches)
+        path = os.path.join(work, "artifacts", "deltas", "hotkey_0.msgpack")
+        check(rc == 0 and os.path.exists(path) and
+              os.path.getsize(path) > 0,
+              f"neurons.miner.main exited {rc} without a pushed delta")
+        check(cli_launches["fused_ce_bwd_dh"] == 3,
+              f"the CLI miner's fused CE launches {cli_launches}")
+    res = {"model": "gpt2-124m", "fused_loss": True, "batch": MINER_B,
+           "seq_len": MINER_T, "steps": steps, "guard_eval_batches": n_eval,
+           "pushes": report.pushes, "base_pulls": report.base_pulls,
+           "optimizer_steps_since_pull": opt_count,
+           "last_loss": report.last_loss, "base_loss": base_loss,
+           "trained_loss": trained_loss, "score": score,
+           "artifact_bytes": artifact_bytes, "loop_s": loop_s,
+           "launches": launches, "cli": {"argv": README_MINER_FLAGS
+                                         + ["--max-steps", "3"],
+                                         "s": cli_s,
+                                         "launches": cli_launches}}
+    log("miner:", json.dumps(res))
+    return res
+
+
+def _leaves(tree):
+    """The leaves of a nested host tree as numpy arrays."""
+    import torch
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v.float().numpy() if isinstance(v, torch.Tensor) else v
 
 
 FLASH_SOURCE = "distributedtraining_tpu_torch/csrc/flash_attention.cu"
@@ -894,18 +1275,45 @@ def _flash_entries(flash: dict, train: dict, build: dict) -> list:
             "replaces": "distributedtraining_tpu/ops/flash_attention.py:86",
             "tpu_kernel": tpu,
             "launches": train["launches"][name],
-            # over every case and both dtypes (bf16 dominates)
+            # one key per value: the f32 error (limit 1e-5 / 1e-4) and
+            # the scaled bf16 error the bf16 limit applies to
             "max_abs_err": max(c["max_abs"][key] for c in checks
-                               for key in keys),
-            "max_abs_err_f32": max(c["max_abs"][key] for c in checks
-                                   for key in keys
-                                   if c["dtype"] == "float32"),
-            # what the bf16 limit applies to
+                               for key in keys
+                               if c["dtype"] == "float32"),
             "max_scaled_err_bf16": max(c["max_scaled"][key] for c in checks
                                        if "max_scaled" in c
                                        for key in keys),
             **flash["timed"][name],
             "timed_shape": flash["timed_shape"],
+            "build_s": build["build_s"]})
+    return out
+
+
+def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict) -> list:
+    out = []
+    for name, (replaces, tpu) in CE_TPU_KERNELS.items():
+        keys = CE_OUTPUTS[name]
+        checks = ce["checks"]
+        at = ce["timed"][name]
+        big, small = (at[k] for k in sorted(at, key=lambda k: -int(k[1:])))
+        out.append({
+            "name": name, "route": "cuda", "source": CE_SOURCE,
+            "replaces": replaces, "tpu_kernel": tpu,
+            # the miner's round, the slice's main path
+            "launches": miner["launches"][name],
+            "launches_train_fused": tfused["launches"][name],
+            # one key per value: the f32 error (limit 1e-5) and the bf16
+            # one (limit 2e-2), each max |kernel - plain| / max(1, |plain|)
+            "max_abs_err": max(c["scaled_err"][k] for c in checks
+                               for k in keys if c["dtype"] == "float32"),
+            "max_scaled_err_bf16": max(c["scaled_err"][k] for c in checks
+                                       for k in keys
+                                       if c["dtype"] == "bfloat16"),
+            **big,
+            "ms_n504": small["ms"], "plain_ms_n504": small["plain_ms"],
+            "library_ms_n504": small["library_ms"],
+            "bound_ms_n504": small["bound_ms"],
+            "library": ce["library"], "timed_shape": ce["timed_shape"],
             "build_s": build["build_s"]})
     return out
 
@@ -919,9 +1327,10 @@ def main() -> int:
     build = phase_build()
     kern = phase_kernel()
     tok = _tokenizer()
-    seg = _batches(tok, split="train", batch_size=TRAIN_B, seq_len=TRAIN_T,
-                   n=1)[0]["segment_ids"]
-    flash = phase_flash(seg)
+    first = _batches(tok, split="train", batch_size=TRAIN_B,
+                     seq_len=TRAIN_T, n=1)[0]
+    flash = phase_flash(first["segment_ids"])
+    ce = phase_ce(first)
     tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
     f32 = phase_slice_f32(tree)
     serve = phase_serve(tree)
@@ -929,6 +1338,10 @@ def main() -> int:
     train = phase_train(tree, tok)
     parity = phase_train_parity(tree, tok)
     tprof = phase_train_profile(tree, tok)
+    tfused = phase_train(tree, tok, fused=True)
+    fprof = phase_train_profile(tree, tok, fused=True)
+    fparity = phase_fused_parity(tree, tok)
+    miner = phase_miner(tree, tok)
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -937,21 +1350,27 @@ def main() -> int:
         "tpu_kernel": "distributedtraining_tpu/ops/paged_attention.py:"
                       "_decode_kernel",
         "launches": serve["kernel_launches"],
-        # over every case and both dtypes (bf16 dominates)
-        "max_abs_err": max(c["max_abs_err"] for c in kern["checks"]),
-        "max_abs_err_f32": max(c["max_abs_err"] for c in kern["checks"]
-                               if c["dtype"] == "float32"),
+        # one key per value: the f32 error and the bf16 one (both abs)
+        "max_abs_err": max(c["max_abs_err"] for c in kern["checks"]
+                           if c["dtype"] == "float32"),
+        "max_abs_err_bf16": max(c["max_abs_err"] for c in kern["checks"]
+                                if c["dtype"] == "bfloat16"),
         "ms": kern["kernel_ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
         "timed_shape": kern["timed_shape"],
         "build_s": build["build_s"]},
-        *_flash_entries(flash, train, build)]}), flush=True)
+        *_flash_entries(flash, train, build),
+        *_ce_entries(ce, miner, tfused, build)]}), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
     print(json.dumps({"train": {**train, "f32_parity": parity,
-                                "profile": tprof, "card": card,
+                                "profile": tprof, "fused": tfused,
+                                "fused_profile": fprof,
+                                "fused_f32_parity": fparity, "card": card}}),
+          flush=True)
+    print(json.dumps({"miner": {**miner, "card": card,
                                 "total_s": time.perf_counter() - t_start}}),
           flush=True)
     print(card, flush=True)

@@ -50,7 +50,7 @@ def text_corpus(*, split: str = "train", n_docs: int = 256,
     if source not in ("auto", "synthetic"):
         raise NotImplementedError(
             f"corpus source {source!r}: only the synthetic corpus is "
-            "ported (ROADMAP 'Slices of the port', slice 3)")
+            "ported (ROADMAP 'Slices of the port', slice 7)")
     # synthetic: markov-ish word stream, deterministic per (split, seed)
     h = int(hashlib.sha256(f"{split}:{seed}".encode()).hexdigest()[:8], 16)
     rng = np.random.default_rng(h)

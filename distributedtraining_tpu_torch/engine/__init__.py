@@ -1,2 +1,2 @@
-"""Serving engine (continuous batching over a paged KV cache) and the
-training step engine."""
+"""Serving engine (continuous batching over a paged KV cache), the
+training step engine, the miner's loop and its publisher."""

@@ -270,7 +270,8 @@ def resolve_device(device) -> torch.device:
 def params_from_numpy(tree: Mapping[str, Any], *, device="cuda"
                       ) -> dict[str, torch.Tensor]:
     """The JAX package's unrolled GPT-2 param tree (nested dicts of
-    arrays: ``h_{i}/c_attn/kernel``, ``ln_1/scale``, ``wte``, ...) as a
+    arrays, or CPU tensors for bf16 leaves: ``h_{i}/c_attn/kernel``,
+    ``ln_1/scale``, ``wte``, ...) as a
     state dict keyed by the ``.``-joined paths, on ``device`` (``"cuda"``
     unless the caller asks for the CPU). Values, dtypes and layouts are
     unchanged."""
@@ -285,6 +286,8 @@ def params_from_numpy(tree: Mapping[str, Any], *, device="cuda"
             path = f"{prefix}{key}"
             if isinstance(val, Mapping):
                 walk(val, path + ".")
+            elif isinstance(val, torch.Tensor):   # bf16 leaves off the wire
+                state[path] = val.detach().to(device, copy=True)
             else:
                 # a private, writable, C-ordered copy (arrays handed over
                 # from JAX are read-only views)

@@ -5,6 +5,8 @@ throughout (the logits are upcast before the log-softmax), with the
 padding- and packing-aware token count the data pipeline's ``loss_mask``
 gives. ``(mean, count)`` pairs aggregate exactly across batches and
 microbatches: ``sum(mean * count) / sum(count)``.
+:func:`fused_linear_cross_entropy` is the same loss from hidden states,
+through the fused CE kernels (``--fused-loss``).
 """
 
 from __future__ import annotations
@@ -48,11 +50,25 @@ def perplexity(mean_loss: torch.Tensor) -> torch.Tensor:
     return torch.exp(mean_loss)
 
 
-def fused_linear_cross_entropy(*args, **kwargs):
-    """The vocab-tiled CE that never materialises ``[N, V]`` logits
-    (the JAX package's ``--fused-loss`` path and its three Pallas kernels,
-    ``ops/pallas_ce.py``) is the next slice of the port."""
-    raise NotImplementedError(
-        "fused_linear_cross_entropy (--fused-loss, the pallas_ce forward, "
-        "dh and dw kernels) is the next slice: ROADMAP 'Slices of the "
-        "port', slice 3")
+def fused_linear_cross_entropy(hidden: torch.Tensor, head_kernel: torch.Tensor,
+                               labels: torch.Tensor,
+                               loss_mask: Optional[torch.Tensor] = None,
+                               *, mesh=None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shifted-label CE of ``logits = hidden @ head_kernel.T`` without
+    materialising the ``[N, V]`` logits: the fused forward, dh and dW
+    kernels of ``ops/fused_ce.py`` on the card, their plain versions on
+    the CPU.
+
+    ``hidden [..., E]`` is already shifted and aligned to ``labels
+    [...]``; ``head_kernel`` is ``[V, E]`` (the tied ``wte``);
+    ``loss_mask`` is shaped like ``labels``. Returns ``(mean_loss,
+    token_count)``, the :func:`causal_lm_loss` contract. The JAX
+    package's ``impl``, ``chunk`` and ``interpret`` name its own
+    spellings of this one function; the port has one route."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "fused_linear_cross_entropy(mesh=...): the sharded spelling is "
+            "the parallel slice, ROADMAP 'Slices of the port', slice 7")
+    from .fused_ce import fused_ce_loss
+    return fused_ce_loss(hidden, head_kernel, labels, loss_mask)

@@ -1,1 +1,2 @@
-"""Observability: the serve.* metric registry."""
+"""Observability: counters, gauges, histograms, spans and correlation
+ids."""

@@ -1,24 +1,30 @@
-"""Phase-timing registry: counters, gauges and latency histograms.
+"""Phase-timing registry: counters, gauges, latency histograms, spans and
+correlation ids.
 
 The serving engine reports through it as ``serve.*`` (``serve.ttft_ms``,
-``serve.tpot_ms``, ``serve.step_ms``, ``serve.prefill_ms``,
-``serve.tokens``, ``serve.preempted``, ...). Same names and semantics
-as the JAX package's ``utils/obs.py``, of which this is the registry
-half: snapshots, sinks, spans, correlation ids and the anomaly monitor
-come with the ported fleet planes.
+``serve.tpot_ms``, ...), the miner as ``miner.*`` (``miner.step_ms``,
+``miner.data_wait_ms``) and its publisher as ``publish.*`` and
+``push.*`` spans. Same names and semantics as the JAX package's
+``utils/obs.py``: the registry, ``span`` (a ``span.<name>_ms``
+histogram), the thread-local correlation id (``correlate``,
+``current_cid``, ``new_delta_id``) and ``flush`` (a registry snapshot
+through a caller's sink). Span records, the role's own sink and the
+anomaly monitor come with the ported metrics sinks (slice 7).
 
 Everything is off until ``configure()`` switches it on: the
-module-level ``count``/``observe``/``gauge`` helpers are single-branch
-no-ops when disabled, so the hot path may call them unconditionally.
-Instruments are lock-protected (HTTP handler threads and the serve loop
-touch the registry concurrently).
+module-level ``count``/``observe``/``gauge``/``span`` helpers are
+single-branch no-ops when disabled, so the hot path may call them
+unconditionally. Instruments are lock-protected (HTTP handler threads,
+the serve loop and the publish worker touch the registry concurrently).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 import threading
+import time
 from collections import deque
 from typing import Any, Iterable
 
@@ -89,9 +95,9 @@ def percentile(sorted_vals, q: float) -> float:
 class Histogram:
     """Latency histogram over a bounded ring reservoir (thread-safe):
     percentiles reflect the most recent ``capacity`` observations,
-    ``count`` is lifetime."""
+    ``count`` and the sum are lifetime."""
 
-    __slots__ = ("name", "capacity", "_ring", "_count", "_lock")
+    __slots__ = ("name", "capacity", "_ring", "_count", "_total", "_lock")
 
     def __init__(self, name: str, capacity: int = 512):
         if capacity < 1:
@@ -100,12 +106,14 @@ class Histogram:
         self.capacity = capacity
         self._ring: deque = deque(maxlen=capacity)
         self._count = 0
+        self._total = 0.0
         self._lock = threading.Lock()
 
     def observe(self, value: float) -> None:
         with self._lock:
             self._ring.append(float(value))
             self._count += 1
+            self._total += float(value)
 
     @property
     def count(self) -> int:
@@ -116,6 +124,14 @@ class Histogram:
         with self._lock:
             vals = sorted(self._ring)
         return {f"p{int(q)}": percentile(vals, q) for q in qs}
+
+    def snapshot(self) -> dict[str, float]:
+        with self._lock:
+            count, total = self._count, self._total
+        out = {"count": float(count), "sum": total}
+        if count:
+            out.update(self.percentiles())
+        return out
 
 
 class Registry:
@@ -152,11 +168,26 @@ class Registry:
         with self._lock:
             return self._metrics.get(name)
 
+    def snapshot(self) -> dict[str, float]:
+        """Flat numeric dict: counters and gauges as ``name``, histograms
+        as ``name.count/.sum/.p50/.p95/.p99``."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out: dict[str, float] = {}
+        for name, m in items:
+            if isinstance(m, (Counter, Gauge)):
+                out[name] = m.value
+            else:
+                for k, v in m.snapshot().items():
+                    out[f"{name}.{k}"] = v
+        return out
+
 
 class _ObsState:
     def __init__(self):
         self.registry = Registry()
         self.enabled = False
+        self.tl = threading.local()   # per-thread correlation id
 
 
 _STATE = _ObsState()
@@ -198,3 +229,60 @@ def gauge(name: str, value: float) -> None:
     if not _STATE.enabled:
         return
     _STATE.registry.gauge(name).set(value)
+
+
+def flush(sink=None, *, step: int | None = None) -> dict[str, float]:
+    """Snapshot the registry, and log it through ``sink`` (an object with
+    ``log(record, step=...)``) when one is given: the periodic-flush
+    primitive the miner calls at its log cadence."""
+    snap = _STATE.registry.snapshot() if _STATE.enabled else {}
+    if snap and sink is not None:
+        sink.log(dict(snap), step=step)
+    return snap
+
+
+# ---------------------------------------------------------------------------
+# Correlation ids and spans
+# ---------------------------------------------------------------------------
+
+def new_delta_id(miner_id: str, seq: int) -> str:
+    """Deterministic per-push correlation id (the push SEQUENCE, so
+    superseded pushes stay distinguishable); it rides the delta's meta
+    rider as ``delta_id``."""
+    return f"{miner_id}-{seq:06d}"
+
+
+def current_cid() -> str | None:
+    return getattr(_STATE.tl, "cid", None)
+
+
+@contextlib.contextmanager
+def correlate(cid: str | None):
+    """Set the CURRENT thread's correlation id for the duration (the
+    publish worker re-enters its job's id through this: thread-local
+    state does not cross threads)."""
+    tl = _STATE.tl
+    prev = getattr(tl, "cid", None)
+    tl.cid = cid
+    try:
+        yield
+    finally:
+        tl.cid = prev
+
+
+@contextlib.contextmanager
+def span(name: str, *, cid: str | None = None):
+    """Time a phase into the ``span.<name>_ms`` histogram; ``cid`` sets
+    the thread's correlation id inside it. A no-op when disabled."""
+    if not _STATE.enabled:
+        yield
+        return
+    check_metric_name(name)
+    reg = _STATE.registry
+    t0 = time.perf_counter()
+    with correlate(cid if cid is not None else current_cid()):
+        try:
+            yield
+        finally:
+            reg.histogram(f"span.{name}_ms").observe(
+                (time.perf_counter() - t0) * 1e3)

@@ -360,8 +360,8 @@ def test_cuda_is_not_silently_replaced_by_the_cpu(world):
 # Isolation: the port never imports JAX or the JAX package
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "distributedtraining_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+             "ml_dtypes", "distributedtraining_tpu")
 
 
 def test_port_sources_import_no_jax():
@@ -387,6 +387,8 @@ def test_port_serving_path_loads_without_jax():
             "import distributedtraining_tpu_torch.engine.serve\n"
             "import distributedtraining_tpu_torch.models.gpt2\n"
             "import distributedtraining_tpu_torch.ops.paged_attention\n"
+            "import distributedtraining_tpu_torch.neurons.miner\n"
+            "import distributedtraining_tpu_torch.ops.fused_ce\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n"

@@ -370,15 +370,17 @@ def test_unported_training_options_raise():
         ttrain.opt_state_from_numpy({"count": 0, "mu": {}, "nu": {}})
     with pytest.raises(NotImplementedError, match="parallel"):
         ttrain.TrainEngine(model, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ttrain.TrainEngine(model, fused_loss=True, device="cpu")
+    with pytest.raises(ValueError, match="one fused route"):
+        ttrain.TrainEngine(model, fused_loss="pallas", device="cpu")
     for cfg in (dataclasses.replace(TINY, dropout=0.1),
                 dataclasses.replace(TINY, remat=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.TrainEngine(tg.make_model(cfg)[0], device="cpu")
     with pytest.raises(NotImplementedError, match="mu_dtype"):
         ttrain.default_optimizer(mu_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tlosses.fused_linear_cross_entropy()
+    with pytest.raises(NotImplementedError, match="parallel"):
+        tlosses.fused_linear_cross_entropy(
+            torch.zeros(2, 64), torch.zeros(8, 64),
+            torch.zeros(2, dtype=torch.int32), mesh=object())
     with pytest.raises(NotImplementedError, match="wikitext"):
         tds.text_corpus(source="wikitext")
