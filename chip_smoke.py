@@ -58,15 +58,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
            E 768) with bf16 h, the f32 head and the loss mask of a real
            packed batch, the miner's N 504, a ragged N, a vocab that is not
            a multiple of the tile, labels in the last column, an all-zero
-           mask, and f32 at a small shape. Limits on
-           max |kernel - plain| / max(1, max |plain|) per output: 1e-5 in
-           f32 (summation order), 2e-2 in bf16 against the plain
+           mask, f32 at a small shape, and f32 with one vocab split.
+           Limits per output: in f32 max |kernel - plain| / max(1,
+           max |plain|) <= 1e-5 (summation order); in bf16
+           max |kernel - plain| / max |plain| <= 2e-2 against the plain
            version's f32 result on the same values (dz rounded to bf16
            before both products, as the TPU kernels round it, and dh once
-           more at the end). Times each kernel in bf16 at N 8184 and
-           N 504 (L2 flushed, median of 30) beside its bound, the plain
-           version and the materialised path (two library calls: a cuBLAS
-           bf16 GEMM to the logits and F.cross_entropy; its backward).
+           more at the end), and an exactly-zero plain output must come
+           back exactly zero. Each case also checks that the limit fails
+           a planted wrong gradient (dh or dW zeroed, or negated). Times
+           each kernel in bf16 at N 8184 and N 504 (L2 flushed, median
+           of 30) beside its bound, the plain version and the
+           materialised path (two library calls: a cuBLAS bf16 GEMM to
+           the logits and F.cross_entropy; its backward); at N 504 the
+           forward and dh also with the vocab split forced to 1.
 12. tfused phase 8 again with TrainEngine(fused_loss=True): 20 steps at B 8,
            T 1024, eval at T 512; fused CE forward launches == steps +
            eval batches, dh == dW == steps, flash counts as in phase 8;
@@ -995,6 +1000,47 @@ def _ce_bounds(N, V, E, elt=2) -> dict:
     return out
 
 
+CE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _ce_limit_errors(outs: dict, dtype: str) -> dict:
+    """Per output ``(max |kernel - plain|, the error its limit applies
+    to)``. f32: over max(1, max |plain|), as for the other kernels. bf16:
+    over max |plain| alone, so gradients far below 1 are held to their
+    rounding (an absolute 2e-2 would pass a zero dh); an exactly-zero
+    plain output (an all-zero mask's gradients) must be exactly zero."""
+    res = {}
+    for k, (a, r) in outs.items():
+        d = float((a.float() - r.float()).abs().max())
+        ref = float(r.float().abs().max())
+        if dtype == "float32":
+            res[k] = (d, d / max(1.0, ref))
+        else:
+            res[k] = (d, d / ref if ref > 0 else
+                      (0.0 if d == 0 else float("inf")))
+    return res
+
+
+def _ce_check(name: str, outs: dict, dtype: str) -> dict:
+    """Hold each output of one case to its limit (``dtype`` is the
+    kernels' input dtype), then check that the limit rejects a planted
+    wrong dh and dW: zeroed and negated, or ones where the plain one is
+    exactly zero. Returns ``{output: (abs error, limit error)}``."""
+    errs = _ce_limit_errors(outs, dtype)
+    tol = CE_TOL[dtype]
+    for k, (_, err) in errs.items():
+        check(err <= tol, f"fused CE kernel vs plain version at {name} "
+                          f"{dtype}: {k} error {err} > {tol}")
+    for k in ("dh", "dw"):
+        ref = outs[k][1]
+        planted = ((ref * 0, -ref) if bool(ref.any()) else (ref * 0 + 1,))
+        for bad in planted:
+            _, err = _ce_limit_errors({k: (bad, ref)}, dtype)[k]
+            check(not err <= tol, f"the {dtype} limit passes a planted wrong "
+                                  f"{k} at {name} (error {err})")
+    return errs
+
+
 def phase_ce(batch) -> dict:
     """Kernel vs plain version for the fused CE forward, dh and dW;
     ``batch`` is a real packed training batch [8, 1024] (its labels and
@@ -1014,32 +1060,29 @@ def phase_ce(batch) -> dict:
         "zero_mask_bf16": (300, 1000, E, bf, dict(mask=[0.0] * 300)),
         "small_f32": (70, 300, 64, f32, dict(label_last=True)),
         "miner_n504_f32": (504, V, E, f32, {}),
+        # 135 row tiles: one vocab split, outputs written by the kernels
+        # themselves (the bf16 route's one-split case is the first)
+        "one_split_n4300_f32": (4300, 1000, 128, f32, {}),
     }
     checks = []
     for i, (name, (n, v, e, dtype, kw)) in enumerate(cases.items()):
-        outs = _ce_run(*_ce_inputs(n, v, e, dtype, SEED + i, **kw))
-        tol = 1e-5 if dtype == f32 else 2e-2
-        diff = {k: (float((a.float() - r.float()).abs().max()),
-                    float(r.float().abs().max()))
-                for k, (a, r) in outs.items()}
-        errs = {k: d / max(1.0, ref) for k, (d, ref) in diff.items()}
-        checks.append({"case": name, "dtype": str(dtype).split(".")[1],
-                       "N": n, "V": v, "E": e, "scaled_err": errs,
-                       # for the record, no limit: the same difference over
-                       # max |plain| alone (gradients are far below 1)
-                       "rel_err": {k: d / ref if ref else 0.0
-                                   for k, (d, ref) in diff.items()},
-                       "tol": tol})
+        h, w, y, g = _ce_inputs(n, v, e, dtype, SEED + i, **kw)
+        splits = fused_ce._splits(h, v)
+        outs = _ce_run(h, w, y, g)
+        dt = str(dtype).split(".")[1]
         check(all(bool(torch.isfinite(a.float()).all())
                   for a, _ in outs.values()),
               f"fused CE kernels: non-finite output at {name}")
-        for k, err in errs.items():
-            check(err <= tol, f"fused CE kernel vs plain version at {name}: "
-                              f"{k} scaled error {err} > {tol}")
+        errs = _ce_check(name, outs, dt)
+        checks.append({"case": name, "dtype": dt, "N": n, "V": v, "E": e,
+                       "splits": splits,
+                       "max_abs": {k: d for k, (d, _) in errs.items()},
+                       "err": {k: x for k, (_, x) in errs.items()},
+                       "tol": CE_TOL[dt]})
         if name == "zero_mask_bf16":
             check(not outs["dh"][0].any() and not outs["dw"][0].any(),
                   "an all-zero mask must give zero gradients")
-        del outs
+        del outs, h, w
     timed = {}
     for n, seed in ((N, SEED), (504, SEED + 1)):
         h, w, y, g = _ce_inputs(n, V, E, bf, seed)
@@ -1068,10 +1111,21 @@ def phase_ce(batch) -> dict:
         bounds = _ce_bounds(n, V, E)
         for name, fn in runs.items():
             timed.setdefault(name, {})[f"n{n}"] = {
-                "ms": _time_ms(fn),
+                "ms": _time_ms(fn), "splits": fused_ce._splits(h, V),
                 "plain_ms": plain_fwd if name == "fused_ce_fwd" else plain_bwd,
                 "library_ms": lib_f if name == "fused_ce_fwd" else lib_b,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+        if n == 504:
+            # the same forward and dh with the vocab split forced to 1 (a
+            # test hook that patches the wrapper's choice): what the
+            # split grid buys at the miner's shape
+            auto = fused_ce._splits
+            fused_ce._splits = lambda h, V: 1
+            try:
+                for name in ("fused_ce_fwd", "fused_ce_bwd_dh"):
+                    timed[name]["n504"]["ms_one_split"] = _time_ms(runs[name])
+            finally:
+                fused_ce._splits = auto
         del h, w, hh, ww
         torch.cuda.empty_cache()
     res = {"checks": checks, "timed": timed,
@@ -1275,11 +1329,14 @@ def _flash_entries(flash: dict, train: dict, build: dict) -> list:
             "replaces": "distributedtraining_tpu/ops/flash_attention.py:86",
             "tpu_kernel": tpu,
             "launches": train["launches"][name],
-            # one key per value: the f32 error (limit 1e-5 / 1e-4) and
-            # the scaled bf16 error the bf16 limit applies to
+            # over every case and both dtypes (bf16 dominates)
             "max_abs_err": max(c["max_abs"][key] for c in checks
-                               for key in keys
-                               if c["dtype"] == "float32"),
+                               for key in keys),
+            # what the f32 limit (1e-5 / 1e-4) applies to
+            "max_abs_err_f32": max(c["max_abs"][key] for c in checks
+                                   for key in keys
+                                   if c["dtype"] == "float32"),
+            # what the bf16 limit applies to
             "max_scaled_err_bf16": max(c["max_scaled"][key] for c in checks
                                        if "max_scaled" in c
                                        for key in keys),
@@ -1302,15 +1359,23 @@ def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict) -> list:
             # the miner's round, the slice's main path
             "launches": miner["launches"][name],
             "launches_train_fused": tfused["launches"][name],
-            # one key per value: the f32 error (limit 1e-5) and the bf16
-            # one (limit 2e-2), each max |kernel - plain| / max(1, |plain|)
-            "max_abs_err": max(c["scaled_err"][k] for c in checks
-                               for k in keys if c["dtype"] == "float32"),
-            "max_scaled_err_bf16": max(c["scaled_err"][k] for c in checks
-                                       for k in keys
-                                       if c["dtype"] == "bfloat16"),
+            # over every case and both dtypes (bf16 dominates)
+            "max_abs_err": max(c["max_abs"][k] for c in checks
+                               for k in keys),
+            # what the limits apply to: in f32 max |kernel - plain| /
+            # max(1, max |plain|) <= 1e-5, in bf16 over max |plain|
+            # alone <= 2e-2
+            "max_scaled_err_f32": max(c["err"][k] for c in checks
+                                      for k in keys
+                                      if c["dtype"] == "float32"),
+            "max_rel_err_bf16": max(c["err"][k] for c in checks
+                                    for k in keys
+                                    if c["dtype"] == "bfloat16"),
             **big,
-            "ms_n504": small["ms"], "plain_ms_n504": small["plain_ms"],
+            "ms_n504": small["ms"], "splits_n504": small["splits"],
+            **({"ms_n504_one_split": small["ms_one_split"]}
+               if "ms_one_split" in small else {}),
+            "plain_ms_n504": small["plain_ms"],
             "library_ms_n504": small["library_ms"],
             "bound_ms_n504": small["bound_ms"],
             "library": ce["library"], "timed_shape": ce["timed_shape"],
@@ -1350,11 +1415,10 @@ def main() -> int:
         "tpu_kernel": "distributedtraining_tpu/ops/paged_attention.py:"
                       "_decode_kernel",
         "launches": serve["kernel_launches"],
-        # one key per value: the f32 error and the bf16 one (both abs)
-        "max_abs_err": max(c["max_abs_err"] for c in kern["checks"]
-                           if c["dtype"] == "float32"),
-        "max_abs_err_bf16": max(c["max_abs_err"] for c in kern["checks"]
-                                if c["dtype"] == "bfloat16"),
+        # over every case and both dtypes (bf16 dominates)
+        "max_abs_err": max(c["max_abs_err"] for c in kern["checks"]),
+        "max_abs_err_f32": max(c["max_abs_err"] for c in kern["checks"]
+                               if c["dtype"] == "float32"),
         "ms": kern["kernel_ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],

@@ -139,9 +139,11 @@ class RunConfig:
         kw = {k: v for k, v in vars(ns).items() if k in fields}
         return cls(role=role, mesh=mesh, **kw)
 
-    def check_ported(self) -> None:
+    def check_ported(self, device: str = "cuda") -> None:
         """Raise NotImplementedError for the first value whose machinery
-        is not ported, naming its slice."""
+        is not ported, naming its slice. ``device`` is where the miner
+        will run: on the card, ``--fused-loss`` also needs a width the
+        CE kernels take (the CPU's plain version takes any)."""
         m = self.mesh
         refused = [
             (self.backend == "hf",
@@ -188,6 +190,12 @@ class RunConfig:
                 raise NotImplementedError(
                     f"{what} is not ported to the PyTorch miner yet: "
                     f"{_SLICES}, slice {slice_no}")
+        if self.fused_loss and device == "cuda":
+            from .models.gpt2 import PRESETS
+            from .ops.fused_ce import refuse_width
+            preset = PRESETS.get(self.model)
+            if preset is not None:
+                refuse_width(preset.n_embd, preset.compute_dtype())
 
 
 def _nonneg_float(value: str) -> float:

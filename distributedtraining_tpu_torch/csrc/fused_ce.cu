@@ -39,12 +39,13 @@
 //    thread keeps an online (max, sum, label logit) over the columns it
 //    holds; the block merges them per row and writes one partial per
 //    (split, row); a second small kernel merges the splits into
-//    (loss, m, s).
+//    (loss, m, s). With one split the block writes (loss, m, s) itself.
 //  - dh: a block owns 32 rows, one vocab split and a pass of E columns
 //    (all of E = 768 in one pass), with its dh accumulator in registers
 //    (96 floats a thread). It walks its vocab tiles of 64: z tile, dz
 //    (rounded, to shared memory), dh += dz W. Recompute factor E / pass
-//    (1 at E = 768). Partials per split are f32; a reduce kernel sums the
+//    (1 at E = 768). With one split the block rounds dh and writes it;
+//    with more, partials per split are f32 and a reduce kernel sums the
 //    splits in order and rounds once to h's dtype.
 //  - dW: a block owns 32 vocab rows and a pass of E, and walks all the
 //    tokens in tiles of 64: z tile, dz, dW += dz^T h. It writes dW once.
@@ -98,6 +99,23 @@ __device__ __forceinline__ void merge_ms(float& m, float& s, float mo,
   if (mn == -INFINITY) return;
   s = (s > 0.f ? s * expf(m - mn) : 0.f) + (so > 0.f ? so * expf(mo - mn) : 0.f);
   m = mn;
+}
+
+// one row's (max, sum, label logit) over this split's columns: the
+// outputs themselves with one split, else the split's partial
+__device__ __forceinline__ void store_fwd(const Args& a, int split, int n,
+                                          float m, float s, float ll) {
+  if (a.splits == 1) {
+    a.loss[n] = m + logf(s) - ll;
+    a.m_out[n] = m;
+    a.s_out[n] = s;
+    return;
+  }
+  const long long i = (long long)split * a.N + n;
+  const long long plane = (long long)a.splits * a.N;
+  a.part[i] = m;
+  a.part[plane + i] = s;
+  a.part[2 * plane + i] = ll;
 }
 
 // ===========================================================================
@@ -300,11 +318,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_mma(const Args a) {
       merge_ms(M, S, sRed[q * kRows + row], sRed[4 * kRows + q * kRows + row]);
       L += sRed[8 * kRows + q * kRows + row];
     }
-    const long long i = (long long)split * a.N + row0 + row;
-    const long long plane = (long long)a.splits * a.N;
-    a.part[i] = M;
-    a.part[plane + i] = S;
-    a.part[2 * plane + i] = L;
+    store_fwd(a, split, row0 + row, M, S, L);
   }
 }
 
@@ -384,7 +398,16 @@ __global__ void __launch_bounds__(kThreads) ce_dh_mma(const Args a) {
     for (int r = 0; r < 2; ++r) {
       const int n_row = row0 + q * 16 + g + 8 * r;
       if (n_row >= a.N) continue;
-      float* dst = a.part + ((long long)split * a.N + n_row) * E + ew + 2 * t;
+      const long long off = (long long)n_row * E + ew + 2 * t;
+      if (a.splits == 1) {  // dh itself, rounded once
+        bf16* dst = static_cast<bf16*>(a.dh) + off;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+              __floats2bfloat162_rn(acc[q][n][2 * r], acc[q][n][2 * r + 1]);
+        continue;
+      }
+      float* dst = a.part + (long long)split * a.N * E + off;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
         *reinterpret_cast<float2*>(dst + 8 * n) =
@@ -563,18 +586,12 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_f32(const Args a) {
       ll[r] += __shfl_xor_sync(kFull, ll[r], o);
       merge_ms(m[r], s[r], mo, so);
     }
-  if (tc == 0) {
-    const long long plane = (long long)a.splits * a.N;
+  if (tc == 0)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int n = row0 + tr + 16 * r;
-      if (n >= a.N) continue;
-      const long long i = (long long)split * a.N + n;
-      a.part[i] = m[r];
-      a.part[plane + i] = s[r];
-      a.part[2 * plane + i] = ll[r];
+      if (n < a.N) store_fwd(a, split, n, m[r], s[r], ll[r]);
     }
-  }
 }
 
 __global__ void __launch_bounds__(kThreads) ce_dh_f32(const Args a) {
@@ -637,7 +654,9 @@ __global__ void __launch_bounds__(kThreads) ce_dh_f32(const Args a) {
   for (int r = 0; r < 2; ++r) {
     const int n = row0 + tr + 16 * r;
     if (n >= a.N) continue;
-    float* dst = a.part + ((long long)split * a.N + n) * a.E + e0 + tc;
+    const long long off = (long long)n * a.E + e0 + tc;
+    float* dst = a.splits == 1 ? static_cast<float*>(a.dh) + off
+                               : a.part + (long long)split * a.N * a.E + off;
 #pragma unroll
     for (int j = 0; j < kFPass / 16; ++j) dst[16 * j] = acc[r][j];
   }
@@ -758,9 +777,11 @@ size_t smem_bytes(Which w, int E) {
   return (kWRows + kTTile) * ld * 2 + kTTile * kLdDw * 2 + 4 * kTTile * 4;
 }
 
-// widest pass (in 8-column tiles a warp) that divides E
+// widest pass (in 8-column tiles a warp) that divides E: all of E 768 or
+// half of E 1024 (GPT-2-124M, -355M); 64 columns for any other E (the
+// tiny and mini presets)
 int pass_tiles(int E) {
-  const int choices[5] = {12, 8, 4, 2, 1};
+  const int choices[3] = {12, 8, 1};
   for (int nt : choices)
     if (E % (64 * nt) == 0) return nt;
   return 0;
@@ -793,8 +814,6 @@ cudaError_t launch_bwd_mma_any(Which w, const Args& a, cudaStream_t st) {
   switch (pass_tiles(a.E)) {
     case 12: return launch_bwd_mma<12>(w, a, st);
     case 8: return launch_bwd_mma<8>(w, a, st);
-    case 4: return launch_bwd_mma<4>(w, a, st);
-    case 2: return launch_bwd_mma<2>(w, a, st);
     case 1: return launch_bwd_mma<1>(w, a, st);
     default: return cudaErrorInvalidValue;
   }
@@ -823,7 +842,7 @@ cudaError_t run(Which w, Args& a, int dtype, int device, void* stream) {
       ce_fwd_f32<<<grid, kThreads, 0, st>>>(a);
     }
     cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess || a.splits == 1) return err;
     ce_fwd_merge<<<(a.N + 255) / 256, 256, 0, st>>>(a);
     return cudaGetLastError();
   }
@@ -837,7 +856,7 @@ cudaError_t run(Which w, Args& a, int dtype, int device, void* stream) {
       ce_dh_f32<<<grid, kThreads, 0, st>>>(a);
       err = cudaGetLastError();
     }
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess || a.splits == 1) return err;
     const long long total = (long long)a.N * a.E;
     const int blocks = (int)((total + 1023) / 1024 < 4096 ? (total + 1023) / 1024
                                                           : 4096);
@@ -861,7 +880,8 @@ cudaError_t run(Which w, Args& a, int dtype, int device, void* stream) {
 // static CUDA runtime, whose current device is not the caller's). All
 // tensors are contiguous. Each returns a cudaError_t (0 = launched).
 
-// part: f32 scratch [3][splits][N]; loss, m, s: f32 [N]
+// part: f32 scratch [3][splits][N] (unused, may be null, with one split);
+// loss, m, s: f32 [N]
 extern "C" int dt_ce_fwd(const void* h, const void* w, const void* y,
                          void* part, void* loss, void* m, void* s, int N,
                          int V, int E, int splits, int dtype, int device,
@@ -881,7 +901,8 @@ extern "C" int dt_ce_fwd(const void* h, const void* w, const void* y,
   return run(Which::kFwd, a, dtype, device, stream);
 }
 
-// part: f32 scratch [splits][N][E]; dh: [N, E] in h's dtype
+// part: f32 scratch [splits][N][E] (unused, may be null, with one
+// split); dh: [N, E] in h's dtype
 extern "C" int dt_ce_dh(const void* h, const void* w, const void* y,
                         const void* m, const void* s, const void* g,
                         void* part, void* dh, int N, int V, int E, int splits,

@@ -46,6 +46,7 @@ import torch
 from .. import delta as delta_lib
 from ..models.gpt2 import (init_params_numpy, params_from_numpy,
                            params_to_numpy, resolve_device)
+from ..ops import fused_ce
 from ..ops.losses import causal_lm_loss, fused_linear_cross_entropy
 from ..utils import obs
 from .scheduler import Clock, PeriodicAction, RealClock
@@ -269,6 +270,8 @@ class TrainEngine:
         self.fused_loss = fused_loss
         self.accum_steps = accum_steps
         self.device = resolve_device(device)
+        if fused_loss and cfg is not None and self.device.type == "cuda":
+            fused_ce.refuse_width(cfg.n_embd, cfg.compute_dtype())
 
     def _loss(self, params: Params, batch: dict):
         fn = _fused_lm_loss if self.fused_loss else _default_lm_loss

@@ -104,7 +104,8 @@ class Components:
 def build(cfg: RunConfig) -> Components:
     """The miner's components. Raises NotImplementedError for a flag
     value the port has not brought over (``RunConfig.check_ported``)."""
-    cfg.check_ported()
+    device = resolve_role_device()
+    cfg.check_ported(device)
     if cfg.model not in gpt2.PRESETS:
         raise NotImplementedError(
             f"--model {cfg.model}: the port has the GPT-2 presets "
@@ -120,7 +121,7 @@ def build(cfg: RunConfig) -> Components:
                                     grad_clip=cfg.grad_clip,
                                     weight_decay=cfg.weight_decay),
         fused_loss=cfg.fused_loss, accum_steps=cfg.accum_steps,
-        device=resolve_role_device())
+        device=device)
     if cfg.backend == "memory":
         transport = InMemoryTransport()
     else:

@@ -46,7 +46,20 @@ from . import _cuda
 launches = {"fused_ce_fwd": 0, "fused_ce_bwd_dh": 0, "fused_ce_bwd_dw": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_E_BF16 = 1024   # the bf16 kernels stage whole rows of h and W
+MAX_E_BF16 = 1024   # the bf16 kernels stage whole rows of h and W
+_SLICES = "ROADMAP 'Slices of the port'"
+
+
+def refuse_width(E: int, dtype: torch.dtype) -> None:
+    """Raise NotImplementedError for a hidden width the card's kernels do
+    not take in ``dtype``: bf16 above :data:`MAX_E_BF16` (GPT-2-774M's
+    1280 and -1.5B's 1600; K-chunked staging comes with the larger models).
+    Callers check it before any work, not at the first step."""
+    if dtype == torch.bfloat16 and E > MAX_E_BF16:
+        raise NotImplementedError(
+            f"the fused CE kernels take a bf16 hidden width up to "
+            f"{MAX_E_BF16}, not {E} (they stage whole rows in shared "
+            f"memory); K-chunked staging is {_SLICES}, slice 7")
 
 
 @functools.cache
@@ -81,9 +94,9 @@ def _check(h, w, y, *stats) -> None:
     if N < 1 or w.shape[0] < 1 or E % 64:
         raise ValueError(f"unsupported shape h {tuple(h.shape)}, w "
                          f"{tuple(w.shape)} (E a multiple of 64)")
-    if h.dtype == torch.bfloat16 and E > _MAX_E_BF16:
+    if h.dtype == torch.bfloat16 and E > MAX_E_BF16:
         raise ValueError(f"bf16 E = {E} exceeds the kernels' "
-                         f"{_MAX_E_BF16}")
+                         f"{MAX_E_BF16}")
     if not (h.is_contiguous() and w.is_contiguous()):
         raise ValueError("h and w must be contiguous")
     if y.shape != (N,) or y.dtype != torch.int32 or not y.is_contiguous():
@@ -96,10 +109,15 @@ def _check(h, w, y, *stats) -> None:
 def _splits(h: torch.Tensor, V: int) -> int:
     """Vocab splits of the forward and dh grids: enough blocks for one
     wave when the row tiles alone leave SMs idle (the miner's N = 504 has
-    16 row tiles on 132 SMs), else 1."""
+    16 row tiles on 132 SMs), else 1. With one split the kernels write
+    their outputs themselves and no merge or reduce kernel runs."""
     row_tiles = -(-h.shape[0] // 32)
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     return max(1, min(-(-V // 64), sms // row_tiles))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -118,13 +136,14 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor
     _check(h, w, y)
     (N, E), V = h.shape, w.shape[0]
     splits = _splits(h, V)
-    part = torch.empty((3, splits, N), dtype=torch.float32, device=h.device)
+    part = (torch.empty((3, splits, N), dtype=torch.float32, device=h.device)
+            if splits > 1 else None)
     loss, m, s = (torch.empty(N, dtype=torch.float32, device=h.device)
                   for _ in range(3))
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels()["fwd"](
-            h.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
+            h.data_ptr(), w.data_ptr(), y.data_ptr(), _ptr(part),
             loss.data_ptr(), m.data_ptr(), s.data_ptr(), N, V, E, splits,
             _DTYPES[h.dtype], h.device.index, stream)
     _raise_on(err, "fused_ce_fwd")
@@ -138,13 +157,14 @@ def fused_ce_bwd_dh(h, w, y, m, s, g) -> torch.Tensor:
     _check(h, w, y, m, s, g)
     (N, E), V = h.shape, w.shape[0]
     splits = _splits(h, V)
-    part = torch.empty((splits, N, E), dtype=torch.float32, device=h.device)
+    part = (torch.empty((splits, N, E), dtype=torch.float32, device=h.device)
+            if splits > 1 else None)
     dh = torch.empty((N, E), dtype=h.dtype, device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels()["dh"](
             h.data_ptr(), w.data_ptr(), y.data_ptr(), m.data_ptr(),
-            s.data_ptr(), g.data_ptr(), part.data_ptr(), dh.data_ptr(),
+            s.data_ptr(), g.data_ptr(), _ptr(part), dh.data_ptr(),
             N, V, E, splits, _DTYPES[h.dtype], h.device.index, stream)
     _raise_on(err, "fused_ce_bwd_dh")
     return dh

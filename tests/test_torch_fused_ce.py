@@ -155,3 +155,76 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tfce.fused_ce_bwd_dh(h, w, y, stats, stats, stats)
     with pytest.raises(ValueError, match="CUDA"):
         tfce.fused_ce_bwd_dw(h, w, y, stats, stats, stats)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it runs nothing on import)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16_outs(mask):
+    """The card check's pairs for one bf16 case, with the plain versions
+    on bf16 inputs standing in for the kernels (the same rounding points:
+    dz to bf16 before both products, dh once more) against the f32 plain
+    versions on the same values."""
+    hidden, wte, labels, _ = _case(V=300, E=64, N=1024, seed=7)
+    h = torch.from_numpy(hidden).to(torch.bfloat16)
+    w = (torch.from_numpy(wte) * 0.1).to(torch.bfloat16)
+    y = torch.from_numpy(labels)
+    g = torch.from_numpy(mask) / max(float(mask.sum()), 1.0)
+    loss, m, s = tfce.fused_ce_fwd_reference(h, w, y)
+    dh, dw = tfce.fused_ce_bwd_reference(h, w, y, m, s, g)
+    hf, wf = h.float(), w.float()
+    r_loss, r_m, r_s = tfce.fused_ce_fwd_reference(hf, wf, y)
+    r_dh, r_dw = tfce.fused_ce_bwd_reference(hf, wf, y, r_m, r_s, g)
+    return {"loss": (loss, r_loss), "m": (m, r_m), "s": (s, r_s),
+            "dh": (dh, r_dh), "dw": (dw, r_dw)}
+
+
+@pytest.mark.parametrize("zero_mask", [False, True])
+def test_card_check_passes_the_bf16_rounding(zero_mask):
+    """The ce phase's bf16 limit (over max |plain|, 2e-2) passes the bf16
+    rounding points, with gradients far below 1; an all-zero mask's
+    gradients are exactly zero."""
+    smoke = _chip_smoke()
+    mask = np.full(1024, 0.0 if zero_mask else 1.0, np.float32)
+    outs = _bf16_outs(mask)
+    assert float(outs["dh"][1].abs().max()) < 0.02 or zero_mask
+    errs = smoke._ce_check("cpu", outs, "bfloat16")
+    assert max(e for _, e in errs.values()) <= smoke.CE_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("key", ["dh", "dw"])
+@pytest.mark.parametrize("wrong", ["zero", "negated", "half", "nonzero"])
+def test_card_check_fails_a_wrong_gradient(key, wrong):
+    """A kernel that returned a zeroed, negated or halved dh or dW (or a
+    nonzero one where the plain one is zero) fails the ce phase, though
+    every such gradient is below the 2e-2 an absolute limit would take."""
+    smoke = _chip_smoke()
+    mask = np.full(1024, 0.0 if wrong == "nonzero" else 1.0, np.float32)
+    outs = _bf16_outs(mask)
+    a, r = outs[key]
+    bad = {"zero": a * 0, "negated": -a, "half": a * 0.5,
+           "nonzero": a * 0 + 1e-3}[wrong]
+    assert float((bad.float() - r).abs().max()) < 2e-2
+    outs[key] = (bad, r)
+    with pytest.raises(smoke.SmokeFailure, match=key):
+        smoke._ce_check("cpu", outs, "bfloat16")
+
+
+@pytest.mark.parametrize("E,dtype,refused", [
+    (768, torch.bfloat16, False), (1024, torch.bfloat16, False),
+    (1280, torch.bfloat16, True), (1600, torch.bfloat16, True),
+    (1600, torch.float32, False)])
+def test_width_refusal(E, dtype, refused):
+    if refused:
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            tfce.refuse_width(E, dtype)
+    else:
+        tfce.refuse_width(E, dtype)

@@ -216,10 +216,39 @@ def test_nan_guard_refuses_the_push_like_jax(world):
     assert jt.fetch_delta_bytes("m0") is None
 
 
+def _port_round(world, push_async):
+    """The port's loop alone on the round of ``_run_pair``. An async push
+    is drained before the loop goes on, so no push is superseded by the
+    next one however the worker thread is scheduled."""
+    model, _ = tg.make_model(TINY)
+    t = InMemoryTransport()
+    t.publish_base(world["bases"][0])
+    loop = ttrain.MinerLoop(ttrain.TrainEngine(model, device="cpu"), t, "m0",
+                            clock=FakeClock(), send_interval=4.0,
+                            check_update_interval=3.0, log_every=10**9,
+                            push_async=push_async)
+    submit = loop._publisher.submit
+
+    def submit_and_drain(*args, **kw):
+        dropped = submit(*args, **kw)
+        assert loop._publisher.flush(timeout=60)
+        return dropped
+
+    loop._publisher.submit = submit_and_drain
+    loop.bootstrap()
+    loop.run(_schedule(loop, world["train"][:10],
+                       lambda: t.publish_base(world["bases"][1])),
+             max_steps=10)
+    loop.flush()
+    loop.close()
+    return t, loop.report
+
+
 def test_async_and_sync_artifacts_byte_identical(world):
-    t_sync, l_sync, _, _ = _run_pair(world, push_async=False)
-    t_async, l_async, _, _ = _run_pair(world, push_async=True)
-    assert l_sync.report.pushes == l_async.report.pushes >= 2
+    t_sync, r_sync = _port_round(world, push_async=False)
+    t_async, r_async = _port_round(world, push_async=True)
+    assert r_sync.pushes == r_async.pushes >= 2
+    assert r_async.pushes_superseded == 0 and r_async.pushes_failed == 0
     assert t_sync.fetch_delta_bytes("m0") == t_async.fetch_delta_bytes("m0")
 
 
@@ -268,11 +297,31 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
     (MINER_ARGS + ["--lora-rank", "4"], 7),
     (MINER_ARGS + ["--fsdp", "2"], 7),
     (MINER_ARGS + ["--metrics-path", "m.jsonl"], 7),
+    (MINER_ARGS + ["--model", "gpt2-774m"], 7),  # bf16 E 1280, fused
+    (MINER_ARGS + ["--model", "gpt2-1.5b"], 7),  # bf16 E 1600, fused
 ])
 def test_config_refuses_what_is_not_ported(extra, slice_no):
     cfg = RunConfig.from_args("miner", extra)
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         cfg.check_ported()
+
+
+def test_fused_loss_width_refused_on_the_card_only(monkeypatch):
+    """--fused-loss at a bf16 width the CE kernels do not take is refused
+    before any work where the kernels would run (the card), by the
+    config and by the engine, and runs on the CPU's plain version."""
+    wide = MINER_ARGS + ["--model", "gpt2-774m"]
+    RunConfig.from_args("miner", wide).check_ported("cpu")
+    RunConfig.from_args("miner", MINER_ARGS + ["--model", "gpt2-355m"]
+                        ).check_ported()
+    model, _ = tg.make_model(dataclasses.replace(TINY, dtype="bfloat16",
+                                                 n_embd=1280, n_head=20))
+    ttrain.TrainEngine(model, fused_loss=True, device="cpu")
+    monkeypatch.setattr(ttrain, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        ttrain.TrainEngine(model, fused_loss=True)
+    ttrain.TrainEngine(model, fused_loss=False)
 
 
 # ---------------------------------------------------------------------------
