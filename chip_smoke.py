@@ -89,10 +89,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
            launches equal the steps and evals the loop ran. Then
            ``neurons.miner.main`` once with the README's flags for a few
            steps; it must leave a pushed delta on disk.
+15. scatter holds the dequantize-scatter-add kernel against its plain
+           version (run on CPU copies, where index_add_ adds in index
+           order): int8 and f32 q, unique, random-duplicate and all-equal
+           indices, k 1, wte's n (38,633,472 > 2^24) with duplicates, and
+           all 50 indexed leaves of one GPT-2-124M wire-v2 contribution.
+           Limit: bit-exact (max |kernel - plain| = 0), and the check
+           must reject a planted wrong result (one entry dropped, one
+           value negated) in every case. Times the wte leaf and the whole
+           contribution (L2 flushed, median of 30) beside the byte bound,
+           the plain version on the card and index_add_.
+16. averager the port's averager round at GPT-2-124M full width and depth
+           over LocalFS and a LocalChain in a temporary directory: genesis
+           publish; a MinerLoop --wire-v2 miner (fused loss, seq 64, batch
+           8, 4 steps), packed int8 and f32 miners, a dense v1 miner, an
+           index-out-of-range miner (no_delta) and an over-cap one
+           (magnitude_exceeded), weights from LocalChain.set_weights.
+           Round 1: the packed submissions reach the merge un-densified,
+           dequant_scatter launches == 50 indexed leaves x 3 packed,
+           flash forward == 12 x evaluated batches, the published base
+           equals base + sum w_i decode(d_i) by the plain versions within
+           1e-6, the improved guard publishes. Round 2: the miner pulls,
+           trains and pushes; it is merged, the rest are skipped as
+           stale. Then ``neurons.averager.main`` with the README's flags
+           for one round must publish a new base and return 0. Prints the
+           round's wall time split into ingest, merge and eval, the
+           merge's device time from torch.profiler, its idle share and
+           the peak memory.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
-line, a ``miner`` JSON line, the ``nvidia-smi`` name/power-limit line, and
-as the last line
+line, a ``miner`` JSON line, an ``averager`` JSON line, the
+``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -116,6 +143,7 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores, same sheet
 H100_BF16_FLOPS = 989e12       # bf16 tensor cores, dense, same sheet
 SEED = 0
+DEV = "cuda"        # where the scatter and averager phases place tensors
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 1024, 20
 EVAL_T, EVAL_BATCHES = 512, 4
 
@@ -1306,6 +1334,497 @@ def _leaves(tree):
             yield v.float().numpy() if isinstance(v, torch.Tensor) else v
 
 
+# ---------------------------------------------------------------------------
+# 15. scatter, 16. averager
+# ---------------------------------------------------------------------------
+
+SCATTER_SOURCE = "distributedtraining_tpu_torch/csrc/dequant_scatter.cu"
+SCATTER_TPU = ("distributedtraining_tpu/ops/dequant_scatter.py:68",
+               "_scatter_kernel via _build_call (:85, pallas_call :86)")
+AVG_MINER_STEPS = 4
+AVG_EVAL_BATCHES = 4
+README_AVERAGER_FLAGS = [
+    "--backend", "local", "--model", "gpt2-124m", "--dataset", "synthetic",
+    "--tokenizer", "word", "--strategy", "weighted", "--no-base-wire-v2",
+    "--no-lineage", "--flight-events", "0"]
+
+
+def _scatter_case(n, k, mode, int8, seed):
+    """A CPU accumulator [n] and an entry (idx [k] int32, q int8/f32):
+    unique, random-duplicate (from a quarter of n) or all-equal
+    indices."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    acc = torch.randn(n, generator=g) * 0.01
+    if mode == "unique":
+        idx = torch.randperm(n, generator=g)[:k]
+    elif mode == "dups":
+        idx = torch.randint(0, max(1, n // 4), (k,), generator=g)
+    else:
+        idx = torch.full((k,), n // 3)
+    q = (torch.randint(-127, 128, (k,), generator=g, dtype=torch.int8)
+         if int8 else torch.randn(k, generator=g))
+    return acc, idx.to(torch.int32), q
+
+
+def _scatter_err(out, ref) -> float:
+    return float((out.float().cpu() - ref.float().cpu()).abs().max())
+
+
+def _scatter_check(name: str, out, ref) -> float:
+    """The limit: bit-exact, max |kernel - plain| = 0 (the same two
+    rounded operations in the same order)."""
+    err = _scatter_err(out, ref)
+    check(err == 0.0, f"dequant-scatter kernel vs plain version at {name}: "
+                      f"max abs {err} != 0")
+    return err
+
+
+def _scatter_planted(acc0, idx, q, sw):
+    """Plain results of two wrong kernels on the same inputs: one entry
+    dropped, and one entry's value negated (an entry whose q is nonzero).
+    The check must reject both."""
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    import torch
+    j = int((q != 0).nonzero()[0])
+    keep = torch.ones(idx.numel(), dtype=torch.bool)
+    keep[j] = False
+    dropped = dsc.dequant_scatter_add_plain(acc0.clone(), idx[keep], q[keep],
+                                            sw)
+    neg = q.clone()
+    neg[j] = -neg[j]
+    negated = dsc.dequant_scatter_add_plain(acc0.clone(), idx, neg, sw)
+    return {"dropped": dropped, "negated": negated}
+
+
+def _contribution(seed):
+    """One GPT-2-124M wire-v2 contribution at the miner's defaults
+    (density 1/64, int8), packed on the card from a random delta: its
+    indexed leaves as (state-dict key, idx, q, sw) on the card."""
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    model, _ = gpt2.make_model(gpt2.PRESETS["gpt2-124m"])
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    d = {k: torch.randn(v.shape, generator=g, device=DEV) * 1e-3
+         for k, v in model.state_dict().items()}
+    packed, _ = delta.pack_delta_v2(d, density=1.0 / 64.0, quant="int8")
+    leaves = []
+    for key, e in delta._packed_entries(packed["leaves"]):
+        if e["idx"].numel():
+            leaves.append((key, e["idx"], e["q"],
+                           dsc.fold_weight(0.37, float(e["scale"]))))
+    return {k: v.shape for k, v in d.items()}, leaves
+
+
+def _scatter_bound(entries) -> tuple[float, str]:
+    """Least time: idx and q read once and one accumulator word read and
+    written (8 B) per entry over the memory rate, vs a multiply and an
+    add per entry at the f32 rate."""
+    nbytes = sum(idx.numel() * (4 + q.element_size() + 8)
+                 for idx, q in entries)
+    ops = sum(2 * idx.numel() for idx, _ in entries)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def phase_scatter() -> dict:
+    """Kernel vs plain version for the dequantize-scatter-add (the plain
+    one on CPU copies, where index_add_ adds in index order): bit-exact,
+    and the check must reject planted wrong results; then timing."""
+    import torch
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    cases = {
+        "unique_int8": (1 << 20, 16384, "unique", True),
+        "unique_f32": (1 << 20, 16384, "unique", False),
+        "dups_int8": (200000, 60000, "dups", True),
+        "dups_f32": (200000, 60000, "dups", False),
+        "alldup_int8": (65536, 20000, "alldup", True),
+        "alldup_f32": (65536, 20000, "alldup", False),
+        "k1": (100000, 1, "unique", True),
+        # wte's n (50304 x 768 > 2^24 elements) at its k, with duplicates
+        "wte_n_dups_int8": (38633472, 603648, "dups", True),
+    }
+    checks = []
+    for i, (name, (n, k, mode, int8)) in enumerate(cases.items()):
+        acc0, idx, q = _scatter_case(n, k, mode, int8, SEED + i)
+        sw = dsc.fold_weight(0.37, 0.0123)
+        ref = dsc.dequant_scatter_add_plain(acc0.clone(), idx, q, sw)
+        out = dsc.dequant_scatter_kernel(acc0.to(DEV, copy=True),
+                                         idx.to(DEV), q.to(DEV), sw)
+        torch.cuda.synchronize()
+        err = _scatter_check(name, out, ref)
+        planted = {}
+        for what, bad in _scatter_planted(acc0, idx, q, sw).items():
+            planted[what] = _scatter_err(bad, out)
+            check(planted[what] > 0, f"the scatter check passes a planted "
+                                     f"wrong result ({what}) at {name}")
+        checks.append({"case": name, "n": n, "k": k, "mode": mode,
+                       "q": "int8" if int8 else "float32",
+                       "max_abs_err": err, "planted_err": planted})
+    # the main path's shapes: one whole GPT-2-124M contribution
+    shapes, leaves = _contribution(SEED)
+    acc = {key: torch.randn(shapes[key], device=DEV) * 0.01
+           for key, _, _, _ in leaves}
+    acc_cpu = {k: v.cpu().clone() for k, v in acc.items()}
+    for key, idx, q, sw in leaves:
+        dsc.dequant_scatter_kernel(acc[key].view(-1), idx, q, sw)
+        dsc.dequant_scatter_add_plain(acc_cpu[key].view(-1), idx.cpu(),
+                                      q.cpu(), sw)
+    torch.cuda.synchronize()
+    err = max(_scatter_check(f"contribution:{key}", acc[key], acc_cpu[key])
+              for key, _, _, _ in leaves)
+    checks.append({"case": "contribution_gpt2_124m", "leaves": len(leaves),
+                   "k": sum(idx.numel() for _, idx, _, _ in leaves),
+                   "max_abs_err": err})
+    # timing, L2 flushed, median of 30: the wte leaf and the contribution
+    wte = [x for x in leaves if x[0] == "wte"]
+    timed = {}
+    for label, part in (("wte", wte), ("contribution", leaves)):
+        flat = {key: acc[key].view(-1) for key, _, _, _ in part}
+        lib_in = [(flat[key], idx.long(), q.float(), sw)
+                  for key, idx, q, sw in part]
+
+        def run_kernel(part=part, flat=flat):
+            for key, idx, q, sw in part:
+                dsc.dequant_scatter_kernel(flat[key], idx, q, sw)
+
+        def run_plain(part=part, flat=flat):
+            for key, idx, q, sw in part:
+                dsc.dequant_scatter_add_plain(flat[key], idx, q, sw)
+
+        def run_library(lib_in=lib_in):
+            for a, il, qf, sw in lib_in:
+                a.index_add_(0, il, qf, alpha=sw)
+
+        bound_ms, bound_by = _scatter_bound([(idx, q)
+                                             for _, idx, q, _ in part])
+        timed[label] = {
+            "ms": _time_ms(run_kernel), "plain_ms": _time_ms(run_plain),
+            "library_ms": _time_ms(run_library), "bound_ms": bound_ms,
+            "bound_by": bound_by, "leaves": len(part),
+            "k": sum(idx.numel() for _, idx, _, _ in part)}
+    res = {"checks": checks, "timed": timed,
+           "timed_shape": "GPT-2-124M wire-v2 contribution (density 1/64, "
+                          "int8): wte leaf n 38633472 k 603648; all 50 "
+                          "indexed leaves, k 1943040",
+           "library": "index_add_(alpha=sw) on pre-converted f32 values "
+                      "and int64 indices, one call a leaf",
+           "bound_note": "4-byte updates at random positions move 32-byte "
+                         "sectors: the memory system carries up to 8x the "
+                         "bound's accumulator bytes"}
+    log("scatter phase:", json.dumps(res))
+    return res
+
+
+def _timed_calls(obj, name: str, secs: dict, keep: dict | None = None):
+    """Wrap ``obj.name`` so that each call's wall time, between two
+    device synchronisations, adds to ``secs[name]`` (and its result is
+    kept in ``keep[name]``): a measuring hook of this script."""
+    import torch
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        if keep is not None:
+            keep[name] = out
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def _publish_packed(t, hotkey, d, rev, quant):
+    """A miner that is not a MinerLoop: pack_delta_v2 of ``d`` published
+    through DeltaPublisher(wire_spec=...) with its rider."""
+    from distributedtraining_tpu_torch import delta
+    packed, _ = delta.pack_delta_v2(d, density=1.0 / 64.0, quant=quant)
+    return _publish_tree(t, hotkey, packed, rev, quant)
+
+
+def _publish_tree(t, hotkey, packed, rev, quant):
+    from distributedtraining_tpu_torch.engine.publish import DeltaPublisher
+    from distributedtraining_tpu_torch.engine.train import MinerReport
+    pub = DeltaPublisher(t, hotkey, report=MinerReport(),
+                         wire_spec={"format": 2, "density": 1.0 / 64.0,
+                                    "quant": quant})
+    ok = pub.publish_now(packed, None, rev, f"{hotkey}-000001")
+    pub.close()
+    check(ok, f"publishing {hotkey}'s packed delta failed")
+
+
+def _merge_profile(loop, deltas, ids) -> dict:
+    """torch.profiler over one more merge of the round's submissions:
+    device time by kernel (the scatter kernels and the host-to-device
+    copies of idx/q apart), wall, idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.strategy.merge(loop.engine, loop.base_params, deltas, ids)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            k = by.setdefault(evt.name, [0.0, 0])
+            k[0] += evt.time_range.elapsed_us() / 1e3
+            k[1] += 1
+    busy = sum(v[0] for v in by.values())
+    check(by, "the merge profile saw no device time")
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms,
+            "scatter_kernels_ms": sum(v[0] for n, v in by.items()
+                                      if n.startswith("dsc_")
+                                      or "dsc_" in n),
+            "h2d_copy_ms": sum(v[0] for n, v in by.items()
+                               if "HtoD" in n or "Memcpy" in n),
+            "top": [{"name": n[:60], "ms": v[0], "calls": v[1]}
+                    for n, v in top]}
+
+
+def phase_averager(tree, tok) -> dict:
+    """The port's averager round at GPT-2-124M full width and depth over
+    a LocalFSTransport and a LocalChain in a temporary directory: genesis,
+    a MinerLoop --wire-v2 miner, packed int8 and f32 miners, a dense v1
+    miner, two hostile ones, weights set through the chain; two rounds,
+    then ``neurons.averager.main`` over the same root."""
+    import tempfile
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.average import (AveragerLoop,
+                                                              WeightedAverage)
+    from distributedtraining_tpu_torch.engine.scheduler import FakeClock
+    from distributedtraining_tpu_torch.engine.train import (MinerLoop,
+                                                            TrainEngine)
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    from distributedtraining_tpu_torch.utils import obs
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    held = _batches(tok, split="test", batch_size=MINER_B, seq_len=EVAL_T,
+                    n=AVG_EVAL_BATCHES)
+    train = _batches(tok, split="train", batch_size=MINER_B, seq_len=MINER_T,
+                     n=3 * AVG_MINER_STEPS)
+    eng = TrainEngine(gpt2.make_model(cfg)[0], device=DEV)
+    miner_eng = TrainEngine(gpt2.make_model(cfg)[0], fused_loss=True,
+                            device=DEV)
+    res: dict = {"model": "gpt2-124m", "eval_batches": AVG_EVAL_BATCHES,
+                 "eval_seq_len": EVAL_T}
+    with tempfile.TemporaryDirectory() as work:
+        root, chain_dir = (os.path.join(work, "artifacts"),
+                           os.path.join(work, "chain"))
+        t = LocalFSTransport(root)
+        loop = AveragerLoop(eng, t, LocalChain(chain_dir,
+                                               my_hotkey="hotkey_95"),
+                            WeightedAverage(),
+                            val_batches=lambda: iter(held))
+        loop.bootstrap(params=tree)
+        rev0 = loop._base_revision
+        check(rev0 is not None and t.base_revision() == rev0,
+              "the averager did not publish a genesis base")
+        # the miners
+        miner = MinerLoop(miner_eng, t, "hotkey_1", clock=FakeClock(),
+                          send_interval=1e9, check_update_interval=3.0,
+                          wire_v2=True)
+        miner.bootstrap()
+
+        def steps(batches):
+            for b in batches:
+                miner.clock.sleep(1.0)
+                yield b
+
+        miner.run(steps(train[:AVG_MINER_STEPS]))
+        miner.flush()
+        g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+        shapes = {k: v.shape for k, v in miner.base_params.items()}
+
+        def noise(scale):
+            return {k: torch.randn(s, generator=g, device=DEV) * scale
+                    for k, s in shapes.items()}
+
+        _publish_packed(t, "hotkey_2", noise(1e-5), rev0, "int8")
+        _publish_packed(t, "hotkey_3", noise(1e-5), rev0, "none")
+        t.publish_delta("hotkey_4", gpt2.params_to_numpy(noise(1e-5)))
+        t.publish_delta_meta("hotkey_4", {"base_revision": rev0})
+        bad, _ = delta.pack_delta_v2(noise(1e-5), density=1.0 / 64.0)
+        bad_leaves = dict(bad["leaves"])
+        bad_leaves["wpe"] = dict(bad_leaves["wpe"],
+                                 idx=bad_leaves["wpe"]["idx"].clone())
+        bad_leaves["wpe"]["idx"][0] = shapes["wpe"].numel()  # out of range
+        _publish_tree(t, "hotkey_5", {**bad, "leaves": bad_leaves}, rev0,
+                      "int8")
+        huge, _ = delta.pack_delta_v2(noise(1e-5), density=1.0 / 64.0)
+        huge["leaves"]["wte"]["scale"] = torch.tensor(1e6, device=DEV)
+        _publish_tree(t, "hotkey_6", huge, rev0, "int8")
+        scores = {"hotkey_1": 0.5, "hotkey_2": 0.1, "hotkey_3": 0.15,
+                  "hotkey_4": 0.15, "hotkey_5": 0.3, "hotkey_6": 0.3}
+        LocalChain(chain_dir, my_hotkey="hotkey_91").set_weights(scores)
+        secs: dict = {}
+        kept: dict = {}
+        _timed_calls(loop, "gather_deltas", secs, kept)
+        _timed_calls(loop.strategy, "merge", secs)
+        _timed_calls(eng, "evaluate", secs)
+        base_before = {k: v.detach().cpu() for k, v in
+                       loop.base_params.items()}
+        n_indexed = sum(1 for s in shapes.values()
+                        if delta.sparse_k(int(np.prod(s)), 1.0 / 64.0)
+                        < int(np.prod(s)))
+        # round 1 (main path): counts to 0 just before, read just after
+        obs.configure()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        dsc.launches = 0
+        t0 = time.perf_counter()
+        merged1 = loop.run_round()
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        launches = {"dequant_scatter": dsc.launches, **fa.launches,
+                    **fused_ce.launches}
+        peak = torch.cuda.max_memory_allocated()
+        snap = obs.flush()
+        obs.reset()
+        ids, deltas = kept["gather_deltas"]
+        weights = loop.strategy._weights_cache[1]
+        staged = {s.hotkey: s.reason for s in loop._ingest().stage(
+            ["hotkey_5", "hotkey_6"], base_revision=rev0)}
+        packed_in = sum(1 for d in deltas if delta.is_packed_v2(d))
+        check(merged1 and loop.report.skipped_publishes == 0,
+              f"round 1 did not publish (loss {loop.report.last_loss}, "
+              f"skipped {loop.report.skipped_publishes})")
+        check(ids == ["hotkey_1", "hotkey_2", "hotkey_3", "hotkey_4"],
+              f"round 1 merged {ids}")
+        check(staged["hotkey_5"] == "no_delta",
+              f"the out-of-range miner staged {staged['hotkey_5']}")
+        mag = float(np.float32(127.0) * np.float32(1e6))
+        want = f"magnitude_exceeded({mag:.3e}>{1e3:.3e})"
+        check(staged["hotkey_6"] == want,
+              f"the over-cap miner staged {staged['hotkey_6']} != {want}")
+        check(loop.report.last_rejected == 1,
+              f"round 1 rejected {loop.report.last_rejected}")
+        check(snap.get("delta.densify_fallbacks", 0) == 0 and packed_in == 3,
+              f"packed submissions densified ({snap}) or missing "
+              f"({packed_in})")
+        check(launches["dequant_scatter"] == n_indexed * packed_in
+              and n_indexed == 2 + 4 * cfg.n_layer,
+              f"dequant_scatter launches {launches['dequant_scatter']} != "
+              f"{n_indexed} indexed leaves x {packed_in} packed")
+        n_eval = 2 * AVG_EVAL_BATCHES      # the merged base and the base
+        check(launches["flash_attention_fwd"] == cfg.n_layer * n_eval,
+              f"flash forward launches {launches['flash_attention_fwd']} "
+              f"!= 12 x {n_eval} evaluated batches")
+        # the published base against base + sum w_i decode(d_i) by the
+        # plain versions (CPU accumulator)
+        agg = delta.aggregate_deltas(base_before, deltas, weights)
+        fetched = t.fetch_base(loop._host_template())
+        pub = gpt2.params_from_numpy(fetched[0], device="cpu")
+        base_err = max(float((pub[k] - (base_before[k] + agg[k])).abs().max())
+                       for k in pub)
+        check(base_err <= 1e-6, f"published base vs plain merge: max abs "
+                                f"{base_err} > 1e-6")
+        res["round1"] = {
+            "accepted": ids, "weights": [float(w) for w in weights],
+            "rejected": loop.report.last_rejected, "verdicts": staged,
+            "merged_loss": loop.report.last_loss, "launches": launches,
+            "published_vs_plain_max_abs": base_err,
+            "densify_fallbacks": snap.get("delta.densify_fallbacks", 0),
+            "round_s": round_s, "ingest_s": secs["gather_deltas"],
+            "merge_s": secs["merge"], "eval_s": secs["evaluate"],
+            "peak_cuda_mem_bytes": peak,
+            "wire_bytes_fetched": snap.get("wire.bytes_fetched")}
+        base_loss1 = loop._base_loss
+        res["round1"]["merge_profile"] = _merge_profile(loop, deltas, ids)
+        # round 2: the miner pulls the new base, trains, pushes again
+        rev1 = loop._base_revision
+        miner.run(steps(train[AVG_MINER_STEPS:2 * AVG_MINER_STEPS]))
+        miner.flush()
+        check(miner._base_revision == rev1 and miner.report.base_pulls == 1,
+              f"the miner did not pull the new base ({miner.report})")
+        secs.clear()
+        _zero_counts()
+        dsc.launches = 0
+        t0 = time.perf_counter()
+        merged2 = loop.run_round()
+        torch.cuda.synchronize()
+        round2_s = time.perf_counter() - t0
+        ids2, _ = kept["gather_deltas"]
+        stale = [h for h, r in ((s.hotkey, s.reason) for s in
+                                loop._ingest().stage(
+                                    [f"hotkey_{i}" for i in range(2, 7)],
+                                    base_revision=rev1))
+                 if r == "stale_base"]
+        check(merged2 and ids2 == ["hotkey_1"],
+              f"round 2 merged {ids2} (ok {merged2})")
+        check(len(stale) == 5, f"stale submissions not skipped: {stale}")
+        check(dsc.launches == n_indexed,
+              f"round 2 dequant_scatter launches {dsc.launches}")
+        res["round2"] = {"accepted": ids2, "stale_skipped": stale,
+                         "published": loop._base_revision != rev1,
+                         "merged_loss": loop.report.last_loss,
+                         "base_loss": base_loss1,
+                         "dequant_scatter_launches": dsc.launches,
+                         "round_s": round2_s,
+                         "ingest_s": secs["gather_deltas"],
+                         "merge_s": secs["merge"],
+                         "eval_s": secs["evaluate"]}
+        # the CLI over the same root, after one more push of the miner
+        miner.run(steps(train[2 * AVG_MINER_STEPS:]))
+        miner.flush()
+        miner.close()
+        loop.close()
+        rev2 = t.base_revision()
+        dsc.launches = 0
+        t0 = time.perf_counter()
+        rc = avg_cli.main(README_AVERAGER_FLAGS + [
+            "--work-dir", work, "--rounds", "1", "--hotkey", "hotkey_96"])
+        cli_s = time.perf_counter() - t0
+        check(rc == 0 and t.base_revision() not in (None, rev2),
+              f"neurons.averager.main exited {rc} without a new base")
+        check(dsc.launches == n_indexed,
+              f"the CLI's dequant_scatter launches {dsc.launches}")
+        res["cli"] = {"argv": README_AVERAGER_FLAGS + ["--rounds", "1"],
+                      "rc": rc, "s": cli_s,
+                      "dequant_scatter_launches": dsc.launches}
+    res["indexed_leaves"] = n_indexed
+    log("averager:", json.dumps(res))
+    return res
+
+
+def _scatter_entry(scatter: dict, avg: dict, build: dict) -> dict:
+    wte, whole = scatter["timed"]["wte"], scatter["timed"]["contribution"]
+    replaces, tpu = SCATTER_TPU
+    return {
+        "name": "dequant_scatter", "route": "cuda",
+        "source": SCATTER_SOURCE, "replaces": replaces, "tpu_kernel": tpu,
+        # the averager's round 1, the slice's main path
+        "launches": avg["round1"]["launches"]["dequant_scatter"],
+        "max_abs_err": max(c["max_abs_err"] for c in scatter["checks"]),
+        # one whole GPT-2-124M contribution (50 leaf calls)
+        "ms": whole["ms"], "plain_ms": whole["plain_ms"],
+        "bound_ms": whole["bound_ms"], "bound_by": whole["bound_by"],
+        "library_ms": whole["library_ms"],
+        "ms_wte": wte["ms"], "plain_ms_wte": wte["plain_ms"],
+        "bound_ms_wte": wte["bound_ms"], "library_ms_wte": wte["library_ms"],
+        "library": scatter["library"], "timed_shape": scatter["timed_shape"],
+        "build_s": build["build_s"]}
+
+
 FLASH_SOURCE = "distributedtraining_tpu_torch/csrc/flash_attention.cu"
 LIB_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 FLASH_TPU_KERNELS = {
@@ -1407,6 +1926,8 @@ def main() -> int:
     fprof = phase_train_profile(tree, tok, fused=True)
     fparity = phase_fused_parity(tree, tok)
     miner = phase_miner(tree, tok)
+    scatter = phase_scatter()
+    avg = phase_averager(tree, tok)
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1425,7 +1946,8 @@ def main() -> int:
         "timed_shape": kern["timed_shape"],
         "build_s": build["build_s"]},
         *_flash_entries(flash, train, build),
-        *_ce_entries(ce, miner, tfused, build)]}), flush=True)
+        *_ce_entries(ce, miner, tfused, build),
+        _scatter_entry(scatter, avg, build)]}), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -1434,8 +1956,9 @@ def main() -> int:
                                 "fused_profile": fprof,
                                 "fused_f32_parity": fparity, "card": card}}),
           flush=True)
-    print(json.dumps({"miner": {**miner, "card": card,
-                                "total_s": time.perf_counter() - t_start}}),
+    print(json.dumps({"miner": {**miner, "card": card}}), flush=True)
+    print(json.dumps({"averager": {**avg, "scatter": scatter, "card": card,
+                                   "total_s": time.perf_counter() - t_start}}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

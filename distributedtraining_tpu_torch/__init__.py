@@ -13,8 +13,13 @@ kernel), reporting through ``utils.obs``; the training step:
 ``engine.train`` (TrainEngine, AdamW) fed by ``data`` (corpora, packer,
 batch_iterator, prefetch), with ``ops.losses``, flash attention with its
 CUDA forward and backward kernels, the fused cross-entropy with its CUDA
-forward, dh and dW kernels, and the miner's ``delta`` algebra; and the
+forward, dh and dW kernels, and the miner's ``delta`` algebra; the
 miner's round: ``engine.train.MinerLoop`` publishing through
 ``engine.publish`` over ``transport`` (in-memory, local filesystem) in
-``serialization``'s msgpack, driven by ``neurons.miner``.
+``serialization``'s msgpack or the wire-v2 shard form, driven by
+``neurons.miner``; and the averager's round: ``engine.average``
+(``WeightedAverage``, ``AveragerLoop``) staging submissions through
+``engine.ingest``, weighting them from ``chain`` (the local JSON chain)
+and folding packed ones with the CUDA dequantize-scatter-add kernel
+(``ops.dequant_scatter``), driven by ``neurons.averager``.
 """

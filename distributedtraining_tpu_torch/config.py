@@ -1,15 +1,17 @@
-"""Run configuration of the port's miner — the port of the JAX package's
-``config.py`` for ``RunConfig.from_args("miner", argv)``.
+"""Run configuration of the port's miner and averager — the port of the
+JAX package's ``config.py`` for ``RunConfig.from_args(role, argv)`` with
+``role`` ``"miner"`` or ``"averager"``.
 
-The parser takes every flag the JAX package's ``neurons/miner.py``
-accepts, with the same spellings, destinations and defaults, so a JAX
-miner's command line parses unchanged. A value whose machinery the port
-has not brought over yet raises NotImplementedError naming its slice
-(:meth:`RunConfig.check_ported`). Four of them are JAX defaults and must
-be turned off explicitly for now: ``--no-base-wire-v2``,
-``--checkpoint-interval 0``, ``--no-anomaly-trace`` and
-``--flight-events 0``. Arguments are parsed only when an entry point asks
-(never at import).
+Each role's parser takes every flag the JAX package's parser for that
+role accepts, with the same spellings, destinations and defaults, so a
+JAX command line parses unchanged. A value whose machinery the port has
+not brought over yet raises NotImplementedError naming its slice
+(:meth:`RunConfig.check_ported`). Some are JAX defaults and must be
+turned off explicitly for now: for the miner ``--no-base-wire-v2``,
+``--checkpoint-interval 0``, ``--no-anomaly-trace`` and ``--flight-events
+0``; for the averager ``--strategy weighted``, ``--no-base-wire-v2``,
+``--no-lineage`` and ``--flight-events 0``. Arguments are parsed only
+when an entry point asks (never at import).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 _SLICES = "ROADMAP 'Slices of the port'"
+ROLES = ("miner", "averager")
 
 
 @dataclasses.dataclass
@@ -64,6 +67,9 @@ class RunConfig:
     eval_seq_len: int = 512
     batch_size: int = 8
     eval_batches: int = 12
+    max_delta_abs: float = 1e3
+    accept_quant: bool = True
+    stale_deltas: Optional[str] = None
     learning_rate: float = 5e-4
     weight_decay: float = 0.01
     grad_clip: Optional[float] = None
@@ -81,6 +87,7 @@ class RunConfig:
     wire_v2: bool = False
     wire_density: float = 1.0 / 64.0
     wire_quant: str = "int8"
+    accept_wire_v2: bool = True
     logits_dtype: Optional[str] = None
     remat: Optional[bool] = None
     scan_blocks: bool = False
@@ -105,6 +112,34 @@ class RunConfig:
     val_cohort: int = 8
     val_pipeline_depth: int = 1
     averaging_interval: float = 1200.0
+    ingest_workers: int = 4
+    ingest_cache_mb: int = 2048
+    # averager strategy
+    strategy: str = "parameterized"
+    publish_policy: str = "improved"
+    merge_chunk: int = 8
+    meta_epochs: int = 7
+    genetic_population: int = 10
+    genetic_generations: int = 10
+    genetic_sigma: float = 0.1
+    genetic_screen_batches: int = 2
+    meta_lr: float = 0.01
+    meta_optimizer: str = "adam"
+    outer_momentum: float = 0.0
+    outer_lr: float = 0.7
+    # hierarchical aggregation, remediation, failover
+    hier: str = ""
+    hier_node: str = ""
+    hier_nodes: str = ""
+    hier_fanout: int = 0
+    hier_wire_v2: bool = False
+    remediate: bool = False
+    quarantine_rules: str = "push_failure_streak,loss_divergence,stale_node"
+    probation_beats: int = 3
+    probation_rounds: int = 2
+    score_decay: float = 0.25
+    standby: bool = False
+    failover_deadline: float = 0.0
     chaos_spec: Optional[str] = None
     # bounded runs
     max_steps: Optional[int] = None
@@ -128,10 +163,6 @@ class RunConfig:
     @classmethod
     def from_args(cls, role: str, argv: Sequence[str] | None = None
                   ) -> "RunConfig":
-        if role != "miner":
-            raise NotImplementedError(
-                f"role {role!r}: the port's validator and averager are "
-                f"slice 4, its server slice 6 ({_SLICES})")
         ns = build_parser(role).parse_args(argv)
         mesh = MeshSpec(dp=ns.dp, fsdp=ns.fsdp, sp=ns.sp, tp=ns.tp,
                         dcn_dp=ns.dcn_dp, auto=ns.mesh_auto)
@@ -141,23 +172,31 @@ class RunConfig:
 
     def check_ported(self, device: str = "cuda") -> None:
         """Raise NotImplementedError for the first value whose machinery
-        is not ported, naming its slice. ``device`` is where the miner
+        is not ported, naming its slice. ``device`` is where the role
         will run: on the card, ``--fused-loss`` also needs a width the
         CE kernels take (the CPU's plain version takes any)."""
         m = self.mesh
+        miner, averager = self.role == "miner", self.role == "averager"
         refused = [
             (self.backend == "hf",
              "--backend hf (the HF Hub transport needs the network)", 7),
-            (self.chain != "local", f"--chain {self.chain}", 4),
+            (self.chain != "local",
+             f"--chain {self.chain} (the bittensor chain needs the "
+             f"network)", 7),
             (self.my_repo_id is not None,
-             "--my-repo-id (the chain's address store)", 4),
-            (self.sign_artifacts, "--sign-artifacts", 4),
+             "--my-repo-id (the chain's address store)", 5),
+            (self.sign_artifacts, "--sign-artifacts", 5),
+            (averager and self.strategy != "weighted",
+             f"--strategy {self.strategy}, parameterized by default (pass "
+             f"--strategy weighted)", 5),
             (self.base_wire_v2,
-             "--base-wire-v2, on by default (pass --no-base-wire-v2)", 4),
-            (self.checkpoint_interval > 0,
+             "--base-wire-v2, on by default (pass --no-base-wire-v2)", 5),
+            (miner and self.checkpoint_interval > 0,
              f"--checkpoint-interval {self.checkpoint_interval:g}, 600 by "
-             f"default (pass --checkpoint-interval 0)", 4),
-            (self.anomaly_trace,
+             f"default (pass --checkpoint-interval 0)", 5),
+            (averager and self.lineage,
+             "--lineage, on by default (pass --no-lineage)", 5),
+            (miner and self.anomaly_trace,
              "--anomaly-trace, on by default (pass --no-anomaly-trace)", 7),
             (self.flight_events > 0,
              f"--flight-events {self.flight_events}, 512 by default (pass "
@@ -171,9 +210,13 @@ class RunConfig:
             (self.scan_blocks, "--scan-blocks", 7),
             (bool(self.remat), "--remat", 7),
             (self.mu_dtype is not None, f"--mu-dtype {self.mu_dtype}", 7),
-            (self.wire_v2, "--wire-v2", 5),
             (self.delta_dtype in ("int8", "sparse8"),
-             f"--delta-dtype {self.delta_dtype}", 4),
+             f"--delta-dtype {self.delta_dtype}", 5),
+            (averager and self.outer_momentum > 0,
+             "--outer-momentum > 0 (OuterOptMerge)", 5),
+            (averager and self.hier != "", f"--hier {self.hier}", 5),
+            (averager and self.standby, "--standby (the failover lease)", 5),
+            (averager and self.remediate, "--remediate", 7),
             (self.init_from is not None, "--init-from", 7),
             (self.heartbeat_interval > 0, "--heartbeat-interval > 0", 7),
             (self.obs_port != 0, "--obs-port", 7),
@@ -188,7 +231,7 @@ class RunConfig:
         for hit, what, slice_no in refused:
             if hit:
                 raise NotImplementedError(
-                    f"{what} is not ported to the PyTorch miner yet: "
+                    f"{what} is not ported to the PyTorch {self.role} yet: "
                     f"{_SLICES}, slice {slice_no}")
         if self.fused_loss and device == "cuda":
             from .models.gpt2 import PRESETS
@@ -215,10 +258,11 @@ def _dataset_arg(value: str) -> str:
 
 
 # (flags, argparse keywords) of the JAX package's miner parser, in its
-# order; help strings are the port's
+# order; help strings are the port's. The averager's parser takes these
+# less _MINER_ONLY, plus _AVERAGER_FLAGS.
 _D = RunConfig()
 _M = MeshSpec()
-_MINER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
+_FLAGS: list[tuple[tuple[str, ...], dict]] = [
     (("--chain",), dict(choices=("local", "bittensor"), default=_D.chain)),
     (("--netuid",), dict(type=int, default=_D.netuid)),
     (("--hotkey",), dict(default=_D.hotkey)),
@@ -396,14 +440,98 @@ _MINER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
 ]
 
 
+_MINER_ONLY = frozenset((
+    "--delta-dtype", "--delta-density", "--wire-v2", "--wire-density",
+    "--wire-quant", "--push-async", "--no-push-async", "--push-queue-depth",
+    "--checkpoint-interval", "--checkpoint-dir", "--log-every",
+    "--profile-dir", "--profile-steps", "--no-anomaly-trace",
+    "--anomaly-dir"))
+
+# the JAX averager's own flags (its delta-consumer, ingest, strategy,
+# hierarchy and resilience groups)
+_AVERAGER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
+    (("--max-delta-abs",), dict(dest="max_delta_abs", type=_nonneg_float,
+                                default=_D.max_delta_abs,
+                                help="admission cap on max |value| "
+                                     "(0 disables)")),
+    (("--no-accept-quant",), dict(dest="accept_quant", action="store_false",
+                                  default=_D.accept_quant)),
+    (("--no-wire-v2",), dict(dest="accept_wire_v2", action="store_false",
+                             default=_D.accept_wire_v2,
+                             help="refuse wire-v2 shard manifests")),
+    (("--stale-deltas",), dict(dest="stale_deltas",
+                               choices=("skip", "accept"),
+                               default=_D.stale_deltas)),
+    (("--ingest-workers",), dict(dest="ingest_workers", type=int,
+                                 default=_D.ingest_workers)),
+    (("--ingest-cache-mb",), dict(dest="ingest_cache_mb", type=int,
+                                  default=_D.ingest_cache_mb)),
+    (("--strategy",), dict(choices=("weighted", "parameterized", "genetic"),
+                           default=_D.strategy,
+                           help="weighted (the port's only strategy so "
+                                "far)")),
+    (("--merge-chunk",), dict(dest="merge_chunk", type=int,
+                              default=_D.merge_chunk)),
+    (("--meta-epochs",), dict(dest="meta_epochs", type=int,
+                              default=_D.meta_epochs)),
+    (("--outer-momentum",), dict(dest="outer_momentum", type=float,
+                                 default=_D.outer_momentum)),
+    (("--outer-lr",), dict(dest="outer_lr", type=float,
+                           default=_D.outer_lr)),
+    (("--meta-lr",), dict(dest="meta_lr", type=float, default=_D.meta_lr)),
+    (("--meta-optimizer",), dict(dest="meta_optimizer",
+                                 choices=("adam", "sgd"),
+                                 default=_D.meta_optimizer)),
+    (("--genetic-population",), dict(dest="genetic_population", type=int,
+                                     default=_D.genetic_population)),
+    (("--genetic-generations",), dict(dest="genetic_generations", type=int,
+                                      default=_D.genetic_generations)),
+    (("--publish-policy",), dict(dest="publish_policy",
+                                 choices=("improved", "always"),
+                                 default=_D.publish_policy)),
+    (("--genetic-screen-batches",), dict(dest="genetic_screen_batches",
+                                         type=int,
+                                         default=_D.genetic_screen_batches)),
+    (("--genetic-sigma",), dict(dest="genetic_sigma", type=float,
+                                default=_D.genetic_sigma)),
+    (("--hier",), dict(choices=("", "sub", "root"), default=_D.hier)),
+    (("--hier-node",), dict(dest="hier_node", default=_D.hier_node)),
+    (("--hier-nodes",), dict(dest="hier_nodes", default=_D.hier_nodes)),
+    (("--hier-fanout",), dict(dest="hier_fanout", type=int,
+                              default=_D.hier_fanout)),
+    (("--hier-wire-v2",), dict(dest="hier_wire_v2", action="store_true",
+                               default=_D.hier_wire_v2)),
+    (("--remediate",), dict(dest="remediate", action="store_true",
+                            default=_D.remediate)),
+    (("--quarantine-rules",), dict(dest="quarantine_rules",
+                                   default=_D.quarantine_rules)),
+    (("--probation-beats",), dict(dest="probation_beats", type=int,
+                                  default=_D.probation_beats)),
+    (("--probation-rounds",), dict(dest="probation_rounds", type=int,
+                                   default=_D.probation_rounds)),
+    (("--score-decay",), dict(dest="score_decay", type=float,
+                              default=_D.score_decay)),
+    (("--standby",), dict(dest="standby", action="store_true",
+                          default=_D.standby)),
+    (("--failover-deadline",), dict(dest="failover_deadline",
+                                    type=_nonneg_float,
+                                    default=_D.failover_deadline)),
+]
+
+
 def build_parser(role: str = "miner") -> argparse.ArgumentParser:
-    """The miner's parser (the only role the port runs so far)."""
-    if role != "miner":
-        raise NotImplementedError(f"role {role!r} is not ported "
-                                  f"({_SLICES})")
+    """The parser of ``role`` (``"miner"`` or ``"averager"``)."""
+    if role not in ROLES:
+        raise NotImplementedError(
+            f"role {role!r}: the port's validator is slice 5 and its server "
+            f"slice 6 ({_SLICES})")
     p = argparse.ArgumentParser(
-        prog="python -m distributedtraining_tpu_torch.neurons.miner",
-        description="distributedtraining miner, PyTorch/CUDA port")
-    for flags, kw in _MINER_FLAGS:
-        p.add_argument(*flags, **kw)
+        prog=f"python -m distributedtraining_tpu_torch.neurons.{role}",
+        description=f"distributedtraining {role}, PyTorch/CUDA port")
+    for flags, kw in _FLAGS:
+        if role == "miner" or flags[0] not in _MINER_ONLY:
+            p.add_argument(*flags, **kw)
+    if role == "averager":
+        for flags, kw in _AVERAGER_FLAGS:
+            p.add_argument(*flags, **kw)
     return p

@@ -1,2 +1,3 @@
 """Serving engine (continuous batching over a paged KV cache), the
-training step engine, the miner's loop and its publisher."""
+training step engine, the miner's loop and its publisher, delta ingest,
+and the averager's loop."""

@@ -1,6 +1,6 @@
 """Asynchronous miner publication pipeline — the port of the JAX package's
-``engine/publish.py`` (v1 dense artifacts; the wire-v2 shard publish is
-slice 5).
+``engine/publish.py``: dense v1 artifacts, and the wire-v2 shard publish
+(changed shards, then the manifest).
 
 Division of labor:
 
@@ -196,20 +196,15 @@ def host_materialize(tree: Mapping[str, Any]) -> dict:
     the nested tree the wire carries: numpy arrays, and CPU tensors for
     bf16 leaves (numpy has no bf16 on the card machine; the serializer
     writes both)."""
-    out: dict = {}
-    for path, v in tree.items():
-        *parents, leaf = path.split(".")
-        node = out
-        for p in parents:
-            node = node.setdefault(p, {})
+    from ..delta import nest_tree
+
+    def host(v):
         if isinstance(v, torch.Tensor):
             v = v.detach().cpu()
-            if v.dtype != torch.bfloat16:
-                v = v.numpy()
-        else:
-            v = np.asarray(v)
-        node[leaf] = v
-    return out
+            return v if v.dtype == torch.bfloat16 else v.numpy()
+        return np.asarray(v)
+
+    return nest_tree({path: host(v) for path, v in tree.items()})
 
 
 class DeltaPublisher:
@@ -227,7 +222,8 @@ class DeltaPublisher:
     def __init__(self, transport, miner_id: str, *, report,
                  nan_guard: bool = True, queue_depth: int = 1,
                  sleep: Callable[[float], None] | None = None,
-                 publish_retry=None, meta_retry=None):
+                 publish_retry=None, meta_retry=None,
+                 wire_spec: dict | None = None):
         from ..transport.retry import (DEFAULT_META_RETRY,
                                        DEFAULT_PUBLISH_RETRY)
         self.transport = transport
@@ -237,6 +233,14 @@ class DeltaPublisher:
         self.publish_retry = publish_retry or DEFAULT_PUBLISH_RETRY
         self.meta_retry = meta_retry or DEFAULT_META_RETRY
         self._sleep = sleep
+        # wire-v2 declaration for the meta rider (format/density/quant):
+        # how receivers learn this miner's artifact is a shard manifest
+        # before fetching it. Set by MinerLoop when wire_v2.
+        self.wire_spec = wire_spec
+        # layer_key -> sha256 of the last shard set the fleet can see
+        # (advanced only after the manifest lands): an unchanged layer's
+        # shard is never re-uploaded
+        self._last_shards: dict[str, str] = {}
         self._worker = PublishWorker(name=f"publish-{miner_id}",
                                      depth=queue_depth)
 
@@ -245,8 +249,10 @@ class DeltaPublisher:
                     cid: str | None = None, *,
                     extra_meta: dict | None = None) -> bool:
         """Screen + transfer + publish + rider ON the calling thread.
-        ``payload`` is the snapshot's state dict (tensors on the card);
-        ``finite`` its 0-dim flag (None skips the screen).
+        ``payload`` is the snapshot's state dict (tensors on the card), or
+        a wire-v2 packed tree (``delta.pack_delta_v2``), which publishes as
+        shards and a manifest; ``finite`` its 0-dim flag (None skips the
+        screen).
         ``cid`` is the push's correlation id: it tags the spans below and
         rides the meta rider as ``delta_id``. ``extra_meta`` merges
         additional rider keys (protocol keys win on collision)."""
@@ -260,48 +266,110 @@ class DeltaPublisher:
                     logger.warning("miner %s: delta has non-finite values, "
                                    "not pushing", self.miner_id)
                     return False
+            from .. import delta as delta_lib
+            wire_v2 = delta_lib.is_packed_v2(payload)
             with obs.span("push.materialize"):
-                host = host_materialize(payload)
+                host = (delta_lib.packed_layer_entries(payload) if wire_v2
+                        else host_materialize(payload))
             sleep = self._sleep
             try:
                 with obs.span("push.upload"):
-                    call_with_retry(
-                        lambda: self.transport.publish_delta(
-                            self.miner_id, host),
-                        policy=self.publish_retry,
-                        describe=f"miner {self.miner_id} delta publish",
-                        **({"sleep": sleep} if sleep is not None else {}))
+                    if wire_v2:
+                        self._publish_v2(host)
+                    else:
+                        call_with_retry(
+                            lambda: self.transport.publish_delta(
+                                self.miner_id, host),
+                            policy=self.publish_retry,
+                            describe=f"miner {self.miner_id} delta publish",
+                            **({"sleep": sleep} if sleep is not None
+                               else {}))
             except Exception:
                 self.report.pushes_failed += 1
                 obs.count("publish.failed")
                 logger.exception("miner %s: delta push failed", self.miner_id)
                 return False
-            self._publish_meta(base_revision, cid, extra=extra_meta)
+            self._publish_meta(base_revision, cid,
+                               wire=self.wire_spec if wire_v2 else None,
+                               extra=extra_meta)
             self.report.pushes += 1
             obs.count("publish.pushes")
             logger.info("miner %s: pushed delta #%d", self.miner_id,
                         self.report.pushes)
             return True
 
+    # -- wire v2: changed shards, then the manifest --------------------------
+    def _publish_v2(self, entries: dict) -> None:
+        """Shard-addressed publish of one packed tree's layer entries
+        (``delta.packed_layer_entries``): serialize and hash every layer,
+        upload only the shards whose hash changed since the last publish
+        that landed, then the manifest. Manifest-last keeps readers safe:
+        until it commits they hold the previous manifest, and an
+        already-overwritten shard fails its hash check instead of decoding
+        half-new. ``_last_shards`` advances only after the manifest lands,
+        so a failed publish re-uploads everything unconfirmed."""
+        from .. import serialization as ser
+        from ..transport import base as tbase
+        from ..transport.retry import call_with_retry
+
+        sleep = self._sleep
+        kw = {"sleep": sleep} if sleep is not None else {}
+        t0 = time.perf_counter()
+        shards = {key: ser.pack_shard(e) for key, e in entries.items()}
+        layers = {key: (ser.shard_digest(data), len(data))
+                  for key, data in shards.items()}
+        spec = self.wire_spec or {}
+        manifest = ser.build_wire_manifest(
+            layers, density=spec.get("density", 0.0),
+            quant=spec.get("quant", "int8"))
+        obs.observe("wire.encode_ms", (time.perf_counter() - t0) * 1e3)
+        changed = [key for key, (digest, _) in layers.items()
+                   if self._last_shards.get(key) != digest]
+        for key in changed:
+            data = shards[key]
+            call_with_retry(
+                lambda key=key, data=data: tbase.publish_shard(
+                    self.transport, self.miner_id, key, data),
+                policy=self.publish_retry,
+                describe=f"miner {self.miner_id} shard {key}", **kw)
+            obs.count("wire.bytes_published", len(data))
+        obs.count("wire.shards_uploaded", len(changed))
+        obs.count("wire.shards_skipped", len(shards) - len(changed))
+        pdr = getattr(self.transport, "publish_delta_raw", None)
+        publish_manifest = pdr if pdr is not None else self.transport.publish_raw
+        call_with_retry(lambda: publish_manifest(self.miner_id, manifest),
+                        policy=self.publish_retry,
+                        describe=f"miner {self.miner_id} wire manifest "
+                                 "publish", **kw)
+        obs.count("wire.bytes_published", len(manifest))
+        obs.count("wire.manifest_publishes")
+        self._last_shards = {key: digest
+                             for key, (digest, _) in layers.items()}
+
     def _publish_meta(self, base_revision, cid: str | None = None,
+                      wire: dict | None = None,
                       extra: dict | None = None) -> None:
-        """Base-revision (+ correlation-id) rider next to the delta (see
-        transport/base.Transport.publish_delta_meta for the staleness
-        protocol). The delta-THEN-rider order makes the only inconsistent
-        window false-STALE, never false-fresh. Best-effort: a rider that
-        fails its whole retry budget heals at the next push cadence, so
-        it is logged, not counted as a failed push."""
+        """Base-revision (+ correlation-id, + wire-format declaration)
+        rider next to the delta (see transport/base.Transport
+        .publish_delta_meta for the staleness protocol). The
+        delta-THEN-rider order makes the only inconsistent window
+        false-STALE, never false-fresh (and, for wire v2, never false-v2:
+        the manifest is self-describing by its magic). Best-effort: a
+        rider that fails its whole retry budget heals at the next push
+        cadence, so it is logged, not counted as a failed push."""
         from ..transport.retry import call_with_retry
 
         pm = getattr(self.transport, "publish_delta_meta", None)
         if pm is None or (base_revision is None and cid is None
-                          and not extra):
+                          and wire is None and not extra):
             return
         meta: dict = dict(extra) if extra else {}
         if base_revision is not None:
             meta["base_revision"] = base_revision
         if cid is not None:
             meta["delta_id"] = cid
+        if wire is not None:
+            meta["wire"] = wire
         sleep = self._sleep
         try:
             with obs.span("push.meta"):

@@ -25,10 +25,12 @@ state carries across from optax's with :func:`opt_state_from_numpy`.
 :class:`MinerLoop` is the miner's round on one host: bootstrap from the
 published base, train, pull new bases on a cadence (resetting the
 optimizer), guard on held-out data, and publish ``trained - base`` through
-``engine/publish.py``. Not ported yet, and refused: a device mesh
-(``mesh=``), ``mu_dtype``, the model's dropout and remat, and the miner's
-wire v2, int8/sparse8 deltas, checkpoints, content-addressed base fetches,
-heartbeats, traces and anomaly captures (ROADMAP "Slices of the port").
+``engine/publish.py``, as a dense delta or, with ``wire_v2``, as the
+packed top-k form with its error-feedback residual. Not ported yet, and
+refused: a device mesh (``mesh=``), ``mu_dtype``, the model's dropout and
+remat, and the miner's int8/sparse8 deltas, checkpoints,
+content-addressed base fetches, heartbeats, traces and anomaly captures
+(ROADMAP "Slices of the port").
 """
 
 from __future__ import annotations
@@ -380,9 +382,8 @@ class MinerReport:
 
 
 _NOT_PORTED = {
-    "wire_v2": "the shard-addressed wire v2 is slice 5",
-    "checkpoint_store": "local checkpoints are slice 4",
-    "base_fetcher": "the content-addressed base fetch is slice 4",
+    "checkpoint_store": "local checkpoints are slice 5",
+    "base_fetcher": "the content-addressed base fetch is slice 5",
     "heartbeat": "fleet heartbeats are slice 7",
     "trace": "profiler captures are slice 7",
     "anomaly": "anomaly-armed captures are slice 7",
@@ -405,12 +406,15 @@ class MinerLoop:
     - every ``send_interval`` seconds publish ``trained - base`` through
       :class:`~.publish.DeltaPublisher` (inline, or on its worker with
       ``push_async``), screened by ``nan_guard``, as f32 or, with
-      ``delta_dtype="bfloat16"``, as bf16.
+      ``delta_dtype="bfloat16"``, as bf16; with ``wire_v2``, as the packed
+      top-k form (``wire_density``, ``wire_quant``) published as shards
+      and a manifest, with an error-feedback residual that carries each
+      push's unsent mass into the next (kept only when the delta is
+      finite, reset on a base pull).
 
-    The wire v2, int8/sparse8 deltas, checkpoints, the content-addressed
-    base fetch, heartbeats, traces and anomaly captures raise
-    NotImplementedError naming their slice; a device mesh is refused by
-    the engine."""
+    int8/sparse8 deltas, checkpoints, the content-addressed base fetch,
+    heartbeats, traces and anomaly captures raise NotImplementedError
+    naming their slice; a device mesh is refused by the engine."""
 
     def __init__(self, engine: TrainEngine, transport, miner_id: str, *,
                  clock: Clock | None = None,
@@ -420,6 +424,9 @@ class MinerLoop:
                  log_every: int = 1000,
                  nan_guard: bool = True,
                  delta_dtype: str | None = None,
+                 wire_v2: bool = False,
+                 wire_density: float = 1.0 / 64.0,
+                 wire_quant: str = "int8",
                  val_batches: Callable[[], Iterable[dict]] | None = None,
                  val_guard_interval: float | None = None,
                  val_guard_patience: int = 3,
@@ -436,10 +443,20 @@ class MinerLoop:
                 raise NotImplementedError(
                     f"MinerLoop({name}=...): {_NOT_PORTED[name]} "
                     f"({_SLICES})")
+        if wire_v2 and delta_dtype in ("int8", "sparse8"):
+            raise ValueError(
+                f"wire_v2 replaces the {delta_dtype!r} v1 wire format; "
+                "use --wire-density/--wire-quant to tune it instead")
+        if not 0.0 < wire_density <= 1.0:
+            raise ValueError(f"wire_density must be in (0, 1], "
+                             f"got {wire_density}")
+        if wire_quant not in delta_lib.WIRE_QUANTS:
+            raise ValueError(f"wire_quant must be one of "
+                             f"{delta_lib.WIRE_QUANTS}, got {wire_quant!r}")
         if delta_dtype not in (None, "float32", "bfloat16"):
             raise NotImplementedError(
                 f"delta_dtype={delta_dtype!r}: the int8 and sparse8 wire "
-                f"deltas are slice 4 ({_SLICES})")
+                f"deltas are slice 5 ({_SLICES})")
         from ..transport.retry import DEFAULT_PUBLISH_RETRY
         from .publish import DeltaPublisher
         self.engine = engine
@@ -452,6 +469,13 @@ class MinerLoop:
         self.delta_dtype = None if delta_dtype == "float32" else delta_dtype
         self.keep_optimizer_on_pull = keep_optimizer_on_pull
         self.push_async = push_async
+        self.wire_v2 = wire_v2
+        self.wire_density = wire_density
+        self.wire_quant = wire_quant
+        # the v2 error-feedback residual (a state dict, f32): the mass
+        # earlier publishes dropped or rounded, offered again to the next
+        # top-k selection; None until the first v2 push and after a pull
+        self._wire_residual: Params | None = None
         self.report = MinerReport()
         self._push_seq = 0
         # cap the publish retry loop's total time at the push cadence: a
@@ -464,7 +488,9 @@ class MinerLoop:
         self._publisher = DeltaPublisher(
             transport, miner_id, report=self.report, nan_guard=nan_guard,
             queue_depth=push_queue_depth, sleep=self.clock.sleep,
-            publish_retry=publish_retry)
+            publish_retry=publish_retry,
+            wire_spec=({"format": 2, "density": wire_density,
+                        "quant": wire_quant} if wire_v2 else None))
         # the newest step's loss stays on the card until a log boundary
         # or the loop's exit (a per-step read would wait on every step)
         self._last_loss_dev = None
@@ -565,6 +591,9 @@ class MinerLoop:
                         self.miner_id, rev and rev[:8])
             self.state = self.engine.init_state(new_params)
         self.base_params = _snapshot(self.state.params)
+        # a new base restarts the cumulative delta, and with it the
+        # residual tracking its unsent mass
+        self._wire_residual = None
         self._base_revision = rev
         self._last_base_time = self.clock.now()
         self._reset_val_guard()
@@ -618,12 +647,29 @@ class MinerLoop:
     # -- publication --------------------------------------------------------
     @torch.no_grad()
     def _push_snapshot(self):
-        """``(delta, finite)``: fresh tensors the later in-place steps do
-        not touch, and the delta's 0-dim finite flag, both queued on the
-        card's stream (nothing waits here)."""
+        """``(payload, finite)``: fresh tensors the later in-place steps do
+        not touch (the delta, or with ``wire_v2`` its packed form), and
+        the delta's 0-dim finite flag, all queued on the card's stream
+        (nothing waits here). The v2 residual advances only where the
+        delta is finite: one transient divergence must not poison every
+        later publish until the next pull."""
         d = delta_lib.compute_delta(self.state.params, self.base_params,
                                     wire_dtype=self.delta_dtype)
-        return d, delta_lib.tree_finite(d)
+        finite = delta_lib.tree_finite(d)
+        if not self.wire_v2:
+            return d, finite
+        if self._wire_residual is None:
+            self._wire_residual = {k: torch.zeros(v.shape,
+                                                  dtype=torch.float32,
+                                                  device=v.device)
+                                   for k, v in d.items()}
+        packed, new_res = delta_lib.pack_delta_v2(
+            d, density=self.wire_density, quant=self.wire_quant,
+            residual=self._wire_residual)
+        flag = finite.to(next(iter(d.values())).device)
+        self._wire_residual = {k: torch.where(flag, new_res[k], r)
+                               for k, r in self._wire_residual.items()}
+        return packed, finite
 
     def _push_delta(self) -> None:
         if self.state is None:

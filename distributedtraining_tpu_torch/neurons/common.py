@@ -1,7 +1,8 @@
-"""Composition of the port's miner — the miner's half of the JAX package's
-``neurons/common.py`` (``Components`` and ``build``): the model, the
-``TrainEngine``, the ``memory`` or ``local`` transport, the tokenizer and
-the train and self-eval batch streams, driven by ``RunConfig``.
+"""Composition of the port's roles — the miner's and the averager's half
+of the JAX package's ``neurons/common.py`` (``Components`` and
+``build``): the model, the ``TrainEngine``, the ``memory`` or ``local``
+transport, the local chain and address store, the tokenizer, and the
+train, self-eval and held-out batch streams, driven by ``RunConfig``.
 
 The device is the card unless the caller asks for the CPU the way the JAX
 roles do: ``DT_FORCE_PLATFORM=cpu`` in the environment. Without it,
@@ -15,6 +16,7 @@ import logging
 import os
 from typing import Any, Callable, Iterable
 
+from ..chain import LocalAddressStore, LocalChain
 from ..config import RunConfig
 from ..data.datasets import (ByteTokenizer, WordTokenizer, batch_iterator,
                              shuffle_seed_for, text_corpus)
@@ -43,6 +45,8 @@ class Components:
     model_cfg: Any
     engine: TrainEngine
     transport: Any
+    chain: Any
+    address_store: Any
     tokenizer: Any
 
     def train_batches(self, *, repeat: bool = True) -> Iterable[dict]:
@@ -85,6 +89,14 @@ class Components:
 
         return factory
 
+    def eval_batches(self) -> Callable[[], Iterable[dict]]:
+        """The server-side held-out shard (the averager's publish guard,
+        validator scoring): the front half of the test split, disjoint
+        from the miners' self-eval shard."""
+        docs = self._test_docs()
+        return self._batches_over(docs[: max(1, len(docs) // 2)]
+                                  if len(docs) >= 4 else docs)
+
     def miner_val_batches(self) -> Callable[[], Iterable[dict]]:
         """The miner's self-eval shard: a per-hotkey rotation of the back
         half of the test split, disjoint from the validators' shard."""
@@ -102,7 +114,7 @@ class Components:
 
 
 def build(cfg: RunConfig) -> Components:
-    """The miner's components. Raises NotImplementedError for a flag
+    """The role's components. Raises NotImplementedError for a flag
     value the port has not brought over (``RunConfig.check_ported``)."""
     device = resolve_role_device()
     cfg.check_ported(device)
@@ -126,6 +138,11 @@ def build(cfg: RunConfig) -> Components:
         transport = InMemoryTransport()
     else:
         transport = LocalFSTransport(os.path.join(cfg.work_dir, "artifacts"))
+    chain_dir = os.path.join(cfg.work_dir, "chain")
+    chain = LocalChain(chain_dir, my_hotkey=cfg.hotkey,
+                       epoch_length=cfg.epoch_length,
+                       vpermit_stake_limit=cfg.vpermit_stake_limit)
+    address_store = LocalAddressStore(chain_dir)
     if cfg.tokenizer == "byte" or (cfg.tokenizer == "auto"
                                    and model_cfg.vocab_size < 50257):
         tokenizer = ByteTokenizer()
@@ -141,5 +158,5 @@ def build(cfg: RunConfig) -> Components:
             f"the HF and BPE tokenizers are not ported; use --tokenizer "
             f"word or byte")
     return Components(cfg=cfg, model=model, model_cfg=model_cfg,
-                      engine=engine, transport=transport,
-                      tokenizer=tokenizer)
+                      engine=engine, transport=transport, chain=chain,
+                      address_store=address_store, tokenizer=tokenizer)

@@ -9,8 +9,11 @@ Run offline end to end on the card with::
         --no-base-wire-v2 --checkpoint-interval 0 --no-anomaly-trace \
         --flight-events 0 --max-steps 50
 
-(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) A JAX validator
-or averager pointed at the same ``--work-dir`` reads its deltas.
+(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) ``--wire-v2``
+publishes the packed top-k form as per-layer shards and a manifest
+(``--wire-density``, ``--wire-quant`` tune it). A JAX validator or
+averager, or the port's averager, pointed at the same ``--work-dir``
+reads its deltas.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ def main(argv=None) -> int:
                      check_update_interval=cfg.check_update_interval,
                      log_every=cfg.log_every,
                      delta_dtype=cfg.delta_dtype,
+                     wire_v2=cfg.wire_v2,
+                     wire_density=cfg.wire_density,
+                     wire_quant=cfg.wire_quant,
                      keep_optimizer_on_pull=cfg.keep_optimizer_on_pull,
                      push_async=cfg.push_async,
                      push_queue_depth=cfg.push_queue_depth,

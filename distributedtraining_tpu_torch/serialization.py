@@ -25,8 +25,9 @@ into ``torch.bfloat16`` tensors; every other dtype reads as a numpy array.
 Trees are nested dicts in the JAX layout (``h_0/attn/c_attn/kernel``);
 leaves are numpy arrays, numpy scalars or CPU tensors. Loads restore BY
 EXAMPLE: with a template, the payload must carry every template key and
-each leaf's shape, or :class:`PayloadError` is raised. Safetensors and the
-wire-v2 containers come with later slices.
+each leaf's shape, or :class:`PayloadError` is raised. The wire-v2 shard
+container and manifest (``pack_shard``, ``build_wire_manifest``, ...) are
+here too; safetensors and the base manifest come with a later slice.
 """
 
 from __future__ import annotations
@@ -401,7 +402,7 @@ def save_file(tree: Params, path: str) -> None:
     if not path.endswith(".msgpack"):
         raise NotImplementedError(
             f"{path}: only .msgpack is ported; safetensors comes with the "
-            f"checkpoint slice, ROADMAP 'Slices of the port', slice 4")
+            f"checkpoint slice, ROADMAP 'Slices of the port', slice 5")
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(tmp, "wb") as f:
@@ -420,3 +421,139 @@ def load_file(path: str, template: Params | None = None,
                            f"{max_bytes}")
     with open(path, "rb") as f:
         return from_msgpack(f.read(), template, max_bytes=max_bytes)
+
+
+def validated_load(data: bytes, template: Params, *,
+                   max_bytes: int = DEFAULT_MAX_BYTES,
+                   check_dtypes: bool = False) -> Params:
+    """Untrusted msgpack bytes restored into ``template``'s structure with
+    per-leaf shapes checked; ``check_dtypes=True`` also pins every leaf to
+    the template's dtype (the int8 wire: a hostile f64 ``q`` tree would
+    otherwise parse at 8x the advertised bytes)."""
+    from . import delta as _delta
+
+    tree = from_msgpack(data, template, max_bytes=max_bytes)
+    if not _delta.shapes_match(tree, template, check_dtype=check_dtypes):
+        raise PayloadError("leaf shape/dtype mismatch against template")
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Wire v2 shard container: per-layer shards addressed by a manifest
+#
+# A v2 publish is N per-layer shards (one packed {"idx", "q", "scale"}
+# entry each, msgpack) plus one small manifest that names each shard's
+# sha256. The manifest travels as the miner's delta artifact; shards travel
+# under reserved ids (transport/base.py). Ingest verifies every fetched
+# shard against the manifest's hash: the dedupe key and the torn-publish
+# guard at once. Shard and manifest bytes equal the JAX package's for the
+# same packed tree.
+# ---------------------------------------------------------------------------
+
+# manifest prefix: deliberately not msgpack, so no v1 decode half-accepts it
+WIRE_V2_MAGIC = b"DTWIRE2\n"
+# a manifest names one ~100-byte entry per wire tensor; 1 MiB is hostile
+WIRE_MANIFEST_MAX_BYTES = 1 << 20
+_WIRE_MAX_LAYERS = 16384
+_WIRE_KEY_MAX = 512
+
+
+def shard_digest(data: bytes) -> str:
+    """Content address of one shard's bytes (sha256 hex)."""
+    import hashlib
+    return hashlib.sha256(data).hexdigest()
+
+
+def pack_shard(entry: Mapping) -> bytes:
+    """One packed per-layer entry ``{"idx", "q", "scale"}`` -> shard bytes
+    (msgpack). The publisher's own data: malformed input raises."""
+    if not isinstance(entry, Mapping) or set(entry) != {"idx", "q", "scale"}:
+        raise ValueError("pack_shard: expected a {'idx','q','scale'} entry")
+    return to_msgpack({k: (v.detach().cpu().numpy()
+                           if isinstance(v, torch.Tensor) else np.asarray(v))
+                       for k, v in entry.items()})
+
+
+def unpack_shard(data: bytes, *, max_bytes: int = DEFAULT_MAX_BYTES
+                 ) -> dict | None:
+    """Shard bytes -> packed entry, or None. Structural validation only
+    (key set, array fields); the fields are validated against the base
+    template at assembly (``delta._packed_tree_fields``)."""
+    if len(data) > max_bytes:
+        return None
+    try:
+        raw = from_msgpack(bytes(data), None, max_bytes=max_bytes)
+    except PayloadError:
+        return None
+    if not isinstance(raw, dict) or set(raw) != {"idx", "q", "scale"}:
+        return None
+    if not all(isinstance(v, np.ndarray) for v in raw.values()):
+        return None
+    return raw
+
+
+def build_wire_manifest(layers: Mapping[str, tuple[str, int]], *,
+                        density: float, quant: str) -> bytes:
+    """``{layer_key: (shard sha256, shard nbytes)}`` -> manifest bytes
+    (magic + canonical JSON)."""
+    import json
+    body = {"format": 2, "quant": quant, "density": density,
+            "layers": {str(k): {"h": h, "n": int(n)}
+                       for k, (h, n) in sorted(layers.items())}}
+    data = WIRE_V2_MAGIC + json.dumps(
+        body, sort_keys=True, separators=(",", ":")).encode()
+    if len(data) > WIRE_MANIFEST_MAX_BYTES:
+        raise PayloadError(f"wire manifest {len(data)} bytes exceeds cap "
+                           f"{WIRE_MANIFEST_MAX_BYTES}")
+    return data
+
+
+def is_wire_v2_manifest(data) -> bool:
+    return (isinstance(data, (bytes, bytearray, memoryview))
+            and bytes(data[:len(WIRE_V2_MAGIC)]) == WIRE_V2_MAGIC)
+
+
+def _validated_manifest_layers(layers) -> dict | None:
+    """The layer table ``{key: {"h": sha256-hex, "n": int}}``, or None."""
+    if not isinstance(layers, dict) or len(layers) > _WIRE_MAX_LAYERS:
+        return None
+    out_layers = {}
+    for key, info in layers.items():
+        if not isinstance(key, str) or not 0 < len(key) <= _WIRE_KEY_MAX:
+            return None
+        if not isinstance(info, dict):
+            return None
+        h, n = info.get("h"), info.get("n")
+        if not (isinstance(h, str) and len(h) == 64
+                and all(c in "0123456789abcdef" for c in h)):
+            return None
+        if not (isinstance(n, int) and 0 <= n <= DEFAULT_MAX_BYTES):
+            return None
+        out_layers[key] = {"h": h, "n": n}
+    return out_layers
+
+
+def parse_wire_manifest(data: bytes) -> dict | None:
+    """PEER-CONTROLLED manifest bytes -> ``{"quant", "density", "layers":
+    {key: {"h", "n"}}}`` or None. Magic, size cap, JSON shape, format
+    number and the layer table's bounds are all validated: a manifest that
+    parses can at worst make ingest fetch bounded bytes that then fail
+    their hash check."""
+    import json
+    if not is_wire_v2_manifest(data) or len(data) > WIRE_MANIFEST_MAX_BYTES:
+        return None
+    try:
+        body = json.loads(bytes(data[len(WIRE_V2_MAGIC):]).decode("utf-8"))
+    except (ValueError, UnicodeDecodeError):
+        return None
+    if not isinstance(body, dict) or body.get("format") != 2:
+        return None
+    out_layers = _validated_manifest_layers(body.get("layers"))
+    if out_layers is None:
+        return None
+    quant = body.get("quant")
+    density = body.get("density")
+    return {"quant": quant if isinstance(quant, str) else "int8",
+            "density": float(density)
+            if isinstance(density, (int, float)) else None,
+            "layers": out_layers}

@@ -1,7 +1,7 @@
 """Transport protocol — the port of the JAX package's ``transport/base.py``:
-the ``Transport`` protocol and the delta META rider codec (the reserved
-artifact ids of the fleet planes come with the slices that publish under
-them).
+the ``Transport`` protocol, the delta META rider codec, the reserved
+artifact ids and the wire-v2 shard helpers (``shard_id``,
+``publish_shard``, ``fetch_shard``).
 
 Method mapping to the reference's HFManager (hivetrain/hf_manager.py):
 
@@ -29,6 +29,81 @@ Params = Any
 Revision = Optional[str]
 
 META_MAX_BYTES = 4096
+
+# Reserved artifact ids: control-plane and shard artifacts travel through
+# the same per-miner byte surface as deltas, under prefixes no chain
+# hotkey starts with. The port publishes wire-v2 shards; the other
+# prefixes are the JAX package's fleet planes, kept so a consumer of a
+# shared root recognises every reserved id.
+HEARTBEAT_PREFIX = "__hb__"
+LEASE_PREFIX = "__lease__"
+AGG_PREFIX = "__agg__"
+PM_PREFIX = "__pm__"
+LINEAGE_PREFIX = "__lineage__"
+BASE_PREFIX = "__base__"
+KV_PREFIX = "__kv__"
+MIRROR_PREFIX = "__mirror__"
+
+# Wire-v2 per-layer delta shards (serialization.py shard container,
+# engine/publish.py uploads, engine/ingest.py fetches): raw bytes under a
+# reserved per-(miner, layer) id, carried by every transport's
+# publish_raw / fetch_delta_bytes. The id is layer-stable (a re-publish
+# overwrites that layer's previous shard: the storage bound); the content
+# address is the manifest's per-shard sha256, which ingest verifies.
+SHARD_PREFIX = "__shard__"
+
+
+def shard_layer_slug(layer_key: str) -> str:
+    """Filename/id-safe spelling of a manifest layer key (``/``-joined
+    wire path). Injective: literal ``%`` and ``.`` are percent-escaped
+    before ``/`` maps to ``.``, so ``a/b.c`` and ``a/b/c`` get distinct
+    shard ids."""
+    return (layer_key.replace("%", "%25").replace(".", "%2E")
+            .replace("/", "."))
+
+
+def shard_id(hotkey: str, layer_key: str) -> str:
+    """The reserved artifact id one miner's per-layer shard travels under
+    on id-namespace transports (localfs, memory)."""
+    return f"{SHARD_PREFIX}.{hotkey}.{shard_layer_slug(layer_key)}"
+
+
+def is_shard_id(artifact_id: str) -> bool:
+    return isinstance(artifact_id, str) and \
+        artifact_id.startswith(SHARD_PREFIX + ".")
+
+
+def is_reserved_id(artifact_id: str) -> bool:
+    """True for any id in the reserved namespace (heartbeats, leases,
+    wire-v2 shards, partial aggregates, postmortems, lineage records, base
+    shards and manifests, KV pages, mirrors): flat delta consumers never
+    stage these as miner submissions."""
+    return isinstance(artifact_id, str) and (
+        artifact_id == BASE_PREFIX
+        or any(artifact_id.startswith(p + ".") for p in (
+            HEARTBEAT_PREFIX, LEASE_PREFIX, SHARD_PREFIX, AGG_PREFIX,
+            PM_PREFIX, LINEAGE_PREFIX, BASE_PREFIX, KV_PREFIX,
+            MIRROR_PREFIX)))
+
+
+def publish_shard(transport, hotkey: str, layer_key: str,
+                  data: bytes) -> None:
+    """Publish one shard through the transport's own ``publish_shard``
+    when it has one, else ``publish_raw`` under the reserved shard id."""
+    ps = getattr(transport, "publish_shard", None)
+    if ps is not None:
+        ps(hotkey, layer_key, data)
+        return
+    transport.publish_raw(shard_id(hotkey, layer_key), data)
+
+
+def fetch_shard(transport, hotkey: str, layer_key: str) -> bytes | None:
+    """One shard's raw bytes (or None). Integrity is the caller's: it
+    verifies the bytes against the manifest's content hash."""
+    fs = getattr(transport, "fetch_shard", None)
+    if fs is not None:
+        return fs(hotkey, layer_key)
+    return transport.fetch_delta_bytes(shard_id(hotkey, layer_key))
 
 
 def encode_delta_meta(meta: dict) -> bytes:

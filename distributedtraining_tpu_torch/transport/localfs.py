@@ -13,6 +13,14 @@ topologies are exercised on a single box (SURVEY.md §4.1).
 Layout:
     root/
       deltas/<miner_id>.msgpack        one artifact per miner, overwritten
+                                       (a wire-v2 miner's is its manifest)
+      deltas/<miner_id>.meta.json      its rider
+      deltas/__shard__.<miner_id>.<layer-slug>.msgpack
+                                       wire-v2 shards (transport/base.py
+                                       shard_id), one per layer, each
+                                       overwritten by the layer's next
+                                       shard: storage stays bounded with
+                                       no gc pass, as in the JAX package
       base/averaged_model.msgpack      the shared base model
 
 Writes are atomic (tmp + rename, see serialization.save_file) so a reader

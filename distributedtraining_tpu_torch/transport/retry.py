@@ -68,6 +68,12 @@ DEFAULT_PUBLISH_RETRY = RetryPolicy(attempts=3, base_delay=0.25,
                                     max_delay=8.0, max_elapsed=120.0)
 DEFAULT_META_RETRY = RetryPolicy(attempts=3, base_delay=0.1, max_delay=2.0,
                                  max_elapsed=30.0)
+# ingest-side reads (revision probes, artifact fetches): a shorter budget
+# than publishes — a missed miner this round merges next round, whereas a
+# lost publish drops the artifact. Failures after the budget are isolated
+# per miner by the ingest pool (engine/ingest.py), never round-fatal.
+DEFAULT_FETCH_RETRY = RetryPolicy(attempts=2, base_delay=0.2, max_delay=2.0,
+                                  max_elapsed=60.0)
 
 
 def call_with_retry(fn: Callable, *, policy: RetryPolicy | None = None,

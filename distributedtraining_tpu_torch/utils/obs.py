@@ -3,8 +3,11 @@ correlation ids.
 
 The serving engine reports through it as ``serve.*`` (``serve.ttft_ms``,
 ``serve.tpot_ms``, ...), the miner as ``miner.*`` (``miner.step_ms``,
-``miner.data_wait_ms``) and its publisher as ``publish.*`` and
-``push.*`` spans. Same names and semantics as the JAX package's
+``miner.data_wait_ms``) and its publisher as ``publish.*``, ``wire.*``
+(the v2 shard publish) and ``push.*`` spans; the averager as ``avg.*``
+spans (``avg.fetch``, ``avg.screen``, ``avg.merge``, ``avg.eval``,
+``avg.publish``), ``ingest.*`` and ``wire.*`` counters,
+``delta.densify_fallbacks`` and ``merge.weights_reused``. Same names and semantics as the JAX package's
 ``utils/obs.py``: the registry, ``span`` (a ``span.<name>_ms``
 histogram), the thread-local correlation id (``correlate``,
 ``current_cid``, ``new_delta_id``) and ``flush`` (a registry snapshot
@@ -270,10 +273,41 @@ def correlate(cid: str | None):
         tl.cid = prev
 
 
+_CID_MAX_LEN = 120
+
+
+def capture_context() -> str | None:
+    """This thread's correlation id, for hand-off to a worker thread (the
+    ingest pool installs it per job with :func:`use_context`)."""
+    return current_cid()
+
+
 @contextlib.contextmanager
-def span(name: str, *, cid: str | None = None):
+def use_context(ctx: str | None):
+    """Install a :func:`capture_context` snapshot on the current thread
+    for the duration."""
+    with correlate(ctx):
+        yield
+
+
+def rider_delta_id(meta) -> str | None:
+    """Defensive read of ``delta_id`` from a PEER-CONTROLLED meta rider:
+    a short string or nothing."""
+    if not isinstance(meta, dict):
+        return None
+    v = meta.get("delta_id")
+    if isinstance(v, str) and 0 < len(v) <= _CID_MAX_LEN:
+        return v
+    return None
+
+
+@contextlib.contextmanager
+def span(name: str, *, cid: str | None = None, **attrs):
     """Time a phase into the ``span.<name>_ms`` histogram; ``cid`` sets
-    the thread's correlation id inside it. A no-op when disabled."""
+    the thread's correlation id inside it. ``attrs`` (miner, cache, ...)
+    annotate the JAX package's span records; the port keeps the
+    histogram only, so they are accepted and dropped. A no-op when
+    disabled."""
     if not _STATE.enabled:
         yield
         return

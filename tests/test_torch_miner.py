@@ -255,10 +255,9 @@ def test_async_and_sync_artifacts_byte_identical(world):
 def test_unported_miner_options_raise(world):
     model, _ = tg.make_model(TINY)
     eng = ttrain.TrainEngine(model, device="cpu")
-    for kw, match in (({"wire_v2": True}, "slice 5"),
-                      ({"delta_dtype": "int8"}, "slice 4"),
-                      ({"checkpoint_store": object()}, "slice 4"),
-                      ({"base_fetcher": object()}, "slice 4"),
+    for kw, match in (({"delta_dtype": "int8"}, "slice 5"),
+                      ({"checkpoint_store": object()}, "slice 5"),
+                      ({"base_fetcher": object()}, "slice 5"),
                       ({"heartbeat": object()}, "slice 7")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.MinerLoop(eng, InMemoryTransport(), "m0", **kw)
@@ -288,11 +287,11 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
 
 
 @pytest.mark.parametrize("extra,slice_no", [
-    ([], 4),                                    # --base-wire-v2 is on
-    (["--no-base-wire-v2"], 4),                 # --checkpoint-interval 600
+    ([], 5),                                    # --base-wire-v2 is on
+    (["--no-base-wire-v2"], 5),                 # --checkpoint-interval 600
     (["--no-base-wire-v2", "--checkpoint-interval", "0"], 7),
-    (MINER_ARGS + ["--wire-v2"], 5),
-    (MINER_ARGS + ["--delta-dtype", "sparse8"], 4),
+    (MINER_ARGS + ["--wire-v2", "--delta-dtype", "int8"], 5),
+    (MINER_ARGS + ["--delta-dtype", "sparse8"], 5),
     (MINER_ARGS + ["--backend", "hf"], 7),
     (MINER_ARGS + ["--lora-rank", "4"], 7),
     (MINER_ARGS + ["--fsdp", "2"], 7),
