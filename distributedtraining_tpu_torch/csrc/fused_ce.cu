@@ -24,31 +24,51 @@
 // dh and dW each recompute z and do one more product of the same size:
 // 1.28 ms each. (H100 SXM data sheet.)
 //
-// Two routes, one per dtype, with the same decomposition:
+// Two routes, one per dtype:
 //  - bf16, the training path: the tensor cores, mma.sync m16n8k16 (bf16 in,
-//    f32 accumulation), 8 warps a block. Rows of h and W sit in shared
-//    memory as bf16 over the whole E (rows padded by 8 elements, so that
-//    fragment loads hit 32 banks); a warp computes a 16 x 16 tile of z.
-//    E <= 1024 (shared memory); the wrapper refuses more.
+//    f32 accumulation), 8 warps a block.
 //  - f32: the CUDA cores, f32 FMA (no TF32), K-chunked through shared
 //    memory, so the route agrees with the plain version to summation order.
+//    Its forward has the decomposition of bf16 dh below (32 rows a block,
+//    vocab tiles of 64).
 // The kernels:
-//  - forward: a block owns 32 rows and one split of the vocab tiles (the
-//    vocab is split across blocks when the rows alone cannot fill the
-//    card: at the miner's N = 504 there are only 16 row tiles). Each
-//    thread keeps an online (max, sum, label logit) over the columns it
-//    holds; the block merges them per row and writes one partial per
-//    (split, row); a second small kernel merges the splits into
-//    (loss, m, s). With one split the block writes (loss, m, s) itself.
-//  - dh: a block owns 32 rows, one vocab split and a pass of E columns
+//  - forward, bf16 (ce_fwd_mma): a tiled GEMM mainloop with the online
+//    softmax as its epilogue. What bounds it is the tensor cores; what held
+//    a simple design far from that is feeding them: with 32 rows a block
+//    every block streamed all of W (77 MB) from L2 or HBM, 256 times at
+//    N 8184, in plain loads between two barriers (no overlap of loads and
+//    mma), and 32-bit fragment loads made shared memory the pace. So a
+//    block owns kFM = 128 rows and walks its split's vocab tiles of
+//    32 kFwdNT columns (W now streams N / 128 times: 64 at N 8184); each
+//    tile's z is summed over E in K chunks of 64 for h and W alike through
+//    a ring of cp.async stages, so the next chunks load while the tensor
+//    cores work on this one; fragments come from swizzled rows with
+//    ldmatrix.x4, one shared load for two (A) or four (B) 32-bit registers;
+//    each warp owns a 64 x 8 kFwdNT tile of z. The epilogue of each vocab
+//    tile masks the columns at or past V, writes the label logit from the
+//    one thread whose column holds it, and updates each thread's online
+//    (max, sum) of its 8 rows; the quad and the 4 warps along the vocab
+//    are merged through shared memory at the end. Any E that is a multiple
+//    of 64 is taken. The vocab is split across blocks when the row tiles
+//    alone leave SMs idle (ops/fused_ce.py _fwd_splits: N 8184 has 64 row
+//    tiles, N 504 has 4); the grid runs row tiles fastest, so the blocks
+//    in flight walk the same W tiles together and share them in L2. Each
+//    block writes one partial (max, sum, label logit) per (split, row), and
+//    ce_fwd_merge merges the splits into (loss, m, s); with one split the
+//    block writes (loss, m, s) itself.
+//  - dh, bf16: rows of h and W sit in shared memory as bf16 over the whole
+//    E (rows padded by 8 elements, so that fragment loads hit 32 banks), so
+//    E <= 1024 (the wrapper refuses more); a warp computes a 16 x 16 tile
+//    of z. A block owns 32 rows, one vocab split and a pass of E columns
 //    (all of E = 768 in one pass), with its dh accumulator in registers
 //    (96 floats a thread). It walks its vocab tiles of 64: z tile, dz
 //    (rounded, to shared memory), dh += dz W. Recompute factor E / pass
 //    (1 at E = 768). With one split the block rounds dh and writes it;
 //    with more, partials per split are f32 and a reduce kernel sums the
 //    splits in order and rounds once to h's dtype.
-//  - dW: a block owns 32 vocab rows and a pass of E, and walks all the
-//    tokens in tiles of 64: z tile, dz, dW += dz^T h. It writes dW once.
+//  - dW, bf16: staged as dh; a block owns 32 vocab rows and a pass of E,
+//    and walks all the tokens in tiles of 64: z tile, dz, dW += dz^T h. It
+//    writes dW once.
 // Every output element is written by one thread; no atomics, so results
 // are deterministic.
 
@@ -64,8 +84,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kPad = 8;        // bf16 row padding (elements)
-constexpr int kRows = 32;      // forward / dh: tokens per block
-constexpr int kVTile = 64;     // forward / dh: vocab columns per step
+constexpr int kRows = 32;      // dh, f32 forward: tokens per block
+constexpr int kVTile = 64;     // dh, f32 forward: vocab columns per step
 constexpr int kWRows = 32;     // dW: vocab rows per block
 constexpr int kTTile = 64;     // dW: tokens per step
 constexpr int kLdDh = kVTile + kPad;   // dz tile row (dh)
@@ -235,90 +255,233 @@ __device__ __forceinline__ float dz_of(float z, int col, int V, float m,
   return (p - (col == y ? 1.f : 0.f)) * g;
 }
 
-__global__ void __launch_bounds__(kThreads) ce_fwd_mma(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int E = a.E, ld = E + kPad;
-  bf16* sH = reinterpret_cast<bf16*>(smem);
-  bf16* sW = sH + kRows * ld;
-  float* sRed = reinterpret_cast<float*>(sW + kVTile * ld);  // [3][4][32]
-  int* sY = reinterpret_cast<int*>(sRed + 3 * 4 * kRows);
+// ---------------------------------------------------------------------------
+// The forward's tiled mainloop: a block owns kFM rows and walks its split's
+// vocab tiles of 32 NT columns; each tile's z = h W^T is accumulated over E
+// in K chunks of kFK through a ring of kStages<NT> cp.async stages (h and W
+// chunks alike), read with ldmatrix.x4 from 128-byte rows swizzled in 16-byte
+// units (chunk c of row r at c ^ (r & 7): the 8 rows of one ldmatrix phase
+// hit 8 distinct bank groups).
+// ---------------------------------------------------------------------------
 
-  const int row0 = blockIdx.x * kRows, split = blockIdx.y;
+constexpr int kFM = 128;       // forward: rows per block
+constexpr int kFK = 64;        // forward: K chunk (128 bytes of bf16 a row)
+constexpr int kFwdNT = 8;      // forward: 8-column n tiles a warp (BN 256)
+
+template <int NT>
+constexpr int kStages = NT == 4 ? 3 : 4;
+
+template <int NT>
+constexpr size_t fwd_smem_bytes() {
+  return (size_t)kStages<NT> * (kFM + 32 * NT) * kFK * 2 + 2 * kFM * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c of row r in a [rows][kFK] bf16 tile
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * (kFK * 2) + ((c ^ (r & 7)) << 4));
+}
+
+// 16 bytes global -> shared, zero-filled when src_bytes is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// rows [r0, r0 + R) of a [n_rows, E] bf16 matrix, K chunk kc, into a
+// swizzled [R][kFK] tile; rows at or past n_rows are zero-filled
+template <int R>
+__device__ __forceinline__ void load_chunk(uint32_t dst, const bf16* src,
+                                           int r0, int n_rows, int E,
+                                           int kc) {
+#pragma unroll
+  for (int i = 0; i < R * 8 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c >> 3, ch = c & 7;
+    const int row = r0 + r;
+    const bf16* p =
+        src + (long long)(row < n_rows ? row : n_rows - 1) * E + kc * kFK +
+        ch * 8;
+    cp_async16(dst + swz(r, ch), p, row < n_rows ? 16 : 0);
+  }
+}
+
+// Warp w owns rows (w % 2) 64 + [0, 64) and columns (w / 2) 8 NT + [0, 8 NT)
+// of each tile: 4 x NT mma tiles, acc[mt][nt] (C layout above). Its thread
+// keeps the online (max, sum) of 8 rows (mt, half) over its columns; the
+// label logit goes straight to shared memory from the one thread whose
+// column holds it.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, NT == 4 ? 2 : 1)
+    ce_fwd_mma(const Args a) {
+  constexpr int BN = 32 * NT, S = kStages<NT>;
+  constexpr uint32_t A_BYTES = kFM * kFK * 2, STAGE = A_BYTES + BN * kFK * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* sY = reinterpret_cast<int*>(smem + S * STAGE);
+  float* sLL = reinterpret_cast<float*>(sY + kFM);
+  float* sRed = reinterpret_cast<float*>(smem);  // [2][4][kFM], after the loop
+  const bf16* H = static_cast<const bf16*>(a.h);
+  const bf16* W = static_cast<const bf16*>(a.w);
+  const uint32_t base = smem_u32(smem);
+
+  const int KC = a.E / kFK;
+  const int row0 = blockIdx.x * kFM, split = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int ra = (warp % 2) * 16, cb = (warp / 2) * 16;
+  const int wm = warp % 2, wn = warp / 2;
+  const int n_vt = (a.V + BN - 1) / BN;
+  const int tps = (n_vt + a.splits - 1) / a.splits;
+  const int vt0 = split * tps, vt1 = min(n_vt, vt0 + tps);
+  const int iters = max(0, vt1 - vt0) * KC;
 
-  load_rows_bf16(sH, a.h, row0, kRows, a.N, E);
-  if (threadIdx.x < kRows)
-    sY[threadIdx.x] = row0 + threadIdx.x < a.N ? a.y[row0 + threadIdx.x] : -1;
-
-  // rows ra + g (index 0) and ra + g + 8 (index 1), over this thread's
-  // columns
-  float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f}, ll[2] = {0.f, 0.f};
-  const int n_vt = (a.V + kVTile - 1) / kVTile;
-  const int vt0 = split * a.tiles_per_split;
-  const int vt1 = min(n_vt, vt0 + a.tiles_per_split);
-  for (int vt = vt0; vt < vt1; ++vt) {
-    const int v0 = vt * kVTile;
-    __syncthreads();  // the previous tile's sW reads are done
-    load_rows_bf16(sW, a.w, v0, kVTile, a.V, E);
-    __syncthreads();
-    float c[2][4];
-    z_tile(c, sH, ra, sW, cb, E, g, t);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int y = sY[ra + g + 8 * r];
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = v0 + cb + 8 * n + 2 * t + j;
-          float z = c[n][2 * r + j];
-          if (col >= a.V) z = -INFINITY;
-          else if (col == y) ll[r] += z;
-          c[n][2 * r + j] = z;
-          tmax = fmaxf(tmax, z);
-        }
-      if (tmax == -INFINITY) continue;
-      const float mn = fmaxf(m[r], tmax);
-      float acc = s[r] > 0.f ? s[r] * expf(m[r] - mn) : 0.f;
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) acc += expf(c[n][2 * r + j] - mn);
-      s[r] = acc;
-      m[r] = mn;
-    }
+  if (threadIdx.x < kFM) {
+    const int n = row0 + threadIdx.x;
+    sY[threadIdx.x] = n < a.N ? a.y[n] : -1;
+    sLL[threadIdx.x] = 0.f;
   }
-  // merge over the quad that shares a row, then over the 4 warps
+
+  // iteration it: vocab tile vt0 + it / KC, K chunk it % KC, ring slot it % S
+  auto load = [&](int it) {
+    const uint32_t st = base + (it % S) * STAGE;
+    const int kc = it % KC;
+    load_chunk<kFM>(st, H, row0, a.N, a.E, kc);
+    load_chunk<BN>(st + A_BYTES, W, (vt0 + it / KC) * BN, a.V, a.E, kc);
+  };
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < iters) load(i);
+    cp_async_commit();
+  }
+
+  // this thread's ldmatrix rows: A row wm 64 + mt 16 + (lane & 15), B row
+  // wn 8 NT + np 16 + (lane & 7) + 8 (lane >> 4); both have r & 7 == lane & 7
+  const uint32_t a_off = (wm * 64 + (lane & 15)) * (kFK * 2);
+  const uint32_t b_off =
+      A_BYTES + (wn * 8 * NT + (lane & 7) + ((lane >> 4) << 3)) * (kFK * 2);
+  const int a_ch = lane >> 4, b_ch = (lane >> 3) & 1, x = lane & 7;
+
+  float acc[4][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  float m[8], s[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) m[r] = -INFINITY, s[r] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // chunk it landed; slot (it - 1) % S is free again
+    if (it + S - 1 < iters) load(it + S - 1);
+    cp_async_commit();
+    const uint32_t st = base + (it % S) * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < kFK / 16; ++kk) {
+      uint32_t af[4][4], bfr[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(af[mt], st + a_off + mt * 16 * (kFK * 2) +
+                                (((2 * kk + a_ch) ^ x) << 4));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, st + b_off + np * 16 * (kFK * 2) +
+                           (((2 * kk + b_ch) ^ x) << 4));
+        bfr[2 * np][0] = r[0], bfr[2 * np][1] = r[1];
+        bfr[2 * np + 1][0] = r[2], bfr[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma16816(acc[mt][nt], af[mt], bfr[nt]);
+    }
+    if (it % KC != KC - 1) continue;
+    // epilogue of vocab tile vt: mask (the ragged last tile only), label
+    // logit, online (max, sum) with the exponentials on the SFU (__expf)
+    const int vt = vt0 + it / KC;
+    const int c0 = vt * BN + wn * 8 * NT + 2 * t;
+    const bool edge = (vt + 1) * BN > a.V;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = wm * 64 + mt * 16 + g + 8 * hf, slot = 2 * mt + hf;
+        const int d = sY[r] - c0;   // the label column past this thread's c0
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float& z = acc[mt][nt][2 * hf + j];
+            if (edge && c0 + nt * 8 + j >= a.V) z = -INFINITY;
+            else if (nt * 8 + j == d) sLL[r] = z;
+            tmax = fmaxf(tmax, z);
+          }
+        if (tmax != -INFINITY) {
+          const float mn = fmaxf(m[slot], tmax);
+          float sum = s[slot] > 0.f ? s[slot] * __expf(m[slot] - mn) : 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              sum += __expf(acc[mt][nt][2 * hf + j] - mn);
+          s[slot] = sum;
+          m[slot] = mn;
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) acc[mt][nt][2 * hf + j] = 0.f;
+      }
+  }
+  cp_async_wait<0>();
+  // merge over the quad that shares a row, then over the 4 warps along N
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int o = 1; o <= 2; o <<= 1) {
       const float mo = __shfl_xor_sync(kFull, m[r], o);
       const float so = __shfl_xor_sync(kFull, s[r], o);
-      ll[r] += __shfl_xor_sync(kFull, ll[r], o);
       merge_ms(m[r], s[r], mo, so);
     }
-  __syncthreads();
+  __syncthreads();  // every ring read is done: sRed may alias the ring
   if (t == 0)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = (warp / 2) * kRows + ra + g + 8 * r;
-      sRed[i] = m[r];
-      sRed[4 * kRows + i] = s[r];
-      sRed[8 * kRows + i] = ll[r];
+    for (int r = 0; r < 8; ++r) {
+      const int row = wm * 64 + (r / 2) * 16 + g + 8 * (r % 2);
+      sRed[wn * kFM + row] = m[r];
+      sRed[(4 + wn) * kFM + row] = s[r];
     }
   __syncthreads();
-  if (threadIdx.x < kRows && row0 + threadIdx.x < a.N) {
+  if (threadIdx.x < kFM && row0 + threadIdx.x < a.N) {
     const int row = threadIdx.x;
-    float M = -INFINITY, S = 0.f, L = 0.f;
-    for (int q = 0; q < 4; ++q) {
-      merge_ms(M, S, sRed[q * kRows + row], sRed[4 * kRows + q * kRows + row]);
-      L += sRed[8 * kRows + q * kRows + row];
-    }
-    store_fwd(a, split, row0 + row, M, S, L);
+    float M = -INFINITY, Sm = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      merge_ms(M, Sm, sRed[q * kFM + row], sRed[(4 + q) * kFM + row]);
+    store_fwd(a, split, row0 + row, M, Sm, sLL[row]);
   }
 }
 
@@ -770,8 +933,7 @@ enum class Which { kFwd, kDh, kDw };
 
 size_t smem_bytes(Which w, int E) {
   const size_t ld = E + kPad;
-  if (w == Which::kFwd)
-    return (kRows + kVTile) * ld * 2 + 3 * 4 * kRows * 4 + kRows * 4;
+  if (w == Which::kFwd) return fwd_smem_bytes<kFwdNT>();
   if (w == Which::kDh)
     return (kRows + kVTile) * ld * 2 + kRows * kLdDh * 2 + 4 * kRows * 4;
   return (kWRows + kTTile) * ld * 2 + kTTile * kLdDw * 2 + 4 * kTTile * 4;
@@ -832,14 +994,15 @@ cudaError_t run(Which w, Args& a, int dtype, int device, void* stream) {
   const int row_tiles = (a.N + kRows - 1) / kRows;
   const bool bf = dtype == 1;
   if (w == Which::kFwd) {
-    const dim3 grid(row_tiles, a.splits);
     if (bf) {
+      // row tiles fastest: the blocks in flight walk one split's W tiles
+      const dim3 grid((a.N + kFM - 1) / kFM, a.splits);
       const size_t bytes = smem_bytes(w, a.E);
-      cudaError_t err = prepare((const void*)ce_fwd_mma, bytes);
+      cudaError_t err = prepare((const void*)ce_fwd_mma<kFwdNT>, bytes);
       if (err != cudaSuccess) return err;
-      ce_fwd_mma<<<grid, kThreads, bytes, st>>>(a);
+      ce_fwd_mma<kFwdNT><<<grid, kThreads, bytes, st>>>(a);
     } else {
-      ce_fwd_f32<<<grid, kThreads, 0, st>>>(a);
+      ce_fwd_f32<<<dim3(row_tiles, a.splits), kThreads, 0, st>>>(a);
     }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || a.splits == 1) return err;

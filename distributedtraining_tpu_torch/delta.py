@@ -688,10 +688,12 @@ def accumulate_delta(acc: Params, delta: Tree, weight) -> Params:
     """``acc += weight * delta`` in place, where ``acc`` is an f32 state
     dict and ``delta`` a dense tree (wire tree or state dict) OR a v2
     packed tree already admitted by :func:`packed_matches`. Packed entries
-    pair with ``acc`` by path and fold without densifying: indexed-form
-    entries through ``ops.dequant_scatter`` (the CUDA kernel for a CUDA
-    accumulator), dense-form entries as ``acc + w * (q * scale)``. The
-    weight is taken as f32."""
+    pair with ``acc`` by path and fold without densifying: the
+    indexed-form entries of the contribution in one ``ops.dequant_scatter``
+    fold (one launch of the CUDA kernel for a CUDA accumulator),
+    dense-form entries as ``acc + w * (q * scale)``. Their idx and q reach
+    a CUDA device in one copy from a pinned staging buffer. The weight is
+    taken as f32."""
     from .ops import dequant_scatter as dsc
 
     w = float(np.float32(weight))
@@ -703,20 +705,23 @@ def accumulate_delta(acc: Params, delta: Tree, weight) -> Params:
                 f"accumulate_delta: packed entry paths do not match the "
                 f"accumulator's keys ({sorted(set(keys) ^ set(acc))[:5]}; "
                 "run packed_matches before accumulating)")
+        indexed, dense = [], []
         for key, e in entries:
             flat = acc[key].view(-1)
-            dev = flat.device
-            # host -> device copies of idx and q (O(k) bytes a leaf)
-            idx = torch.tensor(_host_field(e["idx"]), device=dev)
-            q = torch.tensor(_host_field(e["q"]), device=dev)
+            idx, q = _host_field(e["idx"]), _host_field(e["q"])
             scale = np.float32(_host_field(e["scale"]))
             n = flat.numel()
-            if idx.numel() == 0 and q.numel() == n and n > 0:
-                flat.add_((q.to(torch.float32)
-                           * torch.tensor(scale, device=dev)) * w)
-            elif idx.numel():
-                dsc.dequant_scatter_add(flat, idx, q,
-                                        dsc.fold_weight(w, scale))
+            if idx.size == 0 and q.size == n and n > 0:
+                dense.append((flat, q, scale))
+            elif idx.size:
+                indexed.append((flat, idx, q, dsc.fold_weight(w, scale)))
+        c = dsc.stage_contribution(
+            indexed, [q for _, q, _ in dense],
+            device=acc[keys[0]].device if keys else None)
+        for (flat, _, scale), q in zip(dense, c.extra):
+            # a Python float holding the f32 scale multiplies as the f32
+            flat.add_((q.to(torch.float32) * float(scale)) * w)
+        dsc.dequant_scatter_contribution(c)
         return acc
     flat_d = flatten_tree(delta)
     _same_keys(acc, flat_d)

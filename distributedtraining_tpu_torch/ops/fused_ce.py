@@ -46,20 +46,24 @@ from . import _cuda
 launches = {"fused_ce_fwd": 0, "fused_ce_bwd_dh": 0, "fused_ce_bwd_dw": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_E_BF16 = 1024   # the bf16 kernels stage whole rows of h and W
+MAX_E_BF16 = 1024   # bf16 dh and dW stage whole rows of h and W
+# the bf16 forward's tiles (csrc/fused_ce.cu: kFM rows, 32 kFwdNT vocab
+# columns) and its blocks resident on one SM (its __launch_bounds__)
+FWD_ROWS, FWD_COLS, FWD_BLOCKS_PER_SM = 128, 256, 1
 _SLICES = "ROADMAP 'Slices of the port'"
 
 
 def refuse_width(E: int, dtype: torch.dtype) -> None:
     """Raise NotImplementedError for a hidden width the card's kernels do
     not take in ``dtype``: bf16 above :data:`MAX_E_BF16` (GPT-2-774M's
-    1280 and -1.5B's 1600; K-chunked staging comes with the larger models).
-    Callers check it before any work, not at the first step."""
+    1280 and -1.5B's 1600), which the forward takes but dh and dW do not
+    (K-chunked dh and dW come with the larger models). Callers check it
+    before any work, not at the first step."""
     if dtype == torch.bfloat16 and E > MAX_E_BF16:
         raise NotImplementedError(
-            f"the fused CE kernels take a bf16 hidden width up to "
+            f"the fused CE backward kernels take a bf16 hidden width up to "
             f"{MAX_E_BF16}, not {E} (they stage whole rows in shared "
-            f"memory); K-chunked staging is {_SLICES}, slice 7")
+            f"memory); K-chunked dh and dW are {_SLICES}, slice 7")
 
 
 @functools.cache
@@ -78,8 +82,20 @@ def _kernels() -> dict:
     return out
 
 
-def _check(h, w, y, *stats) -> None:
-    """Raise ValueError on anything the kernels do not take."""
+def check_width(E: int, dtype: torch.dtype, name: str) -> None:
+    """Raise ValueError for a hidden width kernel ``name`` does not take:
+    E a multiple of 64 for all three, and in bf16 at most
+    :data:`MAX_E_BF16` for dh and dW (the forward is K-chunked)."""
+    if E < 64 or E % 64:
+        raise ValueError(f"E = {E}: the fused CE kernels take a multiple "
+                         f"of 64")
+    if (dtype == torch.bfloat16 and name != "fused_ce_fwd"
+            and E > MAX_E_BF16):
+        raise ValueError(f"bf16 E = {E} exceeds {name}'s {MAX_E_BF16}")
+
+
+def _check(name, h, w, y, *stats) -> None:
+    """Raise ValueError on anything kernel ``name`` does not take."""
     tensors = (h, w, y, *stats)
     if any(t.device.type != "cuda" or t.device != h.device for t in tensors):
         raise ValueError("the fused CE kernels need every tensor on one "
@@ -91,12 +107,10 @@ def _check(h, w, y, *stats) -> None:
         raise ValueError(f"h and w must share one of {list(_DTYPES)}, got "
                          f"{h.dtype}, {w.dtype}")
     N, E = h.shape
-    if N < 1 or w.shape[0] < 1 or E % 64:
+    if N < 1 or w.shape[0] < 1:
         raise ValueError(f"unsupported shape h {tuple(h.shape)}, w "
-                         f"{tuple(w.shape)} (E a multiple of 64)")
-    if h.dtype == torch.bfloat16 and E > MAX_E_BF16:
-        raise ValueError(f"bf16 E = {E} exceeds the kernels' "
-                         f"{MAX_E_BF16}")
+                         f"{tuple(w.shape)}")
+    check_width(E, h.dtype, name)
     if not (h.is_contiguous() and w.is_contiguous()):
         raise ValueError("h and w must be contiguous")
     if y.shape != (N,) or y.dtype != torch.int32 or not y.is_contiguous():
@@ -107,13 +121,27 @@ def _check(h, w, y, *stats) -> None:
 
 
 def _splits(h: torch.Tensor, V: int) -> int:
-    """Vocab splits of the forward and dh grids: enough blocks for one
-    wave when the row tiles alone leave SMs idle (the miner's N = 504 has
-    16 row tiles on 132 SMs), else 1. With one split the kernels write
-    their outputs themselves and no merge or reduce kernel runs."""
+    """Vocab splits of the dh grid and of the f32 forward's (32 rows a
+    block): enough blocks for one wave when the row tiles alone leave SMs
+    idle (the miner's N = 504 has 16 row tiles on 132 SMs), else 1. With
+    one split the kernels write their outputs themselves and no merge or
+    reduce kernel runs."""
     row_tiles = -(-h.shape[0] // 32)
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     return max(1, min(-(-V // 64), sms // row_tiles))
+
+
+def _fwd_splits(N: int, V: int, sms: int) -> int:
+    """Vocab splits of the bf16 forward's grid, from its own tiles: as
+    many as fill the ``sms`` SMs' resident blocks beside the
+    ``ceil(N / 128)`` row tiles (N 8184: 64 row tiles, 2 splits; N 504:
+    4 row tiles, 33 splits on 132 SMs), never more than the vocab tiles,
+    and none left empty (the kernel gives split i the tiles
+    ``[i t, min((i + 1) t, tiles))``, ``t = ceil(tiles / splits)``)."""
+    row_tiles = -(-N // FWD_ROWS)
+    tiles = -(-V // FWD_COLS)
+    want = max(1, min(tiles, sms * FWD_BLOCKS_PER_SM // row_tiles))
+    return -(-tiles // -(-tiles // want))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -133,9 +161,13 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor
     share a dtype; ``y`` is int32 ``[N]``. Raises ValueError on anything
     the kernel does not take (a CPU tensor included) and RuntimeError if
     the launch fails."""
-    _check(h, w, y)
+    _check("fused_ce_fwd", h, w, y)
     (N, E), V = h.shape, w.shape[0]
-    splits = _splits(h, V)
+    if h.dtype == torch.bfloat16:
+        splits = _fwd_splits(N, V, torch.cuda.get_device_properties(
+            h.device).multi_processor_count)
+    else:
+        splits = _splits(h, V)
     part = (torch.empty((3, splits, N), dtype=torch.float32, device=h.device)
             if splits > 1 else None)
     loss, m, s = (torch.empty(N, dtype=torch.float32, device=h.device)
@@ -154,7 +186,7 @@ def fused_ce_bwd_dh(h, w, y, m, s, g) -> torch.Tensor:
     """Launch the dh kernel: ``dh [N, E]`` in h's dtype, from the
     forward's ``(m, s)`` and the per-token upstream gradient ``g`` (f32
     ``[N]``)."""
-    _check(h, w, y, m, s, g)
+    _check("fused_ce_bwd_dh", h, w, y, m, s, g)
     (N, E), V = h.shape, w.shape[0]
     splits = _splits(h, V)
     part = (torch.empty((splits, N, E), dtype=torch.float32, device=h.device)
@@ -172,7 +204,7 @@ def fused_ce_bwd_dh(h, w, y, m, s, g) -> torch.Tensor:
 
 def fused_ce_bwd_dw(h, w, y, m, s, g) -> torch.Tensor:
     """Launch the dW kernel (arguments as for dh): ``dW [V, E]`` in f32."""
-    _check(h, w, y, m, s, g)
+    _check("fused_ce_bwd_dw", h, w, y, m, s, g)
     (N, E), V = h.shape, w.shape[0]
     dw = torch.empty((V, E), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):

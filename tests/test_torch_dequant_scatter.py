@@ -245,3 +245,151 @@ def test_card_check_rejects_planted_wrong_results(mode):
     for bad in planted.values():
         with pytest.raises(smoke.SmokeFailure, match=mode):
             smoke._scatter_check(mode, bad, ref)
+
+
+# ---------------------------------------------------------------------------
+# The contribution-level fold: one table, one staged buffer
+# ---------------------------------------------------------------------------
+
+def _tiny_contribution(quant):
+    """A tiny GPT-2's packed contribution (JAX pack_delta_v2, density
+    1/16) whose wte entry is made hostile: every other index repeats its
+    neighbour, so that leaf carries duplicates and the others do not."""
+    from distributedtraining_tpu_torch.models import gpt2
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["tiny"], 3)
+    rng = np.random.default_rng(11)
+    d = jax.tree_util.tree_map(
+        lambda x: (rng.standard_normal(x.shape) * 1e-2).astype(np.float32),
+        tree)
+    packed = _jpacked(d, density=1.0 / 16.0, quant=quant)
+    wte = dict(packed["leaves"]["wte"])
+    idx = np.array(wte["idx"])
+    idx[1::2] = idx[0::2][:idx[1::2].size]
+    packed["leaves"]["wte"] = dict(wte, idx=idx)
+    start = jax.tree_util.tree_map(
+        lambda x: (rng.standard_normal(x.shape)).astype(np.float32), tree)
+    return packed, start
+
+
+def _jax_fold(start, packed, w):
+    """The JAX package's kernel-backed fold of one contribution
+    (``delta._accum_packed_kernel``, the Pallas kernel interpreted), as
+    ``{state-dict key: array}``."""
+    leaves = jax.tree_util.tree_leaves(
+        jax.tree_util.tree_map(jnp.asarray, start))
+    entries = jax.tree_util.tree_leaves(packed["leaves"],
+                                        is_leaf=jdl.is_packed_entry)
+    jdsc.use_interpret(True)
+    out = jdl._accum_packed_kernel(leaves, entries, jnp.float32(w))
+    jdsc.use_interpret(False)
+    paths = [".".join(str(getattr(k, "key", k)) for k in p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(start)[0]]
+    return {k: np.asarray(v) for k, v in zip(paths, out)}
+
+
+@pytest.mark.parametrize("quant", ["int8", "none"])
+def test_contribution_fold_equals_jax_kernel_fold(quant):
+    """The contribution-level plain path, fed through the concatenated
+    idx/q buffer and the table the kernel reads, is array_equal to the
+    JAX kernel fold on every leaf (indexed, dense-form, and the hostile
+    leaf with duplicates); accumulate_delta takes the same path."""
+    packed, start = _tiny_contribution(quant)
+    w = 0.37
+    ref = _jax_fold(start, packed, w)
+    indexed = []
+    acc = _state(start)
+    for key, e in tdl._packed_entries(packed["leaves"]):
+        if e["idx"].shape[0]:
+            indexed.append((acc[key].view(-1), e["idx"], e["q"],
+                            tdsc.fold_weight(w, e["scale"])))
+    assert len(indexed) >= 3
+    wte_idx = np.asarray(packed["leaves"]["wte"]["idx"])
+    assert np.unique(wte_idx).size < wte_idx.size      # the hostile leaf
+    c = tdsc.stage_contribution(indexed)
+    assert c.table.size == len(indexed) and c.idx.dtype == torch.int32
+    before = tdsc.launches
+    tdsc.dequant_scatter_contribution(c)
+    assert tdsc.launches == before
+    for key, e in tdl._packed_entries(packed["leaves"]):
+        if e["idx"].shape[0]:
+            np.testing.assert_array_equal(acc[key].numpy(), ref[key])
+    out = tdl.accumulate_delta(_state(start), packed, w)
+    assert sorted(out) == sorted(ref)
+    for key in ref:
+        np.testing.assert_array_equal(out[key].numpy(), ref[key])
+    assert tdsc.launches == before
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_table_layout_covers_every_entry_once(seed):
+    """Every entry of every leaf belongs to exactly one block of the
+    grid; no two leaves' idx, q or bitmap ranges overlap; offsets keep
+    the kernel's vector loads aligned."""
+    rng = np.random.default_rng(seed)
+    m = int(rng.integers(1, 60))
+    ns = rng.integers(1, 3_000_000, m)
+    ks = np.minimum(ns, rng.integers(1, 5000, m))
+    ks[0] = ns[0] = 1
+    if m > 2:
+        ks[1] = ns[1] = 1024 * 3
+        ks[2] = 1025
+        ns[2] = max(ns[2], 1025)
+    sizes = rng.choice([1, 4], m)
+    table, blocks, n_idx, n_q = tdsc.contribution_layout(ns, ks, sizes)
+    assert (table["n"] == ns).all() and (table["k"] == ks).all()
+    assert (table["e0"] % 4 == 0).all() and (table["qb"] % 16 == 0).all()
+    covered = [np.zeros(k, np.int64) for k in ks]
+    for b in blocks:
+        k = ks[b["leaf"]]
+        assert 0 <= b["j0"] < k and b["j0"] % 1024 == 0
+        covered[b["leaf"]][b["j0"]:b["j0"] + 1024] += 1
+    assert all((c == 1).all() for c in covered)
+    for lo, size, total in ((table["e0"], ks, n_idx),
+                            (table["qb"], ks * sizes, n_q),
+                            (table["w0"] * 32, ns, None)):
+        order = np.argsort(lo)
+        ends = lo[order] + np.asarray(size)[order]
+        assert (ends[:-1] <= lo[order][1:]).all()
+        if total is not None:
+            assert ends[-1] <= total
+    assert tdsc.bitmap_words(table) == int((table["w0"]
+                                            + -(-ns // 32)).max())
+
+
+def test_contribution_kernel_refuses_cpu_and_mixed_devices():
+    acc = torch.zeros(4096)
+    idx = np.asarray([1, 2, 3], np.int32)
+    q = np.asarray([3, 4, 5], np.int8)
+    c = tdsc.stage_contribution([(acc, idx, q, 0.5)])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tdsc.dequant_scatter_contribution_kernel(c)
+    mixed = c._replace(accs=[torch.zeros(4096, device="meta")])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tdsc.dequant_scatter_contribution(mixed)
+    with pytest.raises(ValueError, match="more than one device"):
+        tdsc.stage_contribution([(acc, idx, q, 0.5),
+                                 (torch.zeros(8, device="meta"), idx, q,
+                                  0.5)])
+    assert not acc.any()
+
+
+def test_stage_contribution_places_leaves_and_extras():
+    """The staged buffer holds each leaf's idx and q where the table says
+    and the extra arrays (dense-form q) after them, with their dtypes."""
+    rng = np.random.default_rng(2)
+    leaves = [(torch.zeros(100), rng.choice(100, 7, replace=False)
+               .astype(np.int32), rng.integers(-9, 9, 7).astype(np.int8),
+               0.25),
+              (torch.zeros(50), np.asarray([3, 3, 49], np.int32),
+               np.asarray([1.5, -2.0, 4.0], np.float32), 2.0)]
+    extra = [np.arange(5, dtype=np.int8), np.ones(3, np.float32)]
+    c = tdsc.stage_contribution(leaves, extra)
+    for i, (_, idx, q, _) in enumerate(leaves):
+        ci, cq = tdsc._leaf_views(c, i)
+        np.testing.assert_array_equal(ci.numpy(), idx)
+        np.testing.assert_array_equal(cq.numpy(), q)
+    for got, want in zip(c.extra, extra):
+        assert got.dtype == torch.from_numpy(want).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    tdsc.dequant_scatter_contribution(c)
+    assert float(leaves[1][0][3]) == (1.5 - 2.0) * 2.0

@@ -228,3 +228,44 @@ def test_width_refusal(E, dtype, refused):
             tfce.refuse_width(E, dtype)
     else:
         tfce.refuse_width(E, dtype)
+
+
+@pytest.mark.parametrize("N", [1, 504, 8184])
+@pytest.mark.parametrize("V", [64, 50257, 50304])
+def test_forward_splits_cover_every_vocab_tile_once(N, V):
+    """The bf16 forward's vocab splits (its own 128-row tiles) on 132
+    SMs: split i gets tiles [i t, min((i + 1) t, tiles)), t = ceil(tiles /
+    splits), as the kernel computes them; every tile falls in exactly one
+    split, no split is empty, and the grid fills between half and all of
+    the SMs' resident blocks unless one split is enough."""
+    sms = 132
+    splits = tfce._fwd_splits(N, V, sms)
+    tiles = -(-V // tfce.FWD_COLS)
+    per = -(-tiles // splits)
+    seen = np.zeros(tiles, np.int64)
+    for i in range(splits):
+        lo, hi = i * per, min(tiles, (i + 1) * per)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    row_tiles = -(-N // tfce.FWD_ROWS)
+    slots = sms * tfce.FWD_BLOCKS_PER_SM
+    assert row_tiles * splits <= max(slots, row_tiles)
+    assert splits == 1 or row_tiles * splits > slots // 2
+
+
+def test_forward_width_check_takes_bf16_e1280():
+    """The K-chunked forward takes GPT-2-774M's bf16 width; dh and dW
+    (whole rows in shared memory) do not, so the fused loss still refuses
+    it up front."""
+    tfce.check_width(1280, torch.bfloat16, "fused_ce_fwd")
+    tfce.check_width(1600, torch.bfloat16, "fused_ce_fwd")
+    for name in ("fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        tfce.check_width(1024, torch.bfloat16, name)
+        with pytest.raises(ValueError, match="1024"):
+            tfce.check_width(1280, torch.bfloat16, name)
+        tfce.check_width(1280, torch.float32, name)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tfce.check_width(1000, torch.bfloat16, "fused_ce_fwd")
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        tfce.refuse_width(1280, torch.bfloat16)
