@@ -53,14 +53,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
            1e-4 relative.
 10. tprof  torch.profiler over steady train steps at B 8, T 1024: wall vs
            device time per step, idle share, device time by kernel.
-11. ce     holds the fused cross-entropy forward, dh and dW kernels against
-           their plain versions: the training shape (N 8184, V 50304,
-           E 768) with bf16 h, the f32 head and the loss mask of a real
-           packed batch, the miner's N 504, a ragged N, a vocab that is not
-           a multiple of the tile, labels in the last column, an all-zero
-           mask, f32 at a small shape, f32 with one vocab split, and the
-           forward alone at GPT-2-774M's bf16 width (E 1280, which dh and
-           dW do not take) and with one vocab split (N 131072).
+11. ce     holds the fused cross-entropy forward and backward (dh and dW)
+           kernels against their plain versions: the training shape
+           (N 8184, V 50304, E 768; 7 vocab chunks) with bf16 h, the f32
+           head and the loss mask of a real packed batch, the miner's
+           N 504, a ragged N, a vocab that is not a multiple of
+           the tile, labels in the last column, an all-zero mask,
+           GPT-2-774M's bf16 width (E 1280), f32 at a small shape, f32
+           with one vocab split, and the forward alone with one vocab
+           split (N 131072). bf16 dh and dW come from one call of the
+           backward entry (held against the plain version of its chunked
+           decomposition) and from the dh-only and dW-only calls.
            Limits per output: in f32 max |kernel - plain| / max(1,
            max |plain|) <= 1e-5 (summation order); in bf16
            max |kernel - plain| / max |plain| <= 2e-2 against the plain
@@ -69,11 +72,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
            more at the end), and an exactly-zero plain output must come
            back exactly zero. Each case also checks that the limit fails
            a planted wrong gradient (dh or dW zeroed, or negated). Times
-           each kernel in bf16 at N 8184 and N 504 (L2 flushed, median
-           of 30) beside its bound, the plain version and the
-           materialised path (two library calls: a cuBLAS bf16 GEMM to
-           the logits and F.cross_entropy; its backward); at N 504 the
-           forward and dh also with their vocab splits forced to 1.
+           the forward, dh alone, dW alone and the whole backward in bf16
+           at N 8184 and N 504 (L2 flushed, median of 30) beside its
+           bound, the plain version and the materialised path (two
+           library calls: a cuBLAS bf16 GEMM to the logits and
+           F.cross_entropy; its backward), the whole backward also at
+           GPT-2-774M's width (N 8184, E 1280) and at N 8184 with its dz
+           scratch held to 128 MiB; at N 504 the forward and
+           the backward also with their splits forced to 1. Reports the
+           backward's plan (vocab chunk, K splits, launches a call).
 12. tfused phase 8 again with TrainEngine(fused_loss=True): 20 steps at B 8,
            T 1024, eval at T 512; fused CE forward launches == steps +
            eval batches, dh == dW == steps, flash counts as in phase 8;
@@ -959,7 +966,7 @@ def phase_train_profile(tree, tok, fused: bool = False) -> dict:
              / n_steps for name in ("flash_fwd", "flash_bwd_dkv",
                                     "flash_bwd_dq")}
     ce = {name: sum(v[0] for n, v in kernels.items() if name in n)
-          / n_steps for name in ("ce_fwd", "ce_dh", "ce_dw")}
+          / n_steps for name in ("ce_fwd", *CE_BWD_KERNELS)}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     res = {"steps": n_steps, "batch": TRAIN_B, "seq_len": TRAIN_T,
            "fused_loss": fused, "ce_ms_per_step": ce,
@@ -989,9 +996,18 @@ CE_TPU_KERNELS = {   # name: (file:line of the Pallas kernel, its call)
                         "_dh_kernel via _bwd_calls (pallas_call :201)"),
     "fused_ce_bwd_dw": ("distributedtraining_tpu/ops/pallas_ce.py:143",
                         "_dw_kernel via _bwd_calls (pallas_call :220)"),
+    # dh and dW together: the bf16 backward entry, one call for both
+    "fused_ce_bwd": ("distributedtraining_tpu/ops/pallas_ce.py:124",
+                     "_dh_kernel and _dw_kernel (:143) via _bwd_calls "
+                     "(pallas_call :201, :220)"),
 }
 CE_OUTPUTS = {"fused_ce_fwd": ("loss", "m", "s"),
-              "fused_ce_bwd_dh": ("dh",), "fused_ce_bwd_dw": ("dw",)}
+              "fused_ce_bwd_dh": ("dh", "dh_alone"),
+              "fused_ce_bwd_dw": ("dw", "dw_alone"),
+              "fused_ce_bwd": ("dh", "dw")}
+# the bf16 backward's kernels (csrc/fused_ce.cu)
+CE_BWD_KERNELS = ("ce_dz_mma", "ce_prod_mma", "ce_transpose",
+                  "ce_sum_splits")
 MINER_B, MINER_T, MINER_STEPS = 8, 64, 12
 README_MINER_FLAGS = [
     "--backend", "local", "--model", "gpt2-124m", "--dataset", "synthetic",
@@ -1021,10 +1037,29 @@ def _ce_inputs(N, V, E, dtype, seed, *, labels=None, mask=None,
     return h, w, y.contiguous(), g
 
 
+def _sms() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _ce_plain_bwd(h, w, y, m, s, g, dtype):
+    """The plain version of the backward entry for kernels fed ``dtype``:
+    in bf16 its chunked decomposition with the chunk the entry takes for
+    this shape, in f32 the dense plain backward (one kernel a product)."""
+    import torch
+    from distributedtraining_tpu_torch.ops import fused_ce
+    if dtype != torch.bfloat16:
+        return fused_ce.fused_ce_bwd_reference(h, w, y, m, s, g)
+    vc = fused_ce._bwd_schedule(h.shape[0], w.shape[0], h.shape[1],
+                                _sms())["Vc"]
+    return fused_ce.fused_ce_bwd_chunked_reference(h, w, y, m, s, g, vc)
+
+
 def _ce_run(h, w, y, g, fwd_only: bool = False):
-    """The three kernels (the forward alone with ``fwd_only``), then the
-    plain versions on the same values in f32 (the bf16 limit is held
-    against that unrounded result)."""
+    """The kernels (the forward alone with ``fwd_only``), then the plain
+    versions on the same values in f32 (the bf16 limit is held against
+    that unrounded result): the forward, the backward entry (dh and dW
+    in one call), and dh and dW each alone."""
     import torch
     from distributedtraining_tpu_torch.ops import fused_ce
     loss, m, s = fused_ce.fused_ce_fwd(h, w, y)
@@ -1032,22 +1067,28 @@ def _ce_run(h, w, y, g, fwd_only: bool = False):
     r_loss, r_m, r_s = fused_ce.fused_ce_fwd_reference(hf, wf, y)
     outs = {"loss": (loss, r_loss), "m": (m, r_m), "s": (s, r_s)}
     if not fwd_only:
-        dh = fused_ce.fused_ce_bwd_dh(h, w, y, m, s, g)
-        dw = fused_ce.fused_ce_bwd_dw(h, w, y, m, s, g)
-        r_dh, r_dw = fused_ce.fused_ce_bwd_reference(hf, wf, y, r_m, r_s, g)
-        outs.update(dh=(dh, r_dh), dw=(dw, r_dw))
+        dh, dw = fused_ce.fused_ce_bwd(h, w, y, m, s, g)
+        r_dh, r_dw = _ce_plain_bwd(hf, wf, y, r_m, r_s, g, h.dtype)
+        outs.update(dh=(dh, r_dh), dw=(dw, r_dw),
+                    dh_alone=(fused_ce.fused_ce_bwd_dh(h, w, y, m, s, g),
+                              r_dh),
+                    dw_alone=(fused_ce.fused_ce_bwd_dw(h, w, y, m, s, g),
+                              r_dw))
     torch.cuda.synchronize()
     return outs
 
 
 def _ce_bounds(N, V, E, elt=2) -> dict:
-    """Least time per kernel: inputs read once and outputs written once
-    over the memory rate vs 2 N V E operations per product (the forward
-    one, dh and dW a recompute each plus their own) at the bf16 rate."""
+    """Least time per function: inputs read once and outputs written once
+    over the memory rate vs 2 N V E operations per product at the bf16
+    rate (the forward one; dh or dW alone z and its own product; the
+    whole backward z and both products)."""
     h, w, row = N * E * elt, V * E * elt, N * 4
     work = {"fused_ce_fwd": (h + w + row + 3 * row, 2 * N * V * E),
             "fused_ce_bwd_dh": (h + w + 4 * row + h, 4 * N * V * E),
-            "fused_ce_bwd_dw": (h + w + 4 * row + V * E * 4, 4 * N * V * E)}
+            "fused_ce_bwd_dw": (h + w + 4 * row + V * E * 4, 4 * N * V * E),
+            "fused_ce_bwd": (h + w + 4 * row + h + V * E * 4,
+                             6 * N * V * E)}
     out = {}
     for name, (nbytes, ops) in work.items():
         bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
@@ -1101,7 +1142,7 @@ def _ce_check(name: str, outs: dict, dtype: str) -> dict:
 
 
 def phase_ce(batch) -> dict:
-    """Kernel vs plain version for the fused CE forward, dh and dW;
+    """Kernel vs plain version for the fused CE forward and backward;
     ``batch`` is a real packed training batch [8, 1024] (its labels and
     loss mask set the training-shape case)."""
     import torch
@@ -1117,24 +1158,26 @@ def phase_ce(batch) -> dict:
         "vocab1000_label_last_bf16": (300, 1000, E, bf,
                                       dict(label_last=True)),
         "zero_mask_bf16": (300, 1000, E, bf, dict(mask=[0.0] * 300)),
+        # GPT-2-774M's width
+        "e1280_bf16": (300, 3000, 1280, bf, {}),
         "small_f32": (70, 300, 64, f32, dict(label_last=True)),
         "miner_n504_f32": (504, V, E, f32, {}),
         # 135 row tiles: one vocab split, outputs written by the kernels
         # themselves
         "one_split_n4300_f32": (4300, 1000, 128, f32, {}),
-        # GPT-2-774M's width: the K-chunked forward alone (dh and dW take
-        # bf16 E <= 1024)
-        "fwd_e1280_bf16": (300, 3000, 1280, bf, {}),
         # 1024 row tiles: one forward split
         "fwd_one_split_n131072_bf16": (131072, 300, 64, bf, {}),
     }
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = _sms()
     checks = []
     for i, (name, (n, v, e, dtype, kw)) in enumerate(cases.items()):
         h, w, y, g = _ce_inputs(n, v, e, dtype, SEED + i, **kw)
         splits = {"fwd": (fused_ce._fwd_splits(n, v, sms) if dtype == bf
-                          else fused_ce._splits(h, v)),
-                  "dh": fused_ce._splits(h, v)}
+                          else fused_ce._splits(h, v))}
+        if dtype == bf:
+            splits["bwd"] = fused_ce._bwd_schedule(n, v, e, sms)
+        else:
+            splits["dh"] = fused_ce._splits(h, v)
         outs = _ce_run(h, w, y, g, fwd_only=name.startswith("fwd_"))
         dt = str(dtype).split(".")[1]
         check(all(bool(torch.isfinite(a.float()).all())
@@ -1147,21 +1190,26 @@ def phase_ce(batch) -> dict:
                        "err": {k: x for k, (_, x) in errs.items()},
                        "tol": CE_TOL[dt]})
         if name == "zero_mask_bf16":
-            check(not outs["dh"][0].any() and not outs["dw"][0].any(),
+            check(all(not outs[k][0].any() for k in
+                      ("dh", "dw", "dh_alone", "dw_alone")),
                   "an all-zero mask must give zero gradients")
         del outs, h, w
     timed = {}
-    for n, seed in ((N, SEED), (504, SEED + 1)):
-        h, w, y, g = _ce_inputs(n, V, E, bf, seed)
+    for n, e, seed in ((N, E, SEED), (504, E, SEED + 1), (N, 1280, SEED + 2)):
+        key = f"n{n}" if e == E else f"n{n}_e{e}"
+        h, w, y, g = _ce_inputs(n, V, e, bf, seed)
         loss, m, s = fused_ce.fused_ce_fwd(h, w, y)
         runs = {"fused_ce_fwd": lambda: fused_ce.fused_ce_fwd(h, w, y),
                 "fused_ce_bwd_dh": lambda: fused_ce.fused_ce_bwd_dh(
                     h, w, y, m, s, g),
                 "fused_ce_bwd_dw": lambda: fused_ce.fused_ce_bwd_dw(
+                    h, w, y, m, s, g),
+                "fused_ce_bwd": lambda: fused_ce.fused_ce_bwd(
                     h, w, y, m, s, g)}
+        if e != E:   # GPT-2-774M's width: the whole backward alone
+            runs = {"fused_ce_bwd": runs["fused_ce_bwd"]}
         plain_fwd = _time_ms(lambda: fused_ce.fused_ce_fwd_reference(h, w, y))
-        plain_bwd = _time_ms(lambda: fused_ce.fused_ce_bwd_reference(
-            h, w, y, m, s, g))
+        plain_bwd = _time_ms(lambda: _ce_plain_bwd(h, w, y, m, s, g, bf))
         # the materialised path: two library calls (a cuBLAS bf16 GEMM to
         # the logits, cast to f32, and F.cross_entropy), and its backward
         hh, ww = h.detach().requires_grad_(), w.detach().requires_grad_()
@@ -1175,36 +1223,54 @@ def phase_ce(batch) -> dict:
         lib_b = _time_ms(lambda: torch.autograd.grad(out, (hh, ww), g,
                                                      retain_graph=True))
         del out
-        bounds = _ce_bounds(n, V, E)
+        bounds = _ce_bounds(n, V, e)
+        plans = {"fused_ce_bwd_dh": dict(dw=False),
+                 "fused_ce_bwd_dw": dict(dh=False), "fused_ce_bwd": {}}
         for name, fn in runs.items():
-            timed.setdefault(name, {})[f"n{n}"] = {
+            row = timed.setdefault(name, {})[key] = {
                 "ms": _time_ms(fn),
-                "splits": (fused_ce._fwd_splits(n, V, sms)
-                           if name == "fused_ce_fwd"
-                           else fused_ce._splits(h, V)),
                 "plain_ms": plain_fwd if name == "fused_ce_fwd" else plain_bwd,
                 "library_ms": lib_f if name == "fused_ce_fwd" else lib_b,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+            if name == "fused_ce_fwd":
+                row["splits"] = fused_ce._fwd_splits(n, V, sms)
+            else:
+                row["plan"] = fused_ce._bwd_schedule(n, V, e, sms,
+                                                     **plans[name])
+        if key == f"n{N}":
+            # the same backward with the dz scratch at 128 MiB (a test hook
+            # that patches the wrapper's budget): what the wider vocab
+            # chunk buys at the training shape
+            budget = fused_ce.DZ_SCRATCH_BYTES
+            fused_ce.DZ_SCRATCH_BYTES = 128 << 20
+            try:
+                timed["fused_ce_bwd"][key]["ms_dz_128mib"] = _time_ms(
+                    runs["fused_ce_bwd"])
+            finally:
+                fused_ce.DZ_SCRATCH_BYTES = budget
         if n == 504:
-            # the same forward and dh with the vocab split forced to 1 (a
-            # test hook that patches the wrappers' choices): what the
+            # the forward and the backward with their splits forced to 1
+            # (a test hook that patches the wrappers' choices): what the
             # split grids buy at the miner's shape
-            auto = fused_ce._splits, fused_ce._fwd_splits
-            fused_ce._splits = lambda h, V: 1
+            auto = fused_ce._k_splits, fused_ce._fwd_splits
+            fused_ce._k_splits = lambda *a: 1
             fused_ce._fwd_splits = lambda N, V, sms: 1
             try:
-                for name in ("fused_ce_fwd", "fused_ce_bwd_dh"):
-                    timed[name]["n504"]["ms_one_split"] = _time_ms(runs[name])
+                for name in ("fused_ce_fwd", "fused_ce_bwd"):
+                    timed[name][key]["ms_one_split"] = _time_ms(runs[name])
             finally:
-                fused_ce._splits, fused_ce._fwd_splits = auto
+                fused_ce._k_splits, fused_ce._fwd_splits = auto
         del h, w, hh, ww
         torch.cuda.empty_cache()
     res = {"checks": checks, "timed": timed,
-           "timed_shape": f"N {N} and 504, V {V}, E {E}, bf16 h and head",
+           "timed_shape": f"N {N} and 504, V {V}, E {E}, bf16 h and head; "
+                          f"the backward also at N {N}, E 1280",
            "library": "two library calls: cuBLAS bf16 GEMM to the logits "
                       "(cast to f32) + F.cross_entropy; backward: its "
                       "autograd (dh and dW in one call)",
-           "plain": "the plain backward computes dh and dW in one call"}
+           "plain": "the plain backward computes dh and dW in one call "
+                    "(bf16: the chunked decomposition, the backward "
+                    "entry's chunk)"}
     log("ce phase:", json.dumps(res))
     return res
 
@@ -1934,19 +2000,32 @@ def _flash_entries(flash: dict, train: dict, build: dict) -> list:
     return out
 
 
+def _ce_registers(build: dict) -> dict:
+    """ptxas's registers and spill bytes of the bf16 backward's kernels
+    (every instantiation whose mangled name holds the kernel's)."""
+    per = build["sources"]["fused_ce"]["kernels"]
+    return {k: [v for name, v in per.items() if k in name]
+            for k in CE_BWD_KERNELS}
+
+
 def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict) -> list:
     out = []
+    regs = _ce_registers(build)
     for name, (replaces, tpu) in CE_TPU_KERNELS.items():
         keys = CE_OUTPUTS[name]
         checks = ce["checks"]
         at = ce["timed"][name]
-        big, small = (at[k] for k in sorted(at, key=lambda k: -int(k[1:])))
+        big, small = (at[k] for k in sorted(
+            (k for k in at if "_e" not in k), key=lambda k: -int(k[1:])))
+        wide = next((v for k, v in at.items() if k.endswith("_e1280")), {})
+        # the backward entry counts one dh and one dW launch a call
+        counter = "fused_ce_bwd_dh" if name == "fused_ce_bwd" else name
         out.append({
             "name": name, "route": "cuda", "source": CE_SOURCE,
             "replaces": replaces, "tpu_kernel": tpu,
             # the miner's round, the slice's main path
-            "launches": miner["launches"][name],
-            "launches_train_fused": tfused["launches"][name],
+            "launches": miner["launches"][counter],
+            "launches_train_fused": tfused["launches"][counter],
             # over every case and both dtypes (bf16 dominates)
             "max_abs_err": max(c["max_abs"][k] for c in checks
                                for k in keys if k in c["max_abs"]),
@@ -1961,16 +2040,20 @@ def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict) -> list:
                                     for k in keys
                                     if c["dtype"] == "bfloat16"
                                     and k in c["err"]),
-            **({"max_rel_err_bf16_e1280": max(
+            "max_rel_err_bf16_e1280": max(
                 c["err"][k] for c in checks for k in keys
-                if c["E"] > 1024)} if name == "fused_ce_fwd" else {}),
+                if c["E"] > 1024 and k in c["err"]),
             **big,
-            "ms_n504": small["ms"], "splits_n504": small["splits"],
+            **{f"{k}_e1280": v for k, v in wide.items()},
+            "ms_n504": small["ms"],
             **({"ms_n504_one_split": small["ms_one_split"]}
                if "ms_one_split" in small else {}),
             "plain_ms_n504": small["plain_ms"],
             "library_ms_n504": small["library_ms"],
             "bound_ms_n504": small["bound_ms"],
+            **({"plan_n504": small["plan"]} if "plan" in small else
+               {"splits_n504": small["splits"]}),
+            **({"registers": regs} if name != "fused_ce_fwd" else {}),
             "library": ce["library"], "timed_shape": ce["timed_shape"],
             "build_s": build["build_s"]})
     return out

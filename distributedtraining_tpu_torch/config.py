@@ -170,11 +170,9 @@ class RunConfig:
         kw = {k: v for k, v in vars(ns).items() if k in fields}
         return cls(role=role, mesh=mesh, **kw)
 
-    def check_ported(self, device: str = "cuda") -> None:
+    def check_ported(self) -> None:
         """Raise NotImplementedError for the first value whose machinery
-        is not ported, naming its slice. ``device`` is where the role
-        will run: on the card, ``--fused-loss`` also needs a width the
-        CE kernels take (the CPU's plain version takes any)."""
+        is not ported, naming its slice."""
         m = self.mesh
         miner, averager = self.role == "miner", self.role == "averager"
         refused = [
@@ -233,12 +231,6 @@ class RunConfig:
                 raise NotImplementedError(
                     f"{what} is not ported to the PyTorch {self.role} yet: "
                     f"{_SLICES}, slice {slice_no}")
-        if self.fused_loss and device == "cuda":
-            from .models.gpt2 import PRESETS
-            from .ops.fused_ce import refuse_width
-            preset = PRESETS.get(self.model)
-            if preset is not None:
-                refuse_width(preset.n_embd, preset.compute_dtype())
 
 
 def _nonneg_float(value: str) -> float:

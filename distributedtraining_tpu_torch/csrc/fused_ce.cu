@@ -1,13 +1,14 @@
-// Fused linear cross-entropy for Hopper (sm_90a): the forward, dh and dW
-// kernels, behind a plain C interface that
+// Fused linear cross-entropy for Hopper (sm_90a): the forward and the
+// backward (dh and dW) kernels, behind a plain C interface that
 // distributedtraining_tpu_torch/ops/fused_ce.py loads with ctypes.
 //
 // Replaces the Pallas TPU kernels of the JAX package's ops/pallas_ce.py:
 //   dt_ce_fwd  <- _fwd_call (:172, pallas_call :178) -> _fwd_kernel (:74)
-//   dt_ce_dh   <- _bwd_calls (:196, pallas_call :201) -> _dh_kernel (:124)
-//   dt_ce_dw   <- _bwd_calls (pallas_call :220) -> _dw_kernel (:143)
+//   dt_ce_bwd  <- _bwd_calls (:196, pallas_call :201) -> _dh_kernel (:124)
+//                 and (pallas_call :220) -> _dw_kernel (:143), bf16
+//   dt_ce_dh, dt_ce_dw <- the same two, f32
 //
-// What they compute, with z = h W^T (h [N, E], W [V, E], z never stored):
+// What they compute, with z = h W^T (h [N, E], W [V, E]):
 //   forward: per row n the max m_n, the sum s_n = sum_v exp(z_nv - m_n) and
 //            loss_n = m_n + log s_n - z_{n, y_n} (0 for the label logit of
 //            a label outside [0, V));
@@ -21,16 +22,16 @@
 // Bound. At the GPT-2-124M training shape (N 8184, V 50304, E 768, bf16)
 // the forward is 2 N V E = 0.63 TFLOP, 0.64 ms at 989 TFLOP/s, against
 // 12.6 MB of h and 77 MB of W (27 us at 3.35 TB/s): operations bound it.
-// dh and dW each recompute z and do one more product of the same size:
-// 1.28 ms each. (H100 SXM data sheet.)
+// The backward needs z once more and two products of the same size:
+// 6 N V E, 1.92 ms. (H100 SXM data sheet.)
 //
 // Two routes, one per dtype:
 //  - bf16, the training path: the tensor cores, mma.sync m16n8k16 (bf16 in,
 //    f32 accumulation), 8 warps a block.
 //  - f32: the CUDA cores, f32 FMA (no TF32), K-chunked through shared
 //    memory, so the route agrees with the plain version to summation order.
-//    Its forward has the decomposition of bf16 dh below (32 rows a block,
-//    vocab tiles of 64).
+//    Its forward and dh take 32 rows a block and vocab tiles of 64, dW 64
+//    vocab rows a block and token tiles of 32.
 // The kernels:
 //  - forward, bf16 (ce_fwd_mma): a tiled GEMM mainloop with the online
 //    softmax as its epilogue. What bounds it is the tensor cores; what held
@@ -56,19 +57,32 @@
 //    block writes one partial (max, sum, label logit) per (split, row), and
 //    ce_fwd_merge merges the splits into (loss, m, s); with one split the
 //    block writes (loss, m, s) itself.
-//  - dh, bf16: rows of h and W sit in shared memory as bf16 over the whole
-//    E (rows padded by 8 elements, so that fragment loads hit 32 banks), so
-//    E <= 1024 (the wrapper refuses more); a warp computes a 16 x 16 tile
-//    of z. A block owns 32 rows, one vocab split and a pass of E columns
-//    (all of E = 768 in one pass), with its dh accumulator in registers
-//    (96 floats a thread). It walks its vocab tiles of 64: z tile, dz
-//    (rounded, to shared memory), dh += dz W. Recompute factor E / pass
-//    (1 at E = 768). With one split the block rounds dh and writes it;
-//    with more, partials per split are f32 and a reduce kernel sums the
-//    splits in order and rounds once to h's dtype.
-//  - dW, bf16: staged as dh; a block owns 32 vocab rows and a pass of E,
-//    and walks all the tokens in tiles of 64: z tile, dz, dW += dz^T h. It
-//    writes dW once.
+//  - backward, bf16 (dt_ce_bwd): three products of the same kind as the
+//    forward's, each C = A B^T with A and B K-contiguous, each a 128 x 128
+//    output tile a block on the forward's mainloop (tile_mma: the cp.async
+//    ring, the swizzle, ldmatrix.x4), two blocks an SM. z is formed once:
+//    the vocab is walked in chunks of Vc columns (Vc from the wrapper: the
+//    dz scratch stays within 256 MiB), and per chunk
+//      ce_dz_mma:   z = h W_c^T, epilogue dz = (exp(z - m) / s - onehot) g
+//                   rounded to bf16, 0 at columns >= V, staged in shared
+//                   memory and stored twice: dz [Np, Vc] and dz^T [Vc, Np];
+//      ce_prod_mma: both products in one launch (their tiles one grid, so
+//                   one tail a chunk):
+//                   dh += dz_c (W^T)_c^T, K = the chunk's columns, added to
+//                   an f32 accumulator in chunk order and rounded to bf16 by
+//                   the last chunk;
+//                   dW_c = dz_c^T (h^T)^T, K = N, written once in f32.
+//    W^T [E, Vp] and h^T [E, Np] are formed once per backward by
+//    ce_transpose (Np, Vp: N, V rounded up to 128, zeros in the padding),
+//    so every operand is K-contiguous and every K extent a multiple of 64
+//    that the zero padding ends (the ragged K tail costs no masking).
+//    When the output tiles leave SMs idle (dh at N 504: 24 tiles over
+//    K = V), K is split across blocks (z of the grid) into f32 partials
+//    that ce_sum_splits adds in split order: dh keeps one accumulator a
+//    split across the chunks and sums them once at the end, dW sums a
+//    chunk's partials into its rows.
+//    A call may ask for dh or dW alone: dz is then stored in the one layout
+//    its product reads, and only that product's transpose is formed.
 // Every output element is written by one thread; no atomics, so results
 // are deterministic.
 
@@ -83,17 +97,13 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kPad = 8;        // bf16 row padding (elements)
-constexpr int kRows = 32;      // dh, f32 forward: tokens per block
-constexpr int kVTile = 64;     // dh, f32 forward: vocab columns per step
-constexpr int kWRows = 32;     // dW: vocab rows per block
-constexpr int kTTile = 64;     // dW: tokens per step
-constexpr int kLdDh = kVTile + kPad;   // dz tile row (dh)
-constexpr int kLdDw = kWRows + kPad;   // dz tile row (dW)
+constexpr int kRows = 32;      // f32 forward and dh: tokens per block
+constexpr int kVTile = 64;     // f32: vocab columns per step (dW: per block)
 constexpr int kFChunk = 32;    // f32: K chunk
 constexpr int kFLd = kFChunk + 1;
 constexpr int kFPass = 64;     // f32: E columns per pass
 constexpr unsigned kFull = 0xffffffffu;
+
 
 struct Args {
   const void* h;        // [N, E]
@@ -102,11 +112,11 @@ struct Args {
   const float* m;       // [N] (backward)
   const float* s;       // [N] (backward)
   const float* g;       // [N] (backward)
-  float* part;          // forward: [3][splits][N]; dh: [splits][N][E]
+  float* part;          // forward: [3][splits][N]; f32 dh: [splits][N][E]
   float* loss;          // forward outputs [N]
   float* m_out;
   float* s_out;
-  void* dh;             // [N, E], h's dtype
+  void* dh;             // [N, E], f32 (the f32 route)
   float* dw;            // [V, E]
   int N, V, E, splits, tiles_per_split;
 };
@@ -156,97 +166,6 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A fragment: rows r0 + [0, 16), columns c0 + [0, 16) of a row-major tile
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int ld,
-                                       int r0, int c0, int g, int t) {
-  const bf16* p = s + (r0 + g) * ld + c0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// A fragment of X^T for a row-major tile X: A[m][k] = X[k0 + k][m0 + m]
-__device__ __forceinline__ void frag_at(uint32_t a[4], const bf16* s, int ld,
-                                        int m0, int k0, int g, int t) {
-  const unsigned short* p =
-      reinterpret_cast<const unsigned short*>(s) + (k0 + 2 * t) * ld + m0 + g;
-  a[0] = p[0] | (uint32_t(p[ld]) << 16);
-  a[1] = p[8] | (uint32_t(p[ld + 8]) << 16);
-  a[2] = p[8 * ld] | (uint32_t(p[9 * ld]) << 16);
-  a[3] = p[8 * ld + 8] | (uint32_t(p[9 * ld + 8]) << 16);
-}
-
-// B fragment of X^T for a row-major tile X: B[k][n] = X[n0 + n][k0 + k]
-__device__ __forceinline__ void frag_bt(uint32_t b[2], const bf16* s, int ld,
-                                        int n0, int k0, int g, int t) {
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment of a row-major tile X itself: B[k][n] = X[k0 + k][n0 + n]
-__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* s, int ld,
-                                       int k0, int n0, int g, int t) {
-  const unsigned short* p =
-      reinterpret_cast<const unsigned short*>(s) + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = p[0] | (uint32_t(p[ld]) << 16);
-  b[1] = p[8 * ld] | (uint32_t(p[9 * ld]) << 16);
-}
-
-// rows [row0, row0 + R) of a [n_rows, E] bf16 matrix into dst[R][E + kPad],
-// 16 bytes a load; rows at or past n_rows read as 0
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const void* src,
-                                               int row0, int R, int n_rows,
-                                               int E) {
-  const bf16* base = static_cast<const bf16*>(src);
-  const int chunks = E / 8, ld = E + kPad;
-  for (int e = threadIdx.x; e < R * chunks; e += kThreads) {
-    const int r = e / chunks, c = (e % chunks) * 8;
-    const int row = row0 + r;
-    const uint4 v =
-        row < n_rows
-            ? *reinterpret_cast<const uint4*>(base + (long long)row * E + c)
-            : make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-// c[n] (n = 0, 1) = rows ra + [0, 16) of sA times rows rb + 8 n + [0, 8) of
-// sB, transposed: a 16 x 16 tile of z, summed over the whole E
-__device__ __forceinline__ void z_tile(float c[2][4], const bf16* sA, int ra,
-                                       const bf16* sB, int rb, int E, int g,
-                                       int t) {
-  const int ld = E + kPad;
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[n][i] = 0.f;
-  for (int k = 0; k < E; k += 16) {
-    uint32_t a[4];
-    frag_a(a, sA, ld, ra, k, g, t);
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      uint32_t b[2];
-      frag_bt(b, sB, ld, rb + 8 * n, k, g, t);
-      mma16816(c[n], a, b);
-    }
-  }
-}
-
-// per-row values of rows [row0, row0 + R): m, s, g, y (0, 1, 0, -1 past N)
-__device__ __forceinline__ void load_stats(float* sM, float* sS, float* sG,
-                                           int* sY, const Args& a, int row0,
-                                           int R) {
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const int n = row0 + r;
-    const bool in = n < a.N;
-    sM[r] = in ? a.m[n] : 0.f;
-    sS[r] = in ? a.s[n] : 1.f;
-    sG[r] = in ? a.g[n] : 0.f;
-    sY[r] = in ? a.y[n] : -1;
-  }
-}
 
 // dz of one element: (softmax - onehot) g, 0 past V
 __device__ __forceinline__ float dz_of(float z, int col, int V, float m,
@@ -485,178 +404,277 @@ __global__ void __launch_bounds__(kThreads, NT == 4 ? 2 : 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward (bf16): the forward's mainloop for one output tile a block,
+// with one epilogue for dz and one for the two products.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdNT = 4;          // 8-column n tiles a warp: 128 x 128 tiles
+constexpr int kBN = 32 * kBwdNT;
+constexpr size_t kBwdRing = (size_t)kStages<kBwdNT> * (kFM + kBN) * kFK * 2;
+// the ring and the dz kernel's per-row m, 1/s, g, y: two blocks an SM
+constexpr size_t kBwdSmem = kBwdRing + 4 * kFM * 4;
+
+// acc = rows [a_r0, a_r0 + kFM) of A times rows [b_r0, b_r0 + 32 NT) of B,
+// transposed, summed over the K chunks [kc0, kc0 + iters) of kFK: A and B
+// are [rows][K] with row strides lda and ldb (multiples of 8 elements, so
+// every 16-byte copy is aligned); rows at or past a_rows and b_rows read as
+// 0. The warps and the accumulator's layout are ce_fwd_mma's. When it
+// returns every copy has landed and every read of the ring is done, so the
+// caller may reuse the shared memory.
 template <int NT>
-__global__ void __launch_bounds__(kThreads) ce_dh_mma(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int E = a.E, ld = E + kPad;
-  bf16* sH = reinterpret_cast<bf16*>(smem);
-  bf16* sW = sH + kRows * ld;
-  bf16* sDz = sW + kVTile * ld;
-  float* sM = reinterpret_cast<float*>(sDz + kRows * kLdDh);
-  float* sS = sM + kRows;
-  float* sG = sS + kRows;
-  int* sY = reinterpret_cast<int*>(sG + kRows);
-
-  const int row0 = blockIdx.x * kRows, split = blockIdx.y;
-  const int e0 = blockIdx.z * (64 * NT);
+__device__ __forceinline__ void tile_mma(float acc[4][NT][4],
+                                         unsigned char* smem, const bf16* A,
+                                         int lda, int a_r0, int a_rows,
+                                         const bf16* B, int ldb, int b_r0,
+                                         int b_rows, int kc0, int iters) {
+  constexpr int S = kStages<NT>;
+  constexpr uint32_t A_BYTES = kFM * kFK * 2, STAGE = A_BYTES + 32 * NT * kFK * 2;
+  const uint32_t base = smem_u32(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int ra = (warp % 2) * 16, cb = (warp / 2) * 16;
-  const int ew = e0 + warp * 8 * NT;  // this warp's columns of dh
+  const int wm = warp % 2, wn = warp / 2;
 
-  load_rows_bf16(sH, a.h, row0, kRows, a.N, E);
-  load_stats(sM, sS, sG, sY, a, row0, kRows);
+  // iteration it: K chunk kc0 + it, ring slot it % S
+  auto load = [&](int it) {
+    const uint32_t st = base + (it % S) * STAGE;
+    load_chunk<kFM>(st, A, a_r0, a_rows, lda, kc0 + it);
+    load_chunk<32 * NT>(st + A_BYTES, B, b_r0, b_rows, ldb, kc0 + it);
+  };
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < iters) load(i);
+    cp_async_commit();
+  }
+  const uint32_t a_off = (wm * 64 + (lane & 15)) * (kFK * 2);
+  const uint32_t b_off =
+      A_BYTES + (wn * 8 * NT + (lane & 7) + ((lane >> 4) << 3)) * (kFK * 2);
+  const int a_ch = lane >> 4, b_ch = (lane >> 3) & 1, x = lane & 7;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  float acc[2][NT][4];
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // chunk it landed; slot (it - 1) % S is free again
+    if (it + S - 1 < iters) load(it + S - 1);
+    cp_async_commit();
+    const uint32_t st = base + (it % S) * STAGE;
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
+    for (int kk = 0; kk < kFK / 16; ++kk) {
+      uint32_t af[4][4], bfr[NT][2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4(af[mt], st + a_off + mt * 16 * (kFK * 2) +
+                                (((2 * kk + a_ch) ^ x) << 4));
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[q][n][i] = 0.f;
-
-  const int n_vt = (a.V + kVTile - 1) / kVTile;
-  const int vt0 = split * a.tiles_per_split;
-  const int vt1 = min(n_vt, vt0 + a.tiles_per_split);
-  for (int vt = vt0; vt < vt1; ++vt) {
-    const int v0 = vt * kVTile;
-    __syncthreads();  // the previous tile's sW and sDz reads are done
-    load_rows_bf16(sW, a.w, v0, kVTile, a.V, E);
-    __syncthreads();
-    float c[2][4];
-    z_tile(c, sH, ra, sW, cb, E, g, t);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = ra + g + 8 * r;
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int col = cb + 8 * n + 2 * t;
-        const float d0 = dz_of(c[n][2 * r], v0 + col, a.V, sM[row], sS[row],
-                               sG[row], sY[row]);
-        const float d1 = dz_of(c[n][2 * r + 1], v0 + col + 1, a.V, sM[row],
-                               sS[row], sG[row], sY[row]);
-        *reinterpret_cast<__nv_bfloat162*>(sDz + row * kLdDh + col) =
-            __floats2bfloat162_rn(d0, d1);
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, st + b_off + np * 16 * (kFK * 2) +
+                           (((2 * kk + b_ch) ^ x) << 4));
+        bfr[2 * np][0] = r[0], bfr[2 * np][1] = r[1];
+        bfr[2 * np + 1][0] = r[2], bfr[2 * np + 1][1] = r[3];
       }
-    }
-    __syncthreads();
-    // dh[32 x pass] += dz[32 x 64] W[64 x pass]
 #pragma unroll
-    for (int kk = 0; kk < kVTile; kk += 16) {
-      uint32_t af[2][4];
-      frag_a(af[0], sDz, kLdDh, 0, kk, g, t);
-      frag_a(af[1], sDz, kLdDh, 16, kk, g, t);
+      for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b[2];
-        frag_b(b, sW, ld, kk, ew + 8 * n, g, t);
-        mma16816(acc[0][n], af[0], b);
-        mma16816(acc[1][n], af[1], b);
-      }
+        for (int nt = 0; nt < NT; ++nt) mma16816(acc[mt][nt], af[mt], bfr[nt]);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+struct Bwd {
+  const bf16* h;   // [N, E]
+  const bf16* w;   // [V, E]
+  const int* y;    // [N]
+  const float* m;  // [N], from the forward
+  const float* s;  // [N]
+  const float* g;  // [N], the upstream gradient
+  bf16* ht;        // [E, Np]: h^T, zeros past N (dW only)
+  bf16* wt;        // [E, Vp]: W^T, zeros past V (dh only)
+  bf16* dz;        // [Np, Vc]: this chunk's dz (dh only)
+  bf16* dzt;       // [Vc, Np]: this chunk's dz^T (dW only)
+  float* acc;      // [s_dh][N][E]: dh's f32 sums across chunks
+  float* part;     // [s_dw][Vc][E]: a chunk's dW partials
+  bf16* dh;        // [N, E], or null: no dh
+  float* dw;       // [V, E], or null: no dW
+  int N, V, E, Np, Vp, Vc, s_dh, s_dw;
+};
+
+// dz of the chunk's columns [v0 + 128 y, + 128) for rows [128 x, + 128):
+// z = h W^T on the mainloop, then (exp(z - m) / s - onehot) g rounded to
+// bf16, 0 at columns >= V (rows >= N come out 0: their g is 0). The tile is
+// staged in shared memory in both layouts and stored with 16-byte writes.
+__global__ void __launch_bounds__(kThreads, 2) ce_dz_mma(const Bwd a, int v0) {
+  constexpr int LDZ = kBN + 8, LDT = kFM + 8;  // staged rows, 16-byte aligned
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sM = reinterpret_cast<float*>(smem + kBwdRing);
+  float* sR = sM + kFM;  // 1 / s
+  float* sG = sR + kFM;
+  int* sY = reinterpret_cast<int*>(sG + kFM);
+  const int row0 = blockIdx.x * kFM, col0 = blockIdx.y * kBN;
+  const int vt = v0 + col0;  // the tile's first vocab column
+  if (threadIdx.x < kFM) {
+    const int n = row0 + threadIdx.x;
+    const bool in = n < a.N;
+    sM[threadIdx.x] = in ? a.m[n] : 0.f;
+    sR[threadIdx.x] = in ? 1.f / a.s[n] : 1.f;
+    sG[threadIdx.x] = in ? a.g[n] : 0.f;
+    sY[threadIdx.x] = in ? a.y[n] : -1;
+  }
+  float acc[4][kBwdNT][4];
+  tile_mma<kBwdNT>(acc, smem, a.h, a.E, row0, a.N, a.w, a.E, vt, a.V, 0,
+                   a.E / kFK);
+
+  bf16* sZ = reinterpret_cast<bf16*>(smem);  // [kFM][LDZ], over the ring
+  bf16* sT = sZ + kFM * LDZ;                 // [kBN][LDT]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wm = warp % 2, wn = warp / 2;
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int n_row = row0 + q * 16 + g + 8 * r;
-      if (n_row >= a.N) continue;
-      const long long off = (long long)n_row * E + ew + 2 * t;
-      if (a.splits == 1) {  // dh itself, rounded once
-        bf16* dst = static_cast<bf16*>(a.dh) + off;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = wm * 64 + mt * 16 + g + 8 * hf;
+      const float mr = sM[r], rs = sR[r], gr = sG[r];
+      const int yc = sY[r] - vt;  // the label's column in this tile
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-              __floats2bfloat162_rn(acc[q][n][2 * r], acc[q][n][2 * r + 1]);
-        continue;
+      for (int nt = 0; nt < kBwdNT; ++nt) {
+        const int cc = wn * 8 * kBwdNT + nt * 8 + 2 * t;
+        float d[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float p = __expf(acc[mt][nt][2 * hf + j] - mr) * rs;
+          d[j] = vt + cc + j < a.V ? (p - (cc + j == yc ? 1.f : 0.f)) * gr
+                                   : 0.f;
+        }
+        const __nv_bfloat162 d2 = __floats2bfloat162_rn(d[0], d[1]);
+        *reinterpret_cast<__nv_bfloat162*>(sZ + r * LDZ + cc) = d2;
+        sT[cc * LDT + r] = d2.x;
+        sT[(cc + 1) * LDT + r] = d2.y;
       }
-      float* dst = a.part + (long long)split * a.N * E + off;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<float2*>(dst + 8 * n) =
-            make_float2(acc[q][n][2 * r], acc[q][n][2 * r + 1]);
+    }
+  __syncthreads();
+  if (a.dz)
+    for (int i = threadIdx.x; i < kFM * kBN / 8; i += kThreads) {
+      const int r = i / (kBN / 8), q = i % (kBN / 8);
+      *reinterpret_cast<uint4*>(a.dz + (long long)(row0 + r) * a.Vc + col0 +
+                                q * 8) =
+          *reinterpret_cast<const uint4*>(sZ + r * LDZ + q * 8);
+    }
+  if (a.dzt)
+    for (int i = threadIdx.x; i < kBN * kFM / 8; i += kThreads) {
+      const int c = i / (kFM / 8), q = i % (kFM / 8);
+      *reinterpret_cast<uint4*>(a.dzt + (long long)(col0 + c) * a.Np + row0 +
+                                q * 8) =
+          *reinterpret_cast<const uint4*>(sT + c * LDT + q * 8);
     }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads) ce_dw_mma(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int E = a.E, ld = E + kPad;
-  bf16* sW = reinterpret_cast<bf16*>(smem);
-  bf16* sH = sW + kWRows * ld;
-  bf16* sDz = sH + kTTile * ld;
-  float* sM = reinterpret_cast<float*>(sDz + kTTile * kLdDw);
-  float* sS = sM + kTTile;
-  float* sG = sS + kTTile;
-  int* sY = reinterpret_cast<int*>(sG + kTTile);
+// One product C = A B^T of the backward (dh or dW), K split across blocks:
+// block l of the product owns the 128 x 128 tile (l % m_tiles, l / m_tiles
+// % n_tiles) of C and the K chunks [z kps, min(iters, (z + 1) kps)) of
+// split z = l / (m_tiles n_tiles) (none: it stores zeros or adds them).
+struct Prod {
+  const bf16* a;    // [a_rows][K], row stride lda
+  const bf16* b;    // [b_rows][K], row stride ldb
+  int lda, ldb, a_rows, b_rows;
+  int iters, kps;   // K chunks of kFK in all, and per split
+  int M, ncol, ldo; // C rows and columns stored, the output's row stride
+  float* out;       // f32 output, or the splits' planes of partials
+  long long plane;  // elements from one split's plane to the next
+  int add;          // add the f32 value already at out (an earlier chunk's)
+  bf16* out_bf16;   // else null: round the sum and store it here instead
+  int m_tiles, n_tiles, blocks;  // blocks = m_tiles n_tiles splits
+};
 
-  const int v0 = blockIdx.x * kWRows;
-  const int e0 = blockIdx.y * (64 * NT);
+__device__ __forceinline__ void prod_tile(const Prod& p, int l,
+                                          unsigned char* smem) {
+  const int m0 = (l % p.m_tiles) * kFM;
+  const int n0 = (l / p.m_tiles % p.n_tiles) * kBN;
+  const int sp = l / (p.m_tiles * p.n_tiles);
+  const int k0 = sp * p.kps, k1 = min(p.iters, k0 + p.kps);
+  float acc[4][kBwdNT][4];
+  tile_mma<kBwdNT>(acc, smem, p.a, p.lda, m0, p.a_rows, p.b, p.ldb, n0,
+                   p.b_rows, k0, max(0, k1 - k0));
+  float* out = p.out ? p.out + sp * p.plane : nullptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int ta = (warp % 4) * 16, vb = (warp / 4) * 16;
-  const int ew = e0 + warp * 8 * NT;
-
-  load_rows_bf16(sW, a.w, v0, kWRows, a.V, E);
-
-  float acc[2][NT][4];
+  const int g = lane / 4, t = lane % 4, wm = warp % 2, wn = warp / 2;
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = m0 + wm * 64 + mt * 16 + g + 8 * hf;
+      if (r >= p.M) continue;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[q][n][i] = 0.f;
-
-  for (int t0 = 0; t0 < a.N; t0 += kTTile) {
-    __syncthreads();  // the previous tile's sH and sDz reads are done
-    load_rows_bf16(sH, a.h, t0, kTTile, a.N, E);
-    load_stats(sM, sS, sG, sY, a, t0, kTTile);
-    __syncthreads();
-    float c[2][4];  // z for tokens ta + [0, 16), vocab rows vb + [0, 16)
-    z_tile(c, sH, ta, sW, vb, E, g, t);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int tok = ta + g + 8 * r;
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int col = vb + 8 * n + 2 * t;
-        const float d0 = dz_of(c[n][2 * r], v0 + col, a.V, sM[tok], sS[tok],
-                               sG[tok], sY[tok]);
-        const float d1 = dz_of(c[n][2 * r + 1], v0 + col + 1, a.V, sM[tok],
-                               sS[tok], sG[tok], sY[tok]);
-        *reinterpret_cast<__nv_bfloat162*>(sDz + tok * kLdDw + col) =
-            __floats2bfloat162_rn(d0, d1);
+      for (int nt = 0; nt < kBwdNT; ++nt) {
+        const int col = n0 + wn * 8 * kBwdNT + nt * 8 + 2 * t;
+        if (col >= p.ncol) continue;  // ncol is even: col + 1 is in too
+        float2 v = make_float2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1]);
+        const long long i = (long long)r * p.ldo + col;
+        if (p.add) {
+          const float2 o = *reinterpret_cast<const float2*>(out + i);
+          v.x = o.x + v.x;
+          v.y = o.y + v.y;
+        }
+        if (p.out_bf16)
+          *reinterpret_cast<__nv_bfloat162*>(p.out_bf16 + i) =
+              __floats2bfloat162_rn(v.x, v.y);
+        else
+          *reinterpret_cast<float2*>(out + i) = v;
       }
-    }
-    __syncthreads();
-    // dW[32 x pass] += dz^T[32 x 64] h[64 x pass]
-#pragma unroll
-    for (int kk = 0; kk < kTTile; kk += 16) {
-      uint32_t af[2][4];
-      frag_at(af[0], sDz, kLdDw, 0, kk, g, t);
-      frag_at(af[1], sDz, kLdDw, 16, kk, g, t);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b[2];
-        frag_b(b, sH, ld, kk, ew + 8 * n, g, t);
-        mma16816(acc[0][n], af[0], b);
-        mma16816(acc[1][n], af[1], b);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int v = v0 + q * 16 + g + 8 * r;
-      if (v >= a.V) continue;
-      float* dst = a.dw + (long long)v * E + ew + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<float2*>(dst + 8 * n) =
-            make_float2(acc[q][n][2 * r], acc[q][n][2 * r + 1]);
     }
 }
+
+// A chunk's two products in one launch (they read dz in its two layouts
+// and write apart): blocks [0, p0.blocks) take p0's tiles, the rest p1's,
+// so the tail of one overlaps the other. p1.blocks is 0 for one product.
+__global__ void __launch_bounds__(kThreads, 2) ce_prod_mma(const Prod p0,
+                                                           const Prod p1) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int l = blockIdx.x;
+  if (l < p0.blocks)
+    prod_tile(p0, l, smem);
+  else
+    prod_tile(p1, l - p0.blocks, smem);
+}
+
+// dst[c][r] = src[r][c] for r < rows and 0 for r up to the grid's end (src
+// [rows, cols], cols a multiple of 64; dst rows ld elements apart, ld a
+// multiple of 8): 64 x 64 tiles through shared memory, 16 bytes a global
+// read or write, 8 threads a 128-byte row segment.
+__global__ void __launch_bounds__(kThreads) ce_transpose(const bf16* src,
+                                                         int rows, int cols,
+                                                         bf16* dst, int ld) {
+  __shared__ uint32_t tile[64 * 33];  // 64 rows of 64 bf16, + 1 word a row
+  const int r0 = blockIdx.x * 64, c0 = blockIdx.y * 64;
+  for (int i = threadIdx.x; i < 64 * 8; i += kThreads) {
+    const int r = i / 8, q = i % 8;
+    const uint4 v = r0 + r < rows
+                        ? *reinterpret_cast<const uint4*>(
+                              src + (long long)(r0 + r) * cols + c0 + q * 8)
+                        : make_uint4(0, 0, 0, 0);
+    uint32_t* d = tile + r * 33 + q * 4;
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  }
+  __syncthreads();
+  const unsigned short* e = reinterpret_cast<const unsigned short*>(tile);
+  for (int i = threadIdx.x; i < 64 * 8; i += kThreads) {
+    const int c = i / 8, q = i % 8;  // dst row c0 + c, columns r0 + 8 q + [0, 8)
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = q * 8 + 2 * k;
+      w[k] = e[r * 66 + c] | (uint32_t(e[(r + 1) * 66 + c]) << 16);
+    }
+    *reinterpret_cast<uint4*>(dst + (long long)(c0 + c) * ld + r0 + q * 8) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 
 // ===========================================================================
 // f32 route: CUDA-core FMA
@@ -884,8 +902,9 @@ __global__ void __launch_bounds__(kThreads) ce_dw_f32(const Args a) {
   }
 }
 
+
 // ===========================================================================
-// split merges (both routes)
+// split merges
 // ===========================================================================
 
 __global__ void ce_fwd_merge(const Args a) {
@@ -912,17 +931,24 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// dh = sum of the splits' f32 partials, in split order, rounded once
+// out[i] = the splits' f32 partials part[sp plane + i], summed in split
+// order and rounded once to T, for i < n
 template <typename T>
-__global__ void ce_dh_reduce(const Args a) {
-  const long long total = (long long)a.N * a.E;
-  T* dh = static_cast<T*>(a.dh);
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
+__global__ void ce_sum_splits(const float* part, long long plane, int splits,
+                              long long n, T* out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
     float acc = 0.f;
-    for (int sp = 0; sp < a.splits; ++sp) acc += a.part[sp * total + i];
-    dh[i] = from_f32<T>(acc);
+    for (int sp = 0; sp < splits; ++sp) acc += part[sp * plane + i];
+    out[i] = from_f32<T>(acc);
   }
+}
+
+template <typename T>
+void sum_splits(const float* part, long long plane, int splits, long long n,
+                T* out, cudaStream_t st) {
+  const int blocks = (int)((n + 1023) / 1024 < 4096 ? (n + 1023) / 1024 : 4096);
+  ce_sum_splits<T><<<blocks, 256, 0, st>>>(part, plane, splits, n, out);
 }
 
 // ===========================================================================
@@ -931,60 +957,17 @@ __global__ void ce_dh_reduce(const Args a) {
 
 enum class Which { kFwd, kDh, kDw };
 
-size_t smem_bytes(Which w, int E) {
-  const size_t ld = E + kPad;
-  if (w == Which::kFwd) return fwd_smem_bytes<kFwdNT>();
-  if (w == Which::kDh)
-    return (kRows + kVTile) * ld * 2 + kRows * kLdDh * 2 + 4 * kRows * 4;
-  return (kWRows + kTTile) * ld * 2 + kTTile * kLdDw * 2 + 4 * kTTile * 4;
-}
-
-// widest pass (in 8-column tiles a warp) that divides E: all of E 768 or
-// half of E 1024 (GPT-2-124M, -355M); 64 columns for any other E (the
-// tiny and mini presets)
-int pass_tiles(int E) {
-  const int choices[3] = {12, 8, 1};
-  for (int nt : choices)
-    if (E % (64 * nt) == 0) return nt;
-  return 0;
-}
-
 cudaError_t prepare(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
-template <int NT>
-cudaError_t launch_bwd_mma(Which w, const Args& a, cudaStream_t st) {
-  const size_t bytes = smem_bytes(w, a.E);
-  const int passes = a.E / (64 * NT);
-  if (w == Which::kDh) {
-    cudaError_t err = prepare((const void*)ce_dh_mma<NT>, bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.N + kRows - 1) / kRows, a.splits, passes);
-    ce_dh_mma<NT><<<grid, kThreads, bytes, st>>>(a);
-  } else {
-    cudaError_t err = prepare((const void*)ce_dw_mma<NT>, bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.V + kWRows - 1) / kWRows, passes);
-    ce_dw_mma<NT><<<grid, kThreads, bytes, st>>>(a);
-  }
-  return cudaGetLastError();
-}
-
-cudaError_t launch_bwd_mma_any(Which w, const Args& a, cudaStream_t st) {
-  switch (pass_tiles(a.E)) {
-    case 12: return launch_bwd_mma<12>(w, a, st);
-    case 8: return launch_bwd_mma<8>(w, a, st);
-    case 1: return launch_bwd_mma<1>(w, a, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
+// the forward (both dtypes) and the f32 dh and dW; the bf16 backward is
+// run_bwd
 cudaError_t run(Which w, Args& a, int dtype, int device, void* stream) {
   if (a.N < 1 || a.V < 1 || a.E < 64 || a.E % 64 || a.splits < 1 ||
       a.splits > 65535 || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && smem_bytes(w, a.E) > 232448))
+      (dtype == 1 && w != Which::kFwd))
     return cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return set;
@@ -992,12 +975,11 @@ cudaError_t run(Which w, Args& a, int dtype, int device, void* stream) {
   a.tiles_per_split = (n_vt + a.splits - 1) / a.splits;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int row_tiles = (a.N + kRows - 1) / kRows;
-  const bool bf = dtype == 1;
   if (w == Which::kFwd) {
-    if (bf) {
+    if (dtype == 1) {
       // row tiles fastest: the blocks in flight walk one split's W tiles
       const dim3 grid((a.N + kFM - 1) / kFM, a.splits);
-      const size_t bytes = smem_bytes(w, a.E);
+      const size_t bytes = fwd_smem_bytes<kFwdNT>();
       cudaError_t err = prepare((const void*)ce_fwd_mma<kFwdNT>, bytes);
       if (err != cudaSuccess) return err;
       ce_fwd_mma<kFwdNT><<<grid, kThreads, bytes, st>>>(a);
@@ -1009,42 +991,107 @@ cudaError_t run(Which w, Args& a, int dtype, int device, void* stream) {
     ce_fwd_merge<<<(a.N + 255) / 256, 256, 0, st>>>(a);
     return cudaGetLastError();
   }
+  if (a.E % kFPass) return cudaErrorInvalidValue;
   if (w == Which::kDh) {
-    cudaError_t err;
-    if (bf) {
-      err = launch_bwd_mma_any(w, a, st);
-    } else {
-      const dim3 grid(row_tiles, a.splits, a.E / kFPass);
-      if (a.E % kFPass) return cudaErrorInvalidValue;
-      ce_dh_f32<<<grid, kThreads, 0, st>>>(a);
-      err = cudaGetLastError();
-    }
+    ce_dh_f32<<<dim3(row_tiles, a.splits, a.E / kFPass), kThreads, 0, st>>>(a);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || a.splits == 1) return err;
     const long long total = (long long)a.N * a.E;
-    const int blocks = (int)((total + 1023) / 1024 < 4096 ? (total + 1023) / 1024
-                                                          : 4096);
-    if (bf)
-      ce_dh_reduce<bf16><<<blocks, 256, 0, st>>>(a);
-    else
-      ce_dh_reduce<float><<<blocks, 256, 0, st>>>(a);
+    sum_splits(a.part, total, a.splits, total, static_cast<float*>(a.dh), st);
     return cudaGetLastError();
   }
-  if (bf) return launch_bwd_mma_any(w, a, st);
-  if (a.E % kFPass) return cudaErrorInvalidValue;
   const dim3 grid((a.V + kVTile - 1) / kVTile, a.E / kFPass);
   ce_dw_f32<<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
+// The bf16 backward, every launch on one stream: W^T (for dh) and h^T (for
+// dW), then per vocab chunk the dz kernel, the dh and dW products in one
+// launch (and the sum of dW's splits), then the sum of dh's splits.
+cudaError_t run_bwd(const Bwd& a, int device, cudaStream_t st) {
+  const bool want_dh = a.dh != nullptr, want_dw = a.dw != nullptr;
+  const int chunks = a.Vc > 0 ? (a.Vp + a.Vc - 1) / a.Vc : 0;
+  if (a.N < 1 || a.V < 1 || a.E < 64 || a.E % 64 || a.Vc < kBN || a.Vc % kBN ||
+      a.s_dh < 1 || a.s_dh > 65535 || a.s_dw < 1 || a.s_dw > 65535 ||
+      !(want_dh || want_dw) ||
+      (want_dh && (!a.wt || !a.dz ||
+                   (!a.acc && (chunks > 1 || a.s_dh > 1)))) ||
+      (want_dw && (!a.ht || !a.dzt || (!a.part && a.s_dw > 1))))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = prepare((const void*)ce_dz_mma, kBwdSmem);
+  if (err == cudaSuccess) err = prepare((const void*)ce_prod_mma, kBwdSmem);
+  if (err != cudaSuccess) return err;
+  const int E = a.E, e_tiles = (E + kBN - 1) / kBN;
+  if (want_dh) {
+    ce_transpose<<<dim3(a.Vp / 64, E / 64), kThreads, 0, st>>>(a.w, a.V, E,
+                                                               a.wt, a.Vp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (want_dw) {
+    ce_transpose<<<dim3(a.Np / 64, E / 64), kThreads, 0, st>>>(a.h, a.N, E,
+                                                               a.ht, a.Np);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  for (int c = 0; c < chunks; ++c) {
+    const int v0 = c * a.Vc, wc = min(a.Vc, a.Vp - v0);
+    ce_dz_mma<<<dim3(a.Np / kFM, wc / kBN), kThreads, kBwdSmem, st>>>(a, v0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    Prod pr[2] = {};
+    int n = 0;
+    if (want_dh) {
+      // dh (+)= dz_c W_c: K = the chunk's columns; split z adds into its
+      // own f32 plane, and with one split the last chunk rounds into dh
+      Prod& p = pr[n++];
+      p.a = a.dz, p.lda = a.Vc, p.a_rows = a.N;
+      p.b = a.wt + v0, p.ldb = a.Vp, p.b_rows = E;
+      p.iters = wc / kFK, p.kps = (p.iters + a.s_dh - 1) / a.s_dh;
+      p.M = a.N, p.ncol = E, p.ldo = E;
+      p.out = a.acc, p.plane = (long long)a.N * E, p.add = c > 0;
+      if (a.s_dh == 1 && c == chunks - 1) p.out_bf16 = a.dh;
+      p.m_tiles = (a.N + kFM - 1) / kFM, p.n_tiles = e_tiles;
+      p.blocks = p.m_tiles * e_tiles * a.s_dh;
+    }
+    float* dw_rows = want_dw ? a.dw + (long long)v0 * E : nullptr;
+    const int dw_m = min(wc, a.V - v0);
+    if (want_dw) {
+      // dW rows [v0, v0 + dw_m) = dz_c^T h: K = N (Np, zeros past N)
+      Prod& p = pr[n++];
+      p.a = a.dzt, p.lda = a.Np, p.a_rows = dw_m;
+      p.b = a.ht, p.ldb = a.Np, p.b_rows = E;
+      p.iters = a.Np / kFK, p.kps = (p.iters + a.s_dw - 1) / a.s_dw;
+      p.M = dw_m, p.ncol = E, p.ldo = E;
+      p.out = a.s_dw == 1 ? dw_rows : a.part;
+      p.plane = (long long)a.Vc * E;
+      p.m_tiles = (dw_m + kFM - 1) / kFM, p.n_tiles = e_tiles;
+      p.blocks = p.m_tiles * e_tiles * a.s_dw;
+    }
+    ce_prod_mma<<<pr[0].blocks + pr[1].blocks, kThreads, kBwdSmem, st>>>(
+        pr[0], pr[1]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (want_dw && a.s_dw > 1) {
+      sum_splits(a.part, (long long)a.Vc * E, a.s_dw, (long long)dw_m * E,
+                 dw_rows, st);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  if (want_dh && a.s_dh > 1) {
+    const long long total = (long long)a.N * E;
+    sum_splits(a.acc, total, a.s_dh, total, a.dh, st);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (h and w share it). device: the CUDA
-// device the tensors and the stream belong to (this library links its own
-// static CUDA runtime, whose current device is not the caller's). All
-// tensors are contiguous. Each returns a cudaError_t (0 = launched).
+// device: the CUDA device the tensors and the stream belong to (this
+// library links its own static CUDA runtime, whose current device is not
+// the caller's). All tensors are contiguous. Each returns a cudaError_t (0 =
+// launched).
 
-// part: f32 scratch [3][splits][N] (unused, may be null, with one split);
-// loss, m, s: f32 [N]
+// dtype: 0 = float32, 1 = bfloat16 (h and w share it). part: f32 scratch
+// [3][splits][N] (unused, may be null, with one split); loss, m, s: f32 [N]
 extern "C" int dt_ce_fwd(const void* h, const void* w, const void* y,
                          void* part, void* loss, void* m, void* s, int N,
                          int V, int E, int splits, int dtype, int device,
@@ -1064,8 +1111,8 @@ extern "C" int dt_ce_fwd(const void* h, const void* w, const void* y,
   return run(Which::kFwd, a, dtype, device, stream);
 }
 
-// part: f32 scratch [splits][N][E] (unused, may be null, with one
-// split); dh: [N, E] in h's dtype
+// f32 dh. part: f32 scratch [splits][N][E] (unused, may be null, with one
+// split); dh: f32 [N, E]. dtype must be 0 (bf16 takes dt_ce_bwd).
 extern "C" int dt_ce_dh(const void* h, const void* w, const void* y,
                         const void* m, const void* s, const void* g,
                         void* part, void* dh, int N, int V, int E, int splits,
@@ -1086,7 +1133,7 @@ extern "C" int dt_ce_dh(const void* h, const void* w, const void* y,
   return run(Which::kDh, a, dtype, device, stream);
 }
 
-// dw: f32 [V, E]
+// f32 dW: f32 [V, E]. dtype must be 0.
 extern "C" int dt_ce_dw(const void* h, const void* w, const void* y,
                         const void* m, const void* s, const void* g, void* dw,
                         int N, int V, int E, int dtype, int device,
@@ -1104,4 +1151,43 @@ extern "C" int dt_ce_dw(const void* h, const void* w, const void* y,
   a.E = E;
   a.splits = 1;
   return run(Which::kDw, a, dtype, device, stream);
+}
+
+// The bf16 backward: dh (bf16 [N, E]) and/or dW (f32 [V, E]); a null dh or
+// dw skips that product and the scratch only it needs. Np and Vp are N and
+// V rounded up to 128, Vc the vocab chunk (a multiple of 128), s_dh and
+// s_dw the K splits of the two products. Scratch, all from the caller: ht
+// bf16 [E, Np], wt bf16 [E, Vp], dz bf16 [Np, Vc], dzt bf16 [Vc, Np], acc
+// f32 [s_dh][N][E] (null when there is one chunk and one split), part f32
+// [s_dw][Vc][E] (null with one split). Returns the first launch's error.
+extern "C" int dt_ce_bwd(const void* h, const void* w, const void* y,
+                         const void* m, const void* s, const void* g,
+                         void* ht, void* wt, void* dz, void* dzt, void* acc,
+                         void* part, void* dh, void* dw, int N, int V, int E,
+                         int Vc, int s_dh, int s_dw, int device,
+                         void* stream) {
+  Bwd a = {};
+  a.h = static_cast<const bf16*>(h);
+  a.w = static_cast<const bf16*>(w);
+  a.y = static_cast<const int*>(y);
+  a.m = static_cast<const float*>(m);
+  a.s = static_cast<const float*>(s);
+  a.g = static_cast<const float*>(g);
+  a.ht = static_cast<bf16*>(ht);
+  a.wt = static_cast<bf16*>(wt);
+  a.dz = static_cast<bf16*>(dz);
+  a.dzt = static_cast<bf16*>(dzt);
+  a.acc = static_cast<float*>(acc);
+  a.part = static_cast<float*>(part);
+  a.dh = static_cast<bf16*>(dh);
+  a.dw = static_cast<float*>(dw);
+  a.N = N;
+  a.V = V;
+  a.E = E;
+  a.Np = (N + kFM - 1) / kFM * kFM;
+  a.Vp = (V + kBN - 1) / kBN * kBN;
+  a.Vc = Vc;
+  a.s_dh = s_dh;
+  a.s_dw = s_dw;
+  return run_bwd(a, device, static_cast<cudaStream_t>(stream));
 }

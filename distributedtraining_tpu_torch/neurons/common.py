@@ -117,7 +117,7 @@ def build(cfg: RunConfig) -> Components:
     """The role's components. Raises NotImplementedError for a flag
     value the port has not brought over (``RunConfig.check_ported``)."""
     device = resolve_role_device()
-    cfg.check_ported(device)
+    cfg.check_ported()
     if cfg.model not in gpt2.PRESETS:
         raise NotImplementedError(
             f"--model {cfg.model}: the port has the GPT-2 presets "

@@ -155,6 +155,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tfce.fused_ce_bwd_dh(h, w, y, stats, stats, stats)
     with pytest.raises(ValueError, match="CUDA"):
         tfce.fused_ce_bwd_dw(h, w, y, stats, stats, stats)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfce.fused_ce_bwd(h, w, y, stats, stats, stats)
 
 
 def _chip_smoke():
@@ -218,16 +220,19 @@ def test_card_check_fails_a_wrong_gradient(key, wrong):
         smoke._ce_check("cpu", outs, "bfloat16")
 
 
-@pytest.mark.parametrize("E,dtype,refused", [
-    (768, torch.bfloat16, False), (1024, torch.bfloat16, False),
-    (1280, torch.bfloat16, True), (1600, torch.bfloat16, True),
-    (1600, torch.float32, False)])
-def test_width_refusal(E, dtype, refused):
-    if refused:
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            tfce.refuse_width(E, dtype)
+@pytest.mark.parametrize("E,taken", [(768, True), (1024, True),
+                                     (1280, True), (1600, True),
+                                     (1000, False)])
+def test_width_check_takes_every_multiple_of_64(E, taken):
+    """The GPT-2 widths 768-1600 are taken for bf16 and f32 dh and dW
+    alike (the check no longer depends on the dtype: the bf16 backward
+    K-chunks E as the forward does); E 1000 is refused for not being a
+    multiple of 64."""
+    if taken:
+        tfce.check_width(E)
     else:
-        tfce.refuse_width(E, dtype)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            tfce.check_width(E)
 
 
 @pytest.mark.parametrize("N", [1, 504, 8184])
@@ -254,18 +259,123 @@ def test_forward_splits_cover_every_vocab_tile_once(N, V):
     assert splits == 1 or row_tiles * splits > slots // 2
 
 
-def test_forward_width_check_takes_bf16_e1280():
-    """The K-chunked forward takes GPT-2-774M's bf16 width; dh and dW
-    (whole rows in shared memory) do not, so the fused loss still refuses
-    it up front."""
-    tfce.check_width(1280, torch.bfloat16, "fused_ce_fwd")
-    tfce.check_width(1600, torch.bfloat16, "fused_ce_fwd")
-    for name in ("fused_ce_bwd_dh", "fused_ce_bwd_dw"):
-        tfce.check_width(1024, torch.bfloat16, name)
-        with pytest.raises(ValueError, match="1024"):
-            tfce.check_width(1280, torch.bfloat16, name)
-        tfce.check_width(1280, torch.float32, name)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        tfce.check_width(1000, torch.bfloat16, "fused_ce_fwd")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tfce.refuse_width(1280, torch.bfloat16)
+def test_config_takes_gpt2_774m_fused_loss_for_the_card():
+    """The miner's config, validated for a run on the card, no longer
+    refuses ``gpt2-774m --fused-loss`` (bf16 E 1280): that refusal was a
+    check of the preset's width alone."""
+    from distributedtraining_tpu_torch.config import RunConfig
+    argv = ["--backend", "local", "--model", "gpt2-774m", "--dataset",
+            "synthetic", "--tokenizer", "word", "--fused-loss",
+            "--no-base-wire-v2", "--checkpoint-interval", "0",
+            "--no-anomaly-trace", "--flight-events", "0"]
+    cfg = RunConfig.from_args("miner", argv)
+    assert cfg.fused_loss and cfg.model == "gpt2-774m"
+    cfg.check_ported()
+
+
+# ---------------------------------------------------------------------------
+# The bf16 backward's chunk and split schedule, and its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N", [1, 504, 777, 8184])
+@pytest.mark.parametrize("V", [300, 1000, 50257, 50304])
+def test_backward_schedule_covers_every_column_and_token_once(N, V):
+    """The plan dt_ce_bwd walks on 132 SMs: every vocab column of the
+    padded Vp falls in exactly one (chunk, dh split) (dh's K is the
+    chunk's columns) and every token of the padded Np in exactly one dW
+    split of each chunk (dW's K is N); the dz scratch stays within its
+    256 MiB unless the chunk is at its floor; the launch count is the
+    transposes, two or three launches a chunk (dz, both products, dW's
+    split sum) and dh's split sum."""
+    E = 768
+    plan = tfce._bwd_schedule(N, V, E, 132)
+    Np, Vp, Vc = plan["Np"], plan["Vp"], plan["Vc"]
+    assert Np % 128 == 0 and Np - 128 < N <= Np
+    assert Vp % 128 == 0 and Vp - 128 < V <= Vp
+    assert Vc % 128 == 0 and (Vc == Vp or Vc % tfce.FWD_COLS == 0)
+    assert 2 * Np * Vc * 2 <= tfce.DZ_SCRATCH_BYTES or Vc == tfce.FWD_COLS
+    cols = np.zeros(Vp, np.int64)
+    chunks = 0
+    for v0 in range(0, Vp, Vc):
+        chunks += 1
+        wc = min(Vc, Vp - v0)
+        for k0, k1 in tfce._k_ranges(wc // tfce.BWD_K, plan["s_dh"]):
+            cols[v0 + k0 * tfce.BWD_K:v0 + k1 * tfce.BWD_K] += 1
+        toks = np.zeros(Np, np.int64)
+        for k0, k1 in tfce._k_ranges(Np // tfce.BWD_K, plan["s_dw"]):
+            toks[k0 * tfce.BWD_K:k1 * tfce.BWD_K] += 1
+        assert (toks == 1).all()
+    assert (cols == 1).all() and chunks == plan["chunks"]
+    slots = 132 * tfce.BWD_BLOCKS_PER_SM
+    e_tiles = -(-E // tfce.BWD_TILE)
+    # one wave at most, none short of one unless K has no more chunks
+    for s, tiles, iters in ((plan["s_dh"], -(-N // 128) * e_tiles,
+                             Vc // tfce.BWD_K),
+                            (plan["s_dw"], Vc // 128 * e_tiles,
+                             Np // tfce.BWD_K)):
+        assert 1 <= s <= iters and tiles * s <= max(slots, tiles)
+        assert s == iters or tiles * (s + 1) > slots
+    assert plan["launches"] == (2 + chunks * (2 + (plan["s_dw"] > 1))
+                                + (plan["s_dh"] > 1))
+
+
+def test_backward_schedule_at_the_training_and_miner_shapes():
+    """N 8184 takes chunks of 8192 columns with dz in both layouts (7 of
+    them, the last 1152 wide) and of 16384 with one, and splits neither
+    product (384 output tiles fill the 264 block slots); the miner's
+    N 504 takes all of V in one chunk, and its dh (24 output tiles over
+    K = V) splits K to fill the card."""
+    both = tfce._bwd_schedule(8184, 50304, 768, 132)
+    assert (both["Vc"], both["chunks"]) == (8192, 7)
+    assert (both["s_dh"], both["s_dw"], both["launches"]) == (1, 1, 16)
+    one = tfce._bwd_schedule(8184, 50304, 768, 132, dw=False)
+    assert (one["Vc"], one["chunks"]) == (16384, 4)
+    miner = tfce._bwd_schedule(504, 50304, 768, 132)
+    assert (miner["Vc"], miner["chunks"]) == (50304, 1)
+    assert miner["s_dh"] > 1 and 24 * miner["s_dh"] <= 2 * 132
+
+
+_VC_CASES = {   # (N, V, E, forced chunk, dtype)
+    "v_below_chunk": (24, 100, 64, 128, np.float32),
+    "v_two_chunks": (24, 256, 64, 128, np.float32),
+    "v_two_chunks_and_37": (24, 293, 64, 128, np.float32),
+    "e1280_bf16": (16, 300, 1280, 128, "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("case", list(_VC_CASES))
+def test_chunked_plain_backward_matches_dense_and_jax(case):
+    """The plain version of the bf16 backward's chunked decomposition
+    (dz per chunk rounded to h's dtype, dh summed over the chunks in f32
+    and rounded once, dW rows per chunk) against the dense plain backward
+    and the JAX package's Pallas kernels in interpret mode, at a forced
+    small chunk with V below it, at two chunks and two and a bit, and at
+    GPT-2-774M's E 1280 in bf16 (the head scaled by sqrt(64 / E), so the
+    logits spread as at E 64)."""
+    N, V, E, vc, dt = _VC_CASES[case]
+    bf16 = dt == "bfloat16"
+    hidden, wte, labels, _ = _case(V=V, E=E, N=N, seed=11)
+    wte *= np.float32(np.sqrt(64 / E))   # the E 64 cases' logit spread
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    h = torch.from_numpy(hidden).to(dtype)
+    w = torch.from_numpy(wte).to(dtype)
+    y = torch.from_numpy(labels)
+    g = torch.full((N,), 1.0 / N)
+    _, m, s = tfce.fused_ce_fwd_reference(h, w, y)
+    dh, dw = tfce.fused_ce_bwd_chunked_reference(h, w, y, m, s, g, vc)
+    r_dh, r_dw = tfce.fused_ce_bwd_reference(h, w, y, m, s, g)
+    assert dh.dtype == h.dtype and dw.dtype == torch.float32
+    # the same dz; only the f32 summation order of dh differs
+    np.testing.assert_allclose(dw.numpy(), r_dw.numpy(), rtol=1e-6,
+                               atol=1e-9)
+    np.testing.assert_allclose(dh.float().numpy(), r_dh.float().numpy(),
+                               rtol=1e-2 if bf16 else 1e-5, atol=1e-8)
+    _, _, jdh, jdw = _jax(hidden, wte, labels, None, "pallas",
+                          dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    tol = (dict(dh=(5e-2, 5e-4), dw=(2e-2, 2e-4)) if bf16
+           else dict(dh=(2e-4, 1e-6), dw=(2e-4, 1e-6)))
+    np.testing.assert_allclose(dh.float().numpy(),
+                               np.asarray(jdh, np.float32),
+                               rtol=tol["dh"][0], atol=tol["dh"][1])
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw),
+                               rtol=tol["dw"][0], atol=tol["dw"][1])

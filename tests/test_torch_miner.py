@@ -296,8 +296,6 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
     (MINER_ARGS + ["--lora-rank", "4"], 7),
     (MINER_ARGS + ["--fsdp", "2"], 7),
     (MINER_ARGS + ["--metrics-path", "m.jsonl"], 7),
-    (MINER_ARGS + ["--model", "gpt2-774m"], 7),  # bf16 E 1280, fused
-    (MINER_ARGS + ["--model", "gpt2-1.5b"], 7),  # bf16 E 1600, fused
 ])
 def test_config_refuses_what_is_not_ported(extra, slice_no):
     cfg = RunConfig.from_args("miner", extra)
@@ -305,22 +303,20 @@ def test_config_refuses_what_is_not_ported(extra, slice_no):
         cfg.check_ported()
 
 
-def test_fused_loss_width_refused_on_the_card_only(monkeypatch):
-    """--fused-loss at a bf16 width the CE kernels do not take is refused
-    before any work where the kernels would run (the card), by the
-    config and by the engine, and runs on the CPU's plain version."""
-    wide = MINER_ARGS + ["--model", "gpt2-774m"]
-    RunConfig.from_args("miner", wide).check_ported("cpu")
-    RunConfig.from_args("miner", MINER_ARGS + ["--model", "gpt2-355m"]
+@pytest.mark.parametrize("preset", ["gpt2-774m", "gpt2-1.5b"])
+def test_fused_loss_takes_the_wide_presets_on_the_card(preset, monkeypatch):
+    """--fused-loss at GPT-2-774M's and -1.5B's bf16 widths (E 1280,
+    1600): the config takes them, and so does the engine on the card,
+    since the bf16 backward K-chunks every product (once refused: its
+    dh and dW staged whole rows of E <= 1024 in shared memory)."""
+    RunConfig.from_args("miner", MINER_ARGS + ["--model", preset]
                         ).check_ported()
-    model, _ = tg.make_model(dataclasses.replace(TINY, dtype="bfloat16",
-                                                 n_embd=1280, n_head=20))
-    ttrain.TrainEngine(model, fused_loss=True, device="cpu")
+    cfg = tg.PRESETS[preset]
+    model, _ = tg.make_model(dataclasses.replace(
+        TINY, dtype=cfg.dtype, n_embd=cfg.n_embd, n_head=cfg.n_head))
     monkeypatch.setattr(ttrain, "resolve_device",
                         lambda device: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ttrain.TrainEngine(model, fused_loss=True)
-    ttrain.TrainEngine(model, fused_loss=False)
+    assert ttrain.TrainEngine(model, fused_loss=True).fused_loss
 
 
 # ---------------------------------------------------------------------------
