@@ -3,6 +3,14 @@
 NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --decode-ab N
+
+The second form is one side of a before/after comparison of the decode
+path: copied into the root of each of two checkouts and run from each in
+turn within one machine's session, it times the paged-decode wrapper at
+the GPT-2-124M decode shape (device ms and host ms, through the public
+entry only) and runs the serve phase N times, printing one JSON line
+each. It uses nothing but entry points both sides have.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -12,16 +20,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
            started together; reports seconds, registers and spills per
            kernel (ptxas -v).
 3. kernel  holds the paged-decode kernel against its plain PyTorch
-           version at the GPT-2-124M decode shape and a GQA shape, in
-           f32 (TF32 off; max abs <= 1e-5, the summation order differs)
-           and in bf16 (max abs <= 2e-2: the plain version rounds the
+           version and the plain version of its split decomposition at
+           the GPT-2-124M decode shape, a GQA shape, a long-context case
+           (MP 256: contexts up to 4096, the split boundaries 0, C - 1,
+           C, C + 1 and the whole table) and a G 8 GQA case, in f32
+           (TF32 off; max abs <= 1e-5, the summation order differs) and
+           in bf16 (max abs <= 2e-2: the plain version rounds the
            softmax probabilities to bf16 before PV, the kernel keeps
-           f32); times kernel, plain version and a library yardstick.
+           f32); reports the planner's split (C, splits, blocks); times
+           kernel, plain version and a library yardstick at the decode
+           shape (and the host time of a call) and at the long contexts.
 4. flash   holds the flash-attention forward (o, lse) and backward
            (dq, dk, dv) kernels against their plain versions: the
            training shape (B 8, T 1024, H 12, D 64) with segment ids from
            a real packed batch, T 64 and 512, a ragged T, D 128, an
-           unpacked case and ids in no order; q, k, v as strided views of
+           unpacked case, ids in no order, and long rows (T 4096 packed
+           and in no order, T 2112 at D 128: the bf16 forward's id pass
+           sweeps a row more than once and its tile list spans more than
+           one 32-tile ballot word); q, k, v as strided views of
            a fused [B, T, 3E] projection. f32: max abs <= 1e-5 forward,
            <= 1e-4 gradients (summation order); bf16: <= 2e-2 against the
            plain version's unrounded f32 result on the same inputs, each
@@ -30,7 +46,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
            output once, each rounding up to 2^-8 of the value; gradients
            exceed 4 at T 1024). Times
            each kernel at the training shape in bf16 (L2 flushed, median
-           of 30) beside its bound, the plain version and SDPA.
+           of 30) beside its bound, the plain version and SDPA; logs the
+           key tiles the bf16 forward lists there by the Python mirror of
+           its rule (ops.flash_attention.visible_key_tiles, not a count
+           from the kernel) against the causal tiles; times the forward
+           without segment ids too (every causal pair, SDPA's work).
 5. slice   GPT-2-124M, full width and depth, f32: GenerationEngine's
            greedy output is token-identical to reference_generate.
 6. serve   the same weights at the served bf16 compute dtype behind
@@ -39,7 +59,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
            finish, and the decode steps went through the kernel
            (launches == n_layer x decode dispatches > 0).
 7. profile torch.profiler over steady decode steps of the same batch:
-           wall vs device time per step, idle share, top kernels.
+           wall vs device time per step, idle share, top kernels, the
+           paged kernel's device ms per step and its share.
 8. train   GPT-2-124M, full width and depth, bf16 compute, f32 params:
            20 TrainEngine.train_steps at B 8, T 1024 on shuffled packed
            synthetic batches, then evaluate at T 512 on held-out batches
@@ -369,12 +390,19 @@ def _library_call(args):
 def phase_kernel() -> dict:
     import torch
     from distributedtraining_tpu_torch.ops import paged_attention as pa
+    # the split-boundary contexts of the planner's chunk at P 16 (C 64):
+    # 0, C - 1, C, C + 1 and the whole table
     shapes = {
         "gpt2_124m_decode": dict(B=8, Hq=12, Hkv=12, D=64, P=16, MP=64,
                                  lens=[0, 15, 16, 17, 1023, 1024, 300,
                                        777]),
         "gqa_d128": dict(B=4, Hq=32, Hkv=8, D=128, P=16, MP=8,
                          lens=[0, 17, 100, 128]),
+        "long_ctx_4096": dict(B=8, Hq=12, Hkv=12, D=64, P=16, MP=256,
+                              lens=[0, 63, 64, 65, 4096, 2047, 3001,
+                                    4095]),
+        "gqa_g8_d128": dict(B=5, Hq=64, Hkv=8, D=128, P=16, MP=64,
+                            lens=[0, 63, 65, 1024, 700]),
     }
     tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     checks = []
@@ -384,25 +412,44 @@ def phase_kernel() -> dict:
                                 s["MP"], s["lens"], dtype, SEED + i)
             out = pa.paged_decode_attention(*args)
             ref = pa.paged_decode_reference(*args)
+            split = pa.paged_decode_split_reference(*args)
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
+            err_split = float((out.float() - split.float()).abs().max())
+            plan = pa.plan_split(s["MP"], s["P"], s["B"], s["Hkv"])
             checks.append({"shape": name, "dtype": str(dtype).split(".")[1],
-                           "max_abs_err": err, "tol": tol})
+                           "max_abs_err": err,
+                           "max_abs_err_split_plain": err_split, "tol": tol,
+                           "plan": dataclasses.asdict(plan)})
             check(bool(torch.isfinite(out).all()),
                   f"paged decode kernel: non-finite output at {name} {dtype}")
             check(err <= tol, f"paged decode kernel vs plain version at "
                               f"{name} {dtype}: max abs {err} > {tol}")
+            check(err_split <= tol,
+                  f"paged decode kernel vs the plain split version at "
+                  f"{name} {dtype}: max abs {err_split} > {tol}")
     # time the main path's shape at the served dtype (bf16)
     s = shapes["gpt2_124m_decode"]
     args = _decode_case(s["B"], s["Hq"], s["Hkv"], s["D"], s["P"], s["MP"],
                         s["lens"], torch.bfloat16, SEED)
     kernel_ms = _time_ms(lambda: pa.paged_decode_attention(*args))
+    host_ms = _host_ms(lambda: pa.paged_decode_attention(*args))
     plain_ms = _time_ms(lambda: pa.paged_decode_reference(*args))
     library_ms = _time_ms(_library_call(args))
     bound_ms, bound_by = _bound(args, 2)
-    res = {"checks": checks, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "timed_shape": "gpt2_124m_decode bf16"}
+    plan = pa.plan_split(s["MP"], s["P"], s["B"], s["Hkv"])
+    # and the long contexts, where the split has the most to share out
+    s = shapes["long_ctx_4096"]
+    long_args = _decode_case(s["B"], s["Hq"], s["Hkv"], s["D"], s["P"],
+                             s["MP"], s["lens"], torch.bfloat16, SEED)
+    long = {"ms": _time_ms(lambda: pa.paged_decode_attention(*long_args)),
+            "library_ms": _time_ms(_library_call(long_args)),
+            "bound_ms": _bound(long_args, 2)[0]}
+    res = {"checks": checks, "kernel_ms": kernel_ms, "host_ms": host_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "plan": dataclasses.asdict(plan),
+           "long_ctx_4096": long, "timed_shape": "gpt2_124m_decode bf16"}
     log("kernel phase:", json.dumps(res))
     return res
 
@@ -500,8 +547,15 @@ def phase_flash(seg) -> dict:
     from distributedtraining_tpu_torch.ops import flash_attention as fa
     # ids in no order (not a packer's layout): tile skipping must test
     # id ranges, not assume documents are contiguous
-    scattered = np.random.default_rng(SEED).integers(0, 4, (2, 256)).astype(
-        np.int32)
+    rng = np.random.default_rng(SEED)
+    scattered = rng.integers(0, 4, (2, 256)).astype(np.int32)
+    # long rows: the forward's id pass sweeps the row more than once and
+    # its tile list spans more than one 32-tile ballot word (T 4096: 64
+    # key tiles); packed documents of 20-400 tokens, and ids in no order
+    docs = rng.integers(20, 400, (2, 256))
+    packed_long = np.stack([np.repeat(np.arange(256), n)[:4096]
+                            for n in docs]).astype(np.int32)
+    scattered_long = rng.integers(0, 4, (1, 4096)).astype(np.int32)
     cases = {
         "train_b8_t1024_h12_d64": (8, 1024, 12, 64, seg),
         "t64": (8, 64, 12, 64, seg),
@@ -510,6 +564,9 @@ def phase_flash(seg) -> dict:
         "d128_t300": (2, 300, 6, 128, seg),
         "unpacked_t200": (2, 200, 4, 64, None),
         "scattered_ids_t256": (2, 256, 4, 64, scattered),
+        "packed_t4096": (2, 4096, 2, 64, packed_long),
+        "scattered_ids_t4096": (1, 4096, 2, 64, scattered_long),
+        "scattered_ids_t2112_d128": (1, 2112, 2, 128, scattered_long),
     }
     tols = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
     checks = []
@@ -579,15 +636,24 @@ def phase_flash(seg) -> dict:
             plain_bwd, lib_bwd),
     }
     bounds = _flash_bounds(B, T, H, D, sg, 2)
+    # the key tiles the bf16 forward lists, by the Python mirror of its
+    # rule (not a count the kernel reports)
+    tiles = fa.visible_key_tiles(torch.from_numpy(sg[:B, :T].copy()), T)
+    n_tiles = tiles.shape[-1]
     timed = {name: {"ms": _time_ms(fn), "plain_ms": plain,
                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                     "library_ms": lib}
              for name, (fn, plain, lib) in runs.items()}
+    # the forward without segment ids: every causal pair, SDPA's work
+    timed["flash_attention_fwd"]["ms_unpacked"] = _time_ms(
+        lambda: fa.flash_attention_fwd(q, k, v))
     res = {"checks": checks, "timed": timed,
            "timed_shape": "B 8, T 1024, H 12, D 64 bf16, packed segment "
                           "ids of a real batch; SDPA unpacked causal",
            "visible_pairs": _causal_pairs(B, T, H, sg),
-           "all_pairs": B * H * T * (T + 1) // 2}
+           "all_pairs": B * H * T * (T + 1) // 2,
+           "fwd_key_tiles_by_mirror": H * int(tiles.sum()),
+           "fwd_causal_tiles": B * H * n_tiles * (n_tiles + 1) // 2}
     log("flash phase:", json.dumps(res))
     return res
 
@@ -788,10 +854,14 @@ def phase_profile(tree) -> dict:
            "idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
            "kernels_per_step": sum(v[1] for v in kernels.values()) / n_steps,
            "paged_decode_ms_per_step": paged / n_steps,
+           "paged_decode_share": paged / busy_ms if busy_ms else None,
            "top_kernels": [{"name": n[:80], "ms_per_step": v[0] / n_steps,
                             "launches_per_step": v[1] / n_steps}
                            for n, v in top]}
     log("profile:", json.dumps(res))
+    log(f"decode step: {res['device_ms_per_step']} device ms, the paged "
+        f"kernel {res['paged_decode_ms_per_step']} ms "
+        f"({res['paged_decode_share']} of it)")
     return res
 
 
@@ -2097,9 +2167,12 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in kern["checks"]),
         "max_abs_err_f32": max(c["max_abs_err"] for c in kern["checks"]
                                if c["dtype"] == "float32"),
-        "ms": kern["kernel_ms"],
+        "ms": kern["kernel_ms"], "host_ms": kern["host_ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
+        "long_ctx_4096": kern["long_ctx_4096"],
+        "decode_step_device_ms": prof["device_ms_per_step"],
+        "decode_step_paged_ms": prof["paged_decode_ms_per_step"],
         "timed_shape": kern["timed_shape"],
         "build_s": build["build_s"]},
         *_flash_entries(flash, train, build),
@@ -2124,8 +2197,41 @@ def main() -> int:
     return 0
 
 
+def decode_ab(runs: int) -> int:
+    """One side of a decode-path comparison (``--decode-ab N``)."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.ops import paged_attention as pa
+    s = dict(B=8, Hq=12, Hkv=12, D=64, P=16, MP=64,
+             lens=[0, 15, 16, 17, 1023, 1024, 300, 777])
+    args = _decode_case(s["B"], s["Hq"], s["Hkv"], s["D"], s["P"], s["MP"],
+                        s["lens"], torch.bfloat16, SEED)
+    out = pa.paged_decode_attention(*args)
+    err = float((out.float() - pa.paged_decode_reference(*args).float())
+                .abs().max())
+    check(err <= 2e-2, f"paged decode kernel vs plain version: {err}")
+    print(json.dumps({"decode_ab": {
+        "root": ROOT, "paged_ms": _time_ms(
+            lambda: pa.paged_decode_attention(*args)),
+        "paged_host_ms": _host_ms(lambda: pa.paged_decode_attention(*args)),
+        "max_abs_err": err, "card": card}}), flush=True)
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
+    for i in range(runs):
+        r = phase_serve(tree)
+        print(json.dumps({"decode_ab_serve": {
+            "root": ROOT, "run": i, **{k: r[k] for k in (
+                "tpot_ms_p50", "tpot_ms_p95", "ttft_ms_p50", "step_ms_p50",
+                "tokens_per_s", "wall_s", "kernel_launches",
+                "decode_dispatches")}}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--decode-ab"]:
+            sys.exit(decode_ab(int(sys.argv[2])))
         sys.exit(main())
     except SmokeFailure as e:
         log(f"chip_smoke: FAIL: {e}")

@@ -54,14 +54,28 @@
 // The kernels:
 //  - forward: one block per (query tile, b * h), heaviest tiles first; it
 //    walks the key tiles up to the diagonal, keeps (m, l, acc) in registers.
+//    The bf16 forward first builds, once a block, the list of key tiles it
+//    will walk: the diagonal tile, then the earlier tiles whose id range
+//    meets the query tile's, found by one coalesced pass over the segment
+//    ids of rows [0, q0 + 64) (each warp reduces whole key tiles to their
+//    id range; warp 0 keeps tiles by ballot). The q tile and the diagonal
+//    tile are copied while the ids are read. The listed tiles' k, v and
+//    ids stream through a two-stage cp.async ring, so the next tile loads
+//    while the tensor cores work on this one; Q's A fragments are loaded
+//    once (ldmatrix.x4) and kept in registers, K's B fragments come by
+//    ldmatrix.x4 and V's by ldmatrix.x4.trans, and the softmax runs in
+//    exp2f with log2(e) folded into the scale (lse is stored in natural
+//    log units, as the backward reads it).
 //  - dk/dv: one block per (key tile, b * h); it walks the query tiles from
 //    the diagonal down, recomputes P^T and dS^T for the tile, and
 //    accumulates dV and dK in registers.
 //  - dq: one block per (query tile, b * h); it walks the key tiles up to
 //    the diagonal, recomputes dS, accumulates dQ.
-// Packing: a tile pair none of whose segment ids can match (the key
-// tile's ids all fall outside the query tile's id range, or the reverse)
-// is skipped whole, after one __syncthreads_or over the tile's ids. With
+// Packing: a tile pair none of whose segment ids can match is skipped
+// whole. The backward kernels and the f32 forward test each causal tile
+// in turn (its ids all outside the other tile's id range: one
+// __syncthreads_or over the tile's ids); the bf16 forward walks its list
+// (ranges that do not meet), a rule that lists a superset. With
 // documents of ~110 tokens in 1024-token rows most causal tiles are of
 // other documents, so the work follows the visible pairs, not T^2 / 2.
 // Inside a tile every pair is still masked one by one: a tile may be
@@ -77,9 +91,12 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "ptx.cuh"
 
 namespace {
 
@@ -94,6 +111,7 @@ constexpr int kWarps = kTile / 16;         // bf16: a warp per 16 rows
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr int kPad = 8;                    // bf16 tile row padding
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kMaxSmem = 232448;        // a block's shared memory, sm_90
 
 // reductions over the 16 lanes (one half-warp) that own one row (f32)
 __device__ __forceinline__ float row_max(float x) {
@@ -583,16 +601,6 @@ __global__ void __launch_bounds__(kThreads)
 // elements of one A fragment: P and dS go from one product to the next
 // without leaving the registers.
 
-// c += a b, bf16 in, f32 accumulation
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -659,32 +667,176 @@ __device__ __forceinline__ void load_tile_bf16(bf16* dst, const void* src,
   }
 }
 
+// --- the forward's key-tile list and cp.async ring -------------------------
+
+// stages of the bf16 forward's K/V ring (at D 64 ~47 KB of shared memory:
+// four blocks an SM; three stages, three blocks an SM, were slower)
+constexpr int kFwdStages = 2;
+
+// shared memory of the bf16 forward: the q tile, the ring of k and v tiles
+// and their segment ids, the q tile's ids, and per key tile its id range
+// and the list (a count, then the tiles)
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
+size_t fwd_mma_smem(int n_tiles) {
+  const size_t tile = (size_t)kTile * (D + kPad) * sizeof(bf16);
+  return (1 + 2 * kFwdStages) * tile + (size_t)(kFwdStages + 1) * kTile * 4 +
+         (size_t)(3 * n_tiles + 1) * 4;
+}
+
+// rows [row0, row0 + kTile) of one (b, h) slice into the [kTile][D + kPad]
+// bf16 tile at shared address dst with cp.async, 16 bytes a copy (the
+// wrapper admits only views whose rows start 16-byte aligned); rows at or
+// past T are zero-filled
+template <int D>
+__device__ __forceinline__ void copy_tile_bf16(uint32_t dst, const void* src,
+                                               const Strides s, int b, int h,
+                                               int row0, int n_rows) {
+  constexpr int LD = D + kPad;
+  constexpr int kChunks = D / 8;
+  const bf16* base = static_cast<const bf16*>(src) + b * s.b + h * s.h;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
+    const int e = threadIdx.x + i * kMmaThreads;
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const int t = row0 + r;
+    const bf16* src_row = base + (long long)min(t, n_rows - 1) * s.t + c;
+    cp_async16(dst + (uint32_t)(r * LD + c) * 2, src_row, t < n_rows ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
     flash_fwd_mma_kernel(const Params p) {
   constexpr int LD = D + kPad;
   constexpr int NK = kTile / 8;  // accumulator tiles across a key tile
   constexpr int ND = D / 8;      // accumulator tiles across the head dim
+  constexpr int S = kFwdStages;
+  constexpr uint32_t kTileBytes = kTile * LD * sizeof(bf16);
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sK = sQ + kTile * LD;
-  bf16* sV = sK + kTile * LD;
-  int* sSegQ = reinterpret_cast<int*>(sV + kTile * LD);
-  int* sSegK = sSegQ + kTile;
+  const uint32_t sQ = smem_u32(smem_mma);
+  const uint32_t sKV = sQ + kTileBytes;  // stage i: k at 2 i, v at 2 i + 1
+  int* sSegK = reinterpret_cast<int*>(smem_mma + (1 + 2 * S) * kTileBytes);
+  int* sSegQ = sSegK + S * kTile;
 
   const int n_tiles = (p.T + kTile - 1) / kTile;
+  int* sLo = sSegQ + kTile;  // [n_tiles]
+  int* sHi = sLo + n_tiles;
+  int* sList = sHi + n_tiles;  // the count, then the listed key tiles
   const int qt = n_tiles - 1 - blockIdx.y;  // longest walks start first
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = threadIdx.x / 32 * 16;     // this warp's rows of the tile
+  const int warp = threadIdx.x / 32;
+  const int r0 = warp * 16;  // this warp's rows of the tile
   const int q0 = qt * kTile;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (long long)b * p.T;
 
-  load_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
-  load_seg(sSegQ, p, b, q0);
+  // key tile kt (its k, v and ids) into ring stage st
+  auto copy_kv = [&](int kt, int st) {
+    const int k0 = kt * kTile;
+    const uint32_t dst = sKV + st * 2 * kTileBytes;
+    copy_tile_bf16<D>(dst, p.k, p.sk, b, h, k0, p.T);
+    copy_tile_bf16<D>(dst + kTileBytes, p.v, p.sv, b, h, k0, p.T);
+    if (seg != nullptr && threadIdx.x < kTile) {
+      const int i = k0 + threadIdx.x;
+      cp_async4(smem_u32(sSegK + st * kTile + threadIdx.x),
+                seg + min(i, p.T - 1), i < p.T ? 4 : 0);
+    }
+  };
+  // the q tile and the diagonal key tile, which is always walked (first),
+  // go out before the list is known: their loads overlap the id pass
+  copy_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
+  copy_kv(qt, 0);
+  cp_async_commit();
+
+  // the key-tile list, once a block: the diagonal, then the earlier tiles
+  // whose id range meets the q tile's. One coalesced pass over the ids of
+  // rows [0, q0 + kTile), each warp reducing whole key tiles to their id
+  // range; warp 0 then keeps tiles by ballot
+  if (seg == nullptr) {
+    for (int i = threadIdx.x; i < qt; i += kMmaThreads) sList[2 + i] = i;
+    if (threadIdx.x == 0) {
+      sList[0] = qt + 1;
+      sList[1] = qt;
+    }
+  } else {
+    // kIds key tiles a warp at a time: all their loads in flight at once
+    constexpr int kIds = 4;
+    for (int kt0 = warp; kt0 <= qt; kt0 += kWarps * kIds) {
+      int a[kIds][2];
+#pragma unroll
+      for (int u = 0; u < kIds; ++u)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kt = kt0 + u * kWarps, i = kt * kTile + 32 * e + lane;
+          a[u][e] = kt <= qt && i < p.T ? seg[i] : 0;
+        }
+#pragma unroll
+      for (int u = 0; u < kIds; ++u) {
+        const int kt = kt0 + u * kWarps;
+        if (kt > qt) break;  // warp-uniform
+        const bool v0 = kt * kTile + lane < p.T;
+        const bool v1 = kt * kTile + 32 + lane < p.T;
+        int lo = min(v0 ? a[u][0] : INT_MAX, v1 ? a[u][1] : INT_MAX);
+        int hi = max(v0 ? a[u][0] : INT_MIN, v1 ? a[u][1] : INT_MIN);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          lo = min(lo, __shfl_xor_sync(kFull, lo, o));
+          hi = max(hi, __shfl_xor_sync(kFull, hi, o));
+        }
+        if (lane == 0) {
+          sLo[kt] = lo;
+          sHi[kt] = hi;
+        }
+        if (kt == qt) {
+          sSegQ[lane] = a[u][0];
+          sSegQ[lane + 32] = a[u][1];
+        }
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int q_lo = sLo[qt], q_hi = sHi[qt];
+      int count = 1;
+      for (int base = 0; base < qt; base += 32) {
+        const int kt = base + lane;
+        const bool keep = kt < qt && sLo[kt] <= q_hi && sHi[kt] >= q_lo;
+        const unsigned m = __ballot_sync(kFull, keep);
+        if (keep) sList[1 + count + __popc(m & ((1u << lane) - 1))] = kt;
+        count += __popc(m);
+      }
+      if (lane == 0) {
+        sList[0] = count;
+        sList[1] = qt;
+      }
+    }
+  }
   __syncthreads();
-  const int2 q_ids = seg_range(sSegQ, q0, p.T);
+  const int count = sList[0];
 
-  // rows r0 + g (index 0) and r0 + g + 8 (index 1) of the tile
+  // listed tile j into ring stage j % S; one commit group a tile, empty
+  // past the list, so that the waits count alike
+  auto issue = [&](int j) {
+    if (j < count) copy_kv(sList[1 + j], j % S);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 1; j < S - 1; ++j) issue(j);
+
+  // Q's A fragments, once, for the whole walk (ldmatrix.x4: matrices rows
+  // 0-7 / 8-15 by columns 0-7 / 8-15 of each 16 x 16 block)
+  cp_async_wait<S - 2>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    ldmatrix_x4(qf[kd], sQ + (uint32_t)((r0 + lane % 16) * LD + kd * 16 +
+                                        8 * (lane / 16)) * 2);
+  const int seg_q[2] = {seg == nullptr ? 0 : sSegQ[r0 + g],
+                        seg == nullptr ? 0 : sSegQ[r0 + g + 8]};
+  const float sc = p.scale * 1.4426950408889634f;  // log2(e) / sqrt(D)
+
+  // rows r0 + g (index 0) and r0 + g + 8 (index 1) of the tile; m is in
+  // log2 units
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[ND][4];
 #pragma unroll
@@ -692,46 +844,51 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's sK / sV reads are done
-    if (!__syncthreads_or(load_seg(sSegK, p, b, k0, q_ids.x, q_ids.y)))
-      continue;
-    load_tile_bf16<D>(sK, p.k, p.sk, b, h, k0, p.T);
-    load_tile_bf16<D>(sV, p.v, p.sv, b, h, k0, p.T);
-    __syncthreads();
+  for (int j = 0; j < count; ++j) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    issue(j + S - 1);
+    const int k0 = sList[1 + j] * kTile;
+    const uint32_t sK = sKV + (j % S) * 2 * kTileBytes;
+    const uint32_t sV = sK + kTileBytes;
+    const int* seg_k = sSegK + (j % S) * kTile;
 
-    // S = Q K^T for this warp's 16 rows
+    // S = Q K^T for this warp's 16 rows; one ldmatrix.x4 gives the B
+    // fragments of two 8-key blocks (keys n0 + [0, 8) by dims kd + [0, 8),
+    // then kd + [8, 16), then the same for keys n0 + [8, 16))
     float s[NK][4];
 #pragma unroll
     for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
-    for (int kd = 0; kd < D; kd += 16) {
-      uint32_t a[4];
-      frag_a<LD>(a, sQ, r0, kd, g, t);
+    for (int kd = 0; kd < D / 16; ++kd)
 #pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t bb[2];
-        frag_bt<LD>(bb, sK, n * 8, kd, g, t);
-        mma16816(s[n], a, bb);
+      for (int n = 0; n < NK; n += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, sK + (uint32_t)((n * 8 + lane % 8 + 8 * (lane / 16)) *
+                                            LD + kd * 16 +
+                                        8 * ((lane / 8) % 2)) * 2);
+        mma16816(s[n], qf[kd], kb);
+        mma16816(s[n + 1], qf[kd], kb + 2);
       }
-    }
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+    for (int n = 0; n < NK; ++n) {
+      const int col = n * 8 + 2 * t;  // and col + 1
+      const int2 ids = seg == nullptr
+                           ? make_int2(0, 0)
+                           : *reinterpret_cast<const int2*>(seg_k + col);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int row = r0 + g + 8 * (i / 2);
-        const int col = n * 8 + 2 * t + i % 2;
-        const int kj = k0 + col;
-        const bool ok = kj <= q0 + row && kj < p.T &&
-                        (p.seg == nullptr || sSegQ[row] == sSegK[col]);
-        s[n][i] = ok ? s[n][i] * p.scale : -INFINITY;
+        const int kj = k0 + col + i % 2;
+        const bool ok = kj <= q0 + r0 + g + 8 * (i / 2) && kj < p.T &&
+                        seg_q[i / 2] == (i % 2 ? ids.y : ids.x);
+        s[n][i] = ok ? s[n][i] * sc : -INFINITY;
         mx[i / 2] = fmaxf(mx[i / 2], s[n][i]);
       }
+    }
     float m_use[2], alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -739,14 +896,14 @@ __global__ void __launch_bounds__(kMmaThreads)
       // a row that has seen no visible key yet keeps m = -inf: exponents
       // are then taken against 0 so that no inf - inf appears
       m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[r] = expf(m[r] - m_use[r]);
+      alpha[r] = exp2f(m[r] - m_use[r]);
       m[r] = m_new;
     }
 #pragma unroll
     for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s[n][i] = expf(s[n][i] - m_use[i / 2]);  // exp(-inf) = 0 if masked
+        s[n][i] = exp2f(s[n][i] - m_use[i / 2]);  // exp2(-inf) = 0 if masked
         rs[i / 2] += s[n][i];
       }
 #pragma unroll
@@ -756,19 +913,25 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i / 2];
 
-    // acc += P V, P in bf16 straight from the score registers
+    // acc += P V, P in bf16 straight from the score registers; V's B
+    // fragments by ldmatrix.x4.trans (keys kk + [0, 8) / [8, 16) by dims
+    // d0 + [0, 8), then the same for dims d0 + [8, 16))
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       uint32_t a[4];
       acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t bb[2];
-        frag_b<LD>(bb, sV, kk * 16, n * 8, g, t);
-        mma16816(acc[n], a, bb);
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(
+            vb, sV + (uint32_t)((kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) *
+                                    LD + n * 8 + 8 * (lane / 16)) * 2);
+        mma16816(acc[n], a, vb);
+        mma16816(acc[n + 1], a, vb + 2);
       }
     }
   }
+  cp_async_wait<0>();
 
   bf16* o = static_cast<bf16*>(p.o);
 #pragma unroll
@@ -781,9 +944,10 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
           __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    // lse in natural-log units: (m + log2 l) ln 2
     if (t == 0)
       p.lse_out[((long long)b * p.H + h) * p.T + qi] =
-          l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
+          l[r] > 0.f ? m[r] * 0.6931471805599453f + logf(l[r]) : -INFINITY;
   }
 }
 
@@ -1020,13 +1184,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 enum class Which { kFwd, kDkv, kDq };
 
 // dynamic shared memory of each kernel: its q/k/v/do tiles, the f32
-// route's score tiles, and per-row values / segment ids
+// route's score tiles, and per-row values / segment ids (the bf16
+// forward's: fwd_mma_smem)
 template <int D>
-constexpr size_t smem_bytes(Which w, bool bf16_route) {
+size_t smem_bytes(Which w, bool bf16_route, int n_tiles) {
   const size_t rows = (size_t)kTile * sizeof(float);
   if (bf16_route) {
     const size_t tile = (size_t)kTile * (D + kPad) * sizeof(bf16);
-    return w == Which::kFwd ? 3 * tile + 2 * rows : 4 * tile + 4 * rows;
+    return w == Which::kFwd ? fwd_mma_smem<D>(n_tiles) : 4 * tile + 4 * rows;
   }
   const size_t tile = (size_t)kTile * (D + 1) * sizeof(float);
   const size_t scores = (size_t)kTile * kLdP * sizeof(float);
@@ -1040,7 +1205,9 @@ constexpr size_t smem_bytes(Which w, bool bf16_route) {
 template <int D>
 cudaError_t launch(Which w, bool bf16_route, const Params& p,
                    cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>(w, bf16_route);
+  const int n_tiles = (p.T + kTile - 1) / kTile;
+  const size_t bytes = smem_bytes<D>(w, bf16_route, n_tiles);
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   void (*kernel)(const Params);
   if (bf16_route)
     kernel = w == Which::kFwd   ? flash_fwd_mma_kernel<D>
@@ -1055,7 +1222,7 @@ cudaError_t launch(Which w, bool bf16_route, const Params& p,
   if (err != cudaSuccess) return err;
   // b * h along x, tiles along y: blocks start in x-major order, so every
   // (b, h) starts its longest tile before any starts a short one
-  const dim3 grid(p.B * p.H, (p.T + kTile - 1) / kTile);
+  const dim3 grid(p.B * p.H, n_tiles);
   kernel<<<grid, bf16_route ? kMmaThreads : kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }

@@ -92,6 +92,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -156,16 +158,7 @@ __device__ __forceinline__ void store_fwd(const Args& a, int split, int n,
 //     reg 2 (row g, cols 2t+8, 2t+9), reg 3 (row g+8, cols 2t+8, 2t+9);
 //   B 16 x 8: reg 0 (rows 2t, 2t+1 of column g), reg 1 (rows 2t+8, 2t+9);
 //   C 16 x 8, f32: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
+// (mma16816 in ptx.cuh computes c += a b on them.)
 
 // dz of one element: (softmax - onehot) g, 0 past V
 __device__ __forceinline__ float dz_of(float z, int col, int V, float m,
@@ -195,36 +188,9 @@ constexpr size_t fwd_smem_bytes() {
   return (size_t)kStages<NT> * (kFM + 32 * NT) * kFK * 2 + 2 * kFM * 4;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // byte offset of 16-byte chunk c of row r in a [rows][kFK] bf16 tile
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)(r * (kFK * 2) + ((c ^ (r & 7)) << 4));
-}
-
-// 16 bytes global -> shared, zero-filled when src_bytes is 0
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
 }
 
 // rows [r0, r0 + R) of a [n_rows, E] bf16 matrix, K chunk kc, into a

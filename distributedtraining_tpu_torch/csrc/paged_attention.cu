@@ -12,9 +12,9 @@
 //   read from page page_tables[b, t / P] at row t % P of one layer's pool
 //   [pages, P, Hkv, D], plus the step's own fresh column (k_new, v_new),
 //   which is not in the pool yet. Positions at or past seq_lens[b] are
-//   skipped, never multiplied by zero, so the contents of padded table
-//   entries (trash page 0) cannot reach the output. Loads are in the pool
-//   dtype (f32 or bf16); all arithmetic is f32.
+//   never read, so the contents of padded table entries (trash page 0)
+//   cannot reach the output. Loads are in the pool dtype (f32 or bf16);
+//   all arithmetic is f32.
 //
 // Bound: bytes. The work is one multiply-add per loaded K element and one
 // per V element for each of the G query heads of the group: about G f32
@@ -25,76 +25,97 @@
 //   sum_b min(seq_len_b, MP * P) * Hkv * D * 2 * sizeof(dtype)
 // of K and V, plus q, k_new, v_new, out and the tables.
 //
-// Design, simple and right first. One block per (kv head, slot), 8 warps.
-// Warps take context positions round-robin, 4 consecutive positions at a
-// time (their K/V rows are loaded before any is used, so each warp keeps
-// 4 row loads in flight). Lanes split D (2 values a lane at D = 64, 4 at
-// D = 128; one row of one head is one coalesced 128-512 byte load). Each
-// warp keeps, for the G query rows of its group, an f32 online softmax in
-// registers: running max m, normaliser l and the unnormalised
-// accumulator; dot products reduce across lanes with shuffles. At the end
-// the warps merge their (m, l, acc) through shared memory, warp 0 folds in
-// the fresh column and writes acc / l in the output dtype. l >= 1 always:
-// the largest score contributes exp(0).
-//
-// What the simple design leaves on the table: at GPT-2-124M serving
-// shapes (B = 8 slots x Hkv = 12 heads) the grid is 96 blocks on 132 SMs,
-// so a third of the card idles and each SM has one block's few row loads
-// in flight — far fewer bytes in flight than the memory system needs to
-// reach its rate. Splitting the context across blocks (split-K with a
-// second merge pass), deeper pipelining with cp.async or TMA into shared
-// memory, and wider loads are later work; PERF.md records the gap.
+// Design: flash-decoding, the context split across blocks. Reaching the
+// memory rate takes many bytes in flight; a slot's context walked by one
+// block (the first design here) kept a few rows in flight and left a third
+// of the SMs idle at serving shapes. One call enqueues two kernels:
+//  - split: grid (Hkv, B, S). Block (h, b, s) owns context positions
+//    [s C, s C + C) of slot b, C a multiple of P chosen by the host
+//    planner (ops/paged_attention.py:plan_split, from the table's width,
+//    never from seq_lens, so the call reads nothing back from the card).
+//    A block whose chunk starts at or past the slot's context exits at
+//    once. The rest read the chunk's table entries once, then copy every
+//    K and V row of the chunk's real positions into shared memory with
+//    cp.async, 16 bytes a thread, all in flight before the first use (K
+//    and V in two groups, so the scores start while V still lands). The
+//    scores of the G query rows (lanes split a row in 16-byte pieces and
+//    reduce with shuffles), their max m and sum l (exp2f, log2(e) folded
+//    into the scale) and the unnormalised acc[D] = sum_t p_t v_t go to an
+//    f32 scratch [B, Hq, S, D + 2] (acc, then m, then l) that the wrapper
+//    allocates.
+//  - merge: grid (Hq, B), D threads. It folds the slot's active splits
+//    (ceil(ctx / C) of them: the same rule the split kernel exits by) and
+//    the fresh column, whose score it computes, into one online softmax,
+//    and writes acc / l in the pool dtype. l >= 1 always: the largest
+//    score contributes exp(0).
+// The kernel allocates nothing; the C entry launches both kernels on the
+// caller's stream and returns the first launch error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "ptx.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;   // warps per block
-constexpr int kUnroll = 4;  // context positions a warp loads before use
+constexpr int kThreads = 128;  // split kernel: threads a block
+constexpr int kWarps = kThreads / 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 
-// Load VPT consecutive values of one row as f32.
-template <int VPT>
-__device__ __forceinline__ void load_row(const float* p, float* o) {
-  if constexpr (VPT == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    o[0] = x.x;
-    o[1] = x.y;
-  } else {
-    static_assert(VPT == 4, "D must be 64 or 128");
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    o[0] = x.x;
-    o[1] = x.y;
-    o[2] = x.z;
-    o[3] = x.w;
+struct Args {
+  const void* q;            // [B, Hq, D]
+  const void* k_pages;      // [pages, P, Hkv, D], one layer
+  const void* v_pages;
+  const int* page_tables;   // [B, MP]
+  const int* seq_lens;      // [B]
+  const void* k_new;        // [B, Hkv, D]
+  const void* v_new;
+  float* part;              // [B, Hq, S, D + 2] f32 scratch
+  void* out;                // [B, Hq, D]
+  int batch, n_kv_heads, page_size, max_pages, chunk, splits;
+  float scale;              // log2(e) / sqrt(D)
+};
+
+// the values in 16 bytes of a row, as f32
+__device__ __forceinline__ void load16(const float* p, float* o) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  o[0] = x.x;
+  o[1] = x.y;
+  o[2] = x.z;
+  o[3] = x.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
   }
 }
 
-template <int VPT>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* o) {
-  if constexpr (VPT == 2) {
-    const float2 x =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    o[0] = x.x;
-    o[1] = x.y;
-  } else {
-    static_assert(VPT == 4, "D must be 64 or 128");
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 c =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    o[0] = a.x;
-    o[1] = a.y;
-    o[2] = c.x;
-    o[3] = c.y;
-  }
+// two neighbouring values of a row, as f32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
 __device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-
 __device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
@@ -105,143 +126,223 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-struct Args {
-  const void* q;            // [B, Hq, D]
-  const void* k_pages;      // [pages, P, Hkv, D], one layer
-  const void* v_pages;
-  const int* page_tables;   // [B, MP]
-  const int* seq_lens;      // [B]
-  const void* k_new;        // [B, Hkv, D]
-  const void* v_new;
-  void* out;                // [B, Hq, D]
-  int batch, n_kv_heads, page_size, max_pages;
-  float scale;
-};
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int context(const Args& a, int b) {
+  return max(0, min(a.seq_lens[b], a.max_pages * a.page_size));
+}
+
+// shared memory of the split kernel: K and V rows of a chunk, the scores
+// [G][C], the PV product's per-row-group sums [256 / D ... ][G][D], (m, l)
+// per query row and the chunk's page numbers
+template <typename T, int D, int G>
+constexpr size_t split_smem(int chunk, int page_size) {
+  return 2 * (size_t)chunk * D * sizeof(T) + (size_t)G * chunk * 4 +
+         (size_t)(2 * kThreads / D) * G * D * 4 + 2 * G * 4 +
+         (size_t)(chunk / page_size) * 4;
+}
 
 template <typename T, int D, int G>
-__global__ void __launch_bounds__(kWarps * 32)
-    paged_decode_kernel(const Args a) {
-  constexpr int VPT = D / 32;
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k_pages = static_cast<const T*>(a.k_pages);
-  const T* __restrict__ v_pages = static_cast<const T*>(a.v_pages);
-  const int h = blockIdx.x;  // kv head
-  const int b = blockIdx.y;  // slot
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int d0 = lane * VPT;
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_split_kernel(const Args a) {
+  constexpr int V16 = 16 / sizeof(T);  // values in 16 bytes
+  constexpr int L = D / V16;           // 16-byte pieces a row
+  constexpr int RP = kThreads / L;     // rows a pass of the score loop
+  constexpr int DP = D / 2;            // column pairs of the PV product
+  constexpr int RS = kThreads / DP;    // its row groups
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int C = a.chunk, P = a.page_size;
+  const int c0 = split * C;
+  const int ctx = context(a, b);
+  if (c0 >= ctx) return;
+  const int n = min(C, ctx - c0);  // real positions of this chunk
   const int hq = a.n_kv_heads * G;
 
-  float qr[G][VPT];
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);  // [C][D]
+  T* sV = sK + (size_t)C * D;
+  float* sS = reinterpret_cast<float*>(sV + (size_t)C * D);  // [G][C]
+  float* sRed = sS + G * C;                                   // [RS][G][D]
+  float* sML = sRed + RS * G * D;                             // [G][2]
+  int* sPage = reinterpret_cast<int*>(sML + 2 * G);           // [C / P]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int* table = a.page_tables + (size_t)b * a.max_pages + c0 / P;
+  for (int i = tid; i * P < n; i += kThreads) sPage[i] = table[i];
+
+  // this thread's 16-byte piece of the G query rows, pre-scaled
+  const int pc = tid % L;
+  float qr[G][V16];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load_row<VPT>(q + ((size_t)b * hq + (size_t)h * G + g) * D + d0, qr[g]);
+    load16(static_cast<const T*>(a.q) +
+               ((size_t)b * hq + (size_t)h * G + g) * D + pc * V16,
+           qr[g]);
 #pragma unroll
-    for (int i = 0; i < VPT; ++i) qr[g][i] *= a.scale;
-  }
-  float m[G], l[G], acc[G][VPT];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) acc[g][i] = 0.f;
-  }
-
-  const int ctx = max(0, min(a.seq_lens[b], a.max_pages * a.page_size));
-  const int* table = a.page_tables + (size_t)b * a.max_pages;
-  const size_t row_stride = (size_t)a.n_kv_heads * D;  // one pool row
-  const size_t head_off = (size_t)h * D + d0;
-
-  for (int t0 = warp * kUnroll; t0 < ctx; t0 += kWarps * kUnroll) {
-    float kr[kUnroll][VPT], vr[kUnroll][VPT];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      if (t < ctx) {  // warp-uniform
-        const int page = table[t / a.page_size];
-        const size_t off =
-            ((size_t)page * a.page_size + t % a.page_size) * row_stride +
-            head_off;
-        load_row<VPT>(k_pages + off, kr[u]);
-        load_row<VPT>(v_pages + off, vr[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < ctx) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float s = 0.f;
-#pragma unroll
-          for (int i = 0; i < VPT; ++i) s += qr[g][i] * kr[u][i];
-          s = warp_sum(s);
-          const float m_new = fmaxf(m[g], s);
-          const float alpha = expf(m[g] - m_new);  // 0 while m is -inf
-          const float p = expf(s - m_new);
-          l[g] = l[g] * alpha + p;
-#pragma unroll
-          for (int i = 0; i < VPT; ++i)
-            acc[g][i] = acc[g][i] * alpha + p * vr[u][i];
-          m[g] = m_new;
-        }
-      }
-    }
-  }
-
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][D];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) sm_acc[warp][g][d0 + i] = acc[g][i];
+    for (int i = 0; i < V16; ++i) qr[g][i] *= a.scale;
   }
   __syncthreads();
-  if (warp != 0) return;
 
-  // fold the fresh column in last, merge the warps, normalise, store
-  float kn[VPT], vn[VPT];
-  const size_t new_off = ((size_t)b * a.n_kv_heads + h) * D + d0;
-  load_row<VPT>(static_cast<const T*>(a.k_new) + new_off, kn);
-  load_row<VPT>(static_cast<const T*>(a.v_new) + new_off, vn);
-  T* out = static_cast<T*>(a.out);
+  // every real row of the chunk, K then V, all in flight
+  const size_t row = (size_t)a.n_kv_heads * D;
+  const T* kp = static_cast<const T*>(a.k_pages) + (size_t)h * D;
+  const T* vp = static_cast<const T*>(a.v_pages) + (size_t)h * D;
+  for (int e = tid; e < n * L; e += kThreads) {
+    const int r = e / L, c = e % L;
+    const size_t off = ((size_t)sPage[r / P] * P + r % P) * row + c * V16;
+    cp_async16(smem_u32(sK + r * D + c * V16), kp + off);
+  }
+  cp_async_commit();
+  for (int e = tid; e < n * L; e += kThreads) {
+    const int r = e / L, c = e % L;
+    const size_t off = ((size_t)sPage[r / P] * P + r % P) * row + c * V16;
+    cp_async16(smem_u32(sV + r * D + c * V16), vp + off);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // scores: L lanes a row, 16 bytes each, reduced across the L lanes
+  const int passes = (n + RP - 1) / RP;
+  for (int k = 0; k < passes; ++k) {
+    const int r = k * RP + tid / L;
+    float kr[V16];
+    if (r < n) {
+      load16(sK + r * D + pc * V16, kr);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V16; ++i) kr[i] = 0.f;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < V16; ++i) s = fmaf(qr[g][i], kr[i], s);
+#pragma unroll
+      for (int o = L / 2; o > 0; o >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (pc == 0 && r < n) sS[g * C + r] = s;
+    }
+  }
+  __syncthreads();
+
+  // the chunk's max and sum per query row; the scores become p
+  for (int g = warp; g < G; g += kWarps) {
+    float m = -INFINITY;
+    for (int r = lane; r < n; r += 32) m = fmaxf(m, sS[g * C + r]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int r = lane; r < n; r += 32) {
+      const float p = exp2f(sS[g * C + r] - m);
+      sS[g * C + r] = p;
+      l += p;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      sML[2 * g] = m;
+      sML[2 * g + 1] = l;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // acc = sum_t p_t v_t: thread (rs, dp) owns columns 2 dp, 2 dp + 1 of
+  // the rows rs, rs + RS, ...
+  const int dp = tid % DP, rs = tid / DP;
+  float acc[G][2];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
+  for (int r = rs; r < n; r += RS) {
+    const float2 v = load2(sV + r * D + 2 * dp);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = sS[g * C + r];
+      acc[g][0] = fmaf(p, v.x, acc[g][0]);
+      acc[g][1] = fmaf(p, v.y, acc[g][1]);
+    }
+  }
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) s += qr[g][i] * kn[i];
-    s = warp_sum(s);
-    float mx = s;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    const float pn = expf(s - mx);
-    float tot = pn;
-    float o[VPT];
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) o[i] = pn * vn[i];
-    for (int w = 0; w < kWarps; ++w) {
-      const float lw = sm_l[w][g];
-      if (lw > 0.f) {  // a warp that saw no position holds nothing
-        const float c = expf(sm_m[w][g] - mx);
-        tot += lw * c;
-#pragma unroll
-        for (int i = 0; i < VPT; ++i) o[i] += c * sm_acc[w][g][d0 + i];
-      }
-    }
-    T* dst = out + ((size_t)b * hq + (size_t)h * G + g) * D + d0;
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) store_val(dst + i, o[i] / tot);
+    sRed[(rs * G + g) * D + 2 * dp] = acc[g][0];
+    sRed[(rs * G + g) * D + 2 * dp + 1] = acc[g][1];
   }
+  __syncthreads();
+
+  const size_t stride = (size_t)a.splits * (D + 2);  // one query row
+  float* part = a.part + ((size_t)b * hq + (size_t)h * G) * stride +
+                (size_t)split * (D + 2);
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int g = e / D, d = e % D;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < RS; ++i) sum += sRed[(i * G + g) * D + d];
+    part[g * stride + d] = sum;
+  }
+  if (tid < 2 * G) part[(tid / 2) * stride + D + tid % 2] = sML[tid];
+}
+
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(D) paged_decode_merge_kernel(const Args a) {
+  const int j = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int h = j / G;
+  const int hq = a.n_kv_heads * G;
+  __shared__ float red[D / 32];
+
+  // the fresh column's score, reduced over the block
+  const size_t new_off = ((size_t)b * a.n_kv_heads + h) * D + d;
+  const float qd = to_f32(static_cast<const T*>(a.q)[((size_t)b * hq + j) *
+                                                         D + d]);
+  float s = warp_sum(qd * a.scale *
+                     to_f32(static_cast<const T*>(a.k_new)[new_off]));
+  if (d % 32 == 0) red[d / 32] = s;
+  __syncthreads();
+  s = 0.f;
+#pragma unroll
+  for (int w = 0; w < D / 32; ++w) s += red[w];
+
+  // fold the active splits into (m, num, den), starting from the fresh
+  // column
+  float m = s, num = to_f32(static_cast<const T*>(a.v_new)[new_off]);
+  float den = 1.f;
+  const int n = (context(a, b) + a.chunk - 1) / a.chunk;
+  const float* part =
+      a.part + ((size_t)b * hq + j) * (size_t)a.splits * (D + 2);
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
+    const float* p = part + (size_t)i * (D + 2);
+    const float mi = p[D], li = p[D + 1], ai = p[d];
+    const float mx = fmaxf(m, mi);
+    const float c_old = exp2f(m - mx), c_new = exp2f(mi - mx);
+    num = num * c_old + ai * c_new;
+    den = den * c_old + li * c_new;
+    m = mx;
+  }
+  store_val(static_cast<T*>(a.out) + ((size_t)b * hq + j) * D + d,
+            num / den);
 }
 
 template <typename T, int D, int G>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.n_kv_heads, a.batch);
-  paged_decode_kernel<T, D, G><<<grid, kWarps * 32, 0, stream>>>(a);
+  const size_t bytes = split_smem<T, D, G>(a.chunk, a.page_size);
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_split_kernel<T, D, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 split_grid(a.n_kv_heads, a.batch, a.splits);
+  paged_decode_split_kernel<T, D, G>
+      <<<split_grid, kThreads, bytes, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 merge_grid(a.n_kv_heads * G, a.batch);
+  paged_decode_merge_kernel<T, D, G><<<merge_grid, D, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -270,19 +371,24 @@ cudaError_t by_dim(int head_dim, int group, const Args& a,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. device: the CUDA device the tensors
-// and the stream belong to (this library links its own static CUDA
-// runtime, whose current device is not the caller's). Returns a
-// cudaError_t (0 = launched).
+// part: f32 scratch [B, Hq, splits, D + 2]; chunk: context positions a
+// block of the split kernel covers (a multiple of page_size), splits:
+// ceil(max_pages * page_size / chunk). dtype: 0 = float32, 1 = bfloat16.
+// device: the CUDA device the tensors and the stream belong to (this
+// library links its own static CUDA runtime, whose current device is not
+// the caller's). Returns a cudaError_t (0 = both kernels launched).
 extern "C" int dt_paged_decode(const void* q, const void* k_pages,
                                const void* v_pages, const void* page_tables,
                                const void* seq_lens, const void* k_new,
-                               const void* v_new, void* out, int batch,
-                               int n_q_heads, int n_kv_heads, int head_dim,
-                               int page_size, int max_pages, int dtype,
-                               int device, void* stream) {
-  if (batch < 1 || n_kv_heads < 1 || page_size < 1 || max_pages < 1 ||
-      n_q_heads % n_kv_heads != 0)
+                               const void* v_new, void* part, void* out,
+                               int batch, int n_q_heads, int n_kv_heads,
+                               int head_dim, int page_size, int max_pages,
+                               int chunk, int splits, int dtype, int device,
+                               void* stream) {
+  if (batch < 1 || batch > 65535 || n_kv_heads < 1 || page_size < 1 ||
+      max_pages < 1 || n_q_heads % n_kv_heads != 0 || chunk < 1 ||
+      chunk % page_size != 0 || splits < 1 || splits > 65535 ||
+      (long long)splits * chunk < (long long)max_pages * page_size)
     return cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return set;
@@ -294,12 +400,15 @@ extern "C" int dt_paged_decode(const void* q, const void* k_pages,
   a.seq_lens = static_cast<const int*>(seq_lens);
   a.k_new = k_new;
   a.v_new = v_new;
+  a.part = static_cast<float*>(part);
   a.out = out;
   a.batch = batch;
   a.n_kv_heads = n_kv_heads;
   a.page_size = page_size;
   a.max_pages = max_pages;
-  a.scale = 1.0f / sqrtf((float)head_dim);
+  a.chunk = chunk;
+  a.splits = splits;
+  a.scale = kLog2e / sqrtf((float)head_dim);
   const int group = n_q_heads / n_kv_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return by_dim<float>(head_dim, group, a, s);

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at
-first use and loaded with ``ctypes``; the hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+first use and loaded with ``ctypes``; the hash covers the source, the
+headers it may include (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads at once.
 Each source builds on its own, so a caller may start one ``build`` per
 source at once (chip_smoke.py does). Nothing here runs at import time:
 the CPU tests import every module on a machine without ``nvcc``.
@@ -51,8 +52,11 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -31,6 +31,8 @@ the CUDA cores, which agrees with the plain versions to summation order.
 are the plain versions: dense f32 scores with the same mask, and the same
 backward formulas from the saved lse. They are the CPU path and the
 oracle the kernels are held against on the card (chip_smoke.py).
+:func:`visible_key_tiles` mirrors the rule by which the bf16 forward
+lists the key tiles it walks (for the tests and chip_smoke.py).
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 versions (forward and backward), CUDA tensors launch the kernels or
@@ -60,6 +62,10 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+# what a C entry returns, before it launches, for a call it does not take
+# (such as a T whose key-tile list would not fit the bf16 forward's shared
+# memory)
+_CUDA_ERROR_INVALID_VALUE = 1
 
 
 @functools.cache
@@ -135,6 +141,8 @@ def _seg_ptr(segment_ids) -> int | None:
 
 
 def _raise_on(err: int, name: str) -> None:
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"{name}: the kernel does not take this shape")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     launches[name] += 1
@@ -207,6 +215,29 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, segment_ids=None
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
+
+def visible_key_tiles(segment_ids: torch.Tensor, T: int,
+                      tile: int = 64) -> torch.Tensor:
+    """The key tiles the bf16 forward kernel walks for each query tile:
+    ``[B, n, n]`` boolean (query tile, key tile), ``n = ceil(T / tile)``.
+    Key tile ``kt`` is listed for query tile ``qt`` when ``kt <= qt`` and
+    the range ``[min, max]`` of its real rows' segment ids meets the query
+    tile's range. The rule is conservative (pairs inside a listed tile are
+    still masked one by one) and holds for ids in any order. A mirror of
+    the kernel's rule for the tests; not on the main path."""
+    ids = segment_ids[:, :T].to(torch.int64)
+    B, n = ids.shape[0], -(-T // tile)
+    pad = n * tile - T
+    big = 1 << 40  # past any int32 id (and exact as a pad value)
+    lo = torch.nn.functional.pad(ids, (0, pad), value=big)
+    hi = torch.nn.functional.pad(ids, (0, pad), value=-big)
+    lo = lo.reshape(B, n, tile).amin(-1)
+    hi = hi.reshape(B, n, tile).amax(-1)
+    meets = ((lo[:, None, :] <= hi[:, :, None])
+             & (hi[:, None, :] >= lo[:, :, None]))
+    causal = torch.ones(n, n, dtype=torch.bool).tril()
+    return meets & causal.to(meets.device)
+
 
 def _mask(T: int, segment_ids, device) -> torch.Tensor:
     """``[B or 1, 1, T, T]`` boolean, True = query row may attend key

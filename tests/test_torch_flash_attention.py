@@ -9,8 +9,11 @@ Pallas library's own reference (``mha_reference_no_custom_vjp`` with
 (``dot_product_attention`` + ``combine_masks``) and its blockwise
 attention, and their gradients against ``jax.grad`` of the dense
 attention. Tolerance 1e-5 absolute on unit-scale inputs: only the
-summation order differs. The CUDA kernels themselves run only on the
-card, where chip_smoke.py holds them against these plain versions.
+summation order differs. The key-tile list the bf16 forward kernel walks
+(``visible_key_tiles``, the Python mirror of its rule) is held against a
+brute-force causal and segment mask. The CUDA kernels themselves run
+only on the card, where chip_smoke.py holds them against these plain
+versions.
 """
 
 import jax
@@ -21,6 +24,7 @@ import torch
 from jax.experimental.pallas.ops.tpu import flash_attention as lib
 
 from distributedtraining_tpu.ops import attention as jatt
+from distributedtraining_tpu_torch.data import packing
 from distributedtraining_tpu_torch.ops import attention as tatt
 from distributedtraining_tpu_torch.ops import flash_attention as tfa
 
@@ -208,3 +212,61 @@ def test_dispatch_cpu_runs_plain_versions_and_kernels_refuse_cpu():
         tfa.flash_attention_bwd_dq(_t(q), _t(k), _t(v), _t(do), lse, di)
     assert tfa.launches == before
     assert tfa._kernels.cache_info().currsize == 0
+
+
+def _segment_ids(layout, B, T, seed):
+    """``[B, T]`` int32 ids: the packer's rows of documents of 10-200
+    tokens (contiguous ids, the padding tail its own id), ids in no order,
+    or one document (unpacked)."""
+    rng = np.random.default_rng(seed)
+    if layout == "packed":
+        docs = (list(range(int(n))) for n in rng.integers(10, 201, 10 * B))
+        rows = packing.pack_documents(docs, T, drop_remainder=False)
+        return np.stack([next(rows)["segment_ids"] for _ in range(B)])
+    if layout == "scattered":
+        return rng.integers(0, 4, (B, T)).astype(np.int32)
+    return np.zeros((B, T), np.int32)
+
+
+def _tiles_with_visible_pairs(seg, T, tile=64):
+    """``[B, n, n]``: whether query tile qt and key tile kt hold a pair
+    (i, j) with j <= i and the same id, by brute force."""
+    n = -(-T // tile)
+    pos = np.arange(T)
+    vis = (pos[:, None] >= pos[None, :])[None] & (
+        seg[:, :, None] == seg[:, None, :])
+    out = np.zeros((seg.shape[0], n, n), bool)
+    for qt in range(n):
+        for kt in range(n):
+            out[:, qt, kt] = vis[:, qt * tile:(qt + 1) * tile,
+                                 kt * tile:(kt + 1) * tile].any((1, 2))
+    return out
+
+
+@pytest.mark.parametrize("T", (1, 17, 64, 300, 777))
+@pytest.mark.parametrize("layout", ("packed", "scattered", "unpacked"))
+def test_visible_key_tiles_cover_every_visible_pair(layout, T):
+    """No visible pair lies in a key tile the forward kernel leaves out;
+    for the packer's contiguous ids (and one document) the list is exactly
+    the tiles that hold a visible pair."""
+    seg = _segment_ids(layout, 3, T, seed=T)
+    listed = tfa.visible_key_tiles(torch.from_numpy(seg), T).numpy()
+    needed = _tiles_with_visible_pairs(seg, T)
+    assert listed.shape == needed.shape == (3, -(-T // 64), -(-T // 64))
+    assert not (needed & ~listed).any()
+    if layout != "scattered":
+        np.testing.assert_array_equal(listed, needed)
+
+
+
+def test_a_refused_shape_raises_value_error_and_counts_no_launch():
+    """The C entries own the shape limits (the bf16 forward's key-tile
+    list in shared memory bounds T): the error they return before
+    launching reads as ValueError, any other error as RuntimeError, and
+    neither counts a launch."""
+    before = dict(tfa.launches)
+    with pytest.raises(ValueError, match="does not take"):
+        tfa._raise_on(1, "flash_attention_fwd")
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tfa._raise_on(700, "flash_attention_fwd")
+    assert tfa.launches == before
