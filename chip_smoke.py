@@ -4,13 +4,19 @@ NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --decode-ab N
+    python3 chip_smoke.py --flash-ab N
 
 The second form is one side of a before/after comparison of the decode
 path: copied into the root of each of two checkouts and run from each in
 turn within one machine's session, it times the paged-decode wrapper at
 the GPT-2-124M decode shape (device ms and host ms, through the public
 entry only) and runs the serve phase N times, printing one JSON line
-each. It uses nothing but entry points both sides have.
+each. It uses nothing but entry points both sides have. The third form,
+``--flash-ab N``, is the same for the flash-attention kernels: N times,
+phase 4's timing at the training shape (each kernel with and without
+segment ids, the profiler's device time of the backward pair and of
+SDPA's backward) and the fused train step's profile (phase 12's), one
+JSON line each.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -35,22 +41,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
            training shape (B 8, T 1024, H 12, D 64) with segment ids from
            a real packed batch, T 64 and 512, a ragged T, D 128, an
            unpacked case, ids in no order, and long rows (T 4096 packed
-           and in no order, T 2112 at D 128: the bf16 forward's id pass
-           sweeps a row more than once and its tile list spans more than
-           one 32-tile ballot word); q, k, v as strided views of
-           a fused [B, T, 3E] projection. f32: max abs <= 1e-5 forward,
+           and in no order, T 2112 at D 128: the bf16 kernels' id passes
+           sweep a row more than once and their tile lists span more than
+           one 32-tile ballot word, dk/dv's running the other way); q, k,
+           v as strided views of a fused [B, T, 3E] projection. The
+           gradients are held against the dense plain version and against
+           the plain version of the kernels' walk
+           (flash_attention_bwd_tiled_reference, in the kernels' dtype),
+           and a second call on the same inputs must give the same bits.
+           f32: max abs <= 1e-5 forward,
            <= 1e-4 gradients (summation order); bf16: <= 2e-2 against the
-           plain version's unrounded f32 result on the same inputs, each
+           plain version's result on the same inputs, each
            difference divided by max(1, |value|) (the bf16 kernels round P
            and dS before their products, as the library does, and the
            output once, each rounding up to 2^-8 of the value; gradients
            exceed 4 at T 1024). Times
            each kernel at the training shape in bf16 (L2 flushed, median
-           of 30) beside its bound, the plain version and SDPA; logs the
-           key tiles the bf16 forward lists there by the Python mirror of
-           its rule (ops.flash_attention.visible_key_tiles, not a count
-           from the kernel) against the causal tiles; times the forward
-           without segment ids too (every causal pair, SDPA's work).
+           of 30), with and without segment ids (every causal pair,
+           SDPA's work), beside its bound, the plain version and SDPA;
+           reads the device time of the backward pair and of SDPA's
+           backward with torch.profiler (the kernels' own durations,
+           three input sets in turn); logs the key tiles the bf16 kernels
+           list there by the Python mirror of their rule
+           (ops.flash_attention.visible_key_tiles, not a count from the
+           kernels) against the causal tiles.
 5. slice   GPT-2-124M, full width and depth, f32: GenerationEngine's
            greedy output is token-identical to reference_generate.
 6. serve   the same weights at the served bf16 compute dtype behind
@@ -539,6 +553,149 @@ def _max_err(a, ref, scaled: bool = False) -> float:
     return float(diff.max())
 
 
+def _differs_bitwise(first: dict, second: dict) -> list:
+    """The names whose two results are not equal bit for bit (a NaN
+    equals a NaN of the same bits; 0.0 and -0.0 differ)."""
+    import torch
+    return [key for key, a in first.items()
+            if a.shape != second[key].shape or a.dtype != second[key].dtype
+            or not torch.equal(a.contiguous().view(torch.uint8),
+                               second[key].contiguous().view(torch.uint8))]
+
+
+def _profiled_ms(calls, reps: int = 30, warm: int = 5) -> dict:
+    """Device time of one call by torch.profiler, by kernel name: the
+    durations of the kernels the calls launch (no gaps between them, no
+    host time), summed over ``reps`` calls and divided by ``reps``.
+    ``calls`` close over distinct input sets and are taken in turn, so
+    that each call finds its inputs pushed out of the 50 MB L2 by the
+    calls before it; no flush kernel enters the sum."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warm):
+        calls[i % len(calls)]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            out[evt.name] = (out.get(evt.name, 0.0)
+                             + evt.time_range.elapsed_us() / 1e3 / reps)
+    check(out, "the profiler saw no device time")
+    return out
+
+
+def _flash_timing(seg) -> dict:
+    """The flash kernels timed at the training shape in bf16 (B 8, T
+    1024, H 12, D 64, ``seg`` a real packed batch's ids), beside their
+    bounds, the plain versions and SDPA: ``_time_ms`` of each kernel with
+    and without the ids, and the torch.profiler reading of the backward
+    pair and of SDPA's backward. Uses only the wrappers and plain
+    versions the package has had since its flash kernels were first
+    ported, so that ``--flash-ab`` can run it against an older
+    checkout's package."""
+    import torch
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    B, T, H, D = TRAIN_B, TRAIN_T, 12, 64
+    sets = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for i in range(3):      # distinct input sets for the profiler
+        q, k, v, do, st = _flash_case(B, T, H, D, seg, torch.bfloat16,
+                                      SEED + i)
+        do = do.contiguous()
+        o, lse = fa.flash_attention_fwd(q, k, v, st)
+        # and without ids: the backward's inputs for every causal pair
+        o_all, lse_all = fa.flash_attention_fwd(q, k, v)
+        # the yardstick: SDPA on the same shapes, unpacked, causal
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        out_h = sdpa(qh, kh, vh, is_causal=True)
+        sets.append(dict(q=q, k=k, v=v, do=do, st=st, o=o, lse=lse,
+                         di=fa._row_dot(o, do), lse_all=lse_all,
+                         di_all=fa._row_dot(o_all, do), qh=qh, kh=kh,
+                         vh=vh, out_h=out_h,
+                         doh=do.transpose(1, 2).contiguous()))
+    x = sets[0]
+    q, k, v, do, st, o, lse, di = (x[n] for n in (
+        "q", "k", "v", "do", "st", "o", "lse", "di"))
+    # a check first, so that a wrong kernel gives no time
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, st)
+    got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, di, st),
+           *fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, st))
+    for key, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err = _max_err(a, r, scaled=True)
+        check(err <= 2e-2, f"flash timing shape: {key} scaled {err}")
+
+    def lib_bwd(x):
+        return torch.autograd.grad(x["out_h"], (x["qh"], x["kh"], x["vh"]),
+                                   x["doh"], retain_graph=True)
+
+    def rows(x, packed):
+        """lse, di and the ids of set x, with or without the ids."""
+        return ((x["lse"], x["di"], x["st"]) if packed
+                else (x["lse_all"], x["di_all"], None))
+
+    def pair(x, packed):
+        fa.flash_attention_bwd_dkv(x["q"], x["k"], x["v"], x["do"],
+                                   *rows(x, packed))
+        fa.flash_attention_bwd_dq(x["q"], x["k"], x["v"], x["do"],
+                                  *rows(x, packed))
+
+    lib_fwd = _time_ms(lambda: sdpa(x["qh"], x["kh"], x["vh"],
+                                    is_causal=True))
+    lib_bwd_ms = _time_ms(lambda: lib_bwd(x))
+    # the plain backward computes dq, dk and dv in one call: both
+    # backward kernels are set beside it
+    plain_fwd = _time_ms(lambda: fa.flash_attention_reference(q, k, v, st))
+    plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, st))
+    runs = {
+        "flash_attention_fwd": (
+            lambda packed: fa.flash_attention_fwd(
+                q, k, v, st if packed else None), plain_fwd, lib_fwd),
+        "flash_attention_bwd_dkv": (
+            lambda packed: fa.flash_attention_bwd_dkv(
+                q, k, v, do, *rows(x, packed)), plain_bwd, lib_bwd_ms),
+        "flash_attention_bwd_dq": (
+            lambda packed: fa.flash_attention_bwd_dq(
+                q, k, v, do, *rows(x, packed)), plain_bwd, lib_bwd_ms),
+    }
+    bounds = _flash_bounds(B, T, H, D, seg, 2)
+    # without segment ids: every causal pair, SDPA's work
+    bounds_all = _flash_bounds(B, T, H, D, None, 2)
+    timed = {name: {"ms": _time_ms(lambda: fn(True)), "plain_ms": plain,
+                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                    "library_ms": lib,
+                    "ms_unpacked": _time_ms(lambda: fn(False)),
+                    "bound_ms_unpacked": bounds_all[name][0]}
+             for name, (fn, plain, lib) in runs.items()}
+    # the kernels' own device time, by the profiler
+    by_name = {
+        "pair": _profiled_ms([lambda x=x: pair(x, True) for x in sets]),
+        "pair_unpacked": _profiled_ms([lambda x=x: pair(x, False)
+                                       for x in sets]),
+        "library_bwd": _profiled_ms([lambda x=x: lib_bwd(x) for x in sets])}
+    prof = {key: sum(d.values()) for key, d in by_name.items()}
+    for name, kern in (("flash_attention_bwd_dkv", "flash_bwd_dkv_mma"),
+                       ("flash_attention_bwd_dq", "flash_bwd_dq_mma")):
+        timed[name]["profiler_ms"] = sum(
+            v for n, v in by_name["pair"].items() if kern in n)
+        timed[name]["profiler_ms_unpacked"] = sum(
+            v for n, v in by_name["pair_unpacked"].items() if kern in n)
+        timed[name]["pair_profiler_ms"] = prof["pair"]
+        timed[name]["pair_profiler_ms_unpacked"] = prof["pair_unpacked"]
+        timed[name]["library_profiler_ms"] = prof["library_bwd"]
+    return {"timed": timed, "bwd_profiler_ms": prof,
+            "bwd_profiler_kernels": {key: dict(sorted(
+                d.items(), key=lambda kv: -kv[1])[:6])
+                for key, d in by_name.items()}}
+
+
 def phase_flash(seg) -> dict:
     """Kernel vs plain version for the forward and both backward
     kernels; ``seg`` is a real packed batch's segment ids [8, 1024]."""
@@ -582,15 +739,28 @@ def phase_flash(seg) -> dict:
             ref_o, ref_lse = fa.flash_attention_reference(*f, st)
             ref_g = fa.flash_attention_bwd_reference(
                 *f, o.float(), lse, do.float(), st)
+            # and the plain version of the kernels' walk, in their dtype
+            # (bf16: P and dS rounded before their products)
+            ref_t = fa.flash_attention_bwd_tiled_reference(
+                q, k, v, o, lse, do, st)
+            # the same call again must give the same bits: no atomics
+            dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, st)
+            dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, st)
             torch.cuda.synchronize()
             pairs = {"o": (o, ref_o), "lse": (lse, ref_lse),
                      "dq": (dq, ref_g[0]), "dk": (dk, ref_g[1]),
-                     "dv": (dv, ref_g[2])}
+                     "dv": (dv, ref_g[2]), "dq_tiled": (dq, ref_t[0]),
+                     "dk_tiled": (dk, ref_t[1]), "dv_tiled": (dv, ref_t[2])}
             dt = str(dtype).split(".")[1]
+            changed = _differs_bitwise({"dq": dq, "dk": dk, "dv": dv},
+                                       {"dq": dq2, "dk": dk2, "dv": dv2})
+            check(not changed, f"flash backward at {name} {dt}: a second "
+                               f"call on the same inputs changed {changed}")
             c = {"case": name, "dtype": dt,
                  "max_abs": {key: _max_err(a, r)
                              for key, (a, r) in pairs.items()},
-                 "tol_fwd": tol_f, "tol_bwd": tol_b}
+                 "tol_fwd": tol_f, "tol_bwd": tol_b,
+                 "bitwise_repeatable": True}
             # the limits apply to the abs error in f32, to the scaled one
             # in bf16
             if dtype == torch.bfloat16:
@@ -605,55 +775,20 @@ def phase_flash(seg) -> dict:
                       for x in (o, lse, dq, dk, dv)),
                   f"flash kernels: non-finite output at {name} {dt}")
 
-    # timing at the training shape, bf16, contiguous cotangent
+    res = _flash_timing(seg)
+    # the key tiles the bf16 kernels list at the training shape, by the
+    # Python mirror of their rule (not a count the kernels report)
     B, T, H, D, sg = cases["train_b8_t1024_h12_d64"]
-    q, k, v, do, st = _flash_case(B, T, H, D, sg, torch.bfloat16, SEED)
-    do = do.contiguous()
-    o, lse = fa.flash_attention_fwd(q, k, v, st)
-    di = fa._row_dot(o, do)
-    # the yardstick: SDPA on the same shapes, unpacked, causal
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    doh = do.transpose(1, 2).contiguous()
-    out_h = sdpa(qh, kh, vh, is_causal=True)
-    lib_fwd = _time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
-    lib_bwd = _time_ms(lambda: torch.autograd.grad(
-        out_h, (qh, kh, vh), doh, retain_graph=True))
-    # the plain backward computes dq, dk and dv in one call: both
-    # backward kernels are set beside it
-    plain_fwd = _time_ms(lambda: fa.flash_attention_reference(q, k, v, st))
-    plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, o, lse, do, st))
-    runs = {
-        "flash_attention_fwd": (
-            lambda: fa.flash_attention_fwd(q, k, v, st), plain_fwd, lib_fwd),
-        "flash_attention_bwd_dkv": (
-            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, st),
-            plain_bwd, lib_bwd),
-        "flash_attention_bwd_dq": (
-            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, di, st),
-            plain_bwd, lib_bwd),
-    }
-    bounds = _flash_bounds(B, T, H, D, sg, 2)
-    # the key tiles the bf16 forward lists, by the Python mirror of its
-    # rule (not a count the kernel reports)
     tiles = fa.visible_key_tiles(torch.from_numpy(sg[:B, :T].copy()), T)
     n_tiles = tiles.shape[-1]
-    timed = {name: {"ms": _time_ms(fn), "plain_ms": plain,
-                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                    "library_ms": lib}
-             for name, (fn, plain, lib) in runs.items()}
-    # the forward without segment ids: every causal pair, SDPA's work
-    timed["flash_attention_fwd"]["ms_unpacked"] = _time_ms(
-        lambda: fa.flash_attention_fwd(q, k, v))
-    res = {"checks": checks, "timed": timed,
-           "timed_shape": "B 8, T 1024, H 12, D 64 bf16, packed segment "
-                          "ids of a real batch; SDPA unpacked causal",
-           "visible_pairs": _causal_pairs(B, T, H, sg),
-           "all_pairs": B * H * T * (T + 1) // 2,
-           "fwd_key_tiles_by_mirror": H * int(tiles.sum()),
-           "fwd_causal_tiles": B * H * n_tiles * (n_tiles + 1) // 2}
+    res.update({
+        "checks": checks,
+        "timed_shape": "B 8, T 1024, H 12, D 64 bf16, packed segment "
+                       "ids of a real batch; SDPA unpacked causal",
+        "visible_pairs": _causal_pairs(B, T, H, sg),
+        "all_pairs": B * H * T * (T + 1) // 2,
+        "fwd_key_tiles_by_mirror": H * int(tiles.sum()),
+        "fwd_causal_tiles": B * H * n_tiles * (n_tiles + 1) // 2})
     log("flash phase:", json.dumps(res))
     return res
 
@@ -2042,11 +2177,20 @@ FLASH_TPU_KERNELS = {
 }
 
 
+FLASH_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
+                 "flash_attention_bwd_dkv": "flash_bwd_dkv_mma_kernel",
+                 "flash_attention_bwd_dq": "flash_bwd_dq_mma_kernel"}
+
+
 def _flash_entries(flash: dict, train: dict, build: dict) -> list:
     out = []
+    per = build["sources"]["flash_attention"]["kernels"]
     for name, tpu in FLASH_TPU_KERNELS.items():
         keys = ("o", "lse") if name == "flash_attention_fwd" else (
             ("dk", "dv") if name.endswith("dkv") else ("dq",))
+        # and against the plain version of the kernels' walk
+        keys += tuple(f"{key}_tiled" for key in keys
+                      if key not in ("o", "lse"))
         checks = flash["checks"]
         out.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
@@ -2065,6 +2209,10 @@ def _flash_entries(flash: dict, train: dict, build: dict) -> list:
                                        if "max_scaled" in c
                                        for key in keys),
             **flash["timed"][name],
+            # ptxas's registers and spill bytes, D 64 and D 128 (the bf16
+            # kernel's instantiations, by mangled name)
+            "registers": [v for k, v in per.items()
+                          if FLASH_KERNELS[name] in k],
             "timed_shape": flash["timed_shape"],
             "build_s": build["build_s"]})
     return out
@@ -2228,10 +2376,33 @@ def decode_ab(runs: int) -> int:
     return 0
 
 
+def flash_ab(runs: int) -> int:
+    """One side of a flash-attention comparison (``--flash-ab N``)."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    from distributedtraining_tpu_torch.models import gpt2
+    phase_build()
+    tok = _tokenizer()
+    seg = _batches(tok, split="train", batch_size=TRAIN_B, seq_len=TRAIN_T,
+                   n=1)[0]["segment_ids"]
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
+    for i in range(runs):
+        res = _flash_timing(seg)
+        prof = phase_train_profile(tree, tok, fused=True)
+        print(json.dumps({"flash_ab": {
+            "root": ROOT, "run": i, **res,
+            "fused_step_device_ms": prof["device_ms_per_step"],
+            "fused_step_flash_ms": prof["flash_ms_per_step"],
+            "card": card}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--decode-ab"]:
             sys.exit(decode_ab(int(sys.argv[2])))
+        if sys.argv[1:2] == ["--flash-ab"]:
+            sys.exit(flash_ab(int(sys.argv[2])))
         sys.exit(main())
     except SmokeFailure as e:
         log(f"chip_smoke: FAIL: {e}")

@@ -71,15 +71,23 @@
 //    accumulates dV and dK in registers.
 //  - dq: one block per (query tile, b * h); it walks the key tiles up to
 //    the diagonal, recomputes dS, accumulates dQ.
+//    The bf16 backward pair walks lists built by the forward's id pass
+//    (build_tile_list): dq the forward's own list, dk/dv its transpose
+//    (the diagonal query tile, then the later ones whose id range meets
+//    the key tile's, from one pass over the ids of rows [k0, T)). The
+//    listed tiles (dq: k, v, ids; dk/dv: q, do, lse, di, ids) stream
+//    through a two-stage cp.async ring; every fragment comes by ldmatrix
+//    (the own tile's A fragments kept in registers at D 64), and P is
+//    exp2 of the scores scaled by log2(e) / sqrt(D) less lse in log2
+//    units.
 // Packing: a tile pair none of whose segment ids can match is skipped
-// whole. The backward kernels and the f32 forward test each causal tile
-// in turn (its ids all outside the other tile's id range: one
-// __syncthreads_or over the tile's ids); the bf16 forward walks its list
-// (ranges that do not meet), a rule that lists a superset. With
-// documents of ~110 tokens in 1024-token rows most causal tiles are of
-// other documents, so the work follows the visible pairs, not T^2 / 2.
-// Inside a tile every pair is still masked one by one: a tile may be
-// partly visible.
+// whole. The f32 kernels test each causal tile in turn (its ids all
+// outside the other tile's id range: one __syncthreads_or over the tile's
+// ids); the bf16 kernels walk their lists (ranges that do not meet), a
+// rule that lists a superset. With documents of ~110 tokens in 1024-token
+// rows most causal tiles are of other documents, so the work follows the
+// visible pairs, not T^2 / 2. Inside a tile every pair is still masked one
+// by one: a tile may be partly visible.
 // q, k, v and do are read through their (batch, token, head) element
 // strides, so the views of the fused [B, T, 3E] projection (token stride
 // 3E) are read in place, without a copy; the head dim must be contiguous,
@@ -601,6 +609,8 @@ __global__ void __launch_bounds__(kThreads)
 // elements of one A fragment: P and dS go from one product to the next
 // without leaving the registers.
 
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -616,62 +626,40 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// A fragment: rows r0 + [0, 16), columns c0 + [0, 16) of a row-major tile
+// ldmatrix.x4 row addresses into a row-major [rows][LD] bf16 tile at
+// shared address s (lanes 0-7, 8-15, 16-23, 24-31 address the rows of the
+// four 8 x 8 matrices):
+// the A fragment of rows r0 + [0, 16) by columns c0 + [0, 16) (matrices:
+// rows 0-7 / 8-15 by columns 0-7, then by columns 8-15)
 template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int r0,
-                                       int c0, int g, int t) {
-  const bf16* p = s + (r0 + g) * LD + c0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+__device__ __forceinline__ uint32_t a_frag_addr(uint32_t s, int r0, int c0,
+                                                int lane) {
+  return s + (uint32_t)((r0 + lane % 16) * LD + c0 + 8 * (lane / 16)) * 2;
 }
 
-// B fragment of X^T for a row-major tile X: B[k][n] = X[n0 + n][k0 + k]
+// the B fragments of X^T, B[k][n] = X[n0 + n][k0 + k], for two 8-column
+// blocks (regs 0-1: n in [0, 8), regs 2-3: n in [8, 16)), by ldmatrix.x4
 template <int LD>
-__device__ __forceinline__ void frag_bt(uint32_t b[2], const bf16* s, int n0,
-                                        int k0, int g, int t) {
-  const bf16* p = s + (n0 + g) * LD + k0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+__device__ __forceinline__ uint32_t bt_frag_addr(uint32_t s, int n0, int k0,
+                                                 int lane) {
+  return s + (uint32_t)((n0 + lane % 8 + 8 * (lane / 16)) * LD + k0 +
+                        8 * ((lane / 8) % 2)) * 2;
 }
 
-// B fragment of a row-major tile X itself: B[k][n] = X[k0 + k][n0 + n]
+// the B fragments of X itself, B[k][n] = X[k0 + k][n0 + n], for two
+// 8-column blocks, by ldmatrix.x4.trans
 template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* s, int k0,
-                                       int n0, int g, int t) {
-  const unsigned short* p =
-      reinterpret_cast<const unsigned short*>(s) + (k0 + 2 * t) * LD + n0 + g;
-  b[0] = p[0] | (uint32_t(p[LD]) << 16);
-  b[1] = p[8 * LD] | (uint32_t(p[9 * LD]) << 16);
+__device__ __forceinline__ uint32_t b_frag_addr(uint32_t s, int k0, int n0,
+                                                int lane) {
+  return s + (uint32_t)((k0 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + n0 +
+                        8 * (lane / 16)) * 2;
 }
 
-// rows [row0, row0 + kTile) of one (b, h) slice into dst[kTile][D + kPad]
-// as bf16, 16 bytes a load (the wrapper admits only views whose rows start
-// 16-byte aligned); rows at or past T read as 0
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const void* src,
-                                               const Strides s, int b, int h,
-                                               int row0, int n_rows) {
-  constexpr int LD = D + kPad;
-  constexpr int kChunks = D / 8;
-  const bf16* base = static_cast<const bf16*>(src) + b * s.b + h * s.h;
-  for (int e = threadIdx.x; e < kTile * kChunks; e += kMmaThreads) {
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    const int t = row0 + r;
-    const uint4 val =
-        t < n_rows
-            ? *reinterpret_cast<const uint4*>(base + (long long)t * s.t + c)
-            : make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
+// --- tile lists and cp.async rings -----------------------------------------
 
-// --- the forward's key-tile list and cp.async ring -------------------------
-
-// stages of the bf16 forward's K/V ring (at D 64 ~47 KB of shared memory:
-// four blocks an SM; three stages, three blocks an SM, were slower)
-constexpr int kFwdStages = 2;
+// stages of the bf16 kernels' cp.async rings (three were slower in each:
+// the forward at D 64 drops from four blocks an SM to three)
+constexpr int kStages = 2;
 
 // shared memory of the bf16 forward: the q tile, the ring of k and v tiles
 // and their segment ids, the q tile's ids, and per key tile its id range
@@ -679,7 +667,19 @@ constexpr int kFwdStages = 2;
 template <int D>
 size_t fwd_mma_smem(int n_tiles) {
   const size_t tile = (size_t)kTile * (D + kPad) * sizeof(bf16);
-  return (1 + 2 * kFwdStages) * tile + (size_t)(kFwdStages + 1) * kTile * 4 +
+  return (1 + 2 * kStages) * tile + (size_t)(kStages + 1) * kTile * 4 +
+         (size_t)(3 * n_tiles + 1) * 4;
+}
+
+// shared memory of a bf16 backward kernel: its own two tiles, the ring of
+// two streamed tiles and their rows of 64 values (dk/dv: lse, di and ids
+// a stage; dq: ids), the own tile's rows (dk/dv: ids; dq: lse, di, ids),
+// and per tile its id range and the list
+template <int D>
+size_t bwd_mma_smem(bool dkv, int n_tiles) {
+  const size_t tile = (size_t)kTile * (D + kPad) * sizeof(bf16);
+  const size_t rows = dkv ? 3 * kStages + 1 : kStages + 3;
+  return (2 + 2 * kStages) * tile + rows * kTile * 4 +
          (size_t)(3 * n_tiles + 1) * 4;
 }
 
@@ -704,13 +704,130 @@ __device__ __forceinline__ void copy_tile_bf16(uint32_t dst, const void* src,
   }
 }
 
+// the segment ids of rows [row0, row0 + kTile) of one batch row into the
+// shared address dst with cp.async, one a thread i in [0, kTile); 0 past T
+__device__ __forceinline__ void copy_ids(uint32_t dst, const int* seg, int T,
+                                         int row0, int i) {
+  cp_async4(dst + 4 * i, seg + min(row0 + i, T - 1), row0 + i < T ? 4 : 0);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// rows [row0, row0 + kTile) of the f32 values `row` (one (b, h) row of a
+// [B, H, T] array) into shared memory at dst with cp.async, shared by the
+// threads i in [0, kTile): where the row starts 16-byte aligned (`vec`,
+// the same for every tile of a block), 16-byte copies of 4 values by i <
+// kTile / 4, else one 4-byte copy a thread; values at or past T are
+// zero-filled. rows_of_thread names the values thread i copied.
+__device__ __forceinline__ void copy_rows_f32(float* dst, const float* row,
+                                              int T, int row0, int i,
+                                              bool vec) {
+  const int n = T - row0;  // real rows, >= 1
+  if (vec) {
+    if (i >= kTile / 4) return;
+    const int real = min(max(n - 4 * i, 0), 4);
+    cp_async16(smem_u32(dst + 4 * i), row + row0 + (real > 0 ? 4 * i : 0),
+               4 * real);
+  } else {
+    cp_async4(smem_u32(dst + i), row + row0 + min(i, n - 1), i < n ? 4 : 0);
+  }
+}
+
+// the values of a copy_rows_f32 segment that thread i copied: [first,
+// first + count)
+__device__ __forceinline__ int2 rows_of_thread(int i, bool vec) {
+  if (vec) return i < kTile / 4 ? make_int2(4 * i, 4) : make_int2(0, 0);
+  return make_int2(i, 1);
+}
+
+// The tiles a bf16 block walks, built once a block: its own tile `own`
+// first, then the tiles of [first, last] other than own whose range of
+// segment ids meets own's, ascending (without ids, every tile of [first,
+// last]). own is first or last: the forward and dq list key tiles [0, qt]
+// for query tile qt, dk/dv lists query tiles [kt, n_tiles) for key tile
+// kt, the transpose of the same rule. One coalesced pass over the ids of
+// those tiles' rows: each warp reduces whole tiles to their id range
+// (kIds tiles at a time, all their loads in flight) into lo_of / hi_of
+// (indexed by tile), the warp that reads own's ids keeps them in own_ids;
+// warp 0 then keeps tiles by ballot. list: the count, then the tiles.
+// Ends with a barrier; returns the count.
+__device__ __forceinline__ int build_tile_list(const int* seg, int T,
+                                               int own, int first, int last,
+                                               int* own_ids, int* lo_of,
+                                               int* hi_of, int* list) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (seg == nullptr) {
+    for (int i = threadIdx.x; i < last - first; i += kMmaThreads)
+      list[2 + i] = first + i + (first + i >= own ? 1 : 0);
+    if (threadIdx.x == 0) {
+      list[0] = last - first + 1;
+      list[1] = own;
+    }
+  } else {
+    constexpr int kIds = 4;
+    for (int t0 = first + warp; t0 <= last; t0 += kWarps * kIds) {
+      int a[kIds][2];
+#pragma unroll
+      for (int u = 0; u < kIds; ++u)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int tile = t0 + u * kWarps, i = tile * kTile + 32 * e + lane;
+          a[u][e] = tile <= last && i < T ? seg[i] : 0;
+        }
+#pragma unroll
+      for (int u = 0; u < kIds; ++u) {
+        const int tile = t0 + u * kWarps;
+        if (tile > last) break;  // warp-uniform
+        const bool v0 = tile * kTile + lane < T;
+        const bool v1 = tile * kTile + 32 + lane < T;
+        int lo = min(v0 ? a[u][0] : INT_MAX, v1 ? a[u][1] : INT_MAX);
+        int hi = max(v0 ? a[u][0] : INT_MIN, v1 ? a[u][1] : INT_MIN);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          lo = min(lo, __shfl_xor_sync(kFull, lo, o));
+          hi = max(hi, __shfl_xor_sync(kFull, hi, o));
+        }
+        if (lane == 0) {
+          lo_of[tile] = lo;
+          hi_of[tile] = hi;
+        }
+        if (tile == own) {
+          own_ids[lane] = a[u][0];
+          own_ids[lane + 32] = a[u][1];
+        }
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int own_lo = lo_of[own], own_hi = hi_of[own];
+      int count = 1;
+      for (int base = first; base <= last; base += 32) {
+        const int tile = base + lane;
+        const bool keep = tile <= last && tile != own &&
+                          lo_of[tile] <= own_hi && hi_of[tile] >= own_lo;
+        const unsigned m = __ballot_sync(kFull, keep);
+        if (keep) list[1 + count + __popc(m & ((1u << lane) - 1))] = tile;
+        count += __popc(m);
+      }
+      if (lane == 0) {
+        list[0] = count;
+        list[1] = own;
+      }
+    }
+  }
+  __syncthreads();
+  return list[0];
+}
+
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
     flash_fwd_mma_kernel(const Params p) {
   constexpr int LD = D + kPad;
   constexpr int NK = kTile / 8;  // accumulator tiles across a key tile
   constexpr int ND = D / 8;      // accumulator tiles across the head dim
-  constexpr int S = kFwdStages;
+  constexpr int S = kStages;
   constexpr uint32_t kTileBytes = kTile * LD * sizeof(bf16);
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const uint32_t sQ = smem_u32(smem_mma);
@@ -736,82 +853,18 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
     const uint32_t dst = sKV + st * 2 * kTileBytes;
     copy_tile_bf16<D>(dst, p.k, p.sk, b, h, k0, p.T);
     copy_tile_bf16<D>(dst + kTileBytes, p.v, p.sv, b, h, k0, p.T);
-    if (seg != nullptr && threadIdx.x < kTile) {
-      const int i = k0 + threadIdx.x;
-      cp_async4(smem_u32(sSegK + st * kTile + threadIdx.x),
-                seg + min(i, p.T - 1), i < p.T ? 4 : 0);
-    }
+    if (seg != nullptr && threadIdx.x < kTile)
+      copy_ids(smem_u32(sSegK + st * kTile), seg, p.T, k0, threadIdx.x);
   };
   // the q tile and the diagonal key tile, which is always walked (first),
   // go out before the list is known: their loads overlap the id pass
   copy_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
   copy_kv(qt, 0);
   cp_async_commit();
-
-  // the key-tile list, once a block: the diagonal, then the earlier tiles
-  // whose id range meets the q tile's. One coalesced pass over the ids of
-  // rows [0, q0 + kTile), each warp reducing whole key tiles to their id
-  // range; warp 0 then keeps tiles by ballot
-  if (seg == nullptr) {
-    for (int i = threadIdx.x; i < qt; i += kMmaThreads) sList[2 + i] = i;
-    if (threadIdx.x == 0) {
-      sList[0] = qt + 1;
-      sList[1] = qt;
-    }
-  } else {
-    // kIds key tiles a warp at a time: all their loads in flight at once
-    constexpr int kIds = 4;
-    for (int kt0 = warp; kt0 <= qt; kt0 += kWarps * kIds) {
-      int a[kIds][2];
-#pragma unroll
-      for (int u = 0; u < kIds; ++u)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kt = kt0 + u * kWarps, i = kt * kTile + 32 * e + lane;
-          a[u][e] = kt <= qt && i < p.T ? seg[i] : 0;
-        }
-#pragma unroll
-      for (int u = 0; u < kIds; ++u) {
-        const int kt = kt0 + u * kWarps;
-        if (kt > qt) break;  // warp-uniform
-        const bool v0 = kt * kTile + lane < p.T;
-        const bool v1 = kt * kTile + 32 + lane < p.T;
-        int lo = min(v0 ? a[u][0] : INT_MAX, v1 ? a[u][1] : INT_MAX);
-        int hi = max(v0 ? a[u][0] : INT_MIN, v1 ? a[u][1] : INT_MIN);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          lo = min(lo, __shfl_xor_sync(kFull, lo, o));
-          hi = max(hi, __shfl_xor_sync(kFull, hi, o));
-        }
-        if (lane == 0) {
-          sLo[kt] = lo;
-          sHi[kt] = hi;
-        }
-        if (kt == qt) {
-          sSegQ[lane] = a[u][0];
-          sSegQ[lane + 32] = a[u][1];
-        }
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int q_lo = sLo[qt], q_hi = sHi[qt];
-      int count = 1;
-      for (int base = 0; base < qt; base += 32) {
-        const int kt = base + lane;
-        const bool keep = kt < qt && sLo[kt] <= q_hi && sHi[kt] >= q_lo;
-        const unsigned m = __ballot_sync(kFull, keep);
-        if (keep) sList[1 + count + __popc(m & ((1u << lane) - 1))] = kt;
-        count += __popc(m);
-      }
-      if (lane == 0) {
-        sList[0] = count;
-        sList[1] = qt;
-      }
-    }
-  }
-  __syncthreads();
-  const int count = sList[0];
+  // the diagonal, then the earlier key tiles whose id range meets the q
+  // tile's
+  const int count = build_tile_list(seg, p.T, qt, 0, qt, sSegQ, sLo, sHi,
+                                    sList);
 
   // listed tile j into ring stage j % S; one commit group a tile, empty
   // past the list, so that the waits count alike
@@ -822,18 +875,16 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
 #pragma unroll
   for (int j = 1; j < S - 1; ++j) issue(j);
 
-  // Q's A fragments, once, for the whole walk (ldmatrix.x4: matrices rows
-  // 0-7 / 8-15 by columns 0-7 / 8-15 of each 16 x 16 block)
+  // Q's A fragments, once, for the whole walk
   cp_async_wait<S - 2>();
   __syncthreads();
   uint32_t qf[D / 16][4];
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd)
-    ldmatrix_x4(qf[kd], sQ + (uint32_t)((r0 + lane % 16) * LD + kd * 16 +
-                                        8 * (lane / 16)) * 2);
+    ldmatrix_x4(qf[kd], a_frag_addr<LD>(sQ, r0, kd * 16, lane));
   const int seg_q[2] = {seg == nullptr ? 0 : sSegQ[r0 + g],
                         seg == nullptr ? 0 : sSegQ[r0 + g + 8]};
-  const float sc = p.scale * 1.4426950408889634f;  // log2(e) / sqrt(D)
+  const float sc = p.scale * kLog2e;  // log2(e) / sqrt(D)
 
   // rows r0 + g (index 0) and r0 + g + 8 (index 1) of the tile; m is in
   // log2 units
@@ -854,8 +905,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
     const int* seg_k = sSegK + (j % S) * kTile;
 
     // S = Q K^T for this warp's 16 rows; one ldmatrix.x4 gives the B
-    // fragments of two 8-key blocks (keys n0 + [0, 8) by dims kd + [0, 8),
-    // then kd + [8, 16), then the same for keys n0 + [8, 16))
+    // fragments of two 8-key blocks
     float s[NK][4];
 #pragma unroll
     for (int n = 0; n < NK; ++n)
@@ -866,9 +916,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
 #pragma unroll
       for (int n = 0; n < NK; n += 2) {
         uint32_t kb[4];
-        ldmatrix_x4(kb, sK + (uint32_t)((n * 8 + lane % 8 + 8 * (lane / 16)) *
-                                            LD + kd * 16 +
-                                        8 * ((lane / 8) % 2)) * 2);
+        ldmatrix_x4(kb, bt_frag_addr<LD>(sK, n * 8, kd * 16, lane));
         mma16816(s[n], qf[kd], kb);
         mma16816(s[n + 1], qf[kd], kb + 2);
       }
@@ -914,8 +962,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
       for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i / 2];
 
     // acc += P V, P in bf16 straight from the score registers; V's B
-    // fragments by ldmatrix.x4.trans (keys kk + [0, 8) / [8, 16) by dims
-    // d0 + [0, 8), then the same for dims d0 + [8, 16))
+    // fragments by ldmatrix.x4.trans
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       uint32_t a[4];
@@ -923,9 +970,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(
-            vb, sV + (uint32_t)((kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) *
-                                    LD + n * 8 + 8 * (lane / 16)) * 2);
+        ldmatrix_x4_trans(vb, b_frag_addr<LD>(sV, kk * 16, n * 8, lane));
         mma16816(acc[n], a, vb);
         mma16816(acc[n + 1], a, vb + 2);
       }
@@ -951,34 +996,110 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
   }
 }
 
+// The bf16 backward pair. Each walks its tile list (build_tile_list) and
+// streams the listed tiles through a kStages-stage cp.async ring; the
+// own tile and the diagonal tile are copied before the list exists. Every
+// fragment comes by ldmatrix, the own tile's A fragments from the tile it
+// copied once (dk/dv: K and V, held in registers at D 64; dq: Q and dO,
+// read for each tile, which keeps it at 3 blocks an SM). P = exp2(s *
+// scale * log2(e) - lse * log2(e)), each lse converted to log2 units once
+// (dq: the own rows, in registers; dk/dv: each streamed value by the
+// thread that copied it, after its wait and before the barrier that
+// publishes it).
+
+// dk/dv: one block per (key tile, b * h); its 4 warps own 16 keys each. It
+// walks its own (diagonal) query tile, then the later query tiles whose id
+// range meets the key tile's: the transpose of dq's list. Per query tile,
+// in passes of 32 (D 64) or 16 (D 128) queries, so that S^T and dP^T fit
+// beside the accumulators: S^T = K Q^T and dP^T = V dO^T (B fragments of
+// Q^T and dO^T by ldmatrix.x4), P^T and dS^T in the registers, then dV +=
+// P^T dO and dK += dS^T Q (B fragments of dO and Q by ldmatrix.x4.trans).
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_bwd_dkv_mma_kernel(const Params p) {
   constexpr int LD = D + kPad;
-  constexpr int NQ = kTile / 8;  // accumulator tiles across a query tile
-  constexpr int ND = D / 8;
+  constexpr int ND = D / 8;  // accumulator tiles across the head dim
+  constexpr int S = kStages;
+  // K's and V's A fragments stay in registers for the walk at D 64; at D
+  // 128 they would not fit beside dK and dV and come from shared memory
+  // for each tile
+  constexpr bool kHoldA = D == 64;
+  // a query tile in kParts passes of kTile / kParts queries, so that S^T
+  // and dP^T take 64 / kParts registers a thread beside dK and dV
+  constexpr int kParts = D == 64 ? 2 : 4;
+  constexpr int NP = kTile / 8 / kParts;  // accumulator tiles a pass
+  constexpr uint32_t kTileBytes = kTile * LD * sizeof(bf16);
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sV = sK + kTile * LD;
-  bf16* sQ = sV + kTile * LD;
-  bf16* sDo = sQ + kTile * LD;
-  float* sLse = reinterpret_cast<float*>(sDo + kTile * LD);
-  float* sDi = sLse + kTile;
-  int* sSegQ = reinterpret_cast<int*>(sDi + kTile);
-  int* sSegK = sSegQ + kTile;
+  const uint32_t sK = smem_u32(smem_mma);
+  const uint32_t sV = sK + kTileBytes;
+  const uint32_t sQD = sV + kTileBytes;  // stage i: q at 2 i, do at 2 i + 1
+  // stage i: lse, di, ids at (3 i, 3 i + 1, 3 i + 2) * kTile
+  float* sRows = reinterpret_cast<float*>(smem_mma + (2 + 2 * S) * kTileBytes);
+  int* sSegK = reinterpret_cast<int*>(sRows + 3 * S * kTile);
 
   const int n_tiles = (p.T + kTile - 1) / kTile;
-  const int kt = blockIdx.y;  // key tile 0 walks every query tile: first
+  int* sLo = sSegK + kTile;  // [n_tiles]
+  int* sHi = sLo + n_tiles;
+  int* sList = sHi + n_tiles;  // the count, then the listed query tiles
+  const int kt = blockIdx.y;  // key tile 0 walks the most: first
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = threadIdx.x / 32 * 16;     // this warp's keys of the tile
+  const int r0 = threadIdx.x / 32 * 16;  // this warp's keys of the tile
   const int k0 = kt * kTile;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (long long)b * p.T;
+  const long long row = ((long long)b * p.H + h) * p.T;
+  const bool lse_vec = aligned16(p.lse + row), di_vec = aligned16(p.di + row);
 
-  load_tile_bf16<D>(sK, p.k, p.sk, b, h, k0, p.T);
-  load_tile_bf16<D>(sV, p.v, p.sv, b, h, k0, p.T);
-  load_seg(sSegK, p, b, k0);
+  // query tile qt (q, do, lse, di, ids) into ring stage st: lse by threads
+  // 0-63, di and the ids by threads 64-127
+  auto copy_q = [&](int qt, int st) {
+    const int q0 = qt * kTile;
+    const uint32_t dst = sQD + st * 2 * kTileBytes;
+    copy_tile_bf16<D>(dst, p.q, p.sq, b, h, q0, p.T);
+    copy_tile_bf16<D>(dst + kTileBytes, p.dout, p.sdo, b, h, q0, p.T);
+    float* rows = sRows + st * 3 * kTile;
+    if (threadIdx.x < kTile) {
+      copy_rows_f32(rows, p.lse + row, p.T, q0, threadIdx.x, lse_vec);
+    } else {
+      const int i = threadIdx.x - kTile;
+      copy_rows_f32(rows + kTile, p.di + row, p.T, q0, i, di_vec);
+      if (seg != nullptr)
+        copy_ids(smem_u32(rows + 2 * kTile), seg, p.T, q0, i);
+    }
+  };
+  // the k and v tiles and the diagonal query tile go out before the list
+  // is known: their loads overlap the id pass over rows [k0, T)
+  copy_tile_bf16<D>(sK, p.k, p.sk, b, h, k0, p.T);
+  copy_tile_bf16<D>(sV, p.v, p.sv, b, h, k0, p.T);
+  copy_q(kt, 0);
+  cp_async_commit();
+  const int count = build_tile_list(seg, p.T, kt, kt, n_tiles - 1, sSegK,
+                                    sLo, sHi, sList);
+
+  // listed tile j into ring stage j % S; one commit group a tile, empty
+  // past the list, so that the waits count alike
+  auto issue = [&](int j) {
+    if (j < count) copy_q(sList[1 + j], j % S);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 1; j < S - 1; ++j) issue(j);
+  // the lse values this thread copies, converted to log2 units by it
+  const int2 mine = rows_of_thread(threadIdx.x, lse_vec);
+
+  cp_async_wait<S - 2>();
   __syncthreads();
-  const int2 k_ids = seg_range(sSegK, k0, p.T);
+  uint32_t kf[kHoldA ? D / 16 : 1][4], vf[kHoldA ? D / 16 : 1][4];
+  if constexpr (kHoldA) {
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      ldmatrix_x4(kf[kd], a_frag_addr<LD>(sK, r0, kd * 16, lane));
+      ldmatrix_x4(vf[kd], a_frag_addr<LD>(sV, r0, kd * 16, lane));
+    }
+  }
+  const int seg_k[2] = {seg == nullptr ? 0 : sSegK[r0 + g],
+                        seg == nullptr ? 0 : sSegK[r0 + g + 8]};
+  const float sc = p.scale * kLog2e;
 
   float dk[ND][4], dv[ND][4];
 #pragma unroll
@@ -986,70 +1107,98 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
 
-  for (int qt = kt; qt < n_tiles; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    // a query tile of other documents only: nothing to add
-    if (!__syncthreads_or(load_seg(sSegQ, p, b, q0, k_ids.x, k_ids.y)))
-      continue;
-    load_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
-    load_tile_bf16<D>(sDo, p.dout, p.sdo, b, h, q0, p.T);
-    load_rows(sLse, p.lse, p, b, h, q0);
-    load_rows(sDi, p.di, p, b, h, q0);
-    __syncthreads();
+  for (int j = 0; j < count; ++j) {
+    cp_async_wait<S - 2>();
+    float* lse = sRows + (j % S) * 3 * kTile;
+    if (threadIdx.x < kTile)
+      for (int e = 0; e < mine.y; ++e) lse[mine.x + e] *= kLog2e;
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    issue(j + S - 1);
+    const int q0 = sList[1 + j] * kTile;
+    const uint32_t sQ = sQD + (j % S) * 2 * kTileBytes;
+    const uint32_t sDo = sQ + kTileBytes;
+    const float* di = lse + kTile;
+    const int* seg_q = reinterpret_cast<const int*>(lse + 2 * kTile);
 
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
-    float st[NQ][4], dpt[NQ][4];
 #pragma unroll
-    for (int n = 0; n < NQ; ++n)
+    for (int part = 0; part < kParts; ++part) {
+      const int c0 = part * (kTile / kParts);  // this pass's first query
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x the pass's
+      // queries
+      float st[NP][4], dpt[NP][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+      for (int n = 0; n < NP; ++n)
 #pragma unroll
-    for (int kd = 0; kd < D; kd += 16) {
-      uint32_t ak[4], av[4];
-      frag_a<LD>(ak, sK, r0, kd, g, t);
-      frag_a<LD>(av, sV, r0, kd, g, t);
+        for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+      // at D 128 two head-dim steps at a time: unrolled whole, the
+      // loads the compiler hoists spill the registers
+#pragma unroll (D == 64 ? D / 16 : 2)
+      for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t ak[4], av[4];
+        if constexpr (kHoldA) {
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        uint32_t bq[2], bdo[2];
-        frag_bt<LD>(bq, sQ, n * 8, kd, g, t);
-        frag_bt<LD>(bdo, sDo, n * 8, kd, g, t);
-        mma16816(st[n], ak, bq);
-        mma16816(dpt[n], av, bdo);
+          for (int i = 0; i < 4; ++i) {
+            ak[i] = kf[kd][i];
+            av[i] = vf[kd][i];
+          }
+        } else {
+          ldmatrix_x4(ak, a_frag_addr<LD>(sK, r0, kd * 16, lane));
+          ldmatrix_x4(av, a_frag_addr<LD>(sV, r0, kd * 16, lane));
+        }
+#pragma unroll
+        for (int n = 0; n < NP; n += 2) {
+          uint32_t qb[4], ob[4];
+          ldmatrix_x4(qb, bt_frag_addr<LD>(sQ, c0 + n * 8, kd * 16, lane));
+          ldmatrix_x4(ob, bt_frag_addr<LD>(sDo, c0 + n * 8, kd * 16, lane));
+          mma16816(st[n], ak, qb);
+          mma16816(st[n + 1], ak, qb + 2);
+          mma16816(dpt[n], av, ob);
+          mma16816(dpt[n + 1], av, ob + 2);
+        }
       }
-    }
-    // P^T into st, dS^T into dpt; masked pairs are exactly 0 in both: a
-    // key tile wholly visible by causality can still be cut by segments
+      // P^T into st, dS^T into dpt; masked pairs are exactly 0 in both: a
+      // listed tile can still be cut by causality and by segments
 #pragma unroll
-    for (int n = 0; n < NQ; ++n)
+      for (int n = 0; n < NP; ++n) {
+        const int col = c0 + n * 8 + 2 * t;  // and col + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(lse + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(di + col);
+        const int2 ids = seg == nullptr
+                             ? make_int2(0, 0)
+                             : *reinterpret_cast<const int2*>(seg_q + col);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = r0 + g + 8 * (i / 2);
-        const int col = n * 8 + 2 * t + i % 2;
-        const int qi = q0 + col;
-        const bool ok = qi < p.T && k0 + key <= qi &&
-                        (p.seg == nullptr || sSegQ[col] == sSegK[key]);
-        const float pv = ok ? expf(st[n][i] * p.scale - sLse[col]) : 0.f;
-        st[n][i] = pv;
-        dpt[n][i] = pv * (dpt[n][i] - sDi[col]);
+        for (int i = 0; i < 4; ++i) {
+          const int qi = q0 + col + i % 2;
+          const bool ok = k0 + r0 + g + 8 * (i / 2) <= qi && qi < p.T &&
+                          seg_k[i / 2] == (i % 2 ? ids.y : ids.x);
+          const float pv =
+              ok ? exp2f(st[n][i] * sc - (i % 2 ? l2.y : l2.x)) : 0.f;
+          st[n][i] = pv;
+          dpt[n][i] = pv * (dpt[n][i] - (i % 2 ? d2.y : d2.x));
+        }
       }
-
-    // dV += P^T dO, dK += dS^T Q over this query tile
+      // dV += P^T dO, dK += dS^T Q over this pass's queries
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t ap[4], ads[4];
-      acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
-      acc_to_a(ads, dpt[2 * kk], dpt[2 * kk + 1]);
+      for (int kk = 0; kk < NP / 2; ++kk) {
+        uint32_t ap[4], ads[4];
+        acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
+        acc_to_a(ads, dpt[2 * kk], dpt[2 * kk + 1]);
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t bdo[2], bq[2];
-        frag_b<LD>(bdo, sDo, kk * 16, n * 8, g, t);
-        frag_b<LD>(bq, sQ, kk * 16, n * 8, g, t);
-        mma16816(dv[n], ap, bdo);
-        mma16816(dk[n], ads, bq);
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t ob[4], qb[4];
+          ldmatrix_x4_trans(ob, b_frag_addr<LD>(sDo, c0 + kk * 16, n * 8,
+                                                lane));
+          ldmatrix_x4_trans(qb, b_frag_addr<LD>(sQ, c0 + kk * 16, n * 8,
+                                                lane));
+          mma16816(dv[n], ap, ob);
+          mma16816(dv[n + 1], ap, ob + 2);
+          mma16816(dk[n], ads, qb);
+          mma16816(dk[n + 1], ads, qb + 2);
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
   bf16* dk_out = static_cast<bf16*>(p.dk);
   bf16* dv_out = static_cast<bf16*>(p.dv);
@@ -1069,36 +1218,82 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// dq: one block per (query tile, b * h), longest walks first; its 4 warps
+// own 16 queries each. It walks the forward's list: the diagonal key tile,
+// then the earlier key tiles whose id range meets the query tile's. Per
+// key tile: S = Q K^T and dP = dO V^T (B fragments of K^T and V^T by
+// ldmatrix.x4), dS in the registers, then dQ += dS K (B fragments of K by
+// ldmatrix.x4.trans).
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_bwd_dq_mma_kernel(const Params p) {
   constexpr int LD = D + kPad;
-  constexpr int NK = kTile / 8;
+  constexpr int NK = kTile / 8;  // accumulator tiles across a key tile
   constexpr int ND = D / 8;
+  constexpr int S = kStages;
+  constexpr uint32_t kTileBytes = kTile * LD * sizeof(bf16);
   extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sDo = sQ + kTile * LD;
-  bf16* sK = sDo + kTile * LD;
-  bf16* sV = sK + kTile * LD;
-  float* sLse = reinterpret_cast<float*>(sV + kTile * LD);
+  const uint32_t sQ = smem_u32(smem_mma);
+  const uint32_t sDo = sQ + kTileBytes;
+  const uint32_t sKV = sDo + kTileBytes;  // stage i: k at 2 i, v at 2 i + 1
+  float* sLse = reinterpret_cast<float*>(smem_mma + (2 + 2 * S) * kTileBytes);
   float* sDi = sLse + kTile;
-  int* sSegQ = reinterpret_cast<int*>(sDi + kTile);
-  int* sSegK = sSegQ + kTile;
+  int* sSegK = reinterpret_cast<int*>(sDi + kTile);  // [S][kTile]
+  int* sSegQ = sSegK + S * kTile;
 
   const int n_tiles = (p.T + kTile - 1) / kTile;
+  int* sLo = sSegQ + kTile;  // [n_tiles]
+  int* sHi = sLo + n_tiles;
+  int* sList = sHi + n_tiles;  // the count, then the listed key tiles
   const int qt = n_tiles - 1 - blockIdx.y;  // longest walks start first
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = threadIdx.x / 32 * 16;     // this warp's rows of the tile
+  const int r0 = threadIdx.x / 32 * 16;  // this warp's rows of the tile
   const int q0 = qt * kTile;
+  const int* seg = p.seg == nullptr ? nullptr : p.seg + (long long)b * p.T;
+  const long long row = ((long long)b * p.H + h) * p.T;
 
-  load_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
-  load_tile_bf16<D>(sDo, p.dout, p.sdo, b, h, q0, p.T);
-  load_rows(sLse, p.lse, p, b, h, q0);
-  load_rows(sDi, p.di, p, b, h, q0);
-  load_seg(sSegQ, p, b, q0);
+  // key tile kt (its k, v and ids) into ring stage st
+  auto copy_kv = [&](int kt, int st) {
+    const int k0 = kt * kTile;
+    const uint32_t dst = sKV + st * 2 * kTileBytes;
+    copy_tile_bf16<D>(dst, p.k, p.sk, b, h, k0, p.T);
+    copy_tile_bf16<D>(dst + kTileBytes, p.v, p.sv, b, h, k0, p.T);
+    if (seg != nullptr && threadIdx.x < kTile)
+      copy_ids(smem_u32(sSegK + st * kTile), seg, p.T, k0, threadIdx.x);
+  };
+  // the own tile (q, do, lse by threads 0-63, di by 64-127) and the
+  // diagonal key tile go out before the list is known
+  copy_tile_bf16<D>(sQ, p.q, p.sq, b, h, q0, p.T);
+  copy_tile_bf16<D>(sDo, p.dout, p.sdo, b, h, q0, p.T);
+  if (threadIdx.x < kTile)
+    copy_rows_f32(sLse, p.lse + row, p.T, q0, threadIdx.x,
+                  aligned16(p.lse + row));
+  else
+    copy_rows_f32(sDi, p.di + row, p.T, q0, threadIdx.x - kTile,
+                  aligned16(p.di + row));
+  copy_kv(qt, 0);
+  cp_async_commit();
+  const int count = build_tile_list(seg, p.T, qt, 0, qt, sSegQ, sLo, sHi,
+                                    sList);
+
+  // listed tile j into ring stage j % S; one commit group a tile, empty
+  // past the list, so that the waits count alike
+  auto issue = [&](int j) {
+    if (j < count) copy_kv(sList[1 + j], j % S);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 1; j < S - 1; ++j) issue(j);
+
+  cp_async_wait<S - 2>();
   __syncthreads();
-  const int2 q_ids = seg_range(sSegQ, q0, p.T);
+  // rows r0 + g (index 0) and r0 + g + 8 (index 1): lse in log2 units
+  const float lse2[2] = {sLse[r0 + g] * kLog2e, sLse[r0 + g + 8] * kLog2e};
+  const float di[2] = {sDi[r0 + g], sDi[r0 + g + 8]};
+  const int seg_q[2] = {seg == nullptr ? 0 : sSegQ[r0 + g],
+                        seg == nullptr ? 0 : sSegQ[r0 + g + 8]};
+  const float sc = p.scale * kLog2e;
 
   float dq[ND][4];
 #pragma unroll
@@ -1106,14 +1301,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    if (!__syncthreads_or(load_seg(sSegK, p, b, k0, q_ids.x, q_ids.y)))
-      continue;
-    load_tile_bf16<D>(sK, p.k, p.sk, b, h, k0, p.T);
-    load_tile_bf16<D>(sV, p.v, p.sv, b, h, k0, p.T);
-    __syncthreads();
+  for (int j = 0; j < count; ++j) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    issue(j + S - 1);
+    const int k0 = sList[1 + j] * kTile;
+    const uint32_t sK = sKV + (j % S) * 2 * kTileBytes;
+    const uint32_t sV = sK + kTileBytes;
+    const int* seg_k = sSegK + (j % S) * kTile;
 
     // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
     float s[NK][4], dp[NK][4];
@@ -1122,32 +1317,40 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
 #pragma unroll
-    for (int kd = 0; kd < D; kd += 16) {
-      uint32_t aq[4], ado[4];
-      frag_a<LD>(aq, sQ, r0, kd, g, t);
-      frag_a<LD>(ado, sDo, r0, kd, g, t);
+    for (int kd = 0; kd < D / 16; ++kd) {
+      // Q's and dO's A fragments from shared memory for each tile: held
+      // in registers for the walk they cost a block an SM (3 blocks at
+      // 162 registers, 2 at 177, at D 64)
+      uint32_t aq[4], ao[4];
+      ldmatrix_x4(aq, a_frag_addr<LD>(sQ, r0, kd * 16, lane));
+      ldmatrix_x4(ao, a_frag_addr<LD>(sDo, r0, kd * 16, lane));
 #pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t bk[2], bv[2];
-        frag_bt<LD>(bk, sK, n * 8, kd, g, t);
-        frag_bt<LD>(bv, sV, n * 8, kd, g, t);
-        mma16816(s[n], aq, bk);
-        mma16816(dp[n], ado, bv);
+      for (int n = 0; n < NK; n += 2) {
+        uint32_t kb[4], vb[4];
+        ldmatrix_x4(kb, bt_frag_addr<LD>(sK, n * 8, kd * 16, lane));
+        ldmatrix_x4(vb, bt_frag_addr<LD>(sV, n * 8, kd * 16, lane));
+        mma16816(s[n], aq, kb);
+        mma16816(s[n + 1], aq, kb + 2);
+        mma16816(dp[n], ao, vb);
+        mma16816(dp[n + 1], ao, vb + 2);
       }
     }
     // dS into dp (exactly 0 where masked)
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+    for (int n = 0; n < NK; ++n) {
+      const int col = n * 8 + 2 * t;  // and col + 1
+      const int2 ids = seg == nullptr
+                           ? make_int2(0, 0)
+                           : *reinterpret_cast<const int2*>(seg_k + col);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int row = r0 + g + 8 * (i / 2);
-        const int col = n * 8 + 2 * t + i % 2;
-        const int qi = q0 + row;
-        const bool ok = qi < p.T && k0 + col <= qi &&
-                        (p.seg == nullptr || sSegQ[row] == sSegK[col]);
-        const float pv = ok ? expf(s[n][i] * p.scale - sLse[row]) : 0.f;
-        dp[n][i] = pv * (dp[n][i] - sDi[row]);
+        const int qi = q0 + r0 + g + 8 * (i / 2);
+        const bool ok = k0 + col + i % 2 <= qi && qi < p.T &&
+                        seg_q[i / 2] == (i % 2 ? ids.y : ids.x);
+        const float pv = ok ? exp2f(s[n][i] * sc - lse2[i / 2]) : 0.f;
+        dp[n][i] = pv * (dp[n][i] - di[i / 2]);
       }
+    }
 
     // dQ += dS K over this key tile
 #pragma unroll
@@ -1155,13 +1358,15 @@ __global__ void __launch_bounds__(kMmaThreads)
       uint32_t a[4];
       acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t bk[2];
-        frag_b<LD>(bk, sK, kk * 16, n * 8, g, t);
-        mma16816(dq[n], a, bk);
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, b_frag_addr<LD>(sK, kk * 16, n * 8, lane));
+        mma16816(dq[n], a, kb);
+        mma16816(dq[n + 1], a, kb + 2);
       }
     }
   }
+  cp_async_wait<0>();
 
   bf16* dq_out = static_cast<bf16*>(p.dq);
 #pragma unroll
@@ -1183,16 +1388,15 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 enum class Which { kFwd, kDkv, kDq };
 
-// dynamic shared memory of each kernel: its q/k/v/do tiles, the f32
-// route's score tiles, and per-row values / segment ids (the bf16
-// forward's: fwd_mma_smem)
+// dynamic shared memory of each kernel: the f32 route's q/k/v/do tiles,
+// score tiles and per-row values / segment ids; the bf16 kernels'
+// (fwd_mma_smem, bwd_mma_smem) grow with their tile lists
 template <int D>
 size_t smem_bytes(Which w, bool bf16_route, int n_tiles) {
+  if (bf16_route)
+    return w == Which::kFwd ? fwd_mma_smem<D>(n_tiles)
+                            : bwd_mma_smem<D>(w == Which::kDkv, n_tiles);
   const size_t rows = (size_t)kTile * sizeof(float);
-  if (bf16_route) {
-    const size_t tile = (size_t)kTile * (D + kPad) * sizeof(bf16);
-    return w == Which::kFwd ? fwd_mma_smem<D>(n_tiles) : 4 * tile + 4 * rows;
-  }
   const size_t tile = (size_t)kTile * (D + 1) * sizeof(float);
   const size_t scores = (size_t)kTile * kLdP * sizeof(float);
   switch (w) {

@@ -31,8 +31,10 @@ the CUDA cores, which agrees with the plain versions to summation order.
 are the plain versions: dense f32 scores with the same mask, and the same
 backward formulas from the saved lse. They are the CPU path and the
 oracle the kernels are held against on the card (chip_smoke.py).
-:func:`visible_key_tiles` mirrors the rule by which the bf16 forward
-lists the key tiles it walks (for the tests and chip_smoke.py).
+:func:`visible_key_tiles` mirrors the rule by which the bf16 kernels
+list the tiles they walk, and :func:`flash_attention_bwd_tiled_reference`
+computes the backward along those lists, as the bf16 backward kernels
+do (both for the tests and chip_smoke.py).
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 versions (forward and backward), CUDA tensors launch the kernels or
@@ -218,13 +220,16 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, segment_ids=None
 
 def visible_key_tiles(segment_ids: torch.Tensor, T: int,
                       tile: int = 64) -> torch.Tensor:
-    """The key tiles the bf16 forward kernel walks for each query tile:
-    ``[B, n, n]`` boolean (query tile, key tile), ``n = ceil(T / tile)``.
-    Key tile ``kt`` is listed for query tile ``qt`` when ``kt <= qt`` and
-    the range ``[min, max]`` of its real rows' segment ids meets the query
-    tile's range. The rule is conservative (pairs inside a listed tile are
-    still masked one by one) and holds for ids in any order. A mirror of
-    the kernel's rule for the tests; not on the main path."""
+    """The tile pairs the bf16 kernels walk: ``[B, n, n]`` boolean (query
+    tile, key tile), ``n = ceil(T / tile)``. Key tile ``kt`` is listed for
+    query tile ``qt`` when ``kt <= qt`` and the range ``[min, max]`` of its
+    real rows' segment ids meets the query tile's range. The forward and
+    the dq kernel walk a row (the key tiles of one query tile, the
+    diagonal first); the dk/dv kernel walks the transpose, a column (the
+    query tiles of one key tile, the diagonal first). The rule is
+    conservative (pairs inside a listed tile are still masked one by one)
+    and holds for ids in any order. A mirror of the kernels' rule for the
+    tests; not on the main path."""
     ids = segment_ids[:, :T].to(torch.int64)
     B, n = ids.shape[0], -(-T // tile)
     pad = n * tile - T
@@ -295,6 +300,68 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_tiled_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor,
+        segment_ids: Optional[torch.Tensor] = None, tile: int = 64
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the bf16 backward kernels' walk: the same
+    function as :func:`flash_attention_bwd_reference`, computed tile pair
+    by tile pair along the kernels' lists (:func:`visible_key_tiles`): dq
+    over each query tile's row of listed key tiles, dk and dv over each
+    key tile's column of listed query tiles, the diagonal first. Scores
+    in exp2 units (``P = exp2(s log2(e) / sqrt(D) - lse log2(e))``, lse
+    stays in natural-log units); with bf16 inputs P and dS are rounded to
+    bf16 before their products, as the kernels round them. f32
+    accumulation; the grads come back in the inputs' dtype. A pair the
+    lists leave out adds nothing, so a list that missed a visible pair
+    would show against the dense plain version."""
+    B, T, H, D = q.shape
+    log2e = 1.4426950408889634
+    sc = D ** -0.5 * log2e
+    ids = (torch.zeros((B, T), dtype=torch.int32, device=q.device)
+           if segment_ids is None else segment_ids)
+    listed = visible_key_tiles(ids, T, tile).cpu()
+    n = listed.shape[-1]
+    rnd = ((lambda x: x.to(torch.bfloat16).float())
+           if q.dtype == torch.bfloat16 else (lambda x: x))
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    lse2 = lse.float() * log2e
+    di = _row_dot(o, do)
+    pos = torch.arange(T, device=q.device)
+
+    def pair(b, qt, kt):
+        """P and dS ``[H, rows, cols]`` of one tile pair, rounded as the
+        kernels round them, with the rows' and columns' slices."""
+        r = slice(qt * tile, min(T, (qt + 1) * tile))
+        c = slice(kt * tile, min(T, (kt + 1) * tile))
+        s = torch.einsum("qhd,khd->hqk", qf[b, r], kf[b, c])
+        ok = ((pos[r, None] >= pos[None, c])
+              & (ids[b, r, None] == ids[b, None, c]))
+        p = torch.where(ok, torch.exp2(s * sc - lse2[b, :, r, None]), 0.0)
+        dp = torch.einsum("qhd,khd->hqk", dof[b, r], vf[b, c])
+        ds = p * (dp - di[b, :, r, None])
+        return rnd(p), rnd(ds), r, c
+
+    def walk(own, others):
+        return [own] + [x for x in others if x != own]
+
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for b in range(B):
+        for qt in range(n):
+            for kt in walk(qt, listed[b, qt].nonzero()[:, 0].tolist()):
+                _, ds, r, c = pair(b, qt, kt)
+                dq[b, r] += torch.einsum("hqk,khd->qhd", ds, kf[b, c])
+        for kt in range(n):
+            for qt in walk(kt, listed[b, :, kt].nonzero()[:, 0].tolist()):
+                p, ds, r, c = pair(b, qt, kt)
+                dv[b, c] += torch.einsum("hqk,qhd->khd", p, dof[b, r])
+                dk[b, c] += torch.einsum("hqk,qhd->khd", ds, qf[b, r])
+    scale = D ** -0.5
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

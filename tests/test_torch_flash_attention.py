@@ -11,10 +11,18 @@ attention, and their gradients against ``jax.grad`` of the dense
 attention. Tolerance 1e-5 absolute on unit-scale inputs: only the
 summation order differs. The key-tile list the bf16 forward kernel walks
 (``visible_key_tiles``, the Python mirror of its rule) is held against a
-brute-force causal and segment mask. The CUDA kernels themselves run
-only on the card, where chip_smoke.py holds them against these plain
-versions.
+brute-force causal and segment mask, and the plain version of the bf16
+backward kernels' walk along those lists
+(``flash_attention_bwd_tiled_reference``) against the dense plain
+backward and ``jax.grad``. The CUDA kernels themselves run only on the
+card, where chip_smoke.py holds them against these plain versions; the
+helper by which it checks that two calls give the same bits is pinned
+here.
 """
+
+import importlib.util
+import pathlib
+
 
 import jax
 import jax.numpy as jnp
@@ -270,3 +278,106 @@ def test_a_refused_shape_raises_value_error_and_counts_no_launch():
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         tfa._raise_on(700, "flash_attention_fwd")
     assert tfa.launches == before
+
+
+def _bwd_inputs(layout, T, seed, B=2, H=3, D=16):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((B, T, H, D)).astype(np.float32)
+                   for _ in range(4))
+    return q, k, v, do, _segment_ids(layout, B, T, seed)
+
+
+@pytest.mark.parametrize("T", (17, 64, 129, 300))
+@pytest.mark.parametrize("layout", ("packed", "scattered", "unpacked"))
+def test_tiled_bwd_reference_matches_dense_and_jax_grad(layout, T):
+    """The backward along the kernels' lists (dq by row of
+    ``visible_key_tiles``, dk/dv by column, exp2 units) equals the dense
+    plain backward and ``jax.grad`` of the package's dense attention in
+    f32: no listed tile is missing a visible pair, and no pair counts
+    twice. Unpacked runs without ids, as the kernels then list every
+    causal tile."""
+    q, k, v, do, seg = _bwd_inputs(layout, T, seed=T + len(layout))
+    ids = None if layout == "unpacked" else _t(seg)
+    o, lse = tfa.flash_attention_reference(_t(q), _t(k), _t(v), ids)
+    tiled = tfa.flash_attention_bwd_tiled_reference(
+        _t(q), _t(k), _t(v), o, lse, _t(do), ids)
+    dense = tfa.flash_attention_bwd_reference(
+        _t(q), _t(k), _t(v), o, lse, _t(do), ids)
+    grads = _jax_dense_grads(q, k, v, do, seg)
+    for ours, ref, jref in zip(tiled, dense, grads):
+        assert ours.dtype == torch.float32
+        np.testing.assert_allclose(ours.numpy(), ref.numpy(), rtol=0,
+                                   atol=TOL)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(jref), rtol=0,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("layout", ("packed", "scattered", "unpacked"))
+def test_tiled_bwd_reference_rounds_p_and_ds_in_bf16(layout):
+    """With bf16 inputs the walk rounds P and dS to bf16 before their
+    products, as the kernels do: its bf16 grads are within the card's
+    limit (2e-2 of max(1, |value|)) of the dense plain backward on the
+    same values in f32, and they differ from the walk on those values
+    in f32 (where nothing is rounded) by more than the final rounding to
+    bf16 alone."""
+    q, k, v, do, seg = _bwd_inputs(layout, 300, seed=31)
+    ids = None if layout == "unpacked" else _t(seg)
+    x = [_t(a).to(torch.bfloat16) for a in (q, k, v, do)]
+    f = [a.float() for a in x]
+    o, lse = tfa.flash_attention_reference(*f[:3], ids)
+    low = tfa.flash_attention_bwd_tiled_reference(
+        *x[:3], o.to(torch.bfloat16), lse, x[3], ids)
+    dense = tfa.flash_attention_bwd_reference(
+        *f[:3], o.to(torch.bfloat16).float(), lse, f[3], ids)
+    exact = tfa.flash_attention_bwd_tiled_reference(
+        *f[:3], o.to(torch.bfloat16).float(), lse, f[3], ids)
+    for ours, ref, ex in zip(low, dense, exact):
+        assert ours.dtype == torch.bfloat16
+        err = ((ours.float() - ref).abs() / ref.abs().clamp(min=1)).max()
+        assert float(err) <= 2e-2
+        # rounding the exact result once moves no element by more than
+        # half an ulp; rounding P and dS first moves some by more
+        once = (ex.to(torch.bfloat16).float() - ex).abs()
+        assert bool(((ours.float() - ex).abs() > once).any())
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it runs nothing on import)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_card_determinism_check_sees_one_changed_bit(dtype):
+    """The phase 4 check that two calls give the same dq, dk and dv: two
+    runs of the plain backward pass it (NaNs at the same place too), and
+    one element moved by one ulp, or a zero turned into -0.0, fails it by
+    name."""
+    smoke = _chip_smoke()
+    q, k, v, do, seg = _bwd_inputs("packed", 70, seed=3)
+    x = [_t(a).to(dtype) for a in (q, k, v, do)]
+    o, lse = tfa.flash_attention_reference(*x[:3], _t(seg))
+
+    def run():
+        dq, dk, dv = tfa.flash_attention_bwd_reference(
+            *x[:3], o, lse, x[3], _t(seg))
+        return {"dq": dq, "dk": dk, "dv": dv}
+
+    first, second = run(), run()
+    assert smoke._differs_bitwise(first, second) == []
+    for out in (first, second):
+        out["dk"][0, 0, 0, 0] = float("nan")
+    assert smoke._differs_bitwise(first, second) == []
+    moved = dict(second)
+    moved["dq"] = second["dq"].clone()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    moved["dq"].view(bits)[1, 5, 2, 3] += 1     # the next float up
+    assert smoke._differs_bitwise(first, moved) == ["dq"]
+    signed = dict(second)
+    signed["dv"] = second["dv"].clone()
+    signed["dv"][0, 1, 0, 0] = 0.0
+    first["dv"][0, 1, 0, 0] = -0.0
+    assert smoke._differs_bitwise(first, signed) == ["dv"]
