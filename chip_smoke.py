@@ -166,10 +166,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
            round's wall time split into ingest, merge and eval, the
            merge's device time from torch.profiler, its idle share and
            the peak memory.
+17. validator the port's validator round at GPT-2-124M full width and
+           depth (bf16 compute, f32 weights) over phase 16's root and a
+           fresh LocalChain: three honest MinerLoop miners (--wire-v2
+           int8, --wire-v2 f32 kept values, dense v1; fused loss, 4 steps
+           each) beside phase 16's stale dense submission and its two
+           hostile ones. One validate_and_score round at --val-cohort 8,
+           eval at T 512 on 4 batches: the hostiles score 0 with the JAX
+           verdicts, the honest miners > 0, flash forward launches == 12
+           x 4 x (candidates + the base) and no other kernel; set_weights
+           writes non-uniform weights. In f32 compute the cohort path
+           equals the sequential score_miner path within 1e-5 relative
+           (losses; the honest miners' scores). An AveragerLoop
+           WeightedAverage round then merges by exactly those weights,
+           read through consensus_scores(). Then ``neurons.validator.main``
+           with the README's flags for one round returns 0 and leaves its
+           weights on the chain. Reports the round's wall time (staging,
+           eval), the eval's device ms per candidate-batch and idle share
+           (torch.profiler) and the peak memory.
+18. meta   AveragerLoop with ParameterizedMerge (the default strategy) at
+           GPT-2-124M over the fleet's submissions (the packed ones
+           densified), 2 meta-epochs on 4 batches: finite logits, the
+           published base equals base + sum_i softmax(w_t)_i d_i,t by the
+           plain versions on the CPU within 1e-6, flash forward == 12 x
+           (meta-steps + eval batches), dk/dv == dq == 12 x meta-steps,
+           no scatter or CE launch. In f32 at B 2, T 256, 3 meta-steps
+           through the kernels and 3 with the attention forced to its
+           plain versions: losses within 1e-4 relative, logits within
+           1e-4. Then ``neurons.averager.main`` with its default strategy
+           publishes a base. Reports the round's wall time and the device
+           ms per meta-step (torch.profiler).
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
-line, a ``miner`` JSON line, an ``averager`` JSON line, the
-``nvidia-smi`` name/power-limit line, and as the last line
+line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
+JSON line (phases 17 and 18), the ``nvidia-smi`` name/power-limit line,
+and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1850,18 +1881,23 @@ def phase_scatter() -> dict:
     return res
 
 
-def _timed_calls(obj, name: str, secs: dict, keep: dict | None = None):
+def _timed_calls(obj, name: str, secs: dict, keep: dict | None = None,
+                 sync: bool = True):
     """Wrap ``obj.name`` so that each call's wall time, between two
     device synchronisations, adds to ``secs[name]`` (and its result is
-    kept in ``keep[name]``): a measuring hook of this script."""
+    kept in ``keep[name]``): a measuring hook of this script.
+    ``sync=False`` leaves the device alone, for a call on another thread
+    that does host work only (the validator's cohort stager)."""
     import torch
     fn = getattr(obj, name)
 
     def wrapper(*a, **kw):
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*a, **kw)
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
         if keep is not None:
             keep[name] = out
@@ -1889,10 +1925,10 @@ def _publish_tree(t, hotkey, packed, rev, quant):
     check(ok, f"publishing {hotkey}'s packed delta failed")
 
 
-def _merge_profile(loop, deltas, ids) -> dict:
-    """torch.profiler over one more merge of the round's submissions:
-    device time by kernel (the scatter kernels and the host-to-device
-    copies of idx/q apart), wall, idle share."""
+def _device_profile(fn, top: int = 6) -> tuple[dict, dict]:
+    """torch.profiler over one call of ``fn``: wall, device time (and the
+    host-to-device copies' share of it), the idle share and the ``top``
+    kernels; and the device ms and calls by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1900,7 +1936,7 @@ def _merge_profile(loop, deltas, ids) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.strategy.merge(loop.engine, loop.base_params, deltas, ids)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by: dict[str, list] = {}
@@ -1910,28 +1946,36 @@ def _merge_profile(loop, deltas, ids) -> dict:
             k[0] += evt.time_range.elapsed_us() / 1e3
             k[1] += 1
     busy = sum(v[0] for v in by.values())
-    check(by, "the merge profile saw no device time")
-    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+    check(by, "the profile saw no device time")
+    h2d = [v for n, v in by.items() if "HtoD" in n or "Memcpy" in n]
+    ranked = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_ms": wall_ms, "device_ms": busy,
             "idle_share": 1.0 - busy / wall_ms,
-            "scatter_kernels_ms": sum(v[0] for n, v in by.items()
-                                      if n.startswith("dsc_")
-                                      or "dsc_" in n),
-            "h2d_copy_ms": sum(v[0] for n, v in by.items()
-                               if "HtoD" in n or "Memcpy" in n),
-            "h2d_copies": sum(v[1] for n, v in by.items()
-                              if "HtoD" in n or "Memcpy" in n),
+            "h2d_copy_ms": sum(v[0] for v in h2d),
+            "h2d_copies": sum(v[1] for v in h2d),
+            "flash_ms": sum(v[0] for n, v in by.items() if "flash" in n),
             "top": [{"name": n[:60], "ms": v[0], "calls": v[1]}
-                    for n, v in top]}
+                    for n, v in ranked]}, by
 
 
-def phase_averager(tree, tok) -> dict:
+def _merge_profile(loop, deltas, ids) -> dict:
+    """torch.profiler over one more merge of the round's submissions:
+    device time by kernel (the scatter kernels and the host-to-device
+    copies of idx/q apart), wall, idle share."""
+    res, by = _device_profile(lambda: loop.strategy.merge(
+        loop.engine, loop.base_params, deltas, ids), top=8)
+    res["scatter_kernels_ms"] = sum(v[0] for n, v in by.items()
+                                    if "dsc_" in n)
+    return res
+
+
+def phase_averager(tree, tok, work: str) -> dict:
     """The port's averager round at GPT-2-124M full width and depth over
     a LocalFSTransport and a LocalChain in a temporary directory: genesis,
     a MinerLoop --wire-v2 miner, packed int8 and f32 miners, a dense v1
     miner, two hostile ones, weights set through the chain; two rounds,
-    then ``neurons.averager.main`` over the same root."""
-    import tempfile
+    then ``neurons.averager.main`` over the same root. ``work`` (an empty
+    directory) holds the root and the chain for the later phases."""
     import numpy as np
     import torch
     from distributedtraining_tpu_torch import delta
@@ -1958,190 +2002,575 @@ def phase_averager(tree, tok) -> dict:
                             device=DEV)
     res: dict = {"model": "gpt2-124m", "eval_batches": AVG_EVAL_BATCHES,
                  "eval_seq_len": EVAL_T}
-    with tempfile.TemporaryDirectory() as work:
-        root, chain_dir = (os.path.join(work, "artifacts"),
-                           os.path.join(work, "chain"))
-        t = LocalFSTransport(root)
-        loop = AveragerLoop(eng, t, LocalChain(chain_dir,
-                                               my_hotkey="hotkey_95"),
-                            WeightedAverage(),
-                            val_batches=lambda: iter(held))
-        loop.bootstrap(params=tree)
-        rev0 = loop._base_revision
-        check(rev0 is not None and t.base_revision() == rev0,
-              "the averager did not publish a genesis base")
-        # the miners
-        miner = MinerLoop(miner_eng, t, "hotkey_1", clock=FakeClock(),
-                          send_interval=1e9, check_update_interval=3.0,
-                          wire_v2=True)
-        miner.bootstrap()
+    root, chain_dir = (os.path.join(work, "artifacts"),
+                       os.path.join(work, "chain"))
+    t = LocalFSTransport(root)
+    loop = AveragerLoop(eng, t, LocalChain(chain_dir,
+                                           my_hotkey="hotkey_95"),
+                        WeightedAverage(),
+                        val_batches=lambda: iter(held))
+    loop.bootstrap(params=tree)
+    rev0 = loop._base_revision
+    check(rev0 is not None and t.base_revision() == rev0,
+          "the averager did not publish a genesis base")
+    # the miners
+    miner = MinerLoop(miner_eng, t, "hotkey_1", clock=FakeClock(),
+                      send_interval=1e9, check_update_interval=3.0,
+                      wire_v2=True)
+    miner.bootstrap()
 
-        def steps(batches):
-            for b in batches:
-                miner.clock.sleep(1.0)
-                yield b
+    def steps(batches):
+        for b in batches:
+            miner.clock.sleep(1.0)
+            yield b
 
-        miner.run(steps(train[:AVG_MINER_STEPS]))
-        miner.flush()
-        g = torch.Generator(device=DEV).manual_seed(SEED + 5)
-        shapes = {k: v.shape for k, v in miner.base_params.items()}
+    miner.run(steps(train[:AVG_MINER_STEPS]))
+    miner.flush()
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    shapes = {k: v.shape for k, v in miner.base_params.items()}
 
-        def noise(scale):
-            return {k: torch.randn(s, generator=g, device=DEV) * scale
-                    for k, s in shapes.items()}
+    def noise(scale):
+        return {k: torch.randn(s, generator=g, device=DEV) * scale
+                for k, s in shapes.items()}
 
-        _publish_packed(t, "hotkey_2", noise(1e-5), rev0, "int8")
-        _publish_packed(t, "hotkey_3", noise(1e-5), rev0, "none")
-        t.publish_delta("hotkey_4", gpt2.params_to_numpy(noise(1e-5)))
-        t.publish_delta_meta("hotkey_4", {"base_revision": rev0})
-        bad, _ = delta.pack_delta_v2(noise(1e-5), density=1.0 / 64.0)
-        bad_leaves = dict(bad["leaves"])
-        bad_leaves["wpe"] = dict(bad_leaves["wpe"],
-                                 idx=bad_leaves["wpe"]["idx"].clone())
-        bad_leaves["wpe"]["idx"][0] = shapes["wpe"].numel()  # out of range
-        _publish_tree(t, "hotkey_5", {**bad, "leaves": bad_leaves}, rev0,
-                      "int8")
-        huge, _ = delta.pack_delta_v2(noise(1e-5), density=1.0 / 64.0)
-        huge["leaves"]["wte"]["scale"] = torch.tensor(1e6, device=DEV)
-        _publish_tree(t, "hotkey_6", huge, rev0, "int8")
-        scores = {"hotkey_1": 0.5, "hotkey_2": 0.1, "hotkey_3": 0.15,
-                  "hotkey_4": 0.15, "hotkey_5": 0.3, "hotkey_6": 0.3}
-        LocalChain(chain_dir, my_hotkey="hotkey_91").set_weights(scores)
-        secs: dict = {}
-        kept: dict = {}
-        _timed_calls(loop, "gather_deltas", secs, kept)
-        _timed_calls(loop.strategy, "merge", secs)
-        _timed_calls(eng, "evaluate", secs)
-        base_before = {k: v.detach().cpu() for k, v in
-                       loop.base_params.items()}
-        n_indexed = sum(1 for s in shapes.values()
-                        if delta.sparse_k(int(np.prod(s)), 1.0 / 64.0)
-                        < int(np.prod(s)))
-        # round 1 (main path): counts to 0 just before, read just after;
-        # the earlier phases' unreachable cycles (the miner phase leaves
-        # GBs of them) are collected first, so that the peak is the
-        # round's and not the garbage collector's timing
-        obs.configure()
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        dsc.launches = 0
-        t0 = time.perf_counter()
-        merged1 = loop.run_round()
-        torch.cuda.synchronize()
-        round_s = time.perf_counter() - t0
-        launches = {"dequant_scatter": dsc.launches, **fa.launches,
-                    **fused_ce.launches}
-        peak = torch.cuda.max_memory_allocated()
-        snap = obs.flush()
-        obs.reset()
-        ids, deltas = kept["gather_deltas"]
-        weights = loop.strategy._weights_cache[1]
-        staged = {s.hotkey: s.reason for s in loop._ingest().stage(
-            ["hotkey_5", "hotkey_6"], base_revision=rev0)}
-        packed_in = sum(1 for d in deltas if delta.is_packed_v2(d))
-        check(merged1 and loop.report.skipped_publishes == 0,
-              f"round 1 did not publish (loss {loop.report.last_loss}, "
-              f"skipped {loop.report.skipped_publishes})")
-        check(ids == ["hotkey_1", "hotkey_2", "hotkey_3", "hotkey_4"],
-              f"round 1 merged {ids}")
-        check(staged["hotkey_5"] == "no_delta",
-              f"the out-of-range miner staged {staged['hotkey_5']}")
-        mag = float(np.float32(127.0) * np.float32(1e6))
-        want = f"magnitude_exceeded({mag:.3e}>{1e3:.3e})"
-        check(staged["hotkey_6"] == want,
-              f"the over-cap miner staged {staged['hotkey_6']} != {want}")
-        check(loop.report.last_rejected == 1,
-              f"round 1 rejected {loop.report.last_rejected}")
-        check(snap.get("delta.densify_fallbacks", 0) == 0 and packed_in == 3,
-              f"packed submissions densified ({snap}) or missing "
-              f"({packed_in})")
-        # one launch of the contribution entry per packed contribution
-        check(launches["dequant_scatter"] == packed_in
-              and n_indexed == 2 + 4 * cfg.n_layer,
-              f"dequant_scatter launches {launches['dequant_scatter']} != "
-              f"{packed_in} packed contributions")
-        n_eval = 2 * AVG_EVAL_BATCHES      # the merged base and the base
-        check(launches["flash_attention_fwd"] == cfg.n_layer * n_eval,
-              f"flash forward launches {launches['flash_attention_fwd']} "
-              f"!= 12 x {n_eval} evaluated batches")
-        # the published base against base + sum w_i decode(d_i) by the
-        # plain versions (CPU accumulator)
-        agg = delta.aggregate_deltas(base_before, deltas, weights)
-        fetched = t.fetch_base(loop._host_template())
-        pub = gpt2.params_from_numpy(fetched[0], device="cpu")
-        base_err = max(float((pub[k] - (base_before[k] + agg[k])).abs().max())
-                       for k in pub)
-        check(base_err <= 1e-6, f"published base vs plain merge: max abs "
-                                f"{base_err} > 1e-6")
-        res["round1"] = {
-            "accepted": ids, "weights": [float(w) for w in weights],
-            "rejected": loop.report.last_rejected, "verdicts": staged,
-            "merged_loss": loop.report.last_loss, "launches": launches,
-            "published_vs_plain_max_abs": base_err,
-            "densify_fallbacks": snap.get("delta.densify_fallbacks", 0),
-            "round_s": round_s, "ingest_s": secs["gather_deltas"],
-            "merge_s": secs["merge"], "eval_s": secs["evaluate"],
-            "peak_cuda_mem_bytes": peak,
-            "wire_bytes_fetched": snap.get("wire.bytes_fetched")}
-        base_loss1 = loop._base_loss
-        res["round1"]["merge_profile"] = _merge_profile(loop, deltas, ids)
-        # round 2: the miner pulls the new base, trains, pushes again
-        rev1 = loop._base_revision
-        miner.run(steps(train[AVG_MINER_STEPS:2 * AVG_MINER_STEPS]))
-        miner.flush()
-        check(miner._base_revision == rev1 and miner.report.base_pulls == 1,
-              f"the miner did not pull the new base ({miner.report})")
-        secs.clear()
-        _zero_counts()
-        dsc.launches = 0
-        t0 = time.perf_counter()
-        merged2 = loop.run_round()
-        torch.cuda.synchronize()
-        round2_s = time.perf_counter() - t0
-        ids2, _ = kept["gather_deltas"]
-        stale = [h for h, r in ((s.hotkey, s.reason) for s in
-                                loop._ingest().stage(
-                                    [f"hotkey_{i}" for i in range(2, 7)],
-                                    base_revision=rev1))
-                 if r == "stale_base"]
-        check(merged2 and ids2 == ["hotkey_1"],
-              f"round 2 merged {ids2} (ok {merged2})")
-        check(len(stale) == 5, f"stale submissions not skipped: {stale}")
-        check(dsc.launches == 1,
-              f"round 2 dequant_scatter launches {dsc.launches} != 1 "
-              "packed contribution")
-        res["round2"] = {"accepted": ids2, "stale_skipped": stale,
-                         "published": loop._base_revision != rev1,
-                         "merged_loss": loop.report.last_loss,
-                         "base_loss": base_loss1,
-                         "dequant_scatter_launches": dsc.launches,
-                         "round_s": round2_s,
-                         "ingest_s": secs["gather_deltas"],
-                         "merge_s": secs["merge"],
-                         "eval_s": secs["evaluate"]}
-        # the CLI over the same root, after one more push of the miner
-        miner.run(steps(train[2 * AVG_MINER_STEPS:]))
-        miner.flush()
-        miner.close()
-        loop.close()
-        rev2 = t.base_revision()
-        dsc.launches = 0
-        t0 = time.perf_counter()
-        rc = avg_cli.main(README_AVERAGER_FLAGS + [
-            "--work-dir", work, "--rounds", "1", "--hotkey", "hotkey_96"])
-        cli_s = time.perf_counter() - t0
-        check(rc == 0 and t.base_revision() not in (None, rev2),
-              f"neurons.averager.main exited {rc} without a new base")
-        check(dsc.launches == 1,
-              f"the CLI's dequant_scatter launches {dsc.launches} != 1 "
-              "packed contribution")
-        res["cli"] = {"argv": README_AVERAGER_FLAGS + ["--rounds", "1"],
-                      "rc": rc, "s": cli_s,
-                      "dequant_scatter_launches": dsc.launches}
+    _publish_packed(t, "hotkey_2", noise(1e-5), rev0, "int8")
+    _publish_packed(t, "hotkey_3", noise(1e-5), rev0, "none")
+    t.publish_delta("hotkey_4", gpt2.params_to_numpy(noise(1e-5)))
+    t.publish_delta_meta("hotkey_4", {"base_revision": rev0})
+    bad, _ = delta.pack_delta_v2(noise(1e-5), density=1.0 / 64.0)
+    bad_leaves = dict(bad["leaves"])
+    bad_leaves["wpe"] = dict(bad_leaves["wpe"],
+                             idx=bad_leaves["wpe"]["idx"].clone())
+    bad_leaves["wpe"]["idx"][0] = shapes["wpe"].numel()  # out of range
+    _publish_tree(t, "hotkey_5", {**bad, "leaves": bad_leaves}, rev0,
+                  "int8")
+    huge, _ = delta.pack_delta_v2(noise(1e-5), density=1.0 / 64.0)
+    huge["leaves"]["wte"]["scale"] = torch.tensor(1e6, device=DEV)
+    _publish_tree(t, "hotkey_6", huge, rev0, "int8")
+    scores = {"hotkey_1": 0.5, "hotkey_2": 0.1, "hotkey_3": 0.15,
+              "hotkey_4": 0.15, "hotkey_5": 0.3, "hotkey_6": 0.3}
+    LocalChain(chain_dir, my_hotkey="hotkey_91").set_weights(scores)
+    secs: dict = {}
+    kept: dict = {}
+    _timed_calls(loop, "gather_deltas", secs, kept)
+    _timed_calls(loop.strategy, "merge", secs)
+    _timed_calls(eng, "evaluate", secs)
+    base_before = {k: v.detach().cpu() for k, v in
+                   loop.base_params.items()}
+    n_indexed = sum(1 for s in shapes.values()
+                    if delta.sparse_k(int(np.prod(s)), 1.0 / 64.0)
+                    < int(np.prod(s)))
+    # round 1 (main path): counts to 0 just before, read just after;
+    # the earlier phases' unreachable cycles (the miner phase leaves
+    # GBs of them) are collected first, so that the peak is the
+    # round's and not the garbage collector's timing
+    obs.configure()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    dsc.launches = 0
+    t0 = time.perf_counter()
+    merged1 = loop.run_round()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = {"dequant_scatter": dsc.launches, **fa.launches,
+                **fused_ce.launches}
+    peak = torch.cuda.max_memory_allocated()
+    snap = obs.flush()
+    obs.reset()
+    ids, deltas = kept["gather_deltas"]
+    weights = loop.strategy._weights_cache[1]
+    staged = {s.hotkey: s.reason for s in loop._ingest().stage(
+        ["hotkey_5", "hotkey_6"], base_revision=rev0)}
+    packed_in = sum(1 for d in deltas if delta.is_packed_v2(d))
+    check(merged1 and loop.report.skipped_publishes == 0,
+          f"round 1 did not publish (loss {loop.report.last_loss}, "
+          f"skipped {loop.report.skipped_publishes})")
+    check(ids == ["hotkey_1", "hotkey_2", "hotkey_3", "hotkey_4"],
+          f"round 1 merged {ids}")
+    check(staged["hotkey_5"] == "no_delta",
+          f"the out-of-range miner staged {staged['hotkey_5']}")
+    mag = float(np.float32(127.0) * np.float32(1e6))
+    want = f"magnitude_exceeded({mag:.3e}>{1e3:.3e})"
+    check(staged["hotkey_6"] == want,
+          f"the over-cap miner staged {staged['hotkey_6']} != {want}")
+    check(loop.report.last_rejected == 1,
+          f"round 1 rejected {loop.report.last_rejected}")
+    check(snap.get("delta.densify_fallbacks", 0) == 0 and packed_in == 3,
+          f"packed submissions densified ({snap}) or missing "
+          f"({packed_in})")
+    # one launch of the contribution entry per packed contribution
+    check(launches["dequant_scatter"] == packed_in
+          and n_indexed == 2 + 4 * cfg.n_layer,
+          f"dequant_scatter launches {launches['dequant_scatter']} != "
+          f"{packed_in} packed contributions")
+    n_eval = 2 * AVG_EVAL_BATCHES      # the merged base and the base
+    check(launches["flash_attention_fwd"] == cfg.n_layer * n_eval,
+          f"flash forward launches {launches['flash_attention_fwd']} "
+          f"!= 12 x {n_eval} evaluated batches")
+    # the published base against base + sum w_i decode(d_i) by the
+    # plain versions (CPU accumulator)
+    agg = delta.aggregate_deltas(base_before, deltas, weights)
+    fetched = t.fetch_base(loop._host_template())
+    pub = gpt2.params_from_numpy(fetched[0], device="cpu")
+    base_err = max(float((pub[k] - (base_before[k] + agg[k])).abs().max())
+                   for k in pub)
+    check(base_err <= 1e-6, f"published base vs plain merge: max abs "
+                            f"{base_err} > 1e-6")
+    res["round1"] = {
+        "accepted": ids, "weights": [float(w) for w in weights],
+        "rejected": loop.report.last_rejected, "verdicts": staged,
+        "merged_loss": loop.report.last_loss, "launches": launches,
+        "published_vs_plain_max_abs": base_err,
+        "densify_fallbacks": snap.get("delta.densify_fallbacks", 0),
+        "round_s": round_s, "ingest_s": secs["gather_deltas"],
+        "merge_s": secs["merge"], "eval_s": secs["evaluate"],
+        "peak_cuda_mem_bytes": peak,
+        "wire_bytes_fetched": snap.get("wire.bytes_fetched")}
+    base_loss1 = loop._base_loss
+    res["round1"]["merge_profile"] = _merge_profile(loop, deltas, ids)
+    # round 2: the miner pulls the new base, trains, pushes again
+    rev1 = loop._base_revision
+    miner.run(steps(train[AVG_MINER_STEPS:2 * AVG_MINER_STEPS]))
+    miner.flush()
+    check(miner._base_revision == rev1 and miner.report.base_pulls == 1,
+          f"the miner did not pull the new base ({miner.report})")
+    secs.clear()
+    _zero_counts()
+    dsc.launches = 0
+    t0 = time.perf_counter()
+    merged2 = loop.run_round()
+    torch.cuda.synchronize()
+    round2_s = time.perf_counter() - t0
+    ids2, _ = kept["gather_deltas"]
+    stale = [h for h, r in ((s.hotkey, s.reason) for s in
+                            loop._ingest().stage(
+                                [f"hotkey_{i}" for i in range(2, 7)],
+                                base_revision=rev1))
+             if r == "stale_base"]
+    check(merged2 and ids2 == ["hotkey_1"],
+          f"round 2 merged {ids2} (ok {merged2})")
+    check(len(stale) == 5, f"stale submissions not skipped: {stale}")
+    check(dsc.launches == 1,
+          f"round 2 dequant_scatter launches {dsc.launches} != 1 "
+          "packed contribution")
+    res["round2"] = {"accepted": ids2, "stale_skipped": stale,
+                     "published": loop._base_revision != rev1,
+                     "merged_loss": loop.report.last_loss,
+                     "base_loss": base_loss1,
+                     "dequant_scatter_launches": dsc.launches,
+                     "round_s": round2_s,
+                     "ingest_s": secs["gather_deltas"],
+                     "merge_s": secs["merge"],
+                     "eval_s": secs["evaluate"]}
+    # the CLI over the same root, after one more push of the miner
+    miner.run(steps(train[2 * AVG_MINER_STEPS:]))
+    miner.flush()
+    miner.close()
+    loop.close()
+    rev2 = t.base_revision()
+    dsc.launches = 0
+    t0 = time.perf_counter()
+    rc = avg_cli.main(README_AVERAGER_FLAGS + [
+        "--work-dir", work, "--rounds", "1", "--hotkey", "hotkey_96"])
+    cli_s = time.perf_counter() - t0
+    check(rc == 0 and t.base_revision() not in (None, rev2),
+          f"neurons.averager.main exited {rc} without a new base")
+    check(dsc.launches == 1,
+          f"the CLI's dequant_scatter launches {dsc.launches} != 1 "
+          "packed contribution")
+    res["cli"] = {"argv": README_AVERAGER_FLAGS + ["--rounds", "1"],
+                  "rc": rc, "s": cli_s,
+                  "dequant_scatter_launches": dsc.launches}
     res["indexed_leaves"] = n_indexed
     log("averager:", json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 17. validator, 18. meta merge
+# ---------------------------------------------------------------------------
+
+VAL_EVAL_BATCHES = 4
+META_EPOCHS = 2
+HONEST = ("hotkey_1", "hotkey_2", "hotkey_3")
+README_VALIDATOR_FLAGS = [
+    "--backend", "local", "--model", "gpt2-124m", "--dataset", "synthetic",
+    "--tokenizer", "word", "--no-base-wire-v2", "--flight-events", "0"]
+
+
+def _honest_miner(t, hotkey, batches, *, wire_v2: bool, quant="int8"):
+    """A MinerLoop miner (fused loss) trained on ``batches`` from the
+    published base, then one push."""
+    from distributedtraining_tpu_torch.engine.scheduler import FakeClock
+    from distributedtraining_tpu_torch.engine.train import (MinerLoop,
+                                                            TrainEngine)
+    from distributedtraining_tpu_torch.models import gpt2
+    eng = TrainEngine(gpt2.make_model(gpt2.PRESETS["gpt2-124m"])[0],
+                      fused_loss=True, device=DEV)
+    miner = MinerLoop(eng, t, hotkey, clock=FakeClock(), send_interval=1e9,
+                      check_update_interval=1e9, wire_v2=wire_v2,
+                      wire_quant=quant)
+    miner.bootstrap()
+    miner.run(iter(batches))
+    miner.flush()
+    miner.close()
+    check(miner.report.pushes >= 1, f"{hotkey} pushed nothing")
+
+
+def phase_validator(tree, tok, work: str) -> dict:
+    """The port's validator round at GPT-2-124M full width and depth over
+    phase 16's root and a fresh LocalChain: three honest miners (a
+    MinerLoop --wire-v2 int8, one with f32 kept values, a dense v1 one)
+    next to phase 16's stale dense submission and its two hostile ones;
+    one validate_and_score round at --val-cohort 8, the f32 rerun of the
+    cohort path against the sequential one, an AveragerLoop
+    WeightedAverage round over the validator's weights, then
+    ``neurons.validator.main``."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.average import (AveragerLoop,
+                                                              WeightedAverage)
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.engine.validate import Validator
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import validator as val_cli
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    held = _batches(tok, split="test", batch_size=MINER_B, seq_len=EVAL_T,
+                    n=VAL_EVAL_BATCHES)
+    train = _batches(tok, split="train", batch_size=MINER_B,
+                     seq_len=MINER_T, n=3 * AVG_MINER_STEPS)
+    t = LocalFSTransport(os.path.join(work, "artifacts"))
+    res: dict = {"model": "gpt2-124m", "eval_batches": VAL_EVAL_BATCHES,
+                 "eval_seq_len": EVAL_T, "cohort": 8}
+    t0 = time.perf_counter()
+    for i, (h, v2, quant) in enumerate((("hotkey_1", True, "int8"),
+                                        ("hotkey_2", True, "none"),
+                                        ("hotkey_3", False, "int8"))):
+        _honest_miner(t, h, train[i * AVG_MINER_STEPS:
+                                  (i + 1) * AVG_MINER_STEPS],
+                      wire_v2=v2, quant=quant)
+    res["miners_s"] = time.perf_counter() - t0
+    rev = t.base_revision()
+    chain_dir = os.path.join(work, "chain_val")   # only this validator
+    eng = TrainEngine(gpt2.make_model(cfg)[0], device=DEV)
+    v = Validator(eng, t, LocalChain(chain_dir, my_hotkey="hotkey_91"),
+                  eval_batches=lambda: iter(held), cohort_size=8,
+                  ingest_cache_mb=4096)
+    secs: dict = {}
+    _timed_calls(v, "_stage_many", secs, sync=False)
+    _timed_calls(v._evaluator(), "evaluate_cohort", secs)
+    # the round (main path): counts to 0 just before, read just after
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    dsc.launches = 0
+    t0 = time.perf_counter()
+    v.bootstrap()
+    boot_s = time.perf_counter() - t0
+    results = {s.hotkey: s for s in v.validate_and_score()}
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = {"dequant_scatter": dsc.launches, **fa.launches,
+                **fused_ce.launches}
+    peak = torch.cuda.max_memory_allocated()
+    scored = [h for h, s in results.items() if s.loss is not None]
+    mag = float(np.float32(127.0) * np.float32(1e6))
+    want = f"magnitude_exceeded({mag:.3e}>{1e3:.3e})"
+    check(results["hotkey_5"].reason == "no_delta",
+          f"the out-of-range miner: {results['hotkey_5']}")
+    check(results["hotkey_6"].reason == want and
+          results["hotkey_6"].score == 0.0,
+          f"the over-cap miner: {results['hotkey_6']} != {want}")
+    check(all(results[h].reason == "ok" and results[h].score > 0
+              for h in HONEST),
+          f"honest miners: {[results[h] for h in HONEST]}")
+    check(results["hotkey_4"].reason == "ok",   # stale, scored ("accept")
+          f"the stale miner: {results['hotkey_4']}")
+    check(sorted(scored) == ["hotkey_1", "hotkey_2", "hotkey_3",
+                             "hotkey_4"], f"scored {scored}")
+    n_fwd = cfg.n_layer * VAL_EVAL_BATCHES * (len(scored) + 1)
+    check(launches["flash_attention_fwd"] == n_fwd,
+          f"flash forward launches {launches['flash_attention_fwd']} != "
+          f"{n_fwd} = 12 x {VAL_EVAL_BATCHES} x ({len(scored)} candidates "
+          f"+ the base)")
+    check(not any(launches[k] for k in launches
+                  if k != "flash_attention_fwd"),
+          f"the validator's eval launched other kernels: {launches}")
+    weights = LocalChain(chain_dir).get_weights("hotkey_91")
+    pos = sorted({w for w in weights.values() if w > 0})
+    check(len(pos) > 1, f"chain weights not set or uniform: {weights}")
+    res["round"] = {
+        "scores": {h: results[h].score for h in scored},
+        "losses": {h: results[h].loss for h in scored},
+        "base_loss": v.base_loss,
+        "verdicts": {h: results[h].reason for h in ("hotkey_5", "hotkey_6")},
+        "chain_weights": {h: w for h, w in weights.items() if w},
+        "launches": launches, "round_s": round_s, "bootstrap_s": boot_s,
+        "stage_s": secs.get("_stage_many"),
+        "eval_s": secs.get("evaluate_cohort"),
+        "peak_cuda_mem_bytes": peak}
+    # the eval's device time: one more cohort of the scored candidates
+    ing = v._ingest().stage(scored, base_revision=v._base_revision)
+    cand = [s.delta for s in ing]
+    prof, _ = _device_profile(lambda: v._evaluator().evaluate_cohort(
+        v.base_params, cand, iter(held)))
+    # the candidates' host-to-device copies (built once a cohort) apart
+    prof["device_ms_per_candidate_batch"] = (
+        (prof["device_ms"] - prof["h2d_copy_ms"])
+        / (len(cand) * VAL_EVAL_BATCHES))
+    res["round"]["eval_profile"] = prof
+    # f32 compute: the cohort path against the sequential score_miner
+    # path (summation order only), staged through the same cache
+    cfg32 = dc.replace(cfg, dtype="float32")
+    eng32 = TrainEngine(gpt2.make_model(cfg32)[0], device=DEV)
+    held32 = held[:2]
+    pair = []
+    for cohort in (8, 1):
+        v32 = Validator(eng32, t, LocalChain(os.path.join(
+            work, f"chain_f32_{cohort}"), my_hotkey="hotkey_91"),
+            eval_batches=lambda: iter(held32), cohort_size=cohort)
+        v32._ingestor = v._ingest()
+        v32.base_params, v32._base_revision = v.base_params, rev
+        v32._eval_base()
+        pair.append(v32)
+    coh = {s.hotkey: s for s in pair[0].validate_and_score()}
+    seq = {h: pair[1].score_miner(h) for h in scored}
+    f32_rel = {}
+    for h in scored:
+        a, b = coh[h], seq[h]
+        rel = abs(a.loss - b.loss) / abs(b.loss)
+        srel = abs(a.score - b.score) / max(abs(b.score), 1e-30)
+        f32_rel[h] = {"loss_rel": rel, "score_rel": srel,
+                      "score": b.score}
+        check(rel <= 1e-5, f"f32 cohort vs sequential loss {h}: {rel}")
+        check(h not in HONEST or srel <= 1e-5,
+              f"f32 cohort vs sequential score {h}: {a.score} vs "
+              f"{b.score}")
+    res["f32_cohort_vs_sequential"] = f32_rel
+    del pair, eng32
+    # the next averager round reads the validator's weights
+    aloop = AveragerLoop(TrainEngine(gpt2.make_model(cfg)[0], device=DEV),
+                         t, LocalChain(chain_dir, my_hotkey="hotkey_95"),
+                         WeightedAverage(), val_batches=lambda: iter(held),
+                         publish_policy="always")
+    aloop.bootstrap()
+    t0 = time.perf_counter()
+    merged = aloop.run_round()
+    avg_s = time.perf_counter() - t0
+    aloop.close()
+    ids, w = aloop.strategy._weights_cache[0][0], np.asarray(
+        aloop.strategy._weights_cache[1])
+    consensus = LocalChain(chain_dir).consensus_scores()
+    expect = delta.normalized_merge_weights(list(ids), consensus)
+    check(merged and list(ids) == list(HONEST),
+          f"the weighted round merged {ids} (ok {merged})")
+    check(float(np.abs(w - expect).max()) <= 1e-7
+          and len(set(np.round(w, 6))) > 1,
+          f"merge weights {w} are not the validator's consensus {expect}")
+    res["weighted_round"] = {"accepted": list(ids),
+                             "weights": [float(x) for x in w],
+                             "round_s": avg_s,
+                             "published": t.base_revision() != rev}
+    v.close()
+    # the CLI over the same root, with the README's flags
+    t0 = time.perf_counter()
+    rc = val_cli.main(README_VALIDATOR_FLAGS + [
+        "--work-dir", work, "--rounds", "1", "--hotkey", "hotkey_92"])
+    cli_s = time.perf_counter() - t0
+    cli_w = LocalChain(os.path.join(work, "chain")).get_weights("hotkey_92")
+    check(rc == 0 and any(cli_w.values()),
+          f"neurons.validator.main exited {rc}, weights {cli_w}")
+    res["cli"] = {"argv": README_VALIDATOR_FLAGS + ["--rounds", "1"],
+                  "rc": rc, "s": cli_s,
+                  "weights": {h: x for h, x in cli_w.items() if x}}
+    log("validator:", json.dumps(res))
+    return res
+
+
+def phase_meta_merge(tree, tok, work: str) -> dict:
+    """The averager's default strategy at GPT-2-124M full width and
+    depth: AveragerLoop with ParameterizedMerge over the fleet's
+    submissions (densified), the published base against the plain
+    mixture, launches, a profile, the f32 parity of the meta-steps
+    through the kernels and through the plain attention, then
+    ``neurons.averager.main`` with its default strategy."""
+    from unittest import mock
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.average import (
+        AveragerLoop, ParameterizedMerge)
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    from distributedtraining_tpu_torch.utils import obs
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    held = _batches(tok, split="test", batch_size=MINER_B, seq_len=EVAL_T,
+                    n=VAL_EVAL_BATCHES)
+    t = LocalFSTransport(os.path.join(work, "artifacts"))
+    model = gpt2.make_model(cfg)[0]
+    eng = TrainEngine(model, device=DEV)
+    # the fleet's submissions name the bases before the last merges:
+    # accepted as the reference averager accepts them
+    loop = AveragerLoop(eng, t, LocalChain(os.path.join(work, "chain"),
+                                           my_hotkey="hotkey_96"),
+                        ParameterizedMerge(model, meta_epochs=META_EPOCHS),
+                        val_batches=lambda: iter(held),
+                        publish_policy="always", stale_deltas="accept")
+    loop.bootstrap()
+    rev = loop._base_revision
+    base_before = {k: v.detach().cpu() for k, v in loop.base_params.items()}
+    secs: dict = {}
+    kept: dict = {}
+    _timed_calls(loop, "gather_deltas", secs, kept)
+    _timed_calls(loop.strategy, "merge", secs, kept)
+    _timed_calls(eng, "evaluate", secs)
+    obs.configure()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    dsc.launches = 0
+    t0 = time.perf_counter()
+    merged_ok = loop.run_round()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = {"dequant_scatter": dsc.launches, **fa.launches,
+                **fused_ce.launches}
+    peak = torch.cuda.max_memory_allocated()
+    snap = obs.flush()
+    obs.reset()
+    loop.close()
+    ids, deltas = kept["gather_deltas"]
+    _, w = kept["merge"]
+    check(merged_ok and ids == ["hotkey_1", "hotkey_2", "hotkey_3",
+                                "hotkey_4"],
+          f"the parameterized round merged {ids} (ok {merged_ok})")
+    check(t.base_revision() not in (None, rev), "no base was published")
+    check(all(bool(torch.isfinite(x).all()) for x in w.values()),
+          "non-finite learned logits")
+    check(snap.get("delta.densify_fallbacks", 0) == 2,
+          f"the two packed submissions did not reach the strategy dense: "
+          f"{snap.get('delta.densify_fallbacks')}")
+    steps = META_EPOCHS * VAL_EVAL_BATCHES
+    n_eval = VAL_EVAL_BATCHES                 # the merged base's eval
+    check(launches["flash_attention_fwd"] == cfg.n_layer * (steps + n_eval),
+          f"flash forward launches {launches['flash_attention_fwd']} != "
+          f"12 x ({steps} meta-steps + {n_eval} eval batches)")
+    for key in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        check(launches[key] == cfg.n_layer * steps,
+              f"{key} launches {launches[key]} != 12 x {steps} meta-steps")
+    check(not any(launches[k] for k in ("dequant_scatter", "fused_ce_fwd",
+                                        "fused_ce_bwd_dh",
+                                        "fused_ce_bwd_dw")),
+          f"the meta merge launched other kernels: {launches}")
+    # the published base against the plain mixture on the CPU
+    placed = [delta.place_delta(d, base_before) for d in deltas]
+    norm = {k: torch.softmax(x.detach().cpu(), dim=0) for k, x in w.items()}
+    plain = delta.per_tensor_weighted_merge(base_before, placed, norm)
+    pub = gpt2.params_from_numpy(t.fetch_base(loop._host_template())[0],
+                                 device="cpu")
+    base_err = max(float((pub[k] - plain[k]).abs().max()) for k in pub)
+    check(base_err <= 1e-6, f"published base vs the plain mixture: max abs "
+                            f"{base_err} > 1e-6")
+    del placed, plain, pub
+    spread = max(float((x.max() - x.min()).abs()) for x in w.values())
+    res: dict = {
+        "model": "gpt2-124m", "miners": ids, "meta_epochs": META_EPOCHS,
+        "eval_batches": VAL_EVAL_BATCHES, "eval_seq_len": EVAL_T,
+        "meta_steps": steps, "launches": launches,
+        "published_vs_plain_max_abs": base_err,
+        "logit_spread_max": spread,
+        "epoch_losses": loop.strategy.last_epoch_losses,
+        "merged_loss": loop.report.last_loss, "round_s": round_s,
+        "ingest_s": secs["gather_deltas"], "merge_s": secs["merge"],
+        "eval_s": secs["evaluate"], "peak_cuda_mem_bytes": peak}
+    # one epoch more under the profiler: device ms per meta-step
+    one = ParameterizedMerge(model, meta_epochs=1)
+    prof, _ = _device_profile(lambda: one.merge(
+        eng, loop.base_params, deltas, ids, val_batches=lambda: iter(held)))
+    prof["device_ms_per_meta_step"] = (
+        (prof["device_ms"] - prof["h2d_copy_ms"]) / VAL_EVAL_BATCHES)
+    res["profile"] = prof
+    # f32 at B 2, T 256: 3 meta-steps through the kernels, 3 with the
+    # attention forced to its plain versions (phase 9's test hook)
+    cfg32 = dc.replace(cfg, dtype="float32")
+    model32 = gpt2.make_model(cfg32)[0]
+    eng32 = TrainEngine(model32, device=DEV)
+    small = _batches(tok, split="test", batch_size=2, seq_len=256, n=1)
+
+    def run():
+        pm = ParameterizedMerge(model32, meta_epochs=3)
+        before = dict(fa.launches)
+        _, lw = pm.merge(eng32, loop.base_params, deltas, ids,
+                         val_batches=lambda: iter(small))
+        return (pm.last_epoch_losses, lw,
+                {k: fa.launches[k] - before[k] for k in before})
+
+    k_losses, k_w, k_launch = run()
+    with mock.patch.object(fa, "_forward", fa.flash_attention_reference), \
+            mock.patch.object(fa, "_backward",
+                              fa.flash_attention_bwd_reference):
+        p_losses, p_w, p_launch = run()
+    check(all(n == cfg.n_layer * 3 for n in k_launch.values()),
+          f"kernel run launches {k_launch}")
+    check(not any(p_launch.values()), f"plain run launched {p_launch}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    werr = max(float((k_w[k] - p_w[k]).abs().max()) for k in k_w)
+    check(rel <= 1e-4 and werr <= 1e-4,
+          f"f32 meta-steps through the kernels vs the plain attention: "
+          f"losses {k_losses} vs {p_losses} (rel {rel}), logits {werr}")
+    res["f32_parity"] = {"batch": 2, "seq_len": 256, "meta_steps": 3,
+                         "kernel_losses": k_losses, "plain_losses": p_losses,
+                         "max_rel_diff": rel, "logits_max_abs_diff": werr}
+    del eng32, model32
+    # the CLI with its default strategy (--strategy parameterized)
+    flags = [f for f in README_AVERAGER_FLAGS if f not in ("--strategy",
+                                                           "weighted")]
+    argv = flags + ["--eval-batches", str(VAL_EVAL_BATCHES), "--meta-epochs",
+                    str(META_EPOCHS), "--stale-deltas", "accept",
+                    "--publish-policy", "always"]
+    rev1 = t.base_revision()
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = avg_cli.main(argv + ["--work-dir", work, "--rounds", "1",
+                              "--hotkey", "hotkey_97"])
+    cli_s = time.perf_counter() - t0
+    check(rc == 0 and t.base_revision() not in (None, rev1),
+          f"neurons.averager.main exited {rc} without a new base")
+    # the CLI's held-out stream (the front half of the test split) may
+    # hold fewer batches than asked for: n batches give META_EPOCHS x n
+    # meta-steps and n eval batches of the merged base
+    cli = dict(fa.launches)
+    n, rest = divmod(cli["flash_attention_fwd"],
+                     cfg.n_layer * (META_EPOCHS + 1))
+    cli_steps = META_EPOCHS * n
+    check(n > 0 and rest == 0 and all(
+        cli[k] == cfg.n_layer * cli_steps
+        for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")),
+          f"the CLI's launches {cli} are not 12 x ({META_EPOCHS} x n "
+          f"meta-steps + n eval batches) forward and 12 x {META_EPOCHS} "
+          f"x n of each backward kernel")
+    res["cli"] = {"argv": argv + ["--rounds", "1"], "rc": rc, "s": cli_s,
+                  "eval_batches": n, "meta_steps": cli_steps,
+                  "launches": cli}
+    log("meta merge:", json.dumps(res))
     return res
 
 
@@ -2182,7 +2611,8 @@ FLASH_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
                  "flash_attention_bwd_dq": "flash_bwd_dq_mma_kernel"}
 
 
-def _flash_entries(flash: dict, train: dict, build: dict) -> list:
+def _flash_entries(flash: dict, train: dict, build: dict, val: dict,
+                   meta: dict) -> list:
     out = []
     per = build["sources"]["flash_attention"]["kernels"]
     for name, tpu in FLASH_TPU_KERNELS.items():
@@ -2197,6 +2627,9 @@ def _flash_entries(flash: dict, train: dict, build: dict) -> list:
             "replaces": "distributedtraining_tpu/ops/flash_attention.py:86",
             "tpu_kernel": tpu,
             "launches": train["launches"][name],
+            # the validator's round and the meta merge's round
+            "launches_validator": val["round"]["launches"][name],
+            "launches_meta_merge": meta["launches"][name],
             # over every case and both dtypes (bf16 dominates)
             "max_abs_err": max(c["max_abs"][key] for c in checks
                                for key in keys),
@@ -2302,7 +2735,13 @@ def main() -> int:
     fparity = phase_fused_parity(tree, tok)
     miner = phase_miner(tree, tok)
     scatter = phase_scatter()
-    avg = phase_averager(tree, tok)
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        avg = phase_averager(tree, tok, work)
+        t0 = time.perf_counter()
+        val = phase_validator(tree, tok, work)
+        meta = phase_meta_merge(tree, tok, work)
+        val_meta_s = time.perf_counter() - t0
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -2323,7 +2762,7 @@ def main() -> int:
         "decode_step_paged_ms": prof["paged_decode_ms_per_step"],
         "timed_shape": kern["timed_shape"],
         "build_s": build["build_s"]},
-        *_flash_entries(flash, train, build),
+        *_flash_entries(flash, train, build, val, meta),
         *_ce_entries(ce, miner, tfused, build),
         _scatter_entry(scatter, avg, build)]}), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
@@ -2338,6 +2777,9 @@ def main() -> int:
     print(json.dumps({"averager": {**avg, "scatter": scatter, "card": card,
                                    "total_s": time.perf_counter() - t_start}}),
           flush=True)
+    print(json.dumps({"validator": {**val, "meta_merge": meta,
+                                    "phases_17_18_s": val_meta_s,
+                                    "card": card}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,5 +21,9 @@ miner's round: ``engine.train.MinerLoop`` publishing through
 (``WeightedAverage``, ``AveragerLoop``) staging submissions through
 ``engine.ingest``, weighting them from ``chain`` (the local JSON chain)
 and folding packed ones with the CUDA dequantize-scatter-add kernel
-(``ops.dequant_scatter``), driven by ``neurons.averager``.
+(``ops.dequant_scatter``), or learning the mixing weights
+(``ParameterizedMerge``) through the flash kernels, driven by
+``neurons.averager``; and the validator's round: ``engine.validate``
+(``Validator``) scoring cohorts through ``engine.batched_eval`` and
+writing chain weights, driven by ``neurons.validator``.
 """

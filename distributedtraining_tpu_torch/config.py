@@ -1,6 +1,6 @@
-"""Run configuration of the port's miner and averager — the port of the
-JAX package's ``config.py`` for ``RunConfig.from_args(role, argv)`` with
-``role`` ``"miner"`` or ``"averager"``.
+"""Run configuration of the port's miner, validator and averager — the
+port of the JAX package's ``config.py`` for ``RunConfig.from_args(role,
+argv)`` with ``role`` ``"miner"``, ``"validator"`` or ``"averager"``.
 
 Each role's parser takes every flag the JAX package's parser for that
 role accepts, with the same spellings, destinations and defaults, so a
@@ -9,8 +9,9 @@ not brought over yet raises NotImplementedError naming its slice
 (:meth:`RunConfig.check_ported`). Some are JAX defaults and must be
 turned off explicitly for now: for the miner ``--no-base-wire-v2``,
 ``--checkpoint-interval 0``, ``--no-anomaly-trace`` and ``--flight-events
-0``; for the averager ``--strategy weighted``, ``--no-base-wire-v2``,
-``--no-lineage`` and ``--flight-events 0``. Arguments are parsed only
+0``; for the validator ``--no-base-wire-v2`` and ``--flight-events 0``;
+for the averager ``--no-base-wire-v2``, ``--no-lineage`` and
+``--flight-events 0``. Arguments are parsed only
 when an entry point asks (never at import).
 """
 
@@ -21,7 +22,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 _SLICES = "ROADMAP 'Slices of the port'"
-ROLES = ("miner", "averager")
+ROLES = ("miner", "validator", "averager")
 
 
 @dataclasses.dataclass
@@ -48,6 +49,7 @@ class RunConfig:
     epoch_length: int = 100
     resync_blocks: int = 0
     vpermit_stake_limit: float = 1000.0
+    allow_no_vpermit: bool = False
     # storage / transport
     backend: str = "local"
     work_dir: str = "./hivetrain_run"
@@ -70,6 +72,7 @@ class RunConfig:
     max_delta_abs: float = 1e3
     accept_quant: bool = True
     stale_deltas: Optional[str] = None
+    score_metric: str = "loss"
     learning_rate: float = 5e-4
     weight_decay: float = 0.01
     grad_clip: Optional[float] = None
@@ -184,9 +187,9 @@ class RunConfig:
             (self.my_repo_id is not None,
              "--my-repo-id (the chain's address store)", 5),
             (self.sign_artifacts, "--sign-artifacts", 5),
-            (averager and self.strategy != "weighted",
-             f"--strategy {self.strategy}, parameterized by default (pass "
-             f"--strategy weighted)", 5),
+            (averager and self.strategy == "genetic",
+             "--strategy genetic (its population draws need threefry2x32 "
+             "in torch)", 6),
             (self.base_wire_v2,
              "--base-wire-v2, on by default (pass --no-base-wire-v2)", 5),
             (miner and self.checkpoint_interval > 0,
@@ -214,7 +217,7 @@ class RunConfig:
              "--outer-momentum > 0 (OuterOptMerge)", 5),
             (averager and self.hier != "", f"--hier {self.hier}", 5),
             (averager and self.standby, "--standby (the failover lease)", 5),
-            (averager and self.remediate, "--remediate", 7),
+            (self.role != "miner" and self.remediate, "--remediate", 7),
             (self.init_from is not None, "--init-from", 7),
             (self.heartbeat_interval > 0, "--heartbeat-interval > 0", 7),
             (self.obs_port != 0, "--obs-port", 7),
@@ -250,8 +253,8 @@ def _dataset_arg(value: str) -> str:
 
 
 # (flags, argparse keywords) of the JAX package's miner parser, in its
-# order; help strings are the port's. The averager's parser takes these
-# less _MINER_ONLY, plus _AVERAGER_FLAGS.
+# order; help strings are the port's. The validator's and the averager's
+# parsers take these less _MINER_ONLY, plus their _ROLE_FLAGS.
 _D = RunConfig()
 _M = MeshSpec()
 _FLAGS: list[tuple[tuple[str, ...], dict]] = [
@@ -439,9 +442,9 @@ _MINER_ONLY = frozenset((
     "--profile-dir", "--profile-steps", "--no-anomaly-trace",
     "--anomaly-dir"))
 
-# the JAX averager's own flags (its delta-consumer, ingest, strategy,
-# hierarchy and resilience groups)
-_AVERAGER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
+# the delta-consuming roles' flags (validator and averager: admission,
+# staleness, ingest)
+_CONSUMER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
     (("--max-delta-abs",), dict(dest="max_delta_abs", type=_nonneg_float,
                                 default=_D.max_delta_abs,
                                 help="admission cap on max |value| "
@@ -458,10 +461,40 @@ _AVERAGER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
                                  default=_D.ingest_workers)),
     (("--ingest-cache-mb",), dict(dest="ingest_cache_mb", type=int,
                                   default=_D.ingest_cache_mb)),
+]
+
+# the monitor roles' resilience flags (validator and averager)
+_MONITOR_FLAGS: list[tuple[tuple[str, ...], dict]] = [
+    (("--remediate",), dict(dest="remediate", action="store_true",
+                            default=_D.remediate)),
+    (("--quarantine-rules",), dict(dest="quarantine_rules",
+                                   default=_D.quarantine_rules)),
+    (("--probation-beats",), dict(dest="probation_beats", type=int,
+                                  default=_D.probation_beats)),
+    (("--probation-rounds",), dict(dest="probation_rounds", type=int,
+                                   default=_D.probation_rounds)),
+    (("--score-decay",), dict(dest="score_decay", type=float,
+                              default=_D.score_decay)),
+]
+
+# the JAX validator's own flags
+_VALIDATOR_FLAGS: list[tuple[tuple[str, ...], dict]] = [
+    (("--allow-no-vpermit",), dict(dest="allow_no_vpermit",
+                                   action="store_true",
+                                   help="run without a validator permit "
+                                        "(scores, never weights)")),
+    (("--score-metric",), dict(dest="score_metric",
+                               choices=("loss", "perplexity"),
+                               default=_D.score_metric)),
+]
+
+# the JAX averager's own flags (its strategy, hierarchy and failover
+# groups)
+_AVERAGER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
     (("--strategy",), dict(choices=("weighted", "parameterized", "genetic"),
                            default=_D.strategy,
-                           help="weighted (the port's only strategy so "
-                                "far)")),
+                           help="weighted or parameterized (genetic is "
+                                "not ported yet)")),
     (("--merge-chunk",), dict(dest="merge_chunk", type=int,
                               default=_D.merge_chunk)),
     (("--meta-epochs",), dict(dest="meta_epochs", type=int,
@@ -493,16 +526,6 @@ _AVERAGER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
                               default=_D.hier_fanout)),
     (("--hier-wire-v2",), dict(dest="hier_wire_v2", action="store_true",
                                default=_D.hier_wire_v2)),
-    (("--remediate",), dict(dest="remediate", action="store_true",
-                            default=_D.remediate)),
-    (("--quarantine-rules",), dict(dest="quarantine_rules",
-                                   default=_D.quarantine_rules)),
-    (("--probation-beats",), dict(dest="probation_beats", type=int,
-                                  default=_D.probation_beats)),
-    (("--probation-rounds",), dict(dest="probation_rounds", type=int,
-                                   default=_D.probation_rounds)),
-    (("--score-decay",), dict(dest="score_decay", type=float,
-                              default=_D.score_decay)),
     (("--standby",), dict(dest="standby", action="store_true",
                           default=_D.standby)),
     (("--failover-deadline",), dict(dest="failover_deadline",
@@ -510,20 +533,25 @@ _AVERAGER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
                                     default=_D.failover_deadline)),
 ]
 
+_ROLE_FLAGS = {"miner": [],
+               "validator": _VALIDATOR_FLAGS + _CONSUMER_FLAGS
+               + _MONITOR_FLAGS,
+               "averager": _CONSUMER_FLAGS + _MONITOR_FLAGS
+               + _AVERAGER_FLAGS}
+
 
 def build_parser(role: str = "miner") -> argparse.ArgumentParser:
-    """The parser of ``role`` (``"miner"`` or ``"averager"``)."""
+    """The parser of ``role`` (``"miner"``, ``"validator"`` or
+    ``"averager"``)."""
     if role not in ROLES:
         raise NotImplementedError(
-            f"role {role!r}: the port's validator is slice 5 and its server "
-            f"slice 6 ({_SLICES})")
+            f"role {role!r}: the port's server is slice 6 ({_SLICES})")
     p = argparse.ArgumentParser(
         prog=f"python -m distributedtraining_tpu_torch.neurons.{role}",
         description=f"distributedtraining {role}, PyTorch/CUDA port")
     for flags, kw in _FLAGS:
         if role == "miner" or flags[0] not in _MINER_ONLY:
             p.add_argument(*flags, **kw)
-    if role == "averager":
-        for flags, kw in _AVERAGER_FLAGS:
-            p.add_argument(*flags, **kw)
+    for flags, kw in _ROLE_FLAGS[role]:
+        p.add_argument(*flags, **kw)
     return p

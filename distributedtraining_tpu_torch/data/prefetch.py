@@ -118,3 +118,13 @@ def prefetch(source: Iterable, *, depth: int = 2,
         loop.run(batches, ...)
     """
     return PrefetchIterator(source, depth=depth, transform=transform)
+
+
+def map_prefetch(fn: Callable, items: Iterable, *,
+                 depth: int = 1) -> PrefetchIterator:
+    """Map ``fn`` over ``items`` on the background thread, bounded
+    ``depth`` results ahead of the consumer: the staging half of a
+    fetch/compute pipeline (the validator's cohort stager,
+    ``engine/batched_eval.stage_cohorts``). ``close()`` stops the worker
+    early (a failed round)."""
+    return PrefetchIterator(items, depth=depth, transform=fn)

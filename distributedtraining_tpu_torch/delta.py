@@ -657,6 +657,67 @@ def _dense_leaf(x, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+def place_delta(delta: Tree, base: Params) -> dict[str, torch.Tensor]:
+    """A dense delta (wire tree or state dict) as a state dict on the
+    base's device in the base's dtype: JAX's ``d.astype(b.dtype)``, so a
+    bf16 wire delta adds onto f32 weights in f32."""
+    flat = flatten_tree(delta)
+    _same_keys(base, flat)
+    return {k: _dense_leaf(flat[k], b).to(b.dtype) for k, b in base.items()}
+
+
+def _mix_leaf(b: torch.Tensor, ds: Sequence[torch.Tensor], w: torch.Tensor
+              ) -> torch.Tensor:
+    w = w.to(b.dtype)
+    s = None
+    for i, d in enumerate(ds):
+        term = w[i] * d.to(b.dtype)
+        s = term if s is None else s + term
+    return b + s
+
+
+def weighted_merge(base: Params, deltas: Sequence[Params], weights
+                   ) -> dict[str, torch.Tensor]:
+    """``base + sum_i weights[i] * deltas[i]`` over a list of placed
+    deltas (state dicts, :func:`place_delta`), summed in the base's dtype.
+    Differentiable with respect to ``weights`` (an ``(M,)`` tensor), which
+    is how the parameterized merge takes its meta-gradient.
+
+    The JAX package merges a padded ``[M_pad, ...]`` stack
+    (``stack_deltas`` + ``pad_merge_weights``) so that XLA compiles one
+    program per bucket; its padded slots hold zero deltas at weight 0 and
+    add exactly 0. PyTorch compiles nothing, so the port merges the list
+    of real deltas: the same terms, without the zeros."""
+    if not deltas:
+        raise ValueError("weighted_merge: empty delta list")
+    w = torch.as_tensor(weights)
+    if w.shape != (len(deltas),):
+        raise ValueError(f"{tuple(w.shape)} weights for {len(deltas)} deltas")
+    return {k: _mix_leaf(b, [d[k] for d in deltas], w.to(b.device))
+            for k, b in base.items()}
+
+
+def per_tensor_weighted_merge(base: Params, deltas: Sequence[Params],
+                              weights: Mapping[str, torch.Tensor]
+                              ) -> dict[str, torch.Tensor]:
+    """:func:`weighted_merge` with one ``(M,)`` mixing vector per
+    parameter tensor (``weights`` keyed like ``base``): the reference's
+    production merge, a ``(num_models, num_params)`` weight matrix. The
+    list needs no padding for the reason :func:`weighted_merge` gives."""
+    if not deltas:
+        raise ValueError("per_tensor_weighted_merge: empty delta list")
+    _same_keys(base, weights)
+    out = {}
+    for k, b in base.items():
+        w = weights[k]
+        if w.shape != (len(deltas),):
+            raise ValueError(f"{k}: {tuple(w.shape)} weights for "
+                             f"{len(deltas)} deltas")
+        out[k] = _mix_leaf(b, [d[k] for d in deltas], w)
+    return out
+
+
+@torch.no_grad()
 def chunked_weighted_merge(base: Params, deltas: Sequence[Tree],
                            weights, *, chunk: int = 8
                            ) -> dict[str, torch.Tensor]:

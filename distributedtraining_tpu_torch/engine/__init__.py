@@ -1,3 +1,4 @@
 """Serving engine (continuous batching over a paged KV cache), the
 training step engine, the miner's loop and its publisher, delta ingest,
-and the averager's loop."""
+the validator's loop and cohort evaluator, and the averager's loop and
+strategies."""

@@ -1,27 +1,33 @@
 """Averager engine: merge miner deltas into the next base model — the port
 of the JAX package's ``engine/average.py`` for the flat, single-host
-averager with the weighted strategy (``--strategy weighted``).
+averager with the weighted and the parameterized strategies.
 
-:class:`WeightedAverage` weighs each accepted miner's delta by its
-normalized validator consensus score. It takes the round's submissions as
-a HOST list: dense deltas merge ``chunk_size`` at a time
-(``delta.chunked_weighted_merge``), and a list holding wire-v2 PACKED
-submissions folds through ``delta.aggregate_deltas``, one contribution at
-a time into one f32 accumulator, each indexed leaf through the CUDA
-dequantize-scatter-add kernel on the card — never an M x params stack and
-never a per-miner densify.
+:class:`WeightedAverage` (``--strategy weighted``) weighs each accepted
+miner's delta by its normalized validator consensus score. It takes the
+round's submissions as a HOST list: dense deltas merge ``chunk_size`` at
+a time (``delta.chunked_weighted_merge``), and a list holding wire-v2
+PACKED submissions folds through ``delta.aggregate_deltas``, one
+contribution at a time into one f32 accumulator, each indexed leaf
+through the CUDA dequantize-scatter-add kernel on the card — never an
+M x params stack and never a per-miner densify.
+
+:class:`ParameterizedMerge` (``--strategy parameterized``, the default)
+learns the mixing weights by gradient descent on the held-out loss of
+the mixture: the model's forward and backward through the flash kernels.
+It takes dense deltas, so the loop's ingest densifies wire-v2
+submissions for it.
 
 :class:`AveragerLoop` is the round: bootstrap (pull the published base,
 or publish a genesis base), gather and screen every miner's submission
-through ``engine/ingest.py`` (packed submissions stay packed:
-``densify=False``), merge, evaluate the merged base on held-out batches,
-publish it when the ``improved`` guard allows (or ``always``), and skip a
-recompute when the exact submission set was already merged and declined.
+through ``engine/ingest.py``, merge, evaluate the merged base on held-out
+batches, publish it when the ``improved`` guard allows (or ``always``),
+and skip a recompute when the exact submission set was already merged
+and declined.
 
 Not ported yet, and refused with NotImplementedError naming the slice
-(ROADMAP "Slices of the port"): ``ParameterizedMerge``, ``GeneticMerge``
-and ``OuterOptMerge``, and the loop's ``hierarchy``, ``lease``,
-``lineage`` and ``base_dist`` planes (slice 5), ``fleet``,
+(ROADMAP "Slices of the port"): ``GeneticMerge`` (slice 6: its draws
+need threefry in torch), ``OuterOptMerge`` and the loop's ``hierarchy``,
+``lease``, ``lineage`` and ``base_dist`` planes (slice 5), ``fleet``,
 ``remediation`` and LoRA submissions (slice 7); a device mesh is refused
 by the engine (``TrainEngine(mesh=...)``, slice 7).
 """
@@ -97,6 +103,118 @@ class WeightedAverage:
         return merged, w
 
 
+class _SGD:
+    """``optax.sgd(lr)``: ``w + (-lr * g)``, with the interface of
+    ``train.AdamW`` (``init``, ``update_`` in place)."""
+
+    def __init__(self, learning_rate: float):
+        self.lr = learning_rate
+
+    def init(self, params):
+        return None
+
+    @torch.no_grad()
+    def update_(self, grads, state, params) -> None:
+        for k, p in params.items():
+            p.add_(grads[k] * -self.lr)
+
+
+class ParameterizedMerge:
+    """Meta-learned mixing weights, the production merge
+    (neurons/averager.py:102 -> averaging_logic.py:335-583).
+
+    ``loss(w)`` is the held-out loss of ``base + sum_i softmax(w)_i *
+    delta_i``; ``w`` (logits, zeros at the start: uniform) takes
+    ``meta_epochs`` passes over ``val_batches()`` of ``meta_optimizer``
+    at ``meta_lr`` (the reference's 7 and 0.01). ``per_tensor=True``
+    learns one logit vector per parameter tensor (the reference's
+    ``(num_models, num_params)`` matrix), False one per miner.
+
+    Each meta-step is the model's forward and backward on the mixture
+    (the flash-attention forward and backward kernels on the card), with
+    the gradient taken with respect to ``w`` alone: base and deltas carry
+    none, and no graph outlives its step. ``"adam"`` is ``optax.adam``
+    (b1 0.9, b2 0.999, eps 1e-8, eps_root 0: ``train.AdamW`` with decay
+    0), ``"sgd"`` is ``optax.sgd``. The deltas arrive dense (the loop's
+    ingest densifies for this strategy) and are placed once a merge."""
+
+    def __init__(self, model, *, meta_epochs: int = 7, meta_lr: float = 0.01,
+                 per_tensor: bool = True, meta_optimizer: str = "adam"):
+        if meta_optimizer not in ("adam", "sgd"):
+            raise ValueError(f"meta_optimizer must be 'adam' or 'sgd', "
+                             f"got {meta_optimizer!r}")
+        self.model = model
+        self.meta_epochs = meta_epochs
+        self.meta_lr = meta_lr
+        self.per_tensor = per_tensor
+        self.meta_optimizer = meta_optimizer
+        self.last_epoch_losses: list[float] = []
+
+    def lineage_weights(self, weights):
+        """The scalar-per-miner mix is linear in ``softmax(w)``, so a
+        lineage record of it replays; per-tensor weights are not one
+        scalar per miner, and give None."""
+        if self.per_tensor:
+            return None
+        return torch.softmax(torch.as_tensor(weights).detach(), dim=0)
+
+    def _mixture(self, w, base: Params, placed: list) -> Params:
+        if self.per_tensor:
+            return delta_lib.per_tensor_weighted_merge(
+                base, placed, {k: torch.softmax(v, dim=0)
+                               for k, v in w.items()})
+        return delta_lib.weighted_merge(base, placed,
+                                        torch.softmax(w, dim=0))
+
+    def _tx(self):
+        if self.meta_optimizer == "adam":
+            from .train import AdamW
+            return AdamW(self.meta_lr, weight_decay=0.0)
+        return _SGD(self.meta_lr)
+
+    def merge(self, engine, base: Params, stacked: Sequence, miner_ids:
+              list[str], *, val_batches: Callable[[], Iterable[dict]],
+              consensus=None):
+        """``(merged, w)``: the mixture at the learned logits ``w`` (a
+        dict keyed like ``base`` when per-tensor, else an ``(M,)``
+        tensor)."""
+        from .train import _default_lm_loss
+        m = len(miner_ids)
+        if m == 0 or len(stacked) != m:
+            raise ValueError(f"{len(stacked)} deltas for {m} miners")
+        placed = [delta_lib.place_delta(d, base) for d in stacked]
+        dev = next(iter(base.values())).device
+        names = list(base) if self.per_tensor else ["w"]
+        # softmax(0) is uniform
+        leaves = {k: torch.zeros(m, dtype=torch.float32, device=dev)
+                  for k in names}
+        tx = self._tx()
+        opt_state = tx.init(leaves)
+        self.last_epoch_losses = []
+        for epoch in range(self.meta_epochs):
+            last = None
+            for batch in val_batches():
+                batch = engine.place_batch(batch)
+                for v in leaves.values():
+                    v.requires_grad_(True)
+                w = leaves if self.per_tensor else leaves["w"]
+                loss, _ = _default_lm_loss(
+                    self.model, self._mixture(w, base, placed), batch)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+                tx.update_(dict(zip(names, grads)), opt_state, leaves)
+                last = loss.detach()
+            # one host read an epoch, for the log line
+            value = float("nan") if last is None else float(last)
+            self.last_epoch_losses.append(value)
+            logger.info("meta-learning epoch %d/%d loss=%.4f",
+                        epoch + 1, self.meta_epochs, value)
+        with torch.no_grad():
+            w = ({k: v.detach() for k, v in leaves.items()}
+                 if self.per_tensor else leaves["w"].detach())
+            merged = self._mixture(w, base, placed)
+        return merged, w
+
+
 def _not_ported(name: str, what: str, slice_no: int):
     class _Refused:
         __doc__ = (f"{what}: not ported yet (ROADMAP 'Slices of the port', "
@@ -111,11 +229,10 @@ def _not_ported(name: str, what: str, slice_no: int):
     return _Refused
 
 
-ParameterizedMerge = _not_ported(
-    "ParameterizedMerge", "the meta-learned per-miner merge (--strategy "
-    "parameterized)", 5)
 GeneticMerge = _not_ported(
-    "GeneticMerge", "the genetic merge (--strategy genetic)", 5)
+    "GeneticMerge", "the genetic merge (--strategy genetic; its population "
+    "draws use jax.random, so parity needs threefry2x32 in torch, the "
+    "sampling work of slice 6)", 6)
 OuterOptMerge = _not_ported(
     "OuterOptMerge", "the outer Nesterov step (--outer-momentum)", 5)
 
@@ -172,11 +289,6 @@ class AveragerLoop:
                 raise NotImplementedError(
                     f"AveragerLoop({name}=...): {what} is slice {slice_no} "
                     f"({_SLICES})")
-        if not getattr(strategy, "host_list_ingest", False):
-            raise NotImplementedError(
-                f"strategy {type(strategy).__name__}: the port's averager "
-                f"merges host lists (WeightedAverage); the stacked "
-                f"strategies are slice 5 ({_SLICES})")
         if stale_deltas not in ("skip", "accept"):
             raise ValueError(f"stale_deltas must be 'skip' or 'accept', "
                              f"got {stale_deltas!r}")
@@ -258,8 +370,9 @@ class AveragerLoop:
         self._base_loss = None   # new base: the guard re-evaluates lazily
 
     def _ingest(self):
-        """The shared ingest front-end; packed submissions stay packed
-        (the strategy folds host lists by scatter-add)."""
+        """The shared ingest front-end. Packed submissions stay packed
+        when the strategy folds host lists by scatter-add
+        (``WeightedAverage``); the parameterized merge gets them dense."""
         if self._ingestor is None:
             from .ingest import DeltaIngestor
             self._ingestor = DeltaIngestor(
@@ -271,7 +384,9 @@ class AveragerLoop:
                 stale_deltas=self.stale_deltas,
                 workers=self.ingest_workers,
                 cache_bytes=self.ingest_cache_mb * (1 << 20),
-                span_prefix="avg", densify=False)
+                span_prefix="avg",
+                densify=not getattr(self.strategy, "host_list_ingest",
+                                    False))
         return self._ingestor
 
     def close(self) -> None:

@@ -6,13 +6,16 @@ Run offline end to end on the card with::
 
     python -m distributedtraining_tpu_torch.neurons.averager \
         --backend local --work-dir /tmp/run --model gpt2-124m \
-        --dataset synthetic --tokenizer word --strategy weighted \
-        --no-base-wire-v2 --no-lineage --flight-events 0 --rounds 1
+        --dataset synthetic --tokenizer word --no-base-wire-v2 \
+        --no-lineage --flight-events 0 --rounds 1
 
 (``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) Miners of either
 package, publishing dense deltas or ``--wire-v2`` shards into the same
-``--work-dir``, are merged; the weights come from the local chain's
-consensus scores (a JAX validator's ``set_weights`` in that directory).
+``--work-dir``, are merged: by meta-learned weights (``--strategy
+parameterized``, the default: ``--meta-epochs``, ``--meta-lr``,
+``--meta-optimizer``), or by the local chain's consensus scores
+(``--strategy weighted``; a validator's ``set_weights`` in that
+directory, from either package).
 """
 
 from __future__ import annotations
@@ -20,9 +23,25 @@ from __future__ import annotations
 import logging
 
 from ..config import RunConfig
-from ..engine.average import AveragerLoop, WeightedAverage
+from ..engine.average import (AveragerLoop, GeneticMerge, ParameterizedMerge,
+                              WeightedAverage)
 from ..utils import obs
 from .common import build
+
+
+def make_strategy(cfg: RunConfig, model):
+    """The merge strategy of ``--strategy`` (``genetic`` raises, naming
+    its slice; ``--outer-momentum`` is refused by the config check)."""
+    if cfg.strategy == "weighted":
+        return WeightedAverage(chunk_size=cfg.merge_chunk)
+    if cfg.strategy == "genetic":
+        return GeneticMerge(
+            population=cfg.genetic_population,
+            generations=cfg.genetic_generations, sigma=cfg.genetic_sigma,
+            screen_batches=cfg.genetic_screen_batches or None)
+    return ParameterizedMerge(model, meta_epochs=cfg.meta_epochs,
+                              meta_lr=cfg.meta_lr,
+                              meta_optimizer=cfg.meta_optimizer)
 
 
 def main(argv=None) -> int:
@@ -31,7 +50,7 @@ def main(argv=None) -> int:
     cfg = RunConfig.from_args("averager", argv)
     c = build(cfg)
     loop = AveragerLoop(c.engine, c.transport, c.chain,
-                        WeightedAverage(chunk_size=cfg.merge_chunk),
+                        make_strategy(cfg, c.model),
                         val_batches=c.eval_batches(),
                         address_store=c.address_store,
                         max_delta_abs=cfg.max_delta_abs,

@@ -1,8 +1,9 @@
-"""Composition of the port's roles — the miner's and the averager's half
-of the JAX package's ``neurons/common.py`` (``Components`` and
-``build``): the model, the ``TrainEngine``, the ``memory`` or ``local``
-transport, the local chain and address store, the tokenizer, and the
-train, self-eval and held-out batch streams, driven by ``RunConfig``.
+"""Composition of the port's roles — the miner's, the validator's and the
+averager's part of the JAX package's ``neurons/common.py``
+(``Components`` and ``build``): the model, the ``TrainEngine``, the
+``memory`` or ``local`` transport, the local chain and address store,
+the tokenizer, and the train, self-eval and held-out batch streams,
+driven by ``RunConfig``.
 
 The device is the card unless the caller asks for the CPU the way the JAX
 roles do: ``DT_FORCE_PLATFORM=cpu`` in the environment. Without it,

@@ -300,9 +300,9 @@ def test_unported_planes_and_strategies_raise(world):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             tavg.AveragerLoop(world["teng"], None, None,
                               tavg.WeightedAverage(), val_batches=None, **kw)
-    for cls in (tavg.ParameterizedMerge, tavg.GeneticMerge,
-                tavg.OuterOptMerge):
-        with pytest.raises(NotImplementedError, match="slice 5"):
+    # ParameterizedMerge is ported (tests/test_torch_parameterized_merge.py)
+    for cls, slice_no in ((tavg.GeneticMerge, 6), (tavg.OuterOptMerge, 5)):
+        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             cls(None)
 
 
@@ -348,11 +348,11 @@ def test_averager_flags_match_the_jax_parser():
 
 
 @pytest.mark.parametrize("extra,slice_no", [
-    ([], 5),                                     # --strategy parameterized
+    ([], 5),                                     # --base-wire-v2 is on
     (["--strategy", "weighted"], 5),             # --base-wire-v2 is on
     (["--strategy", "weighted", "--no-base-wire-v2"], 5),   # --lineage
     (["--strategy", "weighted", "--no-base-wire-v2", "--no-lineage"], 7),
-    (AVG_ARGS + ["--strategy", "genetic"], 5),
+    (AVG_ARGS + ["--strategy", "genetic"], 6),
     (AVG_ARGS + ["--outer-momentum", "0.9"], 5),
     (AVG_ARGS + ["--hier", "root"], 5),
     (AVG_ARGS + ["--standby"], 5),
