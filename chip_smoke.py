@@ -196,10 +196,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
            1e-4. Then ``neurons.averager.main`` with its default strategy
            publishes a base. Reports the round's wall time and the device
            ms per meta-step (torch.profiler).
+19. defaults the three role CLIs with the JAX defaults at GPT-2-124M full
+           width and depth on one LocalFS root, changing only the corpus
+           and tokenizer (``--dataset synthetic --tokenizer word``) and a
+           run's length (``--max-steps``, ``--rounds``): a default miner
+           (its own genesis init, a push and a checkpoint at exit), the
+           default averager (genesis, then a parameterized round: the
+           monolithic base and a manifest of 148 shards each time, one
+           lineage record a publish, walk_chain down to genesis), the
+           default validator (its pull through the manifest, bit-equal to
+           the monolithic base, 148 arrays of 497,903,616 bytes), a
+           ``--fused-loss`` miner with a 1 s ``--checkpoint-interval``, a
+           second one on the same directory that restores its params,
+           moments and step bit for bit and pushes against the same base,
+           and a third after the latest checkpoint was corrupted, which
+           falls back to a pull. Launches are exact for each run. Then:
+           the monolithic, cold and warm sharded pulls and a sharded
+           publish timed apart; a torn shard set falls back to the
+           monolithic pull; checkpoint saves (sync, async) and a restore
+           timed with their bytes; the flight recorder's bundle read back
+           through fetch_bundle; a planted loss spike (wte x 50) arming
+           exactly one anomaly capture window, which writes a
+           torch.profiler trace; a ``--strategy weighted`` CLI round over
+           3 packed and 1 dense submissions whose lineage record
+           replay_record re-derives within 1e-6 (dequant_scatter == 3
+           packed contributions); a record with one byte changed raises
+           LineageError. Every earlier phase keeps its opt-out flags.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
-JSON line (phases 17 and 18), the ``nvidia-smi`` name/power-limit line,
+JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), the
+``nvidia-smi`` name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -2574,7 +2601,616 @@ def phase_meta_merge(tree, tok, work: str) -> dict:
     return res
 
 
-def _scatter_entry(scatter: dict, avg: dict, build: dict) -> dict:
+# ---------------------------------------------------------------------------
+# 19. default command lines
+# ---------------------------------------------------------------------------
+
+# what a JAX command line changes on the card: the corpus and tokenizer
+# that need no network; the rest are the JAX defaults (--base-wire-v2,
+# --lineage, --checkpoint-interval 600, --anomaly-trace, --flight-events
+# 512, --strategy parameterized, ...), with only a run's length bounded
+DEFAULT_FLAGS = ["--dataset", "synthetic", "--tokenizer", "word"]
+# M1's checkpoint interval is shorter than its bootstrap's base pull, so
+# its first step submits a periodic save, and its few steps end while
+# that save is written (the worker supersedes later periodic submits):
+# one periodic save taken while training goes on, then the one at exit
+M0_STEPS, M1_STEPS, M2_STEPS, M3_STEPS = 4, 3, 6, 2
+CKPT_INTERVAL_S = 0.5
+SPIKE_STEPS = 10
+WIRE_LEAVES, WIRE_BYTES = 148, 497_903_616    # GPT-2-124M, f32, wte padded
+
+
+def _host_state(state) -> dict:
+    """A CPU copy of a TrainState's step, count, params and moments."""
+    opt = state.opt_state
+    copy = lambda tree: {k: v.detach().cpu().clone()  # noqa: E731
+                         for k, v in tree.items()}
+    return {"step": int(state.step), "count": int(opt.count),
+            "params": copy(state.params), "mu": copy(opt.mu),
+            "nu": copy(opt.nu)}
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    import torch
+    return (a["step"] == b["step"] and a["count"] == b["count"] and all(
+        a[t].keys() == b[t].keys() and all(
+            torch.equal(a[t][k], b[t][k]) for k in a[t])
+        for t in ("params", "mu", "nu")))
+
+
+def _bit_equal_trees(a, b) -> bool:
+    import numpy as np
+    from distributedtraining_tpu_torch import delta
+    fa, fb = delta.flatten_tree(a), delta.flatten_tree(b)
+    return fa.keys() == fb.keys() and all(
+        np.asarray(fa[k]).dtype == np.asarray(fb[k]).dtype
+        and np.array_equal(np.asarray(fa[k]), np.asarray(fb[k])) for k in fa)
+
+
+class _Watch:
+    """Measuring hooks of this script on the classes the role CLIs build
+    (the CLIs construct their own objects): each wrapped call's wall time
+    and what the checks need, kept in ``seen``. ``hook_s`` sums the time
+    the hooks themselves take (host copies of the state for the checks),
+    which ``_cli`` takes off a CLI's wall time."""
+
+    def __init__(self):
+        self.seen: dict[str, list] = {}
+        self.hook_s = 0.0
+        self._undo: list = []
+
+    def _wrap(self, cls, name, note, before=None):
+        real = getattr(cls, name)
+
+        def wrapper(obj, *a, **kw):
+            t0 = time.perf_counter()
+            if before is not None:
+                before(obj)
+            t1 = time.perf_counter()
+            out = real(obj, *a, **kw)
+            t2 = time.perf_counter()
+            self.seen.setdefault(name, []).append(note(obj, a, out, t2 - t1))
+            self.hook_s += (t1 - t0) + (time.perf_counter() - t2)
+            return out
+
+        setattr(cls, name, wrapper)
+        self._undo.append((cls, name, real))
+
+    def __enter__(self):
+        from distributedtraining_tpu_torch.checkpoint import CheckpointStore
+        from distributedtraining_tpu_torch.engine import basedist
+        from distributedtraining_tpu_torch.engine.train import MinerLoop
+        from distributedtraining_tpu_torch.transport import LocalFSTransport
+        self._wrap(basedist.BaseFetcher, "fetch",
+                   lambda f, a, out, s: {"fetcher": f, "s": s, "got": out})
+        self._wrap(basedist.BasePublisher, "publish_revision",
+                   lambda p, a, out, s: {"ok": out, "s": s, "rev": a[1],
+                                         **(p.last_publish or {})})
+        self._wrap(LocalFSTransport, "publish_base",
+                   lambda t, a, out, s: {"s": s, "rev": out})
+        self._wrap(CheckpointStore, "save",
+                   lambda st, a, out, s: {"s": s, "step": a[0], "bytes": sum(
+                       os.path.getsize(os.path.join(st.directory, str(a[0]),
+                                                    n))
+                       for n in os.listdir(os.path.join(st.directory,
+                                                        str(a[0]))))})
+        self._wrap(MinerLoop, "_save_checkpoint",
+                   lambda loop, a, out, s: {"s": s})
+        self._wrap(MinerLoop, "_restore_checkpoint",
+                   lambda loop, a, out, s: {
+                       "ok": out, "s": s,
+                       "state": _host_state(loop.state) if out else None,
+                       "rev": loop._base_revision})
+        # the state the flush's final checkpoint holds (no step between)
+        self._wrap(MinerLoop, "flush",
+                   lambda loop, a, out, s: {"s": s, "rev":
+                                            loop._base_revision},
+                   before=lambda loop: self.seen.setdefault(
+                       "flushed_state", []).append(_host_state(loop.state)))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, real in reversed(self._undo):
+            setattr(cls, name, real)
+
+    def take(self) -> dict:
+        out, self.seen = self.seen, {}
+        return out
+
+
+def _cli(module, argv, watch) -> dict:
+    """One role CLI's ``main``, the launch counts set to 0 just before
+    and read just after; its return code, wall time less the hooks' own
+    (``hook_s``), launches and what the hooks saw."""
+    import torch
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    torch.cuda.synchronize()
+    _zero_counts()
+    dsc.launches = 0
+    hook0 = watch.hook_s
+    t0 = time.perf_counter()
+    rc = module.main(argv)
+    torch.cuda.synchronize()
+    hook_s = watch.hook_s - hook0
+    return {"argv": argv, "rc": rc,
+            "s": time.perf_counter() - t0 - hook_s, "hook_s": hook_s,
+            "launches": {"dequant_scatter": dsc.launches, **fa.launches,
+                         **fused_ce.launches},
+            "seen": watch.take()}
+
+
+def _check_launches(what: str, got: dict, want: dict) -> None:
+    for key in got:
+        n = want.get(key, 0)
+        check(got[key] == n, f"{what}: {key} launches {got[key]} != {n}")
+    check(any(want.values()), f"{what}: no kernel launch expected")
+
+
+def _train_want(cfg, steps: int, fused: bool) -> dict:
+    """Launches of ``steps`` train steps with no eval."""
+    want = {"flash_attention_fwd": cfg.n_layer * steps,
+            "flash_attention_bwd_dkv": cfg.n_layer * steps,
+            "flash_attention_bwd_dq": cfg.n_layer * steps}
+    if fused:
+        want.update(fused_ce_fwd=steps, fused_ce_bwd_dh=steps,
+                    fused_ce_bwd_dw=steps)
+    return want
+
+
+def _sharded_pull(what: str, run: dict, t, template) -> dict:
+    """The run's base pulls went through the manifest (no fallback) and
+    assembled the monolithic base bit for bit."""
+    fetches = run["seen"].get("fetch", [])
+    check(fetches, f"{what}: no base pull through the fetcher")
+    f = fetches[-1]["fetcher"]
+    check(f.sharded_fetches_total >= 1 and f.fallbacks_total == 0,
+          f"{what}: sharded pulls {f.sharded_fetches_total}, fallbacks "
+          f"{f.fallbacks_total}")
+    tree, rev = fetches[-1]["got"]
+    mono, mono_rev = t.fetch_base(template)
+    check(rev == mono_rev and _bit_equal_trees(tree, mono),
+          f"{what}: the assembled base differs from the monolithic one")
+    return {"sharded_fetches": f.sharded_fetches_total,
+            "fallbacks": f.fallbacks_total, "fetch_s": fetches[-1]["s"],
+            "bytes": f.last_fetch_bytes,
+            "shards_fetched": f.network_shards_total,
+            "store_hits": f.store_hits_total}
+
+
+def _manifest(t, rev) -> dict:
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch.transport import base as tbase
+    man = ser.parse_base_manifest(tbase.fetch_base_manifest_bytes(t, rev))
+    check(man is not None and man["revision"] == rev,
+          f"no manifest for {rev}")
+    return man
+
+
+def phase_defaults(tree, tok) -> dict:
+    """The three role CLIs with the JAX defaults at GPT-2-124M full width
+    and depth (bf16 compute, f32 weights) on one LocalFS root, and the
+    planes those defaults turn on: the sharded base, lineage records,
+    local checkpoints, the flight recorder and the anomaly monitor."""
+    import tempfile
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch.checkpoint import (CheckpointStore,
+                                                          Snapshot)
+    from distributedtraining_tpu_torch.config import RunConfig
+    from distributedtraining_tpu_torch.engine import lineage
+    from distributedtraining_tpu_torch.engine.basedist import (BaseFetcher,
+                                                               BasePublisher)
+    from distributedtraining_tpu_torch.engine.scheduler import FakeClock
+    from distributedtraining_tpu_torch.engine.train import (
+        MinerLoop, TrainEngine, _abstract_state, _wire_template)
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.neurons import validator as val_cli
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    from distributedtraining_tpu_torch.transport import base as tbase
+    from distributedtraining_tpu_torch.utils import flight, obs
+    from distributedtraining_tpu_torch.utils.metrics import TraceCapture
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    template = _wire_template(gpt2.make_model(cfg)[0])
+    res: dict = {"model": "gpt2-124m", "flags": DEFAULT_FLAGS}
+    with tempfile.TemporaryDirectory() as work, _Watch() as watch:
+        t = LocalFSTransport(os.path.join(work, "artifacts"))
+        base = DEFAULT_FLAGS + ["--work-dir", work]
+        # M0: a default miner on the empty root (its own genesis init,
+        # the one push and a checkpoint at exit)
+        m0 = _cli(miner_cli, base + ["--hotkey", "hotkey_1", "--max-steps",
+                                     str(M0_STEPS)], watch)
+        check(m0["rc"] == 0 and t.fetch_delta_bytes("hotkey_1"),
+              f"the default miner exited {m0['rc']} without a delta")
+        _check_launches("default miner", m0["launches"],
+                        _train_want(cfg, M0_STEPS, fused=False))
+        check(len(m0["seen"].get("save", [])) == 1,
+              f"the default miner saved {m0['seen'].get('save')}")
+        # A1: the default averager: genesis, then a parameterized round
+        a1 = _cli(avg_cli, base + ["--hotkey", "hotkey_95", "--rounds", "1"],
+                  watch)
+        pubs, monos = a1["seen"].get("publish_revision", []), \
+            a1["seen"].get("publish_base", [])
+        check(a1["rc"] == 0 and len(pubs) == len(monos) == 2
+              and all(p["ok"] for p in pubs),
+              f"the default averager exited {a1['rc']}: publishes "
+              f"{monos}, sharded {pubs}")
+        genesis, r1 = pubs[0]["rev"], pubs[1]["rev"]
+        check(t.base_revision() == r1 and [m["rev"] for m in monos] ==
+              [genesis, r1], "the sharded publishes name other revisions")
+        for p in pubs:
+            check(len(_manifest(t, p["rev"])["layers"]) == WIRE_LEAVES,
+                  f"manifest of {p['rev']} does not list {WIRE_LEAVES}")
+        check(pubs[0]["shards_uploaded"] == WIRE_LEAVES,
+              f"genesis uploaded {pubs[0]['shards_uploaded']} shards")
+        records = lineage.walk_chain(t, r1)
+        check(len(records) == 2 and records[-1]["strategy"] == "genesis"
+              and records[-1]["parent"] is None
+              and records[0]["parent"] == genesis,
+              f"walk_chain gave {[r.get('revision') for r in records]}")
+        fwd = a1["launches"]["flash_attention_fwd"]
+        n, rest = divmod(fwd, cfg.n_layer * 9)   # 7 epochs + merged + base
+        _check_launches("default averager", a1["launches"], {
+            "flash_attention_fwd": cfg.n_layer * 9 * n,
+            "flash_attention_bwd_dkv": cfg.n_layer * 7 * n,
+            "flash_attention_bwd_dq": cfg.n_layer * 7 * n})
+        check(n > 0 and rest == 0, f"default averager fwd launches {fwd}")
+        res["averager"] = {
+            "rc": a1["rc"], "s": a1["s"],
+            "hook_s": a1["hook_s"], "eval_batches": n,
+            "launches": a1["launches"],
+            "monolithic_publish_s": [m["s"] for m in monos],
+            "sharded_publish_s": [p["s"] for p in pubs],
+            "shards_uploaded": [p["shards_uploaded"] for p in pubs],
+            "shards_skipped": [p["shards_skipped"] for p in pubs],
+            "sharded_publish_bytes": [p["bytes"] for p in pubs],
+            "records": len(records)}
+        # V1: the default validator's bootstrap pulls through the manifest
+        v1 = _cli(val_cli, base + ["--hotkey", "hotkey_91", "--rounds", "1"],
+                  watch)
+        check(v1["rc"] == 0, f"the default validator exited {v1['rc']}")
+        res["validator"] = {"rc": v1["rc"], "s": v1["s"],
+                            "hook_s": v1["hook_s"],
+                            "launches": v1["launches"],
+                            **_sharded_pull("validator", v1, t, template)}
+        got_tree = v1["seen"]["fetch"][-1]["got"][0]
+        leaves = list(_leaves(got_tree))
+        check(len(leaves) == WIRE_LEAVES and sum(
+            np.asarray(x).nbytes for x in leaves) == WIRE_BYTES,
+              f"the assembled base holds {len(leaves)} arrays of "
+              f"{sum(np.asarray(x).nbytes for x in leaves)} bytes")
+        fwd = v1["launches"]["flash_attention_fwd"]
+        n_v, rest = divmod(fwd, cfg.n_layer * 2)   # the base + hotkey_1
+        _check_launches("default validator", v1["launches"],
+                        {"flash_attention_fwd": cfg.n_layer * 2 * n_v})
+        check(n_v > 0 and rest == 0, f"validator fwd launches {fwd}")
+        del got_tree, leaves
+        # M1: a --fused-loss miner with a short checkpoint interval
+        ck = ["--hotkey", "hotkey_2", "--fused-loss",
+              "--checkpoint-interval", str(CKPT_INTERVAL_S)]
+        m1 = _cli(miner_cli, base + ck + ["--max-steps", str(M1_STEPS)],
+                  watch)
+        check(m1["rc"] == 0, f"the checkpointing miner exited {m1['rc']}")
+        _check_launches("checkpointing miner", m1["launches"],
+                        _train_want(cfg, M1_STEPS, fused=True))
+        saves = m1["seen"].get("save", [])
+        check(len(saves) >= 2, f"the miner saved {len(saves)} checkpoints "
+                               "(a periodic one and the one at exit)")
+        check(len(m1["seen"]["_save_checkpoint"]) >= 2,
+              "the miner took no periodic checkpoint")
+        at_save = m1["seen"]["flushed_state"][-1]
+        pull1 = _sharded_pull("checkpointing miner", m1, t, template)
+        check(m1["seen"]["flush"][-1]["rev"] == r1,
+              "the checkpointing miner does not train on the base")
+        # M2: a new miner on the same directory (the default interval)
+        # restores and trains on
+        resume = base + ["--hotkey", "hotkey_2", "--fused-loss"]
+        m2 = _cli(miner_cli, resume + ["--max-steps", str(M2_STEPS)], watch)
+        restore = m2["seen"]["_restore_checkpoint"][-1]
+        check(m2["rc"] == 0 and restore["ok"],
+              f"the miner exited {m2['rc']}, restored {restore['ok']}")
+        check(_same_state(restore["state"], at_save),
+              "the restored params, moments or step differ from the state "
+              "at the save")
+        meta = t.fetch_delta_meta("hotkey_2")
+        check(restore["rev"] == r1 and meta["base_revision"] == r1,
+              f"the resumed miner's push names {meta['base_revision']}, "
+              f"not {r1}")
+        _check_launches("resumed miner", m2["launches"],
+                        _train_want(cfg, M2_STEPS, fused=True))
+        pull2 = _sharded_pull("resumed miner", m2, t, template)
+        # M3: a corrupt latest checkpoint falls back to a pull
+        store = CheckpointStore(os.path.join(work, "checkpoints",
+                                             "hotkey_2"))
+        latest = os.path.join(store.directory, str(store.latest_step()),
+                              "state.msgpack")
+        with open(latest, "r+b") as f:
+            f.truncate(os.path.getsize(latest) // 3)
+        m3 = _cli(miner_cli, resume + ["--max-steps", str(M3_STEPS)], watch)
+        check(m3["rc"] == 0 and not m3["seen"]["_restore_checkpoint"][-1][
+            "ok"], "the corrupt checkpoint was restored")
+        pull3 = _sharded_pull("miner after a corrupt checkpoint", m3, t,
+                              template)
+        _check_launches("miner after a corrupt checkpoint", m3["launches"],
+                        _train_want(cfg, M3_STEPS, fused=True))
+        res["miners"] = {
+            "default": {"rc": m0["rc"], "s": m0["s"], "hook_s": m0["hook_s"],
+                        "steps": M0_STEPS, "launches": m0["launches"]},
+            "checkpointing": {"rc": m1["rc"], "s": m1["s"],
+                              "hook_s": m1["hook_s"],
+                              "steps": M1_STEPS, "saves": len(saves),
+                              "save_worker_s": [x["s"] for x in saves],
+                              "save_bytes": saves[-1]["bytes"],
+                              "save_submit_ms": [
+                                  x["s"] * 1e3 for x in
+                                  m1["seen"]["_save_checkpoint"]],
+                              "launches": m1["launches"], "pull": pull1},
+            "resumed": {"rc": m2["rc"], "s": m2["s"], "hook_s": m2["hook_s"],
+                        "steps": M2_STEPS,
+                        "restore_s": restore["s"], "step": at_save["step"],
+                        "launches": m2["launches"], "pull": pull2},
+            "corrupt_checkpoint": {"rc": m3["rc"], "s": m3["s"],
+                                   "hook_s": m3["hook_s"],
+                                   "launches": m3["launches"],
+                                   "pull": pull3}}
+        # the flight recorder and the instruments on from here to the
+        # bundle's read-back
+        obs.configure()
+        flight.configure("miner", "chip_smoke", transport=t,
+                         config=RunConfig.from_args("miner", DEFAULT_FLAGS))
+        # the base plane, timed apart: monolithic, cold and warm sharded
+        t0 = time.perf_counter()
+        mono = t.fetch_base(template)
+        mono_s = time.perf_counter() - t0
+        f = BaseFetcher(t)
+        t0 = time.perf_counter()
+        cold = f.fetch(template)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = f.fetch(template)
+        warm_s = time.perf_counter() - t0
+        check(_bit_equal_trees(cold[0], mono[0]) and _bit_equal_trees(
+            warm[0], mono[0]) and f.fallbacks_total == 0
+              and f.store_hits_total >= WIRE_LEAVES,
+              "the timed sharded pulls differ from the monolithic base")
+        # a sharded publish of every shard, apart from the CLI's
+        pub = BasePublisher(t)
+        t0 = time.perf_counter()
+        check(pub.publish_revision(mono[0], mono[1]),
+              "the timed sharded publish failed")
+        publish_s = time.perf_counter() - t0
+        # a torn shard set falls back to the monolithic pull
+        sid = tbase.base_shard_id("wte")
+        good = t.fetch_delta_bytes(sid)
+        t.publish_raw(sid, good[:-1] + bytes([good[-1] ^ 0xFF]))
+        torn = BaseFetcher(t)
+        got = torn.fetch(template)
+        t.publish_raw(sid, good)
+        check(got is not None and torn.fallbacks_total == 1
+              and torn.sharded_fetches_total == 0
+              and _bit_equal_trees(got[0], mono[0]),
+              "a torn shard set did not fall back to the monolithic base")
+        res["base_plane"] = {"monolithic_fetch_s": mono_s,
+                             "cold_sharded_fetch_s": cold_s,
+                             "warm_sharded_fetch_s": warm_s,
+                             "cold_shards_fetched": f.network_shards_total,
+                             "warm_store_hits": f.store_hits_total,
+                             "sharded_publish_s": publish_s,
+                             "sharded_publish_bytes":
+                                 pub.last_publish["bytes"],
+                             "torn_falls_back": True}
+        del mono, cold, warm, got, f, torn, pub
+        # a sync checkpoint save and its restore timed apart (M1's hooks
+        # time the async save: the submit and the worker's write)
+        eng = TrainEngine(gpt2.make_model(cfg)[0], fused_loss=True,
+                          device=DEV)
+        store = CheckpointStore(os.path.join(work, "ck_timed"))
+        loop = MinerLoop(eng, t, "chip_smoke", clock=FakeClock(),
+                         send_interval=1e9, check_update_interval=1e9,
+                         push_async=False, checkpoint_store=store,
+                         checkpoint_interval=1e9,
+                         base_fetcher=BaseFetcher(t))
+        loop.bootstrap()
+        loop.run(iter(_batches(tok, split="train", batch_size=MINER_B,
+                               seq_len=MINER_T, n=2)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop._save_checkpoint()
+        sync_s = time.perf_counter() - t0
+        step_dir = os.path.join(store.directory, str(store.latest_step()))
+        ck_bytes = sum(os.path.getsize(os.path.join(step_dir, n))
+                       for n in os.listdir(step_dir))
+        saved = _host_state(loop.state)
+        loop.close()
+        t0 = time.perf_counter()
+        snap = store.restore(Snapshot(_abstract_state(eng.model), None,
+                                      None))
+        restore_s = time.perf_counter() - t0
+        check(snap is not None and _same_state(_host_state(snap.state),
+                                               saved),
+              "the timed checkpoint does not restore the saved state")
+        store.close()
+        bid = flight.freeze_and_publish("chip_smoke")
+        bundle = flight.fetch_bundle(t, "miner", "chip_smoke")
+        raw = tbase.fetch_postmortem_bytes(t, "miner", "chip_smoke")
+        kinds = sorted({e["kind"] for e in bundle["events"]}) if bundle \
+            else []
+        check(bid is not None and bundle is not None
+              and bundle["bundle_id"] == bid
+              and flight.parse_bundle(raw) == bundle
+              and {"config", "span", "publish"} <= set(kinds),
+              f"the flight bundle {bid} does not read back: {kinds}")
+        flight.reset()
+        obs.reset()
+        res["checkpoint"] = {"bytes": ck_bytes, "sync_save_s": sync_s,
+                             "restore_s": restore_s}
+        res["flight"] = {"bundle_id": bid, "events": len(bundle["events"]),
+                         "kinds": kinds, "bytes": len(raw)}
+        del saved, snap, loop
+        # a planted loss spike arms one capture window
+        anomaly_dir = os.path.join(work, "anomaly_traces", "hotkey_7")
+        cap = TraceCapture(anomaly_dir,
+                           steps=RunConfig().profile_steps, arm=False)
+        mon = obs.AnomalyMonitor(cap)
+
+        class _NullSink:       # the loss reaches the monitor at the log
+            def log(self, record, step=None):   # cadence, as in JAX
+                pass
+
+        spiker = MinerLoop(eng, t, "hotkey_7", clock=FakeClock(),
+                           send_interval=1e9, check_update_interval=1e9,
+                           metrics=_NullSink(), log_every=1, anomaly=mon,
+                           base_fetcher=BaseFetcher(t))
+        spike_batches = _batches(tok, split="train", batch_size=MINER_B,
+                                 seq_len=MINER_T, n=2 * SPIKE_STEPS)
+        _zero_counts()
+        dsc.launches = 0
+        spiker.bootstrap()
+        spiker.run(iter(spike_batches[:SPIKE_STEPS]))
+        check(mon.triggered is None, f"anomaly before the spike: "
+                                     f"{mon.triggered}")
+        with torch.no_grad():      # the planted divergence
+            spiker.state.params["wte"].mul_(50.0)
+        spiker.run(iter(spike_batches[SPIKE_STEPS:]))
+        spiker.flush()
+        spiker.close()
+        torch.cuda.synchronize()
+        spike_launches = {"dequant_scatter": dsc.launches, **fa.launches,
+                          **fused_ce.launches}
+        _check_launches("anomaly miner", spike_launches,
+                        _train_want(cfg, 2 * SPIKE_STEPS, fused=True))
+        files = os.listdir(anomaly_dir) if os.path.isdir(anomaly_dir) else []
+        check(mon.triggered == "loss_spike" and len(files) == 1
+              and not cap.armed and cap.trace_path is not None,
+              f"anomaly {mon.triggered}, traces {files}")
+        with open(cap.trace_path) as fh:
+            names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
+        check(any("flash" in n for n in names),
+              "the capture window holds no kernel of the step")
+        res["anomaly"] = {"launches": spike_launches,
+                          "triggered": mon.triggered, "trace_files": files,
+                          "trace_events": len(names),
+                          "trace_bytes": os.path.getsize(cap.trace_path)}
+        del spiker, eng
+        # a --strategy weighted round over a fleet like phase 16's round 1
+        # (3 packed, 1 dense), then its lineage record replayed
+        res["replay"] = _defaults_replay(tree, tok, work, watch)
+    runs = [res["averager"], res["validator"], res["anomaly"],
+            res["replay"]["cli"], *res["miners"].values()]
+    res["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       + res["replay"]["replay_launches"].get(k, 0)
+                       for k in runs[0]["launches"]}
+    log("defaults:", json.dumps(res))
+    return res
+
+
+def _defaults_replay(tree, tok, work: str, watch) -> dict:
+    import torch
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine import lineage
+    from distributedtraining_tpu_torch.engine.average import (AveragerLoop,
+                                                              WeightedAverage)
+    from distributedtraining_tpu_torch.engine.basedist import BasePublisher
+    from distributedtraining_tpu_torch.engine.train import (TrainEngine,
+                                                            _wire_template)
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    from distributedtraining_tpu_torch.transport import base as tbase
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    rwork = os.path.join(work, "replay")
+    t = LocalFSTransport(os.path.join(rwork, "artifacts"))
+    chain = os.path.join(rwork, "chain")
+    eng = TrainEngine(gpt2.make_model(cfg)[0], device=DEV)
+    genesis = AveragerLoop(eng, t, LocalChain(chain, my_hotkey="hotkey_95"),
+                           WeightedAverage(), val_batches=lambda: iter([]),
+                           lineage=lineage.LineagePlane(t, node="hotkey_95"),
+                           base_dist=BasePublisher(t))
+    genesis.bootstrap(params=tree)
+    genesis.close()
+    rev0 = t.base_revision()
+    del genesis, eng
+    _honest_miner(t, "hotkey_1", _batches(
+        tok, split="train", batch_size=MINER_B, seq_len=MINER_T,
+        n=AVG_MINER_STEPS), wire_v2=True)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    shapes = {k: v.shape for k, v in gpt2.params_from_numpy(
+        tree, device=DEV).items()}
+
+    def noise():
+        return {k: torch.randn(s, generator=g, device=DEV) * 1e-5
+                for k, s in shapes.items()}
+
+    _publish_packed(t, "hotkey_2", noise(), rev0, "int8")
+    _publish_packed(t, "hotkey_3", noise(), rev0, "none")
+    t.publish_delta("hotkey_4", gpt2.params_to_numpy(noise()))
+    t.publish_delta_meta("hotkey_4", {"base_revision": rev0})
+    # close enough that the chain's MAD screen keeps every weight
+    LocalChain(chain, my_hotkey="hotkey_91").set_weights(
+        {"hotkey_1": 0.4, "hotkey_2": 0.3, "hotkey_3": 0.35,
+         "hotkey_4": 0.3})
+    run = _cli(avg_cli, DEFAULT_FLAGS + [
+        "--work-dir", rwork, "--strategy", "weighted", "--rounds", "1",
+        "--hotkey", "hotkey_95"], watch)
+    head = t.base_revision()
+    check(run["rc"] == 0 and head != rev0,
+          f"the weighted averager exited {run['rc']} without a new base")
+    check(run["launches"]["dequant_scatter"] == 3,
+          f"the weighted round's scatter launches "
+          f"{run['launches']['dequant_scatter']} != 3 packed")
+    record = lineage.fetch_record(t, head)
+    check(record is not None and record["replayable"]
+          and len(record["contributions"]) == 4,
+          f"the weighted round's record: {record}")
+    template = _wire_template(gpt2.make_model(cfg)[0])
+    # the replay: counts to 0 just before, read just after
+    torch.cuda.synchronize()
+    _zero_counts()
+    dsc.launches = 0
+    t0 = time.perf_counter()
+    out = lineage.replay_record(t, record, template, parent=tree,
+                                device=DEV)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    check(out.ok and out.max_abs_diff <= 1e-6,
+          f"replay: max |replayed - published| {out.max_abs_diff}")
+    replay_launches = {"dequant_scatter": dsc.launches, **fa.launches}
+    check(dsc.launches == 3 and not any(fa.launches.values()),
+          f"the replay's launches: {replay_launches}")
+    chain_recs = lineage.walk_chain(t, head)
+    check(len(chain_recs) == 2 and chain_recs[-1]["strategy"] == "genesis",
+          f"walk_chain: {[r['revision'] for r in chain_recs]}")
+    # one byte changed: loud
+    rid = tbase.lineage_id(head)
+    data = t.fetch_delta_bytes(rid)
+    i = data.index(b'"round": ') + len(b'"round": ')
+    t.publish_raw(rid, data[:i] + bytes([data[i] ^ 1]) + data[i + 1:])
+    try:
+        lineage.fetch_record(t, head)
+        tampered = "accepted"
+    except lineage.LineageError:
+        tampered = "LineageError"
+    t.publish_raw(rid, data)
+    check(tampered == "LineageError", "a changed record was accepted")
+    return {"cli": {"argv": run["argv"], "rc": run["rc"], "s": run["s"],
+                    "launches": run["launches"]},
+            "record_id": record["record_id"],
+            "weights": [c["weight"] for c in record["contributions"]],
+            "replay_max_abs_diff": out.max_abs_diff, "replay_s": replay_s,
+            "replay_launches": replay_launches,
+            "chain": len(chain_recs), "tampered": tampered}
+
+
+def _scatter_entry(scatter: dict, avg: dict, build: dict,
+                   defaults: dict) -> dict:
     wte, whole = scatter["timed"]["wte"], scatter["timed"]["contribution"]
     replaces, tpu = SCATTER_TPU
     return {
@@ -2582,6 +3218,8 @@ def _scatter_entry(scatter: dict, avg: dict, build: dict) -> dict:
         "source": SCATTER_SOURCE, "replaces": replaces, "tpu_kernel": tpu,
         # the averager's round 1, the slice's main path
         "launches": avg["round1"]["launches"]["dequant_scatter"],
+        # phase 19: the weighted round's merge and its lineage replay
+        "launches_defaults": defaults["launches"]["dequant_scatter"],
         "max_abs_err": max(c["max_abs_err"] for c in scatter["checks"]),
         # one whole GPT-2-124M contribution (50 leaves, one call)
         "ms": whole["ms"], "host_ms": whole["host_ms"],
@@ -2612,7 +3250,7 @@ FLASH_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
 
 
 def _flash_entries(flash: dict, train: dict, build: dict, val: dict,
-                   meta: dict) -> list:
+                   meta: dict, defaults: dict) -> list:
     out = []
     per = build["sources"]["flash_attention"]["kernels"]
     for name, tpu in FLASH_TPU_KERNELS.items():
@@ -2630,6 +3268,8 @@ def _flash_entries(flash: dict, train: dict, build: dict, val: dict,
             # the validator's round and the meta merge's round
             "launches_validator": val["round"]["launches"][name],
             "launches_meta_merge": meta["launches"][name],
+            # phase 19, the role CLIs with the JAX defaults
+            "launches_defaults": defaults["launches"][name],
             # over every case and both dtypes (bf16 dominates)
             "max_abs_err": max(c["max_abs"][key] for c in checks
                                for key in keys),
@@ -2659,7 +3299,8 @@ def _ce_registers(build: dict) -> dict:
             for k in CE_BWD_KERNELS}
 
 
-def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict) -> list:
+def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict,
+                defaults: dict) -> list:
     out = []
     regs = _ce_registers(build)
     for name, (replaces, tpu) in CE_TPU_KERNELS.items():
@@ -2677,6 +3318,7 @@ def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict) -> list:
             # the miner's round, the slice's main path
             "launches": miner["launches"][counter],
             "launches_train_fused": tfused["launches"][counter],
+            "launches_defaults": defaults["launches"][counter],
             # over every case and both dtypes (bf16 dominates)
             "max_abs_err": max(c["max_abs"][k] for c in checks
                                for k in keys if k in c["max_abs"]),
@@ -2742,6 +3384,9 @@ def main() -> int:
         val = phase_validator(tree, tok, work)
         meta = phase_meta_merge(tree, tok, work)
         val_meta_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    defaults = phase_defaults(tree, tok)
+    defaults["s"] = time.perf_counter() - t0
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -2762,9 +3407,9 @@ def main() -> int:
         "decode_step_paged_ms": prof["paged_decode_ms_per_step"],
         "timed_shape": kern["timed_shape"],
         "build_s": build["build_s"]},
-        *_flash_entries(flash, train, build, val, meta),
-        *_ce_entries(ce, miner, tfused, build),
-        _scatter_entry(scatter, avg, build)]}), flush=True)
+        *_flash_entries(flash, train, build, val, meta, defaults),
+        *_ce_entries(ce, miner, tfused, build, defaults),
+        _scatter_entry(scatter, avg, build, defaults)]}), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -2780,6 +3425,9 @@ def main() -> int:
     print(json.dumps({"validator": {**val, "meta_merge": meta,
                                     "phases_17_18_s": val_meta_s,
                                     "card": card}}), flush=True)
+    total_s = time.perf_counter() - t_start
+    print(json.dumps({"defaults": {**defaults, "card": card,
+                                   "total_s": total_s}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

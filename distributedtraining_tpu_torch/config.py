@@ -6,13 +6,9 @@ Each role's parser takes every flag the JAX package's parser for that
 role accepts, with the same spellings, destinations and defaults, so a
 JAX command line parses unchanged. A value whose machinery the port has
 not brought over yet raises NotImplementedError naming its slice
-(:meth:`RunConfig.check_ported`). Some are JAX defaults and must be
-turned off explicitly for now: for the miner ``--no-base-wire-v2``,
-``--checkpoint-interval 0``, ``--no-anomaly-trace`` and ``--flight-events
-0``; for the validator ``--no-base-wire-v2`` and ``--flight-events 0``;
-for the averager ``--no-base-wire-v2``, ``--no-lineage`` and
-``--flight-events 0``. Arguments are parsed only
-when an entry point asks (never at import).
+(:meth:`RunConfig.check_ported`); every JAX default is ported, so a JAX
+command line with default flags runs. Arguments are parsed only when an
+entry point asks (never at import).
 """
 
 from __future__ import annotations
@@ -177,7 +173,7 @@ class RunConfig:
         """Raise NotImplementedError for the first value whose machinery
         is not ported, naming its slice."""
         m = self.mesh
-        miner, averager = self.role == "miner", self.role == "averager"
+        averager = self.role == "averager"
         refused = [
             (self.backend == "hf",
              "--backend hf (the HF Hub transport needs the network)", 7),
@@ -190,18 +186,6 @@ class RunConfig:
             (averager and self.strategy == "genetic",
              "--strategy genetic (its population draws need threefry2x32 "
              "in torch)", 6),
-            (self.base_wire_v2,
-             "--base-wire-v2, on by default (pass --no-base-wire-v2)", 5),
-            (miner and self.checkpoint_interval > 0,
-             f"--checkpoint-interval {self.checkpoint_interval:g}, 600 by "
-             f"default (pass --checkpoint-interval 0)", 5),
-            (averager and self.lineage,
-             "--lineage, on by default (pass --no-lineage)", 5),
-            (miner and self.anomaly_trace,
-             "--anomaly-trace, on by default (pass --no-anomaly-trace)", 7),
-            (self.flight_events > 0,
-             f"--flight-events {self.flight_events}, 512 by default (pass "
-             f"--flight-events 0)", 7),
             (self.lora_rank > 0, "--lora-rank > 0", 7),
             (m.auto or max(m.fsdp, m.sp, m.tp, m.dcn_dp, m.dp) > 1
              or self.multihost_coordinator is not None
@@ -226,7 +210,6 @@ class RunConfig:
             (self.metrics_path is not None,
              "--metrics-path (the JSONL metrics sink)", 7),
             (self.mlflow_uri is not None, "--mlflow-uri", 7),
-            (self.profile_dir is not None, "--profile-dir", 7),
             (self.chaos_spec is not None, "--chaos-spec", 7),
         ]
         for hit, what, slice_no in refused:

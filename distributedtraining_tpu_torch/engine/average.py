@@ -22,12 +22,16 @@ or publish a genesis base), gather and screen every miner's submission
 through ``engine/ingest.py``, merge, evaluate the merged base on held-out
 batches, publish it when the ``improved`` guard allows (or ``always``),
 and skip a recompute when the exact submission set was already merged
-and declined.
+and declined. With ``base_dist`` (``engine/basedist.BasePublisher``)
+every monolithic publish is followed by the changed base shards and the
+revision's manifest; with ``lineage`` (``engine/lineage.LineagePlane``)
+every publish, the genesis one included, freezes a content-addressed
+lineage record.
 
 Not ported yet, and refused with NotImplementedError naming the slice
 (ROADMAP "Slices of the port"): ``GeneticMerge`` (slice 6: its draws
-need threefry in torch), ``OuterOptMerge`` and the loop's ``hierarchy``,
-``lease``, ``lineage`` and ``base_dist`` planes (slice 5), ``fleet``,
+need threefry in torch), ``OuterOptMerge`` and the loop's ``hierarchy``
+and ``lease`` planes (slice 5), ``fleet``,
 ``remediation`` and LoRA submissions (slice 7); a device mesh is refused
 by the engine (``TrainEngine(mesh=...)``, slice 7).
 """
@@ -64,6 +68,11 @@ class WeightedAverage:
 
     # tells AveragerLoop to hand over the raw host list of submissions
     host_list_ingest = True
+
+    def lineage_weights(self, weights):
+        """The merge is linear in these exact normalized weights, so its
+        lineage record replays."""
+        return weights
 
     def __init__(self, *, uniform: bool = False, chunk_size: int = 8):
         self.uniform = uniform
@@ -255,8 +264,6 @@ _LOOP_NOT_PORTED = {
     "remediation": ("remediation", 7),
     "lease": ("the publication lease (failover)", 5),
     "hierarchy": ("the tree averager (--hier)", 5),
-    "lineage": ("lineage records", 5),
-    "base_dist": ("the sharded base distribution (--base-wire-v2)", 5),
     "lora_cfg": ("LoRA adapter submissions", 7),
 }
 
@@ -264,8 +271,9 @@ _LOOP_NOT_PORTED = {
 class AveragerLoop:
     """run_periodic_averaging parity (averaging_logic.py:544-583): pull the
     base, gather and screen every miner delta, merge via the strategy,
-    publish the new base. Flat and single-host; the planes of
-    ``_LOOP_NOT_PORTED`` raise when given."""
+    publish the new base (and, with ``base_dist``, its shards and
+    manifest; with ``lineage``, its record). Flat and single-host; the
+    planes of ``_LOOP_NOT_PORTED`` raise when given."""
 
     def __init__(self, engine, transport, chain, strategy, *,
                  val_batches: Callable[[], Iterable[dict]],
@@ -279,6 +287,8 @@ class AveragerLoop:
                  publish_policy: str = "improved",
                  ingest_workers: int = 4,
                  ingest_cache_mb: int = 2048,
+                 lineage=None,
+                 base_dist=None,
                  **unported):
         for name, value in unported.items():
             if name not in _LOOP_NOT_PORTED:
@@ -297,6 +307,8 @@ class AveragerLoop:
                              f"'always', got {publish_policy!r}")
         self.engine = engine
         self.transport = transport
+        self.lineage = lineage
+        self.base_dist = base_dist
         self.chain = chain
         self.strategy = strategy
         self.val_batches = val_batches
@@ -318,6 +330,9 @@ class AveragerLoop:
         self._ingestor = None
         self._round_revisions: dict[str, str | None] = {}
         self._round_cids: dict[str, str] = {}
+        # hotkey -> StagedDelta of the submissions accepted this round:
+        # what the lineage record freezes (the merge's inputs)
+        self._round_staged: dict = {}
         self.report = AveragerReport()
         self.base_params: Params | None = None
         self._base_revision = None
@@ -365,8 +380,16 @@ class AveragerLoop:
                                                      copy=True)
                                     for k, v in given.items()}
             # the averager owns the shared base and publishes the first
-            self._base_revision = self.transport.publish_base(
-                params_to_numpy(self.base_params))
+            wire_tree = params_to_numpy(self.base_params)
+            self._base_revision = self.transport.publish_base(wire_tree)
+            self._publish_base_dist(wire_tree)
+            if self.lineage is not None and self._base_revision:
+                # the DAG's root: no parent, no contributions
+                self.lineage.on_publish(
+                    kind="base", revision=self._base_revision,
+                    parent=None, round_no=self.report.rounds,
+                    contributions=[], strategy="genesis",
+                    replayable=False, weights_kind="none")
         self._base_loss = None   # new base: the guard re-evaluates lazily
 
     def _ingest(self):
@@ -399,6 +422,7 @@ class AveragerLoop:
         trees and packed trees, as host data."""
         self._round_cids.clear()
         self._round_revisions.clear()
+        self._round_staged.clear()
         meta = self.chain.sync()
         hotkeys = [h for h in meta.hotkeys
                    if h != getattr(self.chain, "my_hotkey", None)]
@@ -425,6 +449,7 @@ class AveragerLoop:
                     rejected += 1
                 continue
             ids.append(s.hotkey)
+            self._round_staged[s.hotkey] = s
             deltas.append(s.delta)
         self._round_cids = {h: c for h, c in self._round_cids.items()
                             if h in set(ids)}
@@ -445,6 +470,37 @@ class AveragerLoop:
                     return None
             out.append((h, rev))
         return frozenset(out)
+
+    def _publish_base_dist(self, wire_tree) -> None:
+        """The shard plane's publication of the revision that just landed
+        monolithically; isolated: a failure leaves fetchers on the
+        monolithic base, never fails the round."""
+        if self.base_dist is None or self._base_revision is None:
+            return
+        try:
+            self.base_dist.publish_revision(wire_tree, self._base_revision)
+        except Exception:
+            logger.exception("averager: sharded base publish failed; "
+                             "fetchers stay on the monolithic base")
+
+    def _record_lineage(self, ids: list[str], weights, consensus,
+                        parent: str | None, loss: float) -> None:
+        """The just-published revision's provenance record; isolated."""
+        try:
+            from . import lineage as lineage_lib
+            w, wkind = lineage_lib.resolve_weights(self.strategy, weights,
+                                                   len(ids))
+            contribs = lineage_lib.contributions_from_staging(
+                ids, w, self._round_staged, consensus=consensus,
+                cids=self._round_cids)
+            self.lineage.on_publish(
+                kind="base", revision=self._base_revision, parent=parent,
+                round_no=self.report.rounds, contributions=contribs,
+                strategy=type(self.strategy).__name__,
+                replayable=w is not None, weights_kind=wkind,
+                loss=loss, parent_loss=self._base_loss)
+        except Exception:
+            logger.exception("averager: lineage record failed")
 
     def _log(self, record: dict) -> None:
         if self.metrics:
@@ -498,9 +554,16 @@ class AveragerLoop:
                 self.transport.gc()
                 return True
         self.report.last_loss = loss
+        parent_revision = self._base_revision
         with obs.span("avg.publish", cids=cids):
-            self._base_revision = self.transport.publish_base(
-                params_to_numpy(merged))
+            wire_tree = params_to_numpy(merged)
+            self._base_revision = self.transport.publish_base(wire_tree)
+            self._publish_base_dist(wire_tree)
+        del wire_tree
+        if self.lineage is not None:
+            # self._base_loss still holds the parent base's eval here
+            self._record_lineage(ids, weights, consensus, parent_revision,
+                                 loss)
         self.base_params = merged
         self._base_loss = loss
         self._declined_fp = None

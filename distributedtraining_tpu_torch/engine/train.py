@@ -24,13 +24,15 @@ state carries across from optax's with :func:`opt_state_from_numpy`.
 
 :class:`MinerLoop` is the miner's round on one host: bootstrap from the
 published base, train, pull new bases on a cadence (resetting the
-optimizer), guard on held-out data, and publish ``trained - base`` through
-``engine/publish.py``, as a dense delta or, with ``wire_v2``, as the
-packed top-k form with its error-feedback residual. Not ported yet, and
-refused: a device mesh (``mesh=``), ``mu_dtype``, the model's dropout and
-remat, and the miner's int8/sparse8 deltas, checkpoints,
-content-addressed base fetches, heartbeats, traces and anomaly captures
-(ROADMAP "Slices of the port").
+optimizer), guard on held-out data, publish ``trained - base`` through
+``engine/publish.py`` (as a dense delta or, with ``wire_v2``, as the
+packed top-k form with its error-feedback residual), pull bases through
+the content-addressed ``engine/basedist.BaseFetcher``, checkpoint locally
+(``checkpoint.CheckpointStore``) and resume from it, and profile a
+window of steps (``utils/metrics.TraceCapture``, on its own or armed by
+``utils/obs.AnomalyMonitor``). Not ported yet, and refused: a device mesh
+(``mesh=``), ``mu_dtype``, the model's dropout and remat, and the miner's
+int8/sparse8 deltas and heartbeats (ROADMAP "Slices of the port").
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..models.gpt2 import (init_params_numpy, params_from_numpy,
                            params_to_numpy, resolve_device)
 from ..ops.losses import causal_lm_loss, fused_linear_cross_entropy
 from ..utils import obs
+from .basedist import fetch_base
 from .scheduler import Clock, PeriodicAction, RealClock
 
 logger = logging.getLogger(__name__)
@@ -379,12 +382,23 @@ class MinerReport:
 
 
 _NOT_PORTED = {
-    "checkpoint_store": "local checkpoints are slice 5",
-    "base_fetcher": "the content-addressed base fetch is slice 5",
     "heartbeat": "fleet heartbeats are slice 7",
-    "trace": "profiler captures are slice 7",
-    "anomaly": "anomaly-armed captures are slice 7",
 }
+
+
+def _state_finite(state: TrainState) -> torch.Tensor:
+    """One 0-dim flag: params and both moments finite (moments can
+    overflow a step before the params do), left on the device."""
+    trees = (state.params, state.opt_state.mu, state.opt_state.nu)
+    return torch.stack([delta_lib.tree_finite(t) for t in trees]).all()
+
+
+def _abstract_state(model) -> TrainState:
+    """A restore template: the model's state dict on the meta device as
+    the params and both moments."""
+    sd = model.state_dict()
+    return TrainState(step=0, params=sd,
+                      opt_state=AdamWState(count=0, mu=sd, nu=sd))
 
 
 class MinerLoop:
@@ -407,11 +421,21 @@ class MinerLoop:
       top-k form (``wire_density``, ``wire_quant``) published as shards
       and a manifest, with an error-feedback residual that carries each
       push's unsent mass into the next (kept only when the delta is
-      finite, reset on a base pull).
+      finite, reset on a base pull);
+    - with ``base_fetcher`` (``engine/basedist.BaseFetcher``), base pulls
+      fetch only the layers the published manifest changed, falling back
+      to the monolithic pull;
+    - with ``checkpoint_store``, every ``checkpoint_interval`` seconds
+      (and at ``flush``) save params, moments and step (and the base when
+      no revision names it; on its worker with ``push_async``), and
+      bootstrap resumes from the latest checkpoint, pulling when the base
+      moved meanwhile;
+    - ``trace`` (``utils/metrics.TraceCapture``) ticks every step;
+      ``anomaly`` (``utils/obs.AnomalyMonitor``) sees every step time and,
+      at the log cadence, the loss and push counters.
 
-    int8/sparse8 deltas, checkpoints, the content-addressed base fetch,
-    heartbeats, traces and anomaly captures raise NotImplementedError
-    naming their slice; a device mesh is refused by the engine."""
+    int8/sparse8 deltas and heartbeats raise NotImplementedError naming
+    their slice; a device mesh is refused by the engine."""
 
     def __init__(self, engine: TrainEngine, transport, miner_id: str, *,
                  clock: Clock | None = None,
@@ -431,6 +455,11 @@ class MinerLoop:
                  keep_optimizer_on_pull: bool = False,
                  push_async: bool = False,
                  push_queue_depth: int = 1,
+                 checkpoint_store=None,
+                 checkpoint_interval: float = 600.0,
+                 trace=None,
+                 anomaly=None,
+                 base_fetcher=None,
                  **unported):
         for name, value in unported.items():
             if name not in _NOT_PORTED:
@@ -461,6 +490,10 @@ class MinerLoop:
         self.miner_id = miner_id
         self.clock = clock or RealClock()
         self.metrics = metrics
+        self.base_fetcher = base_fetcher
+        self.checkpoint_store = checkpoint_store
+        self.trace = trace
+        self.anomaly = anomaly
         self.log_every = log_every
         self.nan_guard = nan_guard
         self.delta_dtype = None if delta_dtype == "float32" else delta_dtype
@@ -514,6 +547,11 @@ class MinerLoop:
             self._val_guard_action = PeriodicAction(
                 val_guard_interval if val_guard_interval is not None
                 else send_interval, self._val_guard, self.clock)
+        self._last_ckpt_key = None
+        self._ckpt_action = (
+            PeriodicAction(checkpoint_interval, self._save_checkpoint,
+                           self.clock)
+            if checkpoint_store is not None else None)
 
     # -- base model lifecycle ----------------------------------------------
     def _as_state(self, params) -> Params:
@@ -523,10 +561,17 @@ class MinerLoop:
         return params
 
     def bootstrap(self, params=None, *, seed: int = 0) -> None:
-        """Pull the published base if one exists; else start from
-        ``params`` (a state dict or a nested tree, or a zero-argument
-        callable returning one, invoked only on this genesis path); else
-        a random init drawn with numpy from ``seed``."""
+        """Resume from the latest local checkpoint if there is one; else
+        pull the published base if one exists; else start from ``params``
+        (a state dict or a nested tree, or a zero-argument callable
+        returning one, invoked only on this genesis path); else a random
+        init drawn with numpy from ``seed``."""
+        if self._restore_checkpoint():
+            if self.base_fetcher is not None:
+                # the first pull after a restart then fetches only the
+                # layers the fleet moved meanwhile
+                self.base_fetcher.seed(self.base_params)
+            return
         fetched = (self._bootstrap_fetch_base()
                    if self.transport.base_revision() is not None else None)
         if fetched is not None:
@@ -546,7 +591,7 @@ class MinerLoop:
         base: retry briefly, then raise OSError so the role's bounded
         bootstrap retry treats it as the transport outage it is."""
         for attempt in range(3):
-            fetched = self.transport.fetch_base(self._wire_template())
+            fetched = self._fetch_base_single()
             if fetched is not None:
                 return fetched
             try:
@@ -560,6 +605,10 @@ class MinerLoop:
                       "publish or partitioned backend); refusing to "
                       "fork to a genesis base")
 
+    def _fetch_base_single(self, revision=None):
+        return fetch_base(self.transport, self.base_fetcher,
+                          self._wire_template(), revision)
+
     def _wire_template(self) -> dict:
         if self._wire_template_cache is None:
             self._wire_template_cache = _wire_template(self.engine.model)
@@ -569,7 +618,7 @@ class MinerLoop:
         rev = self.transport.base_revision()
         if rev is None or rev == self._base_revision:
             return
-        fetched = self.transport.fetch_base(self._wire_template())
+        fetched = self._fetch_base_single(rev)
         if fetched is None:
             return
         params, rev = fetched
@@ -641,6 +690,141 @@ class MinerLoop:
                               "val_reverts": self.report.val_reverts},
                              step=self.report.steps)
 
+    # -- local checkpoints ---------------------------------------------------
+    def _checkpoint_base(self):
+        """The base to persist: None when a published revision names it
+        (it is immutable between pulls and re-fetched on resume); only a
+        self-initialised genesis base travels in the snapshot."""
+        return None if self._base_revision is not None else self.base_params
+
+    @torch.no_grad()
+    def _save_checkpoint(self) -> None:
+        if self.checkpoint_store is None or self.state is None:
+            return
+        from ..checkpoint import Snapshot
+        key = (int(self.state.step), self._base_revision)
+        if key == self._last_ckpt_key:   # nothing new since the last save
+            return
+        finite = _state_finite(self.state) if self.nan_guard else None
+        if self.push_async:
+            # device copies queued on this thread's stream before the next
+            # step overwrites the state in place; the flag's read and the
+            # write happen on the store's worker (supersede semantics)
+            snap = Snapshot(state=_snapshot(self.state),
+                            base_params=self._checkpoint_base(),
+                            base_revision=self._base_revision,
+                            lifetime_steps=self.report.steps)
+
+            def screened(flag=finite) -> bool:
+                if flag is None or bool(flag):
+                    return True
+                # a poisoned state is never saved: resume prefers the
+                # checkpoint, so NaNs would wedge the miner across restarts
+                logger.warning("miner %s: state non-finite, not "
+                               "checkpointing", self.miner_id)
+                return False
+
+            self.checkpoint_store.save_async(snap, precondition=screened)
+            self._last_ckpt_key = key
+            return
+        if finite is not None and not bool(finite):
+            logger.warning("miner %s: state non-finite, not checkpointing",
+                           self.miner_id)
+            return
+        try:
+            self.checkpoint_store.save(
+                self.checkpoint_store.next_step(),
+                Snapshot(state=self.state,
+                         base_params=self._checkpoint_base(),
+                         base_revision=self._base_revision,
+                         lifetime_steps=self.report.steps))
+            self._last_ckpt_key = key
+        except Exception:   # a failed save must not kill training
+            logger.exception("miner %s: checkpoint save failed",
+                             self.miner_id)
+
+    def _refetch_base(self, revision):
+        """The snapshot's base again, valid only while the transport still
+        serves exactly that revision."""
+        if revision is None or self.transport.base_revision() != revision:
+            return None
+        fetched = self._fetch_base_single(revision)
+        if fetched is None or fetched[1] != revision:
+            return None
+        return self._as_state(fetched[0])
+
+    def _restore_checkpoint(self) -> bool:
+        if self.checkpoint_store is None:
+            return False
+        if self.checkpoint_store.latest_step() is None:
+            return False
+        from ..checkpoint import Snapshot
+        # a corrupt, partial or incompatible checkpoint must not wedge the
+        # miner: it falls back to the base pull (or the genesis init)
+        try:
+            meta = self.checkpoint_store.read_meta() or {}
+            abstract = _abstract_state(self.engine.model)
+            snap = self.checkpoint_store.restore(Snapshot(
+                state=abstract,
+                base_params=(abstract.params if meta.get("has_base", True)
+                             else None),
+                base_revision=None))
+            if snap is None:
+                logger.warning("miner %s: checkpoint unusable; pulling "
+                               "the base instead", self.miner_id)
+                return False
+            base = snap.base_params
+            if base is None:
+                # the base must still be at that revision on the
+                # transport; otherwise bootstrap pulls the new one
+                base = self._refetch_base(snap.base_revision)
+                if base is None:
+                    logger.info(
+                        "miner %s: checkpoint base %s no longer published; "
+                        "bootstrapping from the current base", self.miner_id,
+                        (snap.base_revision or "?")[:8])
+                    return False
+            dev = self.engine.device
+            opt = snap.state.opt_state
+            self.state = TrainState(
+                step=snap.state.step,
+                params=self.engine.place_params(snap.state.params),
+                opt_state=AdamWState(
+                    count=opt.count,
+                    mu={k: v.to(dev) for k, v in opt.mu.items()},
+                    nu={k: v.to(dev) for k, v in opt.nu.items()}))
+            self.base_params = {k: v.detach().to(dev, copy=True)
+                                for k, v in base.items()}
+            self._base_revision = snap.base_revision
+            self.report.steps = (snap.lifetime_steps
+                                 if snap.lifetime_steps is not None
+                                 else int(self.state.step))
+            self._last_ckpt_key = (int(self.state.step), self._base_revision)
+        except Exception:
+            logger.exception("miner %s: checkpoint restore failed; falling "
+                             "back to the base pull", self.miner_id)
+            self.state = None
+            self.base_params = None
+            self._base_revision = None
+            return False
+        logger.info("miner %s: resumed from checkpoint at step %d "
+                    "(lifetime %d)", self.miner_id, int(self.state.step),
+                    self.report.steps)
+        # the base may have moved while this miner was down; a probe that
+        # fails (the backend still partitioned) must not crash the resume
+        try:
+            if self.transport.base_revision() not in (None,
+                                                      self._base_revision):
+                logger.info("miner %s: base moved while down, pulling",
+                            self.miner_id)
+                self._check_pull()
+        except Exception:
+            obs.count("miner.resume_probe_errors")
+            logger.warning("miner %s: post-resume base probe failed; "
+                           "training from the checkpoint", self.miner_id,
+                           exc_info=True)
+        return True
+
     # -- publication --------------------------------------------------------
     @torch.no_grad()
     def _push_snapshot(self):
@@ -705,12 +889,22 @@ class MinerLoop:
                 t0 = time.perf_counter()
                 self.state, m = self.engine.train_step(
                     self.state, self.engine.place_batch(batch))
-                obs.observe("miner.step_ms",
-                            (time.perf_counter() - t0) * 1e3)
+                step_ms = (time.perf_counter() - t0) * 1e3
+                obs.observe("miner.step_ms", step_ms)
+                if self.trace is not None:
+                    self.trace.tick()
+                if self.anomaly is not None:
+                    self.anomaly.observe_step_ms(step_ms)
+                    self.anomaly.tick()
                 self.report.steps += 1
                 self._last_loss_dev = m["loss"]
                 if self.metrics and self.report.steps % self.log_every == 0:
                     self.report.last_loss = float(self._last_loss_dev)
+                    if self.anomaly is not None:
+                        # at the log cadence: the loss is read here anyway
+                        self.anomaly.observe_loss(self.report.last_loss)
+                        self.anomaly.observe_push_counters(
+                            self.report.pushes, self.report.pushes_failed)
                     self.metrics.log(
                         {"train_loss": self.report.last_loss,
                          "staleness_s": (self.clock.now()
@@ -721,6 +915,8 @@ class MinerLoop:
                     # before push: a revert must land before publishing
                     self._val_guard_action.poll()
                 self._push_action.poll()
+                if self._ckpt_action is not None:
+                    self._ckpt_action.poll()
         finally:
             # the interrupt path reads report.last_loss too; there a failed
             # read must not replace the exception in flight
@@ -737,10 +933,18 @@ class MinerLoop:
         return self.report
 
     def flush(self) -> None:
-        """Push a delta now, then DRAIN the background publisher: the
+        """Push a delta (and save a checkpoint, when configured) now, then
+        DRAIN the background publisher and the checkpoint worker: the
         final artifact is on the wire before flush returns."""
         self._push_delta()
+        self._save_checkpoint()
         self._publisher.flush()
+        if self.checkpoint_store is not None:
+            self.checkpoint_store.flush()
+        if self.trace is not None:
+            self.trace.close()
+        if self.anomaly is not None:
+            self.anomaly.close()
         if self.metrics is not None:
             obs.flush(self.metrics, step=self.report.steps)
 

@@ -21,11 +21,12 @@ when ``pipeline_depth > 0``; ``cohort_size <= 1`` is the sequential
 ``--fused-loss`` engine). Weights reach the chain only when this hotkey
 holds a validator permit.
 
-Not ported yet, and refused with NotImplementedError naming the slice
-(ROADMAP "Slices of the port"): the fleet health plane, remediation,
-LoRA adapter submissions and the metrics sink (slice 7), and
-content-addressed base fetches (``base_fetcher``, slice 5); a device mesh
-is refused by the engine (slice 7).
+With ``base_fetcher`` (``engine/basedist.BaseFetcher``) base pulls fetch
+only the layers the published manifest changed, falling back to the
+monolithic pull. Not ported yet, and refused with NotImplementedError
+naming the slice (ROADMAP "Slices of the port"): the fleet health plane,
+remediation, LoRA adapter submissions and the metrics sink (slice 7); a
+device mesh is refused by the engine (slice 7).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from typing import Callable, Iterable
 import torch
 
 from ..utils import obs
+from .basedist import fetch_base
 from .scheduler import Clock, RealClock
 
 logger = logging.getLogger(__name__)
@@ -49,7 +51,6 @@ _SLICES = "ROADMAP 'Slices of the port'"
 _NOT_PORTED = {
     "fleet": ("the fleet health plane", 7),
     "remediation": ("remediation", 7),
-    "base_fetcher": ("content-addressed base fetches (--base-wire-v2)", 5),
     "lora_cfg": ("LoRA adapter submissions", 7),
     "metrics": ("the metrics sink (--metrics-path)", 7),
 }
@@ -84,7 +85,6 @@ class Validator:
                  metrics=None, lora_cfg=None, fleet=None, remediation=None,
                  base_fetcher=None):
         for name, value in (("fleet", fleet), ("remediation", remediation),
-                            ("base_fetcher", base_fetcher),
                             ("lora_cfg", lora_cfg), ("metrics", metrics)):
             if value is not None:
                 what, slice_no = _NOT_PORTED[name]
@@ -106,6 +106,7 @@ class Validator:
             raise ValueError(f"cohort_size must be >= 0, got {cohort_size}")
         self.engine = engine
         self.transport = transport
+        self.base_fetcher = base_fetcher
         self.chain = chain
         self.eval_batches = eval_batches
         self.metric = metric
@@ -186,7 +187,7 @@ class Validator:
         one) or a random init drawn with numpy from ``seed``. Then
         evaluate it."""
         from ..models.gpt2 import init_params_numpy
-        fetched = (self.transport.fetch_base(self._host_template())
+        fetched = (self._fetch_base_single()
                    if self.transport.base_revision() is not None else None)
         if fetched is not None:
             base, self._base_revision = fetched
@@ -196,6 +197,10 @@ class Validator:
                 base = init_params_numpy(self.engine.model.cfg, seed)
         self.base_params = self._place(base)
         self._eval_base()
+
+    def _fetch_base_single(self, revision=None):
+        return fetch_base(self.transport, self.base_fetcher,
+                          self._host_template(), revision)
 
     def _evaluator(self):
         if self._cohort_eval is None:
@@ -220,7 +225,7 @@ class Validator:
         rev = self.transport.base_revision()
         if rev is None or rev == self._base_revision:
             return
-        fetched = self.transport.fetch_base(self._host_template())
+        fetched = self._fetch_base_single(rev)
         if fetched is None:   # a torn or hostile read: keep the base
             return
         self.base_params = self._place(fetched[0])

@@ -1,15 +1,17 @@
 """Averager entry point of the port: merge miner deltas into the next
 base model — the port of the JAX package's ``neurons/averager.py`` on the
-flat path (no ``--hier``, no lease, no lineage, no sharded base).
+flat path (no ``--hier``, no lease).
 
 Run offline end to end on the card with::
 
     python -m distributedtraining_tpu_torch.neurons.averager \
         --backend local --work-dir /tmp/run --model gpt2-124m \
-        --dataset synthetic --tokenizer word --no-base-wire-v2 \
-        --no-lineage --flight-events 0 --rounds 1
+        --dataset synthetic --tokenizer word --rounds 1
 
-(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) Miners of either
+(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) Each publish is
+followed by the base's changed shards and manifest (``--base-wire-v2``)
+and a lineage record (``--lineage``, with the quality-drift detector);
+the flight recorder keeps ``--flight-events`` events. Miners of either
 package, publishing dense deltas or ``--wire-v2`` shards into the same
 ``--work-dir``, are merged: by meta-learned weights (``--strategy
 parameterized``, the default: ``--meta-epochs``, ``--meta-lr``,
@@ -25,8 +27,8 @@ import logging
 from ..config import RunConfig
 from ..engine.average import (AveragerLoop, GeneticMerge, ParameterizedMerge,
                               WeightedAverage)
-from ..utils import obs
-from .common import build
+from ..utils import flight, obs
+from .common import base_mirrors, build
 
 
 def make_strategy(cfg: RunConfig, model):
@@ -49,6 +51,19 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(name)s %(message)s")
     cfg = RunConfig.from_args("averager", argv)
     c = build(cfg)
+    flight.install_crash_hooks()   # see neurons/miner.py
+    # detection and counters only (no train loop here to tick a capture):
+    # a quality drift of the lineage plane arms it
+    from ..utils.obs import AnomalyMonitor
+    lineage = None
+    if cfg.lineage:
+        from ..engine.lineage import LineagePlane
+        lineage = LineagePlane(c.transport, node=cfg.hotkey,
+                               anomaly=AnomalyMonitor())
+    base_dist = None
+    if cfg.base_wire_v2:
+        from ..engine.basedist import BasePublisher
+        base_dist = BasePublisher(c.transport, mirrors=base_mirrors(cfg))
     loop = AveragerLoop(c.engine, c.transport, c.chain,
                         make_strategy(cfg, c.model),
                         val_batches=c.eval_batches(),
@@ -59,7 +74,8 @@ def main(argv=None) -> int:
                         stale_deltas=cfg.stale_deltas or "skip",
                         publish_policy=cfg.publish_policy,
                         ingest_workers=cfg.ingest_workers,
-                        ingest_cache_mb=cfg.ingest_cache_mb)
+                        ingest_cache_mb=cfg.ingest_cache_mb,
+                        lineage=lineage, base_dist=base_dist)
     try:
         loop.bootstrap()
         merged = loop.run_periodic(interval=cfg.averaging_interval,
@@ -68,6 +84,7 @@ def main(argv=None) -> int:
         merged = loop.report.rounds > 0
     finally:
         loop.close()   # drain the ingest pool's worker threads
+        flight.shutdown()   # see neurons/miner.py
         obs.reset()
     logging.info("averager done: rounds=%d accepted=%d rejected=%d loss=%.4f",
                  loop.report.rounds, loop.report.last_accepted,

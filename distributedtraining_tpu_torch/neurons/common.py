@@ -2,8 +2,9 @@
 averager's part of the JAX package's ``neurons/common.py``
 (``Components`` and ``build``): the model, the ``TrainEngine``, the
 ``memory`` or ``local`` transport, the local chain and address store,
-the tokenizer, and the train, self-eval and held-out batch streams,
-driven by ``RunConfig``.
+the tokenizer, the train, self-eval and held-out batch streams and the
+flight recorder, driven by ``RunConfig``; and ``build_base_fetcher``, the
+content-addressed base fetcher of ``--base-wire-v2``.
 
 The device is the card unless the caller asks for the CPU the way the JAX
 roles do: ``DT_FORCE_PLATFORM=cpu`` in the environment. Without it,
@@ -158,6 +159,32 @@ def build(cfg: RunConfig) -> Components:
             f"--tokenizer {cfg.tokenizer} at vocab {model_cfg.vocab_size}: "
             f"the HF and BPE tokenizers are not ported; use --tokenizer "
             f"word or byte")
+    if cfg.flight_events > 0:
+        # the bounded forensic ring every role keeps, frozen into a
+        # published __pm__ bundle on a quality drift or a crash; role
+        # mains install the crash hooks and call flight.shutdown() on exit
+        from ..utils import flight
+        flight.configure(cfg.role, cfg.hotkey, transport=transport,
+                         capacity=cfg.flight_events, config=cfg)
     return Components(cfg=cfg, model=model, model_cfg=model_cfg,
                       engine=engine, transport=transport, chain=chain,
                       address_store=address_store, tokenizer=tokenizer)
+
+
+def base_mirrors(cfg: RunConfig) -> list[str]:
+    """The ``--base-mirrors`` list (comma-separated hotkeys)."""
+    return [m.strip() for m in (cfg.base_mirrors or "").split(",")
+            if m.strip()]
+
+
+def build_base_fetcher(cfg: RunConfig, c: Components):
+    """The role's content-addressed base fetcher
+    (``engine/basedist.BaseFetcher``) with ``--base-wire-v2`` (the
+    default), else None (the monolithic pull). Mirrors come from
+    ``--base-mirrors``; the averager's announce rider adds its own at
+    fetch time."""
+    if not cfg.base_wire_v2:
+        return None
+    from ..engine.basedist import BaseFetcher
+    return BaseFetcher(c.transport, mirrors=base_mirrors(cfg),
+                       store_bytes=cfg.base_store_mb * (1 << 20))

@@ -5,26 +5,31 @@ Run offline end to end on the card with::
 
     python -m distributedtraining_tpu_torch.neurons.miner \
         --backend local --work-dir /tmp/run --model gpt2-124m \
-        --dataset synthetic --tokenizer word --fused-loss \
-        --no-base-wire-v2 --checkpoint-interval 0 --no-anomaly-trace \
-        --flight-events 0 --max-steps 50
+        --dataset synthetic --tokenizer word --fused-loss --max-steps 50
 
-(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) ``--wire-v2``
+(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) The JAX defaults
+apply: base pulls go through the published manifest (``--base-wire-v2``),
+a checkpoint lands in ``<work-dir>/checkpoints/<hotkey>`` every
+``--checkpoint-interval`` seconds and at exit (a restart resumes from
+it), an anomaly arms one profiler window into
+``<work-dir>/anomaly_traces/<hotkey>`` (``--anomaly-trace``), and the
+flight recorder keeps ``--flight-events`` events. ``--wire-v2``
 publishes the packed top-k form as per-layer shards and a manifest
 (``--wire-density``, ``--wire-quant`` tune it). A JAX validator or
-averager, or the port's averager, pointed at the same ``--work-dir``
-reads its deltas.
+averager, or the port's, pointed at the same ``--work-dir`` reads its
+deltas.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 from ..config import RunConfig
 from ..engine.train import MinerLoop
-from ..utils import obs
-from .common import build
+from ..utils import flight, obs
+from .common import build, build_base_fetcher
 
 
 def _guard_kwargs(cfg, c) -> dict:
@@ -47,6 +52,26 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(name)s %(message)s")
     cfg = RunConfig.from_args("miner", argv)
     c = build(cfg)
+    # an unhandled exception (main or worker thread) or the interpreter's
+    # exit freezes the flight ring into a published postmortem bundle
+    flight.install_crash_hooks()
+    from ..utils.metrics import TraceCapture
+    trace = (TraceCapture(cfg.profile_dir, steps=cfg.profile_steps)
+             if cfg.profile_dir else None)
+    anomaly = None
+    if cfg.anomaly_trace:
+        # a disarmed capture: a loss spike, a push-failure streak or a
+        # step-time p99 blowout arms one bounded profiler window
+        from ..utils.obs import AnomalyMonitor
+        anomaly = AnomalyMonitor(TraceCapture(
+            cfg.anomaly_dir or os.path.join(cfg.work_dir, "anomaly_traces",
+                                            cfg.hotkey),
+            steps=cfg.profile_steps, arm=False))
+    store = None
+    if cfg.checkpoint_interval > 0:
+        from ..checkpoint import CheckpointStore
+        store = CheckpointStore(cfg.checkpoint_dir or os.path.join(
+            cfg.work_dir, "checkpoints", cfg.hotkey))
     loop = MinerLoop(c.engine, c.transport, cfg.hotkey,
                      send_interval=cfg.send_interval,
                      check_update_interval=cfg.check_update_interval,
@@ -58,6 +83,10 @@ def main(argv=None) -> int:
                      keep_optimizer_on_pull=cfg.keep_optimizer_on_pull,
                      push_async=cfg.push_async,
                      push_queue_depth=cfg.push_queue_depth,
+                     checkpoint_store=store,
+                     checkpoint_interval=cfg.checkpoint_interval,
+                     trace=trace, anomaly=anomaly,
+                     base_fetcher=build_base_fetcher(cfg, c),
                      **_guard_kwargs(cfg, c))
 
     def _bootstrap():
@@ -81,7 +110,7 @@ def main(argv=None) -> int:
         _bootstrap()
         batches = c.train_batches()
         report = loop.run(batches, max_steps=cfg.max_steps)
-        loop.flush()  # the final delta, so short runs still publish
+        loop.flush()  # the final delta and checkpoint
     except KeyboardInterrupt:
         report = loop.report
         loop.flush()
@@ -90,6 +119,11 @@ def main(argv=None) -> int:
         if close is not None:
             close()   # the look-ahead thread
         loop.close()
+        if store is not None:
+            store.close()
+        # a crash bundle first (while the transport is still wired), then
+        # the process-wide state goes
+        flight.shutdown()
         obs.reset()
     logging.info("miner done: steps=%d pushes=%d (failed=%d superseded=%d) "
                  "base_pulls=%d loss=%.4f",

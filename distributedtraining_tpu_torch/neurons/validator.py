@@ -6,10 +6,11 @@ Run offline end to end on the card with::
 
     python -m distributedtraining_tpu_torch.neurons.validator \
         --backend local --work-dir /tmp/run --model gpt2-124m \
-        --dataset synthetic --tokenizer word --no-base-wire-v2 \
-        --flight-events 0 --hotkey hotkey_91 --rounds 1
+        --dataset synthetic --tokenizer word --hotkey hotkey_91 --rounds 1
 
-(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) Miners of either
+(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) Base pulls go
+through the published manifest (``--base-wire-v2``), and the flight
+recorder keeps ``--flight-events`` events. Miners of either
 package publishing into the same ``--work-dir`` are scored; the weights
 land in the local chain, where an averager of either package reads them
 through ``consensus_scores()``. A hotkey without a validator permit is
@@ -23,8 +24,8 @@ import logging
 
 from ..config import RunConfig
 from ..engine.validate import Validator
-from ..utils import obs
-from .common import build
+from ..utils import flight, obs
+from .common import build, build_base_fetcher
 
 
 def main(argv=None) -> int:
@@ -32,6 +33,7 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(name)s %(message)s")
     cfg = RunConfig.from_args("validator", argv)
     c = build(cfg)
+    flight.install_crash_hooks()   # see neurons/miner.py
     validator = Validator(c.engine, c.transport, c.chain,
                           eval_batches=c.eval_batches(),
                           metric=cfg.score_metric,
@@ -42,12 +44,14 @@ def main(argv=None) -> int:
                           cohort_size=cfg.val_cohort,
                           pipeline_depth=cfg.val_pipeline_depth,
                           ingest_workers=cfg.ingest_workers,
-                          ingest_cache_mb=cfg.ingest_cache_mb)
+                          ingest_cache_mb=cfg.ingest_cache_mb,
+                          base_fetcher=build_base_fetcher(cfg, c))
     # the reference gates weight-setting to staked validators
     # (btt_connector.py:358-385): refuse up front rather than spend eval
     # compute on scores no one will see
     if not validator.has_vpermit():
         if not cfg.allow_no_vpermit:
+            flight.reset()
             raise SystemExit(
                 f"hotkey {c.chain.my_hotkey} holds no validator permit "
                 f"(stake < {cfg.vpermit_stake_limit}); pass "
@@ -63,6 +67,7 @@ def main(argv=None) -> int:
         return 0
     finally:
         validator.close()   # drain the ingest pool's worker threads
+        flight.shutdown()   # see neurons/miner.py
         obs.reset()
     return 0 if ok else 1
 

@@ -26,8 +26,10 @@ Trees are nested dicts in the JAX layout (``h_0/attn/c_attn/kernel``);
 leaves are numpy arrays, numpy scalars or CPU tensors. Loads restore BY
 EXAMPLE: with a template, the payload must carry every template key and
 each leaf's shape, or :class:`PayloadError` is raised. The wire-v2 shard
-container and manifest (``pack_shard``, ``build_wire_manifest``, ...) are
-here too; safetensors and the base manifest come with a later slice.
+container and manifest (``pack_shard``, ``build_wire_manifest``, ...) and
+the base-distribution shard and manifest (``pack_base_shard``,
+``build_base_manifest``, ...) are here too; safetensors comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -100,17 +102,19 @@ def _str(v: str) -> bytes:
     return _header(len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + raw
 
 
-def _bin(v: bytes) -> bytes:
-    n = len(v)
+def _bin_head(n: int) -> bytes:
     if n <= 0xFF:
-        return b"\xc4" + struct.pack(">B", n) + v
+        return b"\xc4" + struct.pack(">B", n)
     if n <= 0xFFFF:
-        return b"\xc5" + struct.pack(">H", n) + v
-    return b"\xc6" + struct.pack(">I", n) + v
+        return b"\xc5" + struct.pack(">H", n)
+    return b"\xc6" + struct.pack(">I", n)
 
 
-def _ext(code: int, data: bytes) -> bytes:
-    n = len(data)
+def _bin(v: bytes) -> bytes:
+    return _bin_head(len(v)) + v
+
+
+def _ext_head(code: int, n: int) -> bytes:
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
     if n in fixed:
         head = bytes((fixed[n],))
@@ -120,29 +124,38 @@ def _ext(code: int, data: bytes) -> bytes:
         head = b"\xc8" + struct.pack(">H", n)
     else:
         head = b"\xc9" + struct.pack(">I", n)
-    return head + struct.pack(">b", code) + data
+    return head + struct.pack(">b", code)
 
 
-def _leaf_parts(x) -> tuple[tuple, str, bytes]:
+def _raw(arr: np.ndarray) -> memoryview:
+    """The array's C-order bytes as a view, not a copy."""
+    return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
+def _leaf_parts(x) -> tuple[tuple, str, memoryview]:
     """``(shape, dtype name, raw C-order bytes)`` of a host leaf."""
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return (tuple(t.shape), "bfloat16",
-                    t.view(torch.int16).numpy().tobytes())
+                    _raw(t.view(torch.int16).numpy()))
         x = t.numpy()
     arr = np.asarray(x)
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes cannot be "
                          "serialized")
-    return arr.shape, arr.dtype.name, arr.tobytes("C")
+    return arr.shape, arr.dtype.name, _raw(arr)
 
 
-def _ndarray_ext(x) -> bytes:
+def _ndarray_ext(x) -> list:
+    """A leaf's ndarray extension as two pieces: the headers, then the
+    leaf's bytes as a view (a file write of the view copies nothing and
+    does not hold the GIL)."""
     shape, name, raw = _leaf_parts(x)
-    body = (_header(len(shape), 0x90, 16, (None, 0xDC, 0xDD))
-            + b"".join(_int(int(d)) for d in shape) + _str(name) + _bin(raw))
-    return _ext(_EXT_NDARRAY, b"\x93" + body)
+    head = (b"\x93" + _header(len(shape), 0x90, 16, (None, 0xDC, 0xDD))
+            + b"".join(_int(int(d)) for d in shape) + _str(name)
+            + _bin_head(len(raw)))
+    return [_ext_head(_EXT_NDARRAY, len(head) + len(raw)) + head, raw]
 
 
 def _nbytes(x) -> int:
@@ -190,7 +203,7 @@ def _encode(obj, out: list, *, top: bool) -> None:
         if _nbytes(obj) > MAX_CHUNK_SIZE:
             _encode(_chunk(obj), out, top=False)
         else:
-            out.append(_ndarray_ext(obj))
+            out.extend(_ndarray_ext(obj))
         return
     if obj is None:
         out.append(b"\xc0")
@@ -205,7 +218,7 @@ def _encode(obj, out: list, *, top: bool) -> None:
     elif type(obj) is bytes:
         out.append(_bin(obj))
     elif isinstance(obj, (np.ndarray, torch.Tensor)):
-        out.append(_ndarray_ext(obj))
+        out.extend(_ndarray_ext(obj))
     else:
         raise TypeError(f"cannot serialize {type(obj).__name__}")
 
@@ -557,3 +570,93 @@ def parse_wire_manifest(data: bytes) -> dict | None:
             "density": float(density)
             if isinstance(density, (int, float)) else None,
             "layers": out_layers}
+
+
+# ---------------------------------------------------------------------------
+# Base-distribution shard container (engine/basedist.py)
+#
+# The base model's sharded form: one raw-tensor shard per wire-layout leaf
+# (msgpack of ``{"x": leaf}``) plus one small manifest that addresses them
+# by sha256 and names the monolithic revision the set assembles to. The
+# content address is the dedupe key (an unchanged layer costs no bytes),
+# the integrity pin (shards travel unsigned) and the torn-publish guard
+# (the manifest lands last). Shard and manifest bytes equal the JAX
+# package's for the same tree.
+# ---------------------------------------------------------------------------
+
+# manifest prefix: not msgpack, so no monolithic decode half-accepts it
+BASE_MANIFEST_MAGIC = b"DTBASE1\n"
+# ~100 bytes an entry; 1 MiB is hostile (transport/base.py reads with it)
+BASE_MANIFEST_MAX_BYTES = 1 << 20
+
+
+def pack_base_shard(arr) -> bytes:
+    """One base layer (an array or a tensor) -> shard bytes. Deterministic
+    in the array's bytes, so a fetcher re-derives the publisher's digests
+    from a monolithically fetched tree."""
+    return to_msgpack({"x": arr})
+
+
+def unpack_base_shard(data: bytes, *, max_bytes: int = DEFAULT_MAX_BYTES):
+    """Shard bytes -> the layer (a numpy array; a CPU tensor for bf16),
+    or None. Shape and dtype are checked against the template at
+    assembly (``engine/basedist.assemble_base_tree``)."""
+    if len(data) > max_bytes:
+        return None
+    try:
+        raw = from_msgpack(bytes(data), None, max_bytes=max_bytes)
+    except PayloadError:
+        return None
+    if not isinstance(raw, dict) or set(raw) != {"x"} \
+            or not isinstance(raw["x"], (np.ndarray, torch.Tensor)):
+        return None
+    return raw["x"]
+
+
+def build_base_manifest(layers: Mapping[str, tuple[str, int]], *,
+                        revision: str) -> bytes:
+    """``{layer_key: (shard sha256, shard nbytes)}`` and the monolithic
+    revision the set assembles to -> manifest bytes (magic + canonical
+    JSON)."""
+    import json
+    body = {"format": 1, "revision": str(revision),
+            "layers": {str(k): {"h": h, "n": int(n)}
+                       for k, (h, n) in sorted(layers.items())}}
+    data = BASE_MANIFEST_MAGIC + json.dumps(
+        body, sort_keys=True, separators=(",", ":")).encode()
+    if len(data) > BASE_MANIFEST_MAX_BYTES:
+        raise PayloadError(f"base manifest {len(data)} bytes exceeds cap "
+                           f"{BASE_MANIFEST_MAX_BYTES}")
+    return data
+
+
+def is_base_manifest(data) -> bool:
+    return (isinstance(data, (bytes, bytearray, memoryview))
+            and bytes(data[:len(BASE_MANIFEST_MAGIC)])
+            == BASE_MANIFEST_MAGIC)
+
+
+def parse_base_manifest(data: bytes) -> dict | None:
+    """PEER-CONTROLLED base manifest bytes -> ``{"revision", "layers":
+    {key: {"h", "n"}}}`` or None. Magic, size cap, JSON shape, format
+    number, revision and the layer table's bounds are all validated: a
+    manifest that parses can at worst make a fetcher pull bounded bytes
+    that then fail their hash check (and fall back to the monolithic
+    base)."""
+    import json
+    if not is_base_manifest(data) or len(data) > BASE_MANIFEST_MAX_BYTES:
+        return None
+    try:
+        body = json.loads(
+            bytes(data[len(BASE_MANIFEST_MAGIC):]).decode("utf-8"))
+    except (ValueError, UnicodeDecodeError):
+        return None
+    if not isinstance(body, dict) or body.get("format") != 1:
+        return None
+    layers = _validated_manifest_layers(body.get("layers"))
+    if not layers:
+        return None
+    rev = body.get("revision")
+    if not (isinstance(rev, str) and 0 < len(rev) <= 200):
+        return None
+    return {"revision": rev, "layers": layers}

@@ -1,7 +1,9 @@
 """Transport protocol — the port of the JAX package's ``transport/base.py``:
 the ``Transport`` protocol, the delta META rider codec, the reserved
-artifact ids and the wire-v2 shard helpers (``shard_id``,
-``publish_shard``, ``fetch_shard``).
+artifact ids and their helpers: wire-v2 delta shards (``shard_id``,
+``publish_shard``, ``fetch_shard``), base shards and manifests
+(``publish_base_shard``, ``publish_base_manifest``, ...), lineage
+records and postmortem bundles.
 
 Method mapping to the reference's HFManager (hivetrain/hf_manager.py):
 
@@ -32,9 +34,10 @@ META_MAX_BYTES = 4096
 
 # Reserved artifact ids: control-plane and shard artifacts travel through
 # the same per-miner byte surface as deltas, under prefixes no chain
-# hotkey starts with. The port publishes wire-v2 shards; the other
-# prefixes are the JAX package's fleet planes, kept so a consumer of a
-# shared root recognises every reserved id.
+# hotkey starts with. The port publishes wire-v2 shards, base shards and
+# manifests, lineage records and postmortem bundles; the other prefixes
+# are the JAX package's fleet planes, kept so a consumer of a shared root
+# recognises every reserved id.
 HEARTBEAT_PREFIX = "__hb__"
 LEASE_PREFIX = "__lease__"
 AGG_PREFIX = "__agg__"
@@ -43,6 +46,13 @@ LINEAGE_PREFIX = "__lineage__"
 BASE_PREFIX = "__base__"
 KV_PREFIX = "__kv__"
 MIRROR_PREFIX = "__mirror__"
+
+# consumer-side size caps of the postmortem, lineage and base-manifest
+# reads (utils/flight.PM_MAX_BYTES, engine/lineage.LINEAGE_MAX_BYTES and
+# serialization.BASE_MANIFEST_MAX_BYTES are the same numbers)
+PM_MAX_BYTES = 1 << 20
+LINEAGE_MAX_BYTES = 1 << 18
+BASE_MANIFEST_MAX_BYTES = 1 << 20
 
 # Wire-v2 per-layer delta shards (serialization.py shard container,
 # engine/publish.py uploads, engine/ingest.py fetches): raw bytes under a
@@ -71,6 +81,61 @@ def shard_id(hotkey: str, layer_key: str) -> str:
 def is_shard_id(artifact_id: str) -> bool:
     return isinstance(artifact_id, str) and \
         artifact_id.startswith(SHARD_PREFIX + ".")
+
+
+def pm_id(role: str, node_id: str) -> str:
+    """The reserved artifact id a (role, hotkey)'s postmortem bundle
+    publishes under (role-qualified: one hotkey may run several roles
+    against one store)."""
+    return f"{PM_PREFIX}.{role}.{node_id}"
+
+
+def is_pm_id(artifact_id: str) -> bool:
+    return isinstance(artifact_id, str) and \
+        artifact_id.startswith(PM_PREFIX + ".")
+
+
+def lineage_slug(revision: str) -> str:
+    """Filename/id-safe spelling of an opaque revision string, injective
+    by the percent-escape rule of :func:`shard_layer_slug`."""
+    return (str(revision).replace("%", "%25").replace(".", "%2E")
+            .replace("/", "%2F"))
+
+
+def lineage_id(revision: str) -> str:
+    """The reserved artifact id of the lineage record for ``revision``:
+    keyed on the resulting revision, so records are never overwritten."""
+    return f"{LINEAGE_PREFIX}.{lineage_slug(revision)}"
+
+
+def is_lineage_id(artifact_id: str) -> bool:
+    return isinstance(artifact_id, str) and \
+        artifact_id.startswith(LINEAGE_PREFIX + ".")
+
+
+def base_shard_id(layer_key: str) -> str:
+    """The reserved artifact id one base layer's shard travels under.
+    The ``s.`` segment keeps shard ids disjoint from manifest ids: a
+    revision slug holds no literal ``.``."""
+    return f"{BASE_PREFIX}.s.{shard_layer_slug(layer_key)}"
+
+
+def base_manifest_id(revision: str) -> str:
+    """The reserved artifact id of the base manifest for ``revision``:
+    a fetcher that probed ``base_revision() == R`` reads exactly R's
+    shard set, and a mid-publish race degrades to the monolithic pull."""
+    return f"{BASE_PREFIX}.{lineage_slug(revision)}"
+
+
+def is_base_id(artifact_id: str) -> bool:
+    return isinstance(artifact_id, str) and \
+        artifact_id.startswith(BASE_PREFIX + ".")
+
+
+def mirror_node_id(node_id: str) -> str:
+    """The reserved pseudo-hotkey one mirror's base-shard replicas travel
+    under (``shard_id(mirror_node_id(node), layer_key)``)."""
+    return f"{MIRROR_PREFIX}.{node_id}"
 
 
 def is_reserved_id(artifact_id: str) -> bool:
@@ -104,6 +169,92 @@ def fetch_shard(transport, hotkey: str, layer_key: str) -> bytes | None:
     if fs is not None:
         return fs(hotkey, layer_key)
     return transport.fetch_delta_bytes(shard_id(hotkey, layer_key))
+
+
+def _publish_own(transport, artifact_id: str, data: bytes) -> None:
+    """Bytes that are this node's own artifact: ``publish_delta_raw``
+    when the transport has it (a signing wrapper envelopes them), else
+    ``publish_raw``."""
+    pdr = getattr(transport, "publish_delta_raw", None)
+    if pdr is not None:
+        pdr(artifact_id, data)
+        return
+    transport.publish_raw(artifact_id, data)
+
+
+def _fetch_capped(transport, artifact_id: str, cap: int) -> bytes | None:
+    data = transport.fetch_delta_bytes(artifact_id)
+    if data is not None and len(data) > cap:
+        return None
+    return data
+
+
+def publish_postmortem(transport, role: str, node_id: str,
+                       data: bytes) -> None:
+    """Publish one frozen flight bundle under the reserved pm id."""
+    _publish_own(transport, pm_id(role, node_id), data)
+
+
+def fetch_postmortem_bytes(transport, role: str,
+                           node_id: str) -> bytes | None:
+    """Raw (size-capped) bundle bytes for one (role, hotkey), or None;
+    validation lives in ``utils/flight.fetch_bundle``."""
+    return _fetch_capped(transport, pm_id(role, node_id), PM_MAX_BYTES)
+
+
+def publish_lineage(transport, revision: str, data: bytes) -> None:
+    """Publish one lineage record under the reserved per-revision id."""
+    _publish_own(transport, lineage_id(revision), data)
+
+
+def fetch_lineage_bytes(transport, revision: str) -> bytes | None:
+    """Raw (size-capped) lineage record bytes for one revision, or None;
+    validation and the content-address check live in
+    ``engine/lineage.fetch_record``."""
+    return _fetch_capped(transport, lineage_id(revision), LINEAGE_MAX_BYTES)
+
+
+def publish_base_shard(transport, layer_key: str, data: bytes) -> None:
+    """Publish one base shard: the transport's own ``publish_base_shard``
+    when present, else ``publish_raw`` under the reserved ``__base__.s.*``
+    id. Base shards travel unsigned: the manifest pins their sha256."""
+    ps = getattr(transport, "publish_base_shard", None)
+    if ps is not None:
+        ps(layer_key, data)
+        return
+    transport.publish_raw(base_shard_id(layer_key), data)
+
+
+def fetch_base_shard(transport, layer_key: str) -> bytes | None:
+    """One base shard's raw bytes from the origin slot (or None); callers
+    verify them against the manifest hash (``engine/basedist.py``)."""
+    fs = getattr(transport, "fetch_base_shard", None)
+    if fs is not None:
+        return fs(layer_key)
+    return transport.fetch_delta_bytes(base_shard_id(layer_key))
+
+
+def publish_base_manifest(transport, revision: str, data: bytes) -> None:
+    """Publish one base manifest under the reserved per-revision id: the
+    transport's own ``publish_base_manifest``, else ``publish_delta_raw``,
+    else ``publish_raw``."""
+    pbm = getattr(transport, "publish_base_manifest", None)
+    if pbm is not None:
+        pbm(revision, data)
+        return
+    _publish_own(transport, base_manifest_id(revision), data)
+
+
+def fetch_base_manifest_bytes(transport, revision: str) -> bytes | None:
+    """Raw (size-capped) base manifest bytes for one revision, or None.
+    Absence is the negotiation signal: no manifest means the monolithic
+    fetch."""
+    fbm = getattr(transport, "fetch_base_manifest", None)
+    data = (fbm(revision) if fbm is not None
+            else transport.fetch_delta_bytes(base_manifest_id(revision)))
+    if data is not None and len(data) > BASE_MANIFEST_MAX_BYTES:
+        return None
+    return data
 
 
 def encode_delta_meta(meta: dict) -> bytes:

@@ -10,9 +10,13 @@ spans (``avg.fetch``, ``avg.screen``, ``avg.merge``, ``avg.eval``,
 ``delta.densify_fallbacks`` and ``merge.weights_reused``. Same names and semantics as the JAX package's
 ``utils/obs.py``: the registry, ``span`` (a ``span.<name>_ms``
 histogram), the thread-local correlation id (``correlate``,
-``current_cid``, ``new_delta_id``) and ``flush`` (a registry snapshot
-through a caller's sink). Span records, the role's own sink and the
-anomaly monitor come with the ported metrics sinks (slice 7).
+``current_cid``, ``new_delta_id``), ``flush`` (a registry snapshot
+through a caller's sink), the flight recorder's hooks
+(``attach_flight``: span closes and flushes reach its ring) and
+:class:`AnomalyMonitor` (a loss spike, a push-failure streak or a
+step-time p99 blowout arms one ``utils.metrics.TraceCapture`` window).
+Span records and the role's own sink come with the ported metrics sinks
+(slice 7).
 
 Everything is off until ``configure()`` switches it on: the
 module-level ``count``/``observe``/``gauge``/``span`` helpers are
@@ -24,12 +28,15 @@ the serve loop and the publish worker touch the registry concurrently).
 from __future__ import annotations
 
 import contextlib
+import logging
 import math
 import re
 import threading
 import time
 from collections import deque
 from typing import Any, Iterable
+
+logger = logging.getLogger(__name__)
 
 _NAME_RE = re.compile(r"^[a-z0-9_.]+$")
 
@@ -171,6 +178,20 @@ class Registry:
         with self._lock:
             return self._metrics.get(name)
 
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
+    def digest(self) -> str:
+        """Short stable digest of the metric VOCABULARY (names, not
+        values), as the JAX package's registry computes it."""
+        import hashlib
+        return hashlib.sha256(
+            ",".join(self.names()).encode()).hexdigest()[:12]
+
+    def __len__(self) -> int:
+        return len(self._metrics)
+
     def snapshot(self) -> dict[str, float]:
         """Flat numeric dict: counters and gauges as ``name``, histograms
         as ``name.count/.sum/.p50/.p95/.p99``."""
@@ -191,6 +212,7 @@ class _ObsState:
         self.registry = Registry()
         self.enabled = False
         self.tl = threading.local()   # per-thread correlation id
+        self.flight = None            # utils/flight.FlightRecorder
 
 
 _STATE = _ObsState()
@@ -205,6 +227,17 @@ def configure() -> Registry:
 
 def registry() -> Registry:
     return _STATE.registry
+
+
+def attach_flight(recorder) -> None:
+    """Attach (or detach, with None) a flight recorder
+    (``utils/flight.py``): span closes and flushes then reach its ring.
+    ``reset()`` drops the attachment with the rest of the state."""
+    _STATE.flight = recorder
+
+
+def registry_digest() -> str:
+    return _STATE.registry.digest()
 
 
 def reset() -> None:
@@ -241,6 +274,12 @@ def flush(sink=None, *, step: int | None = None) -> dict[str, float]:
     snap = _STATE.registry.snapshot() if _STATE.enabled else {}
     if snap and sink is not None:
         sink.log(dict(snap), step=step)
+    fl = _STATE.flight
+    if fl is not None and _STATE.enabled:
+        try:
+            fl.on_flush(snap)
+        except Exception:
+            logger.exception("flight flush hook failed")
     return snap
 
 
@@ -306,17 +345,147 @@ def span(name: str, *, cid: str | None = None, **attrs):
     """Time a phase into the ``span.<name>_ms`` histogram; ``cid`` sets
     the thread's correlation id inside it. ``attrs`` (miner, cache, ...)
     annotate the JAX package's span records; the port keeps the
-    histogram only, so they are accepted and dropped. A no-op when
-    disabled."""
+    histogram (and the attached flight recorder's event), so they are
+    accepted and dropped. A no-op when disabled."""
     if not _STATE.enabled:
         yield
         return
     check_metric_name(name)
-    reg = _STATE.registry
+    st = _STATE
     t0 = time.perf_counter()
+    ok = True
     with correlate(cid if cid is not None else current_cid()):
         try:
             yield
+        except BaseException:
+            ok = False
+            raise
         finally:
-            reg.histogram(f"span.{name}_ms").observe(
-                (time.perf_counter() - t0) * 1e3)
+            dur_ms = (time.perf_counter() - t0) * 1e3
+            st.registry.histogram(f"span.{name}_ms").observe(dur_ms)
+            fl = st.flight
+            if fl is not None:
+                try:
+                    fl.on_span(name, dur_ms, current_cid(), ok)
+                except Exception:  # forensics must never break a phase
+                    logger.exception("flight span hook failed")
+
+
+# ---------------------------------------------------------------------------
+# Anomaly-triggered profiler capture
+# ---------------------------------------------------------------------------
+
+class AnomalyMonitor:
+    """Arms a one-shot ``TraceCapture`` (``utils/metrics.py``) on the
+    first of:
+
+    - a loss spike: the loss exceeds ``loss_spike_factor`` x its EMA
+      (after ``loss_warmup`` observations), or is non-finite;
+    - a push-failure streak: ``push_failure_streak`` consecutive failed
+      pushes with no success between them;
+    - a step-time p99 blowout: the recent steps' p99 exceeds
+      ``step_p99_factor`` x their p50 (after ``step_warmup`` steps,
+      checked every ``check_every`` observations).
+
+    Exactly one arming a monitor's lifetime, whatever fires later: the
+    first anomaly is the one worth a capture window. ``capture`` may be
+    None (detection and counters only, the averager's and the
+    validator's monitor). The miner loop feeds observations and forwards
+    ``tick()``. The same rules and numbers as the JAX package's."""
+
+    def __init__(self, capture=None, *, loss_spike_factor: float = 2.0,
+                 loss_warmup: int = 8, push_failure_streak: int = 3,
+                 step_p99_factor: float = 8.0, step_warmup: int = 64,
+                 check_every: int = 32):
+        if loss_spike_factor <= 1.0 or step_p99_factor <= 1.0:
+            raise ValueError("anomaly factors must be > 1.0")
+        if push_failure_streak < 1:
+            raise ValueError("push_failure_streak must be >= 1")
+        self.capture = capture
+        self.loss_spike_factor = loss_spike_factor
+        self.loss_warmup = loss_warmup
+        self.push_failure_streak = push_failure_streak
+        self.step_p99_factor = step_p99_factor
+        self.step_warmup = step_warmup
+        self.check_every = check_every
+        self.triggered: str | None = None
+        self._loss_ema: float | None = None
+        self._loss_seen = 0
+        self._fail_streak = 0
+        self._last_pushes = 0
+        self._last_failed = 0
+        self._steps = Histogram("anomaly.step_ms", capacity=256)
+
+    # -- observations -------------------------------------------------------
+    def observe_loss(self, loss: float) -> None:
+        loss = float(loss)
+        if not math.isfinite(loss):
+            self._trigger("loss_nonfinite", value=loss)
+            return
+        self._loss_seen += 1
+        if self._loss_ema is None:
+            self._loss_ema = loss
+            return
+        if (self._loss_seen > self.loss_warmup and self._loss_ema > 0
+                and loss > self.loss_spike_factor * self._loss_ema):
+            self._trigger("loss_spike", value=loss, ema=self._loss_ema)
+        self._loss_ema += 0.1 * (loss - self._loss_ema)
+
+    def observe_step_ms(self, ms: float) -> None:
+        self._steps.observe(ms)
+        n = self._steps.count
+        if n < self.step_warmup or n % self.check_every:
+            return
+        p = self._steps.percentiles((50.0, 99.0))
+        if p["p50"] > 0 and p["p99"] > self.step_p99_factor * p["p50"]:
+            self._trigger("step_time_p99", p50=p["p50"], p99=p["p99"])
+
+    def observe_push_counters(self, pushes: int, failed: int) -> None:
+        """Feed the loop's cumulative push counters; the deltas since the
+        last call drive the streak (a success resets it)."""
+        d_push = pushes - self._last_pushes
+        d_fail = failed - self._last_failed
+        self._last_pushes, self._last_failed = pushes, failed
+        if d_push > 0:
+            self._fail_streak = 0
+        if d_fail > 0:
+            self._fail_streak += d_fail
+            if self._fail_streak >= self.push_failure_streak:
+                self._trigger("push_failure_streak",
+                              streak=self._fail_streak)
+
+    def trigger_external(self, reason: str, **details) -> None:
+        """Arm on an anomaly detected elsewhere (the lineage plane's
+        quality drift): the same one-shot budget as the local rules."""
+        self._trigger(check_metric_name(reason), **details)
+
+    # -- capture plumbing ---------------------------------------------------
+    def tick(self) -> None:
+        """Forward one step tick to the (possibly armed) capture."""
+        if self.capture is not None:
+            self.capture.tick()
+
+    def close(self) -> None:
+        if self.capture is not None:
+            self.capture.close()
+
+    def _trigger(self, reason: str, **details) -> None:
+        if self.triggered is not None:
+            return   # one-shot: the first anomaly wins, forever
+        self.triggered = reason
+        count(f"obs.anomaly.{reason}")
+        logger.warning("anomaly detected (%s%s)%s", reason,
+                       "".join(f" {k}={v:.4g}" if isinstance(v, float)
+                               else f" {k}={v}"
+                               for k, v in details.items()),
+                       "" if self.capture is None
+                       else " — arming one-shot profiler capture")
+        fl = _STATE.flight
+        if fl is not None:
+            try:
+                fl.record("anomaly", reason=reason,
+                          armed=self.capture is not None)
+            except Exception:
+                logger.exception("flight anomaly hook failed")
+        if self.capture is not None:
+            self.capture.arm()

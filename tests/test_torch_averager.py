@@ -291,9 +291,13 @@ def test_declined_merge_is_not_recomputed(world, tmp_path):
 
 
 def test_unported_planes_and_strategies_raise(world):
+    # the lineage and base-distribution planes are ported: accepted
+    for kw in ({"lineage": object()}, {"base_dist": object()}):
+        loop = tavg.AveragerLoop(world["teng"], None, None,
+                                 tavg.WeightedAverage(), val_batches=None,
+                                 **kw)
+        assert getattr(loop, next(iter(kw))) is kw[next(iter(kw))]
     for kw, slice_no in (({"hierarchy": ["n0"]}, 5), ({"lease": object()}, 5),
-                         ({"lineage": object()}, 5),
-                         ({"base_dist": object()}, 5),
                          ({"fleet": object()}, 7),
                          ({"remediation": object()}, 7),
                          ({"lora_cfg": object()}, 7)):
@@ -348,10 +352,12 @@ def test_averager_flags_match_the_jax_parser():
 
 
 @pytest.mark.parametrize("extra,slice_no", [
-    ([], 5),                                     # --base-wire-v2 is on
-    (["--strategy", "weighted"], 5),             # --base-wire-v2 is on
-    (["--strategy", "weighted", "--no-base-wire-v2"], 5),   # --lineage
-    (["--strategy", "weighted", "--no-base-wire-v2", "--no-lineage"], 7),
+    # the JAX defaults (--base-wire-v2, --lineage, --flight-events 512)
+    # and the opt-outs of them are ported: None means accepted
+    ([], None),
+    (["--strategy", "weighted"], None),
+    (["--strategy", "weighted", "--no-base-wire-v2"], None),
+    (["--strategy", "weighted", "--no-base-wire-v2", "--no-lineage"], None),
     (AVG_ARGS + ["--strategy", "genetic"], 6),
     (AVG_ARGS + ["--outer-momentum", "0.9"], 5),
     (AVG_ARGS + ["--hier", "root"], 5),
@@ -364,6 +370,9 @@ def test_averager_flags_match_the_jax_parser():
 ])
 def test_averager_refusals_name_their_slice(extra, slice_no):
     cfg = RunConfig.from_args("averager", extra)
+    if slice_no is None:
+        cfg.check_ported()
+        return
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         cfg.check_ported()
 

@@ -256,11 +256,16 @@ def test_unported_miner_options_raise(world):
     model, _ = tg.make_model(TINY)
     eng = ttrain.TrainEngine(model, device="cpu")
     for kw, match in (({"delta_dtype": "int8"}, "slice 5"),
-                      ({"checkpoint_store": object()}, "slice 5"),
-                      ({"base_fetcher": object()}, "slice 5"),
                       ({"heartbeat": object()}, "slice 7")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.MinerLoop(eng, InMemoryTransport(), "m0", **kw)
+    # checkpoints, the sharded base fetch, traces and anomaly captures are
+    # ported: accepted
+    kw = {k: object() for k in ("checkpoint_store", "base_fetcher", "trace",
+                                "anomaly")}
+    loop = ttrain.MinerLoop(eng, InMemoryTransport(), "m0", **kw)
+    assert all(getattr(loop, k) is v for k, v in kw.items())
+    loop.close()
 
 
 # ---------------------------------------------------------------------------
@@ -287,9 +292,13 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
 
 
 @pytest.mark.parametrize("extra,slice_no", [
-    ([], 5),                                    # --base-wire-v2 is on
-    (["--no-base-wire-v2"], 5),                 # --checkpoint-interval 600
-    (["--no-base-wire-v2", "--checkpoint-interval", "0"], 7),
+    # the JAX defaults (--base-wire-v2, --checkpoint-interval 600,
+    # --anomaly-trace, --flight-events 512), the opt-outs of them and
+    # --profile-dir are ported: None means accepted
+    ([], None),
+    (["--no-base-wire-v2"], None),
+    (["--no-base-wire-v2", "--checkpoint-interval", "0"], None),
+    (MINER_ARGS + ["--profile-dir", "prof"], None),
     (MINER_ARGS + ["--wire-v2", "--delta-dtype", "int8"], 5),
     (MINER_ARGS + ["--delta-dtype", "sparse8"], 5),
     (MINER_ARGS + ["--backend", "hf"], 7),
@@ -299,6 +308,9 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
 ])
 def test_config_refuses_what_is_not_ported(extra, slice_no):
     cfg = RunConfig.from_args("miner", extra)
+    if slice_no is None:
+        cfg.check_ported()
+        return
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         cfg.check_ported()
 
