@@ -222,11 +222,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
            replay_record re-derives within 1e-6 (dequant_scatter == 3
            packed contributions); a record with one byte changed raises
            LineageError. Every earlier phase keeps its opt-out flags.
+20. slice5 slice 5 through the role CLIs at GPT-2-124M full width and
+           depth on a fresh LocalFS root, every role with
+           ``--sign-artifacts`` (its own wallet; ``--base-signer`` the
+           publisher): the Ed25519 sign and verify ms on the host and what
+           signing adds to a 498 MB base publish and fetch; a ``--hier
+           root --outer-momentum 0.9`` genesis; three signed miners
+           (``--delta-dtype int8 --fused-loss``, ``--delta-dtype sparse8``,
+           ``--wire-v2``; 3 steps each, launches exact) whose int8 and
+           sparse8 artifacts equal the plain encoders' bytes on CPU copies
+           of the pushed delta, two signed packed submissions, and a
+           forgery under hotkey_5's id signed by hotkey_1's key (refused
+           with the JAX verdict). Two ``--hier sub`` nodes (n1 with
+           ``--hier-wire-v2``): dequant_scatter == the packed
+           contributions each folded, the "agg" riders, each mirror holds
+           the base's 148 shards (hash-checked) and a fetcher reads the
+           base off the mirrors (hits == network shards, bit-equal). The
+           root's round: flash launches as phase 18 reads them (7
+           meta-epochs + the merged eval), the published base == base +
+           0.7 (0.9 v + d) with v = d by the plain versions on the CPU
+           within 1e-6 (and the velocity file), the velocity committed
+           after the publish; a replayed genesis envelope refused as a
+           rolled-back base. A library round whose lease a rival takes
+           first stands down: base and velocity file bytes unchanged. A
+           ``--standby --failover-deadline 2`` CLI follows a renewing
+           primary, takes the lease at its epoch + 1 two seconds after
+           the last renewal, bootstraps from the current base and
+           publishes a base it signed (3 scatter launches: its packed
+           submissions). A signing validator CLI scores the honest
+           miners > 0 and the forgery 0 (``no_delta``, the JAX verdict in
+           the log). Records whether ``cryptography`` is installed (the
+           port never imports it).
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
-JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), the
-``nvidia-smi`` name/power-limit line,
+JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
+``slice5`` JSON line (phase 20), the ``nvidia-smi`` name/power-limit
+line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -3209,8 +3241,551 @@ def _defaults_replay(tree, tok, work: str, watch) -> dict:
             "chain": len(chain_recs), "tampered": tampered}
 
 
+# the slice-5 phase (20): signed miners, the tree under the outer merge,
+# a stood-down round, the standby and a signing validator
+S5_STEPS = 3
+S5_NODES = ("n0", "n1")
+S5_ROOT, S5_STANDBY, S5_RIVAL = "hotkey_95", "hotkey_98", "hotkey_99"
+# plan_fanout over the local metagraph (hotkeys sorted as strings) gives
+# n0 hotkey_2, 4, 6 and n1 hotkey_1, 3, 5
+S5_PLAN = {"n0": ("hotkey_2", "hotkey_4", "hotkey_6"),
+           "n1": ("hotkey_1", "hotkey_3", "hotkey_5")}
+S5_PACKED = {"n0": 2, "n1": 1}    # packed contributions each sub folds
+# the JAX package's verdicts (distributedtraining_tpu/signing.py,
+# transport/signed.py), which the port's must equal
+JAX_FORGERY_VERDICT = ("envelope public key does not match the hotkey's "
+                       "registered key")
+JAX_ROLLBACK_VERDICT = "replayed stale base"
+
+
+class _LogTap:
+    """Collects the messages one logger emits (the signed transport's
+    verdicts) while the role CLIs run."""
+
+    def __init__(self, name: str):
+        import logging
+        self.messages: list[str] = []
+        self._logger = logging.getLogger(name)
+        tap = self
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                tap.messages.append(record.getMessage())
+
+        self._handler = _H()
+
+    def __enter__(self):
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+
+
+def _s5_signing_costs(tree, work: str) -> dict:
+    """Ed25519 sign and verify ms on the host, and what signing adds to a
+    498 MB base publish and fetch (a plain and a signed LocalFS root)."""
+    from distributedtraining_tpu_torch.engine.train import _wire_template
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import (LocalFSTransport,
+                                                         SignedTransport)
+    from distributedtraining_tpu_torch.utils.identity import Identity
+    ident = Identity.from_private_bytes(bytes(range(32)))
+    msg = b"delta:hotkey_1" + bytes(32)
+    t0 = time.perf_counter()
+    sigs = [ident.sign(msg) for _ in range(20)]
+    sign_ms = (time.perf_counter() - t0) / 20 * 1e3
+    t0 = time.perf_counter()
+    ok = all(ident.verify(msg, s) for s in sigs)
+    verify_ms = (time.perf_counter() - t0) / 20 * 1e3
+    check(ok, "a signature did not verify")
+    template = _wire_template(gpt2.make_model(gpt2.PRESETS["gpt2-124m"])[0])
+    plain = LocalFSTransport(os.path.join(work, "plain"))
+    signed = SignedTransport(LocalFSTransport(os.path.join(work, "signed")),
+                             identity=ident, my_hotkey="hotkey_95")
+    out = {}
+    for name, t in (("plain", plain), ("signed", signed)):
+        t0 = time.perf_counter()
+        t.publish_base(tree)
+        out[f"{name}_publish_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = t.fetch_base(template)
+        out[f"{name}_fetch_s"] = time.perf_counter() - t0
+        check(got is not None and _bit_equal_trees(got[0], tree),
+              f"the {name} base does not read back")
+        del got
+    return {"ed25519_sign_ms": sign_ms, "ed25519_verify_ms": verify_ms,
+            **out,
+            "signed_publish_adds_s": out["signed_publish_s"]
+            - out["plain_publish_s"],
+            "signed_fetch_adds_s": out["signed_fetch_s"]
+            - out["plain_fetch_s"]}
+
+
+def _s5_watch(watch: _Watch) -> None:
+    """Phase 20's hooks, added to phase 19's (``watch`` undoes them)."""
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.engine import average, basedist
+    from distributedtraining_tpu_torch.engine.remediate import \
+        StandbyAverager
+    from distributedtraining_tpu_torch.engine.validate import Validator
+    from distributedtraining_tpu_torch.transport import SignedTransport
+
+    def cpu(tree):
+        return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+    # the encoders' inputs and outputs, off the card (the byte check)
+    for name in ("quantize_delta", "sparsify_delta"):
+        watch._wrap(delta, name, lambda d, a, out, s: {
+            "delta": cpu(d), "s": s})
+    watch._wrap(basedist.MirrorDuty, "sync", lambda m, a, out, s: {
+        "ok": out, "s": s, **(m.last_sync or {})})
+    watch._wrap(average.OuterOptMerge, "merge", lambda o, a, out, s: {
+        "base": cpu(a[1]), "deltas": list(a[2]), "ids": list(a[3]),
+        "w": cpu(out[1]), "pending": cpu(o._pending_velocity), "s": s})
+    watch._wrap(average.OuterOptMerge, "commit", lambda o, a, out, s: {
+        "t": time.time(), "s": s, "bytes": sum(
+            v.numel() * v.element_size() for v in o.velocity.values())})
+    watch._wrap(SignedTransport, "publish_base", lambda st, a, out, s: {
+        "t": time.time(), "s": s, "rev": out, "by": st.my_hotkey})
+    watch._wrap(StandbyAverager, "poll_once", lambda sb, a, out, s: {
+        "t": time.time(), "state": out, "epoch": sb.lease.epoch})
+    watch._wrap(Validator, "validate_and_score", lambda v, a, out, s: {
+        "scores": {r.hotkey: (r.score, r.reason) for r in out}, "s": s})
+
+
+def phase_slice5(tree, tok) -> dict:
+    """Slice 5 through the role CLIs at GPT-2-124M full width and depth
+    on a fresh LocalFS root, every role with --sign-artifacts: signed
+    int8, sparse8 and wire-v2 miners, two --hier sub nodes with mirrors,
+    a --hier root under --outer-momentum, a round whose lease stands
+    down, a --standby takeover and a signing validator."""
+    import hashlib
+    import importlib.util
+    import tempfile
+    import threading
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch import signing
+    from distributedtraining_tpu_torch.chain import (LocalAddressStore,
+                                                     LocalChain)
+    from distributedtraining_tpu_torch.engine.average import (
+        AveragerLoop, OuterOptMerge, ParameterizedMerge)
+    from distributedtraining_tpu_torch.engine.basedist import BaseFetcher
+    from distributedtraining_tpu_torch.engine.publish import host_materialize
+    from distributedtraining_tpu_torch.engine.remediate import (
+        LeaseManager, parse_lease)
+    from distributedtraining_tpu_torch.engine.train import (TrainEngine,
+                                                            _wire_template)
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.neurons import validator as val_cli
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import (LocalFSTransport,
+                                                         SignedTransport)
+    from distributedtraining_tpu_torch.transport import base as tbase
+    from distributedtraining_tpu_torch.utils.identity import Identity
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    L = cfg.n_layer
+    template = _wire_template(gpt2.make_model(cfg)[0])
+    res: dict = {"model": "gpt2-124m", "cryptography_present":
+                 importlib.util.find_spec("cryptography") is not None}
+    runs: dict = {}
+    with tempfile.TemporaryDirectory() as work, _Watch() as watch, \
+            _LogTap("distributedtraining_tpu_torch.transport.signed") as tap:
+        _s5_watch(watch)
+        res["signing"] = _s5_signing_costs(tree, os.path.join(work, "cost"))
+        arts = os.path.join(work, "artifacts")
+        t = LocalFSTransport(arts)
+        store = LocalAddressStore(os.path.join(work, "chain"))
+        common = DEFAULT_FLAGS + ["--work-dir", work, "--sign-artifacts",
+                                  "--base-signer", S5_ROOT]
+        tree_flags = ["--hier-nodes", ",".join(S5_NODES)]
+        root_flags = common + tree_flags + [
+            "--hier", "root", "--outer-momentum", "0.9", "--hotkey",
+            S5_ROOT, "--rounds", "1", "--publish-policy", "always"]
+
+        def reader(signer=S5_ROOT):
+            return SignedTransport(LocalFSTransport(arts),
+                                   pubkey_resolver=store.retrieve_pubkey,
+                                   base_signer=signer)
+
+        def wallet(hotkey):
+            return Identity.load(os.path.join(work, "wallets",
+                                              f"{hotkey}.json"))
+
+        # genesis by the root (no aggregates yet: exit 1, a signed base)
+        g = _cli(avg_cli, root_flags, watch)
+        check(g["rc"] == 1 and t.base_revision() is not None,
+              f"the root's genesis run exited {g['rc']}")
+        b0 = t.base_revision()
+        b0_bytes = t.fetch_base_bytes()
+        check(signing.is_enveloped(b0_bytes), "the genesis base is unsigned")
+        runs["root_genesis"] = g
+        # 1. signed miners: int8 with the fused loss, sparse8, wire-v2
+        m_flags = common + ["--max-steps", str(S5_STEPS),
+                            "--checkpoint-interval", "0",
+                            "--no-anomaly-trace"]
+        miners = {"hotkey_1": ["--delta-dtype", "int8", "--fused-loss"],
+                  "hotkey_2": ["--delta-dtype", "sparse8"],
+                  "hotkey_3": ["--wire-v2"]}
+        for h, extra in miners.items():
+            r = _cli(miner_cli, m_flags + extra + ["--hotkey", h], watch)
+            check(r["rc"] == 0, f"miner {h} exited {r['rc']}")
+            _check_launches(f"miner {h}", r["launches"], _train_want(
+                cfg, S5_STEPS, fused="--fused-loss" in extra))
+            runs[h] = r
+        # the encoders' artifacts against the plain encoders on CPU copies
+        codec = {}
+        for h, name, fn in (
+                ("hotkey_1", "quantize_delta", delta.quantize_delta),
+                ("hotkey_2", "sparsify_delta",
+                 lambda d: delta.sparsify_delta(d, density=1 / 64))):
+            # the artifact on the root is the last push's
+            seen = runs[h]["seen"][name]
+            check(len(seen) >= 1, f"{h} encoded no push")
+            want = ser.to_msgpack(host_materialize(fn(seen[-1]["delta"])))
+            got = signing.strip_envelope(t.fetch_delta_bytes(h))
+            check(got == want, f"{h}'s {name} artifact differs from the "
+                               "plain encoder's bytes on the CPU copy")
+            codec[h] = {"bytes": len(got), "encode_s": seen[-1]["s"],
+                        "pushes": len(seen)}
+        # two more packed contributions, signed by their own wallets
+        g_noise = torch.Generator(device=DEV).manual_seed(SEED + 20)
+        shapes = {k: v.shape for k, v in gpt2.params_from_numpy(
+            tree, device=DEV).items()}
+        for h, quant in (("hotkey_4", "int8"), ("hotkey_6", "none")):
+            ident = Identity.generate()
+            store.store_pubkey(h, ident.public_bytes)
+            _publish_packed(SignedTransport(
+                LocalFSTransport(arts), identity=ident, my_hotkey=h), h,
+                {k: torch.randn(s, generator=g_noise, device=DEV) * 1e-5
+                 for k, s in shapes.items()}, b0, quant)
+        # the forgery: under hotkey_5's id (its key registered), signed
+        # by hotkey_1's key
+        store.store_pubkey("hotkey_5", Identity.generate().public_bytes)
+        t.publish_raw("hotkey_5", signing.wrap(
+            ser.to_msgpack(gpt2.params_to_numpy(
+                {k: torch.zeros(s) for k, s in shapes.items()})),
+            wallet("hotkey_1"), signing.delta_context("hotkey_5")))
+        rd = reader()
+        for h in ("hotkey_1", "hotkey_2", "hotkey_3", "hotkey_4",
+                  "hotkey_6"):
+            raw = t.fetch_delta_bytes(h)
+            check(signing.is_enveloped(raw) and rd.fetch_delta_bytes(h)
+                  is not None, f"{h}'s artifact is not enveloped or fails "
+                               "its signature")
+        try:
+            signing.unwrap(t.fetch_delta_bytes("hotkey_5"),
+                           signing.delta_context("hotkey_5"),
+                           expected_pub=store.retrieve_pubkey("hotkey_5"))
+            forgery = "accepted"
+        except ser.PayloadError as e:
+            forgery = str(e)
+        check(forgery == JAX_FORGERY_VERDICT,
+              f"the forgery's verdict: {forgery!r}")
+        check(rd.fetch_delta_bytes("hotkey_5") is None,
+              "the signed transport read the forgery")
+        res["miners"] = {h: {"rc": r["rc"], "s": r["s"],
+                             "hook_s": r["hook_s"], "flags": miners[h],
+                             "launches": r["launches"], **codec.get(h, {})}
+                         for h, r in runs.items() if h in miners}
+        res["forgery_verdict"] = forgery
+        # 2. the tree: two subs (n1 on the v2 wire), each with its mirror
+        subs = {}
+        for node, hk, extra in (("n0", "hotkey_96", []),
+                                ("n1", "hotkey_97", ["--hier-wire-v2"])):
+            r = _cli(avg_cli, common + tree_flags + extra + [
+                "--hier", "sub", "--hier-node", node, "--hotkey", hk,
+                "--rounds", "1"], watch)
+            check(r["rc"] == 0, f"sub {node} exited {r['rc']}")
+            _check_launches(f"sub {node}", r["launches"],
+                            {"dequant_scatter": S5_PACKED[node]})
+            meta = t.fetch_delta_meta(tbase.agg_id(node))
+            check(meta["agg"]["miners"] == len(S5_PLAN[node]) - (
+                node == "n1") and meta["base_revision"] == b0,
+                  f"sub {node}'s rider {meta}")
+            mir = r["seen"]["sync"]
+            check(len(mir) == 1 and mir[0]["ok"]
+                  and mir[0]["shards"] == WIRE_LEAVES,
+                  f"sub {node}'s mirror sync {mir}")
+            pres = t.fetch_delta_meta(tbase.mirror_node_id(node))
+            check(pres == {"mirror": {"revision": b0,
+                                      "layers": WIRE_LEAVES}},
+                  f"mirror {node}'s presence rider {pres}")
+            subs[node] = r
+        check(signing.is_enveloped(t.fetch_delta_bytes(
+            tbase.agg_id("n0"))) and signing.is_enveloped(
+            t.fetch_delta_bytes(tbase.agg_id("n1"))),
+              "an aggregate is not enveloped")
+        man = _manifest_signed(t, b0)
+        for node in S5_NODES:
+            for key, info in man["layers"].items():
+                data = tbase.fetch_shard(t, tbase.mirror_node_id(node), key)
+                check(data is not None and ser.shard_digest(data)
+                      == info["h"], f"mirror {node} lacks shard {key}")
+        # a fetcher of the genesis base reads it off the mirrors
+        f = BaseFetcher(reader())
+        t0 = time.perf_counter()
+        got = f.fetch(template)
+        mirror_fetch_s = time.perf_counter() - t0
+        mono = reader().fetch_base(template)
+        check(got is not None and got[1] == b0 and f.fallbacks_total == 0
+              and f.mirror_hits_total == f.network_shards_total > 0
+              and _bit_equal_trees(got[0], mono[0]),
+              f"the mirrored fetch: hits {f.mirror_hits_total} of "
+              f"{f.network_shards_total}, fallbacks {f.fallbacks_total}")
+        del got, mono
+        res["subs"] = {n: {"rc": r["rc"], "s": r["s"],
+                           "hook_s": r["hook_s"],
+                           "launches": r["launches"],
+                           "mirror_sync_s": r["seen"]["sync"][0]["s"],
+                           "mirror_sync_bytes":
+                               r["seen"]["sync"][0]["bytes"]}
+                       for n, r in subs.items()}
+        res["mirror_fetch"] = {"s": mirror_fetch_s,
+                               "mirror_hits": f.mirror_hits_total,
+                               "store_hits": f.store_hits_total}
+        # the root under the outer merge
+        vpath = os.path.join(work, "averager_state",
+                             f"velocity_{S5_ROOT}.msgpack")
+        check(not os.path.exists(vpath), "a velocity before the first merge")
+        r = _cli(avg_cli, root_flags, watch)
+        check(r["rc"] == 0 and t.base_revision() != b0,
+              f"the root exited {r['rc']} without a new base")
+        runs["root"] = r
+        b1 = t.base_revision()
+        fwd = r["launches"]["flash_attention_fwd"]
+        n_b, rest = divmod(fwd, L * 8)     # 7 epochs + the merged eval
+        check(n_b > 0 and rest == 0, f"root flash fwd launches {fwd}")
+        _check_launches("root", r["launches"], {
+            "flash_attention_fwd": L * 8 * n_b,
+            "flash_attention_bwd_dkv": L * 7 * n_b,
+            "flash_attention_bwd_dq": L * 7 * n_b})
+        merge = r["seen"]["merge"][-1]
+        check(merge["ids"] == [tbase.agg_id(n) for n in S5_NODES],
+              f"the root merged {merge['ids']}")
+        pubs = [p for p in r["seen"]["publish_base"] if p["rev"] == b1]
+        commits = r["seen"]["commit"]
+        check(len(pubs) == 1 and len(commits) == 1
+              and commits[0]["t"] >= pubs[0]["t"] and os.path.exists(vpath),
+              "the velocity was not committed after the publish")
+        # base + outer_lr (m v + d), v = d (zero before), by the plain
+        # versions on the CPU
+        base = merge["base"]
+        placed = [delta.place_delta(d, base) for d in merge["deltas"]]
+        mix = delta.per_tensor_weighted_merge(
+            base, placed, {k: torch.softmax(x, dim=0)
+                           for k, x in merge["w"].items()})
+        want_v = {k: mix[k] - base[k] for k in base}
+        want = {k: base[k] + 0.7 * (0.9 * want_v[k] + want_v[k])
+                for k in base}
+        del placed, mix
+        pub = gpt2.params_from_numpy(reader().fetch_base(template)[0],
+                                     device="cpu")
+        base_err = max(float((pub[k] - want[k]).abs().max()) for k in pub)
+        vfile = delta.flatten_tree(ser.load_file(vpath, template))
+        v_err = max(float((torch.tensor(vfile[k]) - want_v[k]).abs().max())
+                    for k in want_v)
+        check(base_err <= 1e-6 and v_err <= 1e-6,
+              f"the outer step vs the plain versions: base {base_err}, "
+              f"velocity {v_err}")
+        del pub, want, want_v, vfile, base, merge
+        # a replayed stale base (the genesis envelope) is refused
+        seen_reader = reader()
+        check(seen_reader.fetch_base(template) is not None,
+              "the root's base does not verify")
+        b1_bytes = t.fetch_base_bytes()
+        t.publish_base_raw(b0_bytes)
+        n_tap = len(tap.messages)
+        check(seen_reader.fetch_base(template) is None,
+              "a replayed stale base was accepted")
+        rollback = [m for m in tap.messages[n_tap:]
+                    if JAX_ROLLBACK_VERDICT in m]
+        check(rollback, f"no rollback verdict: {tap.messages[n_tap:]}")
+        t.publish_base_raw(b1_bytes)
+        check(t.base_revision() == b1, "the base did not come back")
+        del b0_bytes, b1_bytes
+        res["root"] = {"rc": r["rc"], "s": r["s"], "hook_s": r["hook_s"],
+                       "launches": r["launches"], "eval_batches": n_b,
+                       "aggregates": len(S5_NODES),
+                       "published_vs_plain_max_abs": base_err,
+                       "velocity_vs_plain_max_abs": v_err,
+                       "velocity_device_bytes": commits[0]["bytes"],
+                       "velocity_save_s": commits[0]["s"],
+                       "signed_publish_s": pubs[0]["s"],
+                       "outer_merge_s": r["seen"]["merge"][-1]["s"],
+                       "rollback_verdict": rollback[0]}
+        # 3. a round whose lease another holder takes first: merged, not
+        # published, and the velocity file keeps its bytes
+        with open(vpath, "rb") as fh:
+            v_digest = hashlib.sha256(fh.read()).hexdigest()
+        model = gpt2.make_model(cfg)[0]
+        root_t = SignedTransport(LocalFSTransport(arts),
+                                 identity=wallet(S5_ROOT),
+                                 pubkey_resolver=store.retrieve_pubkey,
+                                 base_signer=S5_ROOT, my_hotkey=S5_ROOT)
+        lease = LeaseManager(LocalFSTransport(arts), S5_ROOT)
+        check(lease.acquire(), "the root could not take the lease")
+        outer = OuterOptMerge(ParameterizedMerge(model), outer_lr=0.7,
+                              momentum=0.9, state_path=vpath)
+        held = _batches(tok, split="test", batch_size=MINER_B,
+                        seq_len=EVAL_T, n=n_b)
+        loop = AveragerLoop(TrainEngine(model, device=DEV), root_t,
+                            LocalChain(os.path.join(work, "chain"),
+                                       my_hotkey=S5_ROOT), outer,
+                            val_batches=lambda: iter(held),
+                            publish_policy="always", stale_deltas="accept",
+                            hierarchy=list(S5_NODES), lease=lease)
+        loop.bootstrap()
+        rival = LeaseManager(LocalFSTransport(arts), S5_RIVAL)
+        check(rival.acquire() and rival.epoch == lease.epoch + 1,
+              "the rival did not take the next epoch")
+        restored = None
+        torch.cuda.synchronize()
+        _zero_counts()
+        dsc.launches = 0
+        t0 = time.perf_counter()
+        merged = loop.run_round()
+        torch.cuda.synchronize()
+        down_s = time.perf_counter() - t0
+        down_launches = {"dequant_scatter": dsc.launches, **fa.launches,
+                         **fused_ce.launches}
+        restored = {k: v.detach().cpu() for k, v in outer.velocity.items()}
+        loop.close()
+        with open(vpath, "rb") as fh:
+            v_after = hashlib.sha256(fh.read()).hexdigest()
+        vfile = delta.flatten_tree(ser.load_file(vpath, template))
+        check(merged and loop.report.skipped_publishes == 1
+              and t.base_revision() == b1 and v_after == v_digest
+              and outer._pending_velocity is not None
+              and all(torch.equal(torch.tensor(vfile[k]), restored[k])
+                      for k in restored),
+              "the stood-down round moved the base or the velocity")
+        _check_launches("stood-down round", down_launches, {
+            "flash_attention_fwd": L * 8 * n_b,
+            "flash_attention_bwd_dkv": L * 7 * n_b,
+            "flash_attention_bwd_dq": L * 7 * n_b})
+        res["stand_down"] = {"s": down_s, "launches": down_launches,
+                             "velocity_sha256": v_after,
+                             "rival_epoch": rival.epoch}
+        del loop, outer, restored, vfile, model
+        gc.collect()
+        # 4. the standby: passive while the primary renews, then epoch + 1
+        primary = LeaseManager(LocalFSTransport(arts), S5_ROOT)
+        check(primary.acquire(), "the primary could not take the lease")
+        renewals: list[float] = []
+        stop = threading.Event()
+
+        def renew():
+            # until the standby has seen three renewals go by
+            while not stop.is_set():
+                polls = watch.seen.get("poll_once", [])
+                if sum(p["state"] == "following" for p in polls) >= 4:
+                    return
+                if primary.renew():
+                    renewals.append(time.time())
+                stop.wait(0.3)
+
+        th = threading.Thread(target=renew, daemon=True)
+        th.start()
+        try:
+            sb = _cli(avg_cli, common + [
+                "--standby", "--failover-deadline", "2",
+                "--averaging-interval", "4", "--strategy", "weighted",
+                "--stale-deltas", "accept", "--publish-policy", "always",
+                "--hotkey", S5_STANDBY, "--rounds", "1"], watch)
+        finally:
+            stop.set()
+            th.join()
+        polls = sb["seen"]["poll_once"]
+        states = [p["state"] for p in polls]
+        take = polls[-1]
+        check(sb["rc"] == 0 and states[-1] == "takeover"
+              and all(s == "following" for s in states[:-1])
+              and len(renewals) >= 2
+              and take["t"] - renewals[-1] >= 2.0,
+              f"the standby: rc {sb['rc']}, polls {states}, renewals "
+              f"{len(renewals)}")
+        token = parse_lease(t.fetch_delta_meta(tbase.lease_id()))
+        primary_epoch = primary.epoch
+        b2 = t.base_revision()
+        sb_pubs = sb["seen"]["publish_base"]
+        check(token["holder"] == S5_STANDBY
+              and token["epoch"] == primary.epoch + 1
+              and token["base_revision"] == b2 != b1
+              and len(sb_pubs) == 1 and sb_pubs[0]["by"] == S5_STANDBY,
+              f"the takeover: token {token}, publishes {sb_pubs}")
+        check(reader(S5_STANDBY).fetch_base(template) is not None
+              and signing.is_enveloped(t.fetch_base_bytes()),
+              "the standby's base is not signed by it")
+        check(not primary.renew(), "the old primary still holds the lease")
+        fwd = sb["launches"]["flash_attention_fwd"]
+        _check_launches("standby", sb["launches"], {
+            "dequant_scatter": 3, "flash_attention_fwd": L * n_b})
+        res["standby"] = {"rc": sb["rc"], "s": sb["s"],
+                          "hook_s": sb["hook_s"],
+                          "launches": sb["launches"], "polls": states,
+                          "renewals": len(renewals),
+                          "takeover_after_last_renewal_s":
+                              take["t"] - renewals[-1],
+                          "epoch": token["epoch"],
+                          "primary_epoch": primary_epoch}
+        runs["standby"] = sb
+        # 5. a signing validator scores the signed fleet
+        n_tap = len(tap.messages)
+        v = _cli(val_cli, common[:-2] + ["--base-signer", S5_STANDBY,
+                                         "--hotkey", "hotkey_91",
+                                         "--rounds", "1"], watch)
+        check(v["rc"] == 0, f"the validator exited {v['rc']}")
+        scores = v["seen"]["validate_and_score"][-1]["scores"]
+        honest = ("hotkey_1", "hotkey_2", "hotkey_3")
+        check(all(scores[h][0] > 0 and scores[h][1] == "ok" for h in honest),
+              f"honest scores {[scores[h] for h in honest]}")
+        check(scores["hotkey_5"] == (0.0, "no_delta") and any(
+            "hotkey_5" in m and JAX_FORGERY_VERDICT in m
+            for m in tap.messages[n_tap:]),
+              f"the forgery scored {scores['hotkey_5']}")
+        ok = [h for h, (_, why) in scores.items() if why == "ok"]
+        _check_launches("validator", v["launches"], {
+            "flash_attention_fwd": L * n_b * (len(ok) + 1)})
+        res["validator"] = {"rc": v["rc"], "s": v["s"],
+                            "hook_s": v["hook_s"],
+                            "launches": v["launches"],
+                            "scores": {h: scores[h] for h in
+                                       (*honest, "hotkey_4", "hotkey_5",
+                                        "hotkey_6")}}
+        runs["validator"] = v
+        runs.update(subs)
+    res["root_genesis_s"] = runs["root_genesis"]["s"]
+    keys = runs["root"]["launches"]
+    res["launches"] = {k: sum(r["launches"][k] for r in runs.values())
+                       + down_launches[k] for k in keys}
+    log("slice5:", json.dumps(res))
+    return res
+
+
+def _manifest_signed(t, rev) -> dict:
+    """A signed revision's manifest (the envelope stripped)."""
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch import signing
+    from distributedtraining_tpu_torch.transport import base as tbase
+    data = tbase.fetch_base_manifest_bytes(t, rev)
+    check(data is not None and signing.is_enveloped(data),
+          f"the manifest of {rev} is not enveloped")
+    man = ser.parse_base_manifest(signing.strip_envelope(data))
+    check(man is not None and man["revision"] == rev
+          and len(man["layers"]) == WIRE_LEAVES,
+          f"the manifest of {rev}: {man and len(man['layers'])} layers")
+    return man
+
+
 def _scatter_entry(scatter: dict, avg: dict, build: dict,
-                   defaults: dict) -> dict:
+                   defaults: dict, slice5: dict) -> dict:
     wte, whole = scatter["timed"]["wte"], scatter["timed"]["contribution"]
     replaces, tpu = SCATTER_TPU
     return {
@@ -3220,6 +3795,8 @@ def _scatter_entry(scatter: dict, avg: dict, build: dict,
         "launches": avg["round1"]["launches"]["dequant_scatter"],
         # phase 19: the weighted round's merge and its lineage replay
         "launches_defaults": defaults["launches"]["dequant_scatter"],
+        # phase 20: the sub-averagers' folds and the standby's round
+        "launches_slice5": slice5["launches"]["dequant_scatter"],
         "max_abs_err": max(c["max_abs_err"] for c in scatter["checks"]),
         # one whole GPT-2-124M contribution (50 leaves, one call)
         "ms": whole["ms"], "host_ms": whole["host_ms"],
@@ -3250,7 +3827,7 @@ FLASH_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
 
 
 def _flash_entries(flash: dict, train: dict, build: dict, val: dict,
-                   meta: dict, defaults: dict) -> list:
+                   meta: dict, defaults: dict, slice5: dict) -> list:
     out = []
     per = build["sources"]["flash_attention"]["kernels"]
     for name, tpu in FLASH_TPU_KERNELS.items():
@@ -3270,6 +3847,8 @@ def _flash_entries(flash: dict, train: dict, build: dict, val: dict,
             "launches_meta_merge": meta["launches"][name],
             # phase 19, the role CLIs with the JAX defaults
             "launches_defaults": defaults["launches"][name],
+            # phase 20, slice 5's CLIs (and the stood-down round)
+            "launches_slice5": slice5["launches"][name],
             # over every case and both dtypes (bf16 dominates)
             "max_abs_err": max(c["max_abs"][key] for c in checks
                                for key in keys),
@@ -3300,7 +3879,7 @@ def _ce_registers(build: dict) -> dict:
 
 
 def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict,
-                defaults: dict) -> list:
+                defaults: dict, slice5: dict) -> list:
     out = []
     regs = _ce_registers(build)
     for name, (replaces, tpu) in CE_TPU_KERNELS.items():
@@ -3319,6 +3898,8 @@ def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict,
             "launches": miner["launches"][counter],
             "launches_train_fused": tfused["launches"][counter],
             "launches_defaults": defaults["launches"][counter],
+            # phase 20: the --fused-loss int8 miner
+            "launches_slice5": slice5["launches"][counter],
             # over every case and both dtypes (bf16 dominates)
             "max_abs_err": max(c["max_abs"][k] for c in checks
                                for k in keys if k in c["max_abs"]),
@@ -3387,6 +3968,9 @@ def main() -> int:
     t0 = time.perf_counter()
     defaults = phase_defaults(tree, tok)
     defaults["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slice5 = phase_slice5(tree, tok)
+    slice5["s"] = time.perf_counter() - t0
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -3407,9 +3991,10 @@ def main() -> int:
         "decode_step_paged_ms": prof["paged_decode_ms_per_step"],
         "timed_shape": kern["timed_shape"],
         "build_s": build["build_s"]},
-        *_flash_entries(flash, train, build, val, meta, defaults),
-        *_ce_entries(ce, miner, tfused, build, defaults),
-        _scatter_entry(scatter, avg, build, defaults)]}), flush=True)
+        *_flash_entries(flash, train, build, val, meta, defaults, slice5),
+        *_ce_entries(ce, miner, tfused, build, defaults, slice5),
+        _scatter_entry(scatter, avg, build, defaults, slice5)]}),
+        flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -3425,9 +4010,10 @@ def main() -> int:
     print(json.dumps({"validator": {**val, "meta_merge": meta,
                                     "phases_17_18_s": val_meta_s,
                                     "card": card}}), flush=True)
+    print(json.dumps({"defaults": {**defaults, "card": card}}), flush=True)
     total_s = time.perf_counter() - t_start
-    print(json.dumps({"defaults": {**defaults, "card": card,
-                                   "total_s": total_s}}), flush=True)
+    print(json.dumps({"slice5": {**slice5, "card": card,
+                                 "total_s": total_s}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -180,9 +180,6 @@ class RunConfig:
             (self.chain != "local",
              f"--chain {self.chain} (the bittensor chain needs the "
              f"network)", 7),
-            (self.my_repo_id is not None,
-             "--my-repo-id (the chain's address store)", 5),
-            (self.sign_artifacts, "--sign-artifacts", 5),
             (averager and self.strategy == "genetic",
              "--strategy genetic (its population draws need threefry2x32 "
              "in torch)", 6),
@@ -195,12 +192,6 @@ class RunConfig:
             (self.scan_blocks, "--scan-blocks", 7),
             (bool(self.remat), "--remat", 7),
             (self.mu_dtype is not None, f"--mu-dtype {self.mu_dtype}", 7),
-            (self.delta_dtype in ("int8", "sparse8"),
-             f"--delta-dtype {self.delta_dtype}", 5),
-            (averager and self.outer_momentum > 0,
-             "--outer-momentum > 0 (OuterOptMerge)", 5),
-            (averager and self.hier != "", f"--hier {self.hier}", 5),
-            (averager and self.standby, "--standby (the failover lease)", 5),
             (self.role != "miner" and self.remediate, "--remediate", 7),
             (self.init_from is not None, "--init-from", 7),
             (self.heartbeat_interval > 0, "--heartbeat-interval > 0", 7),

@@ -238,6 +238,42 @@ def _map_tree(fn, tree, is_leaf=lambda n: not isinstance(n, Mapping)):
     return {k: _map_tree(fn, v, is_leaf) for k, v in tree.items()}
 
 
+def _int8_scale(top_mag: torch.Tensor) -> torch.Tensor:
+    """``max(top_mag, 1e-12) / 127`` as the JAX encoders compute it
+    inside the miner's jitted push snapshot: XLA turns the division by a
+    constant into a product with the f32 reciprocal of 127, which differs
+    from the quotient in the last bit for about half of all inputs."""
+    return torch.clamp(top_mag, min=1e-12) * np.float32(1.0 / 127.0).item()
+
+
+def _float_leaf(x: torch.Tensor, fn: str) -> torch.Tensor:
+    if not x.is_floating_point():
+        raise ValueError(
+            f"{fn}: non-float leaf of dtype {x.dtype} — the wire format "
+            "covers all-float delta trees only")
+    return x
+
+
+@torch.no_grad()
+def quantize_delta(delta: Params) -> dict[str, torch.Tensor]:
+    """Float delta (a state dict) -> the int8 wire tree as a state dict:
+    each leaf ``k`` becomes ``k.q`` (int8) and ``k.scale`` (an f32
+    scalar, ``max|x| / 127``: :func:`_int8_scale`), symmetric per tensor;
+    nested by its ``.``
+    keys (``engine/publish.host_materialize``) it is the JAX package's
+    ``quantize_delta`` tree. A wire format only: receivers dequantize at
+    ingest. No error feedback: each push re-publishes the whole
+    cumulative delta, so a carried residual would add error."""
+    out: dict[str, torch.Tensor] = {}
+    for key, x in delta.items():
+        x = _float_leaf(x, "quantize_delta")
+        scale = _int8_scale(x.abs().max())
+        out[key + ".q"] = torch.clamp(torch.round(x / scale), -127, 127
+                                      ).to(torch.int8)
+        out[key + ".scale"] = scale.to(torch.float32)
+    return out
+
+
 def dequantize_delta(qtree: Tree) -> Tree:
     """int8 wire tree (``{"q": int8, "scale": f32}`` leaves) -> f32 host
     tree, ``q * scale`` in f32."""
@@ -266,6 +302,47 @@ def sparse_k(n: int, density: float) -> int:
     if n <= SPARSE_DENSE_CUTOFF:
         return n
     return max(1, -int(-n * density // 1))
+
+
+@torch.no_grad()
+def sparsify_delta(delta: Params, *, density: float = 1.0 / 64.0
+                   ) -> dict[str, Any]:
+    """Float delta (a state dict) -> the sparse8 wire tree as a state
+    dict: ``__delta_format__`` (int32 1) and, per leaf ``k``,
+    ``leaves.k.idx`` (int32), ``leaves.k.q`` (int8) and
+    ``leaves.k.scale`` (f32, ``max|kept| / 127``); nested by its ``.``
+    keys it is the JAX package's ``sparsify_delta`` tree. Each leaf keeps
+    its ``sparse_k`` largest |values|, in descending order with ties to
+    the lower index (``lax.top_k``'s order: a stable descending sort);
+    a leaf at or below :data:`SPARSE_DENSE_CUTOFF`, or with k >= n, ships
+    whole (``idx = arange(n)``)."""
+    if not 0.0 < density <= 1.0:
+        raise ValueError(f"density must be in (0, 1], got {density}")
+    out: dict[str, Any] = {SPARSE_FORMAT_KEY: np.int32(SPARSE_FORMAT_TOPK8)}
+    for key, x in delta.items():
+        flat = _float_leaf(x, "sparsify_delta").reshape(-1).to(torch.float32)
+        n = flat.numel()
+        k = sparse_k(n, density)
+        if k >= n:
+            idx = torch.arange(n, dtype=torch.int32, device=flat.device)
+            kept = flat
+            # jnp.max(..., initial=0.0): an empty leaf's scale is the floor
+            top_mag = (flat.abs().max() if n else
+                       torch.zeros((), dtype=torch.float32,
+                                   device=flat.device))
+        else:
+            mags, order = torch.sort(flat.abs(), descending=True,
+                                     stable=True)
+            idx = order[:k].to(torch.int32)
+            kept = flat[order[:k]]
+            top_mag = mags[0]
+        scale = _int8_scale(top_mag)
+        base = f"leaves.{key}."
+        out[base + "idx"] = idx
+        out[base + "q"] = torch.clamp(torch.round(kept / scale), -127, 127
+                                      ).to(torch.int8)
+        out[base + "scale"] = scale.to(torch.float32)
+    return out
 
 
 # kept-value dtypes a packed entry's "q" may carry: int8 or f32 (--wire-quant
@@ -499,7 +576,7 @@ def pack_delta_v2(delta: Params, *, density: float = 1.0 / 64.0,
             kept = flat[order[:k]]
             top_mag = mags[0]
         if quant == "int8":
-            scale = torch.clamp(top_mag, min=1e-12) / 127.0
+            scale = _int8_scale(top_mag)
             q = torch.clamp(torch.round(kept / scale), -127, 127
                             ).to(torch.int8)
             decoded = q.to(torch.float32) * scale

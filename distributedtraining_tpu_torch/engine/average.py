@@ -1,6 +1,7 @@
 """Averager engine: merge miner deltas into the next base model — the port
 of the JAX package's ``engine/average.py`` for the flat, single-host
-averager with the weighted and the parameterized strategies.
+averager (and the root of a tree, ``hierarchy``) with the weighted and
+the parameterized strategies and the outer Nesterov step around either.
 
 :class:`WeightedAverage` (``--strategy weighted``) weighs each accepted
 miner's delta by its normalized validator consensus score. It takes the
@@ -17,6 +18,13 @@ the mixture: the model's forward and backward through the flash kernels.
 It takes dense deltas, so the loop's ingest densifies wire-v2
 submissions for it.
 
+:class:`OuterOptMerge` (``--outer-momentum``) wraps either: a Nesterov
+step over the round's merged delta with a velocity kept across rounds
+(one more device tree the size of the model), committed only after a
+publish lands and saved to ``state_path`` (msgpack, the JAX package's
+bytes), so a declined round, a lease stand-down or a restart never
+advances or loses it.
+
 :class:`AveragerLoop` is the round: bootstrap (pull the published base,
 or publish a genesis base), gather and screen every miner's submission
 through ``engine/ingest.py``, merge, evaluate the merged base on held-out
@@ -26,20 +34,25 @@ and declined. With ``base_dist`` (``engine/basedist.BasePublisher``)
 every monolithic publish is followed by the changed base shards and the
 revision's manifest; with ``lineage`` (``engine/lineage.LineagePlane``)
 every publish, the genesis one included, freezes a content-addressed
-lineage record.
+lineage record. With ``lease`` (``engine/remediate.LeaseManager``) the
+publication lease is renewed just before each publish (a lost lease
+stands the round down) and stamped with the revision after it. With
+``hierarchy`` (sub-averager node ids) the loop is the root of a tree
+(``engine/hier_average.py``): it stages the ``__agg__.<node>``
+aggregates and mixes them by the weight sums their riders declare.
 
 Not ported yet, and refused with NotImplementedError naming the slice
 (ROADMAP "Slices of the port"): ``GeneticMerge`` (slice 6: its draws
-need threefry in torch), ``OuterOptMerge`` and the loop's ``hierarchy``
-and ``lease`` planes (slice 5), ``fleet``,
-``remediation`` and LoRA submissions (slice 7); a device mesh is refused
-by the engine (``TrainEngine(mesh=...)``, slice 7).
+need threefry in torch), ``fleet``, ``remediation`` and LoRA
+submissions (slice 7); a device mesh is refused by the engine
+(``TrainEngine(mesh=...)``, slice 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
@@ -128,12 +141,112 @@ class _SGD:
             p.add_(grads[k] * -self.lr)
 
 
+class OuterOptMerge:
+    """Outer Nesterov step around any merge strategy (DiLoCo-style local
+    SGD), the JAX package's ``OuterOptMerge``::
+
+        delta_t  = inner_merge(base, deltas) - base
+        v_t      = momentum * v_{t-1} + delta_t
+        new_base = base + outer_lr * (momentum * v_t + delta_t)  [nesterov]
+                 = base + outer_lr * v_t                         [plain]
+
+    The velocity is a state dict on the base's device. ``merge`` leaves
+    the new velocity pending; the loop's ``commit()`` after a landed
+    publish makes it current and writes it to ``state_path`` (msgpack),
+    so a round that does not publish never advances it. The first merge
+    restores it from ``state_path`` when the file exists (zeros
+    otherwise)."""
+
+    @property
+    def host_list_ingest(self) -> bool:
+        """The inner strategy's ingest preference (the outer step never
+        touches the submissions)."""
+        return getattr(self.inner, "host_list_ingest", False)
+
+    def lineage_weights(self, weights):
+        """None: momentum carries earlier rounds, so the published base is
+        not a linear mix of this round's deltas (attribution only)."""
+        return None
+
+    def __init__(self, inner, *, outer_lr: float = 0.7,
+                 momentum: float = 0.9, nesterov: bool = True,
+                 state_path: str | None = None):
+        self.inner = inner
+        self.outer_lr = outer_lr
+        self.momentum = momentum
+        self.nesterov = nesterov
+        self.state_path = state_path
+        self.velocity: Params | None = None
+        self._pending_velocity: Params | None = None
+
+    @torch.no_grad()
+    def _outer_step(self, base: Params, merged: Params, velocity: Params
+                    ) -> tuple[Params, Params]:
+        new, v_out = {}, {}
+        for k, b in base.items():
+            d = merged[k] - b
+            v = self.momentum * velocity[k] + d
+            upd = self.momentum * v + d if self.nesterov else v
+            new[k] = b + self.outer_lr * upd
+            v_out[k] = v
+        return new, v_out
+
+    def merge(self, engine, base: Params, stacked: Sequence, miner_ids:
+              list[str], *, val_batches=None,
+              consensus: dict[str, float] | None = None):
+        merged, w = self.inner.merge(engine, base, stacked, miner_ids,
+                                     val_batches=val_batches,
+                                     consensus=consensus)
+        if self.velocity is None:
+            self.velocity = self._restore_velocity(base)
+        new_base, self._pending_velocity = self._outer_step(
+            base, merged, self.velocity)
+        return new_base, w
+
+    def _restore_velocity(self, base: Params) -> Params:
+        if self.state_path is not None and os.path.exists(self.state_path):
+            try:
+                from .. import serialization as ser
+                # shapes only: meta tensors allocate nothing
+                template = delta_lib.nest_tree({
+                    k: torch.empty(v.shape, device="meta")
+                    for k, v in base.items()})
+                host = delta_lib.flatten_tree(
+                    ser.load_file(self.state_path, template))
+                v = {k: torch.from_numpy(np.array(host[k])).to(b.device)
+                     for k, b in base.items()}
+                logger.info("outer-opt velocity restored from %s",
+                            self.state_path)
+                return v
+            except Exception:
+                logger.exception("outer-opt velocity restore failed; "
+                                 "starting from zero momentum")
+        return {k: torch.zeros_like(b) for k, b in base.items()}
+
+    def commit(self) -> None:
+        """Called by the loop after the merged base is published."""
+        if self._pending_velocity is None:
+            return
+        self.velocity = self._pending_velocity
+        self._pending_velocity = None
+        if self.state_path is not None:
+            try:
+                from .. import serialization as ser
+                from .publish import host_materialize
+                ser.save_file(host_materialize(self.velocity),
+                              self.state_path)
+            except Exception:
+                logger.exception("outer-opt velocity save failed")
+
+
 class ParameterizedMerge:
     """Meta-learned mixing weights, the production merge
     (neurons/averager.py:102 -> averaging_logic.py:335-583).
 
     ``loss(w)`` is the held-out loss of ``base + sum_i softmax(w)_i *
-    delta_i``; ``w`` (logits, zeros at the start: uniform) takes
+    delta_i`` (``softmax_weights=False``: of ``sum_i w_i * delta_i``
+    with raw weights, uniform 1/M at the start, as the reference keeps
+    them); ``w`` (logits, zeros at the start: uniform) takes
     ``meta_epochs`` passes over ``val_batches()`` of ``meta_optimizer``
     at ``meta_lr`` (the reference's 7 and 0.01). ``per_tensor=True``
     learns one logit vector per parameter tensor (the reference's
@@ -148,7 +261,8 @@ class ParameterizedMerge:
     ingest densifies for this strategy) and are placed once a merge."""
 
     def __init__(self, model, *, meta_epochs: int = 7, meta_lr: float = 0.01,
-                 per_tensor: bool = True, meta_optimizer: str = "adam"):
+                 per_tensor: bool = True, softmax_weights: bool = True,
+                 meta_optimizer: str = "adam"):
         if meta_optimizer not in ("adam", "sgd"):
             raise ValueError(f"meta_optimizer must be 'adam' or 'sgd', "
                              f"got {meta_optimizer!r}")
@@ -156,24 +270,27 @@ class ParameterizedMerge:
         self.meta_epochs = meta_epochs
         self.meta_lr = meta_lr
         self.per_tensor = per_tensor
+        self.softmax_weights = softmax_weights
         self.meta_optimizer = meta_optimizer
         self.last_epoch_losses: list[float] = []
 
     def lineage_weights(self, weights):
-        """The scalar-per-miner mix is linear in ``softmax(w)``, so a
-        lineage record of it replays; per-tensor weights are not one
-        scalar per miner, and give None."""
+        """The scalar-per-miner mix is linear in ``softmax(w)`` (in ``w``
+        itself without the softmax), so a lineage record of it replays;
+        per-tensor weights are not one scalar per miner, and give None."""
         if self.per_tensor:
             return None
-        return torch.softmax(torch.as_tensor(weights).detach(), dim=0)
+        w = torch.as_tensor(weights).detach()
+        return torch.softmax(w, dim=0) if self.softmax_weights else w
+
+    def _norm(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(v, dim=0) if self.softmax_weights else v
 
     def _mixture(self, w, base: Params, placed: list) -> Params:
         if self.per_tensor:
             return delta_lib.per_tensor_weighted_merge(
-                base, placed, {k: torch.softmax(v, dim=0)
-                               for k, v in w.items()})
-        return delta_lib.weighted_merge(base, placed,
-                                        torch.softmax(w, dim=0))
+                base, placed, {k: self._norm(v) for k, v in w.items()})
+        return delta_lib.weighted_merge(base, placed, self._norm(w))
 
     def _tx(self):
         if self.meta_optimizer == "adam":
@@ -194,8 +311,9 @@ class ParameterizedMerge:
         placed = [delta_lib.place_delta(d, base) for d in stacked]
         dev = next(iter(base.values())).device
         names = list(base) if self.per_tensor else ["w"]
-        # softmax(0) is uniform
-        leaves = {k: torch.zeros(m, dtype=torch.float32, device=dev)
+        # softmax(0) is uniform; raw weights start at 1/M
+        init = 0.0 if self.softmax_weights else 1.0 / m
+        leaves = {k: torch.full((m,), init, dtype=torch.float32, device=dev)
                   for k in names}
         tx = self._tx()
         opt_state = tx.init(leaves)
@@ -242,8 +360,6 @@ GeneticMerge = _not_ported(
     "GeneticMerge", "the genetic merge (--strategy genetic; its population "
     "draws use jax.random, so parity needs threefry2x32 in torch, the "
     "sampling work of slice 6)", 6)
-OuterOptMerge = _not_ported(
-    "OuterOptMerge", "the outer Nesterov step (--outer-momentum)", 5)
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +378,6 @@ class AveragerReport:
 _LOOP_NOT_PORTED = {
     "fleet": ("the fleet health plane", 7),
     "remediation": ("remediation", 7),
-    "lease": ("the publication lease (failover)", 5),
-    "hierarchy": ("the tree averager (--hier)", 5),
     "lora_cfg": ("LoRA adapter submissions", 7),
 }
 
@@ -272,8 +386,11 @@ class AveragerLoop:
     """run_periodic_averaging parity (averaging_logic.py:544-583): pull the
     base, gather and screen every miner delta, merge via the strategy,
     publish the new base (and, with ``base_dist``, its shards and
-    manifest; with ``lineage``, its record). Flat and single-host; the
-    planes of ``_LOOP_NOT_PORTED`` raise when given."""
+    manifest; with ``lineage``, its record; with ``lease``, only while
+    the lease is held). Single-host; with ``hierarchy`` the root of a
+    tree (the cohort is the ``__agg__`` ids of those nodes, mixed by
+    their riders' weight sums); the planes of ``_LOOP_NOT_PORTED`` raise
+    when given."""
 
     def __init__(self, engine, transport, chain, strategy, *,
                  val_batches: Callable[[], Iterable[dict]],
@@ -289,6 +406,8 @@ class AveragerLoop:
                  ingest_cache_mb: int = 2048,
                  lineage=None,
                  base_dist=None,
+                 lease=None,
+                 hierarchy: Sequence[str] | None = None,
                  **unported):
         for name, value in unported.items():
             if name not in _LOOP_NOT_PORTED:
@@ -309,6 +428,13 @@ class AveragerLoop:
         self.transport = transport
         self.lineage = lineage
         self.base_dist = base_dist
+        # publication lease (engine/remediate.LeaseManager): renewed right
+        # before every publish, stamped after it; None: single averager
+        self.lease = lease
+        # the sub-averager node ids of a tree's root; None: flat
+        self.hierarchy = list(hierarchy) if hierarchy else None
+        # agg artifact id -> declared weight sum (its rider), per round
+        self._round_agg_weights: dict[str, float] = {}
         self.chain = chain
         self.strategy = strategy
         self.val_batches = val_batches
@@ -423,9 +549,16 @@ class AveragerLoop:
         self._round_cids.clear()
         self._round_revisions.clear()
         self._round_staged.clear()
-        meta = self.chain.sync()
-        hotkeys = [h for h in meta.hotkeys
-                   if h != getattr(self.chain, "my_hotkey", None)]
+        self._round_agg_weights.clear()
+        if self.hierarchy is not None:
+            # the root of a tree: the configured nodes' aggregates (a
+            # reserved namespace no chain hotkey collides with)
+            from ..transport.base import agg_id
+            hotkeys = [agg_id(n) for n in self.hierarchy]
+        else:
+            meta = self.chain.sync()
+            hotkeys = [h for h in meta.hotkeys
+                       if h != getattr(self.chain, "my_hotkey", None)]
         staged = self._ingest().stage(hotkeys,
                                       base_revision=self._base_revision)
         ids, deltas = [], []
@@ -434,6 +567,8 @@ class AveragerLoop:
             self._round_revisions[s.hotkey] = s.revision
             if s.cid is not None:
                 self._round_cids[s.hotkey] = s.cid
+            if s.agg_weight is not None:
+                self._round_agg_weights[s.hotkey] = s.agg_weight
             if s.delta is None:
                 if s.reason == "stale_base":
                     logger.info("averager: skipping %s (delta vs a "
@@ -502,6 +637,13 @@ class AveragerLoop:
         except Exception:
             logger.exception("averager: lineage record failed")
 
+    def _lease_held(self) -> bool:
+        try:
+            return bool(self.lease.renew())
+        except Exception:
+            logger.exception("averager: lease renewal failed")
+            return False
+
     def _log(self, record: dict) -> None:
         if self.metrics:
             self.metrics.log(record, step=self.report.rounds)
@@ -525,7 +667,14 @@ class AveragerLoop:
                         "declined merge; skipping recompute")
             self.report.rounds += 1
             return True
-        consensus = getattr(self.chain, "consensus_scores", lambda: {})()
+        if self.hierarchy is not None:
+            # per-subtree mixing by each aggregate's declared weight sum
+            # (a missing rider reads 1.0, as a riderless delta is accepted)
+            consensus = {h: self._round_agg_weights.get(h, 1.0)
+                         for h in ids}
+        else:
+            consensus = getattr(self.chain, "consensus_scores",
+                                lambda: {})()
         cids = [c for c in (self._round_cids.get(h) for h in ids) if c]
         with obs.span("avg.merge", miners=len(ids), cids=cids):
             merged, weights = self.strategy.merge(
@@ -553,6 +702,21 @@ class AveragerLoop:
                 self._declined_fp = self._delta_fingerprint(ids)
                 self.transport.gc()
                 return True
+        if self.lease is not None and not self._lease_held():
+            # a higher epoch exists (a standby took over while this
+            # averager stalled): publishing would put two writers on the
+            # shared base. Merged, not published; nothing commits.
+            logger.warning("averager: publication lease not held; "
+                           "standing down (merged but not published)")
+            obs.count("avg.lease_standdowns")
+            self.report.last_loss = loss
+            self.report.skipped_publishes += 1
+            self._log({"merged_loss": loss, "merged_ppl": ppl,
+                       "accepted": len(ids), "published": 0,
+                       "lease_lost": 1,
+                       "merge_delta_ids": dict(self._round_cids)})
+            self.report.rounds += 1
+            return True
         self.report.last_loss = loss
         parent_revision = self._base_revision
         with obs.span("avg.publish", cids=cids):
@@ -560,10 +724,19 @@ class AveragerLoop:
             self._base_revision = self.transport.publish_base(wire_tree)
             self._publish_base_dist(wire_tree)
         del wire_tree
+        if self.lease is not None:
+            # the token now names the revision published under its epoch
+            self.lease.stamp(self._base_revision)
+            obs.gauge("avg.lease_epoch", float(self.lease.epoch))
         if self.lineage is not None:
             # self._base_loss still holds the parent base's eval here
             self._record_lineage(ids, weights, consensus, parent_revision,
                                  loss)
+        # round-spanning strategy state (OuterOptMerge's velocity) commits
+        # only once the new base is out
+        commit = getattr(self.strategy, "commit", None)
+        if commit is not None:
+            commit()
         self.base_params = merged
         self._base_loss = loss
         self._declined_fp = None
@@ -571,6 +744,7 @@ class AveragerLoop:
         self._log({"merged_loss": loss, "merged_ppl": ppl,
                    "accepted": len(ids), "published": 1,
                    "base_revision": self._base_revision,
+                   "lease_epoch": self.lease.epoch if self.lease else None,
                    "merge_delta_ids": dict(self._round_cids)})
         self.report.rounds += 1
         return True

@@ -1,7 +1,7 @@
 """Content-addressed base distribution — the port of the JAX package's
 ``engine/basedist.py`` (``base_layer_items``, ``assemble_base_tree``,
 ``BaseShardStore``, ``BasePublisher``, ``read_base_wire_rider``,
-``BaseFetcher``).
+``BaseFetcher``, ``MirrorDuty``).
 
 - :class:`BasePublisher`: after the averager's monolithic
   ``publish_base`` (still the source of truth, and the fallback of every
@@ -28,9 +28,12 @@ tree, so either package's publisher feeds either package's fetcher. The
 layer keys are the ``/``-joined wire paths (a state dict's ``.``-joined
 keys with ``.`` read as ``/``). Fetched layers are host arrays; the role
 places the assembled tree on the card once, as it places a monolithic
-pull. The port has no signed transport yet: an enveloped manifest fails
-its magic and reads as a hostile one (monolithic fallback). The mirror's
-own writer (``MirrorDuty``) serves ``--hier`` and is not ported.
+pull. A signed averager's manifest is enveloped (``transport/signed.py``
+verifies it; a plain transport's reader strips the envelope unverified,
+as in the JAX package). :class:`MirrorDuty` is a sub-averager's
+(``--hier sub``) replica writer: it copies the current revision's shard
+bytes, never decoded, under its ``__mirror__.<node>`` slots, then the
+presence rider.
 
 Registry metrics (the ``base.*`` family, as in the JAX package): publish
 side ``base.shards_uploaded``, ``base.shards_skipped``,
@@ -69,6 +72,16 @@ REPLICA_STRIKES = 2
 STRIKE_COOLDOWN = 16
 
 DEFAULT_STORE_BYTES = 1 << 30
+
+
+def _parse_manifest(data) -> dict | None:
+    """A base manifest's fields from fetched bytes, a signature envelope
+    stripped unverified (a signed transport already verified it)."""
+    from .. import signing
+    try:
+        return ser.parse_base_manifest(signing.strip_envelope(bytes(data)))
+    except ser.PayloadError:
+        return None
 
 
 def _is_nested(tree: Mapping) -> bool:
@@ -437,7 +450,7 @@ class BaseFetcher:
         self.bytes_fetched_total += len(data)
         obs.count("base.bytes_fetched", len(data))
         obs.count("base.origin_bytes", len(data))
-        man = ser.parse_base_manifest(bytes(data))
+        man = _parse_manifest(data)
         if man is None or man["revision"] != rev:
             obs.count("base.manifest_rejects")
             logger.warning("base fetch: manifest for %s rejected "
@@ -543,3 +556,93 @@ class BaseFetcher:
         # the next round's sharded pull then fetches only what moved
         self.seed(tree)
         return tree, fetched_rev
+
+
+# ---------------------------------------------------------------------------
+# Mirror duty (sub-averager side)
+# ---------------------------------------------------------------------------
+
+class MirrorDuty:
+    """Regional shard replication for one ``__agg__`` node: read the
+    current base manifest, fetch from the origin only the shards whose
+    hash this node has not replicated yet, publish them again under the
+    node's ``__mirror__.<node>`` shard slots, then the presence rider
+    naming the mirrored revision — rider last, as manifests are, so a
+    fetcher that reads the rider finds the shards in place. Bytes only:
+    a shard is hash-checked and never decoded (fetchers check it again).
+
+    ``sync()`` is isolated by its caller (a failed pass is a non-event)
+    and cheap when nothing changed: one revision probe, no shard traffic.
+    ``last_sync`` holds the last pass's ``{"shards", "bytes"}``."""
+
+    def __init__(self, transport, node_id: str):
+        self.transport = transport
+        self.node_id = node_id
+        self._mirrored: dict[str, str] = {}   # layer_key -> digest
+        self._last_revision: str | None = None
+        self.last_sync: dict | None = None
+
+    def sync(self) -> bool:
+        """One replication pass; True when this node now mirrors the
+        current revision's whole shard set."""
+        try:
+            rev = self.transport.base_revision()
+        except Exception:
+            return False
+        if rev is None:
+            return False
+        if rev == self._last_revision:
+            obs.count("base.mirror_rounds")
+            self.last_sync = {"shards": 0, "bytes": 0}
+            return True
+        try:
+            data = tbase.fetch_base_manifest_bytes(self.transport, rev)
+        except Exception:
+            return False
+        if data is None:
+            return False   # a monolithic-only averager: nothing to mirror
+        man = _parse_manifest(data)
+        if man is None or man["revision"] != rev:
+            obs.count("base.manifest_rejects")
+            return False
+        synced = nbytes = 0
+        for key, info in man["layers"].items():
+            if self._mirrored.get(key) == info["h"]:
+                continue
+            try:
+                shard = tbase.fetch_base_shard(self.transport, key)
+            except Exception:
+                return False
+            if shard is None or ser.shard_digest(shard) != info["h"]:
+                obs.count("base.torn_fetches")
+                return False   # a mid-publish race: the next sync heals it
+            try:
+                tbase.publish_shard(
+                    self.transport, tbase.mirror_node_id(self.node_id),
+                    key, shard)
+            except Exception as e:
+                logger.warning("mirror %s: shard republish failed: %s",
+                               self.node_id, e)
+                return False
+            obs.count("base.mirror_sync_bytes", len(shard))
+            self._mirrored[key] = info["h"]
+            synced += 1
+            nbytes += len(shard)
+        # drop layers the manifest no longer names (a model-shape change)
+        for key in list(self._mirrored):
+            if key not in man["layers"]:
+                del self._mirrored[key]
+        self._last_revision = rev
+        self.last_sync = {"shards": synced, "bytes": nbytes}
+        obs.count("base.mirror_publishes", synced)
+        obs.count("base.mirror_rounds")
+        pm = getattr(self.transport, "publish_delta_meta", None)
+        if pm is not None:
+            try:
+                pm(tbase.mirror_node_id(self.node_id),
+                   {"mirror": {"revision": rev,
+                               "layers": len(man["layers"])}})
+            except Exception:
+                logger.debug("mirror %s: presence rider failed",
+                             self.node_id, exc_info=True)
+        return True

@@ -63,6 +63,25 @@ _PROBE_FAILED = object()
 DEFAULT_CACHE_BYTES = 2 << 30
 
 
+def _rider_agg_weight(meta) -> float | None:
+    """Defensive read of a partial aggregate's declared weight sum
+    (``meta["agg"]["weight"]``, engine/hier_average.py): a finite number
+    >= 0 (bools excluded: json true would read as 1.0); anything else
+    reads as absent, never an exception."""
+    if not isinstance(meta, dict):
+        return None
+    agg = meta.get("agg")
+    if not isinstance(agg, dict):
+        return None
+    w = agg.get("weight")
+    if isinstance(w, bool) or not isinstance(w, (int, float)):
+        return None
+    w = float(w)
+    if not np.isfinite(w) or w < 0:
+        return None
+    return w
+
+
 def tree_nbytes(tree: Params | None) -> int:
     """Host bytes of a tree's leaves (the cache's accounting unit)."""
     if tree is None:
@@ -87,6 +106,9 @@ class StagedDelta:
     cached: bool = False        # served from the host cache
     meta_base_revision: str | None = None
     wire_bytes: int = 0         # transport bytes fetched for it this round
+    # the declared weight sum of a partial aggregate's "agg" rider
+    # (engine/hier_average.py); None for a miner's submission
+    agg_weight: float | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +211,7 @@ class _Entry:
     cid: str | None
     meta_base_revision: str | None
     nbytes: int
+    agg_weight: float | None = None
 
 
 class DeltaCache:
@@ -263,7 +286,8 @@ class DeltaCache:
 
     def put(self, hotkey: str, revision, *, delta: Params | None = None,
             reason: str = "ok", fetched: bool = True, cid: str | None = None,
-            meta_base_revision: str | None = None) -> None:
+            meta_base_revision: str | None = None,
+            agg_weight: float | None = None) -> None:
         if self.max_bytes <= 0 or not isinstance(revision, str):
             return
         nb = tree_nbytes(delta)
@@ -274,7 +298,8 @@ class DeltaCache:
             if old is not None:
                 self._bytes -= old.nbytes
             self._entries[hotkey] = _Entry(revision, delta, reason, fetched,
-                                           cid, meta_base_revision, nb)
+                                           cid, meta_base_revision, nb,
+                                           agg_weight)
             self._bytes += nb
             evicted, total = self._evict_locked(), self._bytes
         self._after_insert(evicted, total)
@@ -290,8 +315,16 @@ def densify_delta_bytes(data: bytes, template, *, quant_template=None,
     """Validated artifact bytes -> dense wire-layout host delta, or None:
     a dense tree (f32 or bf16), then the int8 tree (dtype-pinned,
     dequantized here), then sparse8 (densified here). ``accept_quant=False``
-    rejects both quantized forms."""
+    rejects both quantized forms. A signature envelope is stripped first,
+    unverified (bytes from a plain transport; ``transport/signed.py``
+    verifies and strips before bytes get here)."""
     from .. import serialization as ser
+    from .. import signing
+
+    try:
+        data = signing.strip_envelope(data)
+    except ser.PayloadError:
+        return None
 
     try:
         return ser.validated_load(data, template)
@@ -395,21 +428,22 @@ class DeltaIngestor:
                            "uncached", hotkey, exc_info=True)
             return _PROBE_FAILED
 
-    def _rider(self, hotkey: str) -> tuple[str | None, str | None]:
-        """(cid, base_revision) from the miner's meta rider, both
-        validated; any failure reads as riderless."""
+    def _rider(self, hotkey: str) -> tuple[str | None, str | None,
+                                           float | None]:
+        """(cid, base_revision, agg_weight) from the miner's meta rider,
+        all validated; any failure reads as riderless."""
         fm = getattr(self.transport, "fetch_delta_meta", None)
         if fm is None:
-            return None, None
+            return None, None, None
         try:
             meta = fm(hotkey)
         except Exception:
-            return None, None
+            return None, None, None
         cid = obs.rider_delta_id(meta)
         rev = meta.get("base_revision") if isinstance(meta, dict) else None
         if not (isinstance(rev, str) and rev):
             rev = None
-        return cid, rev
+        return cid, rev, _rider_agg_weight(meta)
 
     @staticmethod
     def _is_stale(meta_base_revision, base_revision) -> bool:
@@ -434,37 +468,46 @@ class DeltaIngestor:
         if entry is not None:
             obs.count("ingest.cache_hits")
             cid, meta_rev = entry.cid, entry.meta_base_revision
+            agg_w = entry.agg_weight
             if self.stale_deltas == "skip" and self._is_stale(meta_rev,
                                                              base_revision):
-                # the artifact is content-addressed but the rider is not:
-                # re-read the (small) rider before withholding
-                cid2, meta_rev2 = self._rider(hotkey)
+                # the artifact is content-addressed but the rider is not
+                # (a sub-averager re-stamps an unchanged aggregate against
+                # the new base): re-read the (small) rider before
+                # withholding
+                cid2, meta_rev2, agg_w2 = self._rider(hotkey)
                 if not self._is_stale(meta_rev2, base_revision):
                     obs.count("ingest.rider_refreshes")
                     entry.meta_base_revision = meta_rev = meta_rev2
                     entry.cid = cid = cid2 if cid2 is not None else cid
+                    entry.agg_weight = agg_w = (agg_w2 if agg_w2 is not None
+                                                else agg_w)
                 else:
                     return StagedDelta(hotkey, None, "stale_base", rev_key,
                                        cid, cached=True,
-                                       meta_base_revision=meta_rev)
+                                       meta_base_revision=meta_rev,
+                                       agg_weight=agg_w)
             if entry.fetched:
                 with obs.span(self._span("fetch"), cid=cid, miner=hotkey,
                               cache="hit"):
                     pass
                 return StagedDelta(hotkey, entry.delta, entry.reason,
                                    rev_key, cid, cached=True,
-                                   meta_base_revision=meta_rev)
+                                   meta_base_revision=meta_rev,
+                                   agg_weight=agg_w)
             # a rider-only entry whose verdict no longer withholds: fetch
         else:
             obs.count("ingest.cache_misses")
-            cid, meta_rev = self._rider(hotkey)
+            cid, meta_rev, agg_w = self._rider(hotkey)
             if self.stale_deltas == "skip" and self._is_stale(meta_rev,
                                                              base_revision):
                 self.cache.put(hotkey, rev_key, delta=None,
                                reason="stale_base", fetched=False, cid=cid,
-                               meta_base_revision=meta_rev)
+                               meta_base_revision=meta_rev,
+                               agg_weight=agg_w)
                 return StagedDelta(hotkey, None, "stale_base", rev_key, cid,
-                                   meta_base_revision=meta_rev)
+                                   meta_base_revision=meta_rev,
+                                   agg_weight=agg_w)
         with obs.span(self._span("fetch"), cid=cid, miner=hotkey,
                       cache="miss"):
             delta, attempted, nbytes = self._fetch_dense(hotkey)
@@ -474,12 +517,14 @@ class DeltaIngestor:
                 # bytes-level miss (publish race, torn shard set) is not
                 self.cache.put(hotkey, rev_key, delta=None,
                                reason="no_delta", cid=cid,
-                               meta_base_revision=meta_rev)
+                               meta_base_revision=meta_rev,
+                               agg_weight=agg_w)
             return StagedDelta(hotkey, None, "no_delta", rev_key, cid,
                                meta_base_revision=meta_rev,
-                               wire_bytes=nbytes)
+                               wire_bytes=nbytes, agg_weight=agg_w)
         return StagedDelta(hotkey, delta, _UNSCREENED, rev_key, cid,
-                           meta_base_revision=meta_rev, wire_bytes=nbytes)
+                           meta_base_revision=meta_rev, wire_bytes=nbytes,
+                           agg_weight=agg_w)
 
     def _fetch_dense(self, hotkey: str) -> tuple[Params | None, bool, int]:
         """(wire-layout delta | None, decode_attempted, bytes fetched): one
@@ -573,4 +618,5 @@ class DeltaIngestor:
                     s.delta = dense
             self.cache.put(s.hotkey, s.revision, delta=s.delta,
                            reason=s.reason, cid=s.cid,
-                           meta_base_revision=s.meta_base_revision)
+                           meta_base_revision=s.meta_base_revision,
+                           agg_weight=s.agg_weight)

@@ -22,9 +22,11 @@ package's ``engine/lineage.py``.
   a breach, arms the averager's ``AnomalyMonitor`` and freezes the flight
   ring (:class:`LineagePlane`).
 
-Records travel unsigned in the port (the signed transport is a later
-slice); the port's metrics sink is slice 7, so a record goes out through
-the transport alone. Registry metrics: ``lineage.records``,
+A signed role's records go out enveloped (``transport/signed.py``); a
+plain reader strips the envelope unverified, as in the JAX package. The
+port's metrics sink is slice 7, so a record goes out through the
+transport alone. A sub-averager's "agg" records (``engine/hier_average
+.py``) replay against the aggregate artifact they name. Registry metrics: ``lineage.records``,
 ``lineage.publish_failures``, ``lineage.fetch_errors``,
 ``lineage.tampered``, ``lineage.replays``, ``lineage.replay_failures``,
 ``lineage.drift_breaches`` counters, ``lineage.loss_ewma`` and
@@ -261,6 +263,11 @@ def fetch_record(transport, revision: str) -> dict | None:
         return None
     if data is None:
         return None
+    from .. import signing
+    try:
+        data = signing.strip_envelope(data)
+    except ValueError:   # a truncated envelope: torn, as below
+        data = b""
     rec = parse_record(data)
     if rec is None:
         obs.count("lineage.tampered")
@@ -619,17 +626,17 @@ def replay_record(transport, record: dict, template, *,
     - merge: ``delta.aggregate_deltas`` folds them at the recorded
       weights into one f32 accumulator on ``device`` (``"cuda"`` unless
       the caller asks for the CPU; a packed contribution launches the
-      dequantize-scatter kernel there) and add it to ``parent``;
+      dequantize-scatter kernel there); a "base" record adds the fold to
+      ``parent``, an "agg" record (a sub-averager's partial aggregate)
+      IS the fold;
     - parity: max |replayed - published| <= :data:`REPLAY_TOL`, against
-      the transport's current base, which must still carry the recorded
-      revision.
-
-    Only "base" records replay here: an "agg" record (a sub-averager's
-    partial aggregate) replays with the tree averager (``--hier``, ROADMAP
-    5d).
+      the transport's current artifact, which must still carry the
+      recorded revision: the base, or the aggregate under the record's
+      ``artifact`` id (decoded through the ingest, as the root decodes
+      it).
 
     ``template`` is the wire-layout template of the ingest; ``parent``
-    is a nested tree or a state dict. Raises
+    (a base record's) is a nested tree or a state dict. Raises
     :class:`LineageError` on any audit failure."""
     from .. import delta as delta_lib
     from ..models.gpt2 import resolve_device
@@ -646,11 +653,6 @@ def replay_record(transport, record: dict, template, *,
             raise LineageError(
                 f"record {rec.get('record_id')} fails its content "
                 f"address ({record_digest(rec)}) — tampered or corrupt")
-        if rec["kind"] != "base":
-            raise LineageError(
-                f"record for {rec['revision']} is an {rec['kind']!r} "
-                "record: aggregates replay with the tree averager "
-                "(ROADMAP 5d)")
         if not rec["replayable"] or rec["weights_kind"] != "merge":
             raise LineageError(
                 f"record for {rec['revision']} is not replayable "
@@ -697,23 +699,46 @@ def replay_record(transport, record: dict, template, *,
             raise LineageError("contribution audit failed: "
                                + "; ".join(problems))
 
-        if parent is None:
-            raise LineageError(
-                "replaying a base record needs the parent base params "
-                f"(revision {rec['parent']})")
-        base = _state(parent, dev)
-        agg = delta_lib.aggregate_deltas(base, deltas,
-                                         np.asarray(weights, np.float32))
-        derived = {k: b + agg[k].to(b.dtype) for k, b in base.items()}
-        current = transport.base_revision()
-        if current != rec["revision"]:
-            raise LineageError(
-                f"published base is {current}, record names "
-                f"{rec['revision']} — republished or superseded")
-        got = transport.fetch_base(template)
-        if got is None:
-            raise LineageError("published base unreadable")
-        diff = _max_abs_diff(derived, _state(got[0], dev))
+        if rec["kind"] == "base":
+            if parent is None:
+                raise LineageError(
+                    "replaying a base record needs the parent base params "
+                    f"(revision {rec['parent']})")
+            base = _state(parent, dev)
+            agg = delta_lib.aggregate_deltas(base, deltas,
+                                             np.asarray(weights, np.float32))
+            derived = {k: b + agg[k].to(b.dtype) for k, b in base.items()}
+            current = transport.base_revision()
+            if current != rec["revision"]:
+                raise LineageError(
+                    f"published base is {current}, record names "
+                    f"{rec['revision']} — republished or superseded")
+            got = transport.fetch_base(template)
+            if got is None:
+                raise LineageError("published base unreadable")
+            target = got[0]
+        else:
+            derived = delta_lib.aggregate_deltas(
+                _state(template, dev), deltas,
+                np.asarray(weights, np.float32))
+            artifact_id = rec.get("artifact") or rec["node"]
+            current = transport.delta_revision(artifact_id)
+            if current != rec["revision"]:
+                raise LineageError(
+                    f"aggregate {artifact_id} is {current}, record names "
+                    f"{rec['revision']} — superseded")
+            ing = DeltaIngestor(transport, template, workers=1,
+                                max_delta_abs=None, stale_deltas="accept",
+                                span_prefix="replay")
+            try:
+                got = ing.stage([artifact_id])[0]
+            finally:
+                ing.close()
+            if got.delta is None:
+                raise LineageError(f"aggregate {artifact_id} unreadable "
+                                   f"({got.reason})")
+            target = got.delta
+        diff = _max_abs_diff(derived, _state(target, dev))
         if not (diff <= REPLAY_TOL):
             raise LineageError(
                 f"replay parity FAILED for {rec['revision']}: "

@@ -330,7 +330,9 @@ class TrainEngine:
         if count is None or float(count) == 0:
             return float("nan"), float("nan")
         mean = float(total) / float(count)
-        return mean, math.exp(mean)
+        # a wrecked candidate's loss overflows the exponential: infinite
+        # perplexity (as JAX's f32 exp gives), never an exception
+        return mean, (float("inf") if mean >= 709.0 else math.exp(mean))
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +419,10 @@ class MinerLoop:
     - every ``send_interval`` seconds publish ``trained - base`` through
       :class:`~.publish.DeltaPublisher` (inline, or on its worker with
       ``push_async``), screened by ``nan_guard``, as f32 or, with
-      ``delta_dtype="bfloat16"``, as bf16; with ``wire_v2``, as the packed
+      ``delta_dtype``, as bf16, int8 (``delta.quantize_delta``) or sparse8
+      (``delta.sparsify_delta`` at ``delta_density``; both carry no
+      residual, and the finite flag is the raw delta's); with ``wire_v2``,
+      as the packed
       top-k form (``wire_density``, ``wire_quant``) published as shards
       and a manifest, with an error-feedback residual that carries each
       push's unsent mass into the next (kept only when the delta is
@@ -434,8 +439,8 @@ class MinerLoop:
       ``anomaly`` (``utils/obs.AnomalyMonitor``) sees every step time and,
       at the log cadence, the loss and push counters.
 
-    int8/sparse8 deltas and heartbeats raise NotImplementedError naming
-    their slice; a device mesh is refused by the engine."""
+    Heartbeats raise NotImplementedError naming their slice; a device
+    mesh is refused by the engine."""
 
     def __init__(self, engine: TrainEngine, transport, miner_id: str, *,
                  clock: Clock | None = None,
@@ -445,6 +450,7 @@ class MinerLoop:
                  log_every: int = 1000,
                  nan_guard: bool = True,
                  delta_dtype: str | None = None,
+                 delta_density: float = 1.0 / 64.0,
                  wire_v2: bool = False,
                  wire_density: float = 1.0 / 64.0,
                  wire_quant: str = "int8",
@@ -469,6 +475,13 @@ class MinerLoop:
                 raise NotImplementedError(
                     f"MinerLoop({name}=...): {_NOT_PORTED[name]} "
                     f"({_SLICES})")
+        if delta_dtype not in (None, "float32", "bfloat16", "int8",
+                               "sparse8"):
+            raise ValueError(f"delta_dtype must be float32, bfloat16, int8 "
+                             f"or sparse8, got {delta_dtype!r}")
+        if not 0.0 < delta_density <= 1.0:
+            raise ValueError(f"delta_density must be in (0, 1], "
+                             f"got {delta_density}")
         if wire_v2 and delta_dtype in ("int8", "sparse8"):
             raise ValueError(
                 f"wire_v2 replaces the {delta_dtype!r} v1 wire format; "
@@ -479,10 +492,6 @@ class MinerLoop:
         if wire_quant not in delta_lib.WIRE_QUANTS:
             raise ValueError(f"wire_quant must be one of "
                              f"{delta_lib.WIRE_QUANTS}, got {wire_quant!r}")
-        if delta_dtype not in (None, "float32", "bfloat16"):
-            raise NotImplementedError(
-                f"delta_dtype={delta_dtype!r}: the int8 and sparse8 wire "
-                f"deltas are slice 5 ({_SLICES})")
         from ..transport.retry import DEFAULT_PUBLISH_RETRY
         from .publish import DeltaPublisher
         self.engine = engine
@@ -497,6 +506,7 @@ class MinerLoop:
         self.log_every = log_every
         self.nan_guard = nan_guard
         self.delta_dtype = None if delta_dtype == "float32" else delta_dtype
+        self.delta_density = delta_density
         self.keep_optimizer_on_pull = keep_optimizer_on_pull
         self.push_async = push_async
         self.wire_v2 = wire_v2
@@ -834,9 +844,16 @@ class MinerLoop:
         (nothing waits here). The v2 residual advances only where the
         delta is finite: one transient divergence must not poison every
         later publish until the next pull."""
-        d = delta_lib.compute_delta(self.state.params, self.base_params,
-                                    wire_dtype=self.delta_dtype)
+        mode = self.delta_dtype
+        d = delta_lib.compute_delta(
+            self.state.params, self.base_params,
+            wire_dtype=None if mode in ("int8", "sparse8") else mode)
         finite = delta_lib.tree_finite(d)
+        if mode == "int8":
+            return delta_lib.quantize_delta(d), finite
+        if mode == "sparse8":
+            return (delta_lib.sparsify_delta(d, density=self.delta_density),
+                    finite)
         if not self.wire_v2:
             return d, finite
         if self._wire_residual is None:

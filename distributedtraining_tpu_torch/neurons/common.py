@@ -1,7 +1,8 @@
 """Composition of the port's roles — the miner's, the validator's and the
 averager's part of the JAX package's ``neurons/common.py``
 (``Components`` and ``build``): the model, the ``TrainEngine``, the
-``memory`` or ``local`` transport, the local chain and address store,
+``memory`` or ``local`` transport (behind ``SignedTransport`` with
+``--sign-artifacts``), the local chain and address store,
 the tokenizer, the train, self-eval and held-out batch streams and the
 flight recorder, driven by ``RunConfig``; and ``build_base_fetcher``, the
 content-addressed base fetcher of ``--base-wire-v2``.
@@ -145,6 +146,11 @@ def build(cfg: RunConfig) -> Components:
                        epoch_length=cfg.epoch_length,
                        vpermit_stake_limit=cfg.vpermit_stake_limit)
     address_store = LocalAddressStore(chain_dir)
+    if cfg.sign_artifacts:
+        transport = _signed_transport(cfg, transport, address_store)
+    if cfg.my_repo_id:
+        # advertise this node's repo, as the reference miner does on chain
+        address_store.store_repo(cfg.hotkey, cfg.my_repo_id)
     if cfg.tokenizer == "byte" or (cfg.tokenizer == "auto"
                                    and model_cfg.vocab_size < 50257):
         tokenizer = ByteTokenizer()
@@ -169,6 +175,37 @@ def build(cfg: RunConfig) -> Components:
     return Components(cfg=cfg, model=model, model_cfg=model_cfg,
                       engine=engine, transport=transport, chain=chain,
                       address_store=address_store, tokenizer=tokenizer)
+
+
+def _signed_transport(cfg: RunConfig, transport, address_store):
+    """``--sign-artifacts``: load (or generate and save) the hotkey's
+    wallet, sign every publish and verify every fetch against the
+    registered keys, and register this hotkey's key, first write wins:
+    a different key already registered is fatal (a rotated local wallet
+    would publish artifacts every peer rejects)."""
+    from ..transport.signed import SignedTransport
+    from ..utils.identity import Identity
+    wallet_path = cfg.wallet_path or os.path.join(
+        cfg.work_dir, "wallets", f"{cfg.hotkey}.json")
+    if os.path.exists(wallet_path):
+        identity = Identity.load(wallet_path)
+    else:
+        identity = Identity.generate()
+        identity.save(wallet_path)
+        logger.info("generated signing identity %s at %s",
+                    identity.hotkey, wallet_path)
+    base_signer = cfg.base_signer or (
+        cfg.hotkey if cfg.role == "averager" else None)
+    signed = SignedTransport(transport, identity=identity,
+                             pubkey_resolver=address_store.retrieve_pubkey,
+                             base_signer=base_signer, my_hotkey=cfg.hotkey)
+    try:
+        address_store.store_pubkey(cfg.hotkey, identity.public_bytes)
+    except ValueError:
+        raise SystemExit(
+            f"hotkey {cfg.hotkey} has a different registered pubkey; "
+            f"restore the original wallet file or use a new hotkey")
+    return signed
 
 
 def base_mirrors(cfg: RunConfig) -> list[str]:

@@ -15,9 +15,13 @@ it), an anomaly arms one profiler window into
 ``<work-dir>/anomaly_traces/<hotkey>`` (``--anomaly-trace``), and the
 flight recorder keeps ``--flight-events`` events. ``--wire-v2``
 publishes the packed top-k form as per-layer shards and a manifest
-(``--wire-density``, ``--wire-quant`` tune it). A JAX validator or
-averager, or the port's, pointed at the same ``--work-dir`` reads its
-deltas.
+(``--wire-density``, ``--wire-quant`` tune it); ``--delta-dtype
+int8|sparse8`` the v1 compressed forms (``--delta-density``).
+``--sign-artifacts`` signs every artifact with the hotkey's wallet
+(``--wallet-path``) and verifies the base (``--base-signer``);
+``--my-repo-id`` registers a repo id in the address store. A JAX
+validator or averager, or the port's, pointed at the same ``--work-dir``
+reads its deltas.
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ def main(argv=None) -> int:
                      check_update_interval=cfg.check_update_interval,
                      log_every=cfg.log_every,
                      delta_dtype=cfg.delta_dtype,
+                     delta_density=cfg.delta_density,
                      wire_v2=cfg.wire_v2,
                      wire_density=cfg.wire_density,
                      wire_quant=cfg.wire_quant,

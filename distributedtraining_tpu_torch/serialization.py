@@ -415,7 +415,8 @@ def save_file(tree: Params, path: str) -> None:
     if not path.endswith(".msgpack"):
         raise NotImplementedError(
             f"{path}: only .msgpack is ported; safetensors comes with the "
-            f"checkpoint slice, ROADMAP 'Slices of the port', slice 5")
+            f"checkpoint converters (--init-from), ROADMAP 'Slices of the "
+            f"port', slice 7")
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(tmp, "wb") as f:

@@ -35,8 +35,9 @@ META_MAX_BYTES = 4096
 # Reserved artifact ids: control-plane and shard artifacts travel through
 # the same per-miner byte surface as deltas, under prefixes no chain
 # hotkey starts with. The port publishes wire-v2 shards, base shards and
-# manifests, lineage records and postmortem bundles; the other prefixes
-# are the JAX package's fleet planes, kept so a consumer of a shared root
+# manifests, lineage records, postmortem bundles, leases, partial
+# aggregates and mirror replicas; heartbeats and KV pages are the JAX
+# package's planes of slices 6-7, kept so a consumer of a shared root
 # recognises every reserved id.
 HEARTBEAT_PREFIX = "__hb__"
 LEASE_PREFIX = "__lease__"
@@ -136,6 +137,17 @@ def mirror_node_id(node_id: str) -> str:
     """The reserved pseudo-hotkey one mirror's base-shard replicas travel
     under (``shard_id(mirror_node_id(node), layer_key)``)."""
     return f"{MIRROR_PREFIX}.{node_id}"
+
+
+def lease_id(role: str = "averager") -> str:
+    """The reserved id a role's publication lease lives under."""
+    return f"{LEASE_PREFIX}.{role}"
+
+
+def agg_id(node_id: str) -> str:
+    """The reserved id one sub-averager's partial aggregate travels
+    under; every round's publish overwrites it, as a miner's delta id."""
+    return f"{AGG_PREFIX}.{node_id}"
 
 
 def is_reserved_id(artifact_id: str) -> bool:

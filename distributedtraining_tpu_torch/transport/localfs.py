@@ -1,8 +1,11 @@
 """Local-filesystem transport — the port of the JAX package's
 ``transport/localfs.py``: the same layout, atomic writes and content-hash
 revisions, so a JAX role and a port role pointed at one root read what
-the other wrote. (Signature envelopes are the signed transport's, a later
-slice: an enveloped artifact reads as absent here.)
+the other wrote. A signature-enveloped artifact (``signing.py``) reads
+as its payload, unverified, as in the JAX package: a node that does not
+sign still reads a signed fleet's artifacts, with the trust of an
+unsigned one (verification is ``transport/signed.py``'s, which reads the
+raw bytes).
 
 The reference's LocalHFManager (hf_manager.py:200-241) — a directory with
 SHA-256 content-hash change detection — promoted to a first-class backend.
@@ -34,6 +37,7 @@ import os
 from typing import Any
 
 from .. import serialization as ser
+from .. import signing
 from ..utils import obs
 from .base import (META_MAX_BYTES, Revision, encode_delta_meta,
                    parse_delta_meta)
@@ -126,7 +130,8 @@ class LocalFSTransport:
             return self._revision_of(path)
 
     def publish_raw(self, miner_id: str, data: bytes) -> Revision:
-        """Arbitrary (possibly hostile) bytes as a 'delta'."""
+        """Arbitrary (possibly signature-enveloped, possibly hostile) bytes
+        as a 'delta' — signed publishes land here."""
         path = self._delta_path(miner_id)
         _write_atomic(path, data)
         return self._revision_of(path)
@@ -138,13 +143,13 @@ class LocalFSTransport:
             if data is None:
                 return None
             try:
-                return ser.from_msgpack(data, template,
-                                        max_bytes=self.max_bytes)
+                return ser.from_msgpack(signing.strip_envelope(data),
+                                        template, max_bytes=self.max_bytes)
             except ser.PayloadError:
                 return None
 
     def fetch_delta_bytes(self, miner_id: str) -> bytes | None:
-        """Raw artifact bytes (size-capped), one read."""
+        """Raw artifact bytes (size-capped, envelope intact), one read."""
         return _read_capped(self._delta_path(miner_id), self.max_bytes)
 
     def delta_revision(self, miner_id: str) -> Revision:
@@ -168,7 +173,7 @@ class LocalFSTransport:
             return self._revision_of(self._base_path)
 
     def publish_base_raw(self, data: bytes) -> Revision:
-        """Pre-serialized base bytes."""
+        """Pre-serialized (possibly signature-enveloped) base bytes."""
         _write_atomic(self._base_path, data)
         return self._revision_of(self._base_path)
 
@@ -181,8 +186,8 @@ class LocalFSTransport:
             if data is None:
                 return None
             try:
-                tree = ser.from_msgpack(data, template,
-                                        max_bytes=self.max_bytes)
+                tree = ser.from_msgpack(signing.strip_envelope(data),
+                                        template, max_bytes=self.max_bytes)
             except ser.PayloadError:
                 # a torn/corrupt base reads as "absent", never a crash
                 return None

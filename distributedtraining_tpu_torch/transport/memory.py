@@ -11,6 +11,7 @@ import hashlib
 from typing import Any
 
 from .. import serialization as ser
+from .. import signing
 from .base import Revision, encode_delta_meta, parse_delta_meta
 
 Params = Any
@@ -47,7 +48,7 @@ class InMemoryTransport:
         if data is None:
             return None
         try:
-            return ser.from_msgpack(data, template)
+            return ser.from_msgpack(signing.strip_envelope(data), template)
         except ser.PayloadError:
             return None
 
@@ -89,7 +90,8 @@ class InMemoryTransport:
         if self._base is None:
             return None
         try:
-            tree = ser.from_msgpack(self._base, template)
+            tree = ser.from_msgpack(signing.strip_envelope(self._base),
+                                    template)
         except ser.PayloadError:
             return None
         return tree, self.base_revision()

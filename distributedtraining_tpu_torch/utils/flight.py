@@ -342,7 +342,11 @@ def fetch_bundle(transport, role: str, hotkey: str) -> dict | None:
         return None
     if data is None:
         return None
-    return parse_bundle(data)
+    from .. import signing
+    try:
+        return parse_bundle(signing.strip_envelope(data))
+    except ValueError:   # a truncated envelope (serialization.PayloadError)
+        return None
 
 
 # ---------------------------------------------------------------------------

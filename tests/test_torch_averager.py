@@ -291,23 +291,26 @@ def test_declined_merge_is_not_recomputed(world, tmp_path):
 
 
 def test_unported_planes_and_strategies_raise(world):
-    # the lineage and base-distribution planes are ported: accepted
-    for kw in ({"lineage": object()}, {"base_dist": object()}):
+    # the lineage, base-distribution, lease and tree planes are ported:
+    # accepted
+    for kw in ({"lineage": object()}, {"base_dist": object()},
+               {"lease": object()}, {"hierarchy": ["n0"]}):
         loop = tavg.AveragerLoop(world["teng"], None, None,
                                  tavg.WeightedAverage(), val_batches=None,
                                  **kw)
-        assert getattr(loop, next(iter(kw))) is kw[next(iter(kw))]
-    for kw, slice_no in (({"hierarchy": ["n0"]}, 5), ({"lease": object()}, 5),
-                         ({"fleet": object()}, 7),
+        assert getattr(loop, next(iter(kw))) == kw[next(iter(kw))]
+    for kw, slice_no in (({"fleet": object()}, 7),
                          ({"remediation": object()}, 7),
                          ({"lora_cfg": object()}, 7)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             tavg.AveragerLoop(world["teng"], None, None,
                               tavg.WeightedAverage(), val_batches=None, **kw)
-    # ParameterizedMerge is ported (tests/test_torch_parameterized_merge.py)
-    for cls, slice_no in ((tavg.GeneticMerge, 6), (tavg.OuterOptMerge, 5)):
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            cls(None)
+    # ParameterizedMerge and OuterOptMerge are ported
+    # (tests/test_torch_parameterized_merge.py, test_torch_outer_merge.py)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tavg.GeneticMerge(None)
+    outer = tavg.OuterOptMerge(tavg.WeightedAverage())
+    assert outer.host_list_ingest and outer.lineage_weights([1.0]) is None
 
 
 # ---------------------------------------------------------------------------
@@ -359,10 +362,13 @@ def test_averager_flags_match_the_jax_parser():
     (["--strategy", "weighted", "--no-base-wire-v2"], None),
     (["--strategy", "weighted", "--no-base-wire-v2", "--no-lineage"], None),
     (AVG_ARGS + ["--strategy", "genetic"], 6),
-    (AVG_ARGS + ["--outer-momentum", "0.9"], 5),
-    (AVG_ARGS + ["--hier", "root"], 5),
-    (AVG_ARGS + ["--standby"], 5),
-    (AVG_ARGS + ["--sign-artifacts"], 5),
+    # slice 5's flags are ported (tests/test_torch_outer_merge.py,
+    # test_torch_hier_average.py, test_torch_remediate.py,
+    # test_torch_signing.py run them through the CLI)
+    (AVG_ARGS + ["--outer-momentum", "0.9"], None),
+    (AVG_ARGS + ["--hier", "root"], None),
+    (AVG_ARGS + ["--standby"], None),
+    (AVG_ARGS + ["--sign-artifacts"], None),
     (AVG_ARGS + ["--remediate"], 7),
     (AVG_ARGS + ["--chain", "bittensor"], 7),
     (AVG_ARGS + ["--lora-rank", "4"], 7),

@@ -255,10 +255,16 @@ def test_async_and_sync_artifacts_byte_identical(world):
 def test_unported_miner_options_raise(world):
     model, _ = tg.make_model(TINY)
     eng = ttrain.TrainEngine(model, device="cpu")
-    for kw, match in (({"delta_dtype": "int8"}, "slice 5"),
-                      ({"heartbeat": object()}, "slice 7")):
-        with pytest.raises(NotImplementedError, match=match):
-            ttrain.MinerLoop(eng, InMemoryTransport(), "m0", **kw)
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        ttrain.MinerLoop(eng, InMemoryTransport(), "m0", heartbeat=object())
+    # the int8 and sparse8 wire forms are ported
+    # (tests/test_torch_delta_codecs.py); v2 still replaces them, as in JAX
+    for dt in ("int8", "sparse8"):
+        ttrain.MinerLoop(eng, InMemoryTransport(), "m0",
+                         delta_dtype=dt).close()
+        with pytest.raises(ValueError, match="wire_v2 replaces"):
+            ttrain.MinerLoop(eng, InMemoryTransport(), "m0",
+                             delta_dtype=dt, wire_v2=True)
     # checkpoints, the sharded base fetch, traces and anomaly captures are
     # ported: accepted
     kw = {k: object() for k in ("checkpoint_store", "base_fetcher", "trace",
@@ -299,8 +305,9 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
     (["--no-base-wire-v2"], None),
     (["--no-base-wire-v2", "--checkpoint-interval", "0"], None),
     (MINER_ARGS + ["--profile-dir", "prof"], None),
-    (MINER_ARGS + ["--wire-v2", "--delta-dtype", "int8"], 5),
-    (MINER_ARGS + ["--delta-dtype", "sparse8"], 5),
+    # the int8 and sparse8 wire forms are ported (slice 5)
+    (MINER_ARGS + ["--delta-dtype", "int8"], None),
+    (MINER_ARGS + ["--delta-dtype", "sparse8"], None),
     (MINER_ARGS + ["--backend", "hf"], 7),
     (MINER_ARGS + ["--lora-rank", "4"], 7),
     (MINER_ARGS + ["--fsdp", "2"], 7),

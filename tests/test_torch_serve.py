@@ -360,8 +360,10 @@ def test_cuda_is_not_silently_replaced_by_the_cpu(world):
 # Isolation: the port never imports JAX or the JAX package
 # ---------------------------------------------------------------------------
 
+# cryptography too: the port signs with its own Ed25519
+# (utils/ed25519.py) and depends on no crypto package
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
-             "ml_dtypes", "distributedtraining_tpu")
+             "ml_dtypes", "distributedtraining_tpu", "cryptography")
 
 
 def test_port_sources_import_no_jax():

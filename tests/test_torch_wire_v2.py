@@ -69,9 +69,15 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _jpack(d, **kw):
-    packed, res = jdl.pack_delta_v2(jax.tree_util.tree_map(jnp.asarray, d),
-                                    **kw)
+def _jpack(d, residual=None, **kw):
+    """The JAX encoder as the JAX miner runs it: inside a jitted program
+    (XLA multiplies by the f32 reciprocal of 127 where the eager
+    spelling divides, so the two differ in the last bit of a scale)."""
+    packed, res = jax.jit(lambda d, r: jdl.pack_delta_v2(d, residual=r,
+                                                         **kw))(
+        jax.tree_util.tree_map(jnp.asarray, d),
+        None if residual is None else
+        jax.tree_util.tree_map(jnp.asarray, residual))
     return _np(packed), _np(res)
 
 
