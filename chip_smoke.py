@@ -253,12 +253,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
            miners > 0 and the forgery 0 (``no_delta``, the JAX verdict in
            the log). Records whether ``cryptography`` is installed (the
            port never imports it).
+21. serve6 the server role. The paged window kernel against its plain
+           version (f32 max abs <= 1e-5, bf16 <= 2e-2 as phase 3): the
+           verify's shape (W 5, 8 slots, contexts 8-900; and with two
+           padded lanes), the suffix prefill's (one slot, W 16, 64, 512
+           over contexts 0, P - 1, P, P + 1 and 900) and a GQA case; timed
+           at the verify's shape and at W 512 over 900 context positions
+           (bf16) beside its bound, the plain version and SDPA on the
+           pre-gathered context with the window's mask. The sampler's
+           threefry bits for 64 keys over GPT-2's vocabulary on the card
+           equal the CPU's, and so do its picks on logits without
+           near-ties (on random logits the agreement is reported). In f32
+           at GPT-2-124M width with the prefix cache, spec-on (a
+           self-draft, K 4) and a scripted drafter that is always wrong
+           against spec-off: greedy lanes token identical, the scripted
+           drafter accepts 0, the sampled lanes' agreement reported (their
+           Gumbel noise is indexed by rank: an ulp between the decode and
+           the window kernels' logits that swaps two near-equal ranks
+           changes the draw). Then ``neurons.server.main`` twice on a
+           LocalFS root whose base the port's transport published, with
+           the JAX server's defaults (prefix cache and traces on; the
+           corpus, tokenizer, port, a 1 s swap poll and a step bound
+           given): 8 concurrent requests sharing a 512-token system
+           prompt, each with its own suffix, greedy and sampled lanes
+           (temperature 0.8, top_p 0.9, distinct seeds), 32 new tokens
+           each; first with ``--speculative --draft-k 4`` (self-draft),
+           then without, a second base published once tokens flow and
+           swapped in under drain (later answers name it). Every request
+           done on the boot base, prefix hits >= 7, the pool's refcounts
+           equal the cache's holders, and the launches exact: decode ==
+           12 x (target decodes + drafter steps), window == 12 x (suffix
+           prefills + verifies), flash forward == 12 x (full prefills +
+           drafter prefills), nothing else. Reports ttft and tpot p50/p95
+           (per request, from the traces), tokens/s, prefix hit rate,
+           accept rate and the bf16 spec-on/spec-off agreement.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
 JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
-``slice5`` JSON line (phase 20), the ``nvidia-smi`` name/power-limit
-line,
+``slice5`` JSON line (phase 20), a ``serve6`` JSON line (phase 21), the
+``nvidia-smi`` name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -276,6 +310,7 @@ import subprocess
 import sys
 import time
 import traceback
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3784,6 +3819,763 @@ def _manifest_signed(t, rev) -> dict:
     return man
 
 
+# ---------------------------------------------------------------------------
+# 21. serve6: the server role (window kernel, sampler, prefix cache,
+# speculation, the watcher's swap) through its CLI
+# ---------------------------------------------------------------------------
+
+def _window_case(B, W, lens, dtype, seed, Hq=12, Hkv=12, D=64, P=16,
+                 MP=64):
+    """Random q/pool/window rows; each lane's table names distinct pages
+    for its used entries and trash page 0 (poisoned) for the rest."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    pool = 1 + B * MP
+    q = torch.randn((B, W, Hq, D), generator=g)
+    kp = torch.randn((pool, P, Hkv, D), generator=g)
+    vp = torch.randn((pool, P, Hkv, D), generator=g)
+    kp[0] = 1e3
+    vp[0] = 1e3
+    kn = torch.randn((B, W, Hkv, D), generator=g)
+    vn = torch.randn((B, W, Hkv, D), generator=g)
+    tables = torch.zeros((B, MP), dtype=torch.int32)
+    perm = torch.randperm(pool - 1, generator=g) + 1
+    for b, n in enumerate(lens):
+        used = (n + P - 1) // P
+        tables[b, :used] = perm[b * MP:b * MP + used].to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32)
+    return (q.to(DEV, dtype), kp.to(DEV, dtype), vp.to(DEV, dtype),
+            tables.to(DEV), sl.to(DEV), kn.to(DEV, dtype),
+            vn.to(DEV, dtype))
+
+
+def _window_bound(args, elt: int) -> tuple[float, str]:
+    """Least time for the window on these inputs: the K/V rows the
+    seq_lens reach, q, the window's k/v, the output and the tables once
+    over the memory rate, against QK and PV (2 flops a multiply-add) of
+    every visible pair over the bf16 tensor-core rate."""
+    q, kp, _, tables, sl, _, _ = args
+    B, W, Hq, D = q.shape
+    _, P, Hkv, _ = kp.shape
+    MP = tables.shape[1]
+    ctx = [min(int(n), MP * P) for n in sl.tolist()]
+    nbytes = (sum(ctx) * Hkv * D * 2 * elt + B * W * (2 * Hq + 2 * Hkv)
+              * D * elt + tables.numel() * 4 + B * 4)
+    pairs = sum(W * c + W * (W + 1) // 2 for c in ctx)
+    flops = 4 * pairs * Hq * D
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_BF16_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def _window_library(args):
+    """SDPA on the pre-gathered context plus the window's rows, with the
+    window's mask (context below seq_len, fresh rows causal). A yardstick
+    only; the port never calls it."""
+    import torch
+    q, kp, vp, tables, sl, kn, vn = args
+    B, W, Hq, D = q.shape
+    _, P, Hkv, _ = kp.shape
+    MP = tables.shape[1]
+    idx = tables.long()
+    k = torch.cat([kp[idx].reshape(B, MP * P, Hkv, D), kn], 1)
+    v = torch.cat([vp[idx].reshape(B, MP * P, Hkv, D), vn], 1)
+    k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    pos = torch.arange(MP * P + W, device=q.device)
+    t = torch.arange(W, device=q.device)
+    mask = ((pos[None, None, :] < sl[:, None, None])
+            | ((pos[None, None, :] >= MP * P)
+               & (pos[None, None, :] - MP * P <= t[None, :, None])))
+    mask = mask[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, k, v, attn_mask=mask, enable_gqa=Hq != Hkv)
+
+
+SERVE_LENS = [8, 40, 100, 200, 350, 500, 700, 900]
+
+
+WINDOW_BF16_REL = 2.0 ** -7     # one bf16 ulp of the value
+WINDOW_BF16_ABS = 1e-4          # times the case's max |plain|
+
+
+def _window_bf16_ratio(out, ref32) -> float:
+    """How far a bf16 window output is from the plain version computed in
+    f32 on the same (bf16-valued) inputs, as a share of the limit
+    ``2^-7 |plain| + 1e-4 max|plain|`` per element: the kernel keeps
+    f32 through the softmax and rounds once at the store (half an ulp),
+    so a right kernel reads <= 0.5; a dropped 32-row tile moves outputs
+    of ~0.05 by ~1e-2, far past it."""
+    ref = ref32.float()
+    lim = ref.abs() * WINDOW_BF16_REL + WINDOW_BF16_ABS * float(
+        ref.abs().max())
+    return float(((out.float() - ref).abs() / lim).max())
+
+
+def phase_window() -> dict:
+    """The window kernel against its plain version at the verify's shape
+    (W 5, 8 slots, contexts 8-900; and with padded lanes), the suffix
+    prefill's (one slot, W 16, 64, 512 over contexts 0, P - 1, P, P + 1,
+    900) and a GQA case; timed at the verify's shape and at a 512-row
+    suffix over 900 context positions (bf16). f32 is held to 1e-5
+    absolute; bf16 per element against the plain version in f32 on the
+    same inputs (``_window_bf16_ratio`` <= 1), and the same limit must
+    reject the plain version with the last 32 context rows of every lane
+    dropped (a planted lost tile) wherever a lane has 64 or more."""
+    import torch
+    from distributedtraining_tpu_torch.ops import paged_attention as pa
+    tols = {torch.float32: 1e-5,
+            torch.bfloat16: f"{WINDOW_BF16_REL} |plain| + "
+                            f"{WINDOW_BF16_ABS} max|plain| (plain in f32)"}
+    cases = {"verify_w5": dict(B=8, W=5, lens=SERVE_LENS),
+             "verify_w5_padded": dict(B=8, W=5, lens=SERVE_LENS[:6]
+                                      + [0, 0])}
+    for W in (16, 64, 512):
+        for n in (0, 15, 16, 17, 900):
+            cases[f"suffix_w{W}_ctx{n}"] = dict(B=1, W=W, lens=[n])
+    cases["gqa_w33_d128"] = dict(B=2, W=33, lens=[17, 200], Hq=32, Hkv=8,
+                                 D=128, MP=16)
+    checks = []
+    for i, (name, c) in enumerate(cases.items()):
+        for dtype, tol in tols.items():
+            kw = {k: v for k, v in c.items() if k not in ("B", "W", "lens")}
+            args = _window_case(c["B"], c["W"], c["lens"], dtype, SEED + i,
+                                **kw)
+            out = pa.paged_window_attention(*args)
+            f32 = [a.float() if a.is_floating_point() else a for a in args]
+            ref = pa.paged_decode_reference(*f32)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            row = {"shape": name, "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": err, "tol": tol}
+            check(bool(torch.isfinite(out).all()),
+                  f"window kernel: non-finite output at {name} {dtype}")
+            if dtype == torch.float32:
+                check(err <= tol, f"window kernel vs plain version at "
+                                  f"{name} f32: max abs {err} > {tol}")
+            else:
+                row["limit_ratio"] = _window_bf16_ratio(out, ref)
+                check(row["limit_ratio"] <= 1.0,
+                      f"window kernel vs plain version at {name} bf16: "
+                      f"{row['limit_ratio']} of the limit")
+                if max(c["lens"]) >= 64:
+                    short = torch.clamp(f32[4] - 32, min=0)
+                    lost = pa.paged_decode_reference(*f32[:4], short,
+                                                     *f32[5:])
+                    row["planted_lost_tile_ratio"] = _window_bf16_ratio(
+                        lost, ref)
+                    check(row["planted_lost_tile_ratio"] > 1.0,
+                          f"window bf16 limit passes a lost tile at {name}")
+            checks.append(row)
+    timed = {}
+    for name, c in (("verify_w5", cases["verify_w5"]),
+                    ("suffix_w512_ctx900", cases["suffix_w512_ctx900"])):
+        args = _window_case(c["B"], c["W"], c["lens"], torch.bfloat16, SEED)
+        bound_ms, bound_by = _window_bound(args, 2)
+        timed[name] = {
+            "ms": _time_ms(lambda: pa.paged_window_attention(*args)),
+            "host_ms": _host_ms(lambda: pa.paged_window_attention(*args)),
+            "plain_ms": _time_ms(lambda: pa.paged_decode_reference(*args)),
+            "library_ms": _time_ms(_window_library(args)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    res = {"checks": checks, "timed": timed,
+           "timed_dtype": "bfloat16"}
+    log("window phase:", json.dumps(res))
+    return res
+
+
+def phase_sampler() -> dict:
+    """The sampler on the card against the sampler on the CPU: the
+    threefry bits of 64 keys over GPT-2's vocabulary are equal; the picks
+    on logits without near-ties are equal; on random normal logits the
+    share of equal picks is reported (a Gumbel draw is within an ulp of
+    log, and an ulp can swap two near-equal ranks)."""
+    import torch
+    from distributedtraining_tpu_torch.engine import serve
+    from distributedtraining_tpu_torch.utils import prng
+    V, B = 50257, 64
+    g = torch.Generator().manual_seed(SEED)
+    seeds = torch.randint(0, 2**31 - 1, (B,), generator=g)
+    idx = torch.randint(0, 10**6, (B,), generator=g)
+    keys = prng.fold_in(prng.prng_key(seeds), idx)
+    bits_cpu = prng.random_bits(keys, V)
+    bits_gpu = prng.random_bits(keys.to(DEV), V).cpu()
+    check(bool((bits_cpu == bits_gpu).all()),
+          "sampler: threefry bits differ between the card and the CPU")
+    temps = torch.tensor([0.0, 0.7, 1.0, 1.6] * (B // 4))
+    top_ps = torch.tensor([1.0, 0.9, 0.95, 0.5] * (B // 4))
+    spread = torch.stack([torch.randperm(V, generator=g) for _ in range(B)]
+                         ).float() * 0.05
+
+    def both(logits):
+        cpu = serve._sample_from_logits(logits, temps, top_ps, seeds, idx)
+        gpu = serve._sample_from_logits(logits.to(DEV), temps.to(DEV),
+                                        top_ps.to(DEV), seeds.to(DEV),
+                                        idx.to(DEV)).cpu()
+        return cpu, gpu
+
+    cpu, gpu = both(spread)
+    check(bool((cpu == gpu).all()),
+          f"sampler: picks differ on logits without near-ties "
+          f"({int((cpu != gpu).sum())} of {B})")
+    cpu, gpu = both(torch.randn((B, V), generator=g) * 2.0)
+    res = {"keys": B, "vocab": V, "bits_equal": True,
+           "no_tie_picks_equal": True,
+           "random_logits_agreement": float((cpu == gpu).float().mean())}
+    log("sampler phase:", json.dumps(res))
+    return res
+
+
+def _record_sampled_rows(store: list):
+    """Patch ``serve._pick`` (the target's picks) and the drafter's
+    ``speculative._pick`` so each keeps the sampled rows it sees: the f32
+    logits, the lane's temperature, top_p and key, and the pick, tagged
+    with the verify round (target rows only inside ``_verify``; the
+    drafter's catch-up steps, whose picks are dropped, are skipped) and
+    their order within the round among the lane's rows: the drafter's
+    step s and the verify's window row s read the same tokens, so they
+    pair by that order and not by the keys under test. Returns the
+    undo."""
+    import numpy as np
+    from distributedtraining_tpu_torch.engine import serve
+    from distributedtraining_tpu_torch.engine import speculative as spec
+    real_pick, real_verify = serve._pick, serve.GenerationEngine._verify
+    state = {"round": 0, "in_verify": False}
+    nth: dict = {}
+
+    def recorder(side):
+        def pick(logits, temps, top_ps, seeds, tok_idx):
+            out = real_pick(logits, temps, top_ps, seeds, tok_idx)
+            if side == "draft" or state["in_verify"]:
+                for r in np.flatnonzero(np.asarray(temps) > 0):
+                    if side == "draft" and int(tok_idx[r]) == 0:
+                        continue
+                    lane = (side, state["round"], int(seeds[r]))
+                    nth[lane] = nth.get(lane, -1) + 1
+                    store.append({
+                        "side": side, "round": state["round"],
+                        "key": (int(seeds[r]), nth[lane]),
+                        "seed": int(seeds[r]), "tok_idx": int(tok_idx[r]),
+                        "row": logits[int(r)].float().clone(),
+                        "temp": float(temps[r]), "top_p": float(top_ps[r]),
+                        "pick": int(out[r])})
+            return out
+        return pick
+
+    def verify(eng, active, plan):
+        state["in_verify"] = True
+        try:
+            return real_verify(eng, active, plan)
+        finally:
+            state["in_verify"] = False
+            state["round"] += 1
+
+    serve._pick, spec._pick = recorder("verify"), recorder("draft")
+    serve.GenerationEngine._verify = verify
+
+    def undo():
+        serve._pick = spec._pick = real_pick
+        serve.GenerationEngine._verify = real_verify
+    return undo
+
+
+def _ranked(row, temp: float, top_p: float):
+    """The sampler's view of one row (``serve._sample_from_logits``): the
+    scaled logits, their stable descending order and how many ranks
+    top_p keeps."""
+    import torch
+    scaled = row / max(temp, 1e-6)
+    order = torch.argsort(-scaled, stable=True)
+    ranked = scaled[order]
+    e = torch.exp(ranked - ranked.max())
+    probs = e / e.sum()
+    kept = int(((torch.cumsum(probs, -1) - probs) < top_p).sum())
+    return scaled, order, kept
+
+
+def _sampled_pair_readings(store: list) -> dict:
+    """Each sampled proposal beside the target's verify row at the same
+    place in the same round (the same tokens before it; each side's own
+    key): the drafter's row came from the decode kernel, the verify's
+    from the window kernel. For the pairs whose picks differ: whether
+    the two rows rank the kept tokens in the same order (then only the
+    key or the sampler could make them differ: counted as faults),
+    whether the two picks sit at the same rank (the rows swapped which
+    token holds the winning rank's Gumbel draw), and the logit gap
+    between the verify's winner and its rank neighbours against the
+    rows' max |logit difference|. Two witnesses: the drafter's rows
+    picked again under the verify's lane parameters and keys (one set of
+    logits through both sides' sampling: the share that gives back the
+    proposal), and the verify's rows with random noise, once of ~1 f32
+    ulp relative and once Gaussian at each pair's RMS |logit difference|
+    (the share of picks noise of each size moves: the second should
+    come near the pairs' own share if the rows' difference alone parts
+    them)."""
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch.engine import serve
+    draft = {(e["round"], e["key"]): e for e in store if e["side"] == "draft"}
+    pairs = [(draft[(e["round"], e["key"])], e) for e in store
+             if e["side"] == "verify" and (e["round"], e["key"]) in draft]
+    dlog, dlog_differ, gaps, gaps_differ, kept = [], [], [], [], []
+    differ = same_order = same_rank = within = 0
+    for d, v in pairs:
+        sd, od, kd = _ranked(d["row"], d["temp"], d["top_p"])
+        sv, ov, kv = _ranked(v["row"], v["temp"], v["top_p"])
+        delta = float((d["row"] - v["row"]).abs().max())
+        rv = int((ov == v["pick"]).nonzero()[0, 0])
+        rd = int((od == d["pick"]).nonzero()[0, 0])
+        ranked = sv[ov]
+        near = [float(ranked[rv - 1] - ranked[rv])] if rv > 0 else []
+        if rv + 1 < ranked.numel():
+            near.append(float(ranked[rv] - ranked[rv + 1]))
+        gap = min(near) * v["temp"]          # in logit units
+        dlog.append(delta)
+        gaps.append(gap)
+        kept.append(kv)
+        if d["pick"] == v["pick"]:
+            continue
+        differ += 1
+        dlog_differ.append(delta)
+        gaps_differ.append(gap)
+        k = max(kd, kv)
+        same_order += int(kd == kv and bool((od[:k] == ov[:k]).all()))
+        same_rank += int(rd == rv)
+        within += int(gap <= 2 * delta)
+    same_logits = ulp_flips = rms_flips = rms_p50 = abs_p50 = None
+    if pairs:
+        lanes = [np.asarray([v[k] for _, v in pairs])
+                 for k in ("temp", "top_p", "seed", "tok_idx")]
+        again = serve._pick(torch.stack([d["row"] for d, _ in pairs]),
+                            *lanes)
+        same_logits = sum(a == d["pick"] for a, (d, _) in
+                          zip(again, pairs)) / len(pairs)
+        rows = torch.stack([v["row"] for _, v in pairs])
+        g = torch.Generator(device=rows.device).manual_seed(SEED)
+        noise = (torch.rand(rows.shape, generator=g, device=rows.device)
+                 * 2 - 1) * 2.0 ** -23
+        moved = serve._pick(rows * (1 + noise), *lanes)
+        ulp_flips = sum(a != v["pick"] for a, (_, v) in
+                        zip(moved, pairs)) / len(pairs)
+        rms = torch.stack([(d["row"] - v["row"]).pow(2).mean().sqrt()
+                           for d, v in pairs])
+        moved = serve._pick(rows + torch.randn(
+            rows.shape, generator=g, device=rows.device) * rms[:, None],
+            *lanes)
+        rms_flips = sum(a != v["pick"] for a, (_, v) in
+                        zip(moved, pairs)) / len(pairs)
+        rms_p50 = float(rms.median())
+        abs_p50 = float(rows.abs().amax(dim=1).median())
+    med = lambda xs: statistics.median(xs) if xs else None  # noqa: E731
+    return {"pairs": len(pairs), "picks_differ": differ,
+            "witness_draft_rows_verify_keys_agree": same_logits,
+            "witness_ulp_noise_flip_rate": ulp_flips,
+            "witness_rms_dlogit_noise_flip_rate": rms_flips,
+            "rms_dlogit_p50": rms_p50, "row_max_abs_logit_p50": abs_p50,
+            "differ_same_order": same_order,
+            "differ_same_rank": same_rank,
+            "differ_winner_gap_within_2_max_dlogit": within,
+            "max_dlogit_p50": med(dlog), "max_dlogit_max": max(dlog,
+                                                                 default=None),
+            "max_dlogit_p50_differ": med(dlog_differ),
+            "winner_gap_p50": med(gaps), "winner_gap_p50_differ":
+                med(gaps_differ),
+            "kept_ranks_p50": med(kept)}
+
+
+def _decode_through_window():
+    """A witness, not the port's path: the model's paged attention with
+    one query a slot goes through the window kernel too (W = 1), so a
+    plain decode and a verify's first row share one attention kernel.
+    Returns the undo."""
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.ops import paged_attention as pa
+    real = gpt2.paged_attention
+
+    def route(q, *a):
+        return pa.paged_window_attention(q, *a) if q.is_cuda else real(q, *a)
+    gpt2.paged_attention = route
+    return lambda: setattr(gpt2, "paged_attention", real)
+
+
+def _spec_parity_f32(tree, prompts) -> dict:
+    """Spec-on (self-draft, K 4) against spec-off at f32 compute, and a
+    scripted drafter that is always wrong: greedy lanes must be token
+    identical, the self-draft must have proposed with no fallback to
+    plain decode. Sampled lanes are reported, with the readings that say
+    why they part (``_sampled_pair_readings``; a differing pair whose
+    rows rank the kept tokens alike fails the phase) and a witness: the
+    spec-off run again with its decode through the window kernel,
+    against the zero-accept run, whose every token is a verify's first
+    row."""
+    from distributedtraining_tpu_torch.engine import serve
+    from distributedtraining_tpu_torch.engine import speculative as spec
+    from distributedtraining_tpu_torch.models import gpt2
+    cfg = dataclasses.replace(gpt2.PRESETS["gpt2-124m"], dtype="float32")
+    model, _ = gpt2.make_model(cfg)
+    state = gpt2.params_from_numpy(tree, device=DEV)
+    lanes = [(0.8 if i % 2 else 0.0, 0.9, 100 + i)
+             for i in range(len(prompts))]
+
+    def run(draft):
+        eng = serve.GenerationEngine(model, state, device=DEV,
+                                     prefix_cache=True, draft=draft,
+                                     debug_invariants=True)
+        try:
+            reqs = [eng.submit(p, 32, temperature=t, top_p=tp, seed=s)
+                    for p, (t, tp, s) in zip(prompts, lanes)]
+            while not all(r.done_evt.is_set() for r in reqs):
+                eng.step()
+            return [r.tokens for r in reqs], eng
+        finally:
+            eng.close()
+
+    off, _ = run(None)
+    rows: list = []
+    undo = _record_sampled_rows(rows)
+    try:
+        on, eng_on = run(spec.DraftEngine(model, state, device=DEV))
+    finally:
+        undo()
+    check(eng_on._spec_proposed > 0 and eng_on.verify_dispatches > 0
+          and eng_on.spec_fallbacks == 0,
+          f"f32 self-draft: proposed {eng_on._spec_proposed}, verifies "
+          f"{eng_on.verify_dispatches}, fallbacks {eng_on.spec_fallbacks}")
+    readings = _sampled_pair_readings(rows)
+    del rows
+    check(readings["pairs"] > 0, "f32 self-draft: no sampled proposal")
+    check(readings["differ_same_order"] == 0,
+          f"f32 self-draft: sampled picks differ on rows that rank the "
+          f"kept tokens alike: {readings}")
+    wrong = spec.ScriptedDraftSource(
+        lambda req, k: [(len(req.tokens) * 7919 + i) % cfg.vocab_size
+                        for i in range(k)])
+    zero, eng_zero = run(wrong)
+    check(eng_zero._spec_proposed > 0 and eng_zero._spec_accepted == 0
+          and eng_zero.spec_fallbacks == 0,
+          f"scripted drafter accepted {eng_zero._spec_accepted} of "
+          f"{eng_zero._spec_proposed} ({eng_zero.spec_fallbacks} "
+          f"fallbacks)")
+    greedy = [i for i, (t, _, _) in enumerate(lanes) if t == 0.0]
+    for name, out in (("self-draft", on), ("zero-accept", zero)):
+        check(all(out[i] == off[i] for i in greedy),
+              f"f32 {name} greedy streams differ from spec-off")
+    undo = _decode_through_window()
+    try:
+        off_w, _ = run(None)
+    finally:
+        undo()
+
+    def agree(a, b):
+        pairs = [(x, y) for i in range(len(a)) if lanes[i][0] > 0
+                 for x, y in zip(a[i], b[i])]
+        return sum(x == y for x, y in pairs) / len(pairs)
+
+    return {"greedy_identical": True, "lanes": len(lanes),
+            "greedy_lanes": len(greedy),
+            "proposed_self_draft": eng_on._spec_proposed,
+            "spec_fallbacks": eng_on.spec_fallbacks,
+            "accept_rate_self_draft": eng_on.spec_accept_rate,
+            "accept_rate_scripted": eng_zero.spec_accept_rate,
+            "sampled_agreement_self_draft": agree(on, off),
+            "sampled_agreement_zero_accept": agree(zero, off),
+            "sampled_pairs": readings,
+            # one attention kernel on both sides
+            "witness_sampled_agreement_zero_accept_vs_window_decode":
+                agree(zero, off_w),
+            "witness_sampled_agreement_decode_vs_window_decode":
+                agree(off, off_w)}
+
+
+def _server_cli(argv, port, bodies, publish=None, timeout=600.0) -> dict:
+    """``neurons.server.main`` on a thread, the launch counts set to 0
+    just before and read after it returns: the ``bodies`` POSTed at once
+    (after /healthz answers). With ``publish``, a second client keeps one
+    request in flight at a time from then on, ``publish`` is called once
+    the engine has emitted tokens, and the client stops at the first
+    answer that names the new revision (a 503 while the swap drains is
+    counted). The engines and drafters the CLI builds and the traces it
+    finishes are captured by hooks."""
+    import threading
+    import torch
+    from distributedtraining_tpu_torch.engine import serve
+    from distributedtraining_tpu_torch.engine import speculative as spec
+    from distributedtraining_tpu_torch.neurons import server as server_cli
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.ops import paged_attention as pa
+    from distributedtraining_tpu_torch.utils import reqtrace
+    seen = {"engines": [], "drafts": [], "traces": []}
+    undo = []
+
+    def hook(cls, name, note):
+        real = getattr(cls, name)
+
+        def wrapper(obj, *a, **kw):
+            out = real(obj, *a, **kw)
+            note(obj, out)
+            return out
+        setattr(cls, name, wrapper)
+        undo.append((cls, name, real))
+
+    hook(serve.GenerationEngine, "__init__",
+         lambda e, out: seen["engines"].append(e))
+    hook(spec.DraftEngine, "__init__",
+         lambda d, out: seen["drafts"].append(d))
+    hook(reqtrace.TraceBook, "finish",
+         lambda b, out: out is not None and seen["traces"].append(out))
+    rc: dict = {}
+    traffic = {"answers": [], "drain_503": 0}
+    stop = threading.Event()
+    rev2 = None
+
+    def client():
+        # one request at a time until the new revision answers
+        body = {**bodies[0], "max_new_tokens": 32}
+        while not stop.is_set():
+            try:
+                _, out = _post(port, body)
+            except urllib.error.HTTPError as e:
+                check(e.code == 503, f"server CLI answered {e.code}")
+                traffic["drain_503"] += 1
+                time.sleep(0.05)
+                continue
+            traffic["answers"].append(out["revision"])
+            if rev2 is not None and out["revision"] == rev2:
+                return
+
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        dsc.launches = pa.launches = pa.window_launches = 0
+        t0 = time.perf_counter()
+        th = threading.Thread(
+            target=lambda: rc.setdefault("rc", server_cli.main(argv)),
+            name="smoke-server", daemon=True)
+        th.start()
+        deadline = time.time() + timeout
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=5):
+                    break
+            except OSError:
+                check(th.is_alive() and time.time() < deadline,
+                      f"server CLI never answered /healthz: {rc}")
+                time.sleep(0.1)
+        boot_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(bodies) + 1) as ex:
+            futs = [ex.submit(_post, port, b) for b in bodies]
+            if publish is not None:
+                while not seen["engines"][0].tokens_emitted:
+                    time.sleep(0.005)
+                side = ex.submit(client)
+                rev2 = publish()
+            results = [f.result() for f in futs]
+            wall = time.perf_counter() - t1
+            # every token served in the window, a side client's included
+            emitted = seen["engines"][0].tokens_emitted
+            if publish is not None:
+                side.result(timeout=timeout)
+        th.join(timeout)
+        check(not th.is_alive() and rc.get("rc") == 0,
+              f"server CLI did not exit 0: {rc}")
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        for cls, name, real in undo:
+            setattr(cls, name, real)
+    ids = {out["request_id"] for _, out in results}
+    return {"rc": rc["rc"], "boot_s": boot_s, "wall_s": wall,
+            "tokens_in_wall": emitted, "results": results, "rev2": rev2, "traffic": traffic,
+            "engine": seen["engines"][0],
+            "draft": seen["drafts"][0] if seen["drafts"] else None,
+            "traces": [(tr.ttft_ms, tr.tpot_ms) for tr in seen["traces"]
+                       if tr.request_id in ids],
+            "launches": {"paged_decode_attention": pa.launches,
+                         "paged_window_attention": pa.window_launches,
+                         "dequant_scatter": dsc.launches, **fa.launches,
+                         **fused_ce.launches}}
+
+
+def _pct(vals, q) -> float:
+    vals = sorted(v for v in vals if v is not None)
+    k = (len(vals) - 1) * q / 100.0
+    lo = int(k)
+    hi = min(lo + 1, len(vals) - 1)
+    return vals[lo] + (vals[hi] - vals[lo]) * (k - lo)
+
+
+def phase_server(tree) -> dict:
+    """The server CLI at GPT-2-124M with the JAX server's default flags
+    (prefix cache and traces on; only the corpus, the tokenizer, the
+    port, a 1 s swap poll and a bound on steps given) on a LocalFS root
+    whose base the port's transport published: 8 concurrent requests
+    sharing a 512-token system prompt, each with its own suffix, greedy
+    and sampled lanes (temperature 0.8, top_p 0.9, distinct seeds), 32
+    new tokens each: once alone ("plain", the serving numbers), once
+    with --speculative (self-draft, --draft-k 4; it must draft: a ready
+    drafter, proposals, drafter steps, verifies and no fallback), and
+    once with a second base published mid-run and swapped in under drain
+    ("default": its times share the host with the publish and a side
+    client). Launch counts exact for every run."""
+    import tempfile
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    L = cfg.n_layer
+    # the second base, serialized before the run: publishing it mid-run
+    # is then one atomic file write, as another process's publish is
+    second = ser.to_msgpack(gpt2.init_params_numpy(cfg, SEED + 5))
+    rng_sys = _prompts((512,), cfg.vocab_size, SEED + 21)[0]
+    suffixes = _prompts((3, 9, 17, 30, 48, 64, 90, 120), cfg.vocab_size,
+                        SEED + 22)
+    prompts = [rng_sys + s for s in suffixes]
+    bodies = [{"tokens": p, "max_new_tokens": 32,
+               **({"temperature": 0.8, "top_p": 0.9, "seed": 1000 + i}
+                  if i % 2 else {})}
+              for i, p in enumerate(prompts)]
+    res: dict = {"model": "gpt2-124m", "dtype": cfg.dtype,
+                 "prompts": [len(p) for p in prompts], "new_tokens": 32}
+    res["spec_f32"] = _spec_parity_f32(_sharpened(tree), prompts[:4])
+    with tempfile.TemporaryDirectory() as work:
+        t = LocalFSTransport(os.path.join(work, "artifacts"))
+        rev1 = t.publish_base(tree)
+        runs = {}
+        for name, extra, publish in (
+                ("plain", [], None),
+                ("speculative", ["--speculative", "--draft-k", "4"], None),
+                ("default", [], lambda: t.publish_base_raw(second))):
+            port = _free_port()
+            argv = ["--work-dir", work, "--dataset", "synthetic",
+                    "--tokenizer", "word", "--serve-port", str(port),
+                    "--swap-poll", "1", "--max-steps", "100000"] + extra
+            run = _server_cli(argv, port, bodies, publish)
+            eng, draft = run["engine"], run["draft"]
+            for (code, out), p in zip(run["results"], prompts):
+                check(code == 200 and out["status"] == "done"
+                      and len(out["tokens"]) == 32,
+                      f"{name}: request not done: {code} {out}")
+                check(out["revision"] == rev1,
+                      f"{name}: answered on {out['revision']}, not the "
+                      f"boot base {rev1}")
+                check(all(0 <= x < cfg.vocab_size for x in out["tokens"]),
+                      f"{name}: token outside the vocabulary")
+            check(eng.prefix_hits >= len(prompts) - 1,
+                  f"{name}: prefix hits {eng.prefix_hits}")
+            eng._check_invariants()     # refcounts == cache holders
+            dec = eng.decode_dispatches + (draft.step_dispatches
+                                           if draft else 0)
+            win = eng.suffix_prefills + eng.verify_dispatches
+            full = eng.full_prefills + (draft.prefill_dispatches
+                                        if draft else 0)
+            want = {"paged_decode_attention": L * dec,
+                    "paged_window_attention": L * win,
+                    "flash_attention_fwd": L * full}
+            _check_launches(f"server {name}", run["launches"], want)
+            check(dec > 0 and win > 0 and full > 0,
+                  f"server {name}: a kernel of the path never ran")
+            if name == "speculative":
+                check(draft is not None and draft.ready
+                      and eng._draft is draft and eng.verify_dispatches > 0
+                      and eng._spec_proposed > 0
+                      and draft.step_dispatches > 0
+                      and eng.spec_fallbacks == 0,
+                      f"server speculative: it did not draft (drafter "
+                      f"{draft}, ready {draft and draft.ready}, verifies "
+                      f"{eng.verify_dispatches}, proposed "
+                      f"{eng._spec_proposed}, fallbacks "
+                      f"{eng.spec_fallbacks})")
+            ttft = [tt for tt, _ in run["traces"]]
+            tpot = [tp for _, tp in run["traces"]]
+            runs[name] = {
+                "boot_s": run["boot_s"], "wall_s": run["wall_s"],
+                "tokens_in_wall": run["tokens_in_wall"],
+                "tokens_per_s": run["tokens_in_wall"] / run["wall_s"],
+                "publish_during_run": publish is not None,
+                "ttft_ms_p50": _pct(ttft, 50), "ttft_ms_p95": _pct(ttft, 95),
+                "tpot_ms_p50": _pct(tpot, 50), "tpot_ms_p95": _pct(tpot, 95),
+                "prefix_hit_rate": eng.prefix_hit_rate,
+                "prefix_hits": eng.prefix_hits,
+                "prefix_tokens_saved": eng.prefix_tokens_saved,
+                "cow_copies": eng.cow_copies,
+                "accept_rate": eng.spec_accept_rate if draft else None,
+                "spec_rounds": eng.spec_rounds,
+                "spec_proposed": eng._spec_proposed,
+                "spec_fallbacks": eng.spec_fallbacks,
+                "dispatches": {"decode_target": eng.decode_dispatches,
+                               "decode_draft": (draft.step_dispatches
+                                                if draft else 0),
+                               "verify": eng.verify_dispatches,
+                               "suffix_prefill": eng.suffix_prefills,
+                               "full_prefill": eng.full_prefills,
+                               "draft_prefill": (draft.prefill_dispatches
+                                                 if draft else 0)},
+                "launches": run["launches"],
+                "tokens": [out["tokens"] for _, out in run["results"]]}
+            if publish is not None:
+                answers = run["traffic"]["answers"]
+                check(answers and answers[-1] == run["rev2"]
+                      and eng.revision == run["rev2"],
+                      f"the swap to {run['rev2']} did not land: {answers}")
+                runs[name].update(
+                    swapped_to=run["rev2"],
+                    answers_before_swap=answers.count(rev1),
+                    drain_503=run["traffic"]["drain_503"])
+    on, off = runs["speculative"]["tokens"], runs["plain"]["tokens"]
+    pairs = [(x, y) for a, b in zip(on, off) for x, y in zip(a, b)]
+    res["bf16_spec_agreement"] = sum(x == y for x, y in pairs) / len(pairs)
+    res["bf16_spec_agreement_greedy"] = (
+        sum(x == y for i, (a, b) in enumerate(zip(on, off)) if not i % 2
+            for x, y in zip(a, b)) / (32 * len(prompts[::2])))
+    for r in runs.values():
+        r.pop("tokens")
+    res["runs"] = runs
+    log("server phase:", json.dumps(res))
+    return res
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _window_entry(serve6: dict, build: dict) -> dict:
+    """The window kernel's line: it replaces no Pallas kernel (the JAX
+    package runs this attention in XLA)."""
+    win = serve6["window"]
+    timed = win["timed"]
+    runs = serve6["server"]["runs"]
+    return {
+        "name": "paged_window_attention", "route": "cuda",
+        "source": "distributedtraining_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "distributedtraining_tpu/ops/paged_attention.py:282",
+        "tpu_kernel": None,
+        "replaces_note": "paged_decode_reference with Tq > 1 (XLA, not "
+                         "Pallas): the suffix prefill and the verify",
+        # the server CLI with the JAX defaults (suffix prefills)
+        "launches": runs["default"]["launches"]["paged_window_attention"],
+        # with --speculative: suffix prefills and verify windows
+        "launches_speculative": runs["speculative"]["launches"][
+            "paged_window_attention"],
+        "max_abs_err": max(c["max_abs_err"] for c in win["checks"]),
+        "max_abs_err_f32": max(c["max_abs_err"] for c in win["checks"]
+                               if c["dtype"] == "float32"),
+        # bf16: the largest share of the per-element limit (<= 1 holds)
+        "bf16_limit_ratio": max(c["limit_ratio"] for c in win["checks"]
+                                if "limit_ratio" in c),
+        **timed["verify_w5"],
+        "suffix_w512_ctx900": timed["suffix_w512_ctx900"],
+        "timed_shape": "verify_w5 (8 slots, contexts 8-900) bf16",
+        "build_s": build["build_s"]}
+
+
 def _scatter_entry(scatter: dict, avg: dict, build: dict,
                    defaults: dict, slice5: dict) -> dict:
     wte, whole = scatter["timed"]["wte"], scatter["timed"]["contribution"]
@@ -3971,6 +4763,11 @@ def main() -> int:
     t0 = time.perf_counter()
     slice5 = phase_slice5(tree, tok)
     slice5["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve6 = {"window": phase_window(), "sampler": phase_sampler(),
+              "server": phase_server(tree)}
+    serve6["s"] = time.perf_counter() - t0
+    server_runs = serve6["server"]["runs"]
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -3979,6 +4776,11 @@ def main() -> int:
         "tpu_kernel": "distributedtraining_tpu/ops/paged_attention.py:"
                       "_decode_kernel",
         "launches": serve["kernel_launches"],
+        # phase 21: the server CLI's runs (target and drafter decodes)
+        "launches_server": server_runs["default"]["launches"][
+            "paged_decode_attention"],
+        "launches_server_speculative": server_runs["speculative"][
+            "launches"]["paged_decode_attention"],
         # over every case and both dtypes (bf16 dominates)
         "max_abs_err": max(c["max_abs_err"] for c in kern["checks"]),
         "max_abs_err_f32": max(c["max_abs_err"] for c in kern["checks"]
@@ -3991,6 +4793,7 @@ def main() -> int:
         "decode_step_paged_ms": prof["paged_decode_ms_per_step"],
         "timed_shape": kern["timed_shape"],
         "build_s": build["build_s"]},
+        _window_entry(serve6, build),
         *_flash_entries(flash, train, build, val, meta, defaults, slice5),
         *_ce_entries(ce, miner, tfused, build, defaults, slice5),
         _scatter_entry(scatter, avg, build, defaults, slice5)]}),
@@ -4012,7 +4815,8 @@ def main() -> int:
                                     "card": card}}), flush=True)
     print(json.dumps({"defaults": {**defaults, "card": card}}), flush=True)
     total_s = time.perf_counter() - t_start
-    print(json.dumps({"slice5": {**slice5, "card": card,
+    print(json.dumps({"slice5": {**slice5, "card": card}}), flush=True)
+    print(json.dumps({"serve6": {**serve6, "card": card,
                                  "total_s": total_s}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Run configuration of the port's miner, validator and averager — the
-port of the JAX package's ``config.py`` for ``RunConfig.from_args(role,
-argv)`` with ``role`` ``"miner"``, ``"validator"`` or ``"averager"``.
+"""Run configuration of the port's roles — the port of the JAX package's
+``config.py`` for ``RunConfig.from_args(role, argv)`` with ``role``
+``"miner"``, ``"validator"``, ``"averager"`` or ``"server"``.
 
 Each role's parser takes every flag the JAX package's parser for that
 role accepts, with the same spellings, destinations and defaults, so a
@@ -18,7 +18,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 _SLICES = "ROADMAP 'Slices of the port'"
-ROLES = ("miner", "validator", "averager")
+ROLES = ("miner", "validator", "averager", "server")
 
 
 @dataclasses.dataclass
@@ -126,6 +126,24 @@ class RunConfig:
     meta_optimizer: str = "adam"
     outer_momentum: float = 0.0
     outer_lr: float = 0.7
+    # serving plane (engine/serve.py; neurons/server.py)
+    serve_port: int = 0
+    serve_slots: int = 8
+    serve_page_size: int = 16
+    serve_kv_pages: int = 0
+    serve_max_new: int = 64
+    serve_max_seq: int = 0
+    serve_max_queue: int = 0
+    serve_prefix_cache: bool = True
+    serve_speculative: bool = False
+    serve_draft_k: int = 4
+    serve_draft_repo: str = ""
+    serve_trace: bool = True
+    serve_trace_exemplars: int = 4
+    serve_trace_window: float = 30.0
+    serve_phase: str = "unified"
+    swap_policy: str = "drain"
+    swap_poll: float = 15.0
     # hierarchical aggregation, remediation, failover
     hier: str = ""
     hier_node: str = ""
@@ -181,8 +199,10 @@ class RunConfig:
              f"--chain {self.chain} (the bittensor chain needs the "
              f"network)", 7),
             (averager and self.strategy == "genetic",
-             "--strategy genetic (its population draws need threefry2x32 "
-             "in torch)", 6),
+             "--strategy genetic", "6b"),
+            (self.role == "server" and self.serve_phase != "unified",
+             f"--serve-phase {self.serve_phase} (disaggregated "
+             f"prefill/decode, the KV transfer plane)", "6b"),
             (self.lora_rank > 0, "--lora-rank > 0", 7),
             (m.auto or max(m.fsdp, m.sp, m.tp, m.dcn_dp, m.dp) > 1
              or self.multihost_coordinator is not None
@@ -507,19 +527,71 @@ _AVERAGER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
                                     default=_D.failover_deadline)),
 ]
 
+# the JAX server's serving group
+_SERVER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
+    (("--serve-port",), dict(dest="serve_port", type=int,
+                             default=_D.serve_port,
+                             help="HTTP /generate port (0: no HTTP)")),
+    (("--serve-slots",), dict(dest="serve_slots", type=int,
+                              default=_D.serve_slots)),
+    (("--page-size",), dict(dest="serve_page_size", type=int,
+                            default=_D.serve_page_size)),
+    (("--kv-pages",), dict(dest="serve_kv_pages", type=int,
+                           default=_D.serve_kv_pages,
+                           help="pages in the KV pool (0: slots x pages "
+                                "of a max-length sequence + the trash "
+                                "page); a self-drafter keeps a second "
+                                "pool of the same size")),
+    (("--max-new-tokens",), dict(dest="serve_max_new", type=int,
+                                 default=_D.serve_max_new)),
+    (("--max-seq-len",), dict(dest="serve_max_seq", type=int,
+                              default=_D.serve_max_seq)),
+    (("--max-queue",), dict(dest="serve_max_queue", type=int,
+                            default=_D.serve_max_queue)),
+    (("--no-prefix-cache",), dict(dest="serve_prefix_cache",
+                                  action="store_false",
+                                  default=_D.serve_prefix_cache)),
+    (("--speculative",), dict(dest="serve_speculative", action="store_true",
+                              default=_D.serve_speculative)),
+    (("--no-speculative",), dict(dest="serve_speculative",
+                                 action="store_false")),
+    (("--draft-k",), dict(dest="serve_draft_k", type=int,
+                          default=_D.serve_draft_k)),
+    (("--draft-repo",), dict(dest="serve_draft_repo",
+                             default=_D.serve_draft_repo,
+                             help="'preset@work_dir' of the draft's "
+                                  "deployment (empty: self-draft)")),
+    (("--no-serve-trace",), dict(dest="serve_trace", action="store_false",
+                                 default=_D.serve_trace)),
+    (("--trace-exemplars",), dict(dest="serve_trace_exemplars", type=int,
+                                  default=_D.serve_trace_exemplars)),
+    (("--trace-window",), dict(dest="serve_trace_window",
+                               type=_nonneg_float,
+                               default=_D.serve_trace_window)),
+    (("--serve-phase",), dict(dest="serve_phase",
+                              choices=("unified", "prefill", "decode"),
+                              default=_D.serve_phase,
+                              help="unified (prefill and decode are "
+                                   "slice 6b)")),
+    (("--swap-policy",), dict(dest="swap_policy",
+                              choices=("drain", "restart"),
+                              default=_D.swap_policy)),
+    (("--swap-poll",), dict(dest="swap_poll", type=_nonneg_float,
+                            default=_D.swap_poll)),
+]
+
 _ROLE_FLAGS = {"miner": [],
                "validator": _VALIDATOR_FLAGS + _CONSUMER_FLAGS
                + _MONITOR_FLAGS,
                "averager": _CONSUMER_FLAGS + _MONITOR_FLAGS
-               + _AVERAGER_FLAGS}
+               + _AVERAGER_FLAGS,
+               "server": _SERVER_FLAGS}
 
 
 def build_parser(role: str = "miner") -> argparse.ArgumentParser:
-    """The parser of ``role`` (``"miner"``, ``"validator"`` or
-    ``"averager"``)."""
+    """The parser of ``role`` (one of :data:`ROLES`)."""
     if role not in ROLES:
-        raise NotImplementedError(
-            f"role {role!r}: the port's server is slice 6 ({_SLICES})")
+        raise ValueError(f"role {role!r}: expected one of {ROLES}")
     p = argparse.ArgumentParser(
         prog=f"python -m distributedtraining_tpu_torch.neurons.{role}",
         description=f"distributedtraining {role}, PyTorch/CUDA port")

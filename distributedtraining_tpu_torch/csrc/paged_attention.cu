@@ -50,6 +50,30 @@
 //    score contributes exp(0).
 // The kernel allocates nothing; the C entry launches both kernels on the
 // caller's stream and returns the first launch error.
+//
+// The window kernel (dt_paged_window) serves the forwards with more than
+// one query a slot: the speculative verify (W = draft_k + 1 queries a
+// slot) and the prefix cache's suffix prefill (one slot, W from the
+// prefill ladder). It replaces no Pallas kernel: the JAX package computes
+// this in XLA (ops/paged_attention.py:paged_decode_reference with Tq > 1,
+// ops/attention.py:cached_attention's mask). Query t of slot b sees the
+// slot's context positions t' < min(seq_lens[b], MP * P), read through the
+// page table, and the window's own fresh rows 0..t (k_new, v_new
+// [B, W, Hkv, D], not in the pool yet): causal inside the window.
+//
+// Bound: bytes at the verify's shapes (5 queries a slot: ~2.5 f32
+// operations a byte of bf16 K/V), operations at a long suffix window.
+//
+// Design, simple first: grid (Hq, B, ceil(W / 8)); a block of 4 warps
+// owns 8 queries of one head (2 a warp) and walks the slot's context in
+// tiles of 32 rows, then the fresh rows its last query can see, each tile
+// copied K and V into shared memory by cp.async through a two-stage ring
+// (rows past the context zero-filled), rows padded by 16 bytes so the
+// lanes' 16-byte reads of 8 different rows hit different banks. A warp
+// scores its query against the tile's 32 rows (lane r, row r), keeps an
+// f32 online softmax (exp2f, log2(e) folded into the scale) and
+// accumulates P V with its lanes on the head's columns. GQA query heads
+// each read their kv head's tiles (no sharing across the group).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -369,6 +393,214 @@ cudaError_t by_dim(int head_dim, int group, const Args& a,
   return cudaErrorInvalidValue;
 }
 
+constexpr int kWinQ = 8;        // window kernel: queries a block
+constexpr int kWinRows = 32;    // context / fresh rows a tile
+constexpr int kWinWarps = 4;    // 2 queries a warp
+constexpr int kWinThreads = kWinWarps * 32;
+
+struct WinArgs {
+  const void* q;            // [B, W, Hq, D]
+  const void* k_pages;      // [pages, P, Hkv, D], one layer
+  const void* v_pages;
+  const int* page_tables;   // [B, MP]
+  const int* seq_lens;      // [B]
+  const void* k_new;        // [B, W, Hkv, D]
+  const void* v_new;
+  void* out;                // [B, W, Hq, D]
+  int window, n_q_heads, n_kv_heads, page_size, max_pages;
+  float scale;              // log2(e) / sqrt(D)
+};
+
+// a ring stage: K then V, kWinRows rows each, rows padded by 16 bytes
+template <typename T, int D>
+__host__ __device__ constexpr int win_row() {
+  return D + 16 / (int)sizeof(T);
+}
+
+template <typename T, int D>
+constexpr size_t win_smem() {
+  return (size_t)kWinQ * D * 4 +
+         2 * 2 * (size_t)kWinRows * win_row<T, D>() * sizeof(T);
+}
+
+// issue the copies of tile `tile` (context tiles first, then fresh ones)
+// into ring stage `stage`
+template <typename T, int D>
+__device__ __forceinline__ void win_load(const WinArgs& a, T* sK, T* sV,
+                                         int b, int h, int tile,
+                                         int ctx_tiles, int ctx,
+                                         int fresh_rows) {
+  constexpr int V16 = 16 / sizeof(T);
+  constexpr int L = D / V16;
+  constexpr int R = win_row<T, D>();
+  const int tid = threadIdx.x;
+  const size_t row = (size_t)a.n_kv_heads * D;
+  for (int e = tid; e < kWinRows * L; e += kWinThreads) {
+    const int r = e / L, c = e % L;
+    const T* ksrc;
+    const T* vsrc;
+    int bytes = 16;
+    if (tile < ctx_tiles) {
+      const int p = tile * kWinRows + r;
+      if (p < ctx) {
+        const int page = a.page_tables[(size_t)b * a.max_pages +
+                                       p / a.page_size];
+        const size_t off =
+            ((size_t)page * a.page_size + p % a.page_size) * row +
+            (size_t)h * D + c * V16;
+        ksrc = static_cast<const T*>(a.k_pages) + off;
+        vsrc = static_cast<const T*>(a.v_pages) + off;
+      } else {
+        ksrc = static_cast<const T*>(a.k_pages);
+        vsrc = static_cast<const T*>(a.v_pages);
+        bytes = 0;
+      }
+    } else {
+      const int f = (tile - ctx_tiles) * kWinRows + r;
+      if (f < fresh_rows) {
+        const size_t off = ((size_t)b * a.window + f) * row +
+                           (size_t)h * D + c * V16;
+        ksrc = static_cast<const T*>(a.k_new) + off;
+        vsrc = static_cast<const T*>(a.v_new) + off;
+      } else {
+        ksrc = static_cast<const T*>(a.k_new);
+        vsrc = static_cast<const T*>(a.v_new);
+        bytes = 0;
+      }
+    }
+    cp_async16(smem_u32(sK + r * R + c * V16), ksrc, bytes);
+    cp_async16(smem_u32(sV + r * R + c * V16), vsrc, bytes);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWinThreads)
+    paged_window_kernel(const WinArgs a) {
+  constexpr int V16 = 16 / sizeof(T);
+  constexpr int R = win_row<T, D>();
+  constexpr int NC = D / 32;     // P V columns a lane
+  const int j = blockIdx.x, b = blockIdx.y;
+  const int q0 = blockIdx.z * kWinQ;
+  const int G = a.n_q_heads / a.n_kv_heads;
+  const int h = j / G;
+  const int W = a.window;
+  const int ctx = max(0, min(a.seq_lens[b], a.max_pages * a.page_size));
+  const int ctx_tiles = (ctx + kWinRows - 1) / kWinRows;
+  // fresh rows the block's last query sees
+  const int fresh_rows = min(W, q0 + kWinQ);
+  const int tiles = ctx_tiles + (fresh_rows + kWinRows - 1) / kWinRows;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);  // [kWinQ][D], pre-scaled
+  T* ring = reinterpret_cast<T*>(sQ + kWinQ * D);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  for (int e = tid; e < kWinQ * D; e += kWinThreads) {
+    const int t = q0 + e / D;
+    sQ[e] = t < W ? to_f32(static_cast<const T*>(a.q)[
+                        (((size_t)b * W + t) * a.n_q_heads + j) * D +
+                        e % D]) * a.scale
+                  : 0.f;
+  }
+  win_load<T, D>(a, ring, ring + kWinRows * R, b, h, 0, ctx_tiles, ctx,
+                 fresh_rows);
+  cp_async_commit();
+
+  float m[2], l[2], acc[2][NC];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      T* nxt = ring + (size_t)((tile + 1) % 2) * 2 * kWinRows * R;
+      win_load<T, D>(a, nxt, nxt + kWinRows * R, b, h, tile + 1,
+                     ctx_tiles, ctx, fresh_rows);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* sK = ring + (size_t)(tile % 2) * 2 * kWinRows * R;
+    const T* sV = sK + kWinRows * R;
+    const bool fresh = tile >= ctx_tiles;
+    const int r0 = fresh ? (tile - ctx_tiles) * kWinRows : tile * kWinRows;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = warp * 2 + i;
+      const int t = q0 + qi;
+      if (t >= W) continue;
+      // lane r scores row r of the tile
+      float s = 0.f;
+      const float* qrow = sQ + qi * D;
+#pragma unroll
+      for (int c = 0; c < D; c += V16) {
+        float kr[V16];
+        load16(sK + lane * R + c, kr);
+#pragma unroll
+        for (int v = 0; v < V16; ++v) s = fmaf(qrow[c + v], kr[v], s);
+      }
+      const int p_row = r0 + lane;
+      const bool ok = fresh ? (p_row <= t && p_row < W) : p_row < ctx;
+      s = ok ? s : -INFINITY;
+      const float m_new = fmaxf(m[i], warp_max(s));
+      if (m_new == -INFINITY) continue;   // nothing visible yet
+      const float alpha = exp2f(m[i] - m_new);
+      const float p = exp2f(s - m_new);
+      l[i] = l[i] * alpha + warp_sum(p);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+#pragma unroll 8
+      for (int r = 0; r < kWinRows; ++r) {
+        const float pr = __shfl_sync(0xffffffffu, p, r);
+        const T* vr = sV + r * R + lane * NC;
+#pragma unroll
+        for (int c = 0; c < NC; c += 2) {
+          const float2 v = load2(vr + c);
+          acc[i][c] = fmaf(pr, v.x, acc[i][c]);
+          acc[i][c + 1] = fmaf(pr, v.y, acc[i][c + 1]);
+        }
+      }
+    }
+    __syncthreads();   // the stage is refilled by the next iteration
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + warp * 2 + i;
+    if (t >= W) continue;
+    T* o = static_cast<T*>(a.out) +
+           (((size_t)b * W + t) * a.n_q_heads + j) * D + lane * NC;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) store_val(o + c, acc[i][c] / l[i]);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_window(const WinArgs& a, int batch, cudaStream_t stream) {
+  const size_t bytes = win_smem<T, D>();
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_window_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(a.n_q_heads, batch, (a.window + kWinQ - 1) / kWinQ);
+  paged_window_kernel<T, D><<<grid, kWinThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t window_by_dim(int head_dim, const WinArgs& a, int batch,
+                          cudaStream_t stream) {
+  if (head_dim == 64) return launch_window<T, 64>(a, batch, stream);
+  if (head_dim == 128) return launch_window<T, 128>(a, batch, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // part: f32 scratch [B, Hq, splits, D + 2]; chunk: context positions a
@@ -413,5 +645,44 @@ extern "C" int dt_paged_decode(const void* q, const void* k_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return by_dim<float>(head_dim, group, a, s);
   if (dtype == 1) return by_dim<__nv_bfloat16>(head_dim, group, a, s);
+  return cudaErrorInvalidValue;
+}
+
+// The window kernel: q, out [B, W, Hq, D]; k_new, v_new [B, W, Hkv, D];
+// the pools, tables and seq_lens as dt_paged_decode's. dtype: 0 = float32,
+// 1 = bfloat16. Returns a cudaError_t (0 = launched).
+extern "C" int dt_paged_window(const void* q, const void* k_pages,
+                               const void* v_pages, const void* page_tables,
+                               const void* seq_lens, const void* k_new,
+                               const void* v_new, void* out, int batch,
+                               int window, int n_q_heads, int n_kv_heads,
+                               int head_dim, int page_size, int max_pages,
+                               int dtype, int device, void* stream) {
+  if (batch < 1 || batch > 65535 || window < 1 ||
+      (window + kWinQ - 1) / kWinQ > 65535 || n_kv_heads < 1 ||
+      n_q_heads < 1 || n_q_heads % n_kv_heads != 0 || page_size < 1 ||
+      max_pages < 1)
+    return cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return set;
+  WinArgs a;
+  a.q = q;
+  a.k_pages = k_pages;
+  a.v_pages = v_pages;
+  a.page_tables = static_cast<const int*>(page_tables);
+  a.seq_lens = static_cast<const int*>(seq_lens);
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.out = out;
+  a.window = window;
+  a.n_q_heads = n_q_heads;
+  a.n_kv_heads = n_kv_heads;
+  a.page_size = page_size;
+  a.max_pages = max_pages;
+  a.scale = kLog2e / sqrtf((float)head_dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return window_by_dim<float>(head_dim, a, batch, s);
+  if (dtype == 1)
+    return window_by_dim<__nv_bfloat16>(head_dim, a, batch, s);
   return cudaErrorInvalidValue;
 }

@@ -42,8 +42,8 @@ stands the round down) and stamped with the revision after it. With
 aggregates and mixes them by the weight sums their riders declare.
 
 Not ported yet, and refused with NotImplementedError naming the slice
-(ROADMAP "Slices of the port"): ``GeneticMerge`` (slice 6: its draws
-need threefry in torch), ``fleet``, ``remediation`` and LoRA
+(ROADMAP "Slices of the port"): ``GeneticMerge`` (slice 6b, on
+``utils/prng.py``'s threefry), ``fleet``, ``remediation`` and LoRA
 submissions (slice 7); a device mesh is refused by the engine
 (``TrainEngine(mesh=...)``, slice 7).
 """
@@ -342,7 +342,7 @@ class ParameterizedMerge:
         return merged, w
 
 
-def _not_ported(name: str, what: str, slice_no: int):
+def _not_ported(name: str, what: str, slice_no):
     class _Refused:
         __doc__ = (f"{what}: not ported yet (ROADMAP 'Slices of the port', "
                    f"slice {slice_no}); constructing one raises.")
@@ -358,8 +358,7 @@ def _not_ported(name: str, what: str, slice_no: int):
 
 GeneticMerge = _not_ported(
     "GeneticMerge", "the genetic merge (--strategy genetic; its population "
-    "draws use jax.random, so parity needs threefry2x32 in torch, the "
-    "sampling work of slice 6)", 6)
+    "draws are jax.random's, which utils/prng.py reproduces)", "6b")
 
 
 # ---------------------------------------------------------------------------

@@ -242,6 +242,21 @@ def make_model(preset_or_cfg) -> tuple[GPT2, GPT2Config]:
     return GPT2(cfg), cfg
 
 
+def draft_compat(cfg: GPT2Config, target_cfg) -> str | None:
+    """Why a GPT-2 with this config cannot DRAFT for a target with
+    ``target_cfg`` (None = compatible; engine/speculative.py). Proposals
+    are raw token ids the target scores verbatim, so the real
+    vocabularies must match exactly; the padded vocab may differ
+    (sampling slices to ``vocab_size``), and the drafter's position
+    capacity is a soft limit (it stops proposing past it)."""
+    tv = getattr(target_cfg, "vocab_size", None)
+    if cfg.vocab_size != tv:
+        return (f"draft vocab_size {cfg.vocab_size} != target "
+                f"vocab_size {tv}: proposal ids would not name the "
+                "same tokens")
+    return None
+
+
 def bind(model_or_cfg, state: Mapping[str, torch.Tensor]) -> GPT2:
     """A fresh GPT2 whose parameters ARE ``state``'s tensors (no copy):
     same names and shapes required, the device is the state's."""

@@ -1,5 +1,5 @@
-"""Composition of the port's roles — the miner's, the validator's and the
-averager's part of the JAX package's ``neurons/common.py``
+"""Composition of the port's roles — the miner's, the validator's, the
+averager's and the server's part of the JAX package's ``neurons/common.py``
 (``Components`` and ``build``): the model, the ``TrainEngine``, the
 ``memory`` or ``local`` transport (behind ``SignedTransport`` with
 ``--sign-artifacts``), the local chain and address store,

@@ -1,31 +1,38 @@
-"""Paged-attention decode: the hand-written CUDA kernel, its plain PyTorch
-versions, the host planner of its split, and the dispatch between them.
+"""Paged attention: the hand-written CUDA kernels, their plain PyTorch
+versions, the host planner of the decode kernel's split, and the dispatch
+between them.
 
 Every decode step attends one fresh query per slot over that slot's
-paged KV context. The kernel (``csrc/paged_attention.cu``, replacing the
-JAX package's Pallas ``ops/paged_attention.py:_decode_kernel``) splits
-each slot's context into chunks of ``C`` positions (flash-decoding): one
-block per (kv head, slot, chunk) reads the pages its chunk names and
-writes an f32 partial ``(acc, m, l)``; a second kernel of the same call
-folds the partials and the step's own fresh ``(k, v)`` (the final
-column: they are not in the pool yet, the engine writes them after the
-forward) and normalises. GQA heads share their kv head's loads.
+paged KV context. The decode kernel (``csrc/paged_attention.cu``,
+replacing the JAX package's Pallas ``ops/paged_attention.py:_decode_kernel``)
+splits each slot's context into chunks of ``C`` positions
+(flash-decoding): one block per (kv head, slot, chunk) reads the pages its
+chunk names and writes an f32 partial ``(acc, m, l)``; a second kernel of
+the same call folds the partials and the step's own fresh ``(k, v)`` (the
+final column: they are not in the pool yet, the engine writes them after
+the forward) and normalises. GQA heads share their kv head's loads.
 Positions at or past ``seq_lens`` are never read.
+
+The window kernel (same source) takes ``W > 1`` queries a slot (the
+speculative verify, the prefix cache's suffix prefill): query ``t`` sees
+the slot's context below ``seq_lens`` and the window's own fresh rows
+``0..t``. The JAX package computes this in XLA, not in a Pallas kernel.
 
 :func:`plan_split` is the host planner: ``C`` and the number of splits
 from the table's width alone, so a call reads nothing back from the
-card. :func:`paged_decode_reference` is the plain version: gather,
-concatenate, repeat heads, :func:`ops.attention.cached_attention`. It is
-the CPU path and the oracle the kernel is held against on the card
+card. :func:`paged_decode_reference` is the plain version of both kernels
+(gather, concatenate, repeat heads, :func:`ops.attention.cached_attention`):
+the CPU path and the oracle the kernels are held against on the card
 (chip_smoke.py). :func:`paged_decode_split_reference` is the plain
-version of the kernel's decomposition (partials per chunk, then the
-merge), used by the tests and chip_smoke.py only.
+version of the decode kernel's decomposition (partials per chunk, then
+the merge), used by the tests and chip_smoke.py only.
 
 Dispatch (:func:`paged_attention`) is by the device of the tensors it is
-given: CPU tensors take the plain version; CUDA tensors launch the kernel
-or raise. There is no fallback from a failed build or launch.
+given: CPU tensors take the plain version; CUDA tensors launch the decode
+kernel (one query a slot) or the window kernel, or raise. There is no
+fallback from a failed build or launch.
 
-Layouts match the JAX package: q / k_new / v_new ``[B, 1, H(kv), D]``;
+Layouts match the JAX package: q / k_new / v_new ``[B, Tq, H(kv), D]``;
 one layer's pool ``[pages, P, Hkv, D]``; ``page_tables [B, MP]`` int32
 (padded entries point at trash page 0); ``seq_lens [B]`` int32, each
 slot's real context length.
@@ -42,9 +49,11 @@ import torch
 from . import _cuda
 from .attention import cached_attention
 
-# kernel launches since the count was last set to 0 (one per call of
-# paged_decode_attention that launched; the plain version never counts)
+# kernel launches since the counts were last set to 0: one per call of
+# paged_decode_attention (launches) or paged_window_attention
+# (window_launches) that launched; the plain version never counts
 launches = 0
+window_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -160,13 +169,85 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+@functools.cache
+def _window_kernel():
+    """``dt_paged_window`` from the built library, with its C signature."""
+    fn = _cuda.load("paged_attention").dt_paged_window
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_window_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_tables: torch.Tensor,
+                           seq_lens: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor) -> torch.Tensor:
+    """Launch the window kernel on the current stream: ``W`` queries a
+    slot, query ``t`` over the slot's paged context below ``seq_lens``
+    and the fresh rows ``0..t`` of ``k_new``/``v_new [B, W, Hkv, D]``.
+    Returns ``[B, W, Hq, D]``. Raises ValueError on anything the kernel
+    does not take (a CPU tensor included) and RuntimeError if the launch
+    fails."""
+    global window_launches
+    B, W, Hq, D = q.shape
+    _, P, Hkv, Dk = k_pages.shape
+    MP = page_tables.shape[1] if page_tables.dim() == 2 else -1
+    tensors = (q, k_pages, v_pages, page_tables, seq_lens, k_new, v_new)
+    if any(t.device.type != "cuda" or t.device != q.device
+           for t in tensors):
+        raise ValueError("paged_window_attention needs every tensor on one "
+                         "CUDA device")
+    if q.dtype not in _DTYPES or any(
+            t.dtype != q.dtype for t in (k_pages, v_pages, k_new, v_new)):
+        raise ValueError(
+            f"q/pages/k_new/v_new must share one of {list(_DTYPES)}, got "
+            f"{[t.dtype for t in (q, k_pages, v_pages, k_new, v_new)]}")
+    if page_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError("page_tables and seq_lens must be int32")
+    if (Dk != D or D not in _HEAD_DIMS or Hq % Hkv or B < 1 or W < 1
+            or MP < 1 or page_tables.shape[0] != B
+            or tuple(seq_lens.shape) != (B,)
+            or k_new.shape != (B, W, Hkv, D) or v_new.shape != k_new.shape
+            or v_pages.shape != k_pages.shape):
+        raise ValueError(
+            f"unsupported shapes: q {tuple(q.shape)}, pages "
+            f"{tuple(k_pages.shape)}, tables {tuple(page_tables.shape)}, "
+            f"seq_lens {tuple(seq_lens.shape)}, k_new {tuple(k_new.shape)} "
+            f"(head_dim in {_HEAD_DIMS})")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("the pool slices must be contiguous")
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    page_tables, seq_lens = page_tables.contiguous(), seq_lens.contiguous()
+    if any(t.data_ptr() % 16 for t in (k_pages, v_pages, k_new, v_new)):
+        raise ValueError("the pools, k_new and v_new must start 16-byte "
+                         "aligned")
+    out = torch.empty((B, W, Hq, D), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _window_kernel()(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_tables.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), out.data_ptr(), B, W, Hq, Hkv, D, P, MP,
+            _DTYPES[q.dtype], q.device.index, stream)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"paged_window_attention: the kernel does not take "
+                         f"q {tuple(q.shape)}, tables "
+                         f"{tuple(page_tables.shape)}, {q.dtype}")
+    if err != 0:
+        raise RuntimeError(f"paged_window_attention: CUDA error {err} at "
+                           "launch")
+    window_launches += 1
+    return out
+
+
 def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_tables: torch.Tensor,
                            seq_lens: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor) -> torch.Tensor:
-    """The plain version: gather the table's pages into a padded
-    context, append the fresh column, repeat GQA heads, and run
-    :func:`ops.attention.cached_attention`."""
+    """The plain version of both kernels: gather the table's pages into a
+    padded context, append the fresh rows (one, or a window of ``Tq``),
+    repeat GQA heads, and run :func:`ops.attention.cached_attention`."""
     B, Tq, Hq, D = q.shape
     _, P, Hkv, _ = k_pages.shape
     MP = page_tables.shape[1]
@@ -238,10 +319,14 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_tables: torch.Tensor,
                     seq_lens: torch.Tensor, k_new: torch.Tensor,
                     v_new: torch.Tensor) -> torch.Tensor:
-    """Model-facing entry (the GPT-2 decode block): the plain version for
-    CPU tensors, the kernel for CUDA tensors."""
+    """Model-facing entry (the GPT-2 paged block): the plain version for
+    CPU tensors; for CUDA tensors the decode kernel at one query a slot,
+    the window kernel at more."""
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pages, v_pages, page_tables,
                                       seq_lens, k_new, v_new)
-    return paged_decode_attention(q, k_pages, v_pages, page_tables,
+    if q.shape[1] == 1:
+        return paged_decode_attention(q, k_pages, v_pages, page_tables,
+                                      seq_lens, k_new, v_new)
+    return paged_window_attention(q, k_pages, v_pages, page_tables,
                                   seq_lens, k_new, v_new)

@@ -7,8 +7,8 @@ the JAX GenerationEngine and of the JAX ``reference_generate`` oracle —
 across page boundaries, with more requests than slots (continuous
 batching), under pool pressure (preemption) and across drain/restart hot
 swaps. Also here: the scheduler's bookkeeping classes against the JAX
-ones, the HTTP frontend, the explicit refusal of what the slice does not
-carry, and the port's isolation from JAX.
+ones, the HTTP frontend, the explicit refusal of what the port does not
+carry yet (disaggregated phases), and the port's isolation from JAX.
 """
 
 import ast
@@ -312,7 +312,7 @@ def test_http_round_trip(world):
             hz = json.loads(resp.read())
         assert hz["ok"] and hz["revision"] == "r1" and hz["active"] == 0
         for bad in ({"tokens": []},
-                    {"tokens": [1, 2], "temperature": 0.7}):
+                    {"tokens": [1, 2], "top_p": 0}):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _post(port, bad)
             assert ei.value.code == 400
@@ -327,24 +327,33 @@ def test_http_round_trip(world):
 # What the slice does not carry is refused
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [{"prefix_cache": True}, {"draft": object()},
-                                {"phase": "decode"}, {"trace": True}])
+# the prefix cache, drafting, traces and sampling are ported (their own
+# tests/test_torch_*.py files); disaggregated phases are slice 6b
+@pytest.mark.parametrize("kw", [{"phase": "prefill"},
+                                {"kv_exporter": object()},
+                                {"phase": "decode"},
+                                {"kv_adopter": object()}])
 def test_unported_engine_options_raise(world, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*6b"):
         world.engine(**kw)
 
 
 def test_sampling_and_transport_watcher_raise(world):
+    """Bad sampling arguments and an empty prompt raise ValueError; a
+    watcher whose transport fails keeps the current base (no staging)."""
     eng = world.engine()
     try:
-        with pytest.raises(NotImplementedError, match="sampled"):
-            eng.submit([1, 2, 3], 4, temperature=0.5)
+        for bad in ({"temperature": -0.5}, {"top_p": 0.0},
+                    {"top_p": 1.5}):
+            with pytest.raises(ValueError):
+                eng.submit([1, 2, 3], 4, **bad)
         with pytest.raises(ValueError):
             eng.submit([])
+        assert eng.submit([1, 2, 3], 4, temperature=0.5).status == "queued"
     finally:
         eng.close()
-    with pytest.raises(NotImplementedError, match="transport"):
-        tserve.BaseRevisionWatcher(None, lambda: None)
+    watcher = tserve.BaseRevisionWatcher(None, lambda: None, device="cpu")
+    assert watcher.poll_once() is False and watcher.take_pending() is None
 
 
 def test_cuda_is_not_silently_replaced_by_the_cpu(world):
