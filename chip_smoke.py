@@ -5,6 +5,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --decode-ab N
     python3 chip_smoke.py --flash-ab N
+    python3 chip_smoke.py --serve6b
 
 The second form is one side of a before/after comparison of the decode
 path: copied into the root of each of two checkouts and run from each in
@@ -16,7 +17,7 @@ each. It uses nothing but entry points both sides have. The third form,
 phase 4's timing at the training shape (each kernel with and without
 segment ids, the profiler's device time of the backward pair and of
 SDPA's backward) and the fused train step's profile (phase 12's), one
-JSON line each.
+JSON line each. ``--serve6b`` runs phase 22 alone after the build.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -287,12 +288,54 @@ Phases, each of which fails the run (non-zero exit, no result line):
            drafter prefills), nothing else. Reports ttft and tpot p50/p95
            (per request, from the traces), tokens/s, prefix hit rate,
            accept rate and the bf16 spec-on/spec-off agreement.
+22. serve6b slice 6b. In f32 (TF32 off) at GPT-2-124M width: a prefill
+           worker (prefix cache on) and a decode worker against a unified
+           engine on phase 21's traffic (every lane with its own seed):
+           every request adopted with no re-prefill, greedy lanes token
+           identical, and each request's first differing token a near-tie
+           by phase 21's rule (the rows must not rank the kept tokens
+           alike, and the winner's logit gap is within twice the rows'
+           max |logit difference|). Then, on one LocalFS root, a
+           ``--serve-phase prefill`` and a ``--serve-phase decode``
+           ``neurons.server.main`` and a unified one (bf16, the JAX
+           defaults), with ``neurons.router.main`` in front of the three:
+           the traffic through the router, every request done and routed
+           in two legs, kv_adopted == 8, no re-prefill, revision skew or
+           disaggregated fallback, the unified worker idle; launches:
+           flash forward == 12 x the prefill worker's full prefills,
+           window == 12 x its suffix prefills, paged decode == 12 x the
+           decode worker's dispatches, nothing else (the decode worker
+           runs no prefill, the prefill worker no decode); the shared
+           system prompt's 32 pages exported and fetched once (bytes
+           published == unique pages x page bytes + manifests). The same
+           traffic straight to the unified worker: the bf16 agreement,
+           and the near-tie rule on every request that parts. A planted
+           torn page (one byte of a request's last page changed in the
+           root) and a planted revision skew (its manifest republished
+           naming another revision) each give exactly one counted
+           re-prefill of 12 flash or window launches with the output
+           unchanged, and adopt once restored. ``run_open_loop`` on a
+           unified engine and ``run_open_loop_disagg`` on a pair at 4, 16
+           and 40 requests/s (GPT-2's vocabulary, 20 virtual ms a step,
+           4 busy ticks a prefill):
+           ttft/tpot p50/p95 in virtual ms beside wall seconds, every
+           arrival finished, every hand-off adopted, launches exact.
+           Then ``neurons.averager.main --strategy genetic`` at the JAX
+           defaults over three honest miners (phase 17's): the published
+           base == base + sum_i w_i d_i by the plain version on the CPU
+           within 1e-6, flash forward == 12 x (the candidate-batches the
+           memo's misses evaluated + the merged base's eval batches) and
+           nothing else, the population's draws on the card == the CPU's
+           bits, and the device ms of a candidate-batch (torch.profiler
+           over one cohort). Reports export and adopt ms per request, KV
+           bytes per request (fresh, deduped) and the router's added ms.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
 JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
-``slice5`` JSON line (phase 20), a ``serve6`` JSON line (phase 21), the
-``nvidia-smi`` name/power-limit line,
+``slice5`` JSON line (phase 20), a ``serve6`` JSON line (phase 21), a
+``serve6b`` JSON line (phase 22), the ``nvidia-smi`` name/power-limit
+line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -978,9 +1021,10 @@ def _parity_f32(tree, seed) -> dict:
             "distinct_tokens": [len(set(o)) for o in out]}
 
 
-def _post(port: int, body: dict, timeout: float = 300.0):
+def _post(port: int, body: dict, timeout: float = 300.0,
+          path: str = "/generate"):
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/generate",
+        f"http://127.0.0.1:{port}{path}",
         data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=timeout) as resp:
@@ -4355,16 +4399,7 @@ def _server_cli(argv, port, bodies, publish=None, timeout=600.0) -> dict:
             target=lambda: rc.setdefault("rc", server_cli.main(argv)),
             name="smoke-server", daemon=True)
         th.start()
-        deadline = time.time() + timeout
-        while True:
-            try:
-                with urllib.request.urlopen(
-                        f"http://127.0.0.1:{port}/healthz", timeout=5):
-                    break
-            except OSError:
-                check(th.is_alive() and time.time() < deadline,
-                      f"server CLI never answered /healthz: {rc}")
-                time.sleep(0.1)
+        _wait_health(port, th, f"the server CLI ({rc})", timeout)
         boot_s = time.perf_counter() - t0
         t1 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(bodies) + 1) as ex:
@@ -4539,6 +4574,822 @@ def phase_server(tree) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 22. serve6b: disaggregated prefill/decode, the router, load, genetic
+# ---------------------------------------------------------------------------
+
+S6B_SUFFIXES = (3, 9, 17, 30, 48, 64, 90, 120)
+S6B_NEW = 32
+LOAD_RATES = (4.0, 16.0, 40.0)
+LOAD_BUSY = 4
+
+
+def _s6b_traffic(vocab: int):
+    """Phase 21's traffic: 8 prompts sharing a 512-token system prompt,
+    suffixes of 3-120 tokens; odd lanes sampled (temperature 0.8, top_p
+    0.9). Every lane has its own seed, so recorded rows pair by (seed,
+    token index). Returns the prompts and the ``(temperature, top_p,
+    seed)`` of each lane."""
+    sys_p = _prompts((512,), vocab, SEED + 21)[0]
+    prompts = [sys_p + s for s in _prompts(S6B_SUFFIXES, vocab, SEED + 22)]
+    lanes = [(0.8, 0.9, 1000 + i) if i % 2 else (0.0, 1.0, 1000 + i)
+             for i in range(len(prompts))]
+    return prompts, lanes
+
+
+def _record_rows(store: dict, side: list):
+    """Patch ``serve._pick`` so that every row a lane picks from is kept
+    as ``store[(side[0], seed, n)]`` for its n-th pick on that side (its
+    n-th token: the rows pair by order, not by the keys under test): the
+    f32 logits and the pick (``side[0]`` None: nothing kept; padded
+    lanes, seed 0, never). Returns the undo."""
+    import numpy as np
+    from distributedtraining_tpu_torch.engine import serve
+    real = serve._pick
+    nth: dict = {}
+
+    def pick(logits, temps, top_ps, seeds, tok_idx):
+        out = real(logits, temps, top_ps, seeds, tok_idx)
+        if side[0] is not None:
+            for r in np.flatnonzero(np.asarray(seeds) != 0):
+                lane = (side[0], int(seeds[r]))
+                nth[lane] = nth.get(lane, -1) + 1
+                store[(*lane, nth[lane])] = {
+                    "row": logits[int(r)].float().clone(),
+                    "pick": int(out[r])}
+        return out
+
+    serve._pick = pick
+    return lambda: setattr(serve, "_pick", real)
+
+
+def _divergence_readings(store: dict, side_a: str, side_b: str,
+                         streams_a, streams_b, lanes) -> dict:
+    """Two runs of the same requests, token for token: the agreement,
+    and each request's FIRST differing token (the same tokens before it)
+    held to phase 21's near-tie rule with the rows each side picked it
+    from. The pair is a fault when the two rows rank the kept tokens
+    alike (greedy: the argmax; sampled: the top_p set), since then only
+    the keys or the sampler could part them, or when the winner's logit
+    gap to a rank neighbour (side b's row) exceeds twice the rows' max
+    |logit difference|."""
+    same = total = 0
+    parted, faults = [], []
+    for (a, b), (temp, top_p, seed) in zip(zip(streams_a, streams_b),
+                                           lanes):
+        total += min(len(a), len(b))
+        same += sum(x == y for x, y in zip(a, b))
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ra, rb = store.get((side_a, seed, j)), store.get((side_b, seed, j))
+        check(ra is not None and rb is not None and ra["pick"] == a[j]
+              and rb["pick"] == b[j],
+              f"lane {seed} token {j}: the rows of the differing picks "
+              f"were not recorded")
+        t, tp = (temp, top_p) if temp > 0 else (1.0, 1e-9)
+        _, oa, ka = _ranked(ra["row"], t, tp)
+        sb, ob, kb = _ranked(rb["row"], t, tp)
+        k = max(ka, kb)
+        alike = ka == kb and bool((oa[:k] == ob[:k]).all())
+        delta = float((ra["row"] - rb["row"]).abs().max())
+        ranked = sb[ob]
+        rv = int((ob == b[j]).nonzero()[0, 0])
+        near = [float(ranked[rv - 1] - ranked[rv])] if rv > 0 else []
+        if rv + 1 < ranked.numel():
+            near.append(float(ranked[rv] - ranked[rv + 1]))
+        gap = min(near) * t
+        entry = {"seed": seed, "token": j, "sampled": temp > 0,
+                 "rows_rank_alike": alike, "max_dlogit": delta,
+                 "winner_gap": gap}
+        parted.append(entry)
+        if alike or gap > 2 * delta:
+            faults.append(entry)
+    return {"agreement": same / total if total else 1.0,
+            "requests_parted": len(parted), "faults": faults,
+            "parted": parted}
+
+
+def _disagg_parity(cfg, tree, prompts, lanes, device, *,
+                   new: int = S6B_NEW) -> dict:
+    """A prefill worker (prefix cache on) and a decode worker over an
+    in-memory transport against a unified engine (prefix cache on), the
+    same requests in the same order, at ``cfg``'s dtype on ``device``:
+    every request adopted with no re-prefill, the pools audited every
+    step, greedy lanes token identical, and each request's first
+    differing token (if any) a near-tie (:func:`_divergence_readings`)."""
+    from distributedtraining_tpu_torch.engine import kv_transfer as kvt
+    from distributedtraining_tpu_torch.engine import serve
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import InMemoryTransport
+    model, _ = gpt2.make_model(cfg)
+    state = gpt2.params_from_numpy(tree, device=device)
+    store: dict = {}
+    side = [None]
+    undo = _record_rows(store, side)
+
+    def run(eng, reqs_kw):
+        reqs = [eng.submit(p, new, temperature=tt, top_p=tp, seed=s, **kw)
+                for p, (tt, tp, s), kw in zip(prompts, lanes, reqs_kw)]
+        while not all(r.done_evt.is_set() for r in reqs):
+            eng.step()
+        return reqs
+
+    kw = dict(device=device, page_size=16, prefix_cache=True,
+              debug_invariants=True, revision="r0")
+    tr = InMemoryTransport()
+    uni = serve.GenerationEngine(model, state, **kw)
+    pre = serve.GenerationEngine(model, state, phase="prefill",
+                                 kv_exporter=kvt.KVExporter(tr), **kw)
+    dec = serve.GenerationEngine(model, state, phase="decode",
+                                 kv_adopter=kvt.KVAdopter(tr), **kw)
+    try:
+        side[0] = "unified"
+        ref = [r.tokens for r in run(uni, [{}] * len(prompts))]
+        side[0] = "disagg"
+        legs = run(pre, [{}] * len(prompts))
+        out = [r.tokens for r in run(dec, [
+            {"kv_ref": r.kv_ref, "first_token": r.first_token}
+            for r in legs])]
+    finally:
+        undo()
+        for e in (uni, pre, dec):
+            e.close()
+    n = len(prompts)
+    check((pre.kv_exported, dec.kv_adopted, dec.kv_reprefills,
+           dec.kv_rev_mismatch) == (n, n, 0, 0),
+          f"f32 pair: exported {pre.kv_exported}, adopted {dec.kv_adopted},"
+          f" re-prefills {dec.kv_reprefills}, revision skews "
+          f"{dec.kv_rev_mismatch} of {n}")
+    check(dec.full_prefills == dec.suffix_prefills == 0
+          and pre.decode_dispatches == 0,
+          "f32 pair: a worker ran the other's phase")
+    greedy = [i for i, (t, _, _) in enumerate(lanes) if t == 0]
+    check(all(out[i] == ref[i] for i in greedy),
+          f"disaggregated greedy lanes differ from the unified engine's: "
+          f"{[(out[i], ref[i]) for i in greedy if out[i] != ref[i]]}")
+    read = _divergence_readings(store, "disagg", "unified", out, ref, lanes)
+    check(not read["faults"],
+          f"a differing token that is no near-tie: {read['faults']}")
+    return {"dtype": cfg.dtype, "requests": n, "new_tokens": new,
+            "greedy_identical": True, "adopted": dec.kv_adopted,
+            "suffix_prefills": pre.suffix_prefills,
+            "full_prefills": pre.full_prefills,
+            "sampled_agreement": (
+                sum(x == y for i in range(n) if i not in greedy
+                    for x, y in zip(out[i], ref[i]))
+                / max(1, new * (n - len(greedy)))),
+            **{k: read[k] for k in ("agreement", "requests_parted",
+                                    "parted")}}
+
+
+def _plant_torn_page(t, kv_ref: str):
+    """Change one byte of the LAST page a request's manifest lists, in
+    the store itself (the page no earlier request shares, so no page
+    store holds it). Returns the undo."""
+    from distributedtraining_tpu_torch.engine import kv_transfer as kvt
+    from distributedtraining_tpu_torch.transport import base as tbase
+    man = kvt.parse_kv_manifest(tbase.fetch_kv_manifest_bytes(t, kv_ref))
+    digest = man["pages"][-1][0]
+    good = tbase.fetch_kv_page(t, digest)
+    bad = bytearray(good)
+    bad[len(bad) // 2] ^= 0xFF
+    t.publish_raw(tbase.kv_page_id(digest), bytes(bad))
+    return lambda: t.publish_raw(tbase.kv_page_id(digest), good)
+
+
+def _plant_revision_skew(t, kv_ref: str):
+    """Republish a request's manifest naming another base revision, its
+    pages untouched. Returns the undo."""
+    from distributedtraining_tpu_torch.engine import kv_transfer as kvt
+    from distributedtraining_tpu_torch.transport import base as tbase
+    raw = tbase.fetch_kv_manifest_bytes(t, kv_ref)
+    man = kvt.parse_kv_manifest(raw)
+    tbase.publish_kv_manifest(t, kv_ref, kvt.build_kv_manifest(
+        request_id=man["request_id"], revision=man["revision"] + "-skewed",
+        pages=man["pages"], geometry=man["geometry"],
+        prompt_len=man["prompt_len"], first_token=man["first_token"]))
+    return lambda: tbase.publish_kv_manifest(t, kv_ref, raw)
+
+
+def _planted_degrades(t, prefill, decode, dec, prompts, n_layer,
+                      launches=None) -> dict:
+    """A planted torn page, then a planted revision skew, each on a
+    fresh request (``prefill(prompt) -> (kv_ref, first_token)``,
+    ``decode(prompt, kv_ref, first_token) -> tokens``, ``dec`` the decode
+    worker's engine): exactly one counted re-prefill (and one revision
+    skew), one prefill forward on the decode worker (on the card: 12
+    flash or window launches, and 12 paged launches a decode dispatch;
+    ``launches()`` zeroes and reads the counts). With the plant undone,
+    the same request adopts and emits the same tokens."""
+    out: dict = {}
+    for (name, plant), prompt in zip((("torn_page", _plant_torn_page),
+                                      ("revision_skew",
+                                       _plant_revision_skew)), prompts):
+        kv_ref, first = prefill(prompt)
+        undo = plant(t, kv_ref)
+        c0 = (dec.kv_reprefills, dec.kv_rev_mismatch, dec.kv_adopted,
+              dec.full_prefills + dec.suffix_prefills, dec.decode_dispatches)
+        if launches is not None:
+            launches(zero=True)
+        bad = decode(prompt, kv_ref, first)
+        got = launches() if launches is not None else None
+        c1 = (dec.kv_reprefills, dec.kv_rev_mismatch, dec.kv_adopted,
+              dec.full_prefills + dec.suffix_prefills, dec.decode_dispatches)
+        want = (c0[0] + 1, c0[1] + (name == "revision_skew"), c0[2],
+                c0[3] + 1)
+        check(c1[:4] == want,
+              f"planted {name}: (re-prefills, skews, adoptions, prefills) "
+              f"{c1[:4]} != {want}")
+        if got is not None:
+            steps = c1[4] - c0[4]
+            check(got["flash_attention_fwd"] + got["paged_window_attention"]
+                  == n_layer and got["paged_decode_attention"]
+                  == n_layer * steps,
+                  f"planted {name}: launches {got} != {n_layer} prefill + "
+                  f"{n_layer} x {steps} decode")
+        undo()
+        good = decode(prompt, kv_ref, first)
+        check(dec.kv_adopted == c0[2] + 1 and dec.kv_reprefills == c1[0],
+              f"planted {name}: the restored transfer was not adopted")
+        check(bad == good, f"planted {name}: the re-prefill changed the "
+                           f"output: {bad} vs {good}")
+        out[name] = {"reprefills": 1, "launches": got, "tokens_equal": True}
+    return out
+
+
+def _s6b_launches():
+    """A ``launches(zero=False)`` reader over the kernels the serving
+    path can run (flash, paged decode and window, CE, scatter)."""
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.ops import paged_attention as pa
+    import torch
+
+    def launches(zero: bool = False) -> dict:
+        torch.cuda.synchronize()
+        if zero:
+            _zero_counts()
+            dsc.launches = pa.launches = pa.window_launches = 0
+        return {"paged_decode_attention": pa.launches,
+                "paged_window_attention": pa.window_launches,
+                "dequant_scatter": dsc.launches, **fa.launches,
+                **fused_ce.launches}
+    return launches
+
+
+def _wait_health(port: int, th, what: str, timeout: float = 600.0) -> dict:
+    deadline = time.time() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                        timeout=5) as r:
+                return json.loads(r.read())
+        except OSError:
+            check(th.is_alive() and time.time() < deadline,
+                  f"{what} never answered /healthz")
+            time.sleep(0.1)
+
+
+def _s6b_cli(tree, prompts, lanes) -> dict:
+    """The disaggregated fleet through its CLIs on one LocalFS root: a
+    ``--serve-phase prefill`` worker, a ``--serve-phase decode`` worker
+    and a unified worker (``neurons.server.main``, the JAX defaults:
+    prefix cache and traces on), and ``neurons.router.main`` in front of
+    the three. Phase 21's traffic through the router (every request two
+    legs, launch counts exact per worker), then directly to the unified
+    worker (the agreement, the near-tie rule), then the planted torn page
+    and revision skew on the pair. Returns the readings and the threads
+    to join (the workers end after 20 s idle)."""
+    import math
+    import threading
+    import torch
+    from distributedtraining_tpu_torch.engine import kv_transfer as kvt
+    from distributedtraining_tpu_torch.engine import router as rmod
+    from distributedtraining_tpu_torch.engine import serve
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import router as router_cli
+    from distributedtraining_tpu_torch.neurons import server as server_cli
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    import tempfile
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    L, P = cfg.n_layer, 16
+    work = tempfile.mkdtemp(prefix="s6b-")
+    t = LocalFSTransport(os.path.join(work, "artifacts"))
+    rev = t.publish_base(tree)
+    launches = _s6b_launches()
+    seen = {"engines": [], "routers": [], "export_ms": [], "adopt_ms": [],
+            "router_added_ms": []}
+    local = threading.local()
+    undo = []
+
+    def hook(cls, name, after):
+        real = getattr(cls, name)
+
+        def wrapper(obj, *a, **kw):
+            t0 = time.perf_counter()
+            out = real(obj, *a, **kw)
+            after(obj, out, (time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(cls, name, wrapper)
+        undo.append((cls, name, real))
+
+    hook(serve.GenerationEngine, "__init__",
+         lambda e, out, ms: seen["engines"].append(e))
+    hook(rmod.RouterHTTPFrontend, "__init__",
+         lambda r, out, ms: seen["routers"].append(r))
+    # export: the device-to-host copy, packing, hashing and the writes;
+    # adoption: fetch, hash check, unpack and the host-to-device write
+    hook(serve.GenerationEngine, "_finish_prefill",
+         lambda e, out, ms: seen["export_ms"].append(ms))
+    hook(serve.GenerationEngine, "_try_adopt",
+         lambda e, out, ms: seen["adopt_ms"].append(ms))
+
+    def leg(r, out, ms):
+        local.legs_ms = getattr(local, "legs_ms", 0.0) + ms
+    hook(rmod.RouterHTTPFrontend, "_fetch_json", leg)
+    real_route = rmod.RouterHTTPFrontend._route
+
+    def route(r, *a, **kw):
+        local.legs_ms = 0.0
+        t0 = time.perf_counter()
+        out = real_route(r, *a, **kw)
+        seen["router_added_ms"].append(
+            (time.perf_counter() - t0) * 1e3 - local.legs_ms)
+        return out
+    rmod.RouterHTTPFrontend._route = route
+    undo.append((rmod.RouterHTTPFrontend, "_route", real_route))
+
+    store: dict = {}
+    side = [None]
+    undo_rows = _record_rows(store, side)
+    threads, rcs = {}, {}
+    res: dict = {"revision": rev}
+    try:
+        ports = {}
+        t0 = time.perf_counter()
+        for phase in ("prefill", "decode", "unified"):
+            ports[phase] = _free_port()
+            argv = ["--work-dir", work, "--dataset", "synthetic",
+                    "--tokenizer", "word", "--serve-port",
+                    str(ports[phase]), "--swap-poll", "10", "--max-steps",
+                    "1000000", "--serve-phase", phase]
+            threads[phase] = threading.Thread(
+                target=lambda p=phase, a=argv: rcs.setdefault(
+                    p, server_cli.main(a)), name=f"s6b-{phase}", daemon=True)
+            threads[phase].start()
+        for phase, port in ports.items():
+            hz = _wait_health(port, threads[phase], f"the {phase} worker")
+            check(hz["phase"] == phase and hz["revision"] == rev,
+                  f"the {phase} worker's /healthz: {hz}")
+        res["boot_s"] = time.perf_counter() - t0
+        engines = {e.phase: e for e in seen["engines"]}
+        check(sorted(engines) == ["decode", "prefill", "unified"]
+              and len(seen["engines"]) == 3,
+              f"the CLIs built {[e.phase for e in seen['engines']]}")
+        pre, dec, uni = (engines[p] for p in ("prefill", "decode",
+                                              "unified"))
+        check(dec._draft is None and pre._draft is None,
+              "a worker built a drafter without --speculative")
+        rport = _free_port()
+        urls = [f"http://127.0.0.1:{ports[p]}" for p in
+                ("prefill", "decode", "unified")]
+        rargv = [a for u in urls for a in ("--backend", u)] + [
+            "--port", str(rport), "--max-queue", "32",
+            "--poll-interval", "0.5"]
+        threads["router"] = threading.Thread(
+            target=lambda: rcs.setdefault("router", router_cli.main(rargv)),
+            name="s6b-router", daemon=True)
+        threads["router"].start()
+        # the router answers /healthz before its first sweep has read
+        # the backends: wait for a view with all three healthy
+        deadline = time.time() + 60
+        while True:
+            rhz = _wait_health(rport, threads["router"], "the router")
+            if all(b["healthy"] for b in rhz["backends"]):
+                break
+            check(time.time() < deadline, f"the router's view: {rhz}")
+            time.sleep(0.1)
+        check(sorted(b["phase"] for b in rhz["backends"]) ==
+              ["decode", "prefill", "unified"], f"the router's view: {rhz}")
+        router = seen["routers"][0]
+        bodies = [{"tokens": p, "max_new_tokens": S6B_NEW, "temperature": tt,
+                   "top_p": tp, "seed": s}
+                  for p, (tt, tp, s) in zip(prompts, lanes)]
+
+        def burst(port):
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+                t0 = time.perf_counter()
+                outs = list(ex.map(lambda b: _post(port, b)[1], bodies))
+                return outs, time.perf_counter() - t0
+
+        # the main path: through the router, counts zeroed just before
+        side[0] = "disagg"
+        launches(zero=True)
+        routed, wall = burst(rport)
+        got = launches()
+        side[0] = None
+        n = len(bodies)
+        for out in routed:
+            check(out["status"] == "done" and len(out["tokens"]) == S6B_NEW
+                  and out["revision"] == rev
+                  and out.get("prefill_backend") == urls[0]
+                  and out.get("backend") == urls[1],
+                  f"a request did not route disaggregated: {out}")
+        check((router.disagg_routed, router.disagg_fallbacks, router.shed)
+              == (n, 0, 0),
+              f"router: disaggregated {router.disagg_routed}, fallbacks "
+              f"{router.disagg_fallbacks}, shed {router.shed}")
+        check((pre.kv_exported, dec.kv_adopted, dec.kv_reprefills,
+               dec.kv_rev_mismatch, uni.tokens_emitted) == (n, n, 0, 0, 0),
+              f"exported {pre.kv_exported}, adopted {dec.kv_adopted}, "
+              f"re-prefills {dec.kv_reprefills}, skews "
+              f"{dec.kv_rev_mismatch}, unified tokens {uni.tokens_emitted}")
+        check(dec.full_prefills == dec.suffix_prefills == 0
+              and pre.decode_dispatches == pre.verify_dispatches == 0
+              and pre.full_prefills + pre.suffix_prefills == n,
+              "a worker ran the other's phase")
+        # every worker in one process: the counts are shared, and each
+        # kernel is one worker's (the prefill worker runs no decode, the
+        # decode worker no prefill, the unified worker nothing)
+        want = {"flash_attention_fwd": L * pre.full_prefills,
+                "paged_window_attention": L * pre.suffix_prefills,
+                "paged_decode_attention": L * dec.decode_dispatches}
+        _check_launches("serve6b router traffic", got, want)
+        check(all(want.values()), f"a kernel of the path never ran: {want}")
+        # the dedupe: the shared system prompt's 32 pages ship once
+        ex, ad = pre._kv_exporter, dec._kv_adopter
+        page_bytes = len(kvt.pack_kv_page(*(torch.zeros(
+            L, P, cfg.n_head, cfg.head_dim, dtype=torch.bfloat16),) * 2))
+        shared = 512 // P
+        unique = shared + sum(math.ceil(len(p) / P) - shared
+                              for p in prompts)
+        manifests = sum(len(t.fetch_delta_bytes(
+            f"__kv__.{out['request_id']}") or b"") for out in routed)
+        check(len(ex._published) == unique
+              and ex.bytes_published == unique * page_bytes + manifests
+              and ad.bytes_fetched == unique * page_bytes,
+              f"export dedupe: {len(ex._published)} digests (want "
+              f"{unique}), {ex.bytes_published} bytes published, "
+              f"{ad.bytes_fetched} fetched, page {page_bytes} B")
+        res["router_traffic"] = {
+            "wall_s": wall, "launches": got, "requests": n,
+            "disagg_routed": router.disagg_routed,
+            "disagg_fallbacks": router.disagg_fallbacks,
+            "kv_adopted": dec.kv_adopted, "kv_reprefills": dec.kv_reprefills,
+            "kv_rev_mismatch": dec.kv_rev_mismatch,
+            "prefills": {"full": pre.full_prefills,
+                         "suffix": pre.suffix_prefills},
+            "decode_dispatches": dec.decode_dispatches,
+            "kv_page_bytes": page_bytes, "unique_pages": unique,
+            "kv_bytes_published": ex.bytes_published,
+            "kv_bytes_fetched": ad.bytes_fetched,
+            "kv_bytes_first_request": math.ceil(len(prompts[0]) / P)
+            * page_bytes,
+            "kv_bytes_per_request_deduped": [
+                (math.ceil(len(p) / P) - shared) * page_bytes
+                for p in prompts[1:]],
+            "export_ms": list(seen["export_ms"]),
+            "adopt_ms": list(seen["adopt_ms"]),
+            "router_added_ms": list(seen["router_added_ms"])}
+        # the same requests straight to the unified worker
+        side[0] = "unified"
+        launches(zero=True)
+        direct, uwall = burst(ports["unified"])
+        got_u = launches()
+        side[0] = None
+        _check_launches("serve6b unified worker", got_u, {
+            "flash_attention_fwd": L * uni.full_prefills,
+            "paged_window_attention": L * uni.suffix_prefills,
+            "paged_decode_attention": L * uni.decode_dispatches})
+        read = _divergence_readings(store, "disagg", "unified",
+                                    [o["tokens"] for o in routed],
+                                    [o["tokens"] for o in direct], lanes)
+        check(not read["faults"],
+              f"bf16: a differing token that is no near-tie: "
+              f"{read['faults']}")
+        greedy = [i for i, (tt, _, _) in enumerate(lanes) if tt == 0]
+        res["unified_traffic"] = {
+            "wall_s": uwall, "launches": got_u,
+            "agreement_bf16": read["agreement"],
+            "agreement_bf16_greedy": sum(
+                x == y for i in greedy for x, y in
+                zip(routed[i]["tokens"], direct[i]["tokens"]))
+            / (S6B_NEW * len(greedy)),
+            "requests_parted": read["requests_parted"],
+            "parted": read["parted"]}
+        # the planted defects, on fresh suffixes (new tail pages)
+        fresh = [prompts[0][:512] + s for s in
+                 _prompts((5, 21), cfg.vocab_size, SEED + 23)]
+
+        def prefill(prompt):
+            _, leg1 = _post(ports["prefill"], {
+                "tokens": prompt, "max_new_tokens": S6B_NEW}, path="/prefill")
+            return leg1["kv_ref"], leg1["first_token"]
+
+        def decode(prompt, kv_ref, first):
+            _, out = _post(ports["decode"], {
+                "tokens": prompt, "max_new_tokens": S6B_NEW,
+                "kv_ref": kv_ref, "first_token": first})
+            check(out["status"] == "done", f"decode leg: {out}")
+            return out["tokens"]
+
+        res["planted"] = _planted_degrades(t, prefill, decode, dec, fresh, L,
+                                           launches)
+        router.close()           # its CLI returns once the frontend closes
+        threads["router"].join(30)
+        check(rcs.get("router") == 0, f"router CLI: {rcs}")
+    finally:
+        undo_rows()
+        for cls, name, real in reversed(undo):
+            setattr(cls, name, real)
+    res["threads"], res["rcs"], res["work"] = threads, rcs, work
+    return res
+
+
+def _s6b_load(tree) -> dict:
+    """``run_open_loop`` on a unified engine and ``run_open_loop_disagg``
+    on a prefill/decode pair (GPT-2-124M, bf16, page 16, 8 slots) at
+    ``LOAD_RATES``: GPT-2's vocabulary, 16 new tokens, 20 virtual ms a
+    step over 2 virtual seconds, each prefill charged ``LOAD_BUSY`` busy
+    ticks (the harness's cost model of the head-of-line prefill). Times
+    are virtual ms; wall seconds recorded beside them. Every arrival
+    finishes or, on the pair, is shed at the harness's router bound; the
+    pair adopts every hand-off (no re-prefill); launches exact."""
+    from distributedtraining_tpu_torch.engine import kv_transfer as kvt
+    from distributedtraining_tpu_torch.engine import serve
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import InMemoryTransport
+    from distributedtraining_tpu_torch.utils import loadgen
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    L = cfg.n_layer
+    model, _ = gpt2.make_model(cfg)
+    state = gpt2.params_from_numpy(tree, device=DEV)
+    launches = _s6b_launches()
+    out = {"unified": [], "disagg": []}
+    for rate in LOAD_RATES:
+        spec = loadgen.OpenLoopSpec(rate_rps=rate, duration_s=2.0,
+                                    seed=SEED + 31, vocab=cfg.vocab_size,
+                                    max_new_tokens=16, step_ms=20.0)
+        uni = serve.GenerationEngine(model, state, device=DEV,
+                                     revision="r0")
+        tr = InMemoryTransport()
+        pre = serve.GenerationEngine(model, state, device=DEV,
+                                     revision="r0", phase="prefill",
+                                     kv_exporter=kvt.KVExporter(tr))
+        dec = serve.GenerationEngine(model, state, device=DEV,
+                                     revision="r0", phase="decode",
+                                     kv_adopter=kvt.KVAdopter(tr))
+        try:
+            for name, run, engs in (
+                    ("unified", lambda: loadgen.run_open_loop(
+                        uni, spec, prefill_busy_steps=LOAD_BUSY), (uni,)),
+                    ("disagg", lambda: loadgen.run_open_loop_disagg(
+                        [pre], [dec], spec, prefill_busy_steps=LOAD_BUSY),
+                     (pre, dec))):
+                launches(zero=True)
+                t0 = time.perf_counter()
+                pt = run()
+                wall = time.perf_counter() - t0
+                got = launches()
+                check(pt["unfinished"] == 0 and pt["completed"] > 0
+                      and pt["completed"] + pt.get("shed", 0)
+                      == pt["offered"], f"load {name} at {rate} rps: {pt}")
+                _check_launches(f"load {name} at {rate} rps", got, {
+                    "flash_attention_fwd": L * sum(e.full_prefills
+                                                   for e in engs),
+                    "paged_window_attention": L * sum(e.suffix_prefills
+                                                      for e in engs),
+                    "paged_decode_attention": L * sum(e.decode_dispatches
+                                                      for e in engs)})
+                if name == "disagg":
+                    check(pt["kv_reprefills"] == 0
+                          and pt["kv_adopted"] == pt["handoffs"]
+                          == pt["completed"],
+                          f"load disagg at {rate} rps: {pt}")
+                out[name].append({
+                    **{k: pt[k] for k in ("rate_rps", "offered",
+                                          "completed", "steps", "tokens",
+                                          "ttft_ms", "tpot_ms")},
+                    # the pair's harness admits through the router
+                    # policy (6 queued a worker) and sheds past it
+                    **({"shed": pt["shed"], "handoffs": pt["handoffs"],
+                        "kv_adopted": pt["kv_adopted"]}
+                       if name == "disagg" else {}),
+                    "wall_s": wall, "launches": got})
+        finally:
+            for e in (uni, pre, dec):
+                e.close()
+    out["spec"] = {"duration_s": 2.0, "step_ms": 20.0, "max_new_tokens": 16,
+                   "prefill_busy_steps": LOAD_BUSY,
+                   "prompt_tokens": "4-40 (bounded Pareto 1.6)",
+                   "vocab": cfg.vocab_size, "seed": SEED + 31}
+    return out
+
+
+def _population_draws(strat, m: int, device):
+    """What ``strat.first_population`` and one ``strat.breed`` (from the
+    first two vectors) draw on ``device``: every key ``prng.split``
+    makes, every ``prng.randint`` and ``prng.normal``, in order, as CPU
+    tensors; and the population they give."""
+    import torch
+    from distributedtraining_tpu_torch.utils import prng
+    seen: list = []
+    real = {k: getattr(prng, k) for k in ("split", "randint", "normal")}
+
+    def logged(fn):
+        def wrapper(*a, **kw):
+            out = fn(*a, **kw)
+            seen.append(out.detach().cpu())
+            return out
+        return wrapper
+
+    for k, fn in real.items():
+        setattr(prng, k, logged(fn))
+    try:
+        rng, pop = strat.first_population(prng.prng_key(strat.seed,
+                                                         device=device), m)
+        _, kids = strat.breed(rng, pop[:strat.elite], m)
+    finally:
+        for k, fn in real.items():
+            setattr(prng, k, fn)
+    return seen, torch.stack(pop + kids).cpu()
+
+
+def _s6b_genetic(tree, tok) -> dict:
+    """``neurons.averager.main --strategy genetic`` at the JAX defaults
+    (population 10, 10 generations, sigma 0.1, 2 elites, screened on 2
+    batches) over three honest miners' submissions (phase 17's: wire-v2
+    int8, wire-v2 f32 and dense v1). The published base == base + sum_i
+    w_i d_i by the plain version on the CPU within 1e-6; the flash
+    forward launched exactly 12 x the candidate-batches the memo's misses
+    evaluated plus the merged base's eval batches, and nothing else; the
+    population's draws on the card equal the CPU's bits; the device ms of
+    a candidate-batch from one profiled cohort."""
+    import tempfile
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.engine import average
+    from distributedtraining_tpu_torch.engine.batched_eval import \
+        BatchedCohortEvaluator
+    from distributedtraining_tpu_torch.engine.serve import \
+        host_param_template
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    from distributedtraining_tpu_torch.utils import prng
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    L = cfg.n_layer
+    launches = _s6b_launches()
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as work:
+        t = LocalFSTransport(os.path.join(work, "artifacts"))
+        rev0 = t.publish_base(tree)
+        train = _batches(tok, split="train", batch_size=MINER_B,
+                         seq_len=MINER_T, n=3 * AVG_MINER_STEPS)
+        t0 = time.perf_counter()
+        for i, (h, v2, quant) in enumerate((("hotkey_1", True, "int8"),
+                                            ("hotkey_2", True, "none"),
+                                            ("hotkey_3", False, "int8"))):
+            _honest_miner(t, h, train[i * AVG_MINER_STEPS:
+                                      (i + 1) * AVG_MINER_STEPS],
+                          wire_v2=v2, quant=quant)
+        res["miners_s"] = time.perf_counter() - t0
+        got: dict = {}
+        real = average.GeneticMerge.merge
+
+        def merge(strat, engine, base, stacked, ids, *, val_batches,
+                  consensus=None):
+            got.update(strategy=strat, ids=list(ids), engine=engine,
+                       base={k: v.detach().cpu().clone()
+                             for k, v in base.items()},
+                       deltas=list(stacked),
+                       n_val=sum(1 for _ in val_batches()),
+                       held=list(val_batches()))
+            t1 = time.perf_counter()
+            out = real(strat, engine, base, stacked, ids,
+                       val_batches=val_batches, consensus=consensus)
+            torch.cuda.synchronize()
+            got["merge_s"] = time.perf_counter() - t1
+            got["winner"] = out[1]
+            return out
+
+        average.GeneticMerge.merge = merge
+        argv = [("genetic" if f == "weighted" else f)
+                for f in README_AVERAGER_FLAGS] + [
+            "--eval-batches", str(VAL_EVAL_BATCHES), "--publish-policy",
+            "always", "--work-dir", work, "--rounds", "1", "--hotkey",
+            "hotkey_97"]
+        try:
+            launches(zero=True)
+            t0 = time.perf_counter()
+            rc = avg_cli.main(argv)
+            cli_s = time.perf_counter() - t0
+            cli = launches()
+        finally:
+            average.GeneticMerge.merge = real
+        check(rc == 0 and t.base_revision() not in (None, rev0),
+              f"the genetic averager CLI exited {rc} without a new base")
+        strat = got["strategy"]
+        check((strat.population, strat.generations, strat.sigma,
+               strat.elite, strat.screen_batches, strat.batched)
+              == (10, 10, 0.1, 2, 2, True),
+              "the CLI's genetic merge is not at the JAX defaults")
+        memo, n = strat.last_memo, got["n_val"]
+        n_screen = sum(1 for _, full in memo if not full)
+        n_full = sum(1 for _, full in memo if full)
+        cand_batches = n_screen * min(strat.screen_batches, n) + n_full * n
+        _check_launches("genetic CLI", cli, {
+            "flash_attention_fwd": L * (cand_batches + n)})
+        # the published base against the plain mixture at the winner
+        w = got["winner"]
+        base = got["base"]
+        placed = [delta.place_delta(d, base) for d in got["deltas"]]
+        plain = delta.weighted_merge(base, placed, w)
+        pub = gpt2.params_from_numpy(t.fetch_base(host_param_template(
+            gpt2.make_model(cfg)[0]))[0], device="cpu")
+        err = max(float((pub[k] - plain[k]).abs().max()) for k in pub)
+        check(err <= 1e-6, f"genetic: published base vs the plain mixture: "
+                           f"max abs {err} > 1e-6")
+        del placed, plain, pub
+        # the population's draws (keys, parent picks, normals) on the
+        # card against the CPU's: a first population and one breeding
+        m = len(got["ids"])
+        draws, pops = {}, {}
+        for dev in ("cpu", DEV):
+            draws[dev], pops[dev] = _population_draws(strat, m, dev)
+        check(len(draws["cpu"]) == len(draws[DEV]) and all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            if a.is_floating_point() else torch.equal(a, b)
+            for a, b in zip(draws["cpu"], draws[DEV])),
+            "the population's draws on the card differ from the CPU's")
+        # the softmax over them: exp may round apart between the devices
+        pop_ulps = int((pops["cpu"].view(torch.int32).long()
+                        - pops[DEV].view(torch.int32).long()).abs().max())
+        # one profiled cohort: device ms a candidate-batch
+        eng = got["engine"]
+        dev_base = {k: v.to(DEV) for k, v in base.items()}
+        dplaced = [delta.place_delta(d, dev_base) for d in got["deltas"]]
+        rows = pops["cpu"][:strat.population]
+        cands = delta.combine_candidate_deltas(dev_base, dplaced, rows)
+        held = got["held"][:strat.screen_batches]
+        prof, _ = _device_profile(lambda: BatchedCohortEvaluator(
+            eng).evaluate_stacked(dev_base, cands, len(cands), held))
+        per = len(cands) * len(held)
+        prof["device_ms_per_candidate_batch"] = (
+            (prof["device_ms"] - prof["h2d_copy_ms"]) / per)
+        del dev_base, dplaced, cands
+        res.update({
+            "cli_s": cli_s, "merge_s": got["merge_s"], "launches": cli,
+            "memo": {"screen": n_screen, "full": n_full},
+            "val_batches": n, "candidate_batches": cand_batches,
+            "winner": [float(x) for x in w], "published_vs_plain_max_abs":
+                err, "draws_card_equal_cpu": len(draws["cpu"]),
+            "population_card_vs_cpu_max_ulps": pop_ulps,
+            "profile": prof, "population": strat.population,
+            "generations": strat.generations})
+    return res
+
+
+def phase_serve6b(tree, tok) -> dict:
+    """Slice 6b on the card (see the module docstring, phase 22)."""
+    import dataclasses as dc
+    from distributedtraining_tpu_torch.models import gpt2
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    prompts, lanes = _s6b_traffic(cfg.vocab_size)
+    res: dict = {"model": "gpt2-124m", "dtype": cfg.dtype,
+                 "prompts": [len(p) for p in prompts], "new_tokens": S6B_NEW}
+    t0 = time.perf_counter()
+    res["f32"] = _disagg_parity(dc.replace(cfg, dtype="float32"),
+                                _sharpened(tree), prompts, lanes, DEV)
+    res["f32"]["s"] = time.perf_counter() - t0
+    log("serve6b f32:", json.dumps(res["f32"]))
+    t0 = time.perf_counter()
+    cli = _s6b_cli(tree, prompts, lanes)
+    threads, rcs, work = (cli.pop(k) for k in ("threads", "rcs", "work"))
+    cli["s"] = time.perf_counter() - t0
+    res["cli"] = cli
+    log("serve6b cli:", json.dumps(cli))
+    # the workers end on their own once idle (2 x --swap-poll): the load
+    # points run meanwhile, on engines of their own
+    t0 = time.perf_counter()
+    res["load"] = _s6b_load(tree)
+    res["load"]["s"] = time.perf_counter() - t0
+    log("serve6b load:", json.dumps(res["load"]))
+    for name, th in threads.items():
+        th.join(120)
+        check(not th.is_alive() and rcs.get(name) == 0,
+              f"the {name} CLI did not exit 0: {rcs}")
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    res["genetic"] = _s6b_genetic(tree, tok)
+    res["genetic"]["s"] = time.perf_counter() - t0
+    log("serve6b genetic:", json.dumps(res["genetic"]))
+    return res
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -4546,7 +5397,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _window_entry(serve6: dict, build: dict) -> dict:
+def _window_entry(serve6: dict, build: dict, s6b: dict) -> dict:
     """The window kernel's line: it replaces no Pallas kernel (the JAX
     package runs this attention in XLA)."""
     win = serve6["window"]
@@ -4564,6 +5415,8 @@ def _window_entry(serve6: dict, build: dict) -> dict:
         # with --speculative: suffix prefills and verify windows
         "launches_speculative": runs["speculative"]["launches"][
             "paged_window_attention"],
+        # phase 22: the prefill worker's suffix prefills
+        "launches_serve6b": s6b["paged_window_attention"],
         "max_abs_err": max(c["max_abs_err"] for c in win["checks"]),
         "max_abs_err_f32": max(c["max_abs_err"] for c in win["checks"]
                                if c["dtype"] == "float32"),
@@ -4619,7 +5472,8 @@ FLASH_KERNELS = {"flash_attention_fwd": "flash_fwd_mma_kernel",
 
 
 def _flash_entries(flash: dict, train: dict, build: dict, val: dict,
-                   meta: dict, defaults: dict, slice5: dict) -> list:
+                   meta: dict, defaults: dict, slice5: dict, s6b: dict,
+                   genetic: dict) -> list:
     out = []
     per = build["sources"]["flash_attention"]["kernels"]
     for name, tpu in FLASH_TPU_KERNELS.items():
@@ -4641,6 +5495,10 @@ def _flash_entries(flash: dict, train: dict, build: dict, val: dict,
             "launches_defaults": defaults["launches"][name],
             # phase 20, slice 5's CLIs (and the stood-down round)
             "launches_slice5": slice5["launches"][name],
+            # phase 22: the prefill worker behind the router, and the
+            # genetic averager's round
+            "launches_serve6b": s6b.get(name, 0),
+            "launches_genetic": genetic.get(name, 0),
             # over every case and both dtypes (bf16 dominates)
             "max_abs_err": max(c["max_abs"][key] for c in checks
                                for key in keys),
@@ -4767,6 +5625,10 @@ def main() -> int:
     serve6 = {"window": phase_window(), "sampler": phase_sampler(),
               "server": phase_server(tree)}
     serve6["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve6b = phase_serve6b(tree, tok)
+    serve6b["s"] = time.perf_counter() - t0
+    s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
@@ -4781,6 +5643,8 @@ def main() -> int:
             "paged_decode_attention"],
         "launches_server_speculative": server_runs["speculative"][
             "launches"]["paged_decode_attention"],
+        # phase 22: the decode worker behind the router
+        "launches_serve6b": s6b["paged_decode_attention"],
         # over every case and both dtypes (bf16 dominates)
         "max_abs_err": max(c["max_abs_err"] for c in kern["checks"]),
         "max_abs_err_f32": max(c["max_abs_err"] for c in kern["checks"]
@@ -4793,8 +5657,9 @@ def main() -> int:
         "decode_step_paged_ms": prof["paged_decode_ms_per_step"],
         "timed_shape": kern["timed_shape"],
         "build_s": build["build_s"]},
-        _window_entry(serve6, build),
-        *_flash_entries(flash, train, build, val, meta, defaults, slice5),
+        _window_entry(serve6, build, s6b),
+        *_flash_entries(flash, train, build, val, meta, defaults, slice5,
+                        s6b, serve6b["genetic"]["launches"]),
         *_ce_entries(ce, miner, tfused, build, defaults, slice5),
         _scatter_entry(scatter, avg, build, defaults, slice5)]}),
         flush=True)
@@ -4816,8 +5681,10 @@ def main() -> int:
     print(json.dumps({"defaults": {**defaults, "card": card}}), flush=True)
     total_s = time.perf_counter() - t_start
     print(json.dumps({"slice5": {**slice5, "card": card}}), flush=True)
-    print(json.dumps({"serve6": {**serve6, "card": card,
-                                 "total_s": total_s}}), flush=True)
+    print(json.dumps({"serve6": {**serve6, "card": card}}), flush=True)
+    print(json.dumps({"serve6b": {**serve6b, "card": card,
+                                  "total_s": total_s}}, default=str),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4877,8 +5744,32 @@ def flash_ab(runs: int) -> int:
     return 0
 
 
+def serve6b_only() -> int:
+    """Phase 22 alone after the build (``--serve6b``): its JSON line,
+    the card's line and the result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributedtraining_tpu_torch.models import gpt2
+    phase_build()
+    tok = _tokenizer()
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
+    t0 = time.perf_counter()
+    res = phase_serve6b(tree, tok)
+    res["s"] = time.perf_counter() - t0
+    print(json.dumps({"serve6b": {**res, "card": card}}, default=str),
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--serve6b"]:
+            sys.exit(serve6b_only())
         if sys.argv[1:2] == ["--decode-ab"]:
             sys.exit(decode_ab(int(sys.argv[2])))
         if sys.argv[1:2] == ["--flash-ab"]:

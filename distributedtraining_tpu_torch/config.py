@@ -191,18 +191,12 @@ class RunConfig:
         """Raise NotImplementedError for the first value whose machinery
         is not ported, naming its slice."""
         m = self.mesh
-        averager = self.role == "averager"
         refused = [
             (self.backend == "hf",
              "--backend hf (the HF Hub transport needs the network)", 7),
             (self.chain != "local",
              f"--chain {self.chain} (the bittensor chain needs the "
              f"network)", 7),
-            (averager and self.strategy == "genetic",
-             "--strategy genetic", "6b"),
-            (self.role == "server" and self.serve_phase != "unified",
-             f"--serve-phase {self.serve_phase} (disaggregated "
-             f"prefill/decode, the KV transfer plane)", "6b"),
             (self.lora_rank > 0, "--lora-rank > 0", 7),
             (m.auto or max(m.fsdp, m.sp, m.tp, m.dcn_dp, m.dp) > 1
              or self.multihost_coordinator is not None
@@ -487,8 +481,9 @@ _VALIDATOR_FLAGS: list[tuple[tuple[str, ...], dict]] = [
 _AVERAGER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
     (("--strategy",), dict(choices=("weighted", "parameterized", "genetic"),
                            default=_D.strategy,
-                           help="weighted or parameterized (genetic is "
-                                "not ported yet)")),
+                           help="weighted, parameterized (meta-learned "
+                                "weights) or genetic (an evolved "
+                                "population of weight vectors)")),
     (("--merge-chunk",), dict(dest="merge_chunk", type=int,
                               default=_D.merge_chunk)),
     (("--meta-epochs",), dict(dest="meta_epochs", type=int,
@@ -571,8 +566,9 @@ _SERVER_FLAGS: list[tuple[tuple[str, ...], dict]] = [
     (("--serve-phase",), dict(dest="serve_phase",
                               choices=("unified", "prefill", "decode"),
                               default=_D.serve_phase,
-                              help="unified (prefill and decode are "
-                                   "slice 6b)")),
+                              help="unified, or a disaggregated "
+                                   "prefill or decode worker (KV pages "
+                                   "move over the transport)")),
     (("--swap-policy",), dict(dest="swap_policy",
                               choices=("drain", "restart"),
                               default=_D.swap_policy)),

@@ -743,14 +743,37 @@ def place_delta(delta: Tree, base: Params) -> dict[str, torch.Tensor]:
     return {k: _dense_leaf(flat[k], b).to(b.dtype) for k, b in base.items()}
 
 
-def _mix_leaf(b: torch.Tensor, ds: Sequence[torch.Tensor], w: torch.Tensor
-              ) -> torch.Tensor:
-    w = w.to(b.dtype)
+def _mix_sum(ds: Sequence[torch.Tensor], w: torch.Tensor, dtype
+             ) -> torch.Tensor:
+    w = w.to(dtype)
     s = None
     for i, d in enumerate(ds):
-        term = w[i] * d.to(b.dtype)
+        term = w[i] * d.to(dtype)
         s = term if s is None else s + term
-    return b + s
+    return s
+
+
+def _mix_leaf(b: torch.Tensor, ds: Sequence[torch.Tensor], w: torch.Tensor
+              ) -> torch.Tensor:
+    return b + _mix_sum(ds, w, b.dtype)
+
+
+def combine_candidate_deltas(base: Params, deltas: Sequence[Params],
+                             weights: torch.Tensor) -> list[dict]:
+    """``[P, M]`` mixing rows over placed deltas -> P candidate deltas
+    ``sum_i W[p, i] * delta_i`` (the JAX package's
+    ``combine_candidate_deltas``, as a list): ``base + candidate p``
+    equals ``weighted_merge(base, deltas, W[p])`` bit for bit, the sum
+    being the same terms in the same order."""
+    out = []
+    for row in torch.as_tensor(weights):
+        if row.shape != (len(deltas),):
+            raise ValueError(f"{tuple(row.shape)} weights for "
+                             f"{len(deltas)} deltas")
+        out.append({k: _mix_sum([d[k] for d in deltas], row.to(b.device),
+                                 b.dtype)
+                    for k, b in base.items()})
+    return out
 
 
 def weighted_merge(base: Params, deltas: Sequence[Params], weights

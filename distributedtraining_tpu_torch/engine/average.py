@@ -41,9 +41,13 @@ stands the round down) and stamped with the revision after it. With
 (``engine/hier_average.py``): it stages the ``__agg__.<node>``
 aggregates and mixes them by the weight sums their riders declare.
 
+:class:`GeneticMerge` (``--strategy genetic``) evolves a population of
+mixing-weight vectors on the threefry draws of ``utils/prng.py`` and
+scores each generation through the batched cohort evaluator (the flash
+forward on the card); it takes dense deltas too.
+
 Not ported yet, and refused with NotImplementedError naming the slice
-(ROADMAP "Slices of the port"): ``GeneticMerge`` (slice 6b, on
-``utils/prng.py``'s threefry), ``fleet``, ``remediation`` and LoRA
+(ROADMAP "Slices of the port"): ``fleet``, ``remediation`` and LoRA
 submissions (slice 7); a device mesh is refused by the engine
 (``TrainEngine(mesh=...)``, slice 7).
 """
@@ -342,23 +346,168 @@ class ParameterizedMerge:
         return merged, w
 
 
-def _not_ported(name: str, what: str, slice_no):
-    class _Refused:
-        __doc__ = (f"{what}: not ported yet (ROADMAP 'Slices of the port', "
-                   f"slice {slice_no}); constructing one raises.")
-
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name}: {what} is not ported to the PyTorch averager yet "
-                f"({_SLICES}, slice {slice_no})")
-
-    _Refused.__name__ = _Refused.__qualname__ = name
-    return _Refused
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over a vector, in its order of operations:
+    ``exp(x - max) / sum(exp(x - max))``."""
+    e = torch.exp(x - x.max())
+    return e / e.sum()
 
 
-GeneticMerge = _not_ported(
-    "GeneticMerge", "the genetic merge (--strategy genetic; its population "
-    "draws are jax.random's, which utils/prng.py reproduces)", "6b")
+class GeneticMerge:
+    """Evolutionary weight search (GeneticAverager, averaging_logic.py:
+    830-970): a population of mixing-weight vectors, Gaussian mutation,
+    elite selection by held-out loss; the JAX package's ``GeneticMerge``.
+
+    Selection runs as successive halving: candidates are ranked on the
+    first ``screen_batches`` val batches and only the elites pay a
+    full-set eval (``screen_batches=None``: every rank on the full set).
+    Losses are memoized on the weight vector's bytes and the tier, so an
+    elite that recurs is never evaluated twice. With ``batched`` a tier's
+    uncached candidates go through the cohort evaluator
+    (engine/batched_eval.py) as candidate deltas ``sum_i w_i d_i``, each
+    val batch placed once for them all; a lone candidate takes
+    ``engine.evaluate``. The final pick is over the screened survivors and
+    the last generation's elites.
+
+    The draws are ``jax.random``'s on the threefry of utils/prng.py, made
+    on the CPU: the keys, the parent picks and the uniforms are the JAX
+    package's bits, a normal within a few ulps of its (XLA's ``log1p``),
+    then ``softmax`` in ``jax.nn.softmax``'s order. The vectors are placed
+    on the base's device only to merge. ``last_memo`` keeps the round's
+    ``{(vector bytes, full tier): loss}``: each entry is one candidate's
+    evaluation over its tier's batches."""
+
+    def __init__(self, *, population: int = 10, generations: int = 10,
+                 sigma: float = 0.1, elite: int = 2, seed: int = 0,
+                 screen_batches: int | None = 2, batched: bool = True):
+        if screen_batches is not None and screen_batches < 1:
+            # 0 would slice an empty iterator: NaN losses, an arbitrary
+            # pick and no error
+            raise ValueError("screen_batches must be >= 1 or None "
+                             f"(full-set fitness), got {screen_batches}")
+        self.population = population
+        self.generations = generations
+        self.sigma = sigma
+        self.elite = elite
+        self.seed = seed
+        self.screen_batches = screen_batches
+        self.batched = batched
+        self.last_memo: dict[tuple[bytes, bool], float] = {}
+
+    def lineage_weights(self, weights):
+        """The winning vector is the linear mix the merge applies
+        (``base + sum_i w_i d_i``), so the record replays."""
+        return weights
+
+    def first_population(self, rng: torch.Tensor, m: int):
+        """``(rng, population)``: the uniform vector, then ``population -
+        1`` draws ``softmax(normal(k, m))``, one split key each."""
+        from ..utils import prng
+        pop = [torch.full((m,), 1.0 / m, dtype=torch.float32,
+                          device=rng.device)]
+        for _ in range(self.population - 1):
+            rng, k = prng.split(rng)
+            pop.append(_softmax(prng.normal(k, m)))
+        return rng, pop
+
+    def breed(self, rng: torch.Tensor, elites: list, m: int):
+        """``(rng, next population)``: the elites, then children
+        ``softmax(parent + sigma * normal(k2, m))`` with the parent picked
+        by ``randint(k1, 0, elite)``."""
+        from ..utils import prng
+        children = list(elites)
+        while len(children) < self.population:
+            rng, k1, k2 = prng.split(rng, 3)
+            parent = elites[int(prng.randint(k1, 1, 0, self.elite)[0])]
+            child = parent + self.sigma * prng.normal(k2, m)
+            children.append(_softmax(child))
+        return rng, children
+
+    def merge(self, engine, base: Params, stacked: Sequence, miner_ids:
+              list[str], *, val_batches: Callable[[], Iterable[dict]],
+              consensus=None):
+        """``(merged, w)``: the mixture at the winning weight vector ``w``
+        (an ``(M,)`` f32 CPU tensor)."""
+        import itertools
+
+        from ..utils import prng
+        from .batched_eval import BatchedCohortEvaluator
+        m = len(miner_ids)
+        if m == 0 or len(stacked) != m:
+            raise ValueError(f"{len(stacked)} deltas for {m} miners")
+        placed = [delta_lib.place_delta(d, base) for d in stacked]
+        dev = next(iter(base.values())).device
+        evaluator = BatchedCohortEvaluator(engine) if self.batched else None
+        cache: dict[tuple[bytes, bool], float] = {}
+        self.last_memo = cache
+
+        def merge_fn(w):
+            return delta_lib.weighted_merge(base, placed, w.to(dev))
+
+        def batches_for(full: bool):
+            batches = val_batches()
+            if not full and self.screen_batches is not None:
+                batches = itertools.islice(batches, self.screen_batches)
+            return batches
+
+        def _eval(w, *, full: bool) -> float:
+            key = (w.numpy().tobytes(), full)
+            if key not in cache:
+                with torch.no_grad():
+                    cache[key], _ = engine.evaluate(merge_fn(w),
+                                                    batches_for(full))
+            return cache[key]
+
+        def _eval_many(ws, *, full: bool) -> None:
+            """Fill the memo for every uncached vector of ``ws``: one
+            cohort through the batched evaluator, or one at a time."""
+            uniq, seen = [], set()
+            for w in ws:
+                k = w.numpy().tobytes()
+                if (k, full) not in cache and k not in seen:
+                    seen.add(k)
+                    uniq.append(w)
+            if not uniq:
+                return
+            if evaluator is None or len(uniq) == 1:
+                for w in uniq:
+                    _eval(w, full=full)
+                return
+            with torch.no_grad():
+                cands = delta_lib.combine_candidate_deltas(
+                    base, placed, torch.stack(uniq))
+                scored = evaluator.evaluate_stacked(base, cands, len(uniq),
+                                                    batches_for(full))
+            for w, (loss, _) in zip(uniq, scored):
+                cache[(w.numpy().tobytes(), full)] = loss
+
+        full_screen = self.screen_batches is None
+
+        def screen(w) -> float:   # the cheap ranking tier
+            return _eval(w, full=full_screen)
+
+        def fitness(w) -> float:  # the full-set tier
+            return _eval(w, full=True)
+
+        rng, pop = self.first_population(prng.prng_key(self.seed), m)
+        elites: list = []   # generations 0: the best of the first draw
+        for gen in range(self.generations):
+            _eval_many(pop, full=full_screen)
+            scored = sorted(pop, key=screen)
+            _eval_many(scored[: self.elite * 2], full=True)
+            elites = sorted(scored[: self.elite * 2],
+                            key=fitness)[: self.elite]
+            rng, pop = self.breed(rng, elites, m)
+            logger.info("genetic gen %d best loss=%.4f", gen + 1,
+                        fitness(elites[0]))
+        # the screened survivors plus the last elites, whose full-set
+        # losses are cached: a noisy last screen cannot drop the best
+        _eval_many(pop, full=full_screen)
+        finalists = sorted(pop, key=screen)[: max(self.elite, 2)] + elites
+        _eval_many(finalists, full=True)
+        best = min(finalists, key=fitness)
+        with torch.no_grad():
+            return merge_fn(best), best
 
 
 # ---------------------------------------------------------------------------

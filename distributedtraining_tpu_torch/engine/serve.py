@@ -43,9 +43,14 @@ the port of the JAX package's ``engine/serve.py`` (its unified engine).
 - **Request traces** (``trace=True``, the default; utils/reqtrace.py):
   per-request stage timelines, tail exemplars frozen into the flight
   recorder, and the SLO burn-rate feed (engine/health.py).
-
-Disaggregated prefill/decode workers (``phase=``, the KV transfer plane)
-are refused, naming their ROADMAP item.
+- **Disaggregated workers** (``phase=``, engine/kv_transfer.py): a
+  "prefill" worker runs each request's prefill, exports its KV pages
+  (``kv_exporter``) and finishes it as ``prefilled`` with the manifest
+  ref and its first token; a "decode" worker admits a request that
+  carries ``kv_ref`` on adopted pages (``kv_adopter``) and emits the
+  prefill worker's first token verbatim. Any transfer defect, a geometry
+  skew or another base revision falls back to the local prefill,
+  counted in ``kv_reprefills`` (and ``kv_rev_mismatch``).
 
 Metrics go to utils/obs.py as ``serve.*``.
 """
@@ -69,15 +74,13 @@ import torch
 
 from ..models.gpt2 import GPT2, bind, params_from_numpy, resolve_device
 from ..utils import flight, obs, prng, reqtrace
+from .kv_transfer import dtype_name
 
 logger = logging.getLogger(__name__)
 
 State = Mapping[str, torch.Tensor]
 
 DEFAULT_PAGE_SIZE = 16
-
-_DISAGG_ITEM = ("ROADMAP 'Slices of the port': slice 6b, disaggregated "
-                "prefill/decode")
 
 _LIVE_FRONTENDS: "weakref.WeakSet[ServeHTTPFrontend]" = weakref.WeakSet()
 
@@ -107,10 +110,17 @@ class ServeRequest:
     rid: int = dataclasses.field(default_factory=lambda: next(_RID))
     tokens: list = dataclasses.field(default_factory=list)
     status: str = "queued"      # queued | active | done | truncated
+    #                             | prefilled (prefill-phase worker)
     revision: str | None = None
     # content-addressable identity (utils/reqtrace.py), from the
     # X-DT-Request-Id header or minted by submit()
     request_id: str | None = None
+    # disaggregated serving: on a decode worker, the manifest ref of the
+    # KV to adopt; on a prefill worker, the ref published at finish.
+    # ``first_token`` rides with it: the prefill worker's first token,
+    # which the decode worker emits verbatim
+    kv_ref: str | None = None
+    first_token: int | None = None
     submitted_t: float = dataclasses.field(default_factory=time.time)
     done_evt: threading.Event = dataclasses.field(
         default_factory=threading.Event)
@@ -628,11 +638,10 @@ class GenerationEngine:
         if phase not in ("unified", "prefill", "decode"):
             raise ValueError(f"phase must be unified|prefill|decode, "
                              f"got {phase!r}")
-        if phase != "unified" or kv_exporter is not None \
-                or kv_adopter is not None:
-            raise NotImplementedError(
-                f"phase={phase!r} and the KV transfer plane are not "
-                f"ported yet ({_DISAGG_ITEM})")
+        if phase == "prefill" and kv_exporter is None:
+            raise ValueError("phase='prefill' needs a kv_exporter "
+                             "(engine/kv_transfer.KVExporter): a prefill "
+                             "worker that cannot export KV serves nothing")
         if swap_policy not in ("drain", "restart"):
             raise ValueError(f"swap_policy must be drain|restart, "
                              f"got {swap_policy!r}")
@@ -717,6 +726,14 @@ class GenerationEngine:
         self.full_prefills = 0
         self.suffix_prefills = 0
         self.tokens_emitted = 0
+        # disaggregated serving: the worker class and the transfer plane
+        self.phase = phase
+        self._kv_exporter = kv_exporter
+        self._kv_adopter = kv_adopter
+        self.kv_exported = 0      # requests whose KV export published
+        self.kv_adopted = 0       # requests admitted on adopted pages
+        self.kv_reprefills = 0    # adoption degrades -> local prefill
+        self.kv_rev_mismatch = 0  # transfers refused on revision skew
         self.trace = reqtrace.TraceBook(
             exemplar_k=trace_exemplars, window_s=trace_window_s,
             burn=burn) if trace else None
@@ -757,11 +774,15 @@ class GenerationEngine:
                max_new_tokens: int | None = None, *,
                temperature: float = 0.0, top_p: float = 1.0,
                seed: int = 0,
-               request_id: str | None = None) -> ServeRequest:
+               request_id: str | None = None,
+               kv_ref: str | None = None,
+               first_token: int | None = None) -> ServeRequest:
         """Queue one generation request (thread-safe). Prompts longer
         than the cache capacity are rejected up front. ``temperature=0``
         is greedy; ``temperature > 0`` samples the scaled distribution
-        cut to ``top_p`` mass under the request's seeded stream."""
+        cut to ``top_p`` mass under the request's seeded stream. On a
+        decode worker ``kv_ref`` names a prefill worker's exported KV and
+        ``first_token`` its first token."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -775,9 +796,15 @@ class GenerationEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({n_new}) "
                 f"exceeds max_seq_len {self.max_seq_len}")
+        if kv_ref is not None and first_token is None:
+            raise ValueError("kv_ref without first_token: the prefill "
+                             "worker's first token must ride along")
         req = ServeRequest(prompt=prompt, max_new_tokens=n_new,
                            temperature=float(temperature),
-                           top_p=float(top_p), seed=int(seed))
+                           top_p=float(top_p), seed=int(seed),
+                           kv_ref=kv_ref,
+                           first_token=(None if first_token is None
+                                        else int(first_token)))
         if self.trace is not None:
             req.request_id = request_id or reqtrace.mint_request_id(
                 prompt, max_new_tokens=n_new, temperature=req.temperature,
@@ -819,6 +846,12 @@ class GenerationEngine:
     @property
     def tokens_per_sec(self) -> float:
         return self._tok_rate_ema or 0.0
+
+    @property
+    def prefills_done(self) -> int:
+        """Full and suffix prefills run (the open-loop harness's prefill
+        cost model reads it)."""
+        return self.full_prefills + self.suffix_prefills
 
     @property
     def prefix_hits(self) -> int:
@@ -1051,6 +1084,12 @@ class GenerationEngine:
         P = self.page_size
         plen = len(req.prompt)
         queue_age_ms = max(0.0, (time.time() - req.submitted_t) * 1e3)
+        if req.kv_ref is not None and self._kv_adopter is not None:
+            verdict = self._try_adopt(req, queue_age_ms)
+            if verdict != "degrade":
+                return verdict == "ok"
+            # any defect falls through to the local prefill below:
+            # counted, and the output is the same
         shared: list[int] = []
         matched = 0
         if self._cache is not None:
@@ -1099,6 +1138,115 @@ class GenerationEngine:
         else:
             self._prefill(req, pages)
         return True
+
+    def _reprefill(self) -> str:
+        self.kv_reprefills += 1
+        obs.count("serve.kv_reprefills")
+        return "degrade"
+
+    def _try_adopt(self, req: ServeRequest, queue_age_ms: float) -> str:
+        """Admit a request on ADOPTED KV pages (the decode worker's half
+        of the hop). Returns "ok" (the slot is active), "full" (the pool
+        is dry: requeued, stop admitting) or "degrade" (absent or torn
+        manifest, hash miss, geometry skew or another base revision: the
+        caller prefills locally; each is counted)."""
+        t0 = time.perf_counter()
+        got = self._kv_adopter.fetch(req.kv_ref)
+        if got is None:
+            obs.count("serve.kv_adopt_failures")
+            return self._reprefill()
+        if got["revision"] != (self.revision or ""):
+            # KV is a function of (params, tokens): pages prefilled on
+            # another base revision are wrong here, not nearly right
+            self.kv_rev_mismatch += 1
+            obs.count("serve.kv_rev_mismatch")
+            logger.warning(
+                "kv adoption refused: pages prefilled on revision %r, "
+                "serving %r (request %s); prefilling locally",
+                got["revision"], self.revision, req.request_id)
+            return self._reprefill()
+        P = self.page_size
+        plen = len(req.prompt)
+        k_pages, v_pages = self._kv
+        want = {"layers": k_pages.shape[0], "page_size": P,
+                "kv_heads": k_pages.shape[3], "head_dim": k_pages.shape[4],
+                "dtype": dtype_name(k_pages)}
+        n = (plen + P - 1) // P
+        if got["geometry"] != want or got["prompt_len"] != plen \
+                or len(got["pages"]) != n:
+            obs.count("serve.kv_adopt_failures")
+            return self._reprefill()
+        pages = self._alloc_pages(plen // P + 1)
+        if pages is None:
+            self._requeue_front(req)
+            return "full"
+        # the adoption write: every content page in one copy a pool
+        idx = torch.tensor(pages[:n], device=self.device)
+        for pool, j in ((k_pages, 0), (v_pages, 1)):
+            host = torch.stack([pair[j] for pair in got["pages"]], dim=1)
+            pool.index_copy_(1, idx, host.to(self.device))
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        obs.observe("serve.queue_age_ms", queue_age_ms)
+        obs.observe("serve.kv_adopt_ms", dur_ms)
+        obs.count("serve.kv_adoptions")
+        obs.count("serve.kv_pages_adopted", n)
+        self.kv_adopted += 1
+        if self.trace is not None:
+            stage = "readmit" if self.trace.seen(req.rid, "admit") \
+                else "admit"
+            self.trace.stage(req.rid, stage, queue_age_ms=queue_age_ms)
+            self.trace.stage(req.rid, "kv_adopt", pages=n,
+                             dur_ms=round(dur_ms, 3))
+        if self._cache is not None:
+            # the cache takes its own reference on each page, so a
+            # sibling sharing the prefix reuses them and this slot's first
+            # write into a shared page takes the copy-on-write path
+            self._cache.register(list(req.prompt), pages)
+        self._activate(req, pages, int(got["first_token"]))
+        return "ok"
+
+    def _finish_prefill(self, req: ServeRequest, pages: list,
+                        nxt: int) -> None:
+        """A prefill worker's terminal: export the prompt's KV pages (one
+        device-to-host copy a pool; manifest last, engine/kv_transfer
+        ``KVExporter``), drop the slot's page references and finish the
+        request as ``prefilled`` with the manifest ref and the first
+        token. With the prefix cache the pages stay resident, so the next
+        request with the same prefix exports no fresh page bytes."""
+        P = self.page_size
+        plen = len(req.prompt)
+        n = (plen + P - 1) // P
+        t0 = time.perf_counter()
+        k_pages, v_pages = self._kv
+        idx = torch.tensor(pages[:n], device=self.device)
+        k_host = k_pages.index_select(1, idx).cpu()
+        v_host = v_pages.index_select(1, idx).cpu()
+        kv_ref = req.request_id or f"rq-rid{req.rid}"
+        ok = self._kv_exporter.export(
+            request_id=kv_ref, revision=self.revision or "",
+            pages=[(k_host[:, i], v_host[:, i]) for i in range(n)],
+            prompt_len=plen, first_token=int(nxt), page_size=P)
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        if ok:
+            self.kv_exported += 1
+            req.kv_ref = kv_ref
+        req.first_token = int(nxt)
+        req.tokens.append(int(nxt))
+        self.tokens_emitted += 1
+        obs.count("serve.tokens")
+        ttft_ms = max(0.0, (time.time() - req.submitted_t) * 1e3)
+        obs.observe("serve.ttft_ms", ttft_ms)
+        for p in pages:
+            self.pool.decref(p)
+        req.status = "prefilled"
+        req.revision = self.revision
+        if self.trace is not None:
+            self.trace.stage(req.rid, "kv_export", pages=n, ok=int(ok),
+                             dur_ms=round(dur_ms, 3))
+            self.trace.note_latency(req.rid, ttft_ms=ttft_ms)
+            self.trace.finish(req, "prefilled")
+        req.done_evt.set()
+        self._admit_hold = False
 
     def _prefill(self, req: ServeRequest, pages: list) -> None:
         """Full-prompt forward (:func:`_full_prefill`) into the slot's
@@ -1172,6 +1320,11 @@ class GenerationEngine:
                      [_lane_seed(req.seed)], [0])[0]
 
     def _activate(self, req: ServeRequest, pages: list, nxt: int) -> None:
+        if self.phase == "prefill":
+            # a prefill worker never decodes: the request ends here, its
+            # KV exported and its first token attached
+            self._finish_prefill(req, pages, nxt)
+            return
         req.status = "active"
         slot = _Slot(req=req, pages=pages, seq_len=len(req.prompt),
                      last_tok=nxt, order=next(self._order))
@@ -1571,8 +1724,17 @@ class ServeHTTPFrontend:
       base revision and ``request_id`` (also in the ``X-DT-Request-Id``
       header, which a caller may set). A refusal at admission control is
       traced: 429 when the queue is full, 503 while a drain swap runs.
+      On a decode worker the body may carry ``kv_ref`` and
+      ``first_token`` (the router's second leg).
+    - ``POST /prefill`` (prefill workers only): the same body; runs the
+      prefill leg, exports the KV pages and returns ``kv_ref``,
+      ``first_token`` and ``prompt_len`` besides the ``/generate`` keys.
+      A prefill worker answers ``/generate`` with 409, any other worker
+      ``/prefill``.
     - ``GET /healthz``: queue depth, active slots, revision, tokens/sec,
-      prefix hit rate, speculative accept rate, latency p95s, SLO burn.
+      the worker's ``phase`` and its ``kv_exported`` / ``kv_adopted``
+      counts, prefix hit rate, speculative accept rate, latency p95s,
+      SLO burn.
     """
 
     def __init__(self, engine: GenerationEngine, port: int = 0, *,
@@ -1587,15 +1749,17 @@ class ServeHTTPFrontend:
         self._thread: threading.Thread | None = None
 
     def healthz(self) -> dict:
-        """The ``/healthz`` body (the JAX package's, less the KV-transfer
-        counters)."""
+        """The ``/healthz`` body (the JAX package's: the router reads
+        these keys)."""
         e = self.engine
         reg = obs.registry()
         out = {"ok": True, "queue_depth": e.queue_depth,
                "active": e.active_count, "revision": e.revision,
                "tokens_per_sec": e.tokens_per_sec,
                "max_queue": e.max_queue, "shed": e.shed_count,
-               "phase": "unified"}
+               # the worker class the router routes by
+               "phase": e.phase, "kv_exported": e.kv_exported,
+               "kv_adopted": e.kv_adopted}
         if e.prefix_hits + e.prefix_misses > 0:
             out["prefix_hit_rate"] = e.prefix_hit_rate
         if e.speculative:
@@ -1639,10 +1803,21 @@ class ServeHTTPFrontend:
                 self._send(200, fe.healthz())
 
             def do_POST(self):  # noqa: N802
-                if self.path.split("?", 1)[0] != "/generate":
+                path = self.path.split("?", 1)[0]
+                if path not in ("/generate", "/prefill"):
                     self._send(404, {"error": "not found"})
                     return
                 eng = fe.engine
+                # phase discipline: a mis-routed call fails loudly
+                # instead of returning a one-token "generation"
+                if path == "/prefill" and eng.phase != "prefill":
+                    self._send(409, {"error": "not a prefill-phase "
+                                              "worker"})
+                    return
+                if path == "/generate" and eng.phase == "prefill":
+                    self._send(409, {"error": "prefill-phase worker; "
+                                              "POST /prefill"})
+                    return
                 # admission control before parsing; a refusal still
                 # gets a traced request_id
                 req_id = self.headers.get(reqtrace.REQUEST_ID_HEADER)
@@ -1675,12 +1850,18 @@ class ServeHTTPFrontend:
                     if not isinstance(toks, list) or not toks:
                         raise ValueError("need a non-empty 'tokens' list "
                                          "or 'text'")
+                    # the router's decode leg carries the prefill leg's
+                    # manifest ref and first token
+                    kv_ref = payload.get("kv_ref")
+                    ft = payload.get("first_token")
                     req = eng.submit(
                         toks, payload.get("max_new_tokens"),
                         temperature=float(payload.get("temperature", 0.0)),
                         top_p=float(payload.get("top_p", 1.0)),
                         seed=int(payload.get("seed", 0)),
-                        request_id=req_id)
+                        request_id=req_id,
+                        kv_ref=(str(kv_ref) if kv_ref else None),
+                        first_token=(int(ft) if ft is not None else None))
                 except (ValueError, TypeError, json.JSONDecodeError) as e:
                     self._send(400, {"error": str(e)})
                     return
@@ -1693,6 +1874,12 @@ class ServeHTTPFrontend:
                 out = {"rid": req.rid, "tokens": req.tokens,
                        "status": req.status, "revision": req.revision,
                        "request_id": req.request_id}
+                if path == "/prefill":
+                    # the decode leg's inputs (kv_ref None: the export
+                    # failed, and the router falls back to unified)
+                    out["kv_ref"] = req.kv_ref
+                    out["first_token"] = req.first_token
+                    out["prompt_len"] = len(req.prompt)
                 if fe.tokenizer is not None:
                     try:
                         out["text"] = fe.tokenizer.decode(req.tokens)

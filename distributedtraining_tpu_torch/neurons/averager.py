@@ -14,9 +14,12 @@ the flight recorder keeps ``--flight-events`` events. Miners of either
 package, publishing dense deltas or ``--wire-v2`` shards into the same
 ``--work-dir``, are merged: by meta-learned weights (``--strategy
 parameterized``, the default: ``--meta-epochs``, ``--meta-lr``,
-``--meta-optimizer``), or by the local chain's consensus scores
+``--meta-optimizer``), by the local chain's consensus scores
 (``--strategy weighted``; a validator's ``set_weights`` in that
-directory, from either package). ``--outer-momentum`` (with
+directory, from either package), or by an evolved population of weight
+vectors (``--strategy genetic``: ``--genetic-population``,
+``--genetic-generations``, ``--genetic-sigma``,
+``--genetic-screen-batches``). ``--outer-momentum`` (with
 ``--outer-lr``) wraps the strategy in the outer Nesterov step, its
 velocity kept in ``<work-dir>/averager_state/velocity_<hotkey>.msgpack``.
 
@@ -44,8 +47,8 @@ from .common import base_mirrors, build
 
 
 def make_strategy(cfg: RunConfig, model):
-    """The merge strategy of ``--strategy`` (``genetic`` raises, naming
-    its slice), inside ``OuterOptMerge`` with ``--outer-momentum`` > 0."""
+    """The merge strategy of ``--strategy``, inside ``OuterOptMerge``
+    with ``--outer-momentum`` > 0."""
     if cfg.strategy == "weighted":
         strategy = WeightedAverage(chunk_size=cfg.merge_chunk)
     elif cfg.strategy == "genetic":

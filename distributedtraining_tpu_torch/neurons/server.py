@@ -22,6 +22,13 @@ ids at it::
 drafts with the served model itself), ``--max-steps N`` bounds a run: it
 ends after N engine steps, or once traffic has drained and the engine
 idled for two swap polls.
+
+``--serve-phase prefill`` runs a prefill worker (it answers ``POST
+/prefill`` and exports each request's KV pages over the serving
+transport); ``--serve-phase decode`` a decode worker that adopts them.
+Put ``neurons/router.py`` in front of both (and of unified workers): it
+routes each request prefill -> decode, and falls back to a unified
+worker.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import os
 import time
 
 from ..config import RunConfig
-from ..engine import health
+from ..engine import health, kv_transfer
 from ..engine.serve import (BaseRevisionWatcher, GenerationEngine,
                             ServeHTTPFrontend, ServeLoop,
                             host_param_template)
@@ -132,6 +139,9 @@ def main(argv=None) -> int:
         # registry's flush cadence below
         burn = health.BurnRateMonitor() if cfg.serve_trace else None
         health.attach_burn(burn)
+        # disaggregated workers move KV pages over the serving transport
+        # (the store base revisions ride); a unified worker touches none
+        phase = cfg.serve_phase
         engine = GenerationEngine(
             c.model, params, device=device, revision=revision,
             max_slots=cfg.serve_slots, page_size=cfg.serve_page_size,
@@ -141,11 +151,18 @@ def main(argv=None) -> int:
             swap_policy=cfg.swap_policy, watcher=watcher,
             max_queue=cfg.serve_max_queue,
             prefix_cache=cfg.serve_prefix_cache,
-            draft=_build_drafter(cfg, c, device),
+            # a prefill worker never decodes, so it gets no drafter
+            draft=(None if phase == "prefill"
+                   else _build_drafter(cfg, c, device)),
             draft_k=cfg.serve_draft_k,
             trace=cfg.serve_trace,
             trace_exemplars=cfg.serve_trace_exemplars,
-            trace_window_s=cfg.serve_trace_window or 30.0, burn=burn)
+            trace_window_s=cfg.serve_trace_window or 30.0, burn=burn,
+            phase=phase,
+            kv_exporter=(kv_transfer.KVExporter(c.transport)
+                         if phase == "prefill" else None),
+            kv_adopter=(kv_transfer.KVAdopter(c.transport)
+                        if phase == "decode" else None))
         watcher.start()
         if cfg.serve_port:
             frontend = ServeHTTPFrontend(engine, cfg.serve_port,

@@ -36,8 +36,8 @@ META_MAX_BYTES = 4096
 # the same per-miner byte surface as deltas, under prefixes no chain
 # hotkey starts with. The port publishes wire-v2 shards, base shards and
 # manifests, lineage records, postmortem bundles, leases, partial
-# aggregates and mirror replicas; heartbeats and KV pages are the JAX
-# package's planes of slices 6-7, kept so a consumer of a shared root
+# aggregates, mirror replicas and KV pages; heartbeats are the JAX
+# package's plane of slice 7, kept so a consumer of a shared root
 # recognises every reserved id.
 HEARTBEAT_PREFIX = "__hb__"
 LEASE_PREFIX = "__lease__"
@@ -54,6 +54,10 @@ MIRROR_PREFIX = "__mirror__"
 PM_MAX_BYTES = 1 << 20
 LINEAGE_MAX_BYTES = 1 << 18
 BASE_MANIFEST_MAX_BYTES = 1 << 20
+# one KV manifest is KBs of JSON; one KV page is [L, P, Hkv, D] x {k, v},
+# bounded by the geometry and capped generously
+KV_MANIFEST_MAX_BYTES = 1 << 20
+KV_PAGE_MAX_BYTES = 1 << 26
 
 # Wire-v2 per-layer delta shards (serialization.py shard container,
 # engine/publish.py uploads, engine/ingest.py fetches): raw bytes under a
@@ -137,6 +141,24 @@ def mirror_node_id(node_id: str) -> str:
     """The reserved pseudo-hotkey one mirror's base-shard replicas travel
     under (``shard_id(mirror_node_id(node), layer_key)``)."""
     return f"{MIRROR_PREFIX}.{node_id}"
+
+
+def kv_page_id(digest: str) -> str:
+    """The reserved artifact id one exported KV page travels under, keyed
+    on its sha256 content address (the ``s.`` segment keeps page ids
+    disjoint from manifest ids, as for base shards)."""
+    return f"{KV_PREFIX}.s.{digest}"
+
+
+def kv_manifest_id(request_id: str) -> str:
+    """The reserved artifact id of one request's KV manifest, keyed on
+    the request id (slug-escaped by :func:`lineage_slug`)."""
+    return f"{KV_PREFIX}.{lineage_slug(request_id)}"
+
+
+def is_kv_id(artifact_id: str) -> bool:
+    return isinstance(artifact_id, str) and \
+        artifact_id.startswith(KV_PREFIX + ".")
 
 
 def lease_id(role: str = "averager") -> str:
@@ -265,6 +287,51 @@ def fetch_base_manifest_bytes(transport, revision: str) -> bytes | None:
     data = (fbm(revision) if fbm is not None
             else transport.fetch_delta_bytes(base_manifest_id(revision)))
     if data is not None and len(data) > BASE_MANIFEST_MAX_BYTES:
+        return None
+    return data
+
+
+def publish_kv_page(transport, digest: str, data: bytes) -> None:
+    """Publish one exported KV page: the transport's own
+    ``publish_kv_page`` when present, else ``publish_raw`` under the
+    reserved ``__kv__.s.*`` id. Pages travel unsigned: the manifest pins
+    their sha256."""
+    pk = getattr(transport, "publish_kv_page", None)
+    if pk is not None:
+        pk(digest, data)
+        return
+    transport.publish_raw(kv_page_id(digest), data)
+
+
+def fetch_kv_page(transport, digest: str) -> bytes | None:
+    """One KV page's raw (size-capped) bytes, or None; the caller checks
+    them against the digest (``engine/kv_transfer.py``)."""
+    fk = getattr(transport, "fetch_kv_page", None)
+    if fk is not None:
+        return fk(digest)
+    return _fetch_capped(transport, kv_page_id(digest), KV_PAGE_MAX_BYTES)
+
+
+def publish_kv_manifest(transport, request_id: str, data: bytes) -> None:
+    """Publish one request's KV manifest, LAST, after every page it lists:
+    the transport's own ``publish_kv_manifest``, else
+    ``publish_delta_raw`` (a signing wrapper envelopes it), else
+    ``publish_raw``."""
+    pkm = getattr(transport, "publish_kv_manifest", None)
+    if pkm is not None:
+        pkm(request_id, data)
+        return
+    _publish_own(transport, kv_manifest_id(request_id), data)
+
+
+def fetch_kv_manifest_bytes(transport, request_id: str) -> bytes | None:
+    """Raw (size-capped) KV manifest bytes of one request, or None: the
+    prefill leg never finished publishing, and the decode worker prefills
+    locally."""
+    fkm = getattr(transport, "fetch_kv_manifest", None)
+    data = (fkm(request_id) if fkm is not None
+            else transport.fetch_delta_bytes(kv_manifest_id(request_id)))
+    if data is not None and len(data) > KV_MANIFEST_MAX_BYTES:
         return None
     return data
 

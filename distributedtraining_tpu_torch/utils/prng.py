@@ -1,8 +1,9 @@
 """Counter-based random numbers, bit for bit the JAX package's: the port's
 counterpart of the ``jax.random`` calls on the serving plane's sampler
 (``jax.random.PRNGKey``, ``fold_in``, ``categorical`` with its
-``uniform`` and ``gumbel`` draws), on the default threefry2x32 generator
-with ``jax_threefry_partitionable`` on.
+``uniform`` and ``gumbel`` draws) and on the genetic merge's population
+(``split``, ``normal``, ``randint``), on the default threefry2x32
+generator with ``jax_threefry_partitionable`` on.
 
 These are batched integer ops on tensors, on the CPU or the card. The
 JAX package computes them in XLA, not in a kernel, and so does the port.
@@ -23,9 +24,21 @@ function takes a batch of keys (leading dims) and returns a batch.
 - ``gumbel(key, n)``: ``-log(-log(uniform(key, n, tiny)))`` (mode "low").
 - ``categorical(key, logits)``: ``argmax(logits + gumbel)`` over the last
   axis (the first index among equals).
+- ``split(key, num)``: key ``i`` is ``threefry2x32(key, [0, i])`` (the
+  foldlike split the partitionable flag selects), so ``split(key, n)[i]
+  == fold_in(key, i)``.
+- ``randint(key, n, minval, maxval)``: int32 draws in ``[minval,
+  maxval)``: two bit streams from ``split(key, 2)`` folded into the span
+  as ``jax.random.randint`` folds them.
+- ``normal(key, n)``: ``sqrt(2) * erfinv(u)`` for ``u`` uniform on
+  ``(nextafter(-1, 0), 1)``, ``erfinv`` being XLA's f32 polynomial
+  (Giles) over ``w = -log1p(-u^2)``.
 
-``torch.log`` may differ from XLA's ``log`` in the last bit of a float:
-the bits and the uniforms are exact, a Gumbel draw is within an ulp.
+``torch.log`` and ``log1p`` may differ from XLA's in the last bit of a
+float: the bits, keys, integers and uniforms are exact, a Gumbel draw is
+within an ulp, and a normal within a few ulps (the JAX package's own
+``log1p`` is not correctly rounded; here it is computed in f64 and
+rounded, so the card and the CPU give the same bits).
 """
 
 from __future__ import annotations
@@ -104,6 +117,69 @@ def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     """Standard Gumbel draws ``[..., n]`` (f32), ``jax.random.gumbel``'s
     mode "low"."""
     return -torch.log(-torch.log(uniform(key, n, _F32_TINY)))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: ``num`` keys ``[..., num, 2]``."""
+    return fold_in(key[..., None, :],
+                   torch.arange(num, dtype=torch.int64, device=key.device))
+
+
+def randint(key: torch.Tensor, n: int, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (n,), minval, maxval)`` (int32): ``[...,
+    n]`` integers in ``[minval, maxval)`` (``minval`` when ``maxval <=
+    minval``)."""
+    keys = split(key, 2)
+    hi = random_bits(keys[..., 0, :], n)
+    lo = random_bits(keys[..., 1, :], n)
+    # int32 bounds (the default dtype); an empty range returns minval
+    span = max(int(maxval) - int(minval), 1)
+    # 2^32 mod span in uint32 words, as JAX computes it (the square wraps)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = (((hi % span) * mult) & _MASK) + (lo % span)
+    off = (off & _MASK) % span
+    return (int(minval) + off).to(torch.int32)
+
+
+# XLA's f32 erf-inverse (Giles' polynomial): w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv``, op for op (no fused multiply-adds): each
+    product and sum is rounded to f32 as XLA's is; ``log1p`` is f64
+    rounded to f32."""
+    f32 = torch.float32
+    w = -torch.log1p((x * -x).to(torch.float64)).to(f32)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    dev = x.device
+    c = [torch.where(lt, torch.tensor(a, dtype=f32, device=dev),
+                     torch.tensor(b, dtype=f32, device=dev))
+         for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
+    p = c[0]
+    for ci in c[1:]:
+        p = ci + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0),
+                                   torch.tensor(0.0)))
+
+
+def normal(key: torch.Tensor, n: int) -> torch.Tensor:
+    """Standard normal f32 draws ``[..., n]``, ``jax.random.normal(key,
+    (n,))``'s formula (see the module docstring for the ulps)."""
+    u = uniform(key, n, _NORMAL_LO)
+    sqrt2 = torch.tensor(2.0 ** 0.5, dtype=torch.float32, device=key.device)
+    return sqrt2 * erfinv_f32(u)
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -305,10 +305,10 @@ def test_unported_planes_and_strategies_raise(world):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             tavg.AveragerLoop(world["teng"], None, None,
                               tavg.WeightedAverage(), val_batches=None, **kw)
-    # ParameterizedMerge and OuterOptMerge are ported
-    # (tests/test_torch_parameterized_merge.py, test_torch_outer_merge.py)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tavg.GeneticMerge(None)
+    # ParameterizedMerge, OuterOptMerge and GeneticMerge are ported
+    # (tests/test_torch_parameterized_merge.py, test_torch_outer_merge.py,
+    # test_torch_genetic_merge.py)
+    assert tavg.GeneticMerge().lineage_weights([1.0]) == [1.0]
     outer = tavg.OuterOptMerge(tavg.WeightedAverage())
     assert outer.host_list_ingest and outer.lineage_weights([1.0]) is None
 
@@ -361,7 +361,10 @@ def test_averager_flags_match_the_jax_parser():
     (["--strategy", "weighted"], None),
     (["--strategy", "weighted", "--no-base-wire-v2"], None),
     (["--strategy", "weighted", "--no-base-wire-v2", "--no-lineage"], None),
-    (AVG_ARGS + ["--strategy", "genetic"], 6),
+    # the genetic merge is ported (tests/test_torch_genetic_merge.py); the
+    # id is the case's when slice 6 refused it
+    pytest.param(AVG_ARGS + ["--strategy", "genetic"], None,
+                 id="extra4-6"),
     # slice 5's flags are ported (tests/test_torch_outer_merge.py,
     # test_torch_hier_average.py, test_torch_remediate.py,
     # test_torch_signing.py run them through the CLI)

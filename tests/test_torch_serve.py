@@ -7,8 +7,8 @@ the JAX GenerationEngine and of the JAX ``reference_generate`` oracle —
 across page boundaries, with more requests than slots (continuous
 batching), under pool pressure (preemption) and across drain/restart hot
 swaps. Also here: the scheduler's bookkeeping classes against the JAX
-ones, the HTTP frontend, the explicit refusal of what the port does not
-carry yet (disaggregated phases), and the port's isolation from JAX.
+ones, the HTTP frontend, the disaggregated options validated as the JAX
+engine validates them, and the port's isolation from JAX.
 """
 
 import ast
@@ -327,15 +327,29 @@ def test_http_round_trip(world):
 # What the slice does not carry is refused
 # ---------------------------------------------------------------------------
 
-# the prefix cache, drafting, traces and sampling are ported (their own
-# tests/test_torch_*.py files); disaggregated phases are slice 6b
+# the prefix cache, drafting, traces, sampling and the disaggregated
+# phases are ported (their own tests/test_torch_*.py files)
 @pytest.mark.parametrize("kw", [{"phase": "prefill"},
                                 {"kv_exporter": object()},
                                 {"phase": "decode"},
                                 {"kv_adopter": object()}])
 def test_unported_engine_options_raise(world, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*6b"):
-        world.engine(**kw)
+    """The disaggregated options validate as the JAX engine's do: a
+    prefill worker without a KV exporter raises ValueError in both
+    packages, and the other spellings build in both."""
+    if kw.get("phase") == "prefill":
+        with pytest.raises(ValueError, match="kv_exporter"):
+            world.engine(**kw)
+        with pytest.raises(ValueError, match="kv_exporter"):
+            jserve.GenerationEngine(world.jmodel, world.jparams[0], **kw)
+        return
+    for eng in (world.engine(**kw),
+                jserve.GenerationEngine(world.jmodel, world.jparams[0],
+                                        **kw)):
+        try:
+            assert eng.phase == kw.get("phase", "unified")
+        finally:
+            eng.close()
 
 
 def test_sampling_and_transport_watcher_raise(world):

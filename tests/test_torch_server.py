@@ -3,9 +3,10 @@ transport-backed BaseRevisionWatcher of engine/serve.py) against the JAX
 package's, on the CPU.
 
 The ``server`` parser takes every flag of the JAX server's parser (same
-spellings, destinations, defaults and choices) and refuses only
-``--serve-phase prefill|decode`` (slice 6b) and the fleet planes'
-flags (slice 7). The CLI under ``DT_FORCE_PLATFORM=cpu`` boots from a
+spellings, destinations, defaults and choices) and refuses only the
+fleet planes' flags (slice 7); ``--serve-phase prefill|decode`` is
+ported (the CLI's disaggregated workers: tests/test_torch_kv_transfer.py
+and test_torch_router.py). The CLI under ``DT_FORCE_PLATFORM=cpu`` boots from a
 base the JAX package published on a LocalFS root, answers ``/generate``
 with the JAX engine's greedy tokens (and the port engine's sampled
 ones), and hot-swaps to a second published base. The watcher stages a
@@ -72,8 +73,10 @@ def test_server_flags_match_the_jax_parser():
     (["--speculative"], None),
     (["--no-prefix-cache", "--no-serve-trace"], None),
     (["--serve-phase", "unified"], None),
-    (["--serve-phase", "prefill"], "6b"),
-    (["--serve-phase", "decode"], "6b"),
+    # disaggregated workers are ported (tests/test_torch_kv_transfer.py);
+    # the ids are those of the cases when slice 6b refused them
+    pytest.param(["--serve-phase", "prefill"], None, id="extra4-6b"),
+    pytest.param(["--serve-phase", "decode"], None, id="extra5-6b"),
     (["--heartbeat-interval", "2"], 7),
     (["--obs-port", "9100"], 7),
     (["--metrics-path", "m.jsonl"], 7),
