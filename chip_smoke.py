@@ -6,6 +6,9 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --decode-ab N
     python3 chip_smoke.py --flash-ab N
     python3 chip_smoke.py --serve6b
+    python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --parallel-cards
+    python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
 path: copied into the root of each of two checkouts and run from each in
@@ -17,7 +20,14 @@ each. It uses nothing but entry points both sides have. The third form,
 phase 4's timing at the training shape (each kernel with and without
 segment ids, the profiler's device time of the backward pair and of
 SDPA's backward) and the fused train step's profile (phase 12's), one
-JSON line each. ``--serve6b`` runs phase 22 alone after the build.
+JSON line each. ``--serve6b`` runs phase 22 alone after the build,
+``--parallel`` phase 23 alone, and ``--parallel-cards`` phase 23's
+world over NCCL on every card of a machine with several. ``--phase-times
+OUT DIR...`` times the whole script of each checkout DIR in turn on one
+machine (parent, change, change, parent for a comparison): each run's
+``main()`` with every ``phase_*`` function timed, its output and errors
+in OUT, and one JSON line a run with its exit code and the seconds of
+each phase call in order.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -329,13 +339,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
            bits, and the device ms of a candidate-batch (torch.profiler
            over one cohort). Reports export and adopt ms per request, KV
            bytes per request (fresh, deduped) and the router's added ms.
+23. parallel the miner on a dp x fsdp x tp mesh over torch.distributed.
+           (a) A world of 1 over NCCL in this process: at the training
+           shape (B 8, T 1023, V 50304, E 768), bf16 and f32,
+           ``fused_ce_loss_sharded`` on a 1 x 1 x 1 x 1 mesh equals
+           ``fused_ce_loss`` bit for bit (loss, count, dh, dW) and
+           launches one forward, one dh and one dW; the f32 losses of
+           three steps of the mesh engine and a timed bf16 step (B 4, T
+           256). The sharded CE's kernels at one rank's shape of world 2
+           (N 4092): ms beside the bound, the plain version and the
+           library path. (b) A world of 2 over gloo, both ranks on the
+           card (NCCL refuses two ranks on one device), in two child
+           processes (``--parallel-worker``): the sharded CE on dp2,
+           fsdp2, tp2 and tp2 over 1023 rows (one padding row), each
+           rank's loss, dh rows and dW shard (summed over dp, as the
+           engine sums) held against ``fused_ce_loss`` over every row
+           within ``PAR_CE_TOL`` of each output's largest value, which a
+           planted halved dW shard and zeroed dh exceed, 1 / 1 / 1
+           launches a rank; each collective's
+           ms and bytes by backend and route (CUDA tensors staged through
+           pinned host memory under gloo); three f32 steps of the fsdp2
+           engine within 1e-4 relative of world 1's; a timed bf16 step
+           and each rank's peak card memory in it.
+           (c) ``neurons.miner.main`` at world 2 with ``--fsdp 2`` and
+           then ``--tp 2`` (``--fused-loss``, B 8, T 128, 3 steps, the
+           final push): rc 0 on both ranks, one artifact and its rider on
+           the transport, pushes only from rank 0, each rank's launches
+           exact (12 x steps of each flash kernel, steps of each CE
+           kernel), its shards after the pull bit-equal to the base's
+           slices, the delta finite with a held-out score > 0. Any failed
+           rank, collective or check fails the phase.
+           ``--parallel-cards`` runs (a) and the world of (b) and (c) over
+           NCCL with one rank a card on a machine with several cards.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
 JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
 ``slice5`` JSON line (phase 20), a ``serve6`` JSON line (phase 21), a
-``serve6b`` JSON line (phase 22), the ``nvidia-smi`` name/power-limit
-line,
+``serve6b`` JSON line (phase 22), a ``parallel`` JSON line (phase 23),
+the ``nvidia-smi`` name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -5390,6 +5432,665 @@ def phase_serve6b(tree, tok) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 23. parallel: the miner on a dp x fsdp x tp mesh over torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_SHARDED_REPLACES = "distributedtraining_tpu/ops/pallas_ce.py:381"
+PAR_SHARDED_SOURCE = ("distributedtraining_tpu_torch/ops/fused_ce.py "
+                      "(fused_ce_loss_sharded) around "
+                      "distributedtraining_tpu_torch/csrc/fused_ce.cu")
+# the sharded CE's rows as (B, T) of the hidden states: the training
+# shape's 8184, and 1023, which tp does not divide (padding at mask 0)
+PAR_ROWS, PAR_RAGGED_ROWS = (8, 1023), (1, 1023)
+PAR_MODEL = "gpt2-124m"
+PAR_V, PAR_E = 50304, 768
+PAR_CLI_B, PAR_CLI_T, PAR_CLI_STEPS = 8, 128, 3
+# (d): timed bf16 engine steps and the f32 parity (global batches)
+PAR_STEP_B, PAR_STEP_T, PAR_STEP_REPS = 4, 256, 3
+PAR_F32_B, PAR_F32_T, PAR_F32_STEPS = 4, 128, 3
+PAR_TIMEOUT_S = 300
+# (b)'s limits on each output's error over its largest reference value:
+# bf16 CE_TOL's; f32 1e-4, where the sound readings are the summation
+# order of the kernels at other row counts (to 4.7e-6 at world 2 on one
+# card, 1.32e-5 for dh at dp2 x tp2 over NCCL on four), and a planted
+# halved dW shard reads 0.5 and a zeroed dh 1
+PAR_CE_TOL = {"float32": 1e-4, "bfloat16": CE_TOL["bfloat16"]}
+
+
+def _par_world_spec(n: int) -> dict:
+    """What a world of ``n`` ranks runs: (b) the sharded CE's meshes,
+    the meshes whose collectives are timed, the engine's mesh and (c)
+    the miner CLI's mesh flags. n 2 is phase 23 (every axis alone); a
+    world of more cards mixes axes."""
+    if n == 2:
+        ce = {"dp2": {"dp": 2}, "fsdp2": {"fsdp": 2}, "tp2": {"tp": 2},
+              "tp2_ragged": {"tp": 2}}
+        cli = {"fsdp2": ["--fsdp", "2"], "tp2": ["--tp", "2"]}
+    else:
+        h = n // 2
+        ce = {f"dp{h}xtp2": {"dp": h, "tp": 2},
+              f"fsdp{h}xtp2": {"fsdp": h, "tp": 2},
+              f"fsdp{n}": {"fsdp": n}, f"tp{n}_ragged": {"tp": n}}
+        cli = {f"fsdp{h}xtp2": ["--fsdp", str(h), "--tp", "2"],
+               f"dp{n}": ["--dp", "0"]}
+    return {"world": n, "ce": ce, "engine": {"fsdp": n},
+            "collectives": {"fsdp": {"fsdp": n}, "tp": {"tp": n}},
+            "cli": cli}
+
+
+def _par_ce_case(B, T, dtype, seed, dev):
+    """hidden ``[B, T, E]`` in ``dtype``, the f32 head (the ``wte``
+    param), int32 labels and a loss mask (10% zeros), drawn on the host
+    from ``seed`` (the same values in every process)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn((B, T, PAR_E), generator=gen).to(dev, dtype)
+    w = (torch.randn((PAR_V, PAR_E), generator=gen) * 0.02).to(dev)
+    y = torch.randint(0, PAR_V, (B, T), generator=gen).to(dev, torch.int32)
+    m = (torch.rand((B, T), generator=gen) > 0.1).float().to(dev)
+    return h, w, y, m
+
+
+def _par_sync() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
+def _par_world1(dev, flat_tree) -> dict:
+    """(a): on a world of 1 over NCCL, ``fused_ce_loss_sharded`` at the
+    training shape equals ``fused_ce_loss`` bit for bit (value, dh, dW)
+    and launches one forward, one dh and one dW; then the f32 losses and
+    the timed bf16 steps of the mesh engine on that world."""
+    import torch
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.parallel import (Mesh, MeshConfig,
+                                                        multihost)
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=dev,
+                         backend="nccl", timeout_s=PAR_TIMEOUT_S)
+    out = {}
+    try:
+        import torch.distributed as dist
+        out["backend"] = dist.get_backend()
+        mesh = Mesh(MeshConfig())
+        for dt in (torch.bfloat16, torch.float32):
+            h, w, y, m = _par_ce_case(*PAR_ROWS, dt, SEED, dev)
+            hs, ws = (h.clone().requires_grad_(), w.clone().requires_grad_())
+            _zero_counts()
+            loss_s, count_s = fused_ce.fused_ce_loss_sharded(hs, ws, y, m,
+                                                             mesh=mesh)
+            loss_s.backward()
+            _par_sync()
+            launches = dict(fused_ce.launches)
+            h1, w1 = h.clone().requires_grad_(), w.clone().requires_grad_()
+            loss_1, count_1 = fused_ce.fused_ce_loss(h1, w1, y, m)
+            loss_1.backward()
+            name = str(dt).split(".")[1]
+            check(launches == {"fused_ce_fwd": 1, "fused_ce_bwd_dh": 1,
+                               "fused_ce_bwd_dw": 1},
+                  f"world-1 sharded CE {name}: launches {launches}")
+            same = {"loss": torch.equal(loss_s, loss_1),
+                    "count": torch.equal(count_s, count_1),
+                    "dh": torch.equal(hs.grad, h1.grad),
+                    "dw": torch.equal(ws.grad, w1.grad)}
+            check(all(same.values()), f"world-1 sharded CE {name} is not "
+                                      f"bit-equal to fused_ce_loss: {same}")
+            out[name] = {"bit_equal": same, "launches": launches,
+                         "loss": float(loss_1)}
+            del h, w, hs, ws, h1, w1
+        f32 = dataclasses.replace(gpt2.PRESETS[PAR_MODEL], dtype="float32")
+        out["f32_losses"] = _par_engine_losses(f32, flat_tree,
+                                               _par_f32_batches(), mesh, dev)
+        out["step_ms"], out["step_peak_bytes"] = _par_step_ms(
+            gpt2.PRESETS[PAR_MODEL], flat_tree, mesh, dev)
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def _par_kernel_timing() -> dict:
+    """The sharded CE's kernels at one rank's shape on world 2 (half of
+    N 8184: N 4092, V 50304, E 768, bf16): forward + backward entry, the
+    plain versions, one library path (cuBLAS GEMM + F.cross_entropy and
+    its backward), and the least time of the same work."""
+    import torch
+    from distributedtraining_tpu_torch.ops import fused_ce
+    n = PAR_ROWS[0] * PAR_ROWS[1] // 2
+    h, w, y, g = _ce_inputs(n, PAR_V, PAR_E, torch.bfloat16, SEED + 23)
+    loss, m, s = fused_ce.fused_ce_fwd(h, w, y)
+    fwd = _time_ms(lambda: fused_ce.fused_ce_fwd(h, w, y))
+    bwd = _time_ms(lambda: fused_ce.fused_ce_bwd(h, w, y, m, s, g))
+    plain = (_time_ms(lambda: fused_ce.fused_ce_fwd_reference(h, w, y),
+                      reps=5, warm=1)
+             + _time_ms(lambda: _ce_plain_bwd(h, w, y, m, s, g,
+                                              torch.bfloat16),
+                        reps=5, warm=1))
+    hh, ww = h.detach().requires_grad_(), w.detach().requires_grad_()
+
+    def library():
+        out = torch.nn.functional.cross_entropy(
+            (hh @ ww.T).float(), y.long(), reduction="none")
+        torch.autograd.grad(out, (hh, ww), g)
+
+    lib = _time_ms(library)
+    # inputs read once (h, the head, labels, the upstream gradient),
+    # outputs written once (loss, m, s, dh, f32 dW); 2 N V E operations
+    # for the forward, 6 for the backward (z again, dh and dW)
+    nbytes = (n * PAR_E * 2 + PAR_V * PAR_E * 2 + 2 * n * 4 + 3 * n * 4
+              + n * PAR_E * 2 + PAR_V * PAR_E * 4)
+    ops = 8 * n * PAR_V * PAR_E
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_BF16_FLOPS * 1e3
+    del h, w, hh, ww
+    torch.cuda.empty_cache()
+    return {"N": n, "V": PAR_V, "E": PAR_E, "dtype": "bfloat16",
+            "fwd_ms": fwd, "bwd_ms": bwd, "ms": fwd + bwd, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _par_engine_losses(model_cfg, tree, batches, mesh, dev) -> list:
+    """Losses of ``len(batches)`` fused-loss steps from ``tree`` (each
+    rank fed its rows of the global batches)."""
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.parallel import batch_rows
+    model, _ = gpt2.make_model(model_cfg)
+    eng = TrainEngine(model, fused_loss=True, mesh=mesh, device=dev)
+    state = eng.init_state(tree)
+    losses = []
+    for ids in batches:
+        b = {"input_ids": ids}
+        if mesh is not None and mesh.world_size > 1:
+            b = batch_rows(b, mesh)
+        state, m = eng.train_step(state, eng.place_batch(b))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def _par_step_ms(model_cfg, tree, mesh, dev) -> tuple[float, int]:
+    """Median host ms of a bf16 fused-loss step (synchronised) at global
+    B ``PAR_STEP_B``, T ``PAR_STEP_T``, after one untimed step, and this
+    process's peak of allocated card memory above what it held before
+    the engine's state (the state, a step's gathered parameters,
+    activations and gradients)."""
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.parallel import batch_rows
+    model, _ = gpt2.make_model(model_cfg)
+    eng = TrainEngine(model, fused_loss=True, mesh=mesh, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # what earlier work holds
+    state = eng.init_state(tree)
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, model_cfg.vocab_size,
+                       (PAR_STEP_B, PAR_STEP_T)).astype(np.int32)
+    b = {"input_ids": ids}
+    if mesh is not None and mesh.world_size > 1:
+        b = batch_rows(b, mesh)
+    b = eng.place_batch(b)
+    times = []
+    for i in range(PAR_STEP_REPS + 1):
+        _par_sync()
+        t0 = time.perf_counter()
+        state, _ = eng.train_step(state, b)
+        _par_sync()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return (statistics.median(times),
+            torch.cuda.max_memory_allocated() - held)
+
+
+def _par_f32_batches() -> list:
+    import numpy as np
+    from distributedtraining_tpu_torch.models import gpt2
+    rng = np.random.default_rng(SEED + 1)
+    v = gpt2.PRESETS[PAR_MODEL].vocab_size
+    return [rng.integers(0, v, (PAR_F32_B, PAR_F32_T)).astype(np.int32)
+            for _ in range(PAR_F32_STEPS)]
+
+
+# -- world 2: one process a rank, both on the one card, over gloo ----------
+
+def _par_worker_ce(dev, meshes: dict) -> dict:
+    """(b) on this rank: each mesh and dtype, this rank's rows and head
+    shard through ``fused_ce_loss_sharded``, held against
+    ``fused_ce_loss`` over every row on the same card (world 1's
+    result): the loss, this rank's rows of dh and its shard of dW (summed
+    over dp, as the engine sums every gradient)."""
+    import torch
+    import torch.distributed as dist
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.parallel import (
+        Mesh, MeshConfig, batch_rows, collectives, shard_params)
+    from distributedtraining_tpu_torch.parallel.sharding import shard_slices
+    out = {}
+    for name, kw in meshes.items():
+        mesh = Mesh(MeshConfig(**kw))
+        B, T = PAR_RAGGED_ROWS if name.endswith("_ragged") else PAR_ROWS
+        for dt in (torch.bfloat16, torch.float32):
+            dtn = str(dt).split(".")[1]
+            h, w, y, m = _par_ce_case(B, T, dt, SEED + 5, dev)
+            hr, wr = h.clone().requires_grad_(), w.clone().requires_grad_()
+            lr, _ = fused_ce.fused_ce_loss(hr, wr, y, m)
+            lr.backward()
+            rows = batch_rows({"h": h, "y": y, "m": m}, mesh)
+            hs = rows["h"].clone().requires_grad_()
+            ws = shard_params({"wte": w}, mesh, device=dev)["wte"]
+            ws.requires_grad_()
+            _zero_counts()
+            _par_sync()
+            dist.barrier()        # both ranks start the timed call together
+            t0 = time.perf_counter()
+            loss, count = fused_ce.fused_ce_loss_sharded(
+                hs, ws, rows["y"], rows["m"], mesh=mesh)
+            loss.backward()
+            _par_sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(fused_ce.launches)
+            dw = collectives.all_reduce_(ws.grad, mesh, ("dp",))
+            i = mesh.index(("dp", "fsdp"))
+            per = B // mesh.size(("dp", "fsdp"))
+            sl = shard_slices("wte", tuple(w.shape), ("tp", "fsdp"),
+                              mesh.shape, mesh.coords)
+            ref_dh, ref_dw = hr.grad[i * per:(i + 1) * per], wr.grad[sl]
+            # PAR_CE_TOL of the largest reference value in both dtypes
+            # (_ce_limit_errors' bf16 rule: the gradients are far below
+            # 1), with planted faults that the limit must reject
+            errs = _ce_limit_errors({
+                "loss": (loss.detach().reshape(1), lr.detach().reshape(1)),
+                "dh": (hs.grad, ref_dh), "dw": (dw, ref_dw)}, "bfloat16")
+            planted = _ce_limit_errors({
+                "dh_zeroed": (torch.zeros_like(ref_dh), ref_dh),
+                "dw_halved": (dw * 0.5, ref_dw)}, "bfloat16")
+            out[f"{name}_{dtn}"] = {
+                "rows": [B, T], "coords": mesh.coords, "host_ms": ms,
+                "count": float(count), "launches": launches,
+                "max_abs": {k: d for k, (d, _) in errs.items()},
+                "err": {k: e for k, (_, e) in errs.items()},
+                "planted_err": {k: e for k, (_, e) in planted.items()}}
+            del h, w, hr, wr, hs, ws, dw
+    return out
+
+
+def _par_worker_collectives(dev, meshes: dict) -> dict:
+    """Host ms (synchronised, median of 3 after one) and bytes of each
+    collective of the sharded CE at its training-shape buffers, the
+    world along fsdp alone and along tp alone: the head's all-gather and
+    dW's reduce-scatter, dh's all-reduce over tp, the loss totals'
+    all-reduce."""
+    import torch
+    from distributedtraining_tpu_torch.parallel import (Mesh, MeshConfig,
+                                                        collectives)
+    rows = PAR_ROWS[0] * PAR_ROWS[1]
+    f32, bf = torch.float32, torch.bfloat16
+    meshes = {k: Mesh(MeshConfig(**kw)) for k, kw in meshes.items()}
+    k = meshes["fsdp"].world_size
+
+    def zeros(shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    cases = {
+        f"all_gather_head_fsdp{k}": ("fsdp", lambda m: collectives
+                                     ._raw_all_gather(
+                                         zeros((PAR_V, PAR_E // k)),
+                                         m.group("fsdp"), k, 1)),
+        f"all_gather_head_tp{k}": ("tp", lambda m: collectives
+                                   ._raw_all_gather(
+                                       zeros((PAR_V // k, PAR_E)),
+                                       m.group("tp"), k, 0)),
+        f"reduce_scatter_dw_fsdp{k}": ("fsdp", lambda m: collectives
+                                       ._raw_reduce_scatter(
+                                           zeros((PAR_V, PAR_E)),
+                                           m.group("fsdp"), k, 1)),
+        f"reduce_scatter_dw_tp{k}": ("tp", lambda m: collectives
+                                     ._raw_reduce_scatter(
+                                         zeros((PAR_V, PAR_E)),
+                                         m.group("tp"), k, 0)),
+        f"all_reduce_dh_tp{k}": ("tp", lambda m: collectives
+                                 ._raw_all_reduce(zeros((rows, PAR_E), bf),
+                                                  m.group("tp"))),
+        f"all_reduce_totals_tp{k}": ("tp", lambda m: collectives
+                                     ._raw_all_reduce(zeros(()),
+                                                      m.group("tp"))),
+    }
+    out = {}
+    for name, (mesh_name, fn) in cases.items():
+        mesh = meshes[mesh_name]
+        before = {k: dict(v) for k, v in collectives.counts.items()}
+        times = []
+        for i in range(4):
+            _par_sync()
+            t0 = time.perf_counter()
+            fn(mesh)
+            _par_sync()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        after = collectives.counts
+        key = next(k for k in after
+                   if after[k]["calls"] != before.get(k, {}).get("calls", 0))
+        calls = after[key]["calls"] - before.get(key, {}).get("calls", 0)
+        out[name] = {"ms": statistics.median(times), "op": key[0],
+                     "backend": key[1], "route": key[2],
+                     "bytes": (after[key]["bytes"] - before.get(
+                         key, {}).get("bytes", 0)) // calls}
+    return out
+
+
+def _par_worker_cli(dev, flags: list, work: str) -> dict:
+    """(c) on this rank: ``neurons.miner.main`` on this world with the
+    mesh ``flags``; counts set to 0 just before and read just after;
+    this rank's shards right after the pull against the base's slices."""
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.engine import train as ttrain
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.parallel import shard_params
+    base = delta.flatten_tree(gpt2.init_params_numpy(
+        gpt2.PRESETS[PAR_MODEL], SEED))
+    seen = {}
+    bootstrap = ttrain.MinerLoop.bootstrap
+
+    def watched(loop, *a, **kw):
+        bootstrap(loop, *a, **kw)
+        want = shard_params(base, loop.engine.mesh, specs=loop.engine.specs,
+                            device=dev)
+        seen.update(loop=loop, boot_bit_equal=all(
+            torch.equal(loop.state.params[k].detach(), want[k])
+            for k in want), base_revision=loop._base_revision)
+
+    argv = (README_MINER_FLAGS + flags + [
+        "--work-dir", work, "--batch-size", str(PAR_CLI_B),
+        "--seq-len", str(PAR_CLI_T), "--max-steps", str(PAR_CLI_STEPS)])
+    ttrain.MinerLoop.bootstrap = watched
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc = miner_cli.main(argv)
+        _par_sync()
+        secs = time.perf_counter() - t0
+        launches = {**fa.launches, **fused_ce.launches}
+    finally:
+        ttrain.MinerLoop.bootstrap = bootstrap
+    loop = seen["loop"]
+    return {"argv": argv, "rc": rc, "s": secs, "steps": loop.report.steps,
+            "pushes": loop.report.pushes,
+            "pushes_failed": loop.report.pushes_failed,
+            "launches": launches, "boot_bit_equal": seen["boot_bit_equal"],
+            "base_revision": seen["base_revision"],
+            "mesh": loop.engine.mesh.shape,
+            "coords": loop.engine.mesh.coords}
+
+
+def parallel_worker(rank: int, port: int, tmp: str) -> int:
+    """One rank of a world of ``_par_world_spec`` (``--parallel-worker``):
+    (b), the collectives' times, the f32 parity and timed steps of the
+    fsdp engine, then (c); its results in ``tmp/out_<rank>.json``. Any
+    failed collective, kernel or check raises, and the process exits
+    non-zero."""
+    import torch
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.parallel import (Mesh, MeshConfig,
+                                                        collectives,
+                                                        multihost)
+    sys.path.insert(0, ROOT)
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    dev = DEV
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = spec["world"]
+    multihost.initialize(f"127.0.0.1:{port}", world["world"], rank,
+                         device=dev, backend=spec["backend"],
+                         timeout_s=PAR_TIMEOUT_S)
+    import torch.distributed as dist
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    try:
+        collectives.reset_counts()
+        out["ce"] = _par_worker_ce(dev, world["ce"])
+        out["collectives"] = _par_worker_collectives(dev,
+                                                     world["collectives"])
+        tree = flatten_tree(gpt2.init_params_numpy(
+            gpt2.PRESETS[PAR_MODEL], SEED))
+        mesh = Mesh(MeshConfig(**world["engine"]))
+        f32 = dataclasses.replace(gpt2.PRESETS[PAR_MODEL], dtype="float32")
+        out["f32_losses"] = _par_engine_losses(f32, tree, _par_f32_batches(),
+                                               mesh, dev)
+        out["step_ms"], out["step_peak_bytes"] = _par_step_ms(
+            gpt2.PRESETS[PAR_MODEL], tree, mesh, dev)
+        del tree
+        out["cli"] = {name: _par_worker_cli(dev, world["cli"][name], work)
+                      for name, work in spec["cli_work"].items()}
+        out["collective_counts"] = [
+            {"op": k[0], "backend": k[1], "route": k[2], **v}
+            for k, v in sorted(collectives.counts.items())]
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(tmp, f"out_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _par_score(tree, tok, work: str) -> dict:
+    """The pushed delta of a world-2 CLI run: finite, and the held-out
+    score of base + delta (base loss - trained loss, the validator's
+    rule) on the card, one device."""
+    import math
+    import numpy as np
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch.engine.train import (TrainEngine,
+                                                            _wire_template)
+    from distributedtraining_tpu_torch.models import gpt2
+    model, _ = gpt2.make_model(gpt2.PRESETS[PAR_MODEL])
+    deltas = os.path.join(work, "artifacts", "deltas")
+    files = sorted(os.listdir(deltas))
+    check(files == ["hotkey_0.meta.json", "hotkey_0.msgpack"],
+          f"world-2 CLI: the deltas on the transport are {files}: one "
+          f"artifact and its rider, from the coordinator")
+    with open(os.path.join(deltas, "hotkey_0.msgpack"), "rb") as f:
+        d = ser.from_msgpack(f.read(), _wire_template(model))
+    check(all(bool(np.isfinite(np.asarray(v)).all()) for v in _leaves(d)),
+          "world-2 CLI: the pushed delta has non-finite values")
+    eng = TrainEngine(model, fused_loss=True, device="cuda")
+    held = _batches(tok, split="test", batch_size=PAR_CLI_B,
+                    seq_len=PAR_CLI_T, n=2)
+    base = gpt2.params_from_numpy(tree, device="cuda")
+    dstate = gpt2.params_from_numpy(d, device="cuda")
+    base_loss, _ = eng.evaluate(base, held)
+    trained_loss, _ = eng.evaluate({k: base[k] + dstate[k] for k in base},
+                                   held)
+    score = base_loss - trained_loss
+    check(math.isfinite(score) and score > 0,
+          f"world-2 CLI: held-out score of base + delta {score} is not > 0")
+    return {"base_loss": base_loss, "trained_loss": trained_loss,
+            "score": score}
+
+
+def _par_run_world(n: int, backend: str, tree, tok, f32_world1: list
+                   ) -> dict:
+    """A world of ``n`` child processes (``--parallel-worker``): over
+    gloo, every rank on this card; over NCCL, rank r on card r. Checks
+    (b) against ``PAR_CE_TOL`` of the max, (c) and the f32 losses against world 1's
+    (1e-4 relative); any failed rank fails the phase."""
+    import tempfile
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    world = _par_world_spec(n)
+    what = f"world {n} ({backend})"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_work = {}
+        for name in world["cli"]:
+            work = os.path.join(tmp, f"cli_{name}")
+            LocalFSTransport(os.path.join(work, "artifacts")).publish_base(
+                tree)
+            cli_work[name] = work
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump({"backend": backend, "world": world,
+                       "cli_work": cli_work}, f)
+        port = _free_port()
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+                for r in range(n)]
+        env = {**os.environ, "DT_DIST_BACKEND": backend}
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+             str(r), str(port), tmp], stdout=logs[r],
+            stderr=subprocess.STDOUT, cwd=ROOT,
+            env={**env, **({"LOCAL_RANK": str(r)} if backend == "nccl"
+                           else {})}) for r in range(n)]
+        try:
+            rcs = [p.wait(timeout=PAR_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+            for f in logs:
+                f.close()
+        if any(rcs):
+            for r in range(n):
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    log(f"--- rank {r} (exit {rcs[r]}):\n"
+                        + f.read()[-6000:])
+        check(not any(rcs), f"{what}: ranks exited {rcs}")
+        outs = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"out_{r}.json")) as f:
+                outs.append(json.load(f))
+        res = {"backend": [o["backend"] for o in outs],
+               "devices": [o["device"] for o in outs]}
+        # (b) within PAR_CE_TOL of world 1's largest value, every rank,
+        # mesh, dtype and output; the planted faults outside it. Every
+        # reading is logged before the first check.
+        log(f"{what} sharded CE errors:", json.dumps(
+            {key: [{"err": o["ce"][key]["err"],
+                    "planted_err": o["ce"][key]["planted_err"]}
+                   for o in outs] for key in outs[0]["ce"]}))
+        ce = {}
+        for key in outs[0]["ce"]:
+            per = [o["ce"][key] for o in outs]
+            tol = PAR_CE_TOL["float32" if key.endswith("float32")
+                             else "bfloat16"]
+            for r, c in enumerate(per):
+                for out_name, err in c["err"].items():
+                    check(err <= tol, f"{what} sharded CE {key} rank {r}: "
+                                      f"{out_name} error {err} > {tol}")
+                for out_name, err in c["planted_err"].items():
+                    check(err > tol, f"{what} sharded CE {key} rank {r}: "
+                                     f"planted {out_name} error {err} "
+                                     f"passes the limit {tol}")
+                check(c["launches"] == {"fused_ce_fwd": 1,
+                                        "fused_ce_bwd_dh": 1,
+                                        "fused_ce_bwd_dw": 1},
+                      f"{what} sharded CE {key} rank {r}: launches "
+                      f"{c['launches']}")
+            ce[key] = {"max_err": max(e for c in per
+                                      for e in c["err"].values()),
+                       "err": {o: max(c["err"][o] for c in per)
+                               for o in per[0]["err"]},
+                       "planted_err": {o: min(c["planted_err"][o]
+                                              for c in per)
+                                       for o in per[0]["planted_err"]},
+                       "max_abs": max(d for c in per
+                                      for d in c["max_abs"].values()),
+                       "host_ms": [c["host_ms"] for c in per],
+                       "tol": tol}
+        res["ce"] = ce
+        # (c) the CLI runs: coordinator-only publishing, exact counts,
+        # shards after the pull, the delta's score
+        cli = {}
+        for name, work in cli_work.items():
+            runs = [o["cli"][name] for o in outs]
+            for r, run in enumerate(runs):
+                check(run["rc"] == 0 and run["steps"] == PAR_CLI_STEPS,
+                      f"{what} CLI {name} rank {r}: rc {run['rc']}, steps "
+                      f"{run['steps']}")
+                check(run["boot_bit_equal"], f"{what} CLI {name} rank {r}: "
+                      f"shards after the pull differ from the base's slices")
+                _check_launches(f"{what} CLI {name} rank {r}",
+                                run["launches"], _train_want(
+                                    gpt2.PRESETS[PAR_MODEL], run["steps"],
+                                    fused=True))
+            check(runs[0]["pushes"] >= 1 and runs[0]["pushes_failed"] == 0
+                  and all(x["pushes"] == 0 for x in runs[1:]),
+                  f"{what} CLI {name}: pushes {[x['pushes'] for x in runs]}"
+                  f" (only the coordinator publishes)")
+            cli[name] = {"argv": runs[0]["argv"],
+                         "s": [x["s"] for x in runs],
+                         "pushes": [x["pushes"] for x in runs],
+                         "launches": [x["launches"] for x in runs],
+                         "mesh": runs[0]["mesh"],
+                         "coords": [x["coords"] for x in runs],
+                         **_par_score(tree, tok, work)}
+        res["cli"] = cli
+    for r, o in enumerate(outs):
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(o["f32_losses"], f32_world1))
+        check(rel <= 1e-4, f"{what} f32 {world['engine']} rank {r} losses "
+                           f"{o['f32_losses']} vs world 1 {f32_world1}: "
+                           f"{rel} relative")
+    res.update(f32_losses=[o["f32_losses"] for o in outs],
+               step_ms=[o["step_ms"] for o in outs],
+               step_peak_bytes=[o["step_peak_bytes"] for o in outs],
+               collectives=outs[0]["collectives"],
+               collective_counts=[o["collective_counts"] for o in outs],
+               s=time.perf_counter() - t0)
+    return res
+
+
+def phase_parallel(tree, tok) -> dict:
+    """Phase 23 (see the module docstring): (a) world 1 over NCCL in this
+    process; then a world of 2 over gloo, both ranks on this card."""
+    import torch
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    t_start = time.perf_counter()
+    res = {"world1": _par_world1(DEV, flatten_tree(tree)),
+           "kernel": _par_kernel_timing()}
+    res["world1_s"] = time.perf_counter() - t_start
+    torch.cuda.empty_cache()
+    res["world2"] = _par_run_world(2, "gloo", tree, tok,
+                                   res["world1"]["f32_losses"])
+    res["s"] = time.perf_counter() - t_start
+    log("parallel:", json.dumps(res))
+    return res
+
+
+def _sharded_entry(par: dict) -> dict:
+    """Phase 23's line for the sharded CE: its kernels at one rank's
+    shape, the launches of the main path (rank 0 of the first world-2
+    CLI run), the world-2 errors and the collectives (gloo, one card)."""
+    k = par["kernel"]
+    w2 = par["world2"]
+    runs = w2["cli"]
+    return {
+        "name": "fused_ce_loss_sharded", "route": "cuda",
+        "source": PAR_SHARDED_SOURCE, "replaces": PAR_SHARDED_REPLACES,
+        "tpu_kernel": "distributedtraining_tpu/ops/pallas_ce.py:"
+                      "fused_ce_loss_sharded (pallas_call :178, :201, :220 "
+                      "under shard_map)",
+        "launches": next(iter(runs.values()))["launches"][0]["fused_ce_fwd"],
+        "launches_by_run": {name: [x["fused_ce_fwd"] for x in r["launches"]]
+                            for name, r in runs.items()},
+        "max_abs_err": max(c["max_abs"] for c in w2["ce"].values()),
+        "max_limit_err": {key: c["max_err"] for key, c in w2["ce"].items()},
+        "ms": k["ms"], "fwd_ms": k["fwd_ms"], "bwd_ms": k["bwd_ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        "timed_shape": f"one rank of world 2: N {k['N']}, V {k['V']}, "
+                       f"E {k['E']}, {k['dtype']}",
+        "collectives_ms_gloo_one_card": {
+            name: c["ms"] for name, c in w2["collectives"].items()}}
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -5628,6 +6329,7 @@ def main() -> int:
     t0 = time.perf_counter()
     serve6b = phase_serve6b(tree, tok)
     serve6b["s"] = time.perf_counter() - t0
+    par = phase_parallel(tree, tok)
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
     print(json.dumps({"kernels": [{
@@ -5661,6 +6363,7 @@ def main() -> int:
         *_flash_entries(flash, train, build, val, meta, defaults, slice5,
                         s6b, serve6b["genetic"]["launches"]),
         *_ce_entries(ce, miner, tfused, build, defaults, slice5),
+        _sharded_entry(par),
         _scatter_entry(scatter, avg, build, defaults, slice5)]}),
         flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
@@ -5679,16 +6382,78 @@ def main() -> int:
                                     "phases_17_18_s": val_meta_s,
                                     "card": card}}), flush=True)
     print(json.dumps({"defaults": {**defaults, "card": card}}), flush=True)
-    total_s = time.perf_counter() - t_start
     print(json.dumps({"slice5": {**slice5, "card": card}}), flush=True)
     print(json.dumps({"serve6": {**serve6, "card": card}}), flush=True)
-    print(json.dumps({"serve6b": {**serve6b, "card": card,
-                                  "total_s": total_s}}, default=str),
+    total_s = time.perf_counter() - t_start
+    print(json.dumps({"serve6b": {**serve6b, "card": card}}, default=str),
           flush=True)
+    print(json.dumps({"parallel": {**par, "card": card,
+                                   "total_s": total_s}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# Runs one checkout's main() with its phase_* functions timed; argv[1]
+# is the file for the times. Nested phase calls are listed each.
+_PHASE_TIMER = r"""
+import importlib.util, json, sys, time
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+times = []
+
+
+def timed(name, fn):
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            times.append([name, time.perf_counter() - t0])
+    return run
+
+
+for name in dir(mod):
+    if name.startswith("phase_") and callable(getattr(mod, name)):
+        setattr(mod, name, timed(name, getattr(mod, name)))
+try:
+    rc = mod.main()
+finally:
+    with open(sys.argv[1], "w") as f:
+        json.dump(times, f)
+sys.exit(rc)
+"""
+
+
+def phase_times(out: str, dirs: list) -> int:
+    """``--phase-times OUT DIR...`` (see the module docstring). Every
+    run must exit 0 and end on the result line."""
+    os.makedirs(out, exist_ok=True)
+    rcs = []
+    for i, d in enumerate(dirs):
+        name = os.path.join(out, f"run{i}")
+        t0 = time.perf_counter()
+        with open(name + ".out", "w") as fo, open(name + ".err", "w") as fe:
+            rc = subprocess.call(
+                [sys.executable, "-c", _PHASE_TIMER,
+                 os.path.abspath(name + ".json")],
+                cwd=d, stdout=fo, stderr=fe)
+        wall = time.perf_counter() - t0
+        with open(name + ".out") as f:
+            lines = f.read().splitlines()
+        ok = bool(lines) and lines[-1].startswith('{"ok": true')
+        times = []
+        if os.path.exists(name + ".json"):
+            with open(name + ".json") as f:
+                times = json.load(f)
+        print(json.dumps({"phase_times": {"dir": d, "rc": rc, "ok": ok,
+                                          "s": wall, "phases": times}}),
+              flush=True)
+        rcs.append(rc if ok else rc or 1)
+    check(not any(rcs), f"--phase-times: runs exited {rcs}")
     return 0
 
 
@@ -5766,8 +6531,68 @@ def serve6b_only() -> int:
     return 0
 
 
+def parallel_only() -> int:
+    """Phase 23 alone after the build (``--parallel``): the sharded CE's
+    kernels line, the ``parallel`` line, the card's line and the result
+    line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributedtraining_tpu_torch.models import gpt2
+    phase_build()
+    tok = _tokenizer()
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
+    par = phase_parallel(tree, tok)
+    print(json.dumps({"kernels": [_sharded_entry(par)]}), flush=True)
+    print(json.dumps({"parallel": {**par, "card": card}}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def parallel_cards() -> int:
+    """Phase 23's world over NCCL on every card of the machine
+    (``--parallel-cards``, two or more): world 1 on card 0 for its
+    checks and the f32 reference, then one rank a card. The
+    ``parallel_cards`` line, the card's line and the result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.models import gpt2
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--parallel-cards needs two or more cards, found {n}")
+    phase_build()
+    tok = _tokenizer()
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
+    t0 = time.perf_counter()
+    w1 = _par_world1(DEV, flatten_tree(tree))
+    torch.cuda.empty_cache()
+    res = {"world1": w1,
+           f"world{n}": _par_run_world(n, "nccl", tree, tok,
+                                       w1["f32_losses"]),
+           "s": time.perf_counter() - t0}
+    print(json.dumps({"parallel_cards": {**res, "card": card}}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": n}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--parallel-cards"]:
+            sys.exit(parallel_cards())
+        if sys.argv[1:2] == ["--phase-times"]:
+            sys.exit(phase_times(sys.argv[2], sys.argv[3:]))
+        if sys.argv[1:2] == ["--parallel-worker"]:
+            sys.exit(parallel_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                     sys.argv[4]))
+        if sys.argv[1:2] == ["--parallel"]:
+            sys.exit(parallel_only())
         if sys.argv[1:2] == ["--serve6b"]:
             sys.exit(serve6b_only())
         if sys.argv[1:2] == ["--decode-ab"]:

@@ -30,9 +30,26 @@ packed top-k form with its error-feedback residual), pull bases through
 the content-addressed ``engine/basedist.BaseFetcher``, checkpoint locally
 (``checkpoint.CheckpointStore``) and resume from it, and profile a
 window of steps (``utils/metrics.TraceCapture``, on its own or armed by
-``utils/obs.AnomalyMonitor``). Not ported yet, and refused: a device mesh
-(``mesh=``), ``mu_dtype``, the model's dropout and remat, and the miner's
-int8/sparse8 deltas and heartbeats (ROADMAP "Slices of the port").
+``utils/obs.AnomalyMonitor``).
+
+On a mesh (``mesh=``, a ``parallel.Mesh``: one process per device over
+``torch.distributed``) the state holds this rank's shards of the
+parameters and of Adam's moments (``parallel/sharding.py``). Each step
+all-gathers each block's parameters as the block starts and drops them
+as it ends, gathering again what the backward needs (ZeRO-3: the
+gather's backward sums the gradient over fsdp and keeps this rank's tp
+slice), feeds the tied head to the sharded fused CE as its shard, sums the
+gradients over dp (and over fsdp where a parameter is not split on it),
+clips by the global norm over the shards and updates the shards. The
+blocks compute on gathered parameters: tp splits storage and the CE's
+rows, not the blocks' heads or MLP columns. The miner's round on a mesh
+follows the JAX pod rules: the coordinator reads the transport and
+broadcasts what it read, every rank re-shards, cadence decisions and the
+guards' verdicts are the coordinator's, and the coordinator alone
+publishes a delta gathered from every rank's shards and writes
+checkpoints of the gathered state. Not ported yet, and refused:
+``mu_dtype``, the model's dropout and remat, sequence parallelism and
+heartbeats (ROADMAP "Slices of the port").
 """
 
 from __future__ import annotations
@@ -50,7 +67,8 @@ import torch
 from .. import delta as delta_lib
 from ..models.gpt2 import (init_params_numpy, params_from_numpy,
                            params_to_numpy, resolve_device)
-from ..ops.losses import causal_lm_loss, fused_linear_cross_entropy
+from ..ops.losses import (causal_lm_loss, causal_lm_totals,
+                          fused_linear_cross_entropy)
 from ..utils import obs
 from .basedist import fetch_base
 from .scheduler import Clock, PeriodicAction, RealClock
@@ -100,21 +118,27 @@ class AdamW:
                          for k, v in params.items()}
         return AdamWState(count=0, mu=zeros(), nu=zeros())
 
-    def _clip(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    def _clip(self, keys: list[str], grads: list[torch.Tensor],
+              sq_sum: Callable | None) -> list[torch.Tensor]:
+        sq = [torch.sum(g * g) for g in grads]
+        total = sum(sq) if sq_sum is None else sq_sum(dict(zip(keys, sq)))
+        norm = torch.sqrt(total)
         keep = norm < self.grad_clip
         return [torch.where(keep, g, g / norm * self.grad_clip)
                 for g in grads]
 
     @torch.no_grad()
     def update_(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
-                params: Mapping[str, torch.Tensor]) -> None:
+                params: Mapping[str, torch.Tensor], *,
+                sq_sum: Callable | None = None) -> None:
         """One step, in place: ``params`` and ``state``'s moments are
-        overwritten and its count advances."""
+        overwritten and its count advances. ``sq_sum`` turns the leaves'
+        local sums of squares (``{name: 0-dim}``) into the global one
+        (on a mesh, a sum over the ranks holding each leaf's shards)."""
         keys = list(params)
         g = [grads[k] for k in keys]
         if self.grad_clip is not None:
-            g = self._clip(g)
+            g = self._clip(keys, g, sq_sum)
         mu = [state.mu[k] for k in keys]
         nu = [state.nu[k] for k in keys]
         p = [params[k] for k in keys]
@@ -222,6 +246,72 @@ def _default_lm_loss(model, params: Params, batch: dict):
     return causal_lm_loss(logits, batch["input_ids"], batch.get("loss_mask"))
 
 
+def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh
+                 ) -> torch.Tensor:
+    """The model's forward to the final hidden states on a mesh, piece
+    by piece (ZeRO-3): each block's parameters are gathered as the block
+    starts and dropped as it ends, and under ``sharding.regathered``
+    what its backward keeps of them stays a shard until the backward
+    reads it. Kernels are gathered into the compute dtype the model
+    casts them to."""
+    from ..models.gpt2 import embed_tokens
+    from ..parallel.sharding import gather_param
+    cfg = model.cfg
+
+    def gathered(prefix: str) -> dict:
+        return {k[len(prefix):]: gather_param(
+                    v, mesh, specs[k], cfg.compute_dtype()
+                    if k.endswith(".kernel") else None)
+                for k, v in shards.items() if k.startswith(prefix)}
+
+    wte, wpe = (gather_param(shards[k], mesh, specs[k])
+                for k in ("wte", "wpe"))
+    x = embed_tokens(wte, wpe, batch["input_ids"],
+                     batch.get("position_ids"), cfg)
+    del wte, wpe
+    for i, blk in enumerate(model.blocks()):
+        x, _ = torch.func.functional_call(
+            blk, gathered(f"h_{i}."), (x, batch.get("attention_mask"),
+                                       batch.get("segment_ids")),
+            strict=True)
+    return torch.func.functional_call(model.ln_f, gathered("ln_f."), (x,),
+                                      strict=True)
+
+
+def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh):
+    """:func:`_default_lm_loss` on a mesh: this rank's rows, totals
+    summed over dp x fsdp (tp peers hold the same rows and the same
+    totals), the global token mean on every rank."""
+    from ..models.gpt2 import tied_logits
+    from ..parallel import collectives as coll
+    from ..parallel.sharding import ROW_AXES, gather_param
+    hidden = _mesh_hidden(model, shards, specs, batch, mesh)
+    logits = tied_logits(hidden, gather_param(shards["wte"], mesh,
+                                              specs["wte"]), model.cfg)
+    total, count = causal_lm_totals(logits, batch["input_ids"],
+                                    batch.get("loss_mask"))
+    total = coll.all_reduce(total, mesh, ROW_AXES)
+    count = torch.clamp(coll.all_reduce(count, mesh, ROW_AXES), min=1.0)
+    return total / count, count
+
+
+def _mesh_fused_lm_loss(model, shards: Params, specs: dict, batch: dict,
+                        mesh):
+    """The JAX mesh spelling of ``_fused_lm_loss``: the hidden states
+    keep their ``[B, T, E]`` shape and the shift moves into the labels
+    and the mask (the last column masked out instead of sliced off); the
+    tied head goes to the sharded CE as this rank's shard."""
+    hidden = _mesh_hidden(model, shards, specs, batch, mesh)
+    ids = batch["input_ids"]
+    labels = torch.nn.functional.pad(ids[:, 1:], (0, 1))
+    mask = batch.get("loss_mask")
+    m = (torch.ones(ids.shape[:2], dtype=torch.float32, device=ids.device)
+         if mask is None else mask.float())
+    m = torch.nn.functional.pad(m[:, 1:], (0, 1))
+    return fused_linear_cross_entropy(hidden, shards["wte"], labels, m,
+                                      mesh=mesh)
+
+
 def _fused_lm_loss(model, params: Params, batch: dict):
     """The same contract as :func:`_default_lm_loss` without the
     ``[B, T, V]`` logits: the model returns its hidden states and the
@@ -237,9 +327,9 @@ def _fused_lm_loss(model, params: Params, batch: dict):
 
 
 class TrainEngine:
-    """The step functions for one model on one device, with an AdamW
-    optimizer (``default_optimizer()`` unless given) and the causal-LM
-    loss.
+    """The step functions for one model on one device or one rank of a
+    mesh, with an AdamW optimizer (``default_optimizer()`` unless given)
+    and the causal-LM loss.
 
     ``model`` is the port's GPT-2 structure (``models.gpt2.make_model``).
     ``fused_loss=True`` computes the loss from the hidden states through
@@ -248,15 +338,38 @@ class TrainEngine:
     refused. ``accum_steps=N`` splits each batch into N microbatches and
     applies one token-weighted update. ``device`` is where states and
     batches are placed: ``"cuda"`` unless the caller asks for the CPU;
-    there is no fallback."""
+    there is no fallback.
+
+    ``mesh`` (a ``parallel.Mesh``) trains this rank's shards (the module
+    docstring). States are built from full trees (:meth:`init_state`,
+    :meth:`place_params` cut them with ``sharding.shard_params``) and
+    :meth:`gather` reassembles one (a collective). :meth:`place_batch`
+    takes this rank's rows, as JAX's multi-process ``place_batch`` takes
+    process-local data (``sharding.batch_rows`` cuts them from a global
+    batch); the loss and its gradient are the global batch's."""
 
     def __init__(self, model, *, optimizer: AdamW | None = None, mesh=None,
                  fused_loss: bool = False, accum_steps: int = 1,
                  device="cuda"):
+        self.mesh = mesh
+        self.specs = None
         if mesh is not None:
-            raise NotImplementedError(
-                f"TrainEngine(mesh=...): sharded training is the parallel "
-                f"slice, {_SLICES}, slice 7")
+            from ..parallel import sharding
+            from ..parallel.mesh import Mesh
+            if not isinstance(mesh, Mesh):
+                raise TypeError(
+                    f"TrainEngine(mesh=...) takes a parallel.Mesh (the "
+                    f"port's dp x fsdp x sp x tp mesh over "
+                    f"torch.distributed), got {type(mesh).__name__}")
+            if mesh.size("sp") > 1:
+                raise NotImplementedError(
+                    f"sp={mesh.size('sp')}: sequence parallelism (ring "
+                    f"attention) is not ported: {_SLICES}, slice 7")
+            sd = model.state_dict()
+            self.specs = sharding.param_specs(sd)
+            for k, v in sd.items():     # raises where an axis does not divide
+                sharding.shard_slices(k, tuple(v.shape), self.specs[k],
+                                      mesh.shape, mesh.coords)
         if not isinstance(fused_loss, bool):
             raise ValueError(
                 f"fused_loss={fused_loss!r}: the port has one fused route; "
@@ -276,16 +389,41 @@ class TrainEngine:
         self.device = resolve_device(device)
 
     def _loss(self, params: Params, batch: dict):
+        if self.mesh is not None:
+            from ..parallel.sharding import regathered
+            fn = _mesh_fused_lm_loss if self.fused_loss else _mesh_lm_loss
+            with regathered():
+                return fn(self.model, params, self.specs, batch, self.mesh)
         fn = _fused_lm_loss if self.fused_loss else _default_lm_loss
         return fn(self.model, params, batch)
 
     # -- state --------------------------------------------------------------
-    def place_params(self, params: Mapping[str, torch.Tensor]) -> Params:
+    def place_params(self, params: Mapping[str, Any]) -> Params:
         """An independent copy of ``params`` (a state dict) on the
         engine's device, as the leaves a step trains. The copy matters:
-        the step overwrites its state in place."""
-        return {k: v.detach().to(self.device, copy=True).requires_grad_()
-                for k, v in params.items()}
+        the step overwrites its state in place. On a mesh, ``params`` is
+        the full tree (tensors or host arrays) and the copy this rank's
+        shards."""
+        return {k: v.requires_grad_() for k, v in self.shard(params).items()}
+
+    def shard(self, tree: Mapping[str, Any]) -> Params:
+        """This rank's shards of a full tree, copied onto the engine's
+        device without gradients (the tree itself off a mesh)."""
+        if self.mesh is None:
+            return {k: torch.as_tensor(v).detach().to(self.device,
+                                                      copy=True)
+                    for k, v in tree.items()}
+        from ..parallel.sharding import shard_params
+        return shard_params(tree, self.mesh, specs=self.specs,
+                            device=self.device)
+
+    def gather(self, shards: Mapping[str, torch.Tensor]) -> Params:
+        """The full tree from every rank's shards (a collective on a
+        mesh; detached leaves off one)."""
+        if self.mesh is None:
+            return {k: v.detach() for k, v in shards.items()}
+        from ..parallel.sharding import gather_params
+        return gather_params(shards, self.mesh, specs=self.specs)
 
     def init_state(self, params: Mapping[str, torch.Tensor]) -> TrainState:
         """A fresh optimizer around :meth:`place_params` of ``params``."""
@@ -294,7 +432,8 @@ class TrainEngine:
                           opt_state=self.tx.init(placed))
 
     def place_batch(self, batch: Mapping[str, Any]) -> dict:
-        """A batch of numpy arrays (or tensors) on the engine's device."""
+        """A batch of numpy arrays (or tensors) on the engine's device;
+        on a mesh, this rank's rows of the global batch."""
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
@@ -306,9 +445,54 @@ class TrainEngine:
         stay on the device."""
         loss, tokens, grads = accumulated_grads(
             self._loss, state.params, batch, self.accum_steps)
-        self.tx.update_(grads, state.opt_state, state.params)
+        sq_sum = None
+        if self.mesh is not None:
+            self._sum_grads(grads)
+            sq_sum = self._global_sq
+        self.tx.update_(grads, state.opt_state, state.params, sq_sum=sq_sum)
         state.step += 1
         return state, {"loss": loss, "tokens": tokens}
+
+    @torch.no_grad()
+    def _sum_grads(self, grads: Params) -> None:
+        """Sum each shard's gradient over the row axes its gather did not
+        (dp, and fsdp where the parameter is not split on it): one
+        all-reduce of the flattened leaves for each set of axes."""
+        from ..parallel import collectives as coll
+        from ..parallel.sharding import grad_sum_axes
+        buckets: dict[tuple, list[str]] = {}
+        for k in grads:
+            axes = tuple(a for a in grad_sum_axes(self.specs[k])
+                         if self.mesh.size(a) > 1)
+            if axes:
+                buckets.setdefault(axes, []).append(k)
+        for axes in sorted(buckets):
+            keys = buckets[axes]
+            flat = torch.cat([grads[k].reshape(-1) for k in keys])
+            coll.all_reduce_(flat, self.mesh, axes)
+            for k, part in zip(keys, flat.split([grads[k].numel()
+                                                 for k in keys])):
+                grads[k] = part.view_as(grads[k])
+
+    def _global_sq(self, sq: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The global sum of squares from the leaves' local ones: each
+        leaf summed over the axes its shards split (fsdp and/or tp) and
+        no others, since dp replicas (and peers along an axis the leaf is
+        not split on) hold the same values."""
+        from ..parallel import collectives as coll
+        from ..parallel.sharding import spec_axes
+        buckets: dict[tuple, list[torch.Tensor]] = {}
+        for k, v in sq.items():
+            axes = tuple(a for a in spec_axes(self.specs[k])
+                         if self.mesh.size(a) > 1)
+            buckets.setdefault(axes, []).append(v)
+        total = None
+        for axes in sorted(buckets):
+            part = torch.stack(buckets[axes]).sum()
+            if axes:
+                coll.all_reduce_(part, self.mesh, axes)
+            total = part if total is None else total + part
+        return total
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch: dict
@@ -333,6 +517,174 @@ class TrainEngine:
         # a wrecked candidate's loss overflows the exponential: infinite
         # perplexity (as JAX's f32 exp gives), never an exception
         return mean, (float("inf") if mean >= 709.0 else math.exp(mean))
+
+
+# ---------------------------------------------------------------------------
+# Pod helpers: the coordinator reads, every rank gets the same value
+# ---------------------------------------------------------------------------
+#
+# Each is a collective: every rank calls it at the same point, and the
+# order of the broadcasts inside (a flag or a length first, then the
+# payload) keeps the ranks in lockstep. Roles share these; none re-rolls
+# the sequence inline.
+
+def mesh_spans(engine) -> bool:
+    """True when the engine's mesh has more than one process: the switch
+    every role uses to route transport and chain reads through the
+    coordinator's broadcasts."""
+    mesh = getattr(engine, "mesh", None)
+    return mesh is not None and mesh.world_size > 1
+
+
+def _coordinator() -> bool:
+    from ..parallel import multihost
+    return multihost.is_coordinator()
+
+
+def broadcast_flag(flag: bool) -> bool:
+    """The coordinator's ``flag``, on every rank."""
+    from ..parallel.collectives import broadcast_
+    return bool(broadcast_(torch.tensor([int(bool(flag))]))[0])
+
+
+def all_ranks_agree(flag: bool) -> bool:
+    """True on every rank when ``flag`` is True on every rank."""
+    import torch.distributed as dist
+
+    from ..parallel.collectives import collective_device
+    t = torch.tensor([int(bool(flag))],
+                     device=collective_device(dist.get_backend()))
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t[0])
+
+
+def broadcast_optional_bytes(data: bytes | None) -> bytes | None:
+    """The coordinator's ``data`` (None: nothing to send) on every rank:
+    one length broadcast (-1 for None), then at most one payload."""
+    from ..parallel.collectives import broadcast_
+    if not _coordinator():
+        data = None
+    n = int(broadcast_(torch.tensor([-1 if data is None else len(data)],
+                                    dtype=torch.int64))[0])
+    if n <= 0:
+        return None if n < 0 else b""
+    buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8)
+           if data is not None else torch.empty(n, dtype=torch.uint8))
+    return bytes(broadcast_(buf).numpy())
+
+
+def broadcast_json(obj):
+    """The coordinator's JSON-able value on every rank."""
+    import json
+    data = broadcast_optional_bytes(json.dumps(obj).encode()
+                                    if _coordinator() else None)
+    return None if data is None else json.loads(data)
+
+
+def _torch_dtype(ref) -> torch.dtype:
+    if isinstance(ref, torch.Tensor):
+        return ref.dtype
+    return torch.from_numpy(np.zeros(0, dtype=ref.dtype)).dtype
+
+
+def _broadcast_leaves(template: Mapping, tree) -> dict:
+    from ..parallel.collectives import broadcast_
+    out = {}
+    for k, ref in template.items():
+        src = None if tree is None else tree[k]
+        if isinstance(ref, Mapping):
+            out[k] = _broadcast_leaves(ref, src)
+            continue
+        dtype = _torch_dtype(ref)
+        if src is None:
+            buf = torch.empty(tuple(ref.shape), dtype=dtype)
+        elif isinstance(src, torch.Tensor):
+            buf = src.detach().to("cpu", dtype).contiguous().clone()
+        else:
+            buf = torch.from_numpy(np.array(src, order="C")).to(dtype)
+        out[k] = broadcast_(buf)
+    return out
+
+
+def broadcast_optional_tree(host_template: Mapping, coordinator_fetch
+                            ) -> dict | None:
+    """``coordinator_fetch()`` runs on the coordinator only (it may
+    return None); every rank returns the same tree (host tensors in
+    ``host_template``'s layout and dtypes) or the same None: one flag
+    broadcast, then one broadcast a leaf."""
+    t = coordinator_fetch() if _coordinator() else None
+    if not broadcast_flag(t is not None):
+        return None
+    return _broadcast_leaves(host_template, t)
+
+
+def broadcast_metagraph(chain):
+    """The coordinator's round-start metagraph, the same on every rank
+    (per-miner loops with collectives inside iterate its hotkeys)."""
+    from ..chain.base import Metagraph
+    m = chain.sync() if _coordinator() else None
+    d = broadcast_json(None if m is None else
+                       {"hotkeys": list(m.hotkeys), "uids": list(m.uids),
+                        "stakes": list(m.stakes), "block": m.block})
+    if d is None:
+        raise RuntimeError("the coordinator's metagraph sync was empty")
+    return Metagraph(**d)
+
+
+def stale_submission(transport, hotkey: str, base_revision, *,
+                     multi: bool) -> bool:
+    """True when ``hotkey``'s delta rider names a base other than
+    ``base_revision``. With ``multi`` every rank enters the broadcast and
+    the coordinator's verdict counts (a non-coordinator's own read could
+    differ, and a local early return would desynchronise the ranks)."""
+    def local_verdict() -> bool:
+        if base_revision is None:
+            return False
+        fm = getattr(transport, "fetch_delta_meta", None)
+        if fm is None:
+            return False
+        try:
+            meta = fm(hotkey)
+        except Exception:
+            return False
+        if not meta:
+            return False
+        rev = meta.get("base_revision")
+        return rev is not None and rev != base_revision
+
+    if not multi:
+        return local_verdict()
+    return broadcast_flag(local_verdict() if _coordinator() else False)
+
+
+def broadcast_base_fetch(transport, host_template: Mapping,
+                         current_revision, *, fetch=None):
+    """A pod's base pull: the coordinator alone reads the transport
+    (``fetch(revision)``, else the monolithic ``fetch_base``), and every
+    rank gets the same ``(tree, revision)`` or the same None. An OSError
+    of the coordinator's read is raised on every rank, so a bounded
+    retry reruns on all of them in lockstep."""
+    got, status = None, None
+    if _coordinator():
+        try:
+            rev = transport.base_revision()
+            if rev is not None and rev != current_revision:
+                got = (fetch(rev) if fetch is not None
+                       else transport.fetch_base(host_template))
+        except OSError as e:
+            status = {"error": repr(e)}
+        if status is None:
+            status = {"rev": None if got is None else got[1],
+                      "found": got is not None}
+    status = broadcast_json(status)
+    if "error" in status:
+        raise OSError(f"the coordinator's base read failed: "
+                      f"{status['error']}")
+    if not status["found"]:
+        return None
+    tree = _broadcast_leaves(host_template,
+                             got[0] if got is not None else None)
+    return tree, status["rev"]
 
 
 # ---------------------------------------------------------------------------
@@ -439,8 +791,13 @@ class MinerLoop:
       ``anomaly`` (``utils/obs.AnomalyMonitor``) sees every step time and,
       at the log cadence, the loss and push counters.
 
-    Heartbeats raise NotImplementedError naming their slice; a device
-    mesh is refused by the engine."""
+    On a mesh of several processes (``mesh_spans``) the JAX pod rules
+    hold: the coordinator alone reads the transport (bases, checkpoints)
+    and broadcasts what it read; every rank re-shards; every cadence
+    fires on the coordinator's verdict; the guards' verdicts are agreed
+    before anyone acts; the delta and checkpoints are gathered from
+    every rank's shards, and the coordinator alone publishes and writes
+    them. Heartbeats raise NotImplementedError naming their slice."""
 
     def __init__(self, engine: TrainEngine, transport, miner_id: str, *,
                  clock: Clock | None = None,
@@ -539,10 +896,15 @@ class MinerLoop:
         self.base_params: Params | None = None
         self._base_revision = None
         self._last_base_time = self.clock.now()
+        # on a pod every cadence decision is the coordinator's: the
+        # actions' bodies hold collectives, and skewed clocks would fire
+        # them on some ranks only
+        decide = self._synced_decision if self._multi() else None
         self._pull_action = PeriodicAction(check_update_interval,
-                                           self._check_pull, self.clock)
+                                           self._check_pull, self.clock,
+                                           decide=decide)
         self._push_action = PeriodicAction(send_interval, self._push_delta,
-                                           self.clock)
+                                           self.clock, decide=decide)
         self.val_batches = val_batches
         self.val_guard_patience = val_guard_patience
         self.val_guard_margin = val_guard_margin
@@ -556,17 +918,30 @@ class MinerLoop:
                                  f"got {val_guard_patience}")
             self._val_guard_action = PeriodicAction(
                 val_guard_interval if val_guard_interval is not None
-                else send_interval, self._val_guard, self.clock)
+                else send_interval, self._val_guard, self.clock,
+                decide=decide)
         self._last_ckpt_key = None
         self._ckpt_action = (
             PeriodicAction(checkpoint_interval, self._save_checkpoint,
-                           self.clock)
+                           self.clock, decide=decide)
             if checkpoint_store is not None else None)
+
+    # -- multi-process coordination ----------------------------------------
+    def _multi(self) -> bool:
+        return mesh_spans(self.engine)
+
+    def _synced_decision(self, fire: bool) -> bool:
+        """The coordinator's verdict, the same on every rank."""
+        return broadcast_flag(fire)
 
     # -- base model lifecycle ----------------------------------------------
     def _as_state(self, params) -> Params:
-        """A state dict from a state dict or a nested (wire-layout) tree."""
+        """A state dict from a state dict or a nested (wire-layout) tree;
+        on a mesh the full tree stays where it is (the engine cuts this
+        rank's shards from it)."""
         if any(isinstance(v, Mapping) for v in params.values()):
+            if self.engine.mesh is not None:
+                return delta_lib.flatten_tree(params)
             return params_from_numpy(params, device=self.engine.device)
         return params
 
@@ -580,10 +955,18 @@ class MinerLoop:
             if self.base_fetcher is not None:
                 # the first pull after a restart then fetches only the
                 # layers the fleet moved meanwhile
-                self.base_fetcher.seed(self.base_params)
+                base = self.engine.gather(self.base_params)
+                if _coordinator():
+                    self.base_fetcher.seed(base)
             return
-        fetched = (self._bootstrap_fetch_base()
-                   if self.transport.base_revision() is not None else None)
+        if self._multi():
+            # the coordinator reads and broadcasts: per-rank reads could
+            # see different bases mid-publish and train the pod apart
+            fetched = self._fetch_base_broadcast()
+        elif self.transport.base_revision() is not None:
+            fetched = self._bootstrap_fetch_base()
+        else:
+            fetched = None
         if fetched is not None:
             base, rev = fetched
             self._base_revision = rev
@@ -619,16 +1002,26 @@ class MinerLoop:
         return fetch_base(self.transport, self.base_fetcher,
                           self._wire_template(), revision)
 
+    def _fetch_base_broadcast(self):
+        """The coordinator's pull (through the fetcher when one is
+        wired), the same ``(tree, revision)`` or None on every rank."""
+        return broadcast_base_fetch(self.transport, self._wire_template(),
+                                    self._base_revision,
+                                    fetch=self._fetch_base_single)
+
     def _wire_template(self) -> dict:
         if self._wire_template_cache is None:
             self._wire_template_cache = _wire_template(self.engine.model)
         return self._wire_template_cache
 
     def _check_pull(self) -> None:
-        rev = self.transport.base_revision()
-        if rev is None or rev == self._base_revision:
-            return
-        fetched = self._fetch_base_single(rev)
+        if self._multi():
+            fetched = self._fetch_base_broadcast()
+        else:
+            rev = self.transport.base_revision()
+            if rev is None or rev == self._base_revision:
+                return
+            fetched = self._fetch_base_single(rev)
         if fetched is None:
             return
         params, rev = fetched
@@ -667,6 +1060,8 @@ class MinerLoop:
         if self.state is None or self.val_batches is None:
             return
         loss, _ = self.engine.evaluate(self.state.params, self.val_batches())
+        if self._multi():
+            loss = float(broadcast_json(loss))   # one verdict for the pod
         if not math.isfinite(loss):
             logger.warning("miner %s: self-eval non-finite, ignoring",
                            self.miner_id)
@@ -715,6 +1110,9 @@ class MinerLoop:
         key = (int(self.state.step), self._base_revision)
         if key == self._last_ckpt_key:   # nothing new since the last save
             return
+        if self.engine.mesh is not None:
+            self._save_gathered_checkpoint(key)
+            return
         finite = _state_finite(self.state) if self.nan_guard else None
         if self.push_async:
             # device copies queued on this thread's stream before the next
@@ -753,6 +1151,43 @@ class MinerLoop:
             logger.exception("miner %s: checkpoint save failed",
                              self.miner_id)
 
+    def _save_gathered_checkpoint(self, key) -> None:
+        """A mesh's checkpoint: screened on every rank's shards and
+        agreed, gathered (a collective), written by the coordinator."""
+        from ..checkpoint import Snapshot
+        if self.nan_guard:
+            ok = bool(_state_finite(self.state))
+            if self._multi():
+                ok = all_ranks_agree(ok)
+            if not ok:
+                logger.warning("miner %s: state non-finite, not "
+                               "checkpointing", self.miner_id)
+                return
+        eng, opt = self.engine, self.state.opt_state
+        state = TrainState(step=self.state.step,
+                           params=eng.gather(self.state.params),
+                           opt_state=AdamWState(count=opt.count,
+                                                mu=eng.gather(opt.mu),
+                                                nu=eng.gather(opt.nu)))
+        base = self._checkpoint_base()
+        base = None if base is None else eng.gather(base)
+        self._last_ckpt_key = key
+        if not _coordinator():
+            return
+        snap = Snapshot(state=state, base_params=base,
+                        base_revision=self._base_revision,
+                        lifetime_steps=self.report.steps)
+        if self.push_async:
+            # gathered tensors are fresh: later steps do not touch them
+            self.checkpoint_store.save_async(snap)
+            return
+        try:
+            self.checkpoint_store.save(self.checkpoint_store.next_step(),
+                                       snap)
+        except Exception:   # a failed save must not kill training
+            logger.exception("miner %s: checkpoint save failed",
+                             self.miner_id)
+
     def _refetch_base(self, revision):
         """The snapshot's base again, valid only while the transport still
         serves exactly that revision."""
@@ -763,14 +1198,15 @@ class MinerLoop:
             return None
         return self._as_state(fetched[0])
 
-    def _restore_checkpoint(self) -> bool:
-        if self.checkpoint_store is None:
-            return False
-        if self.checkpoint_store.latest_step() is None:
-            return False
+    def _read_checkpoint(self):
+        """``(snapshot, base)`` of the latest local checkpoint (full host
+        trees), or None: none saved, unusable, or its base no longer
+        published. A corrupt, partial or incompatible checkpoint must
+        not wedge the miner: it falls back to the base pull (or the
+        genesis init)."""
         from ..checkpoint import Snapshot
-        # a corrupt, partial or incompatible checkpoint must not wedge the
-        # miner: it falls back to the base pull (or the genesis init)
+        if self.checkpoint_store.latest_step() is None:
+            return None
         try:
             meta = self.checkpoint_store.read_meta() or {}
             abstract = _abstract_state(self.engine.model)
@@ -782,7 +1218,7 @@ class MinerLoop:
             if snap is None:
                 logger.warning("miner %s: checkpoint unusable; pulling "
                                "the base instead", self.miner_id)
-                return False
+                return None
             base = snap.base_params
             if base is None:
                 # the base must still be at that revision on the
@@ -793,18 +1229,59 @@ class MinerLoop:
                         "miner %s: checkpoint base %s no longer published; "
                         "bootstrapping from the current base", self.miner_id,
                         (snap.base_revision or "?")[:8])
-                    return False
-            dev = self.engine.device
+                    return None
+        except Exception:
+            logger.exception("miner %s: checkpoint restore failed; falling "
+                             "back to the base pull", self.miner_id)
+            return None
+        return snap, base
+
+    def _broadcast_checkpoint(self, got):
+        """The coordinator's :meth:`_read_checkpoint`, on every rank."""
+        from ..checkpoint import Snapshot
+        snap, base = got if got is not None else (None, None)
+        meta = broadcast_json(None if snap is None else {
+            "step": int(snap.state.step),
+            "count": int(snap.state.opt_state.count),
+            "base_revision": snap.base_revision,
+            "lifetime_steps": snap.lifetime_steps})
+        if meta is None:
+            return None
+        tmpl = delta_lib.flatten_tree(self._wire_template())
+        opt = None if snap is None else snap.state.opt_state
+        params, mu, nu, base = (
+            _broadcast_leaves(tmpl, None if snap is None else tree)
+            for tree in (None if snap is None else snap.state.params,
+                         None if opt is None else opt.mu,
+                         None if opt is None else opt.nu, base))
+        return Snapshot(
+            state=TrainState(step=meta["step"], params=params,
+                             opt_state=AdamWState(count=meta["count"],
+                                                  mu=mu, nu=nu)),
+            base_params=base, base_revision=meta["base_revision"],
+            lifetime_steps=meta["lifetime_steps"]), base
+
+    def _restore_checkpoint(self) -> bool:
+        if self.checkpoint_store is None:
+            return False
+        if self._multi():
+            # the coordinator reads, every rank re-shards
+            got = self._broadcast_checkpoint(
+                self._read_checkpoint() if _coordinator() else None)
+        else:
+            got = self._read_checkpoint()
+        if got is None:
+            return False
+        snap, base = got
+        try:
             opt = snap.state.opt_state
             self.state = TrainState(
                 step=snap.state.step,
                 params=self.engine.place_params(snap.state.params),
                 opt_state=AdamWState(
-                    count=opt.count,
-                    mu={k: v.to(dev) for k, v in opt.mu.items()},
-                    nu={k: v.to(dev) for k, v in opt.nu.items()}))
-            self.base_params = {k: v.detach().to(dev, copy=True)
-                                for k, v in base.items()}
+                    count=opt.count, mu=self.engine.shard(opt.mu),
+                    nu=self.engine.shard(opt.nu)))
+            self.base_params = self.engine.shard(base)
             self._base_revision = snap.base_revision
             self.report.steps = (snap.lifetime_steps
                                  if snap.lifetime_steps is not None
@@ -822,9 +1299,13 @@ class MinerLoop:
                     self.report.steps)
         # the base may have moved while this miner was down; a probe that
         # fails (the backend still partitioned) must not crash the resume
+        multi = self._multi()
+        moved = False
         try:
-            if self.transport.base_revision() not in (None,
-                                                      self._base_revision):
+            if _coordinator() or not multi:
+                moved = self.transport.base_revision() not in (
+                    None, self._base_revision)
+            if moved and not multi:
                 logger.info("miner %s: base moved while down, pulling",
                             self.miner_id)
                 self._check_pull()
@@ -833,6 +1314,12 @@ class MinerLoop:
             logger.warning("miner %s: post-resume base probe failed; "
                            "training from the checkpoint", self.miner_id,
                            exc_info=True)
+        # on a pod the pull is a collective: every rank on the
+        # coordinator's verdict, outside any one rank's handler
+        if multi and broadcast_flag(moved):
+            logger.info("miner %s: base moved while down, pulling",
+                        self.miner_id)
+            self._check_pull()
         return True
 
     # -- publication --------------------------------------------------------
@@ -848,6 +1335,9 @@ class MinerLoop:
         d = delta_lib.compute_delta(
             self.state.params, self.base_params,
             wire_dtype=None if mode in ("int8", "sparse8") else mode)
+        if self.engine.mesh is not None:
+            # every rank's shards of the delta, whole on every rank
+            d = self.engine.gather(d)
         finite = delta_lib.tree_finite(d)
         if mode == "int8":
             return delta_lib.quantize_delta(d), finite
@@ -877,6 +1367,17 @@ class MinerLoop:
         with obs.span("push.snapshot", cid=cid):
             payload, finite = self._push_snapshot()
         if not self.nan_guard:
+            finite = None
+        if self._multi():
+            # pod rule: the screen is agreed here, at the loop barrier;
+            # only the coordinator publishes (its upload may go to the
+            # worker, the screen done)
+            if finite is not None and not broadcast_flag(bool(finite)):
+                logger.warning("miner %s: delta has non-finite values, "
+                               "not pushing", self.miner_id)
+                return
+            if not _coordinator():
+                return
             finite = None
         if self.push_async:
             self._publisher.submit(payload, finite, self._base_revision, cid)

@@ -212,12 +212,7 @@ class GPT2(nn.Module):
         restarts positions at each document); it defaults to
         ``arange(T)``."""
         cfg = self.cfg
-        T = input_ids.shape[1]
-        if position_ids is None:
-            position_ids = torch.arange(T, device=input_ids.device)
-        x = embed_lookup(self.wte, input_ids) + embed_lookup(self.wpe,
-                                                             position_ids)
-        x = x.to(cfg.compute_dtype())
+        x = embed_tokens(self.wte, self.wpe, input_ids, position_ids, cfg)
         kvs = []
         for i, blk in enumerate(self.blocks()):
             x, kv = blk(x, attention_mask, segment_ids,
@@ -227,11 +222,28 @@ class GPT2(nn.Module):
         x = self.ln_f(x)
         if return_hidden:
             return x
-        # tied head: compute-dtype products, exact in f32, summed in f32
-        # (the JAX package's preferred_element_type=float32)
-        wte = self.wte.to(cfg.compute_dtype()).float()
-        logits = (x.float() @ wte.T).to(_TORCH_DTYPES[cfg.logits_dtype])
+        logits = tied_logits(x, self.wte, cfg)
         return (logits, kvs) if sow_kv else logits
+
+
+def embed_tokens(wte: torch.Tensor, wpe: torch.Tensor,
+                 input_ids: torch.Tensor, position_ids: torch.Tensor | None,
+                 cfg: GPT2Config) -> torch.Tensor:
+    """The token and position embeddings summed, in the compute dtype
+    (``position_ids`` defaults to ``arange(T)``)."""
+    if position_ids is None:
+        position_ids = torch.arange(input_ids.shape[1],
+                                    device=input_ids.device)
+    x = embed_lookup(wte, input_ids) + embed_lookup(wpe, position_ids)
+    return x.to(cfg.compute_dtype())
+
+
+def tied_logits(x: torch.Tensor, wte: torch.Tensor, cfg: GPT2Config
+                ) -> torch.Tensor:
+    """The tied head: compute-dtype products, exact in f32, summed in
+    f32 (the JAX package's preferred_element_type=float32)."""
+    wte = wte.to(cfg.compute_dtype()).float()
+    return (x.float() @ wte.T).to(_TORCH_DTYPES[cfg.logits_dtype])
 
 
 def make_model(preset_or_cfg) -> tuple[GPT2, GPT2Config]:

@@ -10,6 +10,15 @@ content-addressed base fetcher of ``--base-wire-v2``.
 The device is the card unless the caller asks for the CPU the way the JAX
 roles do: ``DT_FORCE_PLATFORM=cpu`` in the environment. Without it,
 everything is placed on ``cuda``, and building raises if there is none.
+
+A miner started as several processes (``torchrun --nproc-per-node N``,
+or the ``--multihost-*`` flags) builds its mesh as the JAX roles do: the
+world over ``torch.distributed`` (``parallel.multihost.initialize``),
+``resolve_mesh_config`` over the world's size (``--dp 0``: every rank
+the other axes leave) and ``pod_mesh`` over it. ``--batch-size`` is the
+global batch: each data-parallel group (dp x fsdp; tp peers share rows)
+reads its own document shard at ``batch_size / (dp * fsdp)``, and the
+transport and chain are gated so that the coordinator alone writes.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from ..data.datasets import (ByteTokenizer, WordTokenizer, batch_iterator,
                              shuffle_seed_for, text_corpus)
 from ..engine.train import TrainEngine, default_optimizer
 from ..models import gpt2
+from ..parallel import multihost
+from ..parallel.mesh import resolve_mesh_config
 from ..transport import InMemoryTransport, LocalFSTransport
 
 logger = logging.getLogger(__name__)
@@ -51,14 +62,32 @@ class Components:
     chain: Any
     address_store: Any
     tokenizer: Any
+    # True when build() brought the torch.distributed world up (the
+    # role's exit tears it down)
+    owns_world: bool = False
 
     def train_batches(self, *, repeat: bool = True) -> Iterable[dict]:
         """The shuffled packed train stream (per-hotkey order), behind
-        the look-ahead thread when ``--prefetch-depth`` > 0."""
+        the look-ahead thread when ``--prefetch-depth`` > 0. On a mesh
+        of several processes, this rank's rows: its data-parallel
+        group's document shard at ``batch_size / (dp * fsdp)``."""
         docs = text_corpus(split="train", source=self.cfg.dataset,
                            n_docs=self.cfg.n_docs)
+        bs = self.cfg.batch_size
+        mesh = self.engine.mesh
+        if mesh is not None and mesh.world_size > 1:
+            from ..parallel.sharding import ROW_AXES
+            groups = mesh.size(ROW_AXES)
+            if bs % groups:
+                raise SystemExit(
+                    f"--batch-size {bs} (global) must be divisible by "
+                    f"dp x fsdp = {groups}")
+            docs = list(multihost.shard_documents(
+                docs, process_index=mesh.index(ROW_AXES),
+                process_count=groups))
+            bs //= groups
         it = batch_iterator(docs, self.tokenizer,
-                            batch_size=self.cfg.batch_size,
+                            batch_size=bs,
                             seq_len=self.cfg.seq_len, repeat=repeat,
                             max_vocab=self.model_cfg.vocab_size,
                             shuffle=True,
@@ -130,12 +159,19 @@ def build(cfg: RunConfig) -> Components:
         model_cfg = dataclasses.replace(model_cfg,
                                         logits_dtype=cfg.logits_dtype)
     model, model_cfg = gpt2.make_model(model_cfg)
+    owns_world = False
+    mesh = None
+    if cfg.role == "miner":
+        owns_world = multihost.initialize(
+            cfg.multihost_coordinator, cfg.multihost_processes,
+            cfg.multihost_id, device=device)
+        mesh = _miner_mesh(cfg, model)
     engine = TrainEngine(
         model,
         optimizer=default_optimizer(cfg.learning_rate,
                                     grad_clip=cfg.grad_clip,
                                     weight_decay=cfg.weight_decay),
-        fused_loss=cfg.fused_loss, accum_steps=cfg.accum_steps,
+        mesh=mesh, fused_loss=cfg.fused_loss, accum_steps=cfg.accum_steps,
         device=device)
     if cfg.backend == "memory":
         transport = InMemoryTransport()
@@ -148,7 +184,9 @@ def build(cfg: RunConfig) -> Components:
     address_store = LocalAddressStore(chain_dir)
     if cfg.sign_artifacts:
         transport = _signed_transport(cfg, transport, address_store)
-    if cfg.my_repo_id:
+    # one writer for the whole world (identity for one process)
+    transport, chain = multihost.gate_io(transport, chain)
+    if cfg.my_repo_id and multihost.is_coordinator():
         # advertise this node's repo, as the reference miner does on chain
         address_store.store_repo(cfg.hotkey, cfg.my_repo_id)
     if cfg.tokenizer == "byte" or (cfg.tokenizer == "auto"
@@ -174,7 +212,30 @@ def build(cfg: RunConfig) -> Components:
                          capacity=cfg.flight_events, config=cfg)
     return Components(cfg=cfg, model=model, model_cfg=model_cfg,
                       engine=engine, transport=transport, chain=chain,
-                      address_store=address_store, tokenizer=tokenizer)
+                      address_store=address_store, tokenizer=tokenizer,
+                      owns_world=owns_world)
+
+
+def _miner_mesh(cfg: RunConfig, model):
+    """The miner's mesh (JAX ``neurons/common.py:304-326``): over every
+    process of the world when there are several, else none. A mesh that
+    wants more processes than the world has raises, naming the launch."""
+    spec = cfg.mesh
+    n_params = (sum(v.numel() for v in model.state_dict().values())
+                if spec.auto else 0)
+    world = multihost.process_count()
+    rcfg = resolve_mesh_config(
+        n_devices=world, dp=spec.dp, fsdp=spec.fsdp, sp=spec.sp, tp=spec.tp,
+        auto=spec.auto, model_params=n_params, dcn_dp=spec.dcn_dp)
+    if world > 1:
+        return multihost.pod_mesh(dp=rcfg.dp, fsdp=rcfg.fsdp, sp=rcfg.sp,
+                                  tp=rcfg.tp, dcn_dp=spec.dcn_dp)
+    if rcfg.n_devices > 1:
+        raise SystemExit(
+            f"mesh {rcfg.shape} (dp, fsdp, sp, tp) needs {rcfg.n_devices} "
+            f"processes, one a device: start the miner with torchrun "
+            f"--nproc-per-node {rcfg.n_devices} (or --multihost-*)")
+    return None
 
 
 def _signed_transport(cfg: RunConfig, transport, address_store):

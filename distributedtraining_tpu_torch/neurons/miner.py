@@ -7,7 +7,18 @@ Run offline end to end on the card with::
         --backend local --work-dir /tmp/run --model gpt2-124m \
         --dataset synthetic --tokenizer word --fused-loss --max-steps 50
 
-(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) The JAX defaults
+(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) On N cards of
+one host it runs one process a card::
+
+    torchrun --nproc-per-node N -m distributedtraining_tpu_torch.neurons.miner \
+        ... --fsdp N          # or --tp, --dp, --mesh-auto
+
+(``--dp 0``, the default, takes every rank the other axes leave;
+``--multihost-coordinator host:port --multihost-processes N
+--multihost-id I`` start the ranks by hand). NCCL carries the
+collectives, gloo on the CPU; ``DT_DIST_BACKEND=gloo`` lets several
+ranks share one card. ``--batch-size`` is the global batch, and the
+coordinator (rank 0) alone publishes and checkpoints. The JAX defaults
 apply: base pulls go through the published manifest (``--base-wire-v2``),
 a checkpoint lands in ``<work-dir>/checkpoints/<hotkey>`` every
 ``--checkpoint-interval`` seconds and at exit (a restart resumes from
@@ -32,6 +43,7 @@ import time
 
 from ..config import RunConfig
 from ..engine.train import MinerLoop
+from ..parallel import multihost
 from ..utils import flight, obs
 from .common import build, build_base_fetcher
 
@@ -130,6 +142,8 @@ def main(argv=None) -> int:
         # the process-wide state goes
         flight.shutdown()
         obs.reset()
+        if c.owns_world:   # last: the gates above still ask for the rank
+            multihost.shutdown()
     logging.info("miner done: steps=%d pushes=%d (failed=%d superseded=%d) "
                  "base_pulls=%d loss=%.4f",
                  report.steps, report.pushes, report.pushes_failed,

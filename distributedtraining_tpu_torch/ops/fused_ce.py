@@ -2,10 +2,11 @@
 PyTorch versions, the autograd Function that ties them together, and the
 dispatch between them.
 
-This is the port of the JAX package's ``ops/pallas_ce.py`` (its
-single-device half: ``fused_ce_loss`` and ``_fused_ce_totals``; the mesh
-spelling ``fused_ce_loss_sharded`` is the parallel slice's). The three
-Pallas kernels become the C entry points of ``csrc/fused_ce.cu``:
+This is the port of the JAX package's ``ops/pallas_ce.py``:
+``fused_ce_loss`` and ``_fused_ce_totals`` on one device, and
+:func:`fused_ce_loss_sharded`, the same kernels on a dp/fsdp/tp mesh
+(``pallas_ce.py:381-496``). The three Pallas kernels become the C entry
+points of ``csrc/fused_ce.cu``:
 
 - forward (``_fwd_kernel``): per row the max ``m``, the sum ``s`` of
   ``exp(z - m)`` and the per-token loss ``m + log s - z[y]`` of
@@ -445,5 +446,62 @@ def fused_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
     ``total / max(count, 1)`` and ``max(count, 1)``. Differentiable in
     ``hidden`` and ``head``."""
     total, count = fused_ce_totals(hidden, head, labels, loss_mask)
+    count = torch.clamp(count, min=1.0)
+    return total / count, count
+
+
+def fused_ce_loss_sharded(hidden: torch.Tensor, head_shard: torch.Tensor,
+                          labels: torch.Tensor,
+                          loss_mask: Optional[torch.Tensor] = None, *,
+                          mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_ce_loss` on a dp/fsdp/tp mesh (``parallel.Mesh``):
+    the JAX ``fused_ce_loss_sharded`` step for step, with the collectives
+    of ``parallel/collectives.py`` in place of ``shard_map``'s.
+
+    ``hidden [B, T, E]``, ``labels`` and ``loss_mask [B, T]`` are this
+    rank's rows (the batch split over dp x fsdp, tp peers holding the
+    same rows); ``head_shard`` is this rank's ``[V/tp, E/fsdp]`` shard of
+    the head (spec ``("tp", "fsdp")``). Per rank:
+
+    - the head is all-gathered over fsdp on dim 1, then over tp on dim 0;
+    - with tp > 1, the local rows are padded to a multiple of tp (mask 0)
+      and this rank keeps its tp slice ``i*per:(i+1)*per``;
+    - ``fused_ce_totals`` runs on that slice (the kernels on the card,
+      their plain versions on the CPU);
+    - total and count are all-reduced over the whole mesh.
+
+    Returns ``(total / max(count, 1), max(count, 1))`` on every rank.
+    Backward: dW is reduce-scattered back to the head shard (tp on dim
+    0, then fsdp on dim 1; the sum over dp is the caller's, as
+    ``TrainEngine`` sums every gradient over dp once, where
+    ``shard_map``'s transpose of the dp-replicated head would psum it
+    here); dh, computed for this rank's tp slice, is
+    summed over tp (the zero-padded slices), so every tp peer gets the
+    full dh of the local rows, the padded rows dropped. On a mesh of
+    size 1 every collective is the identity and the result is
+    :func:`fused_ce_loss`'s, bit for bit."""
+    from ..parallel import collectives as coll
+    w = coll.all_gather(head_shard, mesh, "fsdp", 1)
+    w = coll.all_gather(w, mesh, "tp", 0)
+    tp = mesh.size("tp")
+    h2, y2, m2 = hidden, labels, loss_mask
+    if tp > 1:
+        E = hidden.shape[-1]
+        h2 = coll.copy_to(hidden.reshape(-1, E), mesh, "tp")
+        y2 = labels.reshape(-1)
+        m2 = (torch.ones(y2.shape, dtype=torch.float32, device=y2.device)
+              if loss_mask is None else loss_mask.reshape(-1).float())
+        n = h2.shape[0]
+        pad = _round_up(n, tp) - n
+        if pad:
+            h2 = torch.nn.functional.pad(h2, (0, 0, 0, pad))
+            y2 = torch.nn.functional.pad(y2, (0, pad))
+            m2 = torch.nn.functional.pad(m2, (0, pad))
+        per = (n + pad) // tp
+        i = mesh.index("tp")
+        h2, y2, m2 = (t[i * per:(i + 1) * per] for t in (h2, y2, m2))
+    total, count = fused_ce_totals(h2, w, y2, m2)
+    total = coll.all_reduce(total, mesh, mesh.axis_names)
+    count = coll.all_reduce(count, mesh, mesh.axis_names)
     count = torch.clamp(count, min=1.0)
     return total / count, count

@@ -35,14 +35,22 @@ def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
 
     Returns ``(mean_loss, token_count)``, both f32 scalars; the count is
     at least 1."""
+    total, count = causal_lm_totals(logits, input_ids, loss_mask)
+    count = torch.clamp(count, min=1.0)
+    return total / count, count
+
+
+def causal_lm_totals(logits: torch.Tensor, input_ids: torch.Tensor,
+                     loss_mask: Optional[torch.Tensor] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sum of masked per-token losses, raw mask sum)`` of
+    :func:`causal_lm_loss` (a mesh sums both over its rows first)."""
     per_tok = cross_entropy_with_logits(logits[:, :-1, :], input_ids[:, 1:])
     if loss_mask is not None:
         m = loss_mask[:, 1:].to(per_tok.dtype)
     else:
         m = torch.ones_like(per_tok)
-    total = torch.sum(per_tok * m)
-    count = torch.clamp(torch.sum(m), min=1.0)
-    return total / count, count
+    return torch.sum(per_tok * m), torch.sum(m)
 
 
 def perplexity(mean_loss: torch.Tensor) -> torch.Tensor:
@@ -65,10 +73,19 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, head_kernel: torch.Tensor,
     ``loss_mask`` is shaped like ``labels``. Returns ``(mean_loss,
     token_count)``, the :func:`causal_lm_loss` contract. The JAX
     package's ``impl``, ``chunk`` and ``interpret`` name its own
-    spellings of this one function; the port has one route."""
+    spellings of this one function; the port has one route.
+
+    With ``mesh`` (a ``parallel.Mesh``, size 1 included, as JAX routes
+    every mesh) the loss is ``fused_ce.fused_ce_loss_sharded``:
+    ``hidden`` and ``labels`` are this rank's rows and ``head_kernel``
+    its ``("tp", "fsdp")`` shard of the head."""
     if mesh is not None:
-        raise NotImplementedError(
-            "fused_linear_cross_entropy(mesh=...): the sharded spelling is "
-            "the parallel slice, ROADMAP 'Slices of the port', slice 7")
+        from ..parallel.mesh import Mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got "
+                            f"{type(mesh).__name__}")
+        from .fused_ce import fused_ce_loss_sharded
+        return fused_ce_loss_sharded(hidden, head_kernel, labels, loss_mask,
+                                     mesh=mesh)
     from .fused_ce import fused_ce_loss
     return fused_ce_loss(hidden, head_kernel, labels, loss_mask)

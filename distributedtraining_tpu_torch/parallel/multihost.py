@@ -1,0 +1,180 @@
+"""One role over several processes — the port of the JAX package's
+``parallel/multihost.py`` onto ``torch.distributed``.
+
+The port runs one process per device: ``torchrun --nproc-per-node N``
+on one host (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
+and ``MASTER_PORT`` in the environment), or the JAX flags by hand:
+``--multihost-coordinator host:port`` is the ``init_method``
+(``tcp://host:port``), ``--multihost-processes`` the world size and
+``--multihost-id`` the rank. The backend is NCCL on the card and gloo on
+the CPU; ``DT_DIST_BACKEND`` overrides it (two ranks sharing one card
+need gloo: NCCL refuses two ranks on one device). Every collective waits
+at most ``timeout_s`` seconds, so a dead rank ends the others' run with
+an error instead of a hang.
+
+Only the coordinator (rank 0) talks to the outside world: the gated
+transport and chain below turn every other rank's writes into no-ops,
+and the miner's round publishes from the coordinator alone. Data is
+split by :func:`shard_documents`.
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from .mesh import Mesh, MeshConfig
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_TIMEOUT_S = 600.0
+
+
+def _init_method(coordinator_address: Optional[str]) -> str:
+    if coordinator_address is None:
+        return "env://"
+    if "://" in coordinator_address:
+        return coordinator_address
+    return f"tcp://{coordinator_address}"
+
+
+def initialize(coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None, *, device: str = "cuda",
+               backend: Optional[str] = None,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
+    """Bring up the ``torch.distributed`` world; returns True when this
+    call did (False when it was up already, or for a single process:
+    no explicit argument and ``WORLD_SIZE`` unset or 1).
+
+    Arguments left None come from ``torchrun``'s environment. ``device``
+    (``"cuda"`` or ``"cpu"``) picks the default backend and, on the
+    card, this rank's device (``LOCAL_RANK``, else the rank modulo the
+    cards)."""
+    if dist.is_initialized():
+        return False
+    env = os.environ
+    explicit = (coordinator_address is not None or num_processes is not None
+                or process_id is not None)
+    if not explicit and int(env.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    world = int(num_processes if num_processes is not None
+                else env["WORLD_SIZE"])
+    rank = int(process_id if process_id is not None else env["RANK"])
+    backend = (backend or env.get("DT_DIST_BACKEND")
+               or ("nccl" if device != "cpu" else "gloo"))
+    if device != "cpu":
+        local = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+    dist.init_process_group(
+        backend, init_method=_init_method(coordinator_address),
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    logger.info("multihost: rank %d/%d over %s", rank, world, backend)
+    return True
+
+
+def shutdown() -> None:
+    """Tear the world down (a role's exit, when it brought it up)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_coordinator() -> bool:
+    """True on the one process that owns transport and chain IO."""
+    return process_index() == 0
+
+
+def pod_mesh(*, dp: int = 0, fsdp: int = 1, sp: int = 1, tp: int = 1,
+             dcn_dp: int = 1) -> Mesh:
+    """The mesh over every process of the world; ``dp=0`` means whatever
+    is left (``world / (fsdp*sp*tp)``). ``dcn_dp > 1`` (multi-slice) is
+    not ported."""
+    if dcn_dp > 1:
+        raise NotImplementedError(
+            "dcn_dp > 1 (a hybrid multi-slice mesh) is not ported: "
+            "ROADMAP 'Slices of the port', slice 7")
+    n = process_count()
+    rest = fsdp * sp * tp
+    if dp == 0:
+        if n % rest:
+            raise ValueError(f"{n} processes not divisible by "
+                             f"fsdp*sp*tp={rest}")
+        dp = n // rest
+    cfg = MeshConfig(dp=dp, fsdp=fsdp, sp=sp, tp=tp)
+    if cfg.n_devices != n:
+        raise ValueError(f"mesh {cfg} wants {cfg.n_devices} processes, "
+                         f"the world has {n}")
+    return Mesh(cfg)
+
+
+def shard_documents(docs, *, process_index: Optional[int] = None,
+                    process_count: Optional[int] = None):
+    """Round-robin split of a document stream: document ``i`` goes to
+    shard ``i % count``. The miner passes its data-parallel index and
+    count (tp peers share rows, so they read one shard)."""
+    if process_index is None:
+        process_index = dist.get_rank() if dist.is_initialized() else 0
+    if process_count is None:
+        process_count = (dist.get_world_size() if dist.is_initialized()
+                         else 1)
+    for i, doc in enumerate(docs):
+        if i % process_count == process_index:
+            yield doc
+
+
+# ---------------------------------------------------------------------------
+# Coordinator gating: every rank computes, one talks to the outside world
+# ---------------------------------------------------------------------------
+
+class CoordinatorGatedTransport:
+    """Reads pass through on every rank; writes (every ``publish*``
+    method and ``gc``) run only on the coordinator and return None
+    elsewhere. The miner gathers a delta before this gate, on every
+    rank (the gather is a collective)."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if (name.startswith("publish") or name == "gc") \
+                and not is_coordinator():
+            return lambda *a, **kw: None
+        return attr
+
+
+class CoordinatorGatedChain:
+    """Reads pass through; weight emission runs only on the coordinator."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def set_weights(self, *a, **kw):
+        if not is_coordinator():
+            return None
+        return self._inner.set_weights(*a, **kw)
+
+
+def gate_io(transport, chain):
+    """Gate transport and chain when there are several processes; the
+    identity for one."""
+    if process_count() <= 1:
+        return transport, chain
+    return CoordinatorGatedTransport(transport), CoordinatorGatedChain(chain)

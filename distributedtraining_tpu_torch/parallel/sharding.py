@@ -1,0 +1,333 @@
+"""Logical axes -> mesh placement for the GPT-2 parameters and batches —
+the port of the JAX package's ``parallel/sharding.py``.
+
+The JAX GPT-2 annotates every parameter with logical axis names
+(``nn.with_logical_partitioning``); :data:`DEFAULT_RULES` maps them to
+mesh axes. The port's model carries no annotations, so
+:data:`GPT2_LOGICAL_AXES` lists the JAX model's, by parameter name:
+
+    wte       ("vocab", "embed")   models/gpt2.py:232
+    wpe       (None, "embed")      :237
+    c_attn    ("embed", "qkv")     :145
+    c_proj    ("qkv", "embed")     :167
+    c_fc      ("embed", "mlp")     :179
+    mlp_proj  ("mlp", "embed")     :181
+
+a dense bias takes its kernel's last axis (``:110``), and LayerNorm's
+scale and bias are ``("embed",)``. :func:`param_spec` resolves them to a
+spec, one mesh axis (or None) a dim: ``wte`` is ``("tp", "fsdp")``,
+``c_attn.kernel`` ``("fsdp", "tp")``.
+
+:func:`shard_params` cuts a full tree to one rank's shards: chunk
+``coords[axis]`` of each split dim, equal element for element to the JAX
+array's ``addressable_shards`` piece at the same mesh coordinates. A dim
+that its mesh axis does not divide raises, as JAX's placement does.
+:func:`gather_params` is the inverse (a collective). Adam's moments
+follow their parameter, as JAX's ``opt_state_shardings`` places them:
+they are keyed by the parameter's name, so :func:`param_specs` places
+them too. A batch is ``P(("dp", "fsdp"), None)``: rows split over
+dp x fsdp in coordinate order, tp peers holding the same rows
+(:func:`batch_rows`).
+
+:func:`gather_param` is the training step's ZeRO-3 gather: the forward
+all-gathers a shard over the axes of each split dim, and the backward
+sums the gradient over fsdp (a reduce-scatter) and cuts tp's slice
+without a sum, since tp peers compute the same rows (the fused CE
+completes dh over tp) and so hold the same cotangent. Under
+:func:`regathered` the tensors the backward keeps of a gathered
+parameter are kept as its shard and gathered again when read.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import weakref
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from . import collectives as coll
+from .mesh import AXES
+
+# logical axis -> mesh axis (None = replicated), JAX sharding.py:22-30
+DEFAULT_RULES = (
+    ("vocab", "tp"),
+    ("qkv", "tp"),
+    ("mlp", "tp"),
+    ("heads", "tp"),
+    ("embed", "fsdp"),
+    ("batch", ("dp", "fsdp")),
+    ("seq", "sp"),
+)
+
+# the JAX GPT-2's logical axes, by the last one or two parts of a name
+GPT2_LOGICAL_AXES = {
+    "wte": ("vocab", "embed"),
+    "wpe": (None, "embed"),
+    "c_attn.kernel": ("embed", "qkv"),
+    "c_attn.bias": ("qkv",),
+    "c_proj.kernel": ("qkv", "embed"),
+    "c_proj.bias": ("embed",),
+    "c_fc.kernel": ("embed", "mlp"),
+    "c_fc.bias": ("mlp",),
+    "mlp_proj.kernel": ("mlp", "embed"),
+    "mlp_proj.bias": ("embed",),
+    "scale": ("embed",),      # ln_1, ln_2, ln_f
+    "bias": ("embed",),
+}
+
+BATCH_SPEC = (("dp", "fsdp"), None)
+ROW_AXES = BATCH_SPEC[0]
+
+Spec = tuple
+
+
+def logical_axes(name: str) -> tuple:
+    """The JAX GPT-2's logical axes of the parameter ``name`` (a state
+    dict key such as ``h_0.c_attn.kernel``)."""
+    parts = name.split(".")
+    if len(parts) == 1 and name in ("wte", "wpe"):
+        return GPT2_LOGICAL_AXES[name]
+    if len(parts) >= 2 and parts[-2].startswith("ln_") \
+            and parts[-1] in ("scale", "bias"):
+        return GPT2_LOGICAL_AXES[parts[-1]]
+    key = ".".join(parts[-2:])
+    if len(parts) >= 2 and key in GPT2_LOGICAL_AXES:
+        return GPT2_LOGICAL_AXES[key]
+    raise KeyError(f"no logical axes for parameter {name!r}")
+
+
+def resolve(logical: tuple, rules=DEFAULT_RULES) -> Spec:
+    """Flax's ``logical_to_mesh_axes``: each logical name takes the first
+    rule naming it whose mesh axes the spec has not used yet."""
+    used: set = set()
+    out = []
+    for name in logical:
+        axis = None
+        for lname, maxis in rules:
+            if lname != name:
+                continue
+            names = maxis if isinstance(maxis, tuple) else (maxis,)
+            if not used.intersection(names):
+                axis = maxis
+                used.update(names)
+                break
+        out.append(axis)
+    return tuple(out)
+
+
+def param_spec(name: str, rules=DEFAULT_RULES) -> Spec:
+    return resolve(logical_axes(name), rules)
+
+
+def param_specs(names, rules=DEFAULT_RULES) -> dict[str, Spec]:
+    return {k: param_spec(k, rules) for k in names}
+
+
+def _axes_of(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: Spec) -> tuple[str, ...]:
+    """The mesh axes a spec splits on, in mesh order."""
+    used = {a for e in spec for a in _axes_of(e)}
+    return tuple(a for a in AXES if a in used)
+
+
+def _chunk(shape_of_mesh: Mapping[str, int], coords: Mapping[str, int],
+           entry) -> tuple[int, int]:
+    """(number of chunks, this rank's chunk) along a dim split on
+    ``entry`` (one axis or a tuple of axes, row-major)."""
+    n, i = 1, 0
+    for a in _axes_of(entry):
+        n *= shape_of_mesh[a]
+        i = i * shape_of_mesh[a] + coords[a]
+    return n, i
+
+
+def shard_slices(name: str, shape: tuple, spec: Spec,
+                 shape_of_mesh: Mapping[str, int],
+                 coords: Mapping[str, int]) -> tuple[slice, ...]:
+    """The slices of a full ``shape`` that one rank holds; raises
+    ValueError where a mesh axis does not divide its dim."""
+    out = []
+    for d, entry in enumerate(spec):
+        n, i = _chunk(shape_of_mesh, coords, entry)
+        if shape[d] % n:
+            raise ValueError(
+                f"{name}: dim {d} of {tuple(shape)} is not divisible by "
+                f"{_axes_of(entry)} = {n} (spec {spec})")
+        per = shape[d] // n
+        out.append(slice(i * per, (i + 1) * per))
+    return tuple(out)
+
+
+def _shard_one(name, value, spec, shape_of_mesh, coords, device):
+    sl = shard_slices(name, tuple(value.shape), spec, shape_of_mesh,
+                      coords)
+    if isinstance(value, torch.Tensor):
+        return value.detach()[sl].to(device, copy=True).contiguous()
+    return torch.from_numpy(np.array(np.asarray(value)[sl],
+                                     order="C")).to(device)
+
+
+def shard_params(params: Mapping[str, Any], mesh=None, *,
+                 specs: Mapping[str, Spec] | None = None,
+                 shape_of_mesh: Mapping[str, int] | None = None,
+                 coords: Mapping[str, int] | None = None,
+                 device="cpu") -> dict[str, torch.Tensor]:
+    """This rank's shards of a full flat tree (``{name: array or
+    tensor}``) on ``device``. ``mesh`` gives the mesh's shape and this
+    rank's coordinates; ``shape_of_mesh`` and ``coords`` name them for
+    any rank instead (no process group needed). ``specs`` defaults to
+    the GPT-2 specs of the tree's names."""
+    if mesh is not None:
+        shape_of_mesh = mesh.shape if shape_of_mesh is None else \
+            shape_of_mesh
+        coords = mesh.coords if coords is None else coords
+    if shape_of_mesh is None or coords is None:
+        raise ValueError("shard_params needs a mesh, or shape_of_mesh "
+                         "and coords")
+    specs = param_specs(params) if specs is None else specs
+    return {k: _shard_one(k, v, specs[k], shape_of_mesh, coords, device)
+            for k, v in params.items()}
+
+
+def grad_sum_axes(spec: Spec) -> tuple[str, ...]:
+    """The row axes a parameter's gradient is still to be summed over
+    after :func:`gather_param`'s backward: dp always, fsdp where the
+    parameter is not split on it."""
+    split = spec_axes(spec)
+    return tuple(a for a in ROW_AXES if a not in split)
+
+
+def batch_rows(batch: Mapping[str, Any], mesh) -> dict:
+    """This rank's rows of a global batch under :data:`BATCH_SPEC`: the
+    batch dim cut into dp x fsdp chunks, chunk ``index(("dp", "fsdp"))``
+    (tp and sp peers hold the same rows)."""
+    n = mesh.size(ROW_AXES)
+    i = mesh.index(ROW_AXES)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r}: {v.shape[0]} rows are not "
+                             f"divisible by dp x fsdp = {n}")
+        per = v.shape[0] // n
+        out[k] = v[i * per:(i + 1) * per]
+    return out
+
+
+def _gather_steps(mesh, spec: Spec) -> list[tuple[str, int]]:
+    """The (axis, dim) all-gathers that rebuild a full parameter from
+    its shard: each split dim in turn, the minor axis of a tuple entry
+    first, axes of size 1 left out. The backward runs them reversed."""
+    return [(a, d) for d, entry in enumerate(spec)
+            for a in reversed(_axes_of(entry)) if mesh.size(a) > 1]
+
+
+def _gather(shard: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
+    full = shard
+    for axis, d in _gather_steps(mesh, spec):
+        full = coll._raw_all_gather(full, mesh.group(axis),
+                                    mesh.size(axis), d)
+    return full
+
+
+# While :func:`regathered` is active: storage pointer of each gathered
+# parameter -> (weak reference to it, shard, mesh, spec).
+_live: dict | None = None
+
+# "saved_as_shard": tensors the backward keeps as their shard instead of
+# the gathered parameter; "regathered": their gathers in the backward.
+counts: dict = {"saved_as_shard": 0, "regathered": 0}
+
+
+def reset_counts() -> None:
+    for k in counts:
+        counts[k] = 0
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, mesh, spec, dtype):
+        ctx.args = (mesh, spec, shard.dtype)
+        full = _gather(shard, mesh, spec).to(dtype)
+        if _live is not None:
+            _live[full.untyped_storage().data_ptr()] = (
+                weakref.ref(full), shard.detach(), mesh, spec)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, spec, dtype = ctx.args
+        g = g.to(dtype)
+        for axis, d in reversed(_gather_steps(mesh, spec)):
+            n = mesh.size(axis)
+            if axis == "tp":
+                # tp peers hold the same cotangent: keep this slice
+                g = g.chunk(n, dim=d)[mesh.index(axis)].contiguous()
+            else:
+                g = coll._raw_reduce_scatter(g, mesh.group(axis), n, d)
+        return g, None, None, None
+
+
+def gather_param(shard: torch.Tensor, mesh, spec: Spec,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The full parameter for the forward (see the module docstring),
+    cast to ``dtype`` (the shard's by default) after the gather; the
+    backward casts the cotangent back before its reduce-scatter."""
+    if not _gather_steps(mesh, spec):
+        return shard if dtype is None else shard.to(dtype)
+    if "sp" in spec_axes(spec) or "dp" in spec_axes(spec):
+        raise ValueError(f"gather_param takes fsdp/tp specs, got {spec}")
+    return _GatherParam.apply(shard, mesh, spec, dtype or shard.dtype)
+
+
+@torch.no_grad()
+def gather_params(shards: Mapping[str, torch.Tensor], mesh, *,
+                  specs: Mapping[str, Spec] | None = None
+                  ) -> dict[str, torch.Tensor]:
+    """The full tree from every rank's shards (a collective: every rank
+    calls it and every rank gets the full tree)."""
+    specs = param_specs(shards) if specs is None else specs
+    return {k: gather_param(v.detach(), mesh, specs[k])
+            for k, v in shards.items()}
+
+
+def _pack(t: torch.Tensor):
+    e = _live.get(t.untyped_storage().data_ptr())
+    full = None if e is None else e[0]()
+    if full is None or full.dtype != t.dtype:
+        return t
+    counts["saved_as_shard"] += 1
+    return (e[1:], full.dtype, t.size(), t.stride(), t.storage_offset())
+
+
+def _unpack(packed):
+    if isinstance(packed, torch.Tensor):
+        return packed
+    (shard, mesh, spec), dtype, size, stride, offset = packed
+    counts["regathered"] += 1
+    return _gather(shard, mesh, spec).to(dtype).as_strided(size, stride,
+                                                           offset)
+
+
+@contextlib.contextmanager
+def regathered():
+    """ZeRO-3 for the tensors autograd keeps: inside this context, a
+    tensor saved for the backward that is (a view of) a parameter
+    :func:`gather_param` gathered is kept as its shard and gathered
+    again when the backward reads it. A forward that gathers each
+    block's parameters as the block starts then holds one block's full
+    parameters at a time, not the model's. Every rank runs the same
+    graph, so the backward's gathers meet in the same order."""
+    global _live
+    prev, _live = _live, {}
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
+            yield
+    finally:
+        _live = prev

@@ -310,11 +310,31 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
     (MINER_ARGS + ["--delta-dtype", "sparse8"], None),
     (MINER_ARGS + ["--backend", "hf"], 7),
     (MINER_ARGS + ["--lora-rank", "4"], 7),
-    (MINER_ARGS + ["--fsdp", "2"], 7),
+    # the miner's mesh is ported (slice 7a): dp/fsdp/tp, --mesh-auto and
+    # the multi-host flags; sequence parallelism and multi-slice are not
+    (MINER_ARGS + ["--fsdp", "2"], None),
+    (MINER_ARGS + ["--sp", "2"], 7),
+    (MINER_ARGS + ["--dcn-dp", "2"], 7),
     (MINER_ARGS + ["--metrics-path", "m.jsonl"], 7),
 ])
 def test_config_refuses_what_is_not_ported(extra, slice_no):
     cfg = RunConfig.from_args("miner", extra)
+    if slice_no is None:
+        cfg.check_ported()
+        return
+    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+        cfg.check_ported()
+
+
+@pytest.mark.parametrize("role,extra,slice_no", [
+    ("miner", ["--tp", "2", "--mesh-auto"], None),
+    ("miner", ["--multihost-coordinator", "127.0.0.1:1",
+               "--multihost-processes", "2", "--multihost-id", "1"], None),
+    ("validator", ["--fsdp", "2"], 7),
+    ("averager", ["--multihost-processes", "2"], 7),
+])
+def test_config_takes_a_mesh_for_the_miner_only(role, extra, slice_no):
+    cfg = RunConfig.from_args(role, extra)
     if slice_no is None:
         cfg.check_ported()
         return

@@ -368,7 +368,8 @@ def test_unported_training_options_raise():
         ttrain.TrainEngine(model)             # the default device is cuda
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.opt_state_from_numpy({"count": 0, "mu": {}, "nu": {}})
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # a mesh is ported (slice 7a); what is not a port Mesh is refused
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ttrain.TrainEngine(model, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="one fused route"):
         ttrain.TrainEngine(model, fused_loss="pallas", device="cpu")
@@ -378,7 +379,7 @@ def test_unported_training_options_raise():
             ttrain.TrainEngine(tg.make_model(cfg)[0], device="cpu")
     with pytest.raises(NotImplementedError, match="mu_dtype"):
         ttrain.default_optimizer(mu_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tlosses.fused_linear_cross_entropy(
             torch.zeros(2, 64), torch.zeros(8, 64),
             torch.zeros(2, dtype=torch.int32), mesh=object())

@@ -1,0 +1,296 @@
+"""One rank of a gloo world for tests/test_torch_parallel.py.
+
+    python tests/torch_parallel_worker.py CASE RANK WORLD PORT IO_DIR
+
+reads ``IO_DIR/args.json`` and ``IO_DIR/inputs.npz``, runs CASE on this
+rank of a ``torch.distributed`` world over gloo on the CPU, and writes
+``IO_DIR/out_RANK.npz``. It imports torch and the port only (no JAX),
+so a world of 8 starts in seconds; the test holds the results against
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import torch  # noqa: E402
+
+from distributedtraining_tpu_torch.parallel import (  # noqa: E402
+    Mesh, MeshConfig, batch_rows, multihost, shard_params)
+
+
+def case_ce(mesh: Mesh, args: dict, inp) -> dict:
+    """The sharded fused CE: this rank's rows and head shard, the loss,
+    dh of the local rows and dW of the shard."""
+    from distributedtraining_tpu_torch.ops.losses import \
+        fused_linear_cross_entropy
+    rows = batch_rows({"h": inp["hidden"], "y": inp["labels"],
+                       "m": inp["mask"]}, mesh)
+    h = torch.from_numpy(np.array(rows["h"])).requires_grad_()
+    w = shard_params({"wte": inp["head"]}, mesh)["wte"].requires_grad_()
+    loss, count = fused_linear_cross_entropy(
+        h, w, torch.from_numpy(np.array(rows["y"])),
+        torch.from_numpy(np.array(rows["m"])), mesh=mesh)
+    loss.backward()
+    return {"loss": loss.detach().numpy(), "count": count.numpy(),
+            "dh": h.grad.numpy(), "dw": w.grad.numpy()}
+
+
+def case_engine(mesh: Mesh, args: dict, inp) -> dict:
+    """``args["steps"]`` mesh train steps on this rank's rows of the
+    global batches; the losses, the final shards (params, mu, nu) and,
+    from every rank, the gathered params."""
+    import dataclasses
+
+    from distributedtraining_tpu_torch.engine.train import (
+        TrainEngine, default_optimizer)
+    from distributedtraining_tpu_torch.models import gpt2
+    cfg = dataclasses.replace(gpt2.PRESETS[args["preset"]],
+                              **args["overrides"])
+    model, _ = gpt2.make_model(cfg)
+    eng = TrainEngine(model, mesh=mesh, fused_loss=args["fused"],
+                      accum_steps=args["accum"],
+                      optimizer=default_optimizer(
+                          args["lr"], grad_clip=args["grad_clip"]),
+                      device="cpu")
+    params = {k[len("p/"):]: inp[k] for k in inp.files
+              if k.startswith("p/")}
+    state = eng.init_state(params)
+    losses, tokens = [], []
+    for ids in inp["input_ids"]:
+        batch = eng.place_batch(batch_rows({"input_ids": ids}, mesh))
+        state, m = eng.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        tokens.append(float(m["tokens"]))
+    out = {"losses": np.array(losses), "tokens": np.array(tokens)}
+    for name, tree in (("p", state.params), ("mu", state.opt_state.mu),
+                       ("nu", state.opt_state.nu)):
+        out.update({f"{name}/{k}": v.detach().numpy()
+                    for k, v in tree.items()})
+    out.update({f"full/{k}": v.numpy()
+                for k, v in eng.gather(state.params).items()})
+    return out
+
+
+def case_miner(mesh: Mesh, args: dict, inp) -> dict:
+    """The miner CLI (``neurons.miner.main``) in this process of the
+    world: the shards right after bootstrap, the report, and the
+    gathered params and base at the end."""
+    from distributedtraining_tpu_torch.engine import train as ttrain
+    from distributedtraining_tpu_torch.neurons import miner
+    seen = {}
+    bootstrap = ttrain.MinerLoop.bootstrap
+
+    def watched(self, *a, **kw):
+        bootstrap(self, *a, **kw)
+        seen["loop"] = self
+        seen["boot"] = {k: v.detach().clone()
+                        for k, v in self.state.params.items()}
+        seen["boot_step"] = self.state.step
+        seen["boot_count"] = self.state.opt_state.count
+
+    ttrain.MinerLoop.bootstrap = watched
+    rc = miner.main(args["argv"])
+    loop = seen["loop"]
+    full = loop.engine.gather(loop.state.params)      # collectives
+    base = loop.engine.gather(loop.base_params)
+    out = {"rc": rc, "pushes": loop.report.pushes,
+           "steps": loop.report.steps, "base_pulls": loop.report.base_pulls,
+           "boot_step": seen["boot_step"], "boot_count": seen["boot_count"],
+           "step": loop.state.step, "count": loop.state.opt_state.count,
+           "coords": json.dumps(loop.engine.mesh.coords)}
+    for name, tree in (("boot", seen["boot"]), ("full", full),
+                       ("base", base)):
+        out.update({f"{name}/{k}": v.detach().numpy()
+                    for k, v in tree.items()})
+    return out
+
+
+def case_collectives(mesh: Mesh, args: dict, inp) -> dict:
+    """Each differentiable collective's value and its backward on a
+    known input: x = (rank + 1) * arange, a cotangent of
+    (rank + 1) * ones."""
+    from distributedtraining_tpu_torch.parallel import collectives as coll
+    r = mesh.rank + 1
+    out = {}
+    for name, fn in (("all_gather", lambda x: coll.all_gather(
+                          x, mesh, "fsdp", 1)),
+                     ("reduce_scatter", lambda x: coll.reduce_scatter(
+                         x, mesh, "fsdp", 1)),
+                     ("all_reduce", lambda x: coll.all_reduce(
+                         x, mesh, ("dp", "fsdp"))),
+                     ("copy_to", lambda x: coll.copy_to(x, mesh, "fsdp"))):
+        x = (r * torch.arange(12.0).reshape(3, 4)).requires_grad_()
+        y = fn(x)
+        y.backward(r * torch.ones_like(y))
+        out[f"{name}/y"] = y.detach().numpy()
+        out[f"{name}/dx"] = x.grad.numpy()
+    return out
+
+
+def case_pod(mesh: Mesh, args: dict, inp) -> dict:
+    """The pod helpers: every rank gets the coordinator's value, and the
+    coordinator's failed base read raises on every rank."""
+    from distributedtraining_tpu_torch.chain.base import Metagraph
+    from distributedtraining_tpu_torch.engine import train as ttrain
+    coord = mesh.rank == 0
+    out = {"json": json.dumps(ttrain.broadcast_json(
+        {"rank": mesh.rank, "x": [1.5, None]})),
+        "bytes": ttrain.broadcast_optional_bytes(
+            b"\x00payload" if coord else b"other") or b"",
+        "none_bytes": ttrain.broadcast_optional_bytes(None) is None,
+        "empty_bytes": ttrain.broadcast_optional_bytes(
+            b"" if coord else b"x") == b"",
+        "flag": ttrain.broadcast_flag(coord),
+        "agree": ttrain.all_ranks_agree(coord)}
+    template = {"a": {"k": np.zeros((2, 3), np.float32)},
+                "b": np.zeros((4,), np.int32)}
+    tree = ttrain.broadcast_optional_tree(template, lambda: {
+        "a": {"k": np.full((2, 3), 7.0, np.float64)},
+        "b": torch.arange(4, dtype=torch.int32)})
+    out["tree_a"] = tree["a"]["k"].numpy()
+    out["tree_b"] = tree["b"].numpy()
+    out["tree_none"] = ttrain.broadcast_optional_tree(
+        template, lambda: None) is None
+
+    class Chain:
+        def sync(self):
+            return Metagraph(hotkeys=[f"h{mesh.rank}"], uids=[mesh.rank],
+                             stakes=[1.0], block=10 + mesh.rank)
+
+    out["metagraph"] = json.dumps(ttrain.broadcast_metagraph(Chain()).__dict__)
+
+    class Transport:
+        def __init__(self, rev, fail=False):
+            self.rev, self.fail = rev, fail
+
+        def base_revision(self):
+            if self.fail:
+                raise OSError("partitioned")
+            return self.rev
+
+        def fetch_base(self, template):
+            return {"a": {"k": np.ones((2, 3), np.float32)},
+                    "b": np.arange(4, dtype=np.int32)}, self.rev
+
+        def fetch_delta_meta(self, hotkey):
+            return {"base_revision": self.rev}
+
+    rev = "r0" if coord else "r-other"
+    got = ttrain.broadcast_base_fetch(Transport(rev), template, None)
+    out["fetch_rev"] = got[1]
+    out["fetch_a"] = got[0]["a"]["k"].numpy()
+    out["fetch_current"] = ttrain.broadcast_base_fetch(
+        Transport(rev), template, rev) is None
+    try:
+        ttrain.broadcast_base_fetch(Transport(rev, fail=coord), template,
+                                    None)
+        out["fetch_raised"] = False
+    except OSError:
+        out["fetch_raised"] = True
+    out["stale"] = ttrain.stale_submission(Transport(rev), "h", "r1",
+                                           multi=True)
+    out["not_stale"] = ttrain.stale_submission(Transport(rev), "h", "r0",
+                                               multi=True)
+    published = []
+
+    class Inner:
+        def publish_delta(self, *a):
+            published.append(a)
+            return "rev"
+
+        def fetch_base_bytes(self):
+            return b"read"
+
+    gated, _ = multihost.gate_io(Inner(), None)
+    out["publish_ret"] = str(gated.publish_delta("h", {}))
+    out["published"] = len(published)
+    out["read"] = gated.fetch_base_bytes()
+    return out
+
+
+def case_regather(mesh: Mesh, args: dict, inp) -> dict:
+    """One fused-loss forward and backward of the mesh engine with
+    ``sharding.regathered`` and, for comparison, with its registry but
+    without its hooks: the gathered parameters still alive after each
+    forward, the counts, the loss and the gradients."""
+    import contextlib
+    import dataclasses
+    import gc
+
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.parallel import sharding as sh
+    cfg = dataclasses.replace(gpt2.PRESETS[args["preset"]],
+                              **args["overrides"])
+    model, _ = gpt2.make_model(cfg)
+    eng = TrainEngine(model, mesh=mesh, fused_loss=True, device="cpu")
+    tree = {k[len("p/"):]: inp[k] for k in inp.files if k.startswith("p/")}
+    batch = eng.place_batch(batch_rows({"input_ids": inp["input_ids"]},
+                                       mesh))
+    hooked, seen = sh.regathered, []
+
+    @contextlib.contextmanager
+    def with_hooks():
+        with hooked():
+            seen.append(sh._live)
+            yield
+
+    @contextlib.contextmanager
+    def registry_only():
+        prev, sh._live = sh._live, {}
+        seen.append(sh._live)
+        try:
+            yield
+        finally:
+            sh._live = prev
+
+    out = {}
+    for name, ctx in (("on", with_hooks), ("off", registry_only)):
+        sh.regathered = ctx
+        sh.reset_counts()
+        params = eng.place_params(tree)
+        loss, _ = eng._loss(params, batch)
+        gc.collect()
+        out[f"{name}/alive"] = sum(e[0]() is not None
+                                   for e in seen[-1].values())
+        loss.backward()
+        out[f"{name}/loss"] = loss.detach().numpy()
+        out.update({f"{name}/count/{k}": v for k, v in sh.counts.items()})
+        out.update({f"{name}/grad/{k}": v.grad.numpy()
+                    for k, v in params.items()})
+    sh.regathered = hooked
+    return out
+
+
+CASES = {"ce": case_ce, "engine": case_engine, "miner": case_miner,
+         "collectives": case_collectives, "pod": case_pod,
+         "regather": case_regather}
+
+
+def main() -> int:
+    case, rank, world, port, io_dir = sys.argv[1:6]
+    with open(os.path.join(io_dir, "args.json")) as f:
+        args = json.load(f)
+    inp = np.load(os.path.join(io_dir, "inputs.npz"))
+    torch.set_num_threads(1)
+    multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank),
+                         device="cpu", timeout_s=120)
+    try:
+        mesh = Mesh(MeshConfig(**args["mesh"]))
+        out = CASES[case](mesh, args, inp)
+    finally:
+        multihost.shutdown()
+    np.savez(os.path.join(io_dir, f"out_{rank}.npz"), **out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
