@@ -5,6 +5,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --decode-ab N
     python3 chip_smoke.py --flash-ab N
+    python3 chip_smoke.py --window-ab N
     python3 chip_smoke.py --serve6b
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --parallel-cards
@@ -20,7 +21,13 @@ each. It uses nothing but entry points both sides have. The third form,
 phase 4's timing at the training shape (each kernel with and without
 segment ids, the profiler's device time of the backward pair and of
 SDPA's backward) and the fused train step's profile (phase 12's), one
-JSON line each. ``--serve6b`` runs phase 22 alone after the build,
+JSON line each. ``--window-ab N`` is the same for the paged window
+kernel: N times, phase 21's window timings (``_time_ms``, the profiler's
+device time and the host time of the wrapper beside SDPA's and the
+bound, at the verify, a 512-row suffix over 900 positions and a 64-row
+one over 512) and phase 21's traffic once through the server CLI, with
+the ttft and prefill ms of every request that hit the prefix cache.
+``--serve6b`` runs phase 22 alone after the build,
 ``--parallel`` phase 23 alone, and ``--parallel-cards`` phase 23's
 world over NCCL on every card of a machine with several. ``--phase-times
 OUT DIR...`` times the whole script of each checkout DIR in turn on one
@@ -265,13 +272,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
            the log). Records whether ``cryptography`` is installed (the
            port never imports it).
 21. serve6 the server role. The paged window kernel against its plain
-           version (f32 max abs <= 1e-5, bf16 <= 2e-2 as phase 3): the
-           verify's shape (W 5, 8 slots, contexts 8-900; and with two
-           padded lanes), the suffix prefill's (one slot, W 16, 64, 512
-           over contexts 0, P - 1, P, P + 1 and 900) and a GQA case; timed
-           at the verify's shape and at W 512 over 900 context positions
+           version and the plain version of its decomposition
+           (``paged_window_split_reference``): f32 max abs <= 1e-5; bf16
+           per element within 2^-7 |plain| + 1e-4 max |plain| of each,
+           which a planted lost 32-row tile exceeds. Cases: the verify's
+           shape (W 5, 8 slots, contexts 8-900; and with two padded
+           lanes), one query a slot (W 1), the suffix prefill's (one slot,
+           W 16, 64, 512 over contexts 0, P - 1, P, P + 1 and 900; W 64
+           over 512) and a GQA case (D 128). Timed at the verify's shape,
+           at W 512 over 900 context positions and at W 64 over 512
            (bf16) beside its bound, the plain version and SDPA on the
-           pre-gathered context with the window's mask. The sampler's
+           pre-gathered context with the window's mask: ``_time_ms``, the
+           profiler's device time and the wrapper's host time. The sampler's
            threefry bits for 64 keys over GPT-2's vocabulary on the card
            equal the CPU's, and so do its picks on logits without
            near-ties (on random logits the agreement is reported). In f32
@@ -369,6 +381,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
            kernel), its shards after the pull bit-equal to the base's
            slices, the delta finite with a held-out score > 0. Any failed
            rank, collective or check fails the phase.
+           (d) (b) alone on the meshes of a world of 4 (dp2 x tp2,
+           fsdp2 x tp2, fsdp4, tp4 over 1023 rows), four gloo ranks on
+           the card: the same summation order of the kernels as over
+           NCCL on four cards, with host-memory collectives, so a reading
+           that differs between the two points at the NCCL route.
            ``--parallel-cards`` runs (a) and the world of (b) and (c) over
            NCCL with one rank a card on a machine with several cards.
 
@@ -3999,16 +4016,90 @@ def _window_bf16_ratio(out, ref32) -> float:
     return float(((out.float() - ref).abs() / lim).max())
 
 
+def _smi_clocks() -> str | None:
+    """The card's SM clock, memory clock and power draw now, as
+    ``nvidia-smi`` reads them (None if it cannot)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if smi.returncode == 0 and lines else None
+
+
+def _device_ms(fn, reps: int = 20) -> float | None:
+    """Device time of one call by the profiler: the sum of the kernels it
+    enqueues (the L2 evicted before each, as ``_time_ms`` does), averaged
+    over ``reps`` calls. Unlike ``_time_ms`` it leaves out the host's
+    share of a call that takes longer to enqueue than the eviction keeps
+    the device busy. None unless every kernel was seen a multiple of
+    ``reps`` times and the eviction exactly ``reps`` times: a long process
+    can lose profiler events (seen after ~18 sessions), and a partial
+    record would read short."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if e.device_time_total > 0]
+    evict = [e for e in evts if "FillFunctor<unsigned char>" in e.key]
+    kernels = [e for e in evts if e not in evict]
+    if ([e.count for e in evict] != [reps] or not kernels
+            or any(e.count % reps for e in kernels)):
+        return None
+    return sum(e.device_time_total for e in kernels) / reps / 1e3
+
+
+# the window's timed shapes: the verify, a 512-row suffix over 900
+# positions, and phase 21's own suffix prefills (64 rows over the 512-token
+# system prompt)
+WINDOW_TIMED = {"verify_w5": dict(B=8, W=5, lens=SERVE_LENS),
+                "suffix_w512_ctx900": dict(B=1, W=512, lens=[900]),
+                "suffix_w64_ctx512": dict(B=1, W=64, lens=[512])}
+
+
+def _window_timings() -> dict:
+    """The window call at ``WINDOW_TIMED`` in bf16, through the public
+    wrapper only: ``_time_ms`` (ms), the profiler's device time
+    (device_ms), host ms, the plain version, SDPA on the pre-gathered
+    context (library_ms, library_device_ms) and the bound."""
+    import torch
+    from distributedtraining_tpu_torch.ops import paged_attention as pa
+    timed = {}
+    for name, c in WINDOW_TIMED.items():
+        args = _window_case(c["B"], c["W"], c["lens"], torch.bfloat16, SEED)
+        bound_ms, bound_by = _window_bound(args, 2)
+        lib = _window_library(args)
+        timed[name] = {
+            "ms": _time_ms(lambda: pa.paged_window_attention(*args)),
+            "device_ms": _device_ms(lambda: pa.paged_window_attention(*args)),
+            "host_ms": _host_ms(lambda: pa.paged_window_attention(*args)),
+            "plain_ms": _time_ms(lambda: pa.paged_decode_reference(*args)),
+            "library_ms": _time_ms(lib), "library_device_ms": _device_ms(lib),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    return timed
+
+
 def phase_window() -> dict:
-    """The window kernel against its plain version at the verify's shape
-    (W 5, 8 slots, contexts 8-900; and with padded lanes), the suffix
-    prefill's (one slot, W 16, 64, 512 over contexts 0, P - 1, P, P + 1,
-    900) and a GQA case; timed at the verify's shape and at a 512-row
-    suffix over 900 context positions (bf16). f32 is held to 1e-5
-    absolute; bf16 per element against the plain version in f32 on the
-    same inputs (``_window_bf16_ratio`` <= 1), and the same limit must
-    reject the plain version with the last 32 context rows of every lane
-    dropped (a planted lost tile) wherever a lane has 64 or more."""
+    """The window kernel against its plain version and against the plain
+    version of its decomposition (``paged_window_split_reference``) at
+    the verify's shape (W 5, 8 slots, contexts 8-900; and with padded
+    lanes), one query a slot (W 1, the decode witness's shape), the
+    suffix prefill's (one slot, W 16, 64, 512 over contexts 0, P - 1, P,
+    P + 1, 900; W 64 over 512, phase 21's own) and a GQA case; timed at
+    ``WINDOW_TIMED`` (bf16). f32 is held to 1e-5 absolute against both;
+    bf16 per element against the plain version in f32 on the same inputs
+    and against the decomposition's bf16 output (``_window_bf16_ratio``
+    <= 1 each), and the same limit must reject the plain version with
+    the last 32 context rows of every lane dropped (a planted lost tile)
+    wherever a lane has 64 or more. Every reading is logged before the
+    first check."""
     import torch
     from distributedtraining_tpu_torch.ops import paged_attention as pa
     tols = {torch.float32: 1e-5,
@@ -4016,10 +4107,12 @@ def phase_window() -> dict:
                             f"{WINDOW_BF16_ABS} max|plain| (plain in f32)"}
     cases = {"verify_w5": dict(B=8, W=5, lens=SERVE_LENS),
              "verify_w5_padded": dict(B=8, W=5, lens=SERVE_LENS[:6]
-                                      + [0, 0])}
+                                      + [0, 0]),
+             "decode_w1": dict(B=8, W=1, lens=SERVE_LENS)}
     for W in (16, 64, 512):
         for n in (0, 15, 16, 17, 900):
             cases[f"suffix_w{W}_ctx{n}"] = dict(B=1, W=W, lens=[n])
+    cases["suffix_w64_ctx512"] = dict(B=1, W=64, lens=[512])
     cases["gqa_w33_d128"] = dict(B=2, W=33, lens=[17, 200], Hq=32, Hkv=8,
                                  D=128, MP=16)
     checks = []
@@ -4031,42 +4124,40 @@ def phase_window() -> dict:
             out = pa.paged_window_attention(*args)
             f32 = [a.float() if a.is_floating_point() else a for a in args]
             ref = pa.paged_decode_reference(*f32)
+            split = pa.paged_window_split_reference(*args)
             torch.cuda.synchronize()
-            err = float((out.float() - ref).abs().max())
             row = {"shape": name, "dtype": str(dtype).split(".")[1],
-                   "max_abs_err": err, "tol": tol}
-            check(bool(torch.isfinite(out).all()),
-                  f"window kernel: non-finite output at {name} {dtype}")
-            if dtype == torch.float32:
-                check(err <= tol, f"window kernel vs plain version at "
-                                  f"{name} f32: max abs {err} > {tol}")
-            else:
+                   "finite": bool(torch.isfinite(out).all()),
+                   "max_abs_err": float((out.float() - ref).abs().max()),
+                   "max_abs_err_split": float(
+                       (out.float() - split.float()).abs().max()),
+                   "tol": tol}
+            if dtype == torch.bfloat16:
                 row["limit_ratio"] = _window_bf16_ratio(out, ref)
-                check(row["limit_ratio"] <= 1.0,
-                      f"window kernel vs plain version at {name} bf16: "
-                      f"{row['limit_ratio']} of the limit")
+                row["limit_ratio_split"] = _window_bf16_ratio(out, split)
                 if max(c["lens"]) >= 64:
                     short = torch.clamp(f32[4] - 32, min=0)
                     lost = pa.paged_decode_reference(*f32[:4], short,
                                                      *f32[5:])
                     row["planted_lost_tile_ratio"] = _window_bf16_ratio(
                         lost, ref)
-                    check(row["planted_lost_tile_ratio"] > 1.0,
-                          f"window bf16 limit passes a lost tile at {name}")
             checks.append(row)
-    timed = {}
-    for name, c in (("verify_w5", cases["verify_w5"]),
-                    ("suffix_w512_ctx900", cases["suffix_w512_ctx900"])):
-        args = _window_case(c["B"], c["W"], c["lens"], torch.bfloat16, SEED)
-        bound_ms, bound_by = _window_bound(args, 2)
-        timed[name] = {
-            "ms": _time_ms(lambda: pa.paged_window_attention(*args)),
-            "host_ms": _host_ms(lambda: pa.paged_window_attention(*args)),
-            "plain_ms": _time_ms(lambda: pa.paged_decode_reference(*args)),
-            "library_ms": _time_ms(_window_library(args)),
-            "bound_ms": bound_ms, "bound_by": bound_by}
-    res = {"checks": checks, "timed": timed,
-           "timed_dtype": "bfloat16"}
+    log("window checks:", json.dumps(checks))
+    for row in checks:
+        at = f"{row['shape']} {row['dtype']}"
+        check(row["finite"], f"window kernel: non-finite output at {at}")
+        if row["dtype"] == "float32":
+            for key in ("max_abs_err", "max_abs_err_split"):
+                check(row[key] <= row["tol"], f"window kernel at {at}: "
+                      f"{key} {row[key]} > {row['tol']}")
+        else:
+            for key in ("limit_ratio", "limit_ratio_split"):
+                check(row[key] <= 1.0, f"window kernel at {at}: {key} "
+                      f"{row[key]} of the limit")
+            check(row.get("planted_lost_tile_ratio", 2.0) > 1.0,
+                  f"window bf16 limit passes a lost tile at {at}")
+    res = {"checks": checks, "timed": _window_timings(),
+           "clocks": _smi_clocks(), "timed_dtype": "bfloat16"}
     log("window phase:", json.dumps(res))
     return res
 
@@ -4472,6 +4563,11 @@ def _server_cli(argv, port, bodies, publish=None, timeout=600.0) -> dict:
             "draft": seen["drafts"][0] if seen["drafts"] else None,
             "traces": [(tr.ttft_ms, tr.tpot_ms) for tr in seen["traces"]
                        if tr.request_id in ids],
+            # each traced request's prefill stage (pfx_hit, pfx_tokens,
+            # prompt_tokens, dur_ms), in the order of "traces"
+            "prefills": [next((st for st in tr.stages
+                               if st["stage"] == "prefill"), None)
+                         for tr in seen["traces"] if tr.request_id in ids],
             "launches": {"paged_decode_attention": pa.launches,
                          "paged_window_attention": pa.window_launches,
                          "dequant_scatter": dsc.launches, **fa.launches,
@@ -4484,6 +4580,50 @@ def _pct(vals, q) -> float:
     lo = int(k)
     hi = min(lo + 1, len(vals) - 1)
     return vals[lo] + (vals[hi] - vals[lo]) * (k - lo)
+
+
+def _serve6_traffic(vocab: int) -> tuple[list, list]:
+    """Phase 21's requests: 8 prompts sharing a 512-token system prompt,
+    each with its own suffix (3-120 tokens); even lanes greedy, odd ones
+    sampled (temperature 0.8, top_p 0.9, distinct seeds); 32 new tokens
+    each. Returns (prompts, request bodies)."""
+    rng_sys = _prompts((512,), vocab, SEED + 21)[0]
+    suffixes = _prompts((3, 9, 17, 30, 48, 64, 90, 120), vocab, SEED + 22)
+    prompts = [rng_sys + s for s in suffixes]
+    bodies = [{"tokens": p, "max_new_tokens": 32,
+               **({"temperature": 0.8, "top_p": 0.9, "seed": 1000 + i}
+                  if i % 2 else {})}
+              for i, p in enumerate(prompts)]
+    return prompts, bodies
+
+
+def _serve_prefix_hits(tree) -> dict:
+    """Phase 21's traffic once through ``neurons.server.main`` with the
+    JAX server's defaults (the prefix cache on): for each request whose
+    prefill hit the cache (a suffix prefill: 12 window launches) its
+    ttft and its prefill's ms, from the request traces."""
+    import tempfile
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    _, bodies = _serve6_traffic(gpt2.PRESETS["gpt2-124m"].vocab_size)
+    with tempfile.TemporaryDirectory() as work:
+        LocalFSTransport(os.path.join(work, "artifacts")).publish_base(tree)
+        port = _free_port()
+        run = _server_cli(["--work-dir", work, "--dataset", "synthetic",
+                           "--tokenizer", "word", "--serve-port", str(port),
+                           "--swap-poll", "1", "--max-steps", "100000"],
+                          port, bodies, None)
+    hits = [(tt, st) for (tt, _), st in zip(run["traces"], run["prefills"])
+            if st is not None and st.get("pfx_hit")]
+    check(hits, "--window-ab: no request hit the prefix cache")
+    return {"prefix_hits": len(hits),
+            "suffix_tokens": [st["prompt_tokens"] - st["pfx_tokens"]
+                              for _, st in hits],
+            "ttft_ms": [tt for tt, _ in hits],
+            "prefill_ms": [st["dur_ms"] for _, st in hits],
+            "ttft_ms_p50": _pct([tt for tt, _ in hits], 50),
+            "prefill_ms_p50": _pct([st["dur_ms"] for _, st in hits], 50),
+            "window_launches": run["launches"]["paged_window_attention"]}
 
 
 def phase_server(tree) -> dict:
@@ -4508,14 +4648,7 @@ def phase_server(tree) -> dict:
     # the second base, serialized before the run: publishing it mid-run
     # is then one atomic file write, as another process's publish is
     second = ser.to_msgpack(gpt2.init_params_numpy(cfg, SEED + 5))
-    rng_sys = _prompts((512,), cfg.vocab_size, SEED + 21)[0]
-    suffixes = _prompts((3, 9, 17, 30, 48, 64, 90, 120), cfg.vocab_size,
-                        SEED + 22)
-    prompts = [rng_sys + s for s in suffixes]
-    bodies = [{"tokens": p, "max_new_tokens": 32,
-               **({"temperature": 0.8, "top_p": 0.9, "seed": 1000 + i}
-                  if i % 2 else {})}
-              for i, p in enumerate(prompts)]
+    prompts, bodies = _serve6_traffic(cfg.vocab_size)
     res: dict = {"model": "gpt2-124m", "dtype": cfg.dtype,
                  "prompts": [len(p) for p in prompts], "new_tokens": 32}
     res["spec_f32"] = _spec_parity_f32(_sharpened(tree), prompts[:4])
@@ -5832,9 +5965,9 @@ def _par_worker_cli(dev, flags: list, work: str) -> dict:
 def parallel_worker(rank: int, port: int, tmp: str) -> int:
     """One rank of a world of ``_par_world_spec`` (``--parallel-worker``):
     (b), the collectives' times, the f32 parity and timed steps of the
-    fsdp engine, then (c); its results in ``tmp/out_<rank>.json``. Any
-    failed collective, kernel or check raises, and the process exits
-    non-zero."""
+    fsdp engine, then (c) (or (b) alone, when the spec says ``ce_only``);
+    its results in ``tmp/out_<rank>.json``. Any failed collective, kernel
+    or check raises, and the process exits non-zero."""
     import torch
     from distributedtraining_tpu_torch.delta import flatten_tree
     from distributedtraining_tpu_torch.models import gpt2
@@ -5857,6 +5990,8 @@ def parallel_worker(rank: int, port: int, tmp: str) -> int:
     try:
         collectives.reset_counts()
         out["ce"] = _par_worker_ce(dev, world["ce"])
+        if spec.get("ce_only"):
+            return _par_worker_done(tmp, rank, out)
         out["collectives"] = _par_worker_collectives(dev,
                                                      world["collectives"])
         tree = flatten_tree(gpt2.init_params_numpy(
@@ -5875,6 +6010,10 @@ def parallel_worker(rank: int, port: int, tmp: str) -> int:
             for k, v in sorted(collectives.counts.items())]
     finally:
         multihost.shutdown()
+    return _par_worker_done(tmp, rank, out)
+
+
+def _par_worker_done(tmp: str, rank: int, out: dict) -> int:
     with open(os.path.join(tmp, f"out_{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -5915,6 +6054,98 @@ def _par_score(tree, tok, work: str) -> dict:
             "score": score}
 
 
+def _par_spawn(n: int, backend: str, spec: dict, tmp: str, what: str
+               ) -> list:
+    """Run ``n`` ranks (``--parallel-worker``) on ``spec`` (written to
+    ``tmp/spec.json``): over gloo every rank on this card, over NCCL rank
+    r on card r. Any rank that exits non-zero fails the phase (its log's
+    tail logged first). Returns each rank's ``out_<rank>.json``."""
+    with open(os.path.join(tmp, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(n)]
+    env = {**os.environ, "DT_DIST_BACKEND": backend}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+         str(r), str(port), tmp], stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=ROOT,
+        env={**env, **({"LOCAL_RANK": str(r)} if backend == "nccl"
+                       else {})}) for r in range(n)]
+    try:
+        rcs = [p.wait(timeout=PAR_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for f in logs:
+            f.close()
+    if any(rcs):
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                log(f"--- rank {r} (exit {rcs[r]}):\n" + f.read()[-6000:])
+    check(not any(rcs), f"{what}: ranks exited {rcs}")
+    outs = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"out_{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _par_check_ce(what: str, outs: list) -> dict:
+    """(b) within PAR_CE_TOL of world 1's largest value, every rank,
+    mesh, dtype and output; the planted faults outside it; 1 / 1 / 1
+    launches a rank. Every reading is logged before the first check."""
+    log(f"{what} sharded CE errors:", json.dumps(
+        {key: [{"err": o["ce"][key]["err"],
+                "planted_err": o["ce"][key]["planted_err"]}
+               for o in outs] for key in outs[0]["ce"]}))
+    ce = {}
+    for key in outs[0]["ce"]:
+        per = [o["ce"][key] for o in outs]
+        tol = PAR_CE_TOL["float32" if key.endswith("float32")
+                         else "bfloat16"]
+        for r, c in enumerate(per):
+            for out_name, err in c["err"].items():
+                check(err <= tol, f"{what} sharded CE {key} rank {r}: "
+                                  f"{out_name} error {err} > {tol}")
+            for out_name, err in c["planted_err"].items():
+                check(err > tol, f"{what} sharded CE {key} rank {r}: "
+                                 f"planted {out_name} error {err} "
+                                 f"passes the limit {tol}")
+            check(c["launches"] == {"fused_ce_fwd": 1,
+                                    "fused_ce_bwd_dh": 1,
+                                    "fused_ce_bwd_dw": 1},
+                  f"{what} sharded CE {key} rank {r}: launches "
+                  f"{c['launches']}")
+        ce[key] = {"max_err": max(e for c in per for e in c["err"].values()),
+                   "err": {o: max(c["err"][o] for c in per)
+                           for o in per[0]["err"]},
+                   "planted_err": {o: min(c["planted_err"][o] for c in per)
+                                   for o in per[0]["planted_err"]},
+                   "max_abs": max(d for c in per
+                                  for d in c["max_abs"].values()),
+                   "host_ms": [c["host_ms"] for c in per],
+                   "tol": tol}
+    return ce
+
+
+def _par_run_ce_world(n: int, backend: str) -> dict:
+    """(b) alone on the sharded-CE meshes of ``_par_world_spec(n)``: a
+    world of ``n`` child processes, checked by ``_par_check_ce``."""
+    import tempfile
+    what = f"world {n} ({backend}, CE only)"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = _par_spawn(n, backend, {"backend": backend,
+                                       "world": _par_world_spec(n),
+                                       "cli_work": {}, "ce_only": True},
+                          tmp, what)
+    return {"backend": [o["backend"] for o in outs],
+            "devices": [o["device"] for o in outs],
+            "ce": _par_check_ce(what, outs), "s": time.perf_counter() - t0}
+
+
 def _par_run_world(n: int, backend: str, tree, tok, f32_world1: list
                    ) -> dict:
     """A world of ``n`` child processes (``--parallel-worker``): over
@@ -5934,77 +6165,11 @@ def _par_run_world(n: int, backend: str, tree, tok, f32_world1: list
             LocalFSTransport(os.path.join(work, "artifacts")).publish_base(
                 tree)
             cli_work[name] = work
-        with open(os.path.join(tmp, "spec.json"), "w") as f:
-            json.dump({"backend": backend, "world": world,
-                       "cli_work": cli_work}, f)
-        port = _free_port()
-        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
-                for r in range(n)]
-        env = {**os.environ, "DT_DIST_BACKEND": backend}
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
-             str(r), str(port), tmp], stdout=logs[r],
-            stderr=subprocess.STDOUT, cwd=ROOT,
-            env={**env, **({"LOCAL_RANK": str(r)} if backend == "nccl"
-                           else {})}) for r in range(n)]
-        try:
-            rcs = [p.wait(timeout=PAR_TIMEOUT_S) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(timeout=60)
-            for f in logs:
-                f.close()
-        if any(rcs):
-            for r in range(n):
-                with open(os.path.join(tmp, f"rank{r}.log")) as f:
-                    log(f"--- rank {r} (exit {rcs[r]}):\n"
-                        + f.read()[-6000:])
-        check(not any(rcs), f"{what}: ranks exited {rcs}")
-        outs = []
-        for r in range(n):
-            with open(os.path.join(tmp, f"out_{r}.json")) as f:
-                outs.append(json.load(f))
+        outs = _par_spawn(n, backend, {"backend": backend, "world": world,
+                                       "cli_work": cli_work}, tmp, what)
         res = {"backend": [o["backend"] for o in outs],
-               "devices": [o["device"] for o in outs]}
-        # (b) within PAR_CE_TOL of world 1's largest value, every rank,
-        # mesh, dtype and output; the planted faults outside it. Every
-        # reading is logged before the first check.
-        log(f"{what} sharded CE errors:", json.dumps(
-            {key: [{"err": o["ce"][key]["err"],
-                    "planted_err": o["ce"][key]["planted_err"]}
-                   for o in outs] for key in outs[0]["ce"]}))
-        ce = {}
-        for key in outs[0]["ce"]:
-            per = [o["ce"][key] for o in outs]
-            tol = PAR_CE_TOL["float32" if key.endswith("float32")
-                             else "bfloat16"]
-            for r, c in enumerate(per):
-                for out_name, err in c["err"].items():
-                    check(err <= tol, f"{what} sharded CE {key} rank {r}: "
-                                      f"{out_name} error {err} > {tol}")
-                for out_name, err in c["planted_err"].items():
-                    check(err > tol, f"{what} sharded CE {key} rank {r}: "
-                                     f"planted {out_name} error {err} "
-                                     f"passes the limit {tol}")
-                check(c["launches"] == {"fused_ce_fwd": 1,
-                                        "fused_ce_bwd_dh": 1,
-                                        "fused_ce_bwd_dw": 1},
-                      f"{what} sharded CE {key} rank {r}: launches "
-                      f"{c['launches']}")
-            ce[key] = {"max_err": max(e for c in per
-                                      for e in c["err"].values()),
-                       "err": {o: max(c["err"][o] for c in per)
-                               for o in per[0]["err"]},
-                       "planted_err": {o: min(c["planted_err"][o]
-                                              for c in per)
-                                       for o in per[0]["planted_err"]},
-                       "max_abs": max(d for c in per
-                                      for d in c["max_abs"].values()),
-                       "host_ms": [c["host_ms"] for c in per],
-                       "tol": tol}
-        res["ce"] = ce
+               "devices": [o["device"] for o in outs],
+               "ce": _par_check_ce(what, outs)}
         # (c) the CLI runs: coordinator-only publishing, exact counts,
         # shards after the pull, the delta's score
         cli = {}
@@ -6049,7 +6214,8 @@ def _par_run_world(n: int, backend: str, tree, tok, f32_world1: list
 
 def phase_parallel(tree, tok) -> dict:
     """Phase 23 (see the module docstring): (a) world 1 over NCCL in this
-    process; then a world of 2 over gloo, both ranks on this card."""
+    process; then a world of 2 over gloo, both ranks on this card; then
+    (b) alone on the four-rank meshes, four gloo ranks on this card."""
     import torch
     from distributedtraining_tpu_torch.delta import flatten_tree
     t_start = time.perf_counter()
@@ -6059,6 +6225,7 @@ def phase_parallel(tree, tok) -> dict:
     torch.cuda.empty_cache()
     res["world2"] = _par_run_world(2, "gloo", tree, tok,
                                    res["world1"]["f32_losses"])
+    res["world4_gloo_ce"] = _par_run_ce_world(4, "gloo")
     res["s"] = time.perf_counter() - t_start
     log("parallel:", json.dumps(res))
     return res
@@ -6121,11 +6288,16 @@ def _window_entry(serve6: dict, build: dict, s6b: dict) -> dict:
         "max_abs_err": max(c["max_abs_err"] for c in win["checks"]),
         "max_abs_err_f32": max(c["max_abs_err"] for c in win["checks"]
                                if c["dtype"] == "float32"),
-        # bf16: the largest share of the per-element limit (<= 1 holds)
+        # bf16: the largest share of the per-element limit (<= 1 holds),
+        # against the plain version and against the decomposition's
         "bf16_limit_ratio": max(c["limit_ratio"] for c in win["checks"]
                                 if "limit_ratio" in c),
+        "bf16_limit_ratio_split": max(c["limit_ratio_split"]
+                                      for c in win["checks"]
+                                      if "limit_ratio_split" in c),
         **timed["verify_w5"],
         "suffix_w512_ctx900": timed["suffix_w512_ctx900"],
+        "suffix_w64_ctx512": timed["suffix_w64_ctx512"],
         "timed_shape": "verify_w5 (8 slots, contexts 8-900) bf16",
         "build_s": build["build_s"]}
 
@@ -6488,6 +6660,27 @@ def decode_ab(runs: int) -> int:
     return 0
 
 
+def window_ab(runs: int) -> int:
+    """One side of a window-kernel comparison (``--window-ab N``): after
+    the build, N times, the window phase's timings (with the card's
+    clocks right after them) and the prefix hits' ttft on phase 21's
+    traffic, one JSON line each."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    from distributedtraining_tpu_torch.models import gpt2
+    phase_build()
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
+    for i in range(runs):
+        timed = _window_timings()
+        print(json.dumps({"window_ab": {
+            "root": ROOT, "run": i, "timed": timed, "clocks": _smi_clocks(),
+            "card": card}}), flush=True)
+        print(json.dumps({"window_ab_serve": {
+            "root": ROOT, "run": i, **_serve_prefix_hits(tree),
+            "card": card}}), flush=True)
+    return 0
+
+
 def flash_ab(runs: int) -> int:
     """One side of a flash-attention comparison (``--flash-ab N``)."""
     card = phase_env()
@@ -6599,6 +6792,8 @@ if __name__ == "__main__":
             sys.exit(decode_ab(int(sys.argv[2])))
         if sys.argv[1:2] == ["--flash-ab"]:
             sys.exit(flash_ab(int(sys.argv[2])))
+        if sys.argv[1:2] == ["--window-ab"]:
+            sys.exit(window_ab(int(sys.argv[2])))
         sys.exit(main())
     except SmokeFailure as e:
         log(f"chip_smoke: FAIL: {e}")

@@ -13,9 +13,9 @@ at most ``timeout_s`` seconds, so a dead rank ends the others' run with
 an error instead of a hang.
 
 Only the coordinator (rank 0) talks to the outside world: the gated
-transport and chain below turn every other rank's writes into no-ops,
-and the miner's round publishes from the coordinator alone. Data is
-split by :func:`shard_documents`.
+transport and chain below turn every other rank's writes into no-ops
+(all but a post-mortem bundle), and the miner's round publishes from the
+coordinator alone. Data is split by :func:`shard_documents`.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..transport.base import is_pm_id
 from .mesh import Mesh, MeshConfig
 
 logger = logging.getLogger(__name__)
@@ -143,8 +144,11 @@ def shard_documents(docs, *, process_index: Optional[int] = None,
 class CoordinatorGatedTransport:
     """Reads pass through on every rank; writes (every ``publish*``
     method and ``gc``) run only on the coordinator and return None
-    elsewhere. The miner gathers a delta before this gate, on every
-    rank (the gather is a collective)."""
+    elsewhere, but for a post-mortem bundle (an id for which
+    ``transport.base.is_pm_id`` holds): a rank that crashes publishes
+    its flight bundle, as every JAX process does. The miner gathers a
+    delta before this gate, on every rank (the gather is a
+    collective)."""
 
     def __init__(self, inner):
         self._inner = inner
@@ -153,7 +157,8 @@ class CoordinatorGatedTransport:
         attr = getattr(self._inner, name)
         if (name.startswith("publish") or name == "gc") \
                 and not is_coordinator():
-            return lambda *a, **kw: None
+            return lambda *a, **kw: (attr(*a, **kw)
+                                     if a and is_pm_id(a[0]) else None)
         return attr
 
 

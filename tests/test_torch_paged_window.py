@@ -11,6 +11,13 @@ speculative verify. Query ``t`` of a slot sees the slot's context below
 (context 0, tables on trash page 0, which is poisoned so a leak would
 show), and the dispatch: CPU tensors take the plain version at any
 window, CUDA tensors are refused by the wrappers' checks off the card.
+
+``paged_window_split_reference`` (the bf16 kernel's walk: 64-row key
+tiles in the planner's splits, P split into two bf16 parts before PV,
+the splits merged) is held to the same JAX function within 1e-5 in f32,
+at the cases above, a 64-row window over 900 positions and the edges of
+pages and splits; in bf16 it reads at most half of chip_smoke.py's card
+limit, where P rounded once to bf16 or a dropped split read past it.
 """
 
 import jax.numpy as jnp
@@ -134,3 +141,97 @@ def test_card_bf16_limit_passes_rounding_and_rejects_a_lost_tile(W, lens):
     assert smoke._window_bf16_ratio(lost, ref) > 10.0
     assert smoke._window_bf16_ratio(pa.paged_decode_reference(*args),
                                     ref) > 1.0
+
+
+# the split reference against JAX in f32: (B, W, Hq, Hkv, MP, lens,
+# tiles); tiles None is the planner's. With P 8 a 64-row key tile is 8
+# pages: contexts P - 1, P, P + 1, one tile (a split at tiles 1) +- 1, two
+# tiles +- 1, the table's width - 1 and the width
+SPLIT_CASES = {
+    **{f"w{W}_{i}": (4, W, 4, 4, 4, lens, None)
+       for W in (1, 2, 5, 16)
+       for i, lens in enumerate(([0, 7, 8, 9], [16, 15, 17, 31]))},
+    "gqa_8_2": (3, 6, 8, 2, 4, [0, 9, 32], None),
+    "gqa_4_1": (3, 6, 4, 1, 4, [0, 9, 32], None),
+    "w64_ctx900": (1, 64, 4, 4, 128, [900], None),
+    "edges_t1": (5, 5, 4, 4, 32, [7, 8, 9, 63, 64], 1),
+    "edges_t1b": (5, 5, 4, 4, 32, [65, 127, 128, 129, 255], 1),
+    "edges_t2": (5, 70, 4, 4, 32, [127, 128, 129, 255, 256], 2),
+    "edges_gqa_t3": (2, 70, 8, 2, 32, [191, 193], 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_window_split_reference_matches_jax_reference(case):
+    B, W, Hq, Hkv, MP, lens, tiles = SPLIT_CASES[case]
+    args = _case(B, W, Hq, Hkv, 16, MP, lens, 7)
+    ref = np.asarray(jpa.paged_decode_reference(*map(jnp.asarray, args)))
+    ours = pa.paged_window_split_reference(*map(torch.from_numpy, args),
+                                           tiles=tiles).numpy()
+    assert ours.shape == (B, W, Hq, 16)
+    np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
+
+
+# bf16 against the card limit: (B, W, lens, Hq, Hkv, D)
+BF16_CASES = {"verify_w5": (3, 5, [8, 200, 900], 4, 4, 64),
+              "suffix_w64": (1, 64, [900], 4, 4, 64),
+              "suffix_w512": (1, 512, [900], 2, 2, 64),
+              "gqa_w33_d128": (2, 33, [17, 200], 8, 2, 128)}
+
+
+def _bf16_case(name):
+    B, W, lens, Hq, Hkv, D = BF16_CASES[name]
+    smoke = _chip_smoke()
+    smoke.DEV = "cpu"
+    args = smoke._window_case(B, W, lens, torch.bfloat16, 5, Hq=Hq, Hkv=Hkv,
+                              D=D, MP=64)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    return smoke, args, pa.paged_decode_reference(*f32)
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_window_split_reference_bf16_within_half_the_card_limit(name):
+    """The kernel's rounding points (P in two bf16 parts, the output
+    rounded once at the store) read at most half of the card's per
+    element limit against the plain version in f32."""
+    smoke, args, ref = _bf16_case(name)
+    out = pa.paged_window_split_reference(*args)
+    assert out.dtype == torch.bfloat16
+    assert smoke._window_bf16_ratio(out, ref) <= 0.5
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_card_limit_fails_p_rounded_once_and_a_dropped_split(name):
+    """The same limit rejects the walk with P rounded once to bf16
+    before PV (the flash kernel's rounding point) and the merge without
+    the first split, the one that holds the context's first tiles."""
+    smoke, args, ref = _bf16_case(name)
+    once = pa.window_split_merge(
+        *pa.window_split_partials(*args, p_parts=1), args[0])
+    assert smoke._window_bf16_ratio(once, ref) > 1.0
+    m, l, acc = pa.window_split_partials(*args)
+    assert m.shape[-1] > 1
+    m[..., 0], l[..., 0], acc[..., 0, :] = float("-inf"), 0.0, 0.0
+    dropped = pa.window_split_merge(m, l, acc, args[0])
+    assert smoke._window_bf16_ratio(dropped, ref) > 1.0
+
+
+@pytest.mark.parametrize("W,G,MP,P,B,Hkv,want", [
+    (5, 1, 64, 16, 8, 12, (5, 4)),      # the verify
+    (512, 1, 64, 16, 1, 12, (6, 4)),    # a 512-row suffix over 900
+    (64, 1, 64, 16, 1, 12, (1, 17)),    # a 64-row suffix
+    (1024, 1, 64, 16, 8, 12, (32, 1)),  # a full grid: no split
+    (33, 4, 16, 16, 2, 8, (1, 5)),
+    (5, 1, 64, 16, 65535, 1, (17, 1)),  # the grid's z limit
+])
+def test_plan_window_fills_one_wave(W, G, MP, P, B, Hkv, want):
+    """Splits of whole key tiles covering the walk once, as many as keep
+    the grid within the blocks one wave holds."""
+    plan = pa.plan_window(W, G, MP, P, B, Hkv)
+    key_tiles = -(-MP * P // 64) + -(-W // 64)
+    assert (plan.tiles, plan.splits) == want
+    assert plan.splits * plan.tiles >= key_tiles
+    assert (plan.splits - 1) * plan.tiles < key_tiles
+    blocks = -(-W * G // 64) * Hkv * B * plan.splits
+    assert plan.splits == 1 or blocks <= pa._WIN_BLOCKS
+    assert B * plan.splits <= 65535
