@@ -9,6 +9,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --serve6b
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --parallel-cards
+    python3 chip_smoke.py --mesh-roles
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
@@ -28,8 +29,9 @@ bound, at the verify, a 512-row suffix over 900 positions and a 64-row
 one over 512) and phase 21's traffic once through the server CLI, with
 the ttft and prefill ms of every request that hit the prefix cache.
 ``--serve6b`` runs phase 22 alone after the build,
-``--parallel`` phase 23 alone, and ``--parallel-cards`` phase 23's
-world over NCCL on every card of a machine with several. ``--phase-times
+``--parallel`` phase 23 alone, ``--mesh-roles`` phase 24 alone, and
+``--parallel-cards`` the worlds of phases 23 and 24 over NCCL on every
+card of a machine with several. ``--phase-times
 OUT DIR...`` times the whole script of each checkout DIR in turn on one
 machine (parent, change, change, parent for a comparison): each run's
 ``main()`` with every ``phase_*`` function timed, its output and errors
@@ -388,13 +390,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
            that differs between the two points at the NCCL route.
            ``--parallel-cards`` runs (a) and the world of (b) and (c) over
            NCCL with one rank a card on a machine with several cards.
+24. mesh roles the validator and the averager on a mesh. Phase 17's
+           submissions on a fresh root (three honest MinerLoop miners, a
+           stale dense one, phase 16's two hostiles); hard links of it
+           give each world and round its own root. (a) A validator round
+           (f32, cohort 8) and (b) an averager round with
+           ``WeightedAverage`` and one with ``ParameterizedMerge`` (its
+           defaults, ``--publish-policy always``; phase 16's chain
+           weights), first at world 1 in this process, then at world 2
+           over gloo, both ranks on the card, in two child processes
+           (``--mesh-roles-worker``) on a dp 2 mesh: the same scores on
+           both ranks within 1e-5 relative of world 1's, the hostiles 0
+           with the JAX verdicts, one ``set_weights`` (rank 0's), rank 1
+           never reading the transport, each rank's flash-forward
+           launches exactly 12 x the candidate-batches it evaluated and
+           nothing else; the weighted base within 1e-6 of world 1's, the
+           parameterized one within 1e-6 of the plain mixture at its
+           learned logits (phase 18's limit) and those logits within
+           PARAM_LOGITS_LIMIT of world 1's, one publish (rank 0's),
+           each rank's launches exact (12 x eval batches of the forward;
+           12 x (meta-steps + eval batches) and 12 x meta-steps of each
+           backward kernel) and no scatter (a mesh densifies). Each
+           round's seconds, peak card memory, and collective calls, bytes
+           and ms, a rank. (c) ``neurons.validator.main`` and then
+           ``neurons.averager.main`` (its default strategy) as two
+           processes joined by ``--multihost-*`` (``--mesh-roles-cli``):
+           rc 0 on both, one emission and one publish, rank 0's.
+           ``--parallel-cards`` runs the phase's worlds over NCCL, one
+           rank a card.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
 JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
 ``slice5`` JSON line (phase 20), a ``serve6`` JSON line (phase 21), a
 ``serve6b`` JSON line (phase 22), a ``parallel`` JSON line (phase 23),
-the ``nvidia-smi`` name/power-limit line,
+a ``mesh_roles`` JSON line (phase 24), the ``nvidia-smi`` name/power-limit
+line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -2391,6 +2422,12 @@ def phase_averager(tree, tok, work: str) -> dict:
 
 VAL_EVAL_BATCHES = 4
 META_EPOCHS = 2
+# phase 24: the largest distance of a rank's learned logits (Adam, 8
+# meta-steps at lr 0.01 from 0) from world 1's. Sound runs read 2.01e-4
+# (bf16 partial sums in another order); the logits' gradient doubled on
+# every rank reads 3.09e-3, its all-reduce dropped 0.160 (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md, phase 24's limit)
+PARAM_LOGITS_LIMIT = 1e-3
 HONEST = ("hotkey_1", "hotkey_2", "hotkey_3")
 README_VALIDATOR_FLAGS = [
     "--backend", "local", "--model", "gpt2-124m", "--dataset", "synthetic",
@@ -6054,19 +6091,20 @@ def _par_score(tree, tok, work: str) -> dict:
             "score": score}
 
 
-def _par_spawn(n: int, backend: str, spec: dict, tmp: str, what: str
-               ) -> list:
-    """Run ``n`` ranks (``--parallel-worker``) on ``spec`` (written to
-    ``tmp/spec.json``): over gloo every rank on this card, over NCCL rank
-    r on card r. Any rank that exits non-zero fails the phase (its log's
-    tail logged first). Returns each rank's ``out_<rank>.json``."""
+def _par_spawn(n: int, backend: str, spec: dict, tmp: str, what: str,
+               mode: str = "--parallel-worker") -> list:
+    """Run ``n`` ranks (``mode``: ``--parallel-worker`` or a phase 24
+    child) on ``spec`` (written to ``tmp/spec.json``): over gloo every
+    rank on this card, over NCCL rank r on card r. Any rank that exits
+    non-zero fails the phase (its log's tail logged first). Returns each
+    rank's ``out_<rank>.json``."""
     with open(os.path.join(tmp, "spec.json"), "w") as f:
         json.dump(spec, f)
     port = _free_port()
     logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(n)]
     env = {**os.environ, "DT_DIST_BACKEND": backend}
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+        [sys.executable, os.path.abspath(__file__), mode,
          str(r), str(port), tmp], stdout=logs[r],
         stderr=subprocess.STDOUT, cwd=ROOT,
         env={**env, **({"LOCAL_RANK": str(r)} if backend == "nccl"
@@ -6256,6 +6294,558 @@ def _sharded_entry(par: dict) -> dict:
                        f"E {k['E']}, {k['dtype']}",
         "collectives_ms_gloo_one_card": {
             name: c["ms"] for name, c in w2["collectives"].items()}}
+
+
+# ---------------------------------------------------------------------------
+# 24. the validator and the averager on a mesh
+# ---------------------------------------------------------------------------
+
+# the chain weights the averager's rounds read (phase 16's), so that the
+# weighted merge's consensus is not uniform
+MR_SCORES = {"hotkey_1": 0.5, "hotkey_2": 0.1, "hotkey_3": 0.15,
+             "hotkey_4": 0.15, "hotkey_5": 0.3, "hotkey_6": 0.3}
+MR_STALE = "an-older-base"
+# the CLIs' run length: (c) checks the pod's plumbing, not the merge
+MR_CLI_FLAGS = ["--eval-batches", "2", "--rounds", "1"]
+MR_TIMED = ("_raw_all_reduce", "_raw_all_gather", "broadcast_")
+
+
+class _Calls:
+    """A transport or chain whose method calls are counted by name (a
+    measuring hook of this script)."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.calls: dict = {}
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if not callable(attr):
+            return attr
+
+        def call(*a, **kw):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return attr(*a, **kw)
+        return call
+
+
+def _mr_fleet(tree, tok, root: str) -> str:
+    """Phase 17's submissions on a fresh root over the base ``tree``:
+    three honest MinerLoop miners (--wire-v2 int8, --wire-v2 with f32
+    kept values, dense v1), a dense delta whose rider names another base
+    (hotkey_4), and phase 16's hostiles (hotkey_5: an index out of
+    range, hotkey_6: a value over the cap). Returns the base's
+    revision."""
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    t = LocalFSTransport(root)
+    rev = t.publish_base(tree)
+    train = _batches(tok, split="train", batch_size=MINER_B,
+                     seq_len=MINER_T, n=3 * AVG_MINER_STEPS)
+    for i, (h, v2, quant) in enumerate((("hotkey_1", True, "int8"),
+                                        ("hotkey_2", True, "none"),
+                                        ("hotkey_3", False, "int8"))):
+        _honest_miner(t, h, train[i * AVG_MINER_STEPS:
+                                  (i + 1) * AVG_MINER_STEPS],
+                      wire_v2=v2, quant=quant)
+    shapes = {k: v.shape for k, v in gpt2.make_model(
+        gpt2.PRESETS["gpt2-124m"])[0].state_dict().items()}
+    g = torch.Generator(device=DEV).manual_seed(SEED + 24)
+
+    def noise(scale):
+        return {k: torch.randn(s, generator=g, device=DEV) * scale
+                for k, s in shapes.items()}
+
+    t.publish_delta("hotkey_4", gpt2.params_to_numpy(noise(1e-5)))
+    t.publish_delta_meta("hotkey_4", {"base_revision": MR_STALE})
+    bad, _ = delta.pack_delta_v2(noise(1e-5), density=1.0 / 64.0)
+    bad["leaves"]["wpe"]["idx"][0] = shapes["wpe"].numel()
+    _publish_tree(t, "hotkey_5", bad, rev, "int8")
+    huge, _ = delta.pack_delta_v2(noise(1e-5), density=1.0 / 64.0)
+    huge["leaves"]["wte"]["scale"] = torch.tensor(1e6, device=DEV)
+    _publish_tree(t, "hotkey_6", huge, rev, "int8")
+    return rev
+
+
+def _mr_dirs(src: str, dst: str, cli: bool = False) -> dict:
+    """A world's roots as hard links of the fleet's (a publish writes a
+    new file and renames it, so no world sees another's): the
+    validator's, the weighted round's and the parameterized round's,
+    with their chains (MR_SCORES set in the averagers'); with ``cli``,
+    the two CLIs' work dirs too."""
+    import shutil
+    from distributedtraining_tpu_torch.chain import LocalChain
+    out = {}
+    for name in ("val", "weighted", "param") + (("cli_val", "cli_avg")
+                                                 if cli else ()):
+        work = os.path.join(dst, name)
+        shutil.copytree(src, os.path.join(work, "artifacts"),
+                        copy_function=os.link)
+        if name in ("weighted", "param", "cli_avg"):
+            LocalChain(os.path.join(work, "chain"),
+                       my_hotkey="hotkey_91").set_weights(MR_SCORES)
+        out[name] = work
+    return out
+
+
+def _mr_collective_timer():
+    """Wrap the collectives' entries so that each call's wall ms, between
+    two device synchronisations, adds to the returned dict (by entry);
+    the second value restores them."""
+    import torch
+    from distributedtraining_tpu_torch.parallel import collectives as coll
+    ms: dict = {}
+    orig = {n: getattr(coll, n) for n in MR_TIMED}
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    for name, fn in orig.items():
+        setattr(coll, name, wrap(name, fn))
+    return ms, lambda: [setattr(coll, n, f) for n, f in orig.items()]
+
+
+def _mr_measured(fn) -> dict:
+    """Run ``fn`` (one round) with every launch count at 0 just before
+    and read just after, the peak card memory reset, the collectives
+    timed and counted: ``{"out", "s", "launches", "peak_bytes",
+    "collective_ms", "collectives"}``."""
+    import torch
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.parallel import collectives as coll
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    coll.reset_counts()
+    ms, restore = _mr_collective_timer()
+    _zero_counts()
+    dsc.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return {"out": out, "s": time.perf_counter() - t0,
+            "launches": {"dequant_scatter": dsc.launches, **fa.launches,
+                         **fused_ce.launches},
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "held_before_bytes": held,
+            "collective_ms": ms,
+            "collectives": [{"op": k[0], "backend": k[1], "route": k[2], **v}
+                            for k, v in sorted(coll.counts.items())]}
+
+
+def _mr_rounds(mesh, dirs: dict, tok) -> dict:
+    """(a) and (b) in this process: world 1 with ``mesh`` None, else one
+    rank of ``mesh``'s world (every rank calls this at once). Each round's
+    launches, seconds, peak card memory and collectives are this
+    process's."""
+    import dataclasses as dc
+    import torch
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.average import (
+        AveragerLoop, ParameterizedMerge, WeightedAverage)
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.engine.validate import Validator
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.parallel import multihost
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    held = _batches(tok, split="test", batch_size=MINER_B, seq_len=EVAL_T,
+                    n=VAL_EVAL_BATCHES)
+
+    def io(name, hotkey):
+        t = _Calls(LocalFSTransport(os.path.join(dirs[name], "artifacts")))
+        c = _Calls(LocalChain(os.path.join(dirs[name], "chain"),
+                              my_hotkey=hotkey))
+        return (t, c) + multihost.gate_io(t, c)
+
+    res: dict = {}
+    # (a) f32, so that the scores compare with world 1's at 1e-5
+    eng32 = TrainEngine(gpt2.make_model(dc.replace(cfg, dtype="float32"))[0],
+                        mesh=mesh, device=DEV)
+    t, c, gt, gch = io("val", "hotkey_91")
+    v = Validator(eng32, gt, gch, eval_batches=lambda: iter(held),
+                  cohort_size=8)
+    secs: dict = {}
+    _timed_calls(v._evaluator(), "evaluate_stacked", secs)
+
+    def val_round():
+        v.bootstrap()
+        return {s.hotkey: [s.score, s.loss, s.reason]
+                for s in v.validate_and_score()}
+
+    m = _mr_measured(val_round)
+    v.close()
+    cb = v._evaluator().candidate_batches
+    res["val"] = {**m, "scores": m.pop("out"), "base_loss": v.base_loss,
+                  "candidate_batches": cb, "eval_s": secs["evaluate_stacked"],
+                  "eval_ms_per_candidate_batch": (
+                      secs["evaluate_stacked"] * 1e3 / cb if cb else None),
+                  "set_weights": c.calls.get("set_weights", 0),
+                  "transport_calls": sum(t.calls.values())}
+    del v, eng32
+    torch.cuda.empty_cache()
+    # (b) bf16, the averager's defaults but the publish policy
+    model = gpt2.make_model(cfg)[0]
+    eng = TrainEngine(model, mesh=mesh, device=DEV)
+    for name, strategy in (("weighted", WeightedAverage()),
+                           ("param", ParameterizedMerge(
+                               model, meta_epochs=META_EPOCHS))):
+        t, c, gt, gch = io(name, "hotkey_95")
+        loop = AveragerLoop(eng, gt, gch, strategy,
+                            val_batches=lambda: iter(held),
+                            publish_policy="always")
+        loop.bootstrap()
+        secs, kept = {}, {}
+        _timed_calls(loop.strategy, "merge", secs, kept)
+        m = _mr_measured(loop.run_round)
+        loop.close()
+        _, w = kept["merge"]
+        res[name] = {**m, "merged": m.pop("out"),
+                     "accepted": loop.report.last_accepted,
+                     "merge_s": secs["merge"],
+                     "publishes": t.calls.get("publish_base", 0),
+                     "revision": loop._base_revision,
+                     "weights": ({k: x.detach().cpu().tolist()
+                                  for k, x in w.items()}
+                                 if isinstance(w, dict) else
+                                 torch.as_tensor(w).tolist())}
+        del loop
+    return res
+
+
+def mesh_roles_worker(rank: int, port: int, tmp: str) -> int:
+    """One rank of phase 24's world (``--mesh-roles-worker``): (a) and
+    (b) on a dp mesh over every rank; its results in
+    ``tmp/out_<rank>.json``."""
+    import torch
+    from distributedtraining_tpu_torch.parallel import (Mesh, MeshConfig,
+                                                        multihost)
+    sys.path.insert(0, ROOT)
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = spec["n"]
+    multihost.initialize(f"127.0.0.1:{port}", n, rank, device=DEV,
+                         backend=spec["backend"], timeout_s=PAR_TIMEOUT_S)
+    import torch.distributed as dist
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    try:
+        out.update(_mr_rounds(Mesh(MeshConfig(dp=n)), spec["dirs"],
+                              _tokenizer()))
+    finally:
+        multihost.shutdown()
+    return _par_worker_done(tmp, rank, out)
+
+
+def mesh_roles_cli(rank: int, port: int, tmp: str) -> int:
+    """One process of a CLI of (c) (``--mesh-roles-cli``): the entry
+    point of ``cli.json`` on its argv and this rank's ``--multihost-*``
+    flags, with the local chain's ``set_weights`` and the transport's
+    ``publish_base`` counted and the launch counts at 0 before; its
+    return code, counts, launches and seconds in ``tmp/out_<rank>.json``
+    (the entry point brings its world up and down itself)."""
+    import importlib
+    import torch
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    sys.path.insert(0, ROOT)
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    counts: dict = {}
+    for cls, name in ((LocalChain, "set_weights"),
+                      (LocalFSTransport, "publish_base")):
+        def counted(self, *a, _f=getattr(cls, name), _n=name, **kw):
+            counts[_n] = counts.get(_n, 0) + 1
+            return _f(self, *a, **kw)
+        setattr(cls, name, counted)
+    role = importlib.import_module(
+        f"distributedtraining_tpu_torch.neurons.{spec['role']}")
+    _zero_counts()
+    dsc.launches = 0
+    t0 = time.perf_counter()
+    rc = role.main(spec["argv"] + [
+        "--multihost-coordinator", f"127.0.0.1:{port}",
+        "--multihost-processes", str(spec["n"]), "--multihost-id",
+        str(rank)])
+    torch.cuda.synchronize()
+    return _par_worker_done(tmp, rank, {
+        "rc": rc, "counts": counts, "s": time.perf_counter() - t0,
+        "launches": {"dequant_scatter": dsc.launches, **fa.launches,
+                     **fused_ce.launches}})
+
+
+def _mr_cli(n: int, backend: str, role: str, argv: list, what: str
+            ) -> list:
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        return _par_spawn(n, backend, {"role": role, "argv": argv, "n": n},
+                          tmp, what, mode="--mesh-roles-cli")
+
+
+def _mr_check(what: str, n: int, w1: dict, outs: list, cfg, dirs: dict,
+              deltas: list, tree) -> dict:
+    """(a) and (b) of a world against world 1 (see the docstring of
+    :func:`phase_mesh_roles`); every reading logged before the first
+    check."""
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.engine.train import _wire_template
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    L = cfg.n_layer
+    # (a) the validator's round
+    ref = w1["val"]["scores"]
+    val_rel = {}
+    for h, (score, loss, reason) in ref.items():
+        if loss is not None:
+            got = outs[0]["val"]["scores"][h]
+            val_rel[h] = {"loss_rel": abs(got[1] - loss) / abs(loss),
+                          "score_rel": abs(got[0] - score)
+                          / max(abs(score), 1e-30)}
+    log(f"{what} validator:", json.dumps(
+        {"rel": val_rel, "launches": [o["val"]["launches"] for o in outs],
+         "candidate_batches": [o["val"]["candidate_batches"] for o in outs],
+         "set_weights": [o["val"]["set_weights"] for o in outs]}))
+    for r, o in enumerate(outs):
+        check(o["val"]["scores"] == outs[0]["val"]["scores"],
+              f"{what} validator rank {r}: scores differ from rank 0's")
+        lc = o["val"]["launches"]
+        check(lc["flash_attention_fwd"] == L * o["val"]["candidate_batches"]
+              and not any(x for k, x in lc.items()
+                          if k != "flash_attention_fwd"),
+              f"{what} validator rank {r}: launches {lc} != 12 x "
+              f"{o['val']['candidate_batches']} candidate-batches of the "
+              f"flash forward and nothing else")
+        check(r == 0 or o["val"]["transport_calls"] == 0,
+              f"{what} validator rank {r} read the transport "
+              f"({o['val']['transport_calls']} calls)")
+    check(sum(o["val"]["candidate_batches"] for o in outs)
+          == w1["val"]["candidate_batches"],
+          f"{what} validator: the ranks evaluated "
+          f"{[o['val']['candidate_batches'] for o in outs]} "
+          f"candidate-batches, world 1 {w1['val']['candidate_batches']}")
+    check([o["val"]["set_weights"] for o in outs] == [1] + [0] * (n - 1),
+          f"{what} validator: set_weights by rank "
+          f"{[o['val']['set_weights'] for o in outs]}")
+    got = outs[0]["val"]["scores"]
+    mag = float(np.float32(127.0) * np.float32(1e6))
+    check(got["hotkey_5"][2] == "no_delta"
+          and got["hotkey_6"][2] == f"magnitude_exceeded({mag:.3e}>"
+                                    f"{1e3:.3e})"
+          and got["hotkey_5"][0] == got["hotkey_6"][0] == 0.0,
+          f"{what} validator: hostiles {got['hotkey_5']}, "
+          f"{got['hotkey_6']}")
+    check(all(got[h][2] == "ok" and got[h][0] > 0 for h in HONEST),
+          f"{what} validator: honest miners {[got[h] for h in HONEST]}")
+    for h, rel in val_rel.items():
+        check(rel["loss_rel"] <= 1e-5 and (h not in HONEST
+                                           or rel["score_rel"] <= 1e-5),
+              f"{what} validator {h}: {rel} against world 1 (1e-5)")
+    # (b) the averager's rounds; the learned logits of every rank against
+    # world 1's, and world 1's own distance from their start (0)
+    w1_logits = w1["param"]["weights"]
+    logit_diff = [max(float(np.abs(np.array(x) - np.array(w1_logits[k])
+                                   ).max())
+                      for k, x in o["param"]["weights"].items())
+                  for o in outs]
+    log(f"{what} param logits:", json.dumps(
+        {"vs_world1_by_rank": logit_diff, "world1_moved": max(
+            float(np.abs(np.array(x)).max()) for x in w1_logits.values()),
+         "limit": PARAM_LOGITS_LIMIT}))
+    want = {"weighted": L * VAL_EVAL_BATCHES}
+    steps = META_EPOCHS * VAL_EVAL_BATCHES
+    for name in ("weighted", "param"):
+        runs = [o[name] for o in outs]
+        log(f"{what} {name} round:", json.dumps(
+            {"launches": [x["launches"] for x in runs],
+             "publishes": [x["publishes"] for x in runs],
+             "s": [x["s"] for x in runs]}))
+        for r, x in enumerate(runs):
+            lc = x["launches"]
+            check(x["merged"] and x["accepted"] == 3,
+                  f"{what} {name} rank {r}: merged {x['merged']}, accepted "
+                  f"{x['accepted']}")
+            check(x["revision"] == runs[0]["revision"] and
+                  x["weights"] == runs[0]["weights"],
+                  f"{what} {name} rank {r}: revision or weights differ "
+                  f"from rank 0's")
+            if name == "weighted":
+                ok = (lc["flash_attention_fwd"] == want[name]
+                      and not any(v for k, v in lc.items()
+                                  if k != "flash_attention_fwd"))
+            else:
+                ok = (lc["flash_attention_fwd"] == L * (steps
+                                                       + VAL_EVAL_BATCHES)
+                      and lc["flash_attention_bwd_dkv"] == L * steps
+                      and lc["flash_attention_bwd_dq"] == L * steps
+                      and not any(lc[k] for k in (
+                          "dequant_scatter", "fused_ce_fwd",
+                          "fused_ce_bwd_dh", "fused_ce_bwd_dw")))
+            check(ok, f"{what} {name} rank {r}: launches {lc}")
+        check([x["publishes"] for x in runs] == [1] + [0] * (n - 1),
+              f"{what} {name}: publishes by rank "
+              f"{[x['publishes'] for x in runs]}")
+    template = _wire_template(gpt2.make_model(cfg)[0])
+    fetched = LocalFSTransport(os.path.join(
+        dirs["weighted"], "artifacts")).fetch_base(template)
+    got_w = delta.flatten_tree(fetched[0])
+    w_err = max(float(np.abs(np.asarray(got_w[k], np.float64)
+                             - np.asarray(w1["weighted_base"][k],
+                                          np.float64)).max())
+                for k in got_w)
+    pub = gpt2.params_from_numpy(LocalFSTransport(os.path.join(
+        dirs["param"], "artifacts")).fetch_base(template)[0], device="cpu")
+    base = gpt2.params_from_numpy(tree, device="cpu")
+    placed = [delta.place_delta(d, base) for d in deltas]
+    norm = {k: torch.softmax(torch.tensor(x), dim=0)
+            for k, x in outs[0]["param"]["weights"].items()}
+    plain = delta.per_tensor_weighted_merge(base, placed, norm)
+    p_err = max(float((pub[k] - plain[k]).abs().max()) for k in pub)
+    logit_diff = max(logit_diff)
+    log(f"{what} published bases:", json.dumps(
+        {"weighted_vs_world1": w_err, "param_vs_plain": p_err,
+         "param_logits_vs_world1": logit_diff}))
+    check(w_err <= 1e-6, f"{what} weighted: published base vs world 1's: "
+                         f"max abs {w_err} > 1e-6")
+    check(p_err <= 1e-6, f"{what} parameterized: published base vs the "
+                         f"plain mixture at its logits: max abs {p_err}")
+    check(logit_diff <= PARAM_LOGITS_LIMIT,
+          f"{what} parameterized: learned logits {logit_diff} from world "
+          f"1's > {PARAM_LOGITS_LIMIT}")
+    return {"val_rel": val_rel, "weighted_vs_world1": w_err,
+            "param_vs_plain": p_err, "param_logits_vs_world1": logit_diff}
+
+
+def _mr_summary(rounds: dict) -> dict:
+    """A world's (or a rank's) readings without the scores' detail."""
+    keep = ("s", "launches", "peak_bytes", "held_before_bytes",
+            "collective_ms", "collectives")
+    out = {name: {k: r[k] for k in keep}
+           for name, r in rounds.items() if isinstance(r, dict)
+           and "launches" in r}
+    for name in ("weighted", "param"):
+        if name in rounds:
+            out[name]["merge_s"] = rounds[name]["merge_s"]
+    for k in ("candidate_batches", "eval_s", "eval_ms_per_candidate_batch"):
+        out["val"][k] = rounds["val"][k]
+    return out
+
+
+def phase_mesh_roles(tree, tok, n: int = 2, backend: str = "gloo") -> dict:
+    """Phase 24 (see the module docstring): phase 17's submissions on a
+    fresh root; (a) and (b) at world 1 in this process, then at world
+    ``n`` in child processes (gloo: every rank on this card; NCCL: rank r
+    on card r), checked against world 1; then (c) both CLIs as ``n``
+    processes joined by ``--multihost-*``."""
+    import tempfile
+    import torch
+    from distributedtraining_tpu_torch import delta
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.ingest import DeltaIngestor
+    from distributedtraining_tpu_torch.engine.train import _wire_template
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    cfg = gpt2.PRESETS["gpt2-124m"]
+    what = f"world {n} ({backend})"
+    t_start = time.perf_counter()
+    res: dict = {"world": n, "backend": backend, "model": "gpt2-124m",
+                 "eval_batches": VAL_EVAL_BATCHES, "eval_seq_len": EVAL_T,
+                 "meta_steps": META_EPOCHS * VAL_EVAL_BATCHES}
+    template = _wire_template(gpt2.make_model(cfg)[0])
+    with tempfile.TemporaryDirectory() as work:
+        fleet = os.path.join(work, "fleet")
+        t0 = time.perf_counter()
+        rev = _mr_fleet(tree, tok, fleet)
+        res["fleet_s"] = time.perf_counter() - t0
+        # the merges' inputs, densified on the host, for (b)'s plain check
+        ing = DeltaIngestor(LocalFSTransport(fleet), template,
+                            stale_deltas="skip")
+        deltas = [s.delta for s in ing.stage(list(HONEST),
+                                             base_revision=rev)]
+        ing.close()
+        check(all(d is not None for d in deltas), "the honest miners' "
+              "submissions did not stage")
+        d1 = _mr_dirs(fleet, os.path.join(work, "w1"))
+        t0 = time.perf_counter()
+        w1 = _mr_rounds(None, d1, tok)
+        res["world1_s"] = time.perf_counter() - t0
+        w1["weighted_base"] = delta.flatten_tree(LocalFSTransport(
+            os.path.join(d1["weighted"], "artifacts")).fetch_base(
+                template)[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+        dn = _mr_dirs(fleet, os.path.join(work, f"w{n}"), cli=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = _par_spawn(n, backend, {"n": n, "backend": backend,
+                                           "dirs": dn}, tmp, what,
+                              mode="--mesh-roles-worker")
+        res["world_s"] = time.perf_counter() - t0
+        res["checks"] = _mr_check(what, n, w1, outs, cfg, dn, deltas, tree)
+        del deltas, w1["weighted_base"]
+        # (c) the CLIs
+        cli = {}
+        t0 = time.perf_counter()
+        argv = README_VALIDATOR_FLAGS + MR_CLI_FLAGS + [
+            "--work-dir", dn["cli_val"], "--hotkey", "hotkey_91"]
+        runs = _mr_cli(n, backend, "validator", argv,
+                       f"{what} validator CLI")
+        weights = LocalChain(os.path.join(dn["cli_val"], "chain")
+                             ).get_weights("hotkey_91")
+        check(all(x["rc"] == 0 for x in runs) and any(weights.values())
+              and [x["counts"].get("set_weights", 0) for x in runs]
+              == [1] + [0] * (n - 1),
+              f"{what} validator CLI: rc {[x['rc'] for x in runs]}, "
+              f"set_weights {[x['counts'] for x in runs]}")
+        cli["validator"] = {"argv": argv, "s": time.perf_counter() - t0,
+                            "ranks": runs}
+        t0 = time.perf_counter()
+        argv = [f for f in README_AVERAGER_FLAGS
+                if f not in ("--strategy", "weighted")] + MR_CLI_FLAGS + [
+            "--meta-epochs", "1", "--publish-policy", "always",
+            "--work-dir", dn["cli_avg"], "--hotkey", "hotkey_95"]
+        runs = _mr_cli(n, backend, "averager", argv, f"{what} averager CLI")
+        new = LocalFSTransport(os.path.join(dn["cli_avg"], "artifacts")
+                               ).base_revision()
+        check(all(x["rc"] == 0 for x in runs) and new not in (None, rev)
+              and [x["counts"].get("publish_base", 0) for x in runs]
+              == [1] + [0] * (n - 1)
+              and all(x["launches"]["flash_attention_bwd_dq"] > 0
+                      and x["launches"]["dequant_scatter"] == 0
+                      for x in runs),
+              f"{what} averager CLI: rc {[x['rc'] for x in runs]}, "
+              f"publish_base {[x['counts'] for x in runs]}, launches "
+              f"{[x['launches'] for x in runs]}")
+        cli["averager"] = {"argv": argv, "s": time.perf_counter() - t0,
+                           "ranks": runs}
+    res.update(world1=_mr_summary(w1), ranks=[_mr_summary(o) for o in outs],
+               scores={h: x[0] for h, x in outs[0]["val"]["scores"].items()
+                       if x[1] is not None},
+               base_loss=outs[0]["val"]["base_loss"], cli=cli,
+               s=time.perf_counter() - t_start)
+    log("mesh roles:", json.dumps(res))
+    return res
 
 
 def _free_port() -> int:
@@ -6502,6 +7092,7 @@ def main() -> int:
     serve6b = phase_serve6b(tree, tok)
     serve6b["s"] = time.perf_counter() - t0
     par = phase_parallel(tree, tok)
+    mesh_roles = phase_mesh_roles(tree, tok)
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
     print(json.dumps({"kernels": [{
@@ -6561,6 +7152,9 @@ def main() -> int:
           flush=True)
     print(json.dumps({"parallel": {**par, "card": card,
                                    "total_s": total_s}}), flush=True)
+    print(json.dumps({"mesh_roles": {**mesh_roles, "card": card,
+                                     "total_s": time.perf_counter()
+                                     - t_start}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6745,6 +7339,25 @@ def parallel_only() -> int:
     return 0
 
 
+def mesh_roles_only() -> int:
+    """Phase 24 alone after the build (``--mesh-roles``): the
+    ``mesh_roles`` line, the card's line and the result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributedtraining_tpu_torch.models import gpt2
+    phase_build()
+    tok = _tokenizer()
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
+    res = phase_mesh_roles(tree, tok)
+    print(json.dumps({"mesh_roles": {**res, "card": card}}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def parallel_cards() -> int:
     """Phase 23's world over NCCL on every card of the machine
     (``--parallel-cards``, two or more): world 1 on card 0 for its
@@ -6765,8 +7378,10 @@ def parallel_cards() -> int:
     torch.cuda.empty_cache()
     res = {"world1": w1,
            f"world{n}": _par_run_world(n, "nccl", tree, tok,
-                                       w1["f32_losses"]),
-           "s": time.perf_counter() - t0}
+                                       w1["f32_losses"])}
+    torch.cuda.empty_cache()
+    res["mesh_roles"] = phase_mesh_roles(tree, tok, n=n, backend="nccl")
+    res["s"] = time.perf_counter() - t0
     print(json.dumps({"parallel_cards": {**res, "card": card}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6786,6 +7401,12 @@ if __name__ == "__main__":
                                      sys.argv[4]))
         if sys.argv[1:2] == ["--parallel"]:
             sys.exit(parallel_only())
+        if sys.argv[1:2] == ["--mesh-roles"]:
+            sys.exit(mesh_roles_only())
+        if sys.argv[1:2] in (["--mesh-roles-worker"], ["--mesh-roles-cli"]):
+            sys.exit((mesh_roles_worker if sys.argv[1].endswith("worker")
+                      else mesh_roles_cli)(int(sys.argv[2]),
+                                           int(sys.argv[3]), sys.argv[4]))
         if sys.argv[1:2] == ["--serve6b"]:
             sys.exit(serve6b_only())
         if sys.argv[1:2] == ["--decode-ab"]:

@@ -19,6 +19,9 @@ from typing import Optional, Sequence
 
 _SLICES = "ROADMAP 'Slices of the port'"
 ROLES = ("miner", "validator", "averager", "server")
+# the roles that run as one process a device over a mesh (torchrun, or
+# the --multihost-* flags); the server runs as one process
+MESH_ROLES = ("miner", "validator", "averager")
 
 
 @dataclasses.dataclass
@@ -201,12 +204,13 @@ class RunConfig:
             (m.sp > 1, "--sp > 1 (sequence parallelism: ring attention)",
              7),
             (m.dcn_dp > 1, "--dcn-dp > 1 (a multi-slice mesh)", 7),
-            (self.role != "miner" and (
+            (self.role not in MESH_ROLES and (
                 m.auto or max(m.fsdp, m.tp, m.dp) > 1
                 or self.multihost_coordinator is not None
                 or self.multihost_processes is not None),
              f"a mesh for the {self.role} (--dp/--fsdp/--tp/--mesh-auto, "
-             f"--multihost-*; the miner takes them)", 7),
+             f"--multihost-*; the miner, validator and averager take "
+             f"them)", 7),
             (self.scan_blocks, "--scan-blocks", 7),
             (bool(self.remat), "--remat", 7),
             (self.mu_dtype is not None, f"--mu-dtype {self.mu_dtype}", 7),

@@ -46,10 +46,33 @@ mixing-weight vectors on the threefry draws of ``utils/prng.py`` and
 scores each generation through the batched cohort evaluator (the flash
 forward on the card); it takes dense deltas too.
 
+On a mesh (the engine's ``mesh``: one process a device, under
+``torchrun`` or the ``--multihost-*`` flags) the round follows the JAX
+pod rules: the coordinator pulls the base and broadcasts it (a genesis
+base is the same numpy draw on every rank, published by the
+coordinator), syncs the metagraph and the consensus and broadcasts
+them, and stages every submission for every rank (``stage(multi=True)``,
+which densifies wire-v2 submissions: a mesh round launches no
+dequant-scatter). The accepted deltas are stacked along a miner axis
+padded to the merge bucket and sharded over the merge axis
+(``parallel.collectives.stack_deltas_sharded``: each rank holds its
+block, never the M x params stack). ``WeightedAverage`` merges by
+``sharded_cohort_merge`` (local partial sums, one all-reduce);
+``ParameterizedMerge``'s mixture is the same partial sum and all-reduce
+under autograd, every rank running the whole val batch, so the backward
+gives each rank the exact gradient of its own slots and one all-reduce
+of the logits' gradient over the merge axis makes it the global one
+(the logits and the optimizer state stay replicated);
+``GeneticMerge`` evaluates its tiers one candidate at a time. The base
+stays whole on every rank, evaluations go through the mesh engine, the
+coordinator alone publishes (monolithic only: no shard plane on a pod)
+and broadcasts the revision, and the skip of a declined submission set
+is off. ``OuterOptMerge`` and the tree's root wrap this unchanged; a
+publication lease on a pod is refused (slice 7b).
+
 Not ported yet, and refused with NotImplementedError naming the slice
 (ROADMAP "Slices of the port"): ``fleet``, ``remediation`` and LoRA
-submissions (slice 7); a device mesh is refused by the engine
-(``TrainEngine(mesh=...)``, slice 7).
+submissions (slice 7).
 """
 
 from __future__ import annotations
@@ -117,9 +140,14 @@ class WeightedAverage:
               consensus: dict[str, float] | None = None
               ) -> tuple[Params, np.ndarray]:
         """``(base + sum_i w_i * delta_i, w)`` over a host list of
-        submissions (dense wire trees, state dicts or packed trees)."""
+        submissions (dense wire trees, state dicts or packed trees), or
+        on a mesh over this rank's block of the sharded stack."""
         w = self._weights(miner_ids, consensus)
-        if any(delta_lib.is_packed_v2(d) for d in stacked):
+        if getattr(engine, "mesh", None) is not None:
+            # local partial sums over this rank's block, one all-reduce
+            from ..parallel.collectives import sharded_cohort_merge
+            merged = sharded_cohort_merge(base, stacked, w)
+        elif any(delta_lib.is_packed_v2(d) for d in stacked):
             # the f32 aggregate folds into the base in the base's dtype
             agg = delta_lib.aggregate_deltas(base, stacked, w)
             merged = {k: b + agg[k].to(b.dtype) for k, b in base.items()}
@@ -233,7 +261,9 @@ class OuterOptMerge:
             return
         self.velocity = self._pending_velocity
         self._pending_velocity = None
-        if self.state_path is not None:
+        from ..parallel import multihost
+        # one writer: every rank holds the same velocity
+        if self.state_path is not None and multihost.is_coordinator():
             try:
                 from .. import serialization as ser
                 from .publish import host_materialize
@@ -290,7 +320,16 @@ class ParameterizedMerge:
     def _norm(self, v: torch.Tensor) -> torch.Tensor:
         return torch.softmax(v, dim=0) if self.softmax_weights else v
 
-    def _mixture(self, w, base: Params, placed: list) -> Params:
+    def _mixture(self, w, base: Params, placed) -> Params:
+        from ..parallel.collectives import ShardedStack, local_merge
+        if isinstance(placed, ShardedStack):
+            # normalized over the real miners, zero-padded to the stack
+            def padded(v):
+                n = self._norm(v)
+                return torch.cat([n, n.new_zeros(placed.m_pad - len(n))])
+            return local_merge(base, placed,
+                               {k: padded(v) for k, v in w.items()}
+                               if self.per_tensor else padded(w))
         if self.per_tensor:
             return delta_lib.per_tensor_weighted_merge(
                 base, placed, {k: self._norm(v) for k, v in w.items()})
@@ -308,11 +347,14 @@ class ParameterizedMerge:
         """``(merged, w)``: the mixture at the learned logits ``w`` (a
         dict keyed like ``base`` when per-tensor, else an ``(M,)``
         tensor)."""
+        from ..parallel import collectives as coll
         from .train import _default_lm_loss
         m = len(miner_ids)
-        if m == 0 or len(stacked) != m:
-            raise ValueError(f"{len(stacked)} deltas for {m} miners")
-        placed = [delta_lib.place_delta(d, base) for d in stacked]
+        sharded = isinstance(stacked, coll.ShardedStack)
+        if m == 0 or (stacked.m_pad < m if sharded else len(stacked) != m):
+            raise ValueError(f"deltas do not match {m} miners")
+        placed = (stacked if sharded else
+                  [delta_lib.place_delta(d, base) for d in stacked])
         dev = next(iter(base.values())).device
         names = list(base) if self.per_tensor else ["w"]
         # softmax(0) is uniform; raw weights start at 1/M
@@ -332,6 +374,13 @@ class ParameterizedMerge:
                 loss, _ = _default_lm_loss(
                     self.model, self._mixture(w, base, placed), batch)
                 grads = torch.autograd.grad(loss, list(leaves.values()))
+                if sharded:
+                    # each rank's gradient covers its own slots: the sum
+                    # over the merge axis is the global one, the same on
+                    # every rank
+                    flat = coll.all_reduce_(torch.cat(grads), placed.mesh,
+                                            placed.axis)
+                    grads = flat.split([len(g) for g in grads])
                 tx.update_(dict(zip(names, grads)), opt_state, leaves)
                 last = loss.detach()
             # one host read an epoch, for the log line
@@ -432,16 +481,25 @@ class GeneticMerge:
 
         from ..utils import prng
         from .batched_eval import BatchedCohortEvaluator
+        from ..parallel.collectives import ShardedStack, local_merge
         m = len(miner_ids)
-        if m == 0 or len(stacked) != m:
-            raise ValueError(f"{len(stacked)} deltas for {m} miners")
-        placed = [delta_lib.place_delta(d, base) for d in stacked]
+        sharded = isinstance(stacked, ShardedStack)
+        if m == 0 or (stacked.m_pad < m if sharded else len(stacked) != m):
+            raise ValueError(f"deltas do not match {m} miners")
+        placed = (stacked if sharded else
+                  [delta_lib.place_delta(d, base) for d in stacked])
         dev = next(iter(base.values())).device
-        evaluator = BatchedCohortEvaluator(engine) if self.batched else None
+        # on a mesh the tiers stay sequential, as in JAX: each candidate
+        # is one merge (partial sums, one all-reduce) and one evaluation
+        evaluator = (BatchedCohortEvaluator(engine)
+                     if self.batched and not sharded else None)
         cache: dict[tuple[bytes, bool], float] = {}
         self.last_memo = cache
 
         def merge_fn(w):
+            if sharded:
+                return local_merge(base, placed, torch.cat(
+                    [w, w.new_zeros(placed.m_pad - m)]))
             return delta_lib.weighted_merge(base, placed, w.to(dev))
 
         def batches_for(full: bool):
@@ -454,8 +512,8 @@ class GeneticMerge:
             key = (w.numpy().tobytes(), full)
             if key not in cache:
                 with torch.no_grad():
-                    cache[key], _ = engine.evaluate(merge_fn(w),
-                                                    batches_for(full))
+                    cache[key], _ = engine.evaluate(
+                        engine.local(merge_fn(w)), batches_for(full))
             return cache[key]
 
         def _eval_many(ws, *, full: bool) -> None:
@@ -535,10 +593,10 @@ class AveragerLoop:
     base, gather and screen every miner delta, merge via the strategy,
     publish the new base (and, with ``base_dist``, its shards and
     manifest; with ``lineage``, its record; with ``lease``, only while
-    the lease is held). Single-host; with ``hierarchy`` the root of a
-    tree (the cohort is the ``__agg__`` ids of those nodes, mixed by
-    their riders' weight sums); the planes of ``_LOOP_NOT_PORTED`` raise
-    when given."""
+    the lease is held). On one host or over a mesh of processes (the
+    module docstring); with ``hierarchy`` the root of a tree (the cohort
+    is the ``__agg__`` ids of those nodes, mixed by their riders' weight
+    sums); the planes of ``_LOOP_NOT_PORTED`` raise when given."""
 
     def __init__(self, engine, transport, chain, strategy, *,
                  val_batches: Callable[[], Iterable[dict]],
@@ -569,6 +627,12 @@ class AveragerLoop:
         if stale_deltas not in ("skip", "accept"):
             raise ValueError(f"stale_deltas must be 'skip' or 'accept', "
                              f"got {stale_deltas!r}")
+        from .train import mesh_spans
+        if lease is not None and mesh_spans(engine):
+            raise NotImplementedError(
+                f"AveragerLoop(lease=...) on a world of several processes "
+                f"(the lease's verdict broadcast to every rank) is slice "
+                f"7b ({_SLICES})")
         if publish_policy not in ("improved", "always"):
             raise ValueError(f"publish_policy must be 'improved' or "
                              f"'always', got {publish_policy!r}")
@@ -632,14 +696,41 @@ class AveragerLoop:
         from ..models.gpt2 import params_from_numpy
         return params_from_numpy(tree, device=self.engine.device)
 
+    # -- a world of several processes ----------------------------------------
+    def _multi(self) -> bool:
+        from .train import mesh_spans
+        return mesh_spans(self.engine)
+
+    def _publish(self, params: Params):
+        """Publish ``params`` as the base; on a pod the coordinator alone
+        materializes and publishes it, and every rank gets its revision
+        (or raises, when the coordinator's publish failed). Returns
+        ``(revision, wire tree or None)``."""
+        from ..models.gpt2 import params_to_numpy
+        if not self._multi():
+            wire_tree = params_to_numpy(params)
+            return self.transport.publish_base(wire_tree), wire_tree
+        from .train import coordinator_call
+        # a failed publish fails the round on every rank, in step
+        return coordinator_call(
+            lambda: self.transport.publish_base(params_to_numpy(params)),
+            "base publish"), None
+
     def bootstrap(self, seed: int = 0, params=None) -> None:
         """Pull the published base if one exists; else publish a genesis
         base: ``params`` (a nested tree or state dict, or a zero-argument
         callable returning one, invoked only here) or a random init drawn
-        with numpy from ``seed``."""
-        from ..models.gpt2 import init_params_numpy, params_to_numpy
-        fetched = (self.transport.fetch_base(self._host_template())
-                   if self.transport.base_revision() is not None else None)
+        with numpy from ``seed`` (the same on every rank)."""
+        from ..models.gpt2 import init_params_numpy
+        if self._multi():
+            # the coordinator reads, every rank gets the same base
+            from .train import broadcast_base_fetch
+            fetched = broadcast_base_fetch(self.transport,
+                                           self._host_template(), None)
+        else:
+            fetched = (self.transport.fetch_base(self._host_template())
+                       if self.transport.base_revision() is not None
+                       else None)
         if fetched is not None:
             self.base_params = self._place(fetched[0])
             self._base_revision = fetched[1]
@@ -654,8 +745,7 @@ class AveragerLoop:
                                                      copy=True)
                                     for k, v in given.items()}
             # the averager owns the shared base and publishes the first
-            wire_tree = params_to_numpy(self.base_params)
-            self._base_revision = self.transport.publish_base(wire_tree)
+            self._base_revision, wire_tree = self._publish(self.base_params)
             self._publish_base_dist(wire_tree)
             if self.lineage is not None and self._base_revision:
                 # the DAG's root: no parent, no contributions
@@ -669,7 +759,8 @@ class AveragerLoop:
     def _ingest(self):
         """The shared ingest front-end. Packed submissions stay packed
         when the strategy folds host lists by scatter-add
-        (``WeightedAverage``); the parameterized merge gets them dense."""
+        (``WeightedAverage``) off a mesh; the parameterized merge and a
+        mesh's sharded stack get them dense."""
         if self._ingestor is None:
             from .ingest import DeltaIngestor
             self._ingestor = DeltaIngestor(
@@ -682,8 +773,9 @@ class AveragerLoop:
                 workers=self.ingest_workers,
                 cache_bytes=self.ingest_cache_mb * (1 << 20),
                 span_prefix="avg",
-                densify=not getattr(self.strategy, "host_list_ingest",
-                                    False))
+                densify=not (getattr(self.strategy, "host_list_ingest",
+                                     False)
+                             and getattr(self.engine, "mesh", None) is None))
         return self._ingestor
 
     def close(self) -> None:
@@ -693,7 +785,8 @@ class AveragerLoop:
 
     def gather_deltas(self) -> tuple[list[str], list]:
         """``(accepted hotkeys, their staged submissions)``: dense wire
-        trees and packed trees, as host data."""
+        trees and packed trees, as host data (the same on every rank of
+        a pod)."""
         self._round_cids.clear()
         self._round_revisions.clear()
         self._round_staged.clear()
@@ -704,11 +797,16 @@ class AveragerLoop:
             from ..transport.base import agg_id
             hotkeys = [agg_id(n) for n in self.hierarchy]
         else:
-            meta = self.chain.sync()
+            if self._multi():
+                from .train import broadcast_metagraph
+                meta = broadcast_metagraph(self.chain)
+            else:
+                meta = self.chain.sync()
             hotkeys = [h for h in meta.hotkeys
                        if h != getattr(self.chain, "my_hotkey", None)]
         staged = self._ingest().stage(hotkeys,
-                                      base_revision=self._base_revision)
+                                      base_revision=self._base_revision,
+                                      multi=self._multi())
         ids, deltas = [], []
         rejected = 0
         for s in staged:
@@ -742,7 +840,7 @@ class AveragerLoop:
 
     def _delta_fingerprint(self, ids: list[str]):
         """The (hotkey, delta_revision) set of this round's submissions,
-        from this round's ingest probes."""
+        from this round's ingest probes (single host: a pod re-merges)."""
         out = []
         for h in ids:
             rev = self._round_revisions.get(h)
@@ -757,8 +855,10 @@ class AveragerLoop:
     def _publish_base_dist(self, wire_tree) -> None:
         """The shard plane's publication of the revision that just landed
         monolithically; isolated: a failure leaves fetchers on the
-        monolithic base, never fails the round."""
-        if self.base_dist is None or self._base_revision is None:
+        monolithic base, never fails the round. Not on a pod, whose
+        coordinator publishes monolithic only (as JAX's)."""
+        if self.base_dist is None or self._base_revision is None \
+                or self._multi():
             return
         try:
             self.base_dist.publish_revision(wire_tree, self._base_revision)
@@ -801,39 +901,57 @@ class AveragerLoop:
         """One averaging cycle; True when deltas were gathered and merged
         (whether or not the publish guard let the result replace the
         base), False when there was nothing to merge."""
-        from ..models.gpt2 import params_to_numpy
         if self.base_params is None:
             self.bootstrap()
         ids, deltas = self.gather_deltas()
         if not ids:
             logger.info("averager: no valid deltas this round")
             return False
-        if (self._declined_fp is not None
+        if (self._declined_fp is not None and not self._multi()
                 and self._delta_fingerprint(ids) == self._declined_fp):
             # the exact submission set already merged and declined
             logger.info("averager: submissions unchanged since the "
                         "declined merge; skipping recompute")
             self.report.rounds += 1
             return True
+        mesh = getattr(self.engine, "mesh", None)
+        stacked = deltas
+        if mesh is not None:
+            # the miner axis padded to the merge bucket and sharded over
+            # the merge axis: this rank holds its block only
+            from ..parallel.collectives import (merge_axis, merge_bucket,
+                                                stack_deltas_sharded)
+            axis = merge_axis(mesh)
+            stacked = stack_deltas_sharded(
+                deltas, mesh, axis=axis,
+                target=merge_bucket(len(deltas), mesh, axis),
+                device=self.engine.device)
         if self.hierarchy is not None:
             # per-subtree mixing by each aggregate's declared weight sum
             # (a missing rider reads 1.0, as a riderless delta is accepted)
             consensus = {h: self._round_agg_weights.get(h, 1.0)
                          for h in ids}
+        elif self._multi():
+            from .train import coordinator_call
+            consensus = coordinator_call(
+                getattr(self.chain, "consensus_scores", lambda: {}),
+                "consensus read") or {}
         else:
             consensus = getattr(self.chain, "consensus_scores",
                                 lambda: {})()
         cids = [c for c in (self._round_cids.get(h) for h in ids) if c]
         with obs.span("avg.merge", miners=len(ids), cids=cids):
             merged, weights = self.strategy.merge(
-                self.engine, self.base_params, deltas, ids,
+                self.engine, self.base_params, stacked, ids,
                 val_batches=self.val_batches, consensus=consensus)
+        del stacked
         with obs.span("avg.eval"):
-            loss, ppl = self.engine.evaluate(merged, self.val_batches())
+            loss, ppl = self.engine.evaluate(self.engine.local(merged),
+                                             self.val_batches())
         if self.publish_policy == "improved":
             if self._base_loss is None:
                 self._base_loss, _ = self.engine.evaluate(
-                    self.base_params, self.val_batches())
+                    self.engine.local(self.base_params), self.val_batches())
             # the NOT-improved spelling: a NaN merged loss fails it
             if not (loss <= self._base_loss + 1e-6):
                 logger.info(
@@ -868,8 +986,7 @@ class AveragerLoop:
         self.report.last_loss = loss
         parent_revision = self._base_revision
         with obs.span("avg.publish", cids=cids):
-            wire_tree = params_to_numpy(merged)
-            self._base_revision = self.transport.publish_base(wire_tree)
+            self._base_revision, wire_tree = self._publish(merged)
             self._publish_base_dist(wire_tree)
         del wire_tree
         if self.lease is not None:

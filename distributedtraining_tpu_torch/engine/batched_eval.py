@@ -1,6 +1,5 @@
 """Batched cohort evaluation: score K candidate parameter trees per eval
-pass — the port of the JAX package's ``engine/batched_eval.py`` in its
-single-device spelling.
+pass — the port of the JAX package's ``engine/batched_eval.py``.
 
 The validator scores a cohort of up to K screened deltas together: each
 candidate ``base + d_k`` (``d_k`` in the base's dtype) is built once per
@@ -20,14 +19,26 @@ Cohorts keep the JAX bucket ladder (1/2/4/8/16, then multiples of 16):
 zero deltas whose results the JAX package throws away; the port does not
 evaluate them. The base can ride in slot 0 (``include_base=True``).
 
+On a mesh (the engine's ``mesh``, one process a device) the candidate
+axis is sharded over the merge axis (``parallel.collectives.merge_axis``)
+as JAX's ``shard_map`` spelling shards it: ``bucket_for`` rounds up to a
+multiple of the axis's size n, the rank at coordinate c builds and
+evaluates only the real candidates of slots ``[c k/n, (c+1) k/n)``, each
+eval batch is placed WHOLE on every rank (JAX's replicated batch), and
+the per-candidate ``(loss x tokens, tokens)`` totals are all-gathered
+along the axis: the only collective, then one host read a cohort. The
+base is the whole tree on every rank (JAX ``P()``): the validator and
+the averager keep it whole. ``candidate_batches`` counts the (candidate,
+batch) forwards this rank ran.
+
 ``stage_cohorts`` is the fetch/eval pipeline: a bounded background stager
 (``data/prefetch.map_prefetch``) runs transport fetch, decode and screen
-of cohort n+1 while the device evaluates cohort n.
+of cohort n+1 while the device evaluates cohort n (never on a pod, where
+staging holds the broadcasts).
 
-Not ported: the mesh spelling (the candidate axis sharded over a device
-mesh) raises, naming its slice; remediation's preference for buckets
-already dispatched (``prefer_compiled``) comes with the remediation
-plane (ROADMAP "Slices of the port", slice 7).
+Not ported: remediation's preference for buckets already dispatched
+(``prefer_compiled``) comes with the remediation plane (ROADMAP "Slices
+of the port", slice 7).
 """
 
 from __future__ import annotations
@@ -45,8 +56,6 @@ from ..utils import obs
 logger = logging.getLogger(__name__)
 
 Params = dict[str, torch.Tensor]
-
-_SLICES = "ROADMAP 'Slices of the port'"
 
 # the JAX package's bucket ladder for cohort padding
 BUCKETS = (1, 2, 4, 8, 16)
@@ -68,26 +77,40 @@ class BatchedCohortEvaluator:
     """Scores cohorts of candidates for one engine."""
 
     def __init__(self, engine):
-        if getattr(engine, "mesh", None) is not None:
-            raise NotImplementedError(
-                f"BatchedCohortEvaluator on a mesh (the candidate axis "
-                f"sharded across devices) is slice 7 ({_SLICES})")
         self.engine = engine
         # bucket sizes this evaluator has dispatched (the JAX package's
         # compiled programs; val.cohort_bucket_compiles counts new ones)
         self._buckets_seen: set[int] = set()
+        # (candidate, eval batch) forwards run on this rank
+        self.candidate_batches = 0
+
+    def _mesh_axis(self):
+        """``(mesh, merge axis)`` on a mesh, else ``(None, None)``."""
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is None:
+            return None, None
+        from ..parallel.collectives import merge_axis
+        return mesh, merge_axis(mesh)
 
     # -- bucket policy ------------------------------------------------------
     def bucket_for(self, k: int) -> int:
         """Padded cohort size for ``k`` real candidates: the smallest
-        bucket >= k (multiples of the top bucket beyond it)."""
+        bucket >= k (multiples of the top bucket beyond it), rounded up
+        to a multiple of the mesh's merge axis."""
         if k < 1:
             raise ValueError(f"cohort must hold >= 1 candidate, got {k}")
         for b in BUCKETS:
             if k <= b:
-                return b
-        big = BUCKETS[-1]
-        return ((k + big - 1) // big) * big
+                target = b
+                break
+        else:
+            big = BUCKETS[-1]
+            target = ((k + big - 1) // big) * big
+        mesh, axis = self._mesh_axis()
+        if mesh is not None:
+            n = mesh.size(axis)
+            target = ((target + n - 1) // n) * n
+        return target
 
     def compiled_buckets(self) -> frozenset:
         """Bucket sizes already dispatched."""
@@ -107,7 +130,8 @@ class BatchedCohortEvaluator:
         """Per-candidate ``(mean loss, perplexity)`` for the first
         ``k_real`` slots of a candidate list: each slot a dense delta, or
         None for the zero delta (the base itself). Slots past ``k_real``
-        are padding and are not evaluated."""
+        are padding and are not evaluated. On a mesh every rank calls
+        this with the same list and batches, and evaluates its block."""
         if k_real > len(stacked):
             raise ValueError(f"k_real {k_real} > {len(stacked)} candidates")
         if k_real == 0:
@@ -116,24 +140,49 @@ class BatchedCohortEvaluator:
         if k_pad not in self._buckets_seen:
             self._buckets_seen.add(k_pad)
             obs.count("val.cohort_bucket_compiles")
+        mesh, axis = self._mesh_axis()
+        if mesh is None:
+            slots = range(k_pad)
+        else:
+            k_local = k_pad // mesh.size(axis)
+            c = mesh.coords[axis]
+            slots = range(c * k_local, (c + 1) * k_local)
+        mine = [i for i in slots if i < k_real]
         # built once per cohort, not per batch
-        cands = [base if d is None else candidate_params(base, d)
-                 for d in stacked[:k_real]]
+        cands = [base if stacked[i] is None else
+                 candidate_params(base, stacked[i]) for i in mine]
         model, loss = self.engine.model, self._loss_fn()
-        totals: list = [None] * k_real
-        counts: list = [None] * k_real
+        totals: list = [None] * len(cands)
+        counts: list = [None] * len(cands)
+        n_batches = 0
         for batch in batches:
+            n_batches += 1
+            if not cands:
+                continue
             placed = self.engine.place_batch(batch)   # once per cohort
             for i, params in enumerate(cands):
                 l, t = loss(model, params, placed)
                 lt = l * t   # token-weighted, like TrainEngine.eval_step
                 totals[i] = lt if totals[i] is None else totals[i] + lt
                 counts[i] = t if counts[i] is None else counts[i] + t
-        if counts[0] is None:
+        self.candidate_batches += len(cands) * n_batches
+        if n_batches == 0:   # the same on every rank: the same batches
             return [(float("nan"), float("nan"))] * k_real
+        if mesh is None:
+            read = torch.stack([torch.stack(totals), torch.stack(counts)])
+        else:
+            # this rank's block, zeros in its padding slots; the
+            # all-gather is the program's only collective
+            dev = self.engine.device
+            local = torch.zeros((2, len(slots)), dtype=torch.float32,
+                                device=dev)
+            for j, i in enumerate(mine):
+                local[0, i - slots.start] = totals[j]
+                local[1, i - slots.start] = counts[j]
+            from ..parallel import collectives as coll
+            read = coll.all_gather(local, mesh, axis, 1)[:, :k_real]
         # one host read per cohort
-        read = torch.stack([torch.stack(totals), torch.stack(counts)]
-                           ).to("cpu", torch.float64).numpy()
+        read = read.to("cpu", torch.float64).numpy()
         out = []
         for total, count in zip(read[0], read[1]):
             if count == 0:

@@ -18,9 +18,17 @@ front-end of the averager.
   set (a hash mismatch mid-publish) is a transient miss, never decoded.
 - **v1 decodes** of the port's own: dense f32/bf16, int8 and sparse8.
 
+- **pods**: with ``stage(multi=True)`` (a validator or averager over
+  several processes) only the coordinator's pool probes, reads riders
+  and fetches raw bytes (a wire-v2 shard set reassembled once and sent
+  as one ``serialization.pack_wire_blob``); the main thread broadcasts
+  each verdict and its bytes in list order, and every rank densifies
+  and screens identical bytes. No collective runs on a pool thread, and
+  nothing enters the cross-round cache.
+
 Everything here runs on wire-layout host trees (what the transports
-serve). Not ported, and refused: the pod path (``stage(multi=True)``)
-and LoRA templates (ROADMAP "Slices of the port", slice 7).
+serve). Not ported, and refused: LoRA templates (ROADMAP "Slices of the
+port", slice 7).
 
 Registry metrics: ``ingest.cache_hits`` / ``ingest.cache_misses`` /
 ``ingest.cache_evictions`` / ``ingest.fetch_errors`` /
@@ -313,8 +321,9 @@ class DeltaCache:
 def densify_delta_bytes(data: bytes, template, *, quant_template=None,
                         accept_quant: bool = True) -> Params | None:
     """Validated artifact bytes -> dense wire-layout host delta, or None:
-    a dense tree (f32 or bf16), then the int8 tree (dtype-pinned,
-    dequantized here), then sparse8 (densified here). ``accept_quant=False``
+    a wire-v2 blob (densified here), a dense tree (f32 or bf16), then the
+    int8 tree (dtype-pinned, dequantized here), then sparse8 (densified
+    here). ``accept_quant=False``
     rejects both quantized forms. A signature envelope is stripped first,
     unverified (bytes from a plain transport; ``transport/signed.py``
     verifies and strips before bytes get here)."""
@@ -325,7 +334,11 @@ def densify_delta_bytes(data: bytes, template, *, quant_template=None,
         data = signing.strip_envelope(data)
     except ser.PayloadError:
         return None
-
+    # the pod's broadcast of a wire-v2 shard set (``pack_wire_blob``),
+    # built by this world's coordinator after its accept-wire-v2 gate:
+    # magic-prefixed, so never confused with the msgpack forms below
+    if ser.is_wire_v2_blob(data):
+        return ser.unpack_wire_blob(data, template)
     try:
         return ser.validated_load(data, template)
     except ser.PayloadError:
@@ -407,14 +420,19 @@ class DeltaIngestor:
               multi: bool = False) -> list[StagedDelta]:
         """Stage every hotkey's current submission; one
         :class:`StagedDelta` per hotkey, in input order. Per-miner
-        failures are isolated (reason ``fetch_error``), never raised."""
+        failures are isolated (reason ``fetch_error``), never raised.
+        ``multi`` (a world of several processes; every rank calls this
+        at the same point) takes the pod path: the coordinator reads,
+        every rank gets the same bytes (see :meth:`_stage_multi`)."""
+        hotkeys = list(hotkeys)
+        if not hotkeys:
+            return []
         if multi:
-            raise NotImplementedError(
-                f"DeltaIngestor.stage(multi=True): the pod path is slice 7 "
-                f"({_SLICES})")
-        staged = self.pool.map(
-            lambda h: self._stage_one(h, base_revision), list(hotkeys))
-        self._screen_fresh(staged)
+            staged = self._stage_multi(hotkeys, base_revision)
+        else:
+            staged = self.pool.map(
+                lambda h: self._stage_one(h, base_revision), hotkeys)
+        self._screen_fresh(staged, cache=not multi)
         return staged
 
     # -- single-host path ----------------------------------------------------
@@ -587,7 +605,8 @@ class DeltaIngestor:
         return packed, True, fetched
 
     # -- screening -----------------------------------------------------------
-    def _screen_fresh(self, staged: list[StagedDelta]) -> None:
+    def _screen_fresh(self, staged: list[StagedDelta], *,
+                      cache: bool = True) -> None:
         fresh = [s for s in staged if s.reason == _UNSCREENED]
         if not fresh:
             return
@@ -616,7 +635,88 @@ class DeltaIngestor:
                     s.reason, s.delta = "no_delta", None
                 else:
                     s.delta = dense
-            self.cache.put(s.hotkey, s.revision, delta=s.delta,
-                           reason=s.reason, cid=s.cid,
-                           meta_base_revision=s.meta_base_revision,
-                           agg_weight=s.agg_weight)
+            if cache:
+                self.cache.put(s.hotkey, s.revision, delta=s.delta,
+                               reason=s.reason, cid=s.cid,
+                               meta_base_revision=s.meta_base_revision,
+                               agg_weight=s.agg_weight)
+
+    # -- the pod path --------------------------------------------------------
+    def _prefetch_raw(self, hotkey: str, base_revision) -> dict:
+        """The coordinator's read of one submission, on the pool: probe,
+        rider and the RAW bytes (a wire-v2 shard set reassembled once and
+        packed into one blob). Every rank decodes the same bytes after
+        the broadcast. Issues no collective."""
+        from .. import serialization as ser
+        out: dict = {"rev": None, "cid": None, "reason": "no_delta",
+                     "data": None, "agg_w": None}
+        try:
+            rev = self._probe(hotkey)
+            out["rev"] = None if rev is _PROBE_FAILED else rev
+            if rev is None:
+                return out
+            cid, meta_rev, agg_w = self._rider(hotkey)
+            out["cid"], out["agg_w"] = cid, agg_w
+            if self.stale_deltas == "skip" and self._is_stale(meta_rev,
+                                                             base_revision):
+                out["reason"] = "stale_base"
+                return out
+            data = call_with_retry(
+                lambda: self.transport.fetch_delta_bytes(hotkey),
+                policy=self.retry, describe=f"fetch {hotkey}")
+            if data is not None and ser.is_wire_v2_manifest(data):
+                # a torn or hostile set reads as absent, as on one host
+                packed = (self._assemble_v2(hotkey, bytes(data))[0]
+                          if self.accept_wire_v2 else None)
+                data = (ser.pack_wire_blob(packed) if packed is not None
+                        else None)
+            out["data"] = data
+        except Exception:
+            logger.exception("ingest: coordinator prefetch of %s failed",
+                             hotkey)
+            obs.count("ingest.fetch_errors")
+            out["reason"] = "fetch_error"
+            out["data"] = None
+        return out
+
+    def _stage_multi(self, hotkeys: list[str], base_revision
+                     ) -> list[StagedDelta]:
+        """The pod path: the coordinator's pool prefetches every
+        submission; then this (main) thread broadcasts, hotkey by hotkey
+        in list order, the verdict as JSON and then the optional bytes,
+        and every rank densifies identical bytes. No cross-round cache: a
+        per-rank cache could diverge after a rank's restart and split
+        the world's inputs."""
+        from ..parallel import multihost
+        from .train import broadcast_json, broadcast_optional_bytes
+
+        coord = multihost.is_coordinator()
+        pre: dict[str, dict] = {}
+        if coord:
+            pre = dict(zip(hotkeys, self.pool.map(
+                lambda h: self._prefetch_raw(h, base_revision), hotkeys)))
+        staged: list[StagedDelta] = []
+        for h in hotkeys:
+            rec = pre.get(h) or {}
+            v = broadcast_json({"rev": rec.get("rev"), "cid": rec.get("cid"),
+                                "reason": rec.get("reason"),
+                                "agg_w": rec.get("agg_w"),
+                                "has": rec.get("data") is not None}
+                               if coord else None)
+            data = broadcast_optional_bytes(rec.get("data") if coord
+                                            else None)
+            if data is None:
+                staged.append(StagedDelta(h, None, v["reason"] or "no_delta",
+                                          v["rev"], v["cid"],
+                                          agg_weight=v["agg_w"]))
+                continue
+            with obs.span(self._span("fetch"), cid=v["cid"], miner=h,
+                          cache="broadcast"):
+                d = densify_delta_bytes(
+                    data, self._template(),
+                    quant_template=self.quant_template,
+                    accept_quant=self.accept_quant)
+            staged.append(StagedDelta(
+                h, d, _UNSCREENED if d is not None else "no_delta",
+                v["rev"], v["cid"], agg_weight=v["agg_w"]))
+        return staged

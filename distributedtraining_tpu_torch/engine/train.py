@@ -425,6 +425,15 @@ class TrainEngine:
         from ..parallel.sharding import gather_params
         return gather_params(shards, self.mesh, specs=self.specs)
 
+    def local(self, tree: Params) -> Params:
+        """What this rank's steps read of a whole tree (a state dict on
+        the engine's device): the tree itself off a mesh, or on a mesh
+        that splits no parameter (dp alone); else :meth:`shard`'s
+        copy."""
+        if self.mesh is None or self.mesh.size(("fsdp", "tp")) == 1:
+            return tree
+        return self.shard(tree)
+
     def init_state(self, params: Mapping[str, torch.Tensor]) -> TrainState:
         """A fresh optimizer around :meth:`place_params` of ``params``."""
         placed = self.place_params(params)
@@ -618,14 +627,34 @@ def broadcast_optional_tree(host_template: Mapping, coordinator_fetch
     return _broadcast_leaves(host_template, t)
 
 
+def coordinator_call(fn, what: str):
+    """``fn()`` on the coordinator alone, its JSON-able result on every
+    rank. An exception of the coordinator's call is broadcast as a status
+    and raised on every rank (a RuntimeError naming ``what``), so the
+    ranks fail together and a retry reruns on all of them in lockstep."""
+    status, err = None, None
+    if _coordinator():
+        try:
+            status = {"value": fn()}
+        except Exception as e:
+            status, err = {"error": repr(e)}, e
+    status = broadcast_json(status)
+    if "error" in status:
+        raise RuntimeError(f"the coordinator's {what} failed: "
+                           f"{status['error']}") from err
+    return status["value"]
+
+
 def broadcast_metagraph(chain):
     """The coordinator's round-start metagraph, the same on every rank
     (per-miner loops with collectives inside iterate its hotkeys)."""
     from ..chain.base import Metagraph
-    m = chain.sync() if _coordinator() else None
-    d = broadcast_json(None if m is None else
-                       {"hotkeys": list(m.hotkeys), "uids": list(m.uids),
-                        "stakes": list(m.stakes), "block": m.block})
+
+    def sync():
+        m = chain.sync()
+        return None if m is None else {"hotkeys": list(m.hotkeys), "uids": list(m.uids),
+                "stakes": list(m.stakes), "block": m.block}
+    d = coordinator_call(sync, "metagraph sync")
     if d is None:
         raise RuntimeError("the coordinator's metagraph sync was empty")
     return Metagraph(**d)

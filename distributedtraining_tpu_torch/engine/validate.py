@@ -23,10 +23,20 @@ holds a validator permit.
 
 With ``base_fetcher`` (``engine/basedist.BaseFetcher``) base pulls fetch
 only the layers the published manifest changed, falling back to the
-monolithic pull. Not ported yet, and refused with NotImplementedError
-naming the slice (ROADMAP "Slices of the port"): the fleet health plane,
-remediation, LoRA adapter submissions and the metrics sink (slice 7); a
-device mesh is refused by the engine (slice 7).
+monolithic pull.
+
+On a mesh of several processes (the engine's ``mesh``; ``torchrun`` or
+the ``--multihost-*`` flags) every rank runs the round in lockstep, as
+the JAX pod validator does: the coordinator pulls the base (through the
+fetcher, when one is wired) and broadcasts it, syncs the metagraph and
+broadcasts it, and stages every submission for every rank
+(``stage(multi=True)``: no staging pipeline, whose thread would issue
+the broadcasts); each rank evaluates its block of the cohort
+(``engine/batched_eval.py``), and the gated chain lets the coordinator
+alone set weights. The sequential path evaluates through the mesh
+engine. Not ported yet, and refused with NotImplementedError naming the
+slice (ROADMAP "Slices of the port"): the fleet health plane,
+remediation, LoRA adapter submissions and the metrics sink (slice 7).
 """
 
 from __future__ import annotations
@@ -181,14 +191,39 @@ class Validator:
                 for k, v in tree.items()}
 
     # -- base model ---------------------------------------------------------
+    # -- a world of several processes ----------------------------------------
+    def _multi(self) -> bool:
+        from .train import mesh_spans
+        return mesh_spans(self.engine)
+
+    def _broadcast_base(self, current_revision):
+        """The coordinator's base pull, the same ``(tree, revision)`` or
+        None on every rank."""
+        from .train import broadcast_base_fetch
+        return broadcast_base_fetch(self.transport, self._host_template(),
+                                    current_revision,
+                                    fetch=self._fetch_base_single)
+
+    def _synced_metagraph(self):
+        """The round-start metagraph: the coordinator's, broadcast, on a
+        pod."""
+        if not self._multi():
+            return self.chain.sync()
+        from .train import broadcast_metagraph
+        return broadcast_metagraph(self.chain)
+
     def bootstrap(self, seed: int = 0, params=None) -> None:
         """Pull the published base; when none is published yet, start
         from ``params`` (a tree, or a zero-argument callable returning
-        one) or a random init drawn with numpy from ``seed``. Then
-        evaluate it."""
+        one) or a random init drawn with numpy from ``seed`` (the same
+        on every rank). Then evaluate it."""
         from ..models.gpt2 import init_params_numpy
-        fetched = (self._fetch_base_single()
-                   if self.transport.base_revision() is not None else None)
+        if self._multi():
+            fetched = self._broadcast_base(None)
+        else:
+            fetched = (self._fetch_base_single()
+                       if self.transport.base_revision() is not None
+                       else None)
         if fetched is not None:
             base, self._base_revision = fetched
         else:
@@ -217,15 +252,19 @@ class Validator:
                                   include_base=True)
         else:
             self.base_loss, self.base_ppl = self.engine.evaluate(
-                self.base_params, self.eval_batches())
+                self.engine.local(self.base_params), self.eval_batches())
         logger.info("validator: base loss=%.4f ppl=%.2f",
                     self.base_loss, self.base_ppl)
 
     def _maybe_refresh_base(self) -> None:
-        rev = self.transport.base_revision()
-        if rev is None or rev == self._base_revision:
-            return
-        fetched = self._fetch_base_single(rev)
+        if self._multi():
+            # per-rank reads could hand the ranks different bases
+            fetched = self._broadcast_base(self._base_revision)
+        else:
+            rev = self.transport.base_revision()
+            if rev is None or rev == self._base_revision:
+                return
+            fetched = self._fetch_base_single(rev)
         if fetched is None:   # a torn or hostile read: keep the base
             return
         self.base_params = self._place(fetched[0])
@@ -260,7 +299,8 @@ class Validator:
         pool: ``[(hotkey, delta | None, reason), ...]`` in input order.
         The artifact's ``delta_id`` (from its rider) tags the eval span."""
         staged = self._ingest().stage(list(hotkeys),
-                                      base_revision=self._base_revision)
+                                      base_revision=self._base_revision,
+                                      multi=self._multi())
         out = []
         for s in staged:
             if s.cid is not None:
@@ -288,7 +328,8 @@ class Validator:
         candidate = candidate_params(self.base_params, d)
         with obs.span("val.eval", cid=self._round_cids.get(hotkey),
                       miner=hotkey):
-            loss, ppl = self.engine.evaluate(candidate, self.eval_batches())
+            loss, ppl = self.engine.evaluate(self.engine.local(candidate),
+                                             self.eval_batches())
         return self._score_from(hotkey, loss, ppl)
 
     def _score_cohorts(self, hotkeys: list[str]) -> list[MinerScore]:
@@ -297,8 +338,10 @@ class Validator:
         from .batched_eval import stage_cohorts
         evaluator = self._evaluator()
         results: list[MinerScore] = []
+        # a pod stages inline: its broadcasts must not run on a thread
         staged = stage_cohorts(hotkeys, self.cohort_size, self._stage_miner,
-                               pipeline=self.pipeline_depth > 0,
+                               pipeline=(self.pipeline_depth > 0
+                                         and not self._multi()),
                                depth=max(self.pipeline_depth, 1),
                                stage_many=self._stage_many)
         try:
@@ -335,7 +378,7 @@ class Validator:
         """One validation round (validate_and_score,
         validation_logic.py:99-189)."""
         self._round_cids.clear()
-        meta = self.chain.sync()
+        meta = self._synced_metagraph()
         self._maybe_refresh_base()
         others = [h for h in meta.hotkeys if h != self.chain.my_hotkey]
         if self.cohort_size > 1:

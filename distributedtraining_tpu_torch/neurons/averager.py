@@ -31,17 +31,26 @@ with ``--base-wire-v2``); ``--hier root`` merges those aggregates.
 ``--standby`` follows a primary and takes the publication lease over
 after ``--failover-deadline`` seconds without progress. With
 ``--sign-artifacts`` every artifact is signed by the hotkey's wallet.
+
+On N cards of one host, ``torchrun --nproc-per-node N -m
+distributedtraining_tpu_torch.neurons.averager ...`` (or the
+``--multihost-*`` flags, one process a card) runs one averager whose
+ranks each hold a block of the miner stack; the coordinator reads the
+transport and the chain and alone publishes (monolithic only, as the
+JAX pod averager). ``--hier sub`` and ``--standby`` on such a world are
+refused (slice 7b).
 """
 
 from __future__ import annotations
 
 import logging
 
-from ..config import RunConfig
 import os
 
+from ..config import RunConfig
 from ..engine.average import (AveragerLoop, GeneticMerge, OuterOptMerge,
                               ParameterizedMerge, WeightedAverage)
+from ..parallel import multihost
 from ..utils import flight, obs
 from .common import base_mirrors, build
 
@@ -167,6 +176,19 @@ def main(argv=None) -> int:
     cfg = RunConfig.from_args("averager", argv)
     c = build(cfg)
     flight.install_crash_hooks()   # see neurons/miner.py
+    try:
+        return _run(cfg, c)
+    finally:
+        if c.owns_world:   # last: the gates still ask for the rank
+            multihost.shutdown()
+
+
+def _run(cfg: RunConfig, c) -> int:
+    if multihost.process_count() > 1 and (cfg.hier == "sub"
+                                          or cfg.standby):
+        raise NotImplementedError(
+            "--hier sub and --standby on a world of several processes "
+            "are slice 7b (ROADMAP 'Slices of the port')")
     if cfg.hier == "sub":
         return _run_sub_averager(cfg, c)
     hierarchy = _hierarchy(cfg, c)
@@ -186,7 +208,8 @@ def main(argv=None) -> int:
         lineage = LineagePlane(c.transport, node=cfg.hotkey,
                                anomaly=AnomalyMonitor())
     base_dist = None
-    if cfg.base_wire_v2:
+    # a pod's coordinator publishes monolithic only, as JAX's
+    if cfg.base_wire_v2 and multihost.process_count() <= 1:
         from ..engine.basedist import BasePublisher
         # the tree's nodes mirror the base's shards: announce them
         mirror_nodes = list(hierarchy or [])

@@ -11,14 +11,21 @@ The device is the card unless the caller asks for the CPU the way the JAX
 roles do: ``DT_FORCE_PLATFORM=cpu`` in the environment. Without it,
 everything is placed on ``cuda``, and building raises if there is none.
 
-A miner started as several processes (``torchrun --nproc-per-node N``,
-or the ``--multihost-*`` flags) builds its mesh as the JAX roles do: the
-world over ``torch.distributed`` (``parallel.multihost.initialize``),
-``resolve_mesh_config`` over the world's size (``--dp 0``: every rank
-the other axes leave) and ``pod_mesh`` over it. ``--batch-size`` is the
-global batch: each data-parallel group (dp x fsdp; tp peers share rows)
-reads its own document shard at ``batch_size / (dp * fsdp)``, and the
-transport and chain are gated so that the coordinator alone writes.
+A miner, validator or averager started as several processes
+(``torchrun --nproc-per-node N``, or the ``--multihost-*`` flags) builds
+its mesh as the JAX roles do: the world over ``torch.distributed``
+(``parallel.multihost.initialize``, each rank on its card by
+``LOCAL_RANK``), ``resolve_mesh_config`` over the world's size (``--dp
+0``: every rank the other axes leave) and ``pod_mesh`` over it; the
+transport and chain are gated so that the coordinator alone writes, and
+with ``--sign-artifacts`` the coordinator alone holds the signing
+identity. The miner's ``--batch-size`` is the global batch: each
+data-parallel group (dp x fsdp; tp peers share rows) reads its own
+document shard at ``batch_size / (dp * fsdp)``. A server (or the router)
+started as several processes is refused before any process group
+exists. A mesh role started as one process on a host with several
+cards logs at its build that it uses one, with the ``torchrun`` line
+that would use all of them (a JAX role takes every chip).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import os
 from typing import Any, Callable, Iterable
 
 from ..chain import LocalAddressStore, LocalChain
-from ..config import RunConfig
+from ..config import MESH_ROLES, RunConfig
 from ..data.datasets import (ByteTokenizer, WordTokenizer, batch_iterator,
                              shuffle_seed_for, text_corpus)
 from ..engine.train import TrainEngine, default_optimizer
@@ -149,6 +156,11 @@ def build(cfg: RunConfig) -> Components:
     """The role's components. Raises NotImplementedError for a flag
     value the port has not brought over (``RunConfig.check_ported``)."""
     device = resolve_role_device()
+    if cfg.role not in MESH_ROLES:
+        multihost.refuse_world(cfg.role, multihost_flags=any(
+            v is not None for v in (cfg.multihost_coordinator,
+                                    cfg.multihost_processes,
+                                    cfg.multihost_id)))
     cfg.check_ported()
     if cfg.model not in gpt2.PRESETS:
         raise NotImplementedError(
@@ -161,11 +173,13 @@ def build(cfg: RunConfig) -> Components:
     model, model_cfg = gpt2.make_model(model_cfg)
     owns_world = False
     mesh = None
-    if cfg.role == "miner":
+    if cfg.role in MESH_ROLES:
         owns_world = multihost.initialize(
             cfg.multihost_coordinator, cfg.multihost_processes,
             cfg.multihost_id, device=device)
-        mesh = _miner_mesh(cfg, model)
+        mesh = role_mesh(cfg, model)
+        if device == "cuda" and mesh is None:
+            _note_idle_cards(cfg.role)
     engine = TrainEngine(
         model,
         optimizer=default_optimizer(cfg.learning_rate,
@@ -216,10 +230,24 @@ def build(cfg: RunConfig) -> Components:
                       owns_world=owns_world)
 
 
-def _miner_mesh(cfg: RunConfig, model):
-    """The miner's mesh (JAX ``neurons/common.py:304-326``): over every
-    process of the world when there are several, else none. A mesh that
-    wants more processes than the world has raises, naming the launch."""
+def _note_idle_cards(role: str) -> None:
+    """Log (once a build) that a role started as one process uses one of
+    several cards, where the JAX role takes every chip."""
+    import torch
+    n = torch.cuda.device_count()
+    if n > 1:
+        logger.warning(
+            "%s: one process uses one of this host's %d cards; "
+            "torchrun --nproc-per-node %d -m "
+            "distributedtraining_tpu_torch.neurons.%s <flags> runs it on "
+            "all of them", role, n, n, role)
+
+
+def role_mesh(cfg: RunConfig, model):
+    """The mesh of the miner, the validator or the averager (JAX
+    ``neurons/common.py:304-326``): over every process of the world when
+    there are several, else none. A mesh that wants more processes than
+    the world has raises, naming the launch."""
     spec = cfg.mesh
     n_params = (sum(v.numel() for v in model.state_dict().values())
                 if spec.auto else 0)
@@ -233,36 +261,51 @@ def _miner_mesh(cfg: RunConfig, model):
     if rcfg.n_devices > 1:
         raise SystemExit(
             f"mesh {rcfg.shape} (dp, fsdp, sp, tp) needs {rcfg.n_devices} "
-            f"processes, one a device: start the miner with torchrun "
+            f"processes, one a device: start the {cfg.role} with torchrun "
             f"--nproc-per-node {rcfg.n_devices} (or --multihost-*)")
     return None
 
 
 def _signed_transport(cfg: RunConfig, transport, address_store):
-    """``--sign-artifacts``: load (or generate and save) the hotkey's
-    wallet, sign every publish and verify every fetch against the
-    registered keys, and register this hotkey's key, first write wins:
-    a different key already registered is fatal (a rotated local wallet
-    would publish artifacts every peer rejects)."""
+    """``--sign-artifacts`` (JAX ``neurons/common.py:394-432``): the
+    coordinator loads (or generates and saves) the hotkey's wallet and
+    registers its key, first write wins; every publish is signed and
+    every fetch verified against the registered keys. The other ranks of
+    a world hold no identity (their writes are gated) and only verify:
+    N ranks generating into one wallet path would race, and the key one
+    registered could lose the file to another's. The coordinator's
+    verdict reaches every rank, so a different registered key (a rotated
+    local wallet would publish artifacts every peer rejects) ends them
+    all at once, none left waiting at its next collective."""
+    from ..engine.train import broadcast_flag
     from ..transport.signed import SignedTransport
     from ..utils.identity import Identity
     wallet_path = cfg.wallet_path or os.path.join(
         cfg.work_dir, "wallets", f"{cfg.hotkey}.json")
-    if os.path.exists(wallet_path):
-        identity = Identity.load(wallet_path)
-    else:
-        identity = Identity.generate()
-        identity.save(wallet_path)
-        logger.info("generated signing identity %s at %s",
-                    identity.hotkey, wallet_path)
+    coordinator = multihost.is_coordinator()
+    identity = None
+    if coordinator:
+        if os.path.exists(wallet_path):
+            identity = Identity.load(wallet_path)
+        else:
+            identity = Identity.generate()
+            identity.save(wallet_path)
+            logger.info("generated signing identity %s at %s",
+                        identity.hotkey, wallet_path)
     base_signer = cfg.base_signer or (
         cfg.hotkey if cfg.role == "averager" else None)
     signed = SignedTransport(transport, identity=identity,
                              pubkey_resolver=address_store.retrieve_pubkey,
                              base_signer=base_signer, my_hotkey=cfg.hotkey)
-    try:
-        address_store.store_pubkey(cfg.hotkey, identity.public_bytes)
-    except ValueError:
+    registered = True
+    if coordinator:
+        try:
+            address_store.store_pubkey(cfg.hotkey, identity.public_bytes)
+        except ValueError:
+            registered = False
+    if multihost.process_count() > 1:
+        registered = broadcast_flag(registered)
+    if not registered:
         raise SystemExit(
             f"hotkey {cfg.hotkey} has a different registered pubkey; "
             f"restore the original wallet file or use a new hotkey")

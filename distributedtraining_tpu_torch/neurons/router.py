@@ -64,6 +64,8 @@ def main(argv=None) -> int:
                          "(0 disables the wait)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
+    from ..parallel import multihost
+    multihost.refuse_world("router")
 
     logging.basicConfig(level=logging.INFO if args.verbose
                         else logging.WARNING)

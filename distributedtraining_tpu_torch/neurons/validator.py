@@ -8,7 +8,12 @@ Run offline end to end on the card with::
         --backend local --work-dir /tmp/run --model gpt2-124m \
         --dataset synthetic --tokenizer word --hotkey hotkey_91 --rounds 1
 
-(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) Base pulls go
+(``DT_FORCE_PLATFORM=cpu`` runs it on the CPU instead.) On N cards of
+one host, ``torchrun --nproc-per-node N -m
+distributedtraining_tpu_torch.neurons.validator ...`` (or the
+``--multihost-*`` flags, one process a card) runs one validator whose
+ranks evaluate their blocks of each cohort; the coordinator reads the
+transport and the chain, and alone sets weights. Base pulls go
 through the published manifest (``--base-wire-v2``), and the flight
 recorder keeps ``--flight-events`` events. Miners of either
 package publishing into the same ``--work-dir`` are scored; the weights
@@ -24,6 +29,7 @@ import logging
 
 from ..config import RunConfig
 from ..engine.validate import Validator
+from ..parallel import multihost
 from ..utils import flight, obs
 from .common import build, build_base_fetcher
 
@@ -48,10 +54,20 @@ def main(argv=None) -> int:
                           base_fetcher=build_base_fetcher(cfg, c))
     # the reference gates weight-setting to staked validators
     # (btt_connector.py:358-385): refuse up front rather than spend eval
-    # compute on scores no one will see
-    if not validator.has_vpermit():
+    # compute on scores no one will see. On a pod the coordinator's
+    # verdict counts on every rank: one rank exiting alone would leave
+    # the others waiting at their first collective.
+    if multihost.process_count() > 1:
+        from ..engine.train import broadcast_flag
+        permitted = broadcast_flag(validator.has_vpermit()
+                                   if multihost.is_coordinator() else False)
+    else:
+        permitted = validator.has_vpermit()
+    if not permitted:
         if not cfg.allow_no_vpermit:
             flight.reset()
+            if c.owns_world:
+                multihost.shutdown()
             raise SystemExit(
                 f"hotkey {c.chain.my_hotkey} holds no validator permit "
                 f"(stake < {cfg.vpermit_stake_limit}); pass "
@@ -69,6 +85,8 @@ def main(argv=None) -> int:
         validator.close()   # drain the ingest pool's worker threads
         flight.shutdown()   # see neurons/miner.py
         obs.reset()
+        if c.owns_world:   # last: the gates above still ask for the rank
+            multihost.shutdown()
     return 0 if ok else 1
 
 

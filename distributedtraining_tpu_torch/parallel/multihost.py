@@ -80,6 +80,19 @@ def initialize(coordinator_address: Optional[str] = None,
     return True
 
 
+def refuse_world(role: str, *, multihost_flags: bool = False) -> None:
+    """Raise NotImplementedError when a role that runs as one process
+    (the server, the router) was started as several: ``WORLD_SIZE`` > 1
+    (``torchrun``) or a ``--multihost-*`` flag. It runs before any
+    process group exists, so no copy serves alongside the others."""
+    n = int(os.environ.get("WORLD_SIZE") or 1)
+    if n > 1 or multihost_flags:
+        raise NotImplementedError(
+            f"the {role} started as several processes (WORLD_SIZE={n}, "
+            f"torchrun or --multihost-*) is not ported: it runs as one "
+            f"process; ROADMAP 'Slices of the port', slice 7")
+
+
 def shutdown() -> None:
     """Tear the world down (a role's exit, when it brought it up)."""
     if dist.is_initialized():

@@ -573,6 +573,42 @@ def parse_wire_manifest(data: bytes) -> dict | None:
             "layers": out_layers}
 
 
+# one self-contained packed tree (magic + msgpack): where shard
+# granularity is spent already, as when a pod's coordinator reassembles a
+# miner's shard set once and broadcasts it (engine/ingest.py)
+WIRE_V2_BLOB_MAGIC = b"DTWIRE2B\n"
+
+
+def pack_wire_blob(packed) -> bytes:
+    """A host packed v2 tree -> blob bytes (the JAX package's bytes for
+    the same tree)."""
+    return WIRE_V2_BLOB_MAGIC + to_msgpack(packed)
+
+
+def is_wire_v2_blob(data) -> bool:
+    return (isinstance(data, (bytes, bytearray, memoryview))
+            and bytes(data[:len(WIRE_V2_BLOB_MAGIC)]) == WIRE_V2_BLOB_MAGIC)
+
+
+def unpack_wire_blob(data: bytes, template: Params, *,
+                     max_bytes: int = DEFAULT_MAX_BYTES) -> Params | None:
+    """Blob bytes -> dense f32 host delta validated against ``template``,
+    or None (the contract of the other wire decoders)."""
+    from . import delta as _delta
+
+    if not is_wire_v2_blob(data):
+        return None
+    try:
+        raw = from_msgpack(bytes(data[len(WIRE_V2_BLOB_MAGIC):]), None,
+                           max_bytes=max_bytes)
+    except PayloadError:
+        return None
+    try:
+        return _delta.densify_packed_v2(raw, template)
+    except (TypeError, ValueError, KeyError, IndexError):
+        return None
+
+
 # ---------------------------------------------------------------------------
 # Base-distribution shard container (engine/basedist.py)
 #

@@ -330,10 +330,14 @@ def test_config_refuses_what_is_not_ported(extra, slice_no):
     ("miner", ["--tp", "2", "--mesh-auto"], None),
     ("miner", ["--multihost-coordinator", "127.0.0.1:1",
                "--multihost-processes", "2", "--multihost-id", "1"], None),
-    ("validator", ["--fsdp", "2"], 7),
-    ("averager", ["--multihost-processes", "2"], 7),
+    ("validator", ["--fsdp", "2"], None),
+    ("averager", ["--multihost-processes", "2"], None),
+    ("server", ["--fsdp", "2"], 7),
+    ("server", ["--multihost-processes", "2"], 7),
 ])
 def test_config_takes_a_mesh_for_the_miner_only(role, extra, slice_no):
+    """The miner, the validator and the averager take the mesh flags;
+    the server (one process) refuses them."""
     cfg = RunConfig.from_args(role, extra)
     if slice_no is None:
         cfg.check_ported()

@@ -216,12 +216,12 @@ def test_a_miner_mesh_needs_its_processes():
     """One process: no mesh by default; a mesh of several devices asks
     for the launch that gives it its processes."""
     from distributedtraining_tpu_torch.config import RunConfig
-    from distributedtraining_tpu_torch.neurons.common import _miner_mesh
+    from distributedtraining_tpu_torch.neurons.common import role_mesh
     model, _ = tg.make_model("tiny")
-    assert _miner_mesh(RunConfig.from_args("miner", []), model) is None
+    assert role_mesh(RunConfig.from_args("miner", []), model) is None
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
-        _miner_mesh(RunConfig.from_args("miner", ["--fsdp", "2", "--tp",
-                                                  "2"]), model)
+        role_mesh(RunConfig.from_args("miner", ["--fsdp", "2", "--tp",
+                                                "2"]), model)
 
 
 # ---------------------------------------------------------------------------

@@ -350,10 +350,20 @@ def test_bucket_ladder_matches_jax(k):
 
 
 def test_bucket_ladder_rejects_empty_and_mesh():
+    """An empty cohort is refused; on a mesh the ladder rounds up to a
+    multiple of the merge axis, as JAX's does on the same mesh shape
+    (the candidate axis is sharded there since the mesh spelling was
+    ported; tests/test_torch_mesh_roles.py runs it)."""
+    from distributedtraining_tpu.parallel import MeshConfig, make_mesh
     with pytest.raises(ValueError):
         tbe.BatchedCohortEvaluator(types.SimpleNamespace()).bucket_for(0)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tbe.BatchedCohortEvaluator(types.SimpleNamespace(mesh=object()))
+    jmesh = make_mesh(MeshConfig(dp=2, tp=4))
+    tmesh = types.SimpleNamespace(shape=dict(jmesh.shape),
+                                  size=lambda axis: jmesh.shape[axis])
+    for k in (1, 3, 5, 9, 17):
+        assert tbe.BatchedCohortEvaluator(types.SimpleNamespace(
+            mesh=tmesh)).bucket_for(k) == JEval(types.SimpleNamespace(
+                mesh=jmesh)).bucket_for(k)
 
 
 # ---------------------------------------------------------------------------
