@@ -9,6 +9,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --serve6b
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --parallel-cards
+    python3 chip_smoke.py --tp-ab DIR [DIR ...]
     python3 chip_smoke.py --mesh-roles
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
@@ -31,7 +32,11 @@ the ttft and prefill ms of every request that hit the prefix cache.
 ``--serve6b`` runs phase 22 alone after the build,
 ``--parallel`` phase 23 alone, ``--mesh-roles`` phase 24 alone, and
 ``--parallel-cards`` the worlds of phases 23 and 24 over NCCL on every
-card of a machine with several. ``--phase-times
+card of a machine with several. ``--tp-ab DIR...`` times phase 23's tp
+engine steps with the package of each checkout DIR in turn (parent,
+change, change, parent): tp 2 on two gloo ranks sharing the card, or
+fsdp 2 x tp 2 and tp 4 over NCCL on a machine of four cards or more.
+``--phase-times
 OUT DIR...`` times the whole script of each checkout DIR in turn on one
 machine (parent, change, change, parent for a comparison): each run's
 ``main()`` with every ``phase_*`` function timed, its output and errors
@@ -63,7 +68,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            unpacked case, ids in no order, and long rows (T 4096 packed
            and in no order, T 2112 at D 128: the bf16 kernels' id passes
            sweep a row more than once and their tile lists span more than
-           one 32-tile ballot word, dk/dv's running the other way); q, k,
+           one 32-tile ballot word, dk/dv's running the other way), and
+           a tp rank's heads (H 6 and 3: the local [B, T, 3E/tp]
+           projection of phase 23's tp 2 and tp 4 blocks); q, k,
            v as strided views of a fused [B, T, 3E] projection. The
            gradients are held against the dense plain version and against
            the plain version of the kernels' walk
@@ -374,22 +381,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
            ms and bytes by backend and route (CUDA tensors staged through
            pinned host memory under gloo); three f32 steps of the fsdp2
            engine within 1e-4 relative of world 1's; a timed bf16 step
-           and each rank's peak card memory in it.
+           and each rank's peak card memory in it. The same f32 steps
+           and timed steps of the tp2 engine, whose blocks split their
+           heads and MLP columns (each rank H/tp heads and 4E/tp
+           columns): each timed step's collectives exactly those of
+           ``_par_tp_step_want`` (tp all-gathers only wte and the c_attn
+           leaves, four [rows, E] all-reduces a block), every block
+           counted on the head-split route (``sharding.counts``), 12
+           launches a step of each flash kernel and one of each CE
+           kernel, and a step's device ms by kernel (torch.profiler).
            (c) ``neurons.miner.main`` at world 2 with ``--fsdp 2`` and
            then ``--tp 2`` (``--fused-loss``, B 8, T 128, 3 steps, the
            final push): rc 0 on both ranks, one artifact and its rider on
            the transport, pushes only from rank 0, each rank's launches
            exact (12 x steps of each flash kernel, steps of each CE
-           kernel), its shards after the pull bit-equal to the base's
-           slices, the delta finite with a held-out score > 0. Any failed
-           rank, collective or check fails the phase.
+           kernel), at ``--tp 2`` every block on the head-split route and
+           each step's collectives exact as in (b), its shards after the
+           pull bit-equal to the base's slices, the delta finite with a
+           held-out score > 0. Any failed rank, collective or check
+           fails the phase.
            (d) (b) alone on the meshes of a world of 4 (dp2 x tp2,
            fsdp2 x tp2, fsdp4, tp4 over 1023 rows), four gloo ranks on
            the card: the same summation order of the kernels as over
            NCCL on four cards, with host-memory collectives, so a reading
            that differs between the two points at the NCCL route.
            ``--parallel-cards`` runs (a) and the world of (b) and (c) over
-           NCCL with one rank a card on a machine with several cards.
+           NCCL with one rank a card on a machine with several cards (at
+           world 4 the engines are fsdp4, fsdp2 x tp2 and tp4).
 24. mesh roles the validator and the averager on a mesh. Phase 17's
            submissions on a fresh root (three honest MinerLoop miners, a
            stale dense one, phase 16's two hostiles); hard links of it
@@ -982,6 +1000,11 @@ def phase_flash(seg) -> dict:
         "packed_t4096": (2, 4096, 2, 64, packed_long),
         "scattered_ids_t4096": (1, 4096, 2, 64, scattered_long),
         "scattered_ids_t2112_d128": (1, 2112, 2, 128, scattered_long),
+        # a tp rank's heads (phase 23): views of its [B, T, 3E/tp] local
+        # projection, token stride 1152 at tp 2 (the --tp 2 CLI's B 8,
+        # T 128) and 576 at tp 4 (the engine's B 4, T 256)
+        "tp2_heads_b8_t128_h6": (8, 128, 6, 64, seg),
+        "tp4_heads_b4_t256_h3": (4, 256, 3, 64, seg),
     }
     tols = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
     checks = []
@@ -5630,21 +5653,25 @@ PAR_CE_TOL = {"float32": 1e-4, "bfloat16": CE_TOL["bfloat16"]}
 
 def _par_world_spec(n: int) -> dict:
     """What a world of ``n`` ranks runs: (b) the sharded CE's meshes,
-    the meshes whose collectives are timed, the engine's mesh and (c)
+    the meshes whose collectives are timed, the engine's meshes and (c)
     the miner CLI's mesh flags. n 2 is phase 23 (every axis alone); a
     world of more cards mixes axes."""
     if n == 2:
         ce = {"dp2": {"dp": 2}, "fsdp2": {"fsdp": 2}, "tp2": {"tp": 2},
               "tp2_ragged": {"tp": 2}}
+        engine = {"fsdp2": {"fsdp": 2}, "tp2": {"tp": 2}}
         cli = {"fsdp2": ["--fsdp", "2"], "tp2": ["--tp", "2"]}
     else:
         h = n // 2
         ce = {f"dp{h}xtp2": {"dp": h, "tp": 2},
               f"fsdp{h}xtp2": {"fsdp": h, "tp": 2},
               f"fsdp{n}": {"fsdp": n}, f"tp{n}_ragged": {"tp": n}}
+        engine = {f"fsdp{n}": {"fsdp": n}, f"fsdp{h}xtp2": {"fsdp": h,
+                                                          "tp": 2},
+                  f"tp{n}": {"tp": n}}
         cli = {f"fsdp{h}xtp2": ["--fsdp", str(h), "--tp", "2"],
                f"dp{n}": ["--dp", "0"]}
-    return {"world": n, "ce": ce, "engine": {"fsdp": n},
+    return {"world": n, "ce": ce, "engine": engine,
             "collectives": {"fsdp": {"fsdp": n}, "tp": {"tp": n}},
             "cli": cli}
 
@@ -5712,8 +5739,8 @@ def _par_world1(dev, flat_tree) -> dict:
         f32 = dataclasses.replace(gpt2.PRESETS[PAR_MODEL], dtype="float32")
         out["f32_losses"] = _par_engine_losses(f32, flat_tree,
                                                _par_f32_batches(), mesh, dev)
-        out["step_ms"], out["step_peak_bytes"] = _par_step_ms(
-            gpt2.PRESETS[PAR_MODEL], flat_tree, mesh, dev)
+        out.update(_par_engine_step(gpt2.PRESETS[PAR_MODEL], flat_tree,
+                                    mesh, dev, profile=False))
     finally:
         multihost.shutdown()
     return out
@@ -5779,17 +5806,89 @@ def _par_engine_losses(model_cfg, tree, batches, mesh, dev) -> list:
     return losses
 
 
-def _par_step_ms(model_cfg, tree, mesh, dev) -> tuple[float, int]:
+def _par_coll_since(before: dict) -> dict:
+    """``{op: [calls, bytes]}`` of the collectives since the snapshot
+    ``before`` of ``collectives.counts`` (every backend and route)."""
+    from distributedtraining_tpu_torch.parallel import collectives
+    out: dict = {}
+    for key, c in collectives.counts.items():
+        b = before.get(key, {"calls": 0, "bytes": 0})
+        if c["calls"] != b["calls"]:
+            o = out.setdefault(key[0], [0, 0])
+            o[0] += c["calls"] - b["calls"]
+            o[1] += c["bytes"] - b["bytes"]
+    return out
+
+
+def _par_coll_snapshot() -> dict:
+    from distributedtraining_tpu_torch.parallel import collectives
+    return {k: dict(v) for k, v in collectives.counts.items()}
+
+
+def _par_tp_step_want(cfg, rows: int) -> dict:
+    """``{op: [calls, bytes]}`` of one fused-loss step without a clip on a
+    tp-only mesh whose blocks split their heads, a rank's ``rows``
+    tokens: tp all-gathers ``wte`` (the embedding and the CE's head) and
+    each block's ``c_attn`` kernel and bias, the kernel again for the
+    backward (f32 storage, the gathered buffer's bytes); four all-reduces
+    a block of its ``[rows, E]`` activations in the compute dtype (two
+    forward, two backward), the CE's dh and its two f32 totals; each
+    ``c_attn`` leaf's gradient and the head's reduce-scattered (f32, the
+    full buffer). No gather of ``c_proj``, ``c_fc`` or ``mlp_proj``."""
+    import torch
+    L, E, V = cfg.n_layer, cfg.n_embd, cfg.padded_vocab
+    act = torch.empty((), dtype=cfg.compute_dtype()).element_size()
+    qkv = 3 * E * E + 3 * E
+    return {"all_gather": [3 * L + 2, 4 * (2 * V * E + L * (qkv + 3 * E * E))],
+            "all_reduce": [4 * L + 3, act * (4 * L + 1) * rows * E + 8],
+            "reduce_scatter": [2 * L + 1, 4 * (L * qkv + V * E)]}
+
+
+def _par_kernel_ms(fn) -> dict | None:
+    """Device ms of one call of ``fn`` by torch.profiler: the total, the
+    copies (``Memcpy``: under gloo, the staging through host memory), the
+    kernels and the eight largest names; None where the profiler saw no
+    device time (recorded as not measured; nothing else rests on it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by[evt.name] = by.get(evt.name, 0.0) + \
+                evt.time_range.elapsed_us() / 1e3
+    if not by:
+        return None
+    copies = sum(v for k, v in by.items() if k.startswith("Memcpy"))
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    return {"total": sum(by.values()), "memcpy": copies,
+            "kernels": sum(by.values()) - copies, "names": len(by),
+            "top": {k[:72]: v for k, v in top}}
+
+
+def _par_engine_step(model_cfg, tree, mesh, dev, profile: bool = True
+                     ) -> dict:
     """Median host ms of a bf16 fused-loss step (synchronised) at global
-    B ``PAR_STEP_B``, T ``PAR_STEP_T``, after one untimed step, and this
+    B ``PAR_STEP_B``, T ``PAR_STEP_T``, after one untimed step; this
     process's peak of allocated card memory above what it held before
     the engine's state (the state, a step's gathered parameters,
-    activations and gradients)."""
+    activations and gradients); the launches, block routes
+    (``sharding.counts``) and collectives of each of those steps; then,
+    with ``profile`` (in a child process: the main one leaves the
+    profiler to the phases that time kernels by it), one more step's
+    device ms by kernel."""
     import numpy as np
     import torch
     from distributedtraining_tpu_torch.engine.train import TrainEngine
     from distributedtraining_tpu_torch.models import gpt2
-    from distributedtraining_tpu_torch.parallel import batch_rows
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.parallel import batch_rows, sharding
     model, _ = gpt2.make_model(model_cfg)
     eng = TrainEngine(model, fused_loss=True, mesh=mesh, device=dev)
     torch.cuda.empty_cache()
@@ -5803,16 +5902,30 @@ def _par_step_ms(model_cfg, tree, mesh, dev) -> tuple[float, int]:
     if mesh is not None and mesh.world_size > 1:
         b = batch_rows(b, mesh)
     b = eng.place_batch(b)
-    times = []
+    times, colls = [], []
+    _zero_counts()
+    sharding.reset_counts()
     for i in range(PAR_STEP_REPS + 1):
+        before = _par_coll_snapshot()
         _par_sync()
         t0 = time.perf_counter()
         state, _ = eng.train_step(state, b)
         _par_sync()
+        colls.append(_par_coll_since(before))
         if i:
             times.append((time.perf_counter() - t0) * 1e3)
-    return (statistics.median(times),
-            torch.cuda.max_memory_allocated() - held)
+    out = {"step_ms": statistics.median(times),
+           "step_peak_bytes": torch.cuda.max_memory_allocated() - held,
+           "step_rows": int(b["input_ids"].numel()),
+           "step_launches": {**fa.launches, **fused_ce.launches},
+           "step_routes": dict(sharding.counts),
+           "step_collectives": colls,
+           # an engine from before the tp blocks has no route
+           "tp_route": getattr(eng, "tp_route", None)}
+    if profile:
+        out["step_device_ms"] = _par_kernel_ms(
+            lambda: eng.train_step(state, b))
+    return out
 
 
 def _par_f32_batches() -> list:
@@ -5953,8 +6066,9 @@ def _par_worker_collectives(dev, meshes: dict) -> dict:
 
 def _par_worker_cli(dev, flags: list, work: str) -> dict:
     """(c) on this rank: ``neurons.miner.main`` on this world with the
-    mesh ``flags``; counts set to 0 just before and read just after;
-    this rank's shards right after the pull against the base's slices."""
+    mesh ``flags``; launch counts and block routes set to 0 just before
+    and read just after, the collectives of each train step; this rank's
+    shards right after the pull against the base's slices."""
     import torch
     from distributedtraining_tpu_torch import delta
     from distributedtraining_tpu_torch.engine import train as ttrain
@@ -5962,7 +6076,7 @@ def _par_worker_cli(dev, flags: list, work: str) -> dict:
     from distributedtraining_tpu_torch.neurons import miner as miner_cli
     from distributedtraining_tpu_torch.ops import flash_attention as fa
     from distributedtraining_tpu_torch.ops import fused_ce
-    from distributedtraining_tpu_torch.parallel import shard_params
+    from distributedtraining_tpu_torch.parallel import sharding, shard_params
     base = delta.flatten_tree(gpt2.init_params_numpy(
         gpt2.PRESETS[PAR_MODEL], SEED))
     seen = {}
@@ -5976,21 +6090,36 @@ def _par_worker_cli(dev, flags: list, work: str) -> dict:
             torch.equal(loop.state.params[k].detach(), want[k])
             for k in want), base_revision=loop._base_revision)
 
+    step = ttrain.TrainEngine.train_step
+    colls = []
+
+    def counted(eng, *a, **kw):
+        before = _par_coll_snapshot()
+        out = step(eng, *a, **kw)
+        colls.append(_par_coll_since(before))
+        return out
+
     argv = (README_MINER_FLAGS + flags + [
         "--work-dir", work, "--batch-size", str(PAR_CLI_B),
         "--seq-len", str(PAR_CLI_T), "--max-steps", str(PAR_CLI_STEPS)])
     ttrain.MinerLoop.bootstrap = watched
+    ttrain.TrainEngine.train_step = counted
     try:
         _zero_counts()
+        sharding.reset_counts()
         t0 = time.perf_counter()
         rc = miner_cli.main(argv)
         _par_sync()
         secs = time.perf_counter() - t0
         launches = {**fa.launches, **fused_ce.launches}
+        routes = dict(sharding.counts)
     finally:
         ttrain.MinerLoop.bootstrap = bootstrap
+        ttrain.TrainEngine.train_step = step
     loop = seen["loop"]
     return {"argv": argv, "rc": rc, "s": secs, "steps": loop.report.steps,
+            "routes": routes, "step_collectives": colls,
+            "tp_route": loop.engine.tp_route,
             "pushes": loop.report.pushes,
             "pushes_failed": loop.report.pushes_failed,
             "launches": launches, "boot_bit_equal": seen["boot_bit_equal"],
@@ -6033,12 +6162,16 @@ def parallel_worker(rank: int, port: int, tmp: str) -> int:
                                                      world["collectives"])
         tree = flatten_tree(gpt2.init_params_numpy(
             gpt2.PRESETS[PAR_MODEL], SEED))
-        mesh = Mesh(MeshConfig(**world["engine"]))
         f32 = dataclasses.replace(gpt2.PRESETS[PAR_MODEL], dtype="float32")
-        out["f32_losses"] = _par_engine_losses(f32, tree, _par_f32_batches(),
-                                               mesh, dev)
-        out["step_ms"], out["step_peak_bytes"] = _par_step_ms(
-            gpt2.PRESETS[PAR_MODEL], tree, mesh, dev)
+        out["engine"] = {}
+        for name, kw in world["engine"].items():
+            mesh = Mesh(MeshConfig(**kw))
+            out["engine"][name] = {
+                "f32_losses": _par_engine_losses(f32, tree,
+                                                 _par_f32_batches(), mesh,
+                                                 dev),
+                **_par_engine_step(gpt2.PRESETS[PAR_MODEL], tree, mesh,
+                                   dev)}
         del tree
         out["cli"] = {name: _par_worker_cli(dev, world["cli"][name], work)
                       for name, work in spec["cli_work"].items()}
@@ -6223,31 +6356,78 @@ def _par_run_world(n: int, backend: str, tree, tok, f32_world1: list
                                 run["launches"], _train_want(
                                     gpt2.PRESETS[PAR_MODEL], run["steps"],
                                     fused=True))
+                _par_check_tp(f"{what} CLI {name} rank {r}", run["mesh"],
+                              run["tp_route"], run["routes"],
+                              run["step_collectives"], PAR_CLI_T * (
+                                  PAR_CLI_B // (run["mesh"]["dp"]
+                                                * run["mesh"]["fsdp"])))
             check(runs[0]["pushes"] >= 1 and runs[0]["pushes_failed"] == 0
                   and all(x["pushes"] == 0 for x in runs[1:]),
                   f"{what} CLI {name}: pushes {[x['pushes'] for x in runs]}"
                   f" (only the coordinator publishes)")
             cli[name] = {"argv": runs[0]["argv"],
                          "s": [x["s"] for x in runs],
+                         "routes": runs[0]["routes"],
+                         "step_collectives": runs[0]["step_collectives"][-1],
                          "pushes": [x["pushes"] for x in runs],
                          "launches": [x["launches"] for x in runs],
                          "mesh": runs[0]["mesh"],
                          "coords": [x["coords"] for x in runs],
                          **_par_score(tree, tok, work)}
         res["cli"] = cli
-    for r, o in enumerate(outs):
-        rel = max(abs(a - b) / abs(b)
-                  for a, b in zip(o["f32_losses"], f32_world1))
-        check(rel <= 1e-4, f"{what} f32 {world['engine']} rank {r} losses "
-                           f"{o['f32_losses']} vs world 1 {f32_world1}: "
-                           f"{rel} relative")
-    res.update(f32_losses=[o["f32_losses"] for o in outs],
-               step_ms=[o["step_ms"] for o in outs],
-               step_peak_bytes=[o["step_peak_bytes"] for o in outs],
-               collectives=outs[0]["collectives"],
+    engines = {}
+    for name, kw in world["engine"].items():
+        runs = [o["engine"][name] for o in outs]
+        for r, run in enumerate(runs):
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(run["f32_losses"], f32_world1))
+            check(rel <= 1e-4, f"{what} f32 {name} rank {r} losses "
+                               f"{run['f32_losses']} vs world 1 "
+                               f"{f32_world1}: {rel} relative")
+            steps = len(run["step_collectives"])
+            _check_launches(f"{what} engine {name} rank {r}",
+                            run["step_launches"], _train_want(
+                                gpt2.PRESETS[PAR_MODEL], steps, fused=True))
+            _par_check_tp(f"{what} engine {name} rank {r}",
+                          {"dp": 1, "fsdp": 1, "tp": 1, **kw},
+                          run["tp_route"], run["step_routes"],
+                          run["step_collectives"], run["step_rows"])
+        engines[name] = {
+            "mesh": kw, "tp_route": runs[0]["tp_route"],
+            "f32_losses": [x["f32_losses"] for x in runs],
+            "step_ms": [x["step_ms"] for x in runs],
+            "step_peak_bytes": [x["step_peak_bytes"] for x in runs],
+            "step_collectives": runs[0]["step_collectives"][-1],
+            "step_routes": runs[0]["step_routes"],
+            "step_device_ms": [x.get("step_device_ms") for x in runs]}
+    res.update(engine=engines, collectives=outs[0]["collectives"],
                collective_counts=[o["collective_counts"] for o in outs],
                s=time.perf_counter() - t0)
     return res
+
+
+def _par_check_tp(what: str, mesh: dict, route, routes: dict, colls: list,
+                  rows: int) -> None:
+    """The blocks' route on ``mesh`` by the shape rule, every block of
+    every step counted on it; on a tp-only mesh whose blocks split their
+    heads, each step's collectives exactly ``_par_tp_step_want``'s."""
+    from distributedtraining_tpu_torch.models import gpt2
+    cfg = gpt2.PRESETS[PAR_MODEL]
+    tp = mesh.get("tp", 1)
+    want_route = (None if tp == 1 else
+                  "head_split" if cfg.n_head % tp == 0 else "gathered_attn")
+    check(route == want_route, f"{what}: route {route} != {want_route}")
+    blocks = cfg.n_layer * len(colls)
+    want = {f"tp_{r}_blocks": blocks if r == route else 0
+            for r in ("head_split", "gathered_attn")}
+    got = {k: routes[k] for k in want}
+    check(got == want, f"{what}: block routes {got} != {want}")
+    if route == "head_split" and mesh.get("dp", 1) * mesh.get("fsdp", 1) \
+            == 1:
+        want_c = _par_tp_step_want(cfg, rows)
+        for i, c in enumerate(colls):
+            check(c == want_c, f"{what}: step {i} collectives {c} != "
+                               f"{want_c}")
 
 
 def phase_parallel(tree, tok) -> dict:
@@ -7296,6 +7476,86 @@ def flash_ab(runs: int) -> int:
     return 0
 
 
+def tp_ab(dirs: list) -> int:
+    """The tp engines' timed bf16 steps (phase 23's) with the package of
+    each checkout in ``dirs`` in turn (``--tp-ab DIR...``; for example
+    parent, change, change, parent), so that two versions of the mesh
+    forward compare inside one call: tp 2 on two gloo ranks sharing the
+    card, or on a machine of four or more cards fsdp 2 x tp 2 and tp 4
+    over NCCL, one rank a card. Each checkout's ``_build/`` is seeded
+    from this one's, whose kernel sources it must share. One ``tp_ab``
+    line a run."""
+    import shutil
+    import tempfile
+    import torch
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    phase_build()
+    if torch.cuda.device_count() >= 4:
+        spec = {"world": 4, "backend": "nccl",
+                "meshes": {"fsdp2xtp2": {"fsdp": 2, "tp": 2},
+                           "tp4": {"tp": 4}}}
+    else:
+        spec = {"world": 2, "backend": "gloo", "meshes": {"tp2": {"tp": 2}}}
+    pkg = "distributedtraining_tpu_torch"
+    for i, d in enumerate(dirs):
+        d = os.path.abspath(d)
+        check(_same_files(os.path.join(ROOT, pkg, "csrc"),
+                          os.path.join(d, pkg, "csrc")),
+              f"--tp-ab: {d} has other kernel sources than {ROOT}")
+        if d != ROOT:
+            shutil.copytree(os.path.join(ROOT, pkg, "_build"),
+                            os.path.join(d, pkg, "_build"),
+                            dirs_exist_ok=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = _par_spawn(spec["world"], spec["backend"],
+                              {**spec, "dir": d}, tmp, f"tp-ab {d}",
+                              mode="--tp-ab-worker")
+        print(json.dumps({"tp_ab": {"run": i, "dir": d, "card": card,
+                                    "backend": spec["backend"],
+                                    "ranks": outs}}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
+def _same_files(a: str, b: str) -> bool:
+    """True when the two directories hold the same files, byte for byte."""
+    import filecmp
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    match, _, _ = filecmp.cmpfiles(a, b, names, shallow=False)
+    return len(match) == len(names)
+
+
+def tp_ab_worker(rank: int, port: int, tmp: str) -> int:
+    """One rank of ``--tp-ab``: the package imported from the spec's
+    checkout, ``_par_engine_step`` on each of the spec's meshes."""
+    import torch
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    sys.path.insert(0, spec["dir"])
+    import distributedtraining_tpu_torch as pkg
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.parallel import (Mesh, MeshConfig,
+                                                        multihost)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", spec["world"], rank,
+                         device=DEV, backend=spec["backend"],
+                         timeout_s=PAR_TIMEOUT_S)
+    try:
+        tree = flatten_tree(gpt2.init_params_numpy(
+            gpt2.PRESETS[PAR_MODEL], SEED))
+        out = {"rank": rank, "package": os.path.dirname(pkg.__file__)}
+        for name, kw in spec["meshes"].items():
+            out[name] = _par_engine_step(gpt2.PRESETS[PAR_MODEL], tree,
+                                         Mesh(MeshConfig(**kw)), DEV)
+    finally:
+        multihost.shutdown()
+    return _par_worker_done(tmp, rank, out)
+
+
 def serve6b_only() -> int:
     """Phase 22 alone after the build (``--serve6b``): its JSON line,
     the card's line and the result line."""
@@ -7401,6 +7661,11 @@ if __name__ == "__main__":
                                      sys.argv[4]))
         if sys.argv[1:2] == ["--parallel"]:
             sys.exit(parallel_only())
+        if sys.argv[1:2] == ["--tp-ab"]:
+            sys.exit(tp_ab(sys.argv[2:]))
+        if sys.argv[1:2] == ["--tp-ab-worker"]:
+            sys.exit(tp_ab_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4]))
         if sys.argv[1:2] == ["--mesh-roles"]:
             sys.exit(mesh_roles_only())
         if sys.argv[1:2] in (["--mesh-roles-worker"], ["--mesh-roles-cli"]):

@@ -37,13 +37,23 @@ On a mesh (``mesh=``, a ``parallel.Mesh``: one process per device over
 parameters and of Adam's moments (``parallel/sharding.py``). Each step
 all-gathers each block's parameters as the block starts and drops them
 as it ends, gathering again what the backward needs (ZeRO-3: the
-gather's backward sums the gradient over fsdp and keeps this rank's tp
-slice), feeds the tied head to the sharded fused CE as its shard, sums the
-gradients over dp (and over fsdp where a parameter is not split on it),
-clips by the global norm over the shards and updates the shards. The
-blocks compute on gathered parameters: tp splits storage and the CE's
-rows, not the blocks' heads or MLP columns. The miner's round on a mesh
-follows the JAX pod rules: the coordinator reads the transport and
+gather's backward sums the gradient over fsdp), feeds the tied head to
+the sharded fused CE as its shard, sums the gradients over dp (and over
+fsdp where a parameter is not split on it), clips by the global norm
+over the shards and updates the shards. On a tp mesh the blocks split
+their work Megatron style (``sharding.tp_block_route``, decided here
+from the shapes): each rank computes ``H/tp`` heads and ``4E/tp`` MLP
+columns from its own tp chunks, each half entering through
+``collectives.copy_to`` and leaving through an all-reduce over tp; where
+tp does not divide the heads, the attention half runs every head on
+gathered parameters. A tp-split leaf's gradient is then this rank's own
+slice and takes no sum over tp; a leaf replicated over tp (the
+LayerNorms, ``wpe``, the output biases, a gathered attention half)
+reaches the same gradient on every tp peer, since copy_to's backward
+completes the residual's cotangent. So the sums over dp and fsdp, and
+the clip's sum of squares over each leaf's split axes, are unchanged.
+The miner's round on a mesh follows the JAX pod rules: the coordinator
+reads the transport and
 broadcasts what it read, every rank re-shards, cadence decisions and the
 guards' verdicts are the coordinator's, and the coordinator alone
 publishes a delta gathered from every rank's shards and writes
@@ -246,46 +256,53 @@ def _default_lm_loss(model, params: Params, batch: dict):
     return causal_lm_loss(logits, batch["input_ids"], batch.get("loss_mask"))
 
 
-def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh
-                 ) -> torch.Tensor:
+def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
+                 route: str | None = None) -> torch.Tensor:
     """The model's forward to the final hidden states on a mesh, piece
     by piece (ZeRO-3): each block's parameters are gathered as the block
     starts and dropped as it ends, and under ``sharding.regathered``
     what its backward keeps of them stays a shard until the backward
     reads it. Kernels are gathered into the compute dtype the model
-    casts them to."""
+    casts them to. On a tp mesh each block computes its share of heads
+    and MLP columns by ``route`` (``sharding.tp_block_route``), counted
+    in ``sharding.counts``."""
     from ..models.gpt2 import embed_tokens
-    from ..parallel.sharding import gather_param
+    from ..parallel import sharding
     cfg = model.cfg
 
-    def gathered(prefix: str) -> dict:
-        return {k[len(prefix):]: gather_param(
-                    v, mesh, specs[k], cfg.compute_dtype()
+    def params(prefix: str) -> dict:
+        return {k[len(prefix):]: sharding.block_param(
+                    k, v, mesh, specs[k], route, cfg.compute_dtype()
                     if k.endswith(".kernel") else None)
                 for k, v in shards.items() if k.startswith(prefix)}
 
-    wte, wpe = (gather_param(shards[k], mesh, specs[k])
+    wte, wpe = (sharding.gather_param(shards[k], mesh, specs[k])
                 for k in ("wte", "wpe"))
     x = embed_tokens(wte, wpe, batch["input_ids"],
                      batch.get("position_ids"), cfg)
     del wte, wpe
+    tp = {} if route is None else {"tp": mesh,
+                                   "tp_heads": route == "head_split"}
     for i, blk in enumerate(model.blocks()):
+        if route is not None:
+            sharding.counts[f"tp_{route}_blocks"] += 1
         x, _ = torch.func.functional_call(
-            blk, gathered(f"h_{i}."), (x, batch.get("attention_mask"),
-                                       batch.get("segment_ids")),
+            blk, params(f"h_{i}."), (x, batch.get("attention_mask"),
+                                     batch.get("segment_ids")), tp,
             strict=True)
-    return torch.func.functional_call(model.ln_f, gathered("ln_f."), (x,),
+    return torch.func.functional_call(model.ln_f, params("ln_f."), (x,),
                                       strict=True)
 
 
-def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh):
+def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh,
+                  route: str | None = None):
     """:func:`_default_lm_loss` on a mesh: this rank's rows, totals
     summed over dp x fsdp (tp peers hold the same rows and the same
     totals), the global token mean on every rank."""
     from ..models.gpt2 import tied_logits
     from ..parallel import collectives as coll
     from ..parallel.sharding import ROW_AXES, gather_param
-    hidden = _mesh_hidden(model, shards, specs, batch, mesh)
+    hidden = _mesh_hidden(model, shards, specs, batch, mesh, route)
     logits = tied_logits(hidden, gather_param(shards["wte"], mesh,
                                               specs["wte"]), model.cfg)
     total, count = causal_lm_totals(logits, batch["input_ids"],
@@ -296,12 +313,12 @@ def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh):
 
 
 def _mesh_fused_lm_loss(model, shards: Params, specs: dict, batch: dict,
-                        mesh):
+                        mesh, route: str | None = None):
     """The JAX mesh spelling of ``_fused_lm_loss``: the hidden states
     keep their ``[B, T, E]`` shape and the shift moves into the labels
     and the mask (the last column masked out instead of sliced off); the
     tied head goes to the sharded CE as this rank's shard."""
-    hidden = _mesh_hidden(model, shards, specs, batch, mesh)
+    hidden = _mesh_hidden(model, shards, specs, batch, mesh, route)
     ids = batch["input_ids"]
     labels = torch.nn.functional.pad(ids[:, 1:], (0, 1))
     mask = batch.get("loss_mask")
@@ -353,6 +370,7 @@ class TrainEngine:
                  device="cuda"):
         self.mesh = mesh
         self.specs = None
+        self.tp_route = None
         if mesh is not None:
             from ..parallel import sharding
             from ..parallel.mesh import Mesh
@@ -367,6 +385,7 @@ class TrainEngine:
                     f"attention) is not ported: {_SLICES}, slice 7")
             sd = model.state_dict()
             self.specs = sharding.param_specs(sd)
+            self.tp_route = sharding.tp_block_route(model.cfg.n_head, mesh)
             for k, v in sd.items():     # raises where an axis does not divide
                 sharding.shard_slices(k, tuple(v.shape), self.specs[k],
                                       mesh.shape, mesh.coords)
@@ -393,7 +412,8 @@ class TrainEngine:
             from ..parallel.sharding import regathered
             fn = _mesh_fused_lm_loss if self.fused_loss else _mesh_lm_loss
             with regathered():
-                return fn(self.model, params, self.specs, batch, self.mesh)
+                return fn(self.model, params, self.specs, batch, self.mesh,
+                          self.tp_route)
         fn = _fused_lm_loss if self.fused_loss else _default_lm_loss
         return fn(self.model, params, batch)
 

@@ -112,9 +112,16 @@ class Dense(nn.Module):
         self.bias = _param((n_out,), cfg)
         self.dtype = cfg.compute_dtype()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """With ``tp`` (a ``parallel.Mesh``), a row-parallel product: each
+        tp rank's product is a partial sum, all-reduced over tp before
+        the bias is added once."""
         dt = self.dtype
-        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        y = x.to(dt) @ self.kernel.to(dt)
+        if tp is not None:
+            from ..parallel.collectives import all_reduce
+            y = all_reduce(y, tp, "tp")
+        return y + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -155,30 +162,49 @@ class Block(nn.Module):
                 segment_ids: torch.Tensor | None = None, *,
                 kv_pages: tuple | None = None,
                 page_tables: torch.Tensor | None = None,
-                kv_lens: torch.Tensor | None = None):
+                kv_lens: torch.Tensor | None = None,
+                tp=None, tp_heads: bool = False):
         """Returns ``(x, (k, v))``: the block output and this block's
         fresh keys/values ``[B, T, H, D]``. With ``kv_pages=(k_pages,
         v_pages)`` (this layer's pool slice) attention reads the pool
         through ``page_tables``; the fresh ``(k, v)`` reach the pool
-        only through the caller, after the forward."""
-        cfg = self.cfg
-        B, T, E = x.shape
-        qkv = self.c_attn(self.ln_1(x))
-        q, k, v = qkv.split(E, dim=-1)
-        q = q.reshape(B, T, cfg.n_head, cfg.head_dim)
-        k = k.reshape(B, T, cfg.n_head, cfg.head_dim)
-        v = v.reshape(B, T, cfg.n_head, cfg.head_dim)
+        only through the caller, after the forward.
+
+        With ``tp`` (a ``parallel.Mesh`` whose tp axis is > 1) the
+        parameters are this rank's tp slices, Megatron style
+        (``parallel.sharding.block_param``): the MLP's ``4E/tp`` columns
+        always, and with ``tp_heads`` the q, k and v of ``H/tp`` heads
+        and their rows of ``c_proj`` (else the attention runs every head
+        on whole parameters). A split half enters through
+        ``collectives.copy_to`` (f: backward sums the cotangent over tp)
+        and leaves through the all-reduce of a row-parallel product (g);
+        ``(k, v)`` are then this rank's heads."""
+        B, T, _ = x.shape
+        D = self.cfg.head_dim
+        attn_tp = tp if tp_heads else None
+        qkv = self.c_attn(_tp_enter(self.ln_1(x), attn_tp))
+        q, k, v = (t.reshape(B, T, -1, D)
+                   for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
         if kv_pages is not None:
             attn = paged_attention(q, kv_pages[0], kv_pages[1],
                                    page_tables, kv_lens, k, v)
         else:
             attn = causal_attention(q, k, v, attention_mask=attention_mask,
                                     segment_ids=segment_ids,
-                                    impl=cfg.attention_impl)
-        x = x + self.c_proj(attn.reshape(B, T, E))
-        h = self.c_fc(self.ln_2(x))
+                                    impl=self.cfg.attention_impl)
+        x = x + self.c_proj(attn.reshape(B, T, -1), attn_tp)
+        h = self.c_fc(_tp_enter(self.ln_2(x), tp))
         h = nn.functional.gelu(h, approximate="tanh")   # gelu_new
-        return x + self.mlp_proj(h), (k, v)
+        return x + self.mlp_proj(h, tp), (k, v)
+
+
+def _tp_enter(h: torch.Tensor, tp) -> torch.Tensor:
+    """Megatron's f on a value replicated over tp whose uses on each tp
+    rank are partial: the identity, whose backward sums over tp."""
+    if tp is None:
+        return h
+    from ..parallel.collectives import copy_to
+    return copy_to(h, tp, "tp")
 
 
 class GPT2(nn.Module):

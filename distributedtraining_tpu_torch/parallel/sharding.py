@@ -32,15 +32,29 @@ dp x fsdp in coordinate order, tp peers holding the same rows
 :func:`gather_param` is the training step's ZeRO-3 gather: the forward
 all-gathers a shard over the axes of each split dim, and the backward
 sums the gradient over fsdp (a reduce-scatter) and cuts tp's slice
-without a sum, since tp peers compute the same rows (the fused CE
-completes dh over tp) and so hold the same cotangent. Under
+without a sum, since tp peers that compute on a gathered parameter
+compute the same rows and so hold the same cotangent. Under
 :func:`regathered` the tensors the backward keeps of a gathered
 parameter are kept as its shard and gathered again when read.
+
+On a tp mesh the blocks split their work Megatron style
+(:func:`tp_block_route`, :func:`block_param`): storage keeps JAX's
+specs, and each rank computes with its own tp chunk where that chunk is
+its share of the work. ``c_fc`` (``[E, 4E/tp]`` and its bias) and
+``mlp_proj`` (``[4E/tp, E]``) are gathered over fsdp only; where tp
+divides the heads, so is ``c_proj`` (``[E/tp, E]``: the rows of heads
+``[t H/tp, (t+1) H/tp)``, the attention output being head-major), and
+``c_attn`` goes through :func:`gather_heads`, since its tp chunk of the
+fused q|k|v columns is not whole heads. Their backward reduce-scatters
+over fsdp and does nothing over tp: each rank's gradient is its own
+slice. Every other parameter, and the attention half where tp does not
+divide the heads, is gathered whole as before.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import weakref
 from typing import Any, Mapping
 
@@ -220,29 +234,59 @@ def batch_rows(batch: Mapping[str, Any], mesh) -> dict:
     return out
 
 
-def _gather_steps(mesh, spec: Spec) -> list[tuple[str, int]]:
-    """The (axis, dim) all-gathers that rebuild a full parameter from
-    its shard: each split dim in turn, the minor axis of a tuple entry
-    first, axes of size 1 left out. The backward runs them reversed."""
+def _gather_steps(mesh, spec: Spec, axes=AXES) -> list[tuple[str, int]]:
+    """The (axis, dim) all-gathers that rebuild a parameter from its
+    shard along ``axes``: each split dim in turn, the minor axis of a
+    tuple entry first, axes of size 1 left out. The backward runs them
+    reversed."""
     return [(a, d) for d, entry in enumerate(spec)
-            for a in reversed(_axes_of(entry)) if mesh.size(a) > 1]
+            for a in reversed(_axes_of(entry))
+            if a in axes and mesh.size(a) > 1]
 
 
-def _gather(shard: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
+def _gather(shard: torch.Tensor, mesh, spec: Spec, axes=AXES
+            ) -> torch.Tensor:
     full = shard
-    for axis, d in _gather_steps(mesh, spec):
+    for axis, d in _gather_steps(mesh, spec, axes):
         full = coll._raw_all_gather(full, mesh.group(axis),
                                     mesh.size(axis), d)
     return full
 
 
+def _qkv_heads(full: torch.Tensor, mesh) -> torch.Tensor:
+    """This tp rank's q, k and v columns of a whole ``c_attn`` leaf (last
+    dim 3E): ``j E + [t E/tp, (t+1) E/tp)`` for j = 0, 1, 2, in order."""
+    n, t = mesh.size("tp"), mesh.index("tp")
+    lead = full.shape[:-1]
+    return full.reshape(*lead, 3, n, -1)[..., t, :].reshape(*lead, -1)
+
+
+def _qkv_spread(g: torch.Tensor, mesh) -> torch.Tensor:
+    """The transpose of :func:`_qkv_heads`: ``g`` at this rank's q, k
+    and v columns of a zero leaf."""
+    n, t = mesh.size("tp"), mesh.index("tp")
+    lead = g.shape[:-1]
+    out = g.new_zeros(*lead, 3, n, g.shape[-1] // 3)
+    out[..., t, :] = g.reshape(*lead, 3, -1)
+    return out.reshape(*lead, -1)
+
+
+def _gather_qkv_heads(shard: torch.Tensor, mesh, spec: Spec
+                      ) -> torch.Tensor:
+    return _qkv_heads(_gather(shard, mesh, spec), mesh)
+
+
 # While :func:`regathered` is active: storage pointer of each gathered
-# parameter -> (weak reference to it, shard, mesh, spec).
+# parameter -> (weak reference to it, a function that gathers it again
+# from its shard).
 _live: dict | None = None
 
 # "saved_as_shard": tensors the backward keeps as their shard instead of
-# the gathered parameter; "regathered": their gathers in the backward.
-counts: dict = {"saved_as_shard": 0, "regathered": 0}
+# the gathered parameter; "regathered": their gathers in the backward;
+# "tp_head_split_blocks" / "tp_gathered_attn_blocks": block forwards on
+# a tp mesh by :func:`tp_block_route` (both split the MLP's columns).
+counts: dict = {"saved_as_shard": 0, "regathered": 0,
+                "tp_head_split_blocks": 0, "tp_gathered_attn_blocks": 0}
 
 
 def reset_counts() -> None:
@@ -250,40 +294,122 @@ def reset_counts() -> None:
         counts[k] = 0
 
 
+def _register(out: torch.Tensor, regather) -> None:
+    if _live is not None:
+        _live[out.untyped_storage().data_ptr()] = (weakref.ref(out),
+                                                   regather)
+
+
 class _GatherParam(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, shard, mesh, spec, dtype):
-        ctx.args = (mesh, spec, shard.dtype)
-        full = _gather(shard, mesh, spec).to(dtype)
-        if _live is not None:
-            _live[full.untyped_storage().data_ptr()] = (
-                weakref.ref(full), shard.detach(), mesh, spec)
+    def forward(ctx, shard, mesh, spec, dtype, axes):
+        ctx.args = (mesh, spec, shard.dtype, axes)
+        full = _gather(shard, mesh, spec, axes).to(dtype)
+        _register(full, functools.partial(_gather, shard.detach(), mesh,
+                                          spec, axes))
         return full
 
     @staticmethod
     def backward(ctx, g):
-        mesh, spec, dtype = ctx.args
+        mesh, spec, dtype, axes = ctx.args
         g = g.to(dtype)
-        for axis, d in reversed(_gather_steps(mesh, spec)):
+        for axis, d in reversed(_gather_steps(mesh, spec, axes)):
             n = mesh.size(axis)
             if axis == "tp":
                 # tp peers hold the same cotangent: keep this slice
                 g = g.chunk(n, dim=d)[mesh.index(axis)].contiguous()
             else:
                 g = coll._raw_reduce_scatter(g, mesh.group(axis), n, d)
+        return g, None, None, None, None
+
+
+class _GatherHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, mesh, spec, dtype):
+        ctx.args = (mesh, spec, shard.dtype)
+        local = _gather_qkv_heads(shard, mesh, spec).to(dtype)
+        _register(local, functools.partial(_gather_qkv_heads,
+                                           shard.detach(), mesh, spec))
+        return local
+
+    @staticmethod
+    def backward(ctx, g):
+        # each storage column gets the gradient of the one tp rank that
+        # computed it: the zero-padded leaf reduce-scattered over tp
+        mesh, spec, dtype = ctx.args
+        g = _qkv_spread(g.to(dtype), mesh)
+        for axis, d in reversed(_gather_steps(mesh, spec)):
+            g = coll._raw_reduce_scatter(g, mesh.group(axis),
+                                         mesh.size(axis), d)
         return g, None, None, None
 
 
-def gather_param(shard: torch.Tensor, mesh, spec: Spec,
-                 dtype: torch.dtype | None = None) -> torch.Tensor:
-    """The full parameter for the forward (see the module docstring),
-    cast to ``dtype`` (the shard's by default) after the gather; the
-    backward casts the cotangent back before its reduce-scatter."""
-    if not _gather_steps(mesh, spec):
-        return shard if dtype is None else shard.to(dtype)
+def _check_spec(spec: Spec) -> None:
     if "sp" in spec_axes(spec) or "dp" in spec_axes(spec):
         raise ValueError(f"gather_param takes fsdp/tp specs, got {spec}")
-    return _GatherParam.apply(shard, mesh, spec, dtype or shard.dtype)
+
+
+def gather_param(shard: torch.Tensor, mesh, spec: Spec,
+                 dtype: torch.dtype | None = None,
+                 axes: tuple[str, ...] = AXES) -> torch.Tensor:
+    """The parameter for the forward, gathered along ``axes`` (every
+    split axis by default; see the module docstring) and cast to
+    ``dtype`` (the shard's by default) after the gather; the backward
+    casts the cotangent back before its reduce-scatter."""
+    if not _gather_steps(mesh, spec, axes):
+        return shard if dtype is None else shard.to(dtype)
+    _check_spec(spec)
+    return _GatherParam.apply(shard, mesh, spec, dtype or shard.dtype,
+                              axes)
+
+
+def gather_heads(shard: torch.Tensor, mesh, spec: Spec,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+    """This tp rank's heads of a ``c_attn`` leaf (kernel ``[E, 3E]``,
+    bias ``[3E]``; the last dim split on tp): the leaf gathered over
+    fsdp, then over tp, then its q, k and v columns of heads
+    ``[t H/tp, (t+1) H/tp)`` (``[..., 3E/tp]``, q|k|v), cast to
+    ``dtype``. Backward: the exact transpose, a reduce-scatter over tp
+    of the gradient placed at those columns of a zero leaf, then over
+    fsdp. Kept as its shard under :func:`regathered`."""
+    _check_spec(spec)
+    return _GatherHeads.apply(shard, mesh, spec, dtype or shard.dtype)
+
+
+# block parameters whose tp chunk is this rank's share of the work:
+# always (the MLP's columns), and where tp divides the heads
+_TP_MLP = ("c_fc.kernel", "c_fc.bias", "mlp_proj.kernel")
+_TP_HEADS = ("c_proj.kernel",)
+_TP_QKV = ("c_attn.kernel", "c_attn.bias")
+
+
+def tp_block_route(n_head: int, mesh) -> str | None:
+    """How the blocks compute on ``mesh``'s tp axis, a rule of shapes:
+    None at tp 1 (on gathered parameters); ``"head_split"`` where tp
+    divides ``n_head`` (``H/tp`` heads and ``4E/tp`` MLP columns a
+    rank); ``"gathered_attn"`` elsewhere (the MLP's columns split, the
+    attention over every head on gathered parameters)."""
+    tp = mesh.size("tp")
+    if tp == 1:
+        return None
+    return "head_split" if n_head % tp == 0 else "gathered_attn"
+
+
+def block_param(name: str, shard: torch.Tensor, mesh, spec: Spec,
+                route: str | None, dtype: torch.dtype | None = None
+                ) -> torch.Tensor:
+    """The parameter ``name`` as a block on ``route``
+    (:func:`tp_block_route`) computes with it on this rank: this rank's
+    tp chunk gathered over fsdp alone, this rank's heads of ``c_attn``
+    (:func:`gather_heads`), or the whole parameter
+    (:func:`gather_param`)."""
+    leaf = ".".join(name.split(".")[-2:])
+    if route is not None:
+        if leaf in _TP_MLP or (route == "head_split" and leaf in _TP_HEADS):
+            return gather_param(shard, mesh, spec, dtype, axes=("fsdp",))
+        if route == "head_split" and leaf in _TP_QKV:
+            return gather_heads(shard, mesh, spec, dtype)
+    return gather_param(shard, mesh, spec, dtype)
 
 
 @torch.no_grad()
@@ -303,24 +429,23 @@ def _pack(t: torch.Tensor):
     if full is None or full.dtype != t.dtype:
         return t
     counts["saved_as_shard"] += 1
-    return (e[1:], full.dtype, t.size(), t.stride(), t.storage_offset())
+    return (e[1], full.dtype, t.size(), t.stride(), t.storage_offset())
 
 
 def _unpack(packed):
     if isinstance(packed, torch.Tensor):
         return packed
-    (shard, mesh, spec), dtype, size, stride, offset = packed
+    regather, dtype, size, stride, offset = packed
     counts["regathered"] += 1
-    return _gather(shard, mesh, spec).to(dtype).as_strided(size, stride,
-                                                           offset)
+    return regather().to(dtype).as_strided(size, stride, offset)
 
 
 @contextlib.contextmanager
 def regathered():
     """ZeRO-3 for the tensors autograd keeps: inside this context, a
     tensor saved for the backward that is (a view of) a parameter
-    :func:`gather_param` gathered is kept as its shard and gathered
-    again when the backward reads it. A forward that gathers each
+    :func:`gather_param` or :func:`gather_heads` gathered is kept as its
+    shard and gathered again when the backward reads it. A forward that gathers each
     block's parameters as the block starts then holds one block's full
     parameters at a time, not the model's. Every rank runs the same
     graph, so the backward's gathers meet in the same order."""

@@ -43,10 +43,9 @@ def case_ce(mesh: Mesh, args: dict, inp) -> dict:
             "dh": h.grad.numpy(), "dw": w.grad.numpy()}
 
 
-def case_engine(mesh: Mesh, args: dict, inp) -> dict:
-    """``args["steps"]`` mesh train steps on this rank's rows of the
-    global batches; the losses, the final shards (params, mu, nu) and,
-    from every rank, the gathered params."""
+def _engine(mesh: Mesh, args: dict):
+    """The mesh TrainEngine of ``args`` (preset, overrides, fused, accum,
+    lr, grad_clip) on the CPU."""
     import dataclasses
 
     from distributedtraining_tpu_torch.engine.train import (
@@ -55,14 +54,23 @@ def case_engine(mesh: Mesh, args: dict, inp) -> dict:
     cfg = dataclasses.replace(gpt2.PRESETS[args["preset"]],
                               **args["overrides"])
     model, _ = gpt2.make_model(cfg)
-    eng = TrainEngine(model, mesh=mesh, fused_loss=args["fused"],
-                      accum_steps=args["accum"],
-                      optimizer=default_optimizer(
-                          args["lr"], grad_clip=args["grad_clip"]),
-                      device="cpu")
-    params = {k[len("p/"):]: inp[k] for k in inp.files
-              if k.startswith("p/")}
-    state = eng.init_state(params)
+    return TrainEngine(model, mesh=mesh, fused_loss=args["fused"],
+                       accum_steps=args["accum"],
+                       optimizer=default_optimizer(
+                           args["lr"], grad_clip=args["grad_clip"]),
+                       device="cpu")
+
+
+def _tree(inp) -> dict:
+    return {k[len("p/"):]: inp[k] for k in inp.files if k.startswith("p/")}
+
+
+def case_engine(mesh: Mesh, args: dict, inp) -> dict:
+    """``args["steps"]`` mesh train steps on this rank's rows of the
+    global batches; the losses, the final shards (params, mu, nu) and,
+    from every rank, the gathered params."""
+    eng = _engine(mesh, args)
+    state = eng.init_state(_tree(inp))
     losses, tokens = [], []
     for ids in inp["input_ids"]:
         batch = eng.place_batch(batch_rows({"input_ids": ids}, mesh))
@@ -76,6 +84,43 @@ def case_engine(mesh: Mesh, args: dict, inp) -> dict:
                     for k, v in tree.items()})
     out.update({f"full/{k}": v.numpy()
                 for k, v in eng.gather(state.params).items()})
+    return out
+
+
+def case_tp(mesh: Mesh, args: dict, inp) -> dict:
+    """The tp blocks: :func:`case_engine`'s steps and the block routes
+    they counted; ``sharding.gather_heads`` of a known ``c_attn`` kernel
+    and bias and the shard gradients of a cotangent of (rank + 1) times
+    the output; the raw gradients of one loss (before the sums over dp
+    and fsdp); and the collectives and sharding counts of one more step,
+    set to 0 just before it."""
+    from distributedtraining_tpu_torch.parallel import collectives, sharding
+    sharding.reset_counts()
+    out = case_engine(mesh, args, inp)
+    out.update({f"routes/{k}": v for k, v in sharding.counts.items()})
+    for name, spec in (("kernel", ("fsdp", "tp")), ("bias", ("tp",))):
+        key = f"h_0.c_attn.{name}"
+        shard = shard_params({key: inp[f"qkv/{name}"]}, mesh)[key]
+        shard.requires_grad_()
+        local = sharding.gather_heads(shard, mesh, spec)
+        local.backward((mesh.rank + 1) * local.detach())
+        out[f"heads/{name}"] = local.detach().numpy()
+        out[f"heads_grad/{name}"] = shard.grad.numpy()
+    eng = _engine(mesh, args)
+    batch = eng.place_batch(batch_rows({"input_ids": inp["input_ids"][0]},
+                                       mesh))
+    params = eng.place_params(_tree(inp))
+    loss, _ = eng._loss(params, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    out.update({f"grad/{k}": g.numpy() for k, g in zip(params, grads)})
+    state = eng.init_state(_tree(inp))
+    collectives.reset_counts()
+    sharding.reset_counts()
+    eng.train_step(state, batch)
+    for (op, backend, route), c in collectives.counts.items():
+        out.update({f"coll/{op}/{backend}/{route}/{k}": v
+                    for k, v in c.items()})
+    out.update({f"count/{k}": v for k, v in sharding.counts.items()})
     return out
 
 
@@ -270,7 +315,8 @@ def case_regather(mesh: Mesh, args: dict, inp) -> dict:
     return out
 
 
-CASES = {"ce": case_ce, "engine": case_engine, "miner": case_miner,
+CASES = {"ce": case_ce, "engine": case_engine, "tp": case_tp,
+         "miner": case_miner,
          "collectives": case_collectives, "pod": case_pod,
          "regather": case_regather}
 
