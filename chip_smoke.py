@@ -11,6 +11,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --parallel-cards
     python3 chip_smoke.py --tp-ab DIR [DIR ...]
     python3 chip_smoke.py --mesh-roles
+    python3 chip_smoke.py --sp
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
@@ -30,9 +31,10 @@ bound, at the verify, a 512-row suffix over 900 positions and a 64-row
 one over 512) and phase 21's traffic once through the server CLI, with
 the ttft and prefill ms of every request that hit the prefix cache.
 ``--serve6b`` runs phase 22 alone after the build,
-``--parallel`` phase 23 alone, ``--mesh-roles`` phase 24 alone, and
-``--parallel-cards`` the worlds of phases 23 and 24 over NCCL on every
-card of a machine with several. ``--tp-ab DIR...`` times phase 23's tp
+``--parallel`` phase 23 alone, ``--mesh-roles`` phase 24 alone, ``--sp``
+phase 25 alone, and ``--parallel-cards`` the worlds of phases 23 and 24
+over NCCL on every card of a machine with several (at world 4 with the
+sp2 x tp2 and dp2 x sp2 engines too). ``--tp-ab DIR...`` times phase 23's tp
 engine steps with the package of each checkout DIR in turn (parent,
 change, change, parent): tp 2 on two gloo ranks sharing the card, or
 fsdp 2 x tp 2 and tp 4 over NCCL on a machine of four cards or more.
@@ -436,14 +438,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
            rc 0 on both, one emission and one publish, rank 0's.
            ``--parallel-cards`` runs the phase's worlds over NCCL, one
            rank a card.
+25. sp     sequence parallelism, remat and mu_dtype, GPT-2-124M (bf16
+           compute, f32 weights from seed 0). (a) World 1 in this
+           process: three f32 steps of the engine on packed batches (B 2
+           x T 1024, the flash kernels) and of the ``attention_impl=
+           "ring"`` model on their ids alone (no mesh: dense attention),
+           and a timed bf16 step at B 4 x T 1024. (b) A world of 2 over
+           gloo, both ranks on the card (``--sp-worker``): the ring
+           (``ops/ring_attention.py``) on each rank's block of ``[2,
+           1024, 12, 64]`` against the dense plain attention of the whole
+           sequence, output and gradients (f32 rtol 2e-4 / atol 2e-5,
+           JAX's own; bf16 2e-2 of the max); the sp2 engine's three f32
+           steps on the packed batches (the gathered route: q, k, v
+           all-gathered over sp, the flash kernels on the whole
+           sequence) and the ring model's on the ids, each within 1e-4
+           relative of world 1's; timed bf16 steps at B 4 x T 1024 of
+           sp2 (both routes) and of tp2, each step's launches (12 of
+           each flash kernel a step on the gathered route, none on the
+           ring; 1 / 1 / 1 CE) and collectives (``_sp_step_want``)
+           exact; ``neurons.miner.main`` with ``--sp 2`` (B 8, T 1024,
+           3 steps: rc 0, one push from rank 0, the same exact counts,
+           the delta finite with a held-out score > 0) and with ``--dp 2
+           --dcn-dp 2`` (T 128: its ranks at ``--dp 2``'s coordinates).
+           (c) World 1 at the train shape (B 8 x T 1024, packed): f32
+           gradients with remat within 1e-6 of the max of those without
+           (bit-equality recorded), a bf16 step's peak card memory with
+           and without remat (the recomputed forward launches the flash
+           forward twice), the optimizer state ``2 x n_params`` bytes
+           smaller with every mu leaf bf16 under ``mu_dtype=
+           "bfloat16"``, and ``neurons.miner.main`` with ``--remat
+           --mu-dtype bfloat16`` (rc 0, one push).
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
 JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
 ``slice5`` JSON line (phase 20), a ``serve6`` JSON line (phase 21), a
 ``serve6b`` JSON line (phase 22), a ``parallel`` JSON line (phase 23),
-a ``mesh_roles`` JSON line (phase 24), the ``nvidia-smi`` name/power-limit
-line,
+a ``mesh_roles`` JSON line (phase 24), an ``sp`` JSON line (phase 25),
+the ``nvidia-smi`` name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -5669,11 +5701,21 @@ def _par_world_spec(n: int) -> dict:
         engine = {f"fsdp{n}": {"fsdp": n}, f"fsdp{h}xtp2": {"fsdp": h,
                                                           "tp": 2},
                   f"tp{n}": {"tp": n}}
+        if n == 4:    # phase 25's sp beside another axis, both routes
+            engine.update(sp2xtp2={"sp": 2, "tp": 2},
+                          dp2xsp2={"dp": 2, "sp": 2},
+                          dp2xsp2_ring={"dp": 2, "sp": 2, "impl": "ring"})
         cli = {f"fsdp{h}xtp2": ["--fsdp", str(h), "--tp", "2"],
                f"dp{n}": ["--dp", "0"]}
     return {"world": n, "ce": ce, "engine": engine,
             "collectives": {"fsdp": {"fsdp": n}, "tp": {"tp": n}},
             "cli": cli}
+
+
+def _par_mesh_kw(kw: dict) -> dict:
+    """An engine spec's mesh axes (its ``impl``, the attention route of
+    the model, left out)."""
+    return {k: v for k, v in kw.items() if k != "impl"}
 
 
 def _par_ce_case(B, T, dtype, seed, dev):
@@ -5789,7 +5831,8 @@ def _par_kernel_timing() -> dict:
 
 def _par_engine_losses(model_cfg, tree, batches, mesh, dev) -> list:
     """Losses of ``len(batches)`` fused-loss steps from ``tree`` (each
-    rank fed its rows of the global batches)."""
+    rank fed its rows and positions of the global batches: id arrays,
+    or dicts of a packed batch's arrays)."""
     from distributedtraining_tpu_torch.engine.train import TrainEngine
     from distributedtraining_tpu_torch.models import gpt2
     from distributedtraining_tpu_torch.parallel import batch_rows
@@ -5798,7 +5841,7 @@ def _par_engine_losses(model_cfg, tree, batches, mesh, dev) -> list:
     state = eng.init_state(tree)
     losses = []
     for ids in batches:
-        b = {"input_ids": ids}
+        b = ids if isinstance(ids, dict) else {"input_ids": ids}
         if mesh is not None and mesh.world_size > 1:
             b = batch_rows(b, mesh)
         state, m = eng.train_step(state, eng.place_batch(b))
@@ -5871,10 +5914,11 @@ def _par_kernel_ms(fn) -> dict | None:
             "top": {k[:72]: v for k, v in top}}
 
 
-def _par_engine_step(model_cfg, tree, mesh, dev, profile: bool = True
-                     ) -> dict:
+def _par_engine_step(model_cfg, tree, mesh, dev, profile: bool = True,
+                     batch: dict | None = None) -> dict:
     """Median host ms of a bf16 fused-loss step (synchronised) at global
-    B ``PAR_STEP_B``, T ``PAR_STEP_T``, after one untimed step; this
+    B ``PAR_STEP_B``, T ``PAR_STEP_T`` (or on the global ``batch``: this
+    rank's rows and positions of it), after one untimed step; this
     process's peak of allocated card memory above what it held before
     the engine's state (the state, a step's gathered parameters,
     activations and gradients); the launches, block routes
@@ -5898,7 +5942,7 @@ def _par_engine_step(model_cfg, tree, mesh, dev, profile: bool = True
     rng = np.random.default_rng(SEED)
     ids = rng.integers(0, model_cfg.vocab_size,
                        (PAR_STEP_B, PAR_STEP_T)).astype(np.int32)
-    b = {"input_ids": ids}
+    b = {"input_ids": ids} if batch is None else batch
     if mesh is not None and mesh.world_size > 1:
         b = batch_rows(b, mesh)
     b = eng.place_batch(b)
@@ -6064,9 +6108,11 @@ def _par_worker_collectives(dev, meshes: dict) -> dict:
     return out
 
 
-def _par_worker_cli(dev, flags: list, work: str) -> dict:
+def _par_worker_cli(dev, flags: list, work: str, *, b: int = PAR_CLI_B,
+                    t: int = PAR_CLI_T, steps: int = PAR_CLI_STEPS) -> dict:
     """(c) on this rank: ``neurons.miner.main`` on this world with the
-    mesh ``flags``; launch counts and block routes set to 0 just before
+    mesh ``flags`` (global batch ``b``, ``t`` positions, ``steps``
+    steps); launch counts and block routes set to 0 just before
     and read just after, the collectives of each train step; this rank's
     shards right after the pull against the base's slices."""
     import torch
@@ -6100,8 +6146,8 @@ def _par_worker_cli(dev, flags: list, work: str) -> dict:
         return out
 
     argv = (README_MINER_FLAGS + flags + [
-        "--work-dir", work, "--batch-size", str(PAR_CLI_B),
-        "--seq-len", str(PAR_CLI_T), "--max-steps", str(PAR_CLI_STEPS)])
+        "--work-dir", work, "--batch-size", str(b), "--seq-len", str(t),
+        "--max-steps", str(steps)])
     ttrain.MinerLoop.bootstrap = watched
     ttrain.TrainEngine.train_step = counted
     try:
@@ -6165,13 +6211,14 @@ def parallel_worker(rank: int, port: int, tmp: str) -> int:
         f32 = dataclasses.replace(gpt2.PRESETS[PAR_MODEL], dtype="float32")
         out["engine"] = {}
         for name, kw in world["engine"].items():
-            mesh = Mesh(MeshConfig(**kw))
+            mesh = Mesh(MeshConfig(**_par_mesh_kw(kw)))
+            impl = {"attention_impl": kw.get("impl", "flash")}
             out["engine"][name] = {
-                "f32_losses": _par_engine_losses(f32, tree,
-                                                 _par_f32_batches(), mesh,
-                                                 dev),
-                **_par_engine_step(gpt2.PRESETS[PAR_MODEL], tree, mesh,
-                                   dev)}
+                "f32_losses": _par_engine_losses(
+                    dataclasses.replace(f32, **impl), tree,
+                    _par_f32_batches(), mesh, dev),
+                **_par_engine_step(dataclasses.replace(
+                    gpt2.PRESETS[PAR_MODEL], **impl), tree, mesh, dev)}
         del tree
         out["cli"] = {name: _par_worker_cli(dev, world["cli"][name], work)
                       for name, work in spec["cli_work"].items()}
@@ -6385,9 +6432,12 @@ def _par_run_world(n: int, backend: str, tree, tok, f32_world1: list
                                f"{run['f32_losses']} vs world 1 "
                                f"{f32_world1}: {rel} relative")
             steps = len(run["step_collectives"])
+            want = _train_want(gpt2.PRESETS[PAR_MODEL], steps, fused=True)
+            if kw.get("impl") == "ring":      # the ring runs no flash kernel
+                want = {k: (0 if k.startswith("flash") else v)
+                        for k, v in want.items()}
             _check_launches(f"{what} engine {name} rank {r}",
-                            run["step_launches"], _train_want(
-                                gpt2.PRESETS[PAR_MODEL], steps, fused=True))
+                            run["step_launches"], want)
             _par_check_tp(f"{what} engine {name} rank {r}",
                           {"dp": 1, "fsdp": 1, "tp": 1, **kw},
                           run["tp_route"], run["step_routes"],
@@ -6423,7 +6473,7 @@ def _par_check_tp(what: str, mesh: dict, route, routes: dict, colls: list,
     got = {k: routes[k] for k in want}
     check(got == want, f"{what}: block routes {got} != {want}")
     if route == "head_split" and mesh.get("dp", 1) * mesh.get("fsdp", 1) \
-            == 1:
+            * mesh.get("sp", 1) == 1:
         want_c = _par_tp_step_want(cfg, rows)
         for i, c in enumerate(colls):
             check(c == want_c, f"{what}: step {i} collectives {c} != "
@@ -7028,6 +7078,481 @@ def phase_mesh_roles(tree, tok, n: int = 2, backend: str = "gloo") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: sequence parallelism, remat and mu_dtype
+# ---------------------------------------------------------------------------
+
+SP_T = 1024
+SP_F32_B, SP_F32_STEPS = 2, 3
+SP_STEP_B = 4
+SP_CLI_B, SP_CLI_STEPS = 8, 3
+SP_DCN_T = 128
+# the ring against the dense plain attention: JAX's own f32 tolerance
+# (tests/test_ring_attention.py), and bf16 over the largest value
+SP_RING_TOL = {"float32": (2e-4, 2e-5), "bfloat16": 2e-2}
+SP_REMAT_TOL = 1e-6      # f32 gradients with remat, relative to the max
+SP_BATCHES = ("f32_packed", "step_packed", "f32_plain", "step_plain")
+
+
+def _sp_n_params(tree) -> int:
+    return sum(int(v.size) for v in _leaves(tree))
+
+
+def _sp_step_want(cfg, rows: int, route: str, n_params: int) -> dict:
+    """``{op: [calls, bytes]}`` of one fused-loss step without a clip on a
+    mesh of sp 2 alone, a rank's ``rows`` rows of ``SP_T`` positions.
+    No parameter is split, so nothing is gathered. The gathered route:
+    each block all-gathers its stacked q|k|v ``[rows, T/2, 3, E]`` over
+    sp (the output's bytes, the compute dtype) and reduce-scatters its
+    cotangent (the input's bytes). The ring: each block passes the
+    stacked K|V ``[2, rows, T/2, E]`` once (sp - 1 steps) and its
+    cotangent back once. Both: the CE's two f32 totals and one f32
+    all-reduce of every gradient over sp."""
+    import torch
+    L, E = cfg.n_layer, cfg.n_embd
+    act = torch.empty((), dtype=cfg.compute_dtype()).element_size()
+    sums = {"all_reduce": [3, 8 + 4 * n_params]}
+    if route == "gathered":
+        qkv = act * rows * SP_T * 3 * E
+        return {"all_gather": [L, L * qkv], "reduce_scatter": [L, L * qkv],
+                **sums}
+    kv = act * 2 * rows * (SP_T // 2) * E
+    return {"ring_pass": [2 * L, 2 * L * kv], **sums}
+
+
+def _sp_ring_check(dev, mesh) -> dict:
+    """``ops.ring_attention`` on this rank's block of q, k, v ``[2, T, 12,
+    64]`` (drawn on the host from the seed, the same on every rank), its
+    output and the gradients of a cotangent, against the dense plain
+    attention of the whole sequence (``dot_product_attention`` with the
+    causal mask, autograd) at this rank's block: f32 within JAX's
+    tolerance, bf16 within ``SP_RING_TOL`` of the largest value."""
+    import torch
+    from distributedtraining_tpu_torch.ops.attention import (
+        dot_product_attention, make_causal_mask)
+    from distributedtraining_tpu_torch.ops.ring_attention import \
+        ring_attention
+    B, H, D = SP_F32_B, 12, 64
+    n, i = mesh.size("sp"), mesh.index("sp")
+    per = SP_T // n
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(SEED + 25)
+        full = [torch.randn((B, SP_T, H, D), generator=gen).to(dev, dt)
+                for _ in range(4)]
+        mine = [x[:, i * per:(i + 1) * per].clone().requires_grad_()
+                for x in full[:3]]
+        o = ring_attention(*mine, mesh=mesh)
+        o.backward(full[3][:, i * per:(i + 1) * per])
+        ref_in = [x.clone().requires_grad_() for x in full[:3]]
+        mask = make_causal_mask(SP_T, device=dev)[None, None]
+        ref = dot_product_attention(*ref_in, mask)
+        ref.backward(full[3])
+        pairs = {"o": (o, ref)}
+        for name, a, b in zip(("dq", "dk", "dv"), mine, ref_in):
+            pairs[name] = (a.grad, b.grad)
+        errs = {}
+        for name, (a, b) in pairs.items():
+            b = b[:, i * per:(i + 1) * per] if b.shape[1] == SP_T else b
+            a, b = a.detach().float(), b.detach().float()
+            diff = (a - b).abs()
+            if dt == torch.float32:
+                rtol, atol = SP_RING_TOL["float32"]
+                errs[name] = float((diff - rtol * b.abs()).max())
+                check(errs[name] <= atol,
+                      f"ring f32 {name}: |ring - dense| - {rtol} |dense| "
+                      f"= {errs[name]} > {atol}")
+            else:
+                errs[name] = float(diff.max() / b.abs().max())
+                check(errs[name] <= SP_RING_TOL["bfloat16"],
+                      f"ring bf16 {name}: {errs[name]} of the max > "
+                      f"{SP_RING_TOL['bfloat16']}")
+        out[str(dt).split(".")[1]] = errs
+    return out
+
+
+def _sp_arrays(tmp: str) -> dict:
+    """The global batches of the phase, as the main process wrote them:
+    ``{name: [batch dict, ...]}``."""
+    import numpy as np
+    data = np.load(os.path.join(tmp, "sp_batches.npz"))
+    out: dict = {}
+    for key in data.files:
+        name, i, field = key.split("/")
+        while len(out.setdefault(name, [])) <= int(i):
+            out[name].append({})
+        out[name][int(i)][field] = data[key]
+    return out
+
+
+def sp_worker(rank: int, port: int, tmp: str) -> int:
+    """One rank of phase 25's world of two (``--sp-worker``): the ring
+    checks, the f32 losses of the gathered and the ring sp2 engines, the
+    timed bf16 steps of sp2 (both routes) and tp2 at B 4 x T 1024, then
+    the ``--sp 2`` and ``--dp 2 --dcn-dp 2`` miner CLIs; its results in
+    ``tmp/out_<rank>.json``. Any failed collective, kernel or check
+    raises, and the process exits non-zero."""
+    import torch
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.parallel import (Mesh, MeshConfig,
+                                                        multihost)
+    sys.path.insert(0, ROOT)
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    dev = DEV
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, device=dev,
+                         backend=spec["backend"], timeout_s=PAR_TIMEOUT_S)
+    import torch.distributed as dist
+    out = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        batches = _sp_arrays(tmp)
+        sp2 = Mesh(MeshConfig(sp=2))
+        out["ring_check"] = _sp_ring_check(dev, sp2)
+        tree = flatten_tree(gpt2.init_params_numpy(
+            gpt2.PRESETS[PAR_MODEL], SEED))
+        cfg = gpt2.PRESETS[PAR_MODEL]
+        ring = dataclasses.replace(cfg, attention_impl="ring")
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        f32_ring = dataclasses.replace(ring, dtype="float32")
+        out["f32_losses"] = {
+            "gathered": _par_engine_losses(f32, tree,
+                                           batches["f32_packed"], sp2, dev),
+            "ring": _par_engine_losses(f32_ring, tree, batches["f32_plain"],
+                                       sp2, dev)}
+        tp2 = Mesh(MeshConfig(tp=2))
+        out["step"] = {
+            name: _par_engine_step(c, tree, m, dev, profile=False,
+                                   batch=batches[b][0])
+            for name, c, m, b in (("sp2", cfg, sp2, "step_packed"),
+                                  ("sp2_ring", ring, sp2, "step_plain"),
+                                  ("tp2", cfg, tp2, "step_packed"))}
+        del tree
+        out["cli"] = {
+            name: _par_worker_cli(dev, flags, spec["cli_work"][name],
+                                  b=SP_CLI_B, t=t, steps=SP_CLI_STEPS)
+            for name, flags, t in (
+                ("sp2", ["--sp", "2"], SP_T),
+                ("dcn", ["--dp", "2", "--dcn-dp", "2"], SP_DCN_T))}
+    finally:
+        multihost.shutdown()
+    return _par_worker_done(tmp, rank, out)
+
+
+def _sp_check_run(what: str, run: dict, route: str, rows: int, steps: int,
+                  n_params: int) -> None:
+    """A world-2 sp2 run's launches (12 a step of each flash kernel on
+    the gathered route, none on the ring; one of each CE kernel) and
+    every step's collectives, exactly."""
+    from distributedtraining_tpu_torch.models import gpt2
+    cfg = gpt2.PRESETS[PAR_MODEL]
+    want = _train_want(cfg, steps, fused=True)
+    if route == "ring":
+        want = {k: (0 if k.startswith("flash") else v)
+                for k, v in want.items()}
+    _check_launches(what, run["launches"], want)
+    want_c = _sp_step_want(cfg, rows, route, n_params)
+    for i, c in enumerate(run["collectives"]):
+        check(c == want_c, f"{what}: step {i} collectives {c} != {want_c}")
+
+
+def _sp_world1(tree, batches: dict) -> dict:
+    """World 1 in this process: the f32 losses of the engine on the
+    packed batches (flash) and of the ring model on the unpacked ones
+    (no mesh: dense attention), and a timed bf16 step at B 4 x T 1024."""
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.models import gpt2
+    flat = flatten_tree(tree)
+    cfg = gpt2.PRESETS[PAR_MODEL]
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    return {"f32_losses": {
+        "gathered": _par_engine_losses(f32, flat, batches["f32_packed"],
+                                       None, DEV),
+        "ring": _par_engine_losses(dataclasses.replace(
+            f32, attention_impl="ring"), flat, batches["f32_plain"], None,
+            DEV)},
+        "step": _par_engine_step(cfg, flat, None, DEV, profile=False,
+                                 batch=batches["step_packed"][0])}
+
+
+def _sp_world2(tree, tok, batches: dict, w1: dict) -> dict:
+    """The world of two over gloo, both ranks on this card
+    (``--sp-worker``), checked against world 1 and the exact counts."""
+    import tempfile
+
+    import numpy as np
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    what = "phase 25 world 2 (gloo)"
+    n_params = _sp_n_params(tree)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "sp_batches.npz"), **{
+            f"{name}/{i}/{k}": v for name, bs in batches.items()
+            for i, b in enumerate(bs) for k, v in b.items()})
+        cli_work = {}
+        for name in ("sp2", "dcn"):
+            work = os.path.join(tmp, f"cli_{name}")
+            LocalFSTransport(os.path.join(work, "artifacts")).publish_base(
+                tree)
+            cli_work[name] = work
+        outs = _par_spawn(2, "gloo", {"backend": "gloo",
+                                      "cli_work": cli_work}, tmp, what,
+                          mode="--sp-worker")
+        res = {"backend": [o["backend"] for o in outs],
+               "ring_check": [o["ring_check"] for o in outs]}
+        for route in ("gathered", "ring"):
+            for r, o in enumerate(outs):
+                got, ref = o["f32_losses"][route], w1["f32_losses"][route]
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+                check(rel <= 1e-4, f"{what} f32 {route} rank {r}: losses "
+                                   f"{got} vs world 1 {ref}: {rel}")
+            res[f"f32_{route}"] = {
+                "losses": [o["f32_losses"][route] for o in outs],
+                "world1": w1["f32_losses"][route],
+                "max_rel": max(abs(a - b) / abs(b) for o in outs
+                               for a, b in zip(o["f32_losses"][route],
+                                               w1["f32_losses"][route]))}
+        steps = {}
+        for name in ("sp2", "sp2_ring", "tp2"):
+            runs = [o["step"][name] for o in outs]
+            for r, run in enumerate(runs):
+                n = len(run["step_collectives"])
+                if name == "tp2":
+                    _check_launches(f"{what} {name} rank {r}",
+                                    run["step_launches"], _train_want(
+                                        _par_cfg(), n, fused=True))
+                else:
+                    _sp_check_run(
+                        f"{what} {name} rank {r}",
+                        {"launches": run["step_launches"],
+                         "collectives": run["step_collectives"]},
+                        "ring" if name.endswith("ring") else "gathered",
+                        SP_STEP_B, n, n_params)
+            steps[name] = {
+                "step_ms": [x["step_ms"] for x in runs],
+                "step_peak_bytes": [x["step_peak_bytes"] for x in runs],
+                "step_collectives": runs[0]["step_collectives"][-1],
+                "step_launches": runs[0]["step_launches"]}
+        res["step"] = steps
+        cli = {}
+        for name, work in cli_work.items():
+            runs = [o["cli"][name] for o in outs]
+            for r, run in enumerate(runs):
+                check(run["rc"] == 0 and run["steps"] == SP_CLI_STEPS,
+                      f"{what} CLI {name} rank {r}: rc {run['rc']}, steps "
+                      f"{run['steps']}")
+                check(run["boot_bit_equal"], f"{what} CLI {name} rank {r}: "
+                      f"shards after the pull differ from the base's")
+                if name == "sp2":
+                    _sp_check_run(f"{what} CLI sp2 rank {r}",
+                                  {"launches": run["launches"],
+                                   "collectives": run["step_collectives"]},
+                                  "gathered", SP_CLI_B, run["steps"],
+                                  n_params)
+                else:
+                    _check_launches(f"{what} CLI {name} rank {r}",
+                                    run["launches"], _train_want(
+                                        _par_cfg(), run["steps"],
+                                        fused=True))
+            check(runs[0]["pushes"] == 1 and runs[0]["pushes_failed"] == 0
+                  and runs[1]["pushes"] == 0,
+                  f"{what} CLI {name}: pushes {[x['pushes'] for x in runs]}"
+                  f" (one, from the coordinator)")
+            if name == "dcn":
+                from distributedtraining_tpu_torch.parallel.mesh import (
+                    MeshConfig, rank_coords)
+                want = [rank_coords(r, MeshConfig(dp=2)) for r in range(2)]
+                check([x["coords"] for x in runs] == want,
+                      f"{what} CLI dcn: coordinates "
+                      f"{[x['coords'] for x in runs]} != --dp 2's {want}")
+            cli[name] = {"argv": runs[0]["argv"],
+                         "s": [x["s"] for x in runs],
+                         "pushes": [x["pushes"] for x in runs],
+                         "launches": [x["launches"] for x in runs],
+                         "step_collectives": runs[0]["step_collectives"][-1],
+                         "mesh": runs[0]["mesh"],
+                         "coords": [x["coords"] for x in runs],
+                         **_par_score(tree, tok, work)}
+        res["cli"] = cli
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def _par_cfg():
+    """The mesh phases' model configuration (``PAR_MODEL``)."""
+    from distributedtraining_tpu_torch.models import gpt2
+    return gpt2.PRESETS[PAR_MODEL]
+
+
+def _sp_remat_mu(tree, batch: dict) -> dict:
+    """World 1: f32 gradients of one loss with and without remat at the
+    train shape (B 8 x T 1024, packed), the peak card memory of a timed
+    bf16 step with and without remat, and the optimizer state's bytes
+    and dtypes with ``mu_dtype="bfloat16"``."""
+    import torch
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.engine.train import (
+        TrainEngine, default_optimizer)
+    from distributedtraining_tpu_torch.models import gpt2
+    flat = flatten_tree(tree)
+    cfg = gpt2.PRESETS[PAR_MODEL]
+    grads = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, dtype="float32", remat=remat)
+        eng = TrainEngine(gpt2.make_model(c)[0], fused_loss=True, device=DEV)
+        params = eng.place_params(flat)
+        loss, _ = eng._loss(params, eng.place_batch(batch))
+        grads[remat] = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        del eng, params, loss
+        torch.cuda.empty_cache()
+    rel = max(float((grads[True][k] - g).abs().max()
+                    / g.abs().max().clamp(min=1e-30))
+              for k, g in grads[False].items())
+    bit_equal = all(torch.equal(grads[True][k], g)
+                    for k, g in grads[False].items())
+    del grads
+    torch.cuda.empty_cache()
+    check(rel <= SP_REMAT_TOL, f"remat f32 gradients differ by {rel} of "
+                               f"the max > {SP_REMAT_TOL}")
+    steps = {name: _par_engine_step(dataclasses.replace(cfg, remat=remat),
+                                    flat, None, DEV, profile=False,
+                                    batch=batch)
+             for name, remat in (("plain", False), ("remat", True))}
+    for name, run in steps.items():
+        want = _train_want(cfg, len(run["step_collectives"]), fused=True)
+        if name == "remat":   # the recomputed forward launches again
+            want["flash_attention_fwd"] *= 2
+        _check_launches(f"bf16 step {name}", run["step_launches"], want)
+    state_bytes = {}
+    for mu_dtype in (None, "bfloat16"):
+        eng = TrainEngine(gpt2.make_model(cfg)[0], device=DEV,
+                          optimizer=default_optimizer(mu_dtype=mu_dtype))
+        opt = eng.init_state(flat).opt_state
+        dtypes = sorted({str(v.dtype) for v in opt.mu.values()})
+        state_bytes[str(mu_dtype)] = {
+            "mu_dtypes": dtypes,
+            "bytes": sum(v.numel() * v.element_size()
+                         for tr in (opt.mu, opt.nu) for v in tr.values())}
+        del eng, opt
+        torch.cuda.empty_cache()
+    n_params = _sp_n_params(tree)
+    saved = state_bytes["None"]["bytes"] - state_bytes["bfloat16"]["bytes"]
+    check(state_bytes["bfloat16"]["mu_dtypes"] == ["torch.bfloat16"]
+          and saved == 2 * n_params,
+          f"mu_dtype bfloat16: mu dtypes "
+          f"{state_bytes['bfloat16']['mu_dtypes']}, {saved} bytes saved "
+          f"!= 2 x {n_params}")
+    return {"grads_max_rel": rel, "grads_bit_equal": bit_equal,
+            "step": {k: {"step_ms": v["step_ms"],
+                         "step_peak_bytes": v["step_peak_bytes"],
+                         "step_launches": v["step_launches"]}
+                     for k, v in steps.items()},
+            "remat_peak_saved_bytes": (steps["plain"]["step_peak_bytes"]
+                                       - steps["remat"]["step_peak_bytes"]),
+            "opt_state": state_bytes, "mu_bytes_saved": saved,
+            "n_params": n_params}
+
+
+def _sp_cli_world1(tree) -> dict:
+    """``neurons.miner.main`` at world 1 with ``--remat --mu-dtype
+    bfloat16`` (B 8 x T 1024, 3 steps): rc 0, one push, the launches
+    (the recomputed forward launches the flash forward again)."""
+    import tempfile
+
+    import torch
+    from distributedtraining_tpu_torch.engine import train as ttrain
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    seen = {}
+    bootstrap = ttrain.MinerLoop.bootstrap
+
+    def watched(loop, *a, **kw):
+        bootstrap(loop, *a, **kw)
+        seen["loop"] = loop
+
+    with tempfile.TemporaryDirectory() as work:
+        LocalFSTransport(os.path.join(work, "artifacts")).publish_base(tree)
+        argv = README_MINER_FLAGS + [
+            "--remat", "--mu-dtype", "bfloat16", "--work-dir", work,
+            "--batch-size", str(SP_CLI_B), "--seq-len", str(SP_T),
+            "--max-steps", str(SP_CLI_STEPS)]
+        ttrain.MinerLoop.bootstrap = watched
+        try:
+            _zero_counts()
+            t0 = time.perf_counter()
+            rc = miner_cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            ttrain.MinerLoop.bootstrap = bootstrap
+        launches = {**fa.launches, **fused_ce.launches}
+        loop = seen["loop"]
+        mu = sorted({str(v.dtype) for v in loop.state.opt_state.mu.values()})
+        res = {"argv": argv, "rc": rc, "s": secs, "pushes": loop.report.pushes,
+               "steps": loop.report.steps, "launches": launches,
+               "remat": loop.engine.model.cfg.remat, "mu_dtypes": mu}
+    want = _train_want(_par_cfg(), res["steps"], fused=True)
+    want["flash_attention_fwd"] *= 2
+    check(rc == 0 and res["pushes"] == 1 and res["remat"]
+          and mu == ["torch.bfloat16"],
+          f"--remat --mu-dtype bfloat16 CLI: rc {rc}, pushes "
+          f"{res['pushes']}, remat {res['remat']}, mu {mu}")
+    _check_launches("--remat --mu-dtype bfloat16 CLI", launches, want)
+    return res
+
+
+def phase_sp(tree, tok) -> dict:
+    """Phase 25 (see the module docstring): world 1 in this process, the
+    world of two over gloo on this card, then remat and mu_dtype at
+    world 1."""
+    import torch
+    t0 = time.perf_counter()
+    packed = _batches(tok, split="train", batch_size=SP_STEP_B,
+                      seq_len=SP_T, n=SP_F32_STEPS)
+    batches = {
+        "f32_packed": [{k: v[:SP_F32_B] for k, v in b.items()}
+                       for b in packed],
+        "step_packed": packed[:1],
+        "f32_plain": [{"input_ids": b["input_ids"][:SP_F32_B]}
+                      for b in packed],
+        "step_plain": [{"input_ids": packed[0]["input_ids"]}]}
+    res = {"world1": _sp_world1(tree, batches)}
+    torch.cuda.empty_cache()
+    res["world2"] = _sp_world2(tree, tok, batches, res["world1"])
+    torch.cuda.empty_cache()
+    remat_batch = _batches(tok, split="train", batch_size=TRAIN_B,
+                           seq_len=TRAIN_T, n=1)[0]
+    res["remat_mu"] = _sp_remat_mu(tree, remat_batch)
+    res["cli_remat_mu"] = _sp_cli_world1(tree)
+    res["s"] = time.perf_counter() - t0
+    log("sp:", json.dumps(res))
+    return res
+
+
+def sp_only() -> int:
+    """Phase 25 alone after the build (``--sp``): the ``sp`` line, the
+    card's line and the result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributedtraining_tpu_torch.models import gpt2
+    phase_build()
+    tok = _tokenizer()
+    tree = gpt2.init_params_numpy(gpt2.PRESETS["gpt2-124m"], SEED)
+    res = phase_sp(tree, tok)
+    print(json.dumps({"sp": {**res, "card": card}}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -7226,6 +7751,18 @@ def _ce_entries(ce: dict, miner: dict, tfused: dict, build: dict,
     return out
 
 
+def _with_sp_launches(entries: list, launches: dict) -> list:
+    """The kernels line's entries, each flash and CE kernel with its
+    launches in phase 25's ``--sp 2`` CLI (rank 0) as
+    ``launches_sp``."""
+    for e in entries:
+        counter = "fused_ce_bwd_dh" if e["name"] == "fused_ce_bwd" \
+            else e["name"]
+        if counter in launches:
+            e["launches_sp"] = launches[counter]
+    return entries
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
@@ -7273,9 +7810,10 @@ def main() -> int:
     serve6b["s"] = time.perf_counter() - t0
     par = phase_parallel(tree, tok)
     mesh_roles = phase_mesh_roles(tree, tok)
+    sp = phase_sp(tree, tok)
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
-    print(json.dumps({"kernels": [{
+    print(json.dumps({"kernels": _with_sp_launches([{
         "name": "paged_decode_attention",
         "route": "cuda",
         "source": "distributedtraining_tpu_torch/csrc/paged_attention.cu",
@@ -7307,8 +7845,8 @@ def main() -> int:
                         s6b, serve6b["genetic"]["launches"]),
         *_ce_entries(ce, miner, tfused, build, defaults, slice5),
         _sharded_entry(par),
-        _scatter_entry(scatter, avg, build, defaults, slice5)]}),
-        flush=True)
+        _scatter_entry(scatter, avg, build, defaults, slice5)],
+        sp["world2"]["cli"]["sp2"]["launches"][0])}), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -7335,6 +7873,9 @@ def main() -> int:
     print(json.dumps({"mesh_roles": {**mesh_roles, "card": card,
                                      "total_s": time.perf_counter()
                                      - t_start}}), flush=True)
+    print(json.dumps({"sp": {**sp, "card": card,
+                             "total_s": time.perf_counter() - t_start}}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7661,6 +8202,11 @@ if __name__ == "__main__":
                                      sys.argv[4]))
         if sys.argv[1:2] == ["--parallel"]:
             sys.exit(parallel_only())
+        if sys.argv[1:2] == ["--sp"]:
+            sys.exit(sp_only())
+        if sys.argv[1:2] == ["--sp-worker"]:
+            sys.exit(sp_worker(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4]))
         if sys.argv[1:2] == ["--tp-ab"]:
             sys.exit(tp_ab(sys.argv[2:]))
         if sys.argv[1:2] == ["--tp-ab-worker"]:

@@ -60,9 +60,14 @@ class Snapshot:
     lifetime_steps: int | None = None  # monotonic across base pulls
 
 
-def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
-        else np.asarray(t)
+def _host(t):
+    """A leaf as the file holds it: a numpy array, or a CPU tensor for
+    bf16 (an optimizer's ``mu_dtype`` moment), which the codec writes as
+    flax does."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
 def _tree(snapshot: Snapshot) -> dict:

@@ -201,19 +201,14 @@ class RunConfig:
              f"--chain {self.chain} (the bittensor chain needs the "
              f"network)", 7),
             (self.lora_rank > 0, "--lora-rank > 0", 7),
-            (m.sp > 1, "--sp > 1 (sequence parallelism: ring attention)",
-             7),
-            (m.dcn_dp > 1, "--dcn-dp > 1 (a multi-slice mesh)", 7),
             (self.role not in MESH_ROLES and (
-                m.auto or max(m.fsdp, m.tp, m.dp) > 1
+                m.auto or max(m.fsdp, m.sp, m.tp, m.dp, m.dcn_dp) > 1
                 or self.multihost_coordinator is not None
                 or self.multihost_processes is not None),
-             f"a mesh for the {self.role} (--dp/--fsdp/--tp/--mesh-auto, "
-             f"--multihost-*; the miner, validator and averager take "
-             f"them)", 7),
+             f"a mesh for the {self.role} (--dp/--fsdp/--sp/--tp/"
+             f"--dcn-dp/--mesh-auto, --multihost-*; the miner, validator "
+             f"and averager take them)", 7),
             (self.scan_blocks, "--scan-blocks", 7),
-            (bool(self.remat), "--remat", 7),
-            (self.mu_dtype is not None, f"--mu-dtype {self.mu_dtype}", 7),
             (self.role != "miner" and self.remediate, "--remediate", 7),
             (self.init_from is not None, "--init-from", 7),
             (self.heartbeat_interval > 0, "--heartbeat-interval > 0", 7),

@@ -19,8 +19,9 @@ takes the loss from the hidden states through the fused CE kernels
 (``ops/fused_ce.py``), so the ``[B, T, V]`` logits never exist.
 
 The optimizer is AdamW computed exactly as ``optax.adamw`` computes it
-(``optax.chain(clip_by_global_norm, adamw)`` with ``grad_clip``), and its
-state carries across from optax's with :func:`opt_state_from_numpy`.
+(``optax.chain(clip_by_global_norm, adamw)`` with ``grad_clip``, and
+``mu_dtype="bfloat16"``'s first moment stored in bf16), and its state
+carries across from optax's with :func:`opt_state_from_numpy`.
 
 :class:`MinerLoop` is the miner's round on one host: bootstrap from the
 published base, train, pull new bases on a cadence (resetting the
@@ -52,14 +53,22 @@ LayerNorms, ``wpe``, the output biases, a gathered attention half)
 reaches the same gradient on every tp peer, since copy_to's backward
 completes the residual's cotangent. So the sums over dp and fsdp, and
 the clip's sum of squares over each leaf's split axes, are unchanged.
+On an sp mesh each rank holds its positions of each row
+(``sharding.batch_columns``: the targets shifted on the whole row, the
+attention's masks whole): the blocks attend over sp by the ring or the
+gathered route (``ops.attention.causal_attention``), the loss totals
+sum over sp, and every gradient is summed over sp as over dp (its
+parameters are replicated there), each sp replica counted once in the
+clip's sum of squares. With the model's ``remat`` each block of the
+training forward is recomputed in the backward, its parameters gathered
+again inside the recomputation on a mesh.
 The miner's round on a mesh follows the JAX pod rules: the coordinator
 reads the transport and
 broadcasts what it read, every rank re-shards, cadence decisions and the
 guards' verdicts are the coordinator's, and the coordinator alone
 publishes a delta gathered from every rank's shards and writes
-checkpoints of the gathered state. Not ported yet, and refused:
-``mu_dtype``, the model's dropout and remat, sequence parallelism and
-heartbeats (ROADMAP "Slices of the port").
+checkpoints of the gathered state. Not ported yet, and refused: the
+model's dropout and heartbeats (ROADMAP "Slices of the port").
 """
 
 from __future__ import annotations
@@ -77,8 +86,8 @@ import torch
 from .. import delta as delta_lib
 from ..models.gpt2 import (init_params_numpy, params_from_numpy,
                            params_to_numpy, resolve_device)
-from ..ops.losses import (causal_lm_loss, causal_lm_totals,
-                          fused_linear_cross_entropy)
+from ..ops.losses import (causal_lm_loss, fused_linear_cross_entropy,
+                          lm_totals)
 from ..utils import obs
 from .basedist import fetch_base
 from .scheduler import Clock, PeriodicAction, RealClock
@@ -112,21 +121,30 @@ class AdamW:
     (``torch.optim.AdamW`` multiplies p by ``1 - lr wd`` first: the same
     function, other rounding.) The clip is optax's: with
     ``n = sqrt(sum of g^2)``, leaves become ``g / n * max_norm`` unless
-    ``n < max_norm`` (``clip_grad_norm_`` adds 1e-6 to n)."""
+    ``n < max_norm`` (``clip_grad_norm_`` adds 1e-6 to n).
+
+    ``mu_dtype`` (``torch.bfloat16``) stores the first moment in that
+    dtype, in optax's order: ``b1 mu`` in the stored dtype (a Python
+    scalar does not promote, so ``b1`` is rounded to it first), added to
+    ``(1 - b1) g`` in f32, the bias correction and the update from that
+    f32 moment, and the moment rounded to the stored dtype last."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, learning_rate: float = 5e-4, *,
                  weight_decay: float = 0.01,
-                 grad_clip: float | None = None):
+                 grad_clip: float | None = None,
+                 mu_dtype: torch.dtype | None = None):
         self.lr = learning_rate
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
+        self.mu_dtype = mu_dtype
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
-        zeros = lambda: {k: torch.zeros_like(v, requires_grad=False)  # noqa
-                         for k, v in params.items()}
-        return AdamWState(count=0, mu=zeros(), nu=zeros())
+        def zeros(dtype=None):
+            return {k: torch.zeros_like(v, dtype=dtype, requires_grad=False)
+                    for k, v in params.items()}
+        return AdamWState(count=0, mu=zeros(self.mu_dtype), nu=zeros())
 
     def _clip(self, keys: list[str], grads: list[torch.Tensor],
               sq_sum: Callable | None) -> list[torch.Tensor]:
@@ -152,8 +170,14 @@ class AdamW:
         mu = [state.mu[k] for k in keys]
         nu = [state.nu[k] for k in keys]
         p = [params[k] for k in keys]
-        torch._foreach_mul_(mu, self.B1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.B1)
+        if self.mu_dtype is None:
+            torch._foreach_mul_(mu, self.B1)
+            torch._foreach_add_(mu, g, alpha=1.0 - self.B1)
+            mu_f = mu
+        else:
+            b1 = float(torch.tensor(self.B1, dtype=self.mu_dtype))
+            mu_f = torch._foreach_mul(g, 1.0 - self.B1)
+            torch._foreach_add_(mu_f, [(m * b1).float() for m in mu])
         torch._foreach_mul_(nu, self.B2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.B2)
         state.count += 1
@@ -163,9 +187,11 @@ class AdamW:
         bc2 = float(np.float32(1.0) - np.float32(self.B2) ** t)
         denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
         torch._foreach_add_(denom, self.EPS)
-        upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        upd = torch._foreach_div(torch._foreach_div(mu_f, bc1), denom)
         torch._foreach_add_(upd, p, alpha=self.weight_decay)
         torch._foreach_add_(p, upd, alpha=-self.lr)
+        if mu_f is not mu:
+            torch._foreach_copy_(mu, mu_f)
 
 
 def default_optimizer(learning_rate: float = 5e-4, *,
@@ -174,14 +200,18 @@ def default_optimizer(learning_rate: float = 5e-4, *,
                       mu_dtype: str | None = None) -> AdamW:
     """AdamW @ 5e-4, weight decay 0.01 by default: the JAX package's
     ``optax.adamw(learning_rate, weight_decay=weight_decay)``;
-    ``grad_clip`` chains optax's global-norm clip before it. The miner's
-    ``--learning-rate``, ``--weight-decay`` and ``--grad-clip``."""
-    if mu_dtype is not None:
-        raise NotImplementedError(
-            f"mu_dtype={mu_dtype!r} (a low-precision first moment) is not "
-            f"ported: {_SLICES}, slice 7 (the 7B/8B configurations)")
+    ``grad_clip`` chains optax's global-norm clip before it;
+    ``mu_dtype`` (``"bfloat16"``) stores the first moment in that dtype,
+    as ``optax.adamw(mu_dtype=...)`` does (what lets the 7B/8B
+    configurations keep params and AdamW resident). The miner's
+    ``--learning-rate``, ``--weight-decay``, ``--grad-clip`` and
+    ``--mu-dtype``."""
+    dtypes = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+    if mu_dtype not in dtypes:
+        raise ValueError(f"mu_dtype={mu_dtype!r}: expected None, "
+                         f"'float32' or 'bfloat16'")
     return AdamW(learning_rate, weight_decay=weight_decay,
-                 grad_clip=grad_clip)
+                 grad_clip=grad_clip, mu_dtype=dtypes[mu_dtype])
 
 
 def opt_state_from_numpy(tree: Mapping[str, Any], *, device="cuda"
@@ -265,50 +295,86 @@ def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
     reads it. Kernels are gathered into the compute dtype the model
     casts them to. On a tp mesh each block computes its share of heads
     and MLP columns by ``route`` (``sharding.tp_block_route``), counted
-    in ``sharding.counts``."""
-    from ..models.gpt2 import embed_tokens
+    in ``sharding.counts``. On an sp mesh the blocks attend over sp, and
+    the default positions are this rank's ``index("sp") * T/sp +
+    arange(T/sp)``. With ``cfg.remat`` each block runs under
+    ``models.gpt2.remat_block``, its parameters gathered inside the
+    recomputed region."""
+    from ..models.gpt2 import embed_tokens, remat_block
     from ..parallel import sharding
     cfg = model.cfg
 
-    def params(prefix: str) -> dict:
-        return {k[len(prefix):]: sharding.block_param(
-                    k, v, mesh, specs[k], route, cfg.compute_dtype()
-                    if k.endswith(".kernel") else None)
-                for k, v in shards.items() if k.startswith(prefix)}
+    def gather(block_shards: dict, prefix: str) -> dict:
+        return {k: sharding.block_param(
+                    prefix + k, v, mesh, specs[prefix + k], route,
+                    cfg.compute_dtype() if k.endswith(".kernel") else None)
+                for k, v in block_shards.items()}
 
+    def shards_of(prefix: str) -> dict:
+        return {k[len(prefix):]: v for k, v in shards.items()
+                if k.startswith(prefix)}
+
+    ids = batch["input_ids"]
+    pos = batch.get("position_ids")
+    if pos is None and mesh.size("sp") > 1:
+        Tl = ids.shape[1]
+        pos = mesh.index("sp") * Tl + torch.arange(Tl, device=ids.device)
     wte, wpe = (sharding.gather_param(shards[k], mesh, specs[k])
                 for k in ("wte", "wpe"))
-    x = embed_tokens(wte, wpe, batch["input_ids"],
-                     batch.get("position_ids"), cfg)
+    x = embed_tokens(wte, wpe, ids, pos, cfg)
     del wte, wpe
-    tp = {} if route is None else {"tp": mesh,
+    kw = {} if route is None else {"tp": mesh,
                                    "tp_heads": route == "head_split"}
+    if mesh.size("sp") > 1:
+        kw["sp"] = mesh
+    args = (batch.get("attention_mask"), batch.get("segment_ids"))
     for i, blk in enumerate(model.blocks()):
         if route is not None:
             sharding.counts[f"tp_{route}_blocks"] += 1
-        x, _ = torch.func.functional_call(
-            blk, params(f"h_{i}."), (x, batch.get("attention_mask"),
-                                     batch.get("segment_ids")), tp,
-            strict=True)
-    return torch.func.functional_call(model.ln_f, params("ln_f."), (x,),
-                                      strict=True)
+        prefix = f"h_{i}."
+        if cfg.remat:
+            x, _ = remat_block(blk, shards_of(prefix), x, *args,
+                               gather=lambda p, pre=prefix: gather(p, pre),
+                               **kw)
+        else:
+            x, _ = torch.func.functional_call(
+                blk, gather(shards_of(prefix), prefix), (x, *args), kw,
+                strict=True)
+    return torch.func.functional_call(
+        model.ln_f, gather(shards_of("ln_f."), "ln_f."), (x,), strict=True)
+
+
+def _mesh_targets(batch: dict, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(labels, label_mask)`` aligned to this rank's positions: the
+    batch's own (``sharding.batch_columns`` shifted them on the whole
+    row), or, where the rank holds whole rows (sp 1), shifted here."""
+    from ..parallel.sharding import shift_labels
+    if "labels" not in batch and mesh.size("sp") > 1:
+        raise ValueError(
+            "an sp rank's batch needs the targets of its whole rows: cut "
+            "it with parallel.sharding.batch_rows or batch_columns")
+    b = shift_labels(batch)
+    return b["labels"], b["label_mask"]
 
 
 def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh,
                   route: str | None = None):
-    """:func:`_default_lm_loss` on a mesh: this rank's rows, totals
-    summed over dp x fsdp (tp peers hold the same rows and the same
-    totals), the global token mean on every rank."""
+    """:func:`_default_lm_loss` on a mesh: this rank's rows and
+    positions against the targets of JAX's mesh spelling
+    (:func:`_mesh_targets`, the last column of each row masked out
+    instead of sliced off, so an sp chunk's last position predicts the
+    next chunk's first token), totals summed over dp x fsdp x sp (tp
+    peers hold the same rows and the same totals), the global token
+    mean on every rank."""
     from ..models.gpt2 import tied_logits
     from ..parallel import collectives as coll
-    from ..parallel.sharding import ROW_AXES, gather_param
+    from ..parallel.sharding import DATA_AXES, gather_param
     hidden = _mesh_hidden(model, shards, specs, batch, mesh, route)
     logits = tied_logits(hidden, gather_param(shards["wte"], mesh,
                                               specs["wte"]), model.cfg)
-    total, count = causal_lm_totals(logits, batch["input_ids"],
-                                    batch.get("loss_mask"))
-    total = coll.all_reduce(total, mesh, ROW_AXES)
-    count = torch.clamp(coll.all_reduce(count, mesh, ROW_AXES), min=1.0)
+    total, count = lm_totals(logits, *_mesh_targets(batch, mesh))
+    total = coll.all_reduce(total, mesh, DATA_AXES)
+    count = torch.clamp(coll.all_reduce(count, mesh, DATA_AXES), min=1.0)
     return total / count, count
 
 
@@ -316,15 +382,11 @@ def _mesh_fused_lm_loss(model, shards: Params, specs: dict, batch: dict,
                         mesh, route: str | None = None):
     """The JAX mesh spelling of ``_fused_lm_loss``: the hidden states
     keep their ``[B, T, E]`` shape and the shift moves into the labels
-    and the mask (the last column masked out instead of sliced off); the
-    tied head goes to the sharded CE as this rank's shard."""
+    and the mask (:func:`_mesh_targets`); the sharded CE takes an sp
+    chunk's positions as more rows, and the tied head as this rank's
+    shard."""
     hidden = _mesh_hidden(model, shards, specs, batch, mesh, route)
-    ids = batch["input_ids"]
-    labels = torch.nn.functional.pad(ids[:, 1:], (0, 1))
-    mask = batch.get("loss_mask")
-    m = (torch.ones(ids.shape[:2], dtype=torch.float32, device=ids.device)
-         if mask is None else mask.float())
-    m = torch.nn.functional.pad(m[:, 1:], (0, 1))
+    labels, m = _mesh_targets(batch, mesh)
     return fused_linear_cross_entropy(hidden, shards["wte"], labels, m,
                                       mesh=mesh)
 
@@ -379,10 +441,6 @@ class TrainEngine:
                     f"TrainEngine(mesh=...) takes a parallel.Mesh (the "
                     f"port's dp x fsdp x sp x tp mesh over "
                     f"torch.distributed), got {type(mesh).__name__}")
-            if mesh.size("sp") > 1:
-                raise NotImplementedError(
-                    f"sp={mesh.size('sp')}: sequence parallelism (ring "
-                    f"attention) is not ported: {_SLICES}, slice 7")
             sd = model.state_dict()
             self.specs = sharding.param_specs(sd)
             self.tp_route = sharding.tp_block_route(model.cfg.n_head, mesh)
@@ -394,11 +452,10 @@ class TrainEngine:
                 f"fused_loss={fused_loss!r}: the port has one fused route; "
                 f"pass True or False (the --fused-loss flag)")
         cfg = getattr(model, "cfg", None)
-        if cfg is not None and (cfg.dropout > 0 or cfg.remat):
+        if cfg is not None and cfg.dropout > 0:
             raise NotImplementedError(
-                f"dropout={cfg.dropout}, remat={cfg.remat}: the training "
-                f"forward runs without dropout and rematerialisation "
-                f"(both off in every preset); {_SLICES}, slice 7")
+                f"dropout={cfg.dropout}: the training forward runs without "
+                f"dropout (off in every preset); {_SLICES}, slice 7")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.model = model
@@ -506,8 +563,9 @@ class TrainEngine:
     def _global_sq(self, sq: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The global sum of squares from the leaves' local ones: each
         leaf summed over the axes its shards split (fsdp and/or tp) and
-        no others, since dp replicas (and peers along an axis the leaf is
-        not split on) hold the same values."""
+        no others, since dp and sp replicas (and peers along an axis the
+        leaf is not split on) hold the same values: each replica counts
+        once."""
         from ..parallel import collectives as coll
         from ..parallel.sharding import spec_axes
         buckets: dict[tuple, list[torch.Tensor]] = {}
@@ -534,9 +592,13 @@ class TrainEngine:
                  ) -> tuple[float, float]:
         """``(mean loss, perplexity)`` over an eval set, token-weighted
         across batches; the totals stay on the device until one read at
-        the end."""
+        the end. On an sp mesh each batch holds whole rows, and this rank
+        evaluates its positions (``sharding.batch_columns``)."""
+        from ..parallel.sharding import batch_columns
         total = count = None
         for batch in batches:
+            if self.mesh is not None:
+                batch = batch_columns(batch, self.mesh)
             l, c = self.eval_step(params, self.place_batch(batch))
             total = l if total is None else total + l
             count = c if count is None else count + c

@@ -27,8 +27,11 @@ One forward serves both. Training passes packed batches: ``segment_ids``
 mask) and per-row ``position_ids [B, T]``; ``return_hidden`` stops before
 the tied head. Serving passes the hooks: ``sow_kv`` returns each layer's
 ``(k, v)``, and ``kv_pages``/``page_tables``/``kv_lens`` switch attention
-to paged decode (ops/paged_attention.py). Dropout and remat are
-training's and are not ported (engine/train.py refuses them).
+to paged decode (ops/paged_attention.py). With ``cfg.remat`` the
+training forward recomputes each block in the backward
+(``torch.utils.checkpoint``, JAX's ``nn.remat(Block)``); the serving
+forward never does (JAX ``:281``). Dropout is training's and is not
+ported (engine/train.py refuses it; every preset has 0.0).
 """
 
 from __future__ import annotations
@@ -163,7 +166,7 @@ class Block(nn.Module):
                 kv_pages: tuple | None = None,
                 page_tables: torch.Tensor | None = None,
                 kv_lens: torch.Tensor | None = None,
-                tp=None, tp_heads: bool = False):
+                tp=None, tp_heads: bool = False, sp=None):
         """Returns ``(x, (k, v))``: the block output and this block's
         fresh keys/values ``[B, T, H, D]``. With ``kv_pages=(k_pages,
         v_pages)`` (this layer's pool slice) attention reads the pool
@@ -178,7 +181,12 @@ class Block(nn.Module):
         on whole parameters). A split half enters through
         ``collectives.copy_to`` (f: backward sums the cotangent over tp)
         and leaves through the all-reduce of a row-parallel product (g);
-        ``(k, v)`` are then this rank's heads."""
+        ``(k, v)`` are then this rank's heads.
+
+        With ``sp`` (a ``parallel.Mesh`` whose sp axis is > 1) ``x`` holds
+        this rank's positions of each row and the masks the whole row's:
+        ``ops.attention.causal_attention`` takes the ring or the gathered
+        route over sp, which composes with the tp head split."""
         B, T, _ = x.shape
         D = self.cfg.head_dim
         attn_tp = tp if tp_heads else None
@@ -191,7 +199,7 @@ class Block(nn.Module):
         else:
             attn = causal_attention(q, k, v, attention_mask=attention_mask,
                                     segment_ids=segment_ids,
-                                    impl=self.cfg.attention_impl)
+                                    impl=self.cfg.attention_impl, sp=sp)
         x = x + self.c_proj(attn.reshape(B, T, -1), attn_tp)
         h = self.c_fc(_tp_enter(self.ln_2(x), tp))
         h = nn.functional.gelu(h, approximate="tanh")   # gelu_new
@@ -239,17 +247,47 @@ class GPT2(nn.Module):
         ``arange(T)``."""
         cfg = self.cfg
         x = embed_tokens(self.wte, self.wpe, input_ids, position_ids, cfg)
+        remat = (cfg.remat and torch.is_grad_enabled() and not sow_kv
+                 and kv_pages is None)
         kvs = []
         for i, blk in enumerate(self.blocks()):
-            x, kv = blk(x, attention_mask, segment_ids,
-                        kv_pages=None if kv_pages is None else kv_pages[i],
-                        page_tables=page_tables, kv_lens=kv_lens)
+            if remat:
+                x, kv = remat_block(blk, dict(blk.named_parameters()), x,
+                                    attention_mask, segment_ids)
+            else:
+                x, kv = blk(x, attention_mask, segment_ids,
+                            kv_pages=None if kv_pages is None
+                            else kv_pages[i],
+                            page_tables=page_tables, kv_lens=kv_lens)
             kvs.append(kv)
         x = self.ln_f(x)
         if return_hidden:
             return x
         logits = tied_logits(x, self.wte, cfg)
         return (logits, kvs) if sow_kv else logits
+
+
+def remat_block(blk: Block, params: Mapping[str, torch.Tensor], x, *args,
+                gather=None, **kwargs):
+    """``blk(x, *args, **kwargs)`` with ``params`` as its parameters, its
+    activations recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant) instead of kept: JAX's ``nn.remat(Block)``. The
+    parameters enter as explicit inputs, so the recomputation reads the
+    same tensors after ``functional_call`` has restored the module.
+    ``gather(params)``, where given, turns them into what the block
+    computes with inside the recomputed region (a mesh's gathered
+    parameters, gathered again in the backward)."""
+    from torch.utils.checkpoint import checkpoint
+    names = list(params)
+
+    def run(x, *leaves):
+        p = dict(zip(names, leaves))
+        if gather is not None:
+            p = gather(p)
+        return torch.func.functional_call(blk, p, (x, *args), kwargs,
+                                          strict=True)
+
+    return checkpoint(run, x, *params.values(), use_reentrant=False)
 
 
 def embed_tokens(wte: torch.Tensor, wpe: torch.Tensor,
@@ -352,14 +390,16 @@ def params_from_numpy(tree: Mapping[str, Any], *, device="cuda"
 
 
 def params_to_numpy(state: Mapping[str, torch.Tensor]) -> dict:
-    """Inverse of :func:`params_from_numpy`: the nested numpy tree."""
+    """Inverse of :func:`params_from_numpy`: the nested numpy tree (a
+    bf16 leaf as a CPU tensor: numpy has no bf16 on the card machine)."""
     tree: dict = {}
     for path, t in state.items():
         *parents, leaf = path.split(".")
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        node[leaf] = t if t.dtype == torch.bfloat16 else t.numpy()
     return tree
 
 

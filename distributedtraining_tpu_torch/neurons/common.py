@@ -77,11 +77,14 @@ class Components:
         """The shuffled packed train stream (per-hotkey order), behind
         the look-ahead thread when ``--prefetch-depth`` > 0. On a mesh
         of several processes, this rank's rows: its data-parallel
-        group's document shard at ``batch_size / (dp * fsdp)``."""
+        group's document shard at ``batch_size / (dp * fsdp)`` (sp and
+        tp peers share documents), and on an sp mesh this rank's
+        positions of them (``sharding.batch_columns``)."""
         docs = text_corpus(split="train", source=self.cfg.dataset,
                            n_docs=self.cfg.n_docs)
         bs = self.cfg.batch_size
         mesh = self.engine.mesh
+        sp = 1
         if mesh is not None and mesh.world_size > 1:
             from ..parallel.sharding import ROW_AXES
             groups = mesh.size(ROW_AXES)
@@ -89,6 +92,11 @@ class Components:
                 raise SystemExit(
                     f"--batch-size {bs} (global) must be divisible by "
                     f"dp x fsdp = {groups}")
+            sp = mesh.size("sp")
+            if self.cfg.seq_len % sp:
+                raise SystemExit(
+                    f"--seq-len {self.cfg.seq_len} must be divisible by "
+                    f"sp = {sp}")
             docs = list(multihost.shard_documents(
                 docs, process_index=mesh.index(ROW_AXES),
                 process_count=groups))
@@ -99,6 +107,9 @@ class Components:
                             max_vocab=self.model_cfg.vocab_size,
                             shuffle=True,
                             seed=shuffle_seed_for(self.cfg.hotkey))
+        if sp > 1:
+            from ..parallel.sharding import batch_columns
+            it = (batch_columns(b, mesh) for b in it)
         if self.cfg.prefetch_depth > 0:
             from ..data.prefetch import prefetch
             it = prefetch(it, depth=self.cfg.prefetch_depth)
@@ -170,6 +181,8 @@ def build(cfg: RunConfig) -> Components:
     if cfg.logits_dtype:
         model_cfg = dataclasses.replace(model_cfg,
                                         logits_dtype=cfg.logits_dtype)
+    if cfg.remat is not None:   # tri-state: None keeps the preset's value
+        model_cfg = dataclasses.replace(model_cfg, remat=cfg.remat)
     model, model_cfg = gpt2.make_model(model_cfg)
     owns_world = False
     mesh = None
@@ -184,7 +197,8 @@ def build(cfg: RunConfig) -> Components:
         model,
         optimizer=default_optimizer(cfg.learning_rate,
                                     grad_clip=cfg.grad_clip,
-                                    weight_decay=cfg.weight_decay),
+                                    weight_decay=cfg.weight_decay,
+                                    mu_dtype=cfg.mu_dtype),
         mesh=mesh, fused_loss=cfg.fused_loss, accum_steps=cfg.accum_steps,
         device=device)
     if cfg.backend == "memory":

@@ -14,7 +14,15 @@
   ``segment_ids`` as its packing mask. With a padding mask it takes the
   path the JAX package takes when its Pallas kernel declines the mask
   (serving prefill always passes one): blockwise at
-  ``T >= BLOCKWISE_FALLBACK_LEN``, dense below.
+  ``T >= BLOCKWISE_FALLBACK_LEN``, dense below. On a mesh whose sp axis
+  splits the positions (``sp=``) it takes one of two routes: the ring
+  (``ops/ring_attention.py``) for ``impl="ring"`` without a padding
+  mask or segment ids, as JAX routes it; else the gathered route, which
+  all-gathers q, k and v over sp, runs the attention above on the whole
+  sequence with the whole row's masks (the flash kernels for
+  ``impl="flash"``: the computation of JAX's flash call on its global
+  arrays) and keeps this rank's query rows. The gathered route costs sp
+  times one rank's share of the attention.
 
 Every path is differentiable by autograd; the flash path through its own
 backward kernels.
@@ -162,18 +170,24 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      *,
                      attention_mask: Optional[torch.Tensor] = None,
                      segment_ids: Optional[torch.Tensor] = None,
-                     impl: str = "dense") -> torch.Tensor:
+                     impl: str = "dense", sp=None) -> torch.Tensor:
     """Causal self-attention entry point used by the models.
 
-    impl: "dense", "blockwise", or "flash". "flash" runs the flash
-    kernels unless a padding mask is present (the kernel declines those
-    in the JAX package too); "ring" needs the ported parallel plane and
-    raises NotImplementedError."""
-    T = q.shape[1]
+    impl: "dense", "blockwise", "flash" or "ring". "flash" runs the
+    flash kernels unless a padding mask is present (the kernel declines
+    those in the JAX package too). ``sp`` is a ``parallel.Mesh`` whose
+    sp axis splits the positions, q, k and v being this rank's
+    ``[B, T/sp, H, D]`` and the masks the whole row's ``[B, T]`` (the
+    module docstring gives the two routes). "ring" without such a mesh,
+    or with a mask, is dense attention, as in JAX."""
+    if sp is not None and sp.size("sp") > 1:
+        if impl == "ring" and attention_mask is None and segment_ids is None:
+            from .ring_attention import ring_attention
+            return ring_attention(q, k, v, mesh=sp)
+        return _gathered(q, k, v, attention_mask, segment_ids, impl, sp)
     if impl == "ring":
-        raise NotImplementedError(
-            "ring attention needs the ported parallel plane (ROADMAP "
-            "'Slices of the port': slice 7, parallelism)")
+        impl = "dense"
+    T = q.shape[1]
     if impl == "blockwise":
         return blockwise_attention(q, k, v, attention_mask=attention_mask,
                                    segment_ids=segment_ids)
@@ -189,3 +203,17 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = combine_masks(make_causal_mask(T, device=q.device),
                          attention_mask, segment_ids)
     return dot_product_attention(q, k, v, mask)
+
+
+def _gathered(q, k, v, attention_mask, segment_ids, impl: str, mesh
+              ) -> torch.Tensor:
+    """The gathered route: q, k and v all-gathered over sp along T in one
+    collective (its backward reduce-scatters their cotangents), the
+    attention of the whole sequence, this rank's query rows kept."""
+    from ..parallel.collectives import all_gather
+    Tl = q.shape[1]
+    qkv = all_gather(torch.stack([q, k, v], dim=2), mesh, "sp", 1)
+    out = causal_attention(*qkv.unbind(2), attention_mask=attention_mask,
+                           segment_ids=segment_ids, impl=impl)
+    i = mesh.index("sp")
+    return out[:, i * Tl:(i + 1) * Tl]

@@ -4,9 +4,12 @@ A gather with clamped ids: ``jnp.take(..., mode="clip")`` semantics, so an
 out-of-range id (e.g. a position past ``n_positions``) reads the edge row
 instead of garbage. It is differentiable: autograd's backward of the
 gather is a scatter-add of the cotangent rows into the table, the JAX
-package's single-device spelling. Its one-hot matmul backward exists only
-for dp x fsdp meshes and waits for the parallel slice (ROADMAP "Slices of
-the port", slice 7).
+package's single-device spelling. JAX's one-hot matmul backward on dp x
+fsdp meshes (JAX ``ops/embed.py:74-104``) is a GSPMD spelling of the same
+sum: on a mesh the port gathers the table (``parallel.sharding``), takes
+this scatter-add of the rank's rows and positions, and the gather's
+backward and the engine's sum over dp and sp complete it, so no second
+spelling exists here.
 """
 
 from __future__ import annotations

@@ -44,12 +44,20 @@ def causal_lm_totals(logits: torch.Tensor, input_ids: torch.Tensor,
                      loss_mask: Optional[torch.Tensor] = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(sum of masked per-token losses, raw mask sum)`` of
-    :func:`causal_lm_loss` (a mesh sums both over its rows first)."""
-    per_tok = cross_entropy_with_logits(logits[:, :-1, :], input_ids[:, 1:])
-    if loss_mask is not None:
-        m = loss_mask[:, 1:].to(per_tok.dtype)
-    else:
-        m = torch.ones_like(per_tok)
+    :func:`causal_lm_loss`."""
+    return lm_totals(logits[:, :-1, :], input_ids[:, 1:],
+                     None if loss_mask is None else loss_mask[:, 1:])
+
+
+def lm_totals(logits: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sum of masked per-token losses, raw mask sum)`` of logits
+    already aligned to their ``labels`` (a mesh's targets, shifted on
+    the whole row; it sums both over its ranks first)."""
+    per_tok = cross_entropy_with_logits(logits, labels)
+    m = (torch.ones_like(per_tok) if mask is None
+         else mask.to(per_tok.dtype))
     return torch.sum(per_tok * m), torch.sum(m)
 
 

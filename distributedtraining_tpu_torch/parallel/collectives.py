@@ -12,11 +12,15 @@ each with the transpose ``shard_map``'s AD gives as its backward:
   uses as one replicated value: backward is the identity;
 - :func:`copy_to`, the identity on a value replicated over the axes,
   whose cotangents are per-rank partials: backward is the all-reduce
-  (how the fused CE completes dh over tp).
+  (how the fused CE completes dh over tp);
+- :func:`ring_pass`, ``ppermute`` one step around an axis (to the next
+  coordinate, from the previous one): backward passes the cotangent
+  the other way (the ring attention's K/V stream).
 
 A set of axes of size 1 has no group, and every collective over it is
 the identity. Every backend runs the same calls
-(``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``);
+(``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``,
+``batch_isend_irecv``);
 the route follows the group's backend, never a probe: NCCL takes the
 card's tensors as they are, and under gloo (the CPU tests, and ranks
 that share one card) a CUDA tensor goes through a pinned host buffer
@@ -122,6 +126,39 @@ def _raw_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return buf.to(x.device) if staged else buf
 
 
+def _raw_ring_pass(x: torch.Tensor, mesh, axis: str, shift: int
+                   ) -> torch.Tensor:
+    """``x`` sent to the rank ``shift`` coordinates further along
+    ``axis`` (cyclically), and what the rank ``shift`` coordinates back
+    sent received in its place: one send and one receive a rank, posted
+    together (``batch_isend_irecv``), so the ring cannot deadlock."""
+    group = mesh.group(axis)
+    peers = mesh.peers(axis)
+    n, i = len(peers), mesh.index(axis)
+    x = x.contiguous()
+    staged = _staged(group, x)
+    _note("ring_pass", group, x, staged)
+    src = _to_host(x) if staged else x
+    out = _host_empty(x.shape, x, staged)
+    ops = [dist.P2POp(dist.isend, src, peers[(i + shift) % n], group),
+           dist.P2POp(dist.irecv, out, peers[(i - shift) % n], group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out.to(x.device) if staged else out
+
+
+class _RingPass(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return _raw_ring_pass(x, mesh, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        return _raw_ring_pass(g, mesh, axis, -1), None, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
@@ -205,6 +242,17 @@ def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if mesh.size(axes) == 1:
         return x
     return _CopyTo.apply(x, mesh, axes)
+
+
+def ring_pass(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``jax.lax.ppermute(x, axis, [(i, (i + 1) % n) for i in range(n)])``:
+    this rank's ``x`` goes to the next coordinate along ``axis``, and the
+    previous coordinate's arrives. Backward: the cotangent passed back
+    the other way. Counted in :data:`counts` as ``ring_pass`` (the bytes
+    this rank sends)."""
+    if mesh.size(axis) == 1:
+        return x
+    return _RingPass.apply(x, mesh, axis)
 
 
 def all_reduce_(x: torch.Tensor, mesh, axes) -> torch.Tensor:

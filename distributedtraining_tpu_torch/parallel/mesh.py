@@ -5,7 +5,8 @@ Axes, as in JAX (any may be 1):
 
 - ``dp``:   pure data parallel (replicated params, sharded batch);
 - ``fsdp``: data parallel with parameter sharding (ZeRO-3);
-- ``sp``:   sequence parallel (ring attention; not ported, refused);
+- ``sp``:   sequence parallel (the positions of each row split; see
+  ``ops/attention.causal_attention`` for its two attention routes);
 - ``tp``:   tensor parallel (vocab/mlp/qkv dims of the storage split).
 
 The port runs one process per device. Ranks map to mesh coordinates in
@@ -13,9 +14,12 @@ row-major order over ``(dp, fsdp, sp, tp)``, as JAX's CPU fallback lays
 the device list out (``np.asarray(devices).reshape(cfg.shape)``), so a
 rank's shards are the JAX array's ``addressable_shards`` at the same
 coordinates. :class:`Mesh` holds one process group for each set of axes
-a collective runs over: dp, fsdp and tp alone, the rows ``(dp, fsdp)``,
-a parameter's shard group ``(fsdp, tp)`` and the whole mesh. A set whose
-size is 1 has no group: a collective over it is the identity.
+a collective runs over: each axis alone, the rows ``(dp, fsdp)``, a
+parameter's shard group ``(fsdp, tp)``, the axes a gradient is summed
+over (``(dp, fsdp, sp)`` and its subsets) and the whole mesh. Axes of
+size 1 drop out of a set, so two sets over the same ranks share one
+group, and a set whose size is 1 has no group: a collective over it is
+the identity.
 
 ``MeshConfig``, ``best_mesh_shape``, ``resolve_mesh_config`` and
 ``_largest_pow2_divisor`` are copies of the JAX functions (pure
@@ -113,8 +117,9 @@ def group_ranks(cfg: MeshConfig, axes: tuple[str, ...]) -> list[list[int]]:
 
 
 # the sets of axes the training step runs collectives over
-GROUP_AXES = (("dp",), ("fsdp",), ("tp",), ("dp", "fsdp"), ("fsdp", "tp"),
-              AXES)
+GROUP_AXES = (("dp",), ("fsdp",), ("sp",), ("tp",), ("dp", "fsdp"),
+              ("fsdp", "tp"), ("dp", "sp"), ("fsdp", "sp"),
+              ("dp", "fsdp", "sp"), AXES)
 
 
 class Mesh:
@@ -124,8 +129,9 @@ class Mesh:
     ``rank`` and ``coords`` are this process's; ``size(axes)`` and
     ``index(axes)`` the size of a set of axes and this rank's index
     along it (row-major); ``group(axes)`` the process group over it
-    (None where the size is 1). The groups are created here, in one
-    order on every rank, as ``torch.distributed.new_group`` requires."""
+    (None where the size is 1) and ``peers(axes)`` its global ranks in
+    coordinate order. The groups are created here, in one order on every
+    rank, as ``torch.distributed.new_group`` requires."""
 
     def __init__(self, cfg: MeshConfig):
         import torch.distributed as dist
@@ -143,16 +149,15 @@ class Mesh:
         self.world_size = world
         self.coords = rank_coords(self.rank, cfg)
         self.backend = dist.get_backend()
-        self._groups: dict[tuple[str, ...], object] = {}
+        self._groups: dict[tuple[str, ...], tuple] = {}
         for axes in GROUP_AXES:
-            if self.size(axes) == 1:
+            key = self._key(axes)
+            if not key or key in self._groups:
                 continue
-            mine = None
-            for ranks in group_ranks(cfg, axes):
+            for ranks in group_ranks(cfg, key):
                 g = dist.new_group(ranks)
                 if self.rank in ranks:
-                    mine = g
-            self._groups[axes] = mine
+                    self._groups[key] = (g, ranks)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -171,15 +176,29 @@ class Mesh:
                 i = i * self.shape[a] + self.coords[a]
         return i
 
-    def group(self, axes):
+    def _key(self, axes) -> tuple[str, ...]:
+        """``axes`` in mesh order, those of size 1 left out."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        key = tuple(a for a in AXES if a in axes)
-        if self.size(key) == 1:
+        return tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+
+    def _entry(self, axes) -> tuple | None:
+        key = self._key(axes)
+        if not key:
             return None
         if key not in self._groups:
             raise KeyError(f"no process group over {key}: the mesh holds "
                            f"{sorted(self._groups)}")
         return self._groups[key]
+
+    def group(self, axes):
+        entry = self._entry(axes)
+        return None if entry is None else entry[0]
+
+    def peers(self, axes) -> list[int]:
+        """The global ranks of this rank's group along ``axes``, in
+        coordinate order (``[rank]`` where the size is 1)."""
+        entry = self._entry(axes)
+        return [self.rank] if entry is None else list(entry[1])
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "

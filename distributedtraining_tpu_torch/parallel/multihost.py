@@ -112,16 +112,22 @@ def is_coordinator() -> bool:
     return process_index() == 0
 
 
-def pod_mesh(*, dp: int = 0, fsdp: int = 1, sp: int = 1, tp: int = 1,
-             dcn_dp: int = 1) -> Mesh:
-    """The mesh over every process of the world; ``dp=0`` means whatever
-    is left (``world / (fsdp*sp*tp)``). ``dcn_dp > 1`` (multi-slice) is
-    not ported."""
-    if dcn_dp > 1:
-        raise NotImplementedError(
-            "dcn_dp > 1 (a hybrid multi-slice mesh) is not ported: "
-            "ROADMAP 'Slices of the port', slice 7")
-    n = process_count()
+def pod_mesh_config(n: int, *, dp: int = 0, fsdp: int = 1, sp: int = 1,
+                    tp: int = 1, dcn_dp: int = 1, nodes: int = 1,
+                    node: int | None = None, rank: int = 0) -> MeshConfig:
+    """The mesh of :func:`pod_mesh` over ``n`` processes (pure); ``dp=0``
+    means whatever is left (``n / (fsdp*sp*tp)``).
+
+    ``dcn_dp > 1`` (JAX ``pod_mesh``'s hybrid layout) declares that the
+    outer ``dcn_dp`` groups of the dp axis cross a slower network: dp
+    must divide by it, and each granule (one ``dcn_dp``-th of the ranks,
+    so fsdp, sp, tp and the inner part of dp inside it) holds contiguous
+    ranks. The row-major layout, dp the slowest axis, already lays them
+    so. A granule is a node of ``nodes``: on one node (``nodes`` 1) the
+    granules are emulated as contiguous blocks of ranks, as JAX's
+    single-process mesh emulates them; over several nodes their count
+    must be ``dcn_dp`` and ``rank``'s granule its ``node``, else this
+    raises (JAX's hybrid mesh raises; it never reshapes quietly)."""
     rest = fsdp * sp * tp
     if dp == 0:
         if n % rest:
@@ -132,14 +138,39 @@ def pod_mesh(*, dp: int = 0, fsdp: int = 1, sp: int = 1, tp: int = 1,
     if cfg.n_devices != n:
         raise ValueError(f"mesh {cfg} wants {cfg.n_devices} processes, "
                          f"the world has {n}")
-    return Mesh(cfg)
+    if dcn_dp > 1:
+        if dp % dcn_dp:
+            raise ValueError(f"dp={dp} not divisible by dcn_dp={dcn_dp}")
+        if nodes > 1:
+            per = n // dcn_dp
+            if nodes != dcn_dp or node != rank // per:
+                raise ValueError(
+                    f"dcn_dp={dcn_dp} wants one granule a node of "
+                    f"{per} ranks: the world has {nodes} nodes, and rank "
+                    f"{rank} is on node {node}")
+    return cfg
+
+
+def pod_mesh(*, dp: int = 0, fsdp: int = 1, sp: int = 1, tp: int = 1,
+             dcn_dp: int = 1) -> Mesh:
+    """The mesh over every process of the world
+    (:func:`pod_mesh_config`); the nodes are ``torchrun``'s
+    (``LOCAL_WORLD_SIZE`` ranks each, this one on ``GROUP_RANK``), one
+    node without them."""
+    n = process_count()
+    env = os.environ
+    local = int(env.get("LOCAL_WORLD_SIZE") or n)
+    node = int(env["GROUP_RANK"]) if "GROUP_RANK" in env else None
+    return Mesh(pod_mesh_config(n, dp=dp, fsdp=fsdp, sp=sp, tp=tp,
+                                dcn_dp=dcn_dp, nodes=max(1, n // local),
+                                node=node, rank=process_index()))
 
 
 def shard_documents(docs, *, process_index: Optional[int] = None,
                     process_count: Optional[int] = None):
     """Round-robin split of a document stream: document ``i`` goes to
     shard ``i % count``. The miner passes its data-parallel index and
-    count (tp peers share rows, so they read one shard)."""
+    count (sp and tp peers share rows, so they read one shard)."""
     if process_index is None:
         process_index = dist.get_rank() if dist.is_initialized() else 0
     if process_count is None:

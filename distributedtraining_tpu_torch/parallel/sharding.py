@@ -25,9 +25,16 @@ that its mesh axis does not divide raises, as JAX's placement does.
 :func:`gather_params` is the inverse (a collective). Adam's moments
 follow their parameter, as JAX's ``opt_state_shardings`` places them:
 they are keyed by the parameter's name, so :func:`param_specs` places
-them too. A batch is ``P(("dp", "fsdp"), None)``: rows split over
-dp x fsdp in coordinate order, tp peers holding the same rows
-(:func:`batch_rows`).
+them too. A batch is ``P(("dp", "fsdp"), "sp")``: rows split over
+dp x fsdp in coordinate order, each row's positions over sp, tp peers
+holding the same rows and positions (:func:`batch_rows`). On an sp mesh
+the labels are shifted on the whole row before the cut, as JAX's mesh
+spelling of the loss shifts them (the last position of one sp chunk
+predicts the first token of the next), and the integer ids that mask
+attention (``segment_ids``, ``attention_mask``) stay whole on every sp
+rank, since the attention reads the whole row. Parameters are
+replicated over sp, so a gradient is summed over sp as over dp
+(:func:`grad_sum_axes`).
 
 :func:`gather_param` is the training step's ZeRO-3 gather: the forward
 all-gathers a shard over the axes of each split dim, and the backward
@@ -91,8 +98,13 @@ GPT2_LOGICAL_AXES = {
     "bias": ("embed",),
 }
 
-BATCH_SPEC = (("dp", "fsdp"), None)
+BATCH_SPEC = (("dp", "fsdp"), "sp")
 ROW_AXES = BATCH_SPEC[0]
+# the axes over which every rank computes on its own part of the batch
+# (its rows and its positions) with replicated parameters
+DATA_AXES = (*ROW_AXES, "sp")
+# [B, T] batch keys every sp rank holds whole (the attention's masks)
+WHOLE_ROW_KEYS = ("segment_ids", "attention_mask")
 
 Spec = tuple
 
@@ -211,17 +223,73 @@ def shard_params(params: Mapping[str, Any], mesh=None, *,
 
 
 def grad_sum_axes(spec: Spec) -> tuple[str, ...]:
-    """The row axes a parameter's gradient is still to be summed over
-    after :func:`gather_param`'s backward: dp always, fsdp where the
-    parameter is not split on it."""
+    """The data axes a parameter's gradient is still to be summed over
+    after :func:`gather_param`'s backward: dp and sp always, fsdp where
+    the parameter is not split on it."""
     split = spec_axes(spec)
-    return tuple(a for a in ROW_AXES if a not in split)
+    return tuple(a for a in DATA_AXES if a not in split)
+
+
+def _shift_left(x):
+    """``x[:, 1:]`` with a zero column appended (numpy or torch)."""
+    if isinstance(x, torch.Tensor):
+        return torch.nn.functional.pad(x[:, 1:], (0, 1))
+    x = np.asarray(x)
+    return np.concatenate([x[:, 1:], np.zeros_like(x[:, :1])], axis=1)
+
+
+def shift_labels(batch: Mapping[str, Any]) -> dict:
+    """Whole rows with the next-token targets of JAX's mesh spelling of
+    the loss: ``labels`` (``input_ids`` shifted left) and ``label_mask``
+    (``loss_mask``, or ones, shifted left as f32), position t predicting
+    token t + 1 and the last column masked out instead of sliced off. A
+    batch without ``input_ids``, or with ``labels``, is returned as it
+    is."""
+    out = dict(batch)
+    if "input_ids" not in out or "labels" in out:
+        return out
+    ids = out["input_ids"]
+    mask = out.get("loss_mask")
+    if isinstance(ids, torch.Tensor):
+        mask = (torch.ones(ids.shape[:2], dtype=torch.float32,
+                           device=ids.device) if mask is None
+                else torch.as_tensor(mask).float())
+    else:
+        mask = (np.ones(np.shape(ids)[:2], np.float32) if mask is None
+                else np.asarray(mask, np.float32))
+    out["labels"] = _shift_left(ids)
+    out["label_mask"] = _shift_left(mask)
+    return out
+
+
+def batch_columns(batch: Mapping[str, Any], mesh) -> dict:
+    """This rank's positions of whole rows on ``mesh``'s sp axis: every
+    ``[B, T, ...]`` value cut along T into sp chunks, chunk
+    ``index("sp")``, after :func:`shift_labels` (the targets of the
+    whole row); :data:`WHOLE_ROW_KEYS` stay whole. The batch as it is at
+    sp 1. Raises ValueError where sp does not divide T, as JAX's ring
+    does."""
+    n = mesh.size("sp")
+    if n == 1:
+        return dict(batch)
+    i = mesh.index("sp")
+    out = shift_labels(batch)
+    for k, v in out.items():
+        if k in WHOLE_ROW_KEYS:
+            continue
+        if v.shape[1] % n:
+            raise ValueError(f"batch {k!r}: {v.shape[1]} positions are not "
+                             f"divisible by sp = {n}")
+        per = v.shape[1] // n
+        out[k] = v[:, i * per:(i + 1) * per]
+    return out
 
 
 def batch_rows(batch: Mapping[str, Any], mesh) -> dict:
-    """This rank's rows of a global batch under :data:`BATCH_SPEC`: the
-    batch dim cut into dp x fsdp chunks, chunk ``index(("dp", "fsdp"))``
-    (tp and sp peers hold the same rows)."""
+    """This rank's rows and positions of a global batch under
+    :data:`BATCH_SPEC`: the batch dim cut into dp x fsdp chunks, chunk
+    ``index(("dp", "fsdp"))`` (tp and sp peers hold the same rows), then
+    :func:`batch_columns`."""
     n = mesh.size(ROW_AXES)
     i = mesh.index(ROW_AXES)
     out = {}
@@ -231,7 +299,7 @@ def batch_rows(batch: Mapping[str, Any], mesh) -> dict:
                              f"divisible by dp x fsdp = {n}")
         per = v.shape[0] // n
         out[k] = v[i * per:(i + 1) * per]
-    return out
+    return batch_columns(out, mesh)
 
 
 def _gather_steps(mesh, spec: Spec, axes=AXES) -> list[tuple[str, int]]:

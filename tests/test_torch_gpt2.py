@@ -301,12 +301,16 @@ def test_embed_lookup_clips_like_jax_take():
 
 
 def test_unported_attention_paths_raise():
-    """Ring attention still needs the parallel plane; unmasked flash on
-    the CPU runs the flash kernels' plain version (the JAX package's
-    dense result) and launches nothing."""
+    """Ring attention without an sp mesh is dense attention, as in JAX
+    (the ring itself: tests/test_torch_sp.py); an unknown impl raises;
+    unmasked flash on the CPU runs the flash kernels' plain version (the
+    JAX package's dense result) and launches nothing."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 8, 11))
-    with pytest.raises(NotImplementedError, match="ring"):
-        tatt.causal_attention(q, k, v, impl="ring")
+    ring = tatt.causal_attention(q, k, v, impl="ring")
+    np.testing.assert_array_equal(
+        ring.numpy(), tatt.causal_attention(q, k, v, impl="dense").numpy())
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tatt.causal_attention(q, k, v, impl="paged")
     before = dict(flash_attention.launches)
     out = tatt.causal_attention(q, k, v, impl="flash")
     assert flash_attention.launches == before

@@ -310,11 +310,11 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
     (MINER_ARGS + ["--delta-dtype", "sparse8"], None),
     (MINER_ARGS + ["--backend", "hf"], 7),
     (MINER_ARGS + ["--lora-rank", "4"], 7),
-    # the miner's mesh is ported (slice 7a): dp/fsdp/tp, --mesh-auto and
-    # the multi-host flags; sequence parallelism and multi-slice are not
+    # the miner's mesh is ported (slice 7): dp/fsdp/sp/tp, --dcn-dp,
+    # --mesh-auto and the multi-host flags
     (MINER_ARGS + ["--fsdp", "2"], None),
-    (MINER_ARGS + ["--sp", "2"], 7),
-    (MINER_ARGS + ["--dcn-dp", "2"], 7),
+    (MINER_ARGS + ["--sp", "2"], None),
+    (MINER_ARGS + ["--dcn-dp", "2"], None),
     (MINER_ARGS + ["--metrics-path", "m.jsonl"], 7),
 ])
 def test_config_refuses_what_is_not_ported(extra, slice_no):
@@ -334,6 +334,8 @@ def test_config_refuses_what_is_not_ported(extra, slice_no):
     ("averager", ["--multihost-processes", "2"], None),
     ("server", ["--fsdp", "2"], 7),
     ("server", ["--multihost-processes", "2"], 7),
+    ("server", ["--sp", "2"], 7),
+    ("server", ["--dcn-dp", "2"], 7),
 ])
 def test_config_takes_a_mesh_for_the_miner_only(role, extra, slice_no):
     """The miner, the validator and the averager take the mesh flags;

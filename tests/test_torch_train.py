@@ -373,12 +373,17 @@ def test_unported_training_options_raise():
         ttrain.TrainEngine(model, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="one fused route"):
         ttrain.TrainEngine(model, fused_loss="pallas", device="cpu")
-    for cfg in (dataclasses.replace(TINY, dropout=0.1),
-                dataclasses.replace(TINY, remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.TrainEngine(tg.make_model(cfg)[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        ttrain.default_optimizer(mu_dtype="bfloat16")
+    # dropout stays refused; remat and mu_dtype are ported (slice 7b(d),
+    # tests/test_torch_sp.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrain.TrainEngine(tg.make_model(dataclasses.replace(
+            TINY, dropout=0.1))[0], device="cpu")
+    ttrain.TrainEngine(tg.make_model(dataclasses.replace(
+        TINY, remat=True))[0], device="cpu")
+    assert ttrain.default_optimizer(
+        mu_dtype="bfloat16").mu_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="mu_dtype"):
+        ttrain.default_optimizer(mu_dtype="float16")
     with pytest.raises(TypeError, match="parallel.Mesh"):
         tlosses.fused_linear_cross_entropy(
             torch.zeros(2, 64), torch.zeros(8, 64),

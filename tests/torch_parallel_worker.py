@@ -315,7 +315,90 @@ def case_regather(mesh: Mesh, args: dict, inp) -> dict:
     return out
 
 
+def _sp_engine_run(e: dict, inp) -> dict:
+    """One engine of ``args["engines"]`` (:func:`case_sp`): its mesh,
+    fused or not, its model overrides (``attention_impl``, ``remat``),
+    ``args["steps"]`` AdamW steps on this rank's rows and positions of
+    the global batches (packed ones carry segment ids, positions and a
+    loss mask); the losses and the final shards."""
+    import dataclasses
+
+    from distributedtraining_tpu_torch.engine.train import (
+        TrainEngine, default_optimizer)
+    from distributedtraining_tpu_torch.models import gpt2
+    mesh = Mesh(MeshConfig(**e["mesh"]))
+    cfg = dataclasses.replace(gpt2.PRESETS["tiny"], **e["overrides"])
+    model, _ = gpt2.make_model(cfg)
+    eng = TrainEngine(model, mesh=mesh, fused_loss=e["fused"],
+                      optimizer=default_optimizer(e["lr"],
+                                                  grad_clip=e["grad_clip"]),
+                      device="cpu")
+    keys = ("input_ids", "segment_ids", "position_ids", "loss_mask") \
+        if e["packed"] else ("input_ids",)
+    state = eng.init_state(_tree(inp))
+    losses, tokens = [], []
+    for i in range(inp["input_ids"].shape[0]):
+        batch = batch_rows({k: inp[k][i] for k in keys}, mesh)
+        state, m = eng.train_step(state, eng.place_batch(batch))
+        losses.append(float(m["loss"]))
+        tokens.append(float(m["tokens"]))
+    out = {"losses": np.array(losses), "tokens": np.array(tokens)}
+    for name, tree in (("p", state.params), ("mu", state.opt_state.mu)):
+        out.update({f"{name}/{k}": v.detach().numpy()
+                    for k, v in tree.items()})
+    # one loss and its gradient, summed over the data axes as a step
+    # sums it, on the first batch
+    batch = eng.place_batch(batch_rows({k: inp[k][0] for k in keys}, mesh))
+    params = eng.place_params(_tree(inp))
+    loss, count = eng._loss(params, batch)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    eng._sum_grads(grads)
+    # evaluate takes whole rows, each rank cutting its positions
+    eval0, _ = eng.evaluate(params, [{k: inp[k][0] for k in keys}])
+    out.update({"loss0": loss.detach().numpy(), "count0": count.numpy(),
+                "grad0/wte": grads["wte"].numpy(), "eval0": eval0})
+    return out
+
+
+def case_sp(mesh: Mesh, args: dict, inp) -> dict:
+    """Sequence parallelism: ``ops.ring_attention`` on this rank's
+    blocks of global q, k, v (f32) for each mesh of ``args["ring"]``,
+    its output and the gradients of a cotangent (the ring passes of the
+    forward and of the backward counted apart); then each engine of
+    ``args["engines"]`` (:func:`_sp_engine_run`)."""
+    from distributedtraining_tpu_torch.ops.ring_attention import \
+        ring_attention
+    from distributedtraining_tpu_torch.parallel import collectives
+    out = {}
+    for name, kw in args["ring"].items():
+        m = Mesh(MeshConfig(**kw))
+        n, i = m.size("sp"), m.index("sp")
+        per = inp["q"].shape[1] // n
+        q, k, v = (torch.from_numpy(inp[x][:, i * per:(i + 1) * per].copy())
+                   .requires_grad_() for x in ("q", "k", "v"))
+        collectives.reset_counts()
+        o = ring_attention(q, k, v, mesh=m)
+        fwd = sum(c["calls"] for key, c in collectives.counts.items()
+                  if key[0] == "ring_pass")
+        o.backward(torch.from_numpy(inp["ct"][:, i * per:(i + 1) * per]
+                                    .copy()))
+        total = sum(c["calls"] for key, c in collectives.counts.items()
+                    if key[0] == "ring_pass")
+        out.update({f"ring/{name}/o": o.detach().numpy(),
+                    f"ring/{name}/dq": q.grad.numpy(),
+                    f"ring/{name}/dk": k.grad.numpy(),
+                    f"ring/{name}/dv": v.grad.numpy(),
+                    f"ring/{name}/passes_fwd": fwd,
+                    f"ring/{name}/passes_bwd": total - fwd})
+    for name, e in args["engines"].items():
+        out.update({f"{name}/{k}": v
+                    for k, v in _sp_engine_run(e, inp).items()})
+    return out
+
+
 CASES = {"ce": case_ce, "engine": case_engine, "tp": case_tp,
+         "sp": case_sp,
          "miner": case_miner,
          "collectives": case_collectives, "pod": case_pod,
          "regather": case_regather}
