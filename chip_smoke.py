@@ -12,6 +12,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --tp-ab DIR [DIR ...]
     python3 chip_smoke.py --mesh-roles
     python3 chip_smoke.py --sp
+    python3 chip_smoke.py --llama
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
@@ -32,7 +33,7 @@ one over 512) and phase 21's traffic once through the server CLI, with
 the ttft and prefill ms of every request that hit the prefix cache.
 ``--serve6b`` runs phase 22 alone after the build,
 ``--parallel`` phase 23 alone, ``--mesh-roles`` phase 24 alone, ``--sp``
-phase 25 alone, and ``--parallel-cards`` the worlds of phases 23 and 24
+phase 25 alone, ``--llama`` phase 26 alone, and ``--parallel-cards`` the worlds of phases 23 and 24
 over NCCL on every card of a machine with several (at world 4 with the
 sp2 x tp2 and dp2 x sp2 engines too). ``--tp-ab DIR...`` times phase 23's tp
 engine steps with the package of each checkout DIR in turn (parent,
@@ -468,6 +469,52 @@ Phases, each of which fails the run (non-zero exit, no result line):
            smaller with every mu leaf bf16 under ``mu_dtype=
            "bfloat16"``, and ``neurons.miner.main`` with ``--remat
            --mu-dtype bfloat16`` (rc 0, one push).
+26. llama  the Llama family on the serving path, Llama-3-8B's widths
+           (bf16 compute, f32 weights drawn on the card from a seeded
+           torch.Generator). (a) The paged decode kernel (8 slots of
+           contexts 520-559 over a 64-page table), the window kernel
+           (the verify, W 5, and a 64-row suffix over 512) and the flash
+           forward (the main path's prefill [1, 1024, 32, 128] with 515
+           real rows, [1, 576, 32, 128], a packed [8, 512, 32, 128]) at 32
+           query heads over 8 kv heads, D 128, against their plain
+           versions: f32 max abs <= 1e-5, bf16 <= 2e-2 (the window also
+           within phase 21's per-element limit); each timed in bf16
+           (``_time_ms`` and the profiler) beside its bound, the plain
+           version and SDPA. (b) At 2 layers in f32: the engine's greedy
+           tokens equal ``reference_generate``'s, its pool's head axis is
+           8, and a prefill/decode pair equals the unified engine on
+           phase 21's traffic (``_disagg_parity``). (c) The whole
+           ``llama3-8b`` preset (32 layers, 8,030,261,248 parameters) in
+           one engine with the default pool (4,097 pages): phase 21's
+           traffic (8 requests sharing a 512-token prompt, 32 new tokens,
+           greedy and sampled lanes, prefix cache on) after a warm-up
+           request: every request done, prefix hits >= 7, launches exact
+           (paged == 32 x decodes, window == 32 x suffix prefills, flash
+           == 32 x full prefills, nothing else); ttft, tpot, tokens/s,
+           peak memory, and a steady decode step's device ms by kernel and
+           idle share (torch.profiler). (d) A GPT-2 drafter with
+           GPT-2-124M's widths at the vocabulary 128256 drafts for it: it
+           proposes, 0 fallbacks, launches exact for both families (the
+           drafter's 12 layers). (e) A prefill and a decode engine on the
+           one placed weight set (no tensor copied at install) move the
+           pages over a LocalFS transport: kv_adopted 8, no re-prefill,
+           each worker's launches exact. (f) In a child process
+           (``--llama-cli``; started before phase 22 in the whole script,
+           so that its ~400 s of host and disk work overlaps phases 22-25;
+           the in-process 8B steps wait for it):
+           ``neurons.server.main --model llama3-8b`` with the JAX
+           defaults over a LocalFS root whose base the port published:
+           the monolithic file (32.12 GB, past the 8 GiB read cap: only
+           its hash, the revision, is read), then the shard set and
+           manifest on a disk (the temporary directory or the checkout,
+           whichever is not tmpfs and has 35 GB free). The machine with
+           the card takes at most 45 GiB of live disk data, so the
+           monolithic file's directory is a link into /dev/shm. Each
+           candidate's free bytes and the host's available memory are
+           printed first (``llama_host``), and the step fails when any is
+           short. Every request done on that revision, the boot pull
+           sharded with no monolithic fallback, launches exact (counted in
+           the child); publish, pull and boot seconds.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
@@ -475,6 +522,7 @@ JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
 ``slice5`` JSON line (phase 20), a ``serve6`` JSON line (phase 21), a
 ``serve6b`` JSON line (phase 22), a ``parallel`` JSON line (phase 23),
 a ``mesh_roles`` JSON line (phase 24), an ``sp`` JSON line (phase 25),
+an ``llama`` JSON line (phase 26; its ``llama_host`` line comes first),
 the ``nvidia-smi`` name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -625,7 +673,7 @@ def _decode_case(B, Hq, Hkv, D, P, MP, lens, dtype, seed):
         used = (n + P - 1) // P
         tables[b, :used] = perm[b * MP:b * MP + used].to(torch.int32)
     sl = torch.tensor(lens, dtype=torch.int32)
-    dev = "cuda"
+    dev = DEV
     return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
             tables.to(dev), sl.to(dev), kn.to(dev, dtype),
             vn.to(dev, dtype))
@@ -1259,9 +1307,6 @@ def phase_profile(tree) -> dict:
     prompts of 8-900 tokens, all prefilled before the window). Reports
     wall and device time per step, the device's idle share, and the
     kernels that take the device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from distributedtraining_tpu_torch.engine.serve import GenerationEngine
     from distributedtraining_tpu_torch.models import gpt2
     cfg = gpt2.PRESETS["gpt2-124m"]
@@ -1269,7 +1314,6 @@ def phase_profile(tree) -> dict:
     state = gpt2.params_from_numpy(tree, device="cuda")
     prompts = _prompts((8, 40, 100, 200, 350, 500, 700, 900),
                        cfg.vocab_size, SEED + 2)
-    n_steps = 8
     eng = GenerationEngine(model, state, device="cuda", max_slots=8,
                            page_size=16)
     try:
@@ -1278,16 +1322,35 @@ def phase_profile(tree) -> dict:
         for _ in range(4):                 # admit + prefill all, warm up
             eng.step()
         check(eng.active_count == len(prompts), "profile batch not full")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                eng.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        res = _profile_steps(eng, 8, "paged_decode")
     finally:
         eng.close()
+    busy = res["device_ms_per_step"]
+    res.update(batch=len(prompts), paged_decode_share=(
+        res["paged_decode_ms_per_step"] / busy if busy else None))
+    log("profile:", json.dumps(res))
+    log(f"decode step: {res['device_ms_per_step']} device ms, the paged "
+        f"kernel {res['paged_decode_ms_per_step']} ms "
+        f"({res['paged_decode_share']} of it)")
+    return res
+
+
+def _profile_steps(eng, n_steps: int, marker: str) -> dict:
+    """torch.profiler over ``n_steps`` steady steps of ``eng`` (its slots
+    already full): wall and device ms a step, the idle share, launches a
+    step, the device ms of the kernels whose name holds ``marker``, and
+    the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels: dict[str, list] = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
@@ -1295,23 +1358,17 @@ def phase_profile(tree) -> dict:
             k[0] += evt.time_range.elapsed_us() / 1e3
             k[1] += 1
     busy_ms = sum(v[0] for v in kernels.values())
-    paged = sum(v[0] for n, v in kernels.items() if "paged_decode" in n)
+    mine = sum(v[0] for n, v in kernels.items() if marker in n)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    res = {"steps": n_steps, "batch": len(prompts),
-           "wall_ms_per_step": wall_ms / n_steps,
-           "device_ms_per_step": busy_ms / n_steps,
-           "idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
-           "kernels_per_step": sum(v[1] for v in kernels.values()) / n_steps,
-           "paged_decode_ms_per_step": paged / n_steps,
-           "paged_decode_share": paged / busy_ms if busy_ms else None,
-           "top_kernels": [{"name": n[:80], "ms_per_step": v[0] / n_steps,
-                            "launches_per_step": v[1] / n_steps}
-                           for n, v in top]}
-    log("profile:", json.dumps(res))
-    log(f"decode step: {res['device_ms_per_step']} device ms, the paged "
-        f"kernel {res['paged_decode_ms_per_step']} ms "
-        f"({res['paged_decode_share']} of it)")
-    return res
+    return {"steps": n_steps, "wall_ms_per_step": wall_ms / n_steps,
+            "device_ms_per_step": busy_ms / n_steps,
+            "idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
+            "kernels_per_step": sum(v[1] for v in kernels.values())
+            / n_steps,
+            f"{marker}_ms_per_step": mine / n_steps,
+            "top_kernels": [{"name": n[:80], "ms_per_step": v[0] / n_steps,
+                             "launches_per_step": v[1] / n_steps}
+                            for n, v in top]}
 
 
 # ---------------------------------------------------------------------------
@@ -4945,12 +5002,14 @@ def _disagg_parity(cfg, tree, prompts, lanes, device, *,
     every request adopted with no re-prefill, the pools audited every
     step, greedy lanes token identical, and each request's first
     differing token (if any) a near-tie (:func:`_divergence_readings`)."""
+    from distributedtraining_tpu_torch import models
     from distributedtraining_tpu_torch.engine import kv_transfer as kvt
     from distributedtraining_tpu_torch.engine import serve
-    from distributedtraining_tpu_torch.models import gpt2
     from distributedtraining_tpu_torch.transport import InMemoryTransport
-    model, _ = gpt2.make_model(cfg)
-    state = gpt2.params_from_numpy(tree, device=device)
+    model, _ = models.make_model(cfg)
+    # a numpy tree, or a state dict already placed
+    state = tree if not any(isinstance(v, dict) for v in tree.values()) \
+        else models.params_from_numpy(tree, device=device)
     store: dict = {}
     side = [None]
     undo = _record_rows(store, side)
@@ -7553,6 +7612,809 @@ def sp_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 26. llama: the Llama family on the serving path
+# ---------------------------------------------------------------------------
+
+LLAMA_PRESET = "llama3-8b"
+# the drafter: GPT-2-124M's widths over the target's vocabulary
+LLAMA_DRAFT_PRESET = "gpt2-124m"
+# the paged kernels' Llama contexts: 8 slots at about phase 21's lengths
+# (a 512-token system prompt, its suffixes, tokens decoded), a table of
+# the engine's bucket for them (64 pages of 16)
+LLAMA_DECODE_LENS = [520, 525, 531, 536, 542, 547, 553, 559]
+LLAMA_MP = 64
+LLAMA_NEW = 32
+LLAMA_DRAFT_K = 4
+# the server CLI's base: the shard set (32.12 GB) on a disk, and the
+# monolithic file (32.12 GB, past the read cap: only its hash is read) in
+# RAM under LLAMA_SHM, since the card's machine takes 45 GiB of disk writes
+# a call; the host holds the tree and the RAM file while publishing
+LLAMA_SHM = "/dev/shm"
+LLAMA_DISK_BYTES = 35 * 10**9
+LLAMA_SHM_BYTES = 33 * 10**9
+LLAMA_HOST_BYTES = 70 * 10**9
+LLAMA_CLI_TIMEOUT_S = 900.0
+
+
+def _llama_cfg(**kw):
+    from distributedtraining_tpu_torch.models import llama
+    return dataclasses.replace(llama.PRESETS[LLAMA_PRESET], **kw)
+
+
+def _drawn_state(cfg, seed: int) -> dict:
+    """A state dict of ``cfg``'s family drawn on the card from a seeded
+    ``torch.Generator``, in the JAX init's distributions: norm scales 1,
+    biases 0, GPT-2's ``wpe`` normal 0.01, every other leaf normal 0.02,
+    in the storage dtype."""
+    import torch
+    from distributedtraining_tpu_torch import models
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    out = {}
+    for name, p in models.make_model(cfg)[0].state_dict().items():
+        if name.endswith(".scale"):
+            t = torch.ones(p.shape, dtype=p.dtype, device=DEV)
+        elif name.endswith(".bias"):
+            t = torch.zeros(p.shape, dtype=p.dtype, device=DEV)
+        else:
+            std = 0.01 if name == "wpe" else 0.02
+            t = torch.randn(p.shape, generator=g, dtype=torch.float32,
+                            device=DEV).mul_(std).to(p.dtype)
+        out[name] = t
+    return out
+
+
+def _timings(fn, plain, lib, bound) -> dict:
+    """A kernel call's ``_time_ms`` and profiler device ms beside its
+    plain version's, the library call's and the bound."""
+    return {"ms": _time_ms(fn), "device_ms": _device_ms(fn),
+            "plain_ms": _time_ms(plain), "library_ms": _time_ms(lib),
+            "library_device_ms": _device_ms(lib), "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
+def _llama_flash_case(B, T, H, D, seg, dtype, seed):
+    """q, k, v as a Llama's prefill makes them (contiguous q; k and v
+    with their kv heads repeated to the query heads) and int32 ids."""
+    import torch
+    cfg = _llama_cfg()
+    g = torch.Generator().manual_seed(seed)
+    rep = cfg.n_head // cfg.n_kv_head
+    q = torch.randn((B, T, H, D), generator=g)
+    k, v = (torch.randn((B, T, H // rep, D), generator=g)
+            .repeat_interleave(rep, dim=2) for _ in range(2))
+    st = torch.from_numpy(seg.copy()).to(DEV, torch.int32)
+    return (q.to(DEV, dtype), k.to(DEV, dtype), v.to(DEV, dtype), st)
+
+
+def _masked_sdpa(q, k, v, st):
+    """SDPA with the flash kernel's mask (causal, same segment) as a
+    boolean mask: one library call for the same function."""
+    import torch
+    T = q.shape[1]
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    mask = (causal[None] & (st[:, :, None] == st[:, None, :]))[:, None]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask)
+
+
+def _llama_kernels(tok) -> dict:
+    """26a: the paged decode, window and flash forward kernels at
+    Llama-3-8B's heads (32 query heads over 8 kv heads, D 128) against
+    their plain versions, in f32 (1e-5) and bf16 (2e-2; the window also
+    within its per-element limit), then timed in bf16."""
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import paged_attention as pa
+    cfg = _llama_cfg()
+    Hq, Hkv, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    checks = []
+    for dtype, tol in tols.items():
+        dt = str(dtype).split(".")[1]
+        args = _decode_case(8, Hq, Hkv, D, 16, LLAMA_MP, LLAMA_DECODE_LENS,
+                            dtype, SEED + 26)
+        out = pa.paged_decode_attention(*args)
+        ref = pa.paged_decode_reference(*args)
+        split = pa.paged_decode_split_reference(*args)
+        checks.append({"kernel": "paged_decode_attention", "dtype": dt,
+                       "tol": tol, "max_abs_err": _max_err(out, ref),
+                       "max_abs_err_split": _max_err(out, split),
+                       "finite": bool(torch.isfinite(out).all())})
+        for name, (B, W, lens) in {
+                "verify_w5": (8, 1 + LLAMA_DRAFT_K, LLAMA_DECODE_LENS),
+                "suffix_w64_ctx512": (1, 64, [512])}.items():
+            wargs = _window_case(B, W, lens, dtype, SEED + 27, Hq=Hq,
+                                 Hkv=Hkv, D=D, MP=LLAMA_MP)
+            out = pa.paged_window_attention(*wargs)
+            f32 = [a.float() if a.is_floating_point() else a for a in wargs]
+            ref = pa.paged_decode_reference(*f32)
+            split = pa.paged_window_split_reference(*wargs)
+            row = {"kernel": "paged_window_attention", "shape": name,
+                   "dtype": dt, "tol": tol, "max_abs_err": _max_err(out, ref),
+                   "max_abs_err_split": _max_err(out, split),
+                   "finite": bool(torch.isfinite(out).all())}
+            if dtype == torch.bfloat16:
+                row["limit_ratio"] = _window_bf16_ratio(out, ref)
+                row["limit_ratio_split"] = _window_bf16_ratio(out, split)
+            checks.append(row)
+    segs = _llama_flash_segs(tok)
+    for name, seg in segs.items():
+        B, T = seg.shape
+        for dtype, tol in tols.items():
+            q, k, v, st = _llama_flash_case(B, T, Hq, D, seg, dtype,
+                                            SEED + 28)
+            o, lse = fa.flash_attention_fwd(q, k, v, st)
+            ref_o, ref_lse = fa.flash_attention_reference(
+                q.float(), k.float(), v.float(), st)
+            scaled = dtype == torch.bfloat16
+            checks.append({
+                "kernel": "flash_attention_fwd", "shape": name,
+                "dtype": str(dtype).split(".")[1], "tol": tol,
+                "max_abs_err": max(_max_err(o, ref_o, scaled),
+                                   _max_err(lse, ref_lse, scaled)),
+                "finite": bool(torch.isfinite(o).all()
+                               and torch.isfinite(lse).all())})
+            del q, k, v, o, lse, ref_o, ref_lse
+    torch.cuda.synchronize()
+    log("llama kernels:", json.dumps(checks))
+    for c in checks:
+        at = f"{c['kernel']} {c.get('shape', '')} {c['dtype']} (Llama heads)"
+        check(c["finite"], f"{at}: non-finite output")
+        check(c["max_abs_err"] <= c["tol"],
+              f"{at}: max err {c['max_abs_err']} > {c['tol']}")
+        if "max_abs_err_split" in c:
+            check(c["max_abs_err_split"] <= c["tol"],
+                  f"{at}: against the plain split version "
+                  f"{c['max_abs_err_split']} > {c['tol']}")
+        for key in ("limit_ratio", "limit_ratio_split"):
+            if key in c:
+                check(c[key] <= 1.0, f"{at}: {key} {c[key]}")
+    # timed in bf16, the served dtype
+    bf = torch.bfloat16
+    timed = {}
+    args = _decode_case(8, Hq, Hkv, D, 16, LLAMA_MP, LLAMA_DECODE_LENS, bf,
+                        SEED + 26)
+    timed["paged_decode_attention"] = {
+        "shape": f"B 8, Hq {Hq}, Hkv {Hkv}, D {D}, P 16, MP {LLAMA_MP}, "
+                 f"contexts {LLAMA_DECODE_LENS[0]}-{LLAMA_DECODE_LENS[-1]}",
+        **_timings(lambda: pa.paged_decode_attention(*args),
+                   lambda: pa.paged_decode_reference(*args),
+                   _library_call(args), _bound(args, 2))}
+    for name, (B, W, lens) in {
+            "verify_w5": (8, 1 + LLAMA_DRAFT_K, LLAMA_DECODE_LENS),
+            "suffix_w64_ctx512": (1, 64, [512])}.items():
+        wargs = _window_case(B, W, lens, bf, SEED + 27, Hq=Hq, Hkv=Hkv, D=D,
+                             MP=LLAMA_MP)
+        timed[f"paged_window_attention_{name}"] = _timings(
+            lambda: pa.paged_window_attention(*wargs),
+            lambda: pa.paged_decode_reference(*wargs),
+            _window_library(wargs), _window_bound(wargs, 2))
+    for name, seg in segs.items():
+        B, T = seg.shape
+        q, k, v, st = _llama_flash_case(B, T, Hq, D, seg, bf, SEED + 28)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        timed[f"flash_attention_fwd_{name}"] = {
+            **_timings(lambda: fa.flash_attention_fwd(q, k, v, st),
+                       lambda: fa.flash_attention_reference(q, k, v, st),
+                       _masked_sdpa(q, k, v, st),
+                       _flash_bounds(B, T, Hq, D, seg, 2)[
+                           "flash_attention_fwd"]),
+            # SDPA's flash route: every causal pair, no ids
+            "library_causal_ms": _time_ms(lambda: sdpa(qt, kt, vt,
+                                                       is_causal=True))}
+        del q, k, v, st, qt, kt, vt
+    torch.cuda.empty_cache()
+    res = {"checks": checks, "timed": timed, "timed_dtype": "bfloat16",
+           "flash_shapes": {n: list(s.shape) for n, s in segs.items()},
+           "clocks": _smi_clocks()}
+    log("llama kernel timings:", json.dumps(timed))
+    return res
+
+
+def _llama_flash_segs(tok) -> dict:
+    """The flash forward's Llama shapes: the main path's full prefill of
+    phase 21's first request (515 prompt rows in a 1024-row bucket, the
+    padding segment 0), a 576-token prompt whole, and a real packed
+    batch of 8 x 512."""
+    import numpy as np
+    return {
+        "prefill_b1_t1024_n515": (np.arange(1024)[None, :] < 515).astype(
+            np.int32),
+        "b1_t576": np.ones((1, 576), np.int32),
+        "packed_b8_t512": np.ascontiguousarray(_batches(
+            tok, split="train", batch_size=8, seq_len=512,
+            n=1)[0]["segment_ids"]).astype(np.int32)}
+
+
+def _llama_f32(tok) -> dict:
+    """26b: Llama-3-8B's widths at 2 layers in f32 (TF32 off): the
+    engine's greedy tokens equal ``reference_generate``'s and its pool
+    holds 8 kv heads; then the f32 prefill/decode pair against the
+    unified engine on phase 21's traffic (``_disagg_parity``)."""
+    import torch
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.serve import (
+        GenerationEngine, reference_generate)
+    cfg = _llama_cfg(n_layer=2, dtype="float32")
+    model, _ = models.make_model(cfg)
+    state = _drawn_state(cfg, SEED + 1)
+    prompts = _prompts((5, 16, 17, 200), cfg.vocab_size, SEED + 1)
+    eng = GenerationEngine(model, state, device=DEV, max_slots=4,
+                           page_size=16)
+    try:
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, 16)
+        eng_s = time.perf_counter() - t0
+        pool = list(eng._kv[0].shape)
+    finally:
+        eng.close()
+    t0 = time.perf_counter()
+    refs = [reference_generate(model, state, p, 16) for p in prompts]
+    ref_s = time.perf_counter() - t0
+    check(out == refs, f"llama f32 engine output differs from "
+                       f"reference_generate: {out} vs {refs}")
+    check(pool[3] == cfg.n_kv_head,
+          f"llama f32 pool {pool}: head axis is not n_kv_head")
+    res = {"identity": {"prompts": [len(p) for p in prompts],
+                        "new_tokens": 16, "token_identical": True,
+                        "pool_shape": pool, "engine_s": eng_s,
+                        "reference_s": ref_s,
+                        "distinct_tokens": [len(set(o)) for o in out]}}
+    s_prompts, lanes = _s6b_traffic(cfg.vocab_size)
+    res["disagg_pair"] = _disagg_parity(cfg, state, s_prompts, lanes, DEV)
+    del state
+    torch.cuda.empty_cache()
+    log("llama f32:", json.dumps(res))
+    return res
+
+
+def _hook_traces():
+    """Keep every finished request trace's (ttft_ms, tpot_ms). Returns
+    (list, undo)."""
+    from distributedtraining_tpu_torch.utils import reqtrace
+    real = reqtrace.TraceBook.finish
+    seen: list = []
+
+    def finish(book, req, status):
+        tr = real(book, req, status)
+        if tr is not None:
+            seen.append((tr.ttft_ms, tr.tpot_ms))
+        return tr
+    reqtrace.TraceBook.finish = finish
+    return seen, lambda: setattr(reqtrace.TraceBook, "finish", real)
+
+
+def _drive(eng, bodies, **kw) -> list:
+    """Every body submitted at once, the engine stepped until all are
+    done (or prefilled on a prefill worker)."""
+    reqs = [eng.submit(b["tokens"], b["max_new_tokens"],
+                       temperature=b.get("temperature", 0.0),
+                       top_p=b.get("top_p", 1.0), seed=b.get("seed", 0),
+                       **(kw.get("per_req") or [{}] * len(bodies))[i])
+            for i, b in enumerate(bodies)]
+    while not all(r.done_evt.is_set() for r in reqs):
+        eng.step()
+    return reqs
+
+
+def _llama_serving_want(cfg, eng, draft=None, dcfg=None) -> dict:
+    """The launches a run must have made: n_layer x each dispatch kind
+    of the target, and the drafter's n_layer x its steps and prefills."""
+    L = cfg.n_layer
+    dl = dcfg.n_layer if draft is not None else 0
+    return {"paged_decode_attention": L * eng.decode_dispatches
+            + (dl * draft.step_dispatches if draft else 0),
+            "paged_window_attention": L * (eng.suffix_prefills
+                                           + eng.verify_dispatches),
+            "flash_attention_fwd": L * eng.full_prefills
+            + (dl * draft.prefill_dispatches if draft else 0)}
+
+
+def _llama_run(model, state, cfg, bodies, prompts, *, draft=None,
+               dcfg=None, what: str) -> dict:
+    """Phase 21's traffic through one engine (prefix cache on, 8 slots,
+    page 16, the default pool) after a short warm-up request: every
+    request done with its 32 tokens, prefix hits >= 7, launches exact,
+    ttft and tpot from the request traces."""
+    import torch
+    from distributedtraining_tpu_torch.engine.serve import GenerationEngine
+    launches = _s6b_launches()
+    kw = dict(device=DEV, max_slots=8, page_size=16, prefix_cache=True,
+              revision="seed0")
+    if draft is not None:
+        kw.update(draft=draft, draft_k=LLAMA_DRAFT_K)
+    eng = GenerationEngine(model, state, **kw)
+    seen, undo = _hook_traces()
+    try:
+        # cuBLAS and the allocator warm up off the measured run
+        _drive(eng, [{"tokens": prompts[0][-4:], "max_new_tokens": 2}])
+        for key in ("decode_dispatches", "verify_dispatches",
+                    "full_prefills", "suffix_prefills", "tokens_emitted",
+                    "spec_fallbacks", "_spec_proposed", "_spec_accepted"):
+            setattr(eng, key, 0)
+        if draft is not None:
+            draft.step_dispatches = draft.prefill_dispatches = 0
+        hits0 = eng.prefix_hits
+        seen.clear()
+        torch.cuda.reset_peak_memory_stats()
+        launches(zero=True)
+        t0 = time.perf_counter()
+        reqs = _drive(eng, bodies)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launches()
+        peak = torch.cuda.max_memory_allocated()
+        for r in reqs:
+            check(r.status == "done" and len(r.tokens) == LLAMA_NEW,
+                  f"{what}: request {r.rid} {r.status} with "
+                  f"{len(r.tokens)} tokens")
+            check(all(0 <= x < cfg.vocab_size for x in r.tokens),
+                  f"{what}: token outside the vocabulary")
+        hits = eng.prefix_hits - hits0
+        check(hits >= len(bodies) - 1, f"{what}: prefix hits {hits}")
+        want = _llama_serving_want(cfg, eng, draft, dcfg)
+        _check_launches(what, got, want)
+        check(eng.full_prefills > 0 and eng.suffix_prefills > 0
+              and eng.decode_dispatches + eng.verify_dispatches > 0,
+              f"{what}: a kernel of the path never ran")
+        res = {
+            "wall_s": wall, "tokens": eng.tokens_emitted,
+            "tokens_per_s": eng.tokens_emitted / wall,
+            "ttft_ms_p50": _pct([a for a, _ in seen], 50),
+            "ttft_ms_p95": _pct([a for a, _ in seen], 95),
+            "tpot_ms_p50": _pct([b for _, b in seen], 50),
+            "tpot_ms_p95": _pct([b for _, b in seen], 95),
+            "prefix_hits": hits, "peak_cuda_mem_bytes": peak,
+            "pool_shape": list(eng._kv[0].shape),
+            "dispatches": {"decode": eng.decode_dispatches,
+                           "verify": eng.verify_dispatches,
+                           "full_prefill": eng.full_prefills,
+                           "suffix_prefill": eng.suffix_prefills},
+            "launches": got, "tokens_out": [r.tokens for r in reqs]}
+        if draft is not None:
+            check(eng._spec_proposed > 0 and eng.verify_dispatches > 0
+                  and draft.step_dispatches > 0 and eng.spec_fallbacks == 0,
+                  f"{what}: it did not draft (proposed "
+                  f"{eng._spec_proposed}, verifies "
+                  f"{eng.verify_dispatches}, drafter steps "
+                  f"{draft.step_dispatches}, fallbacks "
+                  f"{eng.spec_fallbacks})")
+            res.update(accept_rate=eng.spec_accept_rate,
+                       spec_proposed=eng._spec_proposed,
+                       spec_fallbacks=eng.spec_fallbacks,
+                       drafter_steps=draft.step_dispatches,
+                       drafter_prefills=draft.prefill_dispatches)
+        else:
+            # a steady decode step's device time: the 8 requests again
+            # (prefix hits), admitted, then profiled
+            for b in bodies:
+                eng.submit(b["tokens"], LLAMA_NEW)
+            for _ in range(3):
+                eng.step()
+            check(eng.active_count == len(bodies),
+                  f"{what}: profile batch not full")
+            res["decode_profile"] = _profile_steps(eng, 6, "paged_decode")
+    finally:
+        undo()
+        eng.close()
+    return res
+
+
+def _llama_disagg(model, state, cfg, bodies, work: str) -> dict:
+    """26e: a prefill and a decode engine sharing the one placed weight
+    set (install_params copies no tensor already on the card), the
+    Llama pages over a LocalFS transport: every request adopted with no
+    re-prefill, each worker's launches exact, the bytes moved."""
+    import torch
+    from distributedtraining_tpu_torch.engine import kv_transfer as kvt
+    from distributedtraining_tpu_torch.engine.serve import GenerationEngine
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    launches = _s6b_launches()
+    root = os.path.join(work, "kv")
+    tr = LocalFSTransport(root)
+    kw = dict(device=DEV, max_slots=8, page_size=16, prefix_cache=True,
+              revision="seed0")
+    pre = GenerationEngine(model, state, phase="prefill",
+                           kv_exporter=kvt.KVExporter(tr), **kw)
+    dec = GenerationEngine(model, state, phase="decode",
+                           kv_adopter=kvt.KVAdopter(tr), **kw)
+    try:
+        for name, t in state.items():
+            for e in (pre, dec):
+                check(e.model.get_parameter(name).data_ptr()
+                      == t.data_ptr(),
+                      f"llama disagg: {name} was copied at install")
+        launches(zero=True)
+        t0 = time.perf_counter()
+        legs = _drive(pre, bodies, per_req=[
+            {"request_id": f"rq-llama-{i}"} for i in range(len(bodies))])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        got_pre = launches()
+        launches(zero=True)
+        t0 = time.perf_counter()
+        outs = _drive(dec, bodies, per_req=[
+            {"kv_ref": r.kv_ref, "first_token": r.first_token}
+            for r in legs])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        got_dec = launches()
+        n = len(bodies)
+        check((pre.kv_exported, dec.kv_adopted, dec.kv_reprefills,
+               dec.kv_rev_mismatch) == (n, n, 0, 0),
+              f"llama disagg: exported {pre.kv_exported}, adopted "
+              f"{dec.kv_adopted}, re-prefills {dec.kv_reprefills}, skews "
+              f"{dec.kv_rev_mismatch} of {n}")
+        check(all(r.status == "done" and len(r.tokens) == LLAMA_NEW
+                  for r in outs), "llama disagg: a request not done")
+        check(dec.full_prefills == dec.suffix_prefills == 0
+              and pre.decode_dispatches == 0,
+              "llama disagg: a worker ran the other's phase")
+        L = cfg.n_layer
+        _check_launches("llama prefill worker", got_pre, {
+            "flash_attention_fwd": L * pre.full_prefills,
+            "paged_window_attention": L * pre.suffix_prefills})
+        _check_launches("llama decode worker", got_dec, {
+            "paged_decode_attention": L * dec.decode_dispatches})
+        kv_dir = os.path.join(root, "deltas")
+        sizes = [os.path.getsize(os.path.join(kv_dir, f))
+                 for f in os.listdir(kv_dir) if f.startswith("__kv__.s.")]
+        res = {"requests": n, "adopted": dec.kv_adopted,
+               "reprefills": dec.kv_reprefills,
+               "prefill_leg_s": prefill_s, "decode_leg_s": decode_s,
+               "pages_published": len(sizes), "page_bytes": sum(sizes),
+               "page_bytes_each": max(sizes) if sizes else 0,
+               "launches_prefill": got_pre, "launches_decode": got_dec,
+               "dispatches": {"full_prefill": pre.full_prefills,
+                              "suffix_prefill": pre.suffix_prefills,
+                              "decode": dec.decode_dispatches},
+               "weights_shared": True}
+    finally:
+        pre.close()
+        dec.close()
+    return res
+
+
+def _fs_of(path: str) -> str:
+    """The filesystem type /proc/mounts gives the mount holding ``path``."""
+    path = os.path.realpath(path)
+    best, fstype = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1].replace("\\040", " ")
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best):
+                best, fstype = mnt, parts[2]
+    return fstype
+
+
+def _host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _llama_disk() -> dict:
+    """Where the server CLI's root goes: the shard set in the first of
+    the temporary directory and the checkout that is on a disk (not
+    tmpfs or ramfs) with LLAMA_DISK_BYTES free, the monolithic file in
+    LLAMA_SHM. Prints each candidate's free bytes and filesystem and the
+    host's available memory, then fails unless all suffice: no depth
+    cut, no fallback."""
+    import shutil
+    import tempfile
+    seen = []
+    for d in (tempfile.gettempdir(), ROOT, LLAMA_SHM):
+        seen.append({"dir": d, "free_bytes": shutil.disk_usage(d).free,
+                     "fs": _fs_of(d)})
+    avail = _host_available_bytes()
+    print(json.dumps({"llama_host": {"candidates": seen,
+                                     "mem_available_bytes": avail,
+                                     "need_disk_bytes": LLAMA_DISK_BYTES,
+                                     "need_shm_bytes": LLAMA_SHM_BYTES,
+                                     "need_host_bytes": LLAMA_HOST_BYTES}}),
+          flush=True)
+    ok = [c for c in seen[:2] if c["fs"] not in ("tmpfs", "ramfs")
+          and c["free_bytes"] >= LLAMA_DISK_BYTES]
+    check(ok, f"llama server CLI: no disk with {LLAMA_DISK_BYTES} bytes "
+              f"free for the 8B base's shard set: {seen}")
+    check(seen[2]["free_bytes"] >= LLAMA_SHM_BYTES,
+          f"llama server CLI: {LLAMA_SHM} has {seen[2]['free_bytes']} "
+          f"bytes free, {LLAMA_SHM_BYTES} needed for the monolithic file")
+    check(avail >= LLAMA_HOST_BYTES,
+          f"llama server CLI: {avail} bytes of host memory available, "
+          f"{LLAMA_HOST_BYTES} needed to publish the 8B base")
+    return {**ok[0], "candidates": seen, "mem_available_bytes": avail}
+
+
+def _llama_cli(tree, cfg, bodies, disk: dict) -> dict:
+    """26f: the server CLI with ``--model llama3-8b`` (the JAX server's
+    defaults; only the corpus, tokenizer, port, a 1 s swap poll and a
+    step bound given) over a LocalFS root on ``disk`` whose base the
+    port published: the monolithic file (the revision is its hash; at
+    32.12 GB it is past the 8 GiB read cap, so no fetcher can read it;
+    its directory is a link into LLAMA_SHM), then the shard set and
+    manifest on the disk (BasePublisher). Every request done
+    on that revision, pulled through the manifest with no monolithic
+    fallback, launches exact; the publish, pull and boot seconds."""
+    import tempfile
+    from distributedtraining_tpu_torch.engine import basedist
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    pulls: list = []
+    real_fetch = basedist.BaseFetcher.fetch
+
+    def fetch(f, *a, **kw):
+        t0 = time.perf_counter()
+        out = real_fetch(f, *a, **kw)
+        pulls.append({"s": time.perf_counter() - t0,
+                      "sharded": f.sharded_fetches_total,
+                      "fallbacks": f.fallbacks_total,
+                      "bytes": f.last_fetch_bytes, "ok": out is not None})
+        return out
+
+    with tempfile.TemporaryDirectory(dir=disk["dir"]) as work, \
+            tempfile.TemporaryDirectory(dir=LLAMA_SHM) as ram:
+        os.makedirs(os.path.join(work, "artifacts"))
+        os.symlink(ram, os.path.join(work, "artifacts", "base"))
+        t = LocalFSTransport(os.path.join(work, "artifacts"))
+        t0 = time.perf_counter()
+        rev = t.publish_base(tree)
+        mono_s = time.perf_counter() - t0
+        pub = basedist.BasePublisher(t)
+        t0 = time.perf_counter()
+        check(pub.publish_revision(tree, rev),
+              "llama server CLI: the sharded publish failed")
+        sharded_s = time.perf_counter() - t0
+        tree.clear()
+        gc.collect()
+        mono_bytes = os.path.getsize(os.path.join(
+            ram, "averaged_model.msgpack"))
+        log(f"llama base published: monolithic {mono_bytes} B in "
+            f"{mono_s:.1f} s, {pub.last_publish} in {sharded_s:.1f} s")
+        port = _free_port()
+        argv = ["--model", LLAMA_PRESET, "--work-dir", work, "--dataset",
+                "synthetic", "--tokenizer", "word", "--serve-port",
+                str(port), "--swap-poll", "1", "--max-steps", "100000"]
+        basedist.BaseFetcher.fetch = fetch
+        try:
+            run = _server_cli(argv, port, bodies, None,
+                              timeout=LLAMA_CLI_TIMEOUT_S)
+        finally:
+            basedist.BaseFetcher.fetch = real_fetch
+    eng = run["engine"]
+    for code, out in run["results"]:
+        check(code == 200 and out["status"] == "done"
+              and len(out["tokens"]) == LLAMA_NEW,
+              f"llama server CLI: request not done: {code} {out}")
+        check(out["revision"] == rev,
+              f"llama server CLI: answered on {out['revision']}, not the "
+              f"boot base {rev}")
+    check(pulls and pulls[0]["ok"] and pulls[0]["sharded"] == 1
+          and all(p["fallbacks"] == 0 for p in pulls),
+          f"llama server CLI: the boot pull was not sharded: {pulls}")
+    check(eng.prefix_hits >= len(bodies) - 1,
+          f"llama server CLI: prefix hits {eng.prefix_hits}")
+    want = _llama_serving_want(cfg, eng)
+    _check_launches("llama server CLI", run["launches"], want)
+    check(eng.decode_dispatches > 0 and eng.suffix_prefills > 0
+          and eng.full_prefills > 0,
+          "llama server CLI: a kernel of the path never ran")
+    ttft = [a for a, _ in run["traces"]]
+    tpot = [b for _, b in run["traces"]]
+    return {"argv": argv, "rc": run["rc"], "revision": rev,
+            "disk": {k: disk[k] for k in ("dir", "fs", "free_bytes")},
+            "monolithic_dir": LLAMA_SHM,
+            "monolithic_bytes": mono_bytes,
+            "shards": pub.last_publish, "monolithic_publish_s": mono_s,
+            "sharded_publish_s": sharded_s, "pulls": pulls,
+            "boot_s": run["boot_s"], "wall_s": run["wall_s"],
+            "tokens_per_s": run["tokens_in_wall"] / run["wall_s"],
+            "ttft_ms_p50": _pct(ttft, 50), "tpot_ms_p50": _pct(tpot, 50),
+            "prefix_hits": eng.prefix_hits,
+            "dispatches": {"decode": eng.decode_dispatches,
+                           "full_prefill": eng.full_prefills,
+                           "suffix_prefill": eng.suffix_prefills},
+            "launches": run["launches"]}
+
+
+class LlamaCli:
+    """26f in a child process (``--llama-cli OUT``), started before the
+    phases it overlaps (22-25 in the whole script): its 8B base's
+    publish and pull are host and disk work (~400 s on the card's
+    machine), and its kernel launches count in its own process. The
+    child draws the same seeded weights as this process's engines; it
+    holds the card only while its server loads and serves, so the
+    in-process 8B steps wait for it (:meth:`join`)."""
+
+    def __init__(self):
+        import tempfile
+        self.tmp = tempfile.mkdtemp()
+        self.out = os.path.join(self.tmp, "cli.json")
+        self.log = open(os.path.join(self.tmp, "cli.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--llama-cli",
+             self.out], stdout=self.log, stderr=subprocess.STDOUT,
+            cwd=ROOT)
+
+    def join(self) -> dict:
+        """Wait for the child; its result with its seconds, and the
+        seconds this process waited. A child that failed fails the
+        phase, its log's tail logged first."""
+        import shutil
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=LLAMA_CLI_TIMEOUT_S)
+        finally:
+            self.close()
+        waited = time.perf_counter() - t0
+        with open(os.path.join(self.tmp, "cli.log")) as f:
+            text = f.read()
+        host = [ln for ln in text.splitlines()
+                if ln.startswith('{"llama_host"')]
+        if host:
+            print(host[0], flush=True)
+        if rc:
+            log(f"--- llama server CLI child (exit {rc}):\n{text[-8000:]}")
+        check(rc == 0, f"llama server CLI child exited {rc}")
+        with open(self.out) as f:
+            res = json.load(f)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        return {**res, "child_s": time.perf_counter() - self.t0,
+                "waited_s": waited}
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def llama_cli_child(out: str) -> int:
+    """``--llama-cli OUT``: 26f. Checks the disk and the host, draws the
+    8B weights on the card (seed SEED, as the parent's engines do),
+    copies them to the host, frees the card, then ``_llama_cli``; its
+    result as JSON in OUT."""
+    phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributedtraining_tpu_torch import models
+    disk = _llama_disk()
+    cfg = _llama_cfg()
+    state = _drawn_state(cfg, SEED)
+    t0 = time.perf_counter()
+    tree = models.params_to_numpy(state)
+    d2h_s = time.perf_counter() - t0
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, bodies = _serve6_traffic(cfg.vocab_size)
+    res = _llama_cli(tree, cfg, bodies, disk)
+    res.update(d2h_s=d2h_s, host=disk)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_llama(tok, cli: LlamaCli | None = None) -> dict:
+    """Phase 26 (see the module docstring): 26f in the child ``cli``
+    (started here when None), 26a-b, then, once the child is done,
+    26c-e; ``times_s`` holds each step's seconds."""
+    import tempfile
+    import torch
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine import speculative as spec
+    t0 = time.perf_counter()
+    cli = cli or LlamaCli()
+    times: dict = {}
+
+    def timed(name, fn, *a, **kw):
+        t1 = time.perf_counter()
+        out = None
+        try:
+            out = fn(*a, **kw)
+            return out
+        finally:
+            times[name] = time.perf_counter() - t1
+            log(f"llama step {name}: {times[name]:.1f} s")
+            if isinstance(out, dict):
+                log(f"llama {name}:", json.dumps(out, default=str)[:20000])
+
+    try:
+        res: dict = {"preset": LLAMA_PRESET, "times_s": times}
+        res["kernels"] = timed("kernels", _llama_kernels, tok)
+        res["f32"] = timed("f32", _llama_f32, tok)
+        res["cli"] = timed("cli_join", cli.join)
+    finally:
+        cli.close()
+    cfg = _llama_cfg()
+    model, _ = models.make_model(cfg)
+    state = timed("draw", _drawn_state, cfg, SEED)
+    res["n_params"] = sum(v.numel() for v in state.values())
+    prompts, bodies = _serve6_traffic(cfg.vocab_size)
+    res["engine"] = timed("engine", _llama_run, model, state, cfg, bodies,
+                          prompts, what="llama engine")
+    dcfg = dataclasses.replace(models.gpt2.PRESETS[LLAMA_DRAFT_PRESET],
+                               vocab_size=cfg.vocab_size)
+    draft = spec.DraftEngine(models.make_model(dcfg)[0],
+                             _drawn_state(dcfg, SEED + 2), device=DEV,
+                             max_slots=8, page_size=16)
+    res["speculative"] = timed("speculative", _llama_run, model, state, cfg,
+                               bodies, prompts, draft=draft, dcfg=dcfg,
+                               what="llama speculative")
+    del draft       # closed with its engine
+    on = res["speculative"].pop("tokens_out")
+    off = res["engine"].pop("tokens_out")
+    pairs = [(x, y) for a, b in zip(on, off) for x, y in zip(a, b)]
+    res["bf16_spec_agreement"] = sum(x == y for x, y in pairs) / len(pairs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        res["disagg"] = timed("disagg", _llama_disagg, model, state, cfg,
+                              bodies, work)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t0
+    log("llama:", json.dumps(res))
+    return res
+
+
+def _llama_entries(entries: list, llama: dict) -> list:
+    """The kernels line's paged decode, window and flash forward entries,
+    each with phase 26's Llama-3-8B timings and the launches of its
+    engine, speculative, disaggregated and server CLI runs."""
+    timed = llama["kernels"]["timed"]
+    runs = {"engine": llama["engine"]["launches"],
+            "speculative": llama["speculative"]["launches"],
+            "disagg": {**llama["disagg"]["launches_prefill"],
+                       **{k: v for k, v in
+                          llama["disagg"]["launches_decode"].items() if v}},
+            "cli": llama["cli"]["launches"]}
+    for e in entries:
+        keys = [k for k in timed if k.startswith(e["name"])]
+        if not keys:
+            continue
+        e["llama"] = {"timed": {k: timed[k] for k in keys},
+                      **{f"launches_{r}": got[e["name"]]
+                         for r, got in runs.items()}}
+    return entries
+
+
+PAGED_SRC = "distributedtraining_tpu_torch/csrc/paged_attention.cu"
+
+
+def llama_only() -> int:
+    """Phase 26 alone after the build (``--llama``): the kernels line of
+    the three kernels it runs (their Llama readings only), the ``llama``
+    line, the card's line and the result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    build = phase_build()
+    res = phase_llama(_tokenizer())
+    entries = [{"name": name, "route": "cuda", "source": source,
+                "build_s": build["build_s"]}
+               for name, source in (
+                   ("paged_decode_attention", PAGED_SRC),
+                   ("paged_window_attention", PAGED_SRC),
+                   ("flash_attention_fwd", FLASH_SOURCE))]
+    print(json.dumps({"kernels": _llama_entries(entries, res)}), flush=True)
+    print(json.dumps({"llama": {**res, "card": card}}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -7805,15 +8667,22 @@ def main() -> int:
     serve6 = {"window": phase_window(), "sampler": phase_sampler(),
               "server": phase_server(tree)}
     serve6["s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    serve6b = phase_serve6b(tree, tok)
-    serve6b["s"] = time.perf_counter() - t0
-    par = phase_parallel(tree, tok)
-    mesh_roles = phase_mesh_roles(tree, tok)
-    sp = phase_sp(tree, tok)
+    # 26f runs in a child beside phases 22-25 (LlamaCli)
+    cli = LlamaCli()
+    try:
+        t0 = time.perf_counter()
+        serve6b = phase_serve6b(tree, tok)
+        serve6b["s"] = time.perf_counter() - t0
+        par = phase_parallel(tree, tok)
+        mesh_roles = phase_mesh_roles(tree, tok)
+        sp = phase_sp(tree, tok)
+        torch.cuda.empty_cache()
+        llama = phase_llama(tok, cli)
+    finally:
+        cli.close()
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
-    print(json.dumps({"kernels": _with_sp_launches([{
+    print(json.dumps({"kernels": _llama_entries(_with_sp_launches([{
         "name": "paged_decode_attention",
         "route": "cuda",
         "source": "distributedtraining_tpu_torch/csrc/paged_attention.cu",
@@ -7846,7 +8715,7 @@ def main() -> int:
         *_ce_entries(ce, miner, tfused, build, defaults, slice5),
         _sharded_entry(par),
         _scatter_entry(scatter, avg, build, defaults, slice5)],
-        sp["world2"]["cli"]["sp2"]["launches"][0])}), flush=True)
+        sp["world2"]["cli"]["sp2"]["launches"][0]), llama)}), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -7875,6 +8744,9 @@ def main() -> int:
                                      - t_start}}), flush=True)
     print(json.dumps({"sp": {**sp, "card": card,
                              "total_s": time.perf_counter() - t_start}}),
+          flush=True)
+    print(json.dumps({"llama": {**llama, "card": card,
+                                "total_s": time.perf_counter() - t_start}}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -8204,6 +9076,10 @@ if __name__ == "__main__":
             sys.exit(parallel_only())
         if sys.argv[1:2] == ["--sp"]:
             sys.exit(sp_only())
+        if sys.argv[1:2] == ["--llama"]:
+            sys.exit(llama_only())
+        if sys.argv[1:2] == ["--llama-cli"]:
+            sys.exit(llama_cli_child(sys.argv[2]))
         if sys.argv[1:2] == ["--sp-worker"]:
             sys.exit(sp_worker(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4]))

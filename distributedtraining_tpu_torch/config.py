@@ -200,7 +200,7 @@ class RunConfig:
             (self.chain != "local",
              f"--chain {self.chain} (the bittensor chain needs the "
              f"network)", 7),
-            (self.lora_rank > 0, "--lora-rank > 0", 7),
+            (self.lora_rank > 0, "--lora-rank > 0 (LoRA)", "7, item 2(c)"),
             (self.role not in MESH_ROLES and (
                 m.auto or max(m.fsdp, m.sp, m.tp, m.dp, m.dcn_dp) > 1
                 or self.multihost_coordinator is not None
@@ -208,9 +208,12 @@ class RunConfig:
              f"a mesh for the {self.role} (--dp/--fsdp/--sp/--tp/"
              f"--dcn-dp/--mesh-auto, --multihost-*; the miner, validator "
              f"and averager take them)", 7),
-            (self.scan_blocks, "--scan-blocks", 7),
+            (self.scan_blocks, "--scan-blocks (the scan block layout)",
+             "7, item 2(e)"),
             (self.role != "miner" and self.remediate, "--remediate", 7),
-            (self.init_from is not None, "--init-from", 7),
+            (self.init_from is not None,
+             "--init-from (the checkpoint converters and safetensors)",
+             "7, item 2(d)"),
             (self.heartbeat_interval > 0, "--heartbeat-interval > 0", 7),
             (self.obs_port != 0, "--obs-port", 7),
             (self.compile_cache_dir is not None,
@@ -286,7 +289,9 @@ _FLAGS: list[tuple[tuple[str, ...], dict]] = [
                                  default=_D.base_mirror)),
     (("--base-store-mb",), dict(dest="base_store_mb", type=int,
                                 default=_D.base_store_mb)),
-    (("--model",), dict(default=_D.model, help="GPT-2 preset name")),
+    (("--model",), dict(default=_D.model,
+                        help="GPT-2 or Llama preset name (the Llama "
+                             "presets serve; training them is item 2(b))")),
     (("--init-from",), dict(dest="init_from", default=None)),
     (("--seq-len",), dict(dest="seq_len", type=int, default=_D.seq_len)),
     (("--eval-seq-len",), dict(dest="eval_seq_len", type=int,

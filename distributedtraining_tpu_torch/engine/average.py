@@ -721,7 +721,7 @@ class AveragerLoop:
         base: ``params`` (a nested tree or state dict, or a zero-argument
         callable returning one, invoked only here) or a random init drawn
         with numpy from ``seed`` (the same on every rank)."""
-        from ..models.gpt2 import init_params_numpy
+        from ..models import init_params_numpy
         if self._multi():
             # the coordinator reads, every rank gets the same base
             from .train import broadcast_base_fetch

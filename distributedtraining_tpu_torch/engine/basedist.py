@@ -220,13 +220,14 @@ class BasePublisher:
     def publish_revision(self, tree: Mapping, revision: str) -> bool:
         """Publish ``tree``'s shard set and manifest for the landed
         monolithic ``revision``; True when the manifest committed, False
-        (logged and counted) on any failure."""
+        (logged and counted) on any failure. Each layer is hashed from
+        its encoding's pieces and packed only when it uploads, so the
+        publish holds one shard's bytes at a time (an 8B base's 32 GB
+        would otherwise be held twice)."""
         from ..transport.retry import DEFAULT_PUBLISH_RETRY, call_with_retry
         try:
             entries = base_layer_items(tree)
-            shards = {k: ser.pack_base_shard(a) for k, a in entries.items()}
-            layers = {k: (ser.shard_digest(d), len(d))
-                      for k, d in shards.items()}
+            layers = {k: ser.base_shard_digest(a) for k, a in entries.items()}
             manifest = ser.build_base_manifest(layers, revision=revision)
         except Exception:
             obs.count("base.publish_failures")
@@ -238,7 +239,7 @@ class BasePublisher:
         shards_done = 0
         try:
             for key in changed:
-                data = shards[key]
+                data = ser.pack_base_shard(entries[key])
                 call_with_retry(
                     lambda key=key, data=data: tbase.publish_base_shard(
                         self.transport, key, data),
@@ -247,7 +248,7 @@ class BasePublisher:
                 obs.count("base.bytes_published", len(data))
                 shards_done += 1
             obs.count("base.shards_uploaded", len(changed))
-            obs.count("base.shards_skipped", len(shards) - len(changed))
+            obs.count("base.shards_skipped", len(layers) - len(changed))
             call_with_retry(
                 lambda: tbase.publish_base_manifest(
                     self.transport, revision, manifest),
@@ -269,8 +270,8 @@ class BasePublisher:
         obs.count("base.manifest_publishes")
         self._last_shards = {k: digest for k, (digest, _) in layers.items()}
         self.last_publish = {"shards_uploaded": len(changed),
-                             "shards_skipped": len(shards) - len(changed),
-                             "bytes": sum(len(shards[k]) for k in changed)
+                             "shards_skipped": len(layers) - len(changed),
+                             "bytes": sum(layers[k][1] for k in changed)
                              + len(manifest)}
         flight.record("publish", outcome="ok", hotkey=tbase.BASE_PREFIX,
                       cid=obs.current_cid() or "", wire="base")
@@ -431,8 +432,7 @@ class BaseFetcher:
         checkpoint, a monolithic fetch): each layer packed locally."""
         try:
             for arr in base_layer_items(tree).values():
-                data = ser.pack_base_shard(arr)
-                self.store.put(ser.shard_digest(data), arr)
+                self.store.put(ser.base_shard_digest(arr)[0], arr)
         except Exception:
             logger.warning("base fetch: store seeding failed",
                            exc_info=True)

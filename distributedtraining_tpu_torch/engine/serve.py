@@ -62,6 +62,7 @@ import hashlib
 import itertools
 import json
 import logging
+import re
 import threading
 import time
 import weakref
@@ -72,7 +73,7 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from ..models.gpt2 import GPT2, bind, params_from_numpy, resolve_device
+from ..models import bind, params_from_numpy, resolve_device
 from ..utils import flight, obs, prng, reqtrace
 from .kv_transfer import dtype_name
 
@@ -451,14 +452,29 @@ def host_param_template(model) -> dict:
 
 def _layer_keys(state: State) -> list[str]:
     """Transformer block prefixes of a state dict, in layer order
-    (``h_0..`` for GPT-2)."""
-    found = sorted({(int(k.split(".")[0][2:]), k.split(".")[0])
-                    for k in state
-                    if k.startswith("h_") and k.split(".")[0][2:].isdigit()})
+    (``h_0..`` for GPT-2, ``layer_0..`` for Llama)."""
+    found = set()
+    for k in state:
+        m = re.fullmatch(r"(h_|layer_)(\d+)", k.split(".")[0])
+        if m:
+            found.add((int(m.group(2)), m.group(0)))
     if not found:
-        raise ValueError("no transformer block keys (h_*) in the state; "
-                         "is this an unrolled GPT-2 base?")
-    return [k for _, k in found]
+        raise ValueError("no transformer block keys (h_*/layer_*) in the "
+                         "state; is this an unrolled GPT-2/Llama base?")
+    return [k for _, k in sorted(found)]
+
+
+def position_cap(cfg) -> int:
+    """The positions a config can encode: GPT-2's ``n_positions``, a
+    Llama's ``max_seq_len``."""
+    return getattr(cfg, "n_positions", None) or getattr(cfg,
+                                                        "max_seq_len", 0)
+
+
+def kv_heads(cfg) -> int:
+    """The heads a KV pool stores: a GQA model's ``n_kv_head``, else
+    ``n_head``."""
+    return getattr(cfg, "n_kv_head", None) or cfg.n_head
 
 
 def _kv_pages(kv: tuple[torch.Tensor, torch.Tensor]) -> list:
@@ -606,13 +622,13 @@ class BaseRevisionWatcher:
 class GenerationEngine:
     """Continuous-batching decoder over a paged KV cache.
 
-    ``model`` is a GPT2 (its config is what counts: the engine builds its
-    own copy and binds ``params``, a state dict, to it); ``device`` is
-    where the pool lives and the forward runs, ``"cuda"`` unless the
-    caller asks for the CPU. Thread contract: ``submit`` is thread-safe;
+    ``model`` is a GPT2 or a Llama (its config is what counts: the
+    engine builds its own copy and binds ``params``, a state dict, to
+    it); ``device`` is where the pool lives and the forward runs,
+    ``"cuda"`` unless the caller asks for the CPU. Thread contract: ``submit`` is thread-safe;
     ``step`` is driven from ONE thread (``ServeLoop`` or the caller)."""
 
-    def __init__(self, model: GPT2, params: State | None = None, *,
+    def __init__(self, model, params: State | None = None, *,
                  device="cuda",
                  revision: str | None = None,
                  max_slots: int = 8,
@@ -653,14 +669,14 @@ class GenerationEngine:
         self.device = resolve_device(device)
         cfg = dataclasses.replace(model.cfg, remat=False, scan_blocks=False)
         self.cfg = cfg
-        self.model: GPT2 | None = None
+        self.model = None
         self.page_size = page_size
         self.max_slots = max_slots
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
         self.swap_policy = swap_policy
         self.watcher = watcher
-        cap = cfg.n_positions
+        cap = position_cap(cfg)
         # page-align DOWN so no prefill bucket exceeds the position
         # capacity
         self.max_seq_len = (min(max_seq_len or cap, cap)
@@ -761,7 +777,7 @@ class GenerationEngine:
     def _init_kv(self) -> None:
         cfg = self.cfg
         shape = (len(self._layers), self.pool_pages, self.page_size,
-                 cfg.n_head, cfg.head_dim)
+                 kv_heads(cfg), cfg.head_dim)
         dt = cfg.compute_dtype()
         self._kv = (torch.zeros(shape, dtype=dt, device=self.device),
                     torch.zeros(shape, dtype=dt, device=self.device))

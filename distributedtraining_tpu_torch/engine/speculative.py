@@ -39,20 +39,20 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from ..models import gpt2
-from ..models.gpt2 import bind, resolve_device
+from ..models import bind, draft_compat, resolve_device
 from .serve import (DEFAULT_PAGE_SIZE, BucketLadder, PagePool, State,
                     _full_prefill, _kv_pages, _lane_seed, _layer_keys,
-                    _pick, _scatter_kv)
+                    _pick, _scatter_kv, kv_heads, position_cap)
 
 logger = logging.getLogger(__name__)
 
 
 def compat_reason(draft_model, target_cfg) -> str | None:
     """Why ``draft_model`` cannot draft for a target with ``target_cfg``
-    (None = compatible): the model family's ``draft_compat`` (the port
-    has GPT-2 models only)."""
-    return gpt2.draft_compat(draft_model.cfg, target_cfg)
+    (None = compatible): the drafter family's ``draft_compat``. The real
+    vocabularies must be equal, so a GPT-2 drafter may draft for a Llama
+    target (and the other way round) over one tokenizer."""
+    return draft_compat(draft_model.cfg, target_cfg)
 
 
 @dataclasses.dataclass
@@ -91,7 +91,7 @@ class DraftEngine:
         self.page_size = page_size
         self.max_slots = max_slots
         self.watcher = watcher
-        cap = self.cfg.n_positions
+        cap = position_cap(self.cfg)
         self.max_seq_len = (min(max_seq_len or cap, cap)
                             // page_size) * page_size
         if self.max_seq_len < page_size:
@@ -139,7 +139,7 @@ class DraftEngine:
     def _init_kv(self) -> None:
         cfg = self.cfg
         shape = (len(self._layers), self.pool_pages, self.page_size,
-                 cfg.n_head, cfg.head_dim)
+                 kv_heads(cfg), cfg.head_dim)
         dt = cfg.compute_dtype()
         self._kv = (torch.zeros(shape, dtype=dt, device=self.device),
                     torch.zeros(shape, dtype=dt, device=self.device))

@@ -84,8 +84,8 @@ import numpy as np
 import torch
 
 from .. import delta as delta_lib
-from ..models.gpt2 import (init_params_numpy, params_from_numpy,
-                           params_to_numpy, resolve_device)
+from ..models import (family, init_params_numpy, llama, params_from_numpy,
+                      params_to_numpy, resolve_device)
 from ..ops.losses import (causal_lm_loss, fused_linear_cross_entropy,
                           lm_totals)
 from ..utils import obs
@@ -394,14 +394,16 @@ def _mesh_fused_lm_loss(model, shards: Params, specs: dict, batch: dict,
 def _fused_lm_loss(model, params: Params, batch: dict):
     """The same contract as :func:`_default_lm_loss` without the
     ``[B, T, V]`` logits: the model returns its hidden states and the
-    tied ``wte`` head runs tile by tile inside the fused CE (the
-    single-device branch of the JAX package's ``_fused_lm_loss``)."""
+    head (a Llama's ``lm_head``, GPT-2's tied ``wte``) runs tile by tile
+    inside the fused CE (the single-device branch of the JAX package's
+    ``_fused_lm_loss``)."""
     hidden = torch.func.functional_call(
         model, params, (batch["input_ids"],),
         {**_model_kwargs(batch), "return_hidden": True}, strict=True)
+    head = params["lm_head"] if "lm_head" in params else params["wte"]
     mask = batch.get("loss_mask")
     return fused_linear_cross_entropy(
-        hidden[:, :-1, :], params["wte"], batch["input_ids"][:, 1:],
+        hidden[:, :-1, :], head, batch["input_ids"][:, 1:],
         None if mask is None else mask[:, 1:])
 
 
@@ -410,7 +412,8 @@ class TrainEngine:
     mesh, with an AdamW optimizer (``default_optimizer()`` unless given)
     and the causal-LM loss.
 
-    ``model`` is the port's GPT-2 structure (``models.gpt2.make_model``).
+    ``model`` is the port's GPT-2 or Llama structure
+    (``models.make_model``); a mesh takes GPT-2 only.
     ``fused_loss=True`` computes the loss from the hidden states through
     the fused CE kernels (``--fused-loss``); the port has one route, so
     the JAX package's string values (``"pallas"``, ``"scan"``) are
@@ -441,6 +444,10 @@ class TrainEngine:
                     f"TrainEngine(mesh=...) takes a parallel.Mesh (the "
                     f"port's dp x fsdp x sp x tp mesh over "
                     f"torch.distributed), got {type(mesh).__name__}")
+            if family(model) is llama:
+                raise NotImplementedError(
+                    "TrainEngine(mesh=...) on a Llama: its mesh specs and "
+                    "the untied head's sharded CE are ROADMAP item 2(b)")
             sd = model.state_dict()
             self.specs = sharding.param_specs(sd)
             self.tp_route = sharding.tp_block_route(model.cfg.n_head, mesh)
@@ -451,10 +458,11 @@ class TrainEngine:
             raise ValueError(
                 f"fused_loss={fused_loss!r}: the port has one fused route; "
                 f"pass True or False (the --fused-loss flag)")
-        cfg = getattr(model, "cfg", None)
-        if cfg is not None and cfg.dropout > 0:
+        # a Llama config has no dropout field: JAX's reads as 0 there
+        dropout = getattr(getattr(model, "cfg", None), "dropout", 0.0)
+        if dropout > 0:
             raise NotImplementedError(
-                f"dropout={cfg.dropout}: the training forward runs without "
+                f"dropout={dropout}: the training forward runs without "
                 f"dropout (off in every preset); {_SLICES}, slice 7")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")

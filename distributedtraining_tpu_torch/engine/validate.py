@@ -217,7 +217,7 @@ class Validator:
         from ``params`` (a tree, or a zero-argument callable returning
         one) or a random init drawn with numpy from ``seed`` (the same
         on every rank). Then evaluate it."""
-        from ..models.gpt2 import init_params_numpy
+        from ..models import init_params_numpy
         if self._multi():
             fetched = self._broadcast_base(None)
         else:

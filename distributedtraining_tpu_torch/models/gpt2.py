@@ -360,15 +360,17 @@ def resolve_device(device) -> torch.device:
 
 def params_from_numpy(tree: Mapping[str, Any], *, device="cuda"
                       ) -> dict[str, torch.Tensor]:
-    """The JAX package's unrolled GPT-2 param tree (nested dicts of
-    arrays, or CPU tensors for bf16 leaves: ``h_{i}/c_attn/kernel``,
-    ``ln_1/scale``, ``wte``, ...) as a
+    """The JAX package's unrolled param tree of either family (nested
+    dicts of arrays, or CPU tensors for bf16 leaves: GPT-2's
+    ``h_{i}/c_attn/kernel``, ``ln_1/scale``, ``wte``; Llama's
+    ``layer_{i}/wq/kernel``, ``lm_head``, ...) as a
     state dict keyed by the ``.``-joined paths, on ``device`` (``"cuda"``
     unless the caller asks for the CPU). Values, dtypes and layouts are
     unchanged."""
-    if "h" in tree:
-        raise ValueError("scan-layout param tree (h/block); unstack it to "
-                         "the unrolled h_{i} layout first")
+    if "h" in tree or "layers" in tree:
+        raise ValueError("scan-layout param tree (h/block or "
+                         "layers/block); unstack it to the unrolled "
+                         "h_{i} / layer_{i} layout first")
     device = resolve_device(device)
     state: dict[str, torch.Tensor] = {}
 

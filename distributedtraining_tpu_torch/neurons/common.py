@@ -36,11 +36,11 @@ import os
 from typing import Any, Callable, Iterable
 
 from ..chain import LocalAddressStore, LocalChain
-from ..config import MESH_ROLES, RunConfig
+from ..config import _SLICES, MESH_ROLES, RunConfig
 from ..data.datasets import (ByteTokenizer, WordTokenizer, batch_iterator,
                              shuffle_seed_for, text_corpus)
 from ..engine.train import TrainEngine, default_optimizer
-from ..models import gpt2
+from .. import models
 from ..parallel import multihost
 from ..parallel.mesh import resolve_mesh_config
 from ..transport import InMemoryTransport, LocalFSTransport
@@ -173,17 +173,22 @@ def build(cfg: RunConfig) -> Components:
                                     cfg.multihost_processes,
                                     cfg.multihost_id)))
     cfg.check_ported()
-    if cfg.model not in gpt2.PRESETS:
+    try:
+        family = models.family(cfg.model)
+    except KeyError as e:
+        raise NotImplementedError(f"--model {cfg.model}: {e.args[0]}")
+    if family is models.llama and cfg.role != "server":
         raise NotImplementedError(
-            f"--model {cfg.model}: the port has the GPT-2 presets "
-            f"{sorted(gpt2.PRESETS)}; Llama is slice 7")
-    model_cfg = gpt2.PRESETS[cfg.model]
+            f"--model {cfg.model} for the {cfg.role}: the port serves the "
+            f"Llama presets; the miner, validator and averager on them "
+            f"are {_SLICES} item 2(b)")
+    model_cfg = family.PRESETS[cfg.model]
     if cfg.logits_dtype:
         model_cfg = dataclasses.replace(model_cfg,
                                         logits_dtype=cfg.logits_dtype)
     if cfg.remat is not None:   # tri-state: None keeps the preset's value
         model_cfg = dataclasses.replace(model_cfg, remat=cfg.remat)
-    model, model_cfg = gpt2.make_model(model_cfg)
+    model, model_cfg = family.make_model(model_cfg)
     owns_world = False
     mesh = None
     if cfg.role in MESH_ROLES:

@@ -79,14 +79,12 @@ def _build_drafter(cfg: RunConfig, c, device: str):
     only). Every failure degrades to plain decode."""
     if not cfg.serve_speculative:
         return None
+    from .. import models
     from ..engine import speculative as spec
-    from ..models import gpt2
     try:
         if cfg.serve_draft_repo:
             preset, _, work_dir = cfg.serve_draft_repo.partition("@")
-            if preset not in gpt2.PRESETS:
-                raise ValueError(f"unknown draft preset {preset!r}")
-            dmodel, _ = gpt2.make_model(preset)
+            dmodel, _ = models.make_model(preset)   # either family
             from ..transport import LocalFSTransport
             tr = LocalFSTransport(os.path.join(work_dir, "artifacts"))
         else:

@@ -634,6 +634,18 @@ def pack_base_shard(arr) -> bytes:
     return to_msgpack({"x": arr})
 
 
+def base_shard_digest(arr) -> tuple[str, int]:
+    """``(shard_digest(pack_base_shard(arr)), len(pack_base_shard(arr)))``
+    from the encoding's pieces, without joining them: a layer's content
+    address costs no copy of it."""
+    import hashlib
+    h, n = hashlib.sha256(), 0
+    for piece in _pieces({"x": arr}):
+        h.update(piece)
+        n += len(piece)
+    return h.hexdigest(), n
+
+
 def unpack_base_shard(data: bytes, *, max_bytes: int = DEFAULT_MAX_BYTES):
     """Shard bytes -> the layer (a numpy array; a CPU tensor for bf16),
     or None. Shape and dtype are checked against the template at
