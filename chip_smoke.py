@@ -13,6 +13,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --mesh-roles
     python3 chip_smoke.py --sp
     python3 chip_smoke.py --llama
+    python3 chip_smoke.py --llama-train
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
@@ -33,7 +34,8 @@ one over 512) and phase 21's traffic once through the server CLI, with
 the ttft and prefill ms of every request that hit the prefix cache.
 ``--serve6b`` runs phase 22 alone after the build,
 ``--parallel`` phase 23 alone, ``--mesh-roles`` phase 24 alone, ``--sp``
-phase 25 alone, ``--llama`` phase 26 alone, and ``--parallel-cards`` the worlds of phases 23 and 24
+phase 25 alone, ``--llama`` phase 26 alone, ``--llama-train`` phase 27
+alone, and ``--parallel-cards`` the worlds of phases 23 and 24
 over NCCL on every card of a machine with several (at world 4 with the
 sp2 x tp2 and dp2 x sp2 engines too). ``--tp-ab DIR...`` times phase 23's tp
 engine steps with the package of each checkout DIR in turn (parent,
@@ -514,7 +516,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
            printed first (``llama_host``), and the step fails when any is
            short. Every request done on that revision, the boot pull
            sharded with no monolithic fallback, launches exact (counted in
-           the child); publish, pull and boot seconds.
+           the child); publish, pull and boot seconds. In the whole
+           script the child serves the preset cut to 6 layers (9.42 GB of
+           f32 weights, still past the read cap); ``--llama`` serves all
+           32.
+27. llama-train the Llama family on the miner, the validator and the
+           averager, at Llama-3-8B's widths. (a) The flash forward and
+           backward kernels at the training shape [4, 1024, 32, 128]
+           (bf16, a real packed batch's ids) and in f32 at T 256, held as
+           phase 4 holds them (the dense plain version, the plain version
+           of the kernels' walk, two calls bit-equal); the CE forward and
+           backward at N 4096, E 4096, V 128256 (bf16, a real batch's
+           targets) and N 256 (f32), held as phase 11 holds them (a
+           planted wrong dh or dW must fail the limit); each timed in bf16
+           (``_time_ms``, the profiler for the forwards and the whole
+           backwards) beside its bound, the plain version and the library
+           (SDPA with the same mask and causal without ids; cuBLAS GEMM +
+           ``F.cross_entropy``); the flash kernels' D 128 registers and
+           spills. (b) At 2 layers (1,486,901,248 parameters, remat on, as
+           the preset has it), weights drawn on the card from SEED, over
+           an in-memory transport: a ``MinerLoop`` with ``--fused-loss``
+           and ``--wire-v2`` int8 pulls the base, takes 4 steps at B 4 x T
+           1024 and pushes once (losses finite and falling; launches exact:
+           flash forward 2 x 2 x steps under remat, the backward pair and
+           each CE kernel once a layer and a step); a ``Validator`` round
+           at cohort 8 over it, a packed noise submission and a hostile one
+           (the miner > 0, the hostile 0 with the JAX verdict, flash
+           forward == 2 x eval batches x 3, nothing else); a
+           ``WeightedAverage`` round folding both packed submissions
+           through the scatter kernel (2 launches) whose published base
+           equals base + sum w_i decode(d_i) by the plain versions (1e-6);
+           a ``ParameterizedMerge`` round over the same two submissions (2
+           meta-steps; the published base against the plain mixture,
+           1e-6). (c) At 1 layer in f32: three steps each of the fused
+           loss, the unfused loss and the unfused loss with plain
+           attention, within 1e-4 relative. (d) The three CLIs on
+           ``--model tiny-llama`` with JAX's tests/test_neurons.py argv
+           (the preset widened to E 256: its D 16 heads are below the
+           flash kernels' D 64): rc 0, one push, the validator's weight >
+           0, a new base. (e) tiny-llama at E 256 in f32 on a world of two
+           over gloo, both ranks on this card (``--llama-train-worker``):
+           fsdp 2, tp 2 (heads split), sp 2 on both routes; losses within
+           1e-4 of world 1's, launches and block routes exact. In the whole
+           script (b)-(e) run in a child (``--llama-train-child``) started
+           before phase 22, (a) after phase 26.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
@@ -523,7 +568,8 @@ JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
 ``serve6b`` JSON line (phase 22), a ``parallel`` JSON line (phase 23),
 a ``mesh_roles`` JSON line (phase 24), an ``sp`` JSON line (phase 25),
 an ``llama`` JSON line (phase 26; its ``llama_host`` line comes first),
-the ``nvidia-smi`` name/power-limit line,
+an ``llama_train`` JSON line (phase 27), the ``nvidia-smi``
+name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -1052,6 +1098,57 @@ def _flash_timing(seg) -> dict:
                 for key, d in by_name.items()}}
 
 
+FLASH_TOLS = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+
+
+def _flash_check(name: str, q, k, v, do, st) -> dict:
+    """The flash forward and backward kernels on one case against their
+    plain versions: the dense plain forward and backward on the same
+    values in f32, the plain version of the kernels' walk in their dtype
+    (bf16: P and dS rounded before their products), and a second call
+    of each backward kernel, which must give the same bits (no atomics).
+    f32 is held to ``FLASH_TOLS``' absolute limits, bf16 to the error
+    over max(1, |value|)."""
+    import torch
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    o, lse = fa.flash_attention_fwd(q, k, v, st)
+    di = fa._row_dot(o, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, st)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, st)
+    f = [x.float() for x in (q, k, v)]
+    ref_o, ref_lse = fa.flash_attention_reference(*f, st)
+    ref_g = fa.flash_attention_bwd_reference(
+        *f, o.float(), lse, do.float(), st)
+    ref_t = fa.flash_attention_bwd_tiled_reference(q, k, v, o, lse, do, st)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, st)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, st)
+    torch.cuda.synchronize()
+    pairs = {"o": (o, ref_o), "lse": (lse, ref_lse),
+             "dq": (dq, ref_g[0]), "dk": (dk, ref_g[1]),
+             "dv": (dv, ref_g[2]), "dq_tiled": (dq, ref_t[0]),
+             "dk_tiled": (dk, ref_t[1]), "dv_tiled": (dv, ref_t[2])}
+    dt = str(q.dtype).split(".")[1]
+    tol_f, tol_b = FLASH_TOLS[dt]
+    changed = _differs_bitwise({"dq": dq, "dk": dk, "dv": dv},
+                               {"dq": dq2, "dk": dk2, "dv": dv2})
+    check(not changed, f"flash backward at {name} {dt}: a second "
+                       f"call on the same inputs changed {changed}")
+    c = {"case": name, "dtype": dt,
+         "max_abs": {key: _max_err(a, r) for key, (a, r) in pairs.items()},
+         "tol_fwd": tol_f, "tol_bwd": tol_b, "bitwise_repeatable": True}
+    # the limits apply to the abs error in f32, to the scaled one in bf16
+    if dt == "bfloat16":
+        c["max_scaled"] = {key: _max_err(a, r, scaled=True)
+                           for key, (a, r) in pairs.items()}
+    for key, err in c.get("max_scaled", c["max_abs"]).items():
+        tol = tol_f if key in ("o", "lse") else tol_b
+        check(err <= tol, f"flash kernel vs plain version at {name} "
+                          f"{dt}: {key} max abs {err} > {tol}")
+    check(all(bool(torch.isfinite(x).all()) for x in (o, lse, dq, dk, dv)),
+          f"flash kernels: non-finite output at {name} {dt}")
+    return c
+
+
 def phase_flash(seg) -> dict:
     """Kernel vs plain version for the forward and both backward
     kernels; ``seg`` is a real packed batch's segment ids [8, 1024]."""
@@ -1086,55 +1183,11 @@ def phase_flash(seg) -> dict:
         "tp2_heads_b8_t128_h6": (8, 128, 6, 64, seg),
         "tp4_heads_b4_t256_h3": (4, 256, 3, 64, seg),
     }
-    tols = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
     checks = []
     for i, (name, (B, T, H, D, sg)) in enumerate(cases.items()):
-        for dtype, (tol_f, tol_b) in tols.items():
-            q, k, v, do, st = _flash_case(B, T, H, D, sg, dtype, SEED + i)
-            o, lse = fa.flash_attention_fwd(q, k, v, st)
-            di = fa._row_dot(o, do)
-            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, st)
-            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, st)
-            # the plain versions on the same values, unrounded (f32)
-            f = [x.float() for x in (q, k, v)]
-            ref_o, ref_lse = fa.flash_attention_reference(*f, st)
-            ref_g = fa.flash_attention_bwd_reference(
-                *f, o.float(), lse, do.float(), st)
-            # and the plain version of the kernels' walk, in their dtype
-            # (bf16: P and dS rounded before their products)
-            ref_t = fa.flash_attention_bwd_tiled_reference(
-                q, k, v, o, lse, do, st)
-            # the same call again must give the same bits: no atomics
-            dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, st)
-            dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, st)
-            torch.cuda.synchronize()
-            pairs = {"o": (o, ref_o), "lse": (lse, ref_lse),
-                     "dq": (dq, ref_g[0]), "dk": (dk, ref_g[1]),
-                     "dv": (dv, ref_g[2]), "dq_tiled": (dq, ref_t[0]),
-                     "dk_tiled": (dk, ref_t[1]), "dv_tiled": (dv, ref_t[2])}
-            dt = str(dtype).split(".")[1]
-            changed = _differs_bitwise({"dq": dq, "dk": dk, "dv": dv},
-                                       {"dq": dq2, "dk": dk2, "dv": dv2})
-            check(not changed, f"flash backward at {name} {dt}: a second "
-                               f"call on the same inputs changed {changed}")
-            c = {"case": name, "dtype": dt,
-                 "max_abs": {key: _max_err(a, r)
-                             for key, (a, r) in pairs.items()},
-                 "tol_fwd": tol_f, "tol_bwd": tol_b,
-                 "bitwise_repeatable": True}
-            # the limits apply to the abs error in f32, to the scaled one
-            # in bf16
-            if dtype == torch.bfloat16:
-                c["max_scaled"] = {key: _max_err(a, r, scaled=True)
-                                   for key, (a, r) in pairs.items()}
-            checks.append(c)
-            for key, err in c.get("max_scaled", c["max_abs"]).items():
-                tol = tol_f if key in ("o", "lse") else tol_b
-                check(err <= tol, f"flash kernel vs plain version at {name} "
-                                  f"{dt}: {key} max abs {err} > {tol}")
-            check(all(bool(torch.isfinite(x).all())
-                      for x in (o, lse, dq, dk, dv)),
-                  f"flash kernels: non-finite output at {name} {dt}")
+        for dt in FLASH_TOLS:
+            checks.append(_flash_check(name, *_flash_case(
+                B, T, H, D, sg, getattr(torch, dt), SEED + i)))
 
     res = _flash_timing(seg)
     # the key tiles the bf16 kernels list at the training shape, by the
@@ -7233,8 +7286,14 @@ def _sp_ring_check(dev, mesh) -> dict:
 def _sp_arrays(tmp: str) -> dict:
     """The global batches of the phase, as the main process wrote them:
     ``{name: [batch dict, ...]}``."""
+    return _sp_arrays_from(os.path.join(tmp, "sp_batches.npz"))
+
+
+def _sp_arrays_from(path: str) -> dict:
+    """Batches saved as ``name/i/field`` arrays in the npz at ``path``:
+    ``{name: [batch dict, ...]}``."""
     import numpy as np
-    data = np.load(os.path.join(tmp, "sp_batches.npz"))
+    data = np.load(path)
     out: dict = {}
     for key in data.files:
         name, i, field = key.split("/")
@@ -8225,29 +8284,44 @@ def _llama_cli(tree, cfg, bodies, disk: dict) -> dict:
 
 
 class LlamaCli:
-    """26f in a child process (``--llama-cli OUT``), started before the
-    phases it overlaps (22-25 in the whole script): its 8B base's
-    publish and pull are host and disk work (~400 s on the card's
-    machine), and its kernel launches count in its own process. The
-    child draws the same seeded weights as this process's engines; it
-    holds the card only while its server loads and serves, so the
-    in-process 8B steps wait for it (:meth:`join`)."""
+    """26f in a child process (``--llama-cli OUT [N_LAYER]``), started
+    before the phases it overlaps (22-25 in the whole script): its 8B
+    base's publish and pull are host and disk work (~400 s on the card's
+    machine at full depth), and its kernel launches count in its own
+    process. The child draws the same seeded weights as this process's
+    engines; it holds the card only while its server loads and serves,
+    so the in-process 8B steps wait for it (:meth:`join`). ``layers``
+    cuts its depth; with ``train`` 27b-e run first in a child of their
+    own (``--llama-train-child OUT``), 26f's child starts when it ends,
+    and :meth:`join` waits for both (``train_result`` holds 27b-e's
+    result)."""
 
-    def __init__(self):
+    def __init__(self, layers: int | None = None, train: bool = False):
+        import shlex
         import tempfile
         self.tmp = tempfile.mkdtemp()
         self.out = os.path.join(self.tmp, "cli.json")
+        self.train_out = os.path.join(self.tmp, "train.json") if train \
+            else None
+        self.train_result = None
         self.log = open(os.path.join(self.tmp, "cli.log"), "w")
         self.t0 = time.perf_counter()
+        me = [sys.executable, os.path.abspath(__file__)]
+        cmds = [me + ["--llama-cli", self.out]
+                + ([str(layers)] if layers else [])]
+        if train:
+            # first, so that its miner (the largest peak of the card's
+            # memory, ~65 GB) meets phase 22's light serving and not the
+            # mesh phases' worlds
+            cmds.insert(0, me + ["--llama-train-child", self.train_out])
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--llama-cli",
-             self.out], stdout=self.log, stderr=subprocess.STDOUT,
-            cwd=ROOT)
+            ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in cmds)],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT)
 
     def join(self) -> dict:
-        """Wait for the child; its result with its seconds, and the
-        seconds this process waited. A child that failed fails the
-        phase, its log's tail logged first."""
+        """Wait for the children; the first's result with their seconds,
+        and the seconds this process waited. A child that failed fails
+        the phase, the log's tail logged first."""
         import shutil
         t0 = time.perf_counter()
         try:
@@ -8262,10 +8336,16 @@ class LlamaCli:
         if host:
             print(host[0], flush=True)
         if rc:
-            log(f"--- llama server CLI child (exit {rc}):\n{text[-8000:]}")
-        check(rc == 0, f"llama server CLI child exited {rc}")
+            log(f"--- llama children (exit {rc}):\n{text[-8000:]}")
+        check(rc == 0, f"llama server CLI or train child exited {rc}")
         with open(self.out) as f:
             res = json.load(f)
+        if self.train_out is not None:
+            with open(self.train_out) as f:
+                self.train_result = json.load(f)
+            log("llama train child:", "\n".join(
+                ln for ln in text.splitlines()
+                if ln.startswith("llama train"))[-20000:])
         shutil.rmtree(self.tmp, ignore_errors=True)
         return {**res, "child_s": time.perf_counter() - self.t0,
                 "waited_s": waited}
@@ -8277,17 +8357,19 @@ class LlamaCli:
         self.log.close()
 
 
-def llama_cli_child(out: str) -> int:
-    """``--llama-cli OUT``: 26f. Checks the disk and the host, draws the
-    8B weights on the card (seed SEED, as the parent's engines do),
-    copies them to the host, frees the card, then ``_llama_cli``; its
-    result as JSON in OUT."""
+def llama_cli_child(out: str, n_layer: int | None = None) -> int:
+    """``--llama-cli OUT [N_LAYER]``: 26f. Checks the disk and the host,
+    draws the 8B weights on the card (seed SEED, as the parent's engines
+    do), copies them to the host, frees the card, then ``_llama_cli``;
+    its result as JSON in OUT. ``n_layer`` cuts the preset's depth in
+    this process (the CLI builds the preset by name)."""
     phase_env()
     sys.path.insert(0, ROOT)
     import torch
     from distributedtraining_tpu_torch import models
     disk = _llama_disk()
-    cfg = _llama_cfg()
+    cfg = _llama_cfg(**({"n_layer": n_layer} if n_layer else {}))
+    models.llama.PRESETS[LLAMA_PRESET] = cfg
     state = _drawn_state(cfg, SEED)
     t0 = time.perf_counter()
     tree = models.params_to_numpy(state)
@@ -8312,6 +8394,7 @@ def phase_llama(tok, cli: LlamaCli | None = None) -> dict:
     from distributedtraining_tpu_torch import models
     from distributedtraining_tpu_torch.engine import speculative as spec
     t0 = time.perf_counter()
+    own_cli = cli is None
     cli = cli or LlamaCli()
     times: dict = {}
 
@@ -8329,9 +8412,15 @@ def phase_llama(tok, cli: LlamaCli | None = None) -> dict:
 
     try:
         res: dict = {"preset": LLAMA_PRESET, "times_s": times}
-        res["kernels"] = timed("kernels", _llama_kernels, tok)
-        res["f32"] = timed("f32", _llama_f32, tok)
+        if own_cli:
+            res["kernels"] = timed("kernels", _llama_kernels, tok)
+            res["f32"] = timed("f32", _llama_f32, tok)
+        # a child started before this phase may still hold the card:
+        # the kernels are timed after it ends
         res["cli"] = timed("cli_join", cli.join)
+        if not own_cli:
+            res["kernels"] = timed("kernels", _llama_kernels, tok)
+            res["f32"] = timed("f32", _llama_f32, tok)
     finally:
         cli.close()
     cfg = _llama_cfg()
@@ -8408,6 +8497,966 @@ def llama_only() -> int:
                    ("flash_attention_fwd", FLASH_SOURCE))]
     print(json.dumps({"kernels": _llama_entries(entries, res)}), flush=True)
     print(json.dumps({"llama": {**res, "card": card}}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# 27. llama-train: the Llama family on the miner, the validator and the
+#     averager
+# ---------------------------------------------------------------------------
+
+# (b): Llama-3-8B's width at depth 2 (1,486,901,248 parameters); the
+# miner's steps at B 4 x T 1024, the held-out batches at the same shape
+LT_LAYERS = 2
+LT_B, LT_T, LT_STEPS = 4, 1024, 4
+LT_EVAL_BATCHES = 2
+LT_META_EPOCHS = 2          # over one held-out batch: 2 meta-steps
+LT_DENSITY = 1.0 / 64.0
+# (a): the CE's rows at the miner's shape (a [4, 1025] batch's targets)
+LT_CE_N = LT_B * LT_T
+# (c): f32 at the 8B's width, depth 1
+LT_F32_B, LT_F32_T, LT_F32_STEPS = 2, 256, 3
+LT_F32_TOL = 1e-4
+# (e): tiny-llama widened to E 256 (4 query over 2 kv heads of D 64), f32
+LT_MESH_CFG = {"n_embd": 256, "intermediate_size": 512, "dtype": "float32"}
+LT_MESH_B, LT_MESH_T, LT_MESH_STEPS = 4, 256, 3
+LT_MESHES = {"fsdp2": {"fsdp": 2}, "tp2": {"tp": 2},
+             "sp2": {"sp": 2}, "sp2_ring": {"sp": 2, "impl": "ring"}}
+# (d): JAX tests/test_neurons.py::test_llama_family_offline_round's argv
+LT_CLI_STEPS = 25
+# the whole script's 26f child serves llama3-8b's width at this depth
+# (9.42 GB of f32 weights: past the 8 GiB read cap, so the base still
+# travels sharded); --llama runs it at full depth
+LLAMA_CLI_LAYERS_MAIN = 6
+
+
+def _lt_flash_case(B, T, seg, dtype, seed):
+    """q, k, v as a Llama's training forward makes them (Llama-3-8B's
+    heads, the kv heads repeated to the query heads), a cotangent and
+    int32 ids."""
+    import torch
+    cfg = _llama_cfg()
+    q, k, v, st = _llama_flash_case(B, T, cfg.n_head, cfg.head_dim, seg,
+                                    dtype, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g).to(DEV, dtype)
+    return q, k, v, do, st
+
+
+def _lt_flash(tok) -> dict:
+    """27a, flash: the forward and both backward kernels at Llama-3-8B's
+    training shape ``[4, 1024, 32, 128]`` (bf16, a real packed batch's
+    ids) and in f32 at T 256 against their plain versions, with the
+    determinism check; then timed in bf16 beside the bound, the plain
+    versions and SDPA with the same mask (and causal without ids)."""
+    import torch
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    cfg = _llama_cfg()
+    H, D = cfg.n_head, cfg.head_dim
+    seg = _batches(tok, split="train", batch_size=LT_B, seq_len=LT_T,
+                   n=1)[0]["segment_ids"].astype("int32")
+    cases = {"train_b4_t1024_h32_d128": (LT_B, LT_T, torch.bfloat16),
+             "f32_b2_t256_h32_d128": (2, 256, torch.float32)}
+    checks = [_flash_check(name, *_lt_flash_case(B, T, seg[:B, :T], dt,
+                                                 SEED + 27))
+              for name, (B, T, dt) in cases.items()]
+    torch.cuda.empty_cache()
+    B, T = LT_B, LT_T
+    q, k, v, do, st = _lt_flash_case(B, T, seg, torch.bfloat16, SEED + 28)
+    o, lse = fa.flash_attention_fwd(q, k, v, st)
+    di = fa._row_dot(o, do)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    causal = torch.ones((T, T), dtype=torch.bool, device=DEV).tril()
+    mask = (causal[None] & (st[:, :, None] == st[:, None, :]))[:, None]
+    out_m = sdpa(qt, kt, vt, attn_mask=mask)
+    out_c = sdpa(qt, kt, vt, is_causal=True)
+
+    def lib_bwd(out):
+        return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+    fwd = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v,
+                                                                 st),
+           "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+               q, k, v, do, lse, di, st),
+           "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+               q, k, v, do, lse, di, st)}
+    # the plain forward, and the plain backward (dq, dk, dv in one call)
+    # set beside each backward kernel; slow at this shape: fewer calls
+    plain = {"fwd": _time_ms(lambda: fa.flash_attention_reference(
+                 q, k, v, st), reps=5, warm=1),
+             "bwd": _time_ms(lambda: fa.flash_attention_bwd_reference(
+                 q, k, v, o, lse, do, st), reps=5, warm=1)}
+    lib = {"fwd": lambda: sdpa(qt, kt, vt, attn_mask=mask),
+           "bwd": lib_bwd(out_m)}
+    lib_causal = {"fwd": lambda: sdpa(qt, kt, vt, is_causal=True),
+                  "bwd": lib_bwd(out_c)}
+    bounds = _flash_bounds(B, T, H, D, seg, 2)
+    timed = {}
+    for name, fn in fwd.items():
+        side = "fwd" if name.endswith("fwd") else "bwd"
+        timed[name] = {
+            "ms": _time_ms(fn), "device_ms": _device_ms(fn),
+            "plain_ms": plain[side], "library_ms": _time_ms(lib[side]),
+            "library_causal_ms": _time_ms(lib_causal[side]),
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+    res = {"checks": checks, "timed": timed,
+           "timed_shape": f"B {B}, T {T}, H {H}, D {D} bf16, a real "
+                          "packed batch's ids; library: SDPA with the "
+                          "same mask (fwd; its autograd backward for "
+                          "dq, dk, dv in one call), causal without ids "
+                          "beside it",
+           "visible_pairs": _causal_pairs(B, T, H, seg)}
+    del q, k, v, do, o, lse, di, qt, kt, vt, out_m, out_c, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+def _lt_ce_inputs(N, V, E, dtype, seed, labels=None, mask=None):
+    """h, the head in ``dtype`` (drawn on the card: 525M values), int32
+    labels and the per-token upstream gradient, as ``_ce_inputs``."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    h = torch.randn((N, E), generator=g, device=DEV).to(dtype)
+    w = torch.randn((V, E), generator=g, device=DEV).mul_(0.02).to(dtype)
+    if labels is None:
+        y = torch.randint(0, V, (N,), generator=g, device=DEV,
+                          dtype=torch.int32)
+    else:
+        y = torch.as_tensor(labels).reshape(-1).to(DEV, torch.int32)
+    m = (torch.ones(N, device=DEV) if mask is None else
+         torch.as_tensor(mask).reshape(-1).float().to(DEV))
+    return h, w, y.contiguous(), (m / m.sum().clamp(min=1.0)).contiguous()
+
+
+def _lt_ce(tok) -> dict:
+    """27a, CE: the forward and the backward (dh and dW together and
+    each alone) at Llama-3-8B's untied head (E 4096, V 128256) on the
+    miner's 4096 rows in bf16 (a real batch's targets and mask) and on
+    256 rows in f32, against their plain versions with ``_ce_check``'s
+    limits (a planted wrong dh or dW must fail them); then timed in bf16
+    beside the bound, the plain versions and the library's path."""
+    import torch
+    from distributedtraining_tpu_torch.ops import fused_ce
+    cfg = _llama_cfg()
+    V, E = cfg.padded_vocab, cfg.n_embd
+    batch = _batches(tok, split="train", batch_size=LT_B, seq_len=LT_T + 1,
+                     n=1)[0]
+    ids, msk = batch["input_ids"][:, 1:], batch["loss_mask"][:, 1:]
+    bf = torch.bfloat16
+    sms = _sms()
+    cases = {"llama8b_n4096_bf16": (LT_CE_N, bf, dict(labels=ids,
+                                                      mask=msk)),
+             "llama8b_n256_f32": (256, torch.float32, {})}
+    checks = []
+    for i, (name, (n, dtype, kw)) in enumerate(cases.items()):
+        h, w, y, g = _lt_ce_inputs(n, V, E, dtype, SEED + 40 + i, **kw)
+        outs = _ce_run(h, w, y, g)
+        dt = str(dtype).split(".")[1]
+        check(all(bool(torch.isfinite(a.float()).all())
+                  for a, _ in outs.values()),
+              f"fused CE kernels: non-finite output at {name}")
+        errs = _ce_check(name, outs, dt)
+        checks.append({"case": name, "dtype": dt, "N": n, "V": V, "E": E,
+                       "max_abs": {k: d for k, (d, _) in errs.items()},
+                       "err": {k: x for k, (_, x) in errs.items()},
+                       "tol": CE_TOL[dt]})
+        del outs, h, w, y, g
+        torch.cuda.empty_cache()
+    n = LT_CE_N
+    h, w, y, g = _lt_ce_inputs(n, V, E, bf, SEED + 40, labels=ids, mask=msk)
+    loss, m, s = fused_ce.fused_ce_fwd(h, w, y)
+    runs = {"fused_ce_fwd": lambda: fused_ce.fused_ce_fwd(h, w, y),
+            "fused_ce_bwd_dh": lambda: fused_ce.fused_ce_bwd_dh(
+                h, w, y, m, s, g),
+            "fused_ce_bwd_dw": lambda: fused_ce.fused_ce_bwd_dw(
+                h, w, y, m, s, g),
+            "fused_ce_bwd": lambda: fused_ce.fused_ce_bwd(h, w, y, m, s, g)}
+    plain_fwd = _time_ms(lambda: fused_ce.fused_ce_fwd_reference(h, w, y),
+                         reps=5, warm=1)
+    plain_bwd = _time_ms(lambda: _ce_plain_bwd(h, w, y, m, s, g, bf),
+                         reps=5, warm=1)
+    hh, ww = h.detach().requires_grad_(), w.detach().requires_grad_()
+    ce = torch.nn.functional.cross_entropy
+
+    def lib_fwd():
+        return ce((hh @ ww.T).float(), y.long(), reduction="none")
+
+    out = lib_fwd()
+
+    def lib_bwd():
+        return torch.autograd.grad(out, (hh, ww), g, retain_graph=True)
+
+    lib = {"fwd": _time_ms(lib_fwd), "bwd": _time_ms(lib_bwd)}
+    bounds = _ce_bounds(n, V, E)
+    timed = {}
+    for name, fn in runs.items():
+        side = "fwd" if name == "fused_ce_fwd" else "bwd"
+        timed[name] = {
+            "ms": _time_ms(fn),
+            "plain_ms": plain_fwd if side == "fwd" else plain_bwd,
+            "library_ms": lib[side],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+        # the profiler, one session a function: the forward and the
+        # whole backward (a process loses its events after a few
+        # sessions; dh and dW alone run the same kernels)
+        if name in ("fused_ce_fwd", "fused_ce_bwd"):
+            timed[name]["device_ms"] = _device_ms(fn)
+        if side == "fwd":
+            timed[name]["splits"] = fused_ce._fwd_splits(n, V, sms)
+        else:
+            timed[name]["plan"] = fused_ce._bwd_schedule(
+                n, V, E, sms, **{"fused_ce_bwd_dh": dict(dw=False),
+                                 "fused_ce_bwd_dw": dict(dh=False)}.get(
+                                     name, {}))
+    del h, w, hh, ww, out, m, s
+    torch.cuda.empty_cache()
+    return {"checks": checks, "timed": timed,
+            "timed_shape": f"N {n}, V {V}, E {E}, bf16 h and head",
+            "library": "cuBLAS bf16 GEMM to the logits (cast to f32) + "
+                       "F.cross_entropy; backward: its autograd (dh and "
+                       "dW in one call)",
+            "plain": "the plain backward computes dh and dW in one call "
+                     "(the chunked decomposition, the backward entry's "
+                     "chunk)"}
+
+
+def _lt_registers(build: dict) -> dict:
+    """ptxas's registers and spills of the flash kernels' D 128
+    instantiations (phase 2's report)."""
+    kernels = build["sources"].get("flash_attention", {}).get("kernels", {})
+    return {name: k for name, k in kernels.items()
+            if "ILi128E" in name and "flash" in name}
+
+
+def phase_llama_train_kernels(tok, build: dict) -> dict:
+    """27a (see the module docstring): the six kernels of the Llama
+    training path at Llama-3-8B's shapes against their plain versions,
+    timed; the flash kernels' D 128 registers and spills."""
+    import torch
+    t0 = time.perf_counter()
+    res = {"ce": _lt_ce(tok), "flash": _lt_flash(tok),
+           "registers_d128": _lt_registers(build),
+           "clocks": _smi_clocks()}
+    torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t0
+    log("llama train kernels:", json.dumps(res))
+    return res
+
+
+def _lt_step_hook(eng, rows: list):
+    """Wrap ``eng.train_step``: each step's loss, wall ms (between two
+    device synchronisations) and the peak of the card's memory so far
+    into ``rows``."""
+    import torch
+    step = eng.train_step
+
+    def wrapped(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        rows.append((float(out[1]["loss"]), (time.perf_counter() - t0) * 1e3,
+                     torch.cuda.max_memory_allocated()))
+        return out
+
+    eng.train_step = wrapped
+
+
+def _lt_launches() -> dict:
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    return {"dequant_scatter": dsc.launches, **fa.launches,
+            **fused_ce.launches}
+
+
+def _lt_zero() -> None:
+    from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
+    _zero_counts()
+    dsc.launches = 0
+
+
+def _lt_free() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _lt_miner(t, model, cfg, train) -> dict:
+    """27b, the miner: a ``MinerLoop`` with ``--fused-loss``, remat on
+    (the preset's) and ``--wire-v2`` int8 pulls the published base, takes
+    ``LT_STEPS`` steps and pushes once."""
+    import math
+    import torch
+    from distributedtraining_tpu_torch.engine.scheduler import FakeClock
+    from distributedtraining_tpu_torch.engine.train import (MinerLoop,
+                                                            TrainEngine)
+    eng = TrainEngine(model, fused_loss=True, device=DEV)
+    rows: list = []
+    _lt_step_hook(eng, rows)
+    miner = MinerLoop(eng, t, "hotkey_1", clock=FakeClock(),
+                      send_interval=1e9, check_update_interval=1e9,
+                      wire_v2=True, wire_quant="int8")
+    _lt_free()
+    torch.cuda.reset_peak_memory_stats()
+    # main path: counts to 0 just before, read just after
+    _lt_zero()
+    t0 = time.perf_counter()
+    miner.bootstrap()
+    boot_s = time.perf_counter() - t0
+    report = miner.run(iter(train))
+    miner.flush()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = _lt_launches()
+    peak = torch.cuda.max_memory_allocated()
+    rows = list(rows)
+    losses = [r[0] for r in rows]
+    step_ms = [r[1] for r in rows]
+    # one more step under the profiler (after the counts were read): its
+    # device ms by kernel and idle share; None where the process's
+    # profiler saw no device time
+    try:
+        prof, _ = _device_profile(lambda: eng.train_step(
+            miner.state, eng.place_batch(train[0])), top=8)
+    except SmokeFailure:
+        prof = None
+    miner.close()
+    L, steps = cfg.n_layer, len(rows)
+    check(steps == LT_STEPS and report.pushes == 1
+          and report.pushes_failed == 0,
+          f"llama miner: {steps} steps, pushes {report.pushes}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"llama miner losses {losses}")
+    # remat recomputes each block's forward in the backward
+    want = {"flash_attention_fwd": (2 if cfg.remat else 1) * L * steps,
+            "flash_attention_bwd_dkv": L * steps,
+            "flash_attention_bwd_dq": L * steps,
+            "fused_ce_fwd": steps, "fused_ce_bwd_dh": steps,
+            "fused_ce_bwd_dw": steps}
+    _check_launches("llama miner", launches, want)
+    del miner, eng
+    _lt_free()
+    return {"steps": steps, "losses": losses, "step_ms": step_ms,
+            "step_ms_p50": statistics.median(step_ms),
+            "tokens_per_s": LT_B * LT_T / statistics.median(step_ms) * 1e3,
+            "bootstrap_s": boot_s, "loop_s": loop_s,
+            # the steps' peak apart from the whole run's (the push packs
+            # the wire-v2 delta after the last step)
+            "steps_peak_cuda_mem_bytes": max(r[2] for r in rows),
+            "peak_cuda_mem_bytes": peak, "pushes": report.pushes,
+            "remat": cfg.remat, "launches": launches,
+            "step_profile": prof}
+
+
+def _lt_submissions(t, shapes: dict, rev) -> None:
+    """A second honest submission (packed int8 noise at 1e-5, as phase
+    16's) and a hostile one (its ``wte`` scale 1e6: the screen's
+    magnitude verdict)."""
+    import torch
+    from distributedtraining_tpu_torch import delta
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+
+    def noise():
+        return {k: torch.randn(s, generator=g, device=DEV).mul_(1e-5)
+                for k, s in shapes.items()}
+
+    _publish_packed(t, "hotkey_2", noise(), rev, "int8")
+    huge, _ = delta.pack_delta_v2(noise(), density=LT_DENSITY)
+    huge["leaves"]["wte"]["scale"] = torch.tensor(1e6, device=DEV)
+    _publish_tree(t, "hotkey_6", huge, rev, "int8")
+    del huge
+    _lt_free()
+
+
+def _lt_validator(t, model, cfg, held, chain_dir: str) -> dict:
+    """27b, the validator: one round at cohort 8 over the honest miner,
+    the second honest submission and the hostile one, the base in slot
+    0; the unfused f32 loss (JAX's cohort path)."""
+    import numpy as np
+    import torch
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.engine.validate import Validator
+    eng = TrainEngine(model, device=DEV)
+    v = Validator(eng, t, LocalChain(chain_dir, my_hotkey="hotkey_91"),
+                  eval_batches=lambda: iter(held), cohort_size=8)
+    _lt_free()
+    torch.cuda.reset_peak_memory_stats()
+    _lt_zero()
+    t0 = time.perf_counter()
+    v.bootstrap()
+    boot_s = time.perf_counter() - t0
+    results = {s.hotkey: s for s in v.validate_and_score()}
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = _lt_launches()
+    peak = torch.cuda.max_memory_allocated()
+    v.close()
+    scored = sorted(h for h, s in results.items() if s.loss is not None)
+    mag = float(np.float32(127.0) * np.float32(1e6))
+    want_verdict = f"magnitude_exceeded({mag:.3e}>{1e3:.3e})"
+    honest = results.get("hotkey_1")
+    check(honest is not None and honest.reason == "ok"
+          and honest.score > 0, f"llama validator: the miner {honest}")
+    check(results["hotkey_6"].reason == want_verdict
+          and results["hotkey_6"].score == 0.0,
+          f"llama validator: the hostile {results['hotkey_6']} != "
+          f"{want_verdict}")
+    check(scored == ["hotkey_1", "hotkey_2"], f"llama validator scored "
+                                              f"{scored}")
+    n = cfg.n_layer * LT_EVAL_BATCHES * (len(scored) + 1)
+    _check_launches("llama validator", launches,
+                    {"flash_attention_fwd": n})
+    res = {"scores": {h: results[h].score for h in scored},
+           "losses": {h: results[h].loss for h in scored},
+           "base_loss": v.base_loss, "hostile": results["hotkey_6"].reason,
+           "bootstrap_s": boot_s, "round_s": round_s,
+           "peak_cuda_mem_bytes": peak, "launches": launches}
+    del v, eng
+    _lt_free()
+    return res
+
+
+def _lt_weighted(t, model, cfg, held, chain_dir: str) -> dict:
+    """27b, the weighted round: the packed submissions folded through the
+    scatter kernel, the hostile one refused; the published base against
+    base + sum w_i decode(d_i) by the plain versions on the CPU."""
+    import torch
+    from distributedtraining_tpu_torch import delta, models
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.average import (AveragerLoop,
+                                                              WeightedAverage)
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    LocalChain(chain_dir, my_hotkey="hotkey_91").set_weights(
+        {"hotkey_1": 0.6, "hotkey_2": 0.4, "hotkey_6": 0.3})
+    eng = TrainEngine(model, device=DEV)
+    loop = AveragerLoop(eng, t, LocalChain(chain_dir, my_hotkey="hotkey_95"),
+                        WeightedAverage(), val_batches=lambda: iter(held),
+                        publish_policy="always")
+    secs: dict = {}
+    kept: dict = {}
+    _timed_calls(loop, "gather_deltas", secs, kept)
+    _timed_calls(loop.strategy, "merge", secs)
+    t0 = time.perf_counter()
+    loop.bootstrap()
+    boot_s = time.perf_counter() - t0
+    rev = loop._base_revision
+    base_before = {k: v.detach().cpu() for k, v in loop.base_params.items()}
+    _lt_free()
+    torch.cuda.reset_peak_memory_stats()
+    _lt_zero()
+    t0 = time.perf_counter()
+    merged = loop.run_round()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = _lt_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ids, deltas = kept["gather_deltas"]
+    weights = loop.strategy._weights_cache[1]
+    packed = sum(1 for d in deltas if delta.is_packed_v2(d))
+    check(merged and ids == ["hotkey_1", "hotkey_2"] and packed == 2,
+          f"llama weighted round merged {ids} ({packed} packed, ok "
+          f"{merged})")
+    check(t.base_revision() not in (None, rev),
+          "llama weighted round: no base published")
+    _check_launches("llama weighted round", launches, {
+        "dequant_scatter": packed,
+        "flash_attention_fwd": cfg.n_layer * LT_EVAL_BATCHES})
+    template = loop._host_template()
+    loop.close()
+    del loop, eng
+    _lt_free()
+    t0 = time.perf_counter()
+    agg = delta.aggregate_deltas(base_before, deltas, weights)
+    pub = models.params_from_numpy(t.fetch_base(template)[0], device="cpu")
+    err = max(float((pub[k] - (base_before[k] + agg[k])).abs().max())
+              for k in pub)
+    plain_s = time.perf_counter() - t0
+    check(err <= 1e-6, f"llama weighted round: published base vs plain "
+                       f"merge max abs {err} > 1e-6")
+    del agg, pub, base_before, deltas
+    gc.collect()
+    return {"accepted": ids, "weights": [float(w) for w in weights],
+            "published_vs_plain_max_abs": err, "bootstrap_s": boot_s,
+            "round_s": round_s, "ingest_s": secs["gather_deltas"],
+            "merge_s": secs["merge"], "plain_check_s": plain_s,
+            "peak_cuda_mem_bytes": peak, "launches": launches}
+
+
+def _lt_param(t, model, cfg, held, chain_dir: str) -> dict:
+    """27b, the default strategy: ``ParameterizedMerge`` of the two
+    honest submissions (densified) over ``LT_META_EPOCHS`` meta-steps on
+    one held-out batch, from the weighted round's base (the submissions
+    are stale there: accepted, as the reference averager accepts them);
+    the published base against the plain mixture at its logits."""
+    import torch
+    from distributedtraining_tpu_torch import delta, models
+    from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.average import (
+        AveragerLoop, ParameterizedMerge)
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    eng = TrainEngine(model, device=DEV)
+    one = held[:1]
+    loop = AveragerLoop(eng, t, LocalChain(chain_dir, my_hotkey="hotkey_96"),
+                        ParameterizedMerge(model, meta_epochs=LT_META_EPOCHS),
+                        val_batches=lambda: iter(one),
+                        publish_policy="always", stale_deltas="accept")
+    secs: dict = {}
+    kept: dict = {}
+    _timed_calls(loop, "gather_deltas", secs, kept)
+    _timed_calls(loop.strategy, "merge", secs, kept)
+    loop.bootstrap()
+    rev = loop._base_revision
+    base_before = {k: v.detach().cpu() for k, v in loop.base_params.items()}
+    _lt_free()
+    torch.cuda.reset_peak_memory_stats()
+    _lt_zero()
+    t0 = time.perf_counter()
+    merged = loop.run_round()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = _lt_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ids, deltas = kept["gather_deltas"]
+    _, w = kept["merge"]
+    check(merged and ids == ["hotkey_1", "hotkey_2"],
+          f"llama parameterized round merged {ids} (ok {merged})")
+    check(t.base_revision() not in (None, rev),
+          "llama parameterized round: no base published")
+    check(all(bool(torch.isfinite(x).all()) for x in w.values()),
+          "llama parameterized round: non-finite logits")
+    steps = LT_META_EPOCHS * len(one)
+    L = cfg.n_layer
+    # the meta-steps' forward runs under autograd: remat recomputes it
+    _check_launches("llama parameterized round", launches, {
+        "flash_attention_fwd": (2 if cfg.remat else 1) * L * steps
+        + L * len(one),
+        "flash_attention_bwd_dkv": L * steps,
+        "flash_attention_bwd_dq": L * steps})
+    template = loop._host_template()
+    epoch_losses = loop.strategy.last_epoch_losses
+    loop.close()
+    del loop, eng
+    _lt_free()
+    placed = [delta.place_delta(d, base_before) for d in deltas]
+    norm = {k: torch.softmax(x.detach().cpu(), dim=0) for k, x in w.items()}
+    plain = delta.per_tensor_weighted_merge(base_before, placed, norm)
+    pub = models.params_from_numpy(t.fetch_base(template)[0], device="cpu")
+    err = max(float((pub[k] - plain[k]).abs().max()) for k in pub)
+    check(err <= 1e-6, f"llama parameterized round: published base vs the "
+                       f"plain mixture max abs {err} > 1e-6")
+    del placed, plain, pub, base_before, deltas
+    gc.collect()
+    return {"accepted": ids, "meta_steps": steps,
+            "epoch_losses": epoch_losses,
+            "published_vs_plain_max_abs": err, "round_s": round_s,
+            "merge_s": secs["merge"], "peak_cuda_mem_bytes": peak,
+            "launches": launches}
+
+
+def _lt_roles(tok) -> dict:
+    """27b (see the module docstring): Llama-3-8B's width at depth 2,
+    weights drawn on the card from SEED, over an in-memory transport
+    (the bytes of every artifact serialized and read back as over a
+    wire) and a local chain: genesis, the miner, the validator, the
+    weighted round, the parameterized round."""
+    import tempfile
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.transport import InMemoryTransport
+    cfg = _llama_cfg(n_layer=LT_LAYERS)
+    model = models.make_model(cfg)[0]
+    train = _batches(tok, split="train", batch_size=LT_B, seq_len=LT_T,
+                     n=LT_STEPS)
+    held = _batches(tok, split="test", batch_size=LT_B, seq_len=LT_T,
+                    n=LT_EVAL_BATCHES)
+    state = _drawn_state(cfg, SEED)
+    shapes = {k: v.shape for k, v in state.items()}
+    res: dict = {"n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+                 "heads": [cfg.n_head, cfg.n_kv_head],
+                 "intermediate_size": cfg.intermediate_size,
+                 "padded_vocab": cfg.padded_vocab,
+                 "n_params": sum(v.numel() for v in state.values()),
+                 "batch": [LT_B, LT_T], "times_s": {}}
+    tree = models.params_to_numpy(state)
+    del state
+    _lt_free()
+    t = InMemoryTransport()
+    t0 = time.perf_counter()
+    rev0 = t.publish_base(tree)
+    res["genesis_publish_s"] = time.perf_counter() - t0
+    res["base_bytes"] = len(t.fetch_base_bytes())
+    del tree
+    gc.collect()
+    with tempfile.TemporaryDirectory() as work:
+        for name, fn, args in (
+                ("miner", _lt_miner, (t, model, cfg, train)),
+                ("submissions", _lt_submissions, (t, shapes, rev0)),
+                ("validator", _lt_validator,
+                 (t, model, cfg, held, os.path.join(work, "chain_val"))),
+                ("weighted", _lt_weighted,
+                 (t, model, cfg, held, os.path.join(work, "chain"))),
+                ("parameterized", _lt_param,
+                 (t, model, cfg, held, os.path.join(work, "chain")))):
+            t0 = time.perf_counter()
+            res[name] = fn(*args)
+            res["times_s"][name] = time.perf_counter() - t0
+            log(f"llama train step {name}: {res['times_s'][name]:.1f} s")
+    res.pop("submissions")
+    return res
+
+
+def _lt_parity(tok) -> dict:
+    """27c: Llama-3-8B's width at depth 1 in f32 (TF32 off), three steps
+    each: the fused loss through the kernels, the unfused loss through
+    the flash kernels, and the unfused loss with the attention forced to
+    its plain versions (phase 9's test hook); the losses agree within
+    ``LT_F32_TOL`` relative."""
+    from unittest import mock
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    cfg = _llama_cfg(n_layer=1, dtype="float32")
+    model = models.make_model(cfg)[0]
+    batches = _batches(tok, split="train", batch_size=LT_F32_B,
+                       seq_len=LT_F32_T, n=LT_F32_STEPS)
+    state = _drawn_state(cfg, SEED + 3)
+
+    def run(fused: bool):
+        eng = TrainEngine(model, fused_loss=fused, device=DEV)
+        st = eng.init_state(state)
+        _zero_counts()
+        losses = [float(eng.train_step(st, eng.place_batch(b))[1]["loss"])
+                  for b in batches]
+        launches = {**fa.launches, **fused_ce.launches}
+        del eng, st
+        _lt_free()
+        return losses, launches
+
+    fused_l, fused_n = run(True)
+    unfused_l, unfused_n = run(False)
+    with mock.patch.object(fa, "_forward", fa.flash_attention_reference), \
+            mock.patch.object(fa, "_backward",
+                              fa.flash_attention_bwd_reference):
+        plain_l, plain_n = run(False)
+    del state
+    _lt_free()
+    steps, L = len(batches), cfg.n_layer
+    flash = {"flash_attention_fwd": (2 if cfg.remat else 1) * L * steps,
+             "flash_attention_bwd_dkv": L * steps,
+             "flash_attention_bwd_dq": L * steps}
+    _check_launches("llama f32 fused", fused_n, {
+        **flash, "fused_ce_fwd": steps, "fused_ce_bwd_dh": steps,
+        "fused_ce_bwd_dw": steps})
+    _check_launches("llama f32 unfused", unfused_n, flash)
+    check(not any(plain_n.values()), f"llama f32 plain run launched "
+                                     f"{plain_n}")
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    res = {"n_layer": L, "batch": [LT_F32_B, LT_F32_T], "fused": fused_l,
+           "unfused": unfused_l, "unfused_plain_attention": plain_l,
+           "fused_vs_unfused_rel": rel(fused_l, unfused_l),
+           "kernels_vs_plain_rel": rel(unfused_l, plain_l),
+           "tol": LT_F32_TOL}
+    check(res["fused_vs_unfused_rel"] <= LT_F32_TOL
+          and res["kernels_vs_plain_rel"] <= LT_F32_TOL,
+          f"llama f32 parity: {res}")
+    return res
+
+
+def _lt_cli_argv(work: str, hotkey: str, extra: list) -> list:
+    """JAX tests/test_neurons.py::test_llama_family_offline_round's
+    argv."""
+    return ["--backend", "local", "--work-dir", work, "--model",
+            "tiny-llama", "--dataset", "synthetic", "--hotkey", hotkey,
+            "--dp", "1", "--batch-size", "4", "--seq-len", "32",
+            "--eval-seq-len", "32", "--eval-batches", "2", *extra]
+
+
+def _lt_clis() -> dict:
+    """27d: the miner, validator and averager CLIs on ``--model
+    tiny-llama`` on the card with JAX's argv, over one LocalFS root
+    whose base was published first: rc 0, one push, the validator's
+    weight on the miner > 0, a new base published. The preset is widened
+    to (e)'s E 256 in this process: its heads of D 16 are below the
+    flash kernels' D 64 and 128, and the kernels refuse them."""
+    from distributedtraining_tpu_torch import models
+    preset = models.llama.PRESETS["tiny-llama"]
+    models.llama.PRESETS["tiny-llama"] = dataclasses.replace(
+        preset, **{k: v for k, v in LT_MESH_CFG.items() if k != "dtype"})
+    try:
+        return _lt_clis_run()
+    finally:
+        models.llama.PRESETS["tiny-llama"] = preset
+
+
+def _lt_clis_run() -> dict:
+    import tempfile
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.neurons import validator as val_cli
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as work:
+        t = LocalFSTransport(os.path.join(work, "artifacts"))
+        rev0 = t.publish_base(models.init_params_numpy(
+            models.llama.PRESETS["tiny-llama"], SEED))
+        runs = (("miner", miner_cli, "hotkey_0", [
+                    "--max-steps", str(LT_CLI_STEPS), "--send-interval",
+                    "1e9", "--checkpoint-interval", "0", "--delta-dtype",
+                    "sparse8"]),
+                ("validator", val_cli, "hotkey_91", ["--rounds", "1"]),
+                ("averager", avg_cli, "hotkey_99",
+                 ["--rounds", "1", "--strategy", "weighted"]))
+        for name, cli, hotkey, extra in runs:
+            argv = _lt_cli_argv(work, hotkey, extra)
+            _zero_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            res[name] = {"argv": argv, "rc": rc,
+                         "s": time.perf_counter() - t0,
+                         "launches": {**fa.launches, **fused_ce.launches}}
+            check(rc == 0, f"llama {name} CLI exited {rc}")
+            check(res[name]["launches"]["flash_attention_fwd"] > 0,
+                  f"llama {name} CLI launched no flash kernel")
+        check(t.fetch_delta_bytes("hotkey_0") is not None,
+              "llama miner CLI pushed nothing")
+        with open(os.path.join(work, "chain", "metagraph.json")) as f:
+            weight = json.load(f)["weights"]["hotkey_91"].get("hotkey_0", 0)
+        check(weight > 0, f"llama validator CLI weight on the miner "
+                          f"{weight}")
+        rev1 = t.base_revision()
+        check(rev1 not in (None, rev0), "llama averager CLI published no "
+                                        "base")
+        res.update(validator_weight=weight, published=rev1 != rev0)
+    return res
+
+
+def _lt_mesh_batches(tok, tmp: str) -> None:
+    """(e)'s global batches: packed rows of the corpus (ids folded into
+    tiny-llama's vocabulary, the packing kept) and the same ids unpacked
+    (the ring's), in ``tmp/lt_batches.npz``."""
+    import numpy as np
+    from distributedtraining_tpu_torch import models
+    V = models.llama.PRESETS["tiny-llama"].vocab_size
+    out = {}
+    for i, b in enumerate(_batches(tok, split="train", batch_size=LT_MESH_B,
+                                   seq_len=LT_MESH_T, n=LT_MESH_STEPS)):
+        ids = (b["input_ids"] % V).astype(np.int32)
+        out[f"plain/{i}/input_ids"] = ids
+        for k in ("segment_ids", "position_ids", "loss_mask"):
+            out[f"packed/{i}/{k}"] = b[k]
+        out[f"packed/{i}/input_ids"] = ids
+    np.savez(os.path.join(tmp, "lt_batches.npz"), **out)
+
+
+def _lt_mesh_cfg(impl: str | None):
+    from distributedtraining_tpu_torch import models
+    return dataclasses.replace(models.llama.PRESETS["tiny-llama"],
+                               **LT_MESH_CFG,
+                               **({"attention_impl": impl} if impl else {}))
+
+
+def _lt_mesh_run(name: str, axes: dict, batches: dict, mesh) -> dict:
+    """One engine of (e): fused loss, ``LT_MESH_STEPS`` f32 steps on this
+    rank's rows and positions (world 1: ``mesh`` None); the losses, the
+    launches and the block routes of those steps."""
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.parallel import batch_rows, sharding
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    from distributedtraining_tpu_torch.ops import fused_ce
+    cfg = _lt_mesh_cfg(axes.get("impl"))
+    eng = TrainEngine(models.make_model(cfg)[0], fused_loss=True, mesh=mesh,
+                      device=DEV)
+    state = eng.init_state(flatten_tree(models.init_params_numpy(cfg,
+                                                                 SEED)))
+    rows = batches["plain" if axes.get("impl") == "ring" else "packed"]
+    sharding.reset_counts()
+    _zero_counts()
+    losses = []
+    for b in rows:
+        if mesh is not None:
+            b = batch_rows(b, mesh)
+        state, m = eng.train_step(state, eng.place_batch(b))
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "launches": {**fa.launches,
+                                           **fused_ce.launches},
+            "routes": {k: v for k, v in sharding.counts.items()
+                       if k.startswith("tp_")},
+            "tp_route": eng.tp_route}
+
+
+def llama_train_worker(rank: int, port: int, tmp: str) -> int:
+    """One rank of 27e's world of two over gloo on this card
+    (``--llama-train-worker``): every mesh of ``LT_MESHES``; its results
+    in ``tmp/out_<rank>.json``."""
+    import torch
+    from distributedtraining_tpu_torch.parallel import (Mesh, MeshConfig,
+                                                        multihost)
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, device=DEV,
+                         backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    out = {"rank": rank}
+    try:
+        batches = _sp_arrays_from(os.path.join(tmp, "lt_batches.npz"))
+        for name, axes in LT_MESHES.items():
+            mesh = Mesh(MeshConfig(**_par_mesh_kw(axes)))
+            out[name] = _lt_mesh_run(name, axes, batches, mesh)
+    finally:
+        multihost.shutdown()
+    return _par_worker_done(tmp, rank, out)
+
+
+def _lt_mesh(tok) -> dict:
+    """27e: tiny-llama widened to E 256 (f32) on a world of two over
+    gloo, both ranks on this card (``--llama-train-worker``): fsdp 2, tp
+    2 (the kv heads split: head_split), sp 2 on packed rows (the
+    gathered flash route) and on unpacked ones (the ring); each rank's
+    losses within ``LT_F32_TOL`` of world 1's, its launches and block
+    routes exact."""
+    import tempfile
+    cfg = _lt_mesh_cfg(None)
+    L = cfg.n_layer
+    res: dict = {"model": "tiny-llama", **LT_MESH_CFG,
+                 "batch": [LT_MESH_B, LT_MESH_T], "steps": LT_MESH_STEPS}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _lt_mesh_batches(tok, tmp)
+        batches = _sp_arrays_from(os.path.join(tmp, "lt_batches.npz"))
+        w1 = {name: _lt_mesh_run(name, axes, batches, None)["losses"]
+              for name, axes in LT_MESHES.items()}
+        outs = _par_spawn(2, "gloo", {}, tmp, "llama train world 2",
+                          mode="--llama-train-worker")
+    for name, axes in LT_MESHES.items():
+        tp = axes.get("tp", 1)
+        route = (None if tp == 1 else "head_split"
+                 if cfg.n_kv_head % tp == 0 else "gathered_attn")
+        steps = LT_MESH_STEPS
+        want = {"flash_attention_fwd": L * steps,
+                "flash_attention_bwd_dkv": L * steps,
+                "flash_attention_bwd_dq": L * steps,
+                "fused_ce_fwd": steps, "fused_ce_bwd_dh": steps,
+                "fused_ce_bwd_dw": steps}
+        if axes.get("impl") == "ring":       # the ring runs no flash kernel
+            want = {k: (0 if k.startswith("flash") else v)
+                    for k, v in want.items()}
+        for r, o in enumerate(outs):
+            run = o[name]
+            what = f"llama train world 2 {name} rank {r}"
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(run["losses"], w1[name]))
+            check(rel <= LT_F32_TOL, f"{what}: losses {run['losses']} vs "
+                                     f"world 1 {w1[name]} ({rel})")
+            _check_launches(what, run["launches"], want)
+            check(run["tp_route"] == route,
+                  f"{what}: route {run['tp_route']} != {route}")
+            want_r = {f"tp_{x}_blocks": L * steps if x == route else 0
+                      for x in ("head_split", "gathered_attn")}
+            check(run["routes"] == want_r,
+                  f"{what}: routes {run['routes']} != {want_r}")
+        res[name] = {"mesh": axes, "world1": w1[name],
+                     "losses": [o[name]["losses"] for o in outs],
+                     "launches": outs[0][name]["launches"],
+                     "route": route}
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def llama_train_roles(tok) -> dict:
+    """27b-e (see the module docstring), each step's seconds in
+    ``times_s``."""
+    t0 = time.perf_counter()
+    res: dict = {"times_s": {}}
+    for name, fn in (("roles", _lt_roles), ("f32", _lt_parity),
+                     ("cli", lambda tok: _lt_clis()), ("mesh", _lt_mesh)):
+        t1 = time.perf_counter()
+        res[name] = fn(tok)
+        res["times_s"][name] = time.perf_counter() - t1
+        log(f"llama train {name}: {res['times_s'][name]:.1f} s",
+            json.dumps(res[name], default=str)[:20000])
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def llama_train_child(out: str) -> int:
+    """``--llama-train-child OUT``: 27b-e in a child process (before
+    26f's, beside phases 22-25 in the whole script); its result as JSON
+    in OUT."""
+    phase_env()
+    sys.path.insert(0, ROOT)
+    res = llama_train_roles(_tokenizer())
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def _lt_entries(entries: list, kern: dict, roles: dict) -> list:
+    """The kernels line's flash, CE and scatter entries, each with phase
+    27's Llama-3-8B training readings (times at the training shape) and
+    the launches of its role runs."""
+    timed = {**kern["flash"]["timed"], **kern["ce"]["timed"]}
+    runs = {r: roles["roles"][r]["launches"]
+            for r in ("miner", "validator", "weighted", "parameterized")}
+    for e in entries:
+        if e["name"] not in timed and e["name"] != "dequant_scatter":
+            continue
+        # the backward entry counts one dh and one dW launch a call
+        counter = ("fused_ce_bwd_dh" if e["name"] == "fused_ce_bwd"
+                   else e["name"])
+        e["llama_train"] = {
+            **({"timed": timed[e["name"]]} if e["name"] in timed else {}),
+            **{f"launches_{r}": got.get(counter, 0)
+               for r, got in runs.items()}}
+    return entries
+
+
+def llama_train_only() -> int:
+    """Phase 27 alone after the build (``--llama-train``): 27b-e, then
+    27a, in this process; the kernels line of the seven kernels it
+    runs (their Llama readings only), the ``llama_train`` line, the
+    card's line and the result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    build = phase_build()
+    tok = _tokenizer()
+    # the roles first: the profiler's first session is the miner step's
+    roles = llama_train_roles(tok)
+    kern = phase_llama_train_kernels(tok, build)
+    entries = [{"name": name, "route": "cuda", "source": source,
+                "build_s": build["build_s"]}
+               for name, source in (
+                   ("flash_attention_fwd", FLASH_SOURCE),
+                   ("flash_attention_bwd_dkv", FLASH_SOURCE),
+                   ("flash_attention_bwd_dq", FLASH_SOURCE),
+                   ("fused_ce_fwd", CE_SOURCE),
+                   ("fused_ce_bwd_dh", CE_SOURCE),
+                   ("fused_ce_bwd_dw", CE_SOURCE),
+                   ("dequant_scatter", SCATTER_SOURCE))]
+    print(json.dumps({"kernels": _lt_entries(entries, kern, roles)}),
+          flush=True)
+    print(json.dumps({"llama_train": {"kernels": kern, **roles,
+                                      "card": card}}, default=str),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8667,8 +9716,9 @@ def main() -> int:
     serve6 = {"window": phase_window(), "sampler": phase_sampler(),
               "server": phase_server(tree)}
     serve6["s"] = time.perf_counter() - t0
-    # 26f runs in a child beside phases 22-25 (LlamaCli)
-    cli = LlamaCli()
+    # 27b-e, then 26f at a cut depth, run in children beside phases
+    # 22-25 (LlamaCli)
+    cli = LlamaCli(layers=LLAMA_CLI_LAYERS_MAIN, train=True)
     try:
         t0 = time.perf_counter()
         serve6b = phase_serve6b(tree, tok)
@@ -8680,9 +9730,12 @@ def main() -> int:
         llama = phase_llama(tok, cli)
     finally:
         cli.close()
+    llama_train = {"kernels": phase_llama_train_kernels(tok, build),
+                   **cli.train_result}
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
-    print(json.dumps({"kernels": _llama_entries(_with_sp_launches([{
+    print(json.dumps({"kernels": _lt_entries(_llama_entries(
+        _with_sp_launches([{
         "name": "paged_decode_attention",
         "route": "cuda",
         "source": "distributedtraining_tpu_torch/csrc/paged_attention.cu",
@@ -8715,7 +9768,8 @@ def main() -> int:
         *_ce_entries(ce, miner, tfused, build, defaults, slice5),
         _sharded_entry(par),
         _scatter_entry(scatter, avg, build, defaults, slice5)],
-        sp["world2"]["cli"]["sp2"]["launches"][0]), llama)}), flush=True)
+        sp["world2"]["cli"]["sp2"]["launches"][0]), llama),
+        llama_train["kernels"], llama_train)}, default=str), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -8748,6 +9802,9 @@ def main() -> int:
     print(json.dumps({"llama": {**llama, "card": card,
                                 "total_s": time.perf_counter() - t_start}}),
           flush=True)
+    print(json.dumps({"llama_train": {**llama_train, "card": card,
+                                      "total_s": time.perf_counter()
+                                      - t_start}}, default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -9079,7 +10136,14 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--llama"]:
             sys.exit(llama_only())
         if sys.argv[1:2] == ["--llama-cli"]:
-            sys.exit(llama_cli_child(sys.argv[2]))
+            sys.exit(llama_cli_child(sys.argv[2], *map(int, sys.argv[3:4])))
+        if sys.argv[1:2] == ["--llama-train"]:
+            sys.exit(llama_train_only())
+        if sys.argv[1:2] == ["--llama-train-child"]:
+            sys.exit(llama_train_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--llama-train-worker"]:
+            sys.exit(llama_train_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                        sys.argv[4]))
         if sys.argv[1:2] == ["--sp-worker"]:
             sys.exit(sp_worker(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4]))

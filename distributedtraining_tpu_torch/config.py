@@ -290,8 +290,8 @@ _FLAGS: list[tuple[tuple[str, ...], dict]] = [
     (("--base-store-mb",), dict(dest="base_store_mb", type=int,
                                 default=_D.base_store_mb)),
     (("--model",), dict(default=_D.model,
-                        help="GPT-2 or Llama preset name (the Llama "
-                             "presets serve; training them is item 2(b))")),
+                        help="GPT-2 or Llama preset name (every role "
+                             "takes either family)")),
     (("--init-from",), dict(dest="init_from", default=None)),
     (("--seq-len",), dict(dest="seq_len", type=int, default=_D.seq_len)),
     (("--eval-seq-len",), dict(dest="eval_seq_len", type=int,

@@ -331,11 +331,12 @@ def sparsify_delta(delta: Params, *, density: float = 1.0 / 64.0
                        torch.zeros((), dtype=torch.float32,
                                    device=flat.device))
         else:
-            mags, order = torch.sort(flat.abs(), descending=True,
-                                     stable=True)
-            idx = order[:k].to(torch.int32)
-            kept = flat[order[:k]]
-            top_mag = mags[0]
+            mags = flat.abs()
+            order = _top_k_order(mags, k)
+            idx = order.to(torch.int32)
+            kept = flat[order]
+            top_mag = mags[order[0]]
+            del mags
         scale = _int8_scale(top_mag)
         base = f"leaves.{key}."
         out[base + "idx"] = idx
@@ -530,6 +531,38 @@ def nest_tree(flat: Mapping[str, Any]) -> dict:
     return out
 
 
+# the int32 view of a non-negative f32 orders as the floats do; every NaN
+# is read as this one key, above +inf, as a descending sort puts NaN first
+_NAN_KEY = 0x7FC00000
+
+
+def _top_k_order(mags: torch.Tensor, k: int) -> torch.Tensor:
+    """The first ``k`` indices of ``torch.sort(mags, descending=True,
+    stable=True)`` for a 1-D f32 ``mags >= 0`` (NaN allowed), without
+    sorting all of it: the k-th largest key by bisection over the keys'
+    int32 values, every index above it, the lowest-indexed ties at it,
+    and a stable sort of those ``k``. Its buffers are a comparison mask
+    of n bytes and the k candidates, where a full sort's values, int64
+    indices and scratch take ~24 bytes a value (~12.6 GB at Llama-3-8B's
+    525M-value ``wte``)."""
+    keys = mags.view(torch.int32)
+    nan = torch.isnan(mags)
+    if bool(nan.any()):
+        keys = torch.where(nan, torch.full_like(keys, _NAN_KEY), keys)
+    del nan
+    lo, hi = 0, _NAN_KEY          # count(keys >= t) >= k holds at t = lo
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if int((keys >= mid).sum()) >= k:
+            lo = mid
+        else:
+            hi = mid - 1
+    above = (keys > lo).nonzero().flatten()
+    ties = (keys == lo).nonzero().flatten()[:k - above.numel()]
+    cand = torch.cat([above, ties]).sort().values
+    return cand[torch.sort(keys[cand], descending=True, stable=True).indices]
+
+
 @torch.no_grad()
 def pack_delta_v2(delta: Params, *, density: float = 1.0 / 64.0,
                   quant: str = "int8", residual: Params | None = None
@@ -570,11 +603,12 @@ def pack_delta_v2(delta: Params, *, density: float = 1.0 / 64.0,
                        torch.zeros((), dtype=torch.float32,
                                    device=flat.device))
         else:
-            mags, order = torch.sort(flat.abs(), descending=True,
-                                     stable=True)
-            idx = order[:k].to(torch.int32)
-            kept = flat[order[:k]]
-            top_mag = mags[0]
+            mags = flat.abs()
+            order = _top_k_order(mags, k)
+            idx = order.to(torch.int32)
+            kept = flat[order]
+            top_mag = mags[order[0]]
+            del mags
         if quant == "int8":
             scale = _int8_scale(top_mag)
             q = torch.clamp(torch.round(kept / scale), -127, 127

@@ -185,9 +185,15 @@ class AdamW:
         t = np.float32(state.count)
         bc1 = float(np.float32(1.0) - np.float32(self.B1) ** t)
         bc2 = float(np.float32(1.0) - np.float32(self.B2) ** t)
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        # the same operations in place on two temporaries: one copy of
+        # the parameters' size each, not four (1.49B f32 parameters at
+        # Llama-3-8B's width would hold 24 GB of them at once)
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.EPS)
-        upd = torch._foreach_div(torch._foreach_div(mu_f, bc1), denom)
+        upd = torch._foreach_div(mu_f, bc1)
+        torch._foreach_div_(upd, denom)
+        del denom
         torch._foreach_add_(upd, p, alpha=self.weight_decay)
         torch._foreach_add_(p, upd, alpha=-self.lr)
         if mu_f is not mu:
@@ -299,10 +305,15 @@ def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
     the default positions are this rank's ``index("sp") * T/sp +
     arange(T/sp)``. With ``cfg.remat`` each block runs under
     ``models.gpt2.remat_block``, its parameters gathered inside the
-    recomputed region."""
+    recomputed region. Either family: GPT-2 embeds ``wte`` + ``wpe``,
+    walks ``h_{i}`` and ends in ``ln_f``; a Llama embeds ``wte`` alone,
+    walks ``layer_{i}`` (RoPE at the positions) and ends in
+    ``final_norm``."""
     from ..models.gpt2 import embed_tokens, remat_block
+    from ..ops.embed import embed_lookup
     from ..parallel import sharding
     cfg = model.cfg
+    is_llama = family(model) is llama
 
     def gather(block_shards: dict, prefix: str) -> dict:
         return {k: sharding.block_param(
@@ -316,22 +327,31 @@ def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
 
     ids = batch["input_ids"]
     pos = batch.get("position_ids")
-    if pos is None and mesh.size("sp") > 1:
+    if pos is None and (mesh.size("sp") > 1 or is_llama):
         Tl = ids.shape[1]
         pos = mesh.index("sp") * Tl + torch.arange(Tl, device=ids.device)
-    wte, wpe = (sharding.gather_param(shards[k], mesh, specs[k])
-                for k in ("wte", "wpe"))
-    x = embed_tokens(wte, wpe, ids, pos, cfg)
-    del wte, wpe
+    if is_llama:
+        pos = pos.expand(ids.shape)
+        wte = sharding.gather_param(shards["wte"], mesh, specs["wte"])
+        x = embed_lookup(wte, ids).to(cfg.compute_dtype())
+        del wte
+        layer, final = "layer_", "final_norm"
+        args = (batch.get("attention_mask"), batch.get("segment_ids"), pos)
+    else:
+        wte, wpe = (sharding.gather_param(shards[k], mesh, specs[k])
+                    for k in ("wte", "wpe"))
+        x = embed_tokens(wte, wpe, ids, pos, cfg)
+        del wte, wpe
+        layer, final = "h_", "ln_f"
+        args = (batch.get("attention_mask"), batch.get("segment_ids"))
     kw = {} if route is None else {"tp": mesh,
                                    "tp_heads": route == "head_split"}
     if mesh.size("sp") > 1:
         kw["sp"] = mesh
-    args = (batch.get("attention_mask"), batch.get("segment_ids"))
     for i, blk in enumerate(model.blocks()):
         if route is not None:
             sharding.counts[f"tp_{route}_blocks"] += 1
-        prefix = f"h_{i}."
+        prefix = f"{layer}{i}."
         if cfg.remat:
             x, _ = remat_block(blk, shards_of(prefix), x, *args,
                                gather=lambda p, pre=prefix: gather(p, pre),
@@ -341,7 +361,14 @@ def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
                 blk, gather(shards_of(prefix), prefix), (x, *args), kw,
                 strict=True)
     return torch.func.functional_call(
-        model.ln_f, gather(shards_of("ln_f."), "ln_f."), (x,), strict=True)
+        getattr(model, final), gather(shards_of(final + "."), final + "."),
+        (x,), strict=True)
+
+
+def _head(shards: Params) -> str:
+    """The name of the head the loss reads: a Llama's untied
+    ``lm_head``, else GPT-2's tied ``wte``."""
+    return "lm_head" if "lm_head" in shards else "wte"
 
 
 def _mesh_targets(batch: dict, mesh) -> tuple[torch.Tensor, torch.Tensor]:
@@ -370,8 +397,10 @@ def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh,
     from ..parallel import collectives as coll
     from ..parallel.sharding import DATA_AXES, gather_param
     hidden = _mesh_hidden(model, shards, specs, batch, mesh, route)
-    logits = tied_logits(hidden, gather_param(shards["wte"], mesh,
-                                              specs["wte"]), model.cfg)
+    name = _head(shards)
+    to_logits = llama.head_logits if family(model) is llama else tied_logits
+    logits = to_logits(hidden, gather_param(shards[name], mesh, specs[name]),
+                       model.cfg)
     total, count = lm_totals(logits, *_mesh_targets(batch, mesh))
     total = coll.all_reduce(total, mesh, DATA_AXES)
     count = torch.clamp(coll.all_reduce(count, mesh, DATA_AXES), min=1.0)
@@ -383,12 +412,12 @@ def _mesh_fused_lm_loss(model, shards: Params, specs: dict, batch: dict,
     """The JAX mesh spelling of ``_fused_lm_loss``: the hidden states
     keep their ``[B, T, E]`` shape and the shift moves into the labels
     and the mask (:func:`_mesh_targets`); the sharded CE takes an sp
-    chunk's positions as more rows, and the tied head as this rank's
-    shard."""
+    chunk's positions as more rows, and the head (a Llama's
+    ``lm_head``, GPT-2's tied ``wte``) as this rank's shard."""
     hidden = _mesh_hidden(model, shards, specs, batch, mesh, route)
     labels, m = _mesh_targets(batch, mesh)
-    return fused_linear_cross_entropy(hidden, shards["wte"], labels, m,
-                                      mesh=mesh)
+    return fused_linear_cross_entropy(hidden, shards[_head(shards)], labels,
+                                      m, mesh=mesh)
 
 
 def _fused_lm_loss(model, params: Params, batch: dict):
@@ -400,7 +429,7 @@ def _fused_lm_loss(model, params: Params, batch: dict):
     hidden = torch.func.functional_call(
         model, params, (batch["input_ids"],),
         {**_model_kwargs(batch), "return_hidden": True}, strict=True)
-    head = params["lm_head"] if "lm_head" in params else params["wte"]
+    head = params[_head(params)]
     mask = batch.get("loss_mask")
     return fused_linear_cross_entropy(
         hidden[:, :-1, :], head, batch["input_ids"][:, 1:],
@@ -413,7 +442,7 @@ class TrainEngine:
     and the causal-LM loss.
 
     ``model`` is the port's GPT-2 or Llama structure
-    (``models.make_model``); a mesh takes GPT-2 only.
+    (``models.make_model``), on one device or a mesh.
     ``fused_loss=True`` computes the loss from the hidden states through
     the fused CE kernels (``--fused-loss``); the port has one route, so
     the JAX package's string values (``"pallas"``, ``"scan"``) are
@@ -444,13 +473,9 @@ class TrainEngine:
                     f"TrainEngine(mesh=...) takes a parallel.Mesh (the "
                     f"port's dp x fsdp x sp x tp mesh over "
                     f"torch.distributed), got {type(mesh).__name__}")
-            if family(model) is llama:
-                raise NotImplementedError(
-                    "TrainEngine(mesh=...) on a Llama: its mesh specs and "
-                    "the untied head's sharded CE are ROADMAP item 2(b)")
             sd = model.state_dict()
             self.specs = sharding.param_specs(sd)
-            self.tp_route = sharding.tp_block_route(model.cfg.n_head, mesh)
+            self.tp_route = sharding.tp_block_route(model.cfg, mesh)
             for k, v in sd.items():     # raises where an axis does not divide
                 sharding.shard_slices(k, tuple(v.shape), self.specs[k],
                                       mesh.shape, mesh.coords)

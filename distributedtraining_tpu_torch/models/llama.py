@@ -28,6 +28,15 @@ pool is ``n_head / n_kv_head`` times smaller than the activations. With
 ``cfg.remat`` the training forward recomputes each block in the backward
 (``models.gpt2.remat_block``); the serving forward never does. The scan
 layout (``--scan-blocks``) is not ported.
+
+On a mesh (engine/train.py's ``_mesh_hidden``) a block takes GPT-2's
+keywords: ``tp`` splits the MLP's columns and, with ``tp_heads``, the
+query and kv heads (``parallel.sharding.block_param``), each half
+entering through ``collectives.copy_to`` and leaving through the
+all-reduce of a row-parallel ``wo`` or ``w_down``; ``sp`` attends over
+the sequence axis (the ring or the gathered route, on ``Hq`` heads after
+the kv broadcast, as JAX's ``jnp.repeat`` hands them over), RoPE reading
+the rank's global positions from ``position_ids``.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from torch import nn
 from ..ops.attention import causal_attention
 from ..ops.embed import embed_lookup
 from ..ops.paged_attention import paged_attention
-from .gpt2 import _TORCH_DTYPES, _param, pad_vocab, remat_block
+from .gpt2 import _TORCH_DTYPES, _param, _tp_enter, pad_vocab, remat_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +68,7 @@ class LlamaConfig:
     dtype: str = "bfloat16"        # activation/compute dtype
     param_dtype: str = "float32"   # storage dtype
     remat: bool = True
-    attention_impl: str = "flash"  # "dense" | "flash" | "blockwise"
+    attention_impl: str = "flash"  # "dense" | "flash" | "blockwise" | "ring"
     vocab_multiple: int = 128
     scan_blocks: bool = False      # the port always runs unrolled blocks
     logits_dtype: str = "float32"
@@ -135,8 +144,14 @@ class Dense(nn.Module):
         self.kernel = _param((n_in, n_out), cfg)
         self.dtype = cfg.compute_dtype()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """With ``tp`` (a ``parallel.Mesh``), a row-parallel product: each
+        tp rank's product is a partial sum, all-reduced over tp."""
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if tp is not None:
+            from ..parallel.collectives import all_reduce
+            y = all_reduce(y, tp, "tp")
+        return y
 
 
 class LlamaBlock(nn.Module):
@@ -160,35 +175,44 @@ class LlamaBlock(nn.Module):
                 position_ids: torch.Tensor | None = None, *,
                 kv_pages: tuple | None = None,
                 page_tables: torch.Tensor | None = None,
-                kv_lens: torch.Tensor | None = None):
+                kv_lens: torch.Tensor | None = None,
+                tp=None, tp_heads: bool = False, sp=None):
         """Returns ``(x, (k, v))``: the block output and this block's
         fresh post-RoPE keys/values ``[B, T, Hkv, D]``. ``position_ids``
         is ``[B, T]``. With ``kv_pages=(k_pages, v_pages)`` (this layer's
         pool slice) attention reads the pool through ``page_tables``;
-        the fresh ``(k, v)`` reach the pool only through the caller."""
+        the fresh ``(k, v)`` reach the pool only through the caller.
+
+        ``tp``, ``tp_heads`` and ``sp`` are ``models.gpt2.Block``'s: with
+        ``tp`` the parameters are this rank's tp slices (the MLP's
+        columns, and with ``tp_heads`` ``Hq/tp`` query heads, ``Hkv/tp``
+        kv heads and their rows of ``wo``), and ``(k, v)`` are then this
+        rank's kv heads; with ``sp`` ``x`` and ``position_ids`` hold this
+        rank's positions and the masks the whole row's."""
         cfg = self.cfg
         B, T, _ = x.shape
-        Hq, Hkv, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
-        h = self.attn_norm(x)
-        q = rotary_embedding(self.wq(h).reshape(B, T, Hq, D), position_ids,
+        D = cfg.head_dim
+        attn_tp = tp if tp_heads else None
+        h = _tp_enter(self.attn_norm(x), attn_tp)
+        q = rotary_embedding(self.wq(h).reshape(B, T, -1, D), position_ids,
                              cfg.rope_theta)
-        k = rotary_embedding(self.wk(h).reshape(B, T, Hkv, D), position_ids,
+        k = rotary_embedding(self.wk(h).reshape(B, T, -1, D), position_ids,
                              cfg.rope_theta)
-        v = self.wv(h).reshape(B, T, Hkv, D)
+        v = self.wv(h).reshape(B, T, -1, D)
         if kv_pages is not None:
             attn = paged_attention(q, kv_pages[0], kv_pages[1], page_tables,
                                    kv_lens, k, v)
         else:
-            rep = Hq // Hkv
+            rep = cfg.n_head // cfg.n_kv_head
             kf = k.repeat_interleave(rep, dim=2) if rep > 1 else k
             vf = v.repeat_interleave(rep, dim=2) if rep > 1 else v
             attn = causal_attention(q, kf, vf, attention_mask=attention_mask,
                                     segment_ids=segment_ids,
-                                    impl=cfg.attention_impl)
-        x = x + self.wo(attn.reshape(B, T, Hq * D))
-        h = self.mlp_norm(x)
+                                    impl=cfg.attention_impl, sp=sp)
+        x = x + self.wo(attn.reshape(B, T, -1), attn_tp)
+        h = _tp_enter(self.mlp_norm(x), tp)
         gated = nn.functional.silu(self.w_gate(h)) * self.w_up(h)
-        return x + self.w_down(gated), (k, v)
+        return x + self.w_down(gated, tp), (k, v)
 
 
 class Llama(nn.Module):

@@ -36,7 +36,7 @@ import os
 from typing import Any, Callable, Iterable
 
 from ..chain import LocalAddressStore, LocalChain
-from ..config import _SLICES, MESH_ROLES, RunConfig
+from ..config import MESH_ROLES, RunConfig
 from ..data.datasets import (ByteTokenizer, WordTokenizer, batch_iterator,
                              shuffle_seed_for, text_corpus)
 from ..engine.train import TrainEngine, default_optimizer
@@ -177,11 +177,6 @@ def build(cfg: RunConfig) -> Components:
         family = models.family(cfg.model)
     except KeyError as e:
         raise NotImplementedError(f"--model {cfg.model}: {e.args[0]}")
-    if family is models.llama and cfg.role != "server":
-        raise NotImplementedError(
-            f"--model {cfg.model} for the {cfg.role}: the port serves the "
-            f"Llama presets; the miner, validator and averager on them "
-            f"are {_SLICES} item 2(b)")
     model_cfg = family.PRESETS[cfg.model]
     if cfg.logits_dtype:
         model_cfg = dataclasses.replace(model_cfg,

@@ -1,10 +1,10 @@
-"""Logical axes -> mesh placement for the GPT-2 parameters and batches —
-the port of the JAX package's ``parallel/sharding.py``.
+"""Logical axes -> mesh placement for the GPT-2 and Llama parameters and
+batches — the port of the JAX package's ``parallel/sharding.py``.
 
-The JAX GPT-2 annotates every parameter with logical axis names
+The JAX models annotate every parameter with logical axis names
 (``nn.with_logical_partitioning``); :data:`DEFAULT_RULES` maps them to
-mesh axes. The port's model carries no annotations, so
-:data:`GPT2_LOGICAL_AXES` lists the JAX model's, by parameter name:
+mesh axes. The port's models carry no annotations, so
+:data:`GPT2_LOGICAL_AXES` lists the JAX GPT-2's, by parameter name:
 
     wte       ("vocab", "embed")   models/gpt2.py:232
     wpe       (None, "embed")      :237
@@ -14,9 +14,19 @@ mesh axes. The port's model carries no annotations, so
     mlp_proj  ("mlp", "embed")     :181
 
 a dense bias takes its kernel's last axis (``:110``), and LayerNorm's
-scale and bias are ``("embed",)``. :func:`param_spec` resolves them to a
-spec, one mesh axis (or None) a dim: ``wte`` is ``("tp", "fsdp")``,
-``c_attn.kernel`` ``("fsdp", "tp")``.
+scale and bias are ``("embed",)``. :data:`LLAMA_LOGICAL_AXES` lists the
+JAX Llama's:
+
+    wte, lm_head              ("vocab", "embed")  models/llama.py:221, :265
+    wq, wk, wv                ("embed", "qkv")    :138-140
+    wo                        ("qkv", "embed")    :166
+    w_gate, w_up              ("embed", "mlp")    :170-171
+    w_down                    ("mlp", "embed")    :172
+    attn_norm, mlp_norm, final_norm scale  ("embed",)  :100-103
+
+:func:`param_spec` resolves them to a spec, one mesh axis (or None) a
+dim: ``wte`` is ``("tp", "fsdp")``, ``c_attn.kernel`` and ``wq.kernel``
+``("fsdp", "tp")``.
 
 :func:`shard_params` cuts a full tree to one rank's shards: chunk
 ``coords[axis]`` of each split dim, equal element for element to the JAX
@@ -52,10 +62,18 @@ its share of the work. ``c_fc`` (``[E, 4E/tp]`` and its bias) and
 divides the heads, so is ``c_proj`` (``[E/tp, E]``: the rows of heads
 ``[t H/tp, (t+1) H/tp)``, the attention output being head-major), and
 ``c_attn`` goes through :func:`gather_heads`, since its tp chunk of the
-fused q|k|v columns is not whole heads. Their backward reduce-scatters
-over fsdp and does nothing over tp: each rank's gradient is its own
-slice. Every other parameter, and the attention half where tp does not
-divide the heads, is gathered whole as before.
+fused q|k|v columns is not whole heads. A Llama's MLP (``w_gate`` and
+``w_up`` by column, ``w_down`` by row; SwiGLU's product is elementwise,
+so aligned column chunks suffice) splits the same way. Its attention
+splits where tp divides the kv heads (and so the query heads): the tp
+chunks of ``wq``, ``wk`` and ``wv`` are whole heads in JAX's layout
+(``Hq/tp`` query and ``Hkv/tp`` kv heads, and query head ``h`` reads kv
+head ``h // (Hq/Hkv)``, so a rank's query heads meet exactly its own kv
+heads), and those of ``wo`` their rows; all four are gathered over fsdp
+only. Their backward reduce-scatters over fsdp and does nothing over
+tp: each rank's gradient is its own slice. Every other parameter, and
+the attention half where tp does not divide the heads, is gathered
+whole as before.
 """
 
 from __future__ import annotations
@@ -98,6 +116,20 @@ GPT2_LOGICAL_AXES = {
     "bias": ("embed",),
 }
 
+# the JAX Llama's logical axes, by the last one or two parts of a name
+LLAMA_LOGICAL_AXES = {
+    "wte": ("vocab", "embed"),
+    "lm_head": ("vocab", "embed"),
+    "wq.kernel": ("embed", "qkv"),
+    "wk.kernel": ("embed", "qkv"),
+    "wv.kernel": ("embed", "qkv"),
+    "wo.kernel": ("qkv", "embed"),
+    "w_gate.kernel": ("embed", "mlp"),
+    "w_up.kernel": ("embed", "mlp"),
+    "w_down.kernel": ("mlp", "embed"),
+    "scale": ("embed",),      # attn_norm, mlp_norm, final_norm
+}
+
 BATCH_SPEC = (("dp", "fsdp"), "sp")
 ROW_AXES = BATCH_SPEC[0]
 # the axes over which every rank computes on its own part of the batch
@@ -110,17 +142,19 @@ Spec = tuple
 
 
 def logical_axes(name: str) -> tuple:
-    """The JAX GPT-2's logical axes of the parameter ``name`` (a state
-    dict key such as ``h_0.c_attn.kernel``)."""
+    """The JAX model's logical axes of the parameter ``name`` (a state
+    dict key such as ``h_0.c_attn.kernel`` or ``layer_0.wq.kernel``),
+    from the table of the family the name belongs to."""
     parts = name.split(".")
-    if len(parts) == 1 and name in ("wte", "wpe"):
-        return GPT2_LOGICAL_AXES[name]
-    if len(parts) >= 2 and parts[-2].startswith("ln_") \
-            and parts[-1] in ("scale", "bias"):
-        return GPT2_LOGICAL_AXES[parts[-1]]
-    key = ".".join(parts[-2:])
-    if len(parts) >= 2 and key in GPT2_LOGICAL_AXES:
-        return GPT2_LOGICAL_AXES[key]
+    if len(parts) == 1:
+        key = name
+    elif parts[-2].startswith("ln_") or parts[-2].endswith("_norm"):
+        key = parts[-1]             # a norm's scale (and GPT-2's bias)
+    else:
+        key = ".".join(parts[-2:])
+    for table in (GPT2_LOGICAL_AXES, LLAMA_LOGICAL_AXES):
+        if key in table:
+            return table[key]
     raise KeyError(f"no logical axes for parameter {name!r}")
 
 
@@ -209,7 +243,7 @@ def shard_params(params: Mapping[str, Any], mesh=None, *,
     tensor}``) on ``device``. ``mesh`` gives the mesh's shape and this
     rank's coordinates; ``shape_of_mesh`` and ``coords`` name them for
     any rank instead (no process group needed). ``specs`` defaults to
-    the GPT-2 specs of the tree's names."""
+    the specs of the tree's names (either family)."""
     if mesh is not None:
         shape_of_mesh = mesh.shape if shape_of_mesh is None else \
             shape_of_mesh
@@ -445,22 +479,35 @@ def gather_heads(shard: torch.Tensor, mesh, spec: Spec,
 
 
 # block parameters whose tp chunk is this rank's share of the work:
-# always (the MLP's columns), and where tp divides the heads
-_TP_MLP = ("c_fc.kernel", "c_fc.bias", "mlp_proj.kernel")
-_TP_HEADS = ("c_proj.kernel",)
+# always (the MLP's columns, GPT-2's and a Llama's), and where tp divides
+# the heads (GPT-2's c_proj rows; a Llama's q, k, v heads and wo rows,
+# whole heads in storage); GPT-2's fused q|k|v through gather_heads
+_TP_MLP = ("c_fc.kernel", "c_fc.bias", "mlp_proj.kernel",
+           "w_gate.kernel", "w_up.kernel", "w_down.kernel")
+_TP_HEADS = ("c_proj.kernel", "wq.kernel", "wk.kernel", "wv.kernel",
+             "wo.kernel")
 _TP_QKV = ("c_attn.kernel", "c_attn.bias")
 
 
-def tp_block_route(n_head: int, mesh) -> str | None:
-    """How the blocks compute on ``mesh``'s tp axis, a rule of shapes:
-    None at tp 1 (on gathered parameters); ``"head_split"`` where tp
-    divides ``n_head`` (``H/tp`` heads and ``4E/tp`` MLP columns a
-    rank); ``"gathered_attn"`` elsewhere (the MLP's columns split, the
-    attention over every head on gathered parameters)."""
+def tp_block_route(heads, mesh) -> str | None:
+    """How the blocks compute on ``mesh``'s tp axis, a rule of shapes.
+    ``heads`` is a model config, or ``n_head`` (a GPT-2 has as many kv
+    heads as heads). None at tp 1 (on gathered parameters);
+    ``"head_split"`` where tp divides the kv heads and the heads
+    (``Hq/tp`` query heads, their ``Hkv/tp`` kv heads and the MLP's
+    columns split a rank); ``"gathered_attn"`` elsewhere (the MLP's
+    columns split, the attention over every head on gathered
+    parameters)."""
+    if isinstance(heads, int):
+        n_head = n_kv = heads
+    else:
+        n_head = heads.n_head
+        n_kv = getattr(heads, "n_kv_head", n_head)
     tp = mesh.size("tp")
     if tp == 1:
         return None
-    return "head_split" if n_head % tp == 0 else "gathered_attn"
+    return ("head_split" if n_head % tp == 0 and n_kv % tp == 0
+            else "gathered_attn")
 
 
 def block_param(name: str, shard: torch.Tensor, mesh, spec: Spec,

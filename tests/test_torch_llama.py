@@ -317,11 +317,43 @@ def test_train_engine_on_a_llama_matches_jax(fused):
 
 def test_train_engine_reads_a_missing_dropout_as_zero_and_refuses_a_mesh():
     """A Llama config has no ``dropout`` field (JAX's has none either):
-    the engine builds; a mesh is ROADMAP item 2(b) and is refused."""
-    from distributedtraining_tpu_torch.parallel.mesh import Mesh
+    the engine builds. On a world-1 mesh (item 2(b)) it builds with every
+    parameter's JAX spec and no tp route, and its step's loss and
+    parameters are the one-device engine's; a mesh whose axis does not
+    divide a parameter is refused, as JAX's placement refuses it."""
+    import socket
+
+    from distributedtraining_tpu_torch.parallel import multihost
+    from distributedtraining_tpu_torch.parallel.mesh import Mesh, MeshConfig
     model, _ = models.make_model(TINY)
     assert not hasattr(TINY, "dropout")
-    ttrain.TrainEngine(model, device="cpu")
-    # refused before the mesh is read: an unbuilt Mesh (no world) serves
-    with pytest.raises(NotImplementedError, match=r"item 2\(b\)"):
-        ttrain.TrainEngine(model, mesh=Mesh.__new__(Mesh), device="cpu")
+    one = ttrain.TrainEngine(model, device="cpu")
+    tree = models.init_params_numpy(TINY, 0)
+    batch = _word_batches(1)[0]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert multihost.initialize(f"127.0.0.1:{port}", 1, 0, device="cpu")
+    try:
+        eng = ttrain.TrainEngine(model, mesh=Mesh(MeshConfig()),
+                                 device="cpu")
+        assert eng.tp_route is None
+        assert set(eng.specs) == set(model.state_dict())
+        assert eng.specs["lm_head"] == ("tp", "fsdp")
+        params = models.params_from_numpy(tree, device="cpu")
+        s1, m1 = one.train_step(one.init_state(params), one.place_batch(batch))
+        sm, mm = eng.train_step(eng.init_state(params), eng.place_batch(batch))
+        np.testing.assert_allclose(float(mm["loss"]), float(m1["loss"]),
+                                   rtol=1e-6)
+        assert float(mm["tokens"]) == float(m1["tokens"])
+        for k, v in s1.params.items():
+            np.testing.assert_allclose(sm.params[k].detach().numpy(),
+                                       v.detach().numpy(), atol=1e-7,
+                                       err_msg=k)
+    finally:
+        multihost.shutdown()
+    bad = Mesh.__new__(Mesh)      # a shape and coordinates, no world
+    bad.shape = {"dp": 1, "fsdp": 3, "sp": 1, "tp": 1}
+    bad.coords = {"dp": 0, "fsdp": 0, "sp": 0, "tp": 0}
+    with pytest.raises(ValueError, match=r"not divisible by \('fsdp',\) = 3"):
+        ttrain.TrainEngine(model, mesh=bad, device="cpu")

@@ -539,15 +539,22 @@ def test_server_cli_serves_tiny_llama_as_jax_does(world, tmp_path,
 
 
 @pytest.mark.parametrize("role", ["miner", "validator", "averager"])
-def test_other_roles_refuse_a_llama(role, monkeypatch):
-    """The miner, the validator and the averager on a Llama preset raise
-    NotImplementedError naming ROADMAP item 2(b) at their build."""
+def test_other_roles_refuse_a_llama(role, monkeypatch, tmp_path):
+    """The miner, the validator and the averager build on a Llama preset
+    (item 2(b)): the model and the engine's one-device route; what stays
+    out for every family is still refused at the build (``--scan-blocks``,
+    item 2(e))."""
     from distributedtraining_tpu_torch.neurons.common import build
     monkeypatch.setenv("DT_FORCE_PLATFORM", "cpu")
-    cfg = RunConfig.from_args(role, ["--model", "tiny-llama", "--dataset",
-                                     "synthetic", "--tokenizer", "word"])
-    with pytest.raises(NotImplementedError, match=r"item 2\(b\)"):
-        build(cfg)
+    base = ["--model", "tiny-llama", "--dataset", "synthetic",
+            "--tokenizer", "word", "--backend", "memory",
+            "--work-dir", str(tmp_path)]
+    c = build(RunConfig.from_args(role, base))
+    assert isinstance(c.model, tl.Llama)
+    assert c.model_cfg == tl.PRESETS["tiny-llama"]
+    assert c.engine.mesh is None and c.engine.model is c.model
+    with pytest.raises(NotImplementedError, match=r"slice 7, item 2\(e\)"):
+        build(RunConfig.from_args(role, base + ["--scan-blocks"]))
 
 
 def test_server_builds_a_llama_and_refuses_what_stays_out(monkeypatch,

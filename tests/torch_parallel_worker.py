@@ -43,17 +43,22 @@ def case_ce(mesh: Mesh, args: dict, inp) -> dict:
             "dh": h.grad.numpy(), "dw": w.grad.numpy()}
 
 
+def _model(preset: str, overrides: dict):
+    """The structure of ``preset`` (either family) with ``overrides``."""
+    import dataclasses
+
+    from distributedtraining_tpu_torch import models
+    cfg = dataclasses.replace(models.family(preset).PRESETS[preset],
+                              **overrides)
+    return models.make_model(cfg)[0]
+
+
 def _engine(mesh: Mesh, args: dict):
     """The mesh TrainEngine of ``args`` (preset, overrides, fused, accum,
     lr, grad_clip) on the CPU."""
-    import dataclasses
-
     from distributedtraining_tpu_torch.engine.train import (
         TrainEngine, default_optimizer)
-    from distributedtraining_tpu_torch.models import gpt2
-    cfg = dataclasses.replace(gpt2.PRESETS[args["preset"]],
-                              **args["overrides"])
-    model, _ = gpt2.make_model(cfg)
+    model = _model(args["preset"], args["overrides"])
     return TrainEngine(model, mesh=mesh, fused_loss=args["fused"],
                        accum_steps=args["accum"],
                        optimizer=default_optimizer(
@@ -316,19 +321,19 @@ def case_regather(mesh: Mesh, args: dict, inp) -> dict:
 
 
 def _sp_engine_run(e: dict, inp) -> dict:
-    """One engine of ``args["engines"]`` (:func:`case_sp`): its mesh,
+    """One engine of ``args["engines"]`` (:func:`case_sp`,
+    :func:`case_llama`): its mesh, its preset (``tiny`` unless named),
     fused or not, its model overrides (``attention_impl``, ``remat``),
     ``args["steps"]`` AdamW steps on this rank's rows and positions of
     the global batches (packed ones carry segment ids, positions and a
-    loss mask); the losses and the final shards."""
-    import dataclasses
-
+    loss mask); the losses, the block routes those steps took, the final
+    shards and the gathered tree."""
     from distributedtraining_tpu_torch.engine.train import (
         TrainEngine, default_optimizer)
-    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.parallel import sharding
     mesh = Mesh(MeshConfig(**e["mesh"]))
-    cfg = dataclasses.replace(gpt2.PRESETS["tiny"], **e["overrides"])
-    model, _ = gpt2.make_model(cfg)
+    model = _model(e.get("preset", "tiny"), e["overrides"])
+    sharding.reset_counts()
     eng = TrainEngine(model, mesh=mesh, fused_loss=e["fused"],
                       optimizer=default_optimizer(e["lr"],
                                                   grad_clip=e["grad_clip"]),
@@ -343,9 +348,13 @@ def _sp_engine_run(e: dict, inp) -> dict:
         losses.append(float(m["loss"]))
         tokens.append(float(m["tokens"]))
     out = {"losses": np.array(losses), "tokens": np.array(tokens)}
+    out.update({f"routes/{k}": v for k, v in sharding.counts.items()
+                if k.startswith("tp_")})
     for name, tree in (("p", state.params), ("mu", state.opt_state.mu)):
         out.update({f"{name}/{k}": v.detach().numpy()
                     for k, v in tree.items()})
+    out.update({f"full/{k}": v.numpy()
+                for k, v in eng.gather(state.params).items()})
     # one loss and its gradient, summed over the data axes as a step
     # sums it, on the first batch
     batch = eng.place_batch(batch_rows({k: inp[k][0] for k in keys}, mesh))
@@ -358,6 +367,16 @@ def _sp_engine_run(e: dict, inp) -> dict:
     eval0, _ = eng.evaluate(params, [{k: inp[k][0] for k in keys}])
     out.update({"loss0": loss.detach().numpy(), "count0": count.numpy(),
                 "grad0/wte": grads["wte"].numpy(), "eval0": eval0})
+    return out
+
+
+def case_llama(mesh: Mesh, args: dict, inp) -> dict:
+    """The Llama engines of ``args["engines"]``, each on its own mesh of
+    this world (:func:`_sp_engine_run` with a Llama preset)."""
+    out = {}
+    for name, e in args["engines"].items():
+        out.update({f"{name}/{k}": v
+                    for k, v in _sp_engine_run(e, inp).items()})
     return out
 
 
@@ -398,7 +417,7 @@ def case_sp(mesh: Mesh, args: dict, inp) -> dict:
 
 
 CASES = {"ce": case_ce, "engine": case_engine, "tp": case_tp,
-         "sp": case_sp,
+         "sp": case_sp, "llama": case_llama,
          "miner": case_miner,
          "collectives": case_collectives, "pod": case_pod,
          "regather": case_regather}
