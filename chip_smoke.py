@@ -14,6 +14,8 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --sp
     python3 chip_smoke.py --llama
     python3 chip_smoke.py --llama-train
+    python3 chip_smoke.py --lora
+    python3 chip_smoke.py --lora-soak STEPS [--checked]
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
@@ -35,7 +37,11 @@ the ttft and prefill ms of every request that hit the prefix cache.
 ``--serve6b`` runs phase 22 alone after the build,
 ``--parallel`` phase 23 alone, ``--mesh-roles`` phase 24 alone, ``--sp``
 phase 25 alone, ``--llama`` phase 26 alone, ``--llama-train`` phase 27
-alone, and ``--parallel-cards`` the worlds of phases 23 and 24
+alone, ``--lora`` phase 28 with its full-depth part,
+``--lora-soak STEPS`` the full-depth LoRA step of 28c STEPS times (with
+``--checked``, the card synchronised before and after each flash and CE
+launch and the launch's inputs and outputs checked, so that a fault
+names its kernel), and ``--parallel-cards`` the worlds of phases 23 and 24
 over NCCL on every card of a machine with several (at world 4 with the
 sp2 x tp2 and dp2 x sp2 engines too). ``--tp-ab DIR...`` times phase 23's tp
 engine steps with the package of each checkout DIR in turn (parent,
@@ -527,8 +533,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            phase 4 holds them (the dense plain version, the plain version
            of the kernels' walk, two calls bit-equal); the CE forward and
            backward at N 4096, E 4096, V 128256 (bf16, a real batch's
-           targets) and N 256 (f32), held as phase 11 holds them (a
-           planted wrong dh or dW must fail the limit); each timed in bf16
+           targets) and N 256 (f32, against an f64 plain version), held
+           as phase 11 holds them (a planted wrong dh or dW must fail the
+           limit); each timed in bf16
            (``_time_ms``, the profiler for the forwards and the whole
            backwards) beside its bound, the plain version and the library
            (SDPA with the same mask and causal without ids; cuBLAS GEMM +
@@ -560,6 +567,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
            1e-4 of world 1's, launches and block routes exact. In the whole
            script (b)-(e) run in a child (``--llama-train-child``) started
            before phase 22, (a) after phase 26.
+28. lora   LoRA adapters on the miner, the validator and the averager
+           (``--lora-rank 8``, alpha 16). (a) At GPT-2-124M full width and
+           (b) at ``llama2-7b``'s width cut to 2 layers (weights drawn on
+           the card from SEED), one CLI round each on one LocalFS root
+           (in /dev/shm when it has room): a LoRA miner with
+           ``--fused-loss``, a LoRA miner without it and a full-parameter
+           miner with it (4 steps each), then ``validator --lora-rank 8``
+           and the default ``averager --lora-rank 8``. The miners' losses
+           finite and falling; launches exact (flash forward (2 under
+           remat) x layers x steps, the backward pair layers x steps, CE
+           forward and dh once a step, and CE dW none on the LoRA miners,
+           once a step on the full one); each adapter artifact holds the
+           adapters' f32 values and nothing of the base (its bytes
+           reported); one LoRA submission densified by the plain path on
+           the host (``densify_delta_bytes``) equals the card's
+           ``lora_to_full_delta`` within 1e-6; the validator's flash
+           forward == layers x 2 eval batches x (3 candidates + base),
+           nothing else, its weights on both LoRA miners > 0; the averager
+           merges all three (no scatter launch: a LoRA submission is
+           densified). In the whole script (a)-(b) run in a child
+           (``--lora-child``) after 27b-e's and before 26f's. With
+           ``--lora``: (c) the whole ``llama2-7b`` (32 layers,
+           6,738,415,616 parameters, remat on, bf16 compute over f32
+           weights drawn on the card): first the CE forward and the
+           frozen head's dh-only backward at its head's shape (the main
+           path's rows, a real batch's targets and mask: N 4092, E 4096,
+           V 32000, bf16) against their plain versions
+           (``fused_ce_bwd_reference(want_dw=False)``) with
+           ``_ce_check``'s limits and planted wrong dh (and the f32
+           kernels on 256 rows against an f64 plain version), then timed
+           beside the bound, the plain versions and the library's; then
+           a ``LoRAEngine`` and ``LoRAMinerLoop`` (``--fused-loss``) over
+           an in-memory
+           transport take 6 steps at B 4 x T 1024 and push once: losses
+           finite and falling, launches exact (CE dW none), step ms,
+           tokens/s, the peak of the card's memory, a profiled step; the
+           held-out loss of base + adapters (``eval_step``) below the
+           base's; the pushed adapter tree (33.6 MB) densified on the
+           adapted kernels alone against the card's. (d) Phase 27's
+           tiny-llama at E 256 (f32) on a world of two over gloo
+           (``--lora-worker``): LoRA miners at dp 2, fsdp 2, sp 2 (the
+           gathered route: packed rows) and tp 2, losses
+           within 1e-4 of world 1's, the adapters the same on both ranks,
+           launches and block routes exact, one push.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
@@ -568,8 +619,8 @@ JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
 ``serve6b`` JSON line (phase 22), a ``parallel`` JSON line (phase 23),
 a ``mesh_roles`` JSON line (phase 24), an ``sp`` JSON line (phase 25),
 an ``llama`` JSON line (phase 26; its ``llama_host`` line comes first),
-an ``llama_train`` JSON line (phase 27), the ``nvidia-smi``
-name/power-limit line,
+an ``llama_train`` JSON line (phase 27), a ``lora`` JSON line (phase
+28), the ``nvidia-smi`` name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -8294,9 +8345,11 @@ class LlamaCli:
     cuts its depth; with ``train`` 27b-e run first in a child of their
     own (``--llama-train-child OUT``), 26f's child starts when it ends,
     and :meth:`join` waits for both (``train_result`` holds 27b-e's
-    result)."""
+    result); with ``lora`` 28a-b run in a child of their own
+    (``--lora-child OUT``) between the two (``lora_result``)."""
 
-    def __init__(self, layers: int | None = None, train: bool = False):
+    def __init__(self, layers: int | None = None, train: bool = False,
+                 lora: bool = False):
         import shlex
         import tempfile
         self.tmp = tempfile.mkdtemp()
@@ -8304,11 +8357,17 @@ class LlamaCli:
         self.train_out = os.path.join(self.tmp, "train.json") if train \
             else None
         self.train_result = None
+        self.lora_out = os.path.join(self.tmp, "lora.json") if lora \
+            else None
+        self.lora_result = None
         self.log = open(os.path.join(self.tmp, "cli.log"), "w")
         self.t0 = time.perf_counter()
         me = [sys.executable, os.path.abspath(__file__)]
         cmds = [me + ["--llama-cli", self.out]
                 + ([str(layers)] if layers else [])]
+        if lora:
+            # after 27b-e, so that the two trainings' peaks never meet
+            cmds.insert(0, me + ["--lora-child", self.lora_out])
         if train:
             # first, so that its miner (the largest peak of the card's
             # memory, ~65 GB) meets phase 22's light serving and not the
@@ -8346,6 +8405,12 @@ class LlamaCli:
             log("llama train child:", "\n".join(
                 ln for ln in text.splitlines()
                 if ln.startswith("llama train"))[-20000:])
+        if self.lora_out is not None:
+            with open(self.lora_out) as f:
+                self.lora_result = json.load(f)
+            log("lora child:", "\n".join(
+                ln for ln in text.splitlines()
+                if ln.startswith("lora "))[-20000:])
         shutil.rmtree(self.tmp, ignore_errors=True)
         return {**res, "child_s": time.perf_counter() - self.t0,
                 "waited_s": waited}
@@ -8640,9 +8705,11 @@ def _lt_ce(tok) -> dict:
     """27a, CE: the forward and the backward (dh and dW together and
     each alone) at Llama-3-8B's untied head (E 4096, V 128256) on the
     miner's 4096 rows in bf16 (a real batch's targets and mask) and on
-    256 rows in f32, against their plain versions with ``_ce_check``'s
-    limits (a planted wrong dh or dW must fail them); then timed in bf16
-    beside the bound, the plain versions and the library's path."""
+    256 rows in f32, against their plain versions (the f32 kernels
+    against ``_ce_plain_f64``, the f32 plain's own error reported) with
+    ``_ce_check``'s limits (a planted wrong dh or dW must fail them);
+    then timed in bf16 beside the bound, the plain versions and the
+    library's path."""
     import torch
     from distributedtraining_tpu_torch.ops import fused_ce
     cfg = _llama_cfg()
@@ -8660,14 +8727,24 @@ def _lt_ce(tok) -> dict:
         h, w, y, g = _lt_ce_inputs(n, V, E, dtype, SEED + 40 + i, **kw)
         outs = _ce_run(h, w, y, g)
         dt = str(dtype).split(".")[1]
+        case = {"case": name, "dtype": dt, "N": n, "V": V, "E": E,
+                "tol": CE_TOL[dt]}
+        if dtype == torch.float32:
+            exact = _ce_plain_f64(h, w, y, g, want_dw=True)
+            exact.update(dh_alone=exact["dh"], dw_alone=exact["dw"])
+            case["plain_f32_vs_f64"] = {
+                k: x for k, (_, x) in _ce_limit_errors(
+                    {k: (r, exact[k]) for k, (_, r) in outs.items()},
+                    dt).items()}
+            outs = {k: (a, exact[k]) for k, (a, _) in outs.items()}
+            del exact
         check(all(bool(torch.isfinite(a.float()).all())
                   for a, _ in outs.values()),
               f"fused CE kernels: non-finite output at {name}")
         errs = _ce_check(name, outs, dt)
-        checks.append({"case": name, "dtype": dt, "N": n, "V": V, "E": E,
+        checks.append({**case,
                        "max_abs": {k: d for k, (d, _) in errs.items()},
-                       "err": {k: x for k, (_, x) in errs.items()},
-                       "tol": CE_TOL[dt]})
+                       "err": {k: x for k, (_, x) in errs.items()}})
         del outs, h, w, y, g
         torch.cuda.empty_cache()
     n = LT_CE_N
@@ -9464,6 +9541,829 @@ def llama_train_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 28. lora
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 8               # --lora-rank (the README's); --lora-alpha 16
+LORA_LR = 5e-3              # the LoRA miners' --learning-rate
+LORA_FULL_LR = 1e-3         # the full-parameter miner's
+# (a) and (b): one CLI round each: preset, depth (None: the preset's),
+# --batch-size, --seq-len, --max-steps
+LORA_ROUNDS = {"gpt2_124m": ("gpt2-124m", None, 8, 256, 4),
+               "llama2_7b_d2": ("llama2-7b", 2, 4, 256, 4)}
+LORA_EVAL = ["--eval-batches", "2", "--eval-seq-len", "256"]
+LORA_DENSE_TOL = 1e-6       # host densify vs the card's, f32, TF32 off
+# (c), --lora: llama2-7b at full width and depth
+LORA_PRESET = "llama2-7b"
+LORA_B, LORA_T, LORA_STEPS, LORA_HELD = 4, 1024, 6, 2
+LORA_BIG_LR = 2e-3
+# (d), --lora: a world of two on phase 27's widened tiny-llama
+LORA_MESHES = {"dp2": {"dp": 2}, "fsdp2": {"fsdp": 2}, "sp2": {"sp": 2},
+               "tp2": {"tp": 2}}
+
+
+def _lora_sync() -> None:
+    import torch
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+class _LoraTap:
+    """Class-level hooks on what the role CLIs build: each train step's
+    loss (the LoRA step and the full one) and the hotkeys each averager
+    round gathered."""
+
+    def __enter__(self):
+        from distributedtraining_tpu_torch.engine.average import \
+            AveragerLoop
+        from distributedtraining_tpu_torch.engine.lora_train import \
+            LoRAEngine
+        from distributedtraining_tpu_torch.engine.train import TrainEngine
+        self.losses: list = []
+        self.gathered: list = []
+        self._undo = []
+        tap = self
+
+        def hook(cls, name, wrap):
+            real = getattr(cls, name)
+            setattr(cls, name, wrap(real))
+            self._undo.append((cls, name, real))
+
+        def lora_step(real):
+            def step(eng, state, base, batch):
+                out = real(eng, state, base, batch)
+                tap.losses.append(float(out[1]["loss"]))
+                return out
+            return step
+
+        def full_step(real):
+            def step(eng, state, batch):
+                out = real(eng, state, batch)
+                tap.losses.append(float(out[1]["loss"]))
+                return out
+            return step
+
+        def gather(real):
+            def run(loop):
+                ids, staged = real(loop)
+                tap.gathered.append(list(ids))
+                return ids, staged
+            return run
+
+        hook(LoRAEngine, "train_step", lora_step)
+        hook(TrainEngine, "train_step", full_step)
+        hook(AveragerLoop, "gather_deltas", gather)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, real in reversed(self._undo):
+            setattr(cls, name, real)
+
+    def take_losses(self) -> list:
+        out, self.losses = self.losses, []
+        return out
+
+
+def _lora_cli(module, argv) -> dict:
+    """One role CLI's ``main``, the launch counts set to 0 just before
+    and read just after: its return code, seconds and launches."""
+    _lora_sync()
+    _lt_zero()
+    t0 = time.perf_counter()
+    rc = module.main(argv)
+    _lora_sync()
+    return {"argv": argv, "rc": rc, "s": time.perf_counter() - t0,
+            "launches": _lt_launches()}
+
+
+def _lora_argv(work: str, preset: str, hotkey: str, b: int, t: int,
+               extra: list) -> list:
+    return [*DEFAULT_FLAGS, "--backend", "local", "--work-dir", work,
+            "--model", preset, "--hotkey", hotkey, "--no-base-wire-v2",
+            "--flight-events", "0", "--batch-size", str(b), "--seq-len",
+            str(t), *LORA_EVAL, *extra]
+
+
+def _lora_work_root() -> str | None:
+    """Where a round's LocalFS root goes: /dev/shm when it has room for
+    a few copies of the largest round's base (a 9p disk reads ~0.3
+    GB/s), else the default temporary directory."""
+    try:
+        st = os.statvfs(LLAMA_SHM)
+    except OSError:
+        return None
+    return LLAMA_SHM if st.f_bavail * st.f_frsize > 20 * 10**9 else None
+
+
+def _lora_base(cfg) -> dict:
+    """The round's genesis base as a host tree: GPT-2's numpy init, a
+    Llama's drawn on the card (``_drawn_state``) and copied to the
+    host."""
+    from distributedtraining_tpu_torch import models
+    if models.family(cfg) is models.gpt2:
+        return models.init_params_numpy(cfg, SEED)
+    state = _drawn_state(cfg, SEED)
+    tree = models.params_to_numpy(state)
+    del state
+    _lt_free()
+    return tree
+
+
+def _lora_densify(data: bytes, template, lcfg) -> dict:
+    """One LoRA submission densified by the plain path on the host
+    (``densify_delta_bytes``, numpy) against the card's
+    ``lora_to_full_delta`` of the same adapters, kernel by kernel; the
+    template is cut to the adapted kernels, so nothing else is built."""
+    import numpy as np
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch.delta import flatten_tree, nest_tree
+    from distributedtraining_tpu_torch.engine.ingest import \
+        densify_delta_bytes
+    from distributedtraining_tpu_torch.models import lora
+    flat = flatten_tree(template)
+    targets = lora.targets(flat, lcfg)
+    sub = nest_tree({k: flat[k] for k in targets})
+    t0 = time.perf_counter()
+    host = densify_delta_bytes(data, sub, lcfg)
+    host_s = time.perf_counter() - t0
+    check(host is not None, "a LoRA submission did not densify")
+    host = flatten_tree(host)
+    check(set(host) == set(targets),
+          f"densified {len(host)} kernels, {len(targets)} adapted")
+    adapters = lora.adapters_from_numpy(
+        ser.validated_load(data, lora.adapter_template(sub, lcfg)),
+        device=DEV)
+    err = peak = 0.0
+    for k in targets:
+        card = lora.kernel_delta(adapters, k, lcfg).cpu().numpy()
+        err = max(err, float(np.max(np.abs(card - host[k]))))
+        peak = max(peak, float(np.max(np.abs(host[k]))))
+    check(peak > 0, "the LoRA submission's delta is zero")
+    check(err <= LORA_DENSE_TOL,
+          f"host densify vs the card's: max abs {err} > {LORA_DENSE_TOL}")
+    return {"kernels": len(targets), "max_abs_err": err,
+            "max_abs": peak, "host_s": host_s}
+
+
+def _lora_round(name: str) -> dict:
+    """28a/b (see the module docstring): one CLI round on one LocalFS
+    root at ``LORA_ROUNDS[name]``."""
+    import tempfile
+    from distributedtraining_tpu_torch import models
+    preset, depth, b, t, steps = LORA_ROUNDS[name]
+    fam = models.family(preset)
+    cfg0 = fam.PRESETS[preset]
+    cfg = dataclasses.replace(cfg0, n_layer=depth) if depth else cfg0
+    fam.PRESETS[preset] = cfg        # the CLIs build the preset by name
+    try:
+        with tempfile.TemporaryDirectory(dir=_lora_work_root()) as work:
+            return _lora_round_run(name, preset, cfg, b, t, steps, work)
+    finally:
+        fam.PRESETS[preset] = cfg0
+
+
+def _lora_round_run(name, preset, cfg, b, t, steps, work) -> dict:
+    import math
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.train import _wire_template
+    from distributedtraining_tpu_torch.models import lora
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.neurons import validator as val_cli
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    lcfg = lora.LoRAConfig(rank=LORA_RANK)
+    template = _wire_template(models.make_model(cfg)[0])
+    L = cfg.n_layer
+    fwd = (2 if cfg.remat else 1) * L        # remat recomputes the forward
+    res: dict = {"model": preset, "n_layer": L, "batch": [b, t],
+                 "steps": steps, "rank": LORA_RANK}
+    t_ = LocalFSTransport(os.path.join(work, "artifacts"))
+    t0 = time.perf_counter()
+    rev0 = t_.publish_base(_lora_base(cfg))
+    res["genesis_s"] = time.perf_counter() - t0
+    lora_flags = ["--lora-rank", str(LORA_RANK)]
+    miners = (("lora_fused", "hotkey_1", [*lora_flags, "--fused-loss",
+                                          "--learning-rate", str(LORA_LR)]),
+              ("lora", "hotkey_2", [*lora_flags,
+                                    "--learning-rate", str(LORA_LR)]),
+              ("full", "hotkey_3", ["--fused-loss", "--learning-rate",
+                                    str(LORA_FULL_LR)]))
+    with _LoraTap() as tap:
+        for role, hotkey, extra in miners:
+            run = _lora_cli(miner_cli, _lora_argv(
+                work, preset, hotkey, b, t, [
+                    "--max-steps", str(steps), "--send-interval", "1e9",
+                    "--checkpoint-interval", "0", "--no-anomaly-trace",
+                    *extra]))
+            losses = tap.take_losses()
+            what = f"lora {name} {role} miner"
+            check(run["rc"] == 0, f"{what} CLI exited {run['rc']}")
+            check(len(losses) == steps
+                  and all(math.isfinite(x) for x in losses)
+                  and losses[-1] < losses[0], f"{what} losses {losses}")
+            want = {"flash_attention_fwd": fwd * steps,
+                    "flash_attention_bwd_dkv": L * steps,
+                    "flash_attention_bwd_dq": L * steps}
+            if "--fused-loss" in extra:
+                # a LoRA miner's head is frozen: dh alone, no dW
+                want.update(fused_ce_fwd=steps, fused_ce_bwd_dh=steps,
+                            fused_ce_bwd_dw=0 if role != "full" else steps)
+            _check_launches(what, run["launches"], want)
+            data = t_.fetch_delta_bytes(hotkey)
+            check(data is not None, f"{what} pushed nothing")
+            res[role] = {**run, "losses": losses, "artifact_bytes": len(data)}
+        # an adapter artifact holds the adapters' f32 values and the
+        # msgpack framing, nothing of the base
+        n_ad = sum(fi * LORA_RANK + LORA_RANK * fo
+                   for fi, fo in lora.targets(template, lcfg).values())
+        for role in ("lora_fused", "lora"):
+            size = res[role]["artifact_bytes"]
+            check(4 * n_ad < size < 4 * n_ad + (1 << 20),
+                  f"lora {name} {role} artifact {size} bytes for "
+                  f"{n_ad} adapter values")
+        res["adapter_values"] = n_ad
+        res["densify"] = _lora_densify(t_.fetch_delta_bytes("hotkey_1"),
+                                       template, lcfg)
+        val = _lora_cli(val_cli, _lora_argv(
+            work, preset, "hotkey_91", b, t, [*lora_flags, "--rounds", "1"]))
+        check(val["rc"] == 0, f"lora {name} validator exited {val['rc']}")
+        # the base's eval, then the three candidates, no backward
+        _check_launches(f"lora {name} validator", val["launches"],
+                        {"flash_attention_fwd": L * 2 * 4})
+        with open(os.path.join(work, "chain", "metagraph.json")) as f:
+            weights = json.load(f)["weights"].get("hotkey_91", {})
+        check(all(weights.get(h, 0) > 0 for h in ("hotkey_1", "hotkey_2")),
+              f"lora {name} validator weights {weights}")
+        avg = _lora_cli(avg_cli, _lora_argv(
+            work, preset, "hotkey_99", b, t, [*lora_flags, "--rounds", "1"]))
+        check(avg["rc"] == 0, f"lora {name} averager exited {avg['rc']}")
+        gathered = tap.gathered[-1] if tap.gathered else []
+        check({"hotkey_1", "hotkey_2", "hotkey_3"} <= set(gathered),
+              f"lora {name} averager merged {gathered}")
+        check(avg["launches"]["dequant_scatter"] == 0
+              and avg["launches"]["flash_attention_fwd"] > 0,
+              f"lora {name} averager launches {avg['launches']}")
+    res.update(validator=val, averager=avg,
+               weights={h: w for h, w in weights.items() if w},
+               merged=gathered, published=t_.base_revision() != rev0)
+    return res
+
+
+def lora_roles() -> dict:
+    """28a-b, each round's seconds in ``times_s``."""
+    t0 = time.perf_counter()
+    res: dict = {"times_s": {}}
+    for name in LORA_ROUNDS:
+        t1 = time.perf_counter()
+        res[name] = _lora_round(name)
+        res["times_s"][name] = time.perf_counter() - t1
+        log(f"lora {name}: {res['times_s'][name]:.1f} s",
+            json.dumps(res[name], default=str)[:20000])
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def lora_child(out: str) -> int:
+    """``--lora-child OUT``: 28a-b in a child process (after 27b-e's and
+    before 26f's in the whole script, beside phases 22-25); its result
+    as JSON in OUT."""
+    phase_env()
+    sys.path.insert(0, ROOT)
+    res = lora_roles()
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def _lora_step_hook(eng, rows: list):
+    """``_lt_step_hook`` for a LoRA engine's ``train_step(state, base,
+    batch)``."""
+    import torch
+    step = eng.train_step
+
+    def wrapped(state, base, batch):
+        _lora_sync()
+        t0 = time.perf_counter()
+        out = step(state, base, batch)
+        _lora_sync()
+        rows.append((float(out[1]["loss"]), (time.perf_counter() - t0) * 1e3,
+                     torch.cuda.max_memory_allocated() if DEV == "cuda"
+                     else 0))
+        log(f"lora step {len(rows)}: loss {rows[-1][0]:.4f}, "
+            f"{rows[-1][1]:.1f} ms")
+        return out
+
+    eng.train_step = wrapped
+
+
+def _lora_batches(tok, split: str, n: int, vocab: int) -> list:
+    import numpy as np
+    out = _batches(tok, split=split, batch_size=LORA_B, seq_len=LORA_T, n=n)
+    for b in out:
+        b["input_ids"] = (b["input_ids"] % vocab).astype(np.int32)
+    return out
+
+
+def _ce_plain_f64(h, w, y, g, want_dw: bool = False) -> dict:
+    """The plain forward and backward in f64: ``loss``, ``m``, ``s``,
+    ``dh`` and, with ``want_dw``, ``dw``. The f32 kernels' reference at
+    E 4096, where cuBLAS's f32 logits stand as far from the exact ones
+    as the f32 limit (s 1.3e-5 from the kernels' at both Llama heads)."""
+    import torch
+    h, w = h.double(), w.double()
+    z = h @ w.T
+    m = z.amax(dim=-1)
+    p = torch.exp(z - m[:, None])
+    s = p.sum(dim=-1)
+    loss = m + torch.log(s) - torch.gather(z, 1, y.long()[:, None])[:, 0]
+    dz = p / s[:, None]
+    dz[torch.arange(len(y), device=z.device), y.long()] -= 1.0
+    dz *= g.double()[:, None]
+    out = {"loss": loss, "m": m, "s": s, "dh": dz @ w}
+    if want_dw:
+        out["dw"] = dz.T @ h
+    return out
+
+
+def _lora_ce(batch: dict) -> dict:
+    """28c, CE: the forward and the frozen head's dh-only backward at
+    ``llama2-7b``'s head (E 4096, V 32000) on the main path's rows of
+    ``batch`` (its targets and mask, bf16) against the plain forward and
+    ``fused_ce_bwd_reference(want_dw=False)`` in f32, and on 256 rows in
+    f32 against the same in f64 (the f32 plain's own error reported),
+    with ``_ce_check``'s limits (a planted wrong dh must fail them); then
+    timed in bf16 beside the bound, the plain versions
+    and the library's path (its autograd to h alone: the head is
+    frozen)."""
+    import torch
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch import models
+    cfg = models.llama.PRESETS[LORA_PRESET]
+    V, E = cfg.padded_vocab, cfg.n_embd
+    ids, msk = batch["input_ids"][:, 1:], batch["loss_mask"][:, 1:]
+    n = ids.size
+    bf = torch.bfloat16
+    checks = []
+    for i, (name, rows, dtype, kw) in enumerate((
+            (f"llama2_7b_n{n}_bf16", n, bf, dict(labels=ids, mask=msk)),
+            ("llama2_7b_n256_f32", 256, torch.float32, {}))):
+        h, w, y, g = _lt_ce_inputs(rows, V, E, dtype, SEED + 50 + i, **kw)
+        loss, m, s = fused_ce.fused_ce_fwd(h, w, y)
+        dh = fused_ce.fused_ce_bwd_dh(h, w, y, m, s, g)
+        hf, wf = h.float(), w.float()
+        r_loss, r_m, r_s = fused_ce.fused_ce_fwd_reference(hf, wf, y)
+        r_dh, r_dw = fused_ce.fused_ce_bwd_reference(hf, wf, y, r_m, r_s, g,
+                                                     want_dw=False)
+        check(r_dw is None, "the frozen head's plain backward gave a dW")
+        plain = {"loss": r_loss, "m": r_m, "s": r_s, "dh": r_dh}
+        dt = str(dtype).split(".")[1]
+        case = {"case": name, "dtype": dt, "N": rows, "V": V, "E": E,
+                "tol": CE_TOL[dt]}
+        if dtype == torch.float32:
+            exact = _ce_plain_f64(h, w, y, g)
+            case["plain_f32_vs_f64"] = {
+                k: x for k, (_, x) in _ce_limit_errors(
+                    {k: (plain[k], exact[k]) for k in plain}, dt).items()}
+            plain = exact
+        outs = {"loss": (loss, plain["loss"]), "m": (m, plain["m"]),
+                "s": (s, plain["s"]), "dh": (dh, plain["dh"])}
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(a.float()).all())
+                  for a, _ in outs.values()),
+              f"fused CE kernels: non-finite output at {name}")
+        errs = _ce_check(name, outs, dt)
+        checks.append({**case,
+                       "max_abs": {k: d for k, (d, _) in errs.items()},
+                       "err": {k: x for k, (_, x) in errs.items()}})
+        del outs, plain, h, w, y, g, hf, wf, dh, r_dh, m, s, r_m, r_s
+        torch.cuda.empty_cache()
+    h, w, y, g = _lt_ce_inputs(n, V, E, bf, SEED + 50, labels=ids, mask=msk)
+    loss, m, s = fused_ce.fused_ce_fwd(h, w, y)
+    hh = h.detach().requires_grad_()
+    ce = torch.nn.functional.cross_entropy
+
+    def lib_fwd():
+        return ce((hh @ w.T).float(), y.long(), reduction="none")
+
+    out = lib_fwd()
+    bounds = _ce_bounds(n, V, E)
+    runs = {
+        "fused_ce_fwd": (lambda: fused_ce.fused_ce_fwd(h, w, y),
+                         lambda: fused_ce.fused_ce_fwd_reference(h, w, y),
+                         lib_fwd),
+        "fused_ce_bwd_dh": (
+            lambda: fused_ce.fused_ce_bwd_dh(h, w, y, m, s, g),
+            lambda: fused_ce.fused_ce_bwd_reference(h, w, y, m, s, g,
+                                                    want_dw=False),
+            lambda: torch.autograd.grad(out, (hh,), g, retain_graph=True))}
+    timed = {}
+    for name, (fn, plain, lib) in runs.items():
+        timed[name] = {"ms": _time_ms(fn),
+                       "plain_ms": _time_ms(plain, reps=5, warm=1),
+                       "library_ms": _time_ms(lib),
+                       "bound_ms": bounds[name][0],
+                       "bound_by": bounds[name][1]}
+    del h, w, hh, out, m, s
+    torch.cuda.empty_cache()
+    return {"checks": checks, "timed": timed,
+            "timed_shape": f"N {n}, V {V}, E {E}, bf16 h and head",
+            "library": "cuBLAS bf16 GEMM to the logits (cast to f32) + "
+                       "F.cross_entropy; backward: its autograd to h alone",
+            "plain": "fused_ce_fwd_reference; fused_ce_bwd_reference("
+                     "want_dw=False) on the bf16 inputs"}
+
+
+def lora_big(tok) -> dict:
+    """28c (``--lora``): ``llama2-7b`` at full width and depth on one
+    card (see the module docstring)."""
+    import math
+    import torch
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.lora_train import (
+        LoRAEngine, LoRAMinerLoop)
+    from distributedtraining_tpu_torch.engine.scheduler import FakeClock
+    from distributedtraining_tpu_torch.engine.train import (
+        _wire_template, default_optimizer)
+    from distributedtraining_tpu_torch.models import lora
+    from distributedtraining_tpu_torch.transport import InMemoryTransport
+    cfg = models.llama.PRESETS[LORA_PRESET]
+    model = models.make_model(cfg)[0]
+    lcfg = lora.LoRAConfig(rank=LORA_RANK)
+    n_params = sum(v.numel() for v in model.state_dict().values())
+    train = _lora_batches(tok, "train", LORA_STEPS, cfg.vocab_size)
+    held = _lora_batches(tok, "test", LORA_HELD, cfg.vocab_size)
+    ce = _lora_ce(train[0])
+    eng = LoRAEngine(model, lcfg, optimizer=default_optimizer(LORA_BIG_LR),
+                     fused_loss=True, device=DEV)
+    rows: list = []
+    _lora_step_hook(eng, rows)
+    t = InMemoryTransport()
+    miner = LoRAMinerLoop(eng, t, "hotkey_1", clock=FakeClock(),
+                          send_interval=1e9, check_update_interval=1e9)
+    _lt_free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = _drawn_state(cfg, SEED)      # the genesis base, on the card
+    _lora_sync()
+    draw_s = time.perf_counter() - t0
+    base_bytes = sum(v.numel() * v.element_size() for v in state.values())
+    # main path: counts to 0 just before, read just after
+    _lt_zero()
+    t0 = time.perf_counter()
+    miner.bootstrap(params=lambda: state, seed=SEED)
+    del state
+    report = miner.run(iter(train))
+    miner.flush()
+    _lora_sync()
+    loop_s = time.perf_counter() - t0
+    launches = _lt_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r[0] for r in rows]
+    step_ms = [r[1] for r in rows]
+    L, steps = cfg.n_layer, len(rows)
+    check(steps == LORA_STEPS and report.pushes == 1
+          and report.pushes_failed == 0,
+          f"lora 7b miner: {steps} steps, pushes {report.pushes}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"lora 7b miner losses {losses}")
+    _check_launches("lora 7b miner", launches, {
+        "flash_attention_fwd": 2 * L * steps,
+        "flash_attention_bwd_dkv": L * steps,
+        "flash_attention_bwd_dq": L * steps,
+        "fused_ce_fwd": steps, "fused_ce_bwd_dh": steps})
+    # one more step under the profiler (after the counts were read)
+    prof, _ = _device_profile(lambda: eng.train_step(
+        miner.state, miner.base_params, eng.place_batch(train[0])), top=8)
+    # held-out: base + trained adapters against the base (b = 0)
+    zero = eng.init_state(SEED).params
+    base_loss = eng.evaluate_adapters(zero, miner.base_params, held)[0]
+    held_loss = eng.evaluate_adapters(miner.state.params, miner.base_params,
+                                      held)[0]
+    check(held_loss < base_loss, f"lora 7b held-out {held_loss} >= the "
+                                 f"base's {base_loss}")
+    data = t.fetch_delta_bytes("hotkey_1")
+    n_ad = sum(x.numel() for x in miner.state.params.values())
+    check(data is not None and 4 * n_ad < len(data) < 4 * n_ad + (1 << 20),
+          f"lora 7b artifact {None if data is None else len(data)} bytes "
+          f"for {n_ad} adapter values")
+    dens = _lora_densify(data, _wire_template(model), lcfg)
+    miner.close()
+    p50 = statistics.median(step_ms[1:] or step_ms)
+    return {"model": LORA_PRESET, "n_layer": L, "n_params": n_params,
+            "base_bytes": base_bytes, "rank": LORA_RANK,
+            "adapter_values": n_ad, "artifact_bytes": len(data),
+            "batch": [LORA_B, LORA_T], "steps": steps, "lr": LORA_BIG_LR,
+            "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+            "tokens_per_s": LORA_B * LORA_T / p50 * 1e3,
+            "held_out_base": base_loss, "held_out_trained": held_loss,
+            "steps_peak_cuda_mem_bytes": max(r[2] for r in rows),
+            "peak_cuda_mem_bytes": peak, "draw_s": draw_s, "loop_s": loop_s,
+            "launches": launches, "densify": dens, "step_profile": prof,
+            "remat": cfg.remat, "ce": ce}
+
+
+def _lora_mesh_run(name: str, axes: dict, batches: dict, mesh) -> dict:
+    """One LoRA miner of 28d: ``LT_MESH_STEPS`` steps of a
+    ``LoRAMinerLoop`` (fused loss, f32) over an in-memory transport from
+    the seeded genesis base, on this rank's rows (world 1: ``mesh``
+    None), then its push; the losses, launches, block routes, and the
+    sum of the pushed adapters' magnitudes."""
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.engine.lora_train import (
+        LoRAEngine, LoRAMinerLoop)
+    from distributedtraining_tpu_torch.engine.scheduler import FakeClock
+    from distributedtraining_tpu_torch.engine.train import default_optimizer
+    from distributedtraining_tpu_torch.models import lora
+    from distributedtraining_tpu_torch.parallel import batch_rows, sharding
+    from distributedtraining_tpu_torch.transport import InMemoryTransport
+    cfg = _lt_mesh_cfg(None)
+    eng = LoRAEngine(models.make_model(cfg)[0],
+                     lora.LoRAConfig(rank=LORA_RANK),
+                     optimizer=default_optimizer(LORA_LR), fused_loss=True,
+                     mesh=mesh, device=DEV)
+    rows: list = []
+    _lora_step_hook(eng, rows)
+    miner = LoRAMinerLoop(eng, InMemoryTransport(), "hotkey_1",
+                          clock=FakeClock(), send_interval=1e9,
+                          check_update_interval=1e9)
+    miner.bootstrap(params=lambda: flatten_tree(
+        models.init_params_numpy(cfg, SEED)), seed=SEED)
+    data = batches["packed"]
+    if mesh is not None:
+        data = [batch_rows(b, mesh) for b in data]
+    sharding.reset_counts()
+    _lt_zero()
+    report = miner.run(iter(data))
+    miner.flush()
+    _lora_sync()
+    launches = _lt_launches()
+    miner.close()
+    return {"losses": [r[0] for r in rows], "launches": launches,
+            "routes": {k: v for k, v in sharding.counts.items()
+                       if k.startswith("tp_")},
+            "tp_route": eng.tp_route, "pushes": report.pushes,
+            "adapter_abs_sum": float(sum(v.detach().abs().sum()
+                                         for v in miner.state.params.values()))}
+
+
+def lora_worker(rank: int, port: int, tmp: str) -> int:
+    """One rank of 28d's world of two over gloo on this card
+    (``--lora-worker``): every mesh of ``LORA_MESHES``; its results in
+    ``tmp/out_<rank>.json``."""
+    import torch
+    from distributedtraining_tpu_torch.parallel import (Mesh, MeshConfig,
+                                                        multihost)
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, device=DEV,
+                         backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    out = {"rank": rank}
+    try:
+        batches = _sp_arrays_from(os.path.join(tmp, "lt_batches.npz"))
+        for name, axes in LORA_MESHES.items():
+            mesh = Mesh(MeshConfig(**axes))
+            out[name] = _lora_mesh_run(name, axes, batches, mesh)
+    finally:
+        multihost.shutdown()
+    return _par_worker_done(tmp, rank, out)
+
+
+def _lora_mesh(tok) -> dict:
+    """28d: phase 27's tiny-llama widened to E 256 (f32) on a world of
+    two over gloo, both ranks on this card (``--lora-worker``): LoRA
+    miners at fsdp 2 and tp 2 (heads split), each rank's losses within
+    ``LT_F32_TOL`` of world 1's, the adapters the same on both ranks,
+    launches (CE dW none) and block routes exact, one push."""
+    import tempfile
+    cfg = _lt_mesh_cfg(None)
+    L, steps = cfg.n_layer, LT_MESH_STEPS
+    res: dict = {"model": "tiny-llama", **LT_MESH_CFG,
+                 "batch": [LT_MESH_B, LT_MESH_T], "steps": steps}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _lt_mesh_batches(tok, tmp)
+        batches = _sp_arrays_from(os.path.join(tmp, "lt_batches.npz"))
+        w1 = _lora_mesh_run("world1", {}, batches, None)
+        outs = _par_spawn(2, "gloo", {}, tmp, "lora world 2",
+                          mode="--lora-worker")
+    want = {"flash_attention_fwd": L * steps,
+            "flash_attention_bwd_dkv": L * steps,
+            "flash_attention_bwd_dq": L * steps,
+            "fused_ce_fwd": steps, "fused_ce_bwd_dh": steps}
+    _check_launches("lora world 1", w1["launches"], want)
+    for name, axes in LORA_MESHES.items():
+        tp = axes.get("tp", 1)
+        route = (None if tp == 1 else "head_split"
+                 if cfg.n_kv_head % tp == 0 else "gathered_attn")
+        for r, o in enumerate(outs):
+            run = o[name]
+            what = f"lora world 2 {name} rank {r}"
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(run["losses"], w1["losses"]))
+            check(len(run["losses"]) == steps and rel <= LT_F32_TOL,
+                  f"{what}: losses {run['losses']} vs world 1 "
+                  f"{w1['losses']} ({rel})")
+            _check_launches(what, run["launches"], want)
+            check(run["tp_route"] == route,
+                  f"{what}: route {run['tp_route']} != {route}")
+            want_r = {f"tp_{x}_blocks": L * steps if x == route else 0
+                      for x in ("head_split", "gathered_attn")}
+            check(run["routes"] == want_r,
+                  f"{what}: routes {run['routes']} != {want_r}")
+        sums = [o[name]["adapter_abs_sum"] for o in outs]
+        check(sums[0] == sums[1], f"lora world 2 {name}: the ranks' "
+                                  f"adapters differ ({sums})")
+        check(outs[0][name]["pushes"] == 1,
+              f"lora world 2 {name}: the coordinator pushed "
+              f"{outs[0][name]['pushes']}")
+        res[name] = {"mesh": axes, "world1": w1["losses"],
+                     "losses": [o[name]["losses"] for o in outs],
+                     "launches": outs[0][name]["launches"], "route": route,
+                     "adapter_abs_sum": sums[0],
+                     "world1_adapter_abs_sum": w1["adapter_abs_sum"]}
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def _lora_entries(entries: list, roles: dict) -> list:
+    """The kernels line's flash and CE entries, each with phase 28's
+    launches by round and miner (a LoRA miner's CE dW is 0)."""
+    for e in entries:
+        if not (e["name"].startswith("flash_attention")
+                or e["name"].startswith("fused_ce")):
+            continue
+        counter = ("fused_ce_bwd_dh" if e["name"] == "fused_ce_bwd"
+                   else e["name"])
+        e["lora"] = {
+            f"launches_{rnd}_{role}": roles[rnd][role]["launches"].get(
+                counter, 0)
+            for rnd in LORA_ROUNDS
+            for role in ("lora_fused", "lora", "full", "validator")}
+        if e["name"] == "fused_ce_bwd":
+            e["lora"].update({
+                f"launches_dw_{rnd}_{role}": roles[rnd][role][
+                    "launches"]["fused_ce_bwd_dw"]
+                for rnd in LORA_ROUNDS for role in ("lora_fused", "full")})
+    return entries
+
+
+def lora_only() -> int:
+    """Phase 28's heavy part alone after the build (``--lora``): 28c,
+    28d, then 28a-b; the kernels line of the five kernels they run
+    (their LoRA readings), the ``lora`` line, the card's line and the
+    result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    build = phase_build()
+    tok = _tokenizer()
+    res: dict = {"times_s": {}}
+    for name, fn in (("big", lora_big), ("mesh", _lora_mesh),
+                     ("roles", lambda tok: lora_roles())):
+        t0 = time.perf_counter()
+        res[name] = fn(tok)
+        res["times_s"][name] = time.perf_counter() - t0
+        log(f"lora {name}: {res['times_s'][name]:.1f} s",
+            json.dumps(res[name], default=str)[:20000])
+        _lt_free()
+    big = res["big"]["launches"]
+    entries = [{"name": name, "route": "cuda", "source": source,
+                "build_s": build["build_s"],
+                "launches_lora_7b": big.get(name, 0)}
+               for name, source in (
+                   ("flash_attention_fwd", FLASH_SOURCE),
+                   ("flash_attention_bwd_dkv", FLASH_SOURCE),
+                   ("flash_attention_bwd_dq", FLASH_SOURCE),
+                   ("fused_ce_fwd", CE_SOURCE),
+                   ("fused_ce_bwd_dh", CE_SOURCE),
+                   ("fused_ce_bwd_dw", CE_SOURCE))]
+    ce = res["big"]["ce"]
+    for e in entries:
+        if e["name"] in ce["timed"]:
+            out = "loss" if e["name"] == "fused_ce_fwd" else "dh"
+            e["llama2_7b_head"] = {
+                **ce["timed"][e["name"]], "shape": ce["timed_shape"],
+                "max_abs_err": max(c["max_abs"][out] for c in ce["checks"])}
+    print(json.dumps({"kernels": _lora_entries(entries, res["roles"])}),
+          flush=True)
+    print(json.dumps({"lora": {**res, "card": card}}, default=str),
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _soak_checked(mod, name: str, last: list, bounds: dict) -> None:
+    """Wrap ``mod.name`` (a kernel's wrapper): the card synchronised
+    before the launch (a fault there lies in what ran since ``last[0]``)
+    and after it (a fault there is this kernel's), its tensor inputs and
+    outputs finite (but the flash kernels' ``[B, H, T]`` row statistics,
+    where a row with no visible key may hold -inf) and its int32 inputs
+    within ``bounds[name]``."""
+    import torch
+    fn = getattr(mod, name)
+
+    def sync(where: str) -> None:
+        try:
+            torch.cuda.synchronize()
+        except Exception as e:          # a sticky CUDA error
+            raise SmokeFailure(f"lora soak: CUDA error {where}: {e}")
+
+    def scan(tensors, what: str) -> None:
+        for i, t in enumerate(tensors):
+            if not isinstance(t, torch.Tensor):
+                continue
+            if t.is_floating_point() and t.dim() != 3:
+                check(bool(torch.isfinite(t).all()),
+                      f"lora soak: {name} {what} {i} not finite")
+            elif t.dtype == torch.int32 and t.numel():
+                lo, hi = int(t.min()), int(t.max())
+                check(bounds[name][0] <= lo and hi < bounds[name][1],
+                      f"lora soak: {name} {what} {i} in [{lo}, {hi}]")
+
+    def run(*args, **kw):
+        sync(f"before {name} (after {last[0]})")
+        scan(args, "input")
+        out = fn(*args, **kw)
+        sync(f"in {name}")
+        scan(out if isinstance(out, tuple) else (out,), "output")
+        last[0] = name
+        return out
+
+    setattr(mod, name, run)
+
+
+def lora_soak(argv: list) -> int:
+    """``--lora-soak STEPS [--checked]``: 28c's ``llama2-7b`` LoRA step
+    (full depth, B 4 x T 1024, fused loss, the seeded genesis base drawn
+    on the card) STEPS times over a cycle of 8 batches, the card
+    synchronised after each step; with ``--checked`` every flash and CE
+    launch is checked as ``_soak_checked`` says. Prints a ``lora_soak``
+    line (steps run, losses' range, step ms), the card's line and the
+    result line."""
+    import math
+    import torch
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.lora_train import LoRAEngine
+    from distributedtraining_tpu_torch.engine.train import default_optimizer
+    from distributedtraining_tpu_torch.models import lora
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    steps, checked = int(argv[0]), "--checked" in argv[1:]
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    phase_build()
+    cfg = models.llama.PRESETS[LORA_PRESET]
+    train = _lora_batches(_tokenizer(), "train", 8, cfg.vocab_size)
+    if checked:
+        last = ["the step's start"]
+        seg = (0, 1 << 30)
+        for mod, name, bound in (
+                (fa, "flash_attention_fwd", seg),
+                (fa, "flash_attention_bwd_dkv", seg),
+                (fa, "flash_attention_bwd_dq", seg),
+                (fused_ce, "fused_ce_fwd", (0, cfg.padded_vocab)),
+                (fused_ce, "fused_ce_bwd_dh", (0, cfg.padded_vocab))):
+            _soak_checked(mod, name, last, {name: bound})
+    eng = LoRAEngine(models.make_model(cfg)[0],
+                     lora.LoRAConfig(rank=LORA_RANK),
+                     optimizer=default_optimizer(LORA_BIG_LR),
+                     fused_loss=True, device=DEV)
+    base = eng.place_base(_drawn_state(cfg, SEED))
+    state = eng.init_state(SEED)
+    batches = [eng.place_batch(b) for b in train]
+    losses, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = eng.train_step(state, base, batches[i % len(batches)])
+        _lora_sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if i % 25 == 0 or i == steps - 1:
+            log(f"lora soak step {i + 1}: loss {losses[-1]:.4f}, "
+                f"{ms[-1]:.1f} ms")
+        check(math.isfinite(losses[-1]),
+              f"lora soak: step {i + 1} loss {losses[-1]}")
+    res = {"steps": steps, "checked": checked, "model": LORA_PRESET,
+           "batch": [LORA_B, LORA_T], "loss_first": losses[0],
+           "loss_last": losses[-1], "loss_min": min(losses),
+           "loss_max": max(losses),
+           "step_ms_p50": statistics.median(ms[1:] or ms),
+           "step_ms_max": max(ms[1:] or ms), "first_step_ms": ms[0],
+           "peak_cuda_mem_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"lora_soak": {**res, "card": card}}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -9716,9 +10616,9 @@ def main() -> int:
     serve6 = {"window": phase_window(), "sampler": phase_sampler(),
               "server": phase_server(tree)}
     serve6["s"] = time.perf_counter() - t0
-    # 27b-e, then 26f at a cut depth, run in children beside phases
-    # 22-25 (LlamaCli)
-    cli = LlamaCli(layers=LLAMA_CLI_LAYERS_MAIN, train=True)
+    # 27b-e, 28a-b, then 26f at a cut depth, run in children beside
+    # phases 22-25 (LlamaCli)
+    cli = LlamaCli(layers=LLAMA_CLI_LAYERS_MAIN, train=True, lora=True)
     try:
         t0 = time.perf_counter()
         serve6b = phase_serve6b(tree, tok)
@@ -9732,9 +10632,10 @@ def main() -> int:
         cli.close()
     llama_train = {"kernels": phase_llama_train_kernels(tok, build),
                    **cli.train_result}
+    lora = cli.lora_result
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
-    print(json.dumps({"kernels": _lt_entries(_llama_entries(
+    print(json.dumps({"kernels": _lora_entries(_lt_entries(_llama_entries(
         _with_sp_launches([{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -9769,7 +10670,8 @@ def main() -> int:
         _sharded_entry(par),
         _scatter_entry(scatter, avg, build, defaults, slice5)],
         sp["world2"]["cli"]["sp2"]["launches"][0]), llama),
-        llama_train["kernels"], llama_train)}, default=str), flush=True)
+        llama_train["kernels"], llama_train), lora)}, default=str),
+        flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -9805,6 +10707,9 @@ def main() -> int:
     print(json.dumps({"llama_train": {**llama_train, "card": card,
                                       "total_s": time.perf_counter()
                                       - t_start}}, default=str), flush=True)
+    print(json.dumps({"lora": {**lora, "card": card,
+                               "total_s": time.perf_counter() - t_start}},
+                     default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -10144,6 +11049,15 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--llama-train-worker"]:
             sys.exit(llama_train_worker(int(sys.argv[2]), int(sys.argv[3]),
                                         sys.argv[4]))
+        if sys.argv[1:2] == ["--lora"]:
+            sys.exit(lora_only())
+        if sys.argv[1:2] == ["--lora-soak"]:
+            sys.exit(lora_soak(sys.argv[2:]))
+        if sys.argv[1:2] == ["--lora-child"]:
+            sys.exit(lora_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--lora-worker"]:
+            sys.exit(lora_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4]))
         if sys.argv[1:2] == ["--sp-worker"]:
             sys.exit(sp_worker(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4]))

@@ -200,7 +200,6 @@ class RunConfig:
             (self.chain != "local",
              f"--chain {self.chain} (the bittensor chain needs the "
              f"network)", 7),
-            (self.lora_rank > 0, "--lora-rank > 0 (LoRA)", "7, item 2(c)"),
             (self.role not in MESH_ROLES and (
                 m.auto or max(m.fsdp, m.sp, m.tp, m.dp, m.dcn_dp) > 1
                 or self.multihost_coordinator is not None

@@ -70,9 +70,10 @@ and broadcasts the revision, and the skip of a declined submission set
 is off. ``OuterOptMerge`` and the tree's root wrap this unchanged; a
 publication lease on a pod is refused (slice 7b).
 
-Not ported yet, and refused with NotImplementedError naming the slice
-(ROADMAP "Slices of the port"): ``fleet``, ``remediation`` and LoRA
-submissions (slice 7).
+With ``lora_cfg`` LoRA adapter submissions are densified at staging and
+merged as any other. Not ported yet, and refused with
+NotImplementedError naming the slice (ROADMAP "Slices of the port"):
+``fleet`` and ``remediation`` (slice 7).
 """
 
 from __future__ import annotations
@@ -584,7 +585,6 @@ class AveragerReport:
 _LOOP_NOT_PORTED = {
     "fleet": ("the fleet health plane", 7),
     "remediation": ("remediation", 7),
-    "lora_cfg": ("LoRA adapter submissions", 7),
 }
 
 
@@ -614,6 +614,7 @@ class AveragerLoop:
                  base_dist=None,
                  lease=None,
                  hierarchy: Sequence[str] | None = None,
+                 lora_cfg=None,
                  **unported):
         for name, value in unported.items():
             if name not in _LOOP_NOT_PORTED:
@@ -638,6 +639,8 @@ class AveragerLoop:
                              f"'always', got {publish_policy!r}")
         self.engine = engine
         self.transport = transport
+        # LoRA submissions (models.lora.LoRAConfig), densified at staging
+        self.lora_cfg = lora_cfg
         self.lineage = lineage
         self.base_dist = base_dist
         # publication lease (engine/remediate.LeaseManager): renewed right
@@ -765,6 +768,7 @@ class AveragerLoop:
             from .ingest import DeltaIngestor
             self._ingestor = DeltaIngestor(
                 self.transport, self._host_template,
+                lora_cfg=self.lora_cfg,
                 quant_template=self._quant_template,
                 accept_quant=self.accept_quant,
                 accept_wire_v2=self.accept_wire_v2,

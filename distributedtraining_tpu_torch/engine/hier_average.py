@@ -115,6 +115,7 @@ class SubAverager:
                  stale_deltas: str = "skip",
                  accept_quant: bool = True,
                  accept_wire_v2: bool = True,
+                 lora_cfg=None,
                  ingest_workers: int = 4,
                  ingest_cache_mb: int = 2048,
                  wire_spec: dict | bool | None = None,
@@ -135,6 +136,8 @@ class SubAverager:
         self.stale_deltas = stale_deltas
         self.accept_quant = accept_quant
         self.accept_wire_v2 = accept_wire_v2
+        # LoRA submissions (models.lora.LoRAConfig): densified at staging
+        self.lora_cfg = lora_cfg
         self.ingest_workers = ingest_workers
         self.ingest_cache_mb = ingest_cache_mb
         if wire_spec is True:
@@ -173,6 +176,7 @@ class SubAverager:
             from .ingest import DeltaIngestor
             self._ingestor = DeltaIngestor(
                 self.transport, self._template,
+                lora_cfg=self.lora_cfg,
                 accept_quant=self.accept_quant,
                 accept_wire_v2=self.accept_wire_v2,
                 max_delta_abs=self.max_delta_abs,

@@ -27,8 +27,9 @@ front-end of the averager.
   nothing enters the cross-round cache.
 
 Everything here runs on wire-layout host trees (what the transports
-serve). Not ported, and refused: LoRA templates (ROADMAP "Slices of the
-port", slice 7).
+serve). With ``lora_cfg`` the last form tried is a LoRA adapter tree,
+against a template built once from the base template (or the one
+given), densified on the host.
 
 Registry metrics: ``ingest.cache_hits`` / ``ingest.cache_misses`` /
 ``ingest.cache_evictions`` / ``ingest.fetch_errors`` /
@@ -59,7 +60,6 @@ logger = logging.getLogger(__name__)
 
 Params = Any
 
-_SLICES = "ROADMAP 'Slices of the port'"
 
 # internal pre-screen marker; public reasons:
 # "ok" | "no_delta" | "stale_base" | "fetch_error" | screen reasons
@@ -318,13 +318,17 @@ class DeltaCache:
 # v1 decodes
 # ---------------------------------------------------------------------------
 
-def densify_delta_bytes(data: bytes, template, *, quant_template=None,
+def densify_delta_bytes(data: bytes, template, lora_cfg=None, *,
+                        lora_template=None, quant_template=None,
                         accept_quant: bool = True) -> Params | None:
     """Validated artifact bytes -> dense wire-layout host delta, or None:
     a wire-v2 blob (densified here), a dense tree (f32 or bf16), then the
     int8 tree (dtype-pinned, dequantized here), then sparse8 (densified
-    here). ``accept_quant=False``
-    rejects both quantized forms. A signature envelope is stripped first,
+    here), then, with ``lora_cfg`` (``models.lora.LoRAConfig``), LoRA
+    adapters (``lora_template``, or one built here from ``template``;
+    the dense delta rebuilt here, ``engine/lora_train.py``): the JAX
+    package's try-chain, in its order. ``accept_quant=False`` rejects
+    both quantized forms. A signature envelope is stripped first,
     unverified (bytes from a plain transport; ``transport/signed.py``
     verifies and strips before bytes get here)."""
     from .. import serialization as ser
@@ -343,18 +347,25 @@ def densify_delta_bytes(data: bytes, template, *, quant_template=None,
         return ser.validated_load(data, template)
     except ser.PayloadError:
         pass
-    if not accept_quant:
+    if accept_quant:
+        qt = (quant_template() if callable(quant_template)
+              else quant_template)
+        if qt is None:
+            qt = delta_lib.quantized_template(template)
+        try:
+            q = ser.validated_load(data, qt, check_dtypes=True)
+        except ser.PayloadError:
+            q = None
+        if q is not None:
+            return delta_lib.dequantize_delta(q)
+        sp = delta_lib.sparse_delta_from_bytes(data, template)
+        if sp is not None:
+            return sp
+    if lora_cfg is None:
         return None
-    qt = quant_template() if callable(quant_template) else quant_template
-    if qt is None:
-        qt = delta_lib.quantized_template(template)
-    try:
-        q = ser.validated_load(data, qt, check_dtypes=True)
-    except ser.PayloadError:
-        q = None
-    if q is not None:
-        return delta_lib.dequantize_delta(q)
-    return delta_lib.sparse_delta_from_bytes(data, template)
+    from .lora_train import densify_adapter_bytes
+    return densify_adapter_bytes(data, template, lora_cfg,
+                                 lora_template=lora_template)
 
 
 # ---------------------------------------------------------------------------
@@ -382,16 +393,15 @@ class DeltaIngestor:
                  cache_bytes: int = DEFAULT_CACHE_BYTES,
                  span_prefix: str = "ingest",
                  densify: bool = True):
-        if lora_cfg is not None or lora_template is not None:
-            raise NotImplementedError(
-                f"DeltaIngestor(lora_cfg=...): LoRA adapter submissions are "
-                f"slice 7 ({_SLICES})")
         if stale_deltas not in ("skip", "accept"):
             raise ValueError(f"stale_deltas must be 'skip' or 'accept', "
                              f"got {stale_deltas!r}")
         self.transport = transport
         self._template_in = template
         self._template_cache = None
+        self.lora_cfg = lora_cfg
+        self._lora_template_in = lora_template
+        self._lora_template_cache = None
         self.quant_template = quant_template
         self.accept_quant = accept_quant
         self.accept_wire_v2 = accept_wire_v2
@@ -411,6 +421,22 @@ class DeltaIngestor:
             t = self._template_in
             self._template_cache = t() if callable(t) else t
         return self._template_cache
+
+    def _lora_template(self):
+        """The adapter template (None without ``lora_cfg``): the one
+        given (or its supplier's), else built from the base template;
+        resolved once."""
+        if self.lora_cfg is None:
+            return None
+        if self._lora_template_cache is None:
+            t = self._lora_template_in
+            if callable(t):
+                t = t()
+            if t is None:
+                from ..models.lora import adapter_template
+                t = adapter_template(self._template(), self.lora_cfg)
+            self._lora_template_cache = t
+        return self._lora_template_cache
 
     def _span(self, phase: str) -> str:
         return f"{self.span_prefix}.{phase}"
@@ -560,7 +586,9 @@ class DeltaIngestor:
             return self._assemble_v2(hotkey, bytes(data))
         obs.count("wire.bytes_fetched", len(data))
         return densify_delta_bytes(
-            data, self._template(), quant_template=self.quant_template,
+            data, self._template(), self.lora_cfg,
+            lora_template=self._lora_template(),
+            quant_template=self.quant_template,
             accept_quant=self.accept_quant), True, len(data)
 
     def _assemble_v2(self, hotkey: str, manifest_bytes: bytes
@@ -713,7 +741,8 @@ class DeltaIngestor:
             with obs.span(self._span("fetch"), cid=v["cid"], miner=h,
                           cache="broadcast"):
                 d = densify_delta_bytes(
-                    data, self._template(),
+                    data, self._template(), self.lora_cfg,
+                    lora_template=self._lora_template(),
                     quant_template=self.quant_template,
                     accept_quant=self.accept_quant)
             staged.append(StagedDelta(

@@ -195,10 +195,12 @@ def host_materialize(tree: Mapping[str, Any]) -> dict:
     """A host copy of a state dict (keys are ``.``-joined tree paths) as
     the nested tree the wire carries: numpy arrays, and CPU tensors for
     bf16 leaves (numpy has no bf16 on the card machine; the serializer
-    writes both)."""
+    writes both); None stays None."""
     from ..delta import nest_tree
 
     def host(v):
+        if v is None:     # an adapter tree's unadapted leaf
+            return None
         if isinstance(v, torch.Tensor):
             v = v.detach().cpu()
             return v if v.dtype == torch.bfloat16 else v.numpy()

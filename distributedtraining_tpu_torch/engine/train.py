@@ -293,7 +293,7 @@ def _default_lm_loss(model, params: Params, batch: dict):
 
 
 def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
-                 route: str | None = None) -> torch.Tensor:
+                 route: str | None = None, lora=None) -> torch.Tensor:
     """The model's forward to the final hidden states on a mesh, piece
     by piece (ZeRO-3): each block's parameters are gathered as the block
     starts and dropped as it ends, and under ``sharding.regathered``
@@ -308,7 +308,11 @@ def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
     recomputed region. Either family: GPT-2 embeds ``wte`` + ``wpe``,
     walks ``h_{i}`` and ends in ``ln_f``; a Llama embeds ``wte`` alone,
     walks ``layer_{i}`` (RoPE at the positions) and ends in
-    ``final_norm``."""
+    ``final_norm``. ``lora(name)`` (a LoRA engine's), where given, is
+    the whole replicated delta of a block parameter (None where it has
+    none): the piece of it that lands on this rank's piece of the
+    parameter (``sharding.block_slice``) is added in the storage dtype,
+    before the compute cast, as ``models.lora.apply_lora`` adds it."""
     from ..models.gpt2 import embed_tokens, remat_block
     from ..ops.embed import embed_lookup
     from ..parallel import sharding
@@ -316,10 +320,20 @@ def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
     is_llama = family(model) is llama
 
     def gather(block_shards: dict, prefix: str) -> dict:
-        return {k: sharding.block_param(
-                    prefix + k, v, mesh, specs[prefix + k], route,
-                    cfg.compute_dtype() if k.endswith(".kernel") else None)
-                for k, v in block_shards.items()}
+        out = {}
+        for k, v in block_shards.items():
+            name = prefix + k
+            dtype = cfg.compute_dtype() if k.endswith(".kernel") else None
+            d = None if lora is None else lora(name)
+            if d is None:
+                out[k] = sharding.block_param(name, v, mesh, specs[name],
+                                              route, dtype)
+                continue
+            w = sharding.block_param(name, v, mesh, specs[name], route)
+            w = w + sharding.block_slice(name, d, mesh, specs[name],
+                                         route).to(w.dtype)
+            out[k] = w if dtype is None else w.to(dtype)
+        return out
 
     def shards_of(prefix: str) -> dict:
         return {k[len(prefix):]: v for k, v in shards.items()
@@ -385,7 +399,7 @@ def _mesh_targets(batch: dict, mesh) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh,
-                  route: str | None = None):
+                  route: str | None = None, lora=None):
     """:func:`_default_lm_loss` on a mesh: this rank's rows and
     positions against the targets of JAX's mesh spelling
     (:func:`_mesh_targets`, the last column of each row masked out
@@ -396,7 +410,7 @@ def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh,
     from ..models.gpt2 import tied_logits
     from ..parallel import collectives as coll
     from ..parallel.sharding import DATA_AXES, gather_param
-    hidden = _mesh_hidden(model, shards, specs, batch, mesh, route)
+    hidden = _mesh_hidden(model, shards, specs, batch, mesh, route, lora)
     name = _head(shards)
     to_logits = llama.head_logits if family(model) is llama else tied_logits
     logits = to_logits(hidden, gather_param(shards[name], mesh, specs[name]),
@@ -408,13 +422,13 @@ def _mesh_lm_loss(model, shards: Params, specs: dict, batch: dict, mesh,
 
 
 def _mesh_fused_lm_loss(model, shards: Params, specs: dict, batch: dict,
-                        mesh, route: str | None = None):
+                        mesh, route: str | None = None, lora=None):
     """The JAX mesh spelling of ``_fused_lm_loss``: the hidden states
     keep their ``[B, T, E]`` shape and the shift moves into the labels
     and the mask (:func:`_mesh_targets`); the sharded CE takes an sp
     chunk's positions as more rows, and the head (a Llama's
     ``lm_head``, GPT-2's tied ``wte``) as this rank's shard."""
-    hidden = _mesh_hidden(model, shards, specs, batch, mesh, route)
+    hidden = _mesh_hidden(model, shards, specs, batch, mesh, route, lora)
     labels, m = _mesh_targets(batch, mesh)
     return fused_linear_cross_entropy(hidden, shards[_head(shards)], labels,
                                       m, mesh=mesh)
@@ -497,13 +511,15 @@ class TrainEngine:
         self.accum_steps = accum_steps
         self.device = resolve_device(device)
 
-    def _loss(self, params: Params, batch: dict):
+    def _loss(self, params: Params, batch: dict, lora=None):
+        """The loss of ``params`` (this rank's shards on a mesh) on a
+        placed batch; ``lora`` is :func:`_mesh_hidden`'s, on a mesh."""
         if self.mesh is not None:
             from ..parallel.sharding import regathered
             fn = _mesh_fused_lm_loss if self.fused_loss else _mesh_lm_loss
             with regathered():
                 return fn(self.model, params, self.specs, batch, self.mesh,
-                          self.tp_route)
+                          self.tp_route, lora)
         fn = _fused_lm_loss if self.fused_loss else _default_lm_loss
         return fn(self.model, params, batch)
 
@@ -543,6 +559,11 @@ class TrainEngine:
         if self.mesh is None or self.mesh.size(("fsdp", "tp")) == 1:
             return tree
         return self.shard(tree)
+
+    def abstract_state(self) -> TrainState:
+        """The restore template of a checkpoint's state: the model's
+        state dict on the meta device as the params and both moments."""
+        return _abstract_state(self.model)
 
     def init_state(self, params: Mapping[str, torch.Tensor]) -> TrainState:
         """A fresh optimizer around :meth:`place_params` of ``params``."""
@@ -627,12 +648,21 @@ class TrainEngine:
         across batches; the totals stay on the device until one read at
         the end. On an sp mesh each batch holds whole rows, and this rank
         evaluates its positions (``sharding.batch_columns``)."""
+        # the full-params step, also on a LoRA engine (whose own
+        # eval_step takes the base beside the adapters)
+        return self._evaluate(lambda b: TrainEngine.eval_step(self, params, b),
+                              batches)
+
+    def _evaluate(self, step, batches: Iterable[dict]
+                  ) -> tuple[float, float]:
+        """:meth:`evaluate` of ``step(placed batch) -> (loss * tokens,
+        tokens)``."""
         from ..parallel.sharding import batch_columns
         total = count = None
         for batch in batches:
             if self.mesh is not None:
                 batch = batch_columns(batch, self.mesh)
-            l, c = self.eval_step(params, self.place_batch(batch))
+            l, c = step(self.place_batch(batch))
             total = l if total is None else total + l
             count = c if count is None else count + c
         if count is None or float(count) == 0:
@@ -1203,7 +1233,7 @@ class MinerLoop:
     def _val_guard(self) -> None:
         if self.state is None or self.val_batches is None:
             return
-        loss, _ = self.engine.evaluate(self.state.params, self.val_batches())
+        loss = self._guard_eval()
         if self._multi():
             loss = float(broadcast_json(loss))   # one verdict for the pod
         if not math.isfinite(loss):
@@ -1238,6 +1268,10 @@ class MinerLoop:
                               "self_eval_best": self._best_val,
                               "val_reverts": self.report.val_reverts},
                              step=self.report.steps)
+
+    def _guard_eval(self) -> float:
+        """The candidate's mean loss on the held-out batches."""
+        return self.engine.evaluate(self.state.params, self.val_batches())[0]
 
     # -- local checkpoints ---------------------------------------------------
     def _checkpoint_base(self):
@@ -1353,11 +1387,10 @@ class MinerLoop:
             return None
         try:
             meta = self.checkpoint_store.read_meta() or {}
-            abstract = _abstract_state(self.engine.model)
             snap = self.checkpoint_store.restore(Snapshot(
-                state=abstract,
-                base_params=(abstract.params if meta.get("has_base", True)
-                             else None),
+                state=self.engine.abstract_state(),
+                base_params=(self.engine.model.state_dict()
+                             if meta.get("has_base", True) else None),
                 base_revision=None))
             if snap is None:
                 logger.warning("miner %s: checkpoint unusable; pulling "
@@ -1391,13 +1424,16 @@ class MinerLoop:
             "lifetime_steps": snap.lifetime_steps})
         if meta is None:
             return None
-        tmpl = delta_lib.flatten_tree(self._wire_template())
+        state_tmpl = self.engine.abstract_state().params
+        base_tmpl = delta_lib.flatten_tree(self._wire_template())
         opt = None if snap is None else snap.state.opt_state
         params, mu, nu, base = (
             _broadcast_leaves(tmpl, None if snap is None else tree)
-            for tree in (None if snap is None else snap.state.params,
-                         None if opt is None else opt.mu,
-                         None if opt is None else opt.nu, base))
+            for tmpl, tree in (
+                (state_tmpl, None if snap is None else snap.state.params),
+                (state_tmpl, None if opt is None else opt.mu),
+                (state_tmpl, None if opt is None else opt.nu),
+                (base_tmpl, base)))
         return Snapshot(
             state=TrainState(step=meta["step"], params=params,
                              opt_state=AdamWState(count=meta["count"],
@@ -1549,8 +1585,7 @@ class MinerLoop:
                     break
                 self._pull_action.poll()
                 t0 = time.perf_counter()
-                self.state, m = self.engine.train_step(
-                    self.state, self.engine.place_batch(batch))
+                m = self._train_one(batch)
                 step_ms = (time.perf_counter() - t0) * 1e3
                 obs.observe("miner.step_ms", step_ms)
                 if self.trace is not None:
@@ -1593,6 +1628,12 @@ class MinerLoop:
                         "miner %s: final loss read failed during "
                         "exceptional shutdown", self.miner_id, exc_info=True)
         return self.report
+
+    def _train_one(self, batch: dict) -> dict:
+        """One step on a host batch; the step's metrics."""
+        self.state, m = self.engine.train_step(
+            self.state, self.engine.place_batch(batch))
+        return m
 
     def flush(self) -> None:
         """Push a delta (and save a checkpoint, when configured) now, then

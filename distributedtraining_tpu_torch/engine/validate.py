@@ -36,7 +36,8 @@ the broadcasts); each rank evaluates its block of the cohort
 alone set weights. The sequential path evaluates through the mesh
 engine. Not ported yet, and refused with NotImplementedError naming the
 slice (ROADMAP "Slices of the port"): the fleet health plane,
-remediation, LoRA adapter submissions and the metrics sink (slice 7).
+remediation and the metrics sink (slice 7). With ``lora_cfg``, LoRA
+adapter submissions are densified at staging and scored as any other.
 """
 
 from __future__ import annotations
@@ -61,7 +62,6 @@ _SLICES = "ROADMAP 'Slices of the port'"
 _NOT_PORTED = {
     "fleet": ("the fleet health plane", 7),
     "remediation": ("remediation", 7),
-    "lora_cfg": ("LoRA adapter submissions", 7),
     "metrics": ("the metrics sink (--metrics-path)", 7),
 }
 
@@ -95,7 +95,7 @@ class Validator:
                  metrics=None, lora_cfg=None, fleet=None, remediation=None,
                  base_fetcher=None):
         for name, value in (("fleet", fleet), ("remediation", remediation),
-                            ("lora_cfg", lora_cfg), ("metrics", metrics)):
+                            ("metrics", metrics)):
             if value is not None:
                 what, slice_no = _NOT_PORTED[name]
                 raise NotImplementedError(
@@ -135,6 +135,10 @@ class Validator:
         self._ingestor = None
         self._host_template_cache = None
         self._quant_template_cache = None
+        # LoRA submissions (models.lora.LoRAConfig): the adapter template
+        # is built from the host template once, when first asked for
+        self.lora_cfg = lora_cfg
+        self._lora_template = None
         self.base_params: Params | None = None
         self._base_revision = None
         self.base_loss: float | None = None
@@ -180,6 +184,17 @@ class Validator:
             self._quant_template_cache = delta_lib.quantized_template(
                 self._host_template())
         return self._quant_template_cache
+
+    def _adapter_template(self):
+        """The wire template of adapter payloads (None without
+        ``lora_cfg``), handed to the ingestor uncalled."""
+        if self.lora_cfg is None:
+            return None
+        if self._lora_template is None:
+            from .lora_train import adapter_template
+            self._lora_template = adapter_template(self._host_template(),
+                                                   self.lora_cfg)
+        return self._lora_template
 
     def _place(self, tree) -> Params:
         """A nested wire tree or a state dict as the base on the engine's
@@ -279,6 +294,8 @@ class Validator:
             from .ingest import DeltaIngestor
             self._ingestor = DeltaIngestor(
                 self.transport, self._host_template,
+                lora_cfg=self.lora_cfg,
+                lora_template=self._adapter_template,
                 quant_template=self._quant_template,
                 accept_quant=self.accept_quant,
                 accept_wire_v2=self.accept_wire_v2,

@@ -12,12 +12,12 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Mapping
 
-from . import gpt2, llama
+from . import gpt2, llama, lora
 from .gpt2 import params_from_numpy, params_to_numpy, resolve_device
 
 __all__ = ["family", "make_model", "bind", "init_params_numpy",
            "draft_compat", "params_from_numpy", "params_to_numpy",
-           "resolve_device", "gpt2", "llama"]
+           "resolve_device", "gpt2", "llama", "lora"]
 
 
 def family(x) -> ModuleType:

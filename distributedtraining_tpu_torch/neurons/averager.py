@@ -130,6 +130,7 @@ def _run_sub_averager(cfg: RunConfig, c) -> int:
         stale_deltas=cfg.stale_deltas or "skip",
         accept_quant=cfg.accept_quant,
         accept_wire_v2=cfg.accept_wire_v2,
+        lora_cfg=c.lora_cfg,
         ingest_workers=cfg.ingest_workers,
         ingest_cache_mb=cfg.ingest_cache_mb,
         wire_spec=True if cfg.hier_wire_v2 else None,
@@ -228,7 +229,8 @@ def _run(cfg: RunConfig, c) -> int:
                         ingest_workers=cfg.ingest_workers,
                         ingest_cache_mb=cfg.ingest_cache_mb,
                         lineage=lineage, base_dist=base_dist,
-                        lease=lease, hierarchy=hierarchy)
+                        lease=lease, hierarchy=hierarchy,
+                        lora_cfg=c.lora_cfg)
     try:
         if cfg.standby:
             # a passive replica: no bootstrap (it must never publish a

@@ -69,6 +69,9 @@ class Components:
     chain: Any
     address_store: Any
     tokenizer: Any
+    # set when --lora-rank > 0 (models.lora.LoRAConfig: the LoRA miner,
+    # and the adapter payloads the validator and averager accept)
+    lora_cfg: Any = None
     # True when build() brought the torch.distributed world up (the
     # role's exit tears it down)
     owns_world: bool = False
@@ -238,10 +241,14 @@ def build(cfg: RunConfig) -> Components:
         from ..utils import flight
         flight.configure(cfg.role, cfg.hotkey, transport=transport,
                          capacity=cfg.flight_events, config=cfg)
+    lora_cfg = None
+    if cfg.lora_rank > 0:
+        from ..models.lora import LoRAConfig
+        lora_cfg = LoRAConfig(rank=cfg.lora_rank, alpha=cfg.lora_alpha)
     return Components(cfg=cfg, model=model, model_cfg=model_cfg,
                       engine=engine, transport=transport, chain=chain,
                       address_store=address_store, tokenizer=tokenizer,
-                      owns_world=owns_world)
+                      lora_cfg=lora_cfg, owns_world=owns_world)
 
 
 def _note_idle_cards(role: str) -> None:

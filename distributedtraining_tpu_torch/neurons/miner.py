@@ -28,6 +28,9 @@ flight recorder keeps ``--flight-events`` events. ``--wire-v2``
 publishes the packed top-k form as per-layer shards and a manifest
 (``--wire-density``, ``--wire-quant`` tune it); ``--delta-dtype
 int8|sparse8`` the v1 compressed forms (``--delta-density``).
+``--lora-rank R`` (``--lora-alpha``) trains rank-R adapters on the
+frozen base and publishes the adapter tree
+(``engine/lora_train.LoRAMinerLoop``; on a mesh too).
 ``--sign-artifacts`` signs every artifact with the hotkey's wallet
 (``--wallet-path``) and verifies the base (``--base-signer``);
 ``--my-repo-id`` registers a repo id in the address store. A JAX
@@ -42,6 +45,7 @@ import os
 import time
 
 from ..config import RunConfig
+from ..engine.lora_train import LoRAEngine, LoRAMinerLoop
 from ..engine.train import MinerLoop
 from ..parallel import multihost
 from ..utils import flight, obs
@@ -88,23 +92,40 @@ def main(argv=None) -> int:
         from ..checkpoint import CheckpointStore
         store = CheckpointStore(cfg.checkpoint_dir or os.path.join(
             cfg.work_dir, "checkpoints", cfg.hotkey))
-    loop = MinerLoop(c.engine, c.transport, cfg.hotkey,
-                     send_interval=cfg.send_interval,
-                     check_update_interval=cfg.check_update_interval,
-                     log_every=cfg.log_every,
-                     delta_dtype=cfg.delta_dtype,
-                     delta_density=cfg.delta_density,
-                     wire_v2=cfg.wire_v2,
-                     wire_density=cfg.wire_density,
-                     wire_quant=cfg.wire_quant,
-                     keep_optimizer_on_pull=cfg.keep_optimizer_on_pull,
-                     push_async=cfg.push_async,
-                     push_queue_depth=cfg.push_queue_depth,
-                     checkpoint_store=store,
-                     checkpoint_interval=cfg.checkpoint_interval,
-                     trace=trace, anomaly=anomaly,
-                     base_fetcher=build_base_fetcher(cfg, c),
-                     **_guard_kwargs(cfg, c))
+    common = dict(send_interval=cfg.send_interval,
+                  check_update_interval=cfg.check_update_interval,
+                  log_every=cfg.log_every,
+                  push_async=cfg.push_async,
+                  push_queue_depth=cfg.push_queue_depth,
+                  checkpoint_store=store,
+                  checkpoint_interval=cfg.checkpoint_interval,
+                  trace=trace, anomaly=anomaly,
+                  base_fetcher=build_base_fetcher(cfg, c),
+                  **_guard_kwargs(cfg, c))
+    if c.lora_cfg is not None:
+        # adapter-only training, adapter-tree artifacts, with the
+        # composed engine's optimizer (--learning-rate, --grad-clip); on
+        # a mesh the frozen base is sharded and the adapters replicated
+        if cfg.keep_optimizer_on_pull:
+            # adapters are defined relative to the base and reset with it
+            logging.warning(
+                "--keep-optimizer-on-pull has no effect for LoRA miners "
+                "(adapters and their optimizer reset with the base); "
+                "ignoring")
+        engine = LoRAEngine(c.model, c.lora_cfg, optimizer=c.engine.tx,
+                            mesh=c.engine.mesh, fused_loss=cfg.fused_loss,
+                            accum_steps=cfg.accum_steps,
+                            device=c.engine.device)
+        loop = LoRAMinerLoop(engine, c.transport, cfg.hotkey, **common)
+    else:
+        loop = MinerLoop(c.engine, c.transport, cfg.hotkey,
+                         delta_dtype=cfg.delta_dtype,
+                         delta_density=cfg.delta_density,
+                         wire_v2=cfg.wire_v2,
+                         wire_density=cfg.wire_density,
+                         wire_quant=cfg.wire_quant,
+                         keep_optimizer_on_pull=cfg.keep_optimizer_on_pull,
+                         **common)
 
     def _bootstrap():
         # bounded retry on TRANSPORT errors only (a restart is exactly

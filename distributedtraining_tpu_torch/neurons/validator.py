@@ -51,6 +51,7 @@ def main(argv=None) -> int:
                           pipeline_depth=cfg.val_pipeline_depth,
                           ingest_workers=cfg.ingest_workers,
                           ingest_cache_mb=cfg.ingest_cache_mb,
+                          lora_cfg=c.lora_cfg,
                           base_fetcher=build_base_fetcher(cfg, c))
     # the reference gates weight-setting to staked validators
     # (btt_connector.py:358-385): refuse up front rather than spend eval

@@ -347,18 +347,18 @@ def fused_ce_fwd_reference(h: torch.Tensor, w: torch.Tensor,
     return m + torch.log(s) - ll, m, s
 
 
-def fused_ce_bwd_reference(h, w, y, m, s, g
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
+def fused_ce_bwd_reference(h, w, y, m, s, g, *, want_dw: bool = True
+                           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The plain backward from the saved ``(m, s)``:
     ``dz = (exp(z - m) / s - onehot(y)) g`` rounded to h's dtype,
-    ``dh = dz w`` (in h's dtype), ``dW = dz^T h`` (f32)."""
+    ``dh = dz w`` (in h's dtype), ``dW = dz^T h`` (f32; None without
+    ``want_dw``, the frozen head's backward)."""
     z = _logits(h, w)
     p = torch.exp(z - m[:, None]) / s[:, None]
     onehot = torch.nn.functional.one_hot(y.long(), w.shape[0]).float()
     dz = ((p - onehot) * g[:, None]).to(h.dtype).float()
     dh = (dz @ w.float()).to(h.dtype)
-    dw = dz.T @ h.float()
-    return dh, dw
+    return dh, (dz.T @ h.float() if want_dw else None)
 
 
 def fused_ce_bwd_chunked_reference(h, w, y, m, s, g, vc: int
@@ -394,9 +394,11 @@ def _forward(h, w, y):
     return fused_ce_fwd(h, w, y)
 
 
-def _backward(h, w, y, m, s, g):
+def _backward(h, w, y, m, s, g, want_dw: bool):
     if h.device.type == "cpu":
-        return fused_ce_bwd_reference(h, w, y, m, s, g)
+        return fused_ce_bwd_reference(h, w, y, m, s, g, want_dw=want_dw)
+    if not want_dw:
+        return fused_ce_bwd_dh(h, w, y, m, s, g), None
     return fused_ce_bwd(h, w, y, m, s, g)
 
 
@@ -405,7 +407,9 @@ class _PerTokenCE(torch.autograd.Function):
     rounded to h's dtype once here (the JAX dense and scan paths round it
     the same way); the forward saves ``(h, w rounded, y, m, s)``, as
     ``_per_token_ce_fwd`` does, and the backward returns dW in f32
-    straight to ``w`` (no cast's backward on its way)."""
+    straight to ``w`` (no cast's backward on its way). A head that takes
+    no gradient (a LoRA miner's frozen base head) gets none: the
+    backward then computes dh alone."""
 
     @staticmethod
     def forward(ctx, h, w, y):
@@ -418,8 +422,9 @@ class _PerTokenCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, wc, y, m, s = ctx.saved_tensors
-        dh, dw = _backward(h, wc, y, m, s, g.float().contiguous())
-        return dh, dw.to(ctx.w_dtype), None
+        want_dw = ctx.needs_input_grad[1]
+        dh, dw = _backward(h, wc, y, m, s, g.float().contiguous(), want_dw)
+        return dh, (dw.to(ctx.w_dtype) if want_dw else None), None
 
 
 def fused_ce_totals(hidden: torch.Tensor, head: torch.Tensor,
@@ -472,7 +477,9 @@ def fused_ce_loss_sharded(hidden: torch.Tensor, head_shard: torch.Tensor,
 
     Returns ``(total / max(count, 1), max(count, 1))`` on every rank.
     Backward: dW is reduce-scattered back to the head shard (tp on dim
-    0, then fsdp on dim 1; the sum over dp is the caller's, as
+    0, then fsdp on dim 1; neither runs, nor is dW computed, for a shard
+    that takes no gradient, a LoRA miner's frozen head; the sum over dp
+    is the caller's, as
     ``TrainEngine`` sums every gradient over dp once, where
     ``shard_map``'s transpose of the dp-replicated head would psum it
     here); dh, computed for this rank's tp slice, is

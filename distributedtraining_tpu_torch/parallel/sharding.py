@@ -510,6 +510,20 @@ def tp_block_route(heads, mesh) -> str | None:
             else "gathered_attn")
 
 
+def tp_cut(name: str, route: str | None) -> str | None:
+    """How a block on ``route`` cuts the parameter ``name`` over tp:
+    ``"chunk"`` (its tp chunk of storage), ``"heads"`` (this rank's
+    heads of ``c_attn``) or None (the whole parameter)."""
+    leaf = ".".join(name.split(".")[-2:])
+    if route is None:
+        return None
+    if leaf in _TP_MLP or (route == "head_split" and leaf in _TP_HEADS):
+        return "chunk"
+    if route == "head_split" and leaf in _TP_QKV:
+        return "heads"
+    return None
+
+
 def block_param(name: str, shard: torch.Tensor, mesh, spec: Spec,
                 route: str | None, dtype: torch.dtype | None = None
                 ) -> torch.Tensor:
@@ -518,13 +532,29 @@ def block_param(name: str, shard: torch.Tensor, mesh, spec: Spec,
     tp chunk gathered over fsdp alone, this rank's heads of ``c_attn``
     (:func:`gather_heads`), or the whole parameter
     (:func:`gather_param`)."""
-    leaf = ".".join(name.split(".")[-2:])
-    if route is not None:
-        if leaf in _TP_MLP or (route == "head_split" and leaf in _TP_HEADS):
-            return gather_param(shard, mesh, spec, dtype, axes=("fsdp",))
-        if route == "head_split" and leaf in _TP_QKV:
-            return gather_heads(shard, mesh, spec, dtype)
+    cut = tp_cut(name, route)
+    if cut == "chunk":
+        return gather_param(shard, mesh, spec, dtype, axes=("fsdp",))
+    if cut == "heads":
+        return gather_heads(shard, mesh, spec, dtype)
     return gather_param(shard, mesh, spec, dtype)
+
+
+def block_slice(name: str, full: torch.Tensor, mesh, spec: Spec,
+                route: str | None) -> torch.Tensor:
+    """The piece of ``full`` (a whole tensor of the parameter ``name``'s
+    shape, replicated on every rank: a LoRA delta) that lands on what
+    :func:`block_param` gives this rank: its tp chunk, its heads of
+    ``c_attn``, or the whole tensor. Differentiable; the gradient of a
+    cut piece is this rank's part of the whole one."""
+    cut = tp_cut(name, route)
+    if cut == "chunk":
+        only_tp = {a: (mesh.size(a) if a == "tp" else 1) for a in AXES}
+        return full[shard_slices(name, tuple(full.shape), spec, only_tp,
+                                 mesh.coords)]
+    if cut == "heads":
+        return _qkv_heads(full, mesh)
+    return full
 
 
 @torch.no_grad()

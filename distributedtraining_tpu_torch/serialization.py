@@ -197,6 +197,11 @@ def _encode(obj, out: list, *, top: bool) -> None:
             out.append(_str(str(k)))
             _encode(obj[k], out, top=top)
         return
+    if top and obj is None:
+        # an empty subtree (an adapter tree's unadapted leaf): flax's
+        # state dict keeps it as None, which msgpack writes as nil
+        out.append(b"\xc0")
+        return
     if top:
         if not _is_leaf(obj):
             obj = np.asarray(obj)
@@ -365,7 +370,14 @@ def _shape(x) -> tuple:
 
 def _restore(template, raw, path: str):
     """``flax.serialization.from_state_dict`` for nested dicts, plus the
-    JAX package's per-leaf shape check."""
+    JAX package's per-leaf shape check. A None leaf of the template (an
+    adapter tree's unadapted leaf, an empty subtree to JAX) takes None
+    alone: anything else there fails JAX's structure check."""
+    if template is None:
+        if raw is not None:
+            raise PayloadError(f"structure mismatch at {path!r}: expected "
+                               f"nil, got {type(raw).__name__}")
+        return None
     if isinstance(template, Mapping):
         if not isinstance(raw, dict):
             raise PayloadError(f"structure mismatch at {path or '/'!r}: "

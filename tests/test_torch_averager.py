@@ -51,6 +51,7 @@ from distributedtraining_tpu_torch.engine import average as tavg
 from distributedtraining_tpu_torch.engine import train as ttrain
 from distributedtraining_tpu_torch.engine.scheduler import FakeClock
 from distributedtraining_tpu_torch.models import gpt2 as tg
+from distributedtraining_tpu_torch.models.lora import LoRAConfig
 from distributedtraining_tpu_torch.neurons import averager as tcli
 from distributedtraining_tpu_torch.neurons import miner as tminer
 from distributedtraining_tpu_torch.transport import LocalFSTransport
@@ -294,14 +295,14 @@ def test_unported_planes_and_strategies_raise(world):
     # the lineage, base-distribution, lease and tree planes are ported:
     # accepted
     for kw in ({"lineage": object()}, {"base_dist": object()},
-               {"lease": object()}, {"hierarchy": ["n0"]}):
+               {"lease": object()}, {"hierarchy": ["n0"]},
+               {"lora_cfg": LoRAConfig(rank=4)}):
         loop = tavg.AveragerLoop(world["teng"], None, None,
                                  tavg.WeightedAverage(), val_batches=None,
                                  **kw)
         assert getattr(loop, next(iter(kw))) == kw[next(iter(kw))]
     for kw, slice_no in (({"fleet": object()}, 7),
-                         ({"remediation": object()}, 7),
-                         ({"lora_cfg": object()}, 7)):
+                         ({"remediation": object()}, 7)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             tavg.AveragerLoop(world["teng"], None, None,
                               tavg.WeightedAverage(), val_batches=None, **kw)
@@ -374,7 +375,8 @@ def test_averager_flags_match_the_jax_parser():
     (AVG_ARGS + ["--sign-artifacts"], None),
     (AVG_ARGS + ["--remediate"], 7),
     (AVG_ARGS + ["--chain", "bittensor"], 7),
-    (AVG_ARGS + ["--lora-rank", "4"], 7),
+    # LoRA is ported (tests/test_torch_lora_train.py runs the CLIs)
+    pytest.param(AVG_ARGS + ["--lora-rank", "4"], None, id="extra11-7"),
     (AVG_ARGS + ["--metrics-path", "m.jsonl"], 7),
 ])
 def test_averager_refusals_name_their_slice(extra, slice_no):

@@ -309,7 +309,9 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
     (MINER_ARGS + ["--delta-dtype", "int8"], None),
     (MINER_ARGS + ["--delta-dtype", "sparse8"], None),
     (MINER_ARGS + ["--backend", "hf"], 7),
-    (MINER_ARGS + ["--lora-rank", "4"], 7),
+    # LoRA is ported (tests/test_torch_lora_train.py runs the CLIs); the
+    # id is the case's when it was refused
+    pytest.param(MINER_ARGS + ["--lora-rank", "4"], None, id="extra7-7"),
     # the miner's mesh is ported (slice 7): dp/fsdp/sp/tp, --dcn-dp,
     # --mesh-auto and the multi-host flags
     (MINER_ARGS + ["--fsdp", "2"], None),

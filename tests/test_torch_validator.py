@@ -60,6 +60,7 @@ from distributedtraining_tpu_torch.engine import train as ttrain
 from distributedtraining_tpu_torch.engine import validate as tval
 from distributedtraining_tpu_torch.engine.scheduler import FakeClock
 from distributedtraining_tpu_torch.models import gpt2 as tg
+from distributedtraining_tpu_torch.models.lora import LoRAConfig
 from distributedtraining_tpu_torch.neurons import miner as tminer
 from distributedtraining_tpu_torch.neurons import validator as tcli
 from distributedtraining_tpu_torch.transport import LocalFSTransport
@@ -498,13 +499,17 @@ def test_unpermitted_validator_never_emits_weights(world, tmp_path):
 
 @pytest.mark.parametrize("kw,slice_no", [
     ({"fleet": object()}, 7), ({"remediation": object()}, 7),
-    ({"base_fetcher": object()}, None), ({"lora_cfg": object()}, 7),
+    ({"base_fetcher": object()}, None),
+    # LoRA submissions are ported (tests/test_torch_lora_train.py); the
+    # id is the case's when they were refused
+    pytest.param({"lora_cfg": LoRAConfig(rank=4)}, None, id="kw3-7"),
     ({"metrics": object()}, 7)])
 def test_unported_validator_planes_raise(world, kw, slice_no):
     if slice_no is None:    # ported: accepted
         val = tval.Validator(world["teng"], None, None, eval_batches=None,
                              **kw)
-        assert val.base_fetcher is kw["base_fetcher"]
+        (name, value), = kw.items()
+        assert getattr(val, name) is value
         return
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         tval.Validator(world["teng"], None, None, eval_batches=None, **kw)
@@ -545,7 +550,7 @@ def test_validator_flags_match_the_jax_parser():
     (VAL_ARGS + ["--remediate"], 7),
     (VAL_ARGS + ["--heartbeat-interval", "2"], 7),
     (VAL_ARGS + ["--metrics-path", "m.jsonl"], 7),
-    (VAL_ARGS + ["--lora-rank", "4"], 7),
+    pytest.param(VAL_ARGS + ["--lora-rank", "4"], None, id="extra5-7"),
     # ported (tests/test_torch_signing.py runs the validator CLI with it)
     (VAL_ARGS + ["--sign-artifacts"], None),
 ])

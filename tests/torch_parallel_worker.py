@@ -416,7 +416,66 @@ def case_sp(mesh: Mesh, args: dict, inp) -> dict:
     return out
 
 
-CASES = {"ce": case_ce, "engine": case_engine, "tp": case_tp,
+def case_lora(mesh: Mesh, args: dict, inp) -> dict:
+    """LoRA engines on meshes of this world (``args["engines"]``: each
+    its preset, overrides, mesh and fused flag): this rank's shards of
+    the base, the adapters replicated, steps on this rank's rows of the
+    global batches; the losses, the adapters and Adam's first moment
+    after them, the tp route and the ring's passes (the sp route)."""
+    from distributedtraining_tpu_torch.engine.lora_train import LoRAEngine
+    from distributedtraining_tpu_torch.parallel import collectives
+    from distributedtraining_tpu_torch.engine.train import default_optimizer
+    from distributedtraining_tpu_torch.models.lora import LoRAConfig
+    out = {}
+    for name, e in args["engines"].items():
+        m = Mesh(MeshConfig(**e["mesh"]))
+        eng = LoRAEngine(_model(e["preset"], e["overrides"]),
+                         LoRAConfig(rank=args["rank"], alpha=args["alpha"]),
+                         mesh=m, fused_loss=e["fused"],
+                         optimizer=default_optimizer(
+                             args["lr"], grad_clip=args["grad_clip"]),
+                         device="cpu")
+
+        def part(tag, name=name):
+            pre = f"{name}/{tag}/"
+            return {k[len(pre):]: inp[k] for k in inp.files
+                    if k.startswith(pre)}
+        base = eng.place_base(part("p"))
+        state = eng.init_state_from(part("a"))
+        losses = []
+        collectives.reset_counts()
+        for ids in inp[f"{name}/ids"]:
+            batch = eng.place_batch(batch_rows({"input_ids": ids}, m))
+            state, met = eng.train_step(state, base, batch)
+            losses.append(float(met["loss"]))
+        out[f"{name}/losses"] = np.array(losses)
+        out[f"{name}/ring_passes"] = np.array(sum(
+            c["calls"] for key, c in collectives.counts.items()
+            if key[0] == "ring_pass"))
+        for tag, tree in (("ad", state.params), ("mu", state.opt_state.mu)):
+            out.update({f"{name}/{tag}/{k}": v.detach().numpy()
+                        for k, v in tree.items()})
+        out[f"{name}/route"] = np.array(eng.tp_route or "none")
+    # the pod's fetch: the coordinator alone holds the bytes; every rank
+    # densifies the same broadcast
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.engine.lora_train import \
+        fetch_delta_any_broadcast
+    from distributedtraining_tpu_torch.transport import InMemoryTransport
+    t = InMemoryTransport()
+    if mesh.rank == 0:
+        t.publish_raw("m", inp["bcast/bytes"].tobytes())
+    template = json.loads(str(inp["bcast/template"]))
+    template = {k: np.zeros(v, np.float32) for k, v in template.items()}
+    from distributedtraining_tpu_torch.delta import nest_tree
+    dense = fetch_delta_any_broadcast(
+        t, "m", nest_tree(template),
+        LoRAConfig(rank=args["rank"], alpha=args["alpha"]))
+    out.update({f"bcast/{k}": v for k, v in flatten_tree(dense).items()})
+    return out
+
+
+CASES = {"ce": case_ce, "lora": case_lora, "engine": case_engine, "tp": case_tp,
          "sp": case_sp, "llama": case_llama,
          "miner": case_miner,
          "collectives": case_collectives, "pod": case_pod,
