@@ -16,6 +16,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --llama-train
     python3 chip_smoke.py --lora
     python3 chip_smoke.py --lora-soak STEPS [--checked]
+    python3 chip_smoke.py --convert
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
@@ -41,7 +42,8 @@ alone, ``--lora`` phase 28 with its full-depth part,
 ``--lora-soak STEPS`` the full-depth LoRA step of 28c STEPS times (with
 ``--checked``, the card synchronised before and after each flash and CE
 launch and the launch's inputs and outputs checked, so that a fault
-names its kernel), and ``--parallel-cards`` the worlds of phases 23 and 24
+names its kernel), ``--convert`` phase 29's ``llama2-7b`` part, and
+``--parallel-cards`` the worlds of phases 23 and 24
 over NCCL on every card of a machine with several (at world 4 with the
 sp2 x tp2 and dp2 x sp2 engines too). ``--tp-ab DIR...`` times phase 23's tp
 engine steps with the package of each checkout DIR in turn (parent,
@@ -611,6 +613,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
            gathered route: packed rows) and tp 2, losses
            within 1e-4 of world 1's, the adapters the same on both ranks,
            launches and block routes exact, one push.
+29. convert ``--init-from`` and ``--scan-blocks``. A GPT-2-124M
+           checkpoint of seeded random weights is written as HF lays it
+           out (one f32 ``model.safetensors``, no ``lm_head.weight``) in
+           a local HF cache (``models--openai-community--gpt2/snapshots/
+           <commit>/``, ``refs/main``), ``HF_HUB_CACHE`` pointed at it;
+           then the miner (``--fused-loss``, 8 steps), the validator,
+           the averager (``--strategy weighted``) and the server CLIs run
+           with ``--init-from hf:openai-community/gpt2`` and nothing
+           published: each exits 0, its first params bit-equal to the
+           checkpoint's (the padded vocabulary rows zero), launches
+           exact; the miner's push is finite and the validator weighs it
+           above 0; the server finishes phase 21's 8 requests. A
+           ``--scan-blocks`` miner takes the same steps on the same data:
+           its losses and pushed bytes must equal the unrolled miner's
+           and its state must hold ``h.block.*`` leaves with a leading
+           12; each step's ms is recorded for both. In the whole script
+           it runs in a child (``--convert-child OUT``) started beside
+           the llama chain. With ``--convert``: a bf16 ``llama2-7b``
+           checkpoint of seeded random weights (drawn on the card) in two
+           shards as HF names them (13.5 GB, on a disk with 20 GB free),
+           each tensor fingerprinted on the card; then, in a fresh process
+           (``--convert-miner``), the LoRA miner CLI (``--model
+           llama2-7b --lora-rank 8 --init-from DIR --fused-loss``, 6
+           steps at B 4 x T 1024, nothing published): the f32 base on the
+           card after the bootstrap exact in bf16 and fingerprinted equal
+           to the checkpoint, losses finite and falling, launches exact
+           (CE dW 0), every flash and CE launch synchronised and checked
+           (``--lora-soak --checked``'s wrappers), the conversion's
+           seconds, the process's peak RSS and read counters recorded;
+           the checkpoint is deleted before the phase ends.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
@@ -620,7 +652,8 @@ JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
 a ``mesh_roles`` JSON line (phase 24), an ``sp`` JSON line (phase 25),
 an ``llama`` JSON line (phase 26; its ``llama_host`` line comes first),
 an ``llama_train`` JSON line (phase 27), a ``lora`` JSON line (phase
-28), the ``nvidia-smi`` name/power-limit line,
+28), a ``convert`` JSON line (phase 29), the ``nvidia-smi``
+name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -8346,10 +8379,12 @@ class LlamaCli:
     own (``--llama-train-child OUT``), 26f's child starts when it ends,
     and :meth:`join` waits for both (``train_result`` holds 27b-e's
     result); with ``lora`` 28a-b run in a child of their own
-    (``--lora-child OUT``) between the two (``lora_result``)."""
+    (``--lora-child OUT``) between the two (``lora_result``); with
+    ``convert`` phase 29 runs in one more child (``--convert-child
+    OUT``), started at once beside the chain (``convert_result``)."""
 
     def __init__(self, layers: int | None = None, train: bool = False,
-                 lora: bool = False):
+                 lora: bool = False, convert: bool = False):
         import shlex
         import tempfile
         self.tmp = tempfile.mkdtemp()
@@ -8376,6 +8411,27 @@ class LlamaCli:
         self.proc = subprocess.Popen(
             ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in cmds)],
             stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT)
+        self.convert_out = self.convert_proc = None
+        self.convert_result = None
+        if convert:
+            self.convert_out = os.path.join(self.tmp, "convert.json")
+            self.convert_log = open(os.path.join(self.tmp, "convert.log"),
+                                    "w")
+            self.convert_proc = subprocess.Popen(
+                me + ["--convert-child", self.convert_out],
+                stdout=self.convert_log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+    def _join_convert(self) -> None:
+        t0 = time.perf_counter()
+        rc = self.convert_proc.wait(timeout=CONVERT_TIMEOUT_S)
+        waited = time.perf_counter() - t0
+        with open(os.path.join(self.tmp, "convert.log")) as f:
+            text = f.read()
+        if rc:
+            log(f"--- convert child (exit {rc}):\n{text[-8000:]}")
+        check(rc == 0, f"phase 29's child exited {rc}")
+        with open(self.convert_out) as f:
+            self.convert_result = {**json.load(f), "waited_s": waited}
 
     def join(self) -> dict:
         """Wait for the children; the first's result with their seconds,
@@ -8385,6 +8441,8 @@ class LlamaCli:
         t0 = time.perf_counter()
         try:
             rc = self.proc.wait(timeout=LLAMA_CLI_TIMEOUT_S)
+            if self.convert_proc is not None:
+                self._join_convert()
         finally:
             self.close()
         waited = time.perf_counter() - t0
@@ -8416,10 +8474,13 @@ class LlamaCli:
                 "waited_s": waited}
 
     def close(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait(timeout=60)
+        for proc in (self.proc, self.convert_proc):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
         self.log.close()
+        if self.convert_proc is not None:
+            self.convert_log.close()
 
 
 def llama_cli_child(out: str, n_layer: int | None = None) -> int:
@@ -10364,6 +10425,678 @@ def lora_soak(argv: list) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 29. convert: --init-from (the HF converters, safetensors), --scan-blocks
+# ---------------------------------------------------------------------------
+
+CONVERT_REPO = "openai-community/gpt2"
+CONVERT_COMMIT = "0123456789abcdef0123456789abcdef01234567"
+CONVERT_STEPS = 8
+CONVERT_B, CONVERT_T = 4, 512
+CONVERT_EVAL = ["--eval-batches", "2", "--eval-seq-len", "256"]
+CONVERT_TIMEOUT_S = 900.0
+# --convert: the Llama-2-7B checkpoint (bf16, two shards, ~13.5 GB)
+CONVERT_BIG = "llama2-7b"
+CONVERT_BIG_STEPS = 6
+CONVERT_BIG_DISK_BYTES = 20 * 10**9
+CONVERT_BIG_TIMEOUT_S = 900.0
+
+
+def _hf_cache_gpt2(root: str, cfg) -> dict:
+    """An HF-layout GPT-2 checkpoint of seeded random weights in a local
+    HF cache under ``root``: one f32 ``model.safetensors`` named as HF's
+    GPT-2 file names its tensors (``h.0.attn.c_attn.weight``, ...; no
+    ``lm_head.weight``: the head is tied) in
+    ``models--openai-community--gpt2/snapshots/<commit>/``, with
+    ``refs/main`` naming the commit. Returns the tree the checkpoint
+    holds in the port's layout (the seeded init, its padded vocabulary
+    rows zero: HF stores the real vocabulary)."""
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch.models import convert, gpt2
+    tree = gpt2.init_params_numpy(cfg, SEED + 29)
+    hf = {k.removeprefix("transformer."): v
+          for k, v in convert.gpt2_to_hf(tree, cfg).items()
+          if k != "lm_head.weight"}
+    folder = os.path.join(root, "models--" + CONVERT_REPO.replace("/", "--"))
+    snap = os.path.join(folder, "snapshots", CONVERT_COMMIT)
+    os.makedirs(snap)
+    os.makedirs(os.path.join(folder, "refs"))
+    with open(os.path.join(folder, "refs", "main"), "w") as f:
+        f.write(CONVERT_COMMIT)
+    ser.save_file(hf, os.path.join(snap, "model.safetensors"))
+    tree["wte"][cfg.vocab_size:] = 0
+    return tree
+
+
+class _ConvertTap:
+    """Class-level hooks on what the role CLIs build: each role's base
+    right after its bootstrap held against ``want`` (a state dict on the
+    card, unrolled) in the engine's layout, each train step's loss and
+    synchronised ms, and each ``--init-from`` conversion's seconds."""
+
+    def __init__(self, want: dict):
+        self.want = want
+        self.seen: dict = {}
+        self.losses: list = []
+        self.step_ms: list = []
+        self.convert_s: list = []
+
+    def _base(self, role: str, loop) -> None:
+        import torch
+        from distributedtraining_tpu_torch import models
+        base = {k: v.detach() for k, v in loop.base_params.items()}
+        cfg = loop.engine.model.cfg
+        stacked = sorted({tuple(v.shape)[:1] for k, v in base.items()
+                          if ".block." in k})
+        if cfg.scan_blocks:
+            base = models.unstack_blocks(cfg, base)
+        same = base.keys() == self.want.keys() and all(
+            torch.equal(base[k], self.want[k]) for k in base)
+        state = getattr(loop, "state", None)
+        self.seen.setdefault(role, []).append({
+            "equal": same, "scan": cfg.scan_blocks,
+            "stacked_leading": [s[0] for s in stacked],
+            "state_block_leaves": None if state is None else sorted(
+                k for k in state.params if ".block." in k)[:3]})
+
+    def __enter__(self):
+        from distributedtraining_tpu_torch.engine.average import \
+            AveragerLoop
+        from distributedtraining_tpu_torch.engine.train import (MinerLoop,
+                                                                TrainEngine)
+        from distributedtraining_tpu_torch.engine.validate import Validator
+        from distributedtraining_tpu_torch.models import convert
+        tap, self._undo = self, []
+
+        def hook(owner, name, wrap):
+            real = getattr(owner, name)
+            setattr(owner, name, wrap(real))
+            self._undo.append((owner, name, real))
+
+        def boot(role):
+            def wrap(real):
+                def run(loop, *a, **kw):
+                    out = real(loop, *a, **kw)
+                    tap._base(role, loop)
+                    return out
+                return run
+            return wrap
+
+        def step(real):
+            def run(eng, state, batch):
+                _lora_sync()
+                t0 = time.perf_counter()
+                out = real(eng, state, batch)
+                tap.losses.append(float(out[1]["loss"]))
+                tap.step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        def timed(real):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                tap.convert_s.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        hook(MinerLoop, "bootstrap", boot("miner"))
+        hook(Validator, "bootstrap", boot("validator"))
+        hook(AveragerLoop, "bootstrap", boot("averager"))
+        hook(TrainEngine, "train_step", step)
+        hook(convert, "load_params", timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+    def take(self) -> tuple:
+        out = (self.losses, self.step_ms, self.convert_s)
+        self.losses, self.step_ms, self.convert_s = [], [], []
+        return out
+
+
+def _convert_argv(work: str, hotkey: str, extra: list) -> list:
+    return [*DEFAULT_FLAGS, "--backend", "local", "--work-dir", work,
+            "--model", "gpt2-124m", "--hotkey", hotkey, "--init-from",
+            f"hf:{CONVERT_REPO}", "--no-base-wire-v2", "--flight-events",
+            "0", "--batch-size", str(CONVERT_B), "--seq-len",
+            str(CONVERT_T), *CONVERT_EVAL, *extra]
+
+
+def _convert_seen(tap: _ConvertTap, role: str, what: str) -> dict:
+    seen = tap.seen.get(role) or [None]
+    check(len(seen) == 1 and seen[0]["equal"],
+          f"convert {what}: its first params are not the checkpoint's "
+          f"({seen})")
+    return seen[0]
+
+
+def phase_convert_roles() -> dict:
+    """29 (see the module docstring): the four role CLIs with
+    ``--init-from hf:openai-community/gpt2`` at GPT-2-124M, and a
+    ``--scan-blocks`` miner against the unrolled one."""
+    import math
+    import tempfile
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch import serialization as ser
+    from distributedtraining_tpu_torch.delta import flatten_tree
+    from distributedtraining_tpu_torch.engine.train import _wire_template
+    from distributedtraining_tpu_torch.neurons import averager as avg_cli
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.neurons import validator as val_cli
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    cfg = models.gpt2.PRESETS["gpt2-124m"]
+    L = cfg.n_layer
+    res: dict = {"model": "gpt2-124m", "repo": CONVERT_REPO,
+                 "batch": [CONVERT_B, CONVERT_T], "steps": CONVERT_STEPS,
+                 "times_s": {}}
+    prev = os.environ.get("HF_HUB_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cache = os.path.join(tmp, "hub")
+        tree = _hf_cache_gpt2(cache, cfg)
+        res["times_s"]["write"] = time.perf_counter() - t0
+        res["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(cache) for f in fs)
+        want = models.params_from_numpy(tree, device=DEV)
+        template = _wire_template(models.make_model(cfg)[0])
+        os.environ["HF_HUB_CACHE"] = cache
+        roots = {k: os.path.join(tmp, k) for k in ("a", "scan", "serve")}
+        try:
+            with _ConvertTap(want) as tap:
+                miner_extra = ["--max-steps", str(CONVERT_STEPS),
+                               "--send-interval", "1e9",
+                               "--checkpoint-interval", "0",
+                               "--no-anomaly-trace", "--fused-loss"]
+                runs = {}
+                for name, root, extra in (
+                        ("miner", roots["a"], []),
+                        ("miner_scan", roots["scan"], ["--scan-blocks"])):
+                    t0 = time.perf_counter()
+                    run = _lora_cli(miner_cli, _convert_argv(
+                        root, "hotkey_1", miner_extra + extra))
+                    losses, step_ms, conv = tap.take()
+                    what = f"convert {name}"
+                    check(run["rc"] == 0, f"{what} CLI exited {run['rc']}")
+                    seen = _convert_seen(tap, "miner", what)
+                    tap.seen.pop("miner")
+                    check(len(losses) == CONVERT_STEPS
+                          and all(math.isfinite(x) for x in losses)
+                          and losses[-1] < losses[0],
+                          f"{what} losses {losses}")
+                    check(len(conv) == 1, f"{what}: {len(conv)} conversions")
+                    _check_launches(what, run["launches"],
+                                    _train_want(cfg, CONVERT_STEPS, True))
+                    path = os.path.join(root, "artifacts", "deltas",
+                                        "hotkey_1.msgpack")
+                    check(os.path.exists(path), f"{what} pushed nothing")
+                    with open(path, "rb") as f:
+                        data = f.read()
+                    delta = flatten_tree(ser.from_msgpack(data, template))
+                    check(all(math.isfinite(float(abs(v).max()))
+                              for v in delta.values()),
+                          f"{what}: the pushed delta is not finite")
+                    runs[name] = {**run, "losses": losses,
+                                  "step_ms": step_ms,
+                                  "step_ms_p50": statistics.median(
+                                      step_ms[1:] or step_ms),
+                                  "convert_s": conv[0], "first": seen,
+                                  "artifact_bytes": len(data),
+                                  "data": data}
+                    res["times_s"][name] = time.perf_counter() - t0
+                u, s = runs["miner"], runs["miner_scan"]
+                check(s["first"]["stacked_leading"] == [L]
+                      and any(k.startswith("h.block.")
+                              for k in s["first"]["state_block_leaves"]),
+                      f"convert scan miner: no h.block.* leaves with a "
+                      f"leading {L} ({s['first']})")
+                check(not u["first"]["stacked_leading"],
+                      f"convert miner: stacked leaves ({u['first']})")
+                res["scan_losses_max_abs_diff"] = max(
+                    abs(a - b) for a, b in zip(u["losses"], s["losses"]))
+                check(s["losses"] == u["losses"],
+                      f"convert scan miner losses {s['losses']} != the "
+                      f"unrolled miner's {u['losses']}")
+                check(s.pop("data") == u.pop("data"),
+                      "convert scan miner: its pushed bytes differ from "
+                      "the unrolled miner's")
+                res.update(runs)
+                # the validator scores the miner's push on its root
+                t0 = time.perf_counter()
+                val = _lora_cli(val_cli, _convert_argv(
+                    roots["a"], "hotkey_91", ["--rounds", "1"]))
+                check(val["rc"] == 0,
+                      f"convert validator exited {val['rc']}")
+                val["first"] = _convert_seen(tap, "validator", "validator")
+                # the base's eval, then the one candidate's, no backward
+                _check_launches("convert validator", val["launches"],
+                                {"flash_attention_fwd": L * 2 * 2})
+                with open(os.path.join(roots["a"], "chain",
+                                       "metagraph.json")) as f:
+                    weights = json.load(f)["weights"].get("hotkey_91", {})
+                check(weights.get("hotkey_1", 0) > 0,
+                      f"convert validator weights {weights}")
+                val["weight_hotkey_1"] = weights["hotkey_1"]
+                res["validator"] = val
+                res["times_s"]["validator"] = time.perf_counter() - t0
+                # the averager's genesis is the checkpoint; it merges the
+                # miner's delta (weighted: the counts are exact)
+                t0 = time.perf_counter()
+                t_ = LocalFSTransport(os.path.join(roots["a"], "artifacts"))
+                avg = _lora_cli(avg_cli, _convert_argv(
+                    roots["a"], "hotkey_99", ["--rounds", "1", "--strategy",
+                                              "weighted"]))
+                check(avg["rc"] == 0, f"convert averager exited {avg['rc']}")
+                avg["first"] = _convert_seen(tap, "averager", "averager")
+                # the merged base's eval and the genesis base's (the
+                # "improved" guard), no backward, no scatter (dense)
+                _check_launches("convert averager", avg["launches"],
+                                {"flash_attention_fwd": L * 2 * 2})
+                check(t_.base_revision() is not None,
+                      "convert averager published nothing")
+                res["averager"] = avg
+                res["times_s"]["averager"] = time.perf_counter() - t0
+            # the server on a root with nothing published
+            t0 = time.perf_counter()
+            res["server"] = _convert_server(roots["serve"], cfg, want)
+            res["times_s"]["server"] = time.perf_counter() - t0
+        finally:
+            if prev is None:
+                os.environ.pop("HF_HUB_CACHE", None)
+            else:
+                os.environ["HF_HUB_CACHE"] = prev
+            del want
+            _lt_free()
+    return res
+
+
+def _convert_server(work: str, cfg, want: dict) -> dict:
+    """The server CLI with ``--init-from`` on a root where nothing is
+    published: it boots on the converted weights (bit-equal to the
+    checkpoint's), finishes phase 21's 8 requests, launches exact."""
+    import torch
+    L = cfg.n_layer
+    prompts, bodies = _serve6_traffic(cfg.vocab_size)
+    port = _free_port()
+    argv = ["--work-dir", work, "--dataset", "synthetic", "--tokenizer",
+            "word", "--serve-port", str(port), "--swap-poll", "1",
+            "--max-steps", "100000", "--init-from", f"hf:{CONVERT_REPO}"]
+    run = _server_cli(argv, port, bodies)
+    eng = run["engine"]
+    check(eng.revision is None, f"convert server booted on {eng.revision}")
+    state = eng.model.state_dict()
+    check(state.keys() == want.keys() and all(
+        torch.equal(state[k], want[k]) for k in want),
+        "convert server: its weights are not the checkpoint's")
+    for (code, out), p in zip(run["results"], prompts):
+        check(code == 200 and out["status"] == "done"
+              and len(out["tokens"]) == 32,
+              f"convert server: request not done: {code} {out}")
+    dec, win = eng.decode_dispatches, eng.suffix_prefills
+    full = eng.full_prefills
+    _check_launches("convert server", run["launches"], {
+        "paged_decode_attention": L * dec,
+        "paged_window_attention": L * (win + eng.verify_dispatches),
+        "flash_attention_fwd": L * full})
+    check(dec > 0 and full > 0, "convert server: a kernel never ran")
+    return {"argv": argv, "rc": run.get("rc"), "boot_s": run["boot_s"],
+            "wall_s": run["wall_s"], "launches": run["launches"],
+            "dispatches": {"decode": dec, "suffix_prefill": win,
+                           "full_prefill": full}}
+
+
+def convert_child(out: str) -> int:
+    """``--convert-child OUT``: phase 29 in a child process, started
+    beside the llama children of the whole script; its result as JSON in
+    OUT."""
+    phase_env()
+    sys.path.insert(0, ROOT)
+    t0 = time.perf_counter()
+    res = phase_convert_roles()
+    res["s"] = time.perf_counter() - t0
+    log("convert roles:", json.dumps(res, default=str)[:20000])
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def _convert_entries(entries: list, conv: dict) -> list:
+    """The kernels line's entries with phase 29's launches by CLI."""
+    names = ("miner", "miner_scan", "validator", "averager")
+    for e in entries:
+        counter = ("fused_ce_bwd_dh" if e["name"] == "fused_ce_bwd"
+                   else e["name"])
+        got = {f"launches_{n}": conv[n]["launches"].get(counter, 0)
+               for n in names}
+        got["launches_server"] = conv["server"]["launches"].get(counter, 0)
+        if any(got.values()):
+            e["convert"] = got
+    return entries
+
+
+# --convert: Llama-2-7B from a sharded bf16 checkpoint --------------------
+
+def _hf_llama_names(cfg) -> list:
+    """``(port key, HF name, transposed)`` of every Llama parameter, in
+    HF's order (embeddings, then layer by layer, then the norm and the
+    head)."""
+    out = [("wte", "model.embed_tokens.weight", False)]
+    pairs = (("attn_norm.scale", "input_layernorm.weight", False),
+             ("wq.kernel", "self_attn.q_proj.weight", True),
+             ("wk.kernel", "self_attn.k_proj.weight", True),
+             ("wv.kernel", "self_attn.v_proj.weight", True),
+             ("wo.kernel", "self_attn.o_proj.weight", True),
+             ("mlp_norm.scale", "post_attention_layernorm.weight", False),
+             ("w_gate.kernel", "mlp.gate_proj.weight", True),
+             ("w_up.kernel", "mlp.up_proj.weight", True),
+             ("w_down.kernel", "mlp.down_proj.weight", True))
+    for i in range(cfg.n_layer):
+        out += [(f"layer_{i}.{k}", f"model.layers.{i}.{n}", t)
+                for k, n, t in pairs]
+    return out + [("final_norm.scale", "model.norm.weight", False),
+                  ("lm_head", "lm_head.weight", False)]
+
+
+def _fingerprint(t) -> int:
+    """An exact, order-free digest of a bf16 tensor's bits on the card:
+    the int64 sum (wrapping) of each element's 16 bits times a
+    position-dependent odd weight."""
+    import torch
+    bits = t.contiguous().view(torch.int16).reshape(-1).to(torch.int64)
+    idx = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64)
+    w = (idx * 2654435761 + 40503) | 1
+    return int(torch.sum((bits + 65536) * w))
+
+
+def _write_llama_checkpoint(path: str, cfg) -> dict:
+    """A bf16 HF-layout checkpoint of ``cfg`` (weights drawn on the card
+    from SEED, ``_drawn_state``) in two shards named as HF names them
+    (``model-0000N-of-00002.safetensors``) and its index; each tensor
+    cast and laid out (``[out, in]``) on the card, fingerprinted there,
+    then written a shard at a time. Returns the fingerprints, bytes and
+    seconds."""
+    import torch
+    from distributedtraining_tpu_torch import serialization as ser
+    os.makedirs(path)
+    t0 = time.perf_counter()
+    state = _drawn_state(cfg, SEED + 7)
+    draw_s = time.perf_counter() - t0
+    names = _hf_llama_names(cfg)
+    half = 1 + cfg.n_layer // 2 * 9         # embeddings + half the layers
+    shards = (names[:half], names[half:])
+    prints, weight_map, write_s, nbytes = {}, {}, 0.0, 0
+    for i, part in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        host = {}
+        for key, name, transposed in part:
+            t = state.pop(key).to(torch.bfloat16)
+            if transposed:
+                t = t.T.contiguous()
+            prints[name] = _fingerprint(t)
+            host[name] = t.cpu()
+            weight_map[name] = fname
+            del t
+        _lt_free()
+        t0 = time.perf_counter()
+        ser.save_file(host, os.path.join(path, fname))
+        write_s += time.perf_counter() - t0
+        nbytes += sum(v.numel() * 2 for v in host.values())
+        del host
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes},
+                   "weight_map": weight_map}, f)
+    return {"fingerprints": prints, "tensor_bytes": nbytes,
+            "file_bytes": sum(os.path.getsize(os.path.join(path, f))
+                              for f in os.listdir(path)),
+            "draw_s": draw_s, "write_s": write_s}
+
+
+def _rss_peak_bytes() -> int:
+    """This process's peak resident set (``ru_maxrss``: mapped file
+    pages it touched count too)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _io_read_bytes() -> dict:
+    """This process's read counters (``/proc/self/io``; pages faulted in
+    through an ``mmap`` are in neither)."""
+    out = {}
+    try:
+        with open("/proc/self/io") as f:
+            for line in f:
+                k, v = line.split(":")
+                if k in ("rchar", "read_bytes"):
+                    out[k] = int(v)
+    except OSError:
+        pass
+    return out
+
+
+def convert_miner(ckpt: str, out: str) -> int:
+    """``--convert-miner CKPT OUT``: the LoRA miner CLI ``--model
+    llama2-7b --lora-rank 8 --init-from CKPT`` in a fresh process (its
+    host peak is the conversion's), nothing published: the base on the
+    card after the bootstrap is the checkpoint's bf16 values in f32
+    (each leaf's bf16 image fingerprinted as the writer did, and exact
+    in bf16), the steps' losses finite and falling, launches exact (CE
+    dW 0); every flash and CE launch of the steps synchronised and
+    checked (``_soak_checked``), each step logged. Its result as JSON in
+    OUT."""
+    import math
+    import torch
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.lora_train import (
+        LoRAEngine, LoRAMinerLoop)
+    from distributedtraining_tpu_torch.models import convert
+    from distributedtraining_tpu_torch.neurons import miner as miner_cli
+    from distributedtraining_tpu_torch.ops import fused_ce
+    from distributedtraining_tpu_torch.ops import flash_attention as fa
+    phase_env()
+    sys.path.insert(0, ROOT)
+    cfg = models.llama.PRESETS[CONVERT_BIG]
+    res: dict = {"model": CONVERT_BIG, "steps": CONVERT_BIG_STEPS,
+                 "batch": [LORA_B, LORA_T], "rank": LORA_RANK}
+    io0 = _io_read_bytes()
+    rss0 = _rss_peak_bytes()
+    rows: list = []
+    undo = []
+
+    def hook(owner, name, wrap):
+        real = getattr(owner, name)
+        setattr(owner, name, wrap(real))
+        undo.append((owner, name, real))
+
+    def timed(real):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            tree = real(*a, **kw)
+            res["convert_s"] = time.perf_counter() - t0
+            res["convert_rss_peak_bytes"] = _rss_peak_bytes()
+            io = _io_read_bytes()
+            res["convert_io"] = {k: io[k] - io0.get(k, 0) for k in io}
+            return tree
+        return run
+
+    def boot(real):
+        def run(loop, *a, **kw):
+            t0 = time.perf_counter()
+            out = real(loop, *a, **kw)
+            _lora_sync()
+            res["bootstrap_s"] = time.perf_counter() - t0
+            base = loop.base_params
+            exact = bad = 0
+            prints = {}
+            for key, name, transposed in _hf_llama_names(cfg):
+                b = base[key]
+                h = b.to(torch.bfloat16)
+                exact += int(torch.equal(h.float(), b))
+                prints[name] = _fingerprint(h.T if transposed else h)
+                bad += int(not bool(torch.isfinite(b).all()))
+            res["base"] = {"leaves": len(base), "exact_in_bf16": exact,
+                           "non_finite": bad, "fingerprints": prints,
+                           "bytes": sum(v.numel() * v.element_size()
+                                        for v in base.values())}
+            _lt_zero()              # the counts cover the steps alone
+            return out
+        return run
+
+    def step(real):
+        def run(eng, state, base, batch):
+            _lora_sync()
+            t0 = time.perf_counter()
+            out = real(eng, state, base, batch)
+            _lora_sync()
+            rows.append((float(out[1]["loss"]),
+                         (time.perf_counter() - t0) * 1e3))
+            log(f"convert 7b step {len(rows)}: loss {rows[-1][0]:.4f}, "
+                f"{rows[-1][1]:.1f} ms")
+            return out
+        return run
+
+    last = ["the step's start"]
+    seg = (0, 1 << 30)
+    for mod, name, bound in ((fa, "flash_attention_fwd", seg),
+                             (fa, "flash_attention_bwd_dkv", seg),
+                             (fa, "flash_attention_bwd_dq", seg),
+                             (fused_ce, "fused_ce_fwd",
+                              (0, cfg.padded_vocab)),
+                             (fused_ce, "fused_ce_bwd_dh",
+                              (0, cfg.padded_vocab))):
+        _soak_checked(mod, name, last, {name: bound})
+    hook(convert, "load_params", timed)
+    hook(LoRAMinerLoop, "bootstrap", boot)
+    hook(LoRAEngine, "train_step", step)
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        argv = [*DEFAULT_FLAGS, "--backend", "local", "--work-dir", work,
+                "--model", CONVERT_BIG, "--hotkey", "hotkey_1",
+                "--lora-rank", str(LORA_RANK), "--init-from", ckpt,
+                "--fused-loss", "--learning-rate", str(LORA_BIG_LR),
+                "--max-steps", str(CONVERT_BIG_STEPS), "--batch-size",
+                str(LORA_B), "--seq-len", str(LORA_T), "--send-interval",
+                "1e9", "--checkpoint-interval", "0", "--no-anomaly-trace",
+                "--flight-events", "0", "--no-base-wire-v2", *LORA_EVAL]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = miner_cli.main(argv)
+        _lora_sync()
+        res["cli_s"] = time.perf_counter() - t0
+        launches = _lt_launches()
+        pushed = os.path.exists(os.path.join(work, "artifacts", "deltas",
+                                             "hotkey_1.msgpack"))
+    for owner, name, real in reversed(undo):
+        setattr(owner, name, real)
+    losses = [r[0] for r in rows]
+    L, steps = cfg.n_layer, len(rows)
+    check(rc == 0, f"convert 7b miner CLI exited {rc}")
+    base = {k: v for k, v in res.get("base", {}).items()
+            if k != "fingerprints"}
+    check(base and base["exact_in_bf16"] == base["leaves"]
+          and not base["non_finite"],
+          f"convert 7b: the base is not the checkpoint's bf16 values "
+          f"({base})")
+    check(steps == CONVERT_BIG_STEPS and pushed,
+          f"convert 7b miner: {steps} steps, pushed {pushed}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"convert 7b miner losses {losses}")
+    _check_launches("convert 7b miner", launches, {
+        "flash_attention_fwd": (2 if cfg.remat else 1) * L * steps,
+        "flash_attention_bwd_dkv": L * steps,
+        "flash_attention_bwd_dq": L * steps,
+        "fused_ce_fwd": steps, "fused_ce_bwd_dh": steps})
+    step_ms = [r[1] for r in rows]
+    res.update(rc=rc, losses=losses, step_ms=step_ms,
+               step_ms_p50=statistics.median(step_ms[1:] or step_ms),
+               launches=launches, checked_launches=last[0],
+               peak_cuda_mem_bytes=torch.cuda.max_memory_allocated(),
+               rss_peak_before_bytes=rss0,
+               rss_peak_bytes=_rss_peak_bytes())
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def _convert_disk() -> str:
+    """A directory on a disk (not tmpfs or ramfs) with room for the 7B
+    checkpoint: the temporary directory or the checkout; fails without
+    one (no depth cut, no fallback)."""
+    import shutil
+    import tempfile
+    for d in (tempfile.gettempdir(), ROOT):
+        if _fs_of(d) not in ("tmpfs", "ramfs") and \
+                shutil.disk_usage(d).free >= CONVERT_BIG_DISK_BYTES:
+            return d
+    check(False, f"--convert: no disk with {CONVERT_BIG_DISK_BYTES} bytes "
+                 f"free for the checkpoint")
+
+
+def convert_only() -> int:
+    """``--convert``: ``llama2-7b`` at full width and depth from a
+    sharded bf16 checkpoint through the LoRA miner CLI (see the module
+    docstring); the kernels line of the five kernels it runs, the
+    ``convert`` line, the card's line and the result line."""
+    import tempfile
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    from distributedtraining_tpu_torch import models
+    build = phase_build()
+    cfg = models.llama.PRESETS[CONVERT_BIG]
+    res: dict = {"times_s": {}}
+    with tempfile.TemporaryDirectory(dir=_convert_disk()) as d:
+        ckpt = os.path.join(d, CONVERT_BIG)
+        t0 = time.perf_counter()
+        written = _write_llama_checkpoint(ckpt, cfg)
+        res["times_s"]["write"] = time.perf_counter() - t0
+        _lt_free()
+        log(f"convert 7b: wrote {written['file_bytes']} bytes in "
+            f"{res['times_s']['write']:.1f} s")
+        out = os.path.join(d, "miner.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--convert-miner",
+             ckpt, out], cwd=ROOT, capture_output=True, text=True,
+            timeout=CONVERT_BIG_TIMEOUT_S)
+        res["times_s"]["miner"] = time.perf_counter() - t0
+        log(proc.stderr[-20000:])
+        check(proc.returncode == 0,
+              f"convert 7b miner child exited {proc.returncode}")
+        with open(out) as f:
+            miner = json.load(f)
+        got = miner["base"].pop("fingerprints")
+        want = written.pop("fingerprints")
+        check(got == {k: int(v) for k, v in want.items()},
+              "convert 7b: the base on the card differs from the "
+              "checkpoint (fingerprints)")
+        res.update(checkpoint=written, miner=miner,
+                   fingerprints_equal=len(want))
+    res["checkpoint_deleted"] = not os.path.exists(ckpt)
+    check(res["checkpoint_deleted"], "convert 7b: the checkpoint remains")
+    launches = res["miner"]["launches"]
+    entries = [{"name": name, "route": "cuda", "source": source,
+                "build_s": build["build_s"],
+                "launches_convert_7b": launches.get(name, 0)}
+               for name, source in (
+                   ("flash_attention_fwd", FLASH_SOURCE),
+                   ("flash_attention_bwd_dkv", FLASH_SOURCE),
+                   ("flash_attention_bwd_dq", FLASH_SOURCE),
+                   ("fused_ce_fwd", CE_SOURCE),
+                   ("fused_ce_bwd_dh", CE_SOURCE),
+                   ("fused_ce_bwd_dw", CE_SOURCE))]
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"convert": {**res, "card": card}}, default=str),
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -10618,7 +11351,9 @@ def main() -> int:
     serve6["s"] = time.perf_counter() - t0
     # 27b-e, 28a-b, then 26f at a cut depth, run in children beside
     # phases 22-25 (LlamaCli)
-    cli = LlamaCli(layers=LLAMA_CLI_LAYERS_MAIN, train=True, lora=True)
+    # and phase 29 in a child of its own beside them
+    cli = LlamaCli(layers=LLAMA_CLI_LAYERS_MAIN, train=True, lora=True,
+                   convert=True)
     try:
         t0 = time.perf_counter()
         serve6b = phase_serve6b(tree, tok)
@@ -10633,9 +11368,11 @@ def main() -> int:
     llama_train = {"kernels": phase_llama_train_kernels(tok, build),
                    **cli.train_result}
     lora = cli.lora_result
+    convert = cli.convert_result
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
-    print(json.dumps({"kernels": _lora_entries(_lt_entries(_llama_entries(
+    print(json.dumps({"kernels": _convert_entries(_lora_entries(
+        _lt_entries(_llama_entries(
         _with_sp_launches([{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -10670,8 +11407,8 @@ def main() -> int:
         _sharded_entry(par),
         _scatter_entry(scatter, avg, build, defaults, slice5)],
         sp["world2"]["cli"]["sp2"]["launches"][0]), llama),
-        llama_train["kernels"], llama_train), lora)}, default=str),
-        flush=True)
+        llama_train["kernels"], llama_train), lora), convert)},
+        default=str), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -10709,6 +11446,9 @@ def main() -> int:
                                       - t_start}}, default=str), flush=True)
     print(json.dumps({"lora": {**lora, "card": card,
                                "total_s": time.perf_counter() - t_start}},
+                     default=str), flush=True)
+    print(json.dumps({"convert": {**convert, "card": card,
+                                  "total_s": time.perf_counter() - t_start}},
                      default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -11055,6 +11795,12 @@ if __name__ == "__main__":
             sys.exit(lora_soak(sys.argv[2:]))
         if sys.argv[1:2] == ["--lora-child"]:
             sys.exit(lora_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--convert"]:
+            sys.exit(convert_only())
+        if sys.argv[1:2] == ["--convert-child"]:
+            sys.exit(convert_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--convert-miner"]:
+            sys.exit(convert_miner(sys.argv[2], sys.argv[3]))
         if sys.argv[1:2] == ["--lora-worker"]:
             sys.exit(lora_worker(int(sys.argv[2]), int(sys.argv[3]),
                                  sys.argv[4]))

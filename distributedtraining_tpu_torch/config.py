@@ -207,12 +207,7 @@ class RunConfig:
              f"a mesh for the {self.role} (--dp/--fsdp/--sp/--tp/"
              f"--dcn-dp/--mesh-auto, --multihost-*; the miner, validator "
              f"and averager take them)", 7),
-            (self.scan_blocks, "--scan-blocks (the scan block layout)",
-             "7, item 2(e)"),
             (self.role != "miner" and self.remediate, "--remediate", 7),
-            (self.init_from is not None,
-             "--init-from (the checkpoint converters and safetensors)",
-             "7, item 2(d)"),
             (self.heartbeat_interval > 0, "--heartbeat-interval > 0", 7),
             (self.obs_port != 0, "--obs-port", 7),
             (self.compile_cache_dir is not None,

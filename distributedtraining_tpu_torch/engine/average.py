@@ -710,13 +710,18 @@ class AveragerLoop:
         (or raises, when the coordinator's publish failed). Returns
         ``(revision, wire tree or None)``."""
         from ..models.gpt2 import params_to_numpy
+        from .train import wire_out
+
+        def wire():   # artifacts travel unrolled (train.wire_out)
+            return params_to_numpy(wire_out(self.engine, params))
+
         if not self._multi():
-            wire_tree = params_to_numpy(params)
+            wire_tree = wire()
             return self.transport.publish_base(wire_tree), wire_tree
         from .train import coordinator_call
         # a failed publish fails the round on every rank, in step
         return coordinator_call(
-            lambda: self.transport.publish_base(params_to_numpy(params)),
+            lambda: self.transport.publish_base(wire()),
             "base publish"), None
 
     def bootstrap(self, seed: int = 0, params=None) -> None:
@@ -734,8 +739,9 @@ class AveragerLoop:
             fetched = (self.transport.fetch_base(self._host_template())
                        if self.transport.base_revision() is not None
                        else None)
+        from .train import wire_in
         if fetched is not None:
-            self.base_params = self._place(fetched[0])
+            self.base_params = self._place(wire_in(self.engine, fetched[0]))
             self._base_revision = fetched[1]
         else:
             given = params() if callable(params) else params
@@ -762,10 +768,13 @@ class AveragerLoop:
     def _ingest(self):
         """The shared ingest front-end. Packed submissions stay packed
         when the strategy folds host lists by scatter-add
-        (``WeightedAverage``) off a mesh; the parameterized merge and a
-        mesh's sharded stack get them dense."""
+        (``WeightedAverage``) off a mesh and off the scan layout (a
+        packed tree is wire layout, and a restack would mangle its
+        entries); the parameterized merge, a mesh's sharded stack and a
+        scan engine get them dense."""
         if self._ingestor is None:
             from .ingest import DeltaIngestor
+            from .train import _scan_wire_adapters
             self._ingestor = DeltaIngestor(
                 self.transport, self._host_template,
                 lora_cfg=self.lora_cfg,
@@ -779,7 +788,9 @@ class AveragerLoop:
                 span_prefix="avg",
                 densify=not (getattr(self.strategy, "host_list_ingest",
                                      False)
-                             and getattr(self.engine, "mesh", None) is None))
+                             and getattr(self.engine, "mesh", None) is None
+                             and not _scan_wire_adapters(
+                                 self.engine.model)))
         return self._ingestor
 
     def close(self) -> None:
@@ -788,9 +799,11 @@ class AveragerLoop:
             self._ingestor.close()
 
     def gather_deltas(self) -> tuple[list[str], list]:
-        """``(accepted hotkeys, their staged submissions)``: dense wire
-        trees and packed trees, as host data (the same on every rank of
-        a pod)."""
+        """``(accepted hotkeys, their staged submissions)``: dense trees
+        in the engine's layout (:func:`train.wire_in`) and packed trees
+        (wire layout by definition), as host data (the same on every
+        rank of a pod)."""
+        from .train import wire_in
         self._round_cids.clear()
         self._round_revisions.clear()
         self._round_staged.clear()
@@ -835,7 +848,8 @@ class AveragerLoop:
                 continue
             ids.append(s.hotkey)
             self._round_staged[s.hotkey] = s
-            deltas.append(s.delta)
+            deltas.append(s.delta if delta_lib.is_packed_v2(s.delta)
+                          else wire_in(self.engine, s.delta))
         self._round_cids = {h: c for h, c in self._round_cids.items()
                             if h in set(ids)}
         self.report.last_accepted = len(ids)

@@ -46,7 +46,7 @@ from ..models import init_params_numpy
 from ..models import lora as lora_lib
 from ..models.lora import adapter_template
 from .train import (AdamWState, MinerLoop, TrainEngine, TrainState,
-                    _coordinator, accumulated_grads)
+                    _coordinator, accumulated_grads, wire_in, wire_out)
 
 logger = logging.getLogger(__name__)
 
@@ -72,7 +72,7 @@ class LoRAEngine(TrainEngine):
         self.lora_cfg = lora_cfg
         self.targets = lora_lib.targets(model.state_dict(), lora_cfg)
         if not self.targets:
-            raise ValueError(f"no 2-D kernel of the model matches "
+            raise ValueError(f"no kernel of the model matches "
                              f"{lora_cfg.target_patterns}")
         self._adapter_keys = {f"{k}.{f}" for k in self.targets
                               for f in lora_lib.FACTORS}
@@ -130,11 +130,11 @@ class LoRAEngine(TrainEngine):
 
         def skel(dtype):
             out = {}
-            for k, (fan_in, fan_out) in self.targets.items():
-                out[k + ".a"] = torch.empty((fan_in, r), dtype=dtype,
-                                            device="meta")
-                out[k + ".b"] = torch.empty((r, fan_out), dtype=dtype,
-                                            device="meta")
+            for k, (*lead, fan_in, fan_out) in self.targets.items():
+                out[k + ".a"] = torch.empty((*lead, fan_in, r),
+                                            dtype=dtype, device="meta")
+                out[k + ".b"] = torch.empty((*lead, r, fan_out),
+                                            dtype=dtype, device="meta")
             return out
 
         params = skel(torch.float32)
@@ -224,7 +224,8 @@ class LoRAMinerLoop(MinerLoop):
         self._seed = seed
         if self._restore_checkpoint():
             if self.base_fetcher is not None:
-                base = self.engine.gather(self.base_params)
+                base = wire_out(self.engine,
+                                self.engine.gather(self.base_params))
                 if _coordinator():
                     self.base_fetcher.seed(base)
             return
@@ -236,6 +237,7 @@ class LoRAMinerLoop(MinerLoop):
             fetched = None
         if fetched is not None:
             base, self._base_revision = fetched
+            base = wire_in(self.engine, base)
         else:
             base = params() if callable(params) else params
             if base is None:
@@ -257,7 +259,8 @@ class LoRAMinerLoop(MinerLoop):
         logger.info("lora miner %s: new base %s — resetting adapters and "
                     "optimizer", self.miner_id, rev and rev[:8])
         self.base_params = None        # one base on the card at a time
-        self.base_params = self.engine.place_base(self._as_state(base))
+        self.base_params = self.engine.place_base(
+            self._as_state(wire_in(self.engine, base)))
         self.state = self.engine.init_state(self._seed)
         self._base_revision = rev
         self._last_base_time = self.clock.now()
@@ -274,12 +277,14 @@ class LoRAMinerLoop(MinerLoop):
     @torch.no_grad()
     def _push_snapshot(self):
         """``(adapter tree, finite)``: copies of the adapters (the next
-        steps overwrite them in place) with a None at every other leaf
-        of the base, and their 0-dim finite flag. No delta is
-        subtracted and nothing is compressed."""
+        steps overwrite them in place) in the wire's per-block form (a
+        scan layout's ``[L, in, r]`` factors unstacked), with a None at
+        every other leaf of the base, and their 0-dim finite flag. No
+        delta is subtracted and nothing is compressed."""
         adapters = {k: v.detach().clone()
                     for k, v in self.state.params.items()}
-        return (lora_lib.wire_adapters(adapters, self._wire_template()),
+        return (lora_lib.wire_adapters(wire_out(self.engine, adapters),
+                                       self._wire_template()),
                 delta_lib.tree_finite(adapters))
 
     def _train_one(self, batch: dict) -> dict:

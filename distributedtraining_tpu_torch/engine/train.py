@@ -308,29 +308,37 @@ def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
     recomputed region. Either family: GPT-2 embeds ``wte`` + ``wpe``,
     walks ``h_{i}`` and ends in ``ln_f``; a Llama embeds ``wte`` alone,
     walks ``layer_{i}`` (RoPE at the positions) and ends in
-    ``final_norm``. ``lora(name)`` (a LoRA engine's), where given, is
-    the whole replicated delta of a block parameter (None where it has
-    none): the piece of it that lands on this rank's piece of the
-    parameter (``sharding.block_slice``) is added in the storage dtype,
-    before the compute cast, as ``models.lora.apply_lora`` adds it."""
+    ``final_norm``; in the scan layout each walks its one stacked block
+    on the shards' slices ``[i]``. ``lora(name)`` (a LoRA engine's),
+    where given, is the whole replicated delta of a block parameter
+    (None where it has none): the piece of it that lands on this rank's
+    piece of the parameter (``sharding.block_slice``) is added in the
+    storage dtype, before the compute cast, as ``models.lora.apply_lora``
+    adds it."""
     from ..models.gpt2 import embed_tokens, remat_block
     from ..ops.embed import embed_lookup
     from ..parallel import sharding
     cfg = model.cfg
     is_llama = family(model) is llama
 
-    def gather(block_shards: dict, prefix: str) -> dict:
+    def gather(block_shards: dict, prefix: str, layer=None) -> dict:
+        """The block's parameters from its shards; ``layer`` (the scan
+        layout) names the slice ``[layer]`` of stacked shards, whose
+        specs then lose their leading layer axis."""
         out = {}
         for k, v in block_shards.items():
             name = prefix + k
+            spec = specs[name] if layer is None else specs[name][1:]
             dtype = cfg.compute_dtype() if k.endswith(".kernel") else None
             d = None if lora is None else lora(name)
             if d is None:
-                out[k] = sharding.block_param(name, v, mesh, specs[name],
-                                              route, dtype)
+                out[k] = sharding.block_param(name, v, mesh, spec, route,
+                                              dtype)
                 continue
-            w = sharding.block_param(name, v, mesh, specs[name], route)
-            w = w + sharding.block_slice(name, d, mesh, specs[name],
+            if layer is not None:
+                d = d[layer]
+            w = sharding.block_param(name, v, mesh, spec, route)
+            w = w + sharding.block_slice(name, d, mesh, spec,
                                          route).to(w.dtype)
             out[k] = w if dtype is None else w.to(dtype)
         return out
@@ -362,17 +370,27 @@ def _mesh_hidden(model, shards: Params, specs: dict, batch: dict, mesh,
                                    "tp_heads": route == "head_split"}
     if mesh.size("sp") > 1:
         kw["sp"] = mesh
-    for i, blk in enumerate(model.blocks()):
+    if cfg.scan_blocks:
+        # the stacked shards [L, ...] unbound along L: block i computes
+        # with slices [i], whose gradients stack back into one
+        scan = getattr(model, "layers" if is_llama else "h")
+        prefix = ("layers" if is_llama else "h") + ".block."
+        per = {k: v.unbind(0) for k, v in shards_of(prefix).items()}
+        walk = [(scan.block, prefix, {k: v[i] for k, v in per.items()}, i)
+                for i in range(cfg.n_layer)]
+    else:
+        walk = [(blk, f"{layer}{i}.", shards_of(f"{layer}{i}."), None)
+                for i, blk in enumerate(model.blocks())]
+    for blk, prefix, block_shards, i in walk:
         if route is not None:
             sharding.counts[f"tp_{route}_blocks"] += 1
-        prefix = f"{layer}{i}."
         if cfg.remat:
-            x, _ = remat_block(blk, shards_of(prefix), x, *args,
-                               gather=lambda p, pre=prefix: gather(p, pre),
-                               **kw)
+            x, _ = remat_block(
+                blk, block_shards, x, *args,
+                gather=lambda p, pre=prefix, i=i: gather(p, pre, i), **kw)
         else:
             x, _ = torch.func.functional_call(
-                blk, gather(shards_of(prefix), prefix), (x, *args), kw,
+                blk, gather(block_shards, prefix, i), (x, *args), kw,
                 strict=True)
     return torch.func.functional_call(
         getattr(model, final), gather(shards_of(final + "."), final + "."),
@@ -880,14 +898,49 @@ def _snapshot(tree):
     return {k: v.detach().clone() for k, v in tree.items()}
 
 
+# -- the wire layout ---------------------------------------------------------
+# Artifacts (bases, full-parameter deltas, adapters) always travel in the
+# unrolled block layout (h_0..h_{L-1}); a --scan-blocks role's stacked
+# [L, ...] layout is converted at the transport boundary by the helpers
+# below, so the flag is each role's own choice and never the fleet's.
+
+def _scan_wire_adapters(model) -> bool:
+    """True when ``model`` runs the scan layout (else its layout is the
+    wire layout)."""
+    return bool(getattr(getattr(model, "cfg", None), "scan_blocks", False))
+
+
+def wire_out(engine, tree):
+    """The engine's layout -> the wire (unrolled) layout: index views, no
+    copies (a nested tree or a state dict; None passes). The identity
+    off the scan layout."""
+    if tree is None or not _scan_wire_adapters(engine.model):
+        return tree
+    from ..models import unstack_blocks
+    return unstack_blocks(engine.model, tree)
+
+
+def wire_in(engine, tree):
+    """The wire (unrolled) layout -> the engine's layout (stacked under
+    ``--scan-blocks``; numpy stays numpy). The identity off the scan
+    layout."""
+    if tree is None or not _scan_wire_adapters(engine.model):
+        return tree
+    from ..models import stack_blocks
+    return stack_blocks(engine.model, tree)
+
+
 def _wire_template(model) -> dict:
     """The model's param tree in the wire layout (nested dicts, the JAX
-    package's unrolled ``h_{i}`` names) with shape-only zero leaves (a
-    broadcast view: no allocation), the restore template of every
-    transport read. The port trains the unrolled layout, so the wire
-    layout is its own (``wire_out``/``wire_in`` are the identity)."""
+    package's unrolled ``h_{i}`` names, whatever the model's layout)
+    with shape-only zero leaves (a broadcast view: no allocation), the
+    restore template of every transport read."""
     tree: dict = {}
-    for path, t in model.state_dict().items():
+    sd = model.state_dict()
+    if _scan_wire_adapters(model):
+        from ..models import unstack_blocks
+        sd = unstack_blocks(model, sd)
+    for path, t in sd.items():
         *parents, leaf = path.split(".")
         node = tree
         for p in parents:
@@ -1122,14 +1175,17 @@ class MinerLoop:
     def bootstrap(self, params=None, *, seed: int = 0) -> None:
         """Resume from the latest local checkpoint if there is one; else
         pull the published base if one exists; else start from ``params``
-        (a state dict or a nested tree, or a zero-argument callable
-        returning one, invoked only on this genesis path); else a random
-        init drawn with numpy from ``seed``."""
+        (a state dict or a nested tree in the engine's layout, or a
+        zero-argument callable returning one, invoked only on this
+        genesis path); else a random init drawn with numpy from
+        ``seed``. Fetched bases arrive in the wire layout and are
+        converted to the engine's (:func:`wire_in`)."""
         if self._restore_checkpoint():
             if self.base_fetcher is not None:
                 # the first pull after a restart then fetches only the
                 # layers the fleet moved meanwhile
-                base = self.engine.gather(self.base_params)
+                base = wire_out(self.engine,
+                                self.engine.gather(self.base_params))
                 if _coordinator():
                     self.base_fetcher.seed(base)
             return
@@ -1144,7 +1200,8 @@ class MinerLoop:
         if fetched is not None:
             base, rev = fetched
             self._base_revision = rev
-            self.state = self.engine.init_state(self._as_state(base))
+            self.state = self.engine.init_state(
+                self._as_state(wire_in(self.engine, base)))
         else:
             init = params() if callable(params) else params
             if init is None:
@@ -1199,7 +1256,7 @@ class MinerLoop:
         if fetched is None:
             return
         params, rev = fetched
-        new_params = self._as_state(params)
+        new_params = self._as_state(wire_in(self.engine, params))
         if self.keep_optimizer_on_pull and self.state is not None:
             logger.info("miner %s: new base model %s — keeping optimizer "
                         "moments", self.miner_id, rev and rev[:8])
@@ -1374,7 +1431,7 @@ class MinerLoop:
         fetched = self._fetch_base_single(revision)
         if fetched is None or fetched[1] != revision:
             return None
-        return self._as_state(fetched[0])
+        return self._as_state(wire_in(self.engine, fetched[0]))
 
     def _read_checkpoint(self):
         """``(snapshot, base)`` of the latest local checkpoint (full host
@@ -1425,7 +1482,8 @@ class MinerLoop:
         if meta is None:
             return None
         state_tmpl = self.engine.abstract_state().params
-        base_tmpl = delta_lib.flatten_tree(self._wire_template())
+        # the base as the checkpoint holds it: the engine's layout
+        base_tmpl = self.engine.model.state_dict()
         opt = None if snap is None else snap.state.opt_state
         params, mu, nu, base = (
             _broadcast_leaves(tmpl, None if snap is None else tree)
@@ -1518,6 +1576,9 @@ class MinerLoop:
         if self.engine.mesh is not None:
             # every rank's shards of the delta, whole on every rank
             d = self.engine.gather(d)
+        # artifacts travel unrolled: the codecs' scales and top-k picks
+        # are per wire tensor (per block under the scan layout)
+        d = wire_out(self.engine, d)
         finite = delta_lib.tree_finite(d)
         if mode == "int8":
             return delta_lib.quantize_delta(d), finite

@@ -197,8 +197,8 @@ class Validator:
         return self._lora_template
 
     def _place(self, tree) -> Params:
-        """A nested wire tree or a state dict as the base on the engine's
-        device (no gradients)."""
+        """A nested tree or a state dict in the engine's layout as the
+        base on the engine's device (no gradients)."""
         from ..models.gpt2 import params_from_numpy
         if any(isinstance(v, dict) for v in tree.values()):
             return params_from_numpy(tree, device=self.engine.device)
@@ -239,8 +239,10 @@ class Validator:
             fetched = (self._fetch_base_single()
                        if self.transport.base_revision() is not None
                        else None)
+        from .train import wire_in
         if fetched is not None:
             base, self._base_revision = fetched
+            base = wire_in(self.engine, base)
         else:
             base = params() if callable(params) else params
             if base is None:
@@ -282,7 +284,8 @@ class Validator:
             fetched = self._fetch_base_single(rev)
         if fetched is None:   # a torn or hostile read: keep the base
             return
-        self.base_params = self._place(fetched[0])
+        from .train import wire_in
+        self.base_params = self._place(wire_in(self.engine, fetched[0]))
         self._base_revision = fetched[1]
         self._eval_base()
 
@@ -315,6 +318,7 @@ class Validator:
         """Fetch and screen a cohort of submissions through the ingest
         pool: ``[(hotkey, delta | None, reason), ...]`` in input order.
         The artifact's ``delta_id`` (from its rider) tags the eval span."""
+        from .train import wire_in
         staged = self._ingest().stage(list(hotkeys),
                                       base_revision=self._base_revision,
                                       multi=self._multi())
@@ -322,7 +326,8 @@ class Validator:
         for s in staged:
             if s.cid is not None:
                 self._round_cids[s.hotkey] = s.cid
-            out.append((s.hotkey, s.delta, s.reason))
+            # screened in the wire layout; scored in the engine's
+            out.append((s.hotkey, wire_in(self.engine, s.delta), s.reason))
         return out
 
     def _stage_miner(self, hotkey: str):

@@ -17,7 +17,8 @@ from .gpt2 import params_from_numpy, params_to_numpy, resolve_device
 
 __all__ = ["family", "make_model", "bind", "init_params_numpy",
            "draft_compat", "params_from_numpy", "params_to_numpy",
-           "resolve_device", "gpt2", "llama", "lora"]
+           "resolve_device", "stack_blocks", "unstack_blocks", "gpt2",
+           "llama", "lora"]
 
 
 def family(x) -> ModuleType:
@@ -54,3 +55,16 @@ def draft_compat(draft_cfg, target_cfg) -> str | None:
     """Why a drafter with ``draft_cfg`` cannot draft for a target with
     ``target_cfg`` (None = compatible): the drafter family's rule."""
     return family(draft_cfg).draft_compat(draft_cfg, target_cfg)
+
+
+def stack_blocks(model_or_cfg, params: Mapping) -> dict:
+    """``params`` (a nested tree or a flat state dict) from the unrolled
+    block layout to the scan layout of ``model_or_cfg``'s family."""
+    cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
+    return family(cfg).stack_blocks(params, cfg.n_layer)
+
+
+def unstack_blocks(model_or_cfg, params: Mapping) -> dict:
+    """The inverse of :func:`stack_blocks`."""
+    cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
+    return family(cfg).unstack_blocks(params, cfg.n_layer)

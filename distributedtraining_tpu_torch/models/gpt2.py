@@ -32,6 +32,17 @@ training forward recomputes each block in the backward
 (``torch.utils.checkpoint``, JAX's ``nn.remat(Block)``); the serving
 forward never does (JAX ``:281``). Dropout is training's and is not
 ported (engine/train.py refuses it; every preset has 0.0).
+
+With ``cfg.scan_blocks`` (``--scan-blocks``, JAX's ``nn.scan`` over
+``_BlockScan``) the blocks are one :class:`BlockScan`: each block
+parameter is stored once for every layer, ``[L, ...]``, under JAX's name
+``h.block.<leaf>`` (``h.block.c_attn.kernel`` is ``[L, E, 3E]``), and
+the forward runs block ``i`` on the slices ``[i]`` (views of the stacked
+tensors: the same products on the same values), under remat when
+``cfg.remat`` is set. The layouts convert with :func:`stack_blocks` /
+:func:`unstack_blocks`; artifacts travel unrolled whatever a role's
+layout (``engine/train.wire_out``), and generation refuses the stacked
+layout, as JAX's does (the serving engines rebuild unrolled).
 """
 
 from __future__ import annotations
@@ -68,7 +79,8 @@ class GPT2Config:
     remat: bool = False
     attention_impl: str = "flash"  # "dense" | "flash" | "blockwise" | "ring"
     vocab_multiple: int = 128      # pad vocab to a multiple of this
-    scan_blocks: bool = False      # the port always runs unrolled blocks
+    # one block stored [L, ...] under h/block (BlockScan); same math
+    scan_blocks: bool = False
     logits_dtype: str = "float32"
 
     @property
@@ -206,6 +218,50 @@ class Block(nn.Module):
         return x + self.mlp_proj(h, tp), (k, v)
 
 
+class BlockScan(nn.Module):
+    """JAX's ``nn.scan`` of a block over the layers: ``block``'s
+    parameters each stored once as ``[n_layer, ...]`` (``<name>.block.
+    <leaf>``), block ``i`` run on the slices ``[i]``."""
+
+    def __init__(self, block: nn.Module, n_layer: int):
+        super().__init__()
+        for mod in block.modules():
+            for name, p in list(mod._parameters.items()):
+                mod._parameters[name] = nn.Parameter(
+                    torch.empty((n_layer, *p.shape), dtype=p.dtype,
+                                device="meta"), requires_grad=False)
+        self.block = block
+        self.n_layer = n_layer
+
+    def layer_params(self) -> list[dict[str, torch.Tensor]]:
+        """Each layer's parameters: the stacked tensors unbound along
+        their first axis (views; autograd stacks their gradients back
+        into one ``[L, ...]`` gradient, each slice's in its place)."""
+        named = dict(self.block.named_parameters())
+        per = {k: v.unbind(0) for k, v in named.items()}
+        return [{k: v[i] for k, v in per.items()}
+                for i in range(self.n_layer)]
+
+    def forward(self, x: torch.Tensor, *args, remat: bool = False,
+                **kwargs) -> torch.Tensor:
+        for p in self.layer_params():
+            if remat:
+                x, _ = remat_block(self.block, p, x, *args, **kwargs)
+            else:
+                x, _ = torch.func.functional_call(
+                    self.block, p, (x, *args), kwargs, strict=True)
+        return x
+
+
+def refuse_scan_generation(cfg) -> None:
+    """Generation needs the unrolled layout (JAX ``models/gpt2.py:222``)."""
+    if cfg.scan_blocks:
+        raise ValueError(
+            "KV-cache generation needs the unrolled block layout; "
+            "rebuild the serving model with scan_blocks=False "
+            "(wire artifacts are unrolled already)")
+
+
 def _tp_enter(h: torch.Tensor, tp) -> torch.Tensor:
     """Megatron's f on a value replicated over tp whose uses on each tp
     rank are partial: the identity, whose backward sums over tp."""
@@ -226,11 +282,16 @@ class GPT2(nn.Module):
         self.cfg = cfg
         self.wte = _param((cfg.padded_vocab, cfg.n_embd), cfg)
         self.wpe = _param((cfg.n_positions, cfg.n_embd), cfg)
-        for i in range(cfg.n_layer):
-            self.add_module(f"h_{i}", Block(cfg))
+        if cfg.scan_blocks:
+            self.h = BlockScan(Block(cfg), cfg.n_layer)
+        else:
+            for i in range(cfg.n_layer):
+                self.add_module(f"h_{i}", Block(cfg))
         self.ln_f = LayerNorm(cfg.n_embd, cfg)
 
     def blocks(self) -> list[Block]:
+        """The unrolled blocks (the stacked layout has one
+        :class:`BlockScan`, ``self.h``)."""
         return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
 
     def forward(self, input_ids: torch.Tensor, *,
@@ -246,9 +307,15 @@ class GPT2(nn.Module):
         restarts positions at each document); it defaults to
         ``arange(T)``."""
         cfg = self.cfg
+        if sow_kv or kv_pages is not None:
+            refuse_scan_generation(cfg)
         x = embed_tokens(self.wte, self.wpe, input_ids, position_ids, cfg)
         remat = (cfg.remat and torch.is_grad_enabled() and not sow_kv
                  and kv_pages is None)
+        if cfg.scan_blocks:
+            x = self.ln_f(self.h(x, attention_mask, segment_ids,
+                                 remat=remat))
+            return x if return_hidden else tied_logits(x, self.wte, cfg)
         kvs = []
         for i, blk in enumerate(self.blocks()):
             if remat:
@@ -360,17 +427,13 @@ def resolve_device(device) -> torch.device:
 
 def params_from_numpy(tree: Mapping[str, Any], *, device="cuda"
                       ) -> dict[str, torch.Tensor]:
-    """The JAX package's unrolled param tree of either family (nested
-    dicts of arrays, or CPU tensors for bf16 leaves: GPT-2's
+    """The JAX package's param tree of either family (nested dicts of
+    arrays, or CPU tensors for bf16 leaves: GPT-2's
     ``h_{i}/c_attn/kernel``, ``ln_1/scale``, ``wte``; Llama's
-    ``layer_{i}/wq/kernel``, ``lm_head``, ...) as a
-    state dict keyed by the ``.``-joined paths, on ``device`` (``"cuda"``
-    unless the caller asks for the CPU). Values, dtypes and layouts are
-    unchanged."""
-    if "h" in tree or "layers" in tree:
-        raise ValueError("scan-layout param tree (h/block or "
-                         "layers/block); unstack it to the unrolled "
-                         "h_{i} / layer_{i} layout first")
+    ``layer_{i}/wq/kernel``, ``lm_head``, ...; the scan layout's
+    ``h/block/...`` or ``layers/block/...``) as a state dict keyed by
+    the ``.``-joined paths, on ``device`` (``"cuda"`` unless the caller
+    asks for the CPU). Values, dtypes and layouts are unchanged."""
     device = resolve_device(device)
     state: dict[str, torch.Tensor] = {}
 
@@ -406,11 +469,12 @@ def params_to_numpy(state: Mapping[str, torch.Tensor]) -> dict:
 
 
 def init_params_numpy(cfg: GPT2Config, seed: int) -> dict:
-    """Random weights in the JAX package's unrolled tree and init
-    distributions (normal 0.02 for dense kernels and ``wte``, 0.01 for
-    ``wpe``, ones/zeros for LayerNorm, zero biases), drawn with numpy
-    from ``seed``. The draws differ from ``jax.random``'s; the
-    distributions and layouts do not."""
+    """Random weights in the JAX package's tree and init distributions
+    (normal 0.02 for dense kernels and ``wte``, 0.01 for ``wpe``,
+    ones/zeros for LayerNorm, zero biases), drawn with numpy from
+    ``seed``; stacked (:func:`stack_blocks`) when ``cfg.scan_blocks``,
+    the same values as the unrolled draw. The draws differ from
+    ``jax.random``'s; the distributions and layouts do not."""
     rng = np.random.default_rng(seed)
     E = cfg.n_embd
     dt = np.dtype(cfg.param_dtype)
@@ -434,4 +498,97 @@ def init_params_numpy(cfg: GPT2Config, seed: int) -> dict:
                           "c_fc": dense(E, 4 * E),
                           "mlp_proj": dense(4 * E, E)}
     tree["ln_f"] = ln()
-    return tree
+    return stack_blocks(tree, cfg.n_layer) if cfg.scan_blocks else tree
+
+
+# ---------------------------------------------------------------------------
+# The block layouts: unrolled (h_0..h_{L-1}) <-> stacked (h/block, [L, ...])
+# ---------------------------------------------------------------------------
+
+def _stack(xs: list):
+    """Host numpy stays host numpy (an averager may hold ~100 fetched
+    deltas before its merge); tensors stack where they are."""
+    if xs[0] is None:
+        return None
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack(xs)
+    return np.stack(xs)
+
+
+def _map_leaves(fn, *trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _map_leaves(fn, *(t[k] for t in trees))
+                for k in trees[0]}
+    return fn(*trees)
+
+
+def _is_nested(params: Mapping, key: str) -> bool:
+    return isinstance(params.get(key), Mapping)
+
+
+def stack_blocks(params: Mapping, n_layer: int, *, prefix: str = "h_",
+                 scan_key: str = "h") -> dict:
+    """Unrolled layout (``h_0..h_{L-1}``) -> scan layout (``h/block``,
+    each per-block leaf gaining a leading ``[L]`` axis): JAX's
+    ``stack_blocks``. ``params`` is a nested tree (the JAX spelling) or
+    a flat state dict (``h_0.c_attn.kernel`` -> ``h.block.c_attn.
+    kernel``, at the position of the first block's keys). Numpy stays
+    numpy; None leaves (an adapter tree's) stay None."""
+    def is_block(k: str) -> bool:
+        head = k.split(".", 1)[0]
+        return head.startswith(prefix) and head[len(prefix):].isdigit()
+
+    if _is_nested(params, f"{prefix}0"):
+        # the stack takes the first block's place (a state dict of it
+        # then lists the model's parameters in the model's order)
+        out = {}
+        for k, v in params.items():
+            if k == f"{prefix}0":
+                out[scan_key] = {"block": _map_leaves(
+                    lambda *xs: _stack(list(xs)),
+                    *(params[f"{prefix}{i}"] for i in range(n_layer)))}
+            elif not is_block(k):
+                out[k] = v
+        return out
+    first = f"{prefix}0."
+    rests = [k[len(first):] for k in params if k.startswith(first)]
+    out = {}
+    for k, v in params.items():
+        if k.startswith(first):
+            rest = k[len(first):]
+            out[f"{scan_key}.block.{rest}"] = _stack(
+                [params[f"{prefix}{i}.{rest}"] for i in range(n_layer)])
+        elif not is_block(k):
+            out[k] = v
+    if not rests:
+        raise KeyError(f"no {prefix}0 block in the tree")
+    return out
+
+
+def unstack_blocks(params: Mapping, n_layer: int, *, prefix: str = "h_",
+                   scan_key: str = "h") -> dict:
+    """Scan layout -> unrolled layout (the inverse of
+    :func:`stack_blocks`): each layer's leaves are index views of the
+    stacked ones (numpy stays numpy, no copies)."""
+    if _is_nested(params, scan_key):
+        out = {}
+        for k, v in params.items():
+            if k != scan_key:
+                out[k] = v
+                continue
+            for i in range(n_layer):
+                out[f"{prefix}{i}"] = _map_leaves(
+                    lambda x, i=i: None if x is None else x[i], v["block"])
+        return out
+    head = f"{scan_key}.block."
+    rests = [k[len(head):] for k in params if k.startswith(head)]
+    out = {}
+    for k, v in params.items():
+        if not k.startswith(head):
+            out[k] = v
+        elif k[len(head):] == rests[0]:
+            for i in range(n_layer):
+                for rest in rests:
+                    x = params[head + rest]
+                    out[f"{prefix}{i}.{rest}"] = None if x is None else x[i]
+    return out

@@ -26,8 +26,11 @@ GQA-native and reads the Hkv-head pool as it is. ``sow_kv`` returns each
 layer's post-RoPE, pre-broadcast ``(k, v)`` with Hkv heads, so the KV
 pool is ``n_head / n_kv_head`` times smaller than the activations. With
 ``cfg.remat`` the training forward recomputes each block in the backward
-(``models.gpt2.remat_block``); the serving forward never does. The scan
-layout (``--scan-blocks``) is not ported.
+(``models.gpt2.remat_block``); the serving forward never does. With
+``cfg.scan_blocks`` the blocks are one ``models.gpt2.BlockScan`` under
+JAX's ``layers.block.<leaf>`` names (``[L, ...]`` leaves), as GPT-2's
+are under ``h.block``; :func:`stack_blocks` / :func:`unstack_blocks`
+convert (``prefix="layer_"``, ``scan_key="layers"``).
 
 On a mesh (engine/train.py's ``_mesh_hidden``) a block takes GPT-2's
 keywords: ``tp`` splits the MLP's columns and, with ``tp_heads``, the
@@ -51,7 +54,9 @@ from torch import nn
 from ..ops.attention import causal_attention
 from ..ops.embed import embed_lookup
 from ..ops.paged_attention import paged_attention
-from .gpt2 import _TORCH_DTYPES, _param, _tp_enter, pad_vocab, remat_block
+from . import gpt2 as _gpt2
+from .gpt2 import (_TORCH_DTYPES, BlockScan, _param, _tp_enter, pad_vocab,
+                   refuse_scan_generation, remat_block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +75,8 @@ class LlamaConfig:
     remat: bool = True
     attention_impl: str = "flash"  # "dense" | "flash" | "blockwise" | "ring"
     vocab_multiple: int = 128
-    scan_blocks: bool = False      # the port always runs unrolled blocks
+    # one block stored [L, ...] under layers/block (BlockScan)
+    scan_blocks: bool = False
     logits_dtype: str = "float32"
 
     @property
@@ -224,8 +230,11 @@ class Llama(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.wte = _param((cfg.padded_vocab, cfg.n_embd), cfg)
-        for i in range(cfg.n_layer):
-            self.add_module(f"layer_{i}", LlamaBlock(cfg))
+        if cfg.scan_blocks:
+            self.layers = BlockScan(LlamaBlock(cfg), cfg.n_layer)
+        else:
+            for i in range(cfg.n_layer):
+                self.add_module(f"layer_{i}", LlamaBlock(cfg))
         self.final_norm = RMSNorm(cfg.n_embd, cfg)
         self.lm_head = _param((cfg.padded_vocab, cfg.n_embd), cfg)
 
@@ -244,6 +253,8 @@ class Llama(nn.Module):
         """``position_ids`` is ``[T]`` or per row ``[B, T]``; it defaults
         to ``arange(T)``."""
         cfg = self.cfg
+        if sow_kv or kv_pages is not None:
+            refuse_scan_generation(cfg)
         B, T = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(T, device=input_ids.device)
@@ -251,6 +262,10 @@ class Llama(nn.Module):
         x = embed_lookup(self.wte, input_ids).to(cfg.compute_dtype())
         remat = (cfg.remat and torch.is_grad_enabled() and not sow_kv
                  and kv_pages is None)
+        if cfg.scan_blocks:
+            x = self.final_norm(self.layers(x, attention_mask, segment_ids,
+                                            position_ids, remat=remat))
+            return x if return_hidden else head_logits(x, self.lm_head, cfg)
         kvs = []
         for i, blk in enumerate(self.blocks()):
             if remat:
@@ -308,11 +323,11 @@ def bind(model_or_cfg, state: Mapping[str, torch.Tensor]) -> Llama:
 
 
 def init_params_numpy(cfg: LlamaConfig, seed: int) -> dict:
-    """Random weights in the JAX package's unrolled tree and init
-    distributions (normal 0.02 for dense kernels, ``wte`` and
-    ``lm_head``, ones for the norm scales), drawn with numpy from
-    ``seed``. The draws differ from ``jax.random``'s; the distributions
-    and layouts do not."""
+    """Random weights in the JAX package's tree and init distributions
+    (normal 0.02 for dense kernels, ``wte`` and ``lm_head``, ones for
+    the norm scales), drawn with numpy from ``seed``; stacked when
+    ``cfg.scan_blocks``. The draws differ from ``jax.random``'s; the
+    distributions and layouts do not."""
     rng = np.random.default_rng(seed)
     E, D, F = cfg.n_embd, cfg.head_dim, cfg.intermediate_size
     dt = np.dtype(cfg.param_dtype)
@@ -338,4 +353,18 @@ def init_params_numpy(cfg: LlamaConfig, seed: int) -> dict:
             "w_down": {"kernel": normal((F, E))}}
     tree["final_norm"] = norm()
     tree["lm_head"] = normal((cfg.padded_vocab, E))
-    return tree
+    return stack_blocks(tree, cfg.n_layer) if cfg.scan_blocks else tree
+
+
+def stack_blocks(params: Mapping, n_layer: int) -> dict:
+    """Unrolled (``layer_0..``) -> scan layout (``layers/block``, leading
+    ``[L]`` axis): ``models.gpt2.stack_blocks`` with this family's
+    names."""
+    return _gpt2.stack_blocks(params, n_layer, prefix="layer_",
+                              scan_key="layers")
+
+
+def unstack_blocks(params: Mapping, n_layer: int) -> dict:
+    """Scan layout -> unrolled layout (inverse of :func:`stack_blocks`)."""
+    return _gpt2.unstack_blocks(params, n_layer, prefix="layer_",
+                                scan_key="layers")

@@ -17,9 +17,11 @@ equal the JAX package's ``to_msgpack`` of the same adapters
 (:func:`adapters_to_numpy` builds that tree, :func:`adapters_from_numpy`
 reads one back).
 
-The JAX package also adapts the 3-D kernels of its scan layout; the port
-trains the unrolled layout alone (``--scan-blocks`` is refused), so a
-target here is a 2-D kernel.
+A target is a 2-D kernel ``[in, out]`` of the unrolled layout or a 3-D
+kernel ``[L, in, out]`` of the scan layout (``--scan-blocks``), whose
+factors ``[L, in, r]`` / ``[L, r, out]`` multiply layer by layer; the
+wire carries the unrolled per-block form either way
+(``engine/train.wire_out``).
 """
 
 from __future__ import annotations
@@ -64,11 +66,12 @@ def _shape(x) -> tuple:
 def is_target(path, leaf, cfg: LoRAConfig) -> bool:
     """True when the leaf at ``path`` (a ``.``-joined state-dict key or a
     tuple of components) is adapted: its last component is ``kernel``,
-    it is 2-D, and a component contains one of ``cfg``'s patterns."""
+    it is 2-D (unrolled ``[in, out]``) or 3-D (the scan layout's ``[L,
+    in, out]``), and a component contains one of ``cfg``'s patterns."""
     comps = _components(path)
     if comps and comps[-1] != "kernel":
         return False
-    if len(_shape(leaf)) != 2:
+    if len(_shape(leaf)) not in (2, 3):
         return False
     return any(pat in comp for comp in comps for pat in cfg.target_patterns)
 
@@ -85,7 +88,7 @@ def _walk(tree):
 
 def targets(base: Mapping[str, Any], cfg: LoRAConfig
             ) -> dict[str, tuple[int, int]]:
-    """``{kernel key: (in, out)}`` of every adapted kernel of ``base`` (a
+    """``{kernel key: shape}`` of every adapted kernel of ``base`` (a
     state dict or a nested tree, of tensors, arrays or anything with a
     shape), in JAX's flatten order."""
     return {".".join(p): _shape(leaf) for p, leaf in _walk(base)
@@ -95,8 +98,9 @@ def targets(base: Mapping[str, Any], cfg: LoRAConfig
 def init_lora(key, base: Mapping[str, Any], cfg: LoRAConfig, *,
               device="cpu") -> Params:
     """The adapters of ``base`` (shapes only are read): for each adapted
-    ``[in, out]`` kernel ``a = normal * 0.02`` and ``b = 0``, so the
-    initial delta is exactly zero. ``key`` is a ``utils.prng`` key (or an
+    ``[..., in, out]`` kernel ``a = normal * 0.02`` (``[..., in, r]``)
+    and ``b = 0`` (``[..., r, out]``), so the initial delta is exactly
+    zero. ``key`` is a ``utils.prng`` key (or an
     int seed, ``jax.random.PRNGKey(seed)``); as in JAX, the base's
     flattened leaves take one key each from ``split(key, n_leaves)``,
     and the normals are ``jax.random.normal``'s (within a few ulps)."""
@@ -109,12 +113,13 @@ def init_lora(key, base: Mapping[str, Any], cfg: LoRAConfig, *,
     for i, (path, leaf) in enumerate(leaves):
         if not is_target(path, leaf, cfg):
             continue
-        fan_in, fan_out = _shape(leaf)
+        *lead, fan_in, fan_out = _shape(leaf)
         name = ".".join(path)
-        a = prng.normal(keys[i], fan_in * cfg.rank).reshape(
-            fan_in, cfg.rank) * 0.02
+        a = prng.normal(keys[i], int(np.prod(lead, dtype=np.int64))
+                        * fan_in * cfg.rank).reshape(
+            *lead, fan_in, cfg.rank) * 0.02
         out[name + ".a"] = a.to(device)
-        out[name + ".b"] = torch.zeros((cfg.rank, fan_out),
+        out[name + ".b"] = torch.zeros((*lead, cfg.rank, fan_out),
                                        dtype=torch.float32, device=device)
     return out
 
@@ -220,17 +225,19 @@ def adapter_template(base_template: Mapping[str, Any], cfg: LoRAConfig
                      ) -> dict:
     """The wire template of adapter payloads for the nested host
     template ``base_template`` (shapes only are read): zeros ``{"a":
-    [in, r], "b": [r, out]}`` at adapted kernels (views of one scalar:
-    nothing is allocated), None elsewhere."""
+    [..., in, r], "b": [..., r, out]}`` at adapted kernels (views of one
+    scalar: nothing is allocated), None elsewhere."""
     from ..delta import nest_tree
     zero = np.zeros((), np.float32)
     flat: dict = {}
     for path, leaf in _walk(base_template):
         name = ".".join(path)
         if is_target(path, leaf, cfg):
-            fan_in, fan_out = _shape(leaf)
-            flat[name + ".a"] = np.broadcast_to(zero, (fan_in, cfg.rank))
-            flat[name + ".b"] = np.broadcast_to(zero, (cfg.rank, fan_out))
+            *lead, fan_in, fan_out = _shape(leaf)
+            flat[name + ".a"] = np.broadcast_to(zero, (*lead, fan_in,
+                                                       cfg.rank))
+            flat[name + ".b"] = np.broadcast_to(zero, (*lead, cfg.rank,
+                                                       fan_out))
         else:
             flat[name] = None
     return nest_tree(flat)

@@ -245,7 +245,7 @@ def _run(cfg: RunConfig, c) -> int:
             merged = standby.run(interval=cfg.averaging_interval,
                                  rounds=cfg.rounds)
         else:
-            loop.bootstrap()
+            loop.bootstrap(params=c.initial_params)
             merged = loop.run_periodic(interval=cfg.averaging_interval,
                                        rounds=cfg.rounds)
     except KeyboardInterrupt:

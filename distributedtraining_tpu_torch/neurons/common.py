@@ -118,6 +118,34 @@ class Components:
             it = prefetch(it, depth=self.cfg.prefetch_depth)
         return it
 
+    def initial_params(self):
+        """The pretrained starting point of ``--init-from`` (None without
+        the flag): ``models.convert.load_params`` against the model config
+        in use (a nested numpy tree, stacked under ``--scan-blocks``).
+        The roles hand it to their bootstraps uncalled, which call it on
+        the genesis path alone: a published base or a local checkpoint
+        always wins, and a restart does not pay a conversion it would
+        discard. On a world of several processes the coordinator reads
+        and converts, and every rank receives the tree (a flat state dict
+        of host tensors) by broadcast, as every transport read is
+        shared."""
+        if not self.cfg.init_from:
+            return None
+        from ..models import convert
+        logger.info("loading pretrained weights from %s", self.cfg.init_from)
+        mesh = self.engine.mesh
+        if mesh is None or mesh.world_size == 1:
+            return convert.load_params(self.cfg.init_from, self.model_cfg)
+        from ..delta import flatten_tree
+        from ..engine.train import broadcast_optional_tree
+        tree = broadcast_optional_tree(
+            self.model.state_dict(), lambda: flatten_tree(
+                convert.load_params(self.cfg.init_from, self.model_cfg)))
+        if tree is None:
+            raise RuntimeError(f"--init-from {self.cfg.init_from}: the "
+                               f"coordinator's read gave nothing")
+        return tree
+
     _test_docs_cache = None
 
     def _test_docs(self) -> list[str]:
@@ -181,6 +209,8 @@ def build(cfg: RunConfig) -> Components:
     except KeyError as e:
         raise NotImplementedError(f"--model {cfg.model}: {e.args[0]}")
     model_cfg = family.PRESETS[cfg.model]
+    if cfg.scan_blocks:
+        model_cfg = dataclasses.replace(model_cfg, scan_blocks=True)
     if cfg.logits_dtype:
         model_cfg = dataclasses.replace(model_cfg,
                                         logits_dtype=cfg.logits_dtype)

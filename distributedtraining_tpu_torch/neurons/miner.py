@@ -133,7 +133,7 @@ def main(argv=None) -> int:
         # re-raise at once, and bootstrap is idempotent
         for attempt in range(3):
             try:
-                return loop.bootstrap()
+                return loop.bootstrap(params=c.initial_params)
             except OSError:
                 if attempt == 2:
                     raise

@@ -48,12 +48,13 @@ from .common import build, build_base_fetcher, resolve_role_device
 logger = logging.getLogger(__name__)
 
 
-def _await_base(cfg: RunConfig, watcher: BaseRevisionWatcher):
-    """Boot weights ``(state, revision)``: the published base, polled
-    for until one exists (at most ``--rounds`` x ``--swap-poll`` when
-    ``--rounds`` is given). The JAX server falls back to ``--init-from``
-    weights when none is published; the port refuses that flag
-    (slice 7), so it waits."""
+def _await_base(cfg: RunConfig, c, watcher: BaseRevisionWatcher,
+                device: str):
+    """Boot weights ``(state, revision)``: the published base when one
+    exists, else the ``--init-from`` weights (serving can come up before
+    the averager's first publish; the converted tree in the unrolled
+    layout the engine serves), else a published base polled for (at
+    most ``--rounds`` x ``--swap-poll`` when ``--rounds`` is given)."""
     deadline = (time.monotonic() + cfg.rounds * cfg.swap_poll
                 if cfg.rounds else None)
     while True:
@@ -61,6 +62,14 @@ def _await_base(cfg: RunConfig, watcher: BaseRevisionWatcher):
             staged = watcher.take_pending()
             if staged is not None:
                 return staged[1], staged[0]
+        params = c.initial_params()
+        if params is not None:
+            from .. import models
+            logger.info("no published base yet; serving --init-from "
+                        "weights until one lands")
+            if c.model_cfg.scan_blocks:
+                params = models.unstack_blocks(c.model_cfg, params)
+            return models.params_from_numpy(params, device=device), None
         if deadline is not None and time.monotonic() > deadline:
             raise SystemExit(
                 "no base model appeared within the bounded wait "
@@ -131,7 +140,7 @@ def main(argv=None) -> int:
         device=device)
     engine = loop = frontend = None
     try:
-        params, revision = _await_base(cfg, watcher)
+        params, revision = _await_base(cfg, c, watcher, device)
         # SLO burn-rate alerting over the request-trace stream: every
         # finished or refused request feeds the monitor, evaluated on the
         # registry's flush cadence below

@@ -76,7 +76,7 @@ def main(argv=None) -> int:
         logging.warning("running WITHOUT a validator permit: weights will "
                         "not be emitted")
     try:
-        validator.bootstrap()
+        validator.bootstrap(params=c.initial_params)
         ok = validator.run_periodic(interval=cfg.validation_interval,
                                     rounds=cfg.rounds)
     except KeyboardInterrupt:

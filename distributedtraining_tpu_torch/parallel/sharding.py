@@ -26,7 +26,11 @@ JAX Llama's:
 
 :func:`param_spec` resolves them to a spec, one mesh axis (or None) a
 dim: ``wte`` is ``("tp", "fsdp")``, ``c_attn.kernel`` and ``wq.kernel``
-``("fsdp", "tp")``.
+``("fsdp", "tp")``; under the scan layout ``h.block.c_attn.kernel`` is
+``(None, "fsdp", "tp")`` (the layer axis replicated), and a block
+computes on the slice ``[i]`` of its stacked shards with the spec's
+tail (``engine/train._mesh_hidden``), so :func:`block_param`'s fsdp and
+tp slices fall on the same axes of a layer as unrolled.
 
 :func:`shard_params` cuts a full tree to one rank's shards: chunk
 ``coords[axis]`` of each split dim, equal element for element to the JAX
@@ -130,6 +134,10 @@ LLAMA_LOGICAL_AXES = {
     "scale": ("embed",),      # attn_norm, mlp_norm, final_norm
 }
 
+# the scan layout's leading axis of a stacked block leaf (JAX's
+# metadata_params PARTITION_NAME "layers"; no rule names it)
+LAYER_AXIS = "layers"
+
 BATCH_SPEC = (("dp", "fsdp"), "sp")
 ROW_AXES = BATCH_SPEC[0]
 # the axes over which every rank computes on its own part of the batch
@@ -144,8 +152,14 @@ Spec = tuple
 def logical_axes(name: str) -> tuple:
     """The JAX model's logical axes of the parameter ``name`` (a state
     dict key such as ``h_0.c_attn.kernel`` or ``layer_0.wq.kernel``),
-    from the table of the family the name belongs to."""
+    from the table of the family the name belongs to. A stacked block
+    leaf of the scan layout (``h.block.c_attn.kernel``,
+    ``layers.block.wq.kernel``) leads with ``"layers"``, which no rule
+    maps: its layer axis is replicated, as JAX's ``nn.scan`` partition
+    name leaves it."""
     parts = name.split(".")
+    lead = (LAYER_AXIS,) if parts[0] in ("h", "layers") \
+        and parts[1:2] == ["block"] else ()
     if len(parts) == 1:
         key = name
     elif parts[-2].startswith("ln_") or parts[-2].endswith("_norm"):
@@ -154,7 +168,7 @@ def logical_axes(name: str) -> tuple:
         key = ".".join(parts[-2:])
     for table in (GPT2_LOGICAL_AXES, LLAMA_LOGICAL_AXES):
         if key in table:
-            return table[key]
+            return lead + table[key]
     raise KeyError(f"no logical axes for parameter {name!r}")
 
 

@@ -1,6 +1,7 @@
-"""Msgpack serialization of parameter trees — the port of the msgpack half
-of the JAX package's ``serialization.py`` (``to_msgpack``,
-``from_msgpack``, ``PayloadError``, ``save_file``, ``load_file``).
+"""Serialization of parameter trees — the port of the JAX package's
+``serialization.py``: msgpack (``to_msgpack``, ``from_msgpack``) and
+safetensors (``to_safetensors``, ``from_safetensors``), ``PayloadError``,
+``save_file``, ``load_file`` and ``validated_load``.
 
 The JAX package encodes trees with ``flax.serialization``; the card
 machine has neither ``flax``, ``msgpack`` nor ``ml_dtypes``, so this
@@ -28,8 +29,22 @@ EXAMPLE: with a template, the payload must carry every template key and
 each leaf's shape, or :class:`PayloadError` is raised. The wire-v2 shard
 container and manifest (``pack_shard``, ``build_wire_manifest``, ...) and
 the base-distribution shard and manifest (``pack_base_shard``,
-``build_base_manifest``, ...) are here too; safetensors comes with a later
-slice.
+``build_base_manifest``, ...) are here too.
+
+Safetensors (the HF format, a flat name -> tensor mapping: a u64
+little-endian header length, a JSON header, the raw little-endian
+buffer) is read and written here without the ``safetensors`` package,
+which the card machine lacks. :func:`to_safetensors` gives the bytes the
+``safetensors`` library's serializer gives for the same tree: tensors
+ordered by dtype (the library's dtype enum, largest first) then by name,
+a compact JSON header with no ``__metadata__``, padded with spaces to a
+multiple of 8 bytes. Tree paths join with ``::`` (:func:`flatten_tree`).
+The reader (:func:`parse_safetensors`) parses untrusted bytes: the
+header length, its 100 MiB cap and each tensor's offsets against its
+dtype and shape are checked, and an unknown dtype raises
+:class:`PayloadError`. BF16 tensors read as ``torch.bfloat16`` tensors
+(``torch.frombuffer``); every other dtype as a numpy array over the
+payload's bytes.
 """
 
 from __future__ import annotations
@@ -402,7 +417,9 @@ def from_msgpack(data: bytes, template: Params | None = None,
     """Deserialize msgpack bytes. With a ``template`` (a nested dict whose
     leaves have shapes), the result is restored into the template's
     structure and every mismatch raises :class:`PayloadError`: the only
-    loader for peer payloads."""
+    loader for peer payloads. A payload whose blocks are stacked where
+    the template's are unrolled (or the reverse) says so, naming
+    ``--scan-blocks``."""
     if len(data) > max_bytes:
         raise PayloadError(f"payload {len(data)} bytes exceeds cap "
                            f"{max_bytes}")
@@ -413,7 +430,45 @@ def from_msgpack(data: bytes, template: Params | None = None,
         raise PayloadError(f"malformed msgpack: {e}") from e
     if template is None:
         return raw
-    return _restore(template, raw, "")
+    try:
+        return _restore(template, raw, "")
+    except PayloadError as e:
+        if not str(e).startswith("structure mismatch"):
+            raise
+        hint = _diagnose_block_layout_mismatch(raw, template)
+        if hint is None:
+            raise
+        raise PayloadError(f"{e} [{hint}]") from e
+
+
+def _block_layout(tree) -> str | None:
+    if not isinstance(tree, Mapping):
+        return None
+    for prefix, key in (("h_", "h"), ("layer_", "layers")):
+        if any(isinstance(k, str) and k.startswith(prefix)
+               and k[len(prefix):].isdigit() for k in tree):
+            return f"unrolled ({prefix}0..{prefix}{{L-1}})"
+        node = tree.get(key)
+        if isinstance(node, Mapping) and "block" in node:
+            return f"stacked ({key}/block, scan_blocks)"
+    return None
+
+
+def _diagnose_block_layout_mismatch(raw, template) -> str | None:
+    """The one structure mismatch with a config flag for its cause: a
+    ``--scan-blocks`` run's tree stacks the blocks under ``h/block``
+    (``layers/block``) where an unrolled run's carries ``h_0..h_{L-1}``
+    (``layer_0..``). Artifacts travel unrolled whatever a role's layout
+    (``engine/train.wire_out``), so a stacked payload names a legacy or
+    non-conforming publisher. None for any other mismatch."""
+    got, want = _block_layout(raw), _block_layout(template)
+    if got and want and got != want:
+        return (f"payload uses the {got} block layout but this surface "
+                f"expects {want} — artifacts are supposed to travel in the "
+                f"unrolled wire layout regardless of --scan-blocks (engine "
+                f"wire_out/wire_in normalize at publish/fetch); a stacked "
+                f"payload means a legacy or non-conforming publisher")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -421,18 +476,16 @@ def from_msgpack(data: bytes, template: Params | None = None,
 # ---------------------------------------------------------------------------
 
 def save_file(tree: Params, path: str) -> None:
-    """Write a tree to ``path`` as msgpack, atomically: a temporary file,
-    fsync, then rename, so a reader never sees a torn artifact, even
-    after a crash."""
-    if not path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: only .msgpack is ported; safetensors comes with the "
-            f"checkpoint converters (--init-from), ROADMAP 'Slices of the "
-            f"port', slice 7")
+    """Write a tree to ``path`` atomically (a temporary file, fsync, then
+    rename, so a reader never sees a torn artifact, even after a crash),
+    in the format its extension names: ``.safetensors`` or msgpack.
+    Both stream leaf by leaf."""
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    pieces = (_safetensors_pieces(flatten_tree(tree))
+              if path.endswith(".safetensors") else _pieces(tree))
     with open(tmp, "wb") as f:
-        for piece in _pieces(tree):
+        for piece in pieces:
             f.write(piece)
         f.flush()
         os.fsync(f.fileno())
@@ -446,22 +499,196 @@ def load_file(path: str, template: Params | None = None,
         raise PayloadError(f"file {path} is {size} bytes, exceeds cap "
                            f"{max_bytes}")
     with open(path, "rb") as f:
-        return from_msgpack(f.read(), template, max_bytes=max_bytes)
+        data = f.read()
+    if path.endswith(".safetensors"):
+        return from_safetensors(data, template, max_bytes=max_bytes)
+    return from_msgpack(data, template, max_bytes=max_bytes)
 
 
-def validated_load(data: bytes, template: Params, *,
+def validated_load(data: bytes, template: Params, *, fmt: str = "msgpack",
                    max_bytes: int = DEFAULT_MAX_BYTES,
                    check_dtypes: bool = False) -> Params:
-    """Untrusted msgpack bytes restored into ``template``'s structure with
-    per-leaf shapes checked; ``check_dtypes=True`` also pins every leaf to
-    the template's dtype (the int8 wire: a hostile f64 ``q`` tree would
-    otherwise parse at 8x the advertised bytes)."""
+    """Untrusted bytes (``fmt`` ``"msgpack"`` or ``"safetensors"``)
+    restored into ``template``'s structure with per-leaf shapes checked;
+    ``check_dtypes=True`` also pins every leaf to the template's dtype
+    (the int8 wire: a hostile f64 ``q`` tree would otherwise parse at 8x
+    the advertised bytes)."""
     from . import delta as _delta
 
-    tree = from_msgpack(data, template, max_bytes=max_bytes)
+    loader = from_safetensors if fmt == "safetensors" else from_msgpack
+    tree = loader(data, template, max_bytes=max_bytes)
     if not _delta.shapes_match(tree, template, check_dtype=check_dtypes):
         raise PayloadError("leaf shape/dtype mismatch against template")
     return tree
+
+
+# ---------------------------------------------------------------------------
+# safetensors
+# ---------------------------------------------------------------------------
+
+_SEP = "::"   # path separator of flattened safetensors keys
+
+# safetensors dtype name -> numpy dtype (BF16 reads as a torch tensor)
+_ST_DTYPES = {
+    "F64": np.float64, "F32": np.float32, "F16": np.float16,
+    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+    "U64": np.uint64, "U32": np.uint32, "U16": np.uint16, "U8": np.uint8,
+    "BOOL": np.bool_,
+}
+_ST_NAMES = {np.dtype(v).name: k for k, v in _ST_DTYPES.items()}
+# the safetensors library writes tensors in descending order of its dtype
+# enum (then by name): this is that order, first to last
+_ST_ORDER = ("U64", "I64", "F64", "F32", "U32", "I32", "BF16", "F16",
+             "U16", "I16", "I8", "U8", "BOOL")
+# what JAX's default (32-bit) mode makes of a 64-bit leaf before it is
+# written (``jnp.asarray`` in the JAX package's ``to_safetensors``)
+_ST_CANONICAL = {"F64": "F32", "I64": "I32", "U64": "U32"}
+_ST_HEADER_MAX = 100 * 1024 * 1024
+
+
+def flatten_tree(tree: Params) -> dict:
+    """A nested tree as ``{"a::b::c": leaf}``, keys sorted per level (the
+    JAX package's ``tree_flatten_with_path`` order); the keys of a flat
+    dict stay as they are."""
+    from .delta import _walk_state_dict
+    return {_SEP.join(str(k) for k in p): v
+            for p, v in _walk_state_dict(tree)}
+
+
+def unflatten_to_template(flat: Mapping[str, Any], template: Params
+                          ) -> Params:
+    """``flat`` (``::``-joined keys) restored into the nested
+    ``template``'s structure: every template key present with its shape,
+    and no other key."""
+    from .delta import _walk_state_dict
+    out: dict = {}
+    seen = set()
+    for path, tmpl_leaf in _walk_state_dict(template):
+        key = _SEP.join(str(k) for k in path)
+        seen.add(key)
+        if key not in flat:
+            raise PayloadError(f"missing tensor {key!r}")
+        if _shape(flat[key]) != _shape(tmpl_leaf):
+            raise PayloadError(f"shape mismatch at {key!r}: "
+                               f"{_shape(flat[key])} vs {_shape(tmpl_leaf)}")
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if path:
+            node[path[-1]] = flat[key]
+        else:
+            return flat[key]
+    extra = set(flat) - seen
+    if extra:
+        raise PayloadError(f"unexpected tensors: {sorted(extra)[:5]}")
+    return out
+
+
+def _st_leaf(x) -> tuple[str, tuple, memoryview]:
+    """``(safetensors dtype, shape, raw little-endian bytes)`` of a
+    leaf."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return "BF16", tuple(t.shape), _raw(t.view(torch.int16).numpy())
+        x = t.numpy()
+    arr = np.asarray(x)
+    name = _ST_NAMES.get(arr.dtype.name)
+    if name is None:
+        raise ValueError(f"dtype {arr.dtype} has no safetensors name")
+    if name in _ST_CANONICAL:
+        name = _ST_CANONICAL[name]
+        arr = arr.astype(_ST_DTYPES[name])
+    return name, arr.shape, _raw(arr.astype(arr.dtype.newbyteorder("<"),
+                                           copy=False))
+
+
+def _safetensors_pieces(flat: Mapping[str, Any]) -> list:
+    """The safetensors encoding of ``flat`` as pieces: the header, then
+    each tensor's bytes as a view (see the module docstring)."""
+    import json
+    leaves = {k: _st_leaf(v) for k, v in flat.items()}
+    order = sorted(leaves, key=lambda k: (_ST_ORDER.index(leaves[k][0]),
+                                          k.encode("utf-8")))
+    header, off = {}, 0
+    for k in order:
+        dtype, shape, raw = leaves[k]
+        header[k] = {"dtype": dtype, "shape": [int(d) for d in shape],
+                     "data_offsets": [off, off + len(raw)]}
+        off += len(raw)
+    text = json.dumps(header, separators=(",", ":"),
+                      ensure_ascii=False).encode("utf-8")
+    text += b" " * (-len(text) % 8)
+    return [struct.pack("<Q", len(text)) + text,
+            *(leaves[k][2] for k in order)]
+
+
+def to_safetensors(tree: Params) -> bytes:
+    """A tree's safetensors bytes (those of the JAX package's
+    ``to_safetensors`` for the same tree)."""
+    return b"".join(_safetensors_pieces(flatten_tree(tree)))
+
+
+def parse_safetensors(data) -> dict:
+    """Untrusted safetensors bytes (or any buffer: an ``mmap`` reads
+    without a copy) as ``{name: array}``: numpy arrays over the buffer,
+    ``torch.bfloat16`` tensors for BF16. Every bound is checked (the
+    module docstring); a violation raises :class:`PayloadError`."""
+    import json
+    import warnings
+    if len(data) < 8:
+        raise PayloadError("truncated safetensors header")
+    n = int.from_bytes(data[:8], "little")
+    if n > len(data) - 8 or n > _ST_HEADER_MAX:
+        raise PayloadError("bad safetensors header length")
+    header = json.loads(bytes(data[8:8 + n]).decode("utf-8"))
+    buf = memoryview(data)[8 + n:]
+    out: dict = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES and info["dtype"] != "BF16":
+            raise PayloadError(f"unsupported dtype {info['dtype']!r}")
+        itemsize = (2 if info["dtype"] == "BF16"
+                    else np.dtype(_ST_DTYPES[info["dtype"]]).itemsize)
+        shape = tuple(int(s) for s in info["shape"])
+        start, end = (int(x) for x in info["data_offsets"])
+        nbytes = itemsize * int(np.prod(shape)) if shape else itemsize
+        if not (0 <= start <= end <= len(buf)) or end - start != nbytes:
+            raise PayloadError(f"bad offsets for tensor {name!r}")
+        if info["dtype"] != "BF16":
+            out[name] = np.frombuffer(
+                buf[start:end], dtype=np.dtype(_ST_DTYPES[info["dtype"]]
+                                               ).newbyteorder("<")
+            ).reshape(shape)
+        elif nbytes == 0:
+            out[name] = torch.empty(shape, dtype=torch.bfloat16)
+        else:
+            with warnings.catch_warnings():
+                # a read-only buffer: the tensor is never written
+                warnings.simplefilter("ignore", UserWarning)
+                out[name] = torch.frombuffer(
+                    buf[start:end], dtype=torch.bfloat16).reshape(shape)
+    return out
+
+
+def from_safetensors(data, template: Params | None = None,
+                     *, max_bytes: int = DEFAULT_MAX_BYTES) -> Params:
+    """Deserialize safetensors bytes: the flat ``{name: array}`` without
+    a template, else the tree restored into the template's structure
+    (:func:`unflatten_to_template`)."""
+    if len(data) > max_bytes:
+        raise PayloadError(f"payload {len(data)} bytes exceeds cap "
+                           f"{max_bytes}")
+    try:
+        flat = parse_safetensors(data)
+    except PayloadError:
+        raise
+    except Exception as e:
+        raise PayloadError(f"malformed safetensors: {e}") from e
+    if template is None:
+        return flat
+    return unflatten_to_template(flat, template)
 
 
 # ---------------------------------------------------------------------------

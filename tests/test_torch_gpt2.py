@@ -119,8 +119,16 @@ def test_numpy_init_has_the_jax_tree_layout():
 
 
 def test_scan_layout_is_refused():
+    """Where JAX refuses the scan layout, the port does: generation (the
+    KV-cache hooks) needs the unrolled blocks. The layout itself loads
+    under the scan model's names (``h.block.*``, ``[L, ...]``)."""
+    cfg = dataclasses.replace(TINY, scan_blocks=True)
+    state = tg.params_from_numpy(tg.init_params_numpy(cfg, 0), device="cpu")
+    assert state["h.block.c_attn.kernel"].shape[0] == cfg.n_layer
+    model = tg.bind(cfg, state)
+    ids = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="unrolled"):
-        tg.params_from_numpy({"h": {"block": {}}, "wte": np.zeros((2, 2))})
+        model(ids, sow_kv=True)
 
 
 # ---------------------------------------------------------------------------

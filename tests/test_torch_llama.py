@@ -227,8 +227,17 @@ def test_params_round_trip_bit_equal_on_the_jax_tree():
     net = models.bind(TINY, state)
     assert net.layer_1.w_down.kernel.data_ptr() == \
         state["layer_1.w_down.kernel"].data_ptr()
-    with pytest.raises(ValueError, match="scan-layout"):
-        models.params_from_numpy({"layers": {}}, device="cpu")
+    # JAX's scan layout (layers/block, [L, ...] leaves) maps onto the
+    # scan model's own names
+    stacked = jl.stack_blocks(jtree, TINY.n_layer)
+    sstate = models.params_from_numpy(stacked, device="cpu")
+    smodel, _ = models.make_model(dataclasses.replace(TINY,
+                                                      scan_blocks=True))
+    assert set(sstate) == set(smodel.state_dict())
+    assert sstate["layers.block.wk.kernel"].shape == (
+        TINY.n_layer, TINY.n_embd, TINY.n_kv_head * TINY.head_dim)
+    assert torch.equal(sstate["layers.block.wk.kernel"][1],
+                       state["layer_1.wk.kernel"])
 
 
 def test_family_dispatch_and_draft_compat():

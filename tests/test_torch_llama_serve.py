@@ -13,7 +13,8 @@ the pages a JAX prefill worker exports, byte for byte, and a decode
 worker of either package adopts the other's, and either package's
 router routes Llama workers in two legs. The ``--model tiny-llama``
 server CLI answers what JAX's answers on the same root. The other roles
-refuse a Llama (ROADMAP item 2(b)), and ``--scan-blocks`` stays refused.
+build a Llama (ROADMAP item 2(b)), also in the scan layout
+(``--scan-blocks``, item 2(e)).
 """
 
 import dataclasses
@@ -541,9 +542,9 @@ def test_server_cli_serves_tiny_llama_as_jax_does(world, tmp_path,
 @pytest.mark.parametrize("role", ["miner", "validator", "averager"])
 def test_other_roles_refuse_a_llama(role, monkeypatch, tmp_path):
     """The miner, the validator and the averager build on a Llama preset
-    (item 2(b)): the model and the engine's one-device route; what stays
-    out for every family is still refused at the build (``--scan-blocks``,
-    item 2(e))."""
+    (item 2(b)): the model and the engine's one-device route; with
+    ``--scan-blocks`` (item 2(e)) the model stacks its blocks under
+    ``layers.block`` and the engine's specs lead with the layer axis."""
     from distributedtraining_tpu_torch.neurons.common import build
     monkeypatch.setenv("DT_FORCE_PLATFORM", "cpu")
     base = ["--model", "tiny-llama", "--dataset", "synthetic",
@@ -553,15 +554,20 @@ def test_other_roles_refuse_a_llama(role, monkeypatch, tmp_path):
     assert isinstance(c.model, tl.Llama)
     assert c.model_cfg == tl.PRESETS["tiny-llama"]
     assert c.engine.mesh is None and c.engine.model is c.model
-    with pytest.raises(NotImplementedError, match=r"slice 7, item 2\(e\)"):
-        build(RunConfig.from_args(role, base + ["--scan-blocks"]))
+    c = build(RunConfig.from_args(role, base + ["--scan-blocks"]))
+    assert c.model_cfg.scan_blocks and isinstance(c.model.layers,
+                                                  tg.BlockScan)
+    assert c.model.state_dict()["layers.block.wq.kernel"].shape[0] == \
+        tl.PRESETS["tiny-llama"].n_layer
 
 
 def test_server_builds_a_llama_and_refuses_what_stays_out(monkeypatch,
                                                           tmp_path):
     """The server's build takes either family (the TrainEngine it builds
-    reads a Llama's missing dropout as 0); ``--scan-blocks`` stays
-    refused (item 2(e)), and an unknown preset names the presets."""
+    reads a Llama's missing dropout as 0), also with ``--scan-blocks``
+    (item 2(e): the serving engine rebuilds the blocks unrolled, and the
+    model itself refuses generation), and an unknown preset names the
+    presets."""
     from distributedtraining_tpu_torch.neurons.common import build
     monkeypatch.setenv("DT_FORCE_PLATFORM", "cpu")
     base = ["--model", "tiny-llama", "--dataset", "synthetic",
@@ -570,7 +576,9 @@ def test_server_builds_a_llama_and_refuses_what_stays_out(monkeypatch,
     c = build(RunConfig.from_args("server", base))
     assert isinstance(c.model, tl.Llama) and c.model_cfg == \
         tl.PRESETS["tiny-llama"]
-    with pytest.raises(NotImplementedError, match=r"slice 7, item 2\(e\)"):
-        build(RunConfig.from_args("server", base + ["--scan-blocks"]))
+    c = build(RunConfig.from_args("server", base + ["--scan-blocks"]))
+    assert c.model_cfg.scan_blocks
+    with pytest.raises(ValueError, match="unrolled block layout"):
+        c.model(torch.zeros((1, 4), dtype=torch.int64), sow_kv=True)
     with pytest.raises(NotImplementedError, match="llama3-8b"):
         build(RunConfig.from_args("server", ["--model", "llama-70b"]))

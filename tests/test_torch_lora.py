@@ -91,10 +91,16 @@ def test_is_target_matches_jax(family):
     names = {k.split(".")[-2] for k in ours}
     assert names == ({"c_attn", "c_proj"} if family == "gpt2"
                      else {"wq", "wk", "wv", "wo"})
-    # a bias, a 1-D leaf or a 3-D leaf is not a 2-D target
+    # a bias or a 1-D leaf is not a target; the scan layout's 3-D
+    # kernel [L, in, out] is, as in JAX; a 4-D leaf is not
     assert not tlora.is_target("h_0.c_attn.bias", np.zeros(8), CFG)
-    assert not tlora.is_target("h_0.c_attn.kernel", np.zeros((2, 3, 4)),
-                               CFG)
+    for shape, want in (((2, 3, 4), True), ((2, 2, 3, 4), False)):
+        path = [jax.tree_util.DictKey("h"), jax.tree_util.DictKey("block"),
+                jax.tree_util.DictKey("c_attn"),
+                jax.tree_util.DictKey("kernel")]
+        assert jlora.is_target(path, np.zeros(shape), JCFG) is want
+        assert tlora.is_target("h.block.c_attn.kernel", np.zeros(shape),
+                               CFG) is want
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

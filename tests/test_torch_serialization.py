@@ -121,5 +121,8 @@ def test_save_and_load_file_atomically(tmp_path, trees):
     assert _equal(tser.load_file(path, base), delta)
     with pytest.raises(tser.PayloadError, match="cap"):
         tser.load_file(path, base, max_bytes=10)
-    with pytest.raises(NotImplementedError, match="safetensors"):
-        tser.save_file(delta, str(tmp_path / "m.safetensors"))
+    # a .safetensors path writes safetensors (JAX's bytes), never msgpack
+    st = str(tmp_path / "m.safetensors")
+    tser.save_file(delta, st)
+    assert open(st, "rb").read() == jser.to_safetensors(delta)
+    assert _equal(tser.load_file(st, base), delta)

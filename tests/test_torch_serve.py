@@ -385,8 +385,11 @@ def test_cuda_is_not_silently_replaced_by_the_cpu(world):
 
 # cryptography too: the port signs with its own Ed25519
 # (utils/ed25519.py) and depends on no crypto package
+# the card machine has none of these: the port reads and writes
+# safetensors and resolves hf: specs itself (models/convert.py)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
-             "ml_dtypes", "distributedtraining_tpu", "cryptography")
+             "ml_dtypes", "distributedtraining_tpu", "cryptography",
+             "safetensors", "huggingface_hub", "transformers")
 
 
 def test_port_sources_import_no_jax():
@@ -414,6 +417,7 @@ def test_port_serving_path_loads_without_jax():
             "import distributedtraining_tpu_torch.ops.paged_attention\n"
             "import distributedtraining_tpu_torch.neurons.miner\n"
             "import distributedtraining_tpu_torch.ops.fused_ce\n"
+            "import distributedtraining_tpu_torch.models.convert\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n"

@@ -323,7 +323,8 @@ def case_regather(mesh: Mesh, args: dict, inp) -> dict:
 def _sp_engine_run(e: dict, inp) -> dict:
     """One engine of ``args["engines"]`` (:func:`case_sp`,
     :func:`case_llama`): its mesh, its preset (``tiny`` unless named),
-    fused or not, its model overrides (``attention_impl``, ``remat``),
+    fused or not, its model overrides (``attention_impl``, ``remat``,
+    ``scan_blocks``: the inputs' unrolled tree is then stacked),
     ``args["steps"]`` AdamW steps on this rank's rows and positions of
     the global batches (packed ones carry segment ids, positions and a
     loss mask); the losses, the block routes those steps took, the final
@@ -340,7 +341,11 @@ def _sp_engine_run(e: dict, inp) -> dict:
                       device="cpu")
     keys = ("input_ids", "segment_ids", "position_ids", "loss_mask") \
         if e["packed"] else ("input_ids",)
-    state = eng.init_state(_tree(inp))
+    init = _tree(inp)
+    if model.cfg.scan_blocks:   # the unrolled inputs, stacked
+        from distributedtraining_tpu_torch.models import stack_blocks
+        init = stack_blocks(model, init)
+    state = eng.init_state(init)
     losses, tokens = [], []
     for i in range(inp["input_ids"].shape[0]):
         batch = batch_rows({k: inp[k][i] for k in keys}, mesh)
@@ -358,7 +363,7 @@ def _sp_engine_run(e: dict, inp) -> dict:
     # one loss and its gradient, summed over the data axes as a step
     # sums it, on the first batch
     batch = eng.place_batch(batch_rows({k: inp[k][0] for k in keys}, mesh))
-    params = eng.place_params(_tree(inp))
+    params = eng.place_params(init)
     loss, count = eng._loss(params, batch)
     grads = dict(zip(params, torch.autograd.grad(loss,
                                                  list(params.values()))))
