@@ -17,6 +17,8 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --lora
     python3 chip_smoke.py --lora-soak STEPS [--checked]
     python3 chip_smoke.py --convert
+    python3 chip_smoke.py --health
+    python3 chip_smoke.py --beat-ab [ROUNDS [CLI_PAIRS]]
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
@@ -42,8 +44,9 @@ alone, ``--lora`` phase 28 with its full-depth part,
 ``--lora-soak STEPS`` the full-depth LoRA step of 28c STEPS times (with
 ``--checked``, the card synchronised before and after each flash and CE
 launch and the launch's inputs and outputs checked, so that a fault
-names its kernel), ``--convert`` phase 29's ``llama2-7b`` part, and
-``--parallel-cards`` the worlds of phases 23 and 24
+names its kernel), ``--convert`` phase 29's ``llama2-7b`` part,
+``--health`` phase 30 alone, ``--beat-ab`` a heartbeat's cost
+on the miner's step (:func:`beat_ab`), and ``--parallel-cards`` the worlds of phases 23 and 24
 over NCCL on every card of a machine with several (at world 4 with the
 sp2 x tp2 and dp2 x sp2 engines too). ``--tp-ab DIR...`` times phase 23's tp
 engine steps with the package of each checkout DIR in turn (parent,
@@ -643,6 +646,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
            (``--lora-soak --checked``'s wrappers), the conversion's
            seconds, the process's peak RSS and read counters recorded;
            the checkpoint is deleted before the phase ends.
+30. health The fleet health plane at GPT-2-124M (full width and depth),
+           ``--heartbeat-interval 0.5`` on every role, each role CLI a
+           process of its own (``--health-role``), at most three at once.
+           (a) One card, one LocalFS root with the genesis base and a
+           metagraph of two miners and a validator: a miner's beat timed
+           (the vitals' host ms and the upload, its bytes); two miners
+           of 30 ``--fused-loss --wire-v2`` steps alone, without and with
+           beats (step p50 of each; hotkey_2, the one with beats, stops
+           after its first push); a ``--remediate`` primary averager
+           (``--strategy weighted``, lease epoch 1 acquired at boot) and
+           a live miner (hotkey_1, pulling every 2 s, pushing every 4 s,
+           a step every 0.25 s at most);
+           a ``--remediate`` validator's 7 rounds, whose JSONL must hold
+           hotkey_2's ``stale_node`` breach at round 5, its quarantine,
+           its score 0 in the ledger and the round scores after, and the
+           effective cohort 2 then 1; a ``--standby`` that follows the
+           beating primary 6 s (past its 4 s deadline), then, once the
+           primary stops between two rounds, takes epoch 2 within the
+           deadline plus a poll and a beat of the primary's last signal,
+           bootstraps and publishes; every published base one holder
+           (epoch 1 the primary's, 2 the standby's, none twice). Launches
+           exact from each process's own counts: miners per step, the
+           validator per candidate-batch, each averager per merge (the
+           flash forward of its eval, one scatter a packed contribution).
+           (b) On a world of two over gloo (both ranks on this card, as
+           phase 24): a ``--remediate`` primary (acquire and stamp once,
+           by the coordinator), a ``--standby`` behind it (both ranks
+           take over at epoch 2 and exit 0), and ``--hier sub
+           --remediate`` whose ``__agg__.n0`` artifact's bytes equal a
+           one-process node's on a copy of the root (two dense deltas
+           and an int8 wire-v2 one, folded packed: one scatter launch in
+           the process and on each rank). Every role's CLI returns 0.
+           ``--beat-ab`` times the miner's step without and with beats,
+           alternating (:func:`beat_ab`). In the whole script
+           it runs in the child of phase 29, after it (``--health-child
+           OUT``); ``--health`` runs it alone after the build.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
@@ -652,7 +691,8 @@ JSON line (phases 17 and 18), a ``defaults`` JSON line (phase 19), a
 a ``mesh_roles`` JSON line (phase 24), an ``sp`` JSON line (phase 25),
 an ``llama`` JSON line (phase 26; its ``llama_host`` line comes first),
 an ``llama_train`` JSON line (phase 27), a ``lora`` JSON line (phase
-28), a ``convert`` JSON line (phase 29), the ``nvidia-smi``
+28), a ``convert`` JSON line (phase 29), a ``health`` JSON line (phase
+30), the ``nvidia-smi``
 name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -6983,13 +7023,15 @@ def mesh_roles_worker(rank: int, port: int, tmp: str) -> int:
 def mesh_roles_cli(rank: int, port: int, tmp: str) -> int:
     """One process of a CLI of (c) (``--mesh-roles-cli``): the entry
     point of ``cli.json`` on its argv and this rank's ``--multihost-*``
-    flags, with the local chain's ``set_weights`` and the transport's
-    ``publish_base`` counted and the launch counts at 0 before; its
+    flags, with the local chain's ``set_weights``, the transport's
+    ``publish_base`` and the lease's ``acquire`` and ``stamp`` counted
+    and the launch counts at 0 before; its
     return code, counts, launches and seconds in ``tmp/out_<rank>.json``
     (the entry point brings its world up and down itself)."""
     import importlib
     import torch
     from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.remediate import LeaseManager
     from distributedtraining_tpu_torch.ops import dequant_scatter as dsc
     from distributedtraining_tpu_torch.ops import flash_attention as fa
     from distributedtraining_tpu_torch.ops import fused_ce
@@ -6999,7 +7041,8 @@ def mesh_roles_cli(rank: int, port: int, tmp: str) -> int:
         spec = json.load(f)
     counts: dict = {}
     for cls, name in ((LocalChain, "set_weights"),
-                      (LocalFSTransport, "publish_base")):
+                      (LocalFSTransport, "publish_base"),
+                      (LeaseManager, "acquire"), (LeaseManager, "stamp")):
         def counted(self, *a, _f=getattr(cls, name), _n=name, **kw):
             counts[_n] = counts.get(_n, 0) + 1
             return _f(self, *a, **kw)
@@ -8381,7 +8424,8 @@ class LlamaCli:
     result); with ``lora`` 28a-b run in a child of their own
     (``--lora-child OUT``) between the two (``lora_result``); with
     ``convert`` phase 29 runs in one more child (``--convert-child
-    OUT``), started at once beside the chain (``convert_result``)."""
+    OUT``), started at once beside the chain (``convert_result``), and
+    phase 30 after it (``--health-child OUT``, ``health_result``)."""
 
     def __init__(self, layers: int | None = None, train: bool = False,
                  lora: bool = False, convert: bool = False):
@@ -8412,13 +8456,18 @@ class LlamaCli:
             ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in cmds)],
             stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT)
         self.convert_out = self.convert_proc = None
-        self.convert_result = None
+        self.convert_result = self.health_result = None
         if convert:
             self.convert_out = os.path.join(self.tmp, "convert.json")
+            self.health_out = os.path.join(self.tmp, "health.json")
             self.convert_log = open(os.path.join(self.tmp, "convert.log"),
                                     "w")
+            # phase 30 after phase 29: its role processes (at most
+            # three at once) meet the chain's children, never 29's
             self.convert_proc = subprocess.Popen(
-                me + ["--convert-child", self.convert_out],
+                ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in (
+                    me + ["--convert-child", self.convert_out],
+                    me + ["--health-child", self.health_out]))],
                 stdout=self.convert_log, stderr=subprocess.STDOUT, cwd=ROOT)
 
     def _join_convert(self) -> None:
@@ -8428,10 +8477,16 @@ class LlamaCli:
         with open(os.path.join(self.tmp, "convert.log")) as f:
             text = f.read()
         if rc:
-            log(f"--- convert child (exit {rc}):\n{text[-8000:]}")
-        check(rc == 0, f"phase 29's child exited {rc}")
+            log(f"--- convert and health children (exit {rc}):\n"
+                f"{text[-8000:]}")
+        check(rc == 0, f"phase 29's or 30's child exited {rc}")
         with open(self.convert_out) as f:
             self.convert_result = {**json.load(f), "waited_s": waited}
+        with open(self.health_out) as f:
+            self.health_result = {**json.load(f), "waited_s": waited}
+        log("health child:", "\n".join(
+            ln for ln in text.splitlines()
+            if ln.startswith(("health ", "health:")))[-20000:])
 
     def join(self) -> dict:
         """Wait for the children; the first's result with their seconds,
@@ -10777,6 +10832,776 @@ def _convert_entries(entries: list, conv: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# 30. health: the fleet health plane on every role, the lease, --standby
+# and --hier sub on a world of two
+# ---------------------------------------------------------------------------
+
+HEALTH_MODEL = "gpt2-124m"
+HEALTH_BEAT_S = 0.5            # --heartbeat-interval of every role
+HEALTH_B, HEALTH_T = 4, 512
+HEALTH_PROBE_STEPS = 30        # the miners run alone, with and without beats
+HEALTH_VAL_ROUNDS = 7          # round 5 breaches stale_node, 6-7 act on it
+HEALTH_DEADLINE_S = 4.0        # the standby's --failover-deadline
+HEALTH_LIVE_STEP_S = 0.25      # the live miner's wait before each step
+HEALTH_FOLLOW_S = 6.0          # it follows a beating primary this long
+HEALTH_TIMEOUT_S = 420.0       # a role process
+HEALTH_EVAL = ["--eval-batches", "2", "--eval-seq-len", "512"]
+
+
+def _health_argv(work: str, hotkey: str, extra: list, *,
+                 metrics: str | None = None, beats: bool = True) -> list:
+    """A phase 30 role's command line: GPT-2-124M on ``work``'s LocalFS
+    root, the flags' ``--heartbeat-interval`` (``beats``) and JSONL sink
+    (``metrics``)."""
+    return [*DEFAULT_FLAGS, "--backend", "local", "--work-dir", work,
+            "--model", HEALTH_MODEL, "--hotkey", hotkey,
+            "--no-base-wire-v2", "--no-lineage", "--flight-events", "0",
+            "--batch-size", str(HEALTH_B), *HEALTH_EVAL,
+            *(["--heartbeat-interval", str(HEALTH_BEAT_S)] if beats else []),
+            *(["--metrics-path", metrics] if metrics else []), *extra]
+
+
+def _health_miner(steps: int, *, send: str = "1e9",
+                  pull: str = "1e9") -> list:
+    return ["--fused-loss", "--wire-v2", "--seq-len", str(HEALTH_T),
+            "--checkpoint-interval", "0", "--no-anomaly-trace",
+            "--self-eval-interval", "0", "--log-every", "5",
+            "--max-steps", str(steps), "--send-interval", send,
+            "--check-update-interval", pull]
+
+
+class _HealthRole:
+    """One role CLI in a process of its own (``--health-role TMP NAME``:
+    :func:`health_role`), its output in ``TMP/NAME.log``; ``stop()``
+    asks it to end between two steps or rounds (a file it polls)."""
+
+    def __init__(self, tmp: str, name: str, role: str, argv: list,
+                 min_step_s: float = 0.0):
+        self.tmp, self.name = tmp, name
+        with open(os.path.join(tmp, f"{name}.json"), "w") as f:
+            json.dump({"role": role, "argv": argv,
+                       "min_step_s": min_step_s}, f)
+        self.log = open(os.path.join(tmp, f"{name}.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--health-role",
+             tmp, name], stdout=self.log, stderr=subprocess.STDOUT,
+            cwd=ROOT)
+
+    def stop(self) -> None:
+        open(os.path.join(self.tmp, f"{self.name}.stop"), "w").close()
+
+    def join(self, timeout: float = HEALTH_TIMEOUT_S) -> dict:
+        """Wait for the process; its result (return code, launches,
+        seconds, what the driver saw). A process that failed fails the
+        phase, its log's tail logged first."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        if rc:
+            with open(os.path.join(self.tmp, f"{self.name}.log")) as f:
+                log(f"--- health {self.name} (exit {rc}):\n"
+                    + f.read()[-6000:])
+        check(rc == 0, f"health {self.name}: the process exited {rc}")
+        with open(os.path.join(self.tmp, f"{self.name}.out.json")) as f:
+            out = json.load(f)
+        # the CLI's own return code (a stopped role returns 0 too)
+        check(out["rc"] == 0, f"health {self.name}: the CLI returned "
+              f"{out['rc']}")
+        out["wall_s"] = time.perf_counter() - self.t0
+        return out
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def health_role(tmp: str, name: str) -> int:
+    """``--health-role TMP NAME``: the role CLI of ``TMP/NAME.json`` in
+    this process, the launch counts at 0 before and read after; the
+    miner's steps, the validator's candidate-batches, the lease's
+    acquires and stamps (with their wall times) and the sink's path
+    recorded in ``TMP/NAME.out.json``. ``TMP/NAME.stop`` ends a miner
+    before its next step and an averager at its next sleep (a
+    KeyboardInterrupt, which the CLIs take as their orderly exit). A
+    miner with ``min_step_s`` waits that long before each step (the
+    live miner of 30(a) then shares the card with the whole script's
+    other phases lightly)."""
+    import importlib
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from distributedtraining_tpu_torch.engine import remediate, scheduler
+    from distributedtraining_tpu_torch.engine.train import MinerLoop
+    from distributedtraining_tpu_torch.engine.validate import Validator
+    with open(os.path.join(tmp, f"{name}.json")) as f:
+        spec = json.load(f)
+    stop = os.path.join(tmp, f"{name}.stop")
+    seen: dict = {"acquire": [], "stamp": 0}
+
+    def stopped():
+        if os.path.exists(stop):
+            raise KeyboardInterrupt
+
+    train_one = MinerLoop._train_one
+
+    def _train_one(self, batch):
+        stopped()
+        time.sleep(spec.get("min_step_s", 0.0))
+        return train_one(self, batch)
+    MinerLoop._train_one = _train_one
+    flush = MinerLoop.flush
+
+    def _flush(self):
+        flush(self)
+        seen["steps"] = self.report.steps
+        seen["pushes"] = self.report.pushes
+    MinerLoop.flush = _flush
+    real_sleep = scheduler.RealClock.sleep
+
+    def _sleep(self, seconds):
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            stopped()
+            real_sleep(self, min(0.1, end - time.monotonic()))
+    scheduler.RealClock.sleep = _sleep
+    close = Validator.close
+
+    def _close(self):
+        if self._cohort_eval is not None:
+            seen["candidate_batches"] = self._cohort_eval.candidate_batches
+        return close(self)
+    Validator.close = _close
+    acquire = remediate.LeaseManager.acquire
+
+    def _acquire(self):
+        ok = acquire(self)
+        if ok:
+            seen["acquire"].append({"t": time.time(), "epoch": self.epoch})
+        return ok
+    remediate.LeaseManager.acquire = _acquire
+    stamp = remediate.LeaseManager.stamp
+
+    def _stamp(self, rev):
+        seen["stamp"] += 1
+        return stamp(self, rev)
+    remediate.LeaseManager.stamp = _stamp
+    module = importlib.import_module(
+        f"distributedtraining_tpu_torch.neurons.{spec['role']}")
+    _lt_zero()
+    t0 = time.perf_counter()
+    rc = module.main(spec["argv"])
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    with open(os.path.join(tmp, f"{name}.out.json"), "w") as f:
+        json.dump({"rc": rc, "s": time.perf_counter() - t0,
+                   "launches": _lt_launches(), **seen}, f)
+    return 0
+
+
+def _health_jsonl(path: str) -> list:
+    from distributedtraining_tpu_torch.utils.metrics import jsonl_segments
+    out = []
+    for seg in jsonl_segments(path):
+        if os.path.exists(seg):
+            with open(seg) as f:
+                out += [json.loads(line) for line in f]
+    return out
+
+
+def _health_avg_want(L: int, recs: list) -> dict:
+    """An averager's launches from its own records: each merge's
+    evaluation (flash forward, layers x eval batches; ``always``
+    evaluates no base) and one scatter a packed contribution folded."""
+    merges = [r for r in recs if "merged_loss" in r]
+    return {"flash_attention_fwd": L * 2 * len(merges),
+            "dequant_scatter": sum(r["accepted"] for r in merges)}
+
+
+def _health_wait(pred, what: str, timeout: float = 240.0,
+                 every: float = 0.2):
+    t0 = time.perf_counter()
+    while True:
+        got = pred()
+        if got:
+            return got
+        check(time.perf_counter() - t0 < timeout,
+              f"health: waited {timeout} s for {what}")
+        time.sleep(every)
+
+
+def _health_beat_cost(t) -> dict:
+    """A miner's beat on this card's process: the vitals' collection
+    (the allocator's counters, no synchronisation) and the upload through
+    the LocalFS rider channel, host ms over 50 beats, and its bytes."""
+    import torch
+    from distributedtraining_tpu_torch.engine.health import (
+        HeartbeatPublisher, report_vitals)
+    from distributedtraining_tpu_torch.engine.train import MinerReport
+    torch.zeros(1, device=DEV)   # a live context, as a role has
+    rep = MinerReport(steps=100, pushes=3, last_loss=3.25)
+    pub = HeartbeatPublisher(t, "miner", "hotkey_77", interval=60,
+                             vitals=report_vitals(
+                                 rep, base_revision=lambda: "r" * 64))
+    try:
+        body_ms, beat_ms = [], []
+        for i in range(50):
+            rep.steps += 10
+            t0 = time.perf_counter()
+            body = pub._body()
+            body_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            pub.beat_now(wait=True)
+            beat_ms.append((time.perf_counter() - t0) * 1e3)
+        check(pub.sent == 50 and pub.failed == 0,
+              f"health beat cost: sent {pub.sent}, failed {pub.failed}")
+        check(DEV != "cuda" or "mem_peak_bytes" in body,
+              f"health beat: no device memory in the body {body}")
+        return {"collect_ms_p50": statistics.median(body_ms),
+                "beat_ms_p50": statistics.median(beat_ms),
+                "bytes": len(json.dumps(body)),
+                "fields": sorted(body)}
+    finally:
+        pub.close()
+
+
+def _health_world1(work: str, tmp: str, cfg) -> dict:
+    """30(a): two miners, a ``--remediate`` validator, a ``--remediate``
+    primary averager and a ``--standby`` on one root, at most three role
+    processes at once (see the module docstring)."""
+    import math
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.health import parse_heartbeat
+    from distributedtraining_tpu_torch.engine.remediate import parse_lease
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    from distributedtraining_tpu_torch.transport.base import (heartbeat_id,
+                                                              lease_id)
+    L = cfg.n_layer
+    t = LocalFSTransport(os.path.join(work, "artifacts"))
+    res: dict = {"times_s": {}}
+    t0 = time.perf_counter()
+    genesis = t.publish_base(models.init_params_numpy(cfg, SEED))
+    res["times_s"]["genesis"] = time.perf_counter() - t0
+    # a metagraph of the two miners and the validator: the validator's
+    # cohort is then the fleet's (2 miners), and shrinks with quarantine
+    os.makedirs(os.path.join(work, "chain"), exist_ok=True)
+    with open(os.path.join(work, "chain", "metagraph.json"), "w") as f:
+        json.dump({"hotkeys": ["hotkey_1", "hotkey_2", "hotkey_91"],
+                   "uids": [1, 2, 91], "stakes": [10.0, 10.0, 10000.0],
+                   "weights": {}, "ema_scores": {}}, f)
+    res["beat"] = _health_beat_cost(t)
+    jl = {k: os.path.join(tmp, f"{k}.jsonl")
+          for k in ("m0", "m2", "m1", "val", "p", "s")}
+    runs: dict = {}
+
+    def miner(name, hotkey, beats, steps, min_step_s=0.0, **kw):
+        return _HealthRole(tmp, name, "miner", _health_argv(
+            work, hotkey, _health_miner(steps, **kw), metrics=jl[name],
+            beats=beats), min_step_s=min_step_s)
+
+    # the miner's step alone, without and with beats (the same flags)
+    for name, hotkey, beats in (("m0", "hotkey_3", False),
+                                ("m2", "hotkey_2", True)):
+        runs[name] = miner(name, hotkey, beats, HEALTH_PROBE_STEPS).join()
+    # hotkey_2 stopped after its first push: its last beat is its exit's
+    hb2 = parse_heartbeat(t.fetch_delta_meta(heartbeat_id("miner",
+                                                          "hotkey_2")))
+    check(hb2 is not None and hb2["steps"] == HEALTH_PROBE_STEPS
+          and hb2["pushes"] == 1.0 and runs["m2"]["pushes"] == 1,
+          f"health: hotkey_2's last beat {hb2}")
+    # the primary (lease epoch 1 at boot) and the live miner
+    prim = _HealthRole(tmp, "p", "averager", _health_argv(
+        work, "hotkey_95", ["--remediate", "--strategy", "weighted",
+                            "--publish-policy", "always", "--rounds",
+                            "100000", "--averaging-interval", "5"],
+        metrics=jl["p"]))
+    m1 = miner("m1", "hotkey_1", True, 10**7, min_step_s=HEALTH_LIVE_STEP_S,
+               send="4", pull="2")
+    val = sb = None
+    try:
+        _health_wait(lambda: t.delta_revision("hotkey_1") is not None
+                     and (parse_lease(t.fetch_delta_meta(lease_id()))
+                          or {}).get("base_revision") not in (None,
+                                                              genesis),
+                     "hotkey_1's first push and the primary's publish")
+        val = _HealthRole(tmp, "val", "validator", _health_argv(
+            work, "hotkey_91", ["--remediate", "--rounds",
+                                str(HEALTH_VAL_ROUNDS),
+                                "--validation-interval", "2",
+                                "--val-cohort", "8"], metrics=jl["val"]))
+        runs["val"] = val.join()
+        # the standby follows the beating primary past its deadline
+        sb = _HealthRole(tmp, "s", "averager", _health_argv(
+            work, "hotkey_96", ["--standby", "--failover-deadline",
+                                str(HEALTH_DEADLINE_S), "--strategy",
+                                "weighted", "--publish-policy", "always",
+                                "--rounds", "2", "--averaging-interval",
+                                "4"], metrics=jl["s"]))
+        _health_wait(lambda: t.fetch_delta_meta(
+            heartbeat_id("averager", "hotkey_96")) is not None,
+            "the standby's first beat")
+        time.sleep(HEALTH_FOLLOW_S)
+        lease = parse_lease(t.fetch_delta_meta(lease_id()))
+        check(lease["epoch"] == 1 and lease["holder"] == "hotkey_95",
+              f"health: the standby took {lease} while the primary beat")
+        prim.stop()
+        runs["p"] = prim.join()
+        p_last = parse_heartbeat(t.fetch_delta_meta(
+            heartbeat_id("averager", "hotkey_95")))
+        p_lease = parse_lease(t.fetch_delta_meta(lease_id()))
+        runs["s"] = sb.join()
+        m1.stop()
+        runs["m1"] = m1.join()
+    finally:
+        for r in (prim, m1, val, sb):
+            if r is not None:
+                r.kill()
+    # the miners: launches exact, losses finite
+    for name in ("m0", "m2", "m1"):
+        r = runs[name]
+        _check_launches(f"health {name}", r["launches"],
+                        {**_train_want(cfg, r["steps"], True)})
+        recs = _health_jsonl(jl[name])
+        losses = [x["train_loss"] for x in recs if "train_loss" in x]
+        check(losses and all(math.isfinite(x) for x in losses),
+              f"health {name}: losses {losses[:8]}")
+        reg = [x for x in recs if x.get("obs_registry") == "miner"][-1]
+        r["step_ms_p50"] = reg["miner.step_ms.p50"]
+        r["records"] = len(recs)
+    res["miner_step_ms_p50"] = {"no_beats": runs["m0"]["step_ms_p50"],
+                                "beats": runs["m2"]["step_ms_p50"]}
+    # the validator: the stale miner's breach, quarantine, decayed score
+    # and the shrunken cohort, from its JSONL
+    recs = _health_jsonl(jl["val"])
+    breaches = [(x["slo_breach"], x["hotkey"], x["round"]) for x in recs
+                if "slo_breach" in x]
+    actions = [(x["remediation"], x["hotkey"]) for x in recs
+               if "remediation" in x]
+    rounds = [x["round_scores"] for x in recs if "round_scores" in x]
+    ledgers = [x["fleet_ledger"] for x in recs if "fleet_ledger" in x]
+    cohort = [x["val.effective_cohort"] for x in recs
+              if x.get("obs_registry") == "validator"
+              and "val.effective_cohort" in x]
+    log("health validator:", json.dumps({
+        "breaches": breaches, "actions": actions,
+        "reasons": [{h: v["reason"] for h, v in r.items()} for r in rounds],
+        "scores_hotkey_2": [lg.get("miner/hotkey_2", {}).get("score")
+                            for lg in ledgers],
+        "effective_cohort": cohort}))
+    check(("stale_node", "hotkey_2", 5) in breaches
+          and ("stale_node", "hotkey_1") not in [b[:2] for b in breaches],
+          f"health validator: breaches {breaches}")
+    check(actions == [("quarantined", "hotkey_2")],
+          f"health validator: actions {actions}")
+    check(len(rounds) == HEALTH_VAL_ROUNDS
+          and all(r["hotkey_2"]["reason"] == "quarantined"
+                  and r["hotkey_2"]["score"] == 0.0 for r in rounds[5:])
+          and all(r["hotkey_1"]["reason"] == "ok" for r in rounds),
+          f"health validator: round scores {rounds}")
+    check(ledgers[-1]["miner/hotkey_2"]["quarantined"] == 1
+          and ledgers[-1]["miner/hotkey_2"]["score"] == 0.0,
+          f"health validator: hotkey_2's ledger {ledgers[-1]}")
+    check(cohort[:4] == [2.0] * 4 and cohort[-1] == 1.0,
+          f"health validator: the effective cohort {cohort}")
+    r = runs["val"]
+    _check_launches("health validator", r["launches"], {
+        "flash_attention_fwd": L * r["candidate_batches"]})
+    res["validator"] = {"breaches": breaches, "actions": actions,
+                        "effective_cohort": cohort,
+                        "hotkey_2_scores": [
+                            lg.get("miner/hotkey_2", {}).get("score")
+                            for lg in ledgers],
+                        "candidate_batches": r["candidate_batches"],
+                        "launches": r["launches"], "s": r["s"]}
+    # the primary held epoch 1, the standby took epoch 2 within the
+    # deadline plus one poll of the primary's last signal, and every
+    # published base has one holder
+    prec, srec = _health_jsonl(jl["p"]), _health_jsonl(jl["s"])
+    pub_p = [x for x in prec if x.get("published") == 1]
+    pub_s = [x for x in srec if x.get("published") == 1]
+    acq_p, acq_s = runs["p"]["acquire"], runs["s"]["acquire"]
+    last = max(p_last["t"], p_lease["t"])
+    poll_s = 1.0     # max(1, min(--averaging-interval / 4, 30))
+    takeover_s = acq_s[0]["t"] - last if acq_s else None
+    log("health failover:", json.dumps({
+        "primary_acquires": acq_p, "standby_acquires": acq_s,
+        "primary_published": [(x["base_revision"], x["lease_epoch"])
+                              for x in pub_p],
+        "standby_published": [(x["base_revision"], x["lease_epoch"])
+                              for x in pub_s],
+        "takeover_s": takeover_s}))
+    check([a["epoch"] for a in acq_p] == [1] and runs["p"]["stamp"]
+          == len(pub_p) >= 1 and all(x["lease_epoch"] == 1 for x in pub_p),
+          f"health primary: acquires {acq_p}, stamps {runs['p']['stamp']}"
+          f", published {len(pub_p)}")
+    check([a["epoch"] for a in acq_s] == [2] and runs["s"]["stamp"]
+          == len(pub_s) >= 1 and all(x["lease_epoch"] == 2 for x in pub_s),
+          f"health standby: acquires {acq_s}, stamps {runs['s']['stamp']}"
+          f", published {len(pub_s)}")
+    check(HEALTH_DEADLINE_S <= takeover_s
+          <= HEALTH_DEADLINE_S + poll_s + HEALTH_BEAT_S + 0.5,
+          f"health standby: took over {takeover_s} s after the primary's "
+          f"last signal (deadline {HEALTH_DEADLINE_S}, poll {poll_s})")
+    revs = [x["base_revision"] for x in pub_p + pub_s]
+    check(len(set(revs)) == len(revs)
+          and all(x["ts"] < acq_s[0]["t"] for x in pub_p),
+          "health: a base was published twice or by the primary after "
+          "the takeover")
+    final = parse_lease(t.fetch_delta_meta(lease_id()))
+    check(final["epoch"] == 2 and final["holder"] == "hotkey_96"
+          and final["base_revision"] == t.base_revision()
+          == pub_s[-1]["base_revision"],
+          f"health: the final token {final}, base {t.base_revision()}")
+    for name, recs_ in (("p", prec), ("s", srec)):
+        _check_launches(f"health averager {name}", runs[name]["launches"],
+                        _health_avg_want(L, recs_))
+    res["averager"] = {
+        "primary": {"published": len(pub_p), "acquires": acq_p,
+                    "launches": runs["p"]["launches"]},
+        "standby": {"published": len(pub_s), "acquires": acq_s,
+                    "launches": runs["s"]["launches"],
+                    "takeover_s": takeover_s}}
+    res["runs"] = {k: {kk: v for kk, v in r.items()
+                       if kk in ("rc", "s", "wall_s", "steps", "pushes",
+                                 "launches", "step_ms_p50")}
+                   for k, r in runs.items()}
+    return res
+
+
+def _health_root(work: str, cfg, n_deltas: int = 2, seed: int = 1) -> str:
+    """A root with the genesis base and ``n_deltas`` dense deltas on it
+    (numpy, from ``seed``); its revision."""
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    t = LocalFSTransport(os.path.join(work, "artifacts"))
+    base = models.init_params_numpy(cfg, SEED)
+    rev = t.base_revision() or t.publish_base(base)
+    _health_deltas(t, base, rev, n_deltas, seed)
+    return rev
+
+
+def _health_deltas(t, base, rev, n: int, seed: int) -> None:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def draw(tree):
+        return {k: draw(v) if isinstance(v, dict) else
+                (rng.standard_normal(np.shape(v)) * 1e-4).astype(np.float32)
+                for k, v in tree.items()}
+    for i in range(n):
+        h = f"hotkey_{i + 1}"
+        t.publish_delta(h, draw(base))
+        t.publish_delta_meta(h, {"base_revision": rev})
+
+
+def _health_world2(tmp: str, cfg) -> dict:
+    """30(b): the same roles on a world of two over gloo (both ranks on
+    this card): a ``--remediate`` primary, a ``--standby`` behind it, and
+    a ``--hier sub`` whose aggregate's bytes are the one-process node's."""
+    import shutil
+    import torch
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.remediate import parse_lease
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    from distributedtraining_tpu_torch.transport.base import lease_id
+    L = cfg.n_layer
+    res: dict = {}
+    work = os.path.join(tmp, "w2")
+    _health_root(work, cfg)
+    t = LocalFSTransport(os.path.join(work, "artifacts"))
+    avg = ["--strategy", "weighted", "--publish-policy", "always",
+           "--rounds", "1"]
+    outs = _mr_cli(2, "gloo", "averager", _health_argv(
+        work, "hotkey_95", avg + ["--remediate"]), "health w2 primary")
+    res["primary"] = outs
+    check([o["rc"] for o in outs] == [0, 0]
+          and [o["counts"].get("acquire", 0) for o in outs] == [1, 0]
+          and [o["counts"].get("stamp", 0) for o in outs] == [1, 0]
+          and [o["counts"].get("publish_base", 0) for o in outs] == [1, 0],
+          f"health w2 primary: {outs}")
+    for r, o in enumerate(outs):
+        _check_launches(f"health w2 primary rank {r}", o["launches"],
+                        {"flash_attention_fwd": L * 2})
+    lease = parse_lease(t.fetch_delta_meta(lease_id()))
+    check(lease["epoch"] == 1 and lease["base_revision"]
+          == t.base_revision(), f"health w2 primary: token {lease}")
+    # fresh submissions on the primary's base; the primary is gone
+    _health_deltas(t, models.init_params_numpy(cfg, SEED),
+                   t.base_revision(), 2, 2)
+    outs = _mr_cli(2, "gloo", "averager", _health_argv(
+        work, "hotkey_96", ["--strategy", "weighted", "--publish-policy",
+                            "always", "--rounds", "1", "--standby",
+                            "--failover-deadline", "2",
+                            "--averaging-interval", "4"]),
+        "health w2 standby")
+    res["standby"] = outs
+    check([o["rc"] for o in outs] == [0, 0]
+          and [o["counts"].get("acquire", 0) for o in outs] == [1, 0]
+          and [o["counts"].get("stamp", 0) for o in outs] == [1, 0]
+          and [o["counts"].get("publish_base", 0) for o in outs] == [1, 0],
+          f"health w2 standby: {outs}")
+    for r, o in enumerate(outs):
+        _check_launches(f"health w2 standby rank {r}", o["launches"],
+                        {"flash_attention_fwd": L * 2})
+    lease = parse_lease(t.fetch_delta_meta(lease_id()))
+    check(lease["epoch"] == 2 and lease["holder"] == "hotkey_96"
+          and lease["base_revision"] == t.base_revision(),
+          f"health w2 standby: token {lease}")
+    # --hier sub: a world of two against one process, on copies of a root
+    # of two dense deltas and an int8 wire-v2 one, which both fold packed
+    # (one scatter launch a process or rank)
+    sub = ["--hier", "sub", "--hier-node", "n0", "--hier-nodes", "n0",
+           "--remediate", "--rounds", "1"]
+    roots = {k: os.path.join(tmp, f"sub_{k}") for k in ("w1", "w2")}
+    rev = _health_root(roots["w1"], cfg, seed=3)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    _publish_packed(
+        LocalFSTransport(os.path.join(roots["w1"], "artifacts")),
+        "hotkey_3", {k: torch.randn(v.shape, generator=g, device=DEV)
+                     * 1e-4 for k, v in models.gpt2.params_from_numpy(
+                         models.init_params_numpy(cfg, SEED),
+                         device=DEV).items()}, rev, "int8")
+    shutil.copytree(roots["w1"], roots["w2"])
+    one = _HealthRole(tmp, "sub_w1", "averager",
+                      _health_argv(roots["w1"], "hotkey_97", sub,
+                                   beats=False)).join()
+    outs = _mr_cli(2, "gloo", "averager", _health_argv(
+        roots["w2"], "hotkey_97", sub), "health w2 sub")
+    res["sub"] = {"world1": one, "world2": outs}
+    check(one["rc"] == 0 and [o["rc"] for o in outs] == [0, 0]
+          and [o["counts"].get("acquire", 0) for o in outs] == [1, 0]
+          and [o["counts"].get("stamp", 0) for o in outs] == [1, 0],
+          f"health w2 sub: {one}, {outs}")
+    _check_launches("health w1 sub", one["launches"],
+                    {"dequant_scatter": 1})
+    for r, o in enumerate(outs):
+        _check_launches(f"health w2 sub rank {r}", o["launches"],
+                        {"dequant_scatter": 1})
+    for name in ("__agg__.n0.msgpack", "__agg__.n0.meta.json"):
+        with open(os.path.join(roots["w1"], "artifacts", "deltas",
+                               name), "rb") as f:
+            a = f.read()
+        with open(os.path.join(roots["w2"], "artifacts", "deltas",
+                               name), "rb") as f:
+            b = f.read()
+        check(a == b, f"health w2 sub: {name} differs from world 1's")
+        res["sub"][f"bytes_{name}"] = len(a)
+    return res
+
+
+def phase_health() -> dict:
+    """Phase 30 (see the module docstring)."""
+    import tempfile
+    from distributedtraining_tpu_torch import models
+    cfg = models.gpt2.PRESETS[HEALTH_MODEL]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_lora_work_root()) as tmp:
+        work = os.path.join(tmp, "w1")
+        res = {"world1": _health_world1(work, tmp, cfg)}
+        res["world1"]["s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        res["world2"] = _health_world2(tmp, cfg)
+        res["world2"]["s"] = time.perf_counter() - t1
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def health_child(out: str) -> int:
+    """``--health-child OUT``: phase 30 in a child process (in the whole
+    script after phase 29's, beside the llama chain); its result as JSON
+    in OUT."""
+    phase_env()
+    sys.path.insert(0, ROOT)
+    res = phase_health()
+    log("health:", json.dumps(res, default=str)[:20000])
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def health_only() -> int:
+    """``--health``: phase 30 alone after the build; the ``health`` line,
+    the card's line and the result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    phase_build()
+    res = phase_health()
+    print(json.dumps({"health": {**res, "card": card}}, default=str),
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+HEALTH_AB_STEPS = 40            # --beat-ab: steps of one in-process block
+# --beat-ab's in-process sides: no beats, phase 30's interval, 10x as many
+HEALTH_AB_SIDES = {"off": None, "on": HEALTH_BEAT_S,
+                   "on_x10": HEALTH_BEAT_S / 10}
+
+
+def _beat_ab_blocks(cfg, rounds: int) -> dict:
+    """The in-process half of :func:`beat_ab`: blocks of HEALTH_AB_STEPS
+    fused-loss steps with each side of HEALTH_AB_SIDES (no publisher, or
+    a HeartbeatPublisher beating at its interval), one block of each side
+    a round, the sides' order rotated each round."""
+    import tempfile
+    import torch
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.health import (
+        HeartbeatPublisher, report_vitals)
+    from distributedtraining_tpu_torch.engine.train import (MinerReport,
+                                                            TrainEngine)
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    tok = _tokenizer()
+    batches = _batches(tok, split="train", batch_size=HEALTH_B,
+                       seq_len=HEALTH_T, n=HEALTH_AB_STEPS)
+    eng = TrainEngine(gpt2.make_model(cfg)[0], fused_loss=True, device=DEV)
+    state = eng.init_state(gpt2.params_from_numpy(
+        models.init_params_numpy(cfg, SEED), device=DEV))
+    sync = torch.cuda.synchronize if DEV == "cuda" else (lambda: None)
+    rep = MinerReport()
+    sides = list(HEALTH_AB_SIDES)
+    out: dict = {side: [] for side in sides}
+    out["order"] = []
+    with tempfile.TemporaryDirectory(dir=_lora_work_root()) as tmp:
+        t = LocalFSTransport(os.path.join(tmp, "artifacts"))
+
+        def block(interval) -> dict:
+            nonlocal state
+            pub = None
+            if interval is not None:
+                pub = HeartbeatPublisher(
+                    t, "miner", "hotkey_ab", interval=interval,
+                    vitals=report_vitals(rep, base_revision=lambda: "r"))
+                pub.start()
+            sync()
+            step_ms = []
+            t_all = time.perf_counter()
+            for i, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                state, m = eng.train_step(state, eng.place_batch(batch))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                rep.steps += 1
+                if (i + 1) % 5 == 0:
+                    # the miner's read of its loss at --log-every 5
+                    rep.last_loss = float(m["loss"])
+            sync()
+            wall_ms = (time.perf_counter() - t_all) * 1e3
+            sent = 0
+            if pub is not None:
+                pub.close()
+                sent = pub.sent
+                check(pub.failed == 0 and sent >= 1,
+                      f"beat-ab: {sent} beats sent, {pub.failed} failed")
+            return {"step_ms_p50": statistics.median(step_ms),
+                    "ms_per_step": wall_ms / len(batches), "beats": sent}
+
+        block(None)   # warm-up: the kernels' first launches
+        for r in range(rounds):
+            k = r % len(sides)
+            for side in sides[k:] + sides[:k]:
+                out["order"].append(side)
+                out[side].append(block(HEALTH_AB_SIDES[side]))
+    return out
+
+
+def _beat_ab_cli(cfg, pairs: int) -> dict:
+    """The process half of :func:`beat_ab`: phase 30's probe miner CLI
+    (30 ``--fused-loss --wire-v2`` steps) without and with
+    ``--heartbeat-interval``, alternating, one process at a time."""
+    import tempfile
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    out: dict = {"off": [], "on": [], "order": []}
+    with tempfile.TemporaryDirectory(dir=_lora_work_root()) as tmp:
+        work = os.path.join(tmp, "w")
+        LocalFSTransport(os.path.join(work, "artifacts")).publish_base(
+            models.init_params_numpy(cfg, SEED))
+        for i, beats in enumerate(
+                ([False, True, True, False] * pairs)[:2 * pairs]):
+            name = f"ab{i}"
+            jl = os.path.join(tmp, f"{name}.jsonl")
+            r = _HealthRole(tmp, name, "miner", _health_argv(
+                work, f"hotkey_{60 + i}", _health_miner(HEALTH_PROBE_STEPS),
+                metrics=jl, beats=beats)).join()
+            recs = _health_jsonl(jl)
+            reg = [x for x in recs if x.get("obs_registry") == "miner"][-1]
+            out["order"].append("on" if beats else "off")
+            out["on" if beats else "off"].append(
+                {"step_ms_p50": reg["miner.step_ms.p50"],
+                 "s": r["s"], "wall_s": r["wall_s"]})
+    return out
+
+
+def beat_ab(argv: list) -> int:
+    """``--beat-ab [ROUNDS [CLI_PAIRS]]``: a heartbeat's cost on the
+    miner's step at GPT-2-124M (phase 30's miners: ``--fused-loss``, B 4
+    x T 512). In one process: ROUNDS rounds (default 12) of one block of
+    HEALTH_AB_STEPS engine steps for each side of HEALTH_AB_SIDES (no
+    beats; a HeartbeatPublisher with the miner's vitals on its own
+    thread every 0.5 s, phase 30's interval; and every 0.05 s, to scale
+    any cost a beat has by ten), the sides' order rotated each round so
+    that none always runs first; each block's step p50 (the host wall of
+    ``train_step``, as ``miner.step_ms`` reads it, with the loss read
+    every 5 steps as the miner reads it) and its ms a step between two
+    synchronisations. Then CLI_PAIRS pairs (default 6) of phase 30's
+    probe miner CLI without and with ``--heartbeat-interval 0.5``, one
+    process each, in the order off, on, on, off, ... One ``beat_ab``
+    line, the card's line. No claim."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    from distributedtraining_tpu_torch import models
+    rounds = int(argv[0]) if argv else 12
+    cli_pairs = int(argv[1]) if len(argv) > 1 else 6
+    check(rounds >= 1 and cli_pairs >= 0,
+          f"--beat-ab: {rounds} rounds, {cli_pairs} CLI pairs")
+    phase_build()
+    cfg = models.gpt2.PRESETS[HEALTH_MODEL]
+    res = {"in_process": _beat_ab_blocks(cfg, rounds)}
+    if cli_pairs:
+        res["cli"] = _beat_ab_cli(cfg, cli_pairs)
+    for part in res.values():
+        for side in sorted(set(part["order"])):
+            part[f"{side}_step_ms_p50_median"] = statistics.median(
+                b["step_ms_p50"] for b in part[side])
+            if "ms_per_step" in part[side][0]:
+                part[f"{side}_ms_per_step_median"] = statistics.median(
+                    b["ms_per_step"] for b in part[side])
+    print(json.dumps({"beat_ab": {**res, "card": card}}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
+def _health_entries(entries: list, health: dict) -> list:
+    """The kernels line's entries with phase 30's launches by role
+    process (world 1) and by rank (world 2)."""
+    w1 = health["world1"]["runs"]
+    w2 = health["world2"]
+    for e in entries:
+        counter = ("fused_ce_bwd_dh" if e["name"] == "fused_ce_bwd"
+                   else e["name"])
+        got = {f"launches_{n}": r["launches"].get(counter, 0)
+               for n, r in w1.items()}
+        for n in ("primary", "standby"):
+            got[f"launches_w2_{n}"] = [o["launches"].get(counter, 0)
+                                       for o in w2[n]]
+        got["launches_w2_sub"] = [o["launches"].get(counter, 0)
+                                  for o in w2["sub"]["world2"]]
+        got["launches_w1_sub"] = w2["sub"]["world1"]["launches"].get(
+            counter, 0)
+        if any(v if isinstance(v, int) else any(v) for v in got.values()):
+            e["health"] = got
+    return entries
+
+
 # --convert: Llama-2-7B from a sharded bf16 checkpoint --------------------
 
 def _hf_llama_names(cfg) -> list:
@@ -11369,9 +12194,11 @@ def main() -> int:
                    **cli.train_result}
     lora = cli.lora_result
     convert = cli.convert_result
+    health = cli.health_result
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
-    print(json.dumps({"kernels": _convert_entries(_lora_entries(
+    print(json.dumps({"kernels": _health_entries(_convert_entries(
+        _lora_entries(
         _lt_entries(_llama_entries(
         _with_sp_launches([{
         "name": "paged_decode_attention",
@@ -11407,7 +12234,7 @@ def main() -> int:
         _sharded_entry(par),
         _scatter_entry(scatter, avg, build, defaults, slice5)],
         sp["world2"]["cli"]["sp2"]["launches"][0]), llama),
-        llama_train["kernels"], llama_train), lora), convert)},
+        llama_train["kernels"], llama_train), lora), convert), health)},
         default=str), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
@@ -11449,6 +12276,9 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"convert": {**convert, "card": card,
                                   "total_s": time.perf_counter() - t_start}},
+                     default=str), flush=True)
+    print(json.dumps({"health": {**health, "card": card,
+                                 "total_s": time.perf_counter() - t_start}},
                      default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -11799,6 +12629,14 @@ if __name__ == "__main__":
             sys.exit(convert_only())
         if sys.argv[1:2] == ["--convert-child"]:
             sys.exit(convert_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--health"]:
+            sys.exit(health_only())
+        if sys.argv[1:2] == ["--health-child"]:
+            sys.exit(health_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--health-role"]:
+            sys.exit(health_role(sys.argv[2], sys.argv[3]))
+        if sys.argv[1:2] == ["--beat-ab"]:
+            sys.exit(beat_ab(sys.argv[2:]))
         if sys.argv[1:2] == ["--convert-miner"]:
             sys.exit(convert_miner(sys.argv[2], sys.argv[3]))
         if sys.argv[1:2] == ["--lora-worker"]:

@@ -207,13 +207,9 @@ class RunConfig:
              f"a mesh for the {self.role} (--dp/--fsdp/--sp/--tp/"
              f"--dcn-dp/--mesh-auto, --multihost-*; the miner, validator "
              f"and averager take them)", 7),
-            (self.role != "miner" and self.remediate, "--remediate", 7),
-            (self.heartbeat_interval > 0, "--heartbeat-interval > 0", 7),
             (self.obs_port != 0, "--obs-port", 7),
             (self.compile_cache_dir is not None,
              "--compile-cache-dir (a JAX compilation cache)", 7),
-            (self.metrics_path is not None,
-             "--metrics-path (the JSONL metrics sink)", 7),
             (self.mlflow_uri is not None, "--mlflow-uri", 7),
             (self.chaos_spec is not None, "--chaos-spec", 7),
         ]

@@ -67,13 +67,19 @@ of the logits' gradient over the merge axis makes it the global one
 stays whole on every rank, evaluations go through the mesh engine, the
 coordinator alone publishes (monolithic only: no shard plane on a pod)
 and broadcasts the revision, and the skip of a declined submission set
-is off. ``OuterOptMerge`` and the tree's root wrap this unchanged; a
-publication lease on a pod is refused (slice 7b).
+is off. ``OuterOptMerge`` and the tree's root wrap this unchanged. A
+publication lease on a pod lives on the coordinator: ``renew`` and
+``stamp`` run there (``train.coordinator_call``) and every rank gets the
+verdict, so a stand-down skips the publish on all of them.
 
 With ``lora_cfg`` LoRA adapter submissions are densified at staging and
-merged as any other. Not ported yet, and refused with
-NotImplementedError naming the slice (ROADMAP "Slices of the port"):
-``fleet`` and ``remediation`` (slice 7).
+merged as any other. With ``fleet`` (``engine/health.FleetMonitor``)
+every gather polls the fleet's heartbeats and the ledger sees every
+staging outcome; ``remediation`` excludes its quarantined miners from
+staging; every ``run_round`` exit (merged, declined, stood down or
+empty) evaluates the SLOs, lets remediation act and flushes the ledger
+through ``metrics`` (``_fleet_round_end``). On a pod both live on the
+coordinator alone.
 """
 
 from __future__ import annotations
@@ -93,8 +99,6 @@ from .scheduler import Clock, RealClock
 logger = logging.getLogger(__name__)
 
 Params = dict[str, torch.Tensor]
-
-_SLICES = "ROADMAP 'Slices of the port'"
 
 
 # ---------------------------------------------------------------------------
@@ -582,12 +586,6 @@ class AveragerReport:
     skipped_publishes: int = 0
 
 
-_LOOP_NOT_PORTED = {
-    "fleet": ("the fleet health plane", 7),
-    "remediation": ("remediation", 7),
-}
-
-
 class AveragerLoop:
     """run_periodic_averaging parity (averaging_logic.py:544-583): pull the
     base, gather and screen every miner delta, merge via the strategy,
@@ -596,7 +594,7 @@ class AveragerLoop:
     the lease is held). On one host or over a mesh of processes (the
     module docstring); with ``hierarchy`` the root of a tree (the cohort
     is the ``__agg__`` ids of those nodes, mixed by their riders' weight
-    sums); the planes of ``_LOOP_NOT_PORTED`` raise when given."""
+    sums); with ``fleet`` and ``remediation`` under the health plane."""
 
     def __init__(self, engine, transport, chain, strategy, *,
                  val_batches: Callable[[], Iterable[dict]],
@@ -615,25 +613,11 @@ class AveragerLoop:
                  lease=None,
                  hierarchy: Sequence[str] | None = None,
                  lora_cfg=None,
-                 **unported):
-        for name, value in unported.items():
-            if name not in _LOOP_NOT_PORTED:
-                raise TypeError(f"AveragerLoop got an unexpected keyword "
-                                f"argument {name!r}")
-            if value is not None:
-                what, slice_no = _LOOP_NOT_PORTED[name]
-                raise NotImplementedError(
-                    f"AveragerLoop({name}=...): {what} is slice {slice_no} "
-                    f"({_SLICES})")
+                 fleet=None,
+                 remediation=None):
         if stale_deltas not in ("skip", "accept"):
             raise ValueError(f"stale_deltas must be 'skip' or 'accept', "
                              f"got {stale_deltas!r}")
-        from .train import mesh_spans
-        if lease is not None and mesh_spans(engine):
-            raise NotImplementedError(
-                f"AveragerLoop(lease=...) on a world of several processes "
-                f"(the lease's verdict broadcast to every rank) is slice "
-                f"7b ({_SLICES})")
         if publish_policy not in ("improved", "always"):
             raise ValueError(f"publish_policy must be 'improved' or "
                              f"'always', got {publish_policy!r}")
@@ -646,6 +630,9 @@ class AveragerLoop:
         # publication lease (engine/remediate.LeaseManager): renewed right
         # before every publish, stamped after it; None: single averager
         self.lease = lease
+        # the fleet health plane and remediation (the coordinator's)
+        self.fleet = fleet
+        self.remediation = remediation
         # the sub-averager node ids of a tree's root; None: flat
         self.hierarchy = list(hierarchy) if hierarchy else None
         # agg artifact id -> declared weight sum (its rider), per round
@@ -786,6 +773,8 @@ class AveragerLoop:
                 workers=self.ingest_workers,
                 cache_bytes=self.ingest_cache_mb * (1 << 20),
                 span_prefix="avg",
+                observer=(self.fleet.record_staging
+                          if self.fleet is not None else None),
                 densify=not (getattr(self.strategy, "host_list_ingest",
                                      False)
                              and getattr(self.engine, "mesh", None) is None
@@ -794,9 +783,12 @@ class AveragerLoop:
         return self._ingestor
 
     def close(self) -> None:
-        """Drop the ingest pool's worker threads (idempotent)."""
+        """Drop the ingest pool's and the fleet's worker threads
+        (idempotent)."""
         if self._ingestor is not None:
             self._ingestor.close()
+        if self.fleet is not None:
+            self.fleet.close()
 
     def gather_deltas(self) -> tuple[list[str], list]:
         """``(accepted hotkeys, their staged submissions)``: dense trees
@@ -821,9 +813,18 @@ class AveragerLoop:
                 meta = self.chain.sync()
             hotkeys = [h for h in meta.hotkeys
                        if h != getattr(self.chain, "my_hotkey", None)]
-        staged = self._ingest().stage(hotkeys,
-                                      base_revision=self._base_revision,
-                                      multi=self._multi())
+        if self.fleet is not None:
+            # one observation round before staging: the staging observer
+            # then folds outcomes into the advanced round
+            try:
+                self.fleet.poll(hotkeys)
+            except Exception:
+                logger.exception("averager: fleet heartbeat poll failed")
+        staged = self._ingest().stage(
+            hotkeys, base_revision=self._base_revision,
+            multi=self._multi(),
+            exclude=(self.remediation.is_excluded
+                     if self.remediation is not None else None))
         ids, deltas = [], []
         rejected = 0
         for s in staged:
@@ -904,16 +905,49 @@ class AveragerLoop:
             logger.exception("averager: lineage record failed")
 
     def _lease_held(self) -> bool:
+        """The lease's renewal verdict: the coordinator's on a pod,
+        where only it reads and writes the token. Any failure reads as
+        not held (fail-safe)."""
         try:
-            return bool(self.lease.renew())
+            if not self._multi():
+                return bool(self.lease.renew())
+            from .train import coordinator_call
+            return bool(coordinator_call(self.lease.renew, "lease renew"))
         except Exception:
             logger.exception("averager: lease renewal failed")
             return False
+
+    def _stamp_lease(self) -> int:
+        """Stamp the token with the revision just published; returns the
+        held epoch (the coordinator's, on every rank of a pod)."""
+        def stamp():
+            self.lease.stamp(self._base_revision)
+            return self.lease.epoch
+        if not self._multi():
+            return stamp()
+        from .train import coordinator_call
+        return int(coordinator_call(stamp, "lease stamp"))
 
     def _log(self, record: dict) -> None:
         if self.metrics:
             self.metrics.log(record, step=self.report.rounds)
             obs.flush(self.metrics, step=self.report.rounds)
+
+    def _fleet_round_end(self) -> None:
+        """The SLOs, remediation's actions and the ledger's flush at the
+        round cadence: on every ``run_round`` exit, so staleness advances
+        and breaches fire when nothing merges. Health-plane failures
+        never fail a round."""
+        if self.fleet is None:
+            return
+        try:
+            breaches = self.fleet.evaluate_slos()
+            if self.remediation is not None:
+                # before the flush: the ledger records the new state
+                self.remediation.observe_round(breaches)
+            self.fleet.flush(self.metrics, step=self.report.rounds)
+        except Exception:
+            logger.exception("averager: fleet round-end failed")
 
     def run_round(self) -> bool:
         """One averaging cycle; True when deltas were gathered and merged
@@ -924,12 +958,14 @@ class AveragerLoop:
         ids, deltas = self.gather_deltas()
         if not ids:
             logger.info("averager: no valid deltas this round")
+            self._fleet_round_end()
             return False
         if (self._declined_fp is not None and not self._multi()
                 and self._delta_fingerprint(ids) == self._declined_fp):
             # the exact submission set already merged and declined
             logger.info("averager: submissions unchanged since the "
                         "declined merge; skipping recompute")
+            self._fleet_round_end()
             self.report.rounds += 1
             return True
         mesh = getattr(self.engine, "mesh", None)
@@ -982,6 +1018,7 @@ class AveragerLoop:
                            "base_loss": self._base_loss,
                            "accepted": len(ids), "published": 0,
                            "merge_delta_ids": dict(self._round_cids)})
+                self._fleet_round_end()
                 self.report.rounds += 1
                 self._declined_fp = self._delta_fingerprint(ids)
                 self.transport.gc()
@@ -992,13 +1029,16 @@ class AveragerLoop:
             # shared base. Merged, not published; nothing commits.
             logger.warning("averager: publication lease not held; "
                            "standing down (merged but not published)")
-            obs.count("avg.lease_standdowns")
+            from ..parallel import multihost
+            if multihost.is_coordinator():   # one count for the world
+                obs.count("avg.lease_standdowns")
             self.report.last_loss = loss
             self.report.skipped_publishes += 1
             self._log({"merged_loss": loss, "merged_ppl": ppl,
                        "accepted": len(ids), "published": 0,
                        "lease_lost": 1,
                        "merge_delta_ids": dict(self._round_cids)})
+            self._fleet_round_end()
             self.report.rounds += 1
             return True
         self.report.last_loss = loss
@@ -1007,10 +1047,11 @@ class AveragerLoop:
             self._base_revision, wire_tree = self._publish(merged)
             self._publish_base_dist(wire_tree)
         del wire_tree
+        lease_epoch = None
         if self.lease is not None:
             # the token now names the revision published under its epoch
-            self.lease.stamp(self._base_revision)
-            obs.gauge("avg.lease_epoch", float(self.lease.epoch))
+            lease_epoch = self._stamp_lease()
+            obs.gauge("avg.lease_epoch", float(lease_epoch))
         if self.lineage is not None:
             # self._base_loss still holds the parent base's eval here
             self._record_lineage(ids, weights, consensus, parent_revision,
@@ -1027,8 +1068,9 @@ class AveragerLoop:
         self._log({"merged_loss": loss, "merged_ppl": ppl,
                    "accepted": len(ids), "published": 1,
                    "base_revision": self._base_revision,
-                   "lease_epoch": self.lease.epoch if self.lease else None,
+                   "lease_epoch": lease_epoch,
                    "merge_delta_ids": dict(self._round_cids)})
+        self._fleet_round_end()
         self.report.rounds += 1
         return True
 

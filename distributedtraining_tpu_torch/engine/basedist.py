@@ -557,6 +557,23 @@ class BaseFetcher:
         self.seed(tree)
         return tree, fetched_rev
 
+    # -- heartbeat extras ----------------------------------------------------
+    def heartbeat_fields(self) -> dict:
+        """Numeric extras for the role's heartbeat: lifetime fetched
+        bytes, the last pull's bytes, the store's dedupe rate (of the
+        layers looked up, the share that cost no bytes) and the mirror
+        hit rate (of the shards fetched over the network, the share a
+        mirror served)."""
+        out = {"base_fetch_bytes": float(self.bytes_fetched_total),
+               "base_last_fetch_bytes": float(self.last_fetch_bytes)}
+        if self.shard_lookups_total:
+            out["base_dedupe_hit_rate"] = (
+                self.store_hits_total / self.shard_lookups_total)
+        if self.network_shards_total:
+            out["base_mirror_hit_rate"] = (
+                self.mirror_hits_total / self.network_shards_total)
+        return out
+
 
 # ---------------------------------------------------------------------------
 # Mirror duty (sub-averager side)

@@ -36,9 +36,11 @@ batch) forwards this rank ran.
 of cohort n+1 while the device evaluates cohort n (never on a pod, where
 staging holds the broadcasts).
 
-Not ported: remediation's preference for buckets already dispatched
-(``prefer_compiled``) comes with the remediation plane (ROADMAP "Slices
-of the port", slice 7).
+The JAX package's ``prefer_compiled`` (pad a shrunken cohort up to a
+bucket already dispatched, to reuse a compiled program) is not ported:
+eager PyTorch compiles nothing and the port never evaluates padded
+slots, so on one card a larger bucket changes no work, and on a mesh it
+would only move the real candidates onto fewer ranks.
 """
 
 from __future__ import annotations

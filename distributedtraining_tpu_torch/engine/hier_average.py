@@ -27,8 +27,19 @@ Per node, ``lease`` (``engine/remediate.LeaseManager``, role
 ``subavg.<node>``) makes publication single-writer, ``lineage`` freezes
 an "agg" record per published aggregate, and ``mirror``
 (``engine/basedist.MirrorDuty``) replicates the base's shards before
-each fold. The fleet health plane (``fleet``) and the metrics sink are
-slice 7.
+each fold; ``fleet`` (``engine/health.FleetMonitor``) polls the slice's
+heartbeats and sees every staging outcome, and ``metrics`` gets one
+record a round.
+
+On a world of several processes (``multi=True``: ``torchrun`` or the
+``--multihost-*`` flags) the coordinator reads what every rank needs —
+the base revision, the assigned slice, the consensus, every submission
+(``stage(multi=True)``) — and broadcasts it; every rank folds the same
+contributions in the same order, a wire-v2 one packed as on one process
+(so its aggregate is the one-process node's, bit for bit), and the
+coordinator alone renews the lease,
+publishes the ``__agg__.<node>`` artifact and stamps the lease, each
+verdict broadcast.
 """
 
 from __future__ import annotations
@@ -122,6 +133,9 @@ class SubAverager:
                  lease=None,
                  lineage=None,
                  mirror=None,
+                 metrics=None,
+                 fleet=None,
+                 multi: bool = False,
                  device="cuda",
                  clock: Clock | None = None):
         from ..models.gpt2 import resolve_device
@@ -146,6 +160,10 @@ class SubAverager:
         self.lease = lease
         self.lineage = lineage
         self.mirror = mirror
+        self.metrics = metrics
+        # the fleet health plane (the coordinator's, on a world)
+        self.fleet = fleet
+        self.multi = multi
         self.device = resolve_device(device)
         self.clock = clock or RealClock()
         self.report = SubAveragerReport()
@@ -184,6 +202,8 @@ class SubAverager:
                 workers=self.ingest_workers,
                 cache_bytes=self.ingest_cache_mb * (1 << 20),
                 span_prefix="subavg",
+                observer=(self.fleet.record_staging
+                          if self.fleet is not None else None),
                 densify=False)   # packed submissions fold in packed form
         return self._ingestor
 
@@ -210,6 +230,16 @@ class SubAverager:
             self._ingestor.close()
         if self._publisher is not None:
             self._publisher.close()
+        if self.fleet is not None:
+            self.fleet.close()
+
+    def _shared(self, fn, what: str):
+        """``fn()``'s JSON-able result: on a world the coordinator's, on
+        every rank."""
+        if not self.multi:
+            return fn()
+        from .train import coordinator_call
+        return coordinator_call(fn, what)
 
     # -- one round -----------------------------------------------------------
     def run_round(self) -> bool:
@@ -218,13 +248,14 @@ class SubAverager:
         empty round, which publishes nothing, so the root's stale skip
         retires the previous aggregate against a moved base."""
         try:
-            base_revision = self.transport.base_revision()
+            base_revision = self._shared(self.transport.base_revision,
+                                         "base revision probe")
         except Exception:
             logger.warning("subavg %s: base revision probe failed; staging "
                            "without staleness context", self.node_id,
                            exc_info=True)
             base_revision = None
-        assigned = self.assigned()
+        assigned = self._shared(self.assigned, "slice assignment")
         if self.mirror is not None:
             # before the fold, and on every round: the replica should be
             # warm when this subtree's miners pull the base
@@ -234,7 +265,14 @@ class SubAverager:
             except Exception:
                 logger.exception("subavg %s: mirror sync failed",
                                  self.node_id)
-        staged = (self._ingest().stage(assigned, base_revision=base_revision)
+        if self.fleet is not None:
+            try:
+                self.fleet.poll(assigned)
+            except Exception:
+                logger.exception("subavg %s: fleet poll failed",
+                                 self.node_id)
+        staged = (self._ingest().stage(assigned, base_revision=base_revision,
+                                       multi=self.multi)
                   if assigned else [])
         ids, deltas = [], []
         staged_by_hotkey = {}
@@ -255,7 +293,8 @@ class SubAverager:
             obs.count("hier.empty_sub_rounds")
             self.report.rounds += 1
             return False
-        w, mass = subtree_weights(ids, self.consensus())
+        w, mass = subtree_weights(ids, self._shared(self.consensus,
+                                                    "consensus read"))
         self.report.last_weight_sum = mass
         with obs.span("subavg.merge", node=self.node_id, miners=len(ids)):
             # one accumulator, one contribution at a time
@@ -269,29 +308,61 @@ class SubAverager:
             self.report.skipped_publishes += 1
             self.report.rounds += 1
             return True
-        payload = agg
-        if self.wire_spec:
-            payload, _ = delta_lib.pack_delta_v2(
-                agg, density=float(self.wire_spec.get("density", 1.0)),
-                quant=self.wire_spec.get("quant", "none"))
         with obs.span("subavg.publish", node=self.node_id):
-            ok = self._pub().publish_now(
-                payload, None, base_revision,
-                extra_meta={"agg": {"weight": mass, "miners": len(ids),
-                                    "node": self.node_id}})
-        if ok:
-            obs.count("hier.agg_publishes")
-            if self.lease is not None:
-                self.lease.stamp(base_revision)
-            if self.lineage is not None:
-                self._record_lineage(ids, w, staged_by_hotkey,
-                                     base_revision)
+            ok = self._publish(agg, base_revision, mass, len(ids),
+                               ids, w, staged_by_hotkey)
+        if self.metrics:
+            try:
+                self.metrics.log({"subavg_node": self.node_id,
+                                  "accepted": len(ids),
+                                  "rejected": rejected,
+                                  "weight_sum": mass,
+                                  "published": int(ok)},
+                                 step=self.report.rounds)
+                obs.flush(self.metrics, step=self.report.rounds)
+            except Exception:
+                logger.exception("subavg %s: metrics emit failed",
+                                 self.node_id)
         self.report.rounds += 1
         return True
 
-    def _lease_held(self) -> bool:
+    def _publish(self, agg, base_revision, mass: float, miners: int,
+                 ids, w, staged_by_hotkey) -> bool:
+        """Publish the aggregate (packed under ``wire_spec``) and, when
+        it landed, stamp the lease and freeze the lineage record: the
+        coordinator's work on a world, whose verdict every rank gets."""
+        def publish() -> bool:
+            payload = agg
+            if self.wire_spec:
+                payload, _ = delta_lib.pack_delta_v2(
+                    agg, density=float(self.wire_spec.get("density", 1.0)),
+                    quant=self.wire_spec.get("quant", "none"))
+            ok = self._pub().publish_now(
+                payload, None, base_revision,
+                extra_meta={"agg": {"weight": mass, "miners": miners,
+                                    "node": self.node_id}})
+            if ok:
+                obs.count("hier.agg_publishes")
+                if self.lease is not None:
+                    self.lease.stamp(base_revision)
+                if self.lineage is not None:
+                    self._record_lineage(ids, w, staged_by_hotkey,
+                                         base_revision)
+            return bool(ok)
         try:
-            return bool(self.lease.renew())
+            return bool(self._shared(publish, "aggregate publish"))
+        except RuntimeError:
+            if not self.multi:
+                raise
+            logger.exception("subavg %s: the coordinator's publish failed",
+                             self.node_id)
+            return False
+
+    def _lease_held(self) -> bool:
+        """The renewal verdict (the coordinator's on a world); any
+        failure reads as not held."""
+        try:
+            return bool(self._shared(self.lease.renew, "lease renew"))
         except Exception:
             logger.exception("subavg %s: lease renewal failed", self.node_id)
             return False

@@ -320,7 +320,8 @@ class DeltaCache:
 
 def densify_delta_bytes(data: bytes, template, lora_cfg=None, *,
                         lora_template=None, quant_template=None,
-                        accept_quant: bool = True) -> Params | None:
+                        accept_quant: bool = True,
+                        densify_v2: bool = True) -> Params | None:
     """Validated artifact bytes -> dense wire-layout host delta, or None:
     a wire-v2 blob (densified here), a dense tree (f32 or bf16), then the
     int8 tree (dtype-pinned, dequantized here), then sparse8 (densified
@@ -330,7 +331,8 @@ def densify_delta_bytes(data: bytes, template, lora_cfg=None, *,
     package's try-chain, in its order. ``accept_quant=False`` rejects
     both quantized forms. A signature envelope is stripped first,
     unverified (bytes from a plain transport; ``transport/signed.py``
-    verifies and strips before bytes get here)."""
+    verifies and strips before bytes get here). ``densify_v2=False``
+    keeps a wire-v2 blob's packed tree (the pod path of a packed fold)."""
     from .. import serialization as ser
     from .. import signing
 
@@ -342,7 +344,7 @@ def densify_delta_bytes(data: bytes, template, lora_cfg=None, *,
     # built by this world's coordinator after its accept-wire-v2 gate:
     # magic-prefixed, so never confused with the msgpack forms below
     if ser.is_wire_v2_blob(data):
-        return ser.unpack_wire_blob(data, template)
+        return ser.unpack_wire_blob(data, template, densify=densify_v2)
     try:
         return ser.validated_load(data, template)
     except ser.PayloadError:
@@ -392,11 +394,16 @@ class DeltaIngestor:
                  workers: int = 4,
                  cache_bytes: int = DEFAULT_CACHE_BYTES,
                  span_prefix: str = "ingest",
+                 observer: Callable[[list], None] | None = None,
                  densify: bool = True):
         if stale_deltas not in ("skip", "accept"):
             raise ValueError(f"stale_deltas must be 'skip' or 'accept', "
                              f"got {stale_deltas!r}")
         self.transport = transport
+        # the staging observer: called with every stage()'s StagedDelta
+        # list (the fleet monitor's contribution ledger sees the exact
+        # outcomes the role acted on); its failures never touch a round
+        self.observer = observer
         self._template_in = template
         self._template_cache = None
         self.lora_cfg = lora_cfg
@@ -443,22 +450,37 @@ class DeltaIngestor:
 
     # -- public entry --------------------------------------------------------
     def stage(self, hotkeys: Sequence[str], *, base_revision=None,
-              multi: bool = False) -> list[StagedDelta]:
+              multi: bool = False, exclude=None) -> list[StagedDelta]:
         """Stage every hotkey's current submission; one
         :class:`StagedDelta` per hotkey, in input order. Per-miner
         failures are isolated (reason ``fetch_error``), never raised.
         ``multi`` (a world of several processes; every rank calls this
         at the same point) takes the pod path: the coordinator reads,
-        every rank gets the same bytes (see :meth:`_stage_multi`)."""
+        every rank gets the same bytes (see :meth:`_stage_multi`).
+        ``exclude`` (``hotkey -> bool``, remediation's quarantine set)
+        stages a hotkey as ``reason="quarantined"`` without any
+        transport traffic; on a pod it is the coordinator's verdict that
+        every rank receives."""
         hotkeys = list(hotkeys)
         if not hotkeys:
             return []
         if multi:
-            staged = self._stage_multi(hotkeys, base_revision)
+            staged = self._stage_multi(hotkeys, base_revision,
+                                       exclude=exclude)
         else:
-            staged = self.pool.map(
-                lambda h: self._stage_one(h, base_revision), hotkeys)
+            def one(h):
+                if exclude is not None and exclude(h):
+                    obs.count("ingest.quarantined_skips")
+                    return StagedDelta(h, None, "quarantined", None, None)
+                return self._stage_one(h, base_revision)
+
+            staged = self.pool.map(one, hotkeys)
         self._screen_fresh(staged, cache=not multi)
+        if self.observer is not None:
+            try:
+                self.observer(staged)
+            except Exception:
+                logger.exception("ingest: staging observer failed")
         return staged
 
     # -- single-host path ----------------------------------------------------
@@ -707,12 +729,13 @@ class DeltaIngestor:
             out["data"] = None
         return out
 
-    def _stage_multi(self, hotkeys: list[str], base_revision
-                     ) -> list[StagedDelta]:
+    def _stage_multi(self, hotkeys: list[str], base_revision,
+                     exclude=None) -> list[StagedDelta]:
         """The pod path: the coordinator's pool prefetches every
         submission; then this (main) thread broadcasts, hotkey by hotkey
         in list order, the verdict as JSON and then the optional bytes,
-        and every rank densifies identical bytes. No cross-round cache: a
+        and every rank decodes identical bytes (a wire-v2 set stays packed
+        under ``densify=False``, as on one process). No cross-round cache: a
         per-rank cache could diverge after a rank's restart and split
         the world's inputs."""
         from ..parallel import multihost
@@ -721,8 +744,14 @@ class DeltaIngestor:
         coord = multihost.is_coordinator()
         pre: dict[str, dict] = {}
         if coord:
-            pre = dict(zip(hotkeys, self.pool.map(
-                lambda h: self._prefetch_raw(h, base_revision), hotkeys)))
+            def prefetch(h):
+                if exclude is not None and exclude(h):
+                    obs.count("ingest.quarantined_skips")
+                    return {"rev": None, "cid": None,
+                            "reason": "quarantined", "data": None}
+                return self._prefetch_raw(h, base_revision)
+
+            pre = dict(zip(hotkeys, self.pool.map(prefetch, hotkeys)))
         staged: list[StagedDelta] = []
         for h in hotkeys:
             rec = pre.get(h) or {}
@@ -744,7 +773,8 @@ class DeltaIngestor:
                     data, self._template(), self.lora_cfg,
                     lora_template=self._lora_template(),
                     quant_template=self.quant_template,
-                    accept_quant=self.accept_quant)
+                    accept_quant=self.accept_quant,
+                    densify_v2=self.densify)
             staged.append(StagedDelta(
                 h, d, _UNSCREENED if d is not None else "no_delta",
                 v["rev"], v["cid"], agg_weight=v["agg_w"]))

@@ -1,35 +1,299 @@
-"""Averager failover — the publication lease and the standby of the JAX
-package's ``engine/remediate.py`` (``parse_lease``, ``LeaseManager``,
-``StandbyAverager``). The rest of that module (quarantine, elastic
-cohorts: ``RemediationEngine``) is slice 7, with the fleet plane.
+"""Remediation — the port of the JAX package's ``engine/remediate.py``:
+act on SLO breaches (quarantine, elastic cohorts) and keep base
+publication single-writer across an averager failover.
 
-Base publication is single-writer, so a standby cannot start publishing
-because the primary looks dead: that is a one-sided observation. The
-arbitration token is a transport-published **lease** on the reserved
-``__lease__.<role>`` rider slot — ``{"lease": 1, "epoch", "holder",
-"t"[, "base_revision"]}``, the JAX package's token — so either package's
-primary and standby share one store:
+- **Quarantine** (:class:`RemediationEngine`): a miner breaching one of
+  the policy's rules (default: push-failure streak, loss divergence,
+  stale node) is dropped from the staging set (``is_excluded``, the
+  ingest exclude hook: no transport bytes move, the ledger records
+  ``reason="quarantined"``), and its score decays each round
+  (``decay_scores``). After ``probation_beats`` fresh heartbeats that
+  evaluate clean against the quarantining rule it is re-admitted on
+  probation for ``probation_rounds`` rounds (``FleetMonitor.clear_fired``
+  re-arms the rule, so a relapse re-quarantines), then healthy.
+- **Elastic cohorts** (:func:`elastic_cohort`): when quarantine shrinks
+  the healthy count below the configured cohort, the validator's cohort
+  steps down the bucket ladder, preferring a bucket already dispatched
+  (``BatchedCohortEvaluator.compiled_buckets``).
+- **Failover** (:class:`LeaseManager`, :class:`StandbyAverager`): the
+  arbitration token is a transport-published **lease** on the reserved
+  ``__lease__.<role>`` rider slot — ``{"lease": 1, "epoch", "holder",
+  "t"[, "base_revision"]}``, the JAX package's token, so either
+  package's primary and standby share one store. A primary
+  ``acquire``s at (highest epoch seen) + 1 and verifies its own write,
+  ``renew``s immediately before every publish (a higher epoch, or the
+  same epoch under another holder, stands it down) and ``stamp``s the
+  token with each revision it publishes. A standby watches the lease,
+  the base revision and the holder's ``__hb__.averager.<holder>``
+  heartbeat; only a signal read successfully with a new value resets
+  its stall clock (a read fault is no evidence), and ``deadline_s``
+  without such evidence takes the lease at the next epoch and
+  bootstraps the wrapped loop from the current published base.
 
-- a primary ``acquire``s at (highest epoch seen) + 1 and verifies its own
-  write, ``renew``s immediately before every publish (a higher epoch, or
-  the same epoch under another holder, stands it down) and ``stamp``s the
-  token with each revision it publishes;
-- a standby watches the lease, the base revision and the primary's
-  heartbeat (heartbeats are slice 7, so that signal reads absent here);
-  only a signal read successfully with a new value resets its stall
-  clock (a read fault is no evidence), and ``deadline_s`` without such
-  evidence takes the lease at the next epoch and bootstraps the wrapped
-  loop from the current published base.
+On a world of several processes the coordinator alone reads and writes
+the lease; the verdicts (renew, the standby's poll) reach every rank by
+broadcast, so the ranks publish, stand down and take over together.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+from typing import Iterable, Sequence
 
-from ..transport.base import lease_id
+from ..transport.base import heartbeat_id, lease_id
 from ..utils import flight, obs
+from .batched_eval import BUCKETS
+from .health import FleetMonitor, parse_heartbeat
 
 logger = logging.getLogger(__name__)
+
+# ---------------------------------------------------------------------------
+# Elastic cohort sizing
+# ---------------------------------------------------------------------------
+
+def elastic_cohort(configured: int, healthy: int, *,
+                   compiled: Iterable[int] = (),
+                   buckets: Sequence[int] = BUCKETS) -> int:
+    """Effective cohort size for ``healthy`` stageable miners under a
+    ``configured`` cohort: unchanged while the fleet covers it, else the
+    smallest ladder bucket covering the healthy count — preferring an
+    ALREADY-COMPILED bucket so the shrink reuses a cached program instead
+    of compiling the exact-fit one. Never exceeds ``configured``."""
+    if configured <= 1 or healthy >= configured:
+        return configured
+    healthy = max(1, int(healthy))
+    comp = sorted(b for b in set(compiled) if healthy <= b <= configured)
+    if comp:
+        return comp[0]
+    ladder = [b for b in buckets if b >= healthy]
+    target = ladder[0] if ladder else buckets[-1]
+    return max(1, min(configured, target))
+
+
+# ---------------------------------------------------------------------------
+# Quarantine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RemediationPolicy:
+    """Declarative knobs (docs/resilience.md documents each).
+
+    ``quarantine_rules``: SLO rule NAMES whose breach quarantines a miner
+    (names, not kinds — deployments rename/duplicate rules with custom
+    thresholds). ``probation_beats``: fresh clean heartbeats required to
+    re-admit. ``probation_rounds``: rounds a re-admitted node stays on
+    probation (a breach there re-quarantines at once). ``score_decay``:
+    multiplier applied to a quarantined miner's score each round — decay,
+    not zeroing, so a recovered node re-enters weight-setting from a
+    discounted history rather than from nothing."""
+    quarantine_rules: tuple = ("push_failure_streak", "loss_divergence",
+                               "stale_node")
+    probation_beats: int = 3
+    probation_rounds: int = 2
+    score_decay: float = 0.25
+
+    def __post_init__(self):
+        if self.probation_beats < 1:
+            raise ValueError(f"probation_beats must be >= 1, "
+                             f"got {self.probation_beats}")
+        if self.probation_rounds < 0:
+            raise ValueError(f"probation_rounds must be >= 0, "
+                             f"got {self.probation_rounds}")
+        if not 0.0 <= self.score_decay <= 1.0:
+            raise ValueError(f"score_decay must be in [0, 1], "
+                             f"got {self.score_decay}")
+
+
+@dataclasses.dataclass
+class _Case:
+    """One miner's remediation case file."""
+    hotkey: str
+    rule: str                       # the rule that quarantined it
+    state: str                      # "quarantined" | "probation"
+    opened_round: int
+    beats_seen: int                 # node.beats at the last observation
+    clean_beats: int = 0
+    probation_until: int | None = None
+
+
+class RemediationEngine:
+    """Subscribe a :class:`~.health.FleetMonitor`'s breaches to actions.
+
+    Drive it at the round cadence from the loop that owns the monitor:
+    ``observe_round(breaches)`` right after ``fleet.evaluate_slos()``.
+    The staging exclude hook (:meth:`is_excluded`) and score decay
+    (:meth:`decay_scores`) read the current case files; both are cheap
+    dict lookups, O(hotkeys) a round. On a world of several processes
+    the engine lives on the coordinator alone: its exclusions reach the
+    other ranks inside the staging broadcast, and the validator
+    broadcasts the cohort size.
+    """
+
+    def __init__(self, fleet: FleetMonitor, *,
+                 policy: RemediationPolicy | None = None,
+                 metrics=None, role: str = "miner"):
+        self.fleet = fleet
+        self.policy = policy or RemediationPolicy()
+        self.metrics = metrics
+        self.role = role            # the role this engine quarantines
+        self.cases: dict[str, _Case] = {}
+        self._ever: set[str] = set()  # hotkeys ever quarantined (relapse tag)
+        self.quarantines = 0        # lifetime counters (reports/tests)
+        self.readmissions = 0
+
+    # -- the filter hook -----------------------------------------------------
+    def is_excluded(self, hotkey: str) -> bool:
+        """True while ``hotkey`` is quarantined (the ingest exclude hook:
+        probation nodes are NOT excluded — re-admission means staging)."""
+        case = self.cases.get(hotkey)
+        return case is not None and case.state == "quarantined"
+
+    def quarantined(self) -> set[str]:
+        return {h for h, c in self.cases.items()
+                if c.state == "quarantined"}
+
+    def filter_hotkeys(self, hotkeys: Iterable[str]) -> list[str]:
+        """The stageable subset of ``hotkeys`` (order preserved)."""
+        return [h for h in hotkeys if not self.is_excluded(h)]
+
+    def decay_scores(self, scores: dict[str, float]) -> dict[str, float]:
+        """Quarantined miners' scores decay by ``score_decay`` per round
+        (applied to whatever the validator computed — usually 0 for a
+        quarantined miner, but the decayed value is what feeds the chain
+        EMA, pulling the on-chain weight down each round it stays out)."""
+        if not self.cases:
+            return scores
+        return {h: (s * self.policy.score_decay
+                    if self.is_excluded(h) else s)
+                for h, s in scores.items()}
+
+    def cohort_size(self, configured: int, healthy: int,
+                    compiled: Iterable[int] = ()) -> int:
+        return elastic_cohort(configured, healthy, compiled=compiled)
+
+    # -- transitions ---------------------------------------------------------
+    def _emit(self, action: str, case: _Case, detail: str = "",
+              pm_ref: str | None = None) -> dict:
+        # postmortem attachment (utils/flight.py): every quarantine and
+        # probation flip carries a bundle reference — the TRIGGERING
+        # breach's bundle when the monitor froze one, else a fresh
+        # freeze of this role's ring at the moment of the action — and
+        # the reference lands on the node's ledger entry, so
+        # fleet_report/postmortem joins go straight from decision to
+        # evidence.
+        flight.record("remediation", action=action, hotkey=case.hotkey,
+                      rule=case.rule, round=self.fleet.round)
+        if pm_ref is None:
+            pm_ref = flight.freeze_and_publish(f"remediation_{action}")
+        rec = {"remediation": action, "hotkey": case.hotkey,
+               "rule": case.rule, "round": self.fleet.round,
+               "detail": detail}
+        if pm_ref:
+            rec["pm_ref"] = pm_ref
+            node = self.fleet.nodes.get((self.role, case.hotkey))
+            if node is not None:
+                node.pm_ref = pm_ref
+        obs.count(f"remediate.{action}")
+        logger.warning("remediation: %s %s/%s (%s) %s", action, self.role,
+                       case.hotkey, case.rule, detail)
+        if self.metrics is not None:
+            try:
+                self.metrics.log(rec)
+            except Exception:
+                logger.exception("remediation: sink emit failed")
+        return rec
+
+    def _quarantine(self, hotkey: str, rule: str, detail: str,
+                    pm_ref: str | None = None) -> dict:
+        node = self.fleet.node(self.role, hotkey)
+        node.quarantined, node.probation = True, False
+        relapse = hotkey in self._ever
+        self._ever.add(hotkey)
+        self.cases[hotkey] = case = _Case(
+            hotkey=hotkey, rule=rule, state="quarantined",
+            opened_round=self.fleet.round, beats_seen=node.beats)
+        self.quarantines += 1
+        return self._emit("requarantined" if relapse else "quarantined",
+                          case, detail, pm_ref)
+
+    def _rule(self, name: str):
+        for r in self.fleet.rules:
+            if r.name == name:
+                return r
+        return None
+
+    def observe_round(self, breaches: Iterable[dict] | None) -> list[dict]:
+        """One remediation round: fold this round's NEW breaches, then
+        advance every open case (clean-beat counting, probation expiry).
+        Returns the action records it emitted. Never raises — the caller
+        is a training round."""
+        try:
+            return self._observe_round(list(breaches or ()))
+        except Exception:
+            logger.exception("remediation: round observation failed")
+            return []
+
+    def _observe_round(self, breaches: list[dict]) -> list[dict]:
+        actions = []
+        for b in breaches:
+            if b.get("role") != self.role:
+                continue
+            rule = b.get("slo_breach")
+            if rule not in self.policy.quarantine_rules:
+                continue
+            hotkey = b.get("hotkey")
+            case = self.cases.get(hotkey)
+            if case is not None and case.state == "quarantined":
+                continue        # already out; nothing more to do
+            actions.append(self._quarantine(hotkey, rule,
+                                            b.get("detail", ""),
+                                            b.get("pm_ref")))
+        median = self.fleet.fleet_median_loss()
+        for case in list(self.cases.values()):
+            node = self.fleet.nodes.get((self.role, case.hotkey))
+            if node is None:    # pruned from the registry: case closed
+                del self.cases[case.hotkey]
+                continue
+            if case.state == "quarantined":
+                fresh = node.beats - case.beats_seen
+                case.beats_seen = node.beats
+                if fresh <= 0:
+                    continue
+                rule = self._rule(case.rule)
+                clean = rule is None or rule.evaluate(
+                    node, round_num=self.fleet.round,
+                    fleet_median_loss=median) is None
+                if not clean:
+                    case.clean_beats = 0
+                    continue
+                case.clean_beats += fresh
+                if case.clean_beats >= self.policy.probation_beats:
+                    case.state = "probation"
+                    case.probation_until = (self.fleet.round
+                                            + self.policy.probation_rounds)
+                    node.quarantined, node.probation = False, True
+                    # re-arm the breach so a relapse can fire (and
+                    # re-quarantine) instead of being one-shot-swallowed
+                    self.fleet.clear_fired(self.role, case.hotkey,
+                                           case.rule)
+                    self.readmissions += 1
+                    actions.append(self._emit(
+                        "readmitted", case,
+                        f"{case.clean_beats} clean heartbeats"))
+            elif case.state == "probation":
+                if self.fleet.round >= (case.probation_until or 0):
+                    node.probation = False
+                    del self.cases[case.hotkey]
+                    actions.append(self._emit("healthy", case))
+        obs.gauge("remediate.active_quarantines",
+                  float(len(self.quarantined())))
+        return actions
+
+
+# ---------------------------------------------------------------------------
+# The publication lease
+# ---------------------------------------------------------------------------
 
 LEASE_VERSION = 1
 _MAX_STR = 200
@@ -199,8 +463,8 @@ class StandbyAverager:
     goes quiet.
 
     Each :meth:`poll_once` reads the lease token (epoch, renewal time,
-    holder), the base revision and the primary's heartbeat slot (absent
-    in the port: heartbeats are slice 7). A signal read successfully with
+    holder), the base revision and the holder's heartbeat (its ``seq``
+    and ``t``). A signal read successfully with
     a new value resets the stall clock; ``deadline_s`` without one takes
     over: acquire the lease at the next epoch, then bootstrap the wrapped
     :class:`~.average.AveragerLoop` from the current published base and
@@ -225,16 +489,27 @@ class StandbyAverager:
 
     # -- observation ---------------------------------------------------------
     def _signature(self) -> tuple:
-        """What a live primary advances: (lease, base revision,
-        heartbeat). A read that fails contributes None, never aborts."""
+        """What a live primary advances: (lease, base revision, the
+        holder's heartbeat sequence). A read that fails contributes
+        None, never aborts."""
+        transport = self.loop.transport
         lease = self.lease.read()
         sig = [(lease["epoch"], lease["t"], lease["holder"])
                if lease else None]
         try:
-            sig.append(self.loop.transport.base_revision())
+            sig.append(transport.base_revision())
         except Exception:
             sig.append(None)
-        sig.append(None)   # the primary's heartbeat: slice 7
+        holder = lease["holder"] if lease else None
+        if holder and holder != self.lease.hotkey:
+            try:
+                hb = parse_heartbeat(transport.fetch_delta_meta(
+                    heartbeat_id("averager", holder)))
+                sig.append((hb["seq"], hb["t"]) if hb else None)
+            except Exception:
+                sig.append(None)
+        else:
+            sig.append(None)
         return tuple(sig)
 
     def stalled_for(self) -> float:
@@ -258,10 +533,37 @@ class StandbyAverager:
         return moved
 
     # -- the state machine ---------------------------------------------------
+    def _multi(self) -> bool:
+        from .train import mesh_spans
+        return mesh_spans(getattr(self.loop, "engine", None))
+
     def poll_once(self) -> str:
-        """One watch step: "active", "following" or "takeover"."""
+        """One watch step: "active", "following" or "takeover". On a
+        world of several processes the coordinator watches and takes the
+        lease; its verdict is broadcast, so every rank takes over and
+        bootstraps (a collective) together."""
         if self.active:
             return "active"
+        if self._multi():
+            from .train import coordinator_call
+            try:
+                verdict = coordinator_call(self._watch, "standby poll")
+            except RuntimeError:
+                verdict = "following"
+        else:
+            verdict = self._watch()
+        if verdict != "takeover":
+            return verdict
+        self.takeovers += 1
+        # bootstrap after winning the lease: the current published base,
+        # never a local guess
+        self.loop.bootstrap()
+        self.active = True
+        return "takeover"
+
+    def _watch(self) -> str:
+        """The stall clock and, past the deadline, the acquire: the
+        coordinator's half of :meth:`poll_once`."""
         now = self.clock.now()
         if self._progressed(self._signature()) \
                 or self._last_change is None:
@@ -286,17 +588,20 @@ class StandbyAverager:
             self._last_sig = None
             self._last_change = None
             return "following"
-        self.takeovers += 1
         obs.count("standby.takeovers")
         logger.warning("standby %s: took over publication at epoch %d",
                        self.lease.hotkey, self.lease.epoch)
+        # the standby's ring (what it watched before the silence), its
+        # bundle reference on its own ledger entry
         flight.record("lease", action="takeover", epoch=self.lease.epoch,
                       holder=self.lease.hotkey, role=self.lease.role)
-        flight.freeze_and_publish("takeover")
-        # bootstrap after winning the lease: the current published base,
-        # never a local guess
-        self.loop.bootstrap()
-        self.active = True
+        ref = flight.freeze_and_publish("takeover")
+        fleet = getattr(self.loop, "fleet", None)
+        if ref and fleet is not None:
+            try:
+                fleet.node("averager", self.lease.hotkey).pm_ref = ref
+            except Exception:
+                logger.exception("standby: ledger pm_ref attach failed")
         return "takeover"
 
     def run(self, *, interval: float = 1200.0,

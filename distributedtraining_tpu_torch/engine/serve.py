@@ -1730,6 +1730,37 @@ class ServeLoop:
             t.join(timeout=10.0)
 
 
+def heartbeat_counters(engine: "GenerationEngine", burn=None) -> dict:
+    """The serving worker's heartbeat extras (the JAX server's): tokens
+    a second, queue depth, tokens and sheds; the prefix cache's hit rate
+    once it has seen traffic, the drafter's acceptance once it has
+    verified tokens, the ttft / tpot / queue-age p95 once observed, the
+    worst fast-window burn, and on a disaggregated worker its ``phase``
+    with the KV manifests exported and adopted. Host counters only."""
+    out = {"tokens_per_sec": engine.tokens_per_sec,
+           "queue_depth": float(engine.queue_depth),
+           "tokens": float(engine.tokens_emitted),
+           "shed": float(engine.shed_count)}
+    if engine.prefix_hits + engine.prefix_misses > 0:
+        out["prefix_hit_rate"] = engine.prefix_hit_rate
+    if engine.speculative and engine.spec_rounds > 0:
+        out["spec_accept_rate"] = engine.spec_accept_rate
+    reg = obs.registry()
+    for metric, field in (("serve.ttft_ms", "ttft_ms_p95"),
+                          ("serve.tpot_ms", "tpot_ms_p95"),
+                          ("serve.queue_age_ms", "q_age_ms_p95")):
+        h = reg.peek(metric)   # peek: never create an empty series
+        if h is not None and h.count:
+            out[field] = h.percentiles((95.0,))["p95"]
+    if burn is not None:
+        out["slo_burn"] = burn.max_burn()
+    if engine.phase != "unified":
+        out["phase"] = engine.phase
+        out["kv_exported"] = float(engine.kv_exported)
+        out["kv_adopted"] = float(engine.kv_adopted)
+    return out
+
+
 class ServeHTTPFrontend:
     """Stdlib JSON frontend (127.0.0.1 by default, daemon threads).
 

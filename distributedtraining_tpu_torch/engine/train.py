@@ -89,6 +89,7 @@ from ..models import (family, init_params_numpy, llama, params_from_numpy,
 from ..ops.losses import (causal_lm_loss, fused_linear_cross_entropy,
                           lm_totals)
 from ..utils import obs
+from ..utils.metrics import device_memory_watermarks, device_metrics
 from .basedist import fetch_base
 from .scheduler import Clock, PeriodicAction, RealClock
 
@@ -962,11 +963,6 @@ class MinerReport:
     last_loss: float = float("nan")
 
 
-_NOT_PORTED = {
-    "heartbeat": "fleet heartbeats are slice 7",
-}
-
-
 def _state_finite(state: TrainState) -> torch.Tensor:
     """One 0-dim flag: params and both moments finite (moments can
     overflow a step before the params do), left on the device."""
@@ -1024,7 +1020,9 @@ class MinerLoop:
     fires on the coordinator's verdict; the guards' verdicts are agreed
     before anyone acts; the delta and checkpoints are gathered from
     every rank's shards, and the coordinator alone publishes and writes
-    them. Heartbeats raise NotImplementedError naming their slice."""
+    them. ``heartbeat`` (``engine/health.HeartbeatPublisher``) starts
+    with ``run`` (its vitals read this loop's report: host values, never
+    a device read) and sends a last beat and closes at ``flush``."""
 
     def __init__(self, engine: TrainEngine, transport, miner_id: str, *,
                  clock: Clock | None = None,
@@ -1050,15 +1048,7 @@ class MinerLoop:
                  trace=None,
                  anomaly=None,
                  base_fetcher=None,
-                 **unported):
-        for name, value in unported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"MinerLoop got an unexpected keyword "
-                                f"argument {name!r}")
-            if value:
-                raise NotImplementedError(
-                    f"MinerLoop({name}=...): {_NOT_PORTED[name]} "
-                    f"({_SLICES})")
+                 heartbeat=None):
         if delta_dtype not in (None, "float32", "bfloat16", "int8",
                                "sparse8"):
             raise ValueError(f"delta_dtype must be float32, bfloat16, int8 "
@@ -1087,6 +1077,10 @@ class MinerLoop:
         self.checkpoint_store = checkpoint_store
         self.trace = trace
         self.anomaly = anomaly
+        # the fleet heartbeat (engine/health.HeartbeatPublisher): started
+        # with the loop, a last beat and closed at flush; it times itself
+        # on its own thread, the step loop never polls it
+        self.heartbeat = heartbeat
         self.log_every = log_every
         self.nan_guard = nan_guard
         self.delta_dtype = None if delta_dtype == "float32" else delta_dtype
@@ -1630,6 +1624,8 @@ class MinerLoop:
             ) -> MinerReport:
         if self.state is None:
             self.bootstrap()
+        if self.heartbeat is not None:
+            self.heartbeat.start()   # idempotent across run() calls
         start_steps = self.report.steps  # max_steps bounds *this* call
         batch_iter = iter(batches)
         try:
@@ -1663,10 +1659,15 @@ class MinerLoop:
                         self.anomaly.observe_loss(self.report.last_loss)
                         self.anomaly.observe_push_counters(
                             self.report.pushes, self.report.pushes_failed)
+                    # the device's memory as gauges at the log cadence
+                    # (allocator counters: host reads, no sync)
+                    for k, v in device_memory_watermarks().items():
+                        obs.gauge(f"device.{k}", v)
                     self.metrics.log(
                         {"train_loss": self.report.last_loss,
                          "staleness_s": (self.clock.now()
-                                         - self._last_base_time)},
+                                         - self._last_base_time),
+                         **device_metrics()},
                         step=self.report.steps)
                     obs.flush(self.metrics, step=self.report.steps)
                 if self._val_guard_action is not None:
@@ -1709,6 +1710,10 @@ class MinerLoop:
             self.trace.close()
         if self.anomaly is not None:
             self.anomaly.close()
+        if self.heartbeat is not None:
+            # a last beat with the exit-state counters, then stop
+            self.heartbeat.beat_now(wait=True)
+            self.heartbeat.close()
         if self.metrics is not None:
             obs.flush(self.metrics, step=self.report.steps)
 

@@ -34,10 +34,21 @@ broadcasts it, and stages every submission for every rank
 the broadcasts); each rank evaluates its block of the cohort
 (``engine/batched_eval.py``), and the gated chain lets the coordinator
 alone set weights. The sequential path evaluates through the mesh
-engine. Not ported yet, and refused with NotImplementedError naming the
-slice (ROADMAP "Slices of the port"): the fleet health plane,
-remediation and the metrics sink (slice 7). With ``lora_cfg``, LoRA
-adapter submissions are densified at staging and scored as any other.
+engine. With ``lora_cfg``, LoRA adapter submissions are densified at
+staging and scored as any other.
+
+The fleet health plane hooks in as the JAX package's does: ``fleet``
+(``engine/health.FleetMonitor``) polls the fleet's heartbeats before
+staging and sees every staging outcome (the ingest observer);
+``remediation`` (``engine/remediate.RemediationEngine``) excludes its
+quarantined miners from staging, shrinks the cohort (``elastic_cohort``,
+gauge ``val.effective_cohort``) and decays their scores; at the round's
+end the scores and credit reach the ledger, the SLOs are evaluated,
+remediation observes the breaches and the ledger is flushed through
+``metrics``, which also gets the round's record (``scored``,
+``round_scores``, ...). On a world only the coordinator holds the fleet
+and the remediation engine; the cohort size is its, broadcast, and its
+quarantine verdicts reach every rank with the staged submissions.
 """
 
 from __future__ import annotations
@@ -56,15 +67,6 @@ from .scheduler import Clock, RealClock
 logger = logging.getLogger(__name__)
 
 Params = dict[str, torch.Tensor]
-
-_SLICES = "ROADMAP 'Slices of the port'"
-
-_NOT_PORTED = {
-    "fleet": ("the fleet health plane", 7),
-    "remediation": ("remediation", 7),
-    "metrics": ("the metrics sink (--metrics-path)", 7),
-}
-
 
 @dataclasses.dataclass
 class MinerScore:
@@ -94,13 +96,6 @@ class Validator:
                  ingest_cache_mb: int = 2048,
                  metrics=None, lora_cfg=None, fleet=None, remediation=None,
                  base_fetcher=None):
-        for name, value in (("fleet", fleet), ("remediation", remediation),
-                            ("metrics", metrics)):
-            if value is not None:
-                what, slice_no = _NOT_PORTED[name]
-                raise NotImplementedError(
-                    f"Validator({name}=...): {what} is slice {slice_no} "
-                    f"({_SLICES})")
         if metric not in ("loss", "perplexity"):
             raise ValueError(f"metric must be 'loss' or 'perplexity', "
                              f"got {metric!r}")
@@ -117,6 +112,12 @@ class Validator:
         self.engine = engine
         self.transport = transport
         self.base_fetcher = base_fetcher
+        self.metrics = metrics
+        # the fleet health plane (engine/health.FleetMonitor) and the
+        # remediation engine acting on its breaches; on a world, the
+        # coordinator's alone
+        self.fleet = fleet
+        self.remediation = remediation
         self.chain = chain
         self.eval_batches = eval_batches
         self.metric = metric
@@ -306,22 +307,29 @@ class Validator:
                 stale_deltas=self.stale_deltas,
                 workers=self.ingest_workers,
                 cache_bytes=self.ingest_cache_mb * (1 << 20),
-                span_prefix="val")
+                span_prefix="val",
+                observer=(self.fleet.record_staging
+                          if self.fleet is not None else None))
         return self._ingestor
 
     def close(self) -> None:
-        """Drop the ingest pool's worker threads (idempotent)."""
+        """Drop the ingest pool's and the fleet's worker threads
+        (idempotent)."""
         if self._ingestor is not None:
             self._ingestor.close()
+        if self.fleet is not None:
+            self.fleet.close()
 
     def _stage_many(self, hotkeys):
         """Fetch and screen a cohort of submissions through the ingest
         pool: ``[(hotkey, delta | None, reason), ...]`` in input order.
         The artifact's ``delta_id`` (from its rider) tags the eval span."""
         from .train import wire_in
-        staged = self._ingest().stage(list(hotkeys),
-                                      base_revision=self._base_revision,
-                                      multi=self._multi())
+        staged = self._ingest().stage(
+            list(hotkeys), base_revision=self._base_revision,
+            multi=self._multi(),
+            exclude=(self.remediation.is_excluded
+                     if self.remediation is not None else None))
         out = []
         for s in staged:
             if s.cid is not None:
@@ -360,8 +368,9 @@ class Validator:
         from .batched_eval import stage_cohorts
         evaluator = self._evaluator()
         results: list[MinerScore] = []
+        cohort = self._effective_cohort(hotkeys, evaluator)
         # a pod stages inline: its broadcasts must not run on a thread
-        staged = stage_cohorts(hotkeys, self.cohort_size, self._stage_miner,
+        staged = stage_cohorts(hotkeys, cohort, self._stage_miner,
                                pipeline=(self.pipeline_depth > 0
                                          and not self._multi()),
                                depth=max(self.pipeline_depth, 1),
@@ -396,6 +405,78 @@ class Validator:
                 close()
         return results
 
+    def _effective_cohort(self, hotkeys: list[str], evaluator) -> int:
+        """The round's cohort size: the configured one, or with
+        remediation attached the elastic cohort over the miners it has
+        not quarantined (``val.effective_cohort``). On a world the
+        coordinator's size reaches every rank, so the ranks' cohorts and
+        their collectives pair up."""
+        cohort = self.cohort_size
+        if self.remediation is not None:
+            healthy = len(self.remediation.filter_hotkeys(hotkeys))
+            cohort = self.remediation.cohort_size(
+                self.cohort_size, healthy,
+                compiled=evaluator.compiled_buckets())
+        if self._multi():
+            from .train import broadcast_json
+            cohort = int(broadcast_json({"cohort": cohort})["cohort"])
+        if self.remediation is not None:
+            obs.gauge("val.effective_cohort", float(cohort))
+        return cohort
+
+    def _fleet_round_end(self, scored: dict[str, float]
+                         ) -> dict[str, float]:
+        """Remediation's score decay, then the ledger's scores and credit,
+        the SLOs, remediation's observation of the breaches and the
+        ledger's flush. Health-plane failures never fail a round."""
+        if self.remediation is not None:
+            # quarantined miners' scores decay instead of the chain EMA
+            # holding their pre-breach weight
+            scored = self.remediation.decay_scores(scored)
+        if self.fleet is not None:
+            try:
+                self.fleet.record_scores(scored)
+                self.fleet.record_credit(self.credit.totals())
+                breaches = self.fleet.evaluate_slos()
+                if self.remediation is not None:
+                    self.remediation.observe_round(breaches)
+                self.fleet.flush(self.metrics, step=self._round)
+            except Exception:
+                logger.exception("validator: fleet round-end failed")
+        return scored
+
+    def _log_round(self, results: list[MinerScore],
+                   round_credits: dict) -> None:
+        """The round's record through the sink (a fixed key set, the
+        per-miner detail in one ``round_scores`` record) and a registry
+        flush."""
+        if not self.metrics:
+            return
+        from ..utils.metrics import device_memory_watermarks, device_metrics
+        for k, v in device_memory_watermarks().items():
+            obs.gauge(f"device.{k}", v)
+        with_loss = [s for s in results if s.loss is not None]
+        positive = [s for s in results if s.score > 0]
+        self.metrics.log({
+            **device_metrics(),
+            "scored": len(results),
+            "rejected": len(results) - len(with_loss),
+            "score_positive": len(positive),
+            "score_mean": (sum(s.score for s in results)
+                           / max(len(results), 1)),
+            "score_max": max((s.score for s in results), default=0.0),
+            "loss_best": min((s.loss for s in with_loss),
+                             default=float("nan")),
+            "base_loss": self.base_loss,
+            "round_scores": {
+                s.hotkey: {"score": s.score, "loss": s.loss,
+                           "reason": s.reason,
+                           "cid": self._round_cids.get(s.hotkey),
+                           "credit": round_credits.get(s.hotkey)}
+                for s in results},
+        }, step=self._round)
+        obs.flush(self.metrics, step=self._round)
+
     def validate_and_score(self) -> list[MinerScore]:
         """One validation round (validate_and_score,
         validation_logic.py:99-189)."""
@@ -403,6 +484,14 @@ class Validator:
         meta = self._synced_metagraph()
         self._maybe_refresh_base()
         others = [h for h in meta.hotkeys if h != self.chain.my_hotkey]
+        if self.fleet is not None:
+            # the heartbeat observation round before staging, so that
+            # the staging observer folds this round's outcomes into the
+            # advanced round (transport reads only: the coordinator's)
+            try:
+                self.fleet.poll(others)
+            except Exception:
+                logger.exception("validator: fleet heartbeat poll failed")
         if self.cohort_size > 1:
             results = self._score_cohorts(others)
         else:
@@ -410,10 +499,14 @@ class Validator:
         scored = {s.hotkey: s.score for s in results}
         # leave-one-out credit for this base revision; attribution must
         # never fail a scoring round
+        round_credits: dict[str, float] = {}
         try:
-            self.credit.update(self._base_revision, self.base_loss, results)
+            round_credits = self.credit.update(
+                self._base_revision, self.base_loss, results) or {}
         except Exception:
             logger.exception("validator: credit attribution failed")
+        scored = self._fleet_round_end(scored)
+        self._log_round(results, round_credits)
         self._round += 1
         if self.chain.should_set_weights():
             if self.has_vpermit(meta):

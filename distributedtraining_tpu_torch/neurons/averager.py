@@ -28,17 +28,25 @@ its slice from ``--hier-nodes`` or ``--hier-fanout``): it folds its
 miners and publishes the partial aggregate (``--hier-wire-v2``: as
 lossless v2 shards), mirroring the base's shards (``--base-mirror``, on
 with ``--base-wire-v2``); ``--hier root`` merges those aggregates.
-``--standby`` follows a primary and takes the publication lease over
-after ``--failover-deadline`` seconds without progress. With
-``--sign-artifacts`` every artifact is signed by the hotkey's wallet.
+``--standby`` follows a primary (its lease, the base revision, its
+heartbeat) and takes the publication lease over after
+``--failover-deadline`` seconds without progress; ``--remediate`` (or
+``--standby``) makes a primary hold that lease, acquired at boot, and
+with ``--heartbeat-interval`` quarantines breaching miners. The averager
+beats and monitors the fleet under ``--heartbeat-interval``;
+``--metrics-path`` writes its round records, breaches and ledger as
+JSONL. With ``--sign-artifacts`` every artifact is signed by the
+hotkey's wallet.
 
 On N cards of one host, ``torchrun --nproc-per-node N -m
 distributedtraining_tpu_torch.neurons.averager ...`` (or the
 ``--multihost-*`` flags, one process a card) runs one averager whose
 ranks each hold a block of the miner stack; the coordinator reads the
 transport and the chain and alone publishes (monolithic only, as the
-JAX pod averager). ``--hier sub`` and ``--standby`` on such a world are
-refused (slice 7b).
+JAX pod averager). The lease lives on the coordinator and its verdicts
+reach every rank: a ``--standby`` world takes over and bootstraps
+together, a ``--hier sub`` world stages through the coordinator, folds
+on every rank and publishes one aggregate.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from ..engine.average import (AveragerLoop, GeneticMerge, OuterOptMerge,
                               ParameterizedMerge, WeightedAverage)
 from ..parallel import multihost
 from ..utils import flight, obs
-from .common import base_mirrors, build
+from .common import base_mirrors, build, build_health_plane
 
 
 def make_strategy(cfg: RunConfig, model):
@@ -83,11 +91,11 @@ def _hier_nodes(cfg: RunConfig) -> list[str]:
             if n.strip()]
 
 
-def _run_sub_averager(cfg: RunConfig, c) -> int:
+def _run_sub_averager(cfg: RunConfig, c, plane) -> int:
     """``--hier sub``: fold this node's ``plan_fanout`` slice and publish
     the partial aggregate under ``__agg__.<node>``. No eval set, no
-    strategy, no base publication; with ``--standby`` a per-node
-    ``subavg.<node>`` lease guards the publish."""
+    strategy, no base publication; with ``--remediate`` or ``--standby``
+    a per-node ``subavg.<node>`` lease guards the publish."""
     from ..engine.hier_average import SubAverager, plan_fanout
     from ..engine.train import _wire_template
 
@@ -109,7 +117,7 @@ def _run_sub_averager(cfg: RunConfig, c) -> int:
         return plan.get(node, [])
 
     lease = None
-    if cfg.standby:
+    if cfg.remediate or cfg.standby:
         from ..engine.remediate import LeaseManager
         lease = LeaseManager(c.transport, cfg.hotkey, role=f"subavg.{node}")
     lineage = None
@@ -117,9 +125,10 @@ def _run_sub_averager(cfg: RunConfig, c) -> int:
         from ..engine.lineage import LineagePlane
         lineage = LineagePlane(c.transport, node=f"subavg.{node}")
     mirror = None
-    if cfg.base_wire_v2 and cfg.base_mirror:
+    if cfg.base_wire_v2 and cfg.base_mirror and multihost.is_coordinator():
         # this node re-publishes the base shards under __mirror__.<node>,
-        # so nearby fetchers race a replica instead of the origin
+        # so nearby fetchers race a replica instead of the origin (on a
+        # world the coordinator's duty: the others' writes are gated)
         from ..engine.basedist import MirrorDuty
         mirror = MirrorDuty(c.transport, node)
     sub = SubAverager(
@@ -135,6 +144,8 @@ def _run_sub_averager(cfg: RunConfig, c) -> int:
         ingest_cache_mb=cfg.ingest_cache_mb,
         wire_spec=True if cfg.hier_wire_v2 else None,
         lease=lease, lineage=lineage, mirror=mirror,
+        metrics=c.metrics, fleet=plane.fleet,
+        multi=multihost.process_count() > 1,
         device=c.engine.device)
     try:
         merged = sub.run_periodic(interval=cfg.averaging_interval,
@@ -142,9 +153,12 @@ def _run_sub_averager(cfg: RunConfig, c) -> int:
     except KeyboardInterrupt:
         merged = sub.report.rounds
     finally:
+        plane.close()
         sub.close()
         flight.shutdown()
         obs.reset()
+        if c.metrics is not None:
+            c.metrics.close()
     logging.info("sub-averager %s done: rounds=%d accepted=%d pushes=%d",
                  node, sub.report.rounds, sub.report.last_accepted,
                  sub.report.pushes)
@@ -184,30 +198,49 @@ def main(argv=None) -> int:
             multihost.shutdown()
 
 
+def _acquire_at_boot(lease) -> None:
+    """A primary takes the lease before its first round (the
+    coordinator, on a world); a refusal or a failure is logged, and the
+    rounds renew lazily."""
+    try:
+        if multihost.process_count() > 1:
+            from ..engine.train import coordinator_call
+            held = coordinator_call(lease.acquire, "lease acquire")
+        else:
+            held = lease.acquire()
+        if not held:
+            logging.warning(
+                "averager: lease held elsewhere at boot; rounds will merge "
+                "but stand down at publish until the lease is reclaimed")
+    except Exception:
+        logging.warning("averager: lease acquisition failed at boot; will "
+                        "retry lazily", exc_info=True)
+
+
 def _run(cfg: RunConfig, c) -> int:
-    if multihost.process_count() > 1 and (cfg.hier == "sub"
-                                          or cfg.standby):
-        raise NotImplementedError(
-            "--hier sub and --standby on a world of several processes "
-            "are slice 7b (ROADMAP 'Slices of the port')")
+    # detection and counters only (no train loop here to tick a capture):
+    # an SLO breach or a quality drift of the lineage plane arms it
+    from ..engine.health import report_vitals
+    from ..utils.obs import AnomalyMonitor
+    anomaly = AnomalyMonitor()
+    plane = build_health_plane(cfg, c, monitor=True, anomaly=anomaly,
+                               start_heartbeat=False)
     if cfg.hier == "sub":
-        return _run_sub_averager(cfg, c)
+        if plane.heartbeat is not None:
+            plane.heartbeat.start()
+        return _run_sub_averager(cfg, c, plane)
     hierarchy = _hierarchy(cfg, c)
     # the publication lease keeps base publication single-writer across a
-    # standby takeover (--remediate, which also holds one in the JAX
-    # package, is slice 7)
+    # standby takeover: held by a remediating or standby-backed fleet
     lease = None
-    if cfg.standby:
+    if cfg.remediate or cfg.standby:
         from ..engine.remediate import LeaseManager
         lease = LeaseManager(c.transport, cfg.hotkey)
-    # detection and counters only (no train loop here to tick a capture):
-    # a quality drift of the lineage plane arms it
-    from ..utils.obs import AnomalyMonitor
     lineage = None
     if cfg.lineage:
         from ..engine.lineage import LineagePlane
         lineage = LineagePlane(c.transport, node=cfg.hotkey,
-                               anomaly=AnomalyMonitor())
+                               anomaly=anomaly)
     base_dist = None
     # a pod's coordinator publishes monolithic only, as JAX's
     if cfg.base_wire_v2 and multihost.process_count() <= 1:
@@ -230,7 +263,12 @@ def _run(cfg: RunConfig, c) -> int:
                         ingest_cache_mb=cfg.ingest_cache_mb,
                         lineage=lineage, base_dist=base_dist,
                         lease=lease, hierarchy=hierarchy,
-                        lora_cfg=c.lora_cfg)
+                        lora_cfg=c.lora_cfg, metrics=c.metrics,
+                        fleet=plane.fleet, remediation=plane.remediation)
+    if plane.heartbeat is not None:
+        plane.heartbeat.vitals = report_vitals(
+            loop.report, base_revision=lambda: loop._base_revision)
+        plane.heartbeat.start()
     try:
         if cfg.standby:
             # a passive replica: no bootstrap (it must never publish a
@@ -245,15 +283,20 @@ def _run(cfg: RunConfig, c) -> int:
             merged = standby.run(interval=cfg.averaging_interval,
                                  rounds=cfg.rounds)
         else:
+            if lease is not None:
+                _acquire_at_boot(lease)
             loop.bootstrap(params=c.initial_params)
             merged = loop.run_periodic(interval=cfg.averaging_interval,
                                        rounds=cfg.rounds)
     except KeyboardInterrupt:
         merged = loop.report.rounds > 0
     finally:
+        plane.close()  # the heartbeat timer, the fleet's pool
         loop.close()   # drain the ingest pool's worker threads
         flight.shutdown()   # see neurons/miner.py
         obs.reset()
+        if c.metrics is not None:
+            c.metrics.close()
     logging.info("averager done: rounds=%d accepted=%d rejected=%d loss=%.4f",
                  loop.report.rounds, loop.report.last_accepted,
                  loop.report.last_rejected, loop.report.last_loss)

@@ -4,8 +4,13 @@ averager's and the server's part of the JAX package's ``neurons/common.py``
 ``memory`` or ``local`` transport (behind ``SignedTransport`` with
 ``--sign-artifacts``), the local chain and address store,
 the tokenizer, the train, self-eval and held-out batch streams and the
-flight recorder, driven by ``RunConfig``; and ``build_base_fetcher``, the
-content-addressed base fetcher of ``--base-wire-v2``.
+flight recorder, the role's metrics sink (``--metrics-path``: a
+``JSONLSink`` rotated at ``--metrics-rotate-mb`` keeping
+``--metrics-keep-segments``, bound to ``utils/obs`` so spans and
+registry flushes land in it), driven by ``RunConfig``;
+``build_base_fetcher``, the content-addressed base fetcher of
+``--base-wire-v2``; and ``build_health_plane``, the role's part of the
+fleet health plane (``--heartbeat-interval``, ``--remediate``).
 
 The device is the card unless the caller asks for the CPU the way the JAX
 roles do: ``DT_FORCE_PLATFORM=cpu`` in the environment. Without it,
@@ -75,6 +80,8 @@ class Components:
     # True when build() brought the torch.distributed world up (the
     # role's exit tears it down)
     owns_world: bool = False
+    # the role's MetricsSink (--metrics-path), or None
+    metrics: Any = None
 
     def train_batches(self, *, repeat: bool = True) -> Iterable[dict]:
         """The shuffled packed train stream (per-hotkey order), behind
@@ -264,6 +271,19 @@ def build(cfg: RunConfig) -> Components:
             f"--tokenizer {cfg.tokenizer} at vocab {model_cfg.vocab_size}: "
             f"the HF and BPE tokenizers are not ported; use --tokenizer "
             f"word or byte")
+    metrics = None
+    if cfg.metrics_path and multihost.is_coordinator():
+        from ..utils import obs
+        from ..utils.metrics import JSONLSink
+        metrics = JSONLSink(
+            cfg.metrics_path,
+            max_bytes=(cfg.metrics_rotate_mb * (1 << 20)
+                       if cfg.metrics_rotate_mb > 0 else None),
+            keep_segments=max(1, cfg.metrics_keep_segments))
+        # every span and registry flush lands in the same JSONL as the
+        # role's records; role mains reset obs on exit. On a world the
+        # coordinator alone writes it (one file, no interleaved ranks)
+        obs.configure(metrics, role=cfg.role)
     if cfg.flight_events > 0:
         # the bounded forensic ring every role keeps, frozen into a
         # published __pm__ bundle on a quality drift or a crash; role
@@ -278,7 +298,72 @@ def build(cfg: RunConfig) -> Components:
     return Components(cfg=cfg, model=model, model_cfg=model_cfg,
                       engine=engine, transport=transport, chain=chain,
                       address_store=address_store, tokenizer=tokenizer,
-                      lora_cfg=lora_cfg, owns_world=owns_world)
+                      lora_cfg=lora_cfg, owns_world=owns_world,
+                      metrics=metrics)
+
+
+@dataclasses.dataclass
+class HealthPlane:
+    """The role's part of the fleet health plane (``engine/health.py``):
+    its heartbeat publisher, a FleetMonitor (validator, averager) and the
+    remediation engine acting on that monitor's breaches
+    (``--remediate``). The JAX package's ``--obs-port`` exporter is not
+    ported."""
+    heartbeat: Any = None
+    fleet: Any = None
+    remediation: Any = None
+
+    def close(self) -> None:
+        """Idempotent teardown, the JAX order: the heartbeat, then the
+        fleet's pool."""
+        if self.heartbeat is not None:
+            self.heartbeat.close()
+        if self.fleet is not None:
+            self.fleet.close()
+
+
+def build_health_plane(cfg: RunConfig, c: Components, *, vitals=None,
+                       monitor: bool = False, anomaly=None, collect=None,
+                       start_heartbeat: bool = True) -> HealthPlane:
+    """The role's health plane from its flags: a heartbeat publisher
+    when ``--heartbeat-interval`` > 0 (``vitals`` gives the body,
+    ``collect`` extra fields), a FleetMonitor for the delta-consuming
+    roles (``monitor=True``), and with ``--remediate`` the remediation
+    engine. On a world only the coordinator beats and monitors (its
+    writes are the gated ones, and N monitors would multiply the probe
+    traffic)."""
+    plane = HealthPlane()
+    coordinator = multihost.is_coordinator()
+    if cfg.heartbeat_interval > 0 and coordinator:
+        from ..engine.health import FleetMonitor, HeartbeatPublisher
+        if monitor:
+            plane.fleet = FleetMonitor(c.transport, metrics=c.metrics,
+                                       anomaly=anomaly)
+            if cfg.remediate:
+                from ..engine.remediate import (RemediationEngine,
+                                                RemediationPolicy)
+                rules = tuple(r.strip()
+                              for r in cfg.quarantine_rules.split(",")
+                              if r.strip())
+                plane.remediation = RemediationEngine(
+                    plane.fleet, metrics=c.metrics,
+                    policy=RemediationPolicy(
+                        quarantine_rules=rules,
+                        probation_beats=cfg.probation_beats,
+                        probation_rounds=cfg.probation_rounds,
+                        score_decay=cfg.score_decay))
+        plane.heartbeat = HeartbeatPublisher(
+            c.transport, cfg.role, cfg.hotkey,
+            interval=cfg.heartbeat_interval, vitals=vitals,
+            collect=collect)
+        if start_heartbeat:
+            plane.heartbeat.start()
+    elif cfg.remediate and coordinator:
+        logger.warning(
+            "--remediate has no effect without --heartbeat-interval > 0: "
+            "remediation acts on SLO breaches, and breaches come from the "
+            "heartbeat-fed FleetMonitor")
+    return plane
 
 
 def _note_idle_cards(role: str) -> None:

@@ -33,9 +33,12 @@ frozen base and publishes the adapter tree
 (``engine/lora_train.LoRAMinerLoop``; on a mesh too).
 ``--sign-artifacts`` signs every artifact with the hotkey's wallet
 (``--wallet-path``) and verifies the base (``--base-signer``);
-``--my-repo-id`` registers a repo id in the address store. A JAX
-validator or averager, or the port's, pointed at the same ``--work-dir``
-reads its deltas.
+``--my-repo-id`` registers a repo id in the address store.
+``--heartbeat-interval S`` publishes a heartbeat every S seconds (the
+coordinator's; the report's counters, the loss at the log cadence, the
+base fetcher's bytes) and ``--metrics-path`` writes the loss records,
+spans and registry flushes as JSONL. A JAX validator or averager, or the
+port's, pointed at the same ``--work-dir`` reads its deltas and beats.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from ..engine.lora_train import LoRAEngine, LoRAMinerLoop
 from ..engine.train import MinerLoop
 from ..parallel import multihost
 from ..utils import flight, obs
-from .common import build, build_base_fetcher
+from .common import build, build_base_fetcher, build_health_plane
 
 
 def _guard_kwargs(cfg, c) -> dict:
@@ -92,15 +95,16 @@ def main(argv=None) -> int:
         from ..checkpoint import CheckpointStore
         store = CheckpointStore(cfg.checkpoint_dir or os.path.join(
             cfg.work_dir, "checkpoints", cfg.hotkey))
+    base_fetcher = build_base_fetcher(cfg, c)
     common = dict(send_interval=cfg.send_interval,
                   check_update_interval=cfg.check_update_interval,
-                  log_every=cfg.log_every,
+                  metrics=c.metrics, log_every=cfg.log_every,
                   push_async=cfg.push_async,
                   push_queue_depth=cfg.push_queue_depth,
                   checkpoint_store=store,
                   checkpoint_interval=cfg.checkpoint_interval,
                   trace=trace, anomaly=anomaly,
-                  base_fetcher=build_base_fetcher(cfg, c),
+                  base_fetcher=base_fetcher,
                   **_guard_kwargs(cfg, c))
     if c.lora_cfg is not None:
         # adapter-only training, adapter-tree artifacts, with the
@@ -126,6 +130,16 @@ def main(argv=None) -> int:
                          wire_quant=cfg.wire_quant,
                          keep_optimizer_on_pull=cfg.keep_optimizer_on_pull,
                          **common)
+    # the heartbeat starts with the loop and sends its last beat at
+    # flush; its vitals read the loop's live report (host values)
+    from ..engine.health import report_vitals
+    plane = build_health_plane(
+        cfg, c, start_heartbeat=False,
+        vitals=report_vitals(loop.report,
+                             base_revision=lambda: loop._base_revision),
+        collect=(base_fetcher.heartbeat_fields
+                 if base_fetcher is not None else None))
+    loop.heartbeat = plane.heartbeat
 
     def _bootstrap():
         # bounded retry on TRANSPORT errors only (a restart is exactly
@@ -159,10 +173,13 @@ def main(argv=None) -> int:
         loop.close()
         if store is not None:
             store.close()
+        plane.close()   # the heartbeat timer (idempotent)
         # a crash bundle first (while the transport is still wired), then
         # the process-wide state goes
         flight.shutdown()
         obs.reset()
+        if c.metrics is not None:
+            c.metrics.close()
         if c.owns_world:   # last: the gates above still ask for the rank
             multihost.shutdown()
     logging.info("miner done: steps=%d pushes=%d (failed=%d superseded=%d) "

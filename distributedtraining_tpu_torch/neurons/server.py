@@ -1,6 +1,5 @@
 """Server entry point of the port: serve generation over the live base
-model — the port of the JAX package's ``neurons/server.py`` (without the
-health plane: heartbeats come with slice 7).
+model — the port of the JAX package's ``neurons/server.py``.
 
 A continuous-batching engine (engine/serve.py) boots from the averager's
 published base, watches the transport for new revisions and hot-swaps
@@ -29,6 +28,13 @@ transport); ``--serve-phase decode`` a decode worker that adopts them.
 Put ``neurons/router.py`` in front of both (and of unified workers): it
 routes each request prefill -> decode, and falls back to a unified
 worker.
+
+``--heartbeat-interval S`` beats every S seconds: the served revision
+(as ``base_revision``), engine steps, and ``engine/serve.
+heartbeat_counters`` (tokens a second, queue depth, the prefix-cache and
+speculative rates, ttft / tpot p95, ``phase``, ``kv_exported``,
+``kv_adopted``). ``--metrics-path`` flushes the registry (``serve.*``)
+to JSONL every 15 s.
 """
 
 from __future__ import annotations
@@ -41,9 +47,10 @@ from ..config import RunConfig
 from ..engine import health, kv_transfer
 from ..engine.serve import (BaseRevisionWatcher, GenerationEngine,
                             ServeHTTPFrontend, ServeLoop,
-                            host_param_template)
+                            heartbeat_counters, host_param_template)
 from ..utils import flight, obs
-from .common import build, build_base_fetcher, resolve_role_device
+from .common import (build, build_base_fetcher, build_health_plane,
+                     resolve_role_device)
 
 logger = logging.getLogger(__name__)
 
@@ -138,7 +145,7 @@ def main(argv=None) -> int:
         c.transport, lambda: host_param_template(c.model),
         poll_s=max(cfg.swap_poll, 0.1), fetcher=base_fetcher,
         device=device)
-    engine = loop = frontend = None
+    engine = loop = frontend = plane = None
     try:
         params, revision = _await_base(cfg, c, watcher, device)
         # SLO burn-rate alerting over the request-trace stream: every
@@ -171,6 +178,16 @@ def main(argv=None) -> int:
             kv_adopter=(kv_transfer.KVAdopter(c.transport)
                         if phase == "decode" else None))
         watcher.start()
+        # the heartbeat: the served revision, steps and the serving
+        # counters (host values)
+        vitals = health.Vitals(
+            steps=lambda: engine.steps,
+            counters=lambda: heartbeat_counters(engine, burn),
+            base_revision=lambda: engine.revision)
+        plane = build_health_plane(
+            cfg, c, vitals=vitals,
+            collect=(base_fetcher.heartbeat_fields
+                     if base_fetcher is not None else None))
         if cfg.serve_port:
             frontend = ServeHTTPFrontend(engine, cfg.serve_port,
                                          tokenizer=c.tokenizer)
@@ -180,8 +197,13 @@ def main(argv=None) -> int:
         last_eval = time.monotonic()
         while True:
             time.sleep(0.25)
-            if burn is not None and time.monotonic() - last_eval >= 15.0:
-                burn.evaluate()
+            if time.monotonic() - last_eval >= 15.0:
+                # the registry (serve.* timings) and the burn rules on
+                # one steady cadence
+                if c.metrics is not None:
+                    obs.flush(step=engine.steps)
+                if burn is not None:
+                    burn.evaluate()
                 last_eval = time.monotonic()
             if cfg.max_steps is None:
                 continue   # unbounded: serve until interrupted
@@ -206,13 +228,19 @@ def main(argv=None) -> int:
             frontend.close()
         if loop is not None:
             loop.close()
+        if plane is not None:
+            plane.close()
         if engine is not None:
             engine.close()
         else:
             watcher.close()
         health.attach_burn(None)
+        if c.metrics is not None and engine is not None:
+            obs.flush(step=engine.steps)
         flight.shutdown()   # see neurons/miner.py
         obs.reset()
+        if c.metrics is not None:
+            c.metrics.close()
     if engine is not None:
         logger.info("server done: steps=%d tokens=%d revision=%s",
                     engine.steps, engine.tokens_emitted, engine.revision)

@@ -20,7 +20,12 @@ package publishing into the same ``--work-dir`` are scored; the weights
 land in the local chain, where an averager of either package reads them
 through ``consensus_scores()``. A hotkey without a validator permit is
 refused unless ``--allow-no-vpermit`` is given, and then emits no
-weights.
+weights. ``--heartbeat-interval S`` beats every S seconds and monitors
+the fleet's beats (the contribution ledger, the SLO rules); with
+``--remediate`` a breaching miner is quarantined (``--quarantine-rules``,
+``--probation-beats``, ``--probation-rounds``, ``--score-decay``).
+``--metrics-path`` writes each round's record, the breaches and the
+ledger as JSONL. On a world the coordinator alone beats and monitors.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from ..config import RunConfig
 from ..engine.validate import Validator
 from ..parallel import multihost
 from ..utils import flight, obs
-from .common import build, build_base_fetcher
+from .common import build, build_base_fetcher, build_health_plane
 
 
 def main(argv=None) -> int:
@@ -40,6 +45,7 @@ def main(argv=None) -> int:
     cfg = RunConfig.from_args("validator", argv)
     c = build(cfg)
     flight.install_crash_hooks()   # see neurons/miner.py
+    base_fetcher = build_base_fetcher(cfg, c)
     validator = Validator(c.engine, c.transport, c.chain,
                           eval_batches=c.eval_batches(),
                           metric=cfg.score_metric,
@@ -51,8 +57,8 @@ def main(argv=None) -> int:
                           pipeline_depth=cfg.val_pipeline_depth,
                           ingest_workers=cfg.ingest_workers,
                           ingest_cache_mb=cfg.ingest_cache_mb,
-                          lora_cfg=c.lora_cfg,
-                          base_fetcher=build_base_fetcher(cfg, c))
+                          metrics=c.metrics, lora_cfg=c.lora_cfg,
+                          base_fetcher=base_fetcher)
     # the reference gates weight-setting to staked validators
     # (btt_connector.py:358-385): refuse up front rather than spend eval
     # compute on scores no one will see. On a pod the coordinator's
@@ -75,6 +81,26 @@ def main(argv=None) -> int:
                 f"--allow-no-vpermit to run anyway without emitting weights")
         logging.warning("running WITHOUT a validator permit: weights will "
                         "not be emitted")
+    # the health plane after the permit gate (a refused boot leaves no
+    # heartbeat timer behind): the validator beats and monitors; a
+    # breach arms the anomaly monitor (detection and counters)
+    from ..engine.health import Vitals
+    from ..utils.obs import AnomalyMonitor
+    plane = build_health_plane(cfg, c, monitor=True,
+                               anomaly=AnomalyMonitor(),
+                               start_heartbeat=False,
+                               collect=(base_fetcher.heartbeat_fields
+                                        if base_fetcher is not None
+                                        else None))
+    validator.fleet = plane.fleet   # before the first round's lazy ingest
+    validator.remediation = plane.remediation   # and lazy evaluator
+    if plane.heartbeat is not None:
+        plane.heartbeat.vitals = Vitals(
+            steps=lambda: validator._round,
+            loss=lambda: validator.base_loss,
+            counters=lambda: {"rounds": validator._round},
+            base_revision=lambda: validator._base_revision)
+        plane.heartbeat.start()
     try:
         validator.bootstrap(params=c.initial_params)
         ok = validator.run_periodic(interval=cfg.validation_interval,
@@ -83,9 +109,12 @@ def main(argv=None) -> int:
         logging.info("validator interrupted; exiting")
         return 0
     finally:
+        plane.close()       # the heartbeat timer, the fleet's pool
         validator.close()   # drain the ingest pool's worker threads
         flight.shutdown()   # see neurons/miner.py
         obs.reset()
+        if c.metrics is not None:
+            c.metrics.close()
         if c.owns_world:   # last: the gates above still ask for the rank
             multihost.shutdown()
     return 0 if ok else 1

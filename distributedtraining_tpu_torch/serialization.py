@@ -830,9 +830,12 @@ def is_wire_v2_blob(data) -> bool:
 
 
 def unpack_wire_blob(data: bytes, template: Params, *,
-                     max_bytes: int = DEFAULT_MAX_BYTES) -> Params | None:
+                     max_bytes: int = DEFAULT_MAX_BYTES,
+                     densify: bool = True) -> Params | None:
     """Blob bytes -> dense f32 host delta validated against ``template``,
-    or None (the contract of the other wire decoders)."""
+    or None (the contract of the other wire decoders). ``densify=False``
+    returns the packed tree itself once ``delta.packed_matches`` admits
+    it, as a one-process ingest hands it to a packed fold."""
     from . import delta as _delta
 
     if not is_wire_v2_blob(data):
@@ -842,6 +845,8 @@ def unpack_wire_blob(data: bytes, template: Params, *,
                            max_bytes=max_bytes)
     except PayloadError:
         return None
+    if not densify:
+        return raw if _delta.packed_matches(raw, template) else None
     try:
         return _delta.densify_packed_v2(raw, template)
     except (TypeError, ValueError, KeyError, IndexError):

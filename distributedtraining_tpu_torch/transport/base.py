@@ -35,10 +35,8 @@ META_MAX_BYTES = 4096
 # Reserved artifact ids: control-plane and shard artifacts travel through
 # the same per-miner byte surface as deltas, under prefixes no chain
 # hotkey starts with. The port publishes wire-v2 shards, base shards and
-# manifests, lineage records, postmortem bundles, leases, partial
-# aggregates, mirror replicas and KV pages; heartbeats are the JAX
-# package's plane of slice 7, kept so a consumer of a shared root
-# recognises every reserved id.
+# manifests, lineage records, postmortem bundles, heartbeats, leases,
+# partial aggregates, mirror replicas and KV pages.
 HEARTBEAT_PREFIX = "__hb__"
 LEASE_PREFIX = "__lease__"
 AGG_PREFIX = "__agg__"
@@ -161,6 +159,17 @@ def is_kv_id(artifact_id: str) -> bool:
         artifact_id.startswith(KV_PREFIX + ".")
 
 
+def heartbeat_id(role: str, node_id: str) -> str:
+    """The reserved per-node id heartbeats publish under (a rider slot);
+    ``role`` tells apart a hotkey running several roles on one store."""
+    return f"{HEARTBEAT_PREFIX}.{role}.{node_id}"
+
+
+def is_heartbeat_id(artifact_id: str) -> bool:
+    return isinstance(artifact_id, str) and \
+        artifact_id.startswith(HEARTBEAT_PREFIX + ".")
+
+
 def lease_id(role: str = "averager") -> str:
     """The reserved id a role's publication lease lives under."""
     return f"{LEASE_PREFIX}.{role}"
@@ -170,6 +179,11 @@ def agg_id(node_id: str) -> str:
     """The reserved id one sub-averager's partial aggregate travels
     under; every round's publish overwrites it, as a miner's delta id."""
     return f"{AGG_PREFIX}.{node_id}"
+
+
+def is_agg_id(artifact_id: str) -> bool:
+    return isinstance(artifact_id, str) and \
+        artifact_id.startswith(AGG_PREFIX + ".")
 
 
 def is_reserved_id(artifact_id: str) -> bool:

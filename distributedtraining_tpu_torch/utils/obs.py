@@ -11,12 +11,14 @@ spans (``avg.fetch``, ``avg.screen``, ``avg.merge``, ``avg.eval``,
 ``utils/obs.py``: the registry, ``span`` (a ``span.<name>_ms``
 histogram), the thread-local correlation id (``correlate``,
 ``current_cid``, ``new_delta_id``), ``flush`` (a registry snapshot
-through a caller's sink), the flight recorder's hooks
+through a caller's sink or the configured one, tagged with the role as
+``obs_registry``), the flight recorder's hooks
 (``attach_flight``: span closes and flushes reach its ring) and
 :class:`AnomalyMonitor` (a loss spike, a push-failure streak or a
 step-time p99 blowout arms one ``utils.metrics.TraceCapture`` window).
-Span records and the role's own sink come with the ported metrics sinks
-(slice 7).
+``configure(sink, role=)`` binds the role's sink (``--metrics-path``):
+every span then also lands there as one ``{"span", "dur_ms", "t0",
+"depth", "role", "parent", "cid", ...attrs}`` record, the JAX package's.
 
 Everything is off until ``configure()`` switches it on: the
 module-level ``count``/``observe``/``gauge``/``span`` helpers are
@@ -211,18 +213,33 @@ class _ObsState:
     def __init__(self):
         self.registry = Registry()
         self.enabled = False
-        self.tl = threading.local()   # per-thread correlation id
+        self.sink = None              # the role's MetricsSink, or None
+        self.role: str | None = None
+        self.tl = threading.local()   # per-thread correlation id, spans
         self.flight = None            # utils/flight.FlightRecorder
 
 
 _STATE = _ObsState()
 
 
-def configure() -> Registry:
-    """Switch the instruments on and return the registry.
-    Re-configuring keeps the registry."""
+def configure(sink=None, *, role: str | None = None) -> Registry:
+    """Switch the instruments on and return the registry; with ``sink``
+    (a MetricsSink) spans and flushes also land there, tagged with
+    ``role``. Re-configuring replaces the sink and role and keeps the
+    registry."""
     _STATE.enabled = True
+    _STATE.sink = sink
+    _STATE.role = role
     return _STATE.registry
+
+
+def enabled() -> bool:
+    return _STATE.enabled
+
+
+def current_sink():
+    """The configured MetricsSink, or None."""
+    return _STATE.sink
 
 
 def registry() -> Registry:
@@ -268,12 +285,15 @@ def gauge(name: str, value: float) -> None:
 
 
 def flush(sink=None, *, step: int | None = None) -> dict[str, float]:
-    """Snapshot the registry, and log it through ``sink`` (an object with
-    ``log(record, step=...)``) when one is given: the periodic-flush
-    primitive the miner calls at its log cadence."""
+    """Snapshot the registry, and log it through ``sink`` (default: the
+    configured one) as ``{"obs_registry": role, **snapshot}``: the
+    periodic-flush primitive each role calls at its cadence."""
     snap = _STATE.registry.snapshot() if _STATE.enabled else {}
+    if sink is None:
+        sink = _STATE.sink
     if snap and sink is not None:
-        sink.log(dict(snap), step=step)
+        sink.log({"obs_registry": _STATE.role or "unknown", **snap},
+                 step=step)
     fl = _STATE.flight
     if fl is not None and _STATE.enabled:
         try:
@@ -343,15 +363,20 @@ def rider_delta_id(meta) -> str | None:
 @contextlib.contextmanager
 def span(name: str, *, cid: str | None = None, **attrs):
     """Time a phase into the ``span.<name>_ms`` histogram; ``cid`` sets
-    the thread's correlation id inside it. ``attrs`` (miner, cache, ...)
-    annotate the JAX package's span records; the port keeps the
-    histogram (and the attached flight recorder's event), so they are
-    accepted and dropped. A no-op when disabled."""
+    the thread's correlation id inside it. With a configured sink, the
+    close also logs one record (nesting per thread: ``parent``,
+    ``depth``; ``attrs`` verbatim, kept JSON-able and small). A no-op
+    when disabled."""
     if not _STATE.enabled:
         yield
         return
     check_metric_name(name)
     st = _STATE
+    tl = st.tl
+    stack = tl.__dict__.setdefault("stack", [])
+    parent = stack[-1] if stack else None
+    stack.append(name)
+    t0_wall = time.time()
     t0 = time.perf_counter()
     ok = True
     with correlate(cid if cid is not None else current_cid()):
@@ -362,11 +387,29 @@ def span(name: str, *, cid: str | None = None, **attrs):
             raise
         finally:
             dur_ms = (time.perf_counter() - t0) * 1e3
+            stack.pop()
+            ccid = current_cid()
             st.registry.histogram(f"span.{name}_ms").observe(dur_ms)
+            if st.sink is not None:
+                rec = {"span": name, "dur_ms": round(dur_ms, 3),
+                       "t0": t0_wall, "depth": len(stack)}
+                if st.role is not None:
+                    rec["role"] = st.role
+                if parent is not None:
+                    rec["parent"] = parent
+                if ccid is not None:
+                    rec["cid"] = ccid
+                if not ok:
+                    rec["error"] = True
+                rec.update(attrs)
+                try:
+                    st.sink.log(rec)
+                except Exception:  # a broken sink never breaks a phase
+                    logger.exception("span sink emit failed")
             fl = st.flight
             if fl is not None:
                 try:
-                    fl.on_span(name, dur_ms, current_cid(), ok)
+                    fl.on_span(name, dur_ms, ccid, ok)
                 except Exception:  # forensics must never break a phase
                     logger.exception("flight span hook failed")
 

@@ -292,20 +292,20 @@ def test_declined_merge_is_not_recomputed(world, tmp_path):
 
 
 def test_unported_planes_and_strategies_raise(world):
-    # the lineage, base-distribution, lease and tree planes are ported:
-    # accepted
+    # the lineage, base-distribution, lease, tree, fleet and remediation
+    # planes are ported: accepted
     for kw in ({"lineage": object()}, {"base_dist": object()},
                {"lease": object()}, {"hierarchy": ["n0"]},
-               {"lora_cfg": LoRAConfig(rank=4)}):
+               {"lora_cfg": LoRAConfig(rank=4)}, {"fleet": object()},
+               {"remediation": object()}):
         loop = tavg.AveragerLoop(world["teng"], None, None,
                                  tavg.WeightedAverage(), val_batches=None,
                                  **kw)
         assert getattr(loop, next(iter(kw))) == kw[next(iter(kw))]
-    for kw, slice_no in (({"fleet": object()}, 7),
-                         ({"remediation": object()}, 7)):
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            tavg.AveragerLoop(world["teng"], None, None,
-                              tavg.WeightedAverage(), val_batches=None, **kw)
+    # a keyword the JAX loop does not take is still refused
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        tavg.AveragerLoop(world["teng"], None, None, tavg.WeightedAverage(),
+                          val_batches=None, exporter=object())
     # ParameterizedMerge, OuterOptMerge and GeneticMerge are ported
     # (tests/test_torch_parameterized_merge.py, test_torch_outer_merge.py,
     # test_torch_genetic_merge.py)
@@ -373,11 +373,18 @@ def test_averager_flags_match_the_jax_parser():
     (AVG_ARGS + ["--hier", "root"], None),
     (AVG_ARGS + ["--standby"], None),
     (AVG_ARGS + ["--sign-artifacts"], None),
-    (AVG_ARGS + ["--remediate"], 7),
+    # the fleet health plane is ported (tests/test_torch_health.py,
+    # test_torch_remediate.py); the ids are those of the cases when they
+    # were refused
+    pytest.param(AVG_ARGS + ["--remediate"], None, id="extra9-7"),
     (AVG_ARGS + ["--chain", "bittensor"], 7),
     # LoRA is ported (tests/test_torch_lora_train.py runs the CLIs)
     pytest.param(AVG_ARGS + ["--lora-rank", "4"], None, id="extra11-7"),
-    (AVG_ARGS + ["--metrics-path", "m.jsonl"], 7),
+    pytest.param(AVG_ARGS + ["--metrics-path", "m.jsonl"], None,
+                 id="extra12-7"),
+    (AVG_ARGS + ["--heartbeat-interval", "2", "--remediate", "--standby"],
+     None),
+    (AVG_ARGS + ["--obs-port", "9100"], 7),
 ])
 def test_averager_refusals_name_their_slice(extra, slice_no):
     cfg = RunConfig.from_args("averager", extra)
@@ -432,3 +439,85 @@ def test_averager_path_loads_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_remediate_round_matches_jax_with_a_stale_miner(world, tmp_path):
+    """``--remediate`` averagers of both packages, each holding its
+    publication lease, on copies of one root where three miners publish
+    every round and beat until hotkey_3 stops after round 1: round 5
+    breaches ``stale_node``, both quarantine it, round 6 merges without
+    it. The same cohorts and quarantine every round, published bases
+    within 1e-6, one lease epoch stamped with each revision."""
+    from distributedtraining_tpu.engine import health as jh
+    from distributedtraining_tpu.engine import remediate as jrem
+    from distributedtraining_tpu.engine.scheduler import FakeClock as JClock
+    from distributedtraining_tpu_torch.engine import health as th
+    from distributedtraining_tpu_torch.engine import remediate as trem
+    from distributedtraining_tpu_torch.transport.base import (heartbeat_id,
+                                                              lease_id)
+    from distributedtraining_tpu_torch.utils.metrics import InMemorySink
+    roots = {s: str(tmp_path / s / "artifacts") for s in ("port", "jax")}
+    chain_dir = str(tmp_path / "chain")
+    _set_weights(chain_dir)
+    sides = {}
+    for side, root in roots.items():
+        if side == "port":
+            t = LocalFSTransport(root)
+            fleet = th.FleetMonitor(t, clock=FakeClock(0.0))
+            loop = _port_loop(world, root, chain_dir,
+                              publish_policy="always", fleet=fleet,
+                              metrics=InMemorySink(),
+                              remediation=trem.RemediationEngine(fleet),
+                              lease=trem.LeaseManager(t, "hotkey_95"))
+        else:
+            t = JFS(root)
+            fleet = jh.FleetMonitor(t, clock=JClock(0.0))
+            loop = _jax_loop(world, root, chain_dir,
+                             publish_policy="always", fleet=fleet,
+                             remediation=jrem.RemediationEngine(fleet),
+                             lease=jrem.LeaseManager(t, "hotkey_95"))
+        assert loop.lease.acquire()
+        loop.bootstrap(params=(world["base"] if side == "port" else
+                               jax.tree_util.tree_map(jnp.asarray,
+                                                      world["base"])))
+        sides[side] = {"t": t, "loop": loop, "log": []}
+    miners = ("hotkey_1", "hotkey_2", "hotkey_3")
+    try:
+        for rnd in range(1, 7):
+            for side, s in sides.items():
+                jt = JFS(roots[side])
+                rev = jt.base_revision()
+                for i, h in enumerate(miners):
+                    jt.publish_delta(h, _delta(10 * rnd + i))
+                    jt.publish_delta_meta(h, {"base_revision": rev})
+                    if h != "hotkey_3" or rnd == 1:
+                        jt.publish_delta_meta(
+                            heartbeat_id("miner", h),
+                            th.build_heartbeat("miner", h, rnd, now=rnd,
+                                               steps=10 * rnd))
+                loop = s["loop"]
+                assert loop.run_round()
+                ids = sorted(h for h, st in loop._round_staged.items())
+                s["log"].append((ids, sorted(loop.remediation.quarantined()),
+                                 loop.report.last_rejected,
+                                 loop.report.skipped_publishes))
+        port, ref = sides["port"], sides["jax"]
+        assert port["log"] == ref["log"]
+        assert port["log"][3][:2] == (list(miners), []) and \
+            port["log"][4][1] == ["hotkey_3"]
+        assert port["log"][5] == (["hotkey_1", "hotkey_2"], ["hotkey_3"],
+                                  1, 0)
+        ours, theirs = _published(roots["port"]), _published(roots["jax"])
+        for k in ours:
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=0, atol=1e-6)
+        for side, s in sides.items():
+            token = trem.parse_lease(s["t"].fetch_delta_meta(lease_id()))
+            assert token["epoch"] == 1 and token["holder"] == "hotkey_95"
+            assert token["base_revision"] == s["t"].base_revision()
+        recs = port["loop"].metrics.records
+        assert [r["lease_epoch"] for r in recs if "lease_epoch" in r] \
+            == [1] * 6
+        assert any("fleet_ledger" in r for r in recs)
+    finally:
+        for s in sides.values():
+            s["loop"].close()

@@ -634,7 +634,7 @@ def test_config_takes_init_from_and_scan_blocks(role):
     from distributedtraining_tpu_torch.config import RunConfig
     RunConfig.from_args(role, ["--init-from", "hf:org/name",
                                "--scan-blocks"]).check_ported()
-    for extra in (["--backend", "hf"], ["--metrics-path", "m.jsonl"],
+    for extra in (["--backend", "hf"], ["--obs-port", "9100"],
                   ["--chaos-spec", "x"]):
         with pytest.raises(NotImplementedError, match="slice 7"):
             RunConfig.from_args(role, ["--init-from", "x", *extra]

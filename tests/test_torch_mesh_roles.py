@@ -845,3 +845,114 @@ def test_a_mismatched_key_ends_every_rank_promptly(tmp_path):
     for out in outs:
         assert "different registered pubkey" in out
     assert elapsed < 120
+
+
+def _lease(work, role="averager"):
+    from distributedtraining_tpu_torch.engine.remediate import parse_lease
+    from distributedtraining_tpu_torch.transport.base import lease_id
+    return parse_lease(LocalFSTransport(str(work / "artifacts"))
+                       .fetch_delta_meta(lease_id(role)))
+
+
+def test_remediate_averager_cli_holds_one_lease_on_two_processes(tmp_path):
+    """``--remediate --heartbeat-interval`` on a world of two: the
+    coordinator acquires the lease once at boot, renews and stamps it
+    for its one publish, beats and writes the JSONL; rank 1 does none of
+    it and follows every verdict."""
+    from distributedtraining_tpu_torch.engine.health import parse_heartbeat
+    from distributedtraining_tpu_torch.transport.base import heartbeat_id
+    work = _cli_root(tmp_path)
+    jsonl = tmp_path / "avg.jsonl"
+    rcs, outs, res = _run_cli(tmp_path / "avg", "averager", _CLI + [
+        "--work-dir", str(work), "--hotkey", "hotkey_95",
+        "--publish-policy", "always", "--strategy", "weighted",
+        "--remediate", "--heartbeat-interval", "0.2",
+        "--metrics-path", str(jsonl)])
+    assert rcs == [0, 0], "\n".join(outs)
+    assert [r["rc"] for r in res] == [0, 0]
+    assert [r["counts"].get("acquire", 0) for r in res] == [1, 0]
+    assert [r["counts"].get("stamp", 0) for r in res] == [1, 0]
+    assert [r["counts"].get("publish_base", 0) for r in res] == [1, 0]
+    token = _lease(work)
+    t = LocalFSTransport(str(work / "artifacts"))
+    assert token["epoch"] == 1 and token["holder"] == "hotkey_95"
+    assert token["base_revision"] == t.base_revision()
+    hb = parse_heartbeat(t.fetch_delta_meta(
+        heartbeat_id("averager", "hotkey_95")))
+    # the first beat fires at the plane's start; the round may end
+    # before the next (the JAX averager sends no last beat either)
+    assert hb["role"] == "averager" and hb["seq"] >= 1
+    recs = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    assert [r["lease_epoch"] for r in recs if "lease_epoch" in r] == [1]
+    assert any("fleet_ledger" in r for r in recs)
+    assert any(r.get("span") == "avg.publish" for r in recs)
+
+
+def test_standby_world_takes_over_together(tmp_path):
+    """A ``--standby`` averager on a world of two behind a primary that
+    went quiet at epoch 1: the coordinator's verdict reaches both ranks,
+    which take over at epoch 2, bootstrap and merge together (each exits
+    0); the coordinator alone acquires, stamps and publishes."""
+    from distributedtraining_tpu_torch.engine.remediate import LeaseManager
+    work = _cli_root(tmp_path)
+    assert LeaseManager(LocalFSTransport(str(work / "artifacts")),
+                        "hotkey_95").acquire()
+    rcs, outs, res = _run_cli(tmp_path / "sb", "averager", _CLI + [
+        "--work-dir", str(work), "--hotkey", "hotkey_96",
+        "--publish-policy", "always", "--strategy", "weighted",
+        "--standby", "--failover-deadline", "2",
+        "--averaging-interval", "4"])
+    assert rcs == [0, 0], "\n".join(outs)
+    assert [r["rc"] for r in res] == [0, 0]
+    assert [r["counts"].get("acquire", 0) for r in res] == [1, 0]
+    assert [r["counts"].get("stamp", 0) for r in res] == [1, 0]
+    assert [r["counts"].get("publish_base", 0) for r in res] == [1, 0]
+    token = _lease(work)
+    assert token["epoch"] == 2 and token["holder"] == "hotkey_96"
+
+
+def test_hier_sub_world_publishes_world_one_bytes(tmp_path, monkeypatch):
+    """``--hier sub --remediate`` on a world of two and on one process,
+    each on a copy of one root (two dense deltas and a JAX miner's
+    int8 wire-v2 submission, which one process folds packed, by the
+    scatter): the coordinator publishes one ``__agg__.n0`` artifact
+    whose bytes (and rider) are the one-process node's, and the
+    per-node ``subavg.n0`` lease is acquired and stamped once, by the
+    coordinator."""
+    from distributedtraining_tpu_torch.neurons import averager as tcli
+    work = _cli_root(tmp_path)
+    jt = JFS(str(work / "artifacts"))
+    rng = np.random.default_rng(2)
+    packed, _ = jdl.pack_delta_v2(jax.tree_util.tree_map(
+        lambda x: jnp.asarray((rng.standard_normal(np.shape(x))
+                               * 1e-3).astype(np.float32)),
+        tg.init_params_numpy(tg.PRESETS["tiny"], 0)),
+        density=1.0 / 16.0, quant="int8")
+    _jpublish_v2(jt, "hotkey_3", jax.tree_util.tree_map(np.asarray, packed),
+                 jt.base_revision(), "cid-3")
+    one = tmp_path / "one"
+    shutil.copytree(work, one)
+    sub = _CLI + ["--hotkey", "hotkey_97", "--hier", "sub", "--hier-node",
+                  "n0", "--hier-nodes", "n0", "--remediate"]
+    rcs, outs, res = _run_cli(tmp_path / "sub", "averager",
+                              sub + ["--work-dir", str(work)])
+    assert rcs == [0, 0], "\n".join(outs)
+    assert [r["rc"] for r in res] == [0, 0]
+    assert [r["counts"].get("acquire", 0) for r in res] == [1, 0]
+    assert [r["counts"].get("stamp", 0) for r in res] == [1, 0]
+    monkeypatch.setenv("DT_FORCE_PLATFORM", "cpu")
+    import logging
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        assert tcli.main(sub + ["--work-dir", str(one)]) == 0
+    finally:
+        root.handlers[:], root.level = handlers, level
+    for name in ("__agg__.n0.msgpack", "__agg__.n0.meta.json"):
+        got = (work / "artifacts" / "deltas" / name).read_bytes()
+        assert got == (one / "artifacts" / "deltas" / name).read_bytes()
+    rider = json.loads((work / "artifacts" / "deltas" /
+                        "__agg__.n0.meta.json").read_text())
+    assert rider["agg"] == {"weight": 3.0, "miners": 3, "node": "n0"}
+    token = _lease(work, "subavg.n0")
+    assert token["epoch"] == 1 and token["holder"] == "hotkey_97"

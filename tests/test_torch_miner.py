@@ -255,8 +255,10 @@ def test_async_and_sync_artifacts_byte_identical(world):
 def test_unported_miner_options_raise(world):
     model, _ = tg.make_model(TINY)
     eng = ttrain.TrainEngine(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ttrain.MinerLoop(eng, InMemoryTransport(), "m0", heartbeat=object())
+    # heartbeats are ported (tests/test_torch_health.py); a keyword the
+    # JAX loop does not take is refused
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        ttrain.MinerLoop(eng, InMemoryTransport(), "m0", exporter=object())
     # the int8 and sparse8 wire forms are ported
     # (tests/test_torch_delta_codecs.py); v2 still replaces them, as in JAX
     for dt in ("int8", "sparse8"):
@@ -268,7 +270,7 @@ def test_unported_miner_options_raise(world):
     # checkpoints, the sharded base fetch, traces and anomaly captures are
     # ported: accepted
     kw = {k: object() for k in ("checkpoint_store", "base_fetcher", "trace",
-                                "anomaly")}
+                                "anomaly", "heartbeat")}
     loop = ttrain.MinerLoop(eng, InMemoryTransport(), "m0", **kw)
     assert all(getattr(loop, k) is v for k, v in kw.items())
     loop.close()
@@ -317,7 +319,13 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
     (MINER_ARGS + ["--fsdp", "2"], None),
     (MINER_ARGS + ["--sp", "2"], None),
     (MINER_ARGS + ["--dcn-dp", "2"], None),
-    (MINER_ARGS + ["--metrics-path", "m.jsonl"], 7),
+    # the JSONL sink and the health plane are ported
+    # (tests/test_torch_metrics.py, test_torch_health.py); the id is the
+    # case's when it was refused
+    pytest.param(MINER_ARGS + ["--metrics-path", "m.jsonl"], None,
+                 id="extra11-7"),
+    (MINER_ARGS + ["--heartbeat-interval", "2"], None),
+    (MINER_ARGS + ["--obs-port", "9100"], 7),
 ])
 def test_config_refuses_what_is_not_ported(extra, slice_no):
     cfg = RunConfig.from_args("miner", extra)

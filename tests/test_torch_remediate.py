@@ -309,3 +309,129 @@ def test_standby_cli_takes_over_on_cpu(tmp_path, monkeypatch):
     assert token["holder"] == "hotkey_96" and token["epoch"] == 1
     assert t.base_revision() not in (None, rev)
     assert token["base_revision"] == t.base_revision()
+
+
+# ---------------------------------------------------------------------------
+# Quarantine and elastic cohorts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("configured", [0, 1, 2, 4, 8, 16, 24])
+def test_elastic_cohort_grid_matches_jax(configured):
+    for healthy in range(0, 26):
+        for compiled in ((), (4,), (2, 16), (1, 8, 32), (5, 6)):
+            assert rem.elastic_cohort(configured, healthy,
+                                      compiled=compiled) \
+                == jrem.elastic_cohort(configured, healthy,
+                                       compiled=compiled)
+
+
+def _breach(rule, hotkey, rnd, role="miner"):
+    return {"slo_breach": rule, "role": role, "hotkey": hotkey,
+            "detail": f"{rule} on {hotkey}", "round": rnd}
+
+
+def test_remediation_engine_matches_jax_on_one_breach_script():
+    """Quarantine, clean beats, probation, healthy, a relapse and a
+    pruned node, driven the same way through each package's engine over
+    its own FleetMonitor."""
+    from distributedtraining_tpu.engine import health as jh
+    from distributedtraining_tpu_torch.engine import health as th
+    from distributedtraining_tpu_torch.utils.metrics import InMemorySink
+    from distributedtraining_tpu.utils.metrics import InMemorySink as JSink
+    sides = {}
+    for side, h, r, sink in (("port", th, rem, InMemorySink()),
+                             ("jax", jh, jrem, JSink())):
+        fleet = h.FleetMonitor(InMemoryTransport(), metrics=sink)
+        policy = r.RemediationPolicy(probation_beats=2, probation_rounds=1,
+                                     score_decay=0.5)
+        sides[side] = (fleet, r.RemediationEngine(fleet, policy=policy,
+                                                  metrics=sink), sink)
+    # round: (breaches, {hotkey: fresh beats this round}, scores)
+    script = [
+        ([], {"m1": 1, "m2": 1, "m3": 1}, {"m1": 1.0, "m2": 2.0}),
+        ([_breach("stale_node", "m1", 2),
+          _breach("step_rate_collapse", "m2", 2),     # not a policy rule
+          _breach("loss_divergence", "m3", 2, role="validator")],
+         {"m2": 1, "m3": 1}, {"m1": 1.0, "m2": 2.0}),
+        ([_breach("stale_node", "m1", 3)], {}, {"m1": 4.0, "m3": 0.0}),
+        ([], {"m1": 1}, {"m1": 4.0}),
+        ([], {"m1": 1}, {"m1": 4.0}),     # 2 clean beats: probation
+        ([], {}, {"m1": 4.0}),            # probation over: healthy
+        ([_breach("push_failure_streak", "m1", 7)], {"m1": 1},
+         {"m1": 8.0}),                    # relapse: requarantined
+        ([], {"m1": 1}, {"m1": 8.0}),
+    ]
+    logs = {"port": [], "jax": []}
+    for i, (breaches, beats, scores) in enumerate(script):
+        for side, (fleet, eng, _) in sides.items():
+            fleet.round += 1
+            for hk, n in beats.items():
+                node = fleet.node("miner", hk)
+                node.beats += n
+                node.last_seen_round = fleet.round
+            if i == 7:   # m3 left the registry: its case closes
+                fleet.nodes.pop(("miner", "m3"), None)
+            acts = eng.observe_round(breaches)
+            logs[side].append((
+                [{k: a[k] for k in ("remediation", "hotkey", "rule",
+                                    "round")} for a in acts],
+                sorted(eng.quarantined()), eng.decay_scores(scores),
+                [eng.is_excluded(h) for h in ("m1", "m2", "m3")],
+                eng.filter_hotkeys(["m3", "m1", "m2"]),
+                eng.quarantines, eng.readmissions,
+                {k[1]: (n.quarantined, n.probation)
+                 for k, n in sorted(fleet.nodes.items())}))
+    assert logs["port"] == logs["jax"]
+    actions = [a["remediation"] for acts, *_ in logs["port"] for a in acts]
+    assert actions == ["quarantined", "readmitted", "healthy",
+                       "requarantined"]
+    assert logs["port"][2][2] == {"m1": 2.0, "m3": 0.0}   # decayed
+    assert [r for r in sides["port"][2].records if "remediation" in r] \
+        and len(sides["port"][2].records) == len(sides["jax"][2].records)
+    for bad in (dict(probation_beats=0), dict(probation_rounds=-1),
+                dict(score_decay=1.5)):
+        with pytest.raises(ValueError):
+            rem.RemediationPolicy(**bad)
+    for fleet, *_ in sides.values():
+        fleet.close()
+
+
+def test_port_standby_follows_a_jax_primary_heartbeat(tmp_path):
+    """A JAX primary that holds the lease but never renews it: only its
+    ``__hb__.averager.<holder>`` heartbeat advances, and that keeps a
+    port standby following well past its deadline; once the beats stop
+    it takes the next epoch within the deadline plus one poll."""
+    from distributedtraining_tpu.engine import health as jh
+    root = str(tmp_path / "artifacts")
+    jt, t = JFS(root), LocalFSTransport(root)
+    jclock, clock = JFakeClock(0.0), FakeClock(0.0)
+    jt.publish_base({"w": np.zeros(2, np.float32)})
+    jlease = jrem.LeaseManager(jt, "hotkey_95", clock=jclock)
+    assert jlease.acquire()
+    beats = jh.HeartbeatPublisher(jt, "averager", "hotkey_95", interval=60,
+                                  clock=jclock,
+                                  collect=lambda: {"rounds": 1.0})
+    lease = rem.LeaseManager(t, "hotkey_96", clock=clock)
+    loop = _Loop(t)
+    standby = rem.StandbyAverager(loop, lease, deadline_s=30.0, poll_s=5.0,
+                                  clock=clock)
+    try:
+        beats.beat_now()
+        assert standby.poll_once() == "following"
+        for _ in range(12):            # 60 s of beats: past the deadline
+            clock.advance(5.0)
+            jclock.advance(5.0)
+            beats.beat_now()
+            assert standby.poll_once() == "following"
+            assert standby.stalled_for() == 0.0
+        last_beat = clock.now()
+        polls = 0
+        while standby.poll_once() != "takeover":
+            clock.advance(5.0)
+            polls += 1
+            assert polls < 20
+        assert last_beat + 30.0 <= clock.now() <= last_beat + 30.0 + 5.0
+        assert lease.epoch == 2 and loop.boots == 1
+        assert not jlease.renew()      # the JAX primary stands down
+    finally:
+        beats.close()

@@ -77,9 +77,11 @@ def test_server_flags_match_the_jax_parser():
     # the ids are those of the cases when slice 6b refused them
     pytest.param(["--serve-phase", "prefill"], None, id="extra4-6b"),
     pytest.param(["--serve-phase", "decode"], None, id="extra5-6b"),
-    (["--heartbeat-interval", "2"], 7),
+    # heartbeats and the JSONL sink are ported (tests/test_torch_health.py,
+    # test_torch_metrics.py); the ids are those of the refused cases
+    pytest.param(["--heartbeat-interval", "2"], None, id="extra6-7"),
     (["--obs-port", "9100"], 7),
-    (["--metrics-path", "m.jsonl"], 7),
+    pytest.param(["--metrics-path", "m.jsonl"], None, id="extra8-7"),
 ])
 def test_server_refusals_name_their_slice(extra, slice_no):
     cfg = RunConfig.from_args("server", extra)

@@ -498,12 +498,17 @@ def test_unpermitted_validator_never_emits_weights(world, tmp_path):
 
 
 @pytest.mark.parametrize("kw,slice_no", [
-    ({"fleet": object()}, 7), ({"remediation": object()}, 7),
+    # the fleet plane, remediation and the metrics sink are ported; the
+    # ids are those of the cases when they were refused
+    pytest.param({"fleet": object()}, None, id="kw0-7"),
+    pytest.param({"remediation": object()}, None, id="kw1-7"),
     ({"base_fetcher": object()}, None),
     # LoRA submissions are ported (tests/test_torch_lora_train.py); the
     # id is the case's when they were refused
     pytest.param({"lora_cfg": LoRAConfig(rank=4)}, None, id="kw3-7"),
-    ({"metrics": object()}, 7)])
+    pytest.param({"metrics": object()}, None, id="kw4-7"),
+    # a keyword the JAX validator does not take
+    ({"exporter": object()}, TypeError)])
 def test_unported_validator_planes_raise(world, kw, slice_no):
     if slice_no is None:    # ported: accepted
         val = tval.Validator(world["teng"], None, None, eval_batches=None,
@@ -511,7 +516,7 @@ def test_unported_validator_planes_raise(world, kw, slice_no):
         (name, value), = kw.items()
         assert getattr(val, name) is value
         return
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    with pytest.raises(slice_no, match="unexpected keyword"):
         tval.Validator(world["teng"], None, None, eval_batches=None, **kw)
 
 
@@ -547,9 +552,16 @@ def test_validator_flags_match_the_jax_parser():
     # opt-outs of them are ported: None means accepted
     ([], None),
     (["--no-base-wire-v2"], None),
-    (VAL_ARGS + ["--remediate"], 7),
-    (VAL_ARGS + ["--heartbeat-interval", "2"], 7),
-    (VAL_ARGS + ["--metrics-path", "m.jsonl"], 7),
+    # the fleet health plane and the JSONL sink are ported
+    # (tests/test_torch_health.py, test_torch_metrics.py); the ids are
+    # those of the cases when they were refused
+    pytest.param(VAL_ARGS + ["--remediate"], None, id="extra2-7"),
+    pytest.param(VAL_ARGS + ["--heartbeat-interval", "2"], None,
+                 id="extra3-7"),
+    pytest.param(VAL_ARGS + ["--metrics-path", "m.jsonl"], None,
+                 id="extra4-7"),
+    (VAL_ARGS + ["--obs-port", "9100"], 7),
+    (VAL_ARGS + ["--mlflow-uri", "http://x"], 7),
     pytest.param(VAL_ARGS + ["--lora-rank", "4"], None, id="extra5-7"),
     # ported (tests/test_torch_signing.py runs the validator CLI with it)
     (VAL_ARGS + ["--sign-artifacts"], None),
@@ -607,3 +619,131 @@ def test_validator_path_loads_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _fleet_chain(chain_cls, hotkeys, sink):
+    """A chain whose metagraph holds ``hotkeys`` only and which records
+    every weight vector it is handed."""
+    class Few(chain_cls):
+        def sync(self):
+            m = super().sync()
+            keep = [i for i, h in enumerate(m.hotkeys) if h in hotkeys]
+            return dataclasses.replace(
+                m, hotkeys=[m.hotkeys[i] for i in keep],
+                uids=[m.uids[i] for i in keep],
+                stakes=[m.stakes[i] for i in keep])
+
+        def should_set_weights(self):
+            return True
+
+        def set_weights(self, scores):
+            sink.append(dict(scores))
+            return super().set_weights(scores)
+    return Few
+
+
+def test_remediate_round_matches_jax_with_a_stale_miner(world,
+                                                        tmp_path_factory):
+    """``--remediate`` validators of both packages on one root: four
+    honest miners beat (through the port's publisher) until hotkey_4
+    stops after round 1. Round 5 breaches ``stale_node`` on it, both
+    engines quarantine it, and round 6 stages it as ``quarantined`` and
+    decays its score: the same scores (1e-6), the same quarantine, the
+    same effective cohort, the same ledger."""
+    from distributedtraining_tpu.engine import health as jh
+    from distributedtraining_tpu.engine import remediate as jrem
+    from distributedtraining_tpu.engine.scheduler import FakeClock as JClock
+    from distributedtraining_tpu.utils import obs as jobs
+    from distributedtraining_tpu.utils.metrics import InMemorySink as JSink
+    from distributedtraining_tpu_torch.engine import health as th
+    from distributedtraining_tpu_torch.engine import remediate as trem
+    from distributedtraining_tpu_torch.utils import obs
+    from distributedtraining_tpu_torch.utils.metrics import InMemorySink
+    d = tmp_path_factory.mktemp("remediate")
+    members = ("hotkey_91",) + HONEST
+    pt = LocalFSTransport(world["root"])
+    clock = FakeClock(0.0)
+    beats = {h: th.HeartbeatPublisher(pt, "miner", h, interval=60,
+                                      clock=clock,
+                                      collect=lambda: {"steps": 1.0})
+             for h in HONEST}
+    sides = {}
+    obs.configure()
+    jobs.configure(JSink())
+    for side in ("port", "jax"):
+        weights: list = []
+        if side == "port":
+            sink = InMemorySink()
+            fleet = th.FleetMonitor(pt, metrics=sink, clock=clock)
+            v = tval.Validator(
+                world["teng"], pt,
+                _fleet_chain(LocalChain, members, weights)(
+                    str(d / side), my_hotkey="hotkey_91"),
+                eval_batches=lambda: iter(world["val"]), cohort_size=8,
+                metrics=sink, fleet=fleet,
+                remediation=trem.RemediationEngine(fleet, metrics=sink))
+        else:
+            sink = JSink()
+            fleet = jh.FleetMonitor(JFS(world["root"]), metrics=sink,
+                                    clock=JClock(0.0))
+            v = JValidator(
+                world["jeng"], JFS(world["root"]),
+                _fleet_chain(JChain, members, weights)(
+                    str(d / side), my_hotkey="hotkey_91"),
+                eval_batches=lambda: iter(world["val"]), cohort_size=8,
+                metrics=sink, fleet=fleet,
+                remediation=jrem.RemediationEngine(fleet, metrics=sink))
+        sides[side] = {"v": v, "fleet": fleet, "sink": sink,
+                       "weights": weights, "rounds": []}
+    try:
+        for v in (sides["port"]["v"], sides["jax"]["v"]):
+            v.bootstrap()
+        for rnd in range(1, 7):
+            for h, pub in beats.items():
+                if h != "hotkey_4" or rnd == 1:
+                    pub.beat_now()
+            for side, s in sides.items():
+                res = {r.hotkey: r for r in s["v"].validate_and_score()}
+                reg = obs.registry() if side == "port" else jobs.registry()
+                s["rounds"].append((
+                    {h: r.reason for h, r in res.items()},
+                    sorted(s["v"].remediation.quarantined()),
+                    reg.gauge("val.effective_cohort").value))
+            clock.advance(30.0)
+        port, ref = sides["port"], sides["jax"]
+        assert port["rounds"] == ref["rounds"]
+        assert port["rounds"][3][1] == [] \
+            and port["rounds"][4][1] == ["hotkey_4"]
+        assert port["rounds"][5][0]["hotkey_4"] == "quarantined"
+        # the elastic cohort: 4 stageable miners under a cohort of 8
+        assert {r[2] for r in port["rounds"]} == {4.0}
+        assert len(port["weights"]) == len(ref["weights"]) == 6
+        # a score is a difference of two f32 losses near 6: four ulps of
+        # the loss, as test_validator_round_matches_jax holds it
+        ulp = float(np.spacing(np.float32(ref["v"].base_loss)))
+        for ours, theirs in zip(port["weights"], ref["weights"]):
+            assert ours.keys() == theirs.keys()
+            for h in ours:
+                assert abs(ours[h] - theirs[h]) <= max(1e-6, 4 * ulp), h
+        assert port["weights"][5]["hotkey_4"] == 0.0
+        assert port["weights"][3]["hotkey_4"] > 0.0
+        # the breach, the action and the ledger reached each sink
+        for s in (port, ref):
+            recs = s["sink"].records
+            assert [(r["slo_breach"], r["hotkey"]) for r in recs
+                    if "slo_breach" in r] == [("stale_node", "hotkey_4")]
+            assert [r["remediation"] for r in recs
+                    if "remediation" in r] == ["quarantined"]
+        led = port["fleet"].ledger()["miner/hotkey_4"]
+        jled = ref["fleet"].ledger()["miner/hotkey_4"]
+        for k in ("quarantined", "published", "accepted", "declined",
+                  "last_reason", "beats", "stale_rounds", "breaches"):
+            assert led[k] == jled[k], k
+        assert led["quarantined"] == 1 and led["last_reason"] == "quarantined"
+    finally:
+        for pub in beats.values():
+            pub.close()
+        for s in sides.values():
+            s["v"].close()
+        obs.reset()
+        jobs.reset()

@@ -12,8 +12,9 @@ WORLD), and writes
 
 runs ``args["role"]``'s entry point on ``args["argv"] + args["rank_argv"]
 [RANK]`` (the CLI brings its world up itself, from its ``--multihost-*``
-flags), counting the local chain's ``set_weights`` and the local
-transport's ``publish_base`` calls, and writes ``IO_DIR/cli_RANK.json``
+flags), counting the local chain's ``set_weights``, the local
+transport's ``publish_base`` and the publication lease's ``acquire`` and
+``stamp`` calls, and writes ``IO_DIR/cli_RANK.json``
 (the return code, the counts and the seconds it took). A ``SystemExit``
 of the entry point ends the process as it would end the role.
 
@@ -300,12 +301,14 @@ def cli_main(rank: str, io_dir: str) -> int:
     import time
 
     from distributedtraining_tpu_torch.chain import LocalChain
+    from distributedtraining_tpu_torch.engine.remediate import LeaseManager
     from distributedtraining_tpu_torch.transport import LocalFSTransport
     with open(os.path.join(io_dir, "args.json")) as f:
         args = json.load(f)
     counts = collections.Counter()
     for cls, name in ((LocalChain, "set_weights"),
-                      (LocalFSTransport, "publish_base")):
+                      (LocalFSTransport, "publish_base"),
+                      (LeaseManager, "acquire"), (LeaseManager, "stamp")):
         def counted(self, *a, _f=getattr(cls, name), _n=name, **kw):
             counts[_n] += 1
             return _f(self, *a, **kw)
