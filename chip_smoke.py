@@ -19,6 +19,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --convert
     python3 chip_smoke.py --health
     python3 chip_smoke.py --beat-ab [ROUNDS [CLI_PAIRS]]
+    python3 chip_smoke.py --obs
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
 The second form is one side of a before/after comparison of the decode
@@ -46,7 +47,7 @@ alone, ``--lora`` phase 28 with its full-depth part,
 launch and the launch's inputs and outputs checked, so that a fault
 names its kernel), ``--convert`` phase 29's ``llama2-7b`` part,
 ``--health`` phase 30 alone, ``--beat-ab`` a heartbeat's cost
-on the miner's step (:func:`beat_ab`), and ``--parallel-cards`` the worlds of phases 23 and 24
+on the miner's step (:func:`beat_ab`), ``--obs`` phase 31 alone, and ``--parallel-cards`` the worlds of phases 23 and 24
 over NCCL on every card of a machine with several (at world 4 with the
 sp2 x tp2 and dp2 x sp2 engines too). ``--tp-ab DIR...`` times phase 23's tp
 engine steps with the package of each checkout DIR in turn (parent,
@@ -682,6 +683,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
            alternating (:func:`beat_ab`). In the whole script
            it runs in the child of phase 29, after it (``--health-child
            OUT``); ``--health`` runs it alone after the build.
+31. obs    the device observatory, the exporter and fault injection, at
+           GPT-2-124M (B 4 x T 512). First the kernels the phase runs
+           against their plain versions at its shapes: flash forward and
+           backward at [4, 512, 12, 64] (a real packed batch's ids, as
+           phase 4 holds them), the fused CE at its 2044 rows (the
+           batch's targets and mask, as phase 11), paged decode at the
+           server's 8 slots (contexts 515-664) and the window at a
+           64-row suffix over 512 (as phase 21). (a) The miner CLI
+           (``--fused-loss --wire-v2 --metrics-path ... --obs-port P
+           --heartbeat-interval 0.5``) in a process of its own: once it
+           has taken 10 steps, /metrics (timed; ``dt_prog_*`` of
+           ``train.step`` present), /healthz and /debug/stacks are
+           read, ``/debug/profile?ms=300`` captures while a second
+           capture must answer 409, and the trace must name
+           ``dt.train.step[4x512]`` and the flash and CE kernels; the
+           miner is stopped, and its JSONL's last ``{"devprof"}`` record
+           must give train.step FLOPs within 5% of the analytic count
+           (the matrix products, the flash kernels' 18 D FLOPs a visible
+           pair and head for the first batch, the CE's 8 N V E) and an
+           ``achieved_flops_frac`` in (0, 1.05] against the card's
+           roofline; its last beat must carry ``anat.step_ms``,
+           ``anat.device_ms`` and ``anat.host_ms``; launches exact (12 x
+           steps of each flash kernel, steps of each CE kernel). (b) The
+           server CLI in this process with ``--obs-port`` and
+           ``--metrics-path``: phase 21's prompts as 8 greedy requests,
+           /metrics scraped while it serves must hold
+           ``dt_serve_ttft_ms{q="0.5"}`` and ``dt_prog_exec_ms{prog=
+           "serve.decode",...}``; launches exact (paged decode 12 x
+           decode dispatches, window 12 x suffix prefills, flash forward
+           12 x full prefills); serve.decode's devprof record. (c) Two
+           miner CLIs (dense pushes, 3 steps) and then a validator round
+           (one ingest worker), each a process with ``--chaos-spec``
+           (seed 3, ``fetch_error_rate`` 0.2, hotkey_2 partitioned):
+           every process exits 0, and the verdicts, the miners scored
+           above 0 and every process's ``chaos.*`` counters equal
+           OBS_CHAOS_ROUND, what tests/test_torch_chaos.py pins for the
+           same spec on the CPU. (d) A back-to-back pair of 30-step
+           miners with ``--metrics-path``, without and with
+           ``--no-devprof``: each one's step p50 and first step's host
+           wall. In the whole script it runs in the child of phases 29
+           and 30, after them (``--obs-child OUT``); ``--obs`` runs it
+           alone after the build.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
@@ -692,7 +735,7 @@ a ``mesh_roles`` JSON line (phase 24), an ``sp`` JSON line (phase 25),
 an ``llama`` JSON line (phase 26; its ``llama_host`` line comes first),
 an ``llama_train`` JSON line (phase 27), a ``lora`` JSON line (phase
 28), a ``convert`` JSON line (phase 29), a ``health`` JSON line (phase
-30), the ``nvidia-smi``
+30), an ``obs`` JSON line (phase 31), the ``nvidia-smi``
 name/power-limit line,
 and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -7828,6 +7871,19 @@ def _llama_cfg(**kw):
     return dataclasses.replace(llama.PRESETS[LLAMA_PRESET], **kw)
 
 
+def _llama_share(cfg) -> float:
+    """``cfg``'s parameters over the whole preset's (counted on the meta
+    device): the share of the preset's base a cut depth publishes."""
+    import torch
+    from distributedtraining_tpu_torch.models import llama
+
+    def count(c) -> int:
+        with torch.device("meta"):
+            model, _ = llama.make_model(c)
+        return sum(v.numel() for v in model.state_dict().values())
+    return count(cfg) / count(_llama_cfg())
+
+
 def _drawn_state(cfg, seed: int) -> dict:
     """A state dict of ``cfg``'s family drawn on the card from a seeded
     ``torch.Generator``, in the JAX init's distributions: norm scales 1,
@@ -8287,13 +8343,15 @@ def _host_available_bytes() -> int:
     return 0
 
 
-def _llama_disk() -> dict:
+def _llama_disk(share: float = 1.0) -> dict:
     """Where the server CLI's root goes: the shard set in the first of
     the temporary directory and the checkout that is on a disk (not
     tmpfs or ramfs) with LLAMA_DISK_BYTES free, the monolithic file in
     LLAMA_SHM. Prints each candidate's free bytes and filesystem and the
     host's available memory, then fails unless all suffice: no depth
-    cut, no fallback."""
+    cut, no fallback. The three needs are the whole preset's; ``share``
+    (a cut depth's parameters over the whole preset's) scales them to
+    the base actually published."""
     import shutil
     import tempfile
     seen = []
@@ -8301,22 +8359,25 @@ def _llama_disk() -> dict:
         seen.append({"dir": d, "free_bytes": shutil.disk_usage(d).free,
                      "fs": _fs_of(d)})
     avail = _host_available_bytes()
+    need_disk, need_shm, need_host = (int(b * share) for b in (
+        LLAMA_DISK_BYTES, LLAMA_SHM_BYTES, LLAMA_HOST_BYTES))
     print(json.dumps({"llama_host": {"candidates": seen,
                                      "mem_available_bytes": avail,
-                                     "need_disk_bytes": LLAMA_DISK_BYTES,
-                                     "need_shm_bytes": LLAMA_SHM_BYTES,
-                                     "need_host_bytes": LLAMA_HOST_BYTES}}),
+                                     "share": share,
+                                     "need_disk_bytes": need_disk,
+                                     "need_shm_bytes": need_shm,
+                                     "need_host_bytes": need_host}}),
           flush=True)
     ok = [c for c in seen[:2] if c["fs"] not in ("tmpfs", "ramfs")
-          and c["free_bytes"] >= LLAMA_DISK_BYTES]
-    check(ok, f"llama server CLI: no disk with {LLAMA_DISK_BYTES} bytes "
+          and c["free_bytes"] >= need_disk]
+    check(ok, f"llama server CLI: no disk with {need_disk} bytes "
               f"free for the 8B base's shard set: {seen}")
-    check(seen[2]["free_bytes"] >= LLAMA_SHM_BYTES,
+    check(seen[2]["free_bytes"] >= need_shm,
           f"llama server CLI: {LLAMA_SHM} has {seen[2]['free_bytes']} "
-          f"bytes free, {LLAMA_SHM_BYTES} needed for the monolithic file")
-    check(avail >= LLAMA_HOST_BYTES,
+          f"bytes free, {need_shm} needed for the monolithic file")
+    check(avail >= need_host,
           f"llama server CLI: {avail} bytes of host memory available, "
-          f"{LLAMA_HOST_BYTES} needed to publish the 8B base")
+          f"{need_host} needed to publish the 8B base")
     return {**ok[0], "candidates": seen, "mem_available_bytes": avail}
 
 
@@ -8424,8 +8485,9 @@ class LlamaCli:
     result); with ``lora`` 28a-b run in a child of their own
     (``--lora-child OUT``) between the two (``lora_result``); with
     ``convert`` phase 29 runs in one more child (``--convert-child
-    OUT``), started at once beside the chain (``convert_result``), and
-    phase 30 after it (``--health-child OUT``, ``health_result``)."""
+    OUT``), started at once beside the chain (``convert_result``),
+    phase 30 after it (``--health-child OUT``, ``health_result``) and
+    phase 31 after that (``--obs-child OUT``, ``obs_result``)."""
 
     def __init__(self, layers: int | None = None, train: bool = False,
                  lora: bool = False, convert: bool = False):
@@ -8456,18 +8518,21 @@ class LlamaCli:
             ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in cmds)],
             stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT)
         self.convert_out = self.convert_proc = None
-        self.convert_result = self.health_result = None
+        self.convert_result = self.health_result = self.obs_result = None
         if convert:
             self.convert_out = os.path.join(self.tmp, "convert.json")
             self.health_out = os.path.join(self.tmp, "health.json")
+            self.obs_out = os.path.join(self.tmp, "obs.json")
             self.convert_log = open(os.path.join(self.tmp, "convert.log"),
                                     "w")
-            # phase 30 after phase 29: its role processes (at most
-            # three at once) meet the chain's children, never 29's
+            # phase 30 after phase 29, and 31 after 30: their role
+            # processes (at most three at once) meet the chain's
+            # children, never each other's
             self.convert_proc = subprocess.Popen(
                 ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in (
                     me + ["--convert-child", self.convert_out],
-                    me + ["--health-child", self.health_out]))],
+                    me + ["--health-child", self.health_out],
+                    me + ["--obs-child", self.obs_out]))],
                 stdout=self.convert_log, stderr=subprocess.STDOUT, cwd=ROOT)
 
     def _join_convert(self) -> None:
@@ -8479,14 +8544,17 @@ class LlamaCli:
         if rc:
             log(f"--- convert and health children (exit {rc}):\n"
                 f"{text[-8000:]}")
-        check(rc == 0, f"phase 29's or 30's child exited {rc}")
+        check(rc == 0, f"phase 29's, 30's or 31's child exited {rc}")
         with open(self.convert_out) as f:
             self.convert_result = {**json.load(f), "waited_s": waited}
         with open(self.health_out) as f:
             self.health_result = {**json.load(f), "waited_s": waited}
-        log("health child:", "\n".join(
+        with open(self.obs_out) as f:
+            self.obs_result = {**json.load(f), "waited_s": waited}
+        log("health and obs children:", "\n".join(
             ln for ln in text.splitlines()
-            if ln.startswith(("health ", "health:")))[-20000:])
+            if ln.startswith(("health ", "health:", "obs ", "obs:")))
+            [-20000:])
 
     def join(self) -> dict:
         """Wait for the children; the first's result with their seconds,
@@ -8548,8 +8616,8 @@ def llama_cli_child(out: str, n_layer: int | None = None) -> int:
     sys.path.insert(0, ROOT)
     import torch
     from distributedtraining_tpu_torch import models
-    disk = _llama_disk()
     cfg = _llama_cfg(**({"n_layer": n_layer} if n_layer else {}))
+    disk = _llama_disk(_llama_share(cfg))
     models.llama.PRESETS[LLAMA_PRESET] = cfg
     state = _drawn_state(cfg, SEED)
     t0 = time.perf_counter()
@@ -10930,7 +10998,9 @@ def health_role(tmp: str, name: str) -> int:
     KeyboardInterrupt, which the CLIs take as their orderly exit). A
     miner with ``min_step_s`` waits that long before each step (the
     live miner of 30(a) then shares the card with the whole script's
-    other phases lightly)."""
+    other phases lightly). A miner also records its first batch's shape
+    and visible pairs a head (what phase 31's FLOP count needs) and each
+    step's host wall."""
     import importlib
     import torch
     sys.path.insert(0, ROOT)
@@ -10948,11 +11018,21 @@ def health_role(tmp: str, name: str) -> int:
             raise KeyboardInterrupt
 
     train_one = MinerLoop._train_one
+    seen["step_wall_ms"] = []
 
     def _train_one(self, batch):
         stopped()
         time.sleep(spec.get("min_step_s", 0.0))
-        return train_one(self, batch)
+        if "first_batch" not in seen:
+            # the batch the device observatory's cost probe counts
+            B, T = batch["input_ids"].shape
+            seen["first_batch"] = {
+                "B": int(B), "T": int(T), "pairs_per_head": _causal_pairs(
+                    B, T, 1, batch["segment_ids"])}
+        t0 = time.perf_counter()
+        out = train_one(self, batch)
+        seen["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
     MinerLoop._train_one = _train_one
     flush = MinerLoop.flush
 
@@ -11186,8 +11266,15 @@ def _health_world1(work: str, tmp: str, cfg) -> dict:
     cohort = [x["val.effective_cohort"] for x in recs
               if x.get("obs_registry") == "validator"
               and "val.effective_cohort" in x]
+    # each round's torn wire-v2 reads (the registry flush after its
+    # round record): a live miner's publish can land between the
+    # validator's manifest and shard reads, which reads as a counted,
+    # transient no_delta (JAX engine/ingest.py's rule too)
+    torn = [x.get("wire.torn_fetches", 0.0) for x in recs
+            if x.get("obs_registry") == "validator"]
+    torn = [b - a for a, b in zip([0.0] + torn, torn)]
     log("health validator:", json.dumps({
-        "breaches": breaches, "actions": actions,
+        "breaches": breaches, "actions": actions, "torn_reads": torn,
         "reasons": [{h: v["reason"] for h, v in r.items()} for r in rounds],
         "scores_hotkey_2": [lg.get("miner/hotkey_2", {}).get("score")
                             for lg in ledgers],
@@ -11197,11 +11284,14 @@ def _health_world1(work: str, tmp: str, cfg) -> dict:
           f"health validator: breaches {breaches}")
     check(actions == [("quarantined", "hotkey_2")],
           f"health validator: actions {actions}")
-    check(len(rounds) == HEALTH_VAL_ROUNDS
+    check(len(rounds) == HEALTH_VAL_ROUNDS and len(torn) >= len(rounds)
           and all(r["hotkey_2"]["reason"] == "quarantined"
                   and r["hotkey_2"]["score"] == 0.0 for r in rounds[5:])
-          and all(r["hotkey_1"]["reason"] == "ok" for r in rounds),
-          f"health validator: round scores {rounds}")
+          and all(r["hotkey_1"]["reason"] == "ok"
+                  or (r["hotkey_1"]["reason"] == "no_delta" and t > 0)
+                  for r, t in zip(rounds, torn)),
+          f"health validator: round scores {rounds}, torn reads a round "
+          f"{torn}")
     check(ledgers[-1]["miner/hotkey_2"]["quarantined"] == 1
           and ledgers[-1]["miner/hotkey_2"]["score"] == 0.0,
           f"health validator: hotkey_2's ledger {ledgers[-1]}")
@@ -11599,6 +11689,468 @@ def _health_entries(entries: list, health: dict) -> list:
             counter, 0)
         if any(v if isinstance(v, int) else any(v) for v in got.values()):
             e["health"] = got
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# 31. obs: the device observatory (devprof), the --obs-port exporter with
+# /debug/profile, and --chaos-spec, at GPT-2-124M
+# ---------------------------------------------------------------------------
+
+OBS_STEPS = 400                # the scraped miner's bound; stopped earlier
+OBS_PROFILE_MS = 300           # the /debug/profile capture
+OBS_AB_STEPS = 30              # 31(d)'s miners
+OBS_FLOPS_TOL = 0.05           # train.step's FLOPs against the analytic
+# 31(c), the chaos round of tests/test_torch_chaos.py (CHAOS_SPEC and
+# CHAOS_ROUND there): its faults are a function of the seed and of the
+# transport calls, which do not depend on the model's size or device
+OBS_CHAOS_SPEC = {"seed": 3, "fetch_error_rate": 0.2,
+                  "partitioned": ["hotkey_2"]}
+OBS_CHAOS_ROUND = {
+    "verdicts": {"hotkey_1": "ok", "hotkey_2": "fetch_error"},
+    "positive": ["hotkey_1"],
+    "chaos": {"hotkey_1": {},
+              "hotkey_2": {"chaos.faults": 3.0,
+                           "chaos.partition_faults": 3.0},
+              "validator": {"chaos.faults": 28.0,
+                            "chaos.fetch_faults": 23.0,
+                            "chaos.partition_faults": 5.0}},
+}
+
+
+def _obs_get(port: int, path: str, timeout: float = 60.0):
+    """``(status, body text, seconds)`` of one GET (an HTTP error's
+    status and body too)."""
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            body, code = r.read().decode(), r.status
+    except urllib.error.HTTPError as e:
+        body, code = e.read().decode(), e.code
+    return code, body, time.perf_counter() - t0
+
+
+def _obs_prog(recs: list, prog: str) -> dict:
+    """The last ``{"devprof"}`` record's entry of ``prog`` (the busiest
+    bucket)."""
+    dp = [r for r in recs if "devprof" in r]
+    check(dp, f"obs: no devprof record in the JSONL for {prog}")
+    got = [p for p in dp[-1]["devprof"]["programs"] if p["prog"] == prog]
+    check(got, f"obs: no {prog} in the last devprof record")
+    return max(got, key=lambda p: p["calls"])
+
+
+def _obs_analytic_flops(cfg, fb: dict) -> dict:
+    """train.step's FLOPs by hand for the first batch: per block the four
+    projections (12 E^2 weights) forward and both backward products (6 N
+    a weight), the flash kernels' count (4 + 8 + 6 = 18 D FLOPs a
+    visible pair and head), and the fused CE (forward 2, backward 6 N V
+    E over the N (T - 1) shifted rows and the padded vocabulary)."""
+    B, T, L, E = fb["B"], fb["T"], cfg.n_layer, cfg.n_embd
+    H, D = cfg.n_head, cfg.n_embd // cfg.n_head
+    V = -(-cfg.vocab_size // cfg.vocab_multiple) * cfg.vocab_multiple
+    parts = {"matmuls": L * 6 * B * T * 12 * E * E,
+             "attention": L * 18 * D * H * fb["pairs_per_head"],
+             "ce": 8 * B * (T - 1) * V * E}
+    return {**parts, "total": sum(parts.values())}
+
+
+def _obs_trace_names(path: str) -> set:
+    with open(path) as f:
+        return {e.get("name") for e in json.load(f)["traceEvents"]}
+
+
+def _obs_miner(tmp: str, cfg) -> dict:
+    """31(a): the miner CLI with ``--metrics-path``, ``--obs-port`` and
+    beats, scraped while it trains, then stopped."""
+    import concurrent.futures as cf
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    from distributedtraining_tpu_torch.transport.base import heartbeat_id
+    work = os.path.join(tmp, "a")
+    LocalFSTransport(os.path.join(work, "artifacts")).publish_base(
+        models.init_params_numpy(cfg, SEED))
+    port, jl = _free_port(), os.path.join(tmp, "a.jsonl")
+    role = _HealthRole(tmp, "obs_miner", "miner", _health_argv(
+        work, "hotkey_1", _health_miner(OBS_STEPS) + [
+            "--obs-port", str(port)], metrics=jl))
+    res: dict = {"port": port}
+    try:
+        def ten_steps():
+            try:
+                code, body, _ = _obs_get(port, "/metrics", 5)
+            except OSError:
+                check(role.proc.poll() is None,
+                      "obs miner exited before its tenth step")
+                return None
+            m = re.search(r"^dt_miner_step_ms_count (\S+)$", body, re.M)
+            return code == 200 and m and float(m.group(1)) >= 10
+        _health_wait(ten_steps, "the obs miner's tenth step on /metrics")
+        code, body, res["scrape_s"] = _obs_get(port, "/metrics")
+        check(code == 200 and 'dt_prog_calls{prog="train.step",bucket='
+              f'"{HEALTH_B}x{HEALTH_T}"}}' in body,
+              f"obs: /metrics {code} without train.step's series")
+        res["metrics_lines"] = len(body.splitlines())
+        res["metrics_prog_lines"] = [ln for ln in body.splitlines()
+                                     if ln.startswith("dt_prog_")]
+        code, body, _ = _obs_get(port, "/healthz")
+        res["healthz"] = json.loads(body)
+        check(code == 200 and res["healthz"]["ok"]
+              and res["healthz"]["role"] == "miner",
+              f"obs: /healthz {code} {body}")
+        code, body, _ = _obs_get(port, "/debug/stacks")
+        check(code == 200 and f"obs-http-{port}" in body,
+              f"obs: /debug/stacks {code}")
+        with cf.ThreadPoolExecutor(1) as ex:
+            first = ex.submit(_obs_get, port,
+                              f"/debug/profile?ms={OBS_PROFILE_MS}", 120)
+            # a second capture while the first holds the profiler
+            _health_wait(lambda: "capture_profile" in _obs_get(
+                port, "/debug/stacks")[1], "the first capture to start",
+                timeout=60, every=0.02)
+            code2, body2, _ = _obs_get(port, "/debug/profile?ms=10")
+            code, body, res["profile_request_s"] = first.result()
+        check(code2 == 409, f"obs: a concurrent /debug/profile answered "
+                            f"{code2} {body2}, not 409")
+        check(code == 200, f"obs: /debug/profile answered {code} {body}")
+        info = json.loads(body)
+        names = _obs_trace_names(info["trace"])
+        res["profile"] = {**info, "trace_bytes": os.path.getsize(
+            info["trace"]), "events": len(names)}
+        want = {"program": f"dt.train.step[{HEALTH_B}x{HEALTH_T}]",
+                "flash_fwd": "flash_fwd", "flash_bwd_dkv": "flash_bwd_dkv",
+                "flash_bwd_dq": "flash_bwd_dq", "ce_fwd": "ce_fwd",
+                "ce_bwd": "ce_dz"}
+        found = {k: sorted(n for n in names if n and v in n)[:3]
+                 for k, v in want.items()}
+        res["profile"]["names"] = found
+        missing = [k for k, v in found.items() if not v]
+        check(want["program"] in names and not missing,
+              f"obs: the /debug/profile trace lacks {missing} (program "
+              f"in it: {want['program'] in names})")
+        role.stop()
+        out = role.join()
+    finally:
+        role.kill()
+    recs = _health_jsonl(jl)
+    step = _obs_prog(recs, "train.step")
+    rl = [r for r in recs if "devprof" in r][-1]["devprof"]["roofline"]
+    analytic = _obs_analytic_flops(cfg, out["first_batch"])
+    rel = abs(step["flops"] - analytic["total"]) / analytic["total"]
+    res.update(steps=out["steps"], train_step=step, roofline=rl,
+               analytic_flops=analytic, flops_rel_err=rel,
+               first_batch=out["first_batch"],
+               first_step_wall_ms=out["step_wall_ms"][0])
+    log("obs (a): train.step", json.dumps(step), "analytic",
+        json.dumps(analytic), "rel", rel)
+    check(rl["known"], f"obs: the roofline does not know the card: {rl}")
+    check(step["flops"] and step["flops"] > 0,
+          f"obs: train.step counted no FLOPs: {step}")
+    check(rel <= OBS_FLOPS_TOL, f"obs: train.step's {step['flops']} FLOPs "
+          f"are {rel:.4f} off the analytic {analytic['total']}")
+    frac = step.get("achieved_flops_frac")
+    check(frac is not None and 0 < frac <= 1.05,
+          f"obs: train.step's achieved_flops_frac {frac} not in (0, 1.05]")
+    beat = LocalFSTransport(os.path.join(work, "artifacts")).fetch_delta_meta(
+        heartbeat_id("miner", "hotkey_1"))
+    anat = {k: v for k, v in (beat or {}).items() if k.startswith("anat.")}
+    res["beat_anatomy"] = anat
+    check({"anat.step_ms", "anat.device_ms", "anat.host_ms"} <= set(anat),
+          f"obs: the miner's last beat carries no step anatomy: {beat}")
+    L, n = cfg.n_layer, out["steps"]
+    want = {"flash_attention_fwd": L * n, "flash_attention_bwd_dkv": L * n,
+            "flash_attention_bwd_dq": L * n, "fused_ce_fwd": n,
+            "fused_ce_bwd_dh": n, "fused_ce_bwd_dw": n, "dequant_scatter": 0}
+    res["launches"] = out["launches"]
+    check(n >= 10 and out["launches"] == want,
+          f"obs: the miner's launches {out['launches']} != {want}")
+    return res
+
+
+def _obs_server(tmp: str, tree) -> dict:
+    """31(b): the server CLI with ``--obs-port`` and ``--metrics-path``:
+    phase 21's prompts as 8 greedy requests, /metrics scraped while it
+    serves."""
+    import threading
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    L = gpt2.PRESETS["gpt2-124m"].n_layer
+    prompts, _ = _serve6_traffic(gpt2.PRESETS["gpt2-124m"].vocab_size)
+    bodies = [{"tokens": p, "max_new_tokens": 32} for p in prompts]
+    work = os.path.join(tmp, "b")
+    LocalFSTransport(os.path.join(work, "artifacts")).publish_base(tree)
+    port, obs_port = _free_port(), _free_port()
+    jl = os.path.join(tmp, "b.jsonl")
+    last: dict = {}
+    stop = threading.Event()
+
+    def scrape():
+        while not stop.is_set():
+            try:
+                code, body, dt = _obs_get(obs_port, "/metrics", 10)
+                if code == 200 and "dt_serve_ttft_ms{" in body:
+                    last.update(body=body, s=dt)
+            except OSError:
+                pass
+            time.sleep(0.2)
+
+    th = threading.Thread(target=scrape, daemon=True)
+    th.start()
+    try:
+        run = _server_cli(["--work-dir", work, *DEFAULT_FLAGS,
+                           "--model", HEALTH_MODEL,
+                           "--serve-port", str(port), "--swap-poll", "1",
+                           "--max-steps", "100000", "--obs-port",
+                           str(obs_port), "--metrics-path", jl],
+                          port, bodies)
+    finally:
+        stop.set()
+        th.join(30)
+    eng = run["engine"]
+    body = last.get("body", "")
+    check(all(out.get("status") == "done" for _, out in run["results"]),
+          "obs: a served request did not finish")
+    check('dt_serve_ttft_ms{q="0.5"}' in body
+          and 'dt_prog_exec_ms{prog="serve.decode",' in body,
+          "obs: the server's /metrics lacks the ttft family or "
+          "serve.decode's exec series")
+    want = {"paged_decode_attention": L * eng.decode_dispatches,
+            "paged_window_attention": L * eng.suffix_prefills,
+            "flash_attention_fwd": L * eng.full_prefills}
+    got = {k: run["launches"][k] for k in want}
+    check(eng.decode_dispatches > 0 and got == want
+          and not any(v for k, v in run["launches"].items()
+                      if k not in want),
+          f"obs: the server's launches {run['launches']} != {want}")
+    decode = _obs_prog(_health_jsonl(jl), "serve.decode")
+    return {"launches": run["launches"], "want": want,
+            "decode_dispatches": eng.decode_dispatches,
+            "serve_decode": decode, "scrape_s": last.get("s"),
+            "serve_lines": [ln for ln in body.splitlines()
+                            if ln.startswith(("dt_serve_ttft_ms{",
+                                              'dt_prog_exec_ms{prog="serve.'))],
+            "boot_s": run["boot_s"], "wall_s": run["wall_s"]}
+
+
+def _obs_chaos_argv(work: str, hotkey: str, jl: str, extra: list) -> list:
+    return [*DEFAULT_FLAGS, "--backend", "local", "--work-dir", work,
+            "--model", HEALTH_MODEL, "--hotkey", hotkey,
+            "--no-base-wire-v2", "--flight-events", "0",
+            "--batch-size", str(HEALTH_B), *HEALTH_EVAL,
+            "--chaos-spec", json.dumps(OBS_CHAOS_SPEC),
+            "--metrics-path", jl, *extra]
+
+
+def _obs_chaos_miners(tmp: str, cfg) -> list:
+    """31(c), first half: the two chaos miners (dense pushes, hotkey_2
+    partitioned), started as processes."""
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    work = os.path.join(tmp, "c")
+    LocalFSTransport(os.path.join(work, "artifacts")).publish_base(
+        models.init_params_numpy(cfg, SEED))
+    return [_HealthRole(tmp, f"chaos_{hk}", "miner", _obs_chaos_argv(
+        work, hk, os.path.join(tmp, f"chaos_{hk}.jsonl"),
+        ["--fused-loss", "--seq-len", str(HEALTH_T), "--max-steps", "3",
+         "--checkpoint-interval", "0", "--no-anomaly-trace",
+         "--send-interval", "1e9", "--check-update-interval", "1e9",
+         "--self-eval-interval", "0"])) for hk in ("hotkey_1", "hotkey_2")]
+
+
+def _obs_chaos_round(tmp: str, miners: list, cfg) -> dict:
+    """31(c), second half: the miners joined, then one validator round
+    (one ingest worker) with the same spec; verdicts, positive scores and
+    every process's chaos counters against OBS_CHAOS_ROUND."""
+    runs = {m.name.removeprefix("chaos_"): m.join() for m in miners}
+    work = os.path.join(tmp, "c")
+    jl = os.path.join(tmp, "chaos_validator.jsonl")
+    runs["validator"] = _HealthRole(tmp, "chaos_validator", "validator",
+                                    _obs_chaos_argv(work, "hotkey_91", jl, [
+                                        "--rounds", "1",
+                                        "--ingest-workers", "1"])).join()
+    (rnd,) = [r for r in _health_jsonl(jl) if "round_scores" in r]
+    scores = rnd["round_scores"]
+    got = {"verdicts": {hk: scores[hk]["reason"]
+                        for hk in OBS_CHAOS_ROUND["verdicts"]},
+           "positive": sorted(hk for hk, s in scores.items()
+                              if s["score"] > 0),
+           "chaos": {}}
+    for name in OBS_CHAOS_ROUND["chaos"]:
+        regs = [r for r in _health_jsonl(os.path.join(
+            tmp, f"chaos_{name}.jsonl")) if "obs_registry" in r]
+        got["chaos"][name] = {k: v for k, v in (regs[-1] if regs else {})
+                              .items() if k.startswith("chaos.")}
+    check(got == OBS_CHAOS_ROUND, f"obs: the chaos round on the card "
+          f"{got} != the CPU's {OBS_CHAOS_ROUND}")
+    L = cfg.n_layer
+    evals = runs["validator"]["candidate_batches"]
+    check(runs["validator"]["launches"]["flash_attention_fwd"] == L * evals
+          and evals > 0, f"obs: the chaos validator's launches "
+          f"{runs['validator']['launches']} for {evals} candidate-batches")
+    for hk in ("hotkey_1", "hotkey_2"):
+        n = runs[hk]["steps"]
+        check(n == 3 and runs[hk]["launches"]["flash_attention_fwd"] == L * n,
+              f"obs: chaos miner {hk}: {n} steps, {runs[hk]['launches']}")
+    return {**got, "scores": {hk: scores[hk]["score"]
+                              for hk in OBS_CHAOS_ROUND["verdicts"]},
+            "launches": {k: r["launches"] for k, r in runs.items()},
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()}}
+
+
+def _obs_ab(tmp: str, cfg) -> dict:
+    """31(d): one back-to-back pair of 30-step miners with
+    ``--metrics-path``, without and with ``--no-devprof``: each one's
+    step p50 (``miner.step_ms``) and first step's host wall."""
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    work = os.path.join(tmp, "d")
+    LocalFSTransport(os.path.join(work, "artifacts")).publish_base(
+        models.init_params_numpy(cfg, SEED))
+    out = {}
+    for i, (side, extra) in enumerate((("devprof", []),
+                                       ("no_devprof", ["--no-devprof"]))):
+        jl = os.path.join(tmp, f"d_{side}.jsonl")
+        r = _HealthRole(tmp, f"ab_{side}", "miner", _health_argv(
+            work, f"hotkey_{70 + i}", _health_miner(OBS_AB_STEPS) + extra,
+            metrics=jl, beats=False)).join()
+        recs = _health_jsonl(jl)
+        reg = [x for x in recs if x.get("obs_registry") == "miner"][-1]
+        check((side == "devprof") == any("devprof" in x for x in recs),
+              f"obs: {side} miner's JSONL and its devprof records")
+        out[side] = {"step_ms_p50": reg["miner.step_ms.p50"],
+                     "first_step_wall_ms": r["step_wall_ms"][0],
+                     "steps": r["steps"], "s": r["s"],
+                     "wall_s": r["wall_s"]}
+    out["p50_ratio"] = (out["devprof"]["step_ms_p50"]
+                        / out["no_devprof"]["step_ms_p50"])
+    out["first_step_extra_ms"] = (out["devprof"]["first_step_wall_ms"]
+                                  - out["no_devprof"]["first_step_wall_ms"])
+    return out
+
+
+def _obs_kernels(tok) -> dict:
+    """The kernels phase 31 runs, against their plain versions at its
+    shapes: flash forward and backward at the miner's [4, 512, 12, 64]
+    (bf16, a real packed batch's ids), the fused CE at its 2044 rows
+    (bf16, the batch's targets and mask), paged decode at the server's 8
+    slots (contexts 515-664) and the window at its 64-row suffix over
+    512."""
+    import torch
+    from distributedtraining_tpu_torch.ops import paged_attention as pa
+    batch = _batches(tok, split="train", batch_size=HEALTH_B,
+                     seq_len=HEALTH_T, n=1)[0]
+    seg = batch["segment_ids"].astype("int32")
+    bf = torch.bfloat16
+    flash = _flash_check(f"obs_b{HEALTH_B}_t{HEALTH_T}", *_flash_case(
+        HEALTH_B, HEALTH_T, 12, 64, seg, bf, SEED + 31))
+    ids, mask = batch["input_ids"][:, 1:], batch["loss_mask"][:, 1:]
+    h, w, y, g = _ce_inputs(ids.size, 50304, 768, bf, SEED + 31,
+                            labels=ids, mask=mask)
+    outs = _ce_run(h, w, y, g)
+    ce = {k: list(v) for k, v in _ce_check(f"obs_n{ids.size}", outs,
+                                           "bfloat16").items()}
+    del outs, h, w
+    lens = [515, 521, 529, 542, 560, 576, 602, 664]
+    args = _decode_case(8, 12, 12, 64, 16, 64, lens, bf, SEED + 31)
+    out = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_reference(*args)
+    dec = float((out.float() - ref.float()).abs().max())
+    check(dec <= 2e-2, f"obs: paged decode vs plain at the server's "
+                       f"slots: {dec}")
+    wargs = _window_case(1, 64, [512], bf, SEED + 31)
+    wout = pa.paged_window_attention(*wargs)
+    f32 = [a.float() if a.is_floating_point() else a for a in wargs]
+    ratio = _window_bf16_ratio(wout, pa.paged_decode_reference(*f32))
+    check(ratio <= 1.0, f"obs: the window vs plain at the suffix: {ratio}")
+    torch.cuda.synchronize()
+    return {"flash": flash, "ce": ce, "paged_decode_max_abs": dec,
+            "window_limit_ratio": ratio}
+
+
+def phase_obs() -> dict:
+    """Phase 31 (see the module docstring)."""
+    import tempfile
+    from distributedtraining_tpu_torch import models
+    cfg = models.gpt2.PRESETS[HEALTH_MODEL]
+    t0 = time.perf_counter()
+    # what a process's first cost probe costs on this machine beyond its
+    # program (a fresh interpreter, one op under the probe)
+    first = subprocess.run(
+        [sys.executable, "-c", "import time, torch; from "
+         "distributedtraining_tpu_torch.utils import devprof; t = "
+         "time.perf_counter()\nwith devprof._probe_mode_class()():\n"
+         "    torch.ones(1).add_(1)\nprint(time.perf_counter() - t)"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    check(first.returncode == 0, f"obs: a first probe: {first.stderr}")
+    res = {"first_probe_s": float(first.stdout.split()[-1]),
+           "kernels": _obs_kernels(_tokenizer())}
+    with tempfile.TemporaryDirectory(dir=_lora_work_root()) as tmp:
+        t1 = time.perf_counter()
+        res["miner"] = _obs_miner(tmp, cfg)
+        res["miner"]["s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        miners = _obs_chaos_miners(tmp, cfg)
+        try:
+            res["server"] = _obs_server(tmp, models.init_params_numpy(
+                cfg, SEED))
+            res["server"]["s"] = time.perf_counter() - t1
+            res["chaos"] = _obs_chaos_round(tmp, miners, cfg)
+        finally:
+            for m in miners:
+                m.kill()
+        res["chaos"]["s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res["ab"] = _obs_ab(tmp, cfg)
+        res["ab"]["s"] = time.perf_counter() - t1
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def obs_child(out: str) -> int:
+    """``--obs-child OUT``: phase 31 in a child process (in the whole
+    script after phase 30's, beside the llama chain); its result as JSON
+    in OUT."""
+    phase_env()
+    sys.path.insert(0, ROOT)
+    res = phase_obs()
+    log("obs:", json.dumps(res, default=str)[:20000])
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+    return 0
+
+
+def obs_only() -> int:
+    """``--obs``: phase 31 alone after the build; the ``obs`` line, the
+    card's line and the result line."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    import torch
+    phase_build()
+    res = phase_obs()
+    print(json.dumps({"obs": {**res, "card": card}}, default=str),
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _obs_entries(entries: list, obs_res: dict) -> list:
+    """The kernels line's entries with phase 31's launches: the scraped
+    miner, the server, the chaos processes."""
+    srv = obs_res["server"]["launches"]
+    chaos = obs_res["chaos"]["launches"]
+    for e in entries:
+        counter = ("fused_ce_bwd_dh" if e["name"] == "fused_ce_bwd"
+                   else e["name"])
+        got = {"launches_miner": obs_res["miner"]["launches"].get(counter, 0),
+               "launches_server": srv.get(counter, 0),
+               **{f"launches_chaos_{k}": v.get(counter, 0)
+                  for k, v in chaos.items()}}
+        if any(got.values()):
+            e["obs"] = got
     return entries
 
 
@@ -12195,9 +12747,11 @@ def main() -> int:
     lora = cli.lora_result
     convert = cli.convert_result
     health = cli.health_result
+    obs_res = cli.obs_result
     s6b = serve6b["cli"]["router_traffic"]["launches"]
     server_runs = serve6["server"]["runs"]
-    print(json.dumps({"kernels": _health_entries(_convert_entries(
+    print(json.dumps({"kernels": _obs_entries(_health_entries(
+        _convert_entries(
         _lora_entries(
         _lt_entries(_llama_entries(
         _with_sp_launches([{
@@ -12234,8 +12788,8 @@ def main() -> int:
         _sharded_entry(par),
         _scatter_entry(scatter, avg, build, defaults, slice5)],
         sp["world2"]["cli"]["sp2"]["launches"][0]), llama),
-        llama_train["kernels"], llama_train), lora), convert), health)},
-        default=str), flush=True)
+        llama_train["kernels"], llama_train), lora), convert), health),
+        obs_res)}, default=str), flush=True)
     print(json.dumps({"slice": {**serve, "f32_parity": f32,
                                 "decode_profile": prof, "card": card}}),
           flush=True)
@@ -12279,6 +12833,9 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"health": {**health, "card": card,
                                  "total_s": time.perf_counter() - t_start}},
+                     default=str), flush=True)
+    print(json.dumps({"obs": {**obs_res, "card": card,
+                              "total_s": time.perf_counter() - t_start}},
                      default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -12633,6 +13190,10 @@ if __name__ == "__main__":
             sys.exit(health_only())
         if sys.argv[1:2] == ["--health-child"]:
             sys.exit(health_child(sys.argv[2]))
+        if sys.argv[1:2] == ["--obs"]:
+            sys.exit(obs_only())
+        if sys.argv[1:2] == ["--obs-child"]:
+            sys.exit(obs_child(sys.argv[2]))
         if sys.argv[1:2] == ["--health-role"]:
             sys.exit(health_role(sys.argv[2], sys.argv[3]))
         if sys.argv[1:2] == ["--beat-ab"]:

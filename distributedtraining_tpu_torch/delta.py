@@ -17,6 +17,15 @@ dicts. :func:`flatten_tree` maps the first onto the second; packed
 entries pair with accumulator leaves by that path, never by position,
 because the JAX walk sorts nested keys component by component while a
 state dict's ``.``-joined keys sort as flat strings.
+
+The device observatory (``utils/devprof.py``) names the JAX package's
+programs here: ``delta.merge`` (each weighted sum of placed deltas,
+bucket M), ``delta.accumulate`` (a dense contribution, bucket
+``dense``; a packed one by the plain version, ``packed``) and
+``delta.dequant_scatter`` (a packed contribution through the kernel,
+``packed``), and as host phases (the screens run on host arrays here)
+``delta.finite``, ``delta.screen`` and ``delta.screen_packed`` (one
+delta each, bucket 1) and ``delta.densify``.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from .utils import devprof
 
 Params = Mapping[str, torch.Tensor]
 Tree = Any
@@ -171,7 +182,8 @@ def _leaf_stats(leaves) -> tuple[bool, np.float32]:
 
 def has_nonfinite(tree: Tree) -> bool:
     """True if any float leaf contains NaN/Inf."""
-    return not _leaf_stats(v for _, v in _walk_state_dict(tree))[0]
+    with devprof.track("delta.finite"):
+        return not _leaf_stats(v for _, v in _walk_state_dict(tree))[0]
 
 
 def _verdict(finite: bool, mag, max_abs) -> tuple[bool, str]:
@@ -212,15 +224,17 @@ def screen_deltas(deltas: Sequence[Tree], base: Tree, *,
     out = []
     for d in deltas:
         if is_packed_v2(d):
-            if not packed_matches(d, base):
-                out.append((False, "shape_mismatch"))
-                continue
-            out.append(_verdict(*_packed_screen_stats(d["leaves"]),
-                                max_abs))
+            with devprof.track("delta.screen_packed", bucket=1):
+                if not packed_matches(d, base):
+                    out.append((False, "shape_mismatch"))
+                    continue
+                out.append(_verdict(*_packed_screen_stats(d["leaves"]),
+                                    max_abs))
             continue
-        out.append(screen_delta(d, base, max_abs=max_abs,
-                                check_dtype=check_dtype,
-                                extra_dtypes=extra_dtypes))
+        with devprof.track("delta.screen", bucket=1):
+            out.append(screen_delta(d, base, max_abs=max_abs,
+                                    check_dtype=check_dtype,
+                                    extra_dtypes=extra_dtypes))
     return out
 
 
@@ -648,14 +662,15 @@ def densify_packed_v2(packed: Tree, template: Tree) -> Tree | None:
     or None on any validation failure (int8 AND f32 kept values)."""
     if not is_packed_v2(packed):
         return None
-    try:
-        fields = _packed_tree_fields(packed["leaves"], template,
-                                     q_dtypes=_PACKED_Q_DTYPES)
-    except (TypeError, ValueError, KeyError):
-        return None
-    if fields is None:
-        return None
-    return _densify_fields(fields, template)
+    with devprof.track("delta.densify"):
+        try:
+            fields = _packed_tree_fields(packed["leaves"], template,
+                                         q_dtypes=_PACKED_Q_DTYPES)
+        except (TypeError, ValueError, KeyError):
+            return None
+        if fields is None:
+            return None
+        return _densify_fields(fields, template)
 
 
 def packed_layer_entries(packed: Tree) -> dict[str, dict]:
@@ -810,8 +825,8 @@ def combine_candidate_deltas(base: Params, deltas: Sequence[Params],
     return out
 
 
-def weighted_merge(base: Params, deltas: Sequence[Params], weights
-                   ) -> dict[str, torch.Tensor]:
+def _weighted_merge(base: Params, deltas: Sequence[Params], weights
+                    ) -> dict[str, torch.Tensor]:
     """``base + sum_i weights[i] * deltas[i]`` over a list of placed
     deltas (state dicts, :func:`place_delta`), summed in the base's dtype.
     Differentiable with respect to ``weights`` (an ``(M,)`` tensor), which
@@ -829,6 +844,11 @@ def weighted_merge(base: Params, deltas: Sequence[Params], weights
         raise ValueError(f"{tuple(w.shape)} weights for {len(deltas)} deltas")
     return {k: _mix_leaf(b, [d[k] for d in deltas], w.to(b.device))
             for k, b in base.items()}
+
+
+# (base, deltas, weights) -> M, the merge's bucket
+weighted_merge = devprof.wrap("delta.merge", _weighted_merge,
+                              bucket=lambda a, kw: len(a[1]))
 
 
 def per_tensor_weighted_merge(base: Params, deltas: Sequence[Params],
@@ -869,13 +889,22 @@ def chunked_weighted_merge(base: Params, deltas: Sequence[Tree],
     merged = {k: v.detach().clone() for k, v in base.items()}
     for i in range(0, m, chunk):
         flats = [flatten_tree(d) for d in deltas[i:i + chunk]]
-        for key, b in merged.items():
-            s = None
-            for f, wi in zip(flats, w[i:i + chunk]):
-                term = _dense_leaf(f[key], b).to(b.dtype) * float(wi)
-                s = term if s is None else s + term
-            b.add_(s)
+        _merge_chunk(merged, flats, w[i:i + chunk])
     return merged
+
+
+def _add_chunk(merged: dict, flats: list, w: np.ndarray) -> None:
+    """One chunk of :func:`chunked_weighted_merge`, in place."""
+    for key, b in merged.items():
+        s = None
+        for f, wi in zip(flats, w):
+            term = _dense_leaf(f[key], b).to(b.dtype) * float(wi)
+            s = term if s is None else s + term
+        b.add_(s)
+
+
+_merge_chunk = devprof.wrap("delta.merge", _add_chunk,
+                            bucket=lambda a, kw: len(a[1]))
 
 
 @torch.no_grad()
@@ -889,40 +918,60 @@ def accumulate_delta(acc: Params, delta: Tree, weight) -> Params:
     dense-form entries as ``acc + w * (q * scale)``. Their idx and q reach
     a CUDA device in one copy from a pinned staging buffer. The weight is
     taken as f32."""
-    from .ops import dequant_scatter as dsc
-
     w = float(np.float32(weight))
     if is_packed_v2(delta):
-        entries = _packed_entries(delta["leaves"])
-        keys = [k for k, _ in entries]
-        if sorted(keys) != sorted(acc) or len(set(keys)) != len(keys):
-            raise ValueError(
-                f"accumulate_delta: packed entry paths do not match the "
-                f"accumulator's keys ({sorted(set(keys) ^ set(acc))[:5]}; "
-                "run packed_matches before accumulating)")
-        indexed, dense = [], []
-        for key, e in entries:
-            flat = acc[key].view(-1)
-            idx, q = _host_field(e["idx"]), _host_field(e["q"])
-            scale = np.float32(_host_field(e["scale"]))
-            n = flat.numel()
-            if idx.size == 0 and q.size == n and n > 0:
-                dense.append((flat, q, scale))
-            elif idx.size:
-                indexed.append((flat, idx, q, dsc.fold_weight(w, scale)))
-        c = dsc.stage_contribution(
-            indexed, [q for _, q, _ in dense],
-            device=acc[keys[0]].device if keys else None)
-        for (flat, _, scale), q in zip(dense, c.extra):
-            # a Python float holding the f32 scale multiplies as the f32
-            flat.add_((q.to(torch.float32) * float(scale)) * w)
-        dsc.dequant_scatter_contribution(c)
-        return acc
+        on_card = any(a.device.type == "cuda" for a in acc.values())
+        return (_accumulate_packed_kernel if on_card
+                else _accumulate_packed_plain)(acc, delta, w)
+    return _accumulate_dense(acc, delta, w)
+
+
+def _accumulate_packed(acc: Params, delta: Tree, w: float) -> Params:
+    """:func:`accumulate_delta` of a packed contribution."""
+    from .ops import dequant_scatter as dsc
+
+    entries = _packed_entries(delta["leaves"])
+    keys = [k for k, _ in entries]
+    if sorted(keys) != sorted(acc) or len(set(keys)) != len(keys):
+        raise ValueError(
+            f"accumulate_delta: packed entry paths do not match the "
+            f"accumulator's keys ({sorted(set(keys) ^ set(acc))[:5]}; "
+            "run packed_matches before accumulating)")
+    indexed, dense = [], []
+    for key, e in entries:
+        flat = acc[key].view(-1)
+        idx, q = _host_field(e["idx"]), _host_field(e["q"])
+        scale = np.float32(_host_field(e["scale"]))
+        n = flat.numel()
+        if idx.size == 0 and q.size == n and n > 0:
+            dense.append((flat, q, scale))
+        elif idx.size:
+            indexed.append((flat, idx, q, dsc.fold_weight(w, scale)))
+    c = dsc.stage_contribution(
+        indexed, [q for _, q, _ in dense],
+        device=acc[keys[0]].device if keys else None)
+    for (flat, _, scale), q in zip(dense, c.extra):
+        # a Python float holding the f32 scale multiplies as the f32
+        flat.add_((q.to(torch.float32) * float(scale)) * w)
+    dsc.dequant_scatter_contribution(c)
+    return acc
+
+
+def _accumulate_dense_tree(acc: Params, delta: Tree, w: float) -> Params:
+    """:func:`accumulate_delta` of a dense contribution."""
     flat_d = flatten_tree(delta)
     _same_keys(acc, flat_d)
     for key, a in acc.items():
         a.add_(_dense_leaf(flat_d[key], a) * w)
     return acc
+
+
+_accumulate_packed_kernel = devprof.wrap(
+    "delta.dequant_scatter", _accumulate_packed, bucket="packed")
+_accumulate_packed_plain = devprof.wrap(
+    "delta.accumulate", _accumulate_packed, bucket="packed")
+_accumulate_dense = devprof.wrap(
+    "delta.accumulate", _accumulate_dense_tree, bucket="dense")
 
 
 @torch.no_grad()

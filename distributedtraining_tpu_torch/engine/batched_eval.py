@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from .. import delta as delta_lib
-from ..utils import obs
+from ..utils import devprof, obs
 
 logger = logging.getLogger(__name__)
 
@@ -153,7 +153,6 @@ class BatchedCohortEvaluator:
         # built once per cohort, not per batch
         cands = [base if stacked[i] is None else
                  candidate_params(base, stacked[i]) for i in mine]
-        model, loss = self.engine.model, self._loss_fn()
         totals: list = [None] * len(cands)
         counts: list = [None] * len(cands)
         n_batches = 0
@@ -162,11 +161,7 @@ class BatchedCohortEvaluator:
             if not cands:
                 continue
             placed = self.engine.place_batch(batch)   # once per cohort
-            for i, params in enumerate(cands):
-                l, t = loss(model, params, placed)
-                lt = l * t   # token-weighted, like TrainEngine.eval_step
-                totals[i] = lt if totals[i] is None else totals[i] + lt
-                counts[i] = t if counts[i] is None else counts[i] + t
+            _eval_cohort_batch(self, cands, placed, totals, counts, k_pad)
         self.candidate_batches += len(cands) * n_batches
         if n_batches == 0:   # the same on every rank: the same batches
             return [(float("nan"), float("nan"))] * k_real
@@ -194,6 +189,18 @@ class BatchedCohortEvaluator:
                 out.append((float(mean), float(np.exp(mean))))
         return out
 
+    def _eval_batch(self, cands: list, placed: dict, totals: list,
+                    counts: list, k_pad: int) -> None:
+        """One placed batch through every candidate of this rank's
+        block, its token-weighted totals added in place (the device
+        observatory's ``eval.cohort``, bucket ``k_pad``)."""
+        model, loss = self.engine.model, self._loss_fn()
+        for i, params in enumerate(cands):
+            l, t = loss(model, params, placed)
+            lt = l * t   # token-weighted, like TrainEngine.eval_step
+            totals[i] = lt if totals[i] is None else totals[i] + lt
+            counts[i] = t if counts[i] is None else counts[i] + t
+
     def evaluate_cohort(self, base: Params, deltas: Sequence,
                         batches: Iterable[dict], *,
                         include_base: bool = False
@@ -205,6 +212,11 @@ class BatchedCohortEvaluator:
             return []
         stacked = ([None] if include_base else []) + list(deltas)
         return self.evaluate_stacked(base, stacked, len(stacked), batches)
+
+
+_eval_cohort_batch = devprof.wrap(
+    "eval.cohort", BatchedCohortEvaluator._eval_batch,
+    bucket=lambda a, kw: a[-1])
 
 
 # ---------------------------------------------------------------------------

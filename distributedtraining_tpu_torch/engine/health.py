@@ -157,9 +157,10 @@ class Vitals:
     consecutive samples), ``loss`` (latest loss; the EMA lives here so a
     noisy sample cannot whipsaw fleet-median comparisons), ``counters``
     (a numeric dict, e.g. from a MinerReport), ``base_revision``. The
-    registry digest and device memory watermarks ride along
-    automatically (no ``anat.*`` step anatomy: that comes from the JAX
-    package's ``devprof``, which is not ported)."""
+    registry digest, device memory watermarks and the device
+    observatory's ``anat.*`` step anatomy (``utils/devprof.anatomy``:
+    host-blocked vs device vs data-wait, while the observatory is on)
+    ride along automatically."""
 
     def __init__(self, *, steps: Callable[[], float] | None = None,
                  loss: Callable[[], float] | None = None,
@@ -213,6 +214,14 @@ class Vitals:
                 body["base_revision"] = rev[:_MAX_STR]
         body["registry_digest"] = obs.registry_digest()
         body.update(device_memory_watermarks())
+        try:
+            # step-time anatomy: numeric anat.* extras, so older
+            # consumers show what they know
+            from ..utils import devprof
+            body.update(devprof.anatomy())
+        except Exception:
+            logger.debug("heartbeat anatomy collection failed",
+                         exc_info=True)
         return body
 
 

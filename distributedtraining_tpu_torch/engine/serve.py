@@ -74,7 +74,7 @@ import numpy as np
 import torch
 
 from ..models import bind, params_from_numpy, resolve_device
-from ..utils import flight, obs, prng, reqtrace
+from ..utils import devprof, flight, obs, prng, reqtrace
 from .kv_transfer import dtype_name
 
 logger = logging.getLogger(__name__)
@@ -1003,10 +1003,13 @@ class GenerationEngine:
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Whole-page KV copy, every layer (the copy-on-write primitive;
-        rows past the valid length copy too and stay masked)."""
-        k_pages, v_pages = self._kv
-        k_pages[:, dst] = k_pages[:, src]
-        v_pages[:, dst] = v_pages[:, src]
+        rows past the valid length copy too and stay masked): the device
+        observatory's ``serve.page_copy``."""
+        def copy():
+            k_pages, v_pages = self._kv
+            k_pages[:, dst] = k_pages[:, src]
+            v_pages[:, dst] = v_pages[:, src]
+        devprof.call("serve.page_copy", copy, bucket=1)
 
     def _cow_page(self, slot: _Slot, idx: int) -> bool:
         """Give ``slot`` a private copy of its ``idx``-th page before a
@@ -1196,11 +1199,15 @@ class GenerationEngine:
         if pages is None:
             self._requeue_front(req)
             return "full"
-        # the adoption write: every content page in one copy a pool
-        idx = torch.tensor(pages[:n], device=self.device)
-        for pool, j in ((k_pages, 0), (v_pages, 1)):
-            host = torch.stack([pair[j] for pair in got["pages"]], dim=1)
-            pool.index_copy_(1, idx, host.to(self.device))
+        # the adoption write: every content page in one copy a pool (the
+        # device observatory's serve.kv_adopt)
+        def adopt():
+            idx = torch.tensor(pages[:n], device=self.device)
+            for pool, j in ((k_pages, 0), (v_pages, 1)):
+                host = torch.stack([pair[j] for pair in got["pages"]],
+                                   dim=1)
+                pool.index_copy_(1, idx, host.to(self.device))
+        devprof.call("serve.kv_adopt", adopt, bucket=1)
         dur_ms = (time.perf_counter() - t0) * 1e3
         obs.observe("serve.queue_age_ms", queue_age_ms)
         obs.observe("serve.kv_adopt_ms", dur_ms)
@@ -1268,9 +1275,12 @@ class GenerationEngine:
         """Full-prompt forward (:func:`_full_prefill`) into the slot's
         pages."""
         plen = len(req.prompt)
+        P = self.page_size
         t0 = time.perf_counter()
-        logits = _full_prefill(self.model, self._kv, req.prompt, pages,
-                               self.page_size, self._page_ladder)
+        logits = devprof.call(
+            "serve.prefill", _full_prefill, self.model, self._kv,
+            req.prompt, pages, P, self._page_ladder,
+            bucket=self._page_ladder.bucket_for((plen + P - 1) // P) * P)
         self.full_prefills += 1
         nxt = self._first_token(req, logits[0, plen - 1,
                                             :self.cfg.vocab_size])
@@ -1306,18 +1316,25 @@ class GenerationEngine:
         page_idx = np.where(np.arange(t_bucket) < suffix,
                             table[0, np.minimum(pos // P, pb - 1)], 0)
         t0 = time.perf_counter()
-        table_t = torch.from_numpy(table).to(dev)
-        logits, kvs = self.model(
-            torch.from_numpy(toks).to(dev),
-            position_ids=torch.from_numpy(
-                np.minimum(pos, self.max_seq_len - 1)[None, :]).to(dev),
-            kv_pages=_kv_pages(self._kv), page_tables=table_t,
-            kv_lens=torch.tensor([ctx_len], dtype=torch.int32, device=dev),
-            sow_kv=True)
+
+        def prefill_ctx():
+            table_t = torch.from_numpy(table).to(dev)
+            logits, kvs = self.model(
+                torch.from_numpy(toks).to(dev),
+                position_ids=torch.from_numpy(
+                    np.minimum(pos, self.max_seq_len - 1)[None, :]).to(dev),
+                kv_pages=_kv_pages(self._kv), page_tables=table_t,
+                kv_lens=torch.tensor([ctx_len], dtype=torch.int32,
+                                     device=dev),
+                sow_kv=True)
+            _scatter_kv(self._kv, kvs,
+                        torch.from_numpy(page_idx[None, :]).to(dev),
+                        torch.from_numpy((pos % P)[None, :]).to(dev))
+            return logits
+
+        logits = devprof.call("serve.prefill_ctx", prefill_ctx,
+                              bucket=f"{t_bucket}x{pb}")
         self.suffix_prefills += 1
-        _scatter_kv(self._kv, kvs,
-                    torch.from_numpy(page_idx[None, :]).to(dev),
-                    torch.from_numpy((pos % P)[None, :]).to(dev))
         nxt = self._first_token(
             req, logits[0, suffix - 1, :self.cfg.vocab_size])
         dur_ms = (time.perf_counter() - t0) * 1e3
@@ -1331,9 +1348,15 @@ class GenerationEngine:
 
     def _first_token(self, req: ServeRequest, row: torch.Tensor) -> int:
         """Token 0 of a request from its prefill's last logits row: the
-        argmax, or the seeded draw at stream index 0."""
-        return _pick(row[None, :], [req.temperature], [req.top_p],
-                     [_lane_seed(req.seed)], [0])[0]
+        argmax, or the seeded draw at stream index 0 (the device
+        observatory's ``serve.sample_tok``; a greedy pick belongs to the
+        prefill's program, as in JAX)."""
+        args = (row[None, :], [req.temperature], [req.top_p],
+                [_lane_seed(req.seed)], [0])
+        if req.temperature > 0.0:
+            return devprof.call("serve.sample_tok", _pick, *args,
+                                bucket=1)[0]
+        return _pick(*args)[0]
 
     def _activate(self, req: ServeRequest, pages: list, nxt: int) -> None:
         if self.phase == "prefill":
@@ -1468,19 +1491,27 @@ class GenerationEngine:
             seq_lens[i] = slot.seq_len
             tokens[i, 0] = slot.last_tok
         dev = self.device
-        tables_t = torch.from_numpy(tables).to(dev)
-        lens_t = torch.from_numpy(seq_lens).to(dev)
-        logits, kvs = self.model(torch.from_numpy(tokens).to(dev),
-                                 position_ids=lens_t[:, None].long(),
-                                 kv_pages=_kv_pages(self._kv),
-                                 page_tables=tables_t, kv_lens=lens_t,
-                                 sow_kv=True)
+        lanes = self._lanes(active, sb)
+
+        def step():
+            tables_t = torch.from_numpy(tables).to(dev)
+            lens_t = torch.from_numpy(seq_lens).to(dev)
+            logits, kvs = self.model(torch.from_numpy(tokens).to(dev),
+                                     position_ids=lens_t[:, None].long(),
+                                     kv_pages=_kv_pages(self._kv),
+                                     page_tables=tables_t, kv_lens=lens_t,
+                                     sow_kv=True)
+            lens_l = lens_t.long()
+            page_idx = tables_t.long().gather(1, (lens_l // P)[:, None])
+            _scatter_kv(self._kv, kvs, page_idx, (lens_l % P)[:, None])
+            return _pick(logits[:, -1, :self.cfg.vocab_size], *lanes)
+
+        # a batch with any sampled lane runs the sampled twin, as in JAX
+        sampled = any(s.req.temperature > 0.0 for s in active)
+        nxt = devprof.call(
+            "serve.decode_sample" if sampled else "serve.decode", step,
+            bucket=f"{sb}x{pb}")
         self.decode_dispatches += 1
-        lens_l = lens_t.long()
-        page_idx = tables_t.long().gather(1, (lens_l // P)[:, None])
-        _scatter_kv(self._kv, kvs, page_idx, (lens_l % P)[:, None])
-        nxt = _pick(logits[:, -1, :self.cfg.vocab_size],
-                    *self._lanes(active, sb))
         emitted = 0
         trace_t = self.trace.clock() if self.trace is not None else 0.0
         for i, slot in enumerate(list(active)):
@@ -1527,21 +1558,26 @@ class GenerationEngine:
             np.arange(W)[None, :] < n_input[:, None],
             np.take_along_axis(tables, np.minimum(pos // P, pb - 1), 1), 0)
         dev = self.device
-        logits, kvs = self.model(
-            torch.from_numpy(tokens).to(dev),
-            position_ids=torch.from_numpy(
-                np.minimum(pos, self.max_seq_len - 1)).to(dev),
-            kv_pages=_kv_pages(self._kv),
-            page_tables=torch.from_numpy(tables).to(dev),
-            kv_lens=torch.from_numpy(seq_lens).to(dev), sow_kv=True)
-        self.verify_dispatches += 1
-        _scatter_kv(self._kv, kvs, torch.from_numpy(page_idx).to(dev),
-                    torch.from_numpy(pos % P).to(dev))
         temps, top_ps, seeds, tok_idx0 = self._lanes(active, sb)
-        picks = _pick(
-            logits[:, :, :self.cfg.vocab_size].reshape(sb * W, -1),
-            np.repeat(temps, W), np.repeat(top_ps, W), np.repeat(seeds, W),
-            (tok_idx0[:, None] + np.arange(W)[None, :]).reshape(-1))
+
+        def verify():
+            logits, kvs = self.model(
+                torch.from_numpy(tokens).to(dev),
+                position_ids=torch.from_numpy(
+                    np.minimum(pos, self.max_seq_len - 1)).to(dev),
+                kv_pages=_kv_pages(self._kv),
+                page_tables=torch.from_numpy(tables).to(dev),
+                kv_lens=torch.from_numpy(seq_lens).to(dev), sow_kv=True)
+            _scatter_kv(self._kv, kvs, torch.from_numpy(page_idx).to(dev),
+                        torch.from_numpy(pos % P).to(dev))
+            return _pick(
+                logits[:, :, :self.cfg.vocab_size].reshape(sb * W, -1),
+                np.repeat(temps, W), np.repeat(top_ps, W),
+                np.repeat(seeds, W),
+                (tok_idx0[:, None] + np.arange(W)[None, :]).reshape(-1))
+
+        picks = devprof.call("serve.verify", verify, bucket=f"{sb}x{pb}")
+        self.verify_dispatches += 1
         return np.asarray(picks).reshape(sb, W)
 
     def _decode_spec(self) -> int:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..models import bind, draft_compat, resolve_device
+from ..utils import devprof
 from .serve import (DEFAULT_PAGE_SIZE, BucketLadder, PagePool, State,
                     _full_prefill, _kv_pages, _lane_seed, _layer_keys,
                     _pick, _scatter_kv, kv_heads, position_cap)
@@ -202,8 +203,10 @@ class DraftEngine:
         committed tokens through the draft forward, the KV paged out. No
         pick: the committed stream already names every next token up to
         the live position."""
-        _full_prefill(self._net, self._kv, toks, st.pages, self.page_size,
-                      self._page_ladder)
+        P = self.page_size
+        mp = self._page_ladder.bucket_for((len(toks) + P - 1) // P)
+        devprof.call("serve.draft", _full_prefill, self._net, self._kv, toks,
+                     st.pages, P, self._page_ladder, bucket=f"p{mp}")
         self.prefill_dispatches += 1
         st.toks = list(toks)
         st.stable = len(st.toks)   # prefill ingests committed tokens only
@@ -238,21 +241,27 @@ class DraftEngine:
             seeds[i] = _lane_seed(req.seed)
             tok_idx[i] = idx_off[i]
         dev = self.device
-        tables_t = torch.from_numpy(tables).to(dev)
-        lens_t = torch.from_numpy(seq_lens).to(dev)
-        logits, kvs = self._net(torch.from_numpy(tokens).to(dev),
-                                position_ids=lens_t[:, None].long(),
-                                kv_pages=_kv_pages(self._kv),
-                                page_tables=tables_t, kv_lens=lens_t,
-                                sow_kv=True)
+
+        def step():
+            tables_t = torch.from_numpy(tables).to(dev)
+            lens_t = torch.from_numpy(seq_lens).to(dev)
+            logits, kvs = self._net(torch.from_numpy(tokens).to(dev),
+                                    position_ids=lens_t[:, None].long(),
+                                    kv_pages=_kv_pages(self._kv),
+                                    page_tables=tables_t, kv_lens=lens_t,
+                                    sow_kv=True)
+            lens_l = lens_t.long()
+            page_idx = tables_t.long().gather(1, (lens_l // P)[:, None])
+            _scatter_kv(self._kv, kvs, page_idx, (lens_l % P)[:, None])
+            return _pick(logits[:, -1, :self.cfg.vocab_size], temps,
+                         top_ps, seeds, tok_idx)
+
+        # the device observatory's serve.draft (the JAX bucket)
+        picks = devprof.call("serve.draft", step, bucket=f"{sb}x{pb}")
         self.step_dispatches += 1
-        lens_l = lens_t.long()
-        page_idx = tables_t.long().gather(1, (lens_l // P)[:, None])
-        _scatter_kv(self._kv, kvs, page_idx, (lens_l % P)[:, None])
         for i, j in enumerate(jobs):
             j["st"].toks.append(int(feeds[i]))
-        return _pick(logits[:, -1, :self.cfg.vocab_size], temps, top_ps,
-                     seeds, tok_idx)
+        return picks
 
     def propose(self, slots: Sequence) -> dict[int, list[int]]:
         """Propose up to ``slot.spec_window`` tokens for each slot: catch

@@ -88,7 +88,7 @@ from ..models import (family, init_params_numpy, llama, params_from_numpy,
                       params_to_numpy, resolve_device)
 from ..ops.losses import (causal_lm_loss, fused_linear_cross_entropy,
                           lm_totals)
-from ..utils import obs
+from ..utils import devprof, obs
 from ..utils.metrics import device_memory_watermarks, device_metrics
 from .basedist import fetch_base
 from .scheduler import Clock, PeriodicAction, RealClock
@@ -98,6 +98,23 @@ logger = logging.getLogger(__name__)
 Params = dict[str, torch.Tensor]
 
 _SLICES = "ROADMAP 'Slices of the port'"
+
+
+def _devprof_batch_bucket(batch) -> str:
+    """``"{B}x{T}"`` of a token batch: the device observatory's bucket of
+    the step programs (the JAX package's label)."""
+    ids = batch.get("input_ids") if isinstance(batch, dict) else None
+    shape = getattr(ids, "shape", None)
+    if shape is None or len(shape) < 2:
+        return "-"
+    return f"{shape[0]}x{shape[1]}"
+
+
+def _batch_arg_bucket(args, kwargs) -> str:
+    """The bucket of a step whose LAST positional argument is the batch
+    (``train_step(state, batch)``, ``LoRAEngine.train_step(state, base,
+    batch)``)."""
+    return _devprof_batch_bucket(args[-1] if args else kwargs.get("batch"))
 
 
 @dataclasses.dataclass
@@ -529,6 +546,16 @@ class TrainEngine:
         self.fused_loss = fused_loss
         self.accum_steps = accum_steps
         self.device = resolve_device(device)
+        # the device observatory (utils/devprof.py): per-(program, BxT)
+        # cost and time, a one-branch pass-through until devprof.enable();
+        # a LoRA engine's own steps are its train.step and train.eval
+        self.train_step = devprof.wrap("train.step", self.train_step,
+                                       bucket=_batch_arg_bucket)
+        self.eval_step = devprof.wrap("train.eval", self.eval_step,
+                                      bucket=_batch_arg_bucket)
+        self._full_eval_step = devprof.wrap(
+            "train.eval", TrainEngine.eval_step.__get__(self),
+            bucket=_batch_arg_bucket)
 
     def _loss(self, params: Params, batch: dict, lora=None):
         """The loss of ``params`` (this rank's shards on a mesh) on a
@@ -669,7 +696,7 @@ class TrainEngine:
         evaluates its positions (``sharding.batch_columns``)."""
         # the full-params step, also on a LoRA engine (whose own
         # eval_step takes the base beside the adapters)
-        return self._evaluate(lambda b: TrainEngine.eval_step(self, params, b),
+        return self._evaluate(lambda b: self._full_eval_step(params, b),
                               batches)
 
     def _evaluate(self, step, batches: Iterable[dict]
@@ -1600,7 +1627,9 @@ class MinerLoop:
         self._push_seq += 1
         cid = obs.new_delta_id(self.miner_id, self._push_seq)
         with obs.span("push.snapshot", cid=cid):
-            payload, finite = self._push_snapshot()
+            # the device observatory's push.snapshot program
+            payload, finite = devprof.wrap("push.snapshot",
+                                           self._push_snapshot)()
         if not self.nan_guard:
             finite = None
         if self._multi():

@@ -59,7 +59,7 @@ from ..config import RunConfig
 from ..engine.average import (AveragerLoop, GeneticMerge, OuterOptMerge,
                               ParameterizedMerge, WeightedAverage)
 from ..parallel import multihost
-from ..utils import flight, obs
+from ..utils import devprof, flight, obs
 from .common import base_mirrors, build, build_health_plane
 
 
@@ -157,6 +157,7 @@ def _run_sub_averager(cfg: RunConfig, c, plane) -> int:
         sub.close()
         flight.shutdown()
         obs.reset()
+        devprof.reset()
         if c.metrics is not None:
             c.metrics.close()
     logging.info("sub-averager %s done: rounds=%d accepted=%d pushes=%d",
@@ -295,6 +296,7 @@ def _run(cfg: RunConfig, c) -> int:
         loop.close()   # drain the ingest pool's worker threads
         flight.shutdown()   # see neurons/miner.py
         obs.reset()
+        devprof.reset()
         if c.metrics is not None:
             c.metrics.close()
     logging.info("averager done: rounds=%d accepted=%d rejected=%d loss=%.4f",

@@ -7,10 +7,14 @@ the tokenizer, the train, self-eval and held-out batch streams and the
 flight recorder, the role's metrics sink (``--metrics-path``: a
 ``JSONLSink`` rotated at ``--metrics-rotate-mb`` keeping
 ``--metrics-keep-segments``, bound to ``utils/obs`` so spans and
-registry flushes land in it), driven by ``RunConfig``;
+registry flushes land in it, with the device observatory
+``utils/devprof`` on unless ``--no-devprof``), the deterministic fault
+injection of ``--chaos-spec`` (``transport/chaos.ChaosTransport``
+around the outermost transport layer), driven by ``RunConfig``;
 ``build_base_fetcher``, the content-addressed base fetcher of
 ``--base-wire-v2``; and ``build_health_plane``, the role's part of the
-fleet health plane (``--heartbeat-interval``, ``--remediate``).
+fleet health plane (``--heartbeat-interval``, ``--remediate``) and its
+``--obs-port`` exporter (``utils/obs_http.ObsHTTPExporter``).
 
 The device is the card unless the caller asks for the CPU the way the JAX
 roles do: ``DT_FORCE_PLATFORM=cpu`` in the environment. Without it,
@@ -252,6 +256,17 @@ def build(cfg: RunConfig) -> Components:
     address_store = LocalAddressStore(chain_dir)
     if cfg.sign_artifacts:
         transport = _signed_transport(cfg, transport, address_store)
+    if cfg.chaos_spec:
+        # deterministic fault injection (transport/chaos.py) around the
+        # OUTERMOST layer, so injected faults hit signed publishes and
+        # verified fetches as network faults would; soak and test
+        # machinery, so the flag warns on every boot
+        from ..transport.chaos import ChaosSpec, ChaosTransport
+        logger.warning("CHAOS INJECTION ACTIVE for role %s: %s",
+                       cfg.role, cfg.chaos_spec)
+        transport = ChaosTransport(transport,
+                                   ChaosSpec.from_json(cfg.chaos_spec),
+                                   role=cfg.role)
     # one writer for the whole world (identity for one process)
     transport, chain = multihost.gate_io(transport, chain)
     if cfg.my_repo_id and multihost.is_coordinator():
@@ -284,6 +299,12 @@ def build(cfg: RunConfig) -> Components:
         # role's records; role mains reset obs on exit. On a world the
         # coordinator alone writes it (one file, no interleaved ranks)
         obs.configure(metrics, role=cfg.role)
+        if cfg.devprof:
+            # the device observatory (utils/devprof.py): per-program
+            # cost and time on every registered hot path, through the
+            # same sink at each flush; role mains reset it beside obs
+            from ..utils import devprof
+            devprof.enable()
     if cfg.flight_events > 0:
         # the bounded forensic ring every role keeps, frozen into a
         # published __pm__ bundle on a quality drift or a crash; role
@@ -305,17 +326,21 @@ def build(cfg: RunConfig) -> Components:
 @dataclasses.dataclass
 class HealthPlane:
     """The role's part of the fleet health plane (``engine/health.py``):
-    its heartbeat publisher, a FleetMonitor (validator, averager) and the
+    its heartbeat publisher, a FleetMonitor (validator, averager), the
     remediation engine acting on that monitor's breaches
-    (``--remediate``). The JAX package's ``--obs-port`` exporter is not
-    ported."""
+    (``--remediate``) and the ``--obs-port`` Prometheus exporter
+    (``utils/obs_http.py``)."""
     heartbeat: Any = None
     fleet: Any = None
     remediation: Any = None
+    exporter: Any = None
 
     def close(self) -> None:
-        """Idempotent teardown, the JAX order: the heartbeat, then the
-        fleet's pool."""
+        """Idempotent teardown, the JAX order: the exporter (it may
+        render the fleet ledger until it stops serving), the heartbeat,
+        then the fleet's pool."""
+        if self.exporter is not None:
+            self.exporter.close()
         if self.heartbeat is not None:
             self.heartbeat.close()
         if self.fleet is not None:
@@ -329,9 +354,13 @@ def build_health_plane(cfg: RunConfig, c: Components, *, vitals=None,
     when ``--heartbeat-interval`` > 0 (``vitals`` gives the body,
     ``collect`` extra fields), a FleetMonitor for the delta-consuming
     roles (``monitor=True``), and with ``--remediate`` the remediation
-    engine. On a world only the coordinator beats and monitors (its
-    writes are the gated ones, and N monitors would multiply the probe
-    traffic)."""
+    engine, and with ``--obs-port`` the exporter (its ``/debug/profile``
+    traces under ``<work-dir>/debug_traces/<hotkey>``). On a world only
+    the coordinator beats and monitors (its writes are the gated ones,
+    and N monitors would multiply the probe traffic); the exporter
+    serves on every process, each its own registry (a rank past the
+    first on one host needs its own port: ``--obs-port`` plus the
+    rank)."""
     plane = HealthPlane()
     coordinator = multihost.is_coordinator()
     if cfg.heartbeat_interval > 0 and coordinator:
@@ -363,6 +392,13 @@ def build_health_plane(cfg: RunConfig, c: Components, *, vitals=None,
             "--remediate has no effect without --heartbeat-interval > 0: "
             "remediation acts on SLO breaches, and breaches come from the "
             "heartbeat-fed FleetMonitor")
+    if cfg.obs_port:
+        from ..utils.obs_http import ObsHTTPExporter
+        plane.exporter = ObsHTTPExporter(
+            cfg.obs_port + multihost.process_index(), fleet=plane.fleet,
+            role=cfg.role, profile_dir=os.path.join(
+                cfg.work_dir, "debug_traces", cfg.hotkey))
+        plane.exporter.start()
     return plane
 
 

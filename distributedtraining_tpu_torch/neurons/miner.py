@@ -51,7 +51,7 @@ from ..config import RunConfig
 from ..engine.lora_train import LoRAEngine, LoRAMinerLoop
 from ..engine.train import MinerLoop
 from ..parallel import multihost
-from ..utils import flight, obs
+from ..utils import devprof, flight, obs
 from .common import build, build_base_fetcher, build_health_plane
 
 
@@ -178,6 +178,7 @@ def main(argv=None) -> int:
         # the process-wide state goes
         flight.shutdown()
         obs.reset()
+        devprof.reset()
         if c.metrics is not None:
             c.metrics.close()
         if c.owns_world:   # last: the gates above still ask for the rank

@@ -48,7 +48,7 @@ from ..engine import health, kv_transfer
 from ..engine.serve import (BaseRevisionWatcher, GenerationEngine,
                             ServeHTTPFrontend, ServeLoop,
                             heartbeat_counters, host_param_template)
-from ..utils import flight, obs
+from ..utils import devprof, flight, obs
 from .common import (build, build_base_fetcher, build_health_plane,
                      resolve_role_device)
 
@@ -239,6 +239,7 @@ def main(argv=None) -> int:
             obs.flush(step=engine.steps)
         flight.shutdown()   # see neurons/miner.py
         obs.reset()
+        devprof.reset()
         if c.metrics is not None:
             c.metrics.close()
     if engine is not None:

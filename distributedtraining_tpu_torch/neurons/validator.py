@@ -35,7 +35,7 @@ import logging
 from ..config import RunConfig
 from ..engine.validate import Validator
 from ..parallel import multihost
-from ..utils import flight, obs
+from ..utils import devprof, flight, obs
 from .common import build, build_base_fetcher, build_health_plane
 
 
@@ -113,6 +113,7 @@ def main(argv=None) -> int:
         validator.close()   # drain the ingest pool's worker threads
         flight.shutdown()   # see neurons/miner.py
         obs.reset()
+        devprof.reset()
         if c.metrics is not None:
             c.metrics.close()
         if c.owns_world:   # last: the gates above still ask for the rank

@@ -46,6 +46,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils import devprof
 from . import _cuda
 
 # kernel launches since the count was last set to 0 (one per folded
@@ -321,6 +322,17 @@ def dequant_scatter_contribution_kernel(c: Contribution) -> None:
                            f"error {err} at launch")
     stage.record(stream)
     launches += 1
+    devprof.kernel_cost(lambda: _cost(c.table))
+
+
+def _cost(table: np.ndarray) -> tuple[int, int]:
+    """One launch's (FLOPs, bytes) for the device observatory's cost
+    probe, the count chip_smoke.py's bound uses: each entry's idx and q
+    read once and one accumulator word read and written (8 B), a
+    multiply and an add an entry."""
+    k = table["k"].astype(np.int64)
+    q_bytes = np.where(table["q_int8"], 1, 4)
+    return int(2 * k.sum()), int((k * (4 + q_bytes + 8)).sum())
 
 
 def dequant_scatter_contribution(c: Contribution) -> None:

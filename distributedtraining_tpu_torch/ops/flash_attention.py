@@ -55,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import devprof
 from . import _cuda
 
 # kernel launches since the counts were last set to 0 (one per launch of
@@ -150,6 +151,43 @@ def _raise_on(err: int, name: str) -> None:
     launches[name] += 1
 
 
+def visible_pairs(B: int, T: int, H: int, segment_ids) -> int:
+    """(query, key) pairs the causal and segment mask leave visible: per
+    document of n tokens, n (n + 1) / 2 (a read of the ids to the
+    host)."""
+    import numpy as np
+    if segment_ids is None:
+        return B * H * T * (T + 1) // 2
+    total = 0
+    for row in segment_ids.detach().cpu().numpy()[:B, :T]:
+        _, counts = np.unique(row, return_counts=True)
+        total += int(sum(int(n) * (int(n) + 1) // 2 for n in counts))
+    return H * total
+
+
+# each kernel's (bytes, FLOPs) over n = B T H D elements of one [B, T, H,
+# D] tensor, rows = B H T f32 rows (lse, di) and the visible pairs: the
+# count chip_smoke.py's bounds use (2 D FLOPs a pair and product; the
+# forward two products, dk/dv four with the recomputed scores, dq three)
+_COST = {"flash_attention_fwd": (4, 1, 4),
+         "flash_attention_bwd_dkv": (6, 2, 8),
+         "flash_attention_bwd_dq": (5, 2, 6)}
+
+
+def _report_cost(name: str, q: torch.Tensor, segment_ids) -> None:
+    """The launch's count for the device observatory's cost probe
+    (``utils/devprof.kernel_cost``; nothing when no probe is active)."""
+    def cost():
+        B, T, H, D = q.shape
+        n = B * T * H * D * q.element_size()
+        rows = B * H * T * 4
+        segb = 0 if segment_ids is None else B * T * 4
+        tensors, row_sets, per_pair = _COST[name]
+        return (per_pair * D * visible_pairs(B, T, H, segment_ids),
+                tensors * n + row_sets * rows + segb)
+    devprof.kernel_cost(cost)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         segment_ids: Optional[torch.Tensor] = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -168,6 +206,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o.data_ptr(), lse.data_ptr(), B, T, H, D, _strides(q, k, v),
             _DTYPES[q.dtype], q.device.index, stream)
     _raise_on(err, "flash_attention_fwd")
+    _report_cost("flash_attention_fwd", q, segment_ids)
     return o, lse
 
 
@@ -193,6 +232,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, segment_ids=None
             dv.data_ptr(), B, T, H, D, _strides(q, k, v, do),
             _DTYPES[q.dtype], q.device.index, stream)
     _raise_on(err, "flash_attention_bwd_dkv")
+    _report_cost("flash_attention_bwd_dkv", q, segment_ids)
     return dk, dv
 
 
@@ -211,6 +251,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, segment_ids=None
             B, T, H, D, _strides(q, k, v, do), _DTYPES[q.dtype],
             q.device.index, stream)
     _raise_on(err, "flash_attention_bwd_dq")
+    _report_cost("flash_attention_bwd_dq", q, segment_ids)
     return dq
 
 

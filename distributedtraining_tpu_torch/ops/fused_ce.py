@@ -45,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import devprof
 from . import _cuda
 
 # kernel launches since the counts were last set to 0 (one per launch of
@@ -201,6 +202,24 @@ def _raise_on(err: int, *names: str) -> None:
         launches[name] += 1
 
 
+def _report_cost(h: torch.Tensor, w: torch.Tensor, *, fwd: bool = False,
+                 dh: bool = False, dw: bool = False) -> None:
+    """One launch's count for the device observatory's cost probe
+    (``utils/devprof.kernel_cost``; nothing when no probe is active),
+    the count chip_smoke.py's bounds use: h and W read once, the row
+    statistics, each output written once; 2 N V E FLOPs for the logits
+    product, and as much again for each of dh and dW."""
+    def cost():
+        (N, E), V = h.shape, w.shape[0]
+        hb, wb, row = N * E * h.element_size(), V * E * w.element_size(), \
+            N * 4
+        if fwd:
+            return 2 * N * V * E, hb + wb + 4 * row
+        return ((2 + 2 * dh + 2 * dw) * N * V * E,
+                hb + wb + 4 * row + dh * hb + dw * V * E * 4)
+    devprof.kernel_cost(cost)
+
+
 def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on the current stream: per-token
@@ -226,6 +245,7 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, y: torch.Tensor
             loss.data_ptr(), m.data_ptr(), s.data_ptr(), N, V, E, splits,
             _DTYPES[h.dtype], h.device.index, stream)
     _raise_on(err, "fused_ce_fwd")
+    _report_cost(h, w, fwd=True)
     return loss, m, s
 
 
@@ -262,6 +282,7 @@ def _bwd_bf16(h, w, y, m, s, g, want_dh: bool, want_dw: bool
             Vc, s_dh, s_dw, h.device.index, stream)
     _raise_on(err, *(["fused_ce_bwd_dh"] if want_dh else [])
               + (["fused_ce_bwd_dw"] if want_dw else []))
+    _report_cost(h, w, dh=want_dh, dw=want_dw)
     return dh, dw
 
 
@@ -278,6 +299,7 @@ def _f32_dh(h, w, y, m, s, g) -> torch.Tensor:
             s.data_ptr(), g.data_ptr(), _ptr(part), dh.data_ptr(),
             N, V, E, splits, _DTYPES[h.dtype], h.device.index, stream)
     _raise_on(err, "fused_ce_bwd_dh")
+    _report_cost(h, w, dh=True)
     return dh
 
 
@@ -291,6 +313,7 @@ def _f32_dw(h, w, y, m, s, g) -> torch.Tensor:
             s.data_ptr(), g.data_ptr(), dw.data_ptr(), N, V, E,
             _DTYPES[h.dtype], h.device.index, stream)
     _raise_on(err, "fused_ce_bwd_dw")
+    _report_cost(h, w, dw=True)
     return dw
 
 

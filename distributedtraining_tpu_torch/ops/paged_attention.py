@@ -52,6 +52,7 @@ import functools
 
 import torch
 
+from ..utils import devprof
 from . import _cuda
 from .attention import cached_attention
 
@@ -206,7 +207,29 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(f"paged_decode_attention: CUDA error {err} at "
                            "launch")
     launches += 1
+    _report_cost(q, k_pages, page_tables, seq_lens)
     return out
+
+
+def _report_cost(q, k_pages, page_tables, seq_lens) -> None:
+    """One launch's count for the device observatory's cost probe
+    (``utils/devprof.kernel_cost``; nothing when no probe is active),
+    the count chip_smoke.py's bounds use: the K/V rows the seq_lens reach
+    (a read of them to the host), q, the fresh rows, the output and the
+    tables once; QK and PV (2 FLOPs a multiply-add) of every visible
+    (query, key) pair."""
+    def cost():
+        B, W, Hq, D = q.shape
+        _, P, Hkv, _ = k_pages.shape
+        MP = page_tables.shape[1]
+        elt = q.element_size()
+        ctx = [min(int(n), MP * P) for n in seq_lens.tolist()]
+        nbytes = (sum(ctx) * Hkv * D * 2 * elt
+                  + B * W * (2 * Hq + 2 * Hkv) * D * elt
+                  + page_tables.numel() * 4 + B * 4)
+        pairs = sum(W * c + W * (W + 1) // 2 for c in ctx)
+        return 4 * pairs * Hq * D, nbytes
+    devprof.kernel_cost(cost)
 
 
 @functools.cache
@@ -300,6 +323,7 @@ def paged_window_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(f"paged_window_attention: CUDA error {err} at "
                            "launch")
     window_launches += 1
+    _report_cost(q, k_pages, page_tables, seq_lens)
     return out
 
 

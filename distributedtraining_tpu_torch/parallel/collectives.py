@@ -55,6 +55,8 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from ..utils import devprof
+
 # (op, backend, route) -> {"calls": n, "bytes": b}; route "direct" or
 # "staged" (through host memory). Bytes are the full buffer: the
 # gathered output, the reduce-scatter's input, the all-reduced tensor.
@@ -478,7 +480,12 @@ def sharded_cohort_merge(base, stacked: ShardedStack, weights):
     w = torch.cat([w, w.new_zeros(stacked.m_pad - len(w))])
     if mark_merge_bucket(stacked.m_pad, stacked.mesh, stacked.axis):
         t0 = time.perf_counter()
-        out = local_merge(base, stacked, w)
+        out = _sharded_merge(base, stacked, w)
         obs.observe("compile.ms", (time.perf_counter() - t0) * 1e3)
         return out
-    return local_merge(base, stacked, w)
+    return _sharded_merge(base, stacked, w)
+
+
+# the device observatory's merge.sharded, bucket the stack's m_pad
+_sharded_merge = devprof.wrap("merge.sharded", local_merge,
+                              bucket=lambda a, kw: a[1].m_pad)

@@ -18,10 +18,17 @@ The producer refuses event kinds outside :data:`EVENT_KINDS` at
 ``record()``; :func:`parse_bundle` re-validates everything a peer sent.
 Bundles and their digests are the JAX package's, byte for byte: a bundle
 of either package parses in the other. Everything is a no-op until
-:func:`configure` runs. The port has no metrics sink yet (slice 7), so a
-bundle travels through the transport alone; the ``/debug/profile``
-capture (``ProfileSession``, ``capture_profile``) serves ``--obs-port``
-and comes with it.
+:func:`configure` runs; a bundle travels through the transport.
+
+:func:`capture_profile` is the ``/debug/profile`` capture of
+``--obs-port`` (``utils/obs_http.py``): ``ms`` milliseconds of
+``torch.profiler`` (the CPU, and CUDA activity on the card; every
+thread's ops, where this PyTorch can record them: the request's thread
+is not the loop's) written as a Chrome trace into ``log_dir``. A
+process has one profiler: a capture beside another, or beside an active
+``utils/metrics.TraceCapture`` window, raises RuntimeError (the
+endpoint's 409). Sessions in flight are listed by
+:func:`live_profile_sessions`.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import dataclasses
 import hashlib
 import json
 import logging
+import os
 import re
 import sys
 import threading
@@ -491,3 +499,104 @@ def uninstall_crash_hooks() -> None:
         threading.excepthook = _STATE.prev_threading_hook
         _STATE.prev_threading_hook = None
     atexit.unregister(_atexit_freeze)
+
+
+# ---------------------------------------------------------------------------
+# On-demand profiler capture (the /debug/profile endpoint)
+# ---------------------------------------------------------------------------
+
+MAX_PROFILE_MS = 10_000
+
+# sessions whose profiler is running (a test module that leaves one live
+# has leaked the process's one profiler)
+_LIVE_PROFILES: set = set()
+_PROFILE_LOCK = threading.Lock()
+
+
+def _profiler(activities):
+    """A ``torch.profiler.profile`` recording every thread's CPU ops
+    where this PyTorch has the option (the capture runs on an HTTP
+    handler's thread, the programs on the loop's)."""
+    from torch.profiler import profile
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return profile(activities=activities,
+                       experimental_config=_ExperimentalConfig(
+                           profile_all_threads=True))
+    except (ImportError, TypeError):
+        return profile(activities=activities)
+
+
+class ProfileSession:
+    """One time-bounded ``torch.profiler`` window (against the
+    step-driven ``TraceCapture``), started and stopped by
+    :func:`capture_profile`; ``trace_path`` names its Chrome trace once
+    stopped."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.active = False
+        self.trace_path: str | None = None
+        self._prof = None
+
+    def start(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self._prof = _profiler(acts)
+        self._prof.__enter__()
+        self.active = True
+        _LIVE_PROFILES.add(self)
+
+    def stop(self) -> None:
+        if not self.active:
+            return
+        prof, self._prof = self._prof, None
+        try:
+            prof.__exit__(None, None, None)
+            path = os.path.join(
+                self.log_dir, f"profile_{os.getpid()}_"
+                f"{int(time.time() * 1e3)}.json")
+            prof.export_chrome_trace(path)
+            self.trace_path = path
+        finally:
+            self.active = False
+            _LIVE_PROFILES.discard(self)
+
+    def __repr__(self):
+        return f"ProfileSession({self.log_dir!r}, active={self.active})"
+
+
+def live_profile_sessions() -> list[ProfileSession]:
+    return list(_LIVE_PROFILES)
+
+
+def capture_profile(log_dir: str, ms: float, *,
+                    sleep=time.sleep) -> dict:
+    """Capture ``ms`` milliseconds (1 to :data:`MAX_PROFILE_MS`) of
+    ``torch.profiler`` trace into ``log_dir``, synchronously on the
+    calling thread. One capture a process: a concurrent request, or an
+    active ``TraceCapture`` window, raises RuntimeError. Records a
+    ``note`` (``debug_profile``) in the flight ring and counts
+    ``flight.profiles_captured``."""
+    from .metrics import live_captures
+    ms = max(1.0, min(float(ms), float(MAX_PROFILE_MS)))
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        raise RuntimeError("a profiler capture is already running")
+    try:
+        if live_captures():
+            raise RuntimeError("a TraceCapture window holds the profiler")
+        sess = ProfileSession(log_dir)
+        try:
+            sess.start()
+            sleep(ms / 1e3)
+        finally:
+            sess.stop()
+    finally:
+        _PROFILE_LOCK.release()
+    obs.count("flight.profiles_captured")
+    record("note", what="debug_profile", trace_dir=log_dir, ms=ms)
+    return {"trace_dir": log_dir, "ms": ms, "trace": sess.trace_path}

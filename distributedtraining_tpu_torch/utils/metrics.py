@@ -18,6 +18,7 @@ import json
 import os
 import threading
 import time
+import weakref
 from typing import Any, Protocol
 
 
@@ -173,6 +174,16 @@ def multi_sink(*sinks: MetricsSink) -> MetricsSink:
     return _MultiSink(sinks)
 
 
+# captures whose profiler is running: a process has one profiler, so the
+# /debug/profile capture (utils/flight.capture_profile) refuses to start
+# beside one
+_LIVE_CAPTURES: "weakref.WeakSet[TraceCapture]" = weakref.WeakSet()
+
+
+def live_captures() -> list["TraceCapture"]:
+    return list(_LIVE_CAPTURES)
+
+
 class TraceCapture:
     """Captures exactly ``steps`` train steps with ``torch.profiler``
     (the CPU and, on the card, CUDA activity) into a Chrome trace file
@@ -186,7 +197,8 @@ class TraceCapture:
     counts from the arming, so the window lands on the steps right after
     the anomaly). One window an instance: arming is one-way and a
     finished capture never re-arms. ``trace_path`` names the written
-    file once the window closed."""
+    file once the window closed. A window due while a ``/debug/profile``
+    capture holds the profiler starts at the first tick after it."""
 
     def __init__(self, log_dir: str, *, steps: int = 5, skip: int = 3,
                  arm: bool = True):
@@ -216,16 +228,22 @@ class TraceCapture:
     def _start(self) -> None:
         import torch
         from torch.profiler import ProfilerActivity, profile
+
+        from .flight import live_profile_sessions
+        if live_profile_sessions():
+            return   # the profiler is a /debug/profile's: the next tick
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
         os.makedirs(self.log_dir, exist_ok=True)
         self._prof = profile(activities=acts)
         self._prof.__enter__()
+        _LIVE_CAPTURES.add(self)
 
     def _stop(self) -> None:
         prof, self._prof = self._prof, None
         self._done = True
+        _LIVE_CAPTURES.discard(self)
         prof.__exit__(None, None, None)
         path = os.path.join(self.log_dir, f"trace_{os.getpid()}.json")
         prof.export_chrome_trace(path)
@@ -315,9 +333,11 @@ def device_memory_watermarks() -> dict[str, float]:
 
 def device_metrics() -> dict[str, float]:
     """System metrics at the log cadence: each card's bytes in use,
-    peak and fraction of its memory (``device{i}_*``), and, where
-    ``psutil`` is installed, the host's CPU share, the process's RSS and
-    the network bytes since this process's first sample."""
+    peak and fraction of its memory (``device{i}_*``), the abandoned
+    chain-call workers (``chain_abandoned_workers``, ``_total``:
+    ``utils/timeout.py``) and, where ``psutil`` is installed, the host's
+    CPU share, the process's RSS and the network bytes since this
+    process's first sample."""
     out: dict[str, float] = {}
     # numbered as JAX numbers its local devices, from 0
     for i, card in enumerate(_cuda_devices()):
@@ -330,6 +350,11 @@ def device_metrics() -> dict[str, float]:
         if stats["bytes_limit"]:
             out[f"device{i}_mem_fraction"] = (
                 float(stats["bytes_in_use"]) / float(stats["bytes_limit"]))
+    # chain-RPC hygiene (utils/timeout.py): live parked workers and
+    # lifetime timeouts, in the JAX package's order
+    from .timeout import abandoned_total, abandoned_workers
+    out["chain_abandoned_workers"] = float(abandoned_workers())
+    out["chain_abandoned_total"] = float(abandoned_total())
     state = _psutil_state()
     if state:
         psutil, proc = state

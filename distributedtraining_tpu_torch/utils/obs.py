@@ -18,7 +18,14 @@ through a caller's sink or the configured one, tagged with the role as
 step-time p99 blowout arms one ``utils.metrics.TraceCapture`` window).
 ``configure(sink, role=)`` binds the role's sink (``--metrics-path``):
 every span then also lands there as one ``{"span", "dur_ms", "t0",
-"depth", "role", "parent", "cid", ...attrs}`` record, the JAX package's.
+"depth", "role", "parent", "cid", ...attrs}`` record, the JAX package's,
+and with the device observatory on (``attach_devprof``, which
+``utils/devprof.enable`` calls) every flush also logs its
+``{"devprof": ...}`` record. ``Registry(max_names=)`` caps the name
+cardinality (new names past it are dropped and counted),
+``Registry.merge`` folds registries (``merge_from`` on each
+instrument), ``flush_to`` logs one snapshot, and ``fetch_cid`` reads a
+miner's correlation id from its rider.
 
 Everything is off until ``configure()`` switches it on: the
 module-level ``count``/``observe``/``gauge``/``span`` helpers are
@@ -70,6 +77,10 @@ class Counter:
     def value(self) -> float:
         return self._value
 
+    def merge_from(self, other: "Counter") -> None:
+        """Fold another counter's total into this one (Registry.merge)."""
+        self.inc(other.value)
+
 
 class Gauge:
     """Last-value-wins gauge (thread-safe)."""
@@ -88,6 +99,10 @@ class Gauge:
     @property
     def value(self) -> float:
         return self._value
+
+    def merge_from(self, other: "Gauge") -> None:
+        """Last-merged-wins, the instrument's own semantics."""
+        self.set(other.value)
 
 
 def percentile(sorted_vals, q: float) -> float:
@@ -131,6 +146,10 @@ class Histogram:
     def count(self) -> int:
         return self._count
 
+    @property
+    def total(self) -> float:
+        return self._total
+
     def percentiles(self, qs: Iterable[float] = (50.0, 95.0, 99.0)
                     ) -> dict[str, float]:
         with self._lock:
@@ -145,26 +164,70 @@ class Histogram:
             out.update(self.percentiles())
         return out
 
+    def merge_from(self, other: "Histogram") -> None:
+        """Fold another histogram in: lifetime count and sum add, the
+        other ring's observations extend this ring (bounded by THIS
+        ring's capacity: the newest tail survives)."""
+        with other._lock:
+            vals = list(other._ring)
+            count, total = other._count, other._total
+        with self._lock:
+            self._ring.extend(vals)
+            self._count += count
+            self._total += total
+
 
 class Registry:
     """Named counters, gauges and histograms; get-or-create,
     kind-checked: one name is ONE instrument, so two call sites cannot
-    silently split a metric into two series."""
+    silently split a metric into two series.
 
-    def __init__(self):
+    ``max_names`` caps the name cardinality: once the registry holds
+    that many names, a request for a NEW name logs one warning, bumps
+    ``dropped_names`` and returns a detached instrument (usable, never
+    snapshotted). ``merge(other)`` folds another registry in: counters
+    add, gauges are last-merged-wins, histogram rings concatenate; a
+    kind mismatch raises. The JAX package's rules."""
+
+    def __init__(self, *, max_names: int | None = None):
+        if max_names is not None and max_names < 1:
+            raise ValueError(f"max_names must be >= 1, got {max_names}")
         self._lock = threading.Lock()
         self._metrics: dict[str, Any] = {}
+        self.max_names = max_names
+        self.dropped_names = 0
+        self._warned_cap = False
 
     def _get(self, name: str, kind) -> Any:
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
+                if self.max_names is not None \
+                        and len(self._metrics) >= self.max_names:
+                    self.dropped_names += 1
+                    if not self._warned_cap:
+                        self._warned_cap = True
+                        logger.warning(
+                            "registry at its %d-name cardinality cap; "
+                            "dropping new metric %r (and any further new "
+                            "names, counted in dropped_names)",
+                            self.max_names, name)
+                    return kind(name)  # detached: usable, never snapshotted
                 m = self._metrics[name] = kind(name)
             elif not isinstance(m, kind):
                 raise ValueError(
                     f"metric {name!r} already registered as "
                     f"{type(m).__name__}, not {kind.__name__}")
             return m
+
+    def merge(self, other: "Registry") -> "Registry":
+        """Fold ``other``'s instruments into this registry; returns self.
+        Names past this registry's cap are dropped and counted."""
+        with other._lock:
+            items = list(other._metrics.items())
+        for name, m in items:
+            self._get(name, type(m)).merge_from(m)
+        return self
 
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
@@ -208,6 +271,13 @@ class Registry:
                     out[f"{name}.{k}"] = v
         return out
 
+    def flush_to(self, sink, *, step: int | None = None) -> dict[str, float]:
+        """The snapshot, logged through ``sink`` when it is not empty."""
+        snap = self.snapshot()
+        if snap and sink is not None:
+            sink.log(snap, step=step)
+        return snap
+
 
 class _ObsState:
     def __init__(self):
@@ -217,6 +287,9 @@ class _ObsState:
         self.role: str | None = None
         self.tl = threading.local()   # per-thread correlation id, spans
         self.flight = None            # utils/flight.FlightRecorder
+        # utils/devprof.on_flush while the observatory is on: flush()
+        # then mirrors its per-program registry into the same sink
+        self.devprof = None
 
 
 _STATE = _ObsState()
@@ -253,6 +326,14 @@ def attach_flight(recorder) -> None:
     _STATE.flight = recorder
 
 
+def attach_devprof(hook) -> None:
+    """Attach (or detach, with None) the device observatory's flush hook
+    (``utils/devprof.on_flush``): every :func:`flush` then also logs a
+    ``{"devprof": ...}`` record through the same sink.
+    ``devprof.enable()`` attaches itself; ``reset()`` drops it."""
+    _STATE.devprof = hook
+
+
 def registry_digest() -> str:
     return _STATE.registry.digest()
 
@@ -261,6 +342,13 @@ def reset() -> None:
     """Switch the instruments off and drop the registry."""
     global _STATE
     _STATE = _ObsState()
+
+
+def dirty() -> bool:
+    """True when the instruments are on or the registry holds metrics
+    (what a test module checks it left behind)."""
+    return _STATE.enabled or _STATE.sink is not None \
+        or len(_STATE.registry) > 0
 
 
 def count(name: str, n: float = 1.0) -> None:
@@ -300,6 +388,12 @@ def flush(sink=None, *, step: int | None = None) -> dict[str, float]:
             fl.on_flush(snap)
         except Exception:
             logger.exception("flight flush hook failed")
+    dp = _STATE.devprof
+    if dp is not None and sink is not None:
+        try:
+            dp(sink, _STATE.role)
+        except Exception:
+            logger.exception("devprof flush hook failed")
     return snap
 
 
@@ -358,6 +452,21 @@ def rider_delta_id(meta) -> str | None:
     if isinstance(v, str) and 0 < len(v) <= _CID_MAX_LEN:
         return v
     return None
+
+
+def fetch_cid(transport, miner_id: str) -> str | None:
+    """Correlation id of ``miner_id``'s current artifact, from its meta
+    rider: observability only, so every failure reads as None (and
+    nothing is read while the instruments are off)."""
+    if not _STATE.enabled:
+        return None
+    fm = getattr(transport, "fetch_delta_meta", None)
+    if fm is None:
+        return None
+    try:
+        return rider_delta_id(fm(miner_id))
+    except Exception:
+        return None
 
 
 @contextlib.contextmanager

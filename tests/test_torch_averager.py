@@ -384,7 +384,9 @@ def test_averager_flags_match_the_jax_parser():
                  id="extra12-7"),
     (AVG_ARGS + ["--heartbeat-interval", "2", "--remediate", "--standby"],
      None),
-    (AVG_ARGS + ["--obs-port", "9100"], 7),
+    # the exporter is ported (tests/test_torch_obs_http.py); the id is
+    # the case's when it was refused
+    pytest.param(AVG_ARGS + ["--obs-port", "9100"], None, id="extra14-7"),
 ])
 def test_averager_refusals_name_their_slice(extra, slice_no):
     cfg = RunConfig.from_args("averager", extra)

@@ -325,7 +325,10 @@ def test_config_parses_a_jax_miner_command_line_unchanged():
     pytest.param(MINER_ARGS + ["--metrics-path", "m.jsonl"], None,
                  id="extra11-7"),
     (MINER_ARGS + ["--heartbeat-interval", "2"], None),
-    (MINER_ARGS + ["--obs-port", "9100"], 7),
+    # the exporter is ported (tests/test_torch_obs_http.py); the id is
+    # the case's when it was refused
+    pytest.param(MINER_ARGS + ["--obs-port", "9100"], None,
+                 id="extra13-7"),
 ])
 def test_config_refuses_what_is_not_ported(extra, slice_no):
     cfg = RunConfig.from_args("miner", extra)

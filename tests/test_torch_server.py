@@ -80,7 +80,8 @@ def test_server_flags_match_the_jax_parser():
     # heartbeats and the JSONL sink are ported (tests/test_torch_health.py,
     # test_torch_metrics.py); the ids are those of the refused cases
     pytest.param(["--heartbeat-interval", "2"], None, id="extra6-7"),
-    (["--obs-port", "9100"], 7),
+    # the exporter is ported (tests/test_torch_obs_http.py)
+    pytest.param(["--obs-port", "9100"], None, id="extra7-7"),
     pytest.param(["--metrics-path", "m.jsonl"], None, id="extra8-7"),
 ])
 def test_server_refusals_name_their_slice(extra, slice_no):

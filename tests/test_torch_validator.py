@@ -560,9 +560,11 @@ def test_validator_flags_match_the_jax_parser():
                  id="extra3-7"),
     pytest.param(VAL_ARGS + ["--metrics-path", "m.jsonl"], None,
                  id="extra4-7"),
-    (VAL_ARGS + ["--obs-port", "9100"], 7),
+    # the exporter is ported (tests/test_torch_obs_http.py); this case
+    # and LoRA's keep the ids they were collected under
+    pytest.param(VAL_ARGS + ["--obs-port", "9100"], None, id="extra5-7_0"),
     (VAL_ARGS + ["--mlflow-uri", "http://x"], 7),
-    pytest.param(VAL_ARGS + ["--lora-rank", "4"], None, id="extra5-7"),
+    pytest.param(VAL_ARGS + ["--lora-rank", "4"], None, id="extra5-7_1"),
     # ported (tests/test_torch_signing.py runs the validator CLI with it)
     (VAL_ARGS + ["--sign-artifacts"], None),
 ])
