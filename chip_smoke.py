@@ -19,6 +19,7 @@ NVIDIA GPU and check it.
     python3 chip_smoke.py --convert
     python3 chip_smoke.py --health
     python3 chip_smoke.py --beat-ab [ROUNDS [CLI_PAIRS]]
+    python3 chip_smoke.py --devprof-ab [ROUNDS [CLI_PAIRS]]
     python3 chip_smoke.py --obs
     python3 chip_smoke.py --phase-times OUT DIR [DIR ...]
 
@@ -47,7 +48,8 @@ alone, ``--lora`` phase 28 with its full-depth part,
 launch and the launch's inputs and outputs checked, so that a fault
 names its kernel), ``--convert`` phase 29's ``llama2-7b`` part,
 ``--health`` phase 30 alone, ``--beat-ab`` a heartbeat's cost
-on the miner's step (:func:`beat_ab`), ``--obs`` phase 31 alone, and ``--parallel-cards`` the worlds of phases 23 and 24
+on the miner's step (:func:`beat_ab`), ``--devprof-ab`` the device
+observatory's (:func:`devprof_ab`), ``--obs`` phase 31 alone, and ``--parallel-cards`` the worlds of phases 23 and 24
 over NCCL on every card of a machine with several (at world 4 with the
 sp2 x tp2 and dp2 x sp2 engines too). ``--tp-ab DIR...`` times phase 23's tp
 engine steps with the package of each checkout DIR in turn (parent,
@@ -63,10 +65,13 @@ each phase call in order.
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. env     CUDA must be available (there is no CPU fallback); prints the
-           card's name and power limit, torch/CUDA versions, capability.
-2. build   compiles every CUDA source under csrc/, one nvcc each, all
-           started together; reports seconds, registers and spills per
-           kernel (ptxas -v).
+           card's name and power limit, torch/CUDA versions, capability,
+           and which of tokenizers, transformers, datasets and g++ the
+           machine has.
+2. build   compiles every CUDA source under csrc/, one nvcc each, and
+           the host packer (native/packing.cpp), all started together;
+           reports seconds, registers and spills per kernel (ptxas -v)
+           and the packer's compiler.
 3. kernel  holds the paged-decode kernel against its plain PyTorch
            version and the plain version of its split decomposition at
            the GPT-2-124M decode shape, a GQA shape, a long-context case
@@ -632,11 +637,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
            ``--scan-blocks`` miner takes the same steps on the same data:
            its losses and pushed bytes must equal the unrolled miner's
            and its state must hold ``h.block.*`` leaves with a leading
-           12; each step's ms is recorded for both. In the whole script
-           it runs in a child (``--convert-child OUT``) started beside
-           the llama chain. With ``--convert``: a bf16 ``llama2-7b``
-           checkpoint of seeded random weights (drawn on the card) in two
-           shards as HF names them (13.5 GB, on a disk with 20 GB free),
+           12; each step's ms is recorded for both. Before these, and
+           after them, two miner CLIs on local text (8 ``--fused-loss``
+           steps, B 4 x T 512): first run A, in the phase's process
+           before it loads a kernel, with
+           ``--tokenizer bpe --dataset files:<repo>/docs/**/*.md
+           --compile-cache-dir <fresh dir>`` (the BPE trained first on
+           the same files and saved in its work dir; ``--tokenizer word``
+           where ``tokenizers`` cannot be imported), and at the phase's
+           end, once its runs have freed the card's memory, run B, as a
+           restart (the loaded kernels and packer forgotten), with the
+           same ``--compile-cache-dir`` and neither ``--tokenizer`` nor
+           ``--dataset``: each exits 0 with finite, falling losses
+           and exact launches; A's ids below the BPE's vocabulary, its
+           kernels and packer built into the fresh directory (seconds
+           recorded); B builds nothing (every build 0.0 s, no compiler
+           run), and the tokenizer and corpus ``auto`` resolved to are
+           recorded. Then, on the host, the C++ packer's rows against the
+           Python loop's on A's corpus and ids, every field, and each
+           one's rows/s. In the whole script it runs in a child
+           (``--convert-child OUT``) started beside the llama chain.
+           With ``--convert``: a bf16 ``llama2-7b`` checkpoint of seeded
+           random weights (drawn on the card) in two shards as HF names
+           them (13.5 GB, on a disk with 20 GB free),
            each tensor fingerprinted on the card; then, in a fresh process
            (``--convert-miner``), the LoRA miner CLI (``--model
            llama2-7b --lora-rank 8 --init-from DIR --fused-loss``, 6
@@ -655,7 +678,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
            (the vitals' host ms and the upload, its bytes); two miners
            of 30 ``--fused-loss --wire-v2`` steps alone, without and with
            beats (step p50 of each; hotkey_2, the one with beats, stops
-           after its first push); a ``--remediate`` primary averager
+           after its first push; the one without runs under ``--health``
+           alone: ``--beat-ab`` makes the comparison in full); a
+           ``--remediate`` primary averager
            (``--strategy weighted``, lease epoch 1 acquired at boot) and
            a live miner (hotkey_1, pulling every 2 s, pushing every 4 s,
            a step every 0.25 s at most);
@@ -722,9 +747,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
            same spec on the CPU. (d) A back-to-back pair of 30-step
            miners with ``--metrics-path``, without and with
            ``--no-devprof``: each one's step p50 and first step's host
-           wall. In the whole script it runs in the child of phases 29
-           and 30, after them (``--obs-child OUT``); ``--obs`` runs it
-           alone after the build.
+           wall (``--obs`` alone: ``--devprof-ab`` makes the comparison
+           in full). In the whole script it runs, without (d), in the
+           child of phases 29 and 30, after them (``--obs-child OUT``);
+           ``--obs`` runs it alone after the build.
 
 Output: a ``kernels`` JSON line, a ``slice`` JSON line, a ``train`` JSON
 line, a ``miner`` JSON line, an ``averager`` JSON line, a ``validator``
@@ -749,6 +775,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -805,8 +832,19 @@ def phase_env() -> str:
         "cuda": torch.version.cuda,
         "capability": list(torch.cuda.get_device_capability(0)),
         "device": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count(),
+        "text_libs": _text_libs()}}), flush=True)
     return card
+
+
+def _text_libs() -> dict:
+    """What the local-text path can use on this machine: the HF libraries
+    (importable or not; nothing is installed or fetched) and ``g++``."""
+    import importlib.util
+    out = {m: importlib.util.find_spec(m) is not None
+           for m in ("tokenizers", "transformers", "datasets")}
+    out["g++"] = shutil.which("g++")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -837,14 +875,19 @@ def _ptxas_report(text: str) -> dict:
 
 
 def phase_build() -> dict:
-    """One nvcc per source under csrc/, all started together."""
+    """One nvcc per source under csrc/, and the host packer
+    (``native/packing.cpp``), all started together."""
+    from distributedtraining_tpu_torch import native
     from distributedtraining_tpu_torch.ops import _cuda
     names = _cuda.sources()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
+        packer = ex.submit(native.build, "packing")
         secs = dict(zip(names, ex.map(_cuda.build, names)))
+        packer_s = packer.result()
     build_s = time.perf_counter() - t0
-    out = {"build_s": build_s, "sources": {}}
+    out = {"build_s": build_s, "sources": {},
+           "packer": {"s": packer_s, "compiler": native.compiler()[0]}}
     for name in names:
         lib = _cuda.library_path(name)
         log_path = lib.with_name(lib.name + ".log")
@@ -10680,6 +10723,190 @@ class _ConvertTap:
         return out
 
 
+# 29's text runs: the repository's own markdown as the files corpus
+TEXT_DOCS = os.path.join("docs", "**", "*.md")
+TEXT_BPE_VOCAB = 32000
+TEXT_PACK_REPEAT = 40          # the packers' timing: the corpus 40 times
+
+
+class _TextRuns:
+    """Phase 29's two miner CLI runs on local text at GPT-2-124M
+    (``--fused-loss``, B ``CONVERT_B`` x T ``CONVERT_T``,
+    ``CONVERT_STEPS`` steps). Run A (:meth:`run_a`), first in the phase's
+    process, before it has loaded any kernel or the packer:
+    ``--tokenizer bpe --dataset files:<repo>/docs/**/*.md
+    --compile-cache-dir <fresh dir>``, the BPE trained here first on the
+    same files and saved where the miner looks for it (or ``--tokenizer
+    word`` where ``tokenizers`` cannot be imported). Run B
+    (:meth:`finish`), at the phase's end once its runs have freed the
+    card's memory, as a restart: the same ``--compile-cache-dir`` and
+    neither ``--tokenizer`` nor ``--dataset`` (JAX's defaults, ``auto``
+    and ``auto``). Both run in the phase's process: a process of their
+    own beside the phase's would take card memory that the llama-train
+    child's peak needs."""
+
+    def __init__(self, tmp: str, cfg):
+        self.tmp = os.path.join(tmp, "text")
+        self.cache = os.path.join(self.tmp, "compile_cache")
+        os.makedirs(self.tmp)
+        self.pattern = os.path.join(ROOT, TEXT_DOCS)
+        self.libs = _text_libs()
+        self.res: dict = {"libs": self.libs, "docs": TEXT_DOCS,
+                          "times_s": {}}
+        self.work_a = os.path.join(self.tmp, "a")
+        self.vocab = None
+        self.tok = ["--tokenizer", "word"]
+        if self.libs["tokenizers"]:
+            from distributedtraining_tpu_torch.data.bpe import (
+                BPETokenizer, corpus_files)
+            t0 = time.perf_counter()
+            # the vocabulary and the file the miner's build asks for
+            vocab = min(cfg.vocab_size, TEXT_BPE_VOCAB)
+            self.bpe_path = os.path.join(self.work_a, "tokenizer",
+                                         f"bpe-{vocab}.json")
+            files = corpus_files((self.pattern,))
+            bpe = BPETokenizer.train(vocab_size=vocab, files=files,
+                                     save_path=self.bpe_path)
+            self.vocab = bpe.vocab_size
+            self.res["bpe"] = {"files": len(files),
+                               "bytes": sum(map(os.path.getsize, files)),
+                               "vocab_size": bpe.vocab_size,
+                               "train_s": time.perf_counter() - t0}
+            self.tok = ["--tokenizer", "bpe"]
+        self.res["tokenizer_a"] = self.tok[1]
+
+    def _argv(self, work: str, hotkey: str, extra: list) -> list:
+        return ["--backend", "local", "--work-dir", work, "--model",
+                "gpt2-124m", "--hotkey", hotkey, "--no-base-wire-v2",
+                "--flight-events", "0", "--batch-size", str(CONVERT_B),
+                "--seq-len", str(CONVERT_T), *CONVERT_EVAL,
+                "--max-steps", str(CONVERT_STEPS), "--send-interval", "1e9",
+                "--checkpoint-interval", "0", "--no-anomaly-trace",
+                "--fused-loss", "--compile-cache-dir", self.cache, *extra]
+
+    def _check(self, what: str, run: dict, cfg) -> None:
+        import math
+        losses = run["losses"]
+        check(run["rc"] == 0, f"{what} CLI exited {run['rc']}")
+        check(len(losses) == CONVERT_STEPS
+              and all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0], f"{what} losses {losses}")
+        _check_launches(what, run["launches"],
+                        _train_want(cfg, CONVERT_STEPS, True))
+        check(run["build_dir"] == self.cache,
+              f"{what}: built into {run['build_dir']}, not {self.cache}")
+
+    def _run(self, what: str, argv: list) -> dict:
+        """One text run's miner CLI in this process under the taps, the
+        launch counts at 0 just before; the build directory back to the
+        whole script's after (the phase's other CLIs load from it)."""
+        from distributedtraining_tpu_torch import native
+        from distributedtraining_tpu_torch.neurons import miner as miner_cli
+        from distributedtraining_tpu_torch.ops import _cuda
+        run: dict = {}
+        off = _text_taps(run)
+        prev, before = _cuda.BUILD_DIR, _cuda.compiles
+        t0 = time.perf_counter()
+        try:
+            run.update(_lora_cli(miner_cli, argv))
+            run.update(compiles=_cuda.compiles - before,
+                       build_dir=str(_cuda.BUILD_DIR),
+                       host_compiler=native.compiler()[0])
+        finally:
+            off()
+            _cuda.BUILD_DIR = prev
+        self.res["times_s"][what] = time.perf_counter() - t0
+        return run
+
+    def run_a(self, cfg) -> None:
+        """Run A and its checks: the kernels and the packer it loads are
+        built into the fresh directory."""
+        a = self._run("a", self._argv(
+            self.work_a, "hotkey_1",
+            self.tok + ["--dataset", f"files:{self.pattern}"]))
+        self._check("text run A", a, cfg)
+        vocab = self.vocab or cfg.vocab_size
+        check(a["ids_max"] < vocab,
+              f"text run A: input id {a['ids_max']} >= vocab {vocab}")
+        check(a["tokenizer"] == ({"class": "BPETokenizer",
+                                  "vocab_size": self.vocab} if self.vocab
+                                 else {"class": "WordTokenizer",
+                                       "vocab_size": cfg.vocab_size}),
+              f"text run A's tokenizer {a['tokenizer']}")
+        check(all(c["resolved"] == "files" for c in a["corpora"]),
+              f"text run A's corpora {a['corpora']}")
+        built = {c["library"].split("-")[0] for c in a["compiled"]}
+        check({"libflash_attention", "libfused_ce", "libpacking"} <= built
+              and all(c["dir"] == self.cache for c in a["compiled"]),
+              f"text run A built {a['compiled']}")
+        self.res["a"] = a
+
+    def finish(self, cfg) -> dict:
+        """Run B and its checks, as a restart meets the directory: the
+        libraries this process loaded are forgotten first, so that each
+        kernel and the packer go through ``build`` again; then the
+        packers on run A's corpus and ids."""
+        from distributedtraining_tpu_torch import native
+        from distributedtraining_tpu_torch.ops import (_cuda, dequant_scatter,
+                                                       flash_attention,
+                                                       fused_ce,
+                                                       paged_attention)
+        for cached in (flash_attention._kernels, fused_ce._kernels,
+                       paged_attention._kernel, paged_attention._window_kernel,
+                       paged_attention._window_split_kernel,
+                       dequant_scatter._kernel):
+            cached.cache_clear()
+        _cuda._LIBS.clear()
+        native._LIBS.clear()
+        b = self._run("b", self._argv(os.path.join(self.tmp, "b"),
+                                      "hotkey_2", []))
+        self._check("text run B", b, cfg)
+        check(b["compiles"] == 0 and not b["compiled"]
+              and b["builds"] and all(x["s"] == 0.0 for x in b["builds"]),
+              f"text run B built again: {b['compiled']} {b['builds']}")
+        self.res["b"] = b
+        self.res["b_resolved"] = {
+            "tokenizer": b["tokenizer"],
+            "corpus": sorted({c["resolved"] for c in b["corpora"]})}
+        self.res["packers"] = self._packers(cfg)
+        return self.res
+
+    def _packers(self, cfg) -> dict:
+        """The C++ packer's rows against the Python loop's on run A's
+        corpus and tokenizer (T ``CONVERT_T``, the corpus
+        ``TEXT_PACK_REPEAT`` times), every field; each one's rows/s on
+        this machine's host."""
+        import numpy as np
+        from distributedtraining_tpu_torch import native
+        from distributedtraining_tpu_torch.data import datasets, packing
+        docs = datasets.text_corpus(split="train",
+                                    source=f"files:{self.pattern}")
+        if self.vocab:
+            from distributedtraining_tpu_torch.data.bpe import BPETokenizer
+            tok = BPETokenizer.load(self.bpe_path)
+        else:
+            tok = datasets.WordTokenizer(docs, vocab_size=cfg.vocab_size)
+        ids = [np.asarray(tok.encode(d), np.int32) for d in docs]
+        ids = ids * TEXT_PACK_REPEAT
+        out = {"docs": len(docs), "tokens": int(sum(map(len, ids))),
+               "seq_len": CONVERT_T, "compiler": native.compiler()[0]}
+        rows = {}
+        for name, flag in (("native", True), ("python", False)):
+            t0 = time.perf_counter()
+            rows[name] = list(packing.pack_documents(ids, CONVERT_T,
+                                                     native=flag))
+            secs = time.perf_counter() - t0
+            out[name] = {"rows": len(rows[name]), "s": secs,
+                         "rows_per_s": len(rows[name]) / secs}
+        check(len(rows["native"]) == len(rows["python"]) > 0 and all(
+            np.array_equal(x[k], y[k]) and x[k].dtype == y[k].dtype
+            for x, y in zip(rows["native"], rows["python"]) for k in y),
+            "text packers: the C++ packer's rows differ from the Python "
+            "loop's")
+        out["equal"] = True
+        return out
+
+
 def _convert_argv(work: str, hotkey: str, extra: list) -> list:
     return [*DEFAULT_FLAGS, "--backend", "local", "--work-dir", work,
             "--model", "gpt2-124m", "--hotkey", hotkey, "--init-from",
@@ -10717,6 +10944,9 @@ def phase_convert_roles() -> dict:
                  "times_s": {}}
     prev = os.environ.get("HF_HUB_CACHE")
     with tempfile.TemporaryDirectory() as tmp:
+        # run A first: this process has loaded no kernel and no packer
+        text = _TextRuns(tmp, cfg)
+        text.run_a(cfg)
         t0 = time.perf_counter()
         cache = os.path.join(tmp, "hub")
         tree = _hf_cache_gpt2(cache, cfg)
@@ -10833,6 +11063,8 @@ def phase_convert_roles() -> dict:
                 os.environ["HF_HUB_CACHE"] = prev
             del want
             _lt_free()
+        # run B once this phase's runs have freed the card's memory
+        res["text"] = text.finish(cfg)
     return res
 
 
@@ -10897,6 +11129,13 @@ def _convert_entries(entries: list, conv: dict) -> list:
         got["launches_server"] = conv["server"]["launches"].get(counter, 0)
         if any(got.values()):
             e["convert"] = got
+        text = conv["text"]
+        a = text["a"]["launches"].get(counter, 0)
+        b = text["b"]["launches"].get(counter, 0)
+        if a or b:
+            # phase 29's local-text miner (run A) and its restart on the
+            # same build directory (run B)
+            e["launches_text"], e["launches_text_restart"] = a, b
     return entries
 
 
@@ -11083,6 +11322,75 @@ def health_role(tmp: str, name: str) -> int:
     return 0
 
 
+def _text_taps(seen: dict):
+    """Phase 29's taps on a text run's miner CLI: each step's loss and
+    the largest input id of its batch, the tokenizer and the corpora the
+    build chose, every library build's seconds (0.0: found built) and
+    every compiler run. Returns the function that takes them off."""
+    from distributedtraining_tpu_torch import native
+    from distributedtraining_tpu_torch.data import datasets
+    from distributedtraining_tpu_torch.engine.train import MinerLoop
+    from distributedtraining_tpu_torch.neurons import common
+    from distributedtraining_tpu_torch.ops import _cuda
+    seen.update(losses=[], ids_max=0, builds=[], compiled=[], corpora=[])
+    undo = []
+
+    def tap(owner, name, make):
+        real = getattr(owner, name)
+        undo.append((owner, name, real))
+        setattr(owner, name, make(real))
+
+    def train_one(real):
+        def run(self, batch):
+            seen["ids_max"] = max(seen["ids_max"],
+                                  int(batch["input_ids"].max()))
+            m = real(self, batch)
+            seen["losses"].append(float(m["loss"]))
+            return m
+        return run
+
+    def timed(record):
+        def make(real):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                record(a, out, time.perf_counter() - t0)
+                return out
+            return run
+        return make
+
+    def text_corpus(real):
+        def run(**kw):
+            docs = real(**kw)
+            synth = datasets.text_corpus(**{**kw, "source": "synthetic"})
+            seen["corpora"].append({
+                "split": kw.get("split", "train"),
+                "source": kw.get("source"), "n_docs": len(docs),
+                "resolved": ("synthetic" if docs == synth else "files"
+                             if str(kw.get("source")).startswith("files:")
+                             else "wikitext")})
+            return docs
+        return run
+
+    tap(MinerLoop, "_train_one", train_one)
+    for owner, kind in ((_cuda, "cuda"), (native, "host")):
+        tap(owner, "build", timed(lambda a, out, _s, kind=kind: seen[
+            "builds"].append({"name": a[0], "kind": kind, "s": out})))
+    tap(_cuda, "compile_atomic", timed(lambda a, out, secs: seen[
+        "compiled"].append({"library": os.path.basename(str(a[1])),
+                            "dir": os.path.dirname(str(a[1])),
+                            "s": secs})))
+    tap(common, "build_tokenizer", timed(lambda a, tok, _s: seen.update(
+        tokenizer={"class": type(tok).__name__,
+                   "vocab_size": tok.vocab_size})))
+    tap(common, "text_corpus", text_corpus)
+
+    def off():
+        for owner, name, real in reversed(undo):
+            setattr(owner, name, real)
+    return off
+
+
 def _health_jsonl(path: str) -> list:
     from distributedtraining_tpu_torch.utils.metrics import jsonl_segments
     out = []
@@ -11149,10 +11457,13 @@ def _health_beat_cost(t) -> dict:
         pub.close()
 
 
-def _health_world1(work: str, tmp: str, cfg) -> dict:
+def _health_world1(work: str, tmp: str, cfg, *,
+                   probe_pair: bool = True) -> dict:
     """30(a): two miners, a ``--remediate`` validator, a ``--remediate``
     primary averager and a ``--standby`` on one root, at most three role
-    processes at once (see the module docstring)."""
+    processes at once (see the module docstring). Without
+    ``probe_pair`` the miner without beats (a measurement that
+    ``--beat-ab`` makes in full) is not run."""
     import math
     from distributedtraining_tpu_torch import models
     from distributedtraining_tpu_torch.engine.health import parse_heartbeat
@@ -11186,7 +11497,9 @@ def _health_world1(work: str, tmp: str, cfg) -> dict:
     # the miner's step alone, without and with beats (the same flags)
     for name, hotkey, beats in (("m0", "hotkey_3", False),
                                 ("m2", "hotkey_2", True)):
-        runs[name] = miner(name, hotkey, beats, HEALTH_PROBE_STEPS).join()
+        if beats or probe_pair:
+            runs[name] = miner(name, hotkey, beats,
+                               HEALTH_PROBE_STEPS).join()
     # hotkey_2 stopped after its first push: its last beat is its exit's
     hb2 = parse_heartbeat(t.fetch_delta_meta(heartbeat_id("miner",
                                                           "hotkey_2")))
@@ -11241,7 +11554,7 @@ def _health_world1(work: str, tmp: str, cfg) -> dict:
             if r is not None:
                 r.kill()
     # the miners: launches exact, losses finite
-    for name in ("m0", "m2", "m1"):
+    for name in [m for m in ("m0", "m2", "m1") if m in runs]:
         r = runs[name]
         _check_launches(f"health {name}", r["launches"],
                         {**_train_want(cfg, r["steps"], True)})
@@ -11252,8 +11565,9 @@ def _health_world1(work: str, tmp: str, cfg) -> dict:
         reg = [x for x in recs if x.get("obs_registry") == "miner"][-1]
         r["step_ms_p50"] = reg["miner.step_ms.p50"]
         r["records"] = len(recs)
-    res["miner_step_ms_p50"] = {"no_beats": runs["m0"]["step_ms_p50"],
-                                "beats": runs["m2"]["step_ms_p50"]}
+    res["miner_step_ms_p50"] = {
+        "no_beats": runs["m0"]["step_ms_p50"] if "m0" in runs else None,
+        "beats": runs["m2"]["step_ms_p50"]}
     # the validator: the stale miner's breach, quarantine, decayed score
     # and the shrunken cohort, from its JSONL
     recs = _health_jsonl(jl["val"])
@@ -11483,15 +11797,17 @@ def _health_world2(tmp: str, cfg) -> dict:
     return res
 
 
-def phase_health() -> dict:
-    """Phase 30 (see the module docstring)."""
+def phase_health(probe_pair: bool = True) -> dict:
+    """Phase 30 (see the module docstring); ``probe_pair`` as
+    :func:`_health_world1` takes it."""
     import tempfile
     from distributedtraining_tpu_torch import models
     cfg = models.gpt2.PRESETS[HEALTH_MODEL]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_lora_work_root()) as tmp:
         work = os.path.join(tmp, "w1")
-        res = {"world1": _health_world1(work, tmp, cfg)}
+        res = {"world1": _health_world1(work, tmp, cfg,
+                                        probe_pair=probe_pair)}
         res["world1"]["s"] = time.perf_counter() - t0
         t1 = time.perf_counter()
         res["world2"] = _health_world2(tmp, cfg)
@@ -11502,11 +11818,11 @@ def phase_health() -> dict:
 
 def health_child(out: str) -> int:
     """``--health-child OUT``: phase 30 in a child process (in the whole
-    script after phase 29's, beside the llama chain); its result as JSON
-    in OUT."""
+    script after phase 29's, beside the llama chain), without the
+    no-beats probe miner; its result as JSON in OUT."""
     phase_env()
     sys.path.insert(0, ROOT)
-    res = phase_health()
+    res = phase_health(probe_pair=False)
     log("health:", json.dumps(res, default=str)[:20000])
     with open(out, "w") as f:
         json.dump(res, f, default=str)
@@ -12068,8 +12384,9 @@ def _obs_kernels(tok) -> dict:
             "window_limit_ratio": ratio}
 
 
-def phase_obs() -> dict:
-    """Phase 31 (see the module docstring)."""
+def phase_obs(ab: bool = True) -> dict:
+    """Phase 31 (see the module docstring); without ``ab``, no 31(d)
+    (``--devprof-ab`` makes that comparison in full)."""
     import tempfile
     from distributedtraining_tpu_torch import models
     cfg = models.gpt2.PRESETS[HEALTH_MODEL]
@@ -12100,20 +12417,21 @@ def phase_obs() -> dict:
             for m in miners:
                 m.kill()
         res["chaos"]["s"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        res["ab"] = _obs_ab(tmp, cfg)
-        res["ab"]["s"] = time.perf_counter() - t1
+        if ab:
+            t1 = time.perf_counter()
+            res["ab"] = _obs_ab(tmp, cfg)
+            res["ab"]["s"] = time.perf_counter() - t1
     res["s"] = time.perf_counter() - t0
     return res
 
 
 def obs_child(out: str) -> int:
     """``--obs-child OUT``: phase 31 in a child process (in the whole
-    script after phase 30's, beside the llama chain); its result as JSON
-    in OUT."""
+    script after phase 30's, beside the llama chain), without 31(d); its
+    result as JSON in OUT."""
     phase_env()
     sys.path.insert(0, ROOT)
-    res = phase_obs()
+    res = phase_obs(ab=False)
     log("obs:", json.dumps(res, default=str)[:20000])
     with open(out, "w") as f:
         json.dump(res, f, default=str)
@@ -12134,6 +12452,140 @@ def obs_only() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+DEVPROF_AB_ROUNDS = 12         # --devprof-ab: in-process rounds
+DEVPROF_AB_PAIRS = 10          # --devprof-ab: miner CLI pairs
+
+
+def _paired(on: list, off: list, key: str) -> dict:
+    """Relative differences (on - off) / off of ``key``, pair by pair:
+    their median, quartiles and range."""
+    d = sorted((a[key] - b[key]) / b[key] for a, b in zip(on, off))
+    q = statistics.quantiles(d, n=4) if len(d) > 1 else [d[0]] * 3
+    return {"median": statistics.median(d), "q1": q[0], "q3": q[2],
+            "min": d[0], "max": d[-1], "n": len(d), "diffs": d}
+
+
+def _devprof_ab_blocks(cfg, rounds: int) -> dict:
+    """The in-process half of :func:`devprof_ab`: one ``TrainEngine``
+    (``--fused-loss``, B 4 x T 512), blocks of ``OBS_AB_STEPS`` steps
+    through its ``train.step`` program with the observatory off and on
+    (``devprof.disable`` / ``enable``), the loss read every 5 steps as
+    the miner reads it at ``--log-every 5``; one block of each side a
+    round, the order swapped each round, after a warm-up block that
+    takes the first call (the cost probe, the kernels' first
+    launches)."""
+    import torch
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.engine.train import TrainEngine
+    from distributedtraining_tpu_torch.models import gpt2
+    from distributedtraining_tpu_torch.utils import devprof
+    tok = _tokenizer()
+    batches = _batches(tok, split="train", batch_size=HEALTH_B,
+                       seq_len=HEALTH_T, n=OBS_AB_STEPS)
+    eng = TrainEngine(gpt2.make_model(cfg)[0], fused_loss=True, device=DEV)
+    state = eng.init_state(gpt2.params_from_numpy(
+        models.init_params_numpy(cfg, SEED), device=DEV))
+    out: dict = {"off": [], "on": [], "order": []}
+
+    def block(on: bool) -> dict:
+        nonlocal state
+        (devprof.enable if on else devprof.disable)()
+        torch.cuda.synchronize()
+        step_ms = []
+        t_all = time.perf_counter()
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = eng.train_step(state, eng.place_batch(batch))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if (i + 1) % 5 == 0:
+                float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_all) * 1e3
+        return {"step_ms_p50": statistics.median(step_ms),
+                "ms_per_step": wall_ms / len(batches)}
+
+    try:
+        out["warmup"] = block(True)
+        for r in range(rounds):
+            for side in (("off", "on") if r % 2 == 0 else ("on", "off")):
+                out["order"].append(side)
+                out[side].append(block(side == "on"))
+        rec = [x for x in devprof.records() if x.prog == "train.step"]
+        out["calls_observed"] = rec[0].calls if rec else 0
+    finally:
+        devprof.reset()
+    check(out["calls_observed"] == OBS_AB_STEPS * (rounds + 1),
+          f"devprof-ab: train.step observed {out['calls_observed']} times")
+    for key in ("ms_per_step", "step_ms_p50"):
+        out[f"paired_{key}"] = _paired(out["on"], out["off"], key)
+    return out
+
+
+def _devprof_ab_cli(cfg, pairs: int) -> dict:
+    """The process half of :func:`devprof_ab`: phase 31's 30-step miner
+    CLI with ``--metrics-path``, without and with ``--no-devprof``,
+    alternating (on, off, off, on, ...), one process at a time; each
+    run's steps after the first: their p50 and mean host wall (the
+    miner reads its loss every 5 steps, so the mean holds the card's
+    time)."""
+    import tempfile
+    from distributedtraining_tpu_torch import models
+    from distributedtraining_tpu_torch.transport import LocalFSTransport
+    out: dict = {"off": [], "on": [], "order": []}
+    with tempfile.TemporaryDirectory(dir=_lora_work_root()) as tmp:
+        work = os.path.join(tmp, "w")
+        LocalFSTransport(os.path.join(work, "artifacts")).publish_base(
+            models.init_params_numpy(cfg, SEED))
+        for i, on in enumerate(([True, False, False, True] * pairs)
+                               [:2 * pairs]):
+            jl = os.path.join(tmp, f"ab{i}.jsonl")
+            r = _HealthRole(tmp, f"ab{i}", "miner", _health_argv(
+                work, f"hotkey_{60 + i}", _health_miner(OBS_AB_STEPS)
+                + ([] if on else ["--no-devprof"]), metrics=jl,
+                beats=False)).join()
+            recs = _health_jsonl(jl)
+            check(on == any("devprof" in x for x in recs),
+                  f"devprof-ab: run {i}'s JSONL and its devprof records")
+            steps = r["step_wall_ms"][1:]
+            out["order"].append("on" if on else "off")
+            out["on" if on else "off"].append(
+                {"step_ms_p50": statistics.median(steps),
+                 "ms_per_step": sum(steps) / len(steps),
+                 "first_step_ms": r["step_wall_ms"][0], "s": r["s"],
+                 "wall_s": r["wall_s"]})
+    for key in ("ms_per_step", "step_ms_p50"):
+        out[f"paired_{key}"] = _paired(out["on"], out["off"], key)
+    return out
+
+
+def devprof_ab(argv: list) -> int:
+    """``--devprof-ab [ROUNDS [CLI_PAIRS]]``: the device observatory's
+    cost on the miner's step at GPT-2-124M (``--fused-loss``, B 4 x T
+    512; JAX holds its own below 2%): ROUNDS in-process rounds (default
+    12) of one block of 30 steps with devprof off and one with it on,
+    then CLI_PAIRS pairs (default 10) of the 30-step miner CLI without
+    and with ``--no-devprof``, alternating; for each, the pairs' median
+    relative difference and its spread. One ``devprof_ab`` line, the
+    card's line. No claim."""
+    card = phase_env()
+    sys.path.insert(0, ROOT)
+    from distributedtraining_tpu_torch import models
+    rounds = int(argv[0]) if argv else DEVPROF_AB_ROUNDS
+    pairs = int(argv[1]) if len(argv) > 1 else DEVPROF_AB_PAIRS
+    check(rounds >= 1 and pairs >= 0,
+          f"--devprof-ab: {rounds} rounds, {pairs} CLI pairs")
+    phase_build()
+    cfg = models.gpt2.PRESETS[HEALTH_MODEL]
+    t0 = time.perf_counter()
+    res = {"in_process": _devprof_ab_blocks(cfg, rounds)}
+    if pairs:
+        res["cli"] = _devprof_ab_cli(cfg, pairs)
+    res["s"] = time.perf_counter() - t0
+    print(json.dumps({"devprof_ab": {**res, "card": card}}), flush=True)
+    print(card, flush=True)
     return 0
 
 
@@ -12729,14 +13181,21 @@ def main() -> int:
     # 27b-e, 28a-b, then 26f at a cut depth, run in children beside
     # phases 22-25 (LlamaCli)
     # and phase 29 in a child of its own beside them
+    # the children share the card from here: what this process's
+    # allocator keeps cached between phases is memory they cannot use
+    # (the llama-train child's push needs ~4 GiB beside its ~42 GiB)
+    torch.cuda.empty_cache()
     cli = LlamaCli(layers=LLAMA_CLI_LAYERS_MAIN, train=True, lora=True,
                    convert=True)
     try:
         t0 = time.perf_counter()
         serve6b = phase_serve6b(tree, tok)
         serve6b["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
         par = phase_parallel(tree, tok)
+        torch.cuda.empty_cache()
         mesh_roles = phase_mesh_roles(tree, tok)
+        torch.cuda.empty_cache()
         sp = phase_sp(tree, tok)
         torch.cuda.empty_cache()
         llama = phase_llama(tok, cli)
@@ -13198,6 +13657,8 @@ if __name__ == "__main__":
             sys.exit(health_role(sys.argv[2], sys.argv[3]))
         if sys.argv[1:2] == ["--beat-ab"]:
             sys.exit(beat_ab(sys.argv[2:]))
+        if sys.argv[1:2] == ["--devprof-ab"]:
+            sys.exit(devprof_ab(sys.argv[2:]))
         if sys.argv[1:2] == ["--convert-miner"]:
             sys.exit(convert_miner(sys.argv[2], sys.argv[3]))
         if sys.argv[1:2] == ["--lora-worker"]:

@@ -207,8 +207,6 @@ class RunConfig:
              f"a mesh for the {self.role} (--dp/--fsdp/--sp/--tp/"
              f"--dcn-dp/--mesh-auto, --multihost-*; the miner, validator "
              f"and averager take them)", 7),
-            (self.compile_cache_dir is not None,
-             "--compile-cache-dir (a JAX compilation cache)", 7),
             (self.mlflow_uri is not None,
              "--mlflow-uri (no mlflow on the card's machine)", 7),
         ]

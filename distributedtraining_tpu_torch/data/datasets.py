@@ -1,24 +1,34 @@
-"""Tokenizers and corpora — copies of the JAX package's
-``data/datasets.py`` pieces the training slice runs.
+"""Tokenizers and corpora — a copy of the JAX package's
+``data/datasets.py``.
 
-``ByteTokenizer``, ``WordTokenizer``, the deterministic synthetic corpus,
-``shuffle_seed_for`` and ``batch_iterator`` give the same documents, ids
-and packed batches as the JAX package for the same arguments. Only the
-synthetic source is ported: ``source="auto"`` takes it (what the JAX
-package falls back to without an HF cache); ``"wikitext"`` and
-``"files:<glob>"`` raise.
+``ByteTokenizer``, ``WordTokenizer``, ``load_tokenizer``, the corpora of
+``text_corpus`` (synthetic, ``files:<glob>``, ``wikitext`` and
+``auto``), ``shuffle_seed_for`` and ``batch_iterator`` give the same
+documents, ids and packed batches as the JAX package for the same
+arguments and files. Two differences, both about the network: the
+wikitext lookup and the HF tokenizer read only the local caches and
+never try the Hub (``"auto"`` then takes the synthetic corpus at once,
+where the JAX package's lookup retries the Hub first), and a tokenizer
+that cannot be loaded falls back to ``ByteTokenizer`` with a warning
+that names it.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
+import logging
+import os
 import re
+import sys
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
 from .packing import pack_documents
+
+logger = logging.getLogger(__name__)
 
 
 class ByteTokenizer:
@@ -35,6 +45,64 @@ class ByteTokenizer:
             "utf-8", errors="replace")
 
 
+def load_tokenizer(name: str = "gpt2"):
+    """The HF tokenizer ``name`` (a local directory or a name in the
+    local HF cache; nothing is fetched) when ``transformers`` can load
+    it, else ``ByteTokenizer``, with a warning."""
+    try:
+        from transformers import AutoTokenizer
+        with _hub_offline():
+            tok = AutoTokenizer.from_pretrained(name, local_files_only=True)
+
+        class _Wrap:
+            vocab_size = len(tok)
+            pad_id = tok.pad_token_id or 0
+
+            def encode(self, text):
+                return tok.encode(text)
+
+            def decode(self, ids):
+                return tok.decode(ids)
+
+        return _Wrap()
+    except Exception as e:
+        logger.warning("tokenizer %r could not be loaded from the local "
+                       "files (%s: %s); using ByteTokenizer", name,
+                       type(e).__name__, e)
+        return ByteTokenizer()
+
+
+@contextlib.contextmanager
+def _hub_offline():
+    """The HF libraries in offline mode for the block: ``datasets`` and
+    ``huggingface_hub`` (imported by the caller's import of ``datasets``
+    or ``transformers``) read their caches only and raise at once where
+    the Hub would be asked. Their module-level switches are read at call
+    time; the environment's are set too, for a module imported inside
+    the block."""
+    keys = ("HF_HUB_OFFLINE", "HF_DATASETS_OFFLINE")
+    mods = [m for m in (sys.modules.get("huggingface_hub.constants"),
+                        sys.modules.get("datasets.config")) if m is not None]
+    saved = [(m, {k: getattr(m, k) for k in keys if hasattr(m, k)})
+             for m in mods]
+    env = {k: os.environ.get(k) for k in keys}
+    try:
+        for m, old in saved:
+            for k in old:
+                setattr(m, k, True)
+        os.environ.update({k: "1" for k in keys})
+        yield
+    finally:
+        for m, old in saved:
+            for k, v in old.items():
+                setattr(m, k, v)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 _WORDS = ("the of and to in is was for on that with as by at from it an be "
           "this are or his which their has had were been its not they but "
           "one all can more when time state also two first new only world "
@@ -44,13 +112,28 @@ _WORDS = ("the of and to in is was for on that with as by at from it an be "
 
 def text_corpus(*, split: str = "train", n_docs: int = 256,
                 seed: int = 0, source: str = "auto") -> list[str]:
-    """Document list: the offline synthetic corpus ("synthetic" or
-    "auto"), deterministic per (split, seed). The HF wikitext and
-    local-files sources are not ported and raise."""
-    if source not in ("auto", "synthetic"):
-        raise NotImplementedError(
-            f"corpus source {source!r}: only the synthetic corpus is "
-            "ported (ROADMAP 'Slices of the port', slice 7)")
+    """Document list. ``source="wikitext"`` reads HF wikitext-103 from
+    the local ``datasets`` cache (raises without one, or without
+    ``datasets``); ``"synthetic"`` is the offline corpus, deterministic
+    per (split, seed); ``"files:<glob>"`` reads local text files;
+    ``"auto"`` takes wikitext from the cache, else the synthetic
+    corpus."""
+    if source.startswith("files:"):
+        return _files_corpus(source[len("files:"):], split=split,
+                             n_docs=n_docs)
+    if source in ("auto", "wikitext"):
+        try:
+            from datasets import load_dataset
+            with _hub_offline():
+                ds = load_dataset("wikitext", "wikitext-103-v1",
+                                  split=split,
+                                  download_mode="reuse_cache_if_exists")
+            texts = [t for t in ds["text"][: n_docs * 4] if t.strip()]
+            if texts:
+                return texts[:n_docs]
+        except Exception:
+            if source == "wikitext":
+                raise
     # synthetic: markov-ish word stream, deterministic per (split, seed)
     h = int(hashlib.sha256(f"{split}:{seed}".encode()).hexdigest()[:8], 16)
     rng = np.random.default_rng(h)
@@ -65,6 +148,38 @@ def text_corpus(*, split: str = "train", n_docs: int = 256,
                 words[j] = words[j - 1]
         docs.append(" ".join(words) + ".")
     return docs
+
+
+def _files_corpus(pattern: str, *, split: str, n_docs: int) -> list[str]:
+    """Paragraph documents from local text files matching a glob.
+    Deterministic: files sorted by path, paragraphs in file order, and
+    the train/test split a stable 9:1 interleave by paragraph index, so
+    the two splits never share a document."""
+    import glob as _glob
+
+    paths = sorted(p for p in _glob.glob(pattern, recursive=True)
+                   if os.path.isfile(p))
+    if not paths:
+        raise FileNotFoundError(f"files corpus: nothing matches {pattern!r}")
+    docs: list[str] = []
+    for p in paths:
+        try:
+            with open(p, "r", encoding="utf-8", errors="replace") as f:
+                text = f.read()
+        except OSError:
+            continue
+        for para in text.split("\n\n"):
+            para = para.strip()
+            # a one-line header teaches nothing and wastes a packed
+            # row boundary
+            if len(para) >= 200:
+                docs.append(para)
+    if not docs:
+        raise ValueError(f"files corpus: no >=200-char paragraphs under "
+                         f"{pattern!r}")
+    keep = (lambda i: i % 10 != 9) if split == "train" else \
+           (lambda i: i % 10 == 9)
+    return [d for i, d in enumerate(docs) if keep(i)][:n_docs]
 
 
 # the ONE tokenization rule WordTokenizer fits and encodes with

@@ -16,6 +16,17 @@ around the outermost transport layer), driven by ``RunConfig``;
 fleet health plane (``--heartbeat-interval``, ``--remediate``) and its
 ``--obs-port`` exporter (``utils/obs_http.ObsHTTPExporter``).
 
+The tokenizer follows the JAX build branch for branch: ``byte`` (or
+``auto`` under GPT-2's vocabulary) is ``ByteTokenizer``, ``word`` the
+corpus-fit ``WordTokenizer``, ``bpe`` the byte-level BPE trained on the
+machine's own text and saved under ``<work-dir>/tokenizer/`` (on a world
+the coordinator trains it and the other ranks load its file), and any
+other name (``auto``: ``gpt2``) an HF tokenizer read from a local
+directory or cache, else ``ByteTokenizer``. ``--compile-cache-dir``
+names the build directory of the CUDA kernels and the host packer
+(``ops/_cuda.set_build_dir``), set before anything builds: a restart on
+the same directory compiles nothing.
+
 The device is the card unless the caller asks for the CPU the way the JAX
 roles do: ``DT_FORCE_PLATFORM=cpu`` in the environment. Without it,
 everything is placed on ``cuda``, and building raises if there is none.
@@ -47,7 +58,7 @@ from typing import Any, Callable, Iterable
 from ..chain import LocalAddressStore, LocalChain
 from ..config import MESH_ROLES, RunConfig
 from ..data.datasets import (ByteTokenizer, WordTokenizer, batch_iterator,
-                             shuffle_seed_for, text_corpus)
+                             load_tokenizer, shuffle_seed_for, text_corpus)
 from ..engine.train import TrainEngine, default_optimizer
 from .. import models
 from ..parallel import multihost
@@ -215,6 +226,13 @@ def build(cfg: RunConfig) -> Components:
                                     cfg.multihost_processes,
                                     cfg.multihost_id)))
     cfg.check_ported()
+    if cfg.compile_cache_dir:
+        # before anything builds: the kernels and the packer compile into
+        # (or load from) this directory
+        from ..ops import _cuda
+        _cuda.set_build_dir(cfg.compile_cache_dir)
+        logger.info("build directory of the kernels and the packer: %s",
+                    _cuda.BUILD_DIR)
     try:
         family = models.family(cfg.model)
     except KeyError as e:
@@ -272,20 +290,7 @@ def build(cfg: RunConfig) -> Components:
     if cfg.my_repo_id and multihost.is_coordinator():
         # advertise this node's repo, as the reference miner does on chain
         address_store.store_repo(cfg.hotkey, cfg.my_repo_id)
-    if cfg.tokenizer == "byte" or (cfg.tokenizer == "auto"
-                                   and model_cfg.vocab_size < 50257):
-        tokenizer = ByteTokenizer()
-    elif cfg.tokenizer == "word":
-        # corpus-fit word vocab, deterministic per corpus: every role of a
-        # deployment rebuilds the identical mapping
-        tokenizer = WordTokenizer(
-            text_corpus(split="train", source=cfg.dataset),
-            vocab_size=model_cfg.vocab_size)
-    else:
-        raise NotImplementedError(
-            f"--tokenizer {cfg.tokenizer} at vocab {model_cfg.vocab_size}: "
-            f"the HF and BPE tokenizers are not ported; use --tokenizer "
-            f"word or byte")
+    tokenizer = build_tokenizer(cfg, model_cfg)
     metrics = None
     if cfg.metrics_path and multihost.is_coordinator():
         from ..utils import obs
@@ -321,6 +326,43 @@ def build(cfg: RunConfig) -> Components:
                       address_store=address_store, tokenizer=tokenizer,
                       lora_cfg=lora_cfg, owns_world=owns_world,
                       metrics=metrics)
+
+
+def build_tokenizer(cfg: RunConfig, model_cfg):
+    """The role's tokenizer (JAX ``neurons/common.py:462-485``, branch
+    for branch). Called after the world is up: on a world of several
+    processes the coordinator trains the BPE and the other ranks load its
+    file (a rank that cannot see it trains the identical vocab itself)."""
+    if cfg.tokenizer == "byte" or (cfg.tokenizer == "auto"
+                                   and model_cfg.vocab_size < 50257):
+        return ByteTokenizer()
+    if cfg.tokenizer == "word":
+        # corpus-fit word vocab, deterministic per corpus: every role of a
+        # deployment rebuilds the identical mapping
+        return WordTokenizer(text_corpus(split="train", source=cfg.dataset),
+                             vocab_size=model_cfg.vocab_size)
+    if cfg.tokenizer == "bpe":
+        # byte-level BPE (GPT-2's algorithm) trained on the machine's own
+        # text, saved under the work dir so the roles of a deployment
+        # train it once
+        from ..data.bpe import BPETokenizer
+        vocab = min(model_cfg.vocab_size, 32000)
+        path = os.path.join(cfg.work_dir, "tokenizer", f"bpe-{vocab}.json")
+        if multihost.process_count() > 1:
+            from ..engine.train import coordinator_call
+            made = {}
+
+            def train() -> int:
+                made["tok"] = BPETokenizer.train_or_load(path,
+                                                         vocab_size=vocab)
+                return made["tok"].vocab_size
+
+            coordinator_call(train, "BPE training")
+            if made:
+                return made["tok"]
+        return BPETokenizer.train_or_load(path, vocab_size=vocab)
+    return load_tokenizer("gpt2" if cfg.tokenizer == "auto"
+                          else cfg.tokenizer)
 
 
 @dataclasses.dataclass

@@ -629,15 +629,16 @@ def test_published_base_and_checkpoint_win_over_init_from(tmp_path):
                                   "server"])
 def test_config_takes_init_from_and_scan_blocks(role):
     """``--init-from`` and ``--scan-blocks`` pass ``check_ported`` on
-    every role, beside ``--obs-port`` and ``--chaos-spec`` (ported
-    since); the refusals that stand still raise, naming their slice."""
+    every role, beside ``--obs-port``, ``--chaos-spec`` and
+    ``--compile-cache-dir`` (ported since); the refusals that stand still
+    raise, naming their slice."""
     from distributedtraining_tpu_torch.config import RunConfig
     RunConfig.from_args(role, ["--init-from", "hf:org/name",
                                "--scan-blocks"]).check_ported()
     RunConfig.from_args(role, ["--init-from", "x", "--obs-port", "9100",
-                               "--chaos-spec", "{}"]).check_ported()
-    for extra in (["--backend", "hf"], ["--compile-cache-dir", "d"],
-                  ["--mlflow-uri", "u"]):
+                               "--chaos-spec", "{}", "--compile-cache-dir",
+                               "d"]).check_ported()
+    for extra in (["--backend", "hf"], ["--mlflow-uri", "u"]):
         with pytest.raises(NotImplementedError, match="slice 7"):
             RunConfig.from_args(role, ["--init-from", "x", *extra]
                                 ).check_ported()

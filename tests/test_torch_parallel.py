@@ -15,6 +15,7 @@ import dataclasses
 import itertools
 import json
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -40,12 +41,29 @@ from distributedtraining_tpu_torch.parallel import sharding as tsh
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
 SPAWN_TIMEOUT = 240
+# worlds' store ports: a block of PORT_BLOCK a worker from PORT_BASE, under
+# the ephemeral range (32768-60999 on Linux)
+PORT_BASE, PORT_BLOCK = 20000, 500
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A free port for a world's store, from a block of this xdist
+    worker's own below the kernel's ephemeral range: between this check
+    and the coordinator's bind, neither another worker's world nor an
+    outgoing connection (which takes ephemeral ports) can take it."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    idx = int(worker[2:]) if worker[2:].isdigit() else 0
+    base = PORT_BASE + PORT_BLOCK * (idx % 16)
+    start = random.randrange(PORT_BLOCK)
+    for off in range(PORT_BLOCK):
+        port = base + (start + off) % PORT_BLOCK
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError(f"no free port in {base}..{base + PORT_BLOCK - 1}")
 
 
 def _iter_coords(cfg):
@@ -484,6 +502,7 @@ def test_two_process_miner_cli(tmp_path):
         "hotkey_0.meta.json", "hotkey_0.msgpack"]
     assert [int(o["rc"]) for o in outs] == [0, 0]
     assert int(outs[0]["pushes"]) >= 5 and int(outs[1]["pushes"]) == 0
+    assert [int(o["superseded"]) for o in outs] == [0, 0]
     assert [int(o["steps"]) for o in outs] == [4, 4]
     specs = tsh.param_specs(base)
     mesh_shape = {"dp": 1, "fsdp": 2, "sp": 1, "tp": 1}

@@ -392,11 +392,23 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
              "safetensors", "huggingface_hub", "transformers")
 
 
+# (file, package): an import the port makes inside one function only,
+# falling back where the package is missing (the card's machine has
+# none of these): load_tokenizer's HF tokenizer from local files
+LAZY_IMPORTS = {("distributedtraining_tpu_torch/data/datasets.py",
+                 "transformers")}
+
+
 def test_port_sources_import_no_jax():
     bad = []
     files = sorted(PORT_PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
+        in_function = {id(n) for fn in ast.walk(tree)
+                       if isinstance(fn, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))
+                       for n in ast.walk(fn)}
+        rel = str(path.relative_to(REPO))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -405,8 +417,11 @@ def test_port_sources_import_no_jax():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in FORBIDDEN:
-                    bad.append(f"{path.relative_to(REPO)}: {name}")
+                top = name.split(".")[0]
+                if top in FORBIDDEN and not (
+                        (rel, top) in LAZY_IMPORTS
+                        and id(node) in in_function):
+                    bad.append(f"{rel}: {name}")
     assert len(files) > 8 and not bad, bad
 
 

@@ -388,5 +388,7 @@ def test_unported_training_options_raise():
         tlosses.fused_linear_cross_entropy(
             torch.zeros(2, 64), torch.zeros(8, 64),
             torch.zeros(2, dtype=torch.int32), mesh=object())
-    with pytest.raises(NotImplementedError, match="wikitext"):
+    # the wikitext corpus is ported (tests/test_torch_text.py): without
+    # a local cache it raises, as the JAX package's does, and asks no Hub
+    with pytest.raises((ConnectionError, FileNotFoundError, ImportError)):
         tds.text_corpus(source="wikitext")

@@ -26,6 +26,10 @@ from distributedtraining_tpu_torch.parallel import (  # noqa: E402
     Mesh, MeshConfig, batch_rows, multihost, shard_params)
 
 
+# the miner case's wait for each push's upload
+PUSH_WAIT_S = 120.0
+
+
 def case_ce(mesh: Mesh, args: dict, inp) -> dict:
     """The sharded fused CE: this rank's rows and head shard, the loss,
     dh of the local rows and dW of the shard."""
@@ -133,9 +137,22 @@ def case_miner(mesh: Mesh, args: dict, inp) -> dict:
     """The miner CLI (``neurons.miner.main``) in this process of the
     world: the shards right after bootstrap, the report, and the
     gathered params and base at the end."""
+    from distributedtraining_tpu_torch.engine import publish
     from distributedtraining_tpu_torch.engine import train as ttrain
     from distributedtraining_tpu_torch.neurons import miner
     seen = {}
+    submit = publish.DeltaPublisher.submit
+
+    def drained(self, *a, **kw):
+        # each push uploaded before the loop goes on: the publisher's
+        # queue supersedes a pending push that the next one overtakes,
+        # which a loaded host makes happen, and the test counts pushes
+        dropped = submit(self, *a, **kw)
+        if not self.flush(timeout=PUSH_WAIT_S):
+            raise RuntimeError(f"a push was not uploaded in {PUSH_WAIT_S} s")
+        return dropped
+
+    publish.DeltaPublisher.submit = drained
     bootstrap = ttrain.MinerLoop.bootstrap
 
     def watched(self, *a, **kw):
@@ -152,6 +169,7 @@ def case_miner(mesh: Mesh, args: dict, inp) -> dict:
     full = loop.engine.gather(loop.state.params)      # collectives
     base = loop.engine.gather(loop.base_params)
     out = {"rc": rc, "pushes": loop.report.pushes,
+           "superseded": loop.report.pushes_superseded,
            "steps": loop.report.steps, "base_pulls": loop.report.base_pulls,
            "boot_step": seen["boot_step"], "boot_count": seen["boot_count"],
            "step": loop.state.step, "count": loop.state.opt_state.count,
@@ -161,6 +179,30 @@ def case_miner(mesh: Mesh, args: dict, inp) -> dict:
         out.update({f"{name}/{k}": v.detach().numpy()
                     for k, v in tree.items()})
     return out
+
+
+def case_bpe_build(mesh: Mesh, args: dict, inp) -> dict:
+    """The miner's build (``neurons.common.build``) with ``--tokenizer
+    bpe`` and no saved file, the BPE's corpus the files of
+    ``args["corpus"]``: how often this rank trained and loaded it, and
+    its ids of ``args["text"]``."""
+    from distributedtraining_tpu_torch.config import RunConfig
+    from distributedtraining_tpu_torch.data import bpe
+    from distributedtraining_tpu_torch.neurons import common
+    files = bpe.corpus_files((args["corpus"],))
+    bpe.corpus_files = lambda *a, **kw: list(files)
+    calls = {"train": 0, "load": 0}
+    for name in calls:
+        real = getattr(bpe.BPETokenizer, name).__func__
+
+        def counted(cls, *a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(cls, *a, **kw)
+
+        setattr(bpe.BPETokenizer, name, classmethod(counted))
+    c = common.build(RunConfig.from_args("miner", args["argv"]))
+    return {"trains": calls["train"], "loads": calls["load"],
+            "ids": json.dumps(c.tokenizer.encode(args["text"]))}
 
 
 def case_collectives(mesh: Mesh, args: dict, inp) -> dict:
@@ -482,7 +524,7 @@ def case_lora(mesh: Mesh, args: dict, inp) -> dict:
 
 CASES = {"ce": case_ce, "lora": case_lora, "engine": case_engine, "tp": case_tp,
          "sp": case_sp, "llama": case_llama,
-         "miner": case_miner,
+         "miner": case_miner, "bpe_build": case_bpe_build,
          "collectives": case_collectives, "pod": case_pod,
          "regather": case_regather}
 
